@@ -1,0 +1,1 @@
+"""See the package docstring of nerfmatch_tpu_torch."""

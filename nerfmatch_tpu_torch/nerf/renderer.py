@@ -1,0 +1,254 @@
+"""Hierarchical mip-NeRF renderer, eval path (counterpart of
+``nerfmatch_tpu/nerf/renderer.py``).
+
+``NerfRenderer`` is an ``nn.Module`` holding ``nerf_coarse`` / ``nerf_fine``
+(the reference's state-dict keys).  Routing follows the device of the rays:
+
+* CUDA: :meth:`fused_render` -- the render kernel twice (coarse, fine)
+  with the resample kernel between them (``make_fused_hierarchical``
+  semantics, including the unit-direction reparameterization).  Configs the
+  kernels do not implement raise ``NotImplementedError``.
+* CPU: :meth:`render_rays`, the plain sampling / MLP / compositing path
+  (``render_rays(train=False, ret_pfeat=True, validation=True)``).
+
+:meth:`fused_render` also runs on CPU tensors, through the kernels' plain
+versions; the tests hold that against the JAX Pallas path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.kernels.render_kernel import TILE_RAYS, pack_mlp, render_stage
+from ..ops.kernels.resample_kernel import resample_z
+from ..utils.geometry import unnormalize_pts
+from .compositing import composite_features, volume_render
+from .embedding import ipe_embedding, ipe_embedding_dim, pe_embedding
+from .model import NerfConfig, NerfMLP
+from .rays import RAY_VIEWDIR, sample_nerf_rays
+from .sampling import sample_along_rays
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    embed_type: str = "mip"
+    xyz_num_freqs: int = 15
+    dirs_num_freqs: int = 4
+    use_viewdirs: bool = True
+    white_bg: bool = False
+    single_model: bool = False
+    appearance_embedding: bool = False
+    mip_var_scale: float = -1.0
+    feat_comb: str = "lin"
+    output_dim: int = 4
+    early_term_eps: float = 1e-4
+    trunk_int8: str = "none"
+
+    @classmethod
+    def from_config(cls, config):
+        render, emb = config.render, config.embedding
+        data = getattr(config, "data", None)
+        return cls(
+            embed_type=getattr(emb, "type", "normal"),
+            xyz_num_freqs=emb.xyz_num_freqs,
+            dirs_num_freqs=getattr(emb, "dirs_num_freqs", 4),
+            use_viewdirs=render.use_viewdirs,
+            white_bg=render.white_bg or bool(getattr(data, "white_bg", False)),
+            single_model=bool(getattr(render, "single_model", False)),
+            appearance_embedding=bool(getattr(emb, "appearance_embed", False)),
+            mip_var_scale=getattr(emb, "mip_var_scale", -1),
+            feat_comb=getattr(render, "feat_comb", "lin"),
+            output_dim=getattr(getattr(config, "fine_nerf", None),
+                               "output_dim", 4),
+            early_term_eps=getattr(render, "early_term_eps", 1e-4),
+            # The JAX serving paths resolve an absent key to int8 'coarse';
+            # the port has no int8 trunk yet and resolves it to 'none'.
+            trunk_int8=getattr(render, "trunk_int8", None) or "none",
+        )
+
+
+class NerfRenderer(nn.Module):
+    def __init__(self, config, stop_layer: int = -1):
+        super().__init__()
+        self.cfg = RenderConfig.from_config(config)
+        if self.cfg.embed_type != "mip" or not self.cfg.use_viewdirs:
+            raise NotImplementedError("the port renders mip NeRFs with "
+                                      "viewdirs (the localization config)")
+        if self.cfg.appearance_embedding:
+            raise NotImplementedError("appearance embeddings are not ported "
+                                      "(ROADMAP: Cambridge appearance path)")
+        common = dict(use_viewdirs=True,
+                      xyz_dim=ipe_embedding_dim(3, self.cfg.xyz_num_freqs),
+                      dirs_dim=2 * 3 * self.cfg.dirs_num_freqs + 3, app_dim=0)
+        self.coarse_cfg = None
+        if not self.cfg.single_model:
+            self.coarse_cfg = NerfConfig.from_namespace(config.coarse_nerf,
+                                                        **common)
+            self.nerf_coarse = NerfMLP(self.coarse_cfg)
+        self.fine_cfg = NerfConfig.from_namespace(
+            config.fine_nerf, stop_layer=stop_layer, **common)
+        self.nerf_fine = NerfMLP(self.fine_cfg)
+
+    @property
+    def device(self):
+        return self.nerf_fine.pts_linears[0].weight.device
+
+    def _stages(self):
+        coarse = self.nerf_fine if self.cfg.single_model else self.nerf_coarse
+        return [("coarse", coarse), ("fine", self.nerf_fine)]
+
+    # ------------------------------------------------------------------
+    # Plain path
+    # ------------------------------------------------------------------
+    def render_rays(self, rays):
+        """Hierarchical eval render of (R, 12) rays -> per-ray maps (the JAX
+        ``render_rays(train=False, ret_pfeat=True, validation=True)``)."""
+        rays_d = rays[..., 3:6]
+        viewdirs = rays[..., RAY_VIEWDIR]
+        dirs_emb = pe_embedding(viewdirs, self.cfg.dirs_num_freqs)
+        preds = {}
+        z_vals = weights = None
+        for stage, mlp in self._stages():
+            (mean, var), z_vals = sample_along_rays(
+                rays, num_pts=mlp.cfg.num_pts, z_vals=z_vals, weights=weights,
+                model_type=stage, scale_var=self.cfg.mip_var_scale)
+            enc, _ = ipe_embedding(mean, var, self.cfg.xyz_num_freqs)
+            inputs = torch.cat(
+                [enc, dirs_emb[:, None, :].expand(-1, enc.shape[1], -1)], -1)
+            raw, feats = mlp(inputs)
+            rendered = volume_render(raw, z_vals, rays_d,
+                                     white_bg=self.cfg.white_bg,
+                                     input_dim=self.cfg.output_dim)
+            weights = rendered["weights"]
+            preds[f"feat_{stage}"] = composite_features(weights, feats,
+                                                        self.cfg.feat_comb)
+            preds[f"pts_{stage}"] = composite_features(weights, mean,
+                                                       self.cfg.feat_comb)
+            preds[f"rgb_{stage}"] = rendered["rgb"]
+            preds[f"depth_{stage}"] = rendered["depth"]
+        return preds
+
+    # ------------------------------------------------------------------
+    # Fused path (render + resample kernels)
+    # ------------------------------------------------------------------
+    def check_fused_supported(self):
+        """Raise for configs the CUDA kernels do not implement."""
+        cfg = self.cfg
+        if cfg.feat_comb != "lin":
+            raise NotImplementedError(
+                "feat_comb='max' is not in the CUDA render kernel (ROADMAP: "
+                "what remains, item 7)")
+        if cfg.trunk_int8 != "none":
+            raise NotImplementedError(
+                f"trunk_int8={cfg.trunk_int8!r}: the int8 trunk is not ported "
+                "(ROADMAP: what remains, item 7, kernel 1b)")
+        coarse_pts = (self.coarse_cfg or self.fine_cfg).num_pts
+        if coarse_pts != self.fine_cfg.num_pts:
+            raise NotImplementedError("fused render needs equal coarse and "
+                                      "fine sample counts")
+
+    def _stage_kwargs(self):
+        cfg = self.cfg
+        return dict(num_freqs=cfg.xyz_num_freqs, dirs_freqs=cfg.dirs_num_freqs,
+                    var_scale=cfg.mip_var_scale if cfg.mip_var_scale > 0
+                    else 1.0, early_term_eps=cfg.early_term_eps,
+                    white_bg=cfg.white_bg)
+
+    def fused_render(self, rays, packed=None):
+        """Two-stage fused render of (N, 12) rays, N a multiple of
+        ``TILE_RAYS``.  ``packed``: optional (coarse, fine) kernel weights
+        from :func:`pack_mlp`, to pack once for many chunks."""
+        self.check_fused_supported()
+        (_, coarse_mlp), (_, fine_mlp) = self._stages()
+        packed = packed or (None, None)
+        nrm = torch.sqrt(torch.sum(rays[:, 3:6] ** 2, dim=-1, keepdim=True))
+        nrm = torch.clamp(nrm, min=1e-12)
+        nrm = torch.where(torch.abs(nrm - 1.0) < 1e-5, torch.ones_like(nrm), nrm)
+        rays = torch.cat([rays[:, :6], rays[:, 6:8] * nrm, rays[:, 8:11],
+                          rays[:, 11:12] / nrm], dim=-1).contiguous()
+        S = self.fine_cfg.num_pts
+        t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+        z_vals = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
+        kw = self._stage_kwargs()
+        coarse = render_stage(coarse_mlp, rays, z_vals, fine=False,
+                              packed=packed[0], **kw)
+        z_fine = resample_z(z_vals, coarse["weights"])
+        fine = render_stage(fine_mlp, rays, z_fine, fine=True,
+                            packed=packed[1], **kw)
+        inv = 1.0 / nrm[:, 0]
+        return {"depth_coarse": coarse["depth"] * inv,
+                "rgb_fine": fine["rgb"], "depth_fine": fine["depth"] * inv,
+                "acc_fine": fine["acc"], "feat_fine": fine["feat"],
+                "pts_fine": fine["pts"], "weights_fine": fine["weights"]}
+
+    def fused_predict(self, rays, chunk_rays: int = 9216):
+        """Chunked :meth:`fused_render` over any number of rays."""
+        n = rays.shape[0]
+        if n == 0:
+            raise ValueError("fused_predict: empty ray batch")
+        self.check_fused_supported()
+        n_pad = (-n) % TILE_RAYS
+        if n_pad:
+            rays = torch.cat([rays, rays[-1:].expand(n_pad, -1)])
+        packed = None
+        if rays.device.type == "cuda":
+            packed = tuple(pack_mlp(m) for _, m in self._stages())
+        chunk_rays -= chunk_rays % TILE_RAYS
+        chunks = [self.fused_render(rays[i:i + chunk_rays].contiguous(), packed)
+                  for i in range(0, rays.shape[0], chunk_rays)]
+        return {k: torch.cat([c[k] for c in chunks])[:n] for k in chunks[0]}
+
+    def predict(self, rays, chunk_rays: int = 4096):
+        """Eval render: the fused kernels for CUDA rays, the plain path for
+        CPU rays."""
+        if rays.device.type == "cuda":
+            return self.fused_predict(rays)
+        chunks = [self.render_rays(rays[i:i + chunk_rays])
+                  for i in range(0, rays.shape[0], chunk_rays)]
+        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
+    # ------------------------------------------------------------------
+    # Novel views (localization re-render)
+    # ------------------------------------------------------------------
+    def _view_rays(self, img_hw, K, c2w, unnorm_scene, downsample):
+        H, W = img_hw
+        c2w_n = np.linalg.inv(np.asarray(unnorm_scene, np.float64)) \
+            @ np.asarray(c2w, np.float64)
+        dev = self.device
+        return sample_nerf_rays(
+            H, W, torch.as_tensor(np.asarray(K), dtype=torch.float32,
+                                  device=dev),
+            torch.as_tensor(c2w_n, dtype=torch.float32, device=dev),
+            ds=downsample)
+
+    @torch.no_grad()
+    def render_novel_view(self, img_hw, K, c2w, unnorm_scene,
+                          downsample: int = 8):
+        """rgb + world-frame 3D points + NeRF features on the ds-grid at a
+        world-frame pose ``c2w`` -> dict of numpy arrays."""
+        out = self.render_novel_views(img_hw, [K], [c2w], [unnorm_scene],
+                                      downsample)
+        return {k: v[0] for k, v in out.items()}
+
+    @torch.no_grad()
+    def render_novel_views(self, img_hw, Ks, c2ws, unnorm_scenes,
+                           downsample: int = 8):
+        """Batched :meth:`render_novel_view`: all poses' rays in one
+        :meth:`predict` call -> (B, ...) numpy arrays."""
+        H, W = img_hw
+        B = len(c2ws)
+        rays = [self._view_rays(img_hw, Ks[b], c2ws[b], unnorm_scenes[b],
+                                downsample) for b in range(B)]
+        n = rays[0].shape[0]
+        preds = self.predict(torch.cat(rays))
+        pts = preds["pts_fine"].reshape(B, n, 3)
+        un = torch.as_tensor(np.stack([np.asarray(u) for u in unnorm_scenes]),
+                             dtype=torch.float32, device=pts.device)
+        pt3d = unnormalize_pts(pts, un)
+        rgb = preds["rgb_fine"].reshape(B, H // downsample, W // downsample, 3)
+        return dict(im_pred=rgb.cpu().numpy(), pt3d=pt3d.cpu().numpy(),
+                    pt_feat=preds["feat_fine"].reshape(B, n, -1).cpu().numpy())

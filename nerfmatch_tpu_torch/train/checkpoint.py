@@ -1,0 +1,83 @@
+"""Weight bridge from the JAX package's parameter layout to the port.
+
+``state_dict_from_jax`` takes JAX params as numpy arrays keyed by their
+pytree path joined with ``/`` (the layout of ``pretrained/*.npz``) and
+returns the reference-format torch state dict the port's modules load with
+``load_state_dict(strict=True)``.  It re-implements the key mapping and
+layout flips of ``nerfmatch_tpu/train/checkpoint.py:
+export_torch_state_dict`` (with ``prefix=""``) without importing jax.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _torch_key_for_path(path) -> str:
+    """Pytree path (tuple of str / int) -> reference state-dict key."""
+    parts = []
+    p = list(path)
+    i = 0
+    while i < len(p):
+        seg = p[i]
+        nxt = p[i + 1] if i + 1 < len(p) else None
+        if seg == "stages" and isinstance(nxt, int):
+            parts.append(f"stages_{nxt}")          # timm FeatureListNet
+            i += 2
+        elif seg in ("pt_sa", "im_sa", "fine_sa") and isinstance(nxt, int):
+            parts += [seg, "layers", str(nxt)]     # SelfAttentionBlock.layers
+            i += 2
+        elif seg == "feedforward" and nxt in ("fc1", "fc2"):
+            parts += ["feedforward", "layers", "0" if nxt == "fc1" else "2"]
+            i += 2
+        elif seg == "proj_out":
+            parts += ["proj_out", "0"]             # Sequential(Linear)
+            i += 1
+        elif seg == "fpn":                         # FPN convs sit on the MS
+            i += 1                                 # wrapper itself
+        elif seg == "layer1_outconv2" and nxt is not None:
+            parts += [seg, {"conv1": "0", "bn": "1", "conv2": "3"}[nxt]]
+            i += 2
+        elif seg == "scale" and parts and parts[-1].startswith("attention"):
+            parts += ["attend", "scale"]           # LSA temperature
+            i += 1
+        else:
+            parts.append(str(seg))
+            i += 1
+    return ".".join(parts)
+
+
+def _parse_path(key: str):
+    return tuple(int(s) if s.isdigit() else s for s in key.split("/"))
+
+
+def state_dict_from_jax(flat: Mapping[str, np.ndarray],
+                        backbone_extra: str = "") -> dict:
+    """``{"a/b/0/weight": array}`` JAX params -> port state dict of f32
+    tensors.  ``backbone_extra="model."`` nests the backbone trunk as the
+    c2f ``MetaFormer_MS`` wrapper does (its FPN convs stay on the wrapper);
+    float16 fixture leaves are cast to float32."""
+    out = {}
+    for key, leaf in flat.items():
+        path = _parse_path(key)
+        tkey = _torch_key_for_path(path)
+        if backbone_extra and tkey.startswith("backbone.") \
+                and (len(path) < 2 or path[1] != "fpn"):
+            tkey = "backbone." + backbone_extra + tkey[len("backbone."):]
+        v = np.asarray(leaf, np.float32)
+        if v.ndim == 4:
+            v = np.transpose(v, (3, 2, 0, 1))      # HWIO -> OIHW
+        elif v.ndim == 2 and path[-1] == "weight" \
+                and not any("embedding" in str(s) for s in path):
+            v = v.T                                # (in, out) -> (out, in)
+        out[tkey] = torch.tensor(v)
+    return out
+
+
+def load_npz_params(path) -> dict:
+    """A ``pretrained/*.npz`` file as the flat mapping above."""
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
