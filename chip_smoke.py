@@ -11,13 +11,25 @@ Phases (each prints its results; any failure exits non-zero):
    stage (coarse and fine) on 9216 rays of the room fixture at eps 0 and
    1e-4, the resample on the coarse weights, and attention at B=1, H=8,
    D=32, L=S=3600 in f32 and bf16-operand modes;
+3b. the same for training: the train-render forward and backward kernels
+   on 9216 rays at full width (the room's fine MLP, jittered z, density
+   noise of std 1, loss rgb MSE + 0.01 distortion), rgb / weights and every
+   gradient leaf against the plain version with its explicit backward;
 4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) and the
    production c2f matcher (random weights from a seed) localize three query
    photos (the port's own 480x480 renders on the room's camera circle)
    against scene points rendered at nearby database poses, through
    ``NeRFMatchEvaluator.eval_batch(iters=2, mutual=True)``, plus one
    ``eval_bs=2`` request; the launch counters must show every kernel ran;
-   one request's matches are checked against the plain path on the CPU.
+   one request's matches are checked against the plain path on the CPU;
+5. training: a 24-frame 480x480 scene rendered from the room NeRF is
+   written in the dataset's layout; ``cli.train_nerf --debug`` trains on it
+   with ``configs/nerf/nerf_7scenes_mip_sfm.yaml`` (only the data paths and
+   the output dir changed) and resumes; ``NerfTrainer`` then takes 50 steps
+   of 9216 rays from a fresh initialization (loss must fall, PSNR rise);
+   the launch counters must show the train kernels and the resample ran;
+   the last checkpoint loads into a serving renderer that renders one ds-8
+   scene-point grid through the eval kernels.
 
 The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
@@ -47,7 +59,13 @@ KERNEL_SOURCES = {
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
     "attention": ("nerfmatch_tpu_torch/csrc/attention.cu",
                   "nerfmatch_tpu/ops/pallas/attention_kernel.py:99"),
+    "render_train_fwd": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+                         "nerfmatch_tpu/ops/pallas/render_train.py:420"),
+    "render_train_bwd": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+                         "nerfmatch_tpu/ops/pallas/render_train.py:455"),
 }
+SERVING_KERNELS = ("render_coarse", "render_fine", "resample", "attention")
+TRAIN_KERNELS = ("render_train_fwd", "render_train_bwd", "resample")
 CAM_R, NEAR, FAR = 0.8, 0.05, 2.1        # scripts/train_bench_scene.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -293,7 +311,7 @@ def phase_serving(renderer, evaluator, dev, size=480):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     log(f"launches during serving: {json.dumps(launches)}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
     return launches, results
 
@@ -333,6 +351,204 @@ def phase_check(evaluator, batch):
     assert agree >= 0.98 and ef_max < 1e-3
 
 
+def phase_train_kernels(renderer, dev):
+    """Train-render kernels (forward, backward) vs the plain version at the
+    training path's shapes -> summary rows."""
+    from nerfmatch_tpu_torch.nerf.compositing import t_to_s
+    from nerfmatch_tpu_torch.nerf.sampling import (jitter_fenceposts,
+                                                   jitter_uniforms)
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        StageSpec, kernel_backward, kernel_forward, pack_train,
+        train_stage_backward, train_stage_forward)
+    from nerfmatch_tpu_torch.utils.metrics import distortion_loss
+
+    g = torch.Generator(dev).manual_seed(1)
+    rays = camera_rays(room_c2w(0.4), 96, dev)           # 9216 rays
+    n, S = rays.shape[0], 128
+    t = torch.linspace(0.0, 1.0, S + 1, device=dev)
+    z = jitter_fenceposts(rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t,
+                          jitter_uniforms(n, S + 1, g, dev)).contiguous()
+    noise = torch.randn(n, S, device=dev, generator=g)   # noise_std 1.0
+    target = torch.rand(n, 3, device=dev, generator=g)
+    spec = StageSpec(renderer.nerf_fine, 15, 4)
+    packed = pack_train(spec.mlp)
+    with torch.no_grad():
+        rgb, w = kernel_forward(spec, rays, z, noise, packed)
+        rgb_p, w_p = train_stage_forward(spec, rays, z, noise)
+    rgb_r, w_r = rgb.requires_grad_(), w.requires_grad_()
+    loss = ((rgb_r - target) ** 2).mean() + 0.01 * distortion_loss(
+        t_to_s(z, z.min(), z.max()), w_r)
+    g_rgb, g_w = torch.autograd.grad(loss, (rgb_r, w_r))
+    ga = kernel_backward(spec, rays, z, noise, g_rgb, g_w, packed)
+    gb = train_stage_backward(spec, rays, z, noise, g_rgb, g_w)
+    torch.cuda.synchronize()
+    # Same bf16 operand roundings on both sides: f32 sums in other orders
+    # (and the gradients' bf16 rounding ties they break apart) remain.
+    fwd_err = max(float((rgb - rgb_p).abs().max()),
+                  float((w - w_p).abs().max()))
+    leaf = {}
+    for k, ref in gb.items():
+        got = ga[k]
+        assert torch.isfinite(got).all(), k
+        scale = float(ref.abs().max())
+        cos = float((got * ref).sum()) / max(float(got.norm() * ref.norm()),
+                                             1e-30)
+        leaf[k] = (float((got - ref).abs().max()) / max(scale, 1e-30), cos)
+    bwd_err = max(e for e, _ in leaf.values())
+    worst = max(leaf, key=lambda k: leaf[k][0])
+    min_cos = min(c for _, c in leaf.values())
+    with torch.no_grad():
+        ms_f = cuda_ms(lambda: kernel_forward(spec, rays, z, noise, packed), 5)
+        plain_f = cuda_ms(lambda: train_stage_forward(spec, rays, z, noise), 2)
+        ms_b = cuda_ms(lambda: kernel_backward(spec, rays, z, noise, g_rgb,
+                                               g_w, packed), 3)
+        plain_b = cuda_ms(lambda: train_stage_backward(spec, rays, z, noise,
+                                                       g_rgb, g_w), 1)
+    log(f"kernel render_train_fwd: max_abs_err={fwd_err:.3e} (rgb and "
+        f"weights, tol 5e-3) ms={ms_f:.3f} plain_ms={plain_f:.3f} "
+        f"acc max={float(w.sum(-1).max()):.3f}")
+    log(f"kernel render_train_bwd: max scaled err={bwd_err:.3e} ({worst}; "
+        f"tol 3e-2 of each leaf's largest gradient), min cosine "
+        f"{min_cos:.6f} (tol 0.999) ms={ms_b:.3f} plain_ms={plain_b:.3f} "
+        f"(plain chunked over 1024 rays)")
+    log("  per-leaf scaled err: " + json.dumps(
+        {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
+    assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
+    return {"render_train_fwd": dict(max_abs_err=fwd_err, ms=ms_f,
+                                     plain_ms=plain_f),
+            "render_train_bwd": dict(max_abs_err=bwd_err, ms=ms_b,
+                                     plain_ms=plain_b)}
+
+
+def write_room_scene(renderer, dev, root, n_frames=24, size=480):
+    """The room NeRF's renders on its camera circle, in the dataset's layout:
+    <root>/room/seq-01/frame-XXX.color.png + transforms_{train,test}.json."""
+    from PIL import Image
+
+    scene = root / "room"
+    (scene / "seq-01").mkdir(parents=True)
+    frames = []
+    with torch.no_grad():
+        for i in range(n_frames):
+            c2w = room_c2w(2 * np.pi * i / n_frames)
+            rgb = renderer.fused_predict(camera_rays(c2w, size, dev))["rgb_fine"]
+            img = rgb.reshape(size, size, 3).clamp(0, 1).cpu().numpy()
+            name = f"seq-01/frame-{i:03d}.color.png"
+            Image.fromarray((img * 255).round().astype(np.uint8)).save(
+                scene / name)
+            frames.append(dict(file_path=name, intrinsics=camera_K(size).tolist(),
+                               height=size, width=size,
+                               transform_matrix=c2w.tolist()))
+    for split in ("train", "test"):
+        (scene / f"transforms_{split}.json").write_text(
+            json.dumps({"frames": frames}))
+
+
+def phase_training(renderer, dev, seed):
+    """Train on the room scene through the CLI (debug, resume) and 50
+    NerfTrainer steps; serve the checkpoint -> launch counts."""
+    import tempfile
+
+    from nerfmatch_tpu.config import load_yaml_config, save_config
+    from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
+                                                        init_config_odir)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_room_scene(renderer, dev, root)
+        log(f"training scene: 24 frames 480x480 written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg_path = ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml"
+        cfg, _ = load_yaml_config(cfg_path)
+        cfg.data.data_dir = str(root)
+        cfg.data.scene = "room"
+        cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+        cfg.exp.odir = str(root / "out")
+        save_config(root / "cfg.yaml", cfg)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out_cfg, r1 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
+        t1 = time.perf_counter()
+        w1 = r1.nerf_fine.pts_linears[0].weight.detach().clone()
+        _, r2 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
+        t2 = time.perf_counter()
+        assert torch.equal(r2.nerf_fine.pts_linears[0].weight, w1), "resume"
+        ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
+                                 name="last")
+        assert ckpt is not None and ckpt.name == f"last_{cfg.exp.max_epochs}"
+        log(f"cli --debug: {cfg.exp.max_epochs} epochs x 10 steps of "
+            f"{cfg.exp.batch_size} rays + validation in {t1 - t0:.1f} s; "
+            f"resumed at epoch {cfg.exp.max_epochs} in {t2 - t1:.1f} s "
+            f"({ckpt.name})")
+
+        trainer = NerfTrainer(cfg, device=dev, seed=seed)
+        ds = init_data_loader(cfg.data, split="train").dataset
+        batches = ds.ray_batches(cfg.exp.batch_size,
+                                 np.random.default_rng(seed))
+        gen = torch.Generator(dev).manual_seed(seed)
+        dev_batch = lambda b: (torch.as_tensor(b["rays"], device=dev),
+                               torch.as_tensor(b["rgbs"], device=dev))
+        steps = [dev_batch(next(batches)) for _ in range(56)]
+        hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 50 * 1e3
+        launches = dict(LAUNCHES)
+        log(f"launches during training: {json.dumps(launches)}")
+        missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+        assert not missing, f"kernels never launched in training: {missing}"
+        loss = [float(m["loss"]) for m in hist]
+        psnr = [float(m["rgb_fine_psnr"]) for m in hist]
+        assert all(np.isfinite(loss)), "non-finite loss"
+        assert np.mean(loss[-5:]) < np.mean(loss[:5]), loss
+        assert np.mean(psnr[-5:]) > np.mean(psnr[:5]), psnr
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(52, 56):
+                trainer.train_step(*steps[i], gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # Kernel rows only: an op's device time already holds its kernels.
+        ka = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
+        log(f"training: {step_ms:.1f} ms/step, "
+            f"{cfg.exp.batch_size / step_ms * 1e3:.0f} rays/s over 50 steps "
+            f"of {cfg.exp.batch_size} rays; loss {loss[0]:.4f} -> "
+            f"{np.mean(loss[-5:]):.4f}, train psnr {psnr[0]:.2f} -> "
+            f"{np.mean(psnr[-5:]):.2f} dB; profiled 4 steps: wall "
+            f"{wall:.1f} ms, device {dev_ms:.1f} ms, idle share "
+            f"{max(0.0, 1 - dev_ms / wall):.2f}")
+        log("  device time by kernel (ms, 4 steps): " + json.dumps(
+            {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
+             for e in top}))
+
+        serving = NerfRenderer(cfg, stop_layer=3)
+        serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
+        serving = serving.to(dev).eval()
+        with torch.no_grad():
+            out = serving.render_novel_view((480, 480), camera_K(480),
+                                            room_c2w(0.5), ds.unnorm_scene)
+        for k, v in out.items():
+            assert np.isfinite(v).all(), k
+        log(f"served {ckpt.name}: ds-8 grid pt3d {out['pt3d'].shape} "
+            f"pt_feat {out['pt_feat'].shape}")
+    return launches
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -356,6 +572,7 @@ def main():
         f"early_term_eps={renderer.cfg.early_term_eps} feat_layer=3")
     with torch.no_grad():
         rows = phase_kernels(renderer, dev)
+    rows.update(phase_train_kernels(renderer, dev))
 
     match_cfg, _ = load_yaml_config(
         ROOT / "configs/nerfmatch/nerfmatch_7scenes_sfm_c2f.yaml")
@@ -366,6 +583,9 @@ def main():
     with torch.no_grad():
         launches, results = phase_serving(renderer, evaluator, dev)
         phase_check(evaluator, results[0][0])
+    launches.update({k: v for k, v in phase_training(renderer, dev,
+                                                     args.seed).items()
+                     if k not in SERVING_KERNELS})
 
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     launches=launches[n], **rows[n])

@@ -34,30 +34,17 @@
 // once per chunk by the block and L2-resident).  Later work: wgmma with
 // TMA-staged weights and larger row tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTileRays = 2;
 constexpr int kSampleBlock = 32;
-constexpr int kRows = kTileRays * kSampleBlock;  // 64 rows per chunk
-constexpr int kMTiles = kRows / 16;              // mma row tiles
-constexpr int kMaxLayers = 16;
-constexpr int kEncMax = 96;                      // 2 * 3 * F <= 96, padded K
-constexpr int kEncStride = kEncMax + 8;          // bf16; conflict-free ldmatrix
-constexpr int kDirsMax = 32;                     // 2 * 3 * Fd + 3
-constexpr float kHalfPi = 1.57079632679489661923f;
-constexpr float kF32Eps = 1.1920928955078125e-07f;
+static_assert(kTileRays * kSampleBlock == kRows, "one chunk = 2 rays x 32");
 
-// Weight fragments: for a (K, N) matrix, K padded to a multiple of 16,
-// uint2 index ((k_step * (N / 8) + n_tile) * 32 + lane) holds the two
-// b-registers of mma.m16n8k16 for that lane (see render_kernel.py:
-// pack_fragments).
+// Weight fragments in the layout of mma_common.cuh.
 struct RenderParams {
   const uint2* Wenc[kMaxLayers];  // encoding rows of layer i, or null
   const uint2* Wh[kMaxLayers];    // hidden rows of layer i, or null
@@ -74,72 +61,6 @@ struct RenderParams {
   const float* rays;  // (N, 12) packed, unit-direction parameterization
   const float* z;     // (N, S + 1) fenceposts
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// acc[m][j] += A[64 rows, 16 * ksteps] (bf16, shared, row stride lda) times
-// the weight columns of n-tiles nt0 .. nt0 + NT - 1 (of ntt).
-template <int NT>
-__device__ __forceinline__ void mma_rows(const __nv_bfloat16* A, int lda,
-                                         int ksteps,
-                                         const uint2* __restrict__ W, int ntt,
-                                         int nt0, int lane,
-                                         float (&acc)[kMTiles][NT][4]) {
-  const uint32_t a0 = (uint32_t)__cvta_generic_to_shared(A) +
-                      (uint32_t)(((lane & 15) * lda + (lane >> 4) * 8) * 2);
-  const uint2* wl = W + (size_t)nt0 * 32 + lane;
-#pragma unroll 2
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint2 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = __ldg(wl + ((size_t)ks * ntt + j) * 32);
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m) {
-      uint32_t a[4];
-      ldmatrix_x4(a, a0 + (uint32_t)((m * 16 * lda + ks * 16) * 2));
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, b[j]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[kMTiles][NT][4]) {
-#pragma unroll
-  for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
-}
-
-// Row / column of accumulator element e of fragment (m, j).
-__device__ __forceinline__ int frag_row(int m, int e, int lane) {
-  return m * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
-}
-__device__ __forceinline__ int frag_col(int nt, int e, int lane) {
-  return nt * 8 + (lane & 3) * 2 + (e & 1);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <int HID>
 struct Smem {

@@ -3,9 +3,9 @@
 // Replaces the TPU kernel nerfmatch_tpu/ops/pallas/resample_kernel.py:
 // _resample_lookup (body _lookup_kernel) AND the XLA prep around it in
 // resample_z_pallas: max-then-average weight blur, +padding, pdf, clamped
-// cdf, deterministic u = linspace(0, 1 - eps_f32, n_bins), interval lookup
-// and linear interpolation.  Semantics follow nerf/sampling.py:
-// resample_z_from_weights(randomized=False).
+// cdf, u (deterministic linspace(0, 1 - eps_f32, n_bins), or the caller's
+// stratified draws (N, n_bins) in training), interval lookup and linear
+// interpolation.  Semantics follow nerf/sampling.py: resample_z_from_weights.
 //
 // What bounds it on the H100: memory traffic (reads bins + weights, writes
 // new bins: ~1.5 KB per ray) and the serial cdf.  Design: one warp per ray;
@@ -31,7 +31,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __global__ void __launch_bounds__(kWarps * 32)
 resample_kernel(const float* __restrict__ bins, const float* __restrict__ weights,
-                float* __restrict__ out, int n_rays, int nb, float padding) {
+                const float* __restrict__ u_in, float* __restrict__ out,
+                int n_rays, int nb, float padding) {
   __shared__ float s_bins[kWarps][kMaxBins];
   __shared__ float s_w[kWarps][kMaxBins];
   __shared__ float s_cdf[kWarps][kMaxBins];
@@ -75,7 +76,8 @@ resample_kernel(const float* __restrict__ bins, const float* __restrict__ weight
   __syncwarp();
   const float step = (1.f - kF32Eps) / (float)(nb - 1);
   for (int k = lane; k < nb; k += 32) {
-    const float u = k == nb - 1 ? 1.f - kF32Eps : (float)k * step;
+    const float u = u_in != nullptr ? u_in[(size_t)ray * nb + k]
+                    : k == nb - 1 ? 1.f - kF32Eps : (float)k * step;
     // count = #{i : cdf[i] <= u} (a prefix: cdf is non-decreasing).
     int lo = 0, hi = nb;
     while (lo < hi) {
@@ -100,13 +102,14 @@ resample_kernel(const float* __restrict__ bins, const float* __restrict__ weight
 
 }  // namespace
 
+// u: null for the deterministic linspace, else (n_rays, n_bins) draws.
 extern "C" int nm_resample_forward(const void* bins, const void* weights,
-                                   void* out, int n_rays, int n_bins,
-                                   float padding, void* stream) {
+                                   const void* u, void* out, int n_rays,
+                                   int n_bins, float padding, void* stream) {
   if (n_bins > kMaxBins || n_bins < 2) return (int)cudaErrorInvalidValue;
   const int grid = (n_rays + kWarps - 1) / kWarps;
   resample_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)bins, (const float*)weights, (float*)out, n_rays, n_bins,
-      padding);
+      (const float*)bins, (const float*)weights, (const float*)u, (float*)out,
+      n_rays, n_bins, padding);
   return (int)cudaGetLastError();
 }

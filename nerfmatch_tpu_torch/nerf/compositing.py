@@ -1,6 +1,7 @@
-"""Volume rendering, eval half (counterpart of
-``nerfmatch_tpu/nerf/compositing.py``): alpha compositing with the
-tf-style exclusive transmittance cumprod, and feature compositing."""
+"""Volume rendering (counterpart of ``nerfmatch_tpu/nerf/compositing.py``):
+alpha compositing with the tf-style exclusive transmittance cumprod, the
+training density noise, feature compositing, and the t <-> s
+reparameterization of the distortion loss."""
 
 from __future__ import annotations
 
@@ -8,10 +9,15 @@ import torch
 
 
 def volume_render(radiance_field, z_vals, rays_d, white_bg: bool = True,
-                  input_dim: int = 4):
-    """Alpha-composite (R, S, C) radiance over mip fenceposts (R, S+1)."""
+                  input_dim: int = 4, noise=None):
+    """Alpha-composite (R, S, C) radiance over mip fenceposts (R, S+1).
+    ``noise`` (R, S): training density noise, added before the ReLU
+    (``compositing.py:29-32``; the caller scales it by ``noise_std``)."""
     rgb = radiance_field[..., : input_dim - 1]
-    density = torch.relu(radiance_field[..., input_dim - 1])
+    raw_density = radiance_field[..., input_dim - 1]
+    if noise is not None:
+        raw_density = raw_density + noise
+    density = torch.relu(raw_density)
     dists = z_vals[..., 1:] - z_vals[..., :-1]
     z_mids = 0.5 * (z_vals[..., :-1] + z_vals[..., 1:])
     dists = dists * torch.linalg.norm(rays_d, dim=-1)[..., None]
@@ -39,3 +45,16 @@ def composite_features(weights, feats, comb: str = "lin"):
             feats, idx[..., None, None].expand(*idx.shape, 1, feats.shape[-1]),
             dim=-2)[..., 0, :]
     return torch.sum(weights[..., None] * feats, dim=-2)
+
+
+def _g(x, eps: float = 1e-6):
+    return 1.0 / (x + eps)
+
+
+def t_to_s(t_vals, near, far):
+    """Distance t -> normalized inverse-depth s (mip-NeRF 360)."""
+    return (_g(t_vals) - _g(near)) / (_g(far) - _g(near))
+
+
+def s_to_t(s_vals, near, far):
+    return _g(s_vals * _g(far) + (1.0 - s_vals) * _g(near))

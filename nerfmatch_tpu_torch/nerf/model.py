@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -69,28 +70,39 @@ class NerfMLP(nn.Module):
         else:
             self.output_linear = nn.Linear(cfg.hid_dim, cfg.output_dim)
 
-    def forward(self, x):
-        """Encoded inputs (..., xyz+dirs+app) -> (outputs, point feature)."""
+    def forward(self, x, dtype=None):
+        """Encoded inputs (..., xyz+dirs+app) -> (outputs, point feature).
+        ``dtype`` (e.g. ``torch.bfloat16``): run every layer in that type
+        (inputs and parameters cast, as ``nerf_apply(compute_dtype=...)``);
+        outputs come back in f32."""
         cfg = self.cfg
+        lin = F.linear if dtype is None else (
+            lambda h, w, b: F.linear(h, w.to(dtype), b.to(dtype)))
+        if dtype is not None:
+            x = x.to(dtype)
         input_pts = x[..., : cfg.xyz_dim]
         input_views = x[..., cfg.xyz_dim:cfg.xyz_dim + cfg.dirs_dim]
         input_app = x[..., cfg.xyz_dim + cfg.dirs_dim:]
         h = input_pts
         stop_feat = None
-        for i, lin in enumerate(self.pts_linears):
-            h = torch.relu(lin(h))
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(lin(h, layer.weight, layer.bias))
             if i == cfg.stop_layer:
                 stop_feat = h
             if i in cfg.skips:
                 h = torch.cat([input_pts, h], dim=-1)
         if cfg.use_viewdirs:
-            alpha = self.alpha_linear(h)
-            feature = self.feature_linear(h)
+            alpha = lin(h, self.alpha_linear.weight, self.alpha_linear.bias)
+            feature = lin(h, self.feature_linear.weight,
+                          self.feature_linear.bias)
             h_rgb = torch.cat([feature, input_views, input_app], dim=-1)
             for lyr in self.views_linears:
-                h_rgb = torch.relu(lyr(h_rgb))
-            rgb = torch.sigmoid(self.rgb_linear(h_rgb))
+                h_rgb = torch.relu(lin(h_rgb, lyr.weight, lyr.bias))
+            rgb = torch.sigmoid(lin(h_rgb, self.rgb_linear.weight,
+                                    self.rgb_linear.bias))
             outputs = torch.cat([rgb, alpha], dim=-1)
         else:
-            outputs = self.output_linear(h)
-        return outputs, (stop_feat if cfg.stop_layer >= 0 else h)
+            outputs = lin(h, self.output_linear.weight,
+                          self.output_linear.bias)
+        feat = stop_feat if cfg.stop_layer >= 0 else h
+        return outputs.float(), feat.float()

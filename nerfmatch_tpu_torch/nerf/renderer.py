@@ -1,18 +1,23 @@
-"""Hierarchical mip-NeRF renderer, eval path (counterpart of
+"""Hierarchical mip-NeRF renderer (counterpart of
 ``nerfmatch_tpu/nerf/renderer.py``).
 
 ``NerfRenderer`` is an ``nn.Module`` holding ``nerf_coarse`` / ``nerf_fine``
 (the reference's state-dict keys).  Routing follows the device of the rays:
 
-* CUDA: :meth:`fused_render` -- the render kernel twice (coarse, fine)
-  with the resample kernel between them (``make_fused_hierarchical``
+* eval, CUDA: :meth:`fused_render` -- the render kernel twice (coarse,
+  fine) with the resample kernel between them (``make_fused_hierarchical``
   semantics, including the unit-direction reparameterization).  Configs the
   kernels do not implement raise ``NotImplementedError``.
-* CPU: :meth:`render_rays`, the plain sampling / MLP / compositing path
-  (``render_rays(train=False, ret_pfeat=True, validation=True)``).
+* eval, CPU: :meth:`render_rays`, the plain sampling / MLP / compositing
+  path (``render_rays(train=False, ret_pfeat=True, validation=True)``).
+* training: :meth:`train_render` (``make_fused_train_hierarchical``) --
+  jittered fenceposts, the train-render kernels (forward and backward) per
+  stage with the randomized resample kernel between them; on CPU tensors
+  through the kernels' plain versions.  :meth:`render_rays` with
+  ``train=True`` is the plain f32 (or ``compute_dtype``) training path.
 
-:meth:`fused_render` also runs on CPU tensors, through the kernels' plain
-versions; the tests hold that against the JAX Pallas path.
+Random draws come from an explicit ``torch.Generator`` or as tensors
+(:meth:`train_draws`), so a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -23,14 +28,29 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.layers import init_params_
 from ..ops.kernels.render_kernel import TILE_RAYS, pack_mlp, render_stage
+from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
 from ..utils.geometry import unnormalize_pts
-from .compositing import composite_features, volume_render
+from .compositing import composite_features, t_to_s, volume_render
 from .embedding import ipe_embedding, ipe_embedding_dim, pe_embedding
 from .model import NerfConfig, NerfMLP
 from .rays import RAY_VIEWDIR, sample_nerf_rays
-from .sampling import sample_along_rays
+from .sampling import (jitter_fenceposts, jitter_uniforms, sample_along_rays,
+                       stratified_u)
+
+
+def reparam_unit_dir(rays):
+    """Rescale packed rays to the unit-direction parameterization of the
+    fused kernels (``render_kernel.py: reparam_unit_dir``) -> (rays', nrm);
+    kernel depths are ``nrm`` times the plain path's."""
+    nrm = torch.sqrt(torch.sum(rays[:, 3:6] ** 2, dim=-1, keepdim=True))
+    nrm = torch.clamp(nrm, min=1e-12)
+    nrm = torch.where(torch.abs(nrm - 1.0) < 1e-5, torch.ones_like(nrm), nrm)
+    rays = torch.cat([rays[:, :6], rays[:, 6:8] * nrm, rays[:, 8:11],
+                      rays[:, 11:12] / nrm], dim=-1).contiguous()
+    return rays, nrm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +67,10 @@ class RenderConfig:
     output_dim: int = 4
     early_term_eps: float = 1e-4
     trunk_int8: str = "none"
+    perturb: bool = True
+    noise_std: float = 1.0
+    compute_dtype: str = "float32"
+    out_scr: bool = False
 
     @classmethod
     def from_config(cls, config):
@@ -68,6 +92,10 @@ class RenderConfig:
             # The JAX serving paths resolve an absent key to int8 'coarse';
             # the port has no int8 trunk yet and resolves it to 'none'.
             trunk_int8=getattr(render, "trunk_int8", None) or "none",
+            perturb=bool(getattr(render, "perturb", True)),
+            noise_std=float(getattr(render, "noise_std", 1.0)),
+            compute_dtype=getattr(render, "compute_dtype", "float32"),
+            out_scr=bool(getattr(data, "out_scr", False)),
         )
 
 
@@ -97,6 +125,12 @@ class NerfRenderer(nn.Module):
     def device(self):
         return self.nerf_fine.pts_linears[0].weight.device
 
+    def init_params(self, generator: torch.Generator):
+        """Re-draw every weight and bias from ``generator``:
+        U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the distribution of
+        ``nerf/model.py: init_nerf_params`` (its draws differ)."""
+        return init_params_(self, generator)
+
     def _stages(self):
         coarse = self.nerf_fine if self.cfg.single_model else self.nerf_coarse
         return [("coarse", coarse), ("fine", self.nerf_fine)]
@@ -104,33 +138,122 @@ class NerfRenderer(nn.Module):
     # ------------------------------------------------------------------
     # Plain path
     # ------------------------------------------------------------------
-    def render_rays(self, rays):
-        """Hierarchical eval render of (R, 12) rays -> per-ray maps (the JAX
-        ``render_rays(train=False, ret_pfeat=True, validation=True)``)."""
+    def render_rays(self, rays, train: bool = False, generator=None,
+                    draws=None):
+        """Hierarchical render of (R, 12) rays -> per-ray maps.
+
+        ``train=False``: the JAX ``render_rays(train=False, ret_pfeat=True,
+        validation=True)``.  ``train=True``: the JAX XLA training render
+        (always randomized: jittered coarse fenceposts, stratified resample,
+        density noise when ``noise_std > 0``; MLP in ``compute_dtype``) ->
+        rgb / depth per stage, ``weights_fine`` and ``s_fine``.  Draws come
+        from ``draws`` (see :meth:`train_draws`, per stage) or
+        ``generator``."""
         rays_d = rays[..., 3:6]
         viewdirs = rays[..., RAY_VIEWDIR]
         dirs_emb = pe_embedding(viewdirs, self.cfg.dirs_num_freqs)
+        dtype = torch.bfloat16 if train and \
+            self.cfg.compute_dtype == "bfloat16" else None
+        if train and draws is None:
+            draws = self.train_draws(rays.shape[0], generator, rays.device,
+                                     randomized=True)
         preds = {}
         z_vals = weights = None
         for stage, mlp in self._stages():
+            rand = noise = None
+            if train:
+                rand = draws.get("t_rand" if stage == "coarse" else "u")
+                noise = draws.get(f"noise_{stage}")
             (mean, var), z_vals = sample_along_rays(
                 rays, num_pts=mlp.cfg.num_pts, z_vals=z_vals, weights=weights,
-                model_type=stage, scale_var=self.cfg.mip_var_scale)
+                model_type=stage, scale_var=self.cfg.mip_var_scale, rand=rand)
             enc, _ = ipe_embedding(mean, var, self.cfg.xyz_num_freqs)
             inputs = torch.cat(
                 [enc, dirs_emb[:, None, :].expand(-1, enc.shape[1], -1)], -1)
-            raw, feats = mlp(inputs)
+            raw, feats = mlp(inputs, dtype=dtype)
             rendered = volume_render(raw, z_vals, rays_d,
                                      white_bg=self.cfg.white_bg,
-                                     input_dim=self.cfg.output_dim)
+                                     input_dim=self.cfg.output_dim,
+                                     noise=noise)
             weights = rendered["weights"]
-            preds[f"feat_{stage}"] = composite_features(weights, feats,
-                                                        self.cfg.feat_comb)
-            preds[f"pts_{stage}"] = composite_features(weights, mean,
-                                                       self.cfg.feat_comb)
+            if train and stage == "fine":
+                # Batch-global min/max, as the reference (renderer.py:320-327).
+                preds["s_fine"] = t_to_s(z_vals, z_vals.min(), z_vals.max())
+                preds["weights_fine"] = weights
+            elif not train:
+                preds[f"feat_{stage}"] = composite_features(
+                    weights, feats, self.cfg.feat_comb)
+                preds[f"pts_{stage}"] = composite_features(
+                    weights, mean, self.cfg.feat_comb)
             preds[f"rgb_{stage}"] = rendered["rgb"]
             preds[f"depth_{stage}"] = rendered["depth"]
         return preds
+
+    # ------------------------------------------------------------------
+    # Training render (train-render + resample kernels)
+    # ------------------------------------------------------------------
+    def train_draws(self, n: int, generator=None, device=None,
+                    randomized: bool | None = None):
+        """The random numbers of one training render of ``n`` rays, drawn
+        in a fixed order from ``generator``: ``t_rand`` (fencepost jitter)
+        and ``u`` (stratified resample) when randomized (default
+        ``cfg.perturb``), then ``noise_coarse`` / ``noise_fine`` (already
+        scaled by ``noise_std``) when ``noise_std > 0``."""
+        cfg = self.cfg
+        S = self.fine_cfg.num_pts
+        randomized = cfg.perturb if randomized is None else randomized
+        out = {}
+        if randomized:
+            out["t_rand"] = jitter_uniforms(n, S + 1, generator, device)
+            out["u"] = stratified_u(n, S + 1, generator, device)
+        if cfg.noise_std > 0:
+            for stage in ("coarse", "fine"):
+                out[f"noise_{stage}"] = cfg.noise_std * torch.randn(
+                    (n, S), generator=generator, device=device)
+        return out
+
+    def check_train_supported(self):
+        """Raise for configs the train kernels do not implement."""
+        if self.cfg.out_scr:
+            raise NotImplementedError("out_scr (scene-coordinate head) is not "
+                                      "ported (ROADMAP: training slice)")
+        (_, cm), (_, fm) = self._stages()
+        if (cm.cfg.hid_dim, cm.cfg.layer_num, tuple(cm.cfg.skips),
+                cm.cfg.num_pts) != (fm.cfg.hid_dim, fm.cfg.layer_num,
+                                    tuple(fm.cfg.skips), fm.cfg.num_pts):
+            raise NotImplementedError(
+                "fused train needs coarse/fine NeRFs with identical MLP "
+                "layouts and sample counts (render_train.py:515-518)")
+
+    def _stage_spec(self, mlp):
+        cfg = self.cfg
+        return StageSpec(mlp, cfg.xyz_num_freqs, cfg.dirs_num_freqs,
+                         cfg.mip_var_scale if cfg.mip_var_scale > 0 else 1.0,
+                         cfg.white_bg)
+
+    def train_render(self, rays, generator=None, draws=None):
+        """Two-stage training render of (N, 12) rays ->
+        dict(rgb_coarse, rgb_fine, weights_fine, s_fine), differentiable in
+        the MLP parameters (``make_fused_train_hierarchical``)."""
+        self.check_train_supported()
+        (_, coarse_mlp), (_, fine_mlp) = self._stages()
+        rays, _ = reparam_unit_dir(rays)
+        n, S = rays.shape[0], self.fine_cfg.num_pts
+        if draws is None:
+            draws = self.train_draws(n, generator, rays.device)
+        t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+        z = rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t
+        if "t_rand" in draws:
+            z = jitter_fenceposts(z, draws["t_rand"])
+        z = z.contiguous()
+        zeros = torch.zeros(n, S, device=rays.device)
+        rgb_c, w_c = render_train(self._stage_spec(coarse_mlp), rays, z,
+                                  draws.get("noise_coarse", zeros))
+        z_f = resample_z(z, w_c.detach().contiguous(), u=draws.get("u"))
+        rgb_f, w_f = render_train(self._stage_spec(fine_mlp), rays, z_f,
+                                  draws.get("noise_fine", zeros))
+        return {"rgb_coarse": rgb_c, "rgb_fine": rgb_f, "weights_fine": w_f,
+                "s_fine": t_to_s(z_f, z_f.min(), z_f.max())}
 
     # ------------------------------------------------------------------
     # Fused path (render + resample kernels)
@@ -165,11 +288,7 @@ class NerfRenderer(nn.Module):
         self.check_fused_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
         packed = packed or (None, None)
-        nrm = torch.sqrt(torch.sum(rays[:, 3:6] ** 2, dim=-1, keepdim=True))
-        nrm = torch.clamp(nrm, min=1e-12)
-        nrm = torch.where(torch.abs(nrm - 1.0) < 1e-5, torch.ones_like(nrm), nrm)
-        rays = torch.cat([rays[:, :6], rays[:, 6:8] * nrm, rays[:, 8:11],
-                          rays[:, 11:12] / nrm], dim=-1).contiguous()
+        rays, nrm = reparam_unit_dir(rays)
         S = self.fine_cfg.num_pts
         t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
         z_vals = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()

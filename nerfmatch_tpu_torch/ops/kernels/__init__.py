@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launch counts by kernel name; incremented by each wrapper where it launches.
 LAUNCHES = {"render_coarse": 0, "render_fine": 0, "resample": 0,
-            "attention": 0}
+            "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,8 +42,18 @@ _SIGNATURES = {
     # white_bg, fine, out pointers x6, stream
     "nm_render_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P],
-    # bins, weights, out, n_rays, n_bins, padding, stream
-    "nm_resample_forward": [_P, _P, _P, _I, _I, _F, _P],
+    # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
+    "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
+    # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
+    # var_scale, white_bg, out_rgb, out_w, stream
+    "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
+                                _P],
+    # n_rays, hid, layer_num, samples, out workspace bytes, out matrix block
+    "nm_render_train_workspace": [_I, _I, _I, _I, _P, _P],
+    # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
+    # var_scale, white_bg, g_rgb, g_w, workspace, grad_mat, grad_vec, stream
+    "nm_render_train_backward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
+                                 _P, _P, _P, _P],
     # q, k, v, out, B, L, S, H, D, bf16, stream
     "nm_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

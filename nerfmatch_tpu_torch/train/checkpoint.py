@@ -1,4 +1,4 @@
-"""Weight bridge from the JAX package's parameter layout to the port.
+"""Checkpoints of the port, and the weight bridge from the JAX package.
 
 ``state_dict_from_jax`` takes JAX params as numpy arrays keyed by their
 pytree path joined with ``/`` (the layout of ``pretrained/*.npz``) and
@@ -6,10 +6,20 @@ returns the reference-format torch state dict the port's modules load with
 ``load_state_dict(strict=True)``.  It re-implements the key mapping and
 layout flips of ``nerfmatch_tpu/train/checkpoint.py:
 export_torch_state_dict`` (with ``prefix=""``) without importing jax.
+
+``save_checkpoint`` / ``load_checkpoint`` / ``latest_checkpoint`` are the
+torch-native counterparts of the JAX package's orbax checkpoints: a
+``<name>_<step>`` directory holding ``model.pt`` (the module's state dict,
+reference key names), ``optim.pt`` and ``meta.json`` (step, config, extras
+such as ``best_psnr``), with the ``keep`` newest of each name kept.
 """
 
 from __future__ import annotations
 
+import json
+import re
+import shutil
+from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -81,3 +91,57 @@ def load_npz_params(path) -> dict:
     """A ``pretrained/*.npz`` file as the flat mapping above."""
     with np.load(path) as data:
         return {k: data[k] for k in data.files}
+
+
+def save_checkpoint(ckpt_dir, step: int, model, optimizer=None, config=None,
+                    extra: dict | None = None, keep: int = 3,
+                    name: str = "ckpt"):
+    """Write ``<ckpt_dir>/<name>_<step>`` and prune older ones of the same
+    name beyond ``keep``."""
+    from nerfmatch_tpu.config import namespace2dict
+
+    ckpt_dir = Path(ckpt_dir)
+    path = ckpt_dir / f"{name}_{step}"
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               path / "model.pt")
+    if optimizer is not None:
+        torch.save(optimizer.state_dict(), path / "optim.pt")
+    meta = {"step": step, **(extra or {})}
+    if config is not None:
+        meta["config"] = config if isinstance(config, dict) \
+            else namespace2dict(config)
+    (path / "meta.json").write_text(json.dumps(meta, default=float))
+    for old in _named_checkpoints(ckpt_dir, name)[:-keep]:
+        shutil.rmtree(old)
+    return path
+
+
+def _named_checkpoints(ckpt_dir, name: str):
+    """Checkpoint dirs named exactly ``<name>_<step>``, sorted by step."""
+    pat = re.compile(rf"^{re.escape(name)}_(\d+)$")
+    return sorted((p for p in Path(ckpt_dir).glob(f"{name}_*")
+                   if p.is_dir() and pat.match(p.name)),
+                  key=lambda p: int(p.name.rsplit("_", 1)[1]))
+
+
+def load_checkpoint(path, model, optimizer=None):
+    """Load a :func:`save_checkpoint` directory into ``model`` (strict) and
+    ``optimizer`` -> meta dict (``step``, ``config``, extras)."""
+    path = Path(path)
+    dev = next(model.parameters()).device
+    model.load_state_dict(torch.load(path / "model.pt", map_location=dev,
+                                     weights_only=True), strict=True)
+    if optimizer is not None and (path / "optim.pt").exists():
+        optimizer.load_state_dict(torch.load(path / "optim.pt",
+                                             map_location=dev,
+                                             weights_only=True))
+    return json.loads((path / "meta.json").read_text())
+
+
+def latest_checkpoint(ckpt_dir, name: str = "ckpt"):
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    ckpts = _named_checkpoints(ckpt_dir, name)
+    return ckpts[-1] if ckpts else None

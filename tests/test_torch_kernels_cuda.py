@@ -21,8 +21,11 @@ from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (attention_plain,
                                                               fused_attention)
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
                                                            render_stage_plain)
+from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+    StageSpec, render_train, render_train_plain)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (resample_z,
                                                              resample_z_plain)
+from nerfmatch_tpu_torch.nerf.model import NerfConfig, NerfMLP
 
 
 @pytest.fixture
@@ -94,6 +97,104 @@ def test_resample_kernel_matches_plain(dev):
     w[3] = 0.0
     torch.testing.assert_close(resample_z(z, w), resample_z_plain(z, w),
                                atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_resample_kernel_stratified_u_matches_plain(dev):
+    """The training mode: the caller's stratified u, atol 1e-5."""
+    from nerfmatch_tpu_torch.nerf.sampling import stratified_u
+    rays, z = rays_z(256, dev)
+    g = torch.Generator(dev).manual_seed(1)
+    w = torch.rand(256, 128, device=dev, generator=g)
+    u = stratified_u(256, 129, g, dev)
+    torch.testing.assert_close(resample_z(z, w, u=u),
+                               resample_z_plain(z, w, u=u), atol=1e-5, rtol=0)
+
+
+def train_stage(hid, dev, n=64, S=128, seed=0):
+    cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=90, dirs_dim=27,
+                     use_viewdirs=True, skips=(4,))
+    mlp = init_params_(NerfMLP(cfg), torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        mlp.alpha_linear.bias += 1.0
+    mlp = mlp.to(dev)
+    rays, _ = rays_z(n, dev, seed)
+    g = torch.Generator(dev).manual_seed(seed)
+    t = torch.linspace(0, 1, S + 1, device=dev)
+    z = rays[:, 6:7] * (1 - t) + rays[:, 7:8] * t
+    mids = 0.5 * (z[:, 1:] + z[:, :-1])
+    lo, hi = torch.cat([z[:, :1], mids], 1), torch.cat([mids, z[:, -1:]], 1)
+    z = (lo + (hi - lo) * torch.rand(z.shape, device=dev, generator=g)).contiguous()
+    noise = torch.randn(n, S, device=dev, generator=g)
+    target = torch.rand(n, 3, device=dev, generator=g)
+    return StageSpec(mlp, 15, 4), rays, z, noise, target
+
+
+def stage_grads(fn, spec, rays, z, noise, target):
+    spec.mlp.zero_grad()
+    rgb, w = fn(spec, rays, z, noise)
+    loss = ((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()
+    loss.backward()
+    return rgb.detach(), w.detach(), {k: p.grad.clone() for k, p in
+                                      spec.mlp.named_parameters()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 256])
+def test_render_train_kernels_match_plain(dev, hid):
+    """Train forward (rgb, weights) at atol 5e-3 against the plain version
+    with the same bf16 operands; backward per parameter: cosine > 0.999,
+    norm ratio 1 +- 1e-2 and max error <= 3e-2 of the leaf's largest
+    gradient (f32 sums in another order; the gradients are rounded to bf16
+    on both sides); both launch counters move."""
+    spec, rays, z, noise, target = train_stage(hid, dev)
+    reset_launch_counts()
+    a_rgb, a_w, a_g = stage_grads(render_train, spec, rays, z, noise, target)
+    b_rgb, b_w, b_g = stage_grads(render_train_plain, spec, rays, z, noise,
+                                  target)
+    assert LAUNCHES["render_train_fwd"] == LAUNCHES["render_train_bwd"] == 1
+    torch.testing.assert_close(a_rgb, b_rgb, atol=5e-3, rtol=0)
+    torch.testing.assert_close(a_w, b_w, atol=5e-3, rtol=0)
+    for k, ref in b_g.items():
+        got = a_g[k]
+        assert torch.isfinite(got).all(), k
+        nr = float(ref.norm())
+        if nr < 1e-9:
+            continue
+        cos = float((got * ref).sum()) / (float(got.norm()) * nr)
+        ratio = float(got.norm()) / nr
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert cos > 0.999 and abs(ratio - 1) < 1e-2 and err < 3e-2, \
+            (k, cos, ratio, err)
+
+
+@pytest.mark.cuda
+def test_render_train_kernels_are_deterministic(dev):
+    """Two backward runs give bit-identical gradients (no atomics)."""
+    spec, rays, z, noise, target = train_stage(256, dev, seed=3)
+    _, _, g1 = stage_grads(render_train, spec, rays, z, noise, target)
+    _, _, g2 = stage_grads(render_train, spec, rays, z, noise, target)
+    for k in g1:
+        assert torch.equal(g1[k], g2[k]), k
+
+
+@pytest.mark.cuda
+def test_train_kernel_raises_on_unported_configs(dev):
+    """Appearance embeddings, uninstantiated widths, odd ray counts and
+    sample counts off the 64-row chunk raise instead of running plain."""
+    spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64)
+    app = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
+                             app_dim=16, use_viewdirs=True)).to(dev)
+    wide = NerfMLP(NerfConfig(layer_num=8, hid_dim=128, xyz_dim=90,
+                              dirs_dim=27, use_viewdirs=True)).to(dev)
+    for bad in (StageSpec(app, 15, 4), StageSpec(wide, 15, 4)):
+        with pytest.raises(NotImplementedError):
+            render_train(bad, rays, z, noise)
+    with pytest.raises(NotImplementedError):
+        render_train(spec, rays[:3], z[:3], noise[:3])
+    with pytest.raises(NotImplementedError):
+        render_train(spec, rays, z[:, :33].contiguous(),
+                     noise[:, :32].contiguous())
 
 
 @pytest.mark.cuda
