@@ -1,5 +1,5 @@
-"""nerfmatch_tpu_torch -- NeRFMatch localization and per-scene NeRF
-training in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
+"""nerfmatch_tpu_torch -- NeRFMatch localization, per-scene NeRF training
+and matcher training in PyTorch, with hand-written CUDA kernels for NVIDIA Hopper
 (sm_90a).
 
 A port of ``nerfmatch_tpu`` (the JAX reference, which stays beside it).
@@ -8,11 +8,16 @@ Module paths mirror the reference:
   nerf      mip-NeRF ops + renderer (eval and train render, resample kernels)
   models    ConvFormer backbone, attention, coarse and c2f matchers
   ops       matching ops; ``ops/kernels`` builds and wraps ``csrc/*.cu``
-  eval      localization evaluator (PnP through ``nerfmatch_tpu.pose``)
-  data      NeRF ray dataset and its loader (numpy)
-  train     NeRF trainer, checkpoints, logging, the JAX -> torch weights
-  utils     pose-error geometry, NeRF losses, optimizers and schedules
-  cli       ``train_nerf``
+  eval      localization evaluator, scene-point cache
+  pose      host PnP + RANSAC (C++ through ctypes)
+  data      NeRF ray and matcher pair datasets, their loader (numpy)
+  train     NeRF and matcher trainers, checkpoints, logging, the JAX ->
+            torch weights
+  utils     pose-error geometry, losses, optimizers and schedules
+  config    YAML configs as namespaces
+  cli       ``train_nerf``, ``train_nerfmatch``, ``eval_nerf``
+
+The package imports nothing of ``nerfmatch_tpu`` or ``jax``.
 
 Importing the package needs neither ``nvcc`` nor a GPU: kernels build at
 their first launch on a CUDA tensor.  CPU tensors run each kernel's plain

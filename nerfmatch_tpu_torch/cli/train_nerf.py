@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import argparse
 
-from nerfmatch_tpu.config import load_yaml_config, merge_configs
-
+from ..config import load_yaml_config, merge_configs
 from ..train.nerf_trainer import train
 
 

@@ -2,7 +2,7 @@
 ``nerfmatch_tpu/eval/match_evaluator.py: NeRFMatchEvaluator``).
 
 Per query: match the image against scene points (NeRF descriptors + 3D
-points), solve PnP on the host (``nerfmatch_tpu.pose``, C++ through
+points), solve PnP on the host (``nerfmatch_tpu_torch.pose``, C++ through
 ctypes), and with ``iters > 1`` re-render the scene points at the pose
 estimate and match again.  Single-shot and ``iters > 1``, at bs=1 and at
 ``eval_bs > 1``.  Batches are dicts of numpy arrays: image (B, H, W, 3),
@@ -15,11 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nerfmatch_tpu.pose import estimate_pose
-
 from ..models.layers import init_params_
 from ..models.matcher_c2f import C2FMatcherConfig, NeRFMatcherMS
 from ..models.matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
+from ..pose import estimate_pose
 from ..utils.geometry import pose_err
 
 

@@ -1,7 +1,9 @@
-"""ConvFormer (MetaFormer with SepConv mixers) stages 0-1, inference
-(counterpart of ``nerfmatch_tpu/models/backbone.py``).
+"""ConvFormer (MetaFormer with SepConv mixers) stages 0-1 (counterpart of
+``nerfmatch_tpu/models/backbone.py``).
 
-NHWC at the boundaries; the convolutions run as ``F.conv2d`` in NCHW.
+NHWC at the boundaries; the convolutions run as ``F.conv2d`` in NCHW, except
+the token mixers' StarReLU + 7x7 depthwise conv, which CUDA tensors run
+through the fused ``dw_star`` kernels where the JAX package's gate allows.
 Module names follow the reference (timm ``FeatureListNet`` flattening:
 ``stem``, ``stages_0``, ``stages_1``); the two-scale variant wraps the
 trunk in ``.model`` and keeps its FPN convs on the wrapper, as the
@@ -16,6 +18,8 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..ops.kernels.sepconv_kernel import dw_star, dw_star_available
 
 _LN_EPS = 1e-6
 _BN_EPS = 1e-5
@@ -92,8 +96,15 @@ class SepConv(nn.Module):
         self.pwconv2 = nn.Linear(mid, dim)
 
     def forward(self, x):
-        h = self.act1(self.pwconv1(x))
-        return self.pwconv2(conv_nhwc(self.dwconv, h))
+        h = self.pwconv1(x)
+        w = self.dwconv.weight[:, 0].permute(1, 2, 0)            # (K, K, C)
+        if h.device.type == "cuda" and dw_star_available(h, w):
+            # StarReLU + depthwise conv fused (kernels 7, 8, 9): the same
+            # shapes the JAX package routes through its dw_star.
+            h = dw_star(h, w, self.dwconv.bias, self.act1.scale,
+                        self.act1.bias)
+            return self.pwconv2(h)
+        return self.pwconv2(conv_nhwc(self.dwconv, self.act1(h)))
 
 
 class Mlp(nn.Module):

@@ -1,5 +1,5 @@
-"""NeRFMatch coarse-to-fine matcher ("Full"), inference (counterpart of
-``nerfmatch_tpu/models/matcher_c2f.py``).
+"""NeRFMatch coarse-to-fine matcher ("Full"), inference and training
+(counterpart of ``nerfmatch_tpu/models/matcher_c2f.py``).
 
 Two-scale ConvFormer (1/8 coarse, 1/2 fine), the coarse path of the Mini
 model, then per image token: the 5x5 window of the fine map around it, a
@@ -20,6 +20,7 @@ from torch.nn import functional as F
 
 from ..ops.dsnt import heatmap_expectation_with_std
 from ..ops.gather import take_rows, take_rows_b
+from ..ops.matching import dual_softmax, extract_mutual_matches
 from .attention import SelfAttentionBlock, set_attention_bf16
 from .backbone import MetaFormerMS
 from .matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
@@ -35,6 +36,9 @@ class C2FMatcherConfig(CoarseMatcherConfig):
     fine_stride: int = 4
     cat_c_feat: bool = True
     use_merged_fine: bool = False
+    coarse_percent: float = 0.3
+    coarse_dthres: float = 20.0
+    fine_loss: str = "match"
 
 
 class NeRFMatcherMS(NeRFMatcherCoarse):
@@ -121,22 +125,31 @@ class NeRFMatcherMS(NeRFMatcherCoarse):
         return self.fine_matching(pt_sel, wins)
 
     def forward_match(self, img, pt_feat, pt3d, im_mask=None, pt_mask=None,
-                      mutual: bool = False, match_thres: float = 0.0):
+                      mutual: bool = False, match_thres: float = 0.0,
+                      ret_feats: bool = False):
         """Dense c2f forward: the fine stage runs for every image token with
-        its best point; ``valid`` masks the tokens without a match."""
+        its best point; ``valid`` masks the tokens without a match.
+        ``ret_feats`` adds the L2-normalized coarse features."""
         im_cfeat, fmap_f = self.extract_im_feat_ms(img)
         pt_cfeat = self.extract_pt_feat(pt_feat, pt3d)
         im_cfeat, pt_cfeat = self.apply_coarse_former(im_cfeat, pt_cfeat)
-        conf, matches = self.coarse_match(im_cfeat, pt_cfeat, im_mask, pt_mask,
-                                          mutual, match_thres)
+        conf, im_n, pt_n = dual_softmax(
+            im_cfeat, pt_cfeat, self.temperature, im_mask, pt_mask,
+            temp_type=self.cfg.temp_type)
+        matches = extract_mutual_matches(conf, mutual=mutual,
+                                         threshold=match_thres)
         B, M = matches["j_ids"].shape
         dev = conf.device
         b_ids = torch.arange(B, device=dev).repeat_interleave(M)
         i_ids = torch.arange(M, device=dev).repeat(B)
+        j_ids = matches["j_ids"].reshape(-1)
         expec_f = self.forward_fine(fmap_f, im_cfeat, pt_cfeat, b_ids, i_ids,
-                                    matches["j_ids"].reshape(-1),
-                                    identity_list=True)
-        return dict(conf_matrix=conf, expec_f=expec_f, **matches)
+                                    j_ids, identity_list=True)
+        out = dict(conf_matrix=conf, expec_f=expec_f, fine_b_ids=b_ids,
+                   fine_i_ids=i_ids, fine_j_ids=j_ids, **matches)
+        if ret_feats:
+            out.update(im_cfeat=im_n, pt_cfeat=pt_n)
+        return out
 
     def fine_coords(self, expec_f, mpt2d_c):
         """Window-normalized offsets -> image-resolution fine coords."""

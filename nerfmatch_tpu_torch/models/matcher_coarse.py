@@ -1,5 +1,5 @@
-"""NeRFMatch coarse matcher ("Mini"), inference (counterpart of
-``nerfmatch_tpu/models/matcher_coarse.py``).
+"""NeRFMatch coarse matcher ("Mini"), inference and training (counterpart
+of ``nerfmatch_tpu/models/matcher_coarse.py``).
 
 Image: ConvFormer 1/8 map -> [proj] -> sine PE -> self-attention.  Points:
 NeRF descriptors -> [proj] -> Fourier PE concat+proj (pre or post SA) ->
@@ -108,8 +108,12 @@ class NeRFMatcherCoarse(nn.Module):
     def _build_match_trunk(self):
         cfg = self.cfg
         d = cfg.cfeat_dim
+        # The div (LoFTR) temperature is frozen, as in the reference
+        # (requires_grad=False; the JAX package stops its gradient and keeps
+        # it out of weight decay); trainers leave it out of the optimizer.
         self.temperature = nn.Parameter(
-            torch.tensor(0.1 if cfg.temp_type == "div" else 10.0))
+            torch.tensor(0.1 if cfg.temp_type == "div" else 10.0),
+            requires_grad=cfg.temp_type != "div")
         if cfg.effective_pt_dim != d:
             self.pt_proj = nn.Linear(cfg.effective_pt_dim, d)
         if cfg.pt_pe_dim > 0:
@@ -182,22 +186,22 @@ class NeRFMatcherCoarse(nn.Module):
             im_cfeat, pt_cfeat = ca(im_cfeat, pt_cfeat), ca(pt_cfeat, im_cfeat)
         return im_cfeat, pt_cfeat
 
-    def coarse_match(self, im_cfeat, pt_cfeat, im_mask, pt_mask, mutual,
-                     match_thres):
-        conf, im_n, pt_n = dual_softmax(
-            im_cfeat, pt_cfeat, self.temperature, im_mask, pt_mask,
-            temp_type=self.cfg.temp_type)
-        return conf, extract_mutual_matches(conf, mutual=mutual,
-                                            threshold=match_thres)
-
     def forward_match(self, img, pt_feat, pt3d, im_mask=None, pt_mask=None,
-                      mutual: bool = False, match_thres: float = 0.0):
+                      mutual: bool = False, match_thres: float = 0.0,
+                      ret_feats: bool = False):
+        """-> dict(conf_matrix, j_ids, mconf, valid[, im_cfeat, pt_cfeat]);
+        ``ret_feats`` adds the L2-normalized features the dual softmax saw."""
         im_cfeat = self.extract_im_feat(img)
         pt_cfeat = self.extract_pt_feat(pt_feat, pt3d)
         im_cfeat, pt_cfeat = self.apply_coarse_former(im_cfeat, pt_cfeat)
-        conf, matches = self.coarse_match(im_cfeat, pt_cfeat, im_mask, pt_mask,
-                                          mutual, match_thres)
-        return dict(conf_matrix=conf, **matches)
+        conf, im_n, pt_n = dual_softmax(
+            im_cfeat, pt_cfeat, self.temperature, im_mask, pt_mask,
+            temp_type=self.cfg.temp_type)
+        out = dict(conf_matrix=conf, **extract_mutual_matches(
+            conf, mutual=mutual, threshold=match_thres))
+        if ret_feats:
+            out.update(im_cfeat=im_n, pt_cfeat=pt_n)
+        return out
 
     @torch.no_grad()
     def eval_match(self, img, pt_feat, pt3d, im_mask=None, pt_mask=None,

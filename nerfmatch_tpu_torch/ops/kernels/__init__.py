@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels (``nerfmatch_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into a shared library
-with a plain C interface, loaded through ``ctypes``.  The build happens at
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together (the build's wall time is that of the slowest file), and one more
+links the objects into a shared library with a plain C interface, loaded
+through ``ctypes``.  The build happens at
 the first kernel launch on a CUDA device, never at import, so the package
 imports on hosts without ``nvcc`` or a GPU.  The library is cached under
 ``build/kernels/<hash>/`` next to the package, keyed by a hash of the
@@ -25,12 +27,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 # Launch counts by kernel name; incremented by each wrapper where it launches.
 LAUNCHES = {"render_coarse": 0, "render_fine": 0, "resample": 0,
-            "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0}
+            "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0,
+            "attention_bwd": 0, "dw_star_fwd": 0, "dw_star_dgrad": 0,
+            "dw_star_wgrad": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +61,15 @@ _SIGNATURES = {
                                  _P, _P, _P, _P],
     # q, k, v, out, B, L, S, H, D, bf16, stream
     "nm_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, g, dq, dk, dv, stats, B, L, S, H, D, bf16, stream
+    "nm_attention_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P],
+    # x, w, cbias, sb, y, B, H, W, C, K, stream
+    "nm_dw_star_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g, w, sb, dx, part, B, H, W, C, K, stream
+    "nm_dw_star_dgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g, sb, part, B, H, W, C, K, stream
+    "nm_dw_star_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
@@ -94,18 +108,40 @@ def build() -> Path:
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"lib.tmp{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = _nvcc()
+    # Objects and the library are written under per-process names, and only
+    # the finished library is renamed into place: two processes that build
+    # at once never read each other's half-written files.
+    pid = os.getpid()
+    objs = [out_dir / f"{src.stem}.tmp{pid}.o" for src in srcs]
+    tmp = out_dir / f"lib.tmp{pid}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src, obj in zip(srcs, objs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        logs.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout
-                                       + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    (out_dir / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=secs, cached=False,
-                      log=proc.stderr)
+                      log="\n".join(logs))
     return lib
 
 

@@ -1,5 +1,6 @@
 """Fixed-shape coarse matching ops (counterpart of
-``nerfmatch_tpu/ops/matching.py``, inference half).
+``nerfmatch_tpu/ops/matching.py``), including the training-time GT padding
+of the match list.
 
 The similarity that decides matches stays full f32: callers keep
 ``torch.backends.cuda.matmul.allow_tf32`` off."""
@@ -52,6 +53,73 @@ def extract_mutual_matches(conf, mutual: bool = True, threshold: float = 0.0):
     mconf = torch.gather(conf, 2, j_ids[..., None].long())[..., 0]
     mconf = torch.where(valid, mconf, torch.zeros_like(mconf))
     return {"j_ids": j_ids, "mconf": mconf, "valid": valid}
+
+
+def pad_match_budgets(B: int, M: int, N: int, coarse_percent: float = 0.3,
+                      train_percent: float = 0.3):
+    """(train_num, pred_budget): the fixed list length and the slots that
+    prefer predicted matches."""
+    train_num = int(B * min(M, N) * train_percent)
+    return train_num, int(train_num * coarse_percent)
+
+
+def pad_match_draws(matches, conf_gt, train_num: int, generator=None):
+    """The three draws of :func:`pad_matches_with_gt` from ``generator``:
+    ``pred_pick`` (uniform over valid predictions, or over all tokens when
+    none is valid), ``row_pick`` (a (b, i) row with probability proportional
+    to its GT positives, uniform when there are none) and ``gt_j`` (uniform
+    over the picked row's positives, over all columns when there are none)."""
+    B, M, N = conf_gt.shape
+    # torch.where, not a host branch: no device sync in the train step.
+    valid = matches["valid"].reshape(-1).float()
+    w = torch.where(valid.any(), valid, torch.ones_like(valid))
+    pred_pick = torch.multinomial(w, train_num, replacement=True,
+                                  generator=generator)
+    gt_pos = (conf_gt.reshape(B * M, N) > 0).float()
+    row_w = gt_pos.sum(1)
+    any_gt = row_w.any()
+    row_pick = torch.multinomial(torch.where(any_gt, row_w, 1.0), train_num,
+                                 replacement=True, generator=generator)
+    gt_j = torch.multinomial(torch.where(any_gt, gt_pos[row_pick], 1.0), 1,
+                             replacement=True, generator=generator)[:, 0]
+    return {"pred_pick": pred_pick, "row_pick": row_pick, "gt_j": gt_j}
+
+
+def pad_matches_with_gt(matches, conf_gt, coarse_percent: float = 0.3,
+                        train_percent: float = 0.3, generator=None,
+                        draws=None):
+    """Fixed-budget train-time match list: predicted matches padded with GT
+    (the JAX ``pad_matches_with_gt``).
+
+    ``train_num = B * min(M, N) * train_percent`` slots; the first
+    ``train_num * coarse_percent`` take a predicted match where any exists,
+    the rest a GT positive drawn row-first (row by its positive count, then a
+    column of the row).  With no GT positives the GT slots are garbage and
+    ``valid`` is False there.  Draws come from ``draws`` (keys of
+    :func:`pad_match_draws`) or ``generator``.  Returns dict(b_ids, i_ids,
+    j_ids, mconf, is_pred, valid) of length train_num."""
+    B, M, N = conf_gt.shape
+    train_num, pred_budget = pad_match_budgets(B, M, N, coarse_percent,
+                                               train_percent)
+    if draws is None:
+        draws = pad_match_draws(matches, conf_gt, train_num, generator)
+    dev = conf_gt.device
+    pred_pick, row_pick, gt_j = (torch.as_tensor(draws[k], device=dev).long()
+                                 for k in ("pred_pick", "row_pick", "gt_j"))
+    valid_flat = matches["valid"].reshape(-1)
+    any_pred = valid_flat.any()
+    any_gt = (conf_gt > 0).any()
+    slot = torch.arange(train_num, device=dev)
+    use_pred = (slot < pred_budget) & any_pred & valid_flat[pred_pick]
+    pred_j = matches["j_ids"].reshape(-1)[pred_pick].long()
+    pick = lambda p, g: torch.where(use_pred, p, g).to(torch.int32)
+    return {"b_ids": pick(pred_pick // M, row_pick // M),
+            "i_ids": pick(pred_pick % M, row_pick % M),
+            "j_ids": pick(pred_j, gt_j),
+            "mconf": torch.where(use_pred,
+                                 matches["mconf"].reshape(-1)[pred_pick],
+                                 torch.zeros((), device=dev)),
+            "is_pred": use_pred, "valid": use_pred | any_gt}
 
 
 def dense_to_match_lists(matches, max_matches: int):

@@ -12,6 +12,11 @@ torch-native counterparts of the JAX package's orbax checkpoints: a
 ``<name>_<step>`` directory holding ``model.pt`` (the module's state dict,
 reference key names), ``optim.pt`` and ``meta.json`` (step, config, extras
 such as ``best_psnr``), with the ``keep`` newest of each name kept.
+
+The matcher trainer's warm starts: ImageNet ConvFormer weights from a local
+raw-timm file (``convert_timm_backbone``), a reference Lightning matcher
+checkpoint (``load_reference_matcher_state``), or same-name same-shape
+tensors grafted from a port checkpoint (``graft_state``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from ..config import namespace2dict
 
 
 def _torch_key_for_path(path) -> str:
@@ -98,8 +105,6 @@ def save_checkpoint(ckpt_dir, step: int, model, optimizer=None, config=None,
                     name: str = "ckpt"):
     """Write ``<ckpt_dir>/<name>_<step>`` and prune older ones of the same
     name beyond ``keep``."""
-    from nerfmatch_tpu.config import namespace2dict
-
     ckpt_dir = Path(ckpt_dir)
     path = ckpt_dir / f"{name}_{step}"
     path.mkdir(parents=True, exist_ok=True)
@@ -145,3 +150,62 @@ def latest_checkpoint(ckpt_dir, name: str = "ckpt"):
         return None
     ckpts = _named_checkpoints(ckpt_dir, name)
     return ckpts[-1] if ckpts else None
+
+
+# ---------------------------------------------------------------------------
+# Matcher warm starts
+# ---------------------------------------------------------------------------
+
+def load_timm_state(ckpt) -> dict:
+    """A raw timm state dict from a local ``.pth`` (``torch.load`` with
+    ``weights_only=True``; hub wrappers under ``state_dict`` / ``model``
+    unwrapped) or ``.npz`` -> {key: f32 tensor}."""
+    ckpt = Path(ckpt)
+    if ckpt.suffix == ".npz":
+        with np.load(ckpt) as z:
+            return {k: torch.from_numpy(np.asarray(z[k], np.float32))
+                    for k in z.files}
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model"):
+        if isinstance(state, dict) and isinstance(state.get(key), dict):
+            state = state[key]
+    return {k: v.detach().float() for k, v in state.items()}
+
+
+def convert_timm_backbone(trunk: torch.nn.Module, timm_state: Mapping):
+    """Copy a raw timm MetaFormer state dict (dotted ``stages.N.`` keys) into
+    the port's ConvFormer trunk (``stages_N.``, the FeatureListNet
+    flattening) -> (loaded keys, trunk keys left at init)."""
+    remapped = {re.sub(r"^stages\.(\d+)\.", r"stages_\1.", k): v
+                for k, v in timm_state.items()}
+    return graft_state(trunk, remapped)
+
+
+def graft_state(module: torch.nn.Module, state: Mapping):
+    """Copy every entry of ``state`` whose key and shape match one of
+    ``module``'s state entries -> (copied keys, module keys left as they
+    were).  Keys only in ``state`` are ignored."""
+    own = module.state_dict()
+    take = {k: v for k, v in state.items()
+            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    with torch.no_grad():
+        for k, v in take.items():
+            own[k].copy_(torch.as_tensor(v, dtype=own[k].dtype))
+    return sorted(take), sorted(set(own) - set(take))
+
+
+def load_reference_matcher_state(ckpt_path) -> dict:
+    """A reference Lightning matcher checkpoint (a pickle: load only files you
+    trust) -> state dict with the ``model.`` prefix stripped."""
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    state = ckpt.get("state_dict", ckpt)
+    return {(k[len("model."):] if k.startswith("model.") else k):
+            torch.as_tensor(v).float() for k, v in state.items()}
+
+
+def nest_backbone(state: Mapping) -> dict:
+    """A coarse matcher's state dict keyed for the two-scale model: its trunk
+    ``backbone.X`` moves to ``backbone.model.X`` (the FPN convs sit on the
+    wrapper), the reference's ``backbone`` -> ``backbone.model`` remap."""
+    return {("backbone.model." + k[len("backbone."):]
+             if k.startswith("backbone.") else k): v for k, v in state.items()}

@@ -23,16 +23,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from nerfmatch_tpu.config import namespace2dict
-from nerfmatch_tpu.utils import get_logger
-from nerfmatch_tpu.utils.images import colorize_depth
-
+from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
+from ..utils import get_logger
 from ..utils.metrics import compute_nerf_metrics, mse2psnr
 from ..utils.optim import get_lr, init_optimizer, make_lr_schedule, set_lr
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from .logging import MetricsLogger
+from .logging import MetricsLogger, colorize_depth
 
 logger = get_logger(level="INFO", name="nerf_trainer")
 

@@ -1,10 +1,14 @@
-"""NeRF losses and image metrics (counterpart of the NeRF half of
-``nerfmatch_tpu/utils/metrics.py``): MSE / PSNR, the mip-NeRF 360
-distortion regularizer in its O(S) prefix-sum form, and the NeRF loss
-assembly."""
+"""Losses and metrics (counterpart of ``nerfmatch_tpu/utils/metrics.py``):
+MSE / PSNR, the mip-NeRF 360 distortion regularizer in its O(S) prefix-sum
+form, the NeRF loss assembly, the matcher losses (focal, feature l2, the
+two fine losses) with their ``valid`` masks and stop-gradient weights, and
+the host PnP pose metrics."""
 
 from __future__ import annotations
 
+from collections import defaultdict
+
+import numpy as np
 import torch
 
 
@@ -83,4 +87,116 @@ def compute_nerf_metrics(preds, rgb_gt, validation_mode: bool = False,
             loss = loss + distortion_loss(preds["s_fine"],
                                           preds["weights_fine"]) * ray_reg
     metrics["loss"] = loss
+    return metrics
+
+
+# ---------------------------------------------------------------------------
+# Matching losses (fixed shapes, masked)
+# ---------------------------------------------------------------------------
+
+def compute_matching_loss(conf, conf_gt, alpha: float = 0.25,
+                          gamma: float = 2.0, clamp: bool = True,
+                          valid_mask=None):
+    """Focal loss over the dual-softmax confidence matrix; conf_gt in {0, 1};
+    cells outside ``valid_mask`` count as neither positive nor negative."""
+    conf = conf.clamp(1e-6, 1 - 1e-6) if clamp else conf.clamp(1e-12, 1 - 1e-12)
+    pos, neg = conf_gt == 1, conf_gt == 0
+    if valid_mask is not None:
+        pos, neg = pos & valid_mask, neg & valid_mask
+    loss_pos = -alpha * (1 - conf) ** gamma * torch.log(conf)
+    loss_neg = -alpha * conf ** gamma * torch.log(1 - conf)
+    zero = torch.zeros((), device=conf.device)
+    pos_mean = torch.where(pos, loss_pos, zero).sum() / pos.sum().clamp(min=1)
+    neg_mean = torch.where(neg, loss_neg, zero).sum() / neg.sum().clamp(min=1)
+    return pos_mean + neg_mean
+
+
+def compute_feat_l2(im_feat, pt_feat, conf_gt):
+    """Mean L2 distance of GT-corresponding features: per-image means over
+    the positives, then the batch mean (the reference's weighting)."""
+    sq = ((im_feat ** 2).sum(-1)[:, :, None] + (pt_feat ** 2).sum(-1)[:, None, :]
+          - 2.0 * torch.einsum("bmd,bnd->bmn", im_feat, pt_feat))
+    dist = torch.sqrt(sq.clamp(min=1e-12))
+    pos = conf_gt > 0
+    per_b = torch.where(pos, dist, torch.zeros((), device=dist.device)).sum(
+        (1, 2)) / pos.sum((1, 2)).clamp(min=1)
+    return per_b.mean()
+
+
+def _std_weight(std, valid):
+    """Stop-gradient inverse-std weights normalized by their mean over the
+    ``valid`` rows."""
+    inv_std = 1.0 / std.clamp(min=1e-10)
+    vnum = valid.sum().clamp(min=1)
+    mean_inv = torch.where(valid, inv_std, torch.zeros_like(inv_std)).sum() / vnum
+    return (inv_std / mean_inv).detach(), vnum
+
+
+def compute_fine_loss_l2_std(expec_f, expec_f_gt, training: bool = True,
+                             valid=None):
+    """LoFTR local expectation loss: std-weighted l2 of window-normalized
+    offsets over the rows whose GT lies inside the window (and ``valid``);
+    ``training`` is unused, as in the reference."""
+    correct = torch.linalg.norm(expec_f_gt, ord=float("inf"), dim=1) < 1.0
+    if valid is None:
+        valid_w = torch.ones_like(correct)
+    else:
+        valid_w = valid
+        correct = correct & valid
+    weight, _ = _std_weight(expec_f[:, 2], valid_w)
+    flow_l2 = ((expec_f_gt - expec_f[:, :2]) ** 2).sum(-1)
+    return torch.where(correct, flow_l2 * weight, torch.zeros_like(flow_l2)).sum() \
+        / correct.sum().clamp(min=1)
+
+
+def compute_fine_match_loss_l2_std(mpt2d_f, mpt2d_f_gt, std, mask=None,
+                                   valid=None):
+    """Global-pixel fine loss: std-weighted l2 in image coordinates, summed
+    over ``mask & valid`` and divided by the number of valid rows."""
+    if valid is None:
+        valid = torch.ones_like(std, dtype=torch.bool)
+    weight, vnum = _std_weight(std, valid)
+    mask = valid if mask is None else mask & valid
+    flow_l2 = ((mpt2d_f - mpt2d_f_gt) ** 2).sum(-1)
+    return torch.where(mask, flow_l2 * weight, torch.zeros_like(flow_l2)).sum() / vnum
+
+
+# ---------------------------------------------------------------------------
+# Pose metrics (host: numpy + PnP)
+# ---------------------------------------------------------------------------
+
+def compute_pose_errs(K, c2w_gt, pt3d, pt2d, solver: str = "native",
+                      ransac_thres: float = 1.0, seed: int = 0):
+    """Solve PnP -> (R_err deg, t_err, inliers); inf on failure."""
+    from ..pose import estimate_pose
+    from .geometry import pose_err
+
+    res = estimate_pose(np.asarray(pt2d), np.asarray(pt3d), np.asarray(K),
+                        ransac_thres=ransac_thres, solver=solver,
+                        **({"seed": seed} if solver != "cv" else {}))
+    if res is None:
+        return float("inf"), float("inf"), []
+    R, t, inliers = res
+    w2c = np.eye(4)
+    w2c[:3, :3] = R
+    w2c[:3, 3] = t
+    r_err, t_err = pose_err(np.asarray(c2w_gt, np.float32),
+                            np.linalg.inv(w2c).astype(np.float32))
+    return float(r_err), float(t_err), inliers
+
+
+def compute_pose_metrics_host(batch_matches, solver: str = "native",
+                              rthres: float = 1.0, seed: int = 0):
+    """Per-sample pose metrics from host match arrays (dicts of pt2d, pt3d,
+    K, c2w_gt) -> defaultdict(list) of num_matches / num_inls / R_err /
+    t_err."""
+    metrics = defaultdict(list)
+    for m in batch_matches:
+        r_err, t_err, inls = compute_pose_errs(
+            m["K"], m["c2w_gt"], m["pt3d"], m["pt2d"], solver=solver,
+            ransac_thres=rthres, seed=seed)
+        metrics["num_matches"].append(len(m["pt2d"]))
+        metrics["num_inls"].append(len(inls))
+        metrics["R_err"].append(r_err)
+        metrics["t_err"].append(t_err)
     return metrics

@@ -6,7 +6,8 @@ Lookahead wrapper (k=6, alpha=0.5).  Weight decay is coupled L2 (added to
 the gradient before the update, as ``optax.add_decayed_weights`` chained
 first) for every optimizer but adamw, whose decay is decoupled.  Schedules
 are the JAX package's pure functions ``f(epoch) -> lr``; the trainer sets
-the learning rate once per epoch with :func:`set_lr`.
+the learning rate once per epoch with :func:`set_lr`.  The matcher
+trainer's batch-adaptive LR is :func:`config_adaptive_lr`.
 """
 
 from __future__ import annotations
@@ -169,3 +170,18 @@ def make_lr_schedule(config, base_lr: float | None = None):
             return mult * inner(epoch - warmup) / 1.0
 
     return sched
+
+
+def trainable_parameters(module):
+    """Parameters that train: frozen ones (``requires_grad=False``, the
+    matchers' div temperature) stay out of the optimizer, so neither a step
+    nor weight decay moves them (the JAX ``decay_mask`` plus the stopped
+    gradient)."""
+    return [p for p in module.parameters() if p.requires_grad]
+
+
+def config_adaptive_lr(config):
+    """Batch-size-adaptive LR ``clr * true_batch / cbs`` -> (lr, true_batch);
+    ``exp.batch_size`` is the global batch, so it is the true batch."""
+    true_batch = config.exp.batch_size
+    return config.optim.clr * true_batch / config.optim.cbs, true_batch

@@ -17,14 +17,17 @@ from nerfmatch_tpu_torch.models.layers import init_params_
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.ops import kernels
 from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
-from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (attention_plain,
-                                                              fused_attention)
+from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+    attention_bwd, attention_bwd_plain, attention_plain, fused_attention)
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
                                                            render_stage_plain)
 from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
     StageSpec, render_train, render_train_plain)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (resample_z,
                                                              resample_z_plain)
+from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
+    dw_star, dw_star_dgrad, dw_star_dgrad_plain, dw_star_fwd, dw_star_plain,
+    dw_star_wgrad, dw_star_wgrad_plain)
 from nerfmatch_tpu_torch.nerf.model import NerfConfig, NerfMLP
 
 
@@ -225,9 +228,109 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(NotImplementedError):
         render_stage(r.nerf_fine, rays, z, fine=True, num_freqs=15,
                      dirs_freqs=4)
-    q = torch.randn(1, 300, 2, 32, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError):
+    q = torch.randn(1, 300, 2, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError):
         fused_attention(q, q.detach(), q.detach())
+    with pytest.raises(NotImplementedError):
+        attention_bwd(q.detach(), q.detach(), q.detach(), q.detach())
+    one = torch.ones((), device=dev)
+    # 96 channels (not a multiple of 128), then a 5 x 5 filter (7 x 7 only).
+    for C, K in ((96, 7), (128, 5)):
+        x = torch.randn(1, 16, 16, C, device=dev)
+        w = torch.randn(K, K, C, device=dev)
+        for fn in (lambda: dw_star(x, w, w[0, 0], one, one),
+                   lambda: dw_star_dgrad(x, w, one, x),
+                   lambda: dw_star_wgrad(x, one, one, x, K=K)):
+            with pytest.raises(NotImplementedError):
+                fn()
+
+
+def sepconv_inputs(dev, B, H, W, C, K=7, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(B, H, W, C, device=dev, generator=g)
+    w = torch.randn(K, K, C, device=dev, generator=g) * 0.1
+    cb = torch.randn(C, device=dev, generator=g)
+    s = torch.tensor(0.9, device=dev)
+    b = torch.tensor(-0.4, device=dev)
+    up = torch.randn(B, H, W, C, device=dev, generator=g)
+    return x, w, cb, s, b, up
+
+
+def scaled_err(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 17, 9, 128), (2, 60, 60, 512),
+                                   (2, 240, 240, 256)])
+def test_dw_star_kernels_match_plain(dev, shape):
+    """Forward, dgrad and wgrad against the plain versions (f32, TF32 off):
+    y, dx and dw within 1e-4 of their largest value, ds and db within 1e-5
+    of the sum of the absolute terms (f32 sums in another order)."""
+    x, w, cb, s, b, g = sepconv_inputs(dev, *shape)
+    reset_launch_counts()
+    assert scaled_err(dw_star_fwd(x, w, cb, s, b),
+                      dw_star_plain(x, w, cb, s, b)) < 1e-4
+    dx, ds, db = dw_star_dgrad(x, w, s, g)
+    dxp, dsp, dbp = dw_star_dgrad_plain(x, w, s, g)
+    assert scaled_err(dx, dxp) < 1e-4
+    wf = torch.flip(w, (0, 1)).permute(2, 0, 1).unsqueeze(1)
+    dact = torch.nn.functional.conv2d(g.permute(0, 3, 1, 2), wf, padding=3,
+                                      groups=shape[-1])
+    r = torch.relu(x).permute(0, 3, 1, 2)
+    assert abs(float(ds - dsp)) < 1e-5 * float((dact * r * r).abs().sum())
+    assert abs(float(db - dbp)) < 1e-5 * float(dact.abs().sum())
+    assert scaled_err(dw_star_wgrad(x, s, b, g),
+                      dw_star_wgrad_plain(x, s, b, g)) < 1e-4
+    assert LAUNCHES["dw_star_fwd"] == LAUNCHES["dw_star_dgrad"] == \
+        LAUNCHES["dw_star_wgrad"] == 1
+
+
+@pytest.mark.cuda
+def test_dw_star_autograd_matches_plain_and_is_deterministic(dev):
+    """All five gradients of dw_star against autograd of the plain version,
+    and two backward runs bit-identical (no atomics)."""
+    x, w, cb, s, b, g = sepconv_inputs(dev, 2, 30, 30, 256, seed=2)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, w, cb, s, b)]
+        (fn(*ins) * g).sum().backward()
+        return [t.grad for t in ins]
+
+    a1, a2, ref = grads(dw_star), grads(dw_star), grads(dw_star_plain)
+    for got, again, want in zip(a1, a2, ref):
+        assert torch.equal(got, again)
+        assert scaled_err(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("shape", [(2, 333, 517, 8), (2, 3600, 3600, 8)])
+def test_attention_bwd_kernel_matches_plain(dev, bf16, shape):
+    """dq, dk, dv against the plain backward with the same roundings.  f32:
+    1e-4 of each output's largest value; bf16 (bf16 operands, z and dl on
+    both sides; rounding ties of z and dl broken apart by other summation
+    orders): 1e-2 of the largest value and cosine > 0.999.  Two runs are
+    bit-identical, and the autograd Function reaches the kernel."""
+    B, L, S, H = shape
+    g = torch.Generator(dev).manual_seed(0)
+    q = torch.randn(B, L, H, 32, device=dev, generator=g) * 0.3
+    k = torch.randn(B, S, H, 32, device=dev, generator=g)
+    v = torch.randn(B, S, H, 32, device=dev, generator=g)
+    up = torch.randn(B, L, H, 32, device=dev, generator=g)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = attention_bwd(q, k, v, up, bf16)
+        again = attention_bwd(q, k, v, up, bf16)
+        ref = attention_bwd_plain(q, k, v, up, bf16)
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2)
+        cos = float((a * r).sum()) / float(a.norm() * r.norm())
+        assert scaled_err(a, r) < (1e-2 if bf16 else 1e-4) and cos > 0.999
+    qq = q.clone().requires_grad_()
+    (fused_attention(qq, k, v, bf16) * up).sum().backward()
+    assert torch.equal(qq.grad, got[0])
+    assert LAUNCHES["attention_bwd"] == 3 and LAUNCHES["attention"] == 1
 
 
 def test_ctypes_signatures_match_c_entry_points():

@@ -130,14 +130,14 @@ def test_eval_batch_iters2_matches_jax(slice_pair, bs):
 
 def test_port_imports_and_runs_without_jax():
     """A fresh interpreter runs the tiny slice (render, match, PnP, iters=2)
-    through the port without importing jax."""
+    through the port without importing jax or the JAX package."""
     ncfg = {k: vars(v) if hasattr(v, "__dict__") else v
             for k, v in vars(nerf_config()).items()}
     code = f"""
 import sys, numpy as np, torch
 sys.path.insert(0, {str(ROOT)!r})
 torch.set_num_threads(1)
-from nerfmatch_tpu.config import dict2namespace
+from nerfmatch_tpu_torch.config import dict2namespace
 from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
 from nerfmatch_tpu_torch.models.layers import init_params_
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
@@ -157,7 +157,7 @@ batch = dict(image=rng.uniform(0, 1, (1, 128, 128, 3)),
              unnorm_scene=UN[None])
 res = ev.eval_batch(batch, renderer=r, iters=2, rthres=200.0)
 assert res['num_matches'][0] > 0, res
-assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] in ('jax', 'nerfmatch_tpu') for m in sys.modules)
 print('OK')
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

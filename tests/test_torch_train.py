@@ -488,13 +488,15 @@ def test_cli_train_writes_last_checkpoint_and_resumes(scene, tmp_path):
 
 def test_training_modules_import_without_jax():
     """A fresh interpreter imports every training module of the port and
-    takes one train_render step on the CPU without importing jax."""
+    takes one train_render step on the CPU without importing jax or the
+    JAX package."""
     code = f"""
 import sys, torch
 sys.path.insert(0, {str(ROOT)!r})
 import nerfmatch_tpu_torch.cli.train_nerf, nerfmatch_tpu_torch.data.loaders
 import nerfmatch_tpu_torch.train.nerf_trainer
-from nerfmatch_tpu.config import dict2namespace
+import nerfmatch_tpu_torch.cli.train_nerfmatch, nerfmatch_tpu_torch.cli.eval_nerf
+from nerfmatch_tpu_torch.config import dict2namespace
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 mlp = dict(layer_num=2, hid_dim=64, skips=[0], num_pts=16, output_dim=4)
 cfg = dict2namespace(dict(render=dict(use_viewdirs=True, white_bg=False),
@@ -508,7 +510,7 @@ rays = torch.cat([torch.zeros(4, 3), torch.tensor([[0., 0., 1.]]).repeat(4, 1),
 out = r.train_render(rays, torch.Generator().manual_seed(0))
 out['rgb_fine'].sum().backward()
 assert r.nerf_fine.pts_linears[0].weight.grad is not None
-assert 'jax' not in sys.modules
+assert not any(m.split('.')[0] in ('jax', 'nerfmatch_tpu') for m in sys.modules)
 print('OK')
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
