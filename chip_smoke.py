@@ -20,14 +20,25 @@ Phases (each prints its results; any failure exits non-zero):
    (2, 240, 240, 256) and (2, 60, 60, 512), and the attention backward at
    B=2, H=8, D=32, L=S=3600 in f32 and bf16-operand modes; each backward
    rerun must be bit-identical;
-4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) and the
-   production c2f matcher (random weights from a seed) localize three query
-   photos (the port's own 480x480 renders on the room's camera circle)
-   against scene points rendered at nearby database poses, through
+3d. the same for the int8 serving trunk: activation scales calibrated from
+   the first 1024 of 9216 rays of the room fixture, then the int8 render
+   stage (coarse, and the fine stage of ``'both'`` and ``'posttap'``) at
+   eps 0 and 1e-4 against its plain version, with the share of integer
+   activations that differ, the bf16 stage's time beside it, and the
+   two-stage render of every int8 mode against the f32 plain render;
+4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) with its
+   int8 mode resolved as the serving paths resolve it (``'coarse'``: the
+   config does not set ``render.trunk_int8``) and the production c2f
+   matcher (random weights from a seed) localize three query photos (the
+   port's own 480x480 renders on the room's camera circle) against scene
+   points rendered at nearby database poses, through
    ``NeRFMatchEvaluator.eval_batch(iters=2, mutual=True)`` (the ConvFormer
    token mixers through the fused StarReLU + depthwise-conv kernel), plus one
-   ``eval_bs=2`` request; the launch counters must show every kernel ran;
-   one request's matches are checked against the plain path on the CPU;
+   ``eval_bs=2`` request, then one request each at the opt-in
+   ``trunk_int8`` values ``'posttap'`` and ``'none'`` (its scene points and
+   matches against the default's); the launch counters must show every
+   kernel ran and the default requests on the int8 coarse stage; one
+   request's matches are checked against the plain path on the CPU;
 5. training: a 24-frame 480x480 scene rendered from the room NeRF is
    written in the dataset's layout; ``cli.train_nerf --debug`` trains on it
    with ``configs/nerf/nerf_7scenes_mip_sfm.yaml`` (only the data paths and
@@ -51,9 +62,25 @@ Phases (each prints its results; any failure exits non-zero):
    fall), 3 profiled; the launch counters must show the attention,
    attention-backward and the three StarReLU + depthwise-conv kernels ran;
    the last CLI checkpoint loads strictly into ``NeRFMatchEvaluator`` and
-   localizes one request.
+   localizes one request;
+7. the localization benchmark: ``cli.benchmark_nerfmatch`` (its ``main``,
+   in this process, so the launch counters see it) on phase 6's matcher
+   checkpoint and cached room scene, with the room NeRF saved as a
+   checkpoint for ``--nerf_path`` (``--iters 2 --mutual --rthres 10
+   --eval_bs 2``): the metrics file under the reference's tag name, finite
+   errors for every solved pose, and the int8 coarse stage in the
+   re-render.
 
-The last two lines are the kernel summary and ``{"ok": true, ...}``.
+Each kernel's line gives its bound: the larger of the bytes it must move
+(inputs read once, outputs written once) over 3.35 TB/s and its matrix
+operations over the H100's published peak for their type (989 TFLOP/s
+bf16, 1,979 TOP/s int8, 67 TFLOP/s f32 outside the tensor cores), for this
+run's inputs (the render stages count only the sample blocks early
+termination leaves), and ``library_ms``, the time of one PyTorch call
+computing the same function where there is one
+(``scaled_dot_product_attention`` for the attention forward and its
+autograd backward; none for the others).  The last two lines are the
+kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -77,6 +104,10 @@ KERNEL_SOURCES = {
                       "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
     "render_fine": ("nerfmatch_tpu_torch/csrc/render.cu",
                     "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
+    "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render.cu",
+                           "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
+    "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render.cu",
+                         "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "resample": ("nerfmatch_tpu_torch/csrc/resample.cu",
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
     "attention": ("nerfmatch_tpu_torch/csrc/attention.cu",
@@ -94,18 +125,74 @@ KERNEL_SOURCES = {
     "dw_star_wgrad": ("nerfmatch_tpu_torch/csrc/sepconv.cu",
                       "nerfmatch_tpu/ops/pallas/sepconv_kernel.py:268"),
 }
-SERVING_KERNELS = ("render_coarse", "render_fine", "resample", "attention",
-                   "dw_star_fwd")
+# The serving default (trunk_int8='coarse'), then the opt-in requests'.
+SERVING_KERNELS = ("render_coarse_int8", "render_fine", "resample",
+                   "attention", "dw_star_fwd")
+OPT_IN_KERNELS = ("render_fine_int8", "render_coarse")
 MATCH_KERNELS = ("attention", "attention_bwd", "dw_star_fwd", "dw_star_dgrad",
                  "dw_star_wgrad")
 TRAIN_KERNELS = ("render_train_fwd", "render_train_bwd", "resample")
 CAM_R, NEAR, FAR = 0.8, 0.05, 2.1        # scripts/train_bench_scene.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# H100 SXM data sheet (dense): memory rate and peak rates by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def bound(ops, nbytes):
+    """-> dict(bound_ms, bound_by): the larger of ``nbytes`` over the memory
+    rate and ``ops`` ({operand type: operations}) over the peaks."""
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def stage_macs(mlp, fine, int8_from=None):
+    """Multiply-adds per sample of a render stage's matrix products by
+    operand type: trunk layers from ``int8_from`` on int8, the others and
+    the fine stage's feature / views / rgb heads bf16, the sigma head f32."""
+    start = mlp.cfg.layer_num if int8_from is None else int8_from
+    macs = {"bf16": 0, "int8": 0, "f32": mlp.alpha_linear.in_features}
+    for i, lin in enumerate(mlp.pts_linears):
+        macs["int8" if i >= start else "bf16"] += lin.weight.numel()
+    if fine:
+        macs["bf16"] += sum(lin.weight.numel() for lin in (
+            mlp.feature_linear, mlp.views_linears[0], mlp.rgb_linear))
+    return macs
+
+
+def live_samples(weights, eps):
+    """Samples outside the blocks the render kernel skips at ``eps``
+    (``early_term_mask``): the transmittance entering a block is 1 minus the
+    weights before it, which the kernel's own output gives exactly up to
+    the first skipped block."""
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (SAMPLE_BLOCK,
+                                                               TILE_RAYS)
+
+    n, S = weights.shape
+    blk = weights.reshape(n, S // SAMPLE_BLOCK, SAMPLE_BLOCK).sum(-1)
+    t_in = 1.0 - (torch.cumsum(blk, -1) - blk)
+    dead = (t_in < eps).reshape(n // TILE_RAYS, TILE_RAYS, -1).all(1)
+    dead[:, 0] = False
+    dead = torch.cummax(dead.int(), -1).values.bool()
+    return int((~dead).sum()) * TILE_RAYS * SAMPLE_BLOCK
+
+
+def render_bound(mlp, fine, rays, z, out, eps, weight_bytes, int8_from=None):
+    """Bound of one render stage on this run's inputs and outputs."""
+    live = live_samples(out["weights"], eps) if eps > 0 else out["weights"].numel()
+    ops = {k: 2 * m * live for k, m in stage_macs(mlp, fine, int8_from).items()}
+    return bound(ops, nbytes(rays, z, *out.values()) + weight_bytes)
 
 
 def cuda_ms(fn, reps=10):
@@ -242,17 +329,24 @@ def phase_kernels(renderer, dev):
             assert scaled < tol and all(torch.isfinite(v).all()
                                         for v in a.values())
             if eps > 0:
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                rows[name] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                    **render_bound(mlp, fine, rays, z_in[name], a, eps,
+                                   nbytes(*[p for p in packed if p is not None])))
+                log(f"  bound {rows[name]['bound_ms']:.3f} ms "
+                    f"({rows[name]['bound_by']}; {live_samples(a['weights'], eps)}"
+                    f" of {a['weights'].numel()} samples outside skipped blocks)")
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
     a, b = resample_z(z, w), resample_z_plain(z, w)
     err = float((a - b).abs().max())
     ms = cuda_ms(lambda: resample_z(z, w))
     plain_ms = cuda_ms(lambda: resample_z_plain(z, w), 3)
+    rows["resample"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=None, **bound({}, nbytes(z, w, a)))
     log(f"kernel resample: max_abs_err={err:.3e} (tol 1e-4) ms={ms:.3f} "
-        f"plain_ms={plain_ms:.3f}")
+        f"plain_ms={plain_ms:.3f} bound_ms={rows['resample']['bound_ms']:.4f}")
     assert err < 1e-4
-    rows["resample"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
     g = torch.Generator(dev).manual_seed(0)
     q = torch.randn(1, 3600, 8, 32, device=dev, generator=g) / np.sqrt(32)
@@ -272,7 +366,149 @@ def phase_kernels(renderer, dev):
             f"{tols[bf16][1]:g}) ms={ms:.3f} plain_ms={plain_ms:.3f}")
         assert err < tols[bf16][0] and mean_err < tols[bf16][1]
         if bf16:   # the serving default (attn_bf16=True)
-            rows["attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            B, L, H, D = q.shape
+            lib_ms, lib_err = sdpa_forward(q, k, v, a)
+            rows["attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **bound({"bf16": 4 * B * H * L * k.shape[1] * D},
+                        nbytes(q, k, v, a)))
+            log(f"  bound {rows['attention']['bound_ms']:.4f} ms; "
+                f"scaled_dot_product_attention (bf16 operands) "
+                f"{lib_ms:.3f} ms, max abs diff to the kernel {lib_err:.2e}")
+    return rows
+
+
+def sdpa_forward(q, k, v, ref):
+    """Time of ``scaled_dot_product_attention`` on the bf16-rounded
+    (B, H, L, D) operands (q arrives pre-scaled), and its largest
+    difference to ``ref``."""
+    from torch.nn import functional as F
+
+    qb, kb, vb = (x.transpose(1, 2).to(torch.bfloat16).contiguous()
+                  for x in (q, k, v))
+    run = lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=1.0)
+    diff = float((run().transpose(1, 2).float() - ref).abs().max())
+    return cuda_ms(run), diff
+
+
+def phase_int8_kernels(renderer, dev):
+    """The int8 render stage vs its plain version at the serving path's
+    shapes, and every int8 mode's two-stage render vs the f32 plain render
+    -> summary rows."""
+    import dataclasses
+
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_mlp_int8)
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        pack_mlp, render_stage, render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_plain)
+
+    rays = camera_rays(room_c2w(0.4), 96, dev)          # 9216 rays, unit dirs
+    t = torch.linspace(0.0, 1.0, 129, device=dev)
+    z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
+    kw = dict(num_freqs=15, dirs_freqs=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = calibrate_act_scales(renderer, rays[:1024])
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    cmlp, fmlp = renderer.nerf_coarse, renderer.nerf_fine
+    tap = eval_feat_layer(fmlp.cfg)
+    int8 = {"coarse": (cmlp, False, pack_mlp_int8(cmlp, scales["coarse"], 0)),
+            "both": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"], 0, tap)),
+            "posttap": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"],
+                                                  tap + 1, tap))}
+    bf16 = {id(m): pack_mlp(m) for m in (cmlp, fmlp)}
+    wbytes = lambda q: nbytes(*q["frag"].values(), *[
+        v for k, v in q.items() if torch.is_tensor(v) and k[0] != "w"])
+    log(f"int8 calibration: {calib_ms:.1f} ms (plain f32 render of 1024 rays, "
+        f"both stages; once per scene)")
+    # Both sides quantize the same f32 values with the same roundings and
+    # multiply integers exactly; the f32 epilogue is unfused on both.  What
+    # remains: the bf16 layers and heads (as in the bf16 rows), sinf / expf
+    # against torch's in the encoding, and the compositing order.
+    tol = 5e-3
+    rows = {}
+    for eps in (0.0, 1e-4):
+        args = dict(early_term_eps=eps, **kw)
+        zc = resample_z_plain(z, render_stage_plain(
+            cmlp, rays, z, fine=False, int8=int8["coarse"][2],
+            **args)["weights"]).contiguous()
+        for mode, (mlp, fine, q) in int8.items():
+            zz = zc if fine else z
+            packed = bf16[id(mlp)]
+            run_k = lambda: render_stage(mlp, rays, zz, fine=fine,
+                                         packed=packed, int8=q, **args)
+            run_b = lambda: render_stage(mlp, rays, zz, fine=fine,
+                                         packed=packed, **args)
+            run_p = lambda: render_stage_plain(mlp, rays, zz, fine=fine,
+                                               int8=q, **args)
+            a, b = run_k(), run_p()
+            torch.cuda.synchronize()
+            err, scaled = max_err(a, b), max_err(a, b, scaled=True)
+            share = ""
+            if eps == 0:
+                ka = render_stage(mlp, rays, zz, fine=fine, packed=packed,
+                                  int8=q, debug_q=True, **args)
+                pa = render_stage_plain(mlp, rays, zz, fine=fine, int8=q,
+                                        debug_q=True, **args)
+                share = " int8 activations that differ: " + json.dumps(
+                    {k: float(f"{float((ka[k] != pa[k]).float().mean()):.3e}")
+                     for k in ("xq", "hq")})
+                del ka, pa
+            ms, bf16_ms = cuda_ms(run_k, 5), cuda_ms(run_b, 5)
+            plain_ms = cuda_ms(run_p, 2)
+            name = "render_fine_int8" if fine else "render_coarse_int8"
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=None,
+                       **render_bound(mlp, fine, rays, zz, a, eps, wbytes(q)
+                                      + nbytes(*[p for p in packed if p is not None]),
+                                      q["start"]))
+            log(f"kernel {name} ({mode}) eps={eps:g}: max_abs_err={err:.3e} "
+                f"scaled {scaled:.3e} (tol {tol:g}, vs plain int8){share} "
+                f"ms={ms:.3f} (bf16 stage {bf16_ms:.3f}) plain_ms="
+                f"{plain_ms:.3f} bound_ms={row['bound_ms']:.3f} "
+                f"({row['bound_by']})")
+            assert scaled < tol and all(torch.isfinite(v).all()
+                                        for v in a.values())
+            # The serving default's coarse stage, and the fine stage of the
+            # opt-in 'posttap' request that phase 4 serves.
+            if eps > 0 and mode in ("coarse", "posttap"):
+                rows[name] = row
+
+    # Two-stage renders of every mode against the f32 plain render, against
+    # the JAX int8 test's budget (tests/test_pallas_render.py, 'both', on 8
+    # rays of a random field).  Over 9216 rays of a scene the maxima sit at
+    # silhouette edges, where another fine z distribution switches surface:
+    # the 99th percentile over rays is reported beside them.
+    base_cfg, base_scales = renderer.cfg, renderer.act_scales
+    renderer.act_scales = scales
+    p99 = lambda x: float(torch.quantile(x.flatten().float(), 0.99))
+    try:
+        ref = renderer.render_rays(rays)
+        for mode in ("none", "coarse", "both", "posttap"):
+            renderer.cfg = dataclasses.replace(base_cfg, trunk_int8=mode,
+                                               early_term_eps=0.0)
+            out = renderer.fused_render(rays)
+            rgb_mean = float((out["rgb_fine"] - ref["rgb_fine"]).abs().mean())
+            d_rgb = (out["rgb_fine"] - ref["rgb_fine"]).abs().amax(-1)
+            d_depth = (out["depth_fine"] - ref["depth_fine"]).abs()
+            d_feat = (out["feat_fine"] - ref["feat_fine"]).abs().amax(-1) \
+                / ref["feat_fine"].abs().max()
+            within = (rgb_mean < 1e-2 and float(d_rgb.max()) < 8e-2
+                      and float(d_depth.max()) < 8e-2
+                      and float(d_feat.max()) < 0.15)
+            log(f"two-stage {mode} vs f32 plain: rgb mean {rgb_mean:.3e}, per "
+                f"ray p99 {p99(d_rgb):.3e} max "
+                f"{float(d_rgb.max()):.3e}; depth p99 {p99(d_depth):.3e} max "
+                f"{float(d_depth.max()):.3e}; feat rel p99 {p99(d_feat):.3e} "
+                f"max {float(d_feat.max()):.3e} (budget rgb mean 1e-2 / max "
+                f"8e-2, depth 8e-2, feat 0.15: maxima within {within}; rays "
+                f"with rgb over 8e-2 {float((d_rgb > 8e-2).float().mean()):.4f})")
+    finally:
+        renderer.cfg, renderer.act_scales = base_cfg, base_scales
     return rows
 
 
@@ -308,9 +544,23 @@ def scene_points(renderer, reqs, size=480):
     return batch
 
 
+def match_pairs(evaluator, batch):
+    """The first query's valid (image, point) matches."""
+    out = evaluator._match(*[batch[k][:1] for k in (
+        "image", "pt_feat", "pt3d", "im_mask", "pt_mask")], True, 0.0)
+    lists = out["lists"]
+    v = lists["valid"][0]
+    return set(zip(lists["i_ids"][0][v], lists["j_ids"][0][v]))
+
+
 def phase_serving(renderer, evaluator, dev, size=480):
+    """``renderer`` is the serving renderer (its int8 mode resolved as the
+    serving paths resolve it)."""
+    import dataclasses
+
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
 
+    default = renderer.cfg.trunk_int8
     angles = [0.3 + 2.1 * i for i in range(3)]
     reqs = [make_request(renderer, a, dev, size) for a in angles]
     kw = dict(iters=2, mutual=True, solver="colmap", rthres=10.0)
@@ -343,9 +593,47 @@ def phase_serving(renderer, evaluator, dev, size=480):
         results.append((batch, res))
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    log(f"launches during serving: {json.dumps(launches)}")
+    log(f"launches during serving at trunk_int8={default!r}: "
+        f"{json.dumps(launches)}")
     missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     assert not missing, f"kernels never launched on the main path: {missing}"
+    assert launches["render_coarse"] == 0, "the default served a bf16 coarse stage"
+
+    # The opt-in modes on request 0's inputs: its scene points and
+    # first-iteration matches against the default's.
+    base = results[0][0]
+    base_pairs = match_pairs(evaluator, base)
+    for mode in ("posttap", "none"):
+        renderer.cfg = dataclasses.replace(renderer.cfg, trunk_int8=mode)
+        t0 = time.perf_counter()
+        batch = scene_points(renderer, reqs[:1], size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = evaluator.eval_batch(batch, renderer=renderer, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pairs = match_pairs(evaluator, batch)
+        feat_ref = np.abs(base["pt_feat"]).max()
+        log("request " + json.dumps(dict(
+            trunk_int8=mode, queries=[0], scene_points_ms=(t1 - t0) * 1e3,
+            localize_ms=(t2 - t1) * 1e3, num_matches=res["num_matches"],
+            R_err_deg=res["R_err"], t_err=res["t_err"],
+            pt_feat_max_drift_rel=float(np.abs(batch["pt_feat"] - base[
+                "pt_feat"]).max() / feat_ref),
+            pt3d_max_drift=float(np.abs(batch["pt3d"] - base["pt3d"]).max()),
+            pt3d_mean_drift=float(np.abs(batch["pt3d"] - base["pt3d"]).mean()),
+            match_jaccard_vs_default=len(pairs & base_pairs)
+            / max(len(pairs | base_pairs), 1))))
+        for k in ("pt3d", "pt_feat"):
+            assert np.isfinite(batch[k]).all(), (mode, k)
+    renderer.cfg = dataclasses.replace(renderer.cfg, trunk_int8=default)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"launches during serving, opt-in requests included: "
+        f"{json.dumps(launches)}")
+    missing = [k for k in (*SERVING_KERNELS, *OPT_IN_KERNELS)
+               if launches[k] == 0]
+    assert not missing, f"kernels never launched in serving: {missing}"
     return launches, results
 
 
@@ -447,10 +735,20 @@ def phase_train_kernels(renderer, dev):
     log("  per-leaf scaled err: " + json.dumps(
         {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
     assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
-    return {"render_train_fwd": dict(max_abs_err=fwd_err, ms=ms_f,
-                                     plain_ms=plain_f),
-            "render_train_bwd": dict(max_abs_err=bwd_err, ms=ms_b,
-                                     plain_ms=plain_b)}
+    # Forward: every sample through the trunk and heads (no early
+    # termination in training).  Backward: the forward's products again
+    # (its activations are not inputs) plus the two of each product's
+    # gradient (activations and weights).
+    fwd_ops = {k: 2 * m * n * S for k, m in stage_macs(spec.mlp, True).items()}
+    w_bytes = sum(p.numel() * 2 for p in spec.mlp.parameters())   # bf16
+    g_bytes = sum(p.numel() * 4 for p in spec.mlp.parameters())   # f32 grads
+    return {"render_train_fwd": dict(
+                max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f, library_ms=None,
+                **bound(fwd_ops, nbytes(rays, z, noise, rgb, w) + w_bytes)),
+            "render_train_bwd": dict(
+                max_abs_err=bwd_err, ms=ms_b, plain_ms=plain_b, library_ms=None,
+                **bound({k: 3 * v for k, v in fwd_ops.items()},
+                        nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes))}
 
 
 def scaled_err(a, b):
@@ -522,8 +820,17 @@ def phase_matcher_kernels(dev):
         assert max(errs["ds"], errs["db"]) < 1e-5 and same
         assert all(torch.isfinite(t).all() for t in (y, dx, dw, ds, db))
         if stage == "stage 0":
-            rows.update({k: dict(max_abs_err=abs_err[k], ms=a, plain_ms=p)
+            # f32 multiply-adds of the 49 taps per element; each tensor read
+            # or written once (StarReLU + conv is no single PyTorch call).
+            taps = {"f32": 2 * 49 * x.numel()}
+            moved = {"dw_star_fwd": nbytes(x, w, cb, y),
+                     "dw_star_dgrad": nbytes(x, w, up, dx),
+                     "dw_star_wgrad": nbytes(x, up, dw)}
+            rows.update({k: dict(max_abs_err=abs_err[k], ms=a, plain_ms=p,
+                                 library_ms=None, **bound(taps, moved[k]))
                          for k, (a, p) in times.items()})
+            log("  bound_ms " + json.dumps(
+                {k: round(rows[k]["bound_ms"], 4) for k in times}))
         del x, up, y, y_p, dx, dx_p, dact, r2, rerun
 
     q = torch.randn(2, 3600, 8, 32, device=dev, generator=g) / np.sqrt(32)
@@ -551,9 +858,33 @@ def phase_matcher_kernels(dev):
             f"bit-identical {same} ms={ms:.3f} plain_ms={plain_ms:.3f}")
         assert err < tols[bf16][0] and cos > tols[bf16][1] and same
         if bf16:   # the training default (attn_bf16=True)
-            rows["attention_bwd"] = dict(max_abs_err=abs_err, ms=ms,
-                                         plain_ms=plain_ms)
+            B, L, H, D = q.shape
+            lib_ms = sdpa_backward(q, k, v, up)
+            # Five products of L x S x D per head: the logits again (the
+            # softmax is not an input), dV, dP, dQ and dK.
+            rows["attention_bwd"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms,
+                **bound({"bf16": 10 * B * H * L * k.shape[1] * D},
+                        nbytes(q, k, v, up, *got)))
+            log(f"  bound {rows['attention_bwd']['bound_ms']:.4f} ms; the "
+                f"autograd backward of scaled_dot_product_attention (bf16 "
+                f"operands) {lib_ms:.3f} ms")
     return rows
+
+
+def sdpa_backward(q, k, v, up):
+    """Time of the autograd backward of ``scaled_dot_product_attention`` on
+    the bf16-rounded (B, H, L, D) operands."""
+    from torch.nn import functional as F
+
+    with torch.enable_grad():
+        qb, kb, vb = (x.transpose(1, 2).to(torch.bfloat16).contiguous()
+                      .requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qb, kb, vb, scale=1.0)
+        g = up.transpose(1, 2).to(torch.bfloat16).contiguous()
+        return cuda_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), g,
+                                                   retain_graph=True))
 
 
 def write_room_scene(renderer, dev, root, n_frames=24, size=480):
@@ -691,15 +1022,20 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     """Matcher training data from the room NeRF: the room scene
     (``write_room_scene``), its scene points cached per frame through
     ``NerfEvaluator.cache_scene_pts`` on the ds-8 grid, and a pairs file
-    (each frame with its +-1 and +-2 neighbours) -> (cache dir, pairs file).
+    (each frame with its +-1 and +-2 neighbours), and the NeRF saved as a
+    checkpoint with this scene's config -> (cache dir, pairs file, NeRF
+    checkpoint).  The cache dir carries the feature layer's tag
+    (``inter_layer3``), from which the benchmark's re-render takes its tap.
 
     The dataset's fst normalization is set to the identity (its
     ``rescale_factor``) so the NeRF renders the scene points in the frame it
     was trained in, the frame of the images and poses."""
     import copy
 
+    from nerfmatch_tpu_torch.config import namespace2dict
     from nerfmatch_tpu_torch.eval.nerf_evaluator import NerfEvaluator
     from nerfmatch_tpu_torch.nerf.scene import compute_scene_normalization_fst
+    from nerfmatch_tpu_torch.train.checkpoint import save_checkpoint
 
     write_room_scene(renderer, dev, root, n_frames, size)
     anno = root / "room" / "transforms_train.json"
@@ -714,7 +1050,9 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     cfg.data.downsample = cfg.downsample = 8
     cfg.split = "test"                                    # every frame
     cache = NerfEvaluator(cfg, renderer).cache_scene_pts(
-        cache_dir=root / "scene_cache")
+        cache_dir=root / "inter_layer3" / "room")
+    log(f"scene-point cache served at trunk_int8="
+        f"{renderer.cfg.trunk_int8!r}")
     frames = sorted(json.loads(anno.read_text())["frames"],
                     key=lambda f: f["file_path"])
     n = len(frames)
@@ -722,15 +1060,18 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     pairs.write_text("".join(
         f"{frames[i]['file_path']} {frames[(i + d) % n]['file_path']}\n"
         for i in range(n) for d in (-2, -1, 1, 2)))
-    return cache, pairs
+    nerf_ckpt = save_checkpoint(root / "nerf" / "checkpoints", 1, renderer,
+                                config=namespace2dict(cfg), name="last")
+    return cache, pairs, nerf_ckpt
 
 
 def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
                            n_frames=24, timed_steps=30, warm_steps=100):
     """Train the c2f matcher on the room scene through the CLI (debug,
     resume), time the CLI's step with and without the loader's prefetch,
-    take coarse and timed c2f steps, localize with the checkpoint -> launch
-    counts."""
+    take coarse and timed c2f steps, localize with the checkpoint, then run
+    phase 7 on the checkpoint before the scene is removed -> (launch counts
+    of the timed c2f steps, of the benchmark)."""
     import copy
     import tempfile
 
@@ -752,8 +1093,8 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        cache, pairs = write_match_scene(renderer, nerf_cfg, dev, root,
-                                         n_frames, size)
+        cache, pairs, nerf_ckpt = write_match_scene(renderer, nerf_cfg, dev,
+                                                    root, n_frames, size)
         shapes = {k: v.shape for k, v in np.load(
             next(cache.glob("*.npy")), allow_pickle=True).item().items()}
         log(f"matcher scene: {n_frames} frames {size}x{size} and their scene "
@@ -1006,6 +1347,47 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
             np.isfinite(c2w).all() and np.isfinite([r_err, t_err]).all())
         log(f"localized with {ckpt.name}: {res['num_matches'][0]} matches, "
             f"R_err {r_err:.2f} deg, t_err {t_err:.3f}")
+        del evaluator
+        torch.cuda.empty_cache()
+        bench = phase_benchmark(ckpt, nerf_ckpt)
+    return launches, bench
+
+
+def phase_benchmark(ckpt, nerf_ckpt):
+    """Phase 7: ``cli.benchmark_nerfmatch`` on the matcher checkpoint, its
+    cached scene and the NeRF checkpoint -> launch counts."""
+    from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+
+    argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt), "--iters",
+            "2", "--mutual", "--rthres", "10", "--eval_bs", "2"]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    (avg, per_scene), = bench_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    # The reference's tag: <scene>_rth<rthres><split>[_<solver>]_itr<iters>,
+    # under <ckpt dir>/<model name>_results.
+    path = ckpt.parent / "best_tmed_results" / "room_rth10test_colmap_itr2.npy"
+    assert path.exists(), f"no metrics file {path}"
+    metrics = np.load(path, allow_pickle=True).item()
+    r_err, t_err = (np.asarray(metrics[k], np.float64) for k in ("R_err", "t_err"))
+    solved = np.isfinite(r_err) & np.isfinite(t_err)
+    assert np.array_equal(solved, np.isfinite(r_err) | np.isfinite(t_err)), \
+        "a pose with one finite and one infinite error"
+    log(f"benchmark_nerfmatch {' '.join(argv[2:])}... : {len(r_err)} queries "
+        f"in {wall:.1f} s, {int(solved.sum())} solved; per scene " + json.dumps(
+            [{k: round(m[k], 3) for k in ("t_med", "r_med", "recall",
+                                          "localize_time")} for m in per_scene])
+        + f" (t_med cm, r_med deg, recall % at 5 cm / 5 deg, localize_time "
+        f"ms per query); metrics file {path.name} with "
+        f"{sorted(metrics)}")
+    log(f"launches during the benchmark: {json.dumps(launches)}")
+    missing = [k for k in ("render_coarse_int8", "render_fine", "resample",
+                           "attention", "dw_star_fwd") if launches[k] == 0]
+    assert not missing, f"kernels never launched in the benchmark: {missing}"
     return launches
 
 
@@ -1015,9 +1397,13 @@ def main():
     args = p.parse_args()
 
     smi = phase_environment()
+    import copy
+    import dataclasses
+
     from nerfmatch_tpu_torch.config import load_yaml_config
     from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
-    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+    from nerfmatch_tpu_torch.nerf.renderer import (NerfRenderer,
+                                                   serving_int8_mode)
     from nerfmatch_tpu_torch.train.checkpoint import (load_npz_params,
                                                       state_dict_from_jax)
 
@@ -1032,6 +1418,7 @@ def main():
         f"early_term_eps={renderer.cfg.early_term_eps} feat_layer=3")
     with torch.no_grad():
         rows = phase_kernels(renderer, dev)
+        rows.update(phase_int8_kernels(renderer, dev))
     rows.update(phase_train_kernels(renderer, dev))
     with torch.no_grad():
         rows.update(phase_matcher_kernels(dev))
@@ -1043,15 +1430,26 @@ def main():
         match_cfg, device=dev,
         generator=torch.Generator().manual_seed(args.seed))
     log(f"matcher: {evaluator.model.cfg}")
+    # The serving renderer: the same weights, its int8 mode resolved as the
+    # scene-point cache and the localize-time re-render resolve it.
+    serving = copy.deepcopy(renderer)
+    serving.cfg = dataclasses.replace(serving.cfg,
+                                      trunk_int8=serving_int8_mode(nerf_cfg))
+    log(f"serving renderer: trunk_int8={serving.cfg.trunk_int8!r} "
+        f"(render.trunk_int8 in the config: "
+        f"{getattr(nerf_cfg.render, 'trunk_int8', None)!r})")
     with torch.no_grad():
-        launches, results = phase_serving(renderer, evaluator, dev)
+        launches, results = phase_serving(serving, evaluator, dev)
         phase_check(evaluator, results[0][0])
+    del serving, evaluator, results
+    torch.cuda.empty_cache()
     launches.update({k: v for k, v in phase_training(renderer, dev,
                                                      args.seed).items()
-                     if k not in SERVING_KERNELS})
+                     if k in ("render_train_fwd", "render_train_bwd")})
     # The new kernels' counts come from matcher training, where all four run.
-    match = phase_matcher_training(renderer, nerf_cfg, dev, args.seed)
+    match, bench = phase_matcher_training(renderer, nerf_cfg, dev, args.seed)
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})
+    assert bench["render_coarse_int8"] > 0
 
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     launches=launches[n], **rows[n])

@@ -30,6 +30,8 @@ def build_parser():
     p.add_argument("--cache_scene_pts", action="store_true")
     p.add_argument("--nums", type=int, default=-1)
     p.add_argument("--stop_layer", type=int, default=3)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu.")
     return p
 
 
@@ -38,7 +40,8 @@ def main(argv=None):
     if not args.cache_scene_pts:
         raise NotImplementedError("only --cache_scene_pts is ported (the PSNR "
                                   "render: ROADMAP, NeRF evaluator)")
-    evaluator = load_nerf_from_ckpt(args.ckpt, args, frame_num=args.nums)
+    evaluator = load_nerf_from_ckpt(args.ckpt, args, frame_num=args.nums,
+                                    device=args.device)
     return evaluator.cache_scene_pts(cache_dir=args.cache_dir,
                                      feat_comb=args.feat_comb,
                                      debug=args.debug)

@@ -4,7 +4,8 @@
 
 Same flags as the JAX CLI, without its compile cache and distributed
 initialization; ``--detect_anomaly`` turns on
-``torch.autograd.set_detect_anomaly``.
+``torch.autograd.set_detect_anomaly``, ``--device cpu`` trains on the CPU
+(the default is the GPU).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ def build_parser():
     parser.add_argument("--gpus", type=int, default=None,
                         help="Devices to train on (only 1 is ported).")
     parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu.")
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="Raise at the op producing a NaN in the "
                              "backward (debug only, slow).")
@@ -53,7 +56,7 @@ def main(argv=None):
         import torch
 
         torch.autograd.set_detect_anomaly(True)
-    return train(config)
+    return train(config, device=args.device)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ def build_parser():
     p.add_argument("--config", type=str, required=True)
     p.add_argument("--stage", type=str, default="c2f", choices=["coarse", "c2f"])
     p.add_argument("--debug", action="store_true")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu.")
     p.add_argument("--detect_anomaly", action="store_true",
                    help="torch.autograd.set_detect_anomaly: raise at the "
                         "op producing a NaN (debug only, slow).")
@@ -116,8 +118,8 @@ def main(argv=None, stage=None):
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     if args.stage == "coarse":
-        return train_coarse(config)
-    return train_c2f(config)
+        return train_coarse(config, device=args.device)
+    return train_c2f(config, device=args.device)
 
 
 if __name__ == "__main__":

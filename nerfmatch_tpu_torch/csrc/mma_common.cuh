@@ -6,7 +6,8 @@
 // Weight fragments: for a (K, N) matrix, K padded to a multiple of 16,
 // uint2 index ((k_step * (N / 8) + n_tile) * 32 + lane) holds the two
 // b-registers of mma.m16n8k16 for that lane (see render_kernel.py:
-// pack_fragments).
+// pack_fragments); int8 weights the same with 32-deep k steps for
+// mma.m16n8k32 (quant.py: pack_fragments_s8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +75,45 @@ __device__ __forceinline__ void mma_rows(const __nv_bfloat16* A, int lda,
       ldmatrix_x4(a, a0 + (uint32_t)((m * 16 * lda + ks * 16) * 2));
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma_bf16(acc[m][j], a, b[j]);
+    }
+  }
+}
+
+// int8 x int8 -> int32.  For a 16 x 32 int8 tile, ldmatrix's b16 pairs
+// (of the 16 x 16 b16 view) are exactly the s8 quads of the A fragment.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// acc[m][j] += A[16 * MT rows, 32 * ksteps] (int8, shared, row stride lda
+// bytes) times the int8 weight columns of n-tiles nt0 .. nt0 + NT - 1 (of
+// ntt); the fragments are laid out as the bf16 ones with 32-deep k steps
+// (quant.py: pack_fragments_s8).
+template <int MT, int NT>
+__device__ __forceinline__ void mma_rows_s8(const int8_t* A, int lda,
+                                            int ksteps,
+                                            const uint2* __restrict__ W,
+                                            int ntt, int nt0, int lane,
+                                            int (&acc)[MT][NT][4]) {
+  const uint32_t a0 = (uint32_t)__cvta_generic_to_shared(A) +
+                      (uint32_t)((lane & 15) * lda + (lane >> 4) * 16);
+  const uint2* wl = W + (size_t)nt0 * 32 + lane;
+#pragma unroll 1
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint2 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = __ldg(wl + ((size_t)ks * ntt + j) * 32);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a0 + (uint32_t)(m * 16 * lda + ks * 32));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_s8(acc[m][j], a, b[j]);
     }
   }
 }

@@ -33,6 +33,23 @@
 // fragment order, one 8-byte load per lane; 128 KB per bf16 layer, read
 // once per chunk by the block and L2-resident).  Later work: wgmma with
 // TMA-staged weights and larger row tiles.
+//
+// INT8 = true: the int8 serving trunk, replacing the trunk_int8 branch of
+// the same TPU kernel (render_kernel.py, blocked_body) and the weights of
+// nerfmatch_tpu/ops/pallas/quant.py (packed by ops/kernels/quant.py).
+// Trunk layers from int8_from on run mma.sync m16n8k32 s8 x s8 -> s32 on
+// int8 activations held in shared memory (64 x HID, plus the 64 x 96
+// quantized encoding); the f32 epilogue keeps the JAX order and rounding
+// (acc * c, then + acc_s * c_s, then + B, no FMA contraction; round half
+// even for the encoding and the posttap boundary, truncation after
+// max(y, 0.5) for hidden layers), so the integer activations equal the
+// plain version's.  The post-skip layer's two products (hidden rows and
+// encoding rows) keep separate accumulators and scale rows; each int8
+// layer runs in two halves of 32 rows to keep both in registers.  Layers
+// below int8_from, the heads and compositing are the bf16 kernel's.  What
+// bounds it: the trunk's ~1.19 T int8 operations per 9216-ray coarse
+// stage, ~0.60 ms at 1,979 TOPS.  Later work: wgmma s8 with TMA-staged
+// weights.
 
 #include <math.h>
 
@@ -62,25 +79,47 @@ struct RenderParams {
   const float* z;     // (N, S + 1) fenceposts
 };
 
+// The int8 trunk (quant.py: pack_mlp_int8), layers int8_from .. L - 1.
+struct QuantParams {
+  const uint2* W[kMaxLayers];    // int8 fragments (layer 0: encoding rows)
+  const uint2* Ws[kMaxLayers];   // post-skip layer's encoding rows, or null
+  const float* scale[kMaxLayers];    // c_i (q-domain), s_L (last layer)
+  const float* scale_s[kMaxLayers];  // the same for the encoding rows
+  const float* bias[kMaxLayers];     // B_i = b_i q_i + 0.5, b_L
+  const float* qenc;  // (kEncMax,) encoding requant row
+  const float* qh;    // (HID,) posttap boundary requant row, or null
+  const float* iq;    // (HID,) real units of the tap layer, or null
+};
+
+constexpr int kEncQStride = kEncMax + 16;  // int8; conflict-free ldmatrix
+
 template <int HID>
 struct Smem {
   static constexpr int kActStride = HID + 8;  // bf16; conflict-free ldmatrix
   static constexpr int kTapStride = HID + 8;  // f32
+  static constexpr int kActQStride = HID + 16;  // int8
   static constexpr int HV = HID / 2;
-  static size_t bytes(bool fine) {
+  static size_t bytes(bool fine, bool int8) {
     return (size_t)kRows * kActStride * 2 + (size_t)kRows * kEncStride * 2 +
            ((fine ? (size_t)kRows * kTapStride : 0) + kRows * 8 + kRows * 4 +
             2 * kRows + kWarps * kRows + kTileRays * HV +
-            kTileRays * kDirsMax + kTileRays * HID) * 4;
+            kTileRays * kDirsMax + kTileRays * HID) * 4 +
+           (int8 ? (size_t)kRows * (kActQStride + kEncQStride) : 0);
   }
 };
 
-template <int HID, bool FINE>
+// clip(round_half_even(x), -127, 127)
+__device__ __forceinline__ signed char sat_rn(float x) {
+  return (signed char)max(-127, min(127, __float2int_rn(x)));
+}
+
+template <int HID, bool FINE, bool INT8>
 __global__ void __launch_bounds__(kThreads)
-render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
-              int S, float var_scale, float log_eps, int white_bg,
-              float* out_w, float* out_depth, float* out_acc, float* out_rgb,
-              float* out_feat, float* out_pts) {
+render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
+              int int8_from, int F, int Fd, int S, float var_scale,
+              float log_eps, int white_bg, float* out_w, float* out_depth,
+              float* out_acc, float* out_rgb, float* out_feat, float* out_pts,
+              int8_t* dbg) {
   constexpr int NTT = HID / 8;                   // n-tiles of a hidden layer
   constexpr int NT = NTT / kWarps;               // per warp
   constexpr int HV = HID / 2;
@@ -88,6 +127,8 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
   constexpr int NTV = NTTV >= kWarps ? NTTV / kWarps : 1;
   constexpr int kActStride = Smem<HID>::kActStride;
   constexpr int kTapStride = Smem<HID>::kTapStride;
+  constexpr int kActQStride = Smem<HID>::kActQStride;
+  constexpr int kDbg = kEncMax + HID;            // debug row: [xq | hq]
   static_assert(NT >= 1 && NTT % kWarps == 0, "HID must be a multiple of 64");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -102,6 +143,8 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
   float* xt = sigp + kWarps * kRows;                       // kTileRays * HV
   float* dpe = xt + kTileRays * HV;                        // kTileRays * kDirsMax
   float* facc = dpe + kTileRays * kDirsMax;                // kTileRays * HID
+  int8_t* actq = reinterpret_cast<int8_t*>(facc + kTileRays * HID);
+  int8_t* encq = actq + kRows * kActQStride;               // INT8 only
   __shared__ float carry[kTileRays], acc_s[kTileRays], depth_s[kTileRays],
       tw_s[kTileRays], rgb_s[kTileRays][3];
 
@@ -123,6 +166,7 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
   for (int i = tid; i < kRows * (kEncMax - enc_dim); i += kThreads) {
     const int row = i / (kEncMax - enc_dim), j = enc_dim + i % (kEncMax - enc_dim);
     enc[row * kEncStride + j] = __float2bfloat16(0.f);
+    if (INT8) encq[row * kEncQStride + j] = 0;
   }
   if (FINE) {
     for (int i = tid; i < kTileRays * HID; i += kThreads) facc[i] = 0.f;
@@ -206,13 +250,118 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
       const float x = info[c] * exp2f((float)f);
       const float y = info[3 + c] * exp2f((float)(2 * f));
       const float damp = expf(-0.5f * y);
-      enc[row * kEncStride + j] = __float2bfloat16(damp * sinf(x));
-      enc[row * kEncStride + 3 * F + j] = __float2bfloat16(damp * sinf(x + kHalfPi));
+      const float vs = damp * sinf(x), vc = damp * sinf(x + kHalfPi);
+      enc[row * kEncStride + j] = __float2bfloat16(vs);
+      enc[row * kEncStride + 3 * F + j] = __float2bfloat16(vc);
+      if (INT8) {
+        // Quantized from the f32 encoding, not the bf16 one.
+        const signed char qs = sat_rn(__fmul_rn(vs, __ldg(q.qenc + j)));
+        const signed char qc = sat_rn(__fmul_rn(vc, __ldg(q.qenc + 3 * F + j)));
+        encq[row * kEncQStride + j] = qs;
+        encq[row * kEncQStride + 3 * F + j] = qc;
+        if (dbg != nullptr) {
+          int8_t* d = dbg + ((size_t)(ray0 + row / kSampleBlock) * S +
+                             sb * kSampleBlock + row % kSampleBlock) * kDbg;
+          d[j] = qs;
+          d[3 * F + j] = qc;
+        }
+      }
     }
     __syncthreads();
 
-    // ---- MLP trunk: bf16 mma, f32 accumulate, f32 bias + ReLU ----
+    // ---- MLP trunk: bf16 mma, f32 accumulate, f32 bias + ReLU; with
+    //      INT8, layers from int8_from on in the quantized domain ----
     for (int i = 0; i < layer_num; ++i) {
+      const bool is_tap = FINE && i == feat_layer;
+      const bool is_last = i == layer_num - 1;
+      if (INT8 && i >= int8_from) {
+        const bool from_enc = i == 0;
+        const int8_t* in = from_enc ? encq : actq;
+        const int lda = from_enc ? kEncQStride : kActQStride;
+        const int ksteps = from_enc ? kEncMax / 32 : HID / 32;
+        const uint2* ws = q.Ws[i];
+        const float* sc = q.scale[i];
+        const float* scs = q.scale_s[i];
+        const float* bq = q.bias[i];
+        // Two halves of 32 rows: the epilogue of rows 0-31 overwrites
+        // them in place while other warps still read rows 32-63.
+#pragma unroll 1
+        for (int part = 0; part < 2; ++part) {
+          int acc[2][NT][4], accs[2][NT][4];
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][j][e] = accs[m][j][e] = 0;
+          mma_rows_s8<2, NT>(in + part * 32 * lda, lda, ksteps, q.W[i], NTT,
+                             nt0, lane, acc);
+          if (ws != nullptr)
+            mma_rows_s8<2, NT>(encq + part * 32 * kEncQStride, kEncQStride,
+                               kEncMax / 32, ws, NTT, nt0, lane, accs);
+          __syncthreads();  // every warp has read these rows of the input
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const int mg = part * 2 + m;
+            float sp[2] = {0.f, 0.f};  // sigma partials (last layer)
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = frag_row(mg, 2 * h, lane);
+                const int col = frag_col(nt0 + j, 0, lane);
+                float y[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  y[e] = __fmul_rn((float)acc[m][j][2 * h + e], __ldg(sc + col + e));
+                  if (ws != nullptr)
+                    y[e] = __fadd_rn(y[e], __fmul_rn((float)accs[m][j][2 * h + e],
+                                                     __ldg(scs + col + e)));
+                  y[e] = __fadd_rn(y[e], __ldg(bq + col + e));
+                }
+                if (!is_last) {
+                  // max(y, 0.5) is the ReLU; the +0.5 in B turns truncation
+                  // into round-to-nearest.
+                  const float y0 = fmaxf(y[0], 0.5f), y1 = fmaxf(y[1], 0.5f);
+                  const signed char q0 = (signed char)__float2int_rz(fminf(y0, 127.f));
+                  const signed char q1 = (signed char)__float2int_rz(fminf(y1, 127.f));
+                  *reinterpret_cast<char2*>(actq + row * kActQStride + col) =
+                      make_char2(q0, q1);
+                  if (is_tap)
+                    *reinterpret_cast<float2*>(tap + row * kTapStride + col) =
+                        make_float2(__fmul_rn(__fsub_rn(y0, 0.5f), __ldg(q.iq + col)),
+                                    __fmul_rn(__fsub_rn(y1, 0.5f), __ldg(q.iq + col + 1)));
+                  if (dbg != nullptr && i == layer_num - 2) {
+                    int8_t* d = dbg + ((size_t)(ray0 + row / kSampleBlock) * S +
+                                       sb * kSampleBlock + row % kSampleBlock) * kDbg;
+                    d[kEncMax + col] = q0;
+                    d[kEncMax + col + 1] = q1;
+                  }
+                } else {
+                  const float v0 = fmaxf(y[0], 0.f), v1 = fmaxf(y[1], 0.f);
+                  *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) =
+                      __floats2bfloat162_rn(v0, v1);
+                  if (is_tap)
+                    *reinterpret_cast<float2*>(tap + row * kTapStride + col) =
+                        make_float2(v0, v1);
+                  sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
+                }
+              }
+            }
+            if (is_last) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                float s = sp[h];
+                s += __shfl_xor_sync(0xffffffffu, s, 1);
+                s += __shfl_xor_sync(0xffffffffu, s, 2);
+                if ((lane & 3) == 0) sigp[warp * kRows + frag_row(mg, 2 * h, lane)] = s;
+              }
+            }
+          }
+        }
+        __syncthreads();
+        continue;
+      }
       float acc[kMTiles][NT][4];
       zero_acc(acc);
       if (p.Wenc[i] != nullptr)
@@ -220,8 +369,8 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
       if (p.Wh[i] != nullptr)
         mma_rows<NT>(act, kActStride, HID / 16, p.Wh[i], NTT, nt0, lane, acc);
       __syncthreads();  // every warp has read this layer's input
-      const bool is_tap = FINE && i == feat_layer;
-      const bool is_last = i == layer_num - 1;
+      // INT8 posttap: this bf16 layer's output enters the quantized domain.
+      const bool to_q = INT8 && i == int8_from - 1;
 #pragma unroll
       for (int m = 0; m < kMTiles; ++m) {
         float sp[2] = {0.f, 0.f};  // sigma partials of rows g and g + 8
@@ -240,6 +389,18 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
                   make_float2(v0, v1);
             if (is_last)
               sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
+            if (to_q) {
+              const signed char q0 = sat_rn(__fmul_rn(v0, __ldg(q.qh + col)));
+              const signed char q1 = sat_rn(__fmul_rn(v1, __ldg(q.qh + col + 1)));
+              *reinterpret_cast<char2*>(actq + row * kActQStride + col) =
+                  make_char2(q0, q1);
+              if (dbg != nullptr && i == layer_num - 2) {
+                int8_t* d = dbg + ((size_t)(ray0 + row / kSampleBlock) * S +
+                                   sb * kSampleBlock + row % kSampleBlock) * kDbg;
+                d[kEncMax + col] = q0;
+                d[kEncMax + col + 1] = q1;
+              }
+            }
           }
         }
         if (is_last) {
@@ -396,22 +557,37 @@ render_kernel(RenderParams p, int layer_num, int feat_layer, int F, int Fd,
   }
 }
 
-template <int HID, bool FINE>
-cudaError_t launch(const RenderParams& p, int n_rays, int layer_num,
-                   int feat_layer, int F, int Fd, int S, float var_scale,
-                   float log_eps, int white_bg, float* w, float* depth,
-                   float* acc, float* rgb, float* feat, float* pts,
-                   cudaStream_t stream) {
-  const size_t bytes = Smem<HID>::bytes(FINE);
-  auto kern = render_kernel<HID, FINE>;
+template <int HID, bool FINE, bool INT8>
+cudaError_t launch(const RenderParams& p, const QuantParams& q, int n_rays,
+                   int layer_num, int feat_layer, int int8_from, int F, int Fd,
+                   int S, float var_scale, float log_eps, int white_bg,
+                   float* w, float* depth, float* acc, float* rgb, float* feat,
+                   float* pts, int8_t* dbg, cudaStream_t stream) {
+  const size_t bytes = Smem<HID>::bytes(FINE, INT8);
+  auto kern = render_kernel<HID, FINE, INT8>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const int grid = n_rays / kTileRays;
-  kern<<<grid, kThreads, bytes, stream>>>(p, layer_num, feat_layer, F, Fd, S,
-                                          var_scale, log_eps, white_bg, w,
-                                          depth, acc, rgb, feat, pts);
+  kern<<<grid, kThreads, bytes, stream>>>(p, q, layer_num, feat_layer,
+                                          int8_from, F, Fd, S, var_scale,
+                                          log_eps, white_bg, w, depth, acc,
+                                          rgb, feat, pts, dbg);
   return cudaGetLastError();
+}
+
+template <int HID>
+cudaError_t launch_hid(bool fine, bool int8, const RenderParams& p,
+                       const QuantParams& q, int n_rays, int layer_num,
+                       int feat_layer, int int8_from, int F, int Fd, int S,
+                       float var_scale, float log_eps, int white_bg, float* w,
+                       float* depth, float* acc, float* rgb, float* feat,
+                       float* pts, int8_t* dbg, cudaStream_t s) {
+  auto fn = fine ? (int8 ? launch<HID, true, true> : launch<HID, true, false>)
+                 : (int8 ? launch<HID, false, true> : launch<HID, false, false>);
+  return fn(p, q, n_rays, layer_num, feat_layer, int8_from, F, Fd, S,
+            var_scale, log_eps, white_bg, w, depth, acc, rgb, feat, pts, dbg,
+            s);
 }
 
 }  // namespace
@@ -419,12 +595,20 @@ cudaError_t launch(const RenderParams& p, int n_rays, int layer_num,
 // ptrs: host array of 3 * layer_num + 11 device pointers, in the order
 // Wenc0, Wh0, b0, ..., Wenc{L-1}, Wh{L-1}, b{L-1}, wa, ba, wf, bf, wvh, wvd,
 // bv, wr, br, rays, z (Wenc_i / Wh_i null where layer i has no such rows).
-extern "C" int nm_render_forward(const void* const* ptrs, int n_rays, int hid,
-                                 int layer_num, int feat_layer, int num_freqs,
-                                 int dirs_freqs, int samples, float var_scale,
-                                 float log_eps, int white_bg, int fine,
-                                 void* out_w, void* out_depth, void* out_acc,
-                                 void* out_rgb, void* out_feat, void* out_pts,
+// qptrs: null for the bf16 trunk, or the int8 trunk of layers int8_from ..
+// L - 1 as 5 * layer_num + 3 device pointers: per layer W, Ws, scale,
+// scale_s, bias (null below int8_from; Ws and scale_s null without
+// encoding rows), then qenc, qh (int8_from > 0), iq (fine stage, tap layer
+// quantized and not last).  dbg: null, or (n_rays, samples, 96 + hid) int8
+// receiving the quantized encoding and the last layer's int8 input.
+extern "C" int nm_render_forward(const void* const* ptrs,
+                                 const void* const* qptrs, int n_rays,
+                                 int hid, int layer_num, int feat_layer,
+                                 int int8_from, int num_freqs, int dirs_freqs,
+                                 int samples, float var_scale, float log_eps,
+                                 int white_bg, int fine, void* out_w,
+                                 void* out_depth, void* out_acc, void* out_rgb,
+                                 void* out_feat, void* out_pts, void* dbg,
                                  void* stream) {
   if (layer_num < 1 || layer_num > kMaxLayers || 6 * num_freqs > kEncMax ||
       6 * dirs_freqs + 3 > kDirsMax || n_rays % kTileRays != 0 ||
@@ -452,6 +636,32 @@ extern "C" int nm_render_forward(const void* const* ptrs, int n_rays, int hid,
   p.br = (const float*)ptrs[k++];
   p.rays = (const float*)ptrs[k++];
   p.z = (const float*)ptrs[k++];
+  QuantParams q = {};
+  const bool int8 = qptrs != nullptr;
+  if (int8) {
+    if (int8_from < 0 || int8_from >= layer_num) return (int)cudaErrorInvalidValue;
+    k = 0;
+    for (int i = 0; i < layer_num; ++i) {
+      q.W[i] = (const uint2*)qptrs[k++];
+      q.Ws[i] = (const uint2*)qptrs[k++];
+      q.scale[i] = (const float*)qptrs[k++];
+      q.scale_s[i] = (const float*)qptrs[k++];
+      q.bias[i] = (const float*)qptrs[k++];
+      if (i >= int8_from &&
+          (q.W[i] == nullptr || q.scale[i] == nullptr || q.bias[i] == nullptr ||
+           (q.Ws[i] == nullptr) != (q.scale_s[i] == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    }
+    q.qenc = (const float*)qptrs[k++];
+    q.qh = (const float*)qptrs[k++];
+    q.iq = (const float*)qptrs[k++];
+    const bool tap_q = fine && feat_layer >= int8_from && feat_layer < layer_num - 1;
+    if (q.qenc == nullptr || (int8_from > 0 && q.qh == nullptr) ||
+        (tap_q && q.iq == nullptr))
+      return (int)cudaErrorInvalidValue;
+  } else if (dbg != nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
   float* w = (float*)out_w;
   float* depth = (float*)out_depth;
   float* acc = (float*)out_acc;
@@ -459,18 +669,15 @@ extern "C" int nm_render_forward(const void* const* ptrs, int n_rays, int hid,
   float* feat = (float*)out_feat;
   float* pts = (float*)out_pts;
   cudaStream_t s = (cudaStream_t)stream;
-#define NM_RENDER_CASE(H)                                                     \
-  if (hid == H)                                                               \
-    return (int)(fine ? launch<H, true>(p, n_rays, layer_num, feat_layer,     \
-                                        num_freqs, dirs_freqs, samples,       \
-                                        var_scale, log_eps, white_bg, w,      \
-                                        depth, acc, rgb, feat, pts, s)        \
-                      : launch<H, false>(p, n_rays, layer_num, feat_layer,    \
-                                         num_freqs, dirs_freqs, samples,      \
-                                         var_scale, log_eps, white_bg, w,     \
-                                         depth, acc, rgb, feat, pts, s));
-  NM_RENDER_CASE(64)
-  NM_RENDER_CASE(256)
-#undef NM_RENDER_CASE
+  if (hid == 64)
+    return (int)launch_hid<64>(fine, int8, p, q, n_rays, layer_num, feat_layer,
+                               int8_from, num_freqs, dirs_freqs, samples,
+                               var_scale, log_eps, white_bg, w, depth, acc,
+                               rgb, feat, pts, (int8_t*)dbg, s);
+  if (hid == 256)
+    return (int)launch_hid<256>(fine, int8, p, q, n_rays, layer_num,
+                                feat_layer, int8_from, num_freqs, dirs_freqs,
+                                samples, var_scale, log_eps, white_bg, w,
+                                depth, acc, rgb, feat, pts, (int8_t*)dbg, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
 """Loader factory (counterpart of ``nerfmatch_tpu/data/loaders.py``): the
 dataset by ``config.dataset`` name (``NerfBaseDataset``, ``NeRFMatchBase``,
 ``NeRFMatchPair``), the single-scene ``scenes: [x]`` form with its
-``#scene`` substitutions, and a batch loader that stacks numpy samples, with
-the JAX loader's ordered background-thread prefetch (``num_workers > 0``)
-so the host's image decode overlaps the device step.  Multi-scene and mixed
-configs raise.
+``#scene`` substitutions, the per-scene datasets of a ``scenes`` list
+(``init_multiscene_dataset(concat=False)``, the localization benchmark's
+scene loop), and a batch loader that stacks numpy samples, with the JAX
+loader's ordered background-thread prefetch (``num_workers > 0``) so the
+host's image decode overlaps the device step.  Concatenated multi-scene and
+mixed configs raise.
 """
 
 from __future__ import annotations
@@ -107,36 +109,64 @@ class DataLoader:
             stop.set()
 
 
-def _single_scene(config):
-    """``scenes: [x]`` -> the config of scene x, with ``#scene`` replaced in
-    the scene dir and the pair files (the JAX multi-scene expansion of one
-    scene)."""
-    scenes = list(config.scenes)
-    if len(scenes) != 1:
-        raise NotImplementedError(
-            f"multi-scene configs ({len(scenes)} scenes) are not ported "
-            f"(ROADMAP: datasets and loaders)")
-    sconf = {"scene": scenes[0]}
+def _scene_config(config, scene):
+    """The config of one scene of ``config.scenes``, with ``#scene``
+    replaced in the scene dir and the pair files."""
+    sconf = {"scene": scene}
     for k, v in vars(config).items():
         if k == "scenes":
             continue
         if k in ("scene_dir", "train_pair_txt", "test_pair_txt") \
                 and isinstance(v, str) and "#" in v:
-            v = v.replace("#scene", scenes[0])
+            v = v.replace("#scene", scene)
         sconf[k] = v
     return Namespace(**sconf)
 
 
+def _single_scene(config):
+    """``scenes: [x]`` -> the config of scene x (the JAX multi-scene
+    expansion of one scene)."""
+    scenes = list(config.scenes)
+    if len(scenes) != 1:
+        raise NotImplementedError(
+            f"multi-scene configs ({len(scenes)} scenes) are not ported "
+            f"(ROADMAP: datasets and loaders)")
+    return _scene_config(config, scenes[0])
+
+
+def _dataset_class(config):
+    if config.dataset not in DATASETS:
+        raise NotImplementedError(
+            f"dataset {config.dataset!r} is not ported; the port loads "
+            f"{sorted(DATASETS)} (ROADMAP: datasets and loaders)")
+    return DATASETS[config.dataset]
+
+
+def init_multiscene_dataset(config, split: str = "train", concat: bool = True,
+                            debug: bool = False):
+    """One dataset per scene of ``config.scenes`` (``#scene`` substituted),
+    as a list (``concat=False``); the concatenated dataset is not ported."""
+    if concat:
+        raise NotImplementedError("concatenated multi-scene datasets are not "
+                                  "ported (ROADMAP: datasets and loaders)")
+    cls = _dataset_class(config)
+    return [cls(_scene_config(config, s), split=split, debug=debug)
+            for s in config.scenes]
+
+
+def init_mixed_dataset(config, split: str = "train", concat: bool = True,
+                       debug: bool = False):
+    raise NotImplementedError("mixed-dataset configs (data.datasets) are not "
+                              "ported (ROADMAP: datasets and loaders)")
+
+
 def init_data_loader(config, batch_size: int = 1, split: str = "train",
                      debug: bool = False, num_workers: int = 0):
-    if hasattr(config, "datasets") or config.dataset not in DATASETS:
-        raise NotImplementedError(
-            f"dataset {getattr(config, 'dataset', None)!r} (or a mixed config) "
-            f"is not ported; the port loads {sorted(DATASETS)} (ROADMAP: "
-            f"datasets and loaders)")
+    if hasattr(config, "datasets"):
+        init_mixed_dataset(config)
     if hasattr(config, "scenes"):
         config = _single_scene(config)
-    dataset = DATASETS[config.dataset](config, split=split, debug=debug)
+    dataset = _dataset_class(config)(config, split=split, debug=debug)
     if split == "train":
         return DataLoader(dataset, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers, drop_last=True)

@@ -5,9 +5,13 @@ Renders every view of a split on the ds grid and writes, per frame, the
 ``.npy`` schema that ``data.loading.load_frame_3d`` reads: ``pt3d`` (world
 frame), ``unnorm_scene``, ``pt_feat``, ``pt_color`` and ``cam2scene``.  This
 turns a NeRF trained by the port into matcher training data.  CUDA renders
-go through the eval render and resample kernels, CPU renders through the
-plain path.  The checkpoints are the port's own (``train.checkpoint``
-directories); the PSNR evaluation of the JAX evaluator is not ported.
+go through the eval render and resample kernels with the serving int8 mode
+(``serving_int8_mode``: the JAX package's ``'coarse'`` default when the
+config does not set ``render.trunk_int8``), CPU renders through the plain
+f32 path.  :func:`load_nerf_render_from_ckpt` is the localization
+evaluator's re-render NeRF.  The checkpoints are the port's own
+(``train.checkpoint`` directories); the PSNR evaluation of the JAX
+evaluator is not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ import torch
 
 from ..config import dict2namespace, merge_configs
 from ..data.loaders import init_data_loader
-from ..nerf.renderer import NerfRenderer
-from ..utils import get_logger
+from ..nerf.renderer import NerfRenderer, serving_int8_mode
+from ..nerf.scene import compute_scene_normalization_fst
+from ..utils import get_logger, resolve_device
 
 logger = get_logger(level="INFO", name="nerf_eval")
 
@@ -45,11 +50,46 @@ def load_renderer(ckpt_path, stop_layer: int = -1, config=None):
     return renderer, cfg
 
 
+def load_scene_normalization(config, root_dir: str = "."):
+    """The fst scene normalization recomputed from the train json (JAX
+    ``nerf_evaluator.py: load_scene_normalization``) -> the unnorm matrix."""
+    if getattr(config, "snorm_type", "fst") != "fst":
+        raise NotImplementedError(f"snorm_type={config.snorm_type!r}")
+    if getattr(config, "snorm_json", None):
+        train_json = Path(config.snorm_json)
+    elif getattr(config, "scene_anno_path", None):
+        train_json = Path(config.scene_anno_path.replace("#scene", config.scene)
+                          .replace("#split", "train"))
+    else:
+        train_json = Path(config.data_dir) / config.scene / "transforms_train.json"
+    scene2s = compute_scene_normalization_fst(
+        Path(root_dir) / train_json, config.max_frustum_depth,
+        config.rescale_factor)
+    return np.linalg.inv(scene2s)
+
+
+def load_nerf_render_from_ckpt(ckpt_path, stop_layer: int = -1,
+                               serving: bool = False, device="cuda"):
+    """The renderer of a checkpoint, on ``device``, with ``unnorm_scene``
+    attached.  ``serving=True`` (the localization re-render): resolve
+    ``trunk_int8`` through :func:`serving_int8_mode`, as the scene-point
+    cache does (an explicit ``render.trunk_int8``, ``'none'`` included,
+    wins)."""
+    device = resolve_device(device)
+    renderer, cfg = load_renderer(ckpt_path, stop_layer)
+    if serving:
+        renderer.cfg = dataclasses.replace(renderer.cfg,
+                                           trunk_int8=serving_int8_mode(cfg))
+    renderer.unnorm_scene = load_scene_normalization(cfg.data)
+    return renderer.to(device).eval()
+
+
 def load_nerf_from_ckpt(ckpt_path, args=None, root_dir: str = ".",
-                        frame_num: int = -1, device=None):
+                        frame_num: int = -1, device="cuda"):
     """A :class:`NerfEvaluator` from a checkpoint, with the reference's config
     rewrites (data root, img_wh / downsample overrides, the test split takes
-    the whole dataset)."""
+    the whole dataset), on the card unless ``device="cpu"``."""
+    device = resolve_device(device)
     stop_layer = getattr(args, "stop_layer", -1) if args else -1
     renderer, config = load_renderer(ckpt_path, stop_layer)
     config.ckpt = str(ckpt_path)
@@ -65,7 +105,6 @@ def load_nerf_from_ckpt(ckpt_path, args=None, root_dir: str = ".",
     config.data.scene_seq = None
     if getattr(config, "split", "test") != "train":
         config.data.max_sample_num = None
-    device = device or ("cuda" if torch.cuda.is_available() else "cpu")
     return NerfEvaluator(config, renderer.to(device).eval(),
                          frame_num=frame_num)
 
@@ -108,11 +147,13 @@ class NerfEvaluator:
         """Render every view of the split on the ds grid and write the
         per-frame scene points under ``<cache_dir>/ds{downsample}{feat_comb}``
         (default ``<cache of the checkpoint>/scene/...``) -> that directory.
-        ``feat_comb='max'`` and an int8 trunk raise in the CUDA kernels."""
-        changes = {"feat_comb": feat_comb}
-        if trunk_int8 is not None:
-            changes["trunk_int8"] = trunk_int8
-        self.renderer.cfg = dataclasses.replace(self.renderer.cfg, **changes)
+        ``trunk_int8`` None resolves through :func:`serving_int8_mode`; the
+        CUDA kernels serve it, the CPU path renders f32.  ``feat_comb='max'``
+        raises in the CUDA kernels."""
+        if trunk_int8 is None:
+            trunk_int8 = serving_int8_mode(self.config)
+        self.renderer.cfg = dataclasses.replace(
+            self.renderer.cfg, feat_comb=feat_comb, trunk_int8=trunk_int8)
         ds_tag = f"ds{getattr(self.config, 'downsample', 8)}{feat_comb}"
         scene_dir = (self.cache_dir / "scene" if cache_dir is None
                      else Path(cache_dir)) / ds_tag

@@ -6,10 +6,13 @@
 
 * eval, CUDA: :meth:`fused_render` -- the render kernel twice (coarse,
   fine) with the resample kernel between them (``make_fused_hierarchical``
-  semantics, including the unit-direction reparameterization).  Configs the
-  kernels do not implement raise ``NotImplementedError``.
-* eval, CPU: :meth:`render_rays`, the plain sampling / MLP / compositing
-  path (``render_rays(train=False, ret_pfeat=True, validation=True)``).
+  semantics, including the unit-direction reparameterization and the int8
+  trunk of ``cfg.trunk_int8``, with activation scales calibrated lazily
+  from the first ray batch).  Configs the kernels do not implement raise
+  ``NotImplementedError``.
+* eval, CPU: :meth:`render_rays`, the plain f32 sampling / MLP / compositing
+  path (``render_rays(train=False, ret_pfeat=True, validation=True)``), as
+  the JAX package's non-fused fallback, which serves ``'none'``.
 * training: :meth:`train_render` (``make_fused_train_hierarchical``) --
   jittered fenceposts, the train-render kernels (forward and backward) per
   stage with the randomized resample kernel between them; on CPU tensors
@@ -29,16 +32,32 @@ import torch
 from torch import nn
 
 from ..models.layers import init_params_
+from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
 from ..ops.kernels.render_kernel import TILE_RAYS, pack_mlp, render_stage
 from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
 from ..utils.geometry import unnormalize_pts
 from .compositing import composite_features, t_to_s, volume_render
 from .embedding import ipe_embedding, ipe_embedding_dim, pe_embedding
-from .model import NerfConfig, NerfMLP
+from .model import NerfConfig, NerfMLP, eval_feat_layer
 from .rays import RAY_VIEWDIR, sample_nerf_rays
 from .sampling import (jitter_fenceposts, jitter_uniforms, sample_along_rays,
                        stratified_u)
+
+
+# int8 mode of the localization serving paths (scene-point cache and the
+# localize-time re-render) when the config does not set render.trunk_int8:
+# the JAX package's gated serving default (nerfmatch_tpu/nerf/renderer.py).
+SERVING_INT8_DEFAULT = "coarse"
+INT8_MODES = ("none", "coarse", "both", "posttap")
+
+
+def serving_int8_mode(config) -> str:
+    """The int8 mode of the serving paths: an explicit ``render.trunk_int8``
+    (``'none'`` included) wins; an absent key means
+    :data:`SERVING_INT8_DEFAULT`."""
+    mode = getattr(getattr(config, "render", None), "trunk_int8", None)
+    return SERVING_INT8_DEFAULT if mode is None else mode
 
 
 def reparam_unit_dir(rays):
@@ -89,8 +108,8 @@ class RenderConfig:
             output_dim=getattr(getattr(config, "fine_nerf", None),
                                "output_dim", 4),
             early_term_eps=getattr(render, "early_term_eps", 1e-4),
-            # The JAX serving paths resolve an absent key to int8 'coarse';
-            # the port has no int8 trunk yet and resolves it to 'none'.
+            # 'none' when absent, as the JAX RenderConfig; only the serving
+            # paths resolve an absent key (serving_int8_mode).
             trunk_int8=getattr(render, "trunk_int8", None) or "none",
             perturb=bool(getattr(render, "perturb", True)),
             noise_std=float(getattr(render, "noise_std", 1.0)),
@@ -120,6 +139,7 @@ class NerfRenderer(nn.Module):
         self.fine_cfg = NerfConfig.from_namespace(
             config.fine_nerf, stop_layer=stop_layer, **common)
         self.nerf_fine = NerfMLP(self.fine_cfg)
+        self.act_scales = None   # per-scene int8 scales (calibrate_int8)
 
     @property
     def device(self):
@@ -264,15 +284,55 @@ class NerfRenderer(nn.Module):
         if cfg.feat_comb != "lin":
             raise NotImplementedError(
                 "feat_comb='max' is not in the CUDA render kernel (ROADMAP: "
-                "what remains, item 7)")
-        if cfg.trunk_int8 != "none":
-            raise NotImplementedError(
-                f"trunk_int8={cfg.trunk_int8!r}: the int8 trunk is not ported "
-                "(ROADMAP: what remains, item 7, kernel 1b)")
+                "what remains)")
+        if cfg.trunk_int8 not in INT8_MODES:
+            raise ValueError(f"trunk_int8={cfg.trunk_int8!r} not in "
+                             f"{INT8_MODES}")
         coarse_pts = (self.coarse_cfg or self.fine_cfg).num_pts
         if coarse_pts != self.fine_cfg.num_pts:
             raise NotImplementedError("fused render needs equal coarse and "
                                       "fine sample counts")
+
+    def int8_plan(self):
+        """(first int8 layer of the coarse stage, of the fine stage), None
+        for a bf16 stage: ``cfg.trunk_int8`` as ``make_fused_hierarchical``
+        maps it ('posttap' quantizes the fine trunk after the tap layer, and
+        is 'coarse' when the tap is the last layer)."""
+        mode = self.cfg.trunk_int8
+        tap, last = eval_feat_layer(self.fine_cfg), self.fine_cfg.layer_num - 1
+        fine = {"both": 0, "posttap": tap + 1 if tap < last else None}
+        return (0 if mode in ("coarse", "both", "posttap") else None,
+                fine.get(mode))
+
+    def calibrate_int8(self, rays):
+        """Per-scene int8 activation scales from a representative (N, 12)
+        ray batch (``quant.calibrate_act_scales``).  The serving paths call
+        it lazily with their first batch; call it to choose the set."""
+        self.act_scales = calibrate_act_scales(self, rays)
+        return self.act_scales
+
+    def _ensure_int8_calibrated(self, rays):
+        if self.cfg.trunk_int8 != "none" and self.act_scales is None:
+            self.calibrate_int8(rays[:min(1024, rays.shape[0])])
+
+    def pack_fused(self):
+        """Kernel weights of both stages, ((bf16 fragments, int8 trunk) of
+        the coarse stage, the same of the fine stage): the fragments only on
+        CUDA, the int8 trunk only where ``int8_plan`` quantizes."""
+        plan = self.int8_plan()
+        if any(p is not None for p in plan) and self.act_scales is None:
+            raise RuntimeError(
+                f"render.trunk_int8={self.cfg.trunk_int8!r} needs per-scene "
+                "activation scales: call calibrate_int8(rays) first "
+                "(fused_predict and render_novel_views do it lazily)")
+        cuda = self.device.type == "cuda"
+        out = []
+        for (name, mlp), start in zip(self._stages(), plan):
+            tap = eval_feat_layer(mlp.cfg) if name == "fine" else None
+            q = None if start is None else pack_mlp_int8(
+                mlp, self.act_scales[name], start, tap)
+            out.append((pack_mlp(mlp) if cuda else None, q))
+        return tuple(out)
 
     def _stage_kwargs(self):
         cfg = self.cfg
@@ -283,21 +343,21 @@ class NerfRenderer(nn.Module):
 
     def fused_render(self, rays, packed=None):
         """Two-stage fused render of (N, 12) rays, N a multiple of
-        ``TILE_RAYS``.  ``packed``: optional (coarse, fine) kernel weights
-        from :func:`pack_mlp`, to pack once for many chunks."""
+        ``TILE_RAYS``.  ``packed``: optional :meth:`pack_fused` output, to
+        pack once for many chunks."""
         self.check_fused_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
-        packed = packed or (None, None)
+        (pc, qc), (pf, qf) = packed or self.pack_fused()
         rays, nrm = reparam_unit_dir(rays)
         S = self.fine_cfg.num_pts
         t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
         z_vals = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
         kw = self._stage_kwargs()
         coarse = render_stage(coarse_mlp, rays, z_vals, fine=False,
-                              packed=packed[0], **kw)
+                              packed=pc, int8=qc, **kw)
         z_fine = resample_z(z_vals, coarse["weights"])
-        fine = render_stage(fine_mlp, rays, z_fine, fine=True,
-                            packed=packed[1], **kw)
+        fine = render_stage(fine_mlp, rays, z_fine, fine=True, packed=pf,
+                            int8=qf, **kw)
         inv = 1.0 / nrm[:, 0]
         return {"depth_coarse": coarse["depth"] * inv,
                 "rgb_fine": fine["rgb"], "depth_fine": fine["depth"] * inv,
@@ -305,17 +365,18 @@ class NerfRenderer(nn.Module):
                 "pts_fine": fine["pts"], "weights_fine": fine["weights"]}
 
     def fused_predict(self, rays, chunk_rays: int = 9216):
-        """Chunked :meth:`fused_render` over any number of rays."""
+        """Chunked :meth:`fused_render` over any number of rays; with an
+        int8 mode the scales are calibrated from the first 1024 rays when
+        there are none yet."""
         n = rays.shape[0]
         if n == 0:
             raise ValueError("fused_predict: empty ray batch")
         self.check_fused_supported()
+        self._ensure_int8_calibrated(rays)
         n_pad = (-n) % TILE_RAYS
         if n_pad:
             rays = torch.cat([rays, rays[-1:].expand(n_pad, -1)])
-        packed = None
-        if rays.device.type == "cuda":
-            packed = tuple(pack_mlp(m) for _, m in self._stages())
+        packed = self.pack_fused()
         chunk_rays -= chunk_rays % TILE_RAYS
         chunks = [self.fused_render(rays[i:i + chunk_rays].contiguous(), packed)
                   for i in range(0, rays.shape[0], chunk_rays)]
@@ -363,6 +424,9 @@ class NerfRenderer(nn.Module):
         rays = [self._view_rays(img_hw, Ks[b], c2ws[b], unnorm_scenes[b],
                                 downsample) for b in range(B)]
         n = rays[0].shape[0]
+        if rays[0].device.type == "cuda":
+            # The JAX package calibrates from the first pose's rays.
+            self._ensure_int8_calibrated(rays[0])
         preds = self.predict(torch.cat(rays))
         pts = preds["pts_fine"].reshape(B, n, 3)
         un = torch.as_tensor(np.stack([np.asarray(u) for u in unnorm_scenes]),

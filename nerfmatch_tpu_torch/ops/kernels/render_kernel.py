@@ -34,6 +34,7 @@ from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP, eval_feat_layer
 from ...nerf.sampling import frustum_moments, lift_gaussian
+from .quant import ENC_PAD
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
@@ -97,21 +98,43 @@ def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int):
         raise NotImplementedError(f"fused render config {cfg} not supported")
 
 
+def int8_pointers(mlp: NerfMLP, int8):
+    """The int8 trunk's device pointers in the order of ``nm_render_forward``'s
+    ``qptrs``: per layer (weight fragments, encoding-row fragments, scale
+    row, encoding-row scale row, bias row), null below ``int8["start"]``;
+    then qenc, qh, iq."""
+    last = mlp.cfg.layer_num - 1
+    get = lambda k: int8["frag"].get(k, int8.get(k))
+    ptrs = []
+    for i in range(mlp.cfg.layer_num):
+        pre, bias = ("s", f"b{i}") if i == last else ("c", f"B{i}")
+        keys = (f"w{i}q", f"w{i}sq", f"{pre}{i}", f"{pre}{i}s", bias)
+        ptrs += [get(k) if i >= int8["start"] else None for k in keys]
+    tap = int8["tap"]
+    return ptrs + [int8["qenc"], int8.get("qh"),
+                   int8.get(f"iq{tap}") if tap is not None else None]
+
+
 def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                  dirs_freqs: int, var_scale: float = 1.0,
                  early_term_eps: float = 0.0, white_bg: bool = False,
-                 packed=None):
-    """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts])."""
+                 packed=None, int8=None, debug_q: bool = False):
+    """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts]).
+    ``int8`` (``quant.pack_mlp_int8``): run the trunk from ``int8["start"]``
+    on in the quantized domain; ``debug_q`` adds the int8 encoding ``xq``
+    and the last layer's int8 input ``hq`` (``int8`` only)."""
     _check_config(mlp, num_freqs, dirs_freqs)
     if rays.device.type != "cuda":
         return render_stage_plain(mlp, rays, z, fine=fine, num_freqs=num_freqs,
                                   dirs_freqs=dirs_freqs, var_scale=var_scale,
                                   early_term_eps=early_term_eps,
-                                  white_bg=white_bg)
+                                  white_bg=white_bg, int8=int8,
+                                  debug_q=debug_q)
     cfg = mlp.cfg
     packed = pack_mlp(mlp) if packed is None else packed
+    qptrs = [] if int8 is None else int8_pointers(mlp, int8)
     require_cuda_tensors("render_stage", rays, z,
-                         *[p for p in packed if p is not None])
+                         *[p for p in [*packed, *qptrs] if p is not None])
     n, S = z.shape[0], z.shape[1] - 1
     if rays.dtype != torch.float32 or z.dtype != torch.float32 \
             or rays.shape != (n, 12):
@@ -121,6 +144,11 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             f"render kernel needs N % {TILE_RAYS} == 0, S % {SAMPLE_BLOCK} "
             f"== 0 and hid in {KERNEL_HIDS} (N={n}, S={S}, "
             f"hid={cfg.hid_dim})")
+    if debug_q and int8 is None:
+        raise ValueError("render_stage: debug_q needs the int8 trunk")
+    if int8 is not None and fine and int8["tap"] != eval_feat_layer(cfg):
+        raise ValueError("render_stage: the fine stage's int8 trunk must be "
+                         "packed with its tap layer")
     if torch.is_grad_enabled() and any(p.requires_grad for p in mlp.parameters()):
         raise RuntimeError("render kernel has no backward (ROADMAP kernels "
                            "5-6): call under torch.no_grad()")
@@ -132,19 +160,26 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     if fine:
         out.update(rgb=torch.empty(n, 3, **f32), feat=torch.empty(n, hid, **f32),
                    pts=torch.empty(n, 3, **f32))
+    dbg = (torch.empty(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
+           if debug_q else None)
+    ptr = lambda p: None if p is None else p.data_ptr()
     ptrs = (ctypes.c_void_p * (len(packed) + 2))(
-        *[None if p is None else p.data_ptr() for p in packed],
-        rays.data_ptr(), z.data_ptr())
+        *map(ptr, packed), rays.data_ptr(), z.data_ptr())
+    qarr = (ctypes.c_void_p * len(qptrs))(*map(ptr, qptrs)) if qptrs else None
     opt = lambda k: out[k].data_ptr() if k in out else None
     log_eps = math.log(early_term_eps) if early_term_eps > 0 else -math.inf
     err = library().nm_render_forward(
-        ptrs, n, hid, cfg.layer_num, eval_feat_layer(cfg), num_freqs,
-        dirs_freqs, S, var_scale, log_eps, int(white_bg), int(fine),
+        ptrs, qarr, n, hid, cfg.layer_num, eval_feat_layer(cfg),
+        -1 if int8 is None else int8["start"], num_freqs, dirs_freqs, S,
+        var_scale, log_eps, int(white_bg), int(fine),
         out["weights"].data_ptr(), out["depth"].data_ptr(),
         out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"),
-        stream_ptr(dev))
+        ptr(dbg), stream_ptr(dev))
     check(err, "render")
-    LAUNCHES["render_fine" if fine else "render_coarse"] += 1
+    name = "render_fine" if fine else "render_coarse"
+    LAUNCHES[name if int8 is None else name + "_int8"] += 1
+    if debug_q:
+        out.update(xq=dbg[..., :cfg.xyz_dim], hq=dbg[..., ENC_PAD:])
     return out
 
 
@@ -164,22 +199,58 @@ def early_term_mask(alpha, eps: float):
     return dead.repeat_interleave(SAMPLE_BLOCK, dim=1)
 
 
-def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool):
+def _sat8(x):
+    return torch.clamp(x, -127.0, 127.0)
+
+
+def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool,
+              int8=None, debug=None):
     """The kernel's MLP: (sigma, rgb, tap) from the encoding (..., xyz_dim)
     and the viewdir PE (..., dirs_dim).  With ``trunk_bf16`` every matrix
     product of the trunk, feature, views and rgb layers rounds its operands
     to bf16 (the dirs rows of the views layer excepted); sigma reads the f32
-    activations."""
+    activations.
+
+    ``int8`` (from ``quant.pack_mlp_int8``): the trunk layers from
+    ``int8["start"]`` on run in the quantized domain.  Integer products are
+    f32 products of integer-valued tensors, exact since every sum stays
+    below 2^24 (127^2 * 352); rounding is half-even (``torch.round``) for
+    the encoding and the posttap boundary, truncation after ``max(y, 0.5)``
+    for hidden layers.  ``debug`` (a dict) receives the int8 encoding
+    ``xq`` and the int8 input of the last layer ``hq``."""
     cfg = mlp.cfg
     rnd = (lambda x: x.to(torch.bfloat16).float()) if trunk_bf16 else (lambda x: x)
     lin = lambda x, layer: F.linear(rnd(x), rnd(layer.weight), layer.bias)
+    L = cfg.layer_num
+    start = L if int8 is None else int8["start"]
     h, tap = enc, None
-    for i, layer in enumerate(mlp.pts_linears):
-        h = torch.relu(lin(h, layer))
+    for i in range(start):
+        x = torch.cat([enc, h], dim=-1) if i > 0 and i - 1 in cfg.skips else h
+        h = torch.relu(lin(x, mlp.pts_linears[i]))
         if i == feat_layer:
             tap = h
-        if i in cfg.skips:
-            h = torch.cat([enc, h], dim=-1)
+    if int8 is not None:
+        q, E, last = int8, enc.shape[-1], L - 1
+        xq = _sat8(torch.round(enc * q["qenc"][..., :E]))
+        hq = _sat8(torch.round(h * q["qh"])) if start > 0 else None
+        for i in range(start, L):
+            inp = xq if i == 0 else hq
+            if i == last and debug is not None:
+                debug.update(xq=xq, hq=inp)
+            acc = inp @ q[f"w{i}q"][:inp.shape[-1]].float()
+            pre = "s" if i == last else "c"
+            y = acc * q[f"{pre}{i}"]
+            if f"w{i}sq" in q:
+                y = y + (xq @ q[f"w{i}sq"][:E].float()) * q[f"{pre}{i}s"]
+            if i == last:
+                h = torch.relu(y + q[f"b{i}"])
+                if i == feat_layer:
+                    tap = h
+            else:
+                y = torch.clamp(y + q[f"B{i}"], min=0.5)
+                if i == feat_layer:
+                    tap = (y - 0.5) * q[f"iq{i}"]
+                hq = torch.trunc(torch.clamp(y, max=127.0))
     sigma = F.linear(h, mlp.alpha_linear.weight, mlp.alpha_linear.bias)[..., 0]
     feature = lin(h, mlp.feature_linear)
     views = mlp.views_linears[0]
@@ -194,8 +265,12 @@ def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool):
 def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                        dirs_freqs: int, var_scale: float = 1.0,
                        early_term_eps: float = 0.0, white_bg: bool = False,
-                       trunk_bf16: bool = True):
-    """Plain PyTorch version of :func:`render_stage` (same outputs)."""
+                       trunk_bf16: bool = True, int8=None,
+                       debug_q: bool = False):
+    """Plain PyTorch version of :func:`render_stage` (same outputs).
+    ``int8``: the quantized trunk (see :func:`mlp_plain`); ``debug_q`` adds
+    its int8 encoding ``xq`` (N, S, E) and the last layer's int8 input
+    ``hq`` (N, S, hid)."""
     o, d = rays[:, 0:3], rays[:, 8:11]
     t0, t1 = z[:, :-1], z[:, 1:]
     t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
@@ -203,8 +278,10 @@ def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     mean = mean + o[:, None, :]
     enc, _ = ipe_embedding(mean, var, num_freqs)
     dirs = pe_embedding(d, dirs_freqs)[:, None, :]
-    sigma, rgb_s, tap = mlp_plain(mlp, enc, dirs, eval_feat_layer(mlp.cfg),
-                                  trunk_bf16)
+    debug = {} if debug_q else None
+    sigma, rgb_s, tap = mlp_plain(
+        mlp, enc, dirs, eval_feat_layer(mlp.cfg) if fine else -1, trunk_bf16,
+        int8=int8, debug=debug)
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * (t1 - t0))
     alpha = torch.where(early_term_mask(alpha, early_term_eps),
                         torch.zeros_like(alpha), alpha)
@@ -220,4 +297,6 @@ def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
         tw = (weights * t_mean).sum(-1, keepdim=True)
         out.update(rgb=rgb, feat=(weights[..., None] * tap).sum(1),
                    pts=o * acc[:, None] + d * tw)
+    if debug_q:
+        out.update({k: v.to(torch.int8) for k, v in debug.items()})
     return out

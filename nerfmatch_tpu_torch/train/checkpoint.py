@@ -15,7 +15,7 @@ such as ``best_psnr``), with the ``keep`` newest of each name kept.
 
 The matcher trainer's warm starts: ImageNet ConvFormer weights from a local
 raw-timm file (``convert_timm_backbone``), a reference Lightning matcher
-checkpoint (``load_reference_matcher_state``), or same-name same-shape
+checkpoint (``load_reference_checkpoint``), or same-name same-shape
 tensors grafted from a port checkpoint (``graft_state``).
 """
 
@@ -194,13 +194,15 @@ def graft_state(module: torch.nn.Module, state: Mapping):
     return sorted(take), sorted(set(own) - set(take))
 
 
-def load_reference_matcher_state(ckpt_path) -> dict:
-    """A reference Lightning matcher checkpoint (a pickle: load only files you
-    trust) -> state dict with the ``model.`` prefix stripped."""
+def load_reference_checkpoint(ckpt_path):
+    """A reference Lightning checkpoint (a pickle: load only files you trust)
+    -> (state dict with the ``model.`` prefix stripped, hyper-parameters or
+    None)."""
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     state = ckpt.get("state_dict", ckpt)
-    return {(k[len("model."):] if k.startswith("model.") else k):
-            torch.as_tensor(v).float() for k, v in state.items()}
+    return ({(k[len("model."):] if k.startswith("model.") else k):
+             torch.as_tensor(v).float() for k, v in state.items()},
+            ckpt.get("hyper_parameters"))
 
 
 def nest_backbone(state: Mapping) -> dict:

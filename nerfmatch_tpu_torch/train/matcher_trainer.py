@@ -35,7 +35,7 @@ from ..models.matcher_c2f import C2FMatcherConfig, NeRFMatcherMS
 from ..models.matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
 from ..ops.matching import (dense_to_match_lists, dual_softmax,
                             extract_mutual_matches, pad_matches_with_gt)
-from ..utils import get_logger
+from ..utils import get_logger, resolve_device
 from ..utils.metrics import (compute_feat_l2, compute_fine_loss_l2_std,
                              compute_fine_match_loss_l2_std,
                              compute_matching_loss, compute_pose_metrics_host)
@@ -43,7 +43,7 @@ from ..utils.optim import (config_adaptive_lr, get_lr, init_optimizer,
                            make_lr_schedule, set_lr, trainable_parameters)
 from .checkpoint import (convert_timm_backbone, graft_state,
                          latest_checkpoint, load_checkpoint,
-                         load_reference_matcher_state, load_timm_state,
+                         load_reference_checkpoint, load_timm_state,
                          nest_backbone, save_checkpoint)
 from .logging import MetricsLogger
 
@@ -342,7 +342,7 @@ def load_pretrained(model, model_conf):
                            weights_only=True)
         ms_ckpt = any(k.startswith("backbone.model.") for k in state)
     else:
-        state = load_reference_matcher_state(ckpt)
+        state = load_reference_checkpoint(ckpt)[0]
         ms_ckpt = ckpt == c2f_ckpt or (ckpt == finetune and ms_model)
     if ms_model and not ms_ckpt:
         state = nest_backbone(state)
@@ -365,15 +365,15 @@ def to_device(batch, keys, device):
             for k in keys if k in batch}
 
 
-def _train_matcher(config, coarse: bool):
+def _train_matcher(config, coarse: bool, device="cuda"):
     exp = config.exp
     debug = bool(getattr(exp, "debug", False))
     check_matcher_config(config)
+    device = resolve_device(device)
     np.random.seed(exp.seed)
     if not getattr(config.data, "seed", None):
         config.data.seed = exp.seed
     config.gpu_num = 1
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     if getattr(config.optim, "adapt_lr", True):
         config.optim.lr, _ = config_adaptive_lr(config)
     else:
@@ -477,9 +477,9 @@ def _train_matcher(config, coarse: bool):
     return config, model
 
 
-def train_coarse(config):
-    return _train_matcher(config, coarse=True)
+def train_coarse(config, device="cuda"):
+    return _train_matcher(config, coarse=True, device=device)
 
 
-def train_c2f(config):
-    return _train_matcher(config, coarse=False)
+def train_c2f(config, device="cuda"):
+    return _train_matcher(config, coarse=False, device=device)

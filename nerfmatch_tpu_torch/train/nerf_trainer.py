@@ -26,7 +26,7 @@ import torch
 from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
-from ..utils import get_logger
+from ..utils import get_logger, resolve_device
 from ..utils.metrics import compute_nerf_metrics, mse2psnr
 from ..utils.optim import get_lr, init_optimizer, make_lr_schedule, set_lr
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -91,10 +91,10 @@ class NerfTrainer:
     """Holds the renderer (the trained parameters), the optimizer and the
     LR schedule; :meth:`train_step` is one optimizer step."""
 
-    def __init__(self, config, device=None, seed: int = 0):
+    def __init__(self, config, device="cuda", seed: int = 0):
         check_train_config(config)
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.renderer = NerfRenderer(config)
         self.renderer.init_params(torch.Generator().manual_seed(seed))
         self.renderer.to(self.device)
@@ -147,13 +147,14 @@ class NerfTrainer:
         return m, out
 
 
-def train(config):
-    """The training loop behind the CLI -> (config, renderer)."""
+def train(config, device="cuda"):
+    """The training loop behind the CLI -> (config, renderer); on the card
+    unless ``device="cpu"``."""
     exp = config.exp
     debug = bool(getattr(exp, "debug", False))
     check_train_config(config)
+    device = resolve_device(device)
     np.random.seed(exp.seed)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
     run_dir = init_config_odir(config)
     run_dir.mkdir(parents=True, exist_ok=True)

@@ -18,3 +18,17 @@ def get_logger(level: str = "INFO", name: str = "nerfmatch_tpu_torch"):
     logger.setLevel(getattr(logging, level.upper()))
     logger.propagate = False
     return logger
+
+
+def resolve_device(device="cuda"):
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU (``device="cpu"``, ``--device cpu``).  Raises when CUDA is
+    asked for and absent, instead of carrying on on the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU unless asked "
+            "for the CPU (device='cpu', or --device cpu on the CLIs)")
+    return device

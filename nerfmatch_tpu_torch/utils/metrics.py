@@ -1,15 +1,35 @@
 """Losses and metrics (counterpart of ``nerfmatch_tpu/utils/metrics.py``):
 MSE / PSNR, the mip-NeRF 360 distortion regularizer in its O(S) prefix-sum
 form, the NeRF loss assembly, the matcher losses (focal, feature l2, the
-two fine losses) with their ``valid`` masks and stop-gradient weights, and
-the host PnP pose metrics."""
+two fine losses) with their ``valid`` masks and stop-gradient weights, the
+host PnP pose metrics, and the localization summaries (median errors,
+recall at the scene's DSAC* thresholds, AUC)."""
 
 from __future__ import annotations
 
+from argparse import Namespace
 from collections import defaultdict
 
 import numpy as np
 import torch
+
+# Scene-dependent success thresholds following DSAC* (deg, cm).
+POSE_THRES = {
+    # Cambridge
+    "GreatCourt": [(5, 45)],
+    "KingsCollege": [(5, 38)],
+    "OldHospital": [(5, 22)],
+    "ShopFacade": [(5, 15)],
+    "StMarysChurch": [(5, 35)],
+    # 7-Scenes
+    "chess": [(5, 5)],
+    "fire": [(5, 5)],
+    "heads": [(5, 5)],
+    "office": [(5, 5)],
+    "pumpkin": [(5, 5)],
+    "redkitchen": [(5, 5)],
+    "stairs": [(5, 5)],
+}
 
 
 def mse(img_pred, img_gt, mask=None):
@@ -200,3 +220,85 @@ def compute_pose_metrics_host(batch_matches, solver: str = "native",
         metrics["R_err"].append(r_err)
         metrics["t_err"].append(t_err)
     return metrics
+
+
+# ---------------------------------------------------------------------------
+# Localization summaries (host)
+# ---------------------------------------------------------------------------
+
+def pose_recall(r_errs, t_errs, r_thres, t_thres):
+    return float(((np.array(r_errs) < r_thres)
+                  & (np.array(t_errs) < t_thres)).mean() * 100)
+
+
+def cal_error_auc(errors, thresholds):
+    if len(errors) == 0:
+        return np.zeros(len(thresholds))
+    N = len(errors)
+    errors = np.append([0.0], np.sort(errors))
+    recalls = np.arange(N + 1) / N
+    aucs = []
+    for thres in thresholds:
+        last = np.searchsorted(errors, thres)
+        rcs = np.append(recalls[:last], recalls[last - 1])
+        ers = np.append(errors[:last], thres)
+        aucs.append(np.trapezoid(rcs, x=ers) / thres)
+    return np.array(aucs) * 100
+
+
+def compute_mean_recall(errs, thres):
+    rec = [[(np.asarray(err) < th).mean() for th in thres] for err in errs]
+    return np.array(rec).mean(0) * 100
+
+
+def summarize_pose_statis(statis, pose_thres=(1, 2, 5, 10),
+                          auc_thres=(1, 2, 5, 10), t_unit: str = "cm",
+                          t_scale: float = 1.0, print_out: bool = True):
+    """Median / recall / AUC summary of per-query errors (a dict or
+    namespace with ``R_err``, ``t_err`` and optionally ``num_matches``,
+    ``num_inls``, ``match_time``, ``localize_time``) -> dict of t_med,
+    r_med, recall at the first threshold[, match_time, localize_time in
+    ms], printed in the reference's format."""
+    printf = print if print_out else (lambda *_: None)
+    if isinstance(statis, dict):
+        statis = Namespace(**statis)
+    if isinstance(pose_thres[0], (int, float)):
+        pose_thres = [(th, th) for th in pose_thres]
+
+    r_errs = np.asarray(statis.R_err, dtype=np.float64)
+    t_errs = np.asarray(statis.t_err, dtype=np.float64) * t_scale
+
+    printf(f"\nSamples: {len(r_errs)} t_unit={t_unit} t_scale={t_scale}")
+    if hasattr(statis, "num_matches"):
+        printf(f"Mean matches: {np.mean(statis.num_matches):.0f}")
+    if hasattr(statis, "num_inls"):
+        printf(f"Ransac inliers:{np.mean(statis.num_inls):.0f}")
+
+    t_med = float(np.median(t_errs))
+    r_med = float(np.median(r_errs))
+    printf(f"Median Error: {t_med:.1f}/{r_med:.1f} {t_unit}/deg")
+    rec = np.array([pose_recall(r_errs, t_errs, rth, tth)
+                    for rth, tth in pose_thres])
+    printf(f"Recall@{list(pose_thres)}{t_unit}/deg: {rec}%")
+    auc = cal_error_auc(np.maximum(t_errs, r_errs), list(auc_thres))
+    printf(f"AUC@{list(auc_thres)}{t_unit}/deg: {auc}%")
+
+    out = {"t_med": t_med, "r_med": r_med, "recall": float(rec[0])}
+    if hasattr(statis, "match_time"):
+        mt = float(np.mean(statis.match_time) * 1000)
+        out["match_time"] = mt
+        printf(f"Avg match time: {mt:.1f}ms")
+    if hasattr(statis, "localize_time"):
+        out["localize_time"] = float(np.mean(statis.localize_time) * 1000)
+    return out
+
+
+def average_pose_metrics(metr_all, print_out: bool = True):
+    """Mean of per-scene :func:`summarize_pose_statis` dicts."""
+    printf = print if print_out else (lambda *_: None)
+    avg = {k: float(np.mean([m[k] for m in metr_all])) for k in metr_all[0]}
+    printf(f"\nAverage metrics of {len(metr_all)} (scene) caches:")
+    printf(f"Median pose error(cm/deg): {avg['t_med']:.1f}/{avg['r_med']:.1f}")
+    printf(f"Recall(%): {avg['recall']:.1f}")
+    printf(f"Table: {avg['t_med']:.1f}/{avg['r_med']:.1f}/{avg['recall']:.1f}")
+    return avg

@@ -93,6 +93,70 @@ def test_render_kernel_matches_plain(dev, hid, eps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 256])
+@pytest.mark.parametrize("mode", ["coarse", "both", "posttap"])
+def test_int8_render_kernel_matches_plain(dev, hid, mode):
+    """The int8 trunk's stages of ``mode`` against the plain int8 version
+    with the same scales (calibrated from these rays): outputs at atol/rtol
+    5e-3 (the bf16 layers and heads, as above, and compositing order), and
+    fewer than 1e-3 of the integer activations (the quantized encoding and
+    the last layer's int8 input) one step apart (sinf / expf against
+    torch's, and the bf16 prefix's f32 sums, at a rounding boundary); the
+    launch counters of the int8 stages move."""
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_mlp_int8)
+
+    r = renderer(hid, dev)
+    rays, z = rays_z(64, dev)
+    scales = calibrate_act_scales(r, rays)
+    tap = eval_feat_layer(r.nerf_fine.cfg)
+    stages = [(r.nerf_coarse, False, pack_mlp_int8(r.nerf_coarse,
+                                                   scales["coarse"], 0))]
+    if mode != "coarse":
+        start = 0 if mode == "both" else tap + 1
+        stages.append((r.nerf_fine, True, pack_mlp_int8(
+            r.nerf_fine, scales["fine"], start, tap)))
+    reset_launch_counts()
+    kw = dict(num_freqs=15, dirs_freqs=4, debug_q=True)
+    with torch.no_grad():
+        for mlp, fine, q in stages:
+            a = render_stage(mlp, rays, z, fine=fine, int8=q, **kw)
+            b = render_stage_plain(mlp, rays, z, fine=fine, int8=q, **kw)
+            for k in ("xq", "hq"):
+                assert float((a[k] != b[k]).float().mean()) < 1e-3, k
+            for k in b:
+                if k not in ("xq", "hq"):
+                    torch.testing.assert_close(a[k], b[k], atol=5e-3,
+                                               rtol=5e-3)
+    assert LAUNCHES["render_coarse_int8"] == 1
+    assert LAUNCHES["render_fine_int8"] == (mode != "coarse")
+    assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 0
+
+
+@pytest.mark.cuda
+def test_int8_render_kernel_raises_on_unsupported(dev):
+    """A width without an instantiation, and a fine stage packed without
+    its tap layer, raise instead of running plain."""
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_mlp_int8)
+
+    wide = renderer(128, dev)
+    rays, z = rays_z(64, dev)
+    scales = calibrate_act_scales(wide, rays)
+    with pytest.raises(NotImplementedError), torch.no_grad():
+        render_stage(wide.nerf_coarse, rays, z, fine=False, num_freqs=15,
+                     dirs_freqs=4,
+                     int8=pack_mlp_int8(wide.nerf_coarse, scales["coarse"]))
+    r = renderer(256, dev)
+    scales = calibrate_act_scales(r, rays)
+    with pytest.raises(ValueError), torch.no_grad():
+        render_stage(r.nerf_fine, rays, z, fine=True, num_freqs=15,
+                     dirs_freqs=4,
+                     int8=pack_mlp_int8(r.nerf_fine, scales["fine"]))
+
+
+@pytest.mark.cuda
 def test_resample_kernel_matches_plain(dev):
     """Inverse-CDF resample at atol 1e-5, including an all-zero row."""
     rays, z = rays_z(256, dev)

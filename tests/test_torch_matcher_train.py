@@ -498,7 +498,8 @@ def test_cli_train_nerfmatch_debug_and_resume(scene, tmp_path, stage):
         cfg.model.timm_ckpt = str(npz)
     path = tmp_path / "cfg.yaml"
     save_config(path, cfg)
-    out_cfg, m1 = main(["--config", str(path), "--stage", stage, "--debug"])
+    out_cfg, m1 = main(["--config", str(path), "--stage", stage, "--debug",
+                        "--device", "cpu"])
     assert out_cfg.optim.lr == pytest.approx(1e-3 * 2 / 4)
     ckpts = init_config_odir(out_cfg, stage == "coarse") / "checkpoints"
     last = latest_checkpoint(ckpts, name="last")
@@ -508,7 +509,8 @@ def test_cli_train_nerfmatch_debug_and_resume(scene, tmp_path, stage):
     meta = json.loads((last / "meta.json").read_text())
     assert {"best_loss", "best_tmed"} <= set(meta)
     state = {k: v.clone() for k, v in m1.state_dict().items()}
-    _, m2 = main(["--config", str(path), "--stage", stage, "--debug"])
+    _, m2 = main(["--config", str(path), "--stage", stage, "--debug",
+                  "--device", "cpu"])
     for k, v in m2.state_dict().items():
         assert torch.equal(v, state[k]), k
     if stage == "coarse":

@@ -303,11 +303,16 @@ def test_early_term_mask_semantics():
 
 def test_fused_cuda_rejects_unported_configs():
     """Configs the kernels do not implement raise instead of taking the
-    plain path."""
-    for kw in ({"feat_comb": "max"}, {"trunk_int8": "coarse"}):
-        r = NerfRenderer(nerf_config(**kw), stop_layer=3)
-        with pytest.raises(NotImplementedError):
-            r.check_fused_supported()
+    plain path; every int8 mode is implemented, an unknown one raises."""
+    r = NerfRenderer(nerf_config(feat_comb="max"), stop_layer=3)
+    with pytest.raises(NotImplementedError):
+        r.check_fused_supported()
+    for mode in ("none", "coarse", "both", "posttap"):
+        NerfRenderer(nerf_config(trunk_int8=mode),
+                     stop_layer=3).check_fused_supported()
+    with pytest.raises(ValueError):
+        NerfRenderer(nerf_config(trunk_int8="fp8"),
+                     stop_layer=3).check_fused_supported()
 
 
 def test_bridge_matches_export_for_nerf_fixture():

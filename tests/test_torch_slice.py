@@ -63,7 +63,7 @@ def slice_pair():
         jax.random.PRNGKey(1))
     jev = JEvaluator(mconf, params=jm_params)
     tev = NeRFMatchEvaluator(mconf, state_dict=state_dict_from_jax(
-        flat_params(jm_params), backbone_extra="model."))
+        flat_params(jm_params), backbone_extra="model."), device="cpu")
 
     rng = np.random.default_rng(20)
     items = []
@@ -147,7 +147,7 @@ q, db = np.array({look_at(0.3).tolist()!r}), np.array({look_at(0.45).tolist()!r}
 g = torch.Generator().manual_seed(0)
 r = init_params_(NerfRenderer(dict2namespace({ncfg!r}), stop_layer=3), g)
 ev = NeRFMatchEvaluator(dict2namespace({{'model': {dict(TINY_C2F)!r}}}),
-                        generator=g)
+                        generator=g, device='cpu')
 pts = r.render_novel_view((128, 128), K, db, UN)
 rng = np.random.default_rng(0)
 batch = dict(image=rng.uniform(0, 1, (1, 128, 128, 3)),

@@ -420,7 +420,7 @@ def test_trainer_steps_match_jax(scene, tmp_path):
         params[k]["alpha_linear"]["bias"] = params[k]["alpha_linear"]["bias"] + 3.0
     opt_state = jt.opt.init(params)
     step = jt.train_step_fn()
-    tt = NerfTrainer(cfg)
+    tt = NerfTrainer(cfg, device="cpu")
     start = state_dict_from_jax(flat_params(params))
     tt.renderer.load_state_dict(start, strict=True)
     ds = init_data_loader(cfg.data, split="train").dataset
@@ -452,7 +452,7 @@ def test_trainer_rejects_unported_configs(scene, tmp_path):
         cfg = nerf_train_config(scene, tmp_path)
         edit(cfg)
         with pytest.raises(NotImplementedError):
-            NerfTrainer(cfg)
+            NerfTrainer(cfg, device="cpu")
 
 
 def test_cli_train_writes_last_checkpoint_and_resumes(scene, tmp_path):
@@ -471,14 +471,14 @@ def test_cli_train_writes_last_checkpoint_and_resumes(scene, tmp_path):
                             pts=16, noise_std=1.0, compute_dtype="bfloat16")
     path = tmp_path / "cfg.yaml"
     save_config(path, cfg)
-    out_cfg, r1 = main(["--config", str(path)])
+    out_cfg, r1 = main(["--config", str(path), "--device", "cpu"])
     run_dir = init_config_odir(out_cfg)
     last = latest_checkpoint(run_dir / "checkpoints", name="last")
     assert last is not None and last.name == "last_2"
     assert latest_checkpoint(run_dir / "checkpoints", name="best") is not None
     w1 = r1.nerf_fine.pts_linears[0].weight.detach().clone()
     assert torch.isfinite(w1).all()
-    _, r2 = main(["--config", str(path)])
+    _, r2 = main(["--config", str(path), "--device", "cpu"])
     assert torch.equal(r2.nerf_fine.pts_linears[0].weight, w1)
     serving = NerfRenderer(out_cfg, stop_layer=1)
     serving.load_state_dict(torch.load(last / "model.pt"), strict=True)
