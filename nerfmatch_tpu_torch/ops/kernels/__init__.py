@@ -61,11 +61,14 @@ _SIGNATURES = {
     # var_scale, white_bg, g_rgb, g_w, workspace, grad_mat, grad_vec, stream
     "nm_render_train_backward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
                                  _P, _P, _P, _P],
-    # q, k, v, out, B, L, S, H, D, bf16, stream
-    "nm_attention_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, g, dq, dk, dv, stats, B, L, S, H, D, bf16, stream
-    "nm_attention_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _P],
+    # q, k, v, out, lse (or null), bf16 workspace for f32 q, k, v (or
+    # null), B, L, S, H, D, bf16, stream
+    "nm_attention_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P],
+    # q, k, v, g, out, lse, dq, dk, dv, bf16 workspace for g, stats, B, L, S,
+    # H, D, bf16, stream
+    "nm_attention_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, _P],
     # x, w, cbias, sb, y, B, H, W, C, K, stream
     "nm_dw_star_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, g, w, sb, dx, part, B, H, W, C, K, stream

@@ -8,13 +8,25 @@ Replaces ``nerfmatch_tpu/ops/pallas/attention_kernel.py: _fused_fwd``
 stay outside, so their gradients flow through plain autograd), layout
 (B, N, H, D), f32 output and f32 gradients.  ``bf16=True`` is the JAX
 kernels' bf16 mode: q, k, v (and the upstream gradient) are stored as bf16;
-the forward rounds the unnormalized probabilities ``e = exp(s - rowmax)``
-to bf16 for the ``e @ v`` product, the backward rounds the normalized
+the forward rounds the unnormalized probabilities to bf16 for the ``e @ v``
+product (``e = exp(s - rowmax)`` in the plain version,
+``2^(s log2 e - ceil(rowmax log2 e))`` in the one-pass kernel: the same
+rounding point, another scale), the backward rounds the normalized
 softmax ``z`` (for dV) and ``dl = z (dz - sum dz z)`` (for dQ, dK); row
 statistics and every accumulation stay f32.
+
+The forward kernel passes over the keys once and, when a gradient is
+needed, also returns the row statistic ``lse = rowmax + log(rowsum e)`` as
+(B * H, L) f32.  The backward takes ``z = exp(s - lse)`` from it and
+``delta = sum_s dz z`` as ``rowsum(g * out)``: a small prologue launch,
+then dK/dV and dQ, no statistics pass and no atomics.
+:func:`attention_onepass_plain` and :func:`attention_bwd_stats_plain` are
+those two algorithms in plain torch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -22,6 +34,8 @@ from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 
 MAX_KV = 8192
 KERNEL_HEAD_DIMS = (32,)          # the matcher's coarse head_dim
+KEY_TILE = 64                     # keys per tile of the kernels' loops
+LOG2E = math.log2(math.e)
 
 
 def _bf16_round(t):
@@ -40,6 +54,38 @@ def attention_plain(qs, k, v, bf16: bool = False):
     return out.transpose(1, 2)
 
 
+def attention_onepass_plain(qs, k, v, bf16: bool = True, tile: int = KEY_TILE):
+    """The forward kernel's algorithm, key tile by key tile -> (out, lse).
+
+    In base 2 (``x = s log2 e``) the running reference of each row is its
+    maximum so far rounded up to an integer, ``r = ceil(max x)``, so every
+    rescale of the accumulator and the row sum between tiles is an exact
+    power of two and the result does not depend on the tiling.  The bf16
+    mode rounds ``e' = 2^(x - r)`` where the two-pass
+    :func:`attention_plain` rounds ``exp(s - rowmax)``: their ratio
+    ``2^(max x - r)`` lies in (1/2, 1] and is no power of two, so the two
+    roundings fall independently (each within 2^-8 relative).
+    ``lse = (r + log2(sum e')) ln 2``, (B * H, L)."""
+    rnd = _bf16_round if bf16 else (lambda t: t)
+    q, k, v = (rnd(t.float()) for t in (qs, k, v))
+    B, L, H, D = q.shape
+    r = torch.full((B, H, L, 1), -1e30, device=q.device)
+    lsum = torch.zeros(B, H, L, 1, device=q.device)
+    acc = torch.zeros(B, H, L, D, device=q.device)
+    for s0 in range(0, k.shape[1], tile):
+        s = torch.einsum("blhd,bshd->bhls", q, k[:, s0:s0 + tile])
+        rn = torch.maximum(r, torch.ceil(s.amax(-1, keepdim=True) * LOG2E))
+        scale = torch.exp2(torch.clamp(r - rn, min=-127.0))
+        scale = torch.where(r - rn < -126.0, torch.zeros_like(scale), scale)
+        e = torch.exp2(s * LOG2E - rn)
+        lsum = lsum * scale + e.sum(-1, keepdim=True)
+        acc = acc * scale + torch.einsum("bhls,bshd->bhld", rnd(e),
+                                         v[:, s0:s0 + tile])
+        r = rn
+    lse = (r + torch.log2(lsum)) * math.log(2.0)
+    return (acc / lsum).transpose(1, 2), lse.reshape(B * H, L)
+
+
 def attention_bwd_plain(qs, k, v, g, bf16: bool = False):
     """Plain backward (``_attn_bwd_xla`` with the bf16 mode's roundings of
     ``_attn_bwd_kernel``) -> (dq, dk, dv), f32."""
@@ -48,6 +94,24 @@ def attention_bwd_plain(qs, k, v, g, bf16: bool = False):
     z = torch.softmax(torch.einsum("blhd,bshd->bhls", qs, k), dim=-1)
     dz = torch.einsum("blhd,bshd->bhls", g, v)
     dl = rnd(z * (dz - (dz * z).sum(-1, keepdim=True)))
+    dq = torch.einsum("bhls,bshd->blhd", dl, k)
+    dk = torch.einsum("bhls,blhd->bshd", dl, qs)
+    dv = torch.einsum("bhls,blhd->bshd", rnd(z), g)
+    return dq, dk, dv
+
+
+def attention_bwd_stats_plain(qs, k, v, g, out, lse, bf16: bool = False):
+    """The backward kernels' formulas in plain torch -> (dq, dk, dv): the
+    softmax from the forward's ``lse`` (no maximum, no division) and
+    ``delta = rowsum(g * out)`` with ``g`` rounded to the operand type."""
+    rnd = _bf16_round if bf16 else (lambda t: t)
+    qs, k, v, g = (rnd(t.float()) for t in (qs, k, v, g))
+    B, L, H, _ = qs.shape
+    z = torch.exp2((torch.einsum("blhd,bshd->bhls", qs, k)
+                    - lse.reshape(B, H, L, 1)) * LOG2E)
+    dz = torch.einsum("blhd,bshd->bhls", g, v)
+    delta = (g * out).sum(-1).permute(0, 2, 1).unsqueeze(-1)
+    dl = rnd(z * (dz - delta))
     dq = torch.einsum("bhls,bshd->blhd", dl, k)
     dk = torch.einsum("bhls,blhd->bshd", dl, qs)
     dv = torch.einsum("bhls,blhd->bshd", rnd(z), g)
@@ -74,56 +138,105 @@ def _check_shapes(name, qs, k, v):
     return B, L, S, H, D
 
 
-def _forward_kernel(qs, k, v, bf16):
+def _f32(t):
+    """Contiguous f32 at a 16-byte address (the kernels load float4)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _operands(tensors, bf16):
+    """``tensors`` in the kernels' operand type, contiguous."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    return [t.to(dt).contiguous() for t in tensors]
+
+
+def _forward_kernel(qs, k, v, bf16, want_lse):
+    """The forward kernel -> (out, lse, operands).  ``lse`` and the
+    operand-typed (q, k, v) are made only when ``want_lse`` (the backward
+    takes them).  In bf16 mode f32 q, k and v are cast by one launch inside
+    the same call, into one workspace."""
     B, L, S, H, D = _check_shapes("fused_attention", qs, k, v)
+    dev = qs.device
+    cast = None
+    if bf16 and qs.dtype == k.dtype == v.dtype == torch.float32:
+        qs, k, v = _f32(qs), _f32(k), _f32(v)
+        cast = torch.empty((B * L + 2 * B * S) * H * D, device=dev,
+                           dtype=torch.bfloat16)
+    else:
+        qs, k, v = _operands((qs, k, v), bf16)
     require_cuda_tensors("fused_attention", qs, k, v)
-    out = torch.empty(B, L, H, D, device=qs.device, dtype=torch.float32)
+    out = torch.empty(B, L, H, D, device=dev, dtype=torch.float32)
+    lse = (torch.empty(B * H, L, device=dev, dtype=torch.float32)
+           if want_lse else None)
     err = library().nm_attention_forward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, S, H,
-        D, int(bf16), stream_ptr(qs.device))
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if want_lse else 0,
+        cast.data_ptr() if cast is not None else 0, B, L, S, H, D, int(bf16),
+        stream_ptr(dev))
     check(err, "attention")
     LAUNCHES["attention"] += 1
-    return out
+    if not want_lse:
+        return out, None, None
+    if cast is not None:
+        nq, nk = B * L * H * D, B * S * H * D
+        qs = cast[:nq].view(B, L, H, D)
+        k = cast[nq:nq + nk].view(B, S, H, D)
+        v = cast[nq + nk:].view(B, S, H, D)
+    return out, lse, (qs, k, v)
 
 
-def attention_bwd(qs, k, v, g, bf16: bool = False):
-    """(dq, dk, dv) of ``fused_attention`` for the upstream gradient ``g``:
-    the backward kernel on CUDA tensors, the plain version on CPU ones."""
+def attention_bwd(qs, k, v, g, bf16: bool = False, out=None, lse=None):
+    """(dq, dk, dv) of ``fused_attention`` for the upstream gradient ``g``.
+
+    ``out`` and ``lse`` are the forward's output and row statistic.  On
+    CUDA tensors the backward kernels take them; given neither, the
+    forward kernel runs first to make them.  CPU tensors take the plain
+    versions: :func:`attention_bwd_stats_plain` when they are given,
+    :func:`attention_bwd_plain` otherwise."""
+    if (out is None) != (lse is None):
+        raise ValueError("attention_bwd: pass both out and lse, or neither")
     if qs.device.type != "cuda":
-        return attention_bwd_plain(qs, k, v, g, bf16)
+        if out is None:
+            return attention_bwd_plain(qs, k, v, g, bf16)
+        return attention_bwd_stats_plain(qs, k, v, g, out, lse, bf16)
     B, L, S, H, D = _check_shapes("attention_bwd", qs, k, v)
-    dt = torch.bfloat16 if bf16 else torch.float32
-    qs, k, v, g = (t.to(dt).contiguous() for t in (qs, k, v, g))
-    require_cuda_tensors("attention_bwd", qs, k, v, g)
+    if out is None:
+        out, lse, (qs, k, v) = _forward_kernel(qs, k, v, bf16, want_lse=True)
+    else:
+        qs, k, v = _operands((qs, k, v), bf16)
+    g, out, lse = _f32(g), _f32(out), _f32(lse)
+    require_cuda_tensors("attention_bwd", qs, k, v, g, out, lse)
     dev = qs.device
     dq = torch.empty(B, L, H, D, device=dev, dtype=torch.float32)
     dk = torch.empty(B, S, H, D, device=dev, dtype=torch.float32)
     dv = torch.empty_like(dk)
-    stats = torch.empty(3, B * H, L, device=dev, dtype=torch.float32)
+    g_cast = torch.empty_like(g, dtype=torch.bfloat16) if bf16 else None
+    stats = torch.empty(2, B * H, L, device=dev, dtype=torch.float32)
     err = library().nm_attention_backward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, L, S, H, D,
-        int(bf16), stream_ptr(dev))
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), g_cast.data_ptr() if bf16 else 0, stats.data_ptr(), B,
+        L, S, H, D, int(bf16), stream_ptr(dev))
     check(err, "attention_bwd")
     LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv
 
 
 class _FusedAttention(torch.autograd.Function):
-    """Forward kernel; backward kernel on the saved operand-typed q, k, v."""
+    """Forward kernel with ``lse``; the backward kernels run on the saved
+    operand-typed q, k, v, the output and ``lse``."""
 
     @staticmethod
     def forward(ctx, qs, k, v, bf16):
-        dt = torch.bfloat16 if bf16 else torch.float32
-        qs, k, v = (t.to(dt).contiguous() for t in (qs, k, v))
-        ctx.save_for_backward(qs, k, v)
+        out, lse, operands = _forward_kernel(qs, k, v, bf16, want_lse=True)
+        ctx.save_for_backward(*operands, out, lse)
         ctx.bf16 = bf16
-        return _forward_kernel(qs, k, v, bf16)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qs, k, v = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(qs, k, v, g, ctx.bf16)
+        qs, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(qs, k, v, g, ctx.bf16, out=out, lse=lse)
         return dq, dk, dv, None
 
 
@@ -131,8 +244,11 @@ def fused_attention(qs, k, v, bf16: bool = False):
     """(B, L, H, D) pre-scaled q, (B, S, H, D) k/v -> (B, L, H, D) f32.
 
     CPU tensors take the plain version (autograd runs through it); CUDA
-    tensors launch the forward kernel, and the backward kernel when a
-    gradient is needed."""
+    tensors launch the forward kernel, which also emits ``lse`` for the
+    backward kernels when a gradient is needed."""
     if qs.device.type != "cuda":
         return attention_plain(qs, k, v, bf16)
-    return _FusedAttention.apply(qs, k, v, bool(bf16))
+    if torch.is_grad_enabled() and (qs.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedAttention.apply(qs, k, v, bool(bf16))
+    return _forward_kernel(qs, k, v, bool(bf16), want_lse=False)[0]

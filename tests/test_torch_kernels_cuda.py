@@ -17,8 +17,10 @@ from nerfmatch_tpu_torch.models.layers import init_params_
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.ops import kernels
 from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+from nerfmatch_tpu_torch.ops.kernels import attention_kernel
 from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
-    attention_bwd, attention_bwd_plain, attention_plain, fused_attention)
+    attention_bwd, attention_bwd_plain, attention_onepass_plain,
+    attention_plain, fused_attention)
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
                                                            render_stage_plain)
 from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
@@ -264,24 +266,56 @@ def test_train_kernel_raises_on_unported_configs(dev):
                      noise[:, :32].contiguous())
 
 
+# (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past
+# a tile boundary.
+ATTN_SHAPES = [(2, 333, 517, 8), (1, 300, 20, 2), (2, 100, 129, 2)]
+
+
+def attn_inputs(dev, shape, q_scale=0.3):
+    B, L, S, H = shape
+    g = torch.Generator(dev).manual_seed(0)
+    q = torch.randn(B, L, H, 32, device=dev, generator=g) * q_scale
+    k = torch.randn(B, S, H, 32, device=dev, generator=g)
+    v = torch.randn(B, S, H, 32, device=dev, generator=g)
+    up = torch.randn(B, L, H, 32, device=dev, generator=g)
+    return q, k, v, up
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-def test_attention_kernel_matches_plain(dev, bf16):
-    """Ragged L, S.  f32: atol 1e-4.  bf16 mode (the same bf16 operands and
-    probabilities on both sides): mean 1e-5 and max 1e-3, since the two
-    exps and summation orders break a few bf16 rounding ties of the
-    probabilities apart."""
-    g = torch.Generator(dev).manual_seed(0)
-    q = torch.randn(2, 333, 8, 32, device=dev, generator=g) * 0.3
-    k = torch.randn(2, 517, 8, 32, device=dev, generator=g)
-    v = torch.randn(2, 517, 8, 32, device=dev, generator=g)
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+def test_attention_kernel_matches_plain(dev, bf16, shape):
+    """Ragged L, S.  f32: atol 1e-4.  bf16 mode: against the one-pass plain
+    version, which rounds the same bf16 operands and the same
+    probabilities 2^(x - ceil(max x)), mean 1e-5 and max 1e-3 (ex2.approx
+    and the summation order break a few bf16 rounding ties apart); against
+    the two-pass ``attention_plain``, whose probabilities exp(s - max)
+    differ from the kernel's by no power of two and so round
+    independently, every element within the bound of two such roundings
+    (2^-7 of the softmax-weighted mean of |v|).  ``lse`` against
+    ``torch.logsumexp`` to 1e-4; two runs bit-identical, with and without
+    ``lse``."""
+    B, L, S, H = shape
+    q, k, v, _ = attn_inputs(dev, shape)
+    rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
     with torch.no_grad():
-        err = (fused_attention(q, k, v, bf16)
-               - attention_plain(q, k, v, bf16)).abs()
+        out = fused_attention(q, k, v, bf16)
+        qo, ko, vo = attention_kernel._operands((q, k, v), bf16)
+        out2, lse, _ = attention_kernel._forward_kernel(qo, ko, vo, bf16,
+                                                          True)
+        err = (out - attention_plain(q, k, v, bf16)).abs()
+        one, _ = attention_onepass_plain(q, k, v, bf16)
+        err1 = (out - one).abs()
+        want = torch.logsumexp(torch.einsum("blhd,bshd->bhls", rnd(q), rnd(k)),
+                               -1).reshape(B * H, L)
+        bound = 2.0 ** -7 * attention_plain(rnd(q), rnd(k), rnd(v).abs())
+    assert torch.equal(out, out2) and torch.isfinite(out).all()
+    assert float((lse - want).abs().max()) < 1e-4
     if bf16:
-        assert float(err.mean()) < 1e-5 and float(err.max()) < 1e-3
+        assert float(err1.mean()) < 1e-5 and float(err1.max()) < 1e-3
+        assert bool((err <= bound + 1e-6).all())
     else:
-        assert float(err.max()) < 1e-4
+        assert float(err.max()) < 1e-4 and float(err1.max()) < 1e-4
 
 
 @pytest.mark.cuda
@@ -369,32 +403,48 @@ def test_dw_star_autograd_matches_plain_and_is_deterministic(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", [(2, 333, 517, 8), (2, 3600, 3600, 8)])
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(2, 3600, 3600, 8)])
 def test_attention_bwd_kernel_matches_plain(dev, bf16, shape):
     """dq, dk, dv against the plain backward with the same roundings.  f32:
     1e-4 of each output's largest value; bf16 (bf16 operands, z and dl on
     both sides; rounding ties of z and dl broken apart by other summation
-    orders): 1e-2 of the largest value and cosine > 0.999.  Two runs are
-    bit-identical, and the autograd Function reaches the kernel."""
-    B, L, S, H = shape
-    g = torch.Generator(dev).manual_seed(0)
-    q = torch.randn(B, L, H, 32, device=dev, generator=g) * 0.3
-    k = torch.randn(B, S, H, 32, device=dev, generator=g)
-    v = torch.randn(B, S, H, 32, device=dev, generator=g)
-    up = torch.randn(B, L, H, 32, device=dev, generator=g)
+    orders, and the forward's rounding of e reaching delta = rowsum(g out)):
+    1e-2 of the largest value and cosine > 0.999.  Two runs are
+    bit-identical, and the autograd Function reaches the kernels: its
+    forward hands ``out`` and ``lse`` over, the call on its own runs the
+    forward kernel first, and both give the same bits."""
+    q, k, v, up = attn_inputs(dev, shape)
     reset_launch_counts()
     with torch.no_grad():
         got = attention_bwd(q, k, v, up, bf16)
         again = attention_bwd(q, k, v, up, bf16)
         ref = attention_bwd_plain(q, k, v, up, bf16)
     for a, a2, r in zip(got, again, ref):
-        assert torch.equal(a, a2)
+        assert torch.equal(a, a2) and torch.isfinite(a).all()
         cos = float((a * r).sum()) / float(a.norm() * r.norm())
         assert scaled_err(a, r) < (1e-2 if bf16 else 1e-4) and cos > 0.999
-    qq = q.clone().requires_grad_()
-    (fused_attention(qq, k, v, bf16) * up).sum().backward()
-    assert torch.equal(qq.grad, got[0])
-    assert LAUNCHES["attention_bwd"] == 3 and LAUNCHES["attention"] == 1
+    # Each call on its own launched the forward kernel and the backward.
+    assert LAUNCHES["attention_bwd"] == 2 and LAUNCHES["attention"] == 2
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fused_attention(*leaves, bf16) * up).sum().backward()
+    for leaf, want in zip(leaves, got):
+        assert torch.equal(leaf.grad, want)
+    assert LAUNCHES["attention_bwd"] == 3 and LAUNCHES["attention"] == 3
+
+
+@pytest.mark.cuda
+def test_attention_forward_skips_lse_without_a_gradient(dev):
+    """Under ``no_grad`` (serving) the autograd Function saves nothing and
+    asks the kernel for no ``lse``; with a gradient it saves the bf16
+    operands, the output and ``lse``."""
+    q, k, v, _ = attn_inputs(dev, ATTN_SHAPES[0])
+    with torch.no_grad():
+        out = fused_attention(q, k, v, True)
+    assert out.grad_fn is None
+    out = fused_attention(q.requires_grad_(), k, v, True)
+    saved = out.grad_fn.saved_tensors
+    assert [t.dtype for t in saved] == [torch.bfloat16] * 3 + [torch.float32] * 2
+    assert saved[4].shape == (q.shape[0] * q.shape[2], q.shape[1])
 
 
 def test_ctypes_signatures_match_c_entry_points():
