@@ -79,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
+
 namespace {
 
 constexpr int kQTile = 64;
@@ -278,11 +280,6 @@ attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Small launches around the kernels
 // ===========================================================================
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // f32 -> bf16 of up to three arrays in one launch (blockIdx.y picks the
 // array; n counts float4 groups; four independent 16-byte loads a thread).
 __global__ void __launch_bounds__(256)
@@ -351,19 +348,6 @@ constexpr int kTileBytes = 64 * 64;      // 64 rows x 32 bf16
 constexpr int kStages = 3;
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {
   const int n = valid ? 4 : 0;
@@ -372,15 +356,11 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // The oldest pending stage has landed (this thread's copies); make the
 // writes visible to the asynchronous proxy that wgmma reads through.
 __device__ __forceinline__ void stage_landed() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cp_async_wait<kStages - 2>();
+  fence_async();
 }
 
 // Byte offset of 16-byte chunk c (0..3) of row r in a swizzled tile.
@@ -449,10 +429,6 @@ __device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
          (2ull << 62);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void keep(float (&x)[N]) {
 #pragma unroll
@@ -467,51 +443,6 @@ __device__ __forceinline__ void keep(uint32_t (&x)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(x[i][j])::"memory");
 }
 
-// d (64 x 64 f32, 32 a thread) = or += a (64 x 16 bf16, registers) times
-// the K-major 64 x 16 slice of a tile.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
-      : "memory");
-}
-
-// d (64 x 32 f32, 16 a thread) += a (64 x 16 bf16, registers) times the
-// MN-major 16 x 32 slice of a tile (16 tile rows are the K index).
-__device__ __forceinline__ void wgmma_m64n32k16_t(float (&d)[16],
-                                                  const uint32_t (&a)[4],
-                                                  uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
-      : "memory");
-}
-
 // ---- the two products ----
 
 // acc (64 x 64; this warp's 16 rows) = A (16 x 32 fragments a warp) times
@@ -523,8 +454,8 @@ __device__ __forceinline__ void rows_times_tile(float (&acc)[32],
                                                 uint32_t tile) {
   const uint64_t desc = tile_desc(tile);
   wgmma_fence();
-  wgmma_m64n64k16(acc, a[0], desc, 0);
-  wgmma_m64n64k16(acc, a[1], desc + 2, 1);        // 16 columns on: 32 bytes
+  wgmma_rs<64, 0>(acc, a[0], desc, 0);
+  wgmma_rs<64, 0>(acc, a[1], desc + 2, 1);        // 16 columns on: 32 bytes
 }
 
 // out (64 x 32; this warp's 16 rows) += P (16 x 64 a warp, bf16 A
@@ -537,12 +468,12 @@ __device__ __forceinline__ void probs_times_tile(float (&out)[16],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)                  // 16 rows on: 1024 bytes
-    wgmma_m64n32k16_t(out, pa[kk], desc + 64 * kk);
+    wgmma_rs<32, 1>(out, pa[kk], desc + 64 * kk, 1);
 }
 
 __device__ __forceinline__ void products_done() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_commit();
+  wgmma_wait<0>();
 }
 
 // C fragments (16 x 64 a warp) rounded to bf16 as the next product's A.

@@ -2,31 +2,44 @@
 // hand-written backward, bf16 tensor-core MLP products, f32 elsewhere.
 //
 // Replaces the TPU kernels nerfmatch_tpu/ops/pallas/render_train.py:
-// make_fused_train_render -> _fwd_impl (fwd_kernel) and _bwd_impl
-// (bwd_kernel), driven twice per step (coarse, fine) by
+// make_fused_train_render -> _fwd_impl (:420, fwd_kernel) and _bwd_impl
+// (:455, bwd_kernel at :243), driven twice per step (coarse, fine) by
 // make_fused_train_hierarchical.
 //
 // Forward, per ray: frustum moments from the jittered z fenceposts -> IPE
 // -> L x HID trunk (skip concat as a second product into the same
 // accumulator) -> sigma (+ the caller's density noise, before the ReLU) ->
 // feature -> views -> sigmoid rgb -> alpha compositing.  Outputs rgb (N, 3)
-// and weights (N, S).  No early termination (training).
+// and weights (N, S).  No early termination (training).  mma.sync over
+// 64-row chunks of 2 rays (train_fwd_kernel).
 //
 // Backward (nm_render_train_backward), four launches:
-//   1. the forward again, stashing every sample's bf16 activations (the
-//      encoding, each trunk layer, feature, views) and an f32 record (rgb,
-//      sigma_raw, alpha, transmittance) in a global workspace;
-//   2. per tile of 2 rays: the composite backward over all S samples (the
-//      reverse exclusive prefix sum of g_w * w is whole-ray, so it runs
-//      first), then per 64-row chunk the heads and trunk backward on
-//      mma.sync (g_h = bf16(g_pre) @ bf16(W)^T with fragments of W^T
-//      packed on the host), writing bf16 g_pre of every layer to the
-//      workspace and summing the f32 vector gradients (biases, sigma head)
-//      into a per-block partial row;
-//   3. the matrix-weight gradients as GEMMs over the sample rows,
-//      sum_rows bf16(act)^T bf16(g), split over row ranges into partials
-//      (ldmatrix.trans feeds both operands);
-//   4. a fixed-order sum over the partials (matrix and vector gradients).
+//   1. train_fwd_kernel again, stashing every sample's bf16 activations
+//      (the encoding, each trunk layer, feature, views) and an f32 record
+//      (rgb, sigma_raw, alpha, transmittance) in a global workspace;
+//   2. train_bwd_kernel, a persistent grid (at most one block an SM) of two
+//      warpgroups walking over 128-row chunks (one ray at S = 128, two at
+//      64, half of one at 256): per ray the composite backward (the reverse
+//      exclusive prefix sum of g_w * w, warp shuffles over 32 samples),
+//      then per chunk the heads and the trunk backward, each layer's
+//      g_h = bf16(g_pre) @ bf16(W)^T as wgmma m64nHIDk16 with A in
+//      registers (the masked accumulator of the layer before, rounded to
+//      bf16, as FlashAttention-3 reuses P) and B from a ring of 8 slots of
+//      32 weight rows in shared memory, one bulk copy each (the host packs
+//      the weights as the slots' swizzled images), both warpgroups reading
+//      each slot; the stashed activations arrive and the gradient rows
+//      (g_pre of every layer, g_feat, g_hv, g_rgb) leave as row bulk
+//      copies through one row buffer, apart from the ring; the vector
+//      gradients (biases, sigma head) are column sums in a fixed order,
+//      one partial row per block;
+//   3. wgrad_gemm_kernel: every matrix-weight gradient,
+//      sum over rows of bf16(act)^T bf16(g), as wgmma (both operands
+//      MN-major in shared memory, the transpose bits set) on 128 x 256
+//      output tiles (128 x 128 or x 64 for narrow N) of two warpgroups,
+//      64-row stages in a 4-stage cp.async ring, split over 48 fixed row
+//      ranges into partials;
+//   4. reduce_parts_kernel: a fixed-order sum over the partials (matrix and
+//      vector gradients).
 // No atomics: the result is bit-reproducible run to run.
 //
 // Precision, as in the JAX kernel: matrix-product operands bf16 with f32
@@ -36,16 +49,30 @@
 // train kernel rounds extras, wvx and wrgb).  sinf / expf in place of the
 // TPU kernel's bf16-accurate polynomials.
 //
-// What bounds it on the H100: the MLP (about 1.2 MFLOP per sample forward,
-// 3x that in the backward with the recompute) and the workspace traffic of
-// step 1-3 (~10 KB per sample at HID 256).  The workspace (the stash,
-// ~10 KB per sample) is the price of not keeping weight-gradient
-// accumulators on chip: a 256 x 256 f32 gradient is 256 KB, more than a
-// block's shared memory.
+// What bounds the backward on the H100 (9216 rays x 128 samples, 8 x 256
+// MLP: 1,179,648 sample rows).  The JAX kernel keeps every weight gradient
+// in VMEM across its sequential grid; on the GPU 2.4 MB of f32 gradients
+// fit no SM and blocks run in no order, so the activations go through a
+// workspace and the weight gradients are a GEMM over it.  Launch 1 writes
+// 6.0 GB (5,088 bytes a row), launch 2 reads 4,384 and writes 4,880 bytes
+// a row (10.9 GB, 3.3 ms at 3.35 TB/s) for 1.3 TFLOP of products, and
+// streams 1.1 MB of weights from L2 per 128 rows; launch 3 reads every
+// product's operands once (12.7 GB with its partials, 3.8 ms) for 1.4
+// TFLOP.  Both are bound by bytes, not by the tensor cores (1.3-1.4 ms at
+// the bf16 peak).  chip_smoke.py phase 3b prints each launch's time beside
+// its bytes; scripts/train_bwd_probe.py builds edited copies of this file
+// without the products, the weight ring, the row copies or the column sums
+// (and with fewer GEMM row ranges) and times them.
+// -Xptxas -v (sm_90a, CUDA 12.8): train_bwd_kernel<256> 255 registers,
+// 24 bytes of spill stores / 40 of loads, 223,880 bytes of dynamic shared
+// memory (ring 128 KB, row buffer 66 KB, f32 sums 24 KB); <64> 117
+// registers, no spills; wgrad_gemm_kernel 183 registers, no spills,
+// 197,632 bytes (four 48 KB stages).  One block an SM for both.
 
 #include <math.h>
 
 #include "mma_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -57,20 +84,19 @@ constexpr int kRecWidth = 8;      // f32 record per sample
 constexpr int kGrgbWidth = 8;     // bf16 g_rgb_t row (3 used)
 constexpr int kMaxProds = 2 * kMaxLayers + 4;
 constexpr int kMaxSplits = 48;
-constexpr int kGemmThreads = 128;
 
 struct TrainParams {
   const uint2* Wenc[kMaxLayers];  // encoding rows of layer i (in x out), or null
   const uint2* Wh[kMaxLayers];    // hidden rows of layer i (in x out), or null
-  const uint2* WhT[kMaxLayers];   // their transpose (out x in), backward
+  const __nv_bfloat16* WhT[kMaxLayers];  // same rows (out x in): slot images
   const float* b[kMaxLayers];
   const float* wa;    // (hid,) sigma head, f32
   const float* ba;    // (1,)
   const uint2* wf;    // feature head (hid, hid)
-  const uint2* wfT;   // its transpose
+  const __nv_bfloat16* wfT;   // the same (out x in): slot images
   const float* bf;
   const uint2* wvh;   // views layer, hidden rows (hid, hv)
-  const uint2* wvhT;  // its transpose (hv, hid)
+  const __nv_bfloat16* wvhT;  // the same (hv x hid): slot images
   const float* wvd;   // views layer, dirs rows (dirs_dim, hv), bf16 values
   const float* bv;
   const float* wr;    // rgb head (hv, 3), bf16 values
@@ -411,324 +437,565 @@ train_fwd_kernel(TrainParams p, Stash st, int stash, int layer_num, int F,
   }
 }
 
+// ===========================================================================
+// Backward on the tensor cores: wgmma (sm_90a) on shared-memory operands
+// ===========================================================================
+
+// Operand tiles are blocks of 128-byte rows (64 bf16) in the 128-byte
+// swizzle: byte offset of 16-byte chunk c (0..7) of row r of a block.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor in the 128-byte swizzle: start address,
+// leading byte offset `lbo` (MN-major: from one 64-element block of the M or
+// N index to the next; not used K-major), stride byte offset 1024 (eight
+// rows on).  Blocks start on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// ---- launch 2: heads and trunk backward, one 128-row chunk at a time ----
+
+constexpr int kBwdThreads = 256;   // two warpgroups, 64 chunk rows each
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kChunkRows = 128;
+constexpr int kRingStages = 8;     // a whole HID 256 layer of weight slices
+constexpr int kSliceK = 32;        // weight rows (the product's k) a slot
+
 template <int HID>
 struct BwdSmem {
-  static constexpr int kActStride = HID + 8;
   static constexpr int HV = HID / 2;
-  static size_t bytes(int S, int P) {
-    return (size_t)kRows * kActStride * 2 +
-           ((size_t)kTileRays * S * 4 + P + kThreads + kTileRays * HV + 8) * 4;
+  // Ring slot: kSliceK weight rows x HID, MN-major in 64-column blocks; the
+  // chunk's 128 rows of hs (or hv), row-major, rows padded by 16 bytes.
+  static constexpr int kSlot = (HID / 64) * kSliceK * 128;
+  static constexpr int kHsStride = HID * 2 + 16;
+  static constexpr int kHsOff = kRingStages * kSlot;
+  static constexpr int kFloatOff = kHsOff + kChunkRows * kHsStride;
+  static size_t bytes(int P) {
+    return 1024 + kFloatOff +
+           (size_t)(4 * kMaxSamples + P + kBwdWarps * HID + 2 * HV + 8) * 4 +
+           8 * (1 + kRingStages);
   }
 };
 
-// Accumulator columns summed over the chunk's 64 rows, added to vec[off + col].
-template <int NT>
-__device__ __forceinline__ void add_col_sums(const float (&cs)[NT][2], int nt0,
-                                             int lane, float* vec) {
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// Column sums over a warp's 16 rows.  v[2 j + e] holds this thread's two
+// rows of column 8 j + 2 (lane % 4) + e; a reduce-scatter over the eight
+// lanes of equal lane % 4 (K / 2 + K / 4 + K / 8 shuffles) leaves lane
+// (g, t) the sums of j = K g / 16 .., stored to dst[column].
+template <int M, int N>
+__device__ __forceinline__ void fold_half(float* v, int lane) {
+  const bool up = lane & M;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const float s0 = col_sum(cs[j][0]), s1 = col_sum(cs[j][1]);
-    if (lane < 4) {
-      const int col = frag_col(nt0 + j, 0, lane);
-      vec[col] += s0;
-      vec[col + 1] += s1;
-    }
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void col_sums(float (&v)[K], int lane, float* dst) {
+  static_assert(K % 8 == 0, "eight lanes share a column");
+  fold_half<16, K>(v, lane);
+  fold_half<8, K / 2>(v, lane);
+  fold_half<4, K / 4>(v, lane);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < K / 8; ++i) {
+    const int k = (K / 8) * g + i;
+    dst[8 * (k >> 1) + 2 * t + (k & 1)] = v[i];
   }
 }
 
 template <int HID>
-__global__ void __launch_bounds__(kThreads)
-train_bwd_kernel(TrainParams p, Stash st, int layer_num, int S, int white_bg,
-                 const float* __restrict__ g_rgb_in,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+train_bwd_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays,
+                 int white_bg, const float* __restrict__ g_rgb_in,
                  const float* __restrict__ g_w_in) {
-  constexpr int NTT = HID / 8;
-  constexpr int NT = NTT / kWarps;
-  constexpr int HV = HID / 2;
-  constexpr int kActStride = BwdSmem<HID>::kActStride;
+  using L = BwdSmem<HID>;
+  constexpr int HV = L::HV;
+  constexpr int NJ = HID / 8, NJV = HV / 8;     // n8 column groups
+  constexpr int KS = HID / kSliceK, KSV = HV / kSliceK;
+  constexpr int JB = NJV < 16 ? NJV : 16;   // column groups a col_sums call
+  static_assert(KSV >= 1 && HID % 64 == 0, "HID must be a multiple of 64");
   const VecLayout vl(layer_num, HID);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* gsr = reinterpret_cast<float*>(act + kRows * kActStride);  // kTileRays * S
-  float* grgb = gsr + kTileRays * S;                                // kTileRays * S * 3
-  float* vec = grgb + kTileRays * S * 3;                            // P
-  float* colpart = vec + vl.P;                                      // kThreads
-  float* hvsum = colpart + kThreads;                                // kTileRays * HV
-  float* tot = hvsum + kTileRays * HV;                              // 8
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t ring_s = base, hs_s = base + L::kHsOff;
+  float* gsr = reinterpret_cast<float*>(sm + L::kFloatOff);  // unit rows
+  float* grgb = gsr + kMaxSamples;                             // unit rows x 3
+  float* vec = grgb + 3 * kMaxSamples;                         // P
+  float* colpart = vec + vl.P;                                 // warps x HID
+  float* hvsum = colpart + kBwdWarps * HID;                    // 2 rays x HV
+  float* tot = hvsum + 2 * HV;                                 // 2 rays x 4
+  const uint32_t bar = smem_u32(tot + 8);                      // hs rows landed
+  const uint32_t full0 = bar + 8;                              // ring slot s: + 8 s
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ray0 = blockIdx.x * kTileRays;
-  const int nt0 = warp * NT;
-  for (int i = tid; i < vl.P; i += kThreads) vec[i] = 0.f;
-  for (int i = tid; i < kTileRays * HV; i += kThreads) hvsum[i] = 0.f;
+  const int wg = tid >> 7, t = lane & 3;
+  const int wrow = (warp & 3) * 16 + (lane >> 2);  // first of its two rows
+  const unsigned char* hb = sm + L::kHsOff + wg * 64 * L::kHsStride;
+  float* cpw = colpart + warp * HID;
 
-  // ---- composite backward: warp r takes ray r, blocks of 32 samples from
-  //      the far end (reverse exclusive prefix sum of g_w * w) ----
-  if (warp < kTileRays) {
-    const int r = warp, n = ray0 + r;
-    const float g0 = g_rgb_in[n * 3 + 0], g1 = g_rgb_in[n * 3 + 1],
-                g2 = g_rgb_in[n * 3 + 2];
-    const float* zr = p.z + (size_t)n * (S + 1);
-    float carry = 0.f, sum_gsr = 0.f, sum_g[3] = {0.f, 0.f, 0.f};
-    for (int b = S / 32 - 1; b >= 0; --b) {
-      const int s = b * 32 + lane;
-      const size_t rg = (size_t)n * S + s;
-      const float* rec = st.rec + rg * kRecWidth;
-      const float rgb[3] = {rec[0], rec[1], rec[2]};
-      const float sigma_raw = rec[3], alpha = rec[4], trans = rec[5];
-      const float w = alpha * trans;
-      float gw = g_w_in[rg] + g0 * rgb[0] + g1 * rgb[1] + g2 * rgb[2];
-      if (white_bg) gw -= g0 + g1 + g2;
-      const float q = gw * w;
-      float incl = q;  // suffix sum over lanes >= lane
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_down_sync(0xffffffffu, incl, o);
-        if (lane + o < 32) incl += v;
-      }
-      const float after = carry + (incl - q);
-      carry += __shfl_sync(0xffffffffu, incl, 0);
-      const float g_alpha = gw * trans - after / (1.f - alpha + 1e-10f);
-      const float g_sigma = g_alpha * (1.f - alpha) * (zr[s + 1] - zr[s]);
-      const float g_sr = sigma_raw > 0.f ? g_sigma : 0.f;
-      gsr[r * S + s] = g_sr;
-      sum_gsr += g_sr;
-      const float gc[3] = {g0, g1, g2};
-      __nv_bfloat16* grow = st.g_rgb + rg * kGrgbWidth;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float v = gc[c] * w * rgb[c] * (1.f - rgb[c]);
-        grgb[(r * S + s) * 3 + c] = v;
-        grow[c] = __float2bfloat16(v);
-        sum_g[c] += v;
-      }
-#pragma unroll
-      for (int c = 3; c < kGrgbWidth; ++c) grow[c] = __float2bfloat16(0.f);
-    }
-    sum_gsr = warp_sum(sum_gsr);
-    for (int c = 0; c < 3; ++c) sum_g[c] = warp_sum(sum_g[c]);
-    if (lane == 0) {
-      tot[r * 4 + 0] = sum_g[0];
-      tot[r * 4 + 1] = sum_g[1];
-      tot[r * 4 + 2] = sum_g[2];
-      tot[r * 4 + 3] = sum_gsr;
-    }
-  }
-  __syncthreads();
+  // A unit is one ray (S >= 128: S / 128 chunks) or 128 / S rays (one chunk).
+  const int G = S >= kChunkRows ? 1 : kChunkRows / S;
+  const int unit_chunks = G * S / kChunkRows;
+  const int n_units = n_rays / G;
+  const int my_units = (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  // Weight slices a chunk streams: views (HV rows), feature, then the
+  // hidden rows of layers L-1 .. 1 (HID rows each), all (out x in).
+  const int Q = KSV + KS * layer_num;
+  const int q_total = my_units * unit_chunks * Q;
+
+  for (int i = tid; i < vl.P; i += kBwdThreads) vec[i] = 0.f;
+  for (int i = tid; i < 2 * HV; i += kBwdThreads) hvsum[i] = 0.f;
   if (tid == 0) {
-    for (int r = 0; r < kTileRays; ++r) {
-      for (int c = 0; c < 3; ++c) vec[vl.brgb + c] += tot[r * 4 + c];
-      vec[vl.ba] += tot[r * 4 + 3];
-    }
+    mbar_init(bar);
+    for (int i = 0; i < kRingStages; ++i) mbar_init(full0 + 8 * i);
   }
-
-  // ---- heads and trunk backward, one 64-row chunk (of one ray) at a time ----
-  const int n_chunks = kTileRays * S / kRows;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int lr0 = ch * kRows;               // local row of the tile
-    const int rl = lr0 / S;                   // the chunk's ray (S % 64 == 0)
-    const size_t rg0 = (size_t)ray0 * S + lr0;
-
-    // g_hv = relu'(hv) * (bf16(g_rgb_t) @ bf16(wrgb)^T)
-    {
-      const int j = tid % HV, grp = tid / HV, ngrp = kThreads / HV;
-      const float w0 = __ldg(p.wr + j * 3), w1 = __ldg(p.wr + j * 3 + 1),
-                  w2 = __ldg(p.wr + j * 3 + 2);
-      float cs = 0.f;
-      for (int row = grp; row < kRows; row += ngrp) {
-        const float* g = grgb + (lr0 + row) * 3;
-        float v = bf16_round(g[0]) * w0 + bf16_round(g[1]) * w1 + bf16_round(g[2]) * w2;
-        if (!(__bfloat162float(st.hv[(rg0 + row) * HV + j]) > 0.f)) v = 0.f;
-        cs += v;
-        const __nv_bfloat16 vb = __float2bfloat16(v);
-        act[row * kActStride + j] = vb;
-        st.g_hv[(rg0 + row) * HV + j] = vb;
-      }
-      colpart[grp * HV + j] = cs;
-      __syncthreads();
-      if (tid < HV) {
-        float s = 0.f;
-        for (int g = 0; g < ngrp; ++g) s += colpart[g * HV + tid];
-        vec[vl.bv + tid] += s;
-        hvsum[rl * HV + tid] += s;
-      }
-      __syncthreads();
-    }
-
-    float acc[kMTiles][NT][4];
-    // g_feature = bf16(g_hv) @ bf16(wvh)^T (no activation)
-    zero_acc(acc);
-    mma_rows<NT>(act, kActStride, HV / 16, p.wvhT, NTT, nt0, lane, acc);
-    __syncthreads();
-    {
-      float cs[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) cs[j][0] = cs[j][1] = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = frag_row(m, 2 * h, lane);
-            const int col = frag_col(nt0 + j, 0, lane);
-            const float v0 = acc[m][j][2 * h], v1 = acc[m][j][2 * h + 1];
-            cs[j][0] += v0;
-            cs[j][1] += v1;
-            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) = v;
-            *reinterpret_cast<__nv_bfloat162*>(st.g_feat + (rg0 + row) * HID + col) = v;
-          }
-      add_col_sums<NT>(cs, nt0, lane, vec + vl.bf);
-    }
-    __syncthreads();
-    // g_h = bf16(g_feature) @ bf16(wf)^T + g_sigma_raw * wa
-    zero_acc(acc);
-    mma_rows<NT>(act, kActStride, HID / 16, p.wfT, NTT, nt0, lane, acc);
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = frag_row(m, e, lane), col = frag_col(nt0 + j, e, lane);
-          acc[m][j][e] += gsr[lr0 + row] * __ldg(p.wa + col);
-        }
-
-    // trunk: g_pre_i = relu'(h_i) * g_h; g_h = bf16(g_pre_i) @ bf16(W_i)^T
-    for (int i = layer_num - 1; i >= 0; --i) {
-      const bool is_last = i == layer_num - 1;
-      float cs[NT][2], ca[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) cs[j][0] = cs[j][1] = ca[j][0] = ca[j][1] = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = frag_row(m, 2 * h, lane);
-            const int col = frag_col(nt0 + j, 0, lane);
-            const size_t off = (rg0 + row) * HID + col;
-            const float2 hh = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(st.hs[i] + off));
-            const float v0 = hh.x > 0.f ? acc[m][j][2 * h] : 0.f;
-            const float v1 = hh.y > 0.f ? acc[m][j][2 * h + 1] : 0.f;
-            cs[j][0] += v0;
-            cs[j][1] += v1;
-            if (is_last) {
-              const float g = gsr[lr0 + row];
-              ca[j][0] += hh.x * g;
-              ca[j][1] += hh.y * g;
-            }
-            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(st.g_pre[i] + off) = v;
-            if (i > 0)
-              *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) = v;
-          }
-      add_col_sums<NT>(cs, nt0, lane, vec + i * HID);
-      if (is_last) add_col_sums<NT>(ca, nt0, lane, vec + vl.wa);
-      if (i > 0) {
-        __syncthreads();
-        zero_acc(acc);
-        mma_rows<NT>(act, kActStride, HID / 16, p.WhT[i], NTT, nt0, lane, acc);
-        __syncthreads();
-      }
-    }
-    __syncthreads();
-  }
-
   __syncthreads();
-  for (int i = tid; i < kTileRays * HV; i += kThreads)
-    st.g_hvsum[(size_t)ray0 * HV + i] = __float2bfloat16(hvsum[i]);
-  for (int i = tid; i < vl.P; i += kThreads)
+  uint32_t hs_phase = 0;
+
+  // Ring slice q (thread 0): one bulk copy of a slot image (the host packs
+  // each weight matrix as its slots' images, swizzled), landing on the
+  // slot's mbarrier.
+  auto load_slice = [&](int q) {
+    const int qc = q % Q;
+    const __nv_bfloat16* src;
+    int sl;
+    if (qc < KSV) {
+      src = p.wvhT;
+      sl = qc;
+    } else {
+      const int r = qc - KSV, m = r / KS;   // m = 0: feature; m: layer L - m
+      src = m == 0 ? p.wfT : p.WhT[layer_num - m];
+      sl = r % KS;
+    }
+    const int slot = q % kRingStages;
+    mbar_expect(full0 + 8 * slot, L::kSlot);
+    bulk_copy(ring_s + slot * L::kSlot, src + (size_t)sl * (L::kSlot / 2),
+              L::kSlot, full0 + 8 * slot);
+  };
+  // The row buffer: thread r < 128 moves chunk row r in and out by bulk
+  // copies.  Rows of a (rows, width) stash array land on bar, apart from
+  // the ring's cp.async groups, so the ring never waits for them; the
+  // gradient rows written over them go out the same way.
+  auto load_rows = [&](const __nv_bfloat16* src, int width, size_t rg0) {
+    if (tid < kChunkRows) {
+      bulk_read_done();   // this row's previous store has left the buffer
+      if (tid == 0) mbar_expect(bar, kChunkRows * width * 2);
+      fence_async();
+      bulk_copy(hs_s + tid * L::kHsStride, src + (rg0 + tid) * width, width * 2, bar);
+    }
+  };
+  auto rows_landed = [&]() {
+    mbar_wait(bar, hs_phase);
+    hs_phase ^= 1;
+  };
+  // Element col of row r (of this warpgroup's 64) of the hs buffer.
+  auto hs_at = [&](int r, int col) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        hb + r * L::kHsStride + col * 2));
+  };
+  // Gradient pair (row r of the warpgroup, column col) -> the row buffer,
+  // over the activation pair read there.
+  auto put_pair = [&](int r, int col, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(const_cast<unsigned char*>(hb) + r * L::kHsStride +
+                                 col * 2) = v;
+  };
+  // The row buffer's gradient rows -> dst rows rg0 ..; after every
+  // thread's put_pair, fence_async and a barrier.
+  auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {
+    if (tid < kChunkRows)
+      bulk_store(dst + (rg0 + tid) * width, hs_s + tid * L::kHsStride, width * 2);
+  };
+  auto rows_free = [&]() {   // the stores have read the row buffer
+    if (tid < kChunkRows) bulk_read_done();
+    __syncthreads();
+  };
+  // Fixed-order sum of the warps' column partials of column c.
+  auto col_total = [&](int c, int w0, int w1) {
+    float s = 0.f;
+    for (int w = w0; w < w1; ++w) s += colpart[w * HID + c];
+    return s;
+  };
+
+  int q = 0;   // next ring slice to consume
+  if (tid == 0)
+    for (int s = 0; s < kRingStages - 2 && s < q_total; ++s) load_slice(s);
+
+  float acc[NJ * 4];
+  uint32_t a[HID / 16][4];   // bf16 A fragments: 16 columns (k) a step
+  // acc = A (k = NKS * kSliceK, from the registers a) times the next NKS
+  // ring slices.  One wgmma batch stays in flight, so slot q - 2 is the one
+  // refilled (with slice q + kRingStages - 2).  With pre >= 0 the chunk's
+  // rows of hs[pre] start loading into the row buffer at slice LS, when
+  // the last gradient rows have most likely left it.
+  auto product = [&](auto nks_c, int pre, size_t rg0) {
+    constexpr int NKS = decltype(nks_c)::value;
+    constexpr int LS = NKS > 2 ? 2 : NKS - 1;
+#pragma unroll
+    for (int s = 0; s < NKS; ++s, ++q) {
+      __syncthreads();   // batch q - 2 done everywhere: its slot is free
+      if (tid == 0 && q + kRingStages - 2 < q_total) load_slice(q + kRingStages - 2);
+      mbar_wait(full0 + 8 * (q % kRingStages), (q / kRingStages) & 1);
+      if (s == LS && pre >= 0) load_rows(st.hs[pre], HID, rg0);
+      const uint32_t slot = ring_s + (uint32_t)(q % kRingStages) * L::kSlot;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSliceK / 16; ++kk)
+        wgmma_rs<HID, 1>(acc, a[s * (kSliceK / 16) + kk],
+                         desc128(slot + kk * 2048, kSliceK * 128), s + kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+  };
+
+  for (int ui = 0; ui < my_units; ++ui) {
+    const int ray0 = ((int)blockIdx.x + ui * (int)gridDim.x) * G;
+    for (int ch = 0; ch < unit_chunks; ++ch) {
+      const size_t rg0 = (size_t)ray0 * S + ch * kChunkRows;
+      const int ul0 = ch * kChunkRows + wg * 64;  // its first row in the unit
+      load_rows(st.hv, HV, rg0);
+
+      // ---- composite backward: warp r takes ray r of the unit, blocks of
+      //      32 samples from the far end (reverse exclusive prefix sum of
+      //      g_w * w) ----
+      if (ch == 0) {
+        if (warp < G) {
+          const int r = warp, n = ray0 + r;
+          const float g0 = g_rgb_in[n * 3 + 0], g1 = g_rgb_in[n * 3 + 1],
+                      g2 = g_rgb_in[n * 3 + 2];
+          const float* zr = p.z + (size_t)n * (S + 1);
+          float carry = 0.f, sum_gsr = 0.f, sum_g[3] = {0.f, 0.f, 0.f};
+          for (int b = S / 32 - 1; b >= 0; --b) {
+            const int s = b * 32 + lane;
+            const size_t rg = (size_t)n * S + s;
+            const float* rec = st.rec + rg * kRecWidth;
+            const float rgb[3] = {rec[0], rec[1], rec[2]};
+            const float sigma_raw = rec[3], alpha = rec[4], trans = rec[5];
+            const float w = alpha * trans;
+            float gw = g_w_in[rg] + g0 * rgb[0] + g1 * rgb[1] + g2 * rgb[2];
+            if (white_bg) gw -= g0 + g1 + g2;
+            const float qv = gw * w;
+            float incl = qv;  // suffix sum over lanes >= lane
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+              const float v = __shfl_down_sync(0xffffffffu, incl, o);
+              if (lane + o < 32) incl += v;
+            }
+            const float after = carry + (incl - qv);
+            carry += __shfl_sync(0xffffffffu, incl, 0);
+            const float g_alpha = gw * trans - after / (1.f - alpha + 1e-10f);
+            const float g_sigma = g_alpha * (1.f - alpha) * (zr[s + 1] - zr[s]);
+            const float g_sr = sigma_raw > 0.f ? g_sigma : 0.f;
+            gsr[r * S + s] = g_sr;
+            sum_gsr += g_sr;
+            const float gc[3] = {g0, g1, g2};
+            float v[3];
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              v[c] = gc[c] * w * rgb[c] * (1.f - rgb[c]);
+              grgb[(r * S + s) * 3 + c] = v[c];
+              sum_g[c] += v[c];
+            }
+            *reinterpret_cast<uint4*>(st.g_rgb + rg * kGrgbWidth) =
+                make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], 0.f), 0u, 0u);
+          }
+          sum_gsr = warp_sum(sum_gsr);
+          for (int c = 0; c < 3; ++c) sum_g[c] = warp_sum(sum_g[c]);
+          if (lane == 0) {
+            tot[r * 4 + 0] = sum_g[0];
+            tot[r * 4 + 1] = sum_g[1];
+            tot[r * 4 + 2] = sum_g[2];
+            tot[r * 4 + 3] = sum_gsr;
+          }
+        }
+        __syncthreads();
+        if (tid == 0) {
+          for (int r = 0; r < G; ++r) {
+            for (int c = 0; c < 3; ++c) vec[vl.brgb + c] += tot[r * 4 + c];
+            vec[vl.ba] += tot[r * 4 + 3];
+          }
+        }
+      }
+      __syncthreads();   // composite results visible
+      rows_landed();     // hv
+
+      // ---- g_hv = relu'(hv) * (bf16(g_rgb_t) @ bf16(wrgb)^T) ----
+#pragma unroll
+      for (int j0 = 0; j0 < NJV; j0 += JB) {
+        float cs[2 * JB];
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj) {
+          const int j = j0 + jj, col = 8 * j + 2 * t;
+          float w[2][3];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) w[e][c] = __ldg(p.wr + (col + e) * 3 + c);
+          cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wrow + 8 * h;
+            const float* gr = grgb + (ul0 + r) * 3;
+            const float a0 = bf16_round(gr[0]), a1 = bf16_round(gr[1]),
+                        a2 = bf16_round(gr[2]);
+            const float2 hv = hs_at(r, col);
+            float v0 = a0 * w[0][0] + a1 * w[0][1] + a2 * w[0][2];
+            float v1 = a0 * w[1][0] + a1 * w[1][1] + a2 * w[1][2];
+            if (!(hv.x > 0.f)) v0 = 0.f;
+            if (!(hv.y > 0.f)) v1 = 0.f;
+            cs[2 * jj] += v0;
+            cs[2 * jj + 1] += v1;
+            const uint32_t pk = pack_bf16(v0, v1);
+            a[j >> 1][2 * (j & 1) + h] = pk;
+            put_pair(r, col, pk);
+          }
+        }
+        col_sums(cs, lane, cpw + 8 * j0);
+      }
+      fence_async();
+      __syncthreads();
+      store_rows(st.g_hv, HV, rg0);
+      for (int c = tid; c < HV; c += kBwdThreads) {
+        const float s0 = col_total(c, 0, 4), s1 = col_total(c, 4, 8);
+        vec[vl.bv + c] += s0 + s1;
+        if (G == 1) {
+          hvsum[c] += s0 + s1;
+        } else {
+          hvsum[c] += s0;
+          hvsum[HV + c] += s1;
+        }
+        if (ch == unit_chunks - 1) {
+          for (int r = 0; r < G; ++r) {
+            st.g_hvsum[(size_t)(ray0 + r) * HV + c] = __float2bfloat16(hvsum[r * HV + c]);
+            hvsum[r * HV + c] = 0.f;
+          }
+        }
+      }
+
+      // ---- g_feature = bf16(g_hv) @ bf16(wvh)^T (no activation) ----
+      product(Int<KSV>{}, -1, rg0);
+      rows_free();
+#pragma unroll
+      for (int j0 = 0; j0 < NJ; j0 += JB) {
+        float cs[2 * JB];
+#pragma unroll
+        for (int jj = 0; jj < JB; ++jj) {
+          const int j = j0 + jj, col = 8 * j + 2 * t;
+          cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            cs[2 * jj] += v0;
+            cs[2 * jj + 1] += v1;
+            const uint32_t pk = pack_bf16(v0, v1);
+            a[j >> 1][2 * (j & 1) + h] = pk;
+            put_pair(wrow + 8 * h, col, pk);
+          }
+        }
+        col_sums(cs, lane, cpw + 8 * j0);
+      }
+      fence_async();
+      __syncthreads();
+      store_rows(st.g_feat, HID, rg0);
+      for (int c = tid; c < HID; c += kBwdThreads) vec[vl.bf + c] += col_total(c, 0, 8);
+
+      // ---- g_h = bf16(g_feature) @ bf16(wf)^T + g_sigma_raw * wa ----
+      product(Int<KS>{}, layer_num - 1, rg0);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[4 * j + e] += gsr[ul0 + wrow + 8 * (e >> 1)] *
+                            __ldg(p.wa + 8 * j + 2 * t + (e & 1));
+
+      // ---- trunk: g_pre_i = relu'(h_i) * g_h; g_h = bf16(g_pre_i) @ bf16(W_i)^T
+      for (int i = layer_num - 1; i >= 0; --i) {
+        rows_landed();   // hs[i]
+        if (i == layer_num - 1) {
+          // sigma head: wa gets sum over rows of h_{L-1} * g_sigma_raw,
+          // read before the gradient rows overwrite h_{L-1}.
+#pragma unroll
+          for (int j0 = 0; j0 < NJ; j0 += JB) {
+            float cs[2 * JB];
+#pragma unroll
+            for (int jj = 0; jj < JB; ++jj) {
+              const int col = 8 * (j0 + jj) + 2 * t;
+              cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = wrow + 8 * h;
+                const float gs = gsr[ul0 + r];
+                const float2 hh = hs_at(r, col);
+                cs[2 * jj] += hh.x * gs;
+                cs[2 * jj + 1] += hh.y * gs;
+              }
+            }
+            col_sums(cs, lane, cpw + 8 * j0);
+          }
+          __syncthreads();
+          for (int c = tid; c < HID; c += kBwdThreads) vec[vl.wa + c] += col_total(c, 0, 8);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int j0 = 0; j0 < NJ; j0 += JB) {
+          float cs[2 * JB];
+#pragma unroll
+          for (int jj = 0; jj < JB; ++jj) {
+            const int j = j0 + jj, col = 8 * j + 2 * t;
+            cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wrow + 8 * h;
+              const float2 hh = hs_at(r, col);
+              const float v0 = hh.x > 0.f ? acc[4 * j + 2 * h] : 0.f;
+              const float v1 = hh.y > 0.f ? acc[4 * j + 2 * h + 1] : 0.f;
+              cs[2 * jj] += v0;
+              cs[2 * jj + 1] += v1;
+              const uint32_t pk = pack_bf16(v0, v1);
+              a[j >> 1][2 * (j & 1) + h] = pk;
+              put_pair(r, col, pk);
+            }
+          }
+          col_sums(cs, lane, cpw + 8 * j0);
+        }
+        fence_async();
+        __syncthreads();
+        store_rows(st.g_pre[i], HID, rg0);
+        for (int c = tid; c < HID; c += kBwdThreads) vec[i * HID + c] += col_total(c, 0, 8);
+        if (i > 0) product(Int<KS>{}, i - 1, rg0);
+      }
+    }
+  }
+
+  if (tid < kChunkRows)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  for (int i = tid; i < vl.P; i += kBwdThreads)
     st.vec_part[(size_t)blockIdx.x * vl.P + i] = vec[i];
 }
 
-// ---- weight gradients: C (M x N) = sum over rows of A[row]^T B[row] ----
+// ---- launch 3: weight gradients, C (M x N) = sum over rows of A[row]^T B[row]
+//      (bf16 operands, f32 sums), one 128 x bn output tile per block and
+//      row range ----
+
+constexpr int kGemmThreads = 256;   // two warpgroups: output rows 0-63, 64-127
+constexpr int kGemmStages = 4;
+constexpr int kGemmK = 64;          // sample rows a stage
+constexpr int kGemmBlock = kGemmK * 128;              // 64 rows x 64 bf16
+constexpr int kGemmStageBytes = 6 * kGemmBlock;       // A: 2 blocks, B: up to 4
+constexpr size_t kGemmSmem = 1024 + (size_t)kGemmStages * kGemmStageBytes;
+
 struct Prod {
   const __nv_bfloat16* A;  // (rows, M) row-major, M % 8 == 0
   const __nv_bfloat16* B;  // (rows, N) row-major, N % 8 == 0
   int M, N, rows;
   long long out_off;       // into the (M x N) row-major output block
-  int tile0, ntn;          // first tile index, n-tiles of 64
+  int tile0, ntn, bn;      // first tile index, n-tiles, n-tile width
 };
 struct ProdTable {
   Prod p[kMaxProds];
   int count;
 };
 
-__global__ void __launch_bounds__(kGemmThreads)
-wgrad_kernel(ProdTable t, long long total, float* __restrict__ part) {
-  __shared__ __align__(16) __nv_bfloat16 As[32][72];
-  __shared__ __align__(16) __nv_bfloat16 Bs[32][72];
+__global__ void __launch_bounds__(kGemmThreads, 1)
+wgrad_gemm_kernel(ProdTable tab, long long total, float* __restrict__ part) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sm0 = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tile = blockIdx.x;
   int pi = 0;
-  while (pi + 1 < t.count && tile >= t.p[pi + 1].tile0) ++pi;
-  const Prod prod = t.p[pi];
-  const int lt = tile - prod.tile0;
-  const int m0 = (lt / prod.ntn) * 64, n0 = (lt % prod.ntn) * 64;
-  const int per = (prod.rows + gridDim.y - 1) / gridDim.y;
-  const int r0 = blockIdx.y * per;
+  while (pi + 1 < tab.count && tile >= tab.p[pi + 1].tile0) ++pi;
+  const Prod prod = tab.p[pi];
+  const int lt = tile - prod.tile0, bn = prod.bn;
+  const int m0 = (lt / prod.ntn) * 128, n0 = (lt % prod.ntn) * bn;
+  int per = (prod.rows + gridDim.y - 1) / gridDim.y;
+  per = (per + kGemmK - 1) / kGemmK * kGemmK;
+  const int r0 = min(prod.rows, (int)blockIdx.y * per);
   const int r1 = min(prod.rows, r0 + per);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int nsl = (r1 - r0 + kGemmK - 1) / kGemmK;
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const bool active = m0 + 64 * wg < prod.M;
+  const int bsh = bn == 256 ? 5 : bn == 128 ? 4 : 3;   // log2 16-byte chunks a B row
 
-  float acc[2][4][4];
+  // Stage s: rows r0 + 64 s .. of A (128 columns from m0) and B (bn from
+  // n0), MN-major; columns past M / N and rows past r1 zero-filled.
+  auto load = [&](int s) {
+    const uint32_t sb = sm0 + (uint32_t)(s % kGemmStages) * kGemmStageBytes;
+    const int rb = r0 + s * kGemmK;
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][b][e] = 0.f;
+    for (int i = tid; i < kGemmK * 16; i += kGemmThreads) {
+      const int row = i >> 4, c = i & 15, gr = rb + row, col = m0 + c * 8;
+      const bool ok = gr < r1 && col < prod.M;
+      cp_async16(sb + (c >> 3) * kGemmBlock + swz(row, c & 7),
+                 ok ? prod.A + (size_t)gr * prod.M + col : prod.A, ok);
+    }
+    for (int i = tid; i < (kGemmK << bsh); i += kGemmThreads) {
+      const int row = i >> bsh, c = i & ((1 << bsh) - 1), gr = rb + row,
+                col = n0 + c * 8;
+      const bool ok = gr < r1 && col < prod.N;
+      cp_async16(sb + (2 + (c >> 3)) * kGemmBlock + swz(row, c & 7),
+                 ok ? prod.B + (size_t)gr * prod.N + col : prod.B, ok);
+    }
+  };
 
-  const int mj = lane >> 3, r8 = lane & 7;
-  const uint32_t as = (uint32_t)__cvta_generic_to_shared(&As[0][0]);
-  const uint32_t bs = (uint32_t)__cvta_generic_to_shared(&Bs[0][0]);
-  for (int r = r0; r < r1; r += 32) {
-    for (int i = tid; i < 256; i += kGemmThreads) {
-      const int row = i >> 3, c8 = (i & 7) * 8, gr = r + row;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (gr < r1 && m0 + c8 < prod.M)
-        va = *reinterpret_cast<const uint4*>(prod.A + (size_t)gr * prod.M + m0 + c8);
-      if (gr < r1 && n0 + c8 < prod.N)
-        vb = *reinterpret_cast<const uint4*>(prod.B + (size_t)gr * prod.N + n0 + c8);
-      *reinterpret_cast<uint4*>(&As[row][c8]) = va;
-      *reinterpret_cast<uint4*>(&Bs[row][c8]) = vb;
-    }
-    __syncthreads();
+  float acc[128];
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t a[2][4], b[2][4];
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)  // A^T: stored rows = k, cols = m
-        ldmatrix_x4_trans(a[mt], as + (uint32_t)(((ks * 16 + (mj >> 1) * 8 + r8) * 72 +
-                                                  wm + mt * 16 + (mj & 1) * 8) * 2));
-#pragma unroll
-      for (int np = 0; np < 2; ++np)  // B: stored rows = k, cols = n
-        ldmatrix_x4_trans(b[np], bs + (uint32_t)(((ks * 16 + (mj & 1) * 8 + r8) * 72 +
-                                                  wn + np * 16 + (mj >> 1) * 8) * 2));
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], a[mt],
-                   make_uint2(b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]));
-    }
-    __syncthreads();
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nsl) load(s);
+    cp_async_commit();
   }
-  float* out = part + (size_t)blockIdx.y * total + prod.out_off;
+  for (int s = 0; s < nsl; ++s) {
+    cp_async_wait<kGemmStages - 2>();
+    fence_async();
+    __syncthreads();   // stage s landed; every wgmma on stage s - 1 is done
+    if (s + kGemmStages - 1 < nsl) load(s + kGemmStages - 1);
+    cp_async_commit();
+    if (active) {
+      const uint32_t sb = sm0 + (uint32_t)(s % kGemmStages) * kGemmStageBytes;
+      wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + mt * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn + nt * 8 + (lane & 3) * 2 + (e & 1);
-        if (m < prod.M && n < prod.N) out[(size_t)m * prod.N + n] = acc[mt][nt][e];
+      for (int kk = 0; kk < kGemmK / 16; ++kk) {   // 16 rows on: 2048 bytes
+        const uint64_t da = desc128(sb + wg * kGemmBlock + kk * 2048, kGemmBlock);
+        const uint64_t db = desc128(sb + 2 * kGemmBlock + kk * 2048, kGemmBlock);
+        if (bn == 256) wgmma_ss<256>(acc, da, db, 1);
+        else if (bn == 128) wgmma_ss<128>(acc, da, db, 1);
+        else wgmma_ss<64>(acc, da, db, 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  float* out = part + (size_t)blockIdx.y * total + prod.out_off;
+  const int row0 = m0 + 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    if (8 * j >= bn || col >= prod.N) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < prod.M)
+        *reinterpret_cast<float2*>(out + (size_t)row * prod.N + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
 // out[j] = sum over p (in order) of part[p * width + j].
@@ -794,9 +1061,11 @@ size_t carve(const Dims& d, char* base, Stash* st, float** scratch_rgb,
   return off;
 }
 
+// S: one 64-row half of a backward chunk, or whole 128-row chunks.
 bool bad_dims(int n_rays, int hid, int layer_num, int F, int Fd, int S) {
   return layer_num < 1 || layer_num > kMaxLayers || 6 * F > kEncMax ||
-         6 * Fd + 3 > kDirsMax || n_rays % kTileRays != 0 || S % kRows != 0 ||
+         6 * Fd + 3 > kDirsMax || n_rays % kTileRays != 0 ||
+         (S != kRows && S % kChunkRows != 0) || S < kRows ||
          S > kMaxSamples || (hid != 64 && hid != 256);
 }
 
@@ -806,16 +1075,16 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
     const bool live = i < layer_num;
     p->Wenc[i] = live ? (const uint2*)ptrs[k++] : nullptr;
     p->Wh[i] = live ? (const uint2*)ptrs[k++] : nullptr;
-    p->WhT[i] = live ? (const uint2*)ptrs[k++] : nullptr;
+    p->WhT[i] = live ? (const __nv_bfloat16*)ptrs[k++] : nullptr;
     p->b[i] = live ? (const float*)ptrs[k++] : nullptr;
   }
   p->wa = (const float*)ptrs[k++];
   p->ba = (const float*)ptrs[k++];
   p->wf = (const uint2*)ptrs[k++];
-  p->wfT = (const uint2*)ptrs[k++];
+  p->wfT = (const __nv_bfloat16*)ptrs[k++];
   p->bf = (const float*)ptrs[k++];
   p->wvh = (const uint2*)ptrs[k++];
-  p->wvhT = (const uint2*)ptrs[k++];
+  p->wvhT = (const __nv_bfloat16*)ptrs[k++];
   p->wvd = (const float*)ptrs[k++];
   p->bv = (const float*)ptrs[k++];
   p->wr = (const float*)ptrs[k++];
@@ -840,17 +1109,28 @@ cudaError_t launch_fwd(const TrainParams& p, const Stash& st, int stash,
   return cudaGetLastError();
 }
 
+// Persistent grid: at most one block per SM (and one vec_part row each);
+// *parts gets the number of blocks, the rows the vector reduction sums.
 template <int HID>
 cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
                        int layer_num, int S, int white_bg, const float* g_rgb,
-                       const float* g_w, cudaStream_t stream) {
-  const size_t bytes = BwdSmem<HID>::bytes(S, VecLayout(layer_num, HID).P);
+                       const float* g_w, int* parts, cudaStream_t stream) {
+  const size_t bytes = BwdSmem<HID>::bytes(VecLayout(layer_num, HID).P);
   auto kern = train_bwd_kernel<HID>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  kern<<<n_rays / kTileRays, kThreads, bytes, stream>>>(p, st, layer_num, S,
-                                                        white_bg, g_rgb, g_w);
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return e;
+  const int units = S >= kChunkRows ? n_rays : n_rays * S / kChunkRows;
+  int grid = units < sms ? units : sms;
+  if (grid > n_rays / kTileRays) grid = n_rays / kTileRays;   // vec_part rows
+  *parts = grid;
+  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, S, n_rays,
+                                             white_bg, g_rgb, g_w);
   return cudaGetLastError();
 }
 
@@ -859,7 +1139,10 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
 // ptrs: host array of 4 * layer_num + 14 device pointers, in the order
 // (Wenc_i, Wh_i, WhT_i, b_i) for each layer i, then wa, ba, wf, wfT, bf,
 // wvh, wvhT, wvd, bv, wr, br, rays, z, noise (Wenc_i / Wh_i / WhT_i null
-// where layer i has no such rows; the transposes only matter backward).
+// where layer i has no such rows).  Wenc_i, Wh_i, wf, wvh: mma.sync
+// fragments of the (in x out) rows (render_kernel.py: pack_fragments);
+// WhT_i, wfT, wvhT: the same rows, bf16 (out x in), as the backward's ring
+// slot images (render_train_kernel.py: slot_images).
 extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
                                        int dirs_freqs, int samples,
@@ -915,18 +1198,19 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
   carve(d, (char*)workspace, &st, &rgb, &w, &mat_part);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
+  int parts = 0;
   if (hid == 64) {
     e = launch_fwd<64>(p, st, 1, n_rays, layer_num, num_freqs, dirs_freqs,
                        samples, var_scale, white_bg, rgb, w, s);
     if (e == cudaSuccess)
       e = launch_bwd<64>(p, st, n_rays, layer_num, samples, white_bg,
-                         (const float*)g_rgb, (const float*)g_w, s);
+                         (const float*)g_rgb, (const float*)g_w, &parts, s);
   } else {
     e = launch_fwd<256>(p, st, 1, n_rays, layer_num, num_freqs, dirs_freqs,
                         samples, var_scale, white_bg, rgb, w, s);
     if (e == cudaSuccess)
       e = launch_bwd<256>(p, st, n_rays, layer_num, samples, white_bg,
-                          (const float*)g_rgb, (const float*)g_w, s);
+                          (const float*)g_rgb, (const float*)g_w, &parts, s);
   }
   if (e != cudaSuccess) return (int)e;
 
@@ -943,8 +1227,9 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
     q.rows = rows;
     q.out_off = off;
     q.tile0 = tiles;
-    q.ntn = (N + 63) / 64;
-    tiles += ((M + 63) / 64) * q.ntn;
+    q.bn = N >= 256 ? 256 : N > 64 ? 128 : 64;
+    q.ntn = (N + q.bn - 1) / q.bn;
+    tiles += ((M + 127) / 128) * q.ntn;
     off += (long long)M * N;
   };
   const int R = (int)d.rows, H = hid, HV = d.hv;
@@ -956,13 +1241,17 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
   add(st.feat, H, st.g_hv, HV, R);
   add(st.extras, kDirsMax, st.g_hvsum, HV, n_rays);
   add(st.hv, HV, st.g_rgb, kGrgbWidth, R);
-  wgrad_kernel<<<dim3(tiles, d.splits), kGemmThreads, 0, s>>>(t, d.mat_total,
-                                                             mat_part);
+  e = cudaFuncSetAttribute(wgrad_gemm_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kGemmSmem);
+  if (e != cudaSuccess) return (int)e;
+  wgrad_gemm_kernel<<<dim3(tiles, d.splits), kGemmThreads, kGemmSmem, s>>>(
+      t, d.mat_total, mat_part);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   reduce_parts_kernel<<<(unsigned)((off + 255) / 256), 256, 0, s>>>(
       mat_part, d.splits, d.mat_total, (float*)grad_mat);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   reduce_parts_kernel<<<(d.vl.P + 255) / 256, 256, 0, s>>>(
-      st.vec_part, n_rays / kTileRays, d.vl.P, (float*)grad_vec);
+      st.vec_part, parts, d.vl.P, (float*)grad_vec);
   return (int)cudaGetLastError();
 }

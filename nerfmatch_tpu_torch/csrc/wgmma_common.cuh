@@ -1,0 +1,205 @@
+// Device helpers shared by the Hopper kernels that stage their operands
+// asynchronously and multiply with wgmma (attention.cu, render_train.cu):
+// cp.async and bulk copies into shared memory, mbarriers, the fence to the
+// asynchronous proxy, and wgmma.mma_async m64nNk16 (bf16 operands, f32
+// accumulators) with A in registers or in shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- cp.async ----
+
+// 16 bytes global -> shared, zero-filled when !valid (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// All but the N most recent groups of this thread's copies have landed.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's shared-memory writes (and landed copies) become visible to
+// the asynchronous proxy that wgmma and the bulk copies go through.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- mbarriers and bulk copies ----
+
+// mbarrier with one arrival a phase plus the bytes of the bulk copies
+// that complete on it.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16) global -> shared by the copy engine, completing
+// on the mbarrier bar.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// bytes shared -> global by the copy engine, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               "cp.async.bulk.commit_group;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// This thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_read_done() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---- wgmma ----
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// All but the N most recent wgmma groups of the warpgroup are done.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The accumulator operands d[i] ..: "+f" constraints, and the operand
+// numbers of the first 16 / 32 / 64 / 128 of them in an asm template.
+#define NM_ACC8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define NM_ACC16(i) NM_ACC8(i), NM_ACC8(i + 8)
+#define NM_ACC32(i) NM_ACC16(i), NM_ACC16(i + 16)
+#define NM_ACC64(i) NM_ACC32(i), NM_ACC32(i + 32)
+#define NM_ACC128(i) NM_ACC64(i), NM_ACC64(i + 64)
+#define NM_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define NM_REGS32                                                          \
+  NM_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+            "%28, %29, %30, %31"
+#define NM_REGS64                                                        \
+  NM_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define NM_REGS128                                                         \
+  NM_REGS64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "    \
+            "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "   \
+            "%87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "   \
+            "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "    \
+            "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "   \
+            "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+// One wgmma.mma_async: accumulator operands ACC (numbered REGS), then the
+// inputs INS; PRED names the scale-d input (0: d = A B, else d += A B) and
+// TAIL the A, B and immediate operands after the accumulator.
+#define NM_WGMMA(n, REGS, TAIL, PRED, ACC, ...)                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 {" \
+               REGS "}, " TAIL ";\n}\n"                                     \
+               : ACC                                                        \
+               : __VA_ARGS__                                                \
+               : "memory")
+
+// d (64 x N f32, N / 2 a thread) = or += A (64 x 16) B (16 x N), both in
+// shared memory (descriptors da, db) and MN-major (the transpose bits set).
+// Accumulator element 4 j + e of a thread holds row 16 (warp % 4) + lane / 4
+// (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: n64, n128, n256");
+  if constexpr (N == 256)
+    NM_WGMMA(256, NM_REGS128, "%128, %129, p, 1, 1, 1, 1", "%130",
+             NM_ACC128(0), "l"(da), "l"(db), "r"(scale_d));
+  else if constexpr (N == 128)
+    NM_WGMMA(128, NM_REGS64, "%64, %65, p, 1, 1, 1, 1", "%66", NM_ACC64(0),
+             "l"(da), "l"(db), "r"(scale_d));
+  else
+    NM_WGMMA(64, NM_REGS32, "%32, %33, p, 1, 1, 1, 1", "%34", NM_ACC32(0),
+             "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N f32) = or += A (64 x 16 bf16: four registers a thread, the
+// layout of mma.sync m16n8k16's A, warp w of the warpgroup holding rows
+// 16 w ..) times the 16 x N tile of B in shared memory (descriptor db),
+// K-major (TB = 0) or MN-major (TB = 1).
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 256, "wgmma_rs: n32, n64, n256");
+  if constexpr (N == 256)
+    NM_WGMMA(256, NM_REGS128, "{%128, %129, %130, %131}, %132, p, 1, 1, %134",
+             "%133", NM_ACC128(0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+             "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  else if constexpr (N == 64)
+    NM_WGMMA(64, NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38", "%37",
+             NM_ACC32(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+             "l"(db), "r"(scale_d), "n"(TB));
+  else
+    NM_WGMMA(32, NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22", "%21",
+             NM_ACC16(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+             "l"(db), "r"(scale_d), "n"(TB));
+}
+
+#undef NM_WGMMA
+#undef NM_REGS128
+#undef NM_REGS64
+#undef NM_REGS32
+#undef NM_REGS16
+#undef NM_ACC128
+#undef NM_ACC64
+#undef NM_ACC32
+#undef NM_ACC16
+#undef NM_ACC8
+
+}  // namespace

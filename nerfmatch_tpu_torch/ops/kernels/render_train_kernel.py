@@ -39,11 +39,14 @@ from ...nerf.sampling import frustum_moments
 from .render_kernel import pack_fragments
 
 TILE_RAYS = 2
-SAMPLE_CHUNK = 64
+KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
 KERNEL_HIDS = (64, 256)
 ENC_MAX = 96          # csrc: kEncMax (padded encoding width)
 DIRS_MAX = 32         # csrc: kDirsMax
 GRGB_WIDTH = 8        # csrc: kGrgbWidth
+REC_WIDTH = 8         # csrc: kRecWidth (f32 record a sample)
+MAX_SPLITS = 48       # csrc: kMaxSplits (the GEMM's row ranges)
+SLOT_ROWS = 32        # csrc: kSliceK (weight rows a backward ring slot)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -199,11 +202,29 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
+def slot_images(w, rows: int = SLOT_ROWS):
+    """A (K, N) weight matrix (out x in) -> the backward kernel's ring-slot
+    images, bf16, (K, N) elements in another order: per ``rows`` rows (one
+    slot), N / 64 blocks of ``rows`` x 64 elements, the 16-byte chunk c of
+    row r stored at chunk c ^ (r % 8) of its 128-byte row (the 128-byte
+    swizzle its wgmma descriptors read).  One bulk copy fills a slot."""
+    K, N = w.shape
+    x = w.detach().to(torch.bfloat16).reshape(K // rows, rows, N // 64, 8, 8)
+    x = x.permute(0, 2, 1, 3, 4)                   # slot, block, row, chunk
+    r = torch.arange(rows, device=w.device).view(rows, 1)
+    src = torch.arange(8, device=w.device).view(1, 8) ^ (r % 8)
+    idx = src.view(1, 1, rows, 8, 1).expand(x.shape)
+    return torch.gather(x, 3, idx).contiguous().reshape(K, N)
+
+
 def pack_train(mlp: NerfMLP):
     """Kernel weight list in the C entry's order: per layer (encoding-row
-    fragments, hidden-row fragments, transposed hidden-row fragments, bias;
-    None where absent), then wa, ba, wf, wf^T, bf, wvh, wvh^T, wvd, bv, wr,
-    br.  wvd and wr are f32 arrays of bf16-rounded values."""
+    fragments, hidden-row fragments, the hidden rows' slot images, bias;
+    None where absent), then wa, ba, wf fragments, wf slot images, bf, wvh
+    fragments, wvh slot images, wvd, bv, wr, br.  The fragments feed the
+    forward's ``mma.sync``, the slot images (of the (out x in) rows) the
+    backward's ``wgmma``; wvd and wr are f32 arrays of bf16-rounded
+    values."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     t = lambda w: w.detach().t().contiguous()
@@ -214,16 +235,15 @@ def pack_train(mlp: NerfMLP):
         w_hid = None if i == 0 else (w[:, enc:] if (i - 1) in cfg.skips else w)
         out += [None if w_enc is None else pack_fragments(t(w_enc)),
                 None if w_hid is None else pack_fragments(t(w_hid)),
-                None if w_hid is None else pack_fragments(w_hid.contiguous()),
+                None if w_hid is None else slot_images(w_hid),
                 lin.bias.detach().contiguous()]
     wv = mlp.views_linears[0].weight.detach()
     wf = mlp.feature_linear.weight.detach()
     out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
             mlp.alpha_linear.bias.detach().contiguous(),
-            pack_fragments(t(wf)), pack_fragments(wf.contiguous()),
+            pack_fragments(t(wf)), slot_images(wf),
             mlp.feature_linear.bias.detach().contiguous(),
-            pack_fragments(t(wv[:, :hid])),
-            pack_fragments(wv[:, :hid].contiguous()),
+            pack_fragments(t(wv[:, :hid])), slot_images(wv[:, :hid]),
             _bf16(t(wv[:, hid:])).contiguous(),
             mlp.views_linears[0].bias.detach().contiguous(),
             _bf16(t(mlp.rgb_linear.weight)).contiguous(),
@@ -248,6 +268,42 @@ def check_train_config(spec: StageSpec):
             f"{cfg.hid_dim} (ROADMAP: train kernel widths)")
 
 
+@dataclasses.dataclass(frozen=True)
+class BackwardLayout:
+    """What ``nm_render_train_backward`` builds for one stage (csrc: Dims,
+    VecLayout, the Stash and the ProdTable), for the callers that size its
+    outputs or account for its traffic."""
+    vec_len: int      # f32 vector gradients (biases, sigma head)
+    products: tuple   # (M, N, rows) of each weight-gradient product, C order
+    splits: int       # the GEMM's row ranges, summed in order
+    traffic: dict     # workspace bytes each launch reads and writes
+
+
+def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
+    L, H = cfg.layer_num, cfg.hid_dim
+    HV, R = H // 2, n * S
+    prods = []
+    for i in range(L):
+        if _skip_in(cfg, i):
+            prods.append((ENC_MAX, H, R))
+        if i > 0:
+            prods.append((H, H, R))
+    prods += [(H, H, R), (H, HV, R), (DIRS_MAX, HV, n), (HV, GRGB_WIDTH, R)]
+    splits = min(MAX_SPLITS, max(1, R // 4096))
+    part = 4 * sum(m * k for m, k, _ in prods)        # one f32 partial
+    rec = 4 * REC_WIDTH
+    traffic = {
+        "stash forward": R * (2 * (ENC_MAX + L * H + H + HV) + rec)
+        + n * DIRS_MAX * 2,
+        "trunk backward": R * (rec + 2 * HV + 2 * L * H)           # reads
+        + R * 2 * (L * H + H + HV + GRGB_WIDTH),                   # writes
+        "weight-gradient GEMM": sum(r * 2 * (m + k) for m, k, r in prods)
+        + splits * part,
+        "reductions": splits * part + part}
+    return BackwardLayout(L * H + H + HV + 4 + H + 4, tuple(prods), splits,
+                          traffic)
+
+
 def _ptrs(packed, *tensors):
     vals = [None if p is None else p.data_ptr() for p in packed]
     vals += [t.data_ptr() for t in tensors]
@@ -256,17 +312,17 @@ def _ptrs(packed, *tensors):
 
 def _kernel_args(spec: StageSpec, rays, z, noise, packed):
     check_train_config(spec)
-    require_cuda_tensors("render_train", rays, z, noise,
-                         *[p for p in packed if p is not None])
     n, S = z.shape[0], z.shape[1] - 1
     if any(t.dtype != torch.float32 for t in (rays, z, noise)) \
             or rays.shape != (n, 12) or noise.shape != (n, S):
         raise ValueError("render_train: rays (N, 12), z (N, S+1), noise "
                          "(N, S), all f32")
-    if n % TILE_RAYS or S % SAMPLE_CHUNK or S > 256:
+    if n % TILE_RAYS or S not in KERNEL_SAMPLES:
         raise NotImplementedError(
-            f"train kernel needs N % {TILE_RAYS} == 0 and S a multiple of "
-            f"{SAMPLE_CHUNK} up to 256 (N={n}, S={S})")
+            f"train kernel needs N % {TILE_RAYS} == 0 and S in "
+            f"{KERNEL_SAMPLES} (N={n}, S={S})")
+    require_cuda_tensors("render_train", rays, z, noise,
+                         *[p for p in packed if p is not None])
     cfg = spec.mlp.cfg
     return (_ptrs(packed, rays, z, noise), n, cfg.hid_dim, cfg.layer_num,
             spec.num_freqs, spec.dirs_freqs, S, spec.var_scale,
@@ -301,8 +357,7 @@ def kernel_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w, packed):
     dev = rays.device
     work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     mat = torch.empty(nmat.value, device=dev)
-    P = L * hid + hid + hv + 4 + hid + 4          # csrc: VecLayout
-    vec = torch.empty(P, device=dev)
+    vec = torch.empty(backward_layout(cfg, n, S).vec_len, device=dev)
     err = library().nm_render_train_backward(
         *args, g_rgb.data_ptr(), g_w.data_ptr(), work.data_ptr(),
         mat.data_ptr(), vec.data_ptr(), stream_ptr(dev))

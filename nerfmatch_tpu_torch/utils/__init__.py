@@ -23,9 +23,15 @@ def get_logger(level: str = "INFO", name: str = "nerfmatch_tpu_torch"):
 def resolve_device(device="cuda"):
     """The device an entry point runs on: the card unless the caller asks
     for the CPU (``device="cpu"``, ``--device cpu``).  Raises when CUDA is
-    asked for and absent, instead of carrying on on the CPU."""
+    asked for and absent, instead of carrying on on the CPU.
+
+    Also turns TF32 off for cuBLAS and cuDNN (cuDNN's default is on): the
+    matcher's backbone convolutions feed the dual-softmax and fine-matching
+    similarities, which must stay f32 as in the JAX package."""
     import torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

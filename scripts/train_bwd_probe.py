@@ -1,0 +1,169 @@
+"""What the NeRF train-render backward's launches (kernel 6) are made of,
+on one NVIDIA GPU.
+
+    python3 scripts/train_bwd_probe.py
+
+Builds ``nerfmatch_tpu_torch/csrc/render_train.cu`` once per variant below,
+each an edited copy of the source (``PATCHES``: every edit must match the
+source exactly once), one ``nvcc`` each, all started together, into
+``build/train_bwd_probe/``:
+
+* ``shipped``: as the package builds it;
+* ``no_mma``: the trunk backward issues no ``wgmma`` (loads, barriers and
+  the elementwise stages stay);
+* ``no_ring``: the trunk backward loads no weight slices after its prologue;
+* ``no_rows``: the trunk backward neither loads hs / hv rows nor stores its
+  gradient rows;
+* ``no_epi``: the trunk layers' column sums (the bias gradients) are left
+  out;
+* ``splits24`` / ``splits32``: the weight-gradient GEMM over 24 / 32 row
+  ranges instead of 48.
+
+Then, on phase 3b's stage of ``chip_smoke.py`` (the room's fine MLP, 9216
+rays x 128 samples), it runs ``nm_render_train_backward`` of each build
+three times under ``torch.profiler`` and prints the device time of each
+launch (stash forward, trunk backward, weight-gradient GEMM, reductions),
+the mean over the three calls, one JSON line per variant after the card's
+name and power limit.  The shipped build's gradients must equal the
+package's bit for bit; the probe builds compute something else and are only
+timed.  Compare within one run only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
+from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk  # noqa: E402
+
+_ROW_LAMBDAS = (
+    "  auto load_rows = [&](const __nv_bfloat16* src, int width, size_t rg0) {\n",
+    "  auto rows_landed = [&]() {\n",
+    "  auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {\n")
+_SUMS_TAIL = """        }
+        fence_async();
+        __syncthreads();
+        store_rows(st.g_pre[i], HID, rg0);
+"""
+# (old, new) edits of render_train.cu per variant.
+PATCHES = {
+    "shipped": [],
+    "no_mma": [("""      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSliceK / 16; ++kk)
+        wgmma_rs<HID, 1>(acc, a[s * (kSliceK / 16) + kk],
+                         desc128(slot + kk * 2048, kSliceK * 128), s + kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+""", "      (void)slot;\n")],
+    "no_ring": [("""      if (tid == 0 && q + kRingStages - 2 < q_total) load_slice(q + kRingStages - 2);
+      mbar_wait(full0 + 8 * (q % kRingStages), (q / kRingStages) & 1);
+""", "")],
+    "no_rows": [(lam, lam + "    return;\n") for lam in _ROW_LAMBDAS],
+    "no_epi": [("          col_sums(cs, lane, cpw + 8 * j0);\n" + _SUMS_TAIL,
+                _SUMS_TAIL)],
+    "splits24": [("constexpr int kMaxSplits = 48;",
+                  "constexpr int kMaxSplits = 24;")],
+    "splits32": [("constexpr int kMaxSplits = 48;",
+                  "constexpr int kMaxSplits = 32;")]}
+LAUNCHES = {"train_fwd_kernel": "stash_fwd", "train_bwd_kernel": "trunk_bwd",
+            "wgrad_gemm_kernel": "gemm", "reduce_parts_kernel": "reduce"}
+
+
+def build_variants():
+    out_dir = ROOT / "build" / "train_bwd_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = (kernels.CSRC / "render_train.cu").read_text()
+    jobs = {}
+    for name, edits in PATCHES.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"{name}: edit does not match once: {old!r}")
+            text = text.replace(old, new)
+        src = out_dir / f"render_train_{name}.cu"
+        src.write_text(text)
+        so = out_dir / f"render_train_{name}.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}",
+               "-shared", "-o", str(so), str(src)]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {name} failed:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        for fn in ("nm_render_train_backward", "nm_render_train_workspace"):
+            getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def main():
+    smi = chip_smoke.phase_environment()
+    dev = torch.device("cuda", 0)
+    libs = build_variants()
+    renderer = chip_smoke.load_room_renderer(dev)
+    spec, rays, z, noise, target = chip_smoke.train_inputs(renderer, dev)
+    packed = rtk.pack_train(spec.mlp)
+    with torch.no_grad():
+        rgb, w = rtk.kernel_forward(spec, rays, z, noise, packed)
+    g_rgb, g_w = chip_smoke.train_cotangents(z, rgb, w, target)
+    args = rtk._kernel_args(spec, rays, z, noise, packed)
+    cfg = spec.mlp.cfg
+    n, S, hid = z.shape[0], z.shape[1] - 1, cfg.hid_dim
+    nbytes, nmat = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    kernels.check(kernels.library().nm_render_train_workspace(
+        n, hid, cfg.layer_num, S, ctypes.addressof(nbytes),
+        ctypes.addressof(nmat)), "workspace")
+    P = rtk.backward_layout(cfg, n, S).vec_len
+    work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    # Zeroed: the matrix block is sized for the widest layer layout, and
+    # its tail past the products is never written.
+    outs = [torch.zeros(nmat.value + P, device=dev) for _ in range(2)]
+
+    def run(lib, out, name):
+        err = lib.nm_render_train_backward(
+            *args, g_rgb.data_ptr(), g_w.data_ptr(), work.data_ptr(),
+            out.data_ptr(), out[nmat.value:].data_ptr(),
+            kernels.stream_ptr(dev))
+        kernels.check(err, f"render_train_bwd ({name})")
+
+    run(kernels.library(), outs[0], "package")
+    print(smi, flush=True)
+    for name, lib in libs.items():
+        call = lambda: run(lib, outs[1], name)  # noqa: E731
+        call()
+        torch.cuda.synchronize()
+        if name == "shipped":
+            assert torch.equal(outs[0], outs[1]), "shipped build != package"
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        ms = dict.fromkeys(LAUNCHES.values(), 0.0)
+        for e in prof.key_averages():
+            for key, label in LAUNCHES.items():
+                if key in e.key:
+                    ms[label] += e.self_device_time_total / 1e3 / 3
+        ms["total"] = sum(ms.values())
+        print(json.dumps({"variant": name,
+                          **{k: round(v, 4) for k, v in ms.items()}}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -67,6 +67,20 @@ def test_estimate_pose_matches_jax_package(seed):
     assert estimate_pose(pts2d[:3], pts3d[:3], K) is None
 
 
+def test_resolve_device_turns_tf32_off(monkeypatch):
+    """Every entry point resolves its device through ``resolve_device``,
+    which leaves cuBLAS and cuDNN TF32 off whatever the caller had set."""
+    import torch
+
+    from nerfmatch_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """With CUDA hidden, the port's entry points raise unless the caller
     asks for the CPU, instead of carrying on there."""

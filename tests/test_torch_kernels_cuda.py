@@ -24,7 +24,7 @@ from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
                                                            render_stage_plain)
 from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-    StageSpec, render_train, render_train_plain)
+    StageSpec, _kernel_args, pack_train, render_train, render_train_plain)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (resample_z,
                                                              resample_z_plain)
 from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
@@ -180,7 +180,7 @@ def test_resample_kernel_stratified_u_matches_plain(dev):
                                resample_z_plain(z, w, u=u), atol=1e-5, rtol=0)
 
 
-def train_stage(hid, dev, n=64, S=128, seed=0):
+def train_stage(hid, dev, n=64, S=128, seed=0, white_bg=False):
     cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=(4,))
     mlp = init_params_(NerfMLP(cfg), torch.Generator().manual_seed(seed))
@@ -196,7 +196,7 @@ def train_stage(hid, dev, n=64, S=128, seed=0):
     z = (lo + (hi - lo) * torch.rand(z.shape, device=dev, generator=g)).contiguous()
     noise = torch.randn(n, S, device=dev, generator=g)
     target = torch.rand(n, 3, device=dev, generator=g)
-    return StageSpec(mlp, 15, 4), rays, z, noise, target
+    return StageSpec(mlp, 15, 4, white_bg=white_bg), rays, z, noise, target
 
 
 def stage_grads(fn, spec, rays, z, noise, target):
@@ -209,14 +209,18 @@ def stage_grads(fn, spec, rays, z, noise, target):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid", [64, 256])
-def test_render_train_kernels_match_plain(dev, hid):
+@pytest.mark.parametrize("hid,S,white_bg", [
+    (64, 128, False), (256, 128, False), (256, 64, False), (256, 256, False),
+    (256, 128, True)])
+def test_render_train_kernels_match_plain(dev, hid, S, white_bg):
     """Train forward (rgb, weights) at atol 5e-3 against the plain version
     with the same bf16 operands; backward per parameter: cosine > 0.999,
     norm ratio 1 +- 1e-2 and max error <= 3e-2 of the leaf's largest
     gradient (f32 sums in another order; the gradients are rounded to bf16
-    on both sides); both launch counters move."""
-    spec, rays, z, noise, target = train_stage(hid, dev)
+    on both sides); both launch counters move.  S = 64 puts two rays in one
+    128-row chunk of the backward, S = 256 one ray in two."""
+    spec, rays, z, noise, target = train_stage(hid, dev, S=S,
+                                               white_bg=white_bg)
     reset_launch_counts()
     a_rgb, a_w, a_g = stage_grads(render_train, spec, rays, z, noise, target)
     b_rgb, b_w, b_g = stage_grads(render_train_plain, spec, rays, z, noise,
@@ -250,7 +254,9 @@ def test_render_train_kernels_are_deterministic(dev):
 @pytest.mark.cuda
 def test_train_kernel_raises_on_unported_configs(dev):
     """Appearance embeddings, uninstantiated widths, odd ray counts and
-    sample counts off the 64-row chunk raise instead of running plain."""
+    sample counts other than 64, 128 or 256 (S = 192 would leave the
+    backward's last 64-row half of each ray out) raise instead of running
+    plain; the C entries refuse S = 192 on their own too."""
     spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64)
     app = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
                              app_dim=16, use_viewdirs=True)).to(dev)
@@ -264,6 +270,15 @@ def test_train_kernel_raises_on_unported_configs(dev):
     with pytest.raises(NotImplementedError):
         render_train(spec, rays, z[:, :33].contiguous(),
                      noise[:, :32].contiguous())
+    spec192, rays192, z192, noise192, _ = train_stage(64, dev, n=4, S=192)
+    with pytest.raises(NotImplementedError):
+        render_train(spec192, rays192, z192, noise192)
+    args = list(_kernel_args(spec, rays, z, noise, pack_train(spec.mlp)))
+    args[6] = 192                                   # samples
+    lib = kernels.library()
+    assert lib.nm_render_train_forward(*args, None, None, None) != 0
+    assert lib.nm_render_train_backward(*args, None, None, None, None, None,
+                                        None) != 0
 
 
 # (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past

@@ -57,6 +57,45 @@ def make_rays(n, seed, near=0.05, far=1.4):
                            d, np.full((n, 1), 0.002)], -1).astype(np.float32)
 
 
+@pytest.mark.parametrize("K,N", [(64, 256), (32, 64), (128, 256)])
+def test_slot_images_follow_the_kernel_swizzle(K, N):
+    """Element (k, n) of a weight matrix lands where the backward kernel's
+    ring slot reads it (csrc/render_train.cu: swz): slot k // 32, then the
+    64-column block, row k % 32, and the 16-byte chunk (n % 64) // 8 at
+    position chunk ^ (row % 8)."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        slot_images)
+
+    w = torch.from_numpy(np.random.default_rng(0).normal(size=(K, N))
+                         .astype(np.float32))
+    img = slot_images(w).reshape(-1)
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    sl, r, nb, c, e = k // 32, k % 32, n // 64, (n % 64) // 8, n % 8
+    off = sl * 32 * N + nb * 32 * 64 + r * 64 + (c ^ (r % 8)) * 8 + e
+    assert img.dtype == torch.bfloat16
+    assert torch.equal(img[torch.from_numpy(off.reshape(-1))],
+                       w.to(torch.bfloat16).reshape(-1))
+
+
+@pytest.mark.parametrize("S", [32, 64, 128, 192, 256, 320])
+def test_train_kernel_takes_64_128_or_256_samples(S):
+    """The train kernels' shape gate, which comes before any device work:
+    S = 64 (one half of the backward's 128-row chunk, two rays a chunk) or
+    whole chunks up to 256; other sample counts raise NotImplementedError."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        StageSpec, _kernel_args)
+
+    mlp = NerfMLP(NerfConfig(layer_num=2, hid_dim=64, xyz_dim=90, dirs_dim=27,
+                             use_viewdirs=True))
+    n = 4
+    rays, z, noise = torch.zeros(n, 12), torch.zeros(n, S + 1), torch.zeros(n, S)
+    if S in (64, 128, 256):
+        assert _kernel_args(StageSpec(mlp, 15, 4), rays, z, noise, [])[6] == S
+    else:
+        with pytest.raises(NotImplementedError):
+            _kernel_args(StageSpec(mlp, 15, 4), rays, z, noise, [])
+
+
 @pytest.fixture(scope="module")
 def stage():
     """JAX params of one small MLP (density bias +1, partly opaque) and the
