@@ -802,22 +802,30 @@ def train_cotangents(z, rgb, w, target):
 
 
 def phase_train_kernels(renderer, dev):
-    """Train-render kernels (forward, backward) vs the plain version at the
-    training path's shapes -> summary rows."""
+    """Train-render kernels (the training forward with its stash, the
+    no-gradient forward, the backward on the stash) vs the plain version at
+    the training path's shapes -> summary rows."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        kernel_backward, kernel_forward, pack_train, train_stage_backward,
-        train_stage_forward)
+        backward_layout, kernel_backward, kernel_forward, pack_train,
+        train_stage_backward, train_stage_forward)
 
     spec, rays, z, noise, target = train_inputs(renderer, dev)
     n, S = z.shape[0], z.shape[1] - 1
     packed = pack_train(spec.mlp)
     with torch.no_grad():
-        rgb, w = kernel_forward(spec, rays, z, noise, packed)
+        rgb, w, stash = kernel_forward(spec, rays, z, noise, packed,
+                                       stash=True)
+        rgb_n, w_n, _ = kernel_forward(spec, rays, z, noise, packed)
         rgb_p, w_p = train_stage_forward(spec, rays, z, noise)
+    torch.cuda.synchronize()
+    same = torch.equal(rgb, rgb_n) and torch.equal(w, w_n)
+    log(f"kernel render_train_fwd: stashing and no-gradient forwards "
+        f"bit-identical: {same}")
+    assert same, "the stashing forward differs from the no-gradient forward"
     g_rgb, g_w = train_cotangents(z, rgb, w, target)
-    ga = kernel_backward(spec, rays, z, noise, g_rgb, g_w, packed)
+    ga = kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
     gb = train_stage_backward(spec, rays, z, noise, g_rgb, g_w)
-    again = kernel_backward(spec, rays, z, noise, g_rgb, g_w, packed)
+    again = kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
     torch.cuda.synchronize()
     differ = [k for k in ga if not torch.equal(ga[k], again[k])]
     log(f"kernel render_train_bwd: two calls bit-identical: {not differ}")
@@ -838,44 +846,78 @@ def phase_train_kernels(renderer, dev):
     worst = max(leaf, key=lambda k: leaf[k][0])
     min_cos = min(c for _, c in leaf.values())
     with torch.no_grad():
+        ms_s = cuda_ms(lambda: kernel_forward(spec, rays, z, noise, packed,
+                                              stash=True), 5)
         ms_f = cuda_ms(lambda: kernel_forward(spec, rays, z, noise, packed), 5)
         plain_f = cuda_ms(lambda: train_stage_forward(spec, rays, z, noise), 2)
-        ms_b = cuda_ms(lambda: kernel_backward(spec, rays, z, noise, g_rgb,
-                                               g_w, packed), 3)
+        ms_b = cuda_ms(lambda: kernel_backward(spec, stash, rays, z, noise,
+                                               g_rgb, g_w, packed), 3)
         plain_b = cuda_ms(lambda: train_stage_backward(spec, rays, z, noise,
                                                        g_rgb, g_w), 1)
+    lay = backward_layout(spec.mlp.cfg, n, S)
     log(f"kernel render_train_fwd: max_abs_err={fwd_err:.3e} (rgb and "
-        f"weights, tol 5e-3) ms={ms_f:.3f} plain_ms={plain_f:.3f} "
-        f"acc max={float(w.sum(-1).max()):.3f}")
+        f"weights, tol 5e-3) training forward with its stash ms={ms_s:.3f}, "
+        f"no-gradient forward ms={ms_f:.3f}, plain_ms={plain_f:.3f} "
+        f"acc max={float(w.sum(-1).max()):.3f}; stash {lay.stash / 1e9:.3f} "
+        f"GB = {lay.stash / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s")
     log(f"kernel render_train_bwd: max scaled err={bwd_err:.3e} ({worst}; "
         f"tol 3e-2 of each leaf's largest gradient), min cosine "
         f"{min_cos:.6f} (tol 0.999) ms={ms_b:.3f} plain_ms={plain_b:.3f} "
-        f"(plain chunked over 1024 rays)")
+        f"(plain chunked over 1024 rays, recomputing its forward)")
     log("  per-leaf scaled err: " + json.dumps(
         {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
     assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
-    train_bwd_parts(spec, rays, z, noise, g_rgb, g_w, packed)
+    train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
+    lib_f = train_fwd_yardstick(spec, n * S)
+    del stash
     # Forward: every sample through the trunk and heads (no early
-    # termination in training).  Backward: the forward's products again
-    # (its activations are not inputs) plus the two of each product's
-    # gradient (activations and weights).
+    # termination in training); the training forward also writes the
+    # stash.  Backward: the two products of each forward product's gradient
+    # (activations and weights), reading the stash.
     fwd_ops = {k: 2 * m * n * S for k, m in stage_macs(spec.mlp, True).items()}
     w_bytes = sum(p.numel() * 2 for p in spec.mlp.parameters())   # bf16
     g_bytes = sum(p.numel() * 4 for p in spec.mlp.parameters())   # f32 grads
+    io = nbytes(rays, z, noise, rgb, w) + w_bytes
+    nograd = bound(fwd_ops, io)
+    log(f"kernel render_train_fwd (no gradient): ms={ms_f:.3f} bound_ms="
+        f"{nograd['bound_ms']:.3f} ({nograd['bound_by']}) plain_ms="
+        f"{plain_f:.3f} library_ms={lib_f:.3f}")
     return {"render_train_fwd": dict(
-                max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f, library_ms=None,
-                **bound(fwd_ops, nbytes(rays, z, noise, rgb, w) + w_bytes)),
+                max_abs_err=fwd_err, ms=ms_s, plain_ms=plain_f,
+                library_ms=lib_f, **bound(fwd_ops, io + lay.stash)),
             "render_train_bwd": dict(
                 max_abs_err=bwd_err, ms=ms_b, plain_ms=plain_b, library_ms=None,
-                **bound({k: 3 * v for k, v in fwd_ops.items()},
-                        nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes))}
+                **bound({k: 2 * v for k, v in fwd_ops.items()},
+                        nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes
+                        + lay.stash))}
 
 
-def train_bwd_parts(spec, rays, z, noise, g_rgb, g_w, packed):
-    """Kernel 6's launches in one call (one ``torch.profiler`` pass), the
-    workspace bytes each moves with their time at 3.35 TB/s, and
-    ``torch.mm`` on stash-shaped bf16 operands for the weight-gradient GEMM's
-    products (the yardstick of that launch; the port never calls it)."""
+def train_fwd_yardstick(spec, rows):
+    """``torch.mm`` (cuBLAS) over the train stage's MLP products at their
+    shapes, bf16, one call each (trunk, feature, views on ``rows`` sample
+    rows): the library time beside the forward kernel; the port never
+    calls it."""
+    cfg, mlp = spec.mlp.cfg, spec.mlp
+    dev = next(mlp.parameters()).device
+    gen = torch.Generator(dev).manual_seed(6)
+    widest = max(lin.in_features for lin in mlp.pts_linears)
+    x = torch.randn(rows, widest, device=dev, generator=gen).bfloat16()
+    ws = [lin.weight.detach().t().bfloat16() for lin in mlp.pts_linears]
+    ws += [mlp.feature_linear.weight.detach().t().bfloat16(),
+           mlp.views_linears[0].weight.detach()[:, :cfg.hid_dim].t().bfloat16()]
+    ms = cuda_ms(lambda: [torch.mm(x[:, :wt.shape[0]], wt) for wt in ws], 3)
+    log(f"  yardstick: torch.mm over the forward's {len(ws)} MLP products "
+        f"({rows} rows, bf16) {ms:.3f} ms (library_ms of the train forward; "
+        f"never called by the port)")
+    return ms
+
+
+def train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed):
+    """Kernel 6's three launches in one call (one ``torch.profiler`` pass),
+    the bytes each moves with their time at 3.35 TB/s, and ``torch.mm`` on
+    stash-shaped bf16 operands for the weight-gradient GEMM's products (the
+    yardstick of that launch; the port never calls it).  The backward reads
+    the stash and launches no forward."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
         backward_layout, kernel_backward)
 
@@ -884,16 +926,19 @@ def train_bwd_parts(spec, rays, z, noise, g_rgb, g_w, packed):
     layout = backward_layout(cfg, n, S)
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        kernel_backward(spec, rays, z, noise, g_rgb, g_w, packed)
+        kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
         torch.cuda.synchronize()
-    names = {"train_fwd_kernel": "stash forward", "train_bwd_kernel":
-             "trunk backward", "wgrad_gemm_kernel": "weight-gradient GEMM",
-             "reduce_parts_kernel": "reductions"}
+    names = {"train_bwd_kernel": "trunk backward", "wgrad_gemm_kernel":
+             "weight-gradient GEMM", "reduce_parts_kernel": "reductions"}
     part_ms = dict.fromkeys(names.values(), 0.0)
+    fwd = 0
     for e in prof.key_averages():
+        fwd += e.count if "train_fwd_kernel" in e.key else 0
         for key, label in names.items():
             if key in e.key:
                 part_ms[label] += e.self_device_time_total / 1e3
+    assert fwd == 0, f"kernel_backward launched train_fwd_kernel {fwd} times"
+    assert all(part_ms.values()), f"a backward launch is missing: {part_ms}"
     ws = layout.traffic
     gen = torch.Generator(rays.device).manual_seed(5)
     a = torch.randn(n * S, H, device=rays.device, generator=gen).bfloat16()
@@ -902,10 +947,11 @@ def train_bwd_parts(spec, rays, z, noise, g_rgb, g_w, packed):
     lib_ms = cuda_ms(lambda: [torch.mm(x.t(), y) for x, y in xs], 3)
     del a, b, xs
     total = sum(ws.values())
-    log("kernel render_train_bwd parts (one call, torch.profiler): " + ", ".join(
-        f"{k} {part_ms[k]:.3f} ms ({ws[k] / 1e9:.2f} GB of workspace, "
-        f"{ws[k] / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)" for k in ws))
-    log(f"  workspace traffic {total / 1e9:.2f} GB per call = "
+    log("kernel render_train_bwd launches (one call, torch.profiler; no "
+        "train_fwd_kernel): " + ", ".join(
+            f"{k} {part_ms[k]:.3f} ms ({ws[k] / 1e9:.2f} GB, "
+            f"{ws[k] / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)" for k in ws))
+    log(f"  backward traffic {total / 1e9:.2f} GB per call = "
         f"{total / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; weight-gradient "
         f"GEMM {part_ms['weight-gradient GEMM']:.3f} ms vs torch.mm on "
         f"stash-shaped bf16 operands {lib_ms:.3f} ms (library_ms of that "
@@ -1144,10 +1190,12 @@ def phase_training(renderer, dev, seed):
         steps = [dev_batch(next(batches)) for _ in range(56)]
         hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) / 50 * 1e3
+        peak = torch.cuda.max_memory_allocated()
         launches = dict(LAUNCHES)
         log(f"launches during training: {json.dumps(launches)}")
         missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
@@ -1172,6 +1220,9 @@ def phase_training(renderer, dev, seed):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
         dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+        # The forward kernel runs once a stage a step (coarse, fine): the
+        # backward reads its stash and recomputes nothing.
+        fwd_runs = sum(e.count for e in ka if "train_fwd_kernel" in e.key)
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
         log(f"training: {step_ms:.1f} ms/step, "
             f"{cfg.exp.batch_size / step_ms * 1e3:.0f} rays/s over 50 steps "
@@ -1183,6 +1234,10 @@ def phase_training(renderer, dev, seed):
         log("  device time by kernel (ms, 4 steps): " + json.dumps(
             {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
              for e in top}))
+        log(f"  train_fwd_kernel launches in the 4 profiled steps: {fwd_runs} "
+            f"(2 a step); peak memory over the 50 timed steps "
+            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+        assert fwd_runs == 8, f"train_fwd_kernel ran {fwd_runs} times in 4 steps"
 
         serving = NerfRenderer(cfg, stop_layer=3)
         serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
@@ -1470,6 +1525,9 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
         dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+        # The forward kernel runs once a stage a step (coarse, fine): the
+        # backward reads its stash and recomputes nothing.
+        fwd_runs = sum(e.count for e in ka if "train_fwd_kernel" in e.key)
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:16]
         log(f"matcher training: {step_ms:.1f} ms/step, "
             f"{cfg.exp.batch_size / step_ms * 1e3:.2f} pairs/s over "

@@ -11,13 +11,15 @@
 // accumulator) -> sigma (+ the caller's density noise, before the ReLU) ->
 // feature -> views -> sigmoid rgb -> alpha compositing.  Outputs rgb (N, 3)
 // and weights (N, S).  No early termination (training).  mma.sync over
-// 64-row chunks of 2 rays (train_fwd_kernel).
+// 64-row chunks of 2 rays (train_fwd_kernel).  The training forward (a
+// stash pointer given) also keeps every sample's bf16 activations (the
+// encoding, each trunk layer, feature, views) and an f32 record (rgb,
+// sigma_raw, alpha, transmittance) in the stash, which the backward reads:
+// the forward runs once a step, where the JAX kernel recomputes it in its
+// backward (VMEM keeps nothing from one call to the next).
 //
-// Backward (nm_render_train_backward), four launches:
-//   1. train_fwd_kernel again, stashing every sample's bf16 activations
-//      (the encoding, each trunk layer, feature, views) and an f32 record
-//      (rgb, sigma_raw, alpha, transmittance) in a global workspace;
-//   2. train_bwd_kernel, a persistent grid (at most one block an SM) of two
+// Backward (nm_render_train_backward), three launches on the stash:
+//   1. train_bwd_kernel, a persistent grid (at most one block an SM) of two
 //      warpgroups walking over 128-row chunks (one ray at S = 128, two at
 //      64, half of one at 256): per ray the composite backward (the reverse
 //      exclusive prefix sum of g_w * w, warp shuffles over 32 samples),
@@ -32,13 +34,13 @@
 //      copies through one row buffer, apart from the ring; the vector
 //      gradients (biases, sigma head) are column sums in a fixed order,
 //      one partial row per block;
-//   3. wgrad_gemm_kernel: every matrix-weight gradient,
+//   2. wgrad_gemm_kernel: every matrix-weight gradient,
 //      sum over rows of bf16(act)^T bf16(g), as wgmma (both operands
 //      MN-major in shared memory, the transpose bits set) on 128 x 256
 //      output tiles (128 x 128 or x 64 for narrow N) of two warpgroups,
 //      64-row stages in a 4-stage cp.async ring, split over 48 fixed row
 //      ranges into partials;
-//   4. reduce_parts_kernel: a fixed-order sum over the partials (matrix and
+//   3. reduce_parts_kernel: a fixed-order sum over the partials (matrix and
 //      vector gradients).
 // No atomics: the result is bit-reproducible run to run.
 //
@@ -53,10 +55,11 @@
 // MLP: 1,179,648 sample rows).  The JAX kernel keeps every weight gradient
 // in VMEM across its sequential grid; on the GPU 2.4 MB of f32 gradients
 // fit no SM and blocks run in no order, so the activations go through a
-// workspace and the weight gradients are a GEMM over it.  Launch 1 writes
-// 6.0 GB (5,088 bytes a row), launch 2 reads 4,384 and writes 4,880 bytes
-// a row (10.9 GB, 3.3 ms at 3.35 TB/s) for 1.3 TFLOP of products, and
-// streams 1.1 MB of weights from L2 per 128 rows; launch 3 reads every
+// stash and the weight gradients are a GEMM over it.  The training forward
+// writes 6.0 GB of stash (5,088 bytes a row); launch 1 reads 4,384 and
+// writes 4,880 bytes a row (10.9 GB, 3.3 ms at 3.35 TB/s) for 1.3 TFLOP of
+// products, and streams 1.1 MB of weights from L2 per 128 rows; launch 2
+// reads every
 // product's operands once (12.7 GB with its partials, 3.8 ms) for 1.4
 // TFLOP.  Both are bound by bytes, not by the tensor cores (1.3-1.4 ms at
 // the bf16 peak).  chip_smoke.py phase 3b prints each launch's time beside
@@ -1028,9 +1031,10 @@ struct Dims {
 
 size_t align256(size_t b) { return (b + 255) & ~(size_t)255; }
 
-// Carves the workspace; returns its size.  With base == nullptr only sizes.
-size_t carve(const Dims& d, char* base, Stash* st, float** scratch_rgb,
-             float** scratch_w, float** mat_part) {
+// Carves the stash (what the training forward keeps for the backward: the
+// encoding, every activation, the f32 record and the viewdir PE) from base;
+// returns its size.  With base == nullptr only sizes.
+size_t carve_stash(const Dims& d, char* base, Stash* st) {
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
@@ -1038,26 +1042,32 @@ size_t carve(const Dims& d, char* base, Stash* st, float** scratch_rgb,
     return p;
   };
   const size_t R = (size_t)d.rows, H = d.hid, HV = d.hv;
-  Stash s{};
-  s.xb = (__nv_bfloat16*)take(R * kEncMax * 2);
-  for (int i = 0; i < d.layer_num; ++i) s.hs[i] = (__nv_bfloat16*)take(R * H * 2);
-  s.feat = (__nv_bfloat16*)take(R * H * 2);
-  s.hv = (__nv_bfloat16*)take(R * HV * 2);
-  s.rec = (float*)take(R * kRecWidth * 4);
-  s.extras = (__nv_bfloat16*)take((size_t)d.n_rays * kDirsMax * 2);
-  for (int i = 0; i < d.layer_num; ++i) s.g_pre[i] = (__nv_bfloat16*)take(R * H * 2);
-  s.g_feat = (__nv_bfloat16*)take(R * H * 2);
-  s.g_hv = (__nv_bfloat16*)take(R * HV * 2);
-  s.g_rgb = (__nv_bfloat16*)take(R * kGrgbWidth * 2);
-  s.g_hvsum = (__nv_bfloat16*)take((size_t)d.n_rays * HV * 2);
-  s.vec_part = (float*)take((size_t)(d.n_rays / kTileRays) * d.vl.P * 4);
-  float* rgb = (float*)take((size_t)d.n_rays * 3 * 4);
-  float* w = (float*)take(R * 4);
-  float* mp = (float*)take((size_t)d.splits * d.mat_total * 4);
-  if (st) *st = s;
-  if (scratch_rgb) *scratch_rgb = rgb;
-  if (scratch_w) *scratch_w = w;
-  if (mat_part) *mat_part = mp;
+  st->xb = (__nv_bfloat16*)take(R * kEncMax * 2);
+  for (int i = 0; i < d.layer_num; ++i) st->hs[i] = (__nv_bfloat16*)take(R * H * 2);
+  st->feat = (__nv_bfloat16*)take(R * H * 2);
+  st->hv = (__nv_bfloat16*)take(R * HV * 2);
+  st->rec = (float*)take(R * kRecWidth * 4);
+  st->extras = (__nv_bfloat16*)take((size_t)d.n_rays * kDirsMax * 2);
+  return off;
+}
+
+// Carves the backward's gradient workspace (the gradient rows, the vector
+// partials and the GEMM's matrix partials) from base; returns its size.
+size_t carve_grad(const Dims& d, char* base, Stash* st, float** mat_part) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += align256(bytes);
+    return p;
+  };
+  const size_t R = (size_t)d.rows, H = d.hid, HV = d.hv;
+  for (int i = 0; i < d.layer_num; ++i) st->g_pre[i] = (__nv_bfloat16*)take(R * H * 2);
+  st->g_feat = (__nv_bfloat16*)take(R * H * 2);
+  st->g_hv = (__nv_bfloat16*)take(R * HV * 2);
+  st->g_rgb = (__nv_bfloat16*)take(R * kGrgbWidth * 2);
+  st->g_hvsum = (__nv_bfloat16*)take((size_t)d.n_rays * HV * 2);
+  st->vec_part = (float*)take((size_t)(d.n_rays / kTileRays) * d.vl.P * 4);
+  *mat_part = (float*)take((size_t)d.splits * d.mat_total * 4);
   return off;
 }
 
@@ -1147,36 +1157,44 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
                                        int dirs_freqs, int samples,
                                        float var_scale, int white_bg,
-                                       void* out_rgb, void* out_w,
+                                       void* out_rgb, void* out_w, void* stash,
                                        void* stream) {
   if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples))
     return (int)cudaErrorInvalidValue;
   TrainParams p;
   unpack(ptrs, layer_num, &p);
   Stash st{};
+  if (stash != nullptr)
+    carve_stash(Dims(n_rays, hid, layer_num, samples), (char*)stash, &st);
+  const int on = stash != nullptr;
   cudaStream_t s = (cudaStream_t)stream;
   if (hid == 64)
-    return (int)launch_fwd<64>(p, st, 0, n_rays, layer_num, num_freqs,
+    return (int)launch_fwd<64>(p, st, on, n_rays, layer_num, num_freqs,
                                dirs_freqs, samples, var_scale, white_bg,
                                (float*)out_rgb, (float*)out_w, s);
-  return (int)launch_fwd<256>(p, st, 0, n_rays, layer_num, num_freqs,
+  return (int)launch_fwd<256>(p, st, on, n_rays, layer_num, num_freqs,
                               dirs_freqs, samples, var_scale, white_bg,
                               (float*)out_rgb, (float*)out_w, s);
 }
 
-// Workspace bytes for nm_render_train_backward (written to *out_bytes, a
-// host int64), and the matrix-gradient block size (*out_mat, int64).
+// Sizes, written to host int64s: the stash the training forward fills
+// (*out_stash bytes), the backward's gradient workspace (*out_grad bytes)
+// and the matrix-gradient block (*out_mat floats).
 extern "C" int nm_render_train_workspace(int n_rays, int hid, int layer_num,
-                                         int samples, void* out_bytes,
-                                         void* out_mat) {
+                                         int samples, void* out_stash,
+                                         void* out_grad, void* out_mat) {
   const Dims d(n_rays, hid, layer_num, samples);
-  *(long long*)out_bytes = (long long)carve(d, nullptr, nullptr, nullptr,
-                                            nullptr, nullptr);
+  Stash st{};
+  float* mat_part;
+  *(long long*)out_stash = (long long)carve_stash(d, nullptr, &st);
+  *(long long*)out_grad = (long long)carve_grad(d, nullptr, &st, &mat_part);
   *(long long*)out_mat = d.mat_total;
   return 0;
 }
 
-// g_rgb (N, 3), g_w (N, S) f32 cotangents.  grad_mat: the matrix-weight
+// g_rgb (N, 3), g_w (N, S) f32 cotangents; stash: what
+// nm_render_train_forward filled for these inputs; workspace: the gradient
+// workspace.  grad_mat: the matrix-weight
 // gradients, f32 sums in (in x out) layout, one block per product in this
 // order: per layer i, [encoding rows (kEncMax x hid) if the layer has them]
 // [hidden rows (hid x hid) if i > 0]; then wf (hid x hid), wvh (hid x hv),
@@ -1186,32 +1204,28 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
                                         int dirs_freqs, int samples,
                                         float var_scale, int white_bg,
                                         const void* g_rgb, const void* g_w,
-                                        void* workspace, void* grad_mat,
-                                        void* grad_vec, void* stream) {
-  if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples))
+                                        const void* stash, void* workspace,
+                                        void* grad_mat, void* grad_vec,
+                                        void* stream) {
+  if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples) ||
+      stash == nullptr)
     return (int)cudaErrorInvalidValue;
   TrainParams p;
   unpack(ptrs, layer_num, &p);
   const Dims d(n_rays, hid, layer_num, samples);
-  Stash st;
-  float *rgb, *w, *mat_part;
-  carve(d, (char*)workspace, &st, &rgb, &w, &mat_part);
+  Stash st{};
+  float* mat_part;
+  carve_stash(d, (char*)stash, &st);
+  carve_grad(d, (char*)workspace, &st, &mat_part);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   int parts = 0;
-  if (hid == 64) {
-    e = launch_fwd<64>(p, st, 1, n_rays, layer_num, num_freqs, dirs_freqs,
-                       samples, var_scale, white_bg, rgb, w, s);
-    if (e == cudaSuccess)
-      e = launch_bwd<64>(p, st, n_rays, layer_num, samples, white_bg,
-                         (const float*)g_rgb, (const float*)g_w, &parts, s);
-  } else {
-    e = launch_fwd<256>(p, st, 1, n_rays, layer_num, num_freqs, dirs_freqs,
-                        samples, var_scale, white_bg, rgb, w, s);
-    if (e == cudaSuccess)
-      e = launch_bwd<256>(p, st, n_rays, layer_num, samples, white_bg,
-                          (const float*)g_rgb, (const float*)g_w, &parts, s);
-  }
+  if (hid == 64)
+    e = launch_bwd<64>(p, st, n_rays, layer_num, samples, white_bg,
+                       (const float*)g_rgb, (const float*)g_w, &parts, s);
+  else
+    e = launch_bwd<256>(p, st, n_rays, layer_num, samples, white_bg,
+                        (const float*)g_rgb, (const float*)g_w, &parts, s);
   if (e != cudaSuccess) return (int)e;
 
   ProdTable t{};

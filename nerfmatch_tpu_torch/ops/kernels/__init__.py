@@ -52,15 +52,17 @@ _SIGNATURES = {
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
     "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
-    # var_scale, white_bg, out_rgb, out_w, stream
+    # var_scale, white_bg, out_rgb, out_w, stash (or null), stream
     "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                _P],
-    # n_rays, hid, layer_num, samples, out workspace bytes, out matrix block
-    "nm_render_train_workspace": [_I, _I, _I, _I, _P, _P],
+                                _P, _P],
+    # n_rays, hid, layer_num, samples, out stash bytes, out gradient
+    # workspace bytes, out matrix block
+    "nm_render_train_workspace": [_I, _I, _I, _I, _P, _P, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
-    # var_scale, white_bg, g_rgb, g_w, workspace, grad_mat, grad_vec, stream
+    # var_scale, white_bg, g_rgb, g_w, stash, gradient workspace, grad_mat,
+    # grad_vec, stream
     "nm_render_train_backward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                 _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _P],
     # q, k, v, out, lse (or null), bf16 workspace for f32 q, k, v (or
     # null), B, L, S, H, D, bf16, stream
     "nm_attention_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

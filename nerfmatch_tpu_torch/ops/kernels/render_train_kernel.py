@@ -276,7 +276,38 @@ class BackwardLayout:
     vec_len: int      # f32 vector gradients (biases, sigma head)
     products: tuple   # (M, N, rows) of each weight-gradient product, C order
     splits: int       # the GEMM's row ranges, summed in order
-    traffic: dict     # workspace bytes each launch reads and writes
+    stash: int        # bytes the training forward writes into the stash
+    traffic: dict     # bytes each backward launch reads and writes
+
+
+def _align256(n: int) -> int:
+    return (n + 255) // 256 * 256
+
+
+def _stash_parts(cfg, n: int, S: int):
+    """Bytes of each stash array (csrc: carve_stash, in its order)."""
+    L, H, R = cfg.layer_num, cfg.hid_dim, n * S
+    return [R * ENC_MAX * 2, *[R * H * 2] * L, R * H * 2, R * (H // 2) * 2,
+            R * REC_WIDTH * 4, n * DIRS_MAX * 2]
+
+
+def _grad_parts(cfg, n: int, S: int, splits: int):
+    """Bytes of each gradient-workspace array (csrc: carve_grad, in its
+    order; the matrix partials are sized for the widest layer layout)."""
+    L, H, R = cfg.layer_num, cfg.hid_dim, n * S
+    HV, P = H // 2, L * H + H + H // 2 + 4 + H + 4
+    mat_total = L * (ENC_MAX * H + H * H) + H * H + H * HV + DIRS_MAX * HV \
+        + HV * GRGB_WIDTH
+    return [*[R * H * 2] * L, R * H * 2, R * HV * 2, R * GRGB_WIDTH * 2,
+            n * HV * 2, (n // TILE_RAYS) * P * 4, splits * mat_total * 4]
+
+
+def workspace_bytes(cfg, n: int, S: int) -> tuple:
+    """(stash bytes, gradient-workspace bytes) as
+    ``nm_render_train_workspace`` returns them (each array 256-aligned)."""
+    lay = backward_layout(cfg, n, S)
+    return (sum(map(_align256, _stash_parts(cfg, n, S))),
+            sum(map(_align256, _grad_parts(cfg, n, S, lay.splits))))
 
 
 def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
@@ -293,15 +324,13 @@ def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
     part = 4 * sum(m * k for m, k, _ in prods)        # one f32 partial
     rec = 4 * REC_WIDTH
     traffic = {
-        "stash forward": R * (2 * (ENC_MAX + L * H + H + HV) + rec)
-        + n * DIRS_MAX * 2,
         "trunk backward": R * (rec + 2 * HV + 2 * L * H)           # reads
         + R * 2 * (L * H + H + HV + GRGB_WIDTH),                   # writes
         "weight-gradient GEMM": sum(r * 2 * (m + k) for m, k, r in prods)
         + splits * part,
         "reductions": splits * part + part}
     return BackwardLayout(L * H + H + HV + 4 + H + 4, tuple(prods), splits,
-                          traffic)
+                          sum(_stash_parts(cfg, n, S)), traffic)
 
 
 def _ptrs(packed, *tensors):
@@ -329,38 +358,60 @@ def _kernel_args(spec: StageSpec, rays, z, noise, packed):
             int(spec.white_bg))
 
 
-def kernel_forward(spec: StageSpec, rays, z, noise, packed):
+def _sizes(cfg, n: int, S: int):
+    """(stash bytes, gradient-workspace bytes, matrix-block floats) from the
+    C side."""
+    out = [ctypes.c_longlong(0) for _ in range(3)]
+    check(library().nm_render_train_workspace(
+        n, cfg.hid_dim, cfg.layer_num, S, *map(ctypes.addressof, out)),
+        "render_train_workspace")
+    return tuple(v.value for v in out)
+
+
+def kernel_forward(spec: StageSpec, rays, z, noise, packed,
+                   stash: bool = False):
+    """Kernel forward -> (rgb, weights, stash).  With ``stash`` it is the
+    training forward: it also fills and returns the stash (uint8, the
+    activations :func:`kernel_backward` reads); else the stash is None and
+    nothing beyond the outputs is allocated."""
     args = _kernel_args(spec, rays, z, noise, packed)
     n, S = z.shape[0], z.shape[1] - 1
     rgb = torch.empty(n, 3, device=rays.device)
     w = torch.empty(n, S, device=rays.device)
+    st = None
+    if stash:
+        st = torch.empty(_sizes(spec.mlp.cfg, n, S)[0], dtype=torch.uint8,
+                         device=rays.device)
     err = library().nm_render_train_forward(
-        *args, rgb.data_ptr(), w.data_ptr(), stream_ptr(rays.device))
+        *args, rgb.data_ptr(), w.data_ptr(),
+        None if st is None else st.data_ptr(), stream_ptr(rays.device))
     check(err, "render_train_fwd")
     LAUNCHES["render_train_fwd"] += 1
-    return rgb, w
+    return rgb, w, st
 
 
-def kernel_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w, packed):
-    """Kernel gradients -> {parameter name: gradient}."""
+def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
+                    packed):
+    """Kernel gradients on the stash of the training forward of the same
+    inputs -> {parameter name: gradient}."""
     args = _kernel_args(spec, rays, z, noise, packed)
     mlp, cfg = spec.mlp, spec.mlp.cfg
     n, S = z.shape[0], z.shape[1] - 1
     L, hid, enc = cfg.layer_num, cfg.hid_dim, cfg.xyz_dim
     hv, dirs = hid // 2, cfg.dirs_dim
     g_rgb, g_w = g_rgb.contiguous(), g_w.contiguous()
-    require_cuda_tensors("render_train", rays, g_rgb, g_w)
-    nbytes, nmat = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    check(library().nm_render_train_workspace(
-        n, hid, L, S, ctypes.addressof(nbytes), ctypes.addressof(nmat)),
-        "render_train_workspace")
+    require_cuda_tensors("render_train", rays, g_rgb, g_w, stash)
+    n_stash, n_grad, n_mat = _sizes(cfg, n, S)
+    if stash.dtype != torch.uint8 or stash.numel() != n_stash:
+        raise ValueError(f"render_train: the stash must be the {n_stash} "
+                         f"bytes kernel_forward(..., stash=True) returned")
     dev = rays.device
-    work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-    mat = torch.empty(nmat.value, device=dev)
+    work = torch.empty(n_grad, dtype=torch.uint8, device=dev)
+    mat = torch.empty(n_mat, device=dev)
     vec = torch.empty(backward_layout(cfg, n, S).vec_len, device=dev)
     err = library().nm_render_train_backward(
-        *args, g_rgb.data_ptr(), g_w.data_ptr(), work.data_ptr(),
-        mat.data_ptr(), vec.data_ptr(), stream_ptr(dev))
+        *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
+        work.data_ptr(), mat.data_ptr(), vec.data_ptr(), stream_ptr(dev))
     check(err, "render_train_bwd")
     LAUNCHES["render_train_bwd"] += 1
     del work
@@ -407,10 +458,14 @@ def kernel_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w, packed):
 
 class _RenderTrainFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, spec, use_kernel, rays, z, noise, *params):
+    def forward(ctx, spec, use_kernel, grad, rays, z, noise, *params):
         packed = pack_train(spec.mlp) if use_kernel else None
+        ctx.stash = None
         if use_kernel:
-            rgb, w = kernel_forward(spec, rays, z, noise, packed)
+            # The training forward keeps its activations for the backward
+            # (the stash); a forward that needs no gradient allocates none.
+            rgb, w, ctx.stash = kernel_forward(spec, rays, z, noise, packed,
+                                               stash=grad)
         else:
             with torch.no_grad():
                 rgb, w = train_stage_forward(spec, rays, z, noise)
@@ -426,16 +481,26 @@ class _RenderTrainFn(torch.autograd.Function):
             if g_rgb is None else g_rgb
         g_w = torch.zeros_like(noise) if g_w is None else g_w
         if ctx.use_kernel:
-            g = kernel_backward(spec, rays, z, noise, g_rgb, g_w, ctx.packed)
+            if ctx.stash is None:
+                raise RuntimeError(
+                    "render_train: the stash of this forward was freed by an "
+                    "earlier backward (the kernels do not recompute the "
+                    "forward); run the forward again")
+            stash, ctx.stash = ctx.stash, None
+            g = kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w,
+                                ctx.packed)
+            del stash
         else:
             g = train_stage_backward(spec, rays, z, noise, g_rgb, g_w)
         names = [k for k, _ in spec.mlp.named_parameters()]
-        return (None, None, None, None, None, *[g[k] for k in names])
+        return (None, None, None, None, None, None, *[g[k] for k in names])
 
 
 def _apply(spec, use_kernel, rays, z, noise):
-    return _RenderTrainFn.apply(spec, use_kernel, rays, z, noise,
-                                *spec.mlp.parameters())
+    params = list(spec.mlp.parameters())
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
+    return _RenderTrainFn.apply(spec, use_kernel, grad, rays, z, noise,
+                                *params)
 
 
 def render_train_plain(spec: StageSpec, rays, z, noise):

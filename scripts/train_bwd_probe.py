@@ -6,7 +6,7 @@ on one NVIDIA GPU.
 Builds ``nerfmatch_tpu_torch/csrc/render_train.cu`` once per variant below,
 each an edited copy of the source (``PATCHES``: every edit must match the
 source exactly once), one ``nvcc`` each, all started together, into
-``build/train_bwd_probe/``:
+``build/train_bwd_probe/<variant>/``:
 
 * ``shipped``: as the package builds it;
 * ``no_mma``: the trunk backward issues no ``wgmma`` (loads, barriers and
@@ -20,11 +20,11 @@ source exactly once), one ``nvcc`` each, all started together, into
   ranges instead of 48.
 
 Then, on phase 3b's stage of ``chip_smoke.py`` (the room's fine MLP, 9216
-rays x 128 samples), it runs ``nm_render_train_backward`` of each build
-three times under ``torch.profiler`` and prints the device time of each
-launch (stash forward, trunk backward, weight-gradient GEMM, reductions),
-the mean over the three calls, one JSON line per variant after the card's
-name and power limit.  The shipped build's gradients must equal the
+rays x 128 samples) and the stash of the package's training forward, it
+runs ``nm_render_train_backward`` of each build three times under
+``torch.profiler`` and prints the device time of each launch (trunk
+backward, weight-gradient GEMM, reductions), the mean over the three calls,
+one JSON line per variant after the card's name and power limit.  The shipped build's gradients must equal the
 package's bit for bit; the probe builds compute something else and are only
 timed.  Compare within one run only.
 """
@@ -76,26 +76,35 @@ PATCHES = {
                   "constexpr int kMaxSplits = 24;")],
     "splits32": [("constexpr int kMaxSplits = 48;",
                   "constexpr int kMaxSplits = 32;")]}
-LAUNCHES = {"train_fwd_kernel": "stash_fwd", "train_bwd_kernel": "trunk_bwd",
-            "wgrad_gemm_kernel": "gemm", "reduce_parts_kernel": "reduce"}
+LAUNCHES = {"train_bwd_kernel": "trunk_bwd", "wgrad_gemm_kernel": "gemm",
+            "reduce_parts_kernel": "reduce"}
 
 
-def build_variants():
-    out_dir = ROOT / "build" / "train_bwd_probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    source = (kernels.CSRC / "render_train.cu").read_text()
+def build_variants(patches=None, out_name="train_bwd_probe"):
+    """One ``nvcc`` a variant, all started together -> {variant: library}.
+    An edit is (old, new) in ``render_train.cu`` or (file, old, new) in
+    another file of ``csrc/``; each variant's edited files go to a
+    directory of their own, which its includes search first."""
+    out_root = ROOT / "build" / out_name
     jobs = {}
-    for name, edits in PATCHES.items():
-        text = source
-        for old, new in edits:
+    for name, edits in (PATCHES if patches is None else patches).items():
+        out_dir = out_root / name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        texts = {}
+        for edit in edits:
+            fname, old, new = edit if len(edit) == 3 else ("render_train.cu",
+                                                           *edit)
+            text = texts.get(fname) or (kernels.CSRC / fname).read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: edit does not match once: {old!r}")
-            text = text.replace(old, new)
-        src = out_dir / f"render_train_{name}.cu"
-        src.write_text(text)
-        so = out_dir / f"render_train_{name}.so"
+            texts[fname] = text.replace(old, new)
+        texts.setdefault("render_train.cu",
+                         (kernels.CSRC / "render_train.cu").read_text())
+        for fname, text in texts.items():
+            (out_dir / fname).write_text(text)
+        so = out_dir / "render_train.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}",
-               "-shared", "-o", str(so), str(src)]
+               "-shared", "-o", str(so), str(out_dir / "render_train.cu")]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -104,11 +113,31 @@ def build_variants():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("nm_render_train_backward", "nm_render_train_workspace"):
+        for fn in ("nm_render_train_forward", "nm_render_train_backward",
+                   "nm_render_train_workspace"):
             getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def profile_ms(call, launches, reps=3):
+    """Device ms of each launch (``launches``: kernel name -> label) per
+    call, mean over ``reps`` calls under ``torch.profiler``."""
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(launches.values(), 0.0)
+    for e in prof.key_averages():
+        for key, label in launches.items():
+            if key in e.key:
+                ms[label] += e.self_device_time_total / 1e3 / reps
+    ms["total"] = sum(ms.values())
+    return ms
 
 
 def main():
@@ -119,47 +148,34 @@ def main():
     spec, rays, z, noise, target = chip_smoke.train_inputs(renderer, dev)
     packed = rtk.pack_train(spec.mlp)
     with torch.no_grad():
-        rgb, w = rtk.kernel_forward(spec, rays, z, noise, packed)
+        rgb, w, stash = rtk.kernel_forward(spec, rays, z, noise, packed,
+                                           stash=True)
     g_rgb, g_w = chip_smoke.train_cotangents(z, rgb, w, target)
     args = rtk._kernel_args(spec, rays, z, noise, packed)
     cfg = spec.mlp.cfg
-    n, S, hid = z.shape[0], z.shape[1] - 1, cfg.hid_dim
-    nbytes, nmat = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    kernels.check(kernels.library().nm_render_train_workspace(
-        n, hid, cfg.layer_num, S, ctypes.addressof(nbytes),
-        ctypes.addressof(nmat)), "workspace")
+    n, S = z.shape[0], z.shape[1] - 1
+    _, n_grad, n_mat = rtk._sizes(cfg, n, S)
     P = rtk.backward_layout(cfg, n, S).vec_len
-    work = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+    work = torch.empty(n_grad, dtype=torch.uint8, device=dev)
     # Zeroed: the matrix block is sized for the widest layer layout, and
     # its tail past the products is never written.
-    outs = [torch.zeros(nmat.value + P, device=dev) for _ in range(2)]
+    outs = [torch.zeros(n_mat + P, device=dev) for _ in range(2)]
 
     def run(lib, out, name):
         err = lib.nm_render_train_backward(
-            *args, g_rgb.data_ptr(), g_w.data_ptr(), work.data_ptr(),
-            out.data_ptr(), out[nmat.value:].data_ptr(),
+            *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
+            work.data_ptr(), out.data_ptr(), out[n_mat:].data_ptr(),
             kernels.stream_ptr(dev))
         kernels.check(err, f"render_train_bwd ({name})")
 
     run(kernels.library(), outs[0], "package")
     print(smi, flush=True)
     for name, lib in libs.items():
-        call = lambda: run(lib, outs[1], name)  # noqa: E731
-        call()
+        run(lib, outs[1], name)
         torch.cuda.synchronize()
         if name == "shipped":
             assert torch.equal(outs[0], outs[1]), "shipped build != package"
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-        ms = dict.fromkeys(LAUNCHES.values(), 0.0)
-        for e in prof.key_averages():
-            for key, label in LAUNCHES.items():
-                if key in e.key:
-                    ms[label] += e.self_device_time_total / 1e3 / 3
-        ms["total"] = sum(ms.values())
+        ms = profile_ms(lambda: run(lib, outs[1], name), LAUNCHES)
         print(json.dumps({"variant": name,
                           **{k: round(v, 4) for k, v in ms.items()}}),
               flush=True)

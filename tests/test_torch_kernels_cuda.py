@@ -24,7 +24,8 @@ from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
                                                            render_stage_plain)
 from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-    StageSpec, _kernel_args, pack_train, render_train, render_train_plain)
+    StageSpec, _kernel_args, _sizes, kernel_forward, pack_train, render_train,
+    render_train_plain, workspace_bytes)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (resample_z,
                                                              resample_z_plain)
 from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
@@ -276,9 +277,66 @@ def test_train_kernel_raises_on_unported_configs(dev):
     args = list(_kernel_args(spec, rays, z, noise, pack_train(spec.mlp)))
     args[6] = 192                                   # samples
     lib = kernels.library()
-    assert lib.nm_render_train_forward(*args, None, None, None) != 0
+    assert lib.nm_render_train_forward(*args, None, None, None, None) != 0
     assert lib.nm_render_train_backward(*args, None, None, None, None, None,
-                                        None) != 0
+                                        None, None) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,S", [(64, 128), (256, 64), (256, 256)])
+def test_train_forward_with_stash_equals_forward_without(dev, hid, S):
+    """The training forward (filling the stash) and the no-gradient forward
+    give bit-identical rgb and weights; the stash is the size the C side
+    and its Python mirror give."""
+    spec, rays, z, noise, _ = train_stage(hid, dev, S=S)
+    packed = pack_train(spec.mlp)
+    rgb_a, w_a, st = kernel_forward(spec, rays, z, noise, packed, stash=True)
+    rgb_b, w_b, none = kernel_forward(spec, rays, z, noise, packed)
+    torch.cuda.synchronize()
+    assert none is None and torch.isfinite(w_a).all()
+    assert torch.equal(rgb_a, rgb_b) and torch.equal(w_a, w_b)
+    n = rays.shape[0]
+    assert st.numel() == _sizes(spec.mlp.cfg, n, S)[0]
+    assert _sizes(spec.mlp.cfg, n, S)[:2] == workspace_bytes(spec.mlp.cfg, n, S)
+
+
+@pytest.mark.cuda
+def test_train_forward_without_gradient_allocates_no_stash(dev):
+    """Under no_grad the kernel forward keeps nothing beyond its outputs;
+    with a gradient the stash stays allocated until the backward has run,
+    which frees it."""
+    spec, rays, z, noise, target = train_stage(256, dev)
+    n, S = z.shape[0], z.shape[1] - 1
+    stash = _sizes(spec.mlp.cfg, n, S)[0]
+    out = n * 3 * 4 + n * S * 4
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        rgb, w = render_train(spec, rays, z, noise)
+    assert torch.cuda.memory_allocated() - m0 <= out + 1024
+    del rgb, w
+    spec.mlp.zero_grad()
+    m0 = torch.cuda.memory_allocated()
+    rgb, w = render_train(spec, rays, z, noise)
+    loss = ((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()
+    m1 = torch.cuda.memory_allocated()
+    assert m1 - m0 >= stash
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = sum(p.grad.numel() * 4 for p in spec.mlp.parameters())
+    assert torch.cuda.memory_allocated() <= m1 - stash + grads + (1 << 20)
+
+
+@pytest.mark.cuda
+def test_train_second_backward_raises(dev):
+    """The backward consumes the stash: a second backward through the same
+    graph raises instead of recomputing the forward."""
+    spec, rays, z, noise, target = train_stage(64, dev, S=64)
+    rgb, w = render_train(spec, rays, z, noise)
+    loss = ((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()
+    loss.backward(retain_graph=True)
+    with pytest.raises(RuntimeError, match="stash"):
+        loss.backward()
 
 
 # (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past

@@ -77,6 +77,40 @@ def test_slot_images_follow_the_kernel_swizzle(K, N):
                        w.to(torch.bfloat16).reshape(-1))
 
 
+@pytest.mark.parametrize("hid,layers,skips,n,S", [
+    (256, 8, (4,), 9216, 128), (64, 8, (4,), 64, 256), (64, 4, (2,), 8, 64)])
+def test_stash_and_gradient_workspace_split_the_old_workspace(
+        hid, layers, skips, n, S):
+    """The training forward's stash and the backward's gradient workspace
+    (csrc: carve_stash, carve_grad) are the old single backward workspace
+    without its scratch rgb and weights; the stash bytes the forward writes
+    are the old "stash forward" launch's traffic."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        DIRS_MAX, ENC_MAX, GRGB_WIDTH, REC_WIDTH, TILE_RAYS, backward_layout,
+        workspace_bytes)
+
+    cfg = NerfConfig(layer_num=layers, hid_dim=hid, xyz_dim=90, dirs_dim=27,
+                     use_viewdirs=True, skips=skips)
+    R, H, HV = n * S, hid, hid // 2
+    a = lambda b: (b + 255) // 256 * 256
+    lay = backward_layout(cfg, n, S)
+    P = layers * H + H + HV + 4 + H + 4
+    mat = layers * (ENC_MAX * H + H * H) + H * H + H * HV + DIRS_MAX * HV \
+        + HV * GRGB_WIDTH
+    old = [R * ENC_MAX * 2, *[R * H * 2] * layers, R * H * 2, R * HV * 2,
+           R * REC_WIDTH * 4, n * DIRS_MAX * 2, *[R * H * 2] * layers,
+           R * H * 2, R * HV * 2, R * GRGB_WIDTH * 2, n * HV * 2,
+           (n // TILE_RAYS) * P * 4, n * 3 * 4, R * 4, lay.splits * mat * 4]
+    stash, grad = workspace_bytes(cfg, n, S)
+    assert stash + grad + a(n * 3 * 4) + a(R * 4) == sum(map(a, old))
+    assert lay.stash == R * (2 * (ENC_MAX + layers * H + H + HV)
+                             + 4 * REC_WIDTH) + n * DIRS_MAX * 2
+    assert set(lay.traffic) == {"trunk backward", "weight-gradient GEMM",
+                                "reductions"}
+    if (hid, n, S) == (256, 9216, 128):
+        assert lay.stash == 6_002_638_848   # 5,088 bytes a row + extras
+
+
 @pytest.mark.parametrize("S", [32, 64, 128, 192, 256, 320])
 def test_train_kernel_takes_64_128_or_256_samples(S):
     """The train kernels' shape gate, which comes before any device work:
