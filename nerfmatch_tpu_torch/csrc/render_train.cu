@@ -10,13 +10,19 @@
 // -> L x HID trunk (skip concat as a second product into the same
 // accumulator) -> sigma (+ the caller's density noise, before the ReLU) ->
 // feature -> views -> sigmoid rgb -> alpha compositing.  Outputs rgb (N, 3)
-// and weights (N, S).  No early termination (training).  mma.sync over
-// 64-row chunks of 2 rays (train_fwd_kernel).  The training forward (a
-// stash pointer given) also keeps every sample's bf16 activations (the
-// encoding, each trunk layer, feature, views) and an f32 record (rgb,
-// sigma_raw, alpha, transmittance) in the stash, which the backward reads:
-// the forward runs once a step, where the JAX kernel recomputes it in its
-// backward (VMEM keeps nothing from one call to the next).
+// and weights (N, S).  No early termination (training).  train_fwd_kernel:
+// a persistent grid (at most one block an SM) of two warpgroups walking
+// over 128-row chunks, each layer a wgmma m64nHIDk16 with A in registers
+// (the layer before's accumulator after bias and ReLU, rounded to bf16;
+// the encoding tile from shared memory for layer 0 and the skip layer) and
+// B from a ring of 7 slots of 32 weight rows, one bulk copy each of the
+// host-packed (in x out) images.  The training forward (kStash, a stash
+// pointer given) also keeps every sample's bf16 activations (the encoding,
+// each trunk layer, feature, views) and an f32 record (rgb, sigma_raw,
+// alpha, transmittance) in the stash, which the backward reads: the
+// forward runs once a step, where the JAX kernel recomputes it in its
+// backward (VMEM keeps nothing from one call to the next).  The stash rows
+// leave by one bulk store a row through a row buffer.
 //
 // Backward (nm_render_train_backward), three launches on the stash:
 //   1. train_bwd_kernel, a persistent grid (at most one block an SM) of two
@@ -59,10 +65,13 @@
 // writes 6.0 GB of stash (5,088 bytes a row); launch 1 reads 4,384 and
 // writes 4,880 bytes a row (10.9 GB, 3.3 ms at 3.35 TB/s) for 1.3 TFLOP of
 // products, and streams 1.1 MB of weights from L2 per 128 rows; launch 2
-// reads every
-// product's operands once (12.7 GB with its partials, 3.8 ms) for 1.4
-// TFLOP.  Both are bound by bytes, not by the tensor cores (1.3-1.4 ms at
-// the bf16 peak).  chip_smoke.py phase 3b prints each launch's time beside
+// reads every product's operands once (12.7 GB with its partials, 3.8 ms)
+// for 1.4 TFLOP.  Both are bound by bytes, not by the tensor cores
+// (1.3-1.4 ms at the bf16 peak).  So is the training forward: 1.2 TFLOP
+// (1.46 ms) against the 6.0 GB of stash it writes (1.8 ms); it streams the
+// 1.2 MB of weights from L2 once per 128 rows (the mma.sync forward it
+// replaces re-read them per 64 rows from global memory, and stored its
+// stash 4 bytes at a time from the fragments).  chip_smoke.py phase 3b prints each launch's time beside
 // its bytes; scripts/train_bwd_probe.py builds edited copies of this file
 // without the products, the weight ring, the row copies or the column sums
 // (and with fewer GEMM row ranges) and times them.
@@ -79,9 +88,7 @@
 
 namespace {
 
-constexpr int kTileRays = 2;
-constexpr int kSampleBlock = 32;
-static_assert(kTileRays * kSampleBlock == kRows, "one chunk = 2 rays x 32");
+constexpr int kTileRays = 2;      // rays a vector-partial row (N / 2 rows)
 constexpr int kMaxSamples = 256;
 constexpr int kRecWidth = 8;      // f32 record per sample
 constexpr int kGrgbWidth = 8;     // bf16 g_rgb_t row (3 used)
@@ -89,17 +96,17 @@ constexpr int kMaxProds = 2 * kMaxLayers + 4;
 constexpr int kMaxSplits = 48;
 
 struct TrainParams {
-  const uint2* Wenc[kMaxLayers];  // encoding rows of layer i (in x out), or null
-  const uint2* Wh[kMaxLayers];    // hidden rows of layer i (in x out), or null
-  const __nv_bfloat16* WhT[kMaxLayers];  // same rows (out x in): slot images
+  // Forward: every weight matrix's slot images (in x out), in the order the
+  // forward's ring streams them (render_train_kernel.py: pack_train).
+  const __nv_bfloat16* Wfwd;
+  const __nv_bfloat16* Wenc[kMaxLayers];  // layer i's encoding rows there, or null
+  const __nv_bfloat16* WhT[kMaxLayers];   // hidden rows of layer i (out x in): slot images
   const float* b[kMaxLayers];
   const float* wa;    // (hid,) sigma head, f32
   const float* ba;    // (1,)
-  const uint2* wf;    // feature head (hid, hid)
-  const __nv_bfloat16* wfT;   // the same (out x in): slot images
+  const __nv_bfloat16* wfT;   // feature head (out x in): slot images
   const float* bf;
-  const uint2* wvh;   // views layer, hidden rows (hid, hv)
-  const __nv_bfloat16* wvhT;  // the same (hv x hid): slot images
+  const __nv_bfloat16* wvhT;  // views layer, hidden rows (hv x hid): slot images
   const float* wvd;   // views layer, dirs rows (dirs_dim, hv), bf16 values
   const float* bv;
   const float* wr;    // rgb head (hv, 3), bf16 values
@@ -139,309 +146,8 @@ struct VecLayout {
   }
 };
 
-template <int HID>
-struct FwdSmem {
-  static constexpr int kActStride = HID + 8;
-  static constexpr int HV = HID / 2;
-  static size_t bytes() {
-    return (size_t)kRows * kActStride * 2 + (size_t)kRows * kEncStride * 2 +
-           (kRows * 8 + kRows * 4 + kRows + kWarps * kRows + kTileRays * HV +
-            kTileRays * kDirsMax) * 4;
-  }
-};
-
-template <int HID>
-__global__ void __launch_bounds__(kThreads)
-train_fwd_kernel(TrainParams p, Stash st, int stash, int layer_num, int F,
-                 int Fd, int S, float var_scale, int white_bg, float* out_rgb,
-                 float* out_w) {
-  constexpr int NTT = HID / 8;
-  constexpr int NT = NTT / kWarps;
-  constexpr int HV = HID / 2;
-  constexpr int NTTV = HV / 8;
-  constexpr int NTV = NTTV >= kWarps ? NTTV / kWarps : 1;
-  constexpr int kActStride = FwdSmem<HID>::kActStride;
-  static_assert(NT >= 1 && NTT % kWarps == 0, "HID must be a multiple of 64");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* enc = act + kRows * kActStride;
-  float* rowinfo = reinterpret_cast<float*>(enc + kRows * kEncStride);  // kRows * 8
-  float* rgbs = rowinfo + kRows * 8;                                   // kRows * 4
-  float* sig = rgbs + kRows * 4;                                       // kRows
-  float* sigp = sig + kRows;                                           // kWarps * kRows
-  float* xt = sigp + kWarps * kRows;                                   // kTileRays * HV
-  float* dpe = xt + kTileRays * HV;                                    // kTileRays * kDirsMax
-  __shared__ float carry[kTileRays], acc_s[kTileRays], rgb_s[kTileRays][3];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ray0 = blockIdx.x * kTileRays;
-  const int enc_dim = 6 * F;
-  const int enc_ksteps = (enc_dim + 15) / 16;
-  const int dirs_dim = 6 * Fd + 3;
-  const int nt0 = warp * NT;
-
-  if (tid < kTileRays) {
-    carry[tid] = acc_s[tid] = 0.f;
-    rgb_s[tid][0] = rgb_s[tid][1] = rgb_s[tid][2] = 0.f;
-  }
-  for (int i = tid; i < kRows * (kEncMax - enc_dim); i += kThreads) {
-    const int row = i / (kEncMax - enc_dim), j = enc_dim + i % (kEncMax - enc_dim);
-    enc[row * kEncStride + j] = __float2bfloat16(0.f);
-  }
-  // View-direction PE per ray, rounded to bf16: [sin(2^f d) | cos | d].
-  for (int i = tid; i < kTileRays * kDirsMax; i += kThreads) {
-    const int r = i / kDirsMax, j = i % kDirsMax;
-    const float* ray = p.rays + (size_t)(ray0 + r) * 12;
-    float v = 0.f;
-    if (j < 6 * Fd) {
-      const int jj = j % (3 * Fd);
-      const float x = ray[8 + jj % 3] * exp2f((float)(jj / 3));
-      v = j < 3 * Fd ? sinf(x) : sinf(x + kHalfPi);
-    } else if (j < dirs_dim) {
-      v = ray[8 + j - 6 * Fd];
-    }
-    dpe[i] = bf16_round(v);
-    if (stash) st.extras[(size_t)(ray0 + r) * kDirsMax + j] = __float2bfloat16(v);
-  }
-  __syncthreads();
-  for (int i = tid; i < kTileRays * HV; i += kThreads) {
-    const int r = i / HV, k = i % HV;
-    float s = 0.f;
-    for (int j = 0; j < dirs_dim; ++j)
-      s = fmaf(dpe[r * kDirsMax + j], __ldg(p.wvd + (size_t)j * HV + k), s);
-    xt[i] = s;
-  }
-
-  const int n_blocks = S / kSampleBlock;
-  for (int sb = 0; sb < n_blocks; ++sb) {
-    // ---- per-row frustum moments -> Gaussian mean / variance ----
-    if (tid < kRows) {
-      const int r = tid / kSampleBlock, s = sb * kSampleBlock + tid % kSampleBlock;
-      const float* ray = p.rays + (size_t)(ray0 + r) * 12;
-      const float* zr = p.z + (size_t)(ray0 + r) * (S + 1);
-      const float t0 = zr[s], t1 = zr[s + 1];
-      const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
-      const float mu2 = mu * mu, hw2 = hw * hw;
-      const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
-      const float t_mean = mu + (2.f * mu * hw2) / den;
-      float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
-      const float rad = ray[11];
-      float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
-      t_var *= var_scale;
-      r_var *= var_scale;
-      float* info = rowinfo + tid * 8;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float d = ray[8 + c], d2 = d * d;
-        info[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
-        info[3 + c] = t_var * d2 + r_var * (1.f - d2);
-      }
-      info[6] = t1 - t0;
-      sig[tid] = p.noise[(size_t)(ray0 + r) * S + s];
-    }
-    __syncthreads();
-    // ---- integrated positional encoding (f32, stored bf16) ----
-    for (int i = tid; i < kRows * 3 * F; i += kThreads) {
-      const int row = i / (3 * F), j = i % (3 * F);
-      const int f = j / 3, c = j % 3;
-      const float* info = rowinfo + row * 8;
-      const float x = info[c] * exp2f((float)f);
-      const float y = info[3 + c] * exp2f((float)(2 * f));
-      const float damp = expf(-0.5f * y);
-      const __nv_bfloat16 vs = __float2bfloat16(damp * sinf(x));
-      const __nv_bfloat16 vc = __float2bfloat16(damp * sinf(x + kHalfPi));
-      enc[row * kEncStride + j] = vs;
-      enc[row * kEncStride + 3 * F + j] = vc;
-      if (stash) {
-        const size_t rg = (size_t)(ray0 + row / kSampleBlock) * S +
-                          sb * kSampleBlock + row % kSampleBlock;
-        st.xb[rg * kEncMax + j] = vs;
-        st.xb[rg * kEncMax + 3 * F + j] = vc;
-      }
-    }
-    if (stash) {
-      for (int i = tid; i < kRows * (kEncMax - enc_dim); i += kThreads) {
-        const int row = i / (kEncMax - enc_dim), j = enc_dim + i % (kEncMax - enc_dim);
-        const size_t rg = (size_t)(ray0 + row / kSampleBlock) * S +
-                          sb * kSampleBlock + row % kSampleBlock;
-        st.xb[rg * kEncMax + j] = __float2bfloat16(0.f);
-      }
-    }
-    __syncthreads();
-
-    // ---- MLP trunk: bf16 mma, f32 accumulate, f32 bias + ReLU ----
-    for (int i = 0; i < layer_num; ++i) {
-      float acc[kMTiles][NT][4];
-      zero_acc(acc);
-      if (p.Wenc[i] != nullptr)
-        mma_rows<NT>(enc, kEncStride, enc_ksteps, p.Wenc[i], NTT, nt0, lane, acc);
-      if (p.Wh[i] != nullptr)
-        mma_rows<NT>(act, kActStride, HID / 16, p.Wh[i], NTT, nt0, lane, acc);
-      __syncthreads();  // every warp has read this layer's input
-      const bool is_last = i == layer_num - 1;
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m) {
-        float sp[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = frag_row(m, 2 * h, lane);
-            const int col = frag_col(nt0 + j, 0, lane);
-            const float v0 = fmaxf(acc[m][j][2 * h] + __ldg(p.b[i] + col), 0.f);
-            const float v1 = fmaxf(acc[m][j][2 * h + 1] + __ldg(p.b[i] + col + 1), 0.f);
-            const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-            *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) = v;
-            if (stash) {
-              const size_t rg = (size_t)(ray0 + row / kSampleBlock) * S +
-                                sb * kSampleBlock + row % kSampleBlock;
-              *reinterpret_cast<__nv_bfloat162*>(st.hs[i] + rg * HID + col) = v;
-            }
-            if (is_last)
-              sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
-          }
-        }
-        if (is_last) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float s = sp[h];
-            s += __shfl_xor_sync(0xffffffffu, s, 1);
-            s += __shfl_xor_sync(0xffffffffu, s, 2);
-            if ((lane & 3) == 0) sigp[warp * kRows + frag_row(m, 2 * h, lane)] = s;
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // ---- sigma_raw = h . wa + ba + noise (f32 activations) ----
-    if (tid < kRows) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += sigp[w * kRows + tid];
-      sig[tid] += s + __ldg(p.ba);
-    }
-
-    // feature = h @ wf + bf (no activation), stored bf16
-    {
-      float acc[kMTiles][NT][4];
-      zero_acc(acc);
-      mma_rows<NT>(act, kActStride, HID / 16, p.wf, NTT, nt0, lane, acc);
-      __syncthreads();
-#pragma unroll
-      for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = frag_row(m, 2 * h, lane);
-            const int col = frag_col(nt0 + j, 0, lane);
-            const __nv_bfloat162 v = __floats2bfloat162_rn(
-                acc[m][j][2 * h] + __ldg(p.bf + col),
-                acc[m][j][2 * h + 1] + __ldg(p.bf + col + 1));
-            *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) = v;
-            if (stash) {
-              const size_t rg = (size_t)(ray0 + row / kSampleBlock) * S +
-                                sb * kSampleBlock + row % kSampleBlock;
-              *reinterpret_cast<__nv_bfloat162*>(st.feat + rg * HID + col) = v;
-            }
-          }
-      __syncthreads();
-    }
-    // views = relu(feature @ wvh + dirs_pe @ wvd + bv), stored bf16
-    {
-      const int ntv0 = warp * NTV;
-      float acc[kMTiles][NTV][4];
-      zero_acc(acc);
-      const bool active = ntv0 < NTTV;
-      if (active)
-        mma_rows<NTV>(act, kActStride, HID / 16, p.wvh, NTTV, ntv0, lane, acc);
-      __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int m = 0; m < kMTiles; ++m)
-#pragma unroll
-          for (int j = 0; j < NTV; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int row = frag_row(m, 2 * h, lane);
-              const int col = frag_col(ntv0 + j, 0, lane);
-              const float* x = xt + (row / kSampleBlock) * HV + col;
-              const float v0 = fmaxf(acc[m][j][2 * h] + x[0] + __ldg(p.bv + col), 0.f);
-              const float v1 = fmaxf(acc[m][j][2 * h + 1] + x[1] + __ldg(p.bv + col + 1), 0.f);
-              const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-              *reinterpret_cast<__nv_bfloat162*>(act + row * kActStride + col) = v;
-              if (stash) {
-                const size_t rg = (size_t)(ray0 + row / kSampleBlock) * S +
-                                  sb * kSampleBlock + row % kSampleBlock;
-                *reinterpret_cast<__nv_bfloat162*>(st.hv + rg * HV + col) = v;
-              }
-            }
-      }
-      __syncthreads();
-    }
-    // rgb = sigmoid(views @ wr + br): bf16 operands, f32 FMA
-    if (tid < kRows * 3) {
-      const int row = tid / 3, c = tid % 3;
-      float s = 0.f;
-      for (int k = 0; k < HV; ++k)
-        s = fmaf(__bfloat162float(act[row * kActStride + k]), __ldg(p.wr + k * 3 + c), s);
-      s += __ldg(p.br + c);
-      rgbs[row * 4 + c] = 1.f / (1.f + expf(-s));
-    }
-    __syncthreads();
-
-    // ---- compositing: warp r takes ray r, lane = sample in the block ----
-    if (warp < kTileRays) {
-      const int r = warp, row = r * kSampleBlock + lane;
-      const int s = sb * kSampleBlock + lane;
-      const float dist = rowinfo[row * 8 + 6];
-      const float sigma_raw = sig[row];
-      const float alpha = 1.f - expf(-fmaxf(sigma_raw, 0.f) * dist);
-      const float lt = logf(1.f - alpha + 1e-10f);
-      float incl = lt;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      const float trans = expf(carry[r] + (incl - lt));
-      const float w = alpha * trans;
-      const size_t rg = (size_t)(ray0 + r) * S + s;
-      out_w[rg] = w;
-      const float asum = warp_sum(w);
-      float cs[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) cs[c] = warp_sum(w * rgbs[row * 4 + c]);
-      if (stash) {
-        float* rec = st.rec + rg * kRecWidth;
-        rec[0] = rgbs[row * 4 + 0];
-        rec[1] = rgbs[row * 4 + 1];
-        rec[2] = rgbs[row * 4 + 2];
-        rec[3] = sigma_raw;
-        rec[4] = alpha;
-        rec[5] = trans;
-      }
-      const float total = __shfl_sync(0xffffffffu, incl, 31);
-      if (lane == 0) {
-        acc_s[r] += asum;
-        for (int c = 0; c < 3; ++c) rgb_s[r][c] += cs[c];
-        carry[r] += total;
-      }
-    }
-    __syncthreads();
-  }
-
-  if (tid < kTileRays) {
-    const int n = ray0 + tid;
-    const float bg = white_bg ? 1.f - acc_s[tid] : 0.f;
-    for (int c = 0; c < 3; ++c) out_rgb[n * 3 + c] = rgb_s[tid][c] + bg;
-  }
-}
-
 // ===========================================================================
-// Backward on the tensor cores: wgmma (sm_90a) on shared-memory operands
+// wgmma (sm_90a) on operands staged in shared memory
 // ===========================================================================
 
 // Operand tiles are blocks of 128-byte rows (64 bf16) in the 128-byte
@@ -458,8 +164,6 @@ __device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          (64ull << 32) | (1ull << 62);
 }
-
-// ---- launch 2: heads and trunk backward, one 128-row chunk at a time ----
 
 constexpr int kBwdThreads = 256;   // two warpgroups, 64 chunk rows each
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -487,6 +191,446 @@ template <int N>
 struct Int {
   static constexpr int value = N;
 };
+
+// ---- the forward: heads, trunk and compositing, one 128-row chunk at a time ----
+
+constexpr int kFwdRing = 7;                    // weight slots (ring stages)
+constexpr int kEncSlices = kEncMax / kSliceK;  // encoding rows: 3 slices
+
+template <int HID>
+struct FwdSmem {
+  static constexpr int HV = HID / 2;
+  static constexpr int NV = HV < 64 ? 64 : HV;   // the views product's width
+  // Ring slot: kSliceK weight rows (the product's k, the layer's input) x
+  // HID outputs, MN-major in 64-column blocks; a views slice fills NV / HID
+  // of its slot.  The encoding tile: per warpgroup two K-major blocks of 64
+  // rows x 64 bf16 (the encoding padded to 96), 128-byte swizzle.  The row
+  // buffer: the chunk's 128 stash rows, row-major, padded by 16 bytes.  The
+  // record: 128 rows of 8 f32 (rgb, sigma_raw, alpha, T, 0 ...).  (At HID
+  // 64 the rows are as wide as the encoding's 96.)
+  static constexpr int kSlot = (HID / 64) * kSliceK * 128;
+  static constexpr int kVSlot = (NV / 64) * kSliceK * 128;
+  static constexpr int kEncBlock = 64 * 128;
+  static constexpr int kEncOff = kFwdRing * kSlot;
+  static constexpr int kRowStride = (HID > kEncMax ? HID : kEncMax) * 2 + 16;
+  static constexpr int kRowOff = kEncOff + 4 * kEncBlock;
+  static constexpr int kRecOff = kRowOff + kChunkRows * kRowStride;
+  static constexpr int kFloatOff = kRecOff + kChunkRows * kRecWidth * 4;
+  // f32: row info (128 x 8), xt (2 x HV), dirs PE (2 x kDirsMax), segment
+  // sums (8 x 8), per-ray carries (2 x 8).
+  static constexpr int kFloats =
+      kChunkRows * 8 + 2 * HV + 2 * kDirsMax + kBwdWarps * 8 + 2 * 8;
+  static constexpr size_t kBytes = 1024 + kFloatOff + (size_t)kFloats * 4 + 8 * kFwdRing;
+  static size_t bytes() {
+    return kBytes;
+  }
+};
+
+// Train forward: a persistent grid (at most one block an SM) of two
+// warpgroups walking over 128-row chunks (units of one ray at S >= 128, two
+// at S = 64; a ray of S = 256 is two chunks, with its transmittance and
+// sums carried from the first to the second).  Per chunk: frustum moments
+// and the IPE of every row into the swizzled encoding tile; each trunk
+// layer as wgmma m64nHIDk16, A in registers (the layer before's
+// accumulator after bias and ReLU, rounded to bf16) and, for layer 0 and
+// the skip layer, the encoding tile from shared memory into the same
+// accumulator; B from a ring of kFwdRing slots of 32 weight rows, one bulk
+// copy each from the host-packed images (render_train_kernel.py:
+// pack_train, slices in the order they are used), both warpgroups reading
+// each slot; the sigma and rgb heads as per-thread dot products over the
+// accumulator's columns and quad shuffles; compositing on all warps (a
+// half-warp scan of log(1 - alpha) per 16 rows and one shared-memory pass
+// over the segments).  kStash: every row's encoding and activations leave
+// by one bulk store a row through the row buffer, the record by one bulk
+// store a chunk.
+// Loads are not hoisted over this point (an epilogue that ran its 64
+// column groups' loads ahead would spill the accumulator).
+__device__ __forceinline__ void reg_fence() { asm volatile("" ::: "memory"); }
+
+template <int HID, bool kStash>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
+                 int n_rays, float var_scale, int white_bg,
+                 float* __restrict__ out_rgb, float* __restrict__ out_w) {
+  using L = FwdSmem<HID>;
+  constexpr int HV = L::HV, NV = L::NV;
+  constexpr int NJ = HID / 8, NJV = HV / 8;   // n8 column groups
+  constexpr int KS = HID / kSliceK;           // slices of a HID-row product
+  static_assert(HID % 64 == 0 && KS >= 2, "HID must be a multiple of 64");
+  static_assert(L::kBytes <= 232448, "forward shared memory");
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t ring_s = base, enc_s = base + L::kEncOff;
+  const uint32_t row_s = base + L::kRowOff, rec_s = base + L::kRecOff;
+  unsigned char* rowbuf = sm + L::kRowOff;
+  float* rec = reinterpret_cast<float*>(sm + L::kRecOff);      // 128 x 8
+  float* info = reinterpret_cast<float*>(sm + L::kFloatOff);   // 128 x 8
+  float* xt = info + kChunkRows * 8;                           // 2 x HV
+  float* dpe = xt + 2 * HV;                                    // 2 x kDirsMax
+  float* seg = dpe + 2 * kDirsMax;                             // 8 x 8
+  float* ray_s = seg + kBwdWarps * 8;   // 2 x 8: carry, acc, rgb (3)
+  const uint32_t full0 = smem_u32(ray_s + 16);                 // slot s: + 8 s
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7, t = lane & 3;
+  const int wrow = (warp & 3) * 16 + (lane >> 2);   // first of its two rows
+  const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
+  const uint32_t enc_w = enc_s + wg * 2 * L::kEncBlock;   // this warpgroup's
+
+  const int G = S >= kChunkRows ? 1 : kChunkRows / S;
+  const int unit_chunks = G * S / kChunkRows;
+  const int n_units = n_rays / G;
+  const int my_units = (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  // Slices a chunk streams, in the host images' order: per layer its
+  // encoding rows (if any) then its hidden rows, then the feature and the
+  // views layers.  All but the views slices fill a whole slot.
+  int Qt = KS * (layer_num - 1);
+  for (int i = 0; i < layer_num; ++i) Qt += p.Wenc[i] != nullptr ? kEncSlices : 0;
+  const int Q = Qt + 2 * KS;
+  const int q_total = my_units * unit_chunks * Q;
+
+  // The encoding tile's padding columns (enc_dim .. 95) stay zero.
+  for (int i = tid; i < kChunkRows * (kEncMax - enc_dim); i += kBwdThreads) {
+    const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);
+    *reinterpret_cast<__nv_bfloat16*>(
+        sm + L::kEncOff + (row >> 6) * 2 * L::kEncBlock + (k >> 6) * L::kEncBlock +
+        swz(row & 63, (k & 63) >> 3) + (k & 7) * 2) = __float2bfloat16(0.f);
+  }
+  if (tid == 0)
+    for (int i = 0; i < kFwdRing; ++i) mbar_init(full0 + 8 * i);
+  fence_async();
+  __syncthreads();
+
+  auto load_slice = [&](int q) {
+    const int qc = q % Q;
+    const bool views = qc >= Qt + KS;
+    const uint32_t bytes = views ? L::kVSlot : L::kSlot;
+    const size_t off = views ? (size_t)(Qt + KS) * L::kSlot + (size_t)(qc - Qt - KS) * L::kVSlot
+                             : (size_t)qc * L::kSlot;
+    const int slot = q % kFwdRing;
+    mbar_expect(full0 + 8 * slot, bytes);
+    bulk_copy(ring_s + slot * L::kSlot,
+              reinterpret_cast<const unsigned char*>(p.Wfwd) + off, bytes,
+              full0 + 8 * slot);
+  };
+  int q = 0;   // next ring slice to consume
+  if (tid == 0)
+    for (int s = 0; s < kFwdRing - 2 && s < q_total; ++s) load_slice(s);
+
+  float acc[NJ * 4];
+  uint32_t a[HID / 16][4];   // bf16 A fragments: 16 columns (k) a step
+  // acc = the next NE encoding slices (A: the encoding tile) + the next NH
+  // hidden slices (A: the registers a), N columns.  One wgmma batch stays
+  // in flight, so slot q - 2 is the one refilled (with slice q + kFwdRing
+  // - 2).  The stores of the previous stash rows have read the row buffer
+  // once the second slice starts.
+  auto product = [&](auto ne_c, auto nh_c, auto n_c) {
+    constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;
+    constexpr int N = decltype(n_c)::value;
+    constexpr int KK = kSliceK / 16;   // k16 steps a slice
+    // Slice s of the product: its slot, once it has landed.
+    auto begin = [&](int s) {
+      if (kStash && s == 1 && tid < kChunkRows) bulk_read_done();
+      __syncthreads();   // batch q - 2 done everywhere: its slot is free
+      if (tid == 0 && q + kFwdRing - 2 < q_total) load_slice(q + kFwdRing - 2);
+      mbar_wait(full0 + 8 * (q % kFwdRing), (q / kFwdRing) & 1);
+      wgmma_fence();
+      return ring_s + (uint32_t)(q % kFwdRing) * L::kSlot;
+    };
+    auto end = [&]() {
+      wgmma_commit();
+      wgmma_wait<1>();
+      ++q;
+    };
+#pragma unroll
+    for (int s = 0; s < NE; ++s) {
+      const uint32_t slot = begin(s);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const int ks = s * KK + kk;   // k16 step of the encoding tile
+        wgmma_ss<N, 0>(acc, desc128(enc_w + (ks >> 2) * L::kEncBlock + (ks & 3) * 32, 16),
+                       desc128(slot + kk * 2048, kSliceK * 128), ks > 0);
+      }
+      end();
+    }
+#pragma unroll
+    for (int s = 0; s < NH; ++s) {
+      const uint32_t slot = begin(NE + s);
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk)
+        wgmma_rs<N, 1>(acc, a[s * KK + kk], desc128(slot + kk * 2048, kSliceK * 128),
+                       NE + s + kk > 0);
+      end();
+    }
+    wgmma_wait<0>();
+  };
+  // The row buffer's rows (width bf16 each) -> dst rows rg0 ..; after every
+  // thread's writes to it.
+  auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {
+    fence_async();
+    __syncthreads();
+    if (tid < kChunkRows)
+      bulk_store(dst + (rg0 + tid) * width, row_s + tid * L::kRowStride, width * 2);
+  };
+  auto put_pair = [&](int r, int col, uint32_t v) {   // row r of the warpgroup
+    *reinterpret_cast<uint32_t*>(rowbuf + (wg * 64 + r) * L::kRowStride + col * 2) = v;
+  };
+
+  for (int ui = 0; ui < my_units; ++ui) {
+    const int ray0 = ((int)blockIdx.x + ui * (int)gridDim.x) * G;
+    __syncthreads();   // the last unit's sums are read
+    // View-direction PE per ray, rounded to bf16: [sin(2^f d) | cos | d].
+    for (int i = tid; i < G * kDirsMax; i += kBwdThreads) {
+      const int r = i / kDirsMax, j = i % kDirsMax;
+      const float* ray = p.rays + (size_t)(ray0 + r) * 12;
+      float v = 0.f;
+      if (j < 6 * Fd) {
+        const int jj = j % (3 * Fd);
+        const float x = ray[8 + jj % 3] * exp2f((float)(jj / 3));
+        v = j < 3 * Fd ? sinf(x) : sinf(x + kHalfPi);
+      } else if (j < dirs_dim) {
+        v = ray[8 + j - 6 * Fd];
+      }
+      dpe[i] = bf16_round(v);
+      if (kStash) st.extras[(size_t)(ray0 + r) * kDirsMax + j] = __float2bfloat16(v);
+    }
+    if (tid < 2 * 8) ray_s[tid] = 0.f;
+    __syncthreads();
+    for (int i = tid; i < G * HV; i += kBwdThreads) {
+      const int r = i / HV, k = i % HV;
+      float s = 0.f;
+      for (int j = 0; j < dirs_dim; ++j)
+        s = fmaf(dpe[r * kDirsMax + j], __ldg(p.wvd + (size_t)j * HV + k), s);
+      xt[i] = s;
+    }
+
+    for (int ch = 0; ch < unit_chunks; ++ch) {
+      const size_t rg0 = (size_t)ray0 * S + ch * kChunkRows;
+      // The stores of the last chunk have read the row buffer and the
+      // record; every read of the encoding tile and the row info is done.
+      if (kStash && tid < kChunkRows) bulk_read_done();
+      __syncthreads();
+      // ---- per-row frustum moments -> Gaussian mean / variance ----
+      if (tid < kChunkRows) {
+        const int ul = ch * kChunkRows + tid, n = ray0 + ul / S, s = ul % S;
+        const float* ray = p.rays + (size_t)n * 12;
+        const float* zr = p.z + (size_t)n * (S + 1);
+        const float t0 = zr[s], t1 = zr[s + 1];
+        const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
+        const float mu2 = mu * mu, hw2 = hw * hw;
+        const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
+        const float t_mean = mu + (2.f * mu * hw2) / den;
+        float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
+        const float rad = ray[11];
+        float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
+        t_var *= var_scale;
+        r_var *= var_scale;
+        float* in = info + tid * 8;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float d = ray[8 + c], d2 = d * d;
+          in[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
+          in[3 + c] = t_var * d2 + r_var * (1.f - d2);
+        }
+        in[6] = t1 - t0;
+      }
+      __syncthreads();
+      // ---- integrated positional encoding (f32, rounded to bf16) into the
+      //      encoding tile and, for the stash, the row buffer ----
+      for (int i = tid; i < kChunkRows * 3 * F; i += kBwdThreads) {
+        const int row = i / (3 * F), j = i % (3 * F);
+        const int f = j / 3, c = j % 3;
+        const float* in = info + row * 8;
+        const float x = in[c] * exp2f((float)f);
+        const float y = in[3 + c] * exp2f((float)(2 * f));
+        const float damp = expf(-0.5f * y);
+        const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
+                                    __float2bfloat16(damp * sinf(x + kHalfPi))};
+        unsigned char* tile = sm + L::kEncOff + (row >> 6) * 2 * L::kEncBlock;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = h * 3 * F + j;
+          *reinterpret_cast<__nv_bfloat16*>(tile + (k >> 6) * L::kEncBlock +
+                                            swz(row & 63, (k & 63) >> 3) + (k & 7) * 2) = v[h];
+          if (kStash)
+            *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) = v[h];
+        }
+      }
+      if (kStash) {
+        for (int i = tid; i < kChunkRows * (kEncMax - enc_dim); i += kBwdThreads) {
+          const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);
+          *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) =
+              __float2bfloat16(0.f);
+        }
+      }
+      fence_async();   // the encoding tile, for wgmma
+      if (kStash) store_rows(st.xb, kEncMax, rg0);
+
+      // ---- trunk: acc = [enc @ Wenc_i] + [bf16(h) @ Wh_i]; h = relu(acc + b) ----
+      float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
+      for (int i = 0; i < layer_num; ++i) {
+        if (i == 0)
+          product(Int<kEncSlices>{}, Int<0>{}, Int<HID>{});
+        else if (p.Wenc[i] != nullptr)
+          product(Int<kEncSlices>{}, Int<KS>{}, Int<HID>{});
+        else
+          product(Int<0>{}, Int<KS>{}, Int<HID>{});
+        const bool last = i == layer_num - 1;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float b0 = __ldg(p.b[i] + col), b1 = __ldg(p.b[i] + col + 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+            const uint32_t pk = pack_bf16(v0, v1);
+            a[j >> 1][2 * (j & 1) + h] = pk;
+            if (kStash) put_pair(wrow + 8 * h, col, pk);
+            if (last)
+              sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
+          }
+          if (j % 8 == 7) reg_fence();
+        }
+        if (kStash) store_rows(st.hs[i], HID, rg0);
+      }
+      // ---- sigma_raw = h . wa + ba + noise (f32 activations) ----
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = sp[h];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        const int row = wg * 64 + wrow + 8 * h;
+        if (t == 0) rec[row * 8 + 3] = s + __ldg(p.ba) + p.noise[rg0 + row];
+      }
+
+      // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16 ----
+      product(Int<0>{}, Int<KS>{}, Int<HID>{});
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float b0 = __ldg(p.bf + col), b1 = __ldg(p.bf + col + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t pk = pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+          a[j >> 1][2 * (j & 1) + h] = pk;
+          if (kStash) put_pair(wrow + 8 * h, col, pk);
+        }
+        if (j % 8 == 7) reg_fence();
+      }
+      if (kStash) store_rows(st.feat, HID, rg0);
+
+      // ---- views = relu(feature @ wvh + dirs_pe @ wvd + bv), rounded to
+      //      bf16; rgb = sigmoid(views @ wr + br) on the rounded views ----
+      product(Int<0>{}, Int<KS>{}, Int<NV>{});
+      {
+        const float* x = xt + ((ch * kChunkRows + wg * 64) / S) * HV;
+        float pr[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < NJV; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float c0 = x[col] , c1 = x[col + 1];
+          const float b0 = __ldg(p.bv + col), b1 = __ldg(p.bv + col + 1);
+          float wr[2][3];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(p.wr + (col + e) * 3 + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = fmaxf(acc[4 * j + 2 * h] + c0 + b0, 0.f);
+            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + c1 + b1, 0.f);
+            const uint32_t pk = pack_bf16(v0, v1);
+            if (kStash) put_pair(wrow + 8 * h, col, pk);
+            const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk));
+#pragma unroll
+            for (int c = 0; c < 3; ++c) pr[h][c] = fmaf(r.x, wr[0][c], fmaf(r.y, wr[1][c], pr[h][c]));
+          }
+          if (j % 4 == 3) reg_fence();
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wg * 64 + wrow + 8 * h;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float s = pr[h][c];
+            s += __shfl_xor_sync(0xffffffffu, s, 1);
+            s += __shfl_xor_sync(0xffffffffu, s, 2);
+            if (t == 0) rec[row * 8 + c] = 1.f / (1.f + expf(-(s + __ldg(p.br + c))));
+          }
+        }
+      }
+      if (kStash) store_rows(st.hv, HV, rg0);
+      else __syncthreads();   // the record's rgb and sigma_raw
+
+      // ---- compositing: warp w takes chunk rows 16 w .., one row a lane
+      //      of each half (the halves compute the same); the transmittance
+      //      is exp of the exclusive prefix of log(1 - alpha) over the ray
+      //      ----
+      {
+        const int row = warp * 16 + (lane & 15);
+        const int r = (ch * kChunkRows + row) / S;   // ray of the unit
+        float* rr = rec + row * 8;
+        const float alpha = 1.f - expf(-fmaxf(rr[3], 0.f) * info[row * 8 + 6]);
+        const float lt = logf(1.f - alpha + 1e-10f);
+        float incl = lt;
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) {
+          const float v = __shfl_up_sync(0xffffffffu, incl, o, 16);
+          if ((lane & 15) >= o) incl += v;
+        }
+        if (lane == 15) seg[warp * 8] = incl;
+        __syncthreads();
+        const int w0 = S >= kChunkRows ? 0 : warp & ~(S / 16 - 1);  // ray's first
+        float before = ray_s[r * 8];
+        for (int w = w0; w < warp; ++w) before += seg[w * 8];
+        const float trans = expf(before + (incl - lt));
+        const float wt = alpha * trans;
+        float sums[4] = {wt, wt * rr[0], wt * rr[1], wt * rr[2]};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) sums[c] += __shfl_xor_sync(0xffffffffu, sums[c], o);
+        if (lane < 16) {
+          out_w[rg0 + row] = wt;
+          rr[4] = alpha;
+          rr[5] = trans;
+          rr[6] = rr[7] = 0.f;
+        }
+        if (lane == 0)
+          for (int c = 0; c < 4; ++c) seg[warp * 8 + 1 + c] = sums[c];
+      }
+      fence_async();   // the record, for its bulk store
+      __syncthreads();
+      if (kStash && tid == 0)
+        bulk_store(st.rec + rg0 * kRecWidth, rec_s, kChunkRows * kRecWidth * 4);
+      // Per ray of the chunk, its segments in order.
+      const int rays_here = S >= kChunkRows ? 1 : G;
+      if (tid < rays_here) {
+        const int r = S >= kChunkRows ? 0 : tid, per = kChunkRows / 16 / rays_here;
+        float* rs = ray_s + r * 8;
+        for (int w = r * per; w < (r + 1) * per; ++w) {
+          rs[0] += seg[w * 8];
+          for (int c = 0; c < 4; ++c) rs[1 + c] += seg[w * 8 + 1 + c];
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < G) {
+      const float* rs = ray_s + tid * 8;
+      const float bg = white_bg ? 1.f - rs[1] : 0.f;
+      for (int c = 0; c < 3; ++c) out_rgb[(size_t)(ray0 + tid) * 3 + c] = rs[2 + c] + bg;
+    }
+  }
+
+  if (kStash && tid < kChunkRows)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- backward launch 1: heads and trunk backward, one 128-row chunk at a time ----
 
 // Column sums over a warp's 16 rows.  v[2 j + e] holds this thread's two
 // rows of column 8 j + 2 (lane % 4) + e; a reduce-scatter over the eight
@@ -891,7 +1035,7 @@ train_bwd_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays,
     st.vec_part[(size_t)blockIdx.x * vl.P + i] = vec[i];
 }
 
-// ---- launch 3: weight gradients, C (M x N) = sum over rows of A[row]^T B[row]
+// ---- backward launch 2: weight gradients, C (M x N) = sum over rows of A[row]^T B[row]
 //      (bf16 operands, f32 sums), one 128 x bn output tile per block and
 //      row range ----
 
@@ -1083,17 +1227,15 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
   int k = 0;
   for (int i = 0; i < kMaxLayers; ++i) {
     const bool live = i < layer_num;
-    p->Wenc[i] = live ? (const uint2*)ptrs[k++] : nullptr;
-    p->Wh[i] = live ? (const uint2*)ptrs[k++] : nullptr;
+    p->Wenc[i] = live ? (const __nv_bfloat16*)ptrs[k++] : nullptr;
     p->WhT[i] = live ? (const __nv_bfloat16*)ptrs[k++] : nullptr;
     p->b[i] = live ? (const float*)ptrs[k++] : nullptr;
   }
+  p->Wfwd = (const __nv_bfloat16*)ptrs[k++];
   p->wa = (const float*)ptrs[k++];
   p->ba = (const float*)ptrs[k++];
-  p->wf = (const uint2*)ptrs[k++];
   p->wfT = (const __nv_bfloat16*)ptrs[k++];
   p->bf = (const float*)ptrs[k++];
-  p->wvh = (const uint2*)ptrs[k++];
   p->wvhT = (const __nv_bfloat16*)ptrs[k++];
   p->wvd = (const float*)ptrs[k++];
   p->bv = (const float*)ptrs[k++];
@@ -1104,23 +1246,37 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
   p->noise = (const float*)ptrs[k++];
 }
 
-template <int HID>
-cudaError_t launch_fwd(const TrainParams& p, const Stash& st, int stash,
-                       int n_rays, int layer_num, int F, int Fd, int S,
-                       float var_scale, int white_bg, float* rgb, float* w,
-                       cudaStream_t stream) {
+int persistent_grid(int units, cudaError_t* e) {
+  int dev = 0, sms = 0;
+  if ((*e = cudaGetDevice(&dev)) != cudaSuccess) return 0;
+  if ((*e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return 0;
+  return units < sms ? units : sms;
+}
+
+// Persistent grid: at most one block per SM, over the units of 128 rows
+// (or one ray).
+template <int HID, bool kStash>
+cudaError_t launch_fwd(const TrainParams& p, const Stash& st, int n_rays,
+                       int layer_num, int F, int Fd, int S, float var_scale,
+                       int white_bg, float* rgb, float* w, cudaStream_t stream) {
   const size_t bytes = FwdSmem<HID>::bytes();
-  auto kern = train_fwd_kernel<HID>;
+  auto kern = train_fwd_kernel<HID, kStash>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  kern<<<n_rays / kTileRays, kThreads, bytes, stream>>>(
-      p, st, stash, layer_num, F, Fd, S, var_scale, white_bg, rgb, w);
+  const int grid = persistent_grid(S >= kChunkRows ? n_rays : n_rays * S / kChunkRows, &e);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, F, Fd, S, n_rays,
+                                             var_scale, white_bg, rgb, w);
   return cudaGetLastError();
 }
 
 // Persistent grid: at most one block per SM (and one vec_part row each);
 // *parts gets the number of blocks, the rows the vector reduction sums.
+// The vector partials: one row per block (at most N / kTileRays); *parts
+// gets the number of blocks, the rows the vector reduction sums.
 template <int HID>
 cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
                        int layer_num, int S, int white_bg, const float* g_rgb,
@@ -1130,13 +1286,8 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return e;
-  const int units = S >= kChunkRows ? n_rays : n_rays * S / kChunkRows;
-  int grid = units < sms ? units : sms;
+  int grid = persistent_grid(S >= kChunkRows ? n_rays : n_rays * S / kChunkRows, &e);
+  if (e != cudaSuccess) return e;
   if (grid > n_rays / kTileRays) grid = n_rays / kTileRays;   // vec_part rows
   *parts = grid;
   kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, S, n_rays,
@@ -1146,13 +1297,15 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
 
 }  // namespace
 
-// ptrs: host array of 4 * layer_num + 14 device pointers, in the order
-// (Wenc_i, Wh_i, WhT_i, b_i) for each layer i, then wa, ba, wf, wfT, bf,
-// wvh, wvhT, wvd, bv, wr, br, rays, z, noise (Wenc_i / Wh_i / WhT_i null
-// where layer i has no such rows).  Wenc_i, Wh_i, wf, wvh: mma.sync
-// fragments of the (in x out) rows (render_kernel.py: pack_fragments);
-// WhT_i, wfT, wvhT: the same rows, bf16 (out x in), as the backward's ring
-// slot images (render_train_kernel.py: slot_images).
+// ptrs: host array of 3 * layer_num + 13 device pointers, in the order
+// (Wenc_i, WhT_i, b_i) for each layer i, then Wfwd, wa, ba, wfT, bf, wvhT,
+// wvd, bv, wr, br, rays, z, noise.  Wfwd: the forward's ring-slot images of
+// every weight matrix, (in x out) rows, in the order the forward streams
+// them (render_train_kernel.py: pack_train); Wenc_i: layer i's encoding
+// rows there (null where the layer takes no encoding); WhT_i (null for
+// layer 0), wfT, wvhT: the backward's slot images of the (out x in) rows.
+// stash: null (no gradient to come), or the stash for the backward (as
+// nm_render_train_workspace sizes it).
 extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
                                        int dirs_freqs, int samples,
@@ -1164,17 +1317,19 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
   TrainParams p;
   unpack(ptrs, layer_num, &p);
   Stash st{};
-  if (stash != nullptr)
-    carve_stash(Dims(n_rays, hid, layer_num, samples), (char*)stash, &st);
-  const int on = stash != nullptr;
   cudaStream_t s = (cudaStream_t)stream;
-  if (hid == 64)
-    return (int)launch_fwd<64>(p, st, on, n_rays, layer_num, num_freqs,
-                               dirs_freqs, samples, var_scale, white_bg,
-                               (float*)out_rgb, (float*)out_w, s);
-  return (int)launch_fwd<256>(p, st, on, n_rays, layer_num, num_freqs,
-                              dirs_freqs, samples, var_scale, white_bg,
-                              (float*)out_rgb, (float*)out_w, s);
+  float *rgb = (float*)out_rgb, *w = (float*)out_w;
+  const int n = n_rays, L = layer_num, F = num_freqs, Fd = dirs_freqs, S = samples;
+  if (stash == nullptr)
+    return (int)(hid == 64 ? launch_fwd<64, false>(p, st, n, L, F, Fd, S, var_scale,
+                                                   white_bg, rgb, w, s)
+                           : launch_fwd<256, false>(p, st, n, L, F, Fd, S, var_scale,
+                                                    white_bg, rgb, w, s));
+  carve_stash(Dims(n, hid, L, S), (char*)stash, &st);
+  return (int)(hid == 64 ? launch_fwd<64, true>(p, st, n, L, F, Fd, S, var_scale,
+                                                white_bg, rgb, w, s)
+                         : launch_fwd<256, true>(p, st, n, L, F, Fd, S, var_scale,
+                                                 white_bg, rgb, w, s));
 }
 
 // Sizes, written to host int64s: the stash the training forward fills

@@ -151,22 +151,23 @@ __device__ __forceinline__ void wgmma_wait() {
                : "memory")
 
 // d (64 x N f32, N / 2 a thread) = or += A (64 x 16) B (16 x N), both in
-// shared memory (descriptors da, db) and MN-major (the transpose bits set).
+// shared memory (descriptors da, db); B MN-major (its transpose bit set),
+// A MN-major (TA = 1) or K-major (TA = 0).
 // Accumulator element 4 j + e of a thread holds row 16 (warp % 4) + lane / 4
 // (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1).
-template <int N>
+template <int N, int TA = 1>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: n64, n128, n256");
   if constexpr (N == 256)
-    NM_WGMMA(256, NM_REGS128, "%128, %129, p, 1, 1, 1, 1", "%130",
-             NM_ACC128(0), "l"(da), "l"(db), "r"(scale_d));
+    NM_WGMMA(256, NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
+             NM_ACC128(0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
   else if constexpr (N == 128)
-    NM_WGMMA(128, NM_REGS64, "%64, %65, p, 1, 1, 1, 1", "%66", NM_ACC64(0),
-             "l"(da), "l"(db), "r"(scale_d));
+    NM_WGMMA(128, NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66", NM_ACC64(0),
+             "l"(da), "l"(db), "r"(scale_d), "n"(TA));
   else
-    NM_WGMMA(64, NM_REGS32, "%32, %33, p, 1, 1, 1, 1", "%34", NM_ACC32(0),
-             "l"(da), "l"(db), "r"(scale_d));
+    NM_WGMMA(64, NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34", NM_ACC32(0),
+             "l"(da), "l"(db), "r"(scale_d), "n"(TA));
 }
 
 // d (64 x N f32) = or += A (64 x 16 bf16: four registers a thread, the
@@ -176,11 +177,16 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 256, "wgmma_rs: n32, n64, n256");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma_rs: n32, n64, n128, n256");
   if constexpr (N == 256)
     NM_WGMMA(256, NM_REGS128, "{%128, %129, %130, %131}, %132, p, 1, 1, %134",
              "%133", NM_ACC128(0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
              "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  else if constexpr (N == 128)
+    NM_WGMMA(128, NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70", "%69",
+             NM_ACC64(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+             "l"(db), "r"(scale_d), "n"(TB));
   else if constexpr (N == 64)
     NM_WGMMA(64, NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38", "%37",
              NM_ACC32(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),

@@ -36,9 +36,8 @@ from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP
 from ...nerf.sampling import frustum_moments
-from .render_kernel import pack_fragments
 
-TILE_RAYS = 2
+TILE_RAYS = 2         # csrc: kTileRays (N even; N / 2 vector-partial rows)
 KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
 KERNEL_HIDS = (64, 256)
 ENC_MAX = 96          # csrc: kEncMax (padded encoding width)
@@ -46,7 +45,7 @@ DIRS_MAX = 32         # csrc: kDirsMax
 GRGB_WIDTH = 8        # csrc: kGrgbWidth
 REC_WIDTH = 8         # csrc: kRecWidth (f32 record a sample)
 MAX_SPLITS = 48       # csrc: kMaxSplits (the GEMM's row ranges)
-SLOT_ROWS = 32        # csrc: kSliceK (weight rows a backward ring slot)
+SLOT_ROWS = 32        # csrc: kSliceK (weight rows a ring slot)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -203,11 +202,13 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
 # ---------------------------------------------------------------------------
 
 def slot_images(w, rows: int = SLOT_ROWS):
-    """A (K, N) weight matrix (out x in) -> the backward kernel's ring-slot
-    images, bf16, (K, N) elements in another order: per ``rows`` rows (one
-    slot), N / 64 blocks of ``rows`` x 64 elements, the 16-byte chunk c of
-    row r stored at chunk c ^ (r % 8) of its 128-byte row (the 128-byte
-    swizzle its wgmma descriptors read).  One bulk copy fills a slot."""
+    """A (K, N) weight matrix (the product's k x its outputs) -> the train
+    kernels' ring-slot images, bf16, (K, N) elements in another order: per
+    ``rows`` rows (one slot), N / 64 blocks of ``rows`` x 64 elements, the
+    16-byte chunk c of row r stored at chunk c ^ (r % 8) of its 128-byte row
+    (the 128-byte swizzle their wgmma descriptors read).  One bulk copy
+    fills a slot.  The backward takes the images of (out x in) rows, the
+    forward those of (in x out) rows."""
     K, N = w.shape
     x = w.detach().to(torch.bfloat16).reshape(K // rows, rows, N // 64, 8, 8)
     x = x.permute(0, 2, 1, 3, 4)                   # slot, block, row, chunk
@@ -217,34 +218,51 @@ def slot_images(w, rows: int = SLOT_ROWS):
     return torch.gather(x, 3, idx).contiguous().reshape(K, N)
 
 
+def _fwd_images(w, k: int | None = None, n: int | None = None):
+    """Forward slot images of an (out x in) weight: its (in x out) rows,
+    zero-padded to k rows and n columns."""
+    wt = w.detach().t()
+    wt = F.pad(wt, (0, (n or wt.shape[1]) - wt.shape[1],
+                    0, (k or wt.shape[0]) - wt.shape[0]))
+    return slot_images(wt).reshape(-1)
+
+
 def pack_train(mlp: NerfMLP):
-    """Kernel weight list in the C entry's order: per layer (encoding-row
-    fragments, hidden-row fragments, the hidden rows' slot images, bias;
-    None where absent), then wa, ba, wf fragments, wf slot images, bf, wvh
-    fragments, wvh slot images, wvd, bv, wr, br.  The fragments feed the
-    forward's ``mma.sync``, the slot images (of the (out x in) rows) the
-    backward's ``wgmma``; wvd and wr are f32 arrays of bf16-rounded
-    values."""
+    """Kernel weight list in the C entry's order: per layer (its encoding
+    rows' part of the forward images, the hidden rows' backward images,
+    bias; None where absent), then the forward images, wa, ba, the
+    feature's backward images, bf, the views' hidden-row backward images,
+    wvd, bv, wr, br.  The forward images are every matrix's (in x out)
+    slot images in the order the forward's ring streams them (per layer the
+    encoding rows padded to ``ENC_MAX`` then the hidden rows, then the
+    feature and the views layers, the views' columns padded to 64 or
+    more); the backward's are of the (out x in) rows.  wvd and wr are f32
+    arrays of bf16-rounded values."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     t = lambda w: w.detach().t().contiguous()
-    out = []
-    for i, lin in enumerate(mlp.pts_linears):
-        w = lin.weight.detach()
-        w_enc = w[:, :enc] if _skip_in(cfg, i) else None
-        w_hid = None if i == 0 else (w[:, enc:] if (i - 1) in cfg.skips else w)
-        out += [None if w_enc is None else pack_fragments(t(w_enc)),
-                None if w_hid is None else pack_fragments(t(w_hid)),
-                None if w_hid is None else slot_images(w_hid),
-                lin.bias.detach().contiguous()]
     wv = mlp.views_linears[0].weight.detach()
     wf = mlp.feature_linear.weight.detach()
-    out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
-            mlp.alpha_linear.bias.detach().contiguous(),
-            pack_fragments(t(wf)), slot_images(wf),
+    imgs, enc_at, per_layer = [], {}, []
+    for i, lin in enumerate(mlp.pts_linears):
+        w = lin.weight.detach()
+        w_hid = None if i == 0 else (w[:, enc:] if (i - 1) in cfg.skips else w)
+        if _skip_in(cfg, i):
+            enc_at[i] = sum(x.numel() for x in imgs)
+            imgs.append(_fwd_images(w[:, :enc], k=ENC_MAX))
+        if w_hid is not None:
+            imgs.append(_fwd_images(w_hid))
+        per_layer.append((None if w_hid is None else slot_images(w_hid),
+                          lin.bias.detach().contiguous()))
+    imgs += [_fwd_images(wf), _fwd_images(wv[:, :hid], n=max(hid // 2, 64))]
+    fwd = torch.cat(imgs)
+    out = []
+    for i, (w_hid, bias) in enumerate(per_layer):
+        out += [fwd[enc_at[i]:] if i in enc_at else None, w_hid, bias]
+    out += [fwd, mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
+            mlp.alpha_linear.bias.detach().contiguous(), slot_images(wf),
             mlp.feature_linear.bias.detach().contiguous(),
-            pack_fragments(t(wv[:, :hid])), slot_images(wv[:, :hid]),
-            _bf16(t(wv[:, hid:])).contiguous(),
+            slot_images(wv[:, :hid]), _bf16(t(wv[:, hid:])).contiguous(),
             mlp.views_linears[0].bias.detach().contiguous(),
             _bf16(t(mlp.rgb_linear.weight)).contiguous(),
             mlp.rgb_linear.bias.detach().contiguous()]

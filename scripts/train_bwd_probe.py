@@ -110,6 +110,7 @@ def build_variants(patches=None, out_name="train_bwd_probe"):
     libs = {}
     for name, (so, proc) in jobs.items():
         log, _ = proc.communicate()
+        (so.parent / "build.log").write_text(log)   # -Xptxas -v
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         lib = ctypes.CDLL(str(so))

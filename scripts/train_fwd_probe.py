@@ -10,12 +10,15 @@ each an edited copy of the sources (``PATCHES``, built as
 ``build/train_fwd_probe/<variant>/``:
 
 * ``shipped``: as the package builds it;
-* ``no_mma``: the forward multiplies nothing and reads no weights (its
-  ``mma_rows`` returns at once: the encoding, the epilogues, the heads, the
-  compositing and the stash stores stay);
-* ``weights_once``: every k step of a product reads the weight fragments
-  of the first one, so the weights come from L1 and not, 1.2 MB a 64-row
-  chunk, from L2 (the products stay, on other numbers).
+* ``no_mma``: the forward issues no ``wgmma`` (the ring, the encoding,
+  the epilogues, the heads, the compositing and the stash stores stay);
+* ``no_ring``: the forward loads no weight slices after its prologue and
+  waits for none (the products run on whatever the slots hold);
+* ``bare``: neither products nor weight slices (what remains: the
+  encoding, the epilogues, the heads, the barriers, the compositing and the
+  stash stores);
+* ``no_ipe``: the encoding skips its ``sinf`` / ``expf`` (it stores the
+  scaled means and variances instead).
 
 Then, on phase 3b's stage of ``chip_smoke.py`` (the room's fine MLP, 9216
 rays x 128 samples), it runs each build's ``nm_render_train_forward`` three
@@ -43,20 +46,28 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_MMA_ROWS = ("mma_common.cuh", """                                         float (&acc)[kMTiles][NT][4]) {
-  const uint32_t a0""")
-_LDG = """#pragma unroll 2
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint2 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = __ldg(wl + ((size_t)ks * ntt + j) * 32);"""
+_SS = """        wgmma_ss<N, 0>(acc, desc128(enc_w + (ks >> 2) * L::kEncBlock + (ks & 3) * 32, 16),
+                       desc128(slot + kk * 2048, kSliceK * 128), ks > 0);
+"""
+_RS = """        wgmma_rs<N, 1>(acc, a[s * KK + kk], desc128(slot + kk * 2048, kSliceK * 128),
+                       NE + s + kk > 0);
+"""
+_RING = """      if (tid == 0 && q + kFwdRing - 2 < q_total) load_slice(q + kFwdRing - 2);
+      mbar_wait(full0 + 8 * (q % kFwdRing), (q / kFwdRing) & 1);
+"""
+_IPE = """        const float damp = expf(-0.5f * y);
+        const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
+                                    __float2bfloat16(damp * sinf(x + kHalfPi))};
+"""
 # (old, new) edits of render_train.cu, or (file, old, new), per variant.
 PATCHES = {
     "shipped": [],
-    "no_mma": [(_MMA_ROWS[0], _MMA_ROWS[1], _MMA_ROWS[1].replace(
-        "{\n", "{\n  return;\n"))],
-    "weights_once": [("mma_common.cuh", _LDG, _LDG.replace(
-        "((size_t)ks * ntt + j) * 32", "(size_t)j * 32"))]}
+    "no_mma": [(_SS, "        (void)slot;\n"), (_RS, "        (void)slot;\n")],
+    "no_ring": [(_RING, "")],
+    "bare": [(_SS, "        (void)slot;\n"), (_RS, "        (void)slot;\n"),
+             (_RING, "")],
+    "no_ipe": [(_IPE, _IPE.replace("damp * sinf(x)", "x").replace(
+        "damp * sinf(x + kHalfPi)", "y"))]}
 LAUNCHES = {"train_fwd_kernel": "fwd"}
 
 

@@ -57,24 +57,39 @@ def make_rays(n, seed, near=0.05, far=1.4):
                            d, np.full((n, 1), 0.002)], -1).astype(np.float32)
 
 
-@pytest.mark.parametrize("K,N", [(64, 256), (32, 64), (128, 256)])
-def test_slot_images_follow_the_kernel_swizzle(K, N):
-    """Element (k, n) of a weight matrix lands where the backward kernel's
-    ring slot reads it (csrc/render_train.cu: swz): slot k // 32, then the
-    64-column block, row k % 32, and the 16-byte chunk (n % 64) // 8 at
-    position chunk ^ (row % 8)."""
+@pytest.mark.parametrize("K,N,orient", [
+    *[pytest.param(k, n, "backward", id=f"{k}-{n}")
+      for k, n in [(64, 256), (32, 64), (128, 256)]],
+    *[pytest.param(k, n, "forward", id=f"forward-{k}-{n}")
+      for k, n in [(90, 256), (256, 256), (256, 128), (64, 32)]]])
+def test_slot_images_follow_the_kernel_swizzle(K, N, orient):
+    """Element (k, n) of a weight matrix lands where the kernels' ring slot
+    reads it (csrc/render_train.cu: swz): slot k // 32, then the 64-column
+    block, row k % 32, and the 16-byte chunk (n % 64) // 8 at position
+    chunk ^ (row % 8).  The backward's images are of the (out x in) rows as
+    given; the forward's (``_fwd_images``) of the (in x out) rows of the
+    (out x in) weight, k = in padded to a multiple of 32 (the encoding's 90
+    to 96) and n = out to 64 or more, with zeros."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        slot_images)
+        _fwd_images, slot_images)
 
-    w = torch.from_numpy(np.random.default_rng(0).normal(size=(K, N))
-                         .astype(np.float32))
-    img = slot_images(w).reshape(-1)
+    rng = np.random.default_rng(0)
+    if orient == "backward":
+        mat = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32))
+        img = slot_images(mat).reshape(-1)
+    else:
+        w = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32))
+        pk, pn = -(-K // 32) * 32, max(N, 64)
+        img = _fwd_images(w, k=pk, n=pn)
+        mat = torch.zeros(pk, pn)
+        mat[:K, :N] = w.t()
+        K, N = pk, pn
     k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
     sl, r, nb, c, e = k // 32, k % 32, n // 64, (n % 64) // 8, n % 8
     off = sl * 32 * N + nb * 32 * 64 + r * 64 + (c ^ (r % 8)) * 8 + e
-    assert img.dtype == torch.bfloat16
+    assert img.dtype == torch.bfloat16 and img.numel() == K * N
     assert torch.equal(img[torch.from_numpy(off.reshape(-1))],
-                       w.to(torch.bfloat16).reshape(-1))
+                       mat.to(torch.bfloat16).reshape(-1))
 
 
 @pytest.mark.parametrize("hid,layers,skips,n,S", [
