@@ -391,18 +391,22 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
     """Kernel forward -> (rgb, weights, stash).  With ``stash`` it is the
     training forward: it also fills and returns the stash (uint8, the
     activations :func:`kernel_backward` reads); else the stash is None and
-    nothing beyond the outputs is allocated."""
+    nothing beyond the outputs outlives the call (a per-sample record of 32
+    bytes, which the compositing launch reads, is dropped)."""
     args = _kernel_args(spec, rays, z, noise, packed)
     n, S = z.shape[0], z.shape[1] - 1
     rgb = torch.empty(n, 3, device=rays.device)
     w = torch.empty(n, S, device=rays.device)
-    st = None
+    st = rec = None
     if stash:
         st = torch.empty(_sizes(spec.mlp.cfg, n, S)[0], dtype=torch.uint8,
                          device=rays.device)
+    else:   # the per-sample record the compositing reads, dropped after
+        rec = torch.empty(n * S, REC_WIDTH, device=rays.device)
     err = library().nm_render_train_forward(
         *args, rgb.data_ptr(), w.data_ptr(),
-        None if st is None else st.data_ptr(), stream_ptr(rays.device))
+        None if st is None else st.data_ptr(),
+        None if rec is None else rec.data_ptr(), stream_ptr(rays.device))
     check(err, "render_train_fwd")
     LAUNCHES["render_train_fwd"] += 1
     return rgb, w, st
