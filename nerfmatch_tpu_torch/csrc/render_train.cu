@@ -75,7 +75,12 @@
 // its bytes; scripts/train_bwd_probe.py builds edited copies of this file
 // without the products, the weight ring, the row copies or the column sums
 // (and with fewer GEMM row ranges) and times them.
-// -Xptxas -v (sm_90a, CUDA 12.8): train_bwd_kernel<256> 255 registers,
+// -Xptxas -v (sm_90a, CUDA 12.8): train_fwd_kernel<256, stash> 255
+// registers, 4 bytes of spill stores / 12 of loads; <256, no stash> 255
+// registers, 868 / 876 bytes of spill; <64, *> 125-128 registers, no
+// spills; 225,912 bytes of dynamic shared memory at HID 256 (ring 112 KB,
+// encoding tiles 32 KB, row buffer 66 KB, record 4 KB, f32 6 KB), 98,168
+// at 64.  train_bwd_kernel<256> 255 registers,
 // 24 bytes of spill stores / 40 of loads, 223,880 bytes of dynamic shared
 // memory (ring 128 KB, row buffer 66 KB, f32 sums 24 KB); <64> 117
 // registers, no spills; wgrad_gemm_kernel 183 registers, no spills,
@@ -192,7 +197,7 @@ struct Int {
   static constexpr int value = N;
 };
 
-// ---- the forward: trunk and heads, 64 rows a warpgroup at a time ----
+// ---- the forward: heads, trunk and compositing, one 128-row chunk at a time ----
 
 constexpr int kFwdRing = 7;                    // weight slots (ring stages)
 constexpr int kEncSlices = kEncMax / kSliceK;  // encoding rows: 3 slices
@@ -205,9 +210,9 @@ struct FwdSmem {
   // HID outputs, MN-major in 64-column blocks; a views slice fills NV / HID
   // of its slot.  The encoding tile: per warpgroup two K-major blocks of 64
   // rows x 64 bf16 (the encoding padded to 96), 128-byte swizzle.  The row
-  // buffer: the chunk's 128 stash rows, row-major, padded by 16 bytes (at
-  // HID 64 as wide as the encoding's 96).  The record: 128 rows of 8 f32
-  // (rgb, sigma_raw; the compositing adds alpha and T).
+  // buffer: the chunk's 128 stash rows, row-major, padded by 16 bytes.  The
+  // record: 128 rows of 8 f32 (rgb, sigma_raw, alpha, T, 0 ...).  (At HID
+  // 64 the rows are as wide as the encoding's 96.)
   static constexpr int kSlot = (HID / 64) * kSliceK * 128;
   static constexpr int kVSlot = (NV / 64) * kSliceK * 128;
   static constexpr int kEncBlock = 64 * 128;
@@ -216,46 +221,35 @@ struct FwdSmem {
   static constexpr int kRowOff = kEncOff + 4 * kEncBlock;
   static constexpr int kRecOff = kRowOff + kChunkRows * kRowStride;
   static constexpr int kFloatOff = kRecOff + kChunkRows * kRecWidth * 4;
-  // f32: row info (128 x 8), per warpgroup xt (HV) and dirs PE (kDirsMax).
-  static constexpr int kFloats = kChunkRows * 8 + 2 * HV + 2 * kDirsMax;
-  // mbarriers: full and empty, one each a slot.
-  static constexpr size_t kBytes =
-      1024 + kFloatOff + (size_t)kFloats * 4 + 16 * kFwdRing;
-  static size_t bytes() { return kBytes; }
+  // f32: row info (128 x 8), xt (2 x HV), dirs PE (2 x kDirsMax), segment
+  // sums (8 x 8), per-ray carries (2 x 8).
+  static constexpr int kFloats =
+      kChunkRows * 8 + 2 * HV + 2 * kDirsMax + kBwdWarps * 8 + 2 * 8;
+  static constexpr size_t kBytes = 1024 + kFloatOff + (size_t)kFloats * 4 + 8 * kFwdRing;
 };
 
-// Loads are not hoisted over this point (an epilogue that ran its 64
-// column groups' loads ahead would spill the accumulator).
-__device__ __forceinline__ void reg_fence() { asm volatile("" ::: "memory"); }
-
-// Barrier of the 128 threads of warpgroup wg (named barrier 1 + wg).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-}
-
-// Train forward, MLP part: a persistent grid (at most one block an SM) of
-// two warpgroups, each walking over the 64-row halves of 128-row chunks of
-// sample rows.  Per half: frustum moments and the IPE of every row into
-// the warpgroup's swizzled encoding tile; each trunk layer as wgmma
-// m64nHIDk16, A in registers (the layer before's accumulator after bias
-// and ReLU, rounded to bf16) and, for layer 0 and the skip layer, the
-// encoding tile from shared memory into the same accumulator; B from a
-// ring of kFwdRing slots of 32 weight rows, one bulk copy each from the
-// host-packed images (render_train_kernel.py: pack_train, slices in the
-// order they are used), both warpgroups reading each slot.  The warpgroups
-// share nothing else: each slot has a full and an empty mbarrier (thread
-// 0 refills a slot once both warpgroups have released it, polling while
-// it waits), so one warpgroup's epilogue overlaps the other's products.
-// The sigma and rgb heads are per-thread dot products over the
-// accumulator's columns and quad shuffles, into the record (rgb,
-// sigma_raw), which always leaves by one bulk store a half (to the stash
-// or to a scratch record); kStash: the encoding and every activation
-// leave by one bulk store a row through the row buffer.
-// train_composite_kernel then composites each ray from the record.
+// Train forward: a persistent grid (at most one block an SM) of two
+// warpgroups walking over 128-row chunks (units of one ray at S >= 128, two
+// at S = 64; a ray of S = 256 is two chunks, with its transmittance and
+// sums carried from the first to the second).  Per chunk: frustum moments
+// and the IPE of every row into the swizzled encoding tile; each trunk
+// layer as wgmma m64nHIDk16, A in registers (the layer before's
+// accumulator after bias and ReLU, rounded to bf16) and, for layer 0 and
+// the skip layer, the encoding tile from shared memory into the same
+// accumulator; B from a ring of kFwdRing slots of 32 weight rows, one bulk
+// copy each from the host-packed images (render_train_kernel.py:
+// pack_train, slices in the order they are used), both warpgroups reading
+// each slot; the sigma and rgb heads as per-thread dot products over the
+// accumulator's columns and quad shuffles; compositing on all warps (a
+// half-warp scan of log(1 - alpha) per 16 rows and one shared-memory pass
+// over the segments).  kStash: every row's encoding and activations leave
+// by one bulk store a row through the row buffer, the record by one bulk
+// store a chunk.
 template <int HID, bool kStash>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
-                 int n_chunks, float var_scale) {
+                 int n_rays, float var_scale, int white_bg,
+                 float* __restrict__ out_rgb, float* __restrict__ out_w) {
   using L = FwdSmem<HID>;
   constexpr int HV = L::HV, NV = L::NV;
   constexpr int NJ = HID / 8, NJV = HV / 8;   // n8 column groups
@@ -267,37 +261,36 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - raw);
-  const uint32_t ring_s = base;
+  const uint32_t ring_s = base, enc_s = base + L::kEncOff;
+  const uint32_t row_s = base + L::kRowOff, rec_s = base + L::kRecOff;
+  unsigned char* rowbuf = sm + L::kRowOff;
+  float* rec = reinterpret_cast<float*>(sm + L::kRecOff);      // 128 x 8
+  float* info = reinterpret_cast<float*>(sm + L::kFloatOff);   // 128 x 8
+  float* xt = info + kChunkRows * 8;                           // 2 x HV
+  float* dpe = xt + 2 * HV;                                    // 2 x kDirsMax
+  float* seg = dpe + 2 * kDirsMax;                             // 8 x 8
+  float* ray_s = seg + kBwdWarps * 8;   // 2 x 8: carry, acc, rgb (3)
+  const uint32_t full0 = smem_u32(ray_s + 16);                 // slot s: + 8 s
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wg = tid >> 7, lt = tid & 127, t = lane & 3;
+  const int wg = tid >> 7, t = lane & 3;
   const int wrow = (warp & 3) * 16 + (lane >> 2);   // first of its two rows
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
-  // This warpgroup's encoding tile, its rows of the row buffer and the
-  // record, its row info, xt and dirs PE.
-  const uint32_t enc_w = base + L::kEncOff + wg * 2 * L::kEncBlock;
-  unsigned char* enc_p = sm + L::kEncOff + wg * 2 * L::kEncBlock;
-  const uint32_t row_w = base + L::kRowOff + wg * 64 * L::kRowStride;
-  unsigned char* rowbuf = sm + L::kRowOff + wg * 64 * L::kRowStride;
-  const uint32_t rec_w = base + L::kRecOff + wg * 64 * kRecWidth * 4;
-  float* rec = reinterpret_cast<float*>(sm + L::kRecOff) + wg * 64 * kRecWidth;
-  float* info = reinterpret_cast<float*>(sm + L::kFloatOff) + wg * 64 * 8;
-  float* xt = reinterpret_cast<float*>(sm + L::kFloatOff) + kChunkRows * 8 + wg * HV;
-  float* dpe = reinterpret_cast<float*>(sm + L::kFloatOff) + kChunkRows * 8 + 2 * HV +
-               wg * kDirsMax;
-  const uint32_t full0 = base + L::kFloatOff + L::kFloats * 4;   // slot s: + 8 s
-  const uint32_t empty0 = full0 + 8 * kFwdRing;
+  const uint32_t enc_w = enc_s + wg * 2 * L::kEncBlock;   // this warpgroup's
 
-  const int my_chunks = (n_chunks - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int G = S >= kChunkRows ? 1 : kChunkRows / S;
+  const int unit_chunks = G * S / kChunkRows;
+  const int n_units = n_rays / G;
+  const int my_units = (n_units - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   // Slices a chunk streams, in the host images' order: per layer its
   // encoding rows (if any) then its hidden rows, then the feature and the
   // views layers.  All but the views slices fill a whole slot.
   int Qt = KS * (layer_num - 1);
   for (int i = 0; i < layer_num; ++i) Qt += p.Wenc[i] != nullptr ? kEncSlices : 0;
   const int Q = Qt + 2 * KS;
-  const int q_total = my_chunks * Q;
+  const int q_total = my_units * unit_chunks * Q;
 
-  // The encoding tiles' padding columns (enc_dim .. 95) stay zero.
+  // The encoding tile's padding columns (enc_dim .. 95) stay zero.
   for (int i = tid; i < kChunkRows * (kEncMax - enc_dim); i += kBwdThreads) {
     const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);
     *reinterpret_cast<__nv_bfloat16*>(
@@ -305,10 +298,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         swz(row & 63, (k & 63) >> 3) + (k & 7) * 2) = __float2bfloat16(0.f);
   }
   if (tid == 0)
-    for (int i = 0; i < kFwdRing; ++i) {
-      mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, 2);   // one release a warpgroup
-    }
+    for (int i = 0; i < kFwdRing; ++i) mbar_init(full0 + 8 * i);
   fence_async();
   __syncthreads();
 
@@ -324,56 +314,38 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
               reinterpret_cast<const unsigned char*>(p.Wfwd) + off, bytes,
               full0 + 8 * slot);
   };
-  // Thread 0 issues every slice whose slot both warpgroups have released
-  // (slice x reuses the slot of slice x - kFwdRing).
-  int issued = 0;
-  auto pump = [&]() {
-    while (issued < q_total &&
-           (issued < kFwdRing ||
-            mbar_test(empty0 + 8 * (issued % kFwdRing), ((issued / kFwdRing) - 1) & 1)))
-      load_slice(issued++);
-  };
-  // Thread 0 pumps wherever warpgroup 0 may spend a while: before each
-  // slice and through its epilogues.
-  auto feed = [&]() {
-    if (tid == 0) pump();
-  };
-  feed();
+  int q = 0;   // next ring slice to consume
+  if (tid == 0)
+    for (int s = 0; s < kFwdRing - 2 && s < q_total; ++s) load_slice(s);
 
-  int q = 0;   // next ring slice this warpgroup consumes
   float acc[NJ * 4];
   uint32_t a[HID / 16][4];   // bf16 A fragments: 16 columns (k) a step
   // acc = the next NE encoding slices (A: the encoding tile) + the next NH
   // hidden slices (A: the registers a), N columns.  One wgmma batch stays
-  // in flight; the slice before it is released.  The stores of this
-  // warpgroup's previous stash rows have read the row buffer once the
-  // product returns.
+  // in flight, so slot q - 2 is the one refilled (with slice q + kFwdRing
+  // - 2).  The stores of the previous stash rows have read the row buffer
+  // once the second slice starts.
   auto product = [&](auto ne_c, auto nh_c, auto n_c) {
     constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;
     constexpr int N = decltype(n_c)::value;
     constexpr int KK = kSliceK / 16;   // k16 steps a slice
-    auto begin = [&]() {   // this slice's slot, once it has landed
-      const uint32_t full = full0 + 8 * (q % kFwdRing), par = (q / kFwdRing) & 1;
-      // A slice that never lands (a fault in the slot protocol) traps
-      // after ~2^27 polls instead of hanging the card.
-      feed();
-      for (uint32_t spins = 0; !mbar_test(full, par); ++spins) {
-        if (tid == 0) pump();
-        if (spins == (1u << 27)) __trap();
-      }
-      __syncwarp();
+    // Slice s of the product: its slot, once it has landed.
+    auto begin = [&](int s) {
+      if (kStash && s == 1 && tid < kChunkRows) bulk_read_done();
+      __syncthreads();   // batch q - 2 done everywhere: its slot is free
+      if (tid == 0 && q + kFwdRing - 2 < q_total) load_slice(q + kFwdRing - 2);
+      mbar_wait(full0 + 8 * (q % kFwdRing), (q / kFwdRing) & 1);
       wgmma_fence();
       return ring_s + (uint32_t)(q % kFwdRing) * L::kSlot;
     };
     auto end = [&]() {
       wgmma_commit();
       wgmma_wait<1>();
-      if (lt == 0 && q > 0) mbar_arrive(empty0 + 8 * ((q - 1) % kFwdRing));
       ++q;
     };
 #pragma unroll
     for (int s = 0; s < NE; ++s) {
-      const uint32_t slot = begin();
+      const uint32_t slot = begin(s);
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
         const int ks = s * KK + kk;   // k16 step of the encoding tile
@@ -384,7 +356,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
     }
 #pragma unroll
     for (int s = 0; s < NH; ++s) {
-      const uint32_t slot = begin();
+      const uint32_t slot = begin(NE + s);
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk)
         wgmma_rs<N, 1>(acc, a[s * KK + kk], desc128(slot + kk * 2048, kSliceK * 128),
@@ -392,55 +364,26 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
       end();
     }
     wgmma_wait<0>();
-    if (kStash) {
-      if (lt < 64) bulk_read_done();
-      wg_sync(wg);
-    }
   };
-  // This warpgroup's rows of the row buffer (width bf16 each) -> dst rows
-  // rg0 ..; after every thread's writes to them.
+  // The row buffer's rows (width bf16 each) -> dst rows rg0 ..; after every
+  // thread's writes to it.
   auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {
     fence_async();
-    wg_sync(wg);
-    if (lt < 64)
-      bulk_store(dst + (rg0 + lt) * width, row_w + lt * L::kRowStride, width * 2);
+    __syncthreads();
+    if (tid < kChunkRows)
+      bulk_store(dst + (rg0 + tid) * width, row_s + tid * L::kRowStride, width * 2);
   };
   auto put_pair = [&](int r, int col, uint32_t v) {   // row r of the warpgroup
-    *reinterpret_cast<uint32_t*>(rowbuf + r * L::kRowStride + col * 2) = v;
+    *reinterpret_cast<uint32_t*>(rowbuf + (wg * 64 + r) * L::kRowStride + col * 2) = v;
   };
 
-  for (int ci = 0; ci < my_chunks; ++ci) {
-    const size_t rg0 = ((size_t)blockIdx.x + (size_t)ci * gridDim.x) * kChunkRows + wg * 64;
-    const int n = (int)(rg0 / S), s0 = (int)(rg0 % S);   // the ray of its rows
-    // The stores of the last half have read the row buffer and the record;
-    // every read of the row info, xt and the encoding tile is done.
-    if (lt < 64) bulk_read_done();
-    wg_sync(wg);
-    // ---- per-row frustum moments -> Gaussian mean / variance; the ray's
-    //      view-direction PE, rounded to bf16: [sin(2^f d) | cos | d] ----
-    const float* ray = p.rays + (size_t)n * 12;
-    if (lt < 64) {
-      const int s = s0 + lt;
-      const float* zr = p.z + (size_t)n * (S + 1);
-      const float t0 = zr[s], t1 = zr[s + 1];
-      const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
-      const float mu2 = mu * mu, hw2 = hw * hw;
-      const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
-      const float t_mean = mu + (2.f * mu * hw2) / den;
-      float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
-      const float rad = ray[11];
-      float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
-      t_var *= var_scale;
-      r_var *= var_scale;
-      float* in = info + lt * 8;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float d = ray[8 + c], d2 = d * d;
-        in[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
-        in[3 + c] = t_var * d2 + r_var * (1.f - d2);
-      }
-    } else if (lt < 64 + kDirsMax) {
-      const int j = lt - 64;
+  for (int ui = 0; ui < my_units; ++ui) {
+    const int ray0 = ((int)blockIdx.x + ui * (int)gridDim.x) * G;
+    __syncthreads();   // the last unit's sums are read
+    // View-direction PE per ray, rounded to bf16: [sin(2^f d) | cos | d].
+    for (int i = tid; i < G * kDirsMax; i += kBwdThreads) {
+      const int r = i / kDirsMax, j = i % kDirsMax;
+      const float* ray = p.rays + (size_t)(ray0 + r) * 12;
       float v = 0.f;
       if (j < 6 * Fd) {
         const int jj = j % (3 * Fd);
@@ -449,203 +392,237 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
       } else if (j < dirs_dim) {
         v = ray[8 + j - 6 * Fd];
       }
-      dpe[j] = bf16_round(v);
-      if (kStash && s0 == 0) st.extras[(size_t)n * kDirsMax + j] = __float2bfloat16(v);
+      dpe[i] = bf16_round(v);
+      if (kStash) st.extras[(size_t)(ray0 + r) * kDirsMax + j] = __float2bfloat16(v);
     }
-    wg_sync(wg);
-    // ---- xt = dirs_pe @ wvd (the ray's part of the views layer); the
-    //      integrated positional encoding (f32, rounded to bf16) into the
-    //      encoding tile and, for the stash, the row buffer ----
-    for (int k = lt; k < HV; k += 128) {
-      float v = 0.f;
-      for (int j = 0; j < dirs_dim; ++j) v = fmaf(dpe[j], __ldg(p.wvd + (size_t)j * HV + k), v);
-      xt[k] = v;
-    }
-    feed();
-    for (int i = lt; i < 64 * 3 * F; i += 128) {
-      const int row = i / (3 * F), j = i % (3 * F);
-      const int f = j / 3, c = j % 3;
-      const float* in = info + row * 8;
-      const float x = in[c] * exp2f((float)f);
-      const float y = in[3 + c] * exp2f((float)(2 * f));
-      const float damp = expf(-0.5f * y);
-      const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
-                                  __float2bfloat16(damp * sinf(x + kHalfPi))};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = h * 3 * F + j;
-        *reinterpret_cast<__nv_bfloat16*>(enc_p + (k >> 6) * L::kEncBlock +
-                                          swz(row, (k & 63) >> 3) + (k & 7) * 2) = v[h];
-        if (kStash)
-          *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) = v[h];
-      }
-    }
-    if (kStash) {
-      for (int i = lt; i < 64 * (kEncMax - enc_dim); i += 128) {
-        const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);
-        *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) =
-            __float2bfloat16(0.f);
-      }
-      store_rows(st.xb, kEncMax, rg0);   // and the encoding tile, for wgmma
-    } else {
-      fence_async();   // the encoding tile, for wgmma
-      wg_sync(wg);
+    if (tid < 2 * 8) ray_s[tid] = 0.f;
+    __syncthreads();
+    for (int i = tid; i < G * HV; i += kBwdThreads) {
+      const int r = i / HV, k = i % HV;
+      float s = 0.f;
+      for (int j = 0; j < dirs_dim; ++j)
+        s = fmaf(dpe[r * kDirsMax + j], __ldg(p.wvd + (size_t)j * HV + k), s);
+      xt[i] = s;
     }
 
-    // ---- trunk: acc = [enc @ Wenc_i] + [bf16(h) @ Wh_i]; h = relu(acc + b) ----
-    float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
-    for (int i = 0; i < layer_num; ++i) {
-      if (i == 0)
-        product(Int<kEncSlices>{}, Int<0>{}, Int<HID>{});
-      else if (p.Wenc[i] != nullptr)
-        product(Int<kEncSlices>{}, Int<KS>{}, Int<HID>{});
-      else
-        product(Int<0>{}, Int<KS>{}, Int<HID>{});
-      const bool last = i == layer_num - 1;
+    for (int ch = 0; ch < unit_chunks; ++ch) {
+      const size_t rg0 = (size_t)ray0 * S + ch * kChunkRows;
+      // The stores of the last chunk have read the row buffer and the
+      // record; every read of the encoding tile and the row info is done.
+      if (kStash && tid < kChunkRows) bulk_read_done();
+      __syncthreads();
+      // ---- per-row frustum moments -> Gaussian mean / variance ----
+      if (tid < kChunkRows) {
+        const int ul = ch * kChunkRows + tid, n = ray0 + ul / S, s = ul % S;
+        const float* ray = p.rays + (size_t)n * 12;
+        const float* zr = p.z + (size_t)n * (S + 1);
+        const float t0 = zr[s], t1 = zr[s + 1];
+        const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
+        const float mu2 = mu * mu, hw2 = hw * hw;
+        const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
+        const float t_mean = mu + (2.f * mu * hw2) / den;
+        float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
+        const float rad = ray[11];
+        float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
+        t_var *= var_scale;
+        r_var *= var_scale;
+        float* in = info + tid * 8;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float d = ray[8 + c], d2 = d * d;
+          in[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
+          in[3 + c] = t_var * d2 + r_var * (1.f - d2);
+        }
+        in[6] = t1 - t0;
+      }
+      __syncthreads();
+      // ---- integrated positional encoding (f32, rounded to bf16) into the
+      //      encoding tile and, for the stash, the row buffer ----
+      for (int i = tid; i < kChunkRows * 3 * F; i += kBwdThreads) {
+        const int row = i / (3 * F), j = i % (3 * F);
+        const int f = j / 3, c = j % 3;
+        const float* in = info + row * 8;
+        const float x = in[c] * exp2f((float)f);
+        const float y = in[3 + c] * exp2f((float)(2 * f));
+        const float damp = expf(-0.5f * y);
+        const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
+                                    __float2bfloat16(damp * sinf(x + kHalfPi))};
+        unsigned char* tile = sm + L::kEncOff + (row >> 6) * 2 * L::kEncBlock;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = h * 3 * F + j;
+          *reinterpret_cast<__nv_bfloat16*>(tile + (k >> 6) * L::kEncBlock +
+                                            swz(row & 63, (k & 63) >> 3) + (k & 7) * 2) = v[h];
+          if (kStash)
+            *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) = v[h];
+        }
+      }
+      if (kStash) {
+        for (int i = tid; i < kChunkRows * (kEncMax - enc_dim); i += kBwdThreads) {
+          const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);
+          *reinterpret_cast<__nv_bfloat16*>(rowbuf + row * L::kRowStride + k * 2) =
+              __float2bfloat16(0.f);
+        }
+      }
+      fence_async();   // the encoding tile, for wgmma
+      if (kStash) store_rows(st.xb, kEncMax, rg0);
+
+      // ---- trunk: acc = [enc @ Wenc_i] + [bf16(h) @ Wh_i]; h = relu(acc + b) ----
+      float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
+      for (int i = 0; i < layer_num; ++i) {
+        if (i == 0)
+          product(Int<kEncSlices>{}, Int<0>{}, Int<HID>{});
+        else if (p.Wenc[i] != nullptr)
+          product(Int<kEncSlices>{}, Int<KS>{}, Int<HID>{});
+        else
+          product(Int<0>{}, Int<KS>{}, Int<HID>{});
+        const bool last = i == layer_num - 1;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float b0 = __ldg(p.b[i] + col), b1 = __ldg(p.b[i] + col + 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+            const uint32_t pk = pack_bf16(v0, v1);
+            a[j >> 1][2 * (j & 1) + h] = pk;
+            if (kStash) put_pair(wrow + 8 * h, col, pk);
+            if (last)
+              sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
+          }
+        }
+        if (kStash) store_rows(st.hs[i], HID, rg0);
+      }
+      // ---- sigma_raw = h . wa + ba + noise (f32 activations) ----
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float s = sp[h];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        const int row = wg * 64 + wrow + 8 * h;
+        if (t == 0) rec[row * 8 + 3] = s + __ldg(p.ba) + p.noise[rg0 + row];
+      }
+
+      // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16 ----
+      product(Int<0>{}, Int<KS>{}, Int<HID>{});
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = 8 * j + 2 * t;
-        const float b0 = __ldg(p.b[i] + col), b1 = __ldg(p.b[i] + col + 1);
+        const float b0 = __ldg(p.bf + col), b1 = __ldg(p.bf + col + 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
-          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
-          const uint32_t pk = pack_bf16(v0, v1);
+          const uint32_t pk = pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
           a[j >> 1][2 * (j & 1) + h] = pk;
           if (kStash) put_pair(wrow + 8 * h, col, pk);
-          if (last)
-            sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
-        }
-        if (j % 8 == 7) {
-          reg_fence();
-          feed();
         }
       }
-      if (kStash) store_rows(st.hs[i], HID, rg0);
-    }
-    // ---- sigma_raw = h . wa + ba + noise (f32 activations) ----
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float s = sp[h];
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      const int row = wrow + 8 * h;
-      if (t == 0) rec[row * 8 + 3] = s + __ldg(p.ba) + p.noise[rg0 + row];
-    }
+      if (kStash) store_rows(st.feat, HID, rg0);
 
-    // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16 ----
-    product(Int<0>{}, Int<KS>{}, Int<HID>{});
+      // ---- views = relu(feature @ wvh + dirs_pe @ wvd + bv), rounded to
+      //      bf16; rgb = sigmoid(views @ wr + br) on the rounded views ----
+      product(Int<0>{}, Int<KS>{}, Int<NV>{});
+      {
+        const float* x = xt + ((ch * kChunkRows + wg * 64) / S) * HV;
+        float pr[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int col = 8 * j + 2 * t;
-      const float b0 = __ldg(p.bf + col), b1 = __ldg(p.bf + col + 1);
+        for (int j = 0; j < NJV; ++j) {
+          const int col = 8 * j + 2 * t;
+          const float c0 = x[col] , c1 = x[col + 1];
+          const float b0 = __ldg(p.bv + col), b1 = __ldg(p.bv + col + 1);
+          float wr[2][3];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t pk = pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
-        a[j >> 1][2 * (j & 1) + h] = pk;
-        if (kStash) put_pair(wrow + 8 * h, col, pk);
-      }
-      if (j % 8 == 7) {
-        reg_fence();
-        feed();
-      }
-    }
-    if (kStash) store_rows(st.feat, HID, rg0);
-
-    // ---- views = relu(feature @ wvh + dirs_pe @ wvd + bv), rounded to
-    //      bf16; rgb = sigmoid(views @ wr + br) on the rounded views ----
-    product(Int<0>{}, Int<KS>{}, Int<NV>{});
-    {
-      float pr[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+          for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int j = 0; j < NJV; ++j) {
-        const int col = 8 * j + 2 * t;
-        const float c0 = xt[col] + __ldg(p.bv + col), c1 = xt[col + 1] + __ldg(p.bv + col + 1);
-        float wr[2][3];
+            for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(p.wr + (col + e) * 3 + c);
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = fmaxf(acc[4 * j + 2 * h] + c0 + b0, 0.f);
+            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + c1 + b1, 0.f);
+            const uint32_t pk = pack_bf16(v0, v1);
+            if (kStash) put_pair(wrow + 8 * h, col, pk);
+            const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk));
 #pragma unroll
-          for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(p.wr + (col + e) * 3 + c);
+            for (int c = 0; c < 3; ++c) pr[h][c] = fmaf(r.x, wr[0][c], fmaf(r.y, wr[1][c], pr[h][c]));
+          }
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float v0 = fmaxf(acc[4 * j + 2 * h] + c0, 0.f);
-          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + c1, 0.f);
-          const uint32_t pk = pack_bf16(v0, v1);
-          if (kStash) put_pair(wrow + 8 * h, col, pk);
-          const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk));
+          const int row = wg * 64 + wrow + 8 * h;
 #pragma unroll
-          for (int c = 0; c < 3; ++c) pr[h][c] = fmaf(r.x, wr[0][c], fmaf(r.y, wr[1][c], pr[h][c]));
-        }
-        if (j % 4 == 3) {
-          reg_fence();
-          feed();
+          for (int c = 0; c < 3; ++c) {
+            float s = pr[h][c];
+            s += __shfl_xor_sync(0xffffffffu, s, 1);
+            s += __shfl_xor_sync(0xffffffffu, s, 2);
+            if (t == 0) rec[row * 8 + c] = 1.f / (1.f + expf(-(s + __ldg(p.br + c))));
+          }
         }
       }
+      if (kStash) store_rows(st.hv, HV, rg0);
+      else __syncthreads();   // the record's rgb and sigma_raw
+
+      // ---- compositing: warp w takes chunk rows 16 w .., one row a lane
+      //      of each half (the halves compute the same); the transmittance
+      //      is exp of the exclusive prefix of log(1 - alpha) over the ray
+      //      ----
+      {
+        const int row = warp * 16 + (lane & 15);
+        const int r = (ch * kChunkRows + row) / S;   // ray of the unit
+        float* rr = rec + row * 8;
+        const float alpha = 1.f - expf(-fmaxf(rr[3], 0.f) * info[row * 8 + 6]);
+        const float lt = logf(1.f - alpha + 1e-10f);
+        float incl = lt;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wrow + 8 * h;
+        for (int o = 1; o < 16; o <<= 1) {
+          const float v = __shfl_up_sync(0xffffffffu, incl, o, 16);
+          if ((lane & 15) >= o) incl += v;
+        }
+        if (lane == 15) seg[warp * 8] = incl;
+        __syncthreads();
+        const int w0 = S >= kChunkRows ? 0 : warp & ~(S / 16 - 1);  // ray's first
+        float before = ray_s[r * 8];
+        for (int w = w0; w < warp; ++w) before += seg[w * 8];
+        const float trans = expf(before + (incl - lt));
+        const float wt = alpha * trans;
+        float sums[4] = {wt, wt * rr[0], wt * rr[1], wt * rr[2]};
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          float s = pr[h][c];
-          s += __shfl_xor_sync(0xffffffffu, s, 1);
-          s += __shfl_xor_sync(0xffffffffu, s, 2);
-          if (t == 0) rec[row * 8 + c] = 1.f / (1.f + expf(-(s + __ldg(p.br + c))));
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1) sums[c] += __shfl_xor_sync(0xffffffffu, sums[c], o);
+        if (lane < 16) {
+          out_w[rg0 + row] = wt;
+          rr[4] = alpha;
+          rr[5] = trans;
+          rr[6] = rr[7] = 0.f;
+        }
+        if (lane == 0)
+          for (int c = 0; c < 4; ++c) seg[warp * 8 + 1 + c] = sums[c];
+      }
+      fence_async();   // the record, for its bulk store
+      __syncthreads();
+      if (kStash && tid == 0)
+        bulk_store(st.rec + rg0 * kRecWidth, rec_s, kChunkRows * kRecWidth * 4);
+      // Per ray of the chunk, its segments in order.
+      const int rays_here = S >= kChunkRows ? 1 : G;
+      if (tid < rays_here) {
+        const int r = S >= kChunkRows ? 0 : tid, per = kChunkRows / 16 / rays_here;
+        float* rs = ray_s + r * 8;
+        for (int w = r * per; w < (r + 1) * per; ++w) {
+          rs[0] += seg[w * 8];
+          for (int c = 0; c < 4; ++c) rs[1 + c] += seg[w * 8 + 1 + c];
         }
       }
     }
-    if (kStash) store_rows(st.hv, HV, rg0);
-    // The record's rgb and sigma_raw -> the stash (or the scratch record).
-    fence_async();
-    wg_sync(wg);
-    if (lt == 0) bulk_store(st.rec + rg0 * kRecWidth, rec_w, 64 * kRecWidth * 4);
-  }
-
-  // The last stores have left shared memory (and the other warpgroup's
-  // releases are all in) before the block's memory goes.
-  if (lt < 64) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-}
-
-// Train forward, compositing: one warp a ray, 32 samples a step (the
-// transmittance is exp of the exclusive prefix of log(1 - alpha), a warp
-// scan plus the carry of the steps before); weights (N, S), rgb (N, 3),
-// and alpha and T into the record.
-__global__ void __launch_bounds__(256)
-train_composite_kernel(const float* __restrict__ z, float* __restrict__ rec,
-                       int n_rays, int S, int white_bg, float* __restrict__ out_rgb,
-                       float* __restrict__ out_w) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (n >= n_rays) return;
-  const float* zr = z + (size_t)n * (S + 1);
-  float carry = 0.f, acc = 0.f, rgb[3] = {0.f, 0.f, 0.f};
-  for (int b = 0; b < S / 32; ++b) {
-    const int s = b * 32 + lane;
-    const size_t rg = (size_t)n * S + s;
-    float* r = rec + rg * kRecWidth;
-    const float4 v = *reinterpret_cast<const float4*>(r);   // rgb, sigma_raw
-    const float alpha = 1.f - expf(-fmaxf(v.w, 0.f) * (zr[s + 1] - zr[s]));
-    const float lt = logf(1.f - alpha + 1e-10f);
-    float incl = lt;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += u;
+    __syncthreads();
+    if (tid < G) {
+      const float* rs = ray_s + tid * 8;
+      const float bg = white_bg ? 1.f - rs[1] : 0.f;
+      for (int c = 0; c < 3; ++c) out_rgb[(size_t)(ray0 + tid) * 3 + c] = rs[2 + c] + bg;
     }
-    const float trans = expf(carry + (incl - lt));
-    const float w = alpha * trans;
-    out_w[rg] = w;
-    *reinterpret_cast<float4*>(r + 4) = make_float4(alpha, trans, 0.f, 0.f);
-    acc += warp_sum(w);
-    rgb[0] += warp_sum(w * v.x);
-    rgb[1] += warp_sum(w * v.y);
-    rgb[2] += warp_sum(w * v.z);
-    carry += __shfl_sync(0xffffffffu, incl, 31);
   }
-  if (lane == 0) {
-    const float bg = white_bg ? 1.f - acc : 0.f;
-    for (int c = 0; c < 3; ++c) out_rgb[(size_t)n * 3 + c] = rgb[c] + bg;
-  }
+
+  if (kStash && tid < kChunkRows)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- backward launch 1: heads and trunk backward, one 128-row chunk at a time ----
@@ -1273,28 +1250,26 @@ int persistent_grid(int units, cudaError_t* e) {
   return units < sms ? units : sms;
 }
 
-// The MLP over a persistent grid (at most one block an SM) of 128-row
-// chunks, then the compositing from the record (the stash's, or rec).
+// Persistent grid: at most one block per SM, over the units of 128 rows
+// (or one ray).
 template <int HID, bool kStash>
 cudaError_t launch_fwd(const TrainParams& p, const Stash& st, int n_rays,
                        int layer_num, int F, int Fd, int S, float var_scale,
                        int white_bg, float* rgb, float* w, cudaStream_t stream) {
-  const size_t bytes = FwdSmem<HID>::bytes();
+  const size_t bytes = FwdSmem<HID>::kBytes;
   auto kern = train_fwd_kernel<HID, kStash>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  const int chunks = (int)((long long)n_rays * S / kChunkRows);
-  const int grid = persistent_grid(chunks, &e);
+  const int grid = persistent_grid(S >= kChunkRows ? n_rays : n_rays * S / kChunkRows, &e);
   if (e != cudaSuccess) return e;
-  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, F, Fd, S, chunks,
-                                             var_scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  train_composite_kernel<<<(n_rays + 7) / 8, 256, 0, stream>>>(
-      p.z, st.rec, n_rays, S, white_bg, rgb, w);
+  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, F, Fd, S, n_rays,
+                                             var_scale, white_bg, rgb, w);
   return cudaGetLastError();
 }
 
+// Persistent grid: at most one block per SM (and one vec_part row each);
+// *parts gets the number of blocks, the rows the vector reduction sums.
 // The vector partials: one row per block (at most N / kTileRays); *parts
 // gets the number of blocks, the rows the vector reduction sums.
 template <int HID>
@@ -1325,16 +1300,14 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
 // rows there (null where the layer takes no encoding); WhT_i (null for
 // layer 0), wfT, wvhT: the backward's slot images of the (out x in) rows.
 // stash: null (no gradient to come), or the stash for the backward (as
-// nm_render_train_workspace sizes it); record: with a null stash, an
-// (N * S, 8) f32 scratch for the per-sample record.
+// nm_render_train_workspace sizes it).
 extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
                                        int dirs_freqs, int samples,
                                        float var_scale, int white_bg,
                                        void* out_rgb, void* out_w, void* stash,
-                                       void* record, void* stream) {
-  if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples) ||
-      (stash == nullptr && record == nullptr))
+                                       void* stream) {
+  if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples))
     return (int)cudaErrorInvalidValue;
   TrainParams p;
   unpack(ptrs, layer_num, &p);
@@ -1342,13 +1315,11 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
   cudaStream_t s = (cudaStream_t)stream;
   float *rgb = (float*)out_rgb, *w = (float*)out_w;
   const int n = n_rays, L = layer_num, F = num_freqs, Fd = dirs_freqs, S = samples;
-  if (stash == nullptr) {
-    st.rec = (float*)record;
+  if (stash == nullptr)
     return (int)(hid == 64 ? launch_fwd<64, false>(p, st, n, L, F, Fd, S, var_scale,
                                                    white_bg, rgb, w, s)
                            : launch_fwd<256, false>(p, st, n, L, F, Fd, S, var_scale,
                                                     white_bg, rgb, w, s));
-  }
   carve_stash(Dims(n, hid, L, S), (char*)stash, &st);
   return (int)(hid == 64 ? launch_fwd<64, true>(p, st, n, L, F, Fd, S, var_scale,
                                                 white_bg, rgb, w, s)

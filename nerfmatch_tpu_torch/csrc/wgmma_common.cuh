@@ -48,28 +48,10 @@ __device__ __forceinline__ void fence_async() {
 
 // ---- mbarriers and bulk copies ----
 
-// mbarrier with `count` arrivals a phase (plus the bytes of the bulk
-// copies that complete on it).
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Whether the phase of the given parity has completed (does not wait).
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
+// mbarrier with one arrival a phase plus the bytes of the bulk copies
+// that complete on it.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {

@@ -52,10 +52,9 @@ _SIGNATURES = {
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
     "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
-    # var_scale, white_bg, out_rgb, out_w, stash (or null), record scratch
-    # (used without a stash), stream
+    # var_scale, white_bg, out_rgb, out_w, stash (or null), stream
     "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                _P, _P, _P],
+                                _P, _P],
     # n_rays, hid, layer_num, samples, out stash bytes, out gradient
     # workspace bytes, out matrix block
     "nm_render_train_workspace": [_I, _I, _I, _I, _P, _P, _P],

@@ -309,15 +309,16 @@ def _stash_parts(cfg, n: int, S: int):
             R * REC_WIDTH * 4, n * DIRS_MAX * 2]
 
 
-def _grad_parts(cfg, n: int, S: int, splits: int):
+def _grad_parts(cfg, n: int, S: int, lay: BackwardLayout):
     """Bytes of each gradient-workspace array (csrc: carve_grad, in its
     order; the matrix partials are sized for the widest layer layout)."""
     L, H, R = cfg.layer_num, cfg.hid_dim, n * S
-    HV, P = H // 2, L * H + H + H // 2 + 4 + H + 4
+    HV = H // 2
     mat_total = L * (ENC_MAX * H + H * H) + H * H + H * HV + DIRS_MAX * HV \
         + HV * GRGB_WIDTH
     return [*[R * H * 2] * L, R * H * 2, R * HV * 2, R * GRGB_WIDTH * 2,
-            n * HV * 2, (n // TILE_RAYS) * P * 4, splits * mat_total * 4]
+            n * HV * 2, (n // TILE_RAYS) * lay.vec_len * 4,
+            lay.splits * mat_total * 4]
 
 
 def workspace_bytes(cfg, n: int, S: int) -> tuple:
@@ -325,7 +326,7 @@ def workspace_bytes(cfg, n: int, S: int) -> tuple:
     ``nm_render_train_workspace`` returns them (each array 256-aligned)."""
     lay = backward_layout(cfg, n, S)
     return (sum(map(_align256, _stash_parts(cfg, n, S))),
-            sum(map(_align256, _grad_parts(cfg, n, S, lay.splits))))
+            sum(map(_align256, _grad_parts(cfg, n, S, lay))))
 
 
 def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
@@ -391,22 +392,18 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
     """Kernel forward -> (rgb, weights, stash).  With ``stash`` it is the
     training forward: it also fills and returns the stash (uint8, the
     activations :func:`kernel_backward` reads); else the stash is None and
-    nothing beyond the outputs outlives the call (a per-sample record of 32
-    bytes, which the compositing launch reads, is dropped)."""
+    nothing beyond the outputs is allocated."""
     args = _kernel_args(spec, rays, z, noise, packed)
     n, S = z.shape[0], z.shape[1] - 1
     rgb = torch.empty(n, 3, device=rays.device)
     w = torch.empty(n, S, device=rays.device)
-    st = rec = None
+    st = None
     if stash:
         st = torch.empty(_sizes(spec.mlp.cfg, n, S)[0], dtype=torch.uint8,
                          device=rays.device)
-    else:   # the per-sample record the compositing reads, dropped after
-        rec = torch.empty(n * S, REC_WIDTH, device=rays.device)
     err = library().nm_render_train_forward(
         *args, rgb.data_ptr(), w.data_ptr(),
-        None if st is None else st.data_ptr(),
-        None if rec is None else rec.data_ptr(), stream_ptr(rays.device))
+        None if st is None else st.data_ptr(), stream_ptr(rays.device))
     check(err, "render_train_fwd")
     LAUNCHES["render_train_fwd"] += 1
     return rgb, w, st

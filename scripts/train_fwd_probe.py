@@ -12,24 +12,20 @@ each an edited copy of the sources (``PATCHES``, built as
 * ``shipped``: as the package builds it;
 * ``no_mma``: the forward issues no ``wgmma`` (the ring, the encoding,
   the epilogues, the heads, the compositing and the stash stores stay);
-* ``no_ring``: the forward loads no weight slices after its first
-  ``kFwdRing`` and waits for none (the products run on whatever the slots
-  hold);
+* ``no_ring``: the forward loads no weight slices after its prologue and
+  waits for none (the products run on whatever the slots hold);
 * ``bare``: neither products nor weight slices (what remains: the
   encoding, the epilogues, the heads, the barriers, the compositing and the
   stash stores);
-* ``pump_slices``: thread 0 refills the ring only before each slice of its
-  own and while it waits for one (not through the epilogues);
-* ``pump_waiting``: only while it waits for a slice of its own;
 * ``no_ipe``: the encoding skips its ``sinf`` / ``expf`` (it stores the
   scaled means and variances instead).
 
 Then, on phase 3b's stage of ``chip_smoke.py`` (the room's fine MLP, 9216
 rays x 128 samples), it runs each build's ``nm_render_train_forward`` three
 times with a stash (the training forward) and three times without (the
-no-gradient forward) under ``torch.profiler`` and prints the device ms a
-call (``train_fwd_kernel`` and ``train_composite_kernel``, and the latter
-alone), one JSON line per variant after the card's name and power limit.  The shipped build's outputs must equal the
+no-gradient forward) under ``torch.profiler`` and prints the device ms of
+``train_fwd_kernel`` a call, one JSON line per variant after the card's
+name and power limit.  The shipped build's outputs must equal the
 package's bit for bit; the probe builds compute something else and are
 only timed.  Compare within one run only.
 
@@ -56,40 +52,23 @@ _SS = """        wgmma_ss<N, 0>(acc, desc128(enc_w + (ks >> 2) * L::kEncBlock + 
 _RS = """        wgmma_rs<N, 1>(acc, a[s * KK + kk], desc128(slot + kk * 2048, kSliceK * 128),
                        NE + s + kk > 0);
 """
-_RING = """      for (uint32_t spins = 0; !mbar_test(full, par); ++spins) {
-        if (tid == 0) pump();
-        if (spins == (1u << 27)) __trap();
-      }
+_RING = """      if (tid == 0 && q + kFwdRing - 2 < q_total) load_slice(q + kFwdRing - 2);
+      mbar_wait(full0 + 8 * (q % kFwdRing), (q / kFwdRing) & 1);
 """
-_PUMP = "    while (issued < q_total &&\n"
-_NO_RING = [(_RING, "      (void)full;\n      (void)par;\n"),
-            (_PUMP, _PUMP.replace("issued < q_total", "issued < kFwdRing"))]
-_FEEDS = [  # thread 0's pumping outside the wait for its own slice
-    ("          reg_fence();\n          feed();\n        }\n      }\n"
-     "      if (kStash) store_rows(st.hs[i]", None),
-    ("        reg_fence();\n        feed();\n      }\n    }\n"
-     "    if (kStash) store_rows(st.feat", None),
-    ("          reg_fence();\n          feed();\n        }\n      }\n#pragma unroll",
-     None),
-    ("    feed();\n    for (int i = lt; i < 64 * 3 * F; i += 128) {", None)]
-_FEEDS = [(old, old.replace("feed();\n", "", 1)) for old, _ in _FEEDS]
-_BEGIN_FEED = ("      // after ~2^27 polls instead of hanging the card.\n      feed();\n")
-_IPE = """      const float damp = expf(-0.5f * y);
-      const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
-                                  __float2bfloat16(damp * sinf(x + kHalfPi))};
+_IPE = """        const float damp = expf(-0.5f * y);
+        const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
+                                    __float2bfloat16(damp * sinf(x + kHalfPi))};
 """
 # (old, new) edits of render_train.cu, or (file, old, new), per variant.
 PATCHES = {
     "shipped": [],
     "no_mma": [(_SS, "        (void)slot;\n"), (_RS, "        (void)slot;\n")],
-    "no_ring": _NO_RING,
+    "no_ring": [(_RING, "")],
     "bare": [(_SS, "        (void)slot;\n"), (_RS, "        (void)slot;\n"),
-             *_NO_RING],
-    "pump_slices": _FEEDS,
-    "pump_waiting": [*_FEEDS, (_BEGIN_FEED, _BEGIN_FEED.replace("      feed();\n", ""))],
+             (_RING, "")],
     "no_ipe": [(_IPE, _IPE.replace("damp * sinf(x)", "x").replace(
         "damp * sinf(x + kHalfPi)", "y"))]}
-LAUNCHES = {"train_fwd_kernel": "fwd", "train_composite_kernel": "composite"}
+LAUNCHES = {"train_fwd_kernel": "fwd"}
 
 
 def save_grads(out, root):
@@ -145,13 +124,11 @@ def main():
     args = rtk._kernel_args(spec, rays, z, noise, packed)
     ref = (rgb, w, stash.clone())
     outs = (torch.empty_like(rgb), torch.empty_like(w))
-    rec = torch.empty(w.numel(), rtk.REC_WIDTH, device=dev)
 
     def run(lib, st, name):
         err = lib.nm_render_train_forward(
             *args, outs[0].data_ptr(), outs[1].data_ptr(),
-            None if st is None else st.data_ptr(), rec.data_ptr(),
-            kernels.stream_ptr(dev))
+            None if st is None else st.data_ptr(), kernels.stream_ptr(dev))
         kernels.check(err, f"render_train_fwd ({name})")
 
     print(smi, flush=True)
@@ -164,8 +141,7 @@ def main():
         row = {"variant": name}
         for mode, st in (("stash", stash), ("no_stash", None)):
             ms = profile_ms(lambda: run(lib, st, name), LAUNCHES)
-            row[mode] = round(ms["total"], 4)
-            row[mode + "_composite"] = round(ms["composite"], 4)
+            row[mode] = round(ms["fwd"], 4)
         print(json.dumps(row), flush=True)
 
 

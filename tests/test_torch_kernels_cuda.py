@@ -277,8 +277,7 @@ def test_train_kernel_raises_on_unported_configs(dev):
     args = list(_kernel_args(spec, rays, z, noise, pack_train(spec.mlp)))
     args[6] = 192                                   # samples
     lib = kernels.library()
-    assert lib.nm_render_train_forward(*args, None, None, None, None,
-                                       None) != 0
+    assert lib.nm_render_train_forward(*args, None, None, None, None) != 0
     assert lib.nm_render_train_backward(*args, None, None, None, None, None,
                                         None, None) != 0
 
