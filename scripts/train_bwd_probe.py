@@ -46,10 +46,14 @@ import chip_smoke  # noqa: E402
 from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk  # noqa: E402
 
+# The trunk backward's row lambdas, each with the line after it (the
+# forward has a store_rows of its own).
 _ROW_LAMBDAS = (
-    "  auto load_rows = [&](const __nv_bfloat16* src, int width, size_t rg0) {\n",
-    "  auto rows_landed = [&]() {\n",
-    "  auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {\n")
+    ("  auto load_rows = [&](const __nv_bfloat16* src, int width, size_t rg0) {\n",
+     "    if (tid < kChunkRows) {\n"),
+    ("  auto rows_landed = [&]() {\n", "    mbar_wait(bar, hs_phase);\n"),
+    ("  auto store_rows = [&](__nv_bfloat16* dst, int width, size_t rg0) {\n",
+     "    if (tid < kChunkRows)\n      bulk_store(dst + (rg0 + tid) * width, hs_s"))
 _SUMS_TAIL = """        }
         fence_async();
         __syncthreads();
@@ -69,7 +73,8 @@ PATCHES = {
     "no_ring": [("""      if (tid == 0 && q + kRingStages - 2 < q_total) load_slice(q + kRingStages - 2);
       mbar_wait(full0 + 8 * (q % kRingStages), (q / kRingStages) & 1);
 """, "")],
-    "no_rows": [(lam, lam + "    return;\n") for lam in _ROW_LAMBDAS],
+    "no_rows": [(lam + nxt, lam + "    return;\n" + nxt)
+                for lam, nxt in _ROW_LAMBDAS],
     "no_epi": [("          col_sums(cs, lane, cpw + 8 * j0);\n" + _SUMS_TAIL,
                 _SUMS_TAIL)],
     "splits24": [("constexpr int kMaxSplits = 48;",
