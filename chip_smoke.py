@@ -1525,9 +1525,6 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
         dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
-        # The forward kernel runs once a stage a step (coarse, fine): the
-        # backward reads its stash and recomputes nothing.
-        fwd_runs = sum(e.count for e in ka if "train_fwd_kernel" in e.key)
         top = sorted(ka, key=lambda e: -e.self_device_time_total)[:16]
         log(f"matcher training: {step_ms:.1f} ms/step, "
             f"{cfg.exp.batch_size / step_ms * 1e3:.2f} pairs/s over "

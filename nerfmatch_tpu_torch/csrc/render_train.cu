@@ -76,9 +76,8 @@
 // without the products, the weight ring, the row copies or the column sums
 // (and with fewer GEMM row ranges) and times them.
 // -Xptxas -v (sm_90a, CUDA 12.8): train_fwd_kernel<256, stash> 255
-// registers, 4 bytes of spill stores / 12 of loads; <256, no stash> 255
-// registers, 868 / 876 bytes of spill; <64, *> 125-128 registers, no
-// spills; 225,912 bytes of dynamic shared memory at HID 256 (ring 112 KB,
+// registers, 36 bytes of spill stores / 44 of loads; <256, no stash> 254
+// registers, no spills; <64, *> 124-125 registers, no spills; 225,912 bytes of dynamic shared memory at HID 256 (ring 112 KB,
 // encoding tiles 32 KB, row buffer 66 KB, record 4 KB, f32 6 KB), 98,168
 // at 64.  train_bwd_kernel<256> 255 registers,
 // 24 bytes of spill stores / 40 of loads, 223,880 bytes of dynamic shared
@@ -277,6 +276,13 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
   const int wrow = (warp & 3) * 16 + (lane >> 2);   // first of its two rows
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
   const uint32_t enc_w = enc_s + wg * 2 * L::kEncBlock;   // this warpgroup's
+  // The epilogues' weights at this thread's columns 8 j + 2 t (rows of wr):
+  // constant offsets from one base each, not an address a column for the
+  // compiler to hoist out of the chunk loop (and spill).
+  const float* wa_t = p.wa + 2 * t;
+  const float* bf_t = p.bf + 2 * t;
+  const float* bv_t = p.bv + 2 * t;
+  const float* wr_t = p.wr + 6 * t;
 
   const int G = S >= kChunkRows ? 1 : kChunkRows / S;
   const int unit_chunks = G * S / kChunkRows;
@@ -477,10 +483,11 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         else
           product(Int<0>{}, Int<KS>{}, Int<HID>{});
         const bool last = i == layer_num - 1;
+        const float* b_t = p.b[i] + 2 * t;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int col = 8 * j + 2 * t;
-          const float b0 = __ldg(p.b[i] + col), b1 = __ldg(p.b[i] + col + 1);
+          const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
@@ -489,7 +496,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
             a[j >> 1][2 * (j & 1) + h] = pk;
             if (kStash) put_pair(wrow + 8 * h, col, pk);
             if (last)
-              sp[h] = fmaf(v0, __ldg(p.wa + col), fmaf(v1, __ldg(p.wa + col + 1), sp[h]));
+              sp[h] = fmaf(v0, __ldg(wa_t + 8 * j), fmaf(v1, __ldg(wa_t + 8 * j + 1), sp[h]));
           }
         }
         if (kStash) store_rows(st.hs[i], HID, rg0);
@@ -509,7 +516,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int col = 8 * j + 2 * t;
-        const float b0 = __ldg(p.bf + col), b1 = __ldg(p.bf + col + 1);
+        const float b0 = __ldg(bf_t + 8 * j), b1 = __ldg(bf_t + 8 * j + 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const uint32_t pk = pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
@@ -529,12 +536,12 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         for (int j = 0; j < NJV; ++j) {
           const int col = 8 * j + 2 * t;
           const float c0 = x[col] , c1 = x[col + 1];
-          const float b0 = __ldg(p.bv + col), b1 = __ldg(p.bv + col + 1);
+          const float b0 = __ldg(bv_t + 8 * j), b1 = __ldg(bv_t + 8 * j + 1);
           float wr[2][3];
 #pragma unroll
           for (int e = 0; e < 2; ++e)
 #pragma unroll
-            for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(p.wr + (col + e) * 3 + c);
+            for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(wr_t + 24 * j + 3 * e + c);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float v0 = fmaxf(acc[4 * j + 2 * h] + c0 + b0, 0.f);
@@ -1268,10 +1275,9 @@ cudaError_t launch_fwd(const TrainParams& p, const Stash& st, int n_rays,
   return cudaGetLastError();
 }
 
-// Persistent grid: at most one block per SM (and one vec_part row each);
-// *parts gets the number of blocks, the rows the vector reduction sums.
-// The vector partials: one row per block (at most N / kTileRays); *parts
-// gets the number of blocks, the rows the vector reduction sums.
+// Persistent grid: at most one block per SM and one vec_part row each (at
+// most N / kTileRays); *parts gets the number of blocks, the rows the
+// vector reduction sums.
 template <int HID>
 cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
                        int layer_num, int S, int white_bg, const float* g_rgb,

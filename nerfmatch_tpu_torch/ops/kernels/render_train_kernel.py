@@ -496,6 +496,10 @@ class _RenderTrainFn(torch.autograd.Function):
     def backward(ctx, g_rgb, g_w):
         rays, z, noise = ctx.saved_tensors
         spec = ctx.spec
+        if not any(ctx.needs_input_grad[6:]):
+            # Only rays, z or noise asked for a gradient, and the stage gives
+            # none to them: the forward kept no stash for this.
+            return (None,) * len(ctx.needs_input_grad)
         g_rgb = torch.zeros(rays.shape[0], 3, device=rays.device) \
             if g_rgb is None else g_rgb
         g_w = torch.zeros_like(noise) if g_w is None else g_w
@@ -512,7 +516,7 @@ class _RenderTrainFn(torch.autograd.Function):
         else:
             g = train_stage_backward(spec, rays, z, noise, g_rgb, g_w)
         names = [k for k, _ in spec.mlp.named_parameters()]
-        return (None, None, None, None, None, None, *[g[k] for k in names])
+        return (None,) * 6 + tuple(g[k] for k in names)
 
 
 def _apply(spec, use_kernel, rays, z, noise):

@@ -2,7 +2,7 @@
 GPU.
 
     python3 scripts/train_fwd_probe.py
-    python3 scripts/train_fwd_probe.py --grads OUT.pt [--root DIR]
+    python3 scripts/train_fwd_probe.py --grads OUT.pt
 
 Builds ``nerfmatch_tpu_torch/csrc/render_train.cu`` once per variant below,
 each an edited copy of the sources (``PATCHES``, built as
@@ -31,15 +31,14 @@ only timed.  Compare within one run only.
 
 With ``--grads OUT`` it instead saves, to ``OUT``, the rgb, weights and
 every parameter gradient of that stage through ``render_train`` and
-autograd (the training path) with the package and ``chip_smoke.py`` found
-in ``--root`` (default: this checkout), so that two checkouts can be
-compared bit for bit.
+autograd (the training path) with this checkout's package.  Run it in
+each of two checkouts and compare the two files (``torch.equal`` on
+every tensor) to hold them bit for bit.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import sys
 from pathlib import Path
@@ -71,12 +70,11 @@ PATCHES = {
 LAUNCHES = {"train_fwd_kernel": "fwd"}
 
 
-def save_grads(out, root):
+def save_grads(out):
     """The training path's outputs and gradients on phase 3b's stage."""
-    sys.path.insert(0, str(root))
     import torch
 
-    smoke = importlib.import_module("chip_smoke")
+    import chip_smoke as smoke
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
         render_train)
 
@@ -91,19 +89,17 @@ def save_grads(out, root):
     res = {"rgb": rgb.detach().cpu(), "weights": w.detach().cpu()}
     res.update({k: p.grad.cpu() for k, p in spec.mlp.named_parameters()})
     torch.save(res, out)
-    print(f"saved {len(res)} tensors from {root} to {out}", flush=True)
+    print(f"saved {len(res)} tensors to {out}", flush=True)
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--grads", help="save the training path's gradients here")
-    p.add_argument("--root", default=str(ROOT),
-                   help="checkout whose package --grads runs")
     args = p.parse_args()
-    if args.grads:
-        save_grads(args.grads, Path(args.root).resolve())
-        return
     sys.path.insert(0, str(ROOT))
+    if args.grads:
+        save_grads(args.grads)
+        return
     sys.path.insert(0, str(ROOT / "scripts"))
     import torch
 

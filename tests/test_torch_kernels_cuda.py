@@ -339,6 +339,23 @@ def test_train_second_backward_raises(dev):
         loss.backward()
 
 
+@pytest.mark.cuda
+def test_train_backward_without_parameter_gradients_returns_none(dev):
+    """When only the rays ask for a gradient, the forward keeps no stash and
+    the backward runs no kernel and gives the rays none, as the plain
+    version does."""
+    spec, rays, z, noise, target = train_stage(64, dev, S=64)
+    spec.mlp.requires_grad_(False)
+    for fn in (render_train, render_train_plain):
+        r = rays.clone().requires_grad_(True)
+        reset_launch_counts()
+        rgb, w = fn(spec, r, z, noise)
+        loss = ((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()
+        loss.backward()
+        assert r.grad is None and LAUNCHES["render_train_bwd"] == 0
+        assert all(p.grad is None for p in spec.mlp.parameters())
+
+
 # (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past
 # a tile boundary.
 ATTN_SHAPES = [(2, 333, 517, 8), (1, 300, 20, 2), (2, 100, 129, 2)]
