@@ -25,7 +25,9 @@ Phases (each prints its results; any failure exits non-zero):
    the GEMM, ``torch.mm`` on operands of the stash's shapes;
 3c. the same for matcher training: the fused StarReLU + 7x7 depthwise conv
    (forward, dgrad, wgrad) at the c2f trunk's stage-0 and stage-1 shapes
-   (2, 240, 240, 256) and (2, 60, 60, 512), and the attention backward at
+   (2, 240, 240, 256) and (2, 60, 60, 512), the forward and dgrad also at
+   batch 1 (serving), each beside cuDNN's depthwise conv alone
+   (``conv_alone_ms``, no StarReLU), and the attention backward at
    B=2, H=8, D=32, L=S=3600 in f32 and bf16-operand modes, timed as the
    training path calls it (the forward's output and ``lse`` handed in) and
    on its own (it casts and runs the forward kernel first); each backward
@@ -980,9 +982,15 @@ def phase_matcher_kernels(dev):
     g = torch.Generator(dev).manual_seed(2)
     # f32 on both sides (TF32 is off): the kernels sum the 49 taps, and the
     # per-block partials of ds, db and dw, in other orders than cuDNN and
-    # torch.sum do.
+    # torch.sum do.  Batch 2 (training) at both stages, then batch 1
+    # (serving) for the forward and dgrad.
     for stage, shape in (("stage 0", (2, 240, 240, 256)),
-                         ("stage 1", (2, 60, 60, 512))):
+                         ("stage 1", (2, 60, 60, 512)),
+                         ("stage 0", (1, 240, 240, 256)),
+                         ("stage 1", (1, 60, 60, 512))):
+        if shape[0] == 1:
+            dw_star_serving_shape(dev, g, stage, shape)
+            continue
         C = shape[-1]
         x = torch.randn(shape, device=dev, generator=g)
         w = torch.randn(7, 7, C, device=dev, generator=g) * 0.1
@@ -1023,7 +1031,8 @@ def phase_matcher_kernels(dev):
             + " (tol 1e-4 of the largest value for y, dx, dw; 1e-5 of the "
             "sum of |terms| for ds, db); rerun bit-identical "
             f"{same}; ms / plain_ms " + json.dumps(
-                {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()}))
+                {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()})
+            + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}")
         assert max(errs["y"], errs["dx"], errs["dw"]) < 1e-4
         assert max(errs["ds"], errs["db"]) < 1e-5 and same
         assert all(torch.isfinite(t).all() for t in (y, dx, dw, ds, db))
@@ -1096,6 +1105,61 @@ def phase_matcher_kernels(dev):
                 f"autograd backward of scaled_dot_product_attention (bf16 "
                 f"operands) {lib_ms:.3f} ms")
     return rows
+
+
+def conv_alone_ms(x, w):
+    """Time of cuDNN's depthwise 7x7 convolution alone (``F.conv2d``,
+    groups=C, TF32 off) on the channels-last view of x: a yardstick beside
+    kernels 7 and 8, not the same function (no StarReLU)."""
+    from torch.nn import functional as F
+
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+    return cuda_ms(lambda: F.conv2d(xc, wc, padding=3, groups=x.shape[-1]))
+
+
+def dw_star_serving_shape(dev, g, stage, shape):
+    """Kernels 7 and 8 at batch 1 (the serving trunk's shapes) against their
+    plain versions, timed beside their bounds and ``conv_alone_ms``."""
+    from torch.nn import functional as F
+
+    from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
+        dw_star_dgrad, dw_star_dgrad_plain, dw_star_fwd, dw_star_plain)
+
+    C = shape[-1]
+    x = torch.randn(shape, device=dev, generator=g)
+    w = torch.randn(7, 7, C, device=dev, generator=g) * 0.1
+    cb = torch.randn(C, device=dev, generator=g)
+    s = torch.tensor(0.8944, device=dev)
+    b = torch.tensor(-0.4472, device=dev)
+    up = torch.randn(shape, device=dev, generator=g)
+    y, y_p = dw_star_fwd(x, w, cb, s, b), dw_star_plain(x, w, cb, s, b)
+    dx, ds, db = dw_star_dgrad(x, w, s, up)
+    dx_p, ds_p, db_p = dw_star_dgrad_plain(x, w, s, up)
+    wf = torch.flip(w, (0, 1)).permute(2, 0, 1).unsqueeze(1)
+    dact = F.conv2d(up.permute(0, 3, 1, 2), wf, padding=3,
+                    groups=C).permute(0, 2, 3, 1)
+    r2 = torch.relu(x) ** 2
+    errs = {"y": scaled_err(y, y_p), "dx": scaled_err(dx, dx_p),
+            "ds": abs(float(ds - ds_p)) / float((dact * r2).abs().sum()),
+            "db": abs(float(db - db_p)) / float(dact.abs().sum())}
+    times = {
+        "dw_star_fwd": (cuda_ms(lambda: dw_star_fwd(x, w, cb, s, b)),
+                        cuda_ms(lambda: dw_star_plain(x, w, cb, s, b))),
+        "dw_star_dgrad": (cuda_ms(lambda: dw_star_dgrad(x, w, s, up)),
+                          cuda_ms(lambda: dw_star_dgrad_plain(x, w, s, up)))}
+    taps = {"f32": 2 * 49 * x.numel()}
+    bounds = {"dw_star_fwd": bound(taps, nbytes(x, w, cb, y))["bound_ms"],
+              "dw_star_dgrad": bound(taps, nbytes(x, w, up, dx))["bound_ms"]}
+    log(f"kernel dw_star {stage} {tuple(shape)}: scaled err "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+        + " (tols as at batch 2); ms / plain_ms " + json.dumps(
+            {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()})
+        + "; bound_ms " + json.dumps({k: round(v, 4) for k, v in bounds.items()})
+        + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}")
+    assert max(errs["y"], errs["dx"]) < 1e-4
+    assert max(errs["ds"], errs["db"]) < 1e-5
+    assert all(torch.isfinite(t).all() for t in (y, dx, ds, db))
 
 
 def sdpa_backward(q, k, v, up):

@@ -9,32 +9,83 @@
 //
 // What bounds it on the H100: 49 FMA per output against one f32 read and one
 // write, so the forward and dgrad are memory-bound (stage 0 of the c2f
-// trunk: 2 x 240 x 240 x 256, 118 MB in and out; ~70 us at 3.35 TB/s).
-// The fusion saves writing and re-reading the activation (another 118 MB
-// each way per block), which cuDNN's depthwise convolution cannot fuse.
+// trunk: 2 x 240 x 240 x 256, 118 MB in and out; ~70 us at 3.35 TB/s), with
+// the f32 FMAs (43 us at 67 TFLOP/s) close behind: loads and arithmetic have
+// to overlap.  The fusion saves writing and re-reading the activation
+// (another 118 MB each way per block), which cuDNN's depthwise convolution
+// cannot fuse.
 //
-// Design (simple first; wgmma / TMA staging are later work):
-// * threads run along C (128 channels per block, one per thread), so every
-//   load of a warp is 128 contiguous bytes;
-// * each thread owns an 8 x 4 output tile of its channel: it walks the
-//   (8 + K - 1) input rows of the tile's halo, activates each row of
-//   (4 + K - 1) values in registers (0 outside the image) and feeds every
-//   output row that tap row reaches; the 49-tap sums stay in registers;
-// * dgrad runs the same tile over g with the taps flipped, then forms
-//   dx = 2 s relu(x) dact and the StarReLU scalar gradients; ds and db are
-//   reduced per block in a fixed order into a partials buffer (no atomics:
-//   two runs are bit-identical), summed by the caller;
-// * wgrad: each thread accumulates the K * K tap products of its channel
-//   over a 32-row x 4-column region and writes them to a (regions, K*K, C)
-//   partials buffer, reduced over regions by the caller in a fixed order.
+// Forward and dgrad share one tile engine (dw_star_tile_kernel):
+// * a persistent grid, one block of 512 threads per SM, walks the tiles of
+//   16 x 16 output pixels x 32 channels statically (tile blockIdx.x + i *
+//   gridDim.x; channel group outermost, then image, tile row, tile column),
+//   so its partial sums come out in a fixed order;
+// * each tile's (16 + 6) x (16 + 6) x 32 input halo is staged in shared
+//   memory by one TMA load (a 4-D tensor map over the NHWC array, encoded on
+//   the host; the copy engine's zero fill is the padding at image edges),
+//   behind an mbarrier, in a ring of two stages: tile i + 2 loads while tile
+//   i + 1 computes.  The tile's 49 x 32 taps come with it when its channel
+//   group differs from the block's last tile's;
+// * forward: one pass over the landed halo applies StarReLU to in-image
+//   positions and writes 0 elsewhere (StarReLU(0) = b, so the zero fill is
+//   not the activated map's padding); dgrad correlates g, whose zero fill
+//   is its padding, with the flipped taps, and stages x at the tile's
+//   outputs (no halo) with the same barrier;
+// * a warp computes a 4 x 4 output patch of the tile's 32 channels, a lane
+//   per channel (shared-memory reads free of bank conflicts), its 49 taps in
+//   registers, sliding a row of 10 inputs down the 10 halo rows: 7.8 FMA per
+//   shared load;
+// * epilogues from registers, 128 bytes a warp: y = acc + cbias; dgrad
+//   dx = 2 s relu(x) dact and per-thread ds, db over every tile the block
+//   walks, reduced once per block in a fixed order into a partials buffer
+//   (no atomics: two runs are bit-identical), summed by the caller.
+//
+// wgrad (kernel 9, the earlier design): each thread accumulates the K * K
+// tap products of its channel over a 32-row x 4-column region and writes
+// them to a (regions, K*K, C) partials buffer, reduced over regions by the
+// caller in a fixed order.
 
+#include <cuda.h>   // CUtensorMap and the driver's enums (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
 
 constexpr int kTaps = 7;          // every ConvFormer token mixer is 7 x 7
-constexpr int kCh = 128;          // channels per block (one per thread)
+constexpr int kPad = kTaps / 2;
+constexpr int kCh = 128;          // channel multiple the kernels take; wgrad's
+                                  // channels per block (one per thread)
+
+// Forward and dgrad tile engine.
+constexpr int kTileH = 16;        // output rows of a tile
+constexpr int kTileW = 16;        // output columns of a tile
+constexpr int kTileC = 32;        // channels of a tile, one per lane
+constexpr int kHaloH = kTileH + kTaps - 1;
+constexpr int kHaloW = kTileW + kTaps - 1;
+constexpr int kPatch = 4;         // a warp's patch: 4 x 4 outputs
+constexpr int kPatchCols = kTileW / kPatch;
+constexpr int kWarps = (kTileH / kPatch) * kPatchCols;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kFwdStages = 2;
+constexpr int kDgradStages = 2;
+constexpr bool kTmaStore = true;  // outputs out by TMA stores from shared memory
+constexpr uint32_t kHaloBytes = kHaloH * kHaloW * kTileC * 4;
+constexpr uint32_t kInBytes = kTileH * kTileW * kTileC * 4;
+constexpr uint32_t kTapBytes = kTaps * kTaps * kTileC * 4;
+
+// One stage of the ring: the halo, (dgrad) x at the outputs, the taps.
+// Every region is a multiple of 128 bytes, as TMA destinations need.
+template <bool kDgrad>
+struct Stage {
+  static constexpr uint32_t kX = kHaloBytes;
+  static constexpr uint32_t kW = kX + (kDgrad ? kInBytes : 0);
+  static constexpr uint32_t kBytes = kW + kTapBytes;
+};
+
+// wgrad (kernel 9).
 constexpr int kTH = 8;            // output rows of a thread's tile
 constexpr int kTW = 4;            // output columns of a thread's tile
 constexpr int kWgradTiles = 4;    // row tiles of a wgrad region (32 rows)
@@ -44,124 +95,283 @@ __device__ __forceinline__ float star_relu(float v, float s, float b) {
   return s * r * r + b;
 }
 
-// acc[oy][ox] = sum_{dy, dx} taps[dy * K + dx] * src(y0 + oy + dy - P,
-// x0 + ox + dx - P) for one channel; src is StarReLU(x) when ACT, else the
-// raw array, and 0 outside the image.  ``p`` points at channel c of image b.
-template <int K, bool ACT>
-__device__ __forceinline__ void tile_taps(const float* __restrict__ p,
-                                          const float (&taps)[K * K], int y0,
-                                          int x0, int H, int W, int C,
-                                          float s, float b,
-                                          float (&acc)[kTH][kTW]) {
-  constexpr int P = K / 2;
-#pragma unroll
-  for (int oy = 0; oy < kTH; ++oy)
-#pragma unroll
-    for (int ox = 0; ox < kTW; ++ox) acc[oy][ox] = 0.f;
-#pragma unroll
-  for (int iy = 0; iy < kTH + K - 1; ++iy) {
-    const int yy = y0 + iy - P;
-    const bool row_ok = yy >= 0 && yy < H;
-    float row[kTW + K - 1];
-#pragma unroll
-    for (int ix = 0; ix < kTW + K - 1; ++ix) {
-      const int xx = x0 + ix - P;
-      float v = 0.f;
-      if (row_ok && xx >= 0 && xx < W) {
-        v = p[((size_t)yy * W + xx) * C];
-        if (ACT) v = star_relu(v, s, b);
-      }
-      row[ix] = v;
+// TMA tile loads (coordinates innermost first; out-of-range elements are
+// written as 0) completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(bar)
+      : "memory");
+}
+
+// A (kTileC, kTileW, kTileH, 1) tile shared -> global by TMA (elements
+// outside the array are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// This thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The tiles in the order the blocks walk them: image, tile row, tile
+// column, channel group innermost, so the blocks at work at one time read
+// whole pixels (every channel group of neighbouring tiles).
+struct Tile {
+  int grp, b, y0, x0;
+};
+
+struct Tiles {
+  int groups, tiles_w, tiles_hw, count;
+  __host__ __device__ Tiles(int B, int H, int W, int C) {
+    groups = C / kTileC;
+    tiles_w = (W + kTileW - 1) / kTileW;
+    tiles_hw = tiles_w * ((H + kTileH - 1) / kTileH);
+    count = groups * B * tiles_hw;
+  }
+  __device__ Tile at(int t) const {
+    const int grp = t % groups, r = t / groups;
+    const int yx = r % tiles_hw;
+    return {grp, r / tiles_hw, (yx / tiles_w) * kTileH, (yx % tiles_w) * kTileW};
+  }
+};
+
+// StarReLU over the landed halo of the tile at (y0, x0), in place; 0 at
+// positions outside the image (none in an interior tile: no test there).
+__device__ __forceinline__ void activate(float* halo, int y0, int x0, int H,
+                                         int W, float s, float b) {
+  float4* h4 = reinterpret_cast<float4*>(halo);
+  constexpr int n4 = kHaloH * kHaloW * kTileC / 4;
+  const bool interior = y0 >= kPad && x0 >= kPad && y0 + kTileH + kPad <= H &&
+                        x0 + kTileW + kPad <= W;
+  for (int e = threadIdx.x; e < n4; e += kThreads) {
+    bool in = true;
+    if (!interior) {
+      const int p = e / (kTileC / 4);
+      const int hy = p / kHaloW, hx = p - hy * kHaloW;
+      in = (unsigned)(y0 - kPad + hy) < (unsigned)H &&
+           (unsigned)(x0 - kPad + hx) < (unsigned)W;
     }
+    float4 v = h4[e];
+    v.x = in ? star_relu(v.x, s, b) : 0.f;
+    v.y = in ? star_relu(v.y, s, b) : 0.f;
+    v.z = in ? star_relu(v.z, s, b) : 0.f;
+    v.w = in ? star_relu(v.w, s, b) : 0.f;
+    h4[e] = v;
+  }
+}
+
+// acc[oy][ox] = sum_{dy, dx} taps[dy * K + dx] * src[((oy + dy) * kHaloW +
+// ox + dx) * kTileC]: ``src`` points at the patch's corner of the halo, at
+// this lane's channel.
+__device__ __forceinline__ void patch_taps(const float* src,
+                                           const float (&taps)[kTaps * kTaps],
+                                           float (&acc)[kPatch][kPatch]) {
 #pragma unroll
-    for (int oy = 0; oy < kTH; ++oy) {
+  for (int oy = 0; oy < kPatch; ++oy)
+#pragma unroll
+    for (int ox = 0; ox < kPatch; ++ox) acc[oy][ox] = 0.f;
+#pragma unroll
+  for (int iy = 0; iy < kPatch + kTaps - 1; ++iy) {
+    float row[kPatch + kTaps - 1];
+#pragma unroll
+    for (int ix = 0; ix < kPatch + kTaps - 1; ++ix)
+      row[ix] = src[(iy * kHaloW + ix) * kTileC];
+#pragma unroll
+    for (int oy = 0; oy < kPatch; ++oy) {
       const int dy = iy - oy;
-      if (dy < 0 || dy >= K) continue;
+      if (dy < 0 || dy >= kTaps) continue;
 #pragma unroll
-      for (int ox = 0; ox < kTW; ++ox)
+      for (int ox = 0; ox < kPatch; ++ox)
 #pragma unroll
-        for (int dx = 0; dx < K; ++dx)
-          acc[oy][ox] = fmaf(taps[dy * K + dx], row[ox + dx], acc[oy][ox]);
+        for (int dx = 0; dx < kTaps; ++dx)
+          acc[oy][ox] = fmaf(taps[dy * kTaps + dx], row[ox + dx], acc[oy][ox]);
     }
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kCh)
-dw_star_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ cbias,
-                   const float* __restrict__ sb, float* __restrict__ y,
-                   int H, int W, int C, int tiles_w) {
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int y0 = (blockIdx.y / tiles_w) * kTH;
-  const int x0 = (blockIdx.y % tiles_w) * kTW;
-  const size_t img = (size_t)blockIdx.z * H * W * C;
-  float taps[K * K];
-#pragma unroll
-  for (int i = 0; i < K * K; ++i) taps[i] = w[(size_t)i * C + c];
-  float acc[kTH][kTW];
-  tile_taps<K, true>(x + img + c, taps, y0, x0, H, W, C, sb[0], sb[1], acc);
-  const float cb = cbias[c];
-#pragma unroll
-  for (int oy = 0; oy < kTH; ++oy)
-#pragma unroll
-    for (int ox = 0; ox < kTW; ++ox)
-      if (y0 + oy < H && x0 + ox < W)
-        y[img + ((size_t)(y0 + oy) * W + x0 + ox) * C + c] = acc[oy][ox] + cb;
-}
+// Shared memory of the tile kernel: the ring, (forward) the output tile
+// for its TMA store, the mbarriers, the block's [ds, db] per warp.
+template <bool kDgrad, int kStages>
+struct Smem {
+  static constexpr uint32_t kOut = kStages * Stage<kDgrad>::kBytes;
+  static constexpr uint32_t kBars = kOut + (kDgrad || !kTmaStore ? 0 : kInBytes);
+  static constexpr uint32_t kRed = kBars + 8 * kStages;
+  static constexpr uint32_t kBytes = kRed + 2 * kWarps * 4;
+};
 
-// Fixed-order sum over the block's 128 threads (warp xor tree, then warps
-// in order); the result is valid in thread 0.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kCh / 32; ++i) total += red[i];
-  return total;
-}
+// Forward (kDgrad false): in_map is x, out_map y.  dgrad: in_map is g,
+// x_map x (a tile's outputs, no halo), out_map dx, and part gets the block's
+// [ds, db].  w_map: the taps as a (K * K, C) array.  s, b: StarReLU's
+// scalars on the device (dgrad reads s only).
+template <bool kDgrad, int kStages>
+__global__ void __launch_bounds__(kThreads, 1)
+dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
+                    const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap out_map,
+                    const float* __restrict__ cbias,
+                    const float* __restrict__ s_ptr,
+                    const float* __restrict__ b_ptr, float* __restrict__ out,
+                    float* __restrict__ part, int B, int H, int W, int C) {
+  using L = Stage<kDgrad>;
+  using M = Smem<kDgrad, kStages>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sm0 = smem_u32(smem_raw);
+  const uint32_t bars = sm0 + M::kBars;
+  float* red = reinterpret_cast<float*>(smem_raw + M::kRed);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Tiles tl(B, H, W, C);
+  const int mine = (tl.count - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int tile0 = blockIdx.x;
+  auto tile = [&](int i) { return tl.at(tile0 + i * (int)gridDim.x); };
+  // The taps travel with a tile whose channel group differs from the last's.
+  auto new_taps = [&](int i) { return i == 0 || tile(i).grp != tile(i - 1).grp; };
 
-template <int K>
-__global__ void __launch_bounds__(kCh)
-dw_star_dgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     const float* __restrict__ w, const float* __restrict__ sb,
-                     float* __restrict__ dx, float* __restrict__ part,
-                     int H, int W, int C, int tiles_w) {
-  __shared__ float red[kCh / 32];
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int y0 = (blockIdx.y / tiles_w) * kTH;
-  const int x0 = (blockIdx.y % tiles_w) * kTW;
-  const size_t img = (size_t)blockIdx.z * H * W * C;
-  // Correlation of g with the flipped taps: flipping both axes reverses
-  // the flat tap index.
-  float taps[K * K];
+  // Thread 0: stage tile i (the expected bytes next to the copies).
+  auto load_tile = [&](int i) {
+    const int st = i % kStages;
+    const uint32_t base = sm0 + st * L::kBytes, bar = bars + 8 * st;
+    const Tile tt = tile(i);
+    const int c0 = tt.grp * kTileC;
+    const bool taps = new_taps(i);
+    mbar_expect(bar, kHaloBytes + (kDgrad ? kInBytes : 0) + (taps ? kTapBytes : 0));
+    tma_load_4d(base, &in_map, bar, c0, tt.x0 - kPad, tt.y0 - kPad, tt.b);
+    if (kDgrad) tma_load_4d(base + L::kX, &x_map, bar, c0, tt.x0, tt.y0, tt.b);
+    if (taps) tma_load_2d(base + L::kW, &w_map, bar, c0, 0);
+  };
+
+  if (tid == 0)
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
+  fence_async();
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < mine; ++i) load_tile(i);
+
+  const int py = (warp / kPatchCols) * kPatch, px = (warp % kPatchCols) * kPatch;
+  const float s = *s_ptr;
+  const float b_act = kDgrad ? 0.f : *b_ptr;
+  float taps[kTaps * kTaps];
+  float cb = 0.f, ds = 0.f, db = 0.f;
+  for (int i = 0; i < mine; ++i) {
+    const int st = i % kStages;
+    const Tile tt = tile(i);
+    const int grp = tt.grp, b = tt.b, y0 = tt.y0, x0 = tt.x0;
+    float* stage = reinterpret_cast<float*>(smem_raw + st * L::kBytes);
+    float* halo = stage;
+    mbar_wait(bars + 8 * st, (i / kStages) & 1);
+    if (!kDgrad) {
+      activate(halo, y0, x0, H, W, s, b_act);
+      __syncthreads();
+    }
+    if (new_taps(i)) {
+      const float* wt = stage + L::kW / 4 + lane;
 #pragma unroll
-  for (int i = 0; i < K * K; ++i) taps[i] = w[(size_t)(K * K - 1 - i) * C + c];
-  float dact[kTH][kTW];
-  tile_taps<K, false>(g + img + c, taps, y0, x0, H, W, C, 0.f, 0.f, dact);
-  const float s = sb[0];
-  float ds = 0.f, db = 0.f;
+      for (int k = 0; k < kTaps * kTaps; ++k)   // dgrad: flipped taps
+        taps[k] = wt[(kDgrad ? kTaps * kTaps - 1 - k : k) * kTileC];
+      if (!kDgrad) cb = cbias[grp * kTileC + lane];
+    }
+    float acc[kPatch][kPatch];
+    patch_taps(halo + (py * kHaloW + px) * kTileC + lane, taps, acc);
+    const int oy0 = y0 + py, ox0 = x0 + px;
+    // This thread's outputs in a (kTileH, kTileW, kTileC) tile: x's slot of
+    // the stage (dgrad: dx goes over x) or the output buffer (forward).
+    float* ot = reinterpret_cast<float*>(smem_raw + (kDgrad ? st * L::kBytes + L::kX : M::kOut)) +
+                (py * kTileW + px) * kTileC + lane;
+    float ds_t = 0.f, db_t = 0.f;
+    if (kDgrad) {
+      float* o = out + (((size_t)b * H + oy0) * W + ox0) * C + grp * kTileC + lane;
 #pragma unroll
-  for (int oy = 0; oy < kTH; ++oy)
+      for (int oy = 0; oy < kPatch; ++oy)
 #pragma unroll
-    for (int ox = 0; ox < kTW; ++ox)
-      if (y0 + oy < H && x0 + ox < W) {
-        const size_t off = img + ((size_t)(y0 + oy) * W + x0 + ox) * C + c;
-        const float r = fmaxf(x[off], 0.f);
-        const float d = dact[oy][ox];
-        dx[off] = 2.f * s * r * d;
-        ds = fmaf(d, r * r, ds);
-        db += d;
+        for (int ox = 0; ox < kPatch; ++ox) {
+          float& slot = ot[(oy * kTileW + ox) * kTileC];
+          const float rx = fmaxf(slot, 0.f), d = acc[oy][ox];
+          const float v = 2.f * s * rx * d;
+          if (kTmaStore) slot = v;
+          if (oy0 + oy >= H || ox0 + ox >= W) continue;
+          if (!kTmaStore) o[((size_t)oy * W + ox) * C] = v;
+          ds_t = fmaf(d, rx * rx, ds_t);
+          db_t += d;
+        }
+      ds += ds_t;
+      db += db_t;
+      if (kTmaStore) fence_async();   // dx, for the TMA store
+      __syncthreads();   // stage st is free once its dx is stored
+      if (tid == 0) {
+        if (kTmaStore) {
+          tma_store_4d(&out_map, sm0 + st * L::kBytes + L::kX, grp * kTileC, x0,
+                       y0, b);
+          bulk_read_done();
+        }
+        if (i + kStages < mine) load_tile(i + kStages);
       }
-  const size_t blk =
-      ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  const float ds_blk = block_sum(ds, red);
-  if (threadIdx.x == 0) part[2 * blk] = ds_blk;
-  const float db_blk = block_sum(db, red);
-  if (threadIdx.x == 0) part[2 * blk + 1] = db_blk;
+    } else {
+      if (kTmaStore && tid == 0) bulk_read_done();   // the last tile's y is out
+      fence_async();   // the activation's writes, before the next TMA write
+      __syncthreads();   // stage st and the output buffer are free
+      if (tid == 0 && i + kStages < mine) load_tile(i + kStages);
+      float* o = out + (((size_t)b * H + oy0) * W + ox0) * C + grp * kTileC + lane;
+#pragma unroll
+      for (int oy = 0; oy < kPatch; ++oy)
+#pragma unroll
+        for (int ox = 0; ox < kPatch; ++ox) {
+          if (kTmaStore)
+            ot[(oy * kTileW + ox) * kTileC] = acc[oy][ox] + cb;
+          else if (oy0 + oy < H && ox0 + ox < W)
+            o[((size_t)oy * W + ox) * C] = acc[oy][ox] + cb;
+        }
+      if (kTmaStore) {
+        fence_async();   // y, for the TMA store
+        __syncthreads();
+        if (tid == 0)
+          tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, y0, b);
+      }
+    }
+  }
+  if (kTmaStore && tid == 0) bulk_wait_all();
+
+  if (kDgrad) {   // the block's [ds, db]: warp xor trees, then warps in order
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+      ds += __shfl_xor_sync(0xffffffffu, ds, m);
+      db += __shfl_xor_sync(0xffffffffu, db, m);
+    }
+    if (lane == 0) {
+      red[2 * warp] = ds;
+      red[2 * warp + 1] = db;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float ds_b = 0.f, db_b = 0.f;
+      for (int k = 0; k < kWarps; ++k) {
+        ds_b += red[2 * k];
+        db_b += red[2 * k + 1];
+      }
+      part[2 * blockIdx.x] = ds_b;
+      part[2 * blockIdx.x + 1] = db_b;
+    }
+  }
 }
 
 template <int K>
@@ -228,39 +438,129 @@ bool bad_shape(int B, int H, int W, int C, int K) {
   return K != kTaps || B < 1 || H < 1 || W < 1 || C < kCh || C % kCh != 0;
 }
 
-}  // namespace
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// x (B, H, W, C) pre-activation; w (K, K, C); cbias (C,); sb = [s, b] on the
-// device; y (B, H, W, C).
-extern "C" int nm_dw_star_forward(const void* x, const void* w,
-                                  const void* cbias, const void* sb, void* y,
-                                  int B, int H, int W, int C, int K,
-                                  void* stream) {
-  if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  const int tiles_w = ceil_div(W, kTW);
-  const dim3 grid(C / kCh, ceil_div(H, kTH) * tiles_w, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  const float *xp = (const float*)x, *wp = (const float*)w,
-              *cp = (const float*)cbias, *sp = (const float*)sb;
-  float* yp = (float*)y;
-  dw_star_fwd_kernel<kTaps><<<grid, kCh, 0, s>>>(xp, wp, cp, sp, yp, H, W, C, tiles_w);
-  return (int)cudaGetLastError();
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                     12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
 }
 
-// dx (B, H, W, C); part (blocks, 2): per-block [ds, db] partials, blocks =
-// (C / 128) * ceil(H / 8) * ceil(W / 4) * B.
+// A tensor map over a row-major f32 array of the given dims (innermost
+// first), with a box of the given sizes; elements outside it read as 0.
+template <int N>
+cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)[N],
+                       const cuuint32_t (&box)[N]) {
+  EncodeTiled encode;
+  const cudaError_t e = encoder(&encode);
+  if (e != cudaSuccess) return e;
+  cuuint64_t strides[N > 1 ? N - 1 : 1];
+  cuuint64_t stride = 4;
+  for (int i = 0; i + 1 < N; ++i) strides[i] = stride *= dims[i];
+  cuuint32_t ones[N];
+  for (int i = 0; i < N; ++i) ones[i] = 1;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, N,
+                            const_cast<void*>(p), dims, strides, box, ones,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The persistent grid: one block per SM (a block's two stages take most of
+// the SM's shared memory), at most one per tile.
+cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = Tiles(B, H, W, C).count;
+  *grid = tiles < sms ? tiles : sms;
+  return e;
+}
+
+// in: x (forward) or g (dgrad); x: x (dgrad only).
+template <bool kDgrad, int kStages>
+cudaError_t launch_tiles(const void* in, const void* x, const void* w,
+                         const float* cbias, const float* s, const float* b,
+                         float* out, float* part, int B, int H, int W, int C,
+                         cudaStream_t stream) {
+  const cuuint64_t nhwc[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint32_t halo_box[4] = {kTileC, kHaloW, kHaloH, 1};
+  const cuuint32_t tile_box[4] = {kTileC, kTileW, kTileH, 1};
+  const cuuint64_t taps[2] = {(cuuint64_t)C, kTaps * kTaps};
+  const cuuint32_t taps_box[2] = {kTileC, kTaps * kTaps};
+  CUtensorMap in_map, x_map, w_map, out_map;
+  cudaError_t e = tensor_map(&in_map, in, nhwc, halo_box);
+  if (e == cudaSuccess) e = tensor_map(&w_map, w, taps, taps_box);
+  x_map = in_map;   // the forward reads no x tile
+  if (kDgrad && e == cudaSuccess) e = tensor_map(&x_map, x, nhwc, tile_box);
+  if (e == cudaSuccess) e = tensor_map(&out_map, out, nhwc, tile_box);
+  if (e != cudaSuccess) return e;
+  const size_t bytes = Smem<kDgrad, kStages>::kBytes;
+  auto kern = dw_star_tile_kernel<kDgrad, kStages>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  int grid = 0;
+  if (e == cudaSuccess) e = tile_grid(B, H, W, C, &grid);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, bytes, stream>>>(in_map, x_map, w_map, out_map, cbias, s,
+                                          b, out, part, B, H, W, C);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, H, W, C) pre-activation; w (K, K, C); cbias (C,); s, b: StarReLU's
+// scalars on the device; y (B, H, W, C).  x and w 16-byte aligned.
+extern "C" int nm_dw_star_forward(const void* x, const void* w,
+                                  const void* cbias, const void* s,
+                                  const void* b, void* y, int B, int H, int W,
+                                  int C, int K, void* stream) {
+  if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
+  return (int)launch_tiles<false, kFwdStages>(
+      x, nullptr, w, (const float*)cbias, (const float*)s, (const float*)b,
+      (float*)y, nullptr, B, H, W, C, (cudaStream_t)stream);
+}
+
+// The number of per-block [ds, db] partials nm_dw_star_dgrad writes for this
+// shape on the current device, into *parts.
+extern "C" int nm_dw_star_dgrad_parts(int B, int H, int W, int C, int* parts) {
+  if (bad_shape(B, H, W, C, kTaps)) return (int)cudaErrorInvalidValue;
+  return (int)tile_grid(B, H, W, C, parts);
+}
+
+// s: StarReLU's scale on the device; dx (B, H, W, C); part
+// (nm_dw_star_dgrad_parts, 2): per-block [ds, db] partials.  x, g and w
+// 16-byte aligned.
 extern "C" int nm_dw_star_dgrad(const void* x, const void* g, const void* w,
-                                const void* sb, void* dx, void* part, int B,
+                                const void* s, void* dx, void* part, int B,
                                 int H, int W, int C, int K, void* stream) {
   if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  const int tiles_w = ceil_div(W, kTW);
-  const dim3 grid(C / kCh, ceil_div(H, kTH) * tiles_w, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  const float *xp = (const float*)x, *gp = (const float*)g,
-              *wp = (const float*)w, *sp = (const float*)sb;
-  float *dxp = (float*)dx, *pp = (float*)part;
-  dw_star_dgrad_kernel<kTaps><<<grid, kCh, 0, s>>>(xp, gp, wp, sp, dxp, pp, H, W, C, tiles_w);
-  return (int)cudaGetLastError();
+  return (int)launch_tiles<true, kDgradStages>(
+      g, x, w, nullptr, (const float*)s, nullptr, (float*)dx, (float*)part, B,
+      H, W, C, (cudaStream_t)stream);
 }
 
 // part (B * ceil(H / 32) * ceil(W / 4), K * K, C): per-region tap sums.

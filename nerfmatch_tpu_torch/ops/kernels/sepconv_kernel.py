@@ -14,6 +14,8 @@ sum of g (the JAX package leaves it to XLA too).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.nn import functional as F
 
@@ -89,11 +91,14 @@ def _check(name, x, K, C):
         raise ValueError(f"{name}: float32 inputs only, got {x.dtype}")
 
 
+def _scalar(t, dev):
+    """A float32 device scalar (the tensor itself when it is one)."""
+    return torch.as_tensor(t, dtype=torch.float32, device=dev).detach()
+
+
 def _sb(s, b, dev):
     """[s, b] as a float32 device tensor (no host sync)."""
-    return torch.stack([
-        torch.as_tensor(t, dtype=torch.float32, device=dev).detach().reshape(())
-        for t in (s, b)])
+    return torch.stack([_scalar(t, dev).reshape(()) for t in (s, b)])
 
 
 def dw_star_fwd(x, w, cbias, s, b):
@@ -102,15 +107,24 @@ def dw_star_fwd(x, w, cbias, s, b):
     K = w.shape[0]
     _check("dw_star_fwd", x, K, C)
     x, w, cbias = (t.contiguous() for t in (x, w, cbias))
-    sb = _sb(s, b, x.device)
-    require_cuda_tensors("dw_star_fwd", x, w, cbias, sb)
+    s, b = _scalar(s, x.device), _scalar(b, x.device)
+    require_cuda_tensors("dw_star_fwd", x, w, cbias, s, b)
     y = torch.empty_like(x)
     err = library().nm_dw_star_forward(
-        x.data_ptr(), w.data_ptr(), cbias.data_ptr(), sb.data_ptr(),
-        y.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
+        x.data_ptr(), w.data_ptr(), cbias.data_ptr(), s.data_ptr(),
+        b.data_ptr(), y.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
     check(err, "dw_star_fwd")
     LAUNCHES["dw_star_fwd"] += 1
     return y
+
+
+def dw_star_dgrad_parts(B: int, H: int, W: int, C: int) -> int:
+    """Rows of kernel 8's [ds, db] partials for this shape on the current
+    device (its persistent grid), as the C side computes them."""
+    n = ctypes.c_int(0)
+    check(library().nm_dw_star_dgrad_parts(B, H, W, C, ctypes.byref(n)),
+          "dw_star_dgrad_parts")
+    return n.value
 
 
 def dw_star_dgrad(x, w, s, g):
@@ -120,13 +134,13 @@ def dw_star_dgrad(x, w, s, g):
     K = w.shape[0]
     _check("dw_star_dgrad", x, K, C)
     x, w, g = (t.contiguous() for t in (x, w, g))
-    sb = _sb(s, 0.0, x.device)
-    require_cuda_tensors("dw_star_dgrad", x, w, g, sb)
+    s = _scalar(s, x.device)
+    require_cuda_tensors("dw_star_dgrad", x, w, g, s)
     dx = torch.empty_like(x)
-    blocks = (C // CHANNEL_BLOCK) * (-(-H // 8)) * (-(-W // 4)) * B
-    part = torch.empty(blocks, 2, device=x.device, dtype=torch.float32)
+    part = torch.empty(dw_star_dgrad_parts(B, H, W, C), 2, device=x.device,
+                       dtype=torch.float32)
     err = library().nm_dw_star_dgrad(
-        x.data_ptr(), g.data_ptr(), w.data_ptr(), sb.data_ptr(), dx.data_ptr(),
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), s.data_ptr(), dx.data_ptr(),
         part.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
     check(err, "dw_star_dgrad")
     LAUNCHES["dw_star_dgrad"] += 1

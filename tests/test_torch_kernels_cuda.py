@@ -450,11 +450,16 @@ def scaled_err(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 17, 9, 128), (2, 60, 60, 512),
-                                   (2, 240, 240, 256)])
+                                   (2, 240, 240, 256), (1, 60, 60, 512),
+                                   (1, 240, 240, 256), (2, 23, 7, 128),
+                                   (1, 30, 30, 384)])
 def test_dw_star_kernels_match_plain(dev, shape):
     """Forward, dgrad and wgrad against the plain versions (f32, TF32 off):
     y, dx and dw within 1e-4 of their largest value, ds and db within 1e-5
-    of the sum of the absolute terms (f32 sums in another order)."""
+    of the sum of the absolute terms (f32 sums in another order).  Shapes:
+    both trunk stages at batch 1 (serving) and 2 (training), H and W not
+    multiples of the 16 x 16 tile with W at its minimum, three 128-channel
+    groups."""
     x, w, cb, s, b, g = sepconv_inputs(dev, *shape)
     reset_launch_counts()
     assert scaled_err(dw_star_fwd(x, w, cb, s, b),

@@ -25,6 +25,9 @@ SHAPES = [                 # tests/test_pallas_sepconv.py
     (2, 19, 13, 128, 7),
     (1, 8, 8, 256, 3),
     (2, 30, 16, 128, 7),
+    # H and W not multiples of the CUDA kernels' 16 x 16 tile, W = K: the
+    # padding-after-activation corners of a ragged tile.
+    (2, 23, 7, 128, 7),
 ]
 
 
