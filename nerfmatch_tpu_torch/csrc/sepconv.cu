@@ -16,29 +16,33 @@
 // cannot fuse.
 //
 // Forward and dgrad share one tile engine (dw_star_tile_kernel):
-// * a persistent grid, one block of 512 threads per SM, walks the tiles of
-//   16 x 16 output pixels x 32 channels statically (tile blockIdx.x + i *
-//   gridDim.x; channel group outermost, then image, tile row, tile column),
-//   so its partial sums come out in a fixed order;
+// * a persistent grid of one 512-thread block per SM, cut to a multiple of
+//   the channel groups, walks tiles of 16 x 16 output pixels x 32 channels
+//   statically (tile blockIdx.x + i * gridDim.x; image, tile row, tile
+//   column, channel group innermost), so a block keeps one channel group
+//   and its partial sums come out in a fixed order;
 // * each tile's (16 + 6) x (16 + 6) x 32 input halo is staged in shared
 //   memory by one TMA load (a 4-D tensor map over the NHWC array, encoded on
 //   the host; the copy engine's zero fill is the padding at image edges),
 //   behind an mbarrier, in a ring of two stages: tile i + 2 loads while tile
-//   i + 1 computes.  The tile's 49 x 32 taps come with it when its channel
-//   group differs from the block's last tile's;
+//   i + 1 computes.  The 49 x 32 taps come with a tile whose channel group
+//   differs from the block's last (with the cut grid, its first tile only);
 // * forward: one pass over the landed halo applies StarReLU to in-image
 //   positions and writes 0 elsewhere (StarReLU(0) = b, so the zero fill is
 //   not the activated map's padding); dgrad correlates g, whose zero fill
 //   is its padding, with the flipped taps, and stages x at the tile's
-//   outputs (no halo) with the same barrier;
+//   outputs (no halo) behind the same mbarrier;
 // * a warp computes a 4 x 4 output patch of the tile's 32 channels, a lane
 //   per channel (shared-memory reads free of bank conflicts), its 49 taps in
 //   registers, sliding a row of 10 inputs down the 10 halo rows: 7.8 FMA per
 //   shared load;
-// * epilogues from registers, 128 bytes a warp: y = acc + cbias; dgrad
-//   dx = 2 s relu(x) dact and per-thread ds, db over every tile the block
-//   walks, reduced once per block in a fixed order into a partials buffer
-//   (no atomics: two runs are bit-identical), summed by the caller.
+// * forward epilogue: y = acc + cbias into an output buffer, then one TMA
+//   store a tile (it writes nothing outside the array).  dgrad epilogue,
+//   from registers (its two stages leave no room for a buffer): dx = 2 s
+//   relu(x) dact, 128 bytes a warp, and per-thread ds, db over every tile
+//   the block walks, reduced once per block in a fixed order into a
+//   partials buffer (no atomics: two runs are bit-identical), summed by the
+//   caller.
 //
 // wgrad (kernel 9, the earlier design): each thread accumulates the K * K
 // tap products of its channel over a 32-row x 4-column region and writes
@@ -71,7 +75,6 @@ constexpr int kWarps = (kTileH / kPatch) * kPatchCols;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kFwdStages = 2;
 constexpr int kDgradStages = 2;
-constexpr bool kTmaStore = true;  // outputs out by TMA stores from shared memory
 constexpr uint32_t kHaloBytes = kHaloH * kHaloW * kTileC * 4;
 constexpr uint32_t kInBytes = kTileH * kTileW * kTileC * 4;
 constexpr uint32_t kTapBytes = kTaps * kTaps * kTileC * 4;
@@ -210,18 +213,24 @@ __device__ __forceinline__ void patch_taps(const float* src,
   }
 }
 
+// The forward's outputs leave by one TMA store a tile from an output buffer;
+// the dgrad's from registers (no room for a buffer beside its two stages,
+// and a store from x's slot would hold back the next tile's load).
+template <bool kDgrad>
+constexpr bool kTmaStoreFor = !kDgrad;
+
 // Shared memory of the tile kernel: the ring, (forward) the output tile
 // for its TMA store, the mbarriers, the block's [ds, db] per warp.
 template <bool kDgrad, int kStages>
 struct Smem {
   static constexpr uint32_t kOut = kStages * Stage<kDgrad>::kBytes;
-  static constexpr uint32_t kBars = kOut + (kDgrad || !kTmaStore ? 0 : kInBytes);
+  static constexpr uint32_t kBars = kOut + (kTmaStoreFor<kDgrad> ? kInBytes : 0);
   static constexpr uint32_t kRed = kBars + 8 * kStages;
   static constexpr uint32_t kBytes = kRed + 2 * kWarps * 4;
 };
 
-// Forward (kDgrad false): in_map is x, out_map y.  dgrad: in_map is g,
-// x_map x (a tile's outputs, no halo), out_map dx, and part gets the block's
+// Forward (kDgrad false): in_map is x, out and out_map y.  dgrad: in_map is
+// g, x_map x (a tile's outputs, no halo), out dx, and part gets the block's
 // [ds, db].  w_map: the taps as a (K * K, C) array.  s, b: StarReLU's
 // scalars on the device (dgrad reads s only).
 template <bool kDgrad, int kStages>
@@ -236,6 +245,7 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
                     float* __restrict__ part, int B, int H, int W, int C) {
   using L = Stage<kDgrad>;
   using M = Smem<kDgrad, kStages>;
+  constexpr bool kTmaStore = kTmaStoreFor<kDgrad>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t sm0 = smem_u32(smem_raw);
   const uint32_t bars = sm0 + M::kBars;
@@ -281,8 +291,9 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
     float* halo = stage;
     mbar_wait(bars + 8 * st, (i / kStages) & 1);
     if (!kDgrad) {
+      if (kTmaStore && tid == 0) bulk_read_done();   // the last tile's y is out
       activate(halo, y0, x0, H, W, s, b_act);
-      __syncthreads();
+      __syncthreads();   // the activated halo (and the output buffer is free)
     }
     if (new_taps(i)) {
       const float* wt = stage + L::kW / 4 + lane;
@@ -293,60 +304,42 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
     }
     float acc[kPatch][kPatch];
     patch_taps(halo + (py * kHaloW + px) * kTileC + lane, taps, acc);
+
+    // Epilogue before the tile's barrier, so one warp's stores overlap the
+    // others' products.  ``ot``: this thread's outputs in a (kTileH, kTileW,
+    // kTileC) tile, x's slot of the stage (dgrad) or the output buffer.
     const int oy0 = y0 + py, ox0 = x0 + px;
-    // This thread's outputs in a (kTileH, kTileW, kTileC) tile: x's slot of
-    // the stage (dgrad: dx goes over x) or the output buffer (forward).
+    float* o = out + (((size_t)b * H + oy0) * W + ox0) * C + grp * kTileC + lane;
     float* ot = reinterpret_cast<float*>(smem_raw + (kDgrad ? st * L::kBytes + L::kX : M::kOut)) +
                 (py * kTileW + px) * kTileC + lane;
     float ds_t = 0.f, db_t = 0.f;
-    if (kDgrad) {
-      float* o = out + (((size_t)b * H + oy0) * W + ox0) * C + grp * kTileC + lane;
 #pragma unroll
-      for (int oy = 0; oy < kPatch; ++oy)
+    for (int oy = 0; oy < kPatch; ++oy)
 #pragma unroll
-        for (int ox = 0; ox < kPatch; ++ox) {
-          float& slot = ot[(oy * kTileW + ox) * kTileC];
+      for (int ox = 0; ox < kPatch; ++ox) {
+        float& slot = ot[(oy * kTileW + ox) * kTileC];
+        if (kTmaStore) {   // TMA writes nothing outside the array
+          slot = acc[oy][ox] + cb;
+          continue;
+        }
+        if (oy0 + oy >= H || ox0 + ox >= W) continue;
+        const size_t off = ((size_t)oy * W + ox) * C;
+        if (kDgrad) {
           const float rx = fmaxf(slot, 0.f), d = acc[oy][ox];
-          const float v = 2.f * s * rx * d;
-          if (kTmaStore) slot = v;
-          if (oy0 + oy >= H || ox0 + ox >= W) continue;
-          if (!kTmaStore) o[((size_t)oy * W + ox) * C] = v;
+          o[off] = 2.f * s * rx * d;
           ds_t = fmaf(d, rx * rx, ds_t);
           db_t += d;
+        } else {
+          o[off] = acc[oy][ox] + cb;
         }
-      ds += ds_t;
-      db += db_t;
-      if (kTmaStore) fence_async();   // dx, for the TMA store
-      __syncthreads();   // stage st is free once its dx is stored
-      if (tid == 0) {
-        if (kTmaStore) {
-          tma_store_4d(&out_map, sm0 + st * L::kBytes + L::kX, grp * kTileC, x0,
-                       y0, b);
-          bulk_read_done();
-        }
-        if (i + kStages < mine) load_tile(i + kStages);
       }
-    } else {
-      if (kTmaStore && tid == 0) bulk_read_done();   // the last tile's y is out
-      fence_async();   // the activation's writes, before the next TMA write
-      __syncthreads();   // stage st and the output buffer are free
-      if (tid == 0 && i + kStages < mine) load_tile(i + kStages);
-      float* o = out + (((size_t)b * H + oy0) * W + ox0) * C + grp * kTileC + lane;
-#pragma unroll
-      for (int oy = 0; oy < kPatch; ++oy)
-#pragma unroll
-        for (int ox = 0; ox < kPatch; ++ox) {
-          if (kTmaStore)
-            ot[(oy * kTileW + ox) * kTileC] = acc[oy][ox] + cb;
-          else if (oy0 + oy < H && ox0 + ox < W)
-            o[((size_t)oy * W + ox) * C] = acc[oy][ox] + cb;
-        }
-      if (kTmaStore) {
-        fence_async();   // y, for the TMA store
-        __syncthreads();
-        if (tid == 0)
-          tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, y0, b);
-      }
+    ds += ds_t;
+    db += db_t;
+    if (!kDgrad) fence_async();   // the halo and y writes, for TMA
+    __syncthreads();   // stage st is free (and the output tile complete)
+    if (tid == 0) {
+      if (kTmaStore) tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, y0, b);
+      if (i + kStages < mine) load_tile(i + kStages);
     }
   }
   if (kTmaStore && tid == 0) bulk_wait_all();
@@ -488,14 +481,17 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)
 }
 
 // The persistent grid: one block per SM (a block's two stages take most of
-// the SM's shared memory), at most one per tile.
+// the SM's shared memory), at most one per tile, cut to a multiple of the
+// channel groups: each block then keeps one channel group, and its taps,
+// for all its tiles, and the blocks at work at one time cover whole pixels.
 cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int tiles = Tiles(B, H, W, C).count;
-  *grid = tiles < sms ? tiles : sms;
+  const Tiles tl(B, H, W, C);
+  if (sms > tl.groups) sms -= sms % tl.groups;
+  *grid = tl.count < sms ? tl.count : sms;
   return e;
 }
 
@@ -516,7 +512,9 @@ cudaError_t launch_tiles(const void* in, const void* x, const void* w,
   if (e == cudaSuccess) e = tensor_map(&w_map, w, taps, taps_box);
   x_map = in_map;   // the forward reads no x tile
   if (kDgrad && e == cudaSuccess) e = tensor_map(&x_map, x, nhwc, tile_box);
-  if (e == cudaSuccess) e = tensor_map(&out_map, out, nhwc, tile_box);
+  out_map = in_map;   // the dgrad stores from registers
+  if (kTmaStoreFor<kDgrad> && e == cudaSuccess)
+    e = tensor_map(&out_map, out, nhwc, tile_box);
   if (e != cudaSuccess) return e;
   const size_t bytes = Smem<kDgrad, kStages>::kBytes;
   auto kern = dw_star_tile_kernel<kDgrad, kStages>;

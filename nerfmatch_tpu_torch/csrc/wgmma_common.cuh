@@ -1,5 +1,6 @@
 // Device helpers shared by the Hopper kernels that stage their operands
-// asynchronously and multiply with wgmma (attention.cu, render_train.cu):
+// asynchronously (attention.cu, render_train.cu; sepconv.cu uses the copy
+// and mbarrier helpers) and multiply with wgmma:
 // cp.async and bulk copies into shared memory, mbarriers, the fence to the
 // asynchronous proxy, and wgmma.mma_async m64nNk16 (bf16 operands, f32
 // accumulators) with A in registers or in shared memory.

@@ -16,15 +16,15 @@ variant, all started together:
   is issued only when the tile before it is done);
 * ``load_only``: ``copy_only`` that stores no output (the dgrad still
   sums ds and db);
-* ``reg_store``: each thread stores its outputs from registers (masked at
-  the ragged edge) instead of the tile's TMA store from shared memory;
+* ``reg_store``: the forward stores its outputs from registers (masked at
+  the ragged edge, as the dgrad does) instead of one TMA store a tile from
+  an output buffer;
 * ``group_outer``: the blocks walk the tiles with the channel group
-  outermost (a block keeps its taps for many tiles; the blocks at work at
-  one time read 128 bytes of each pixel's row);
-* ``promo256``: the tensor maps promote L2 fills to 256 bytes (128);
-* ``fixed_group``: the grid is cut to a multiple of the channel groups (128
-  blocks at 256 and 512 channels), so each block keeps one channel group
-  and its taps;
+  outermost (the blocks at work at one time read 128 bytes of each
+  pixel's row);
+* ``full_grid``: a block on every SM (the grid not cut to a multiple of
+  the channel groups: blocks change channel group, and reload their taps,
+  from tile to tile);
 * ``parent``: with ``--parent DIR``, ``DIR/nerfmatch_tpu_torch/csrc/
   sepconv.cu`` of the parent checkout (its forward and dgrad take [s, b]
   as one pointer, and its dgrad writes ``(C / 128) ceil(H / 8) ceil(W / 4)
@@ -35,10 +35,11 @@ Then it times each build's ``nm_dw_star_forward`` and ``nm_dw_star_dgrad``
 stage-0 and stage-1 shapes at batch 1 and 2, the variants in order and
 again in reverse (parent, shipped, ..., shipped, parent), and prints one
 JSON line per shape after the card's name and power limit: ms per variant,
-both rounds; the last line gives the host microseconds per call of the
-package's two wrappers at a small shape.  The shipped build's outputs must equal the package's bit for
-bit; the probe builds compute something else and are only timed.  Compare
-within one run only.
+both rounds; the last lines give the host microseconds per call of the
+package's two wrappers at a small shape (and, with ``--parent``, of the
+parent's, in a process of its own).  The shipped build's outputs must
+equal the package's bit for bit; the probe builds compute something else
+and are only timed.  Compare within one run only.
 """
 
 from __future__ import annotations
@@ -51,12 +52,13 @@ import sys
 import time
 from pathlib import Path
 
+import torch
+
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+# With --host-root the package comes from that checkout instead.
+sys.path.insert(0, sys.argv[sys.argv.index("--host-root") + 1]
+                if "--host-root" in sys.argv else str(ROOT))
 
-import torch  # noqa: E402
-
-import chip_smoke  # noqa: E402
 from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels import sepconv_kernel as sk  # noqa: E402
 
@@ -64,13 +66,13 @@ _CALL = "    patch_taps(halo + (py * kHaloW + px) * kTileC + lane, taps, acc);\n
 _ZERO = ("    for (auto& row : acc)\n"
          "      for (float& a : row) a = 0.f;\n")
 _ACT = "      activate(halo, y0, x0, H, W, s, b_act);\n"
-_STORE_Y = ("          tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, "
-            "y0, b);\n")
-_STORE_DX = ("          tma_store_4d(&out_map, sm0 + st * L::kBytes + L::kX, "
-             "grp * kTileC, x0,\n                       y0, b);\n")
+_STORE_Y = ("      if (kTmaStore) tma_store_4d(&out_map, sm0 + M::kOut, "
+            "grp * kTileC, x0, y0, b);\n")
+_STORE_DX = "          o[off] = 2.f * s * rx * d;\n"
 _FWD = "constexpr int kFwdStages = 2;"
 _DGRAD = "constexpr int kDgradStages = 2;"
-_TMA_STORE = "constexpr bool kTmaStore = true;"
+_TMA_STORE = "constexpr bool kTmaStoreFor = !kDgrad;"
+_CUT = "  if (sms > tl.groups) sms -= sms % tl.groups;\n"
 # (old, new) edits of sepconv.cu per variant.
 PATCHES = {
     "shipped": [],
@@ -78,16 +80,12 @@ PATCHES = {
     "no_act": [(_ACT, "")],
     "one_stage": [(_FWD, _FWD.replace("2", "1")),
                   (_DGRAD, _DGRAD.replace("2", "1"))],
-    "load_only": [(_CALL, _ZERO), (_STORE_Y, "          ;\n"), (_STORE_DX, "")],
-    "reg_store": [(_TMA_STORE, _TMA_STORE.replace("true", "false"))],
+    "load_only": [(_CALL, _ZERO), (_STORE_Y, ""), (_STORE_DX, "")],
+    "reg_store": [(_TMA_STORE, _TMA_STORE.replace("!kDgrad", "false"))],
     "group_outer": [("    const int grp = t % groups, r = t / groups;\n",
                      "    const int grp = t / (count / groups), "
                      "r = t % (count / groups);\n")],
-    "promo256": [("CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
-                  "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
-    "fixed_group": [("  *grid = tiles < sms ? tiles : sms;\n",
-                     "  if (sms > C / kTileC) sms -= sms % (C / kTileC);\n"
-                     "  *grid = tiles < sms ? tiles : sms;\n")],
+    "full_grid": [(_CUT, "")],
 }
 # The parent checkout's forward: x, w, cbias, sb, y, B, H, W, C, K, stream.
 PARENT_FORWARD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -170,10 +168,19 @@ def host_us(dev, reps=200):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", help="root of another checkout to time beside")
+    p.add_argument("--parent", help="root of the parent checkout to time "
+                   "beside")
+    p.add_argument("--host-root", help="only print the host microseconds "
+                   "per wrapper call of this checkout's package")
     args = p.parse_args()
-    smi = chip_smoke.phase_environment()
     dev = torch.device("cuda", 0)
+    if args.host_root:
+        print(json.dumps({"host_us_per_call": host_us(dev)}), flush=True)
+        return
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    smi = chip_smoke.phase_environment()
     libs = build_variants(args.parent)
     order = (["parent"] if "parent" in libs else []) + list(PATCHES)
     print(smi, flush=True)
@@ -229,6 +236,11 @@ def main():
         print(json.dumps(row), flush=True)
         del x, up, y, dx, part
     print(json.dumps({"host_us_per_call": host_us(dev)}), flush=True)
+    if args.parent:   # the parent's wrappers, in a process of their own
+        out = subprocess.run([sys.executable, __file__, "--host-root",
+                              args.parent], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-1]
+        print(json.dumps({"parent": json.loads(out)}), flush=True)
 
 
 if __name__ == "__main__":
