@@ -16,17 +16,18 @@
 // cannot fuse.
 //
 // Forward and dgrad share one tile engine (dw_star_tile_kernel):
-// * a persistent grid of one 512-thread block per SM, cut to a multiple of
-//   the channel groups, walks tiles of 16 x 16 output pixels x 32 channels
-//   statically (tile blockIdx.x + i * gridDim.x; image, tile row, tile
-//   column, channel group innermost), so a block keeps one channel group
-//   and its partial sums come out in a fixed order;
+// * a persistent grid of one 512-thread block per SM (the forward's cut to
+//   a multiple of the channel groups, so a block keeps one) walks tiles of
+//   16 x 16 output pixels x 32 channels statically (tile blockIdx.x + i *
+//   gridDim.x; image, tile row, tile column, channel group innermost), so
+//   the blocks at work at one time read whole pixels and the partial sums
+//   come out in a fixed order;
 // * each tile's (16 + 6) x (16 + 6) x 32 input halo is staged in shared
 //   memory by one TMA load (a 4-D tensor map over the NHWC array, encoded on
 //   the host; the copy engine's zero fill is the padding at image edges),
 //   behind an mbarrier, in a ring of two stages: tile i + 2 loads while tile
 //   i + 1 computes.  The 49 x 32 taps come with a tile whose channel group
-//   differs from the block's last (with the cut grid, its first tile only);
+//   differs from the block's last (in the forward, its first tile only);
 // * forward: one pass over the landed halo applies StarReLU to in-image
 //   positions and writes 0 elsewhere (StarReLU(0) = b, so the zero fill is
 //   not the activated map's padding); dgrad correlates g, whose zero fill
@@ -160,21 +161,26 @@ struct Tiles {
 };
 
 // StarReLU over the landed halo of the tile at (y0, x0), in place; 0 at
-// positions outside the image (none in an interior tile: no test there).
+// positions outside the image (an interior tile has none: no test there).
 __device__ __forceinline__ void activate(float* halo, int y0, int x0, int H,
                                          int W, float s, float b) {
   float4* h4 = reinterpret_cast<float4*>(halo);
   constexpr int n4 = kHaloH * kHaloW * kTileC / 4;
-  const bool interior = y0 >= kPad && x0 >= kPad && y0 + kTileH + kPad <= H &&
-                        x0 + kTileW + kPad <= W;
-  for (int e = threadIdx.x; e < n4; e += kThreads) {
-    bool in = true;
-    if (!interior) {
-      const int p = e / (kTileC / 4);
-      const int hy = p / kHaloW, hx = p - hy * kHaloW;
-      in = (unsigned)(y0 - kPad + hy) < (unsigned)H &&
-           (unsigned)(x0 - kPad + hx) < (unsigned)W;
+  if (y0 >= kPad && x0 >= kPad && y0 + kTileH + kPad <= H &&
+      x0 + kTileW + kPad <= W) {
+    for (int e = threadIdx.x; e < n4; e += kThreads) {
+      float4 v = h4[e];
+      v = make_float4(star_relu(v.x, s, b), star_relu(v.y, s, b),
+                      star_relu(v.z, s, b), star_relu(v.w, s, b));
+      h4[e] = v;
     }
+    return;
+  }
+  for (int e = threadIdx.x; e < n4; e += kThreads) {
+    const int p = e / (kTileC / 4);
+    const int hy = p / kHaloW, hx = p - hy * kHaloW;
+    const bool in = (unsigned)(y0 - kPad + hy) < (unsigned)H &&
+                    (unsigned)(x0 - kPad + hx) < (unsigned)W;
     float4 v = h4[e];
     v.x = in ? star_relu(v.x, s, b) : 0.f;
     v.y = in ? star_relu(v.y, s, b) : 0.f;
@@ -481,16 +487,18 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)
 }
 
 // The persistent grid: one block per SM (a block's two stages take most of
-// the SM's shared memory), at most one per tile, cut to a multiple of the
-// channel groups: each block then keeps one channel group, and its taps,
-// for all its tiles, and the blocks at work at one time cover whole pixels.
+// the SM's shared memory), at most one per tile.  The forward's is cut to a
+// multiple of the channel groups, so each block keeps one channel group and
+// its taps for all its tiles (reloading them costs the forward's issue
+// slots); the dgrad, held by memory, takes every SM.
+template <bool kDgrad>
 cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const Tiles tl(B, H, W, C);
-  if (sms > tl.groups) sms -= sms % tl.groups;
+  if (!kDgrad && sms > tl.groups) sms -= sms % tl.groups;
   *grid = tl.count < sms ? tl.count : sms;
   return e;
 }
@@ -521,7 +529,7 @@ cudaError_t launch_tiles(const void* in, const void* x, const void* w,
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)bytes);
   int grid = 0;
-  if (e == cudaSuccess) e = tile_grid(B, H, W, C, &grid);
+  if (e == cudaSuccess) e = tile_grid<kDgrad>(B, H, W, C, &grid);
   if (e != cudaSuccess) return e;
   kern<<<grid, kThreads, bytes, stream>>>(in_map, x_map, w_map, out_map, cbias, s,
                                           b, out, part, B, H, W, C);
@@ -546,7 +554,7 @@ extern "C" int nm_dw_star_forward(const void* x, const void* w,
 // shape on the current device, into *parts.
 extern "C" int nm_dw_star_dgrad_parts(int B, int H, int W, int C, int* parts) {
   if (bad_shape(B, H, W, C, kTaps)) return (int)cudaErrorInvalidValue;
-  return (int)tile_grid(B, H, W, C, parts);
+  return (int)tile_grid<true>(B, H, W, C, parts);
 }
 
 // s: StarReLU's scale on the device; dx (B, H, W, C); part

@@ -91,6 +91,14 @@ def _check(name, x, K, C):
         raise ValueError(f"{name}: float32 inputs only, got {x.dtype}")
 
 
+def _require_aligned(name, *tensors):
+    """The tile kernels read x, g and w through TMA tensor maps, whose base
+    addresses must be 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: x, g and w must start on 16-byte "
+                         "boundaries (TMA tensor maps)")
+
+
 def _scalar(t, dev):
     """A float32 device scalar (the tensor itself when it is one)."""
     return torch.as_tensor(t, dtype=torch.float32, device=dev).detach()
@@ -109,6 +117,7 @@ def dw_star_fwd(x, w, cbias, s, b):
     x, w, cbias = (t.contiguous() for t in (x, w, cbias))
     s, b = _scalar(s, x.device), _scalar(b, x.device)
     require_cuda_tensors("dw_star_fwd", x, w, cbias, s, b)
+    _require_aligned("dw_star_fwd", x, w)
     y = torch.empty_like(x)
     err = library().nm_dw_star_forward(
         x.data_ptr(), w.data_ptr(), cbias.data_ptr(), s.data_ptr(),
@@ -136,6 +145,7 @@ def dw_star_dgrad(x, w, s, g):
     x, w, g = (t.contiguous() for t in (x, w, g))
     s = _scalar(s, x.device)
     require_cuda_tensors("dw_star_dgrad", x, w, g, s)
+    _require_aligned("dw_star_dgrad", x, w, g)
     dx = torch.empty_like(x)
     part = torch.empty(dw_star_dgrad_parts(B, H, W, C), 2, device=x.device,
                        dtype=torch.float32)

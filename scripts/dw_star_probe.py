@@ -22,9 +22,10 @@ variant, all started together:
 * ``group_outer``: the blocks walk the tiles with the channel group
   outermost (the blocks at work at one time read 128 bytes of each
   pixel's row);
-* ``full_grid``: a block on every SM (the grid not cut to a multiple of
-  the channel groups: blocks change channel group, and reload their taps,
-  from tile to tile);
+* ``full_grid``: the forward's grid not cut to a multiple of the channel
+  groups (a block on every SM, as the dgrad's: blocks change channel group,
+  and reload their taps, from tile to tile);
+* ``cut_grid``: the dgrad's grid cut too (a block keeps its channel group);
 * ``parent``: with ``--parent DIR``, ``DIR/nerfmatch_tpu_torch/csrc/
   sepconv.cu`` of the parent checkout (its forward and dgrad take [s, b]
   as one pointer, and its dgrad writes ``(C / 128) ceil(H / 8) ceil(W / 4)
@@ -72,7 +73,7 @@ _STORE_DX = "          o[off] = 2.f * s * rx * d;\n"
 _FWD = "constexpr int kFwdStages = 2;"
 _DGRAD = "constexpr int kDgradStages = 2;"
 _TMA_STORE = "constexpr bool kTmaStoreFor = !kDgrad;"
-_CUT = "  if (sms > tl.groups) sms -= sms % tl.groups;\n"
+_CUT = "  if (!kDgrad && sms > tl.groups) sms -= sms % tl.groups;\n"
 # (old, new) edits of sepconv.cu per variant.
 PATCHES = {
     "shipped": [],
@@ -86,6 +87,7 @@ PATCHES = {
                      "    const int grp = t / (count / groups), "
                      "r = t % (count / groups);\n")],
     "full_grid": [(_CUT, "")],
+    "cut_grid": [(_CUT, _CUT.replace("!kDgrad && ", ""))],
 }
 # The parent checkout's forward: x, w, cbias, sb, y, B, H, W, C, K, stream.
 PARENT_FORWARD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]

@@ -433,6 +433,20 @@ def test_kernels_raise_instead_of_falling_back(dev):
                 fn()
 
 
+@pytest.mark.cuda
+def test_dw_star_refuses_misaligned_inputs(dev):
+    """Kernels 7 and 8 read x, g and w through TMA tensor maps: a tensor
+    that does not start on a 16-byte boundary raises instead of launching."""
+    n = 16 * 16 * 128
+    x = torch.randn(n + 1, device=dev)[1:].view(1, 16, 16, 128)
+    w = torch.randn(7, 7, 128, device=dev)
+    one = torch.ones((), device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        dw_star_fwd(x, w, w[0, 0], one, one)
+    with pytest.raises(ValueError, match="16-byte"):
+        dw_star_dgrad(x, w, one, x)
+
+
 def sepconv_inputs(dev, B, H, W, C, K=7, seed=0):
     g = torch.Generator(dev).manual_seed(seed)
     x = torch.randn(B, H, W, C, device=dev, generator=g)
