@@ -983,14 +983,12 @@ def phase_matcher_kernels(dev):
     # f32 on both sides (TF32 is off): the kernels sum the 49 taps, and the
     # per-block partials of ds, db and dw, in other orders than cuDNN and
     # torch.sum do.  Batch 2 (training) at both stages, then batch 1
-    # (serving) for the forward and dgrad.
+    # (serving).
     for stage, shape in (("stage 0", (2, 240, 240, 256)),
                          ("stage 1", (2, 60, 60, 512)),
                          ("stage 0", (1, 240, 240, 256)),
                          ("stage 1", (1, 60, 60, 512))):
-        if shape[0] == 1:
-            dw_star_serving_shape(dev, g, stage, shape)
-            continue
+        train = shape[0] == 2   # the serving batch takes no weight gradient
         C = shape[-1]
         x = torch.randn(shape, device=dev, generator=g)
         w = torch.randn(7, 7, C, device=dev, generator=g) * 0.1
@@ -1001,54 +999,60 @@ def phase_matcher_kernels(dev):
         y, y_p = dw_star_fwd(x, w, cb, s, b), dw_star_plain(x, w, cb, s, b)
         dx, ds, db = dw_star_dgrad(x, w, s, up)
         dx_p, ds_p, db_p = dw_star_dgrad_plain(x, w, s, up)
-        dw, dw_p = dw_star_wgrad(x, s, b, up), dw_star_wgrad_plain(x, s, b, up)
         rerun = dw_star_dgrad(x, w, s, up)
         same = (torch.equal(rerun[0], dx) and torch.equal(rerun[1], ds)
-                and torch.equal(rerun[2], db)
-                and torch.equal(dw_star_wgrad(x, s, b, up), dw))
+                and torch.equal(rerun[2], db))
+        outs = [y, dx, ds, db]
+        if train:
+            dw, dw_p = (dw_star_wgrad(x, s, b, up),
+                        dw_star_wgrad_plain(x, s, b, up))
+            same = same and torch.equal(dw_star_wgrad(x, s, b, up), dw)
+            outs.append(dw)
         wf = torch.flip(w, (0, 1)).permute(2, 0, 1).unsqueeze(1)
         dact = F.conv2d(up.permute(0, 3, 1, 2), wf, padding=3,
                         groups=C).permute(0, 2, 3, 1)
         r2 = torch.relu(x) ** 2
         torch.cuda.synchronize()
         errs = {"y": scaled_err(y, y_p), "dx": scaled_err(dx, dx_p),
-                "dw": scaled_err(dw, dw_p),
                 "ds": abs(float(ds - ds_p)) / float((dact * r2).abs().sum()),
                 "db": abs(float(db - db_p)) / float(dact.abs().sum())}
         times = {
             "dw_star_fwd": (cuda_ms(lambda: dw_star_fwd(x, w, cb, s, b)),
                             cuda_ms(lambda: dw_star_plain(x, w, cb, s, b))),
             "dw_star_dgrad": (cuda_ms(lambda: dw_star_dgrad(x, w, s, up)),
-                              cuda_ms(lambda: dw_star_dgrad_plain(x, w, s, up))),
-            "dw_star_wgrad": (cuda_ms(lambda: dw_star_wgrad(x, s, b, up)),
-                              cuda_ms(lambda: dw_star_wgrad_plain(x, s, b, up),
-                                      3))}
+                              cuda_ms(lambda: dw_star_dgrad_plain(x, w, s, up)))}
         abs_err = {"dw_star_fwd": float((y - y_p).abs().max()),
-                   "dw_star_dgrad": float((dx - dx_p).abs().max()),
-                   "dw_star_wgrad": float((dw - dw_p).abs().max())}
+                   "dw_star_dgrad": float((dx - dx_p).abs().max())}
+        # f32 multiply-adds of the 49 taps per element; each tensor read or
+        # written once (StarReLU + conv is no single PyTorch call).
+        taps = {"f32": 2 * 49 * x.numel()}
+        moved = {"dw_star_fwd": nbytes(x, w, cb, y),
+                 "dw_star_dgrad": nbytes(x, w, up, dx)}
+        if train:
+            errs["dw"] = scaled_err(dw, dw_p)
+            times["dw_star_wgrad"] = (
+                cuda_ms(lambda: dw_star_wgrad(x, s, b, up)),
+                cuda_ms(lambda: dw_star_wgrad_plain(x, s, b, up), 3))
+            abs_err["dw_star_wgrad"] = float((dw - dw_p).abs().max())
+            moved["dw_star_wgrad"] = nbytes(x, up, dw)
+        bounds = {k: bound(taps, moved[k]) for k in times}
         log(f"kernel dw_star {stage} {tuple(shape)}: scaled err "
             + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
             + " (tol 1e-4 of the largest value for y, dx, dw; 1e-5 of the "
             "sum of |terms| for ds, db); rerun bit-identical "
             f"{same}; ms / plain_ms " + json.dumps(
                 {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()})
+            + "; bound_ms " + json.dumps(
+                {k: round(v["bound_ms"], 4) for k, v in bounds.items()})
             + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}")
-        assert max(errs["y"], errs["dx"], errs["dw"]) < 1e-4
+        assert max(v for k, v in errs.items() if k in ("y", "dx", "dw")) < 1e-4
         assert max(errs["ds"], errs["db"]) < 1e-5 and same
-        assert all(torch.isfinite(t).all() for t in (y, dx, dw, ds, db))
-        if stage == "stage 0":
-            # f32 multiply-adds of the 49 taps per element; each tensor read
-            # or written once (StarReLU + conv is no single PyTorch call).
-            taps = {"f32": 2 * 49 * x.numel()}
-            moved = {"dw_star_fwd": nbytes(x, w, cb, y),
-                     "dw_star_dgrad": nbytes(x, w, up, dx),
-                     "dw_star_wgrad": nbytes(x, up, dw)}
+        assert all(torch.isfinite(t).all() for t in outs)
+        if stage == "stage 0" and train:
             rows.update({k: dict(max_abs_err=abs_err[k], ms=a, plain_ms=p,
-                                 library_ms=None, **bound(taps, moved[k]))
+                                 library_ms=None, **bounds[k])
                          for k, (a, p) in times.items()})
-            log("  bound_ms " + json.dumps(
-                {k: round(rows[k]["bound_ms"], 4) for k in times}))
-        del x, up, y, y_p, dx, dx_p, dact, r2, rerun
+        del x, up, y, y_p, dx, dx_p, dact, r2, rerun, outs
 
     q = torch.randn(2, 3600, 8, 32, device=dev, generator=g) / np.sqrt(32)
     k = torch.randn(2, 3600, 8, 32, device=dev, generator=g)
@@ -1116,50 +1120,6 @@ def conv_alone_ms(x, w):
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
     return cuda_ms(lambda: F.conv2d(xc, wc, padding=3, groups=x.shape[-1]))
-
-
-def dw_star_serving_shape(dev, g, stage, shape):
-    """Kernels 7 and 8 at batch 1 (the serving trunk's shapes) against their
-    plain versions, timed beside their bounds and ``conv_alone_ms``."""
-    from torch.nn import functional as F
-
-    from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
-        dw_star_dgrad, dw_star_dgrad_plain, dw_star_fwd, dw_star_plain)
-
-    C = shape[-1]
-    x = torch.randn(shape, device=dev, generator=g)
-    w = torch.randn(7, 7, C, device=dev, generator=g) * 0.1
-    cb = torch.randn(C, device=dev, generator=g)
-    s = torch.tensor(0.8944, device=dev)
-    b = torch.tensor(-0.4472, device=dev)
-    up = torch.randn(shape, device=dev, generator=g)
-    y, y_p = dw_star_fwd(x, w, cb, s, b), dw_star_plain(x, w, cb, s, b)
-    dx, ds, db = dw_star_dgrad(x, w, s, up)
-    dx_p, ds_p, db_p = dw_star_dgrad_plain(x, w, s, up)
-    wf = torch.flip(w, (0, 1)).permute(2, 0, 1).unsqueeze(1)
-    dact = F.conv2d(up.permute(0, 3, 1, 2), wf, padding=3,
-                    groups=C).permute(0, 2, 3, 1)
-    r2 = torch.relu(x) ** 2
-    errs = {"y": scaled_err(y, y_p), "dx": scaled_err(dx, dx_p),
-            "ds": abs(float(ds - ds_p)) / float((dact * r2).abs().sum()),
-            "db": abs(float(db - db_p)) / float(dact.abs().sum())}
-    times = {
-        "dw_star_fwd": (cuda_ms(lambda: dw_star_fwd(x, w, cb, s, b)),
-                        cuda_ms(lambda: dw_star_plain(x, w, cb, s, b))),
-        "dw_star_dgrad": (cuda_ms(lambda: dw_star_dgrad(x, w, s, up)),
-                          cuda_ms(lambda: dw_star_dgrad_plain(x, w, s, up)))}
-    taps = {"f32": 2 * 49 * x.numel()}
-    bounds = {"dw_star_fwd": bound(taps, nbytes(x, w, cb, y))["bound_ms"],
-              "dw_star_dgrad": bound(taps, nbytes(x, w, up, dx))["bound_ms"]}
-    log(f"kernel dw_star {stage} {tuple(shape)}: scaled err "
-        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
-        + " (tols as at batch 2); ms / plain_ms " + json.dumps(
-            {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()})
-        + "; bound_ms " + json.dumps({k: round(v, 4) for k, v in bounds.items()})
-        + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}")
-    assert max(errs["y"], errs["dx"]) < 1e-4
-    assert max(errs["ds"], errs["db"]) < 1e-5
-    assert all(torch.isfinite(t).all() for t in (y, dx, ds, db))
 
 
 def sdpa_backward(q, k, v, up):
