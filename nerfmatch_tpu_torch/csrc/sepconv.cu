@@ -50,7 +50,7 @@
 // them to a (regions, K*K, C) partials buffer, reduced over regions by the
 // caller in a fixed order.
 
-#include <cuda.h>   // CUtensorMap and the driver's enums (libcuda is not linked)
+#include <cuda.h>   // CUtensorMap and its enums (libcuda itself is not linked)
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -489,8 +489,8 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)
 // The persistent grid: one block per SM (a block's two stages take most of
 // the SM's shared memory), at most one per tile.  The forward's is cut to a
 // multiple of the channel groups, so each block keeps one channel group and
-// its taps for all its tiles (reloading them costs the forward's issue
-// slots); the dgrad, held by memory, takes every SM.
+// its taps for all its tiles (reloading them costs the forward's
+// instruction slots); the dgrad, held by memory, takes every SM.
 template <bool kDgrad>
 cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
   int dev = 0, sms = 0;

@@ -13,7 +13,7 @@ variant, all started together:
   outputs are cbias or 0);
 * ``no_act``: the forward skips its StarReLU pass over the staged halo;
 * ``one_stage``: a ring of one stage (no double buffering: a tile's load
-  is issued only when the tile before it is done);
+  starts only when the tile before it is done);
 * ``load_only``: ``copy_only`` that stores no output (the dgrad still
   sums ds and db);
 * ``reg_store``: the forward stores its outputs from registers (masked at
