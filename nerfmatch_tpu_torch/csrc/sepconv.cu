@@ -55,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 #include "wgmma_common.cuh"
 
 namespace {
@@ -74,8 +76,7 @@ constexpr int kPatch = 4;         // a warp's patch: 4 x 4 outputs
 constexpr int kPatchCols = kTileW / kPatch;
 constexpr int kWarps = (kTileH / kPatch) * kPatchCols;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kFwdStages = 2;
-constexpr int kDgradStages = 2;
+constexpr int kStages = 2;        // tiles in flight: the ring's stages
 constexpr uint32_t kHaloBytes = kHaloH * kHaloW * kTileC * 4;
 constexpr uint32_t kInBytes = kTileH * kTileW * kTileC * 4;
 constexpr uint32_t kTapBytes = kTaps * kTaps * kTileC * 4;
@@ -219,18 +220,14 @@ __device__ __forceinline__ void patch_taps(const float* src,
   }
 }
 
-// The forward's outputs leave by one TMA store a tile from an output buffer;
-// the dgrad's from registers (no room for a buffer beside its two stages,
-// and a store from x's slot would hold back the next tile's load).
-template <bool kDgrad>
-constexpr bool kTmaStoreFor = !kDgrad;
-
 // Shared memory of the tile kernel: the ring, (forward) the output tile
-// for its TMA store, the mbarriers, the block's [ds, db] per warp.
-template <bool kDgrad, int kStages>
+// for its TMA store, the mbarriers, the block's [ds, db] per warp.  The
+// dgrad stores from registers: its two stages leave no room for an output
+// tile, and a store from x's slot would hold back the next tile's load.
+template <bool kDgrad>
 struct Smem {
   static constexpr uint32_t kOut = kStages * Stage<kDgrad>::kBytes;
-  static constexpr uint32_t kBars = kOut + (kTmaStoreFor<kDgrad> ? kInBytes : 0);
+  static constexpr uint32_t kBars = kOut + (kDgrad ? 0 : kInBytes);
   static constexpr uint32_t kRed = kBars + 8 * kStages;
   static constexpr uint32_t kBytes = kRed + 2 * kWarps * 4;
 };
@@ -239,7 +236,7 @@ struct Smem {
 // g, x_map x (a tile's outputs, no halo), out dx, and part gets the block's
 // [ds, db].  w_map: the taps as a (K * K, C) array.  s, b: StarReLU's
 // scalars on the device (dgrad reads s only).
-template <bool kDgrad, int kStages>
+template <bool kDgrad>
 __global__ void __launch_bounds__(kThreads, 1)
 dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
                     const __grid_constant__ CUtensorMap x_map,
@@ -250,8 +247,7 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
                     const float* __restrict__ b_ptr, float* __restrict__ out,
                     float* __restrict__ part, int B, int H, int W, int C) {
   using L = Stage<kDgrad>;
-  using M = Smem<kDgrad, kStages>;
-  constexpr bool kTmaStore = kTmaStoreFor<kDgrad>;
+  using M = Smem<kDgrad>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t sm0 = smem_u32(smem_raw);
   const uint32_t bars = sm0 + M::kBars;
@@ -297,7 +293,7 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
     float* halo = stage;
     mbar_wait(bars + 8 * st, (i / kStages) & 1);
     if (!kDgrad) {
-      if (kTmaStore && tid == 0) bulk_read_done();   // the last tile's y is out
+      if (tid == 0) bulk_read_done();   // the last tile's y is out
       activate(halo, y0, x0, H, W, s, b_act);
       __syncthreads();   // the activated halo (and the output buffer is free)
     }
@@ -324,31 +320,27 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
 #pragma unroll
       for (int ox = 0; ox < kPatch; ++ox) {
         float& slot = ot[(oy * kTileW + ox) * kTileC];
-        if (kTmaStore) {   // TMA writes nothing outside the array
+        if (!kDgrad) {   // TMA writes nothing outside the array
           slot = acc[oy][ox] + cb;
           continue;
         }
         if (oy0 + oy >= H || ox0 + ox >= W) continue;
         const size_t off = ((size_t)oy * W + ox) * C;
-        if (kDgrad) {
-          const float rx = fmaxf(slot, 0.f), d = acc[oy][ox];
-          o[off] = 2.f * s * rx * d;
-          ds_t = fmaf(d, rx * rx, ds_t);
-          db_t += d;
-        } else {
-          o[off] = acc[oy][ox] + cb;
-        }
+        const float rx = fmaxf(slot, 0.f), d = acc[oy][ox];
+        o[off] = 2.f * s * rx * d;
+        ds_t = fmaf(d, rx * rx, ds_t);
+        db_t += d;
       }
     ds += ds_t;
     db += db_t;
     if (!kDgrad) fence_async();   // the halo and y writes, for TMA
     __syncthreads();   // stage st is free (and the output tile complete)
     if (tid == 0) {
-      if (kTmaStore) tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, y0, b);
+      if (!kDgrad) tma_store_4d(&out_map, sm0 + M::kOut, grp * kTileC, x0, y0, b);
       if (i + kStages < mine) load_tile(i + kStages);
     }
   }
-  if (kTmaStore && tid == 0) bulk_wait_all();
+  if (!kDgrad && tid == 0) bulk_wait_all();
 
   if (kDgrad) {   // the block's [ds, db]: warp xor trees, then warps in order
 #pragma unroll
@@ -486,6 +478,23 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+constexpr int kMaxDevices = 64;
+
+// The current device and its SM count, queried once per device.
+cudaError_t device_sms(int* dev, int* sms) {
+  static std::atomic<int> cached[kMaxDevices];
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  *sms = cached[*dev].load(std::memory_order_relaxed);
+  if (*sms == 0) {
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, *dev);
+    if (e != cudaSuccess) return e;
+    cached[*dev].store(*sms, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
 // The persistent grid: one block per SM (a block's two stages take most of
 // the SM's shared memory), at most one per tile.  The forward's is cut to a
 // multiple of the channel groups, so each block keeps one channel group and
@@ -494,21 +503,36 @@ cudaError_t tensor_map(CUtensorMap* map, const void* p, const cuuint64_t (&dims)
 template <bool kDgrad>
 cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const cudaError_t e = device_sms(&dev, &sms);
+  if (e != cudaSuccess) return e;
   const Tiles tl(B, H, W, C);
   if (!kDgrad && sms > tl.groups) sms -= sms % tl.groups;
   *grid = tl.count < sms ? tl.count : sms;
+  return cudaSuccess;
+}
+
+// Lets the tile kernel take its dynamic shared memory, once per device.
+template <bool kDgrad>
+cudaError_t allow_smem() {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0, sms = 0;
+  cudaError_t e = device_sms(&dev, &sms);
+  if (e != cudaSuccess || done[dev].load(std::memory_order_relaxed)) return e;
+  e = cudaFuncSetAttribute(dw_star_tile_kernel<kDgrad>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)Smem<kDgrad>::kBytes);
+  if (e == cudaSuccess) done[dev].store(true, std::memory_order_relaxed);
   return e;
 }
 
-// in: x (forward) or g (dgrad); x: x (dgrad only).
-template <bool kDgrad, int kStages>
+// in: x (forward) or g (dgrad); x: x (dgrad only).  grid: the blocks, any
+// number in [1, tiles] (the tiles are dealt round-robin).
+template <bool kDgrad>
 cudaError_t launch_tiles(const void* in, const void* x, const void* w,
                          const float* cbias, const float* s, const float* b,
                          float* out, float* part, int B, int H, int W, int C,
-                         cudaStream_t stream) {
+                         int grid, cudaStream_t stream) {
+  if (grid < 1 || grid > Tiles(B, H, W, C).count) return cudaErrorInvalidValue;
   const cuuint64_t nhwc[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint32_t halo_box[4] = {kTileC, kHaloW, kHaloH, 1};
@@ -521,18 +545,11 @@ cudaError_t launch_tiles(const void* in, const void* x, const void* w,
   x_map = in_map;   // the forward reads no x tile
   if (kDgrad && e == cudaSuccess) e = tensor_map(&x_map, x, nhwc, tile_box);
   out_map = in_map;   // the dgrad stores from registers
-  if (kTmaStoreFor<kDgrad> && e == cudaSuccess)
-    e = tensor_map(&out_map, out, nhwc, tile_box);
+  if (!kDgrad && e == cudaSuccess) e = tensor_map(&out_map, out, nhwc, tile_box);
+  if (e == cudaSuccess) e = allow_smem<kDgrad>();
   if (e != cudaSuccess) return e;
-  const size_t bytes = Smem<kDgrad, kStages>::kBytes;
-  auto kern = dw_star_tile_kernel<kDgrad, kStages>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  int grid = 0;
-  if (e == cudaSuccess) e = tile_grid<kDgrad>(B, H, W, C, &grid);
-  if (e != cudaSuccess) return e;
-  kern<<<grid, kThreads, bytes, stream>>>(in_map, x_map, w_map, out_map, cbias, s,
-                                          b, out, part, B, H, W, C);
+  dw_star_tile_kernel<kDgrad><<<grid, kThreads, Smem<kDgrad>::kBytes, stream>>>(
+      in_map, x_map, w_map, out_map, cbias, s, b, out, part, B, H, W, C);
   return cudaGetLastError();
 }
 
@@ -545,28 +562,31 @@ extern "C" int nm_dw_star_forward(const void* x, const void* w,
                                   const void* b, void* y, int B, int H, int W,
                                   int C, int K, void* stream) {
   if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<false, kFwdStages>(
-      x, nullptr, w, (const float*)cbias, (const float*)s, (const float*)b,
-      (float*)y, nullptr, B, H, W, C, (cudaStream_t)stream);
+  int grid = 0;
+  const cudaError_t e = tile_grid<false>(B, H, W, C, &grid);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_tiles<false>(x, nullptr, w, (const float*)cbias,
+                                  (const float*)s, (const float*)b, (float*)y,
+                                  nullptr, B, H, W, C, grid, (cudaStream_t)stream);
 }
 
-// The number of per-block [ds, db] partials nm_dw_star_dgrad writes for this
-// shape on the current device, into *parts.
+// The dgrad's grid for this shape on the current device, into *parts: the
+// rows of [ds, db] partials to give nm_dw_star_dgrad.
 extern "C" int nm_dw_star_dgrad_parts(int B, int H, int W, int C, int* parts) {
   if (bad_shape(B, H, W, C, kTaps)) return (int)cudaErrorInvalidValue;
   return (int)tile_grid<true>(B, H, W, C, parts);
 }
 
-// s: StarReLU's scale on the device; dx (B, H, W, C); part
-// (nm_dw_star_dgrad_parts, 2): per-block [ds, db] partials.  x, g and w
-// 16-byte aligned.
+// s: StarReLU's scale on the device; dx (B, H, W, C); part (parts, 2): the
+// per-block [ds, db] partials, one block a row (parts in [1, tiles]; the
+// caller's count from nm_dw_star_dgrad_parts).  x, g and w 16-byte aligned.
 extern "C" int nm_dw_star_dgrad(const void* x, const void* g, const void* w,
-                                const void* s, void* dx, void* part, int B,
-                                int H, int W, int C, int K, void* stream) {
+                                const void* s, void* dx, void* part, int parts,
+                                int B, int H, int W, int C, int K, void* stream) {
   if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  return (int)launch_tiles<true, kDgradStages>(
-      g, x, w, nullptr, (const float*)s, nullptr, (float*)dx, (float*)part, B,
-      H, W, C, (cudaStream_t)stream);
+  return (int)launch_tiles<true>(g, x, w, nullptr, (const float*)s, nullptr,
+                                 (float*)dx, (float*)part, B, H, W, C, parts,
+                                 (cudaStream_t)stream);
 }
 
 // part (B * ceil(H / 32) * ceil(W / 4), K * K, C): per-region tap sums.

@@ -75,8 +75,8 @@ _SIGNATURES = {
     "nm_dw_star_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # B, H, W, C, out number of [ds, db] partials
     "nm_dw_star_dgrad_parts": [_I, _I, _I, _I, _P],
-    # x, g, w, s, dx, part, B, H, W, C, K, stream
-    "nm_dw_star_dgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, g, w, s, dx, part, parts, B, H, W, C, K, stream
+    "nm_dw_star_dgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, sb, part, B, H, W, C, K, stream
     "nm_dw_star_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -15,6 +15,7 @@ sum of g (the JAX package leaves it to XLA too).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.nn import functional as F
@@ -127,12 +128,15 @@ def dw_star_fwd(x, w, cbias, s, b):
     return y
 
 
-def dw_star_dgrad_parts(B: int, H: int, W: int, C: int) -> int:
-    """Rows of kernel 8's [ds, db] partials for this shape on the current
-    device (its persistent grid), as the C side computes them."""
+@functools.lru_cache(maxsize=None)
+def dw_star_dgrad_parts(device: int, B: int, H: int, W: int, C: int) -> int:
+    """Rows of kernel 8's [ds, db] partials for this shape on CUDA device
+    ``device``: its persistent grid, as the C side computes it (asked once
+    per device and shape; the kernel launches one block a row)."""
     n = ctypes.c_int(0)
-    check(library().nm_dw_star_dgrad_parts(B, H, W, C, ctypes.byref(n)),
-          "dw_star_dgrad_parts")
+    with torch.cuda.device(device):
+        check(library().nm_dw_star_dgrad_parts(B, H, W, C, ctypes.byref(n)),
+              "dw_star_dgrad_parts")
     return n.value
 
 
@@ -147,11 +151,11 @@ def dw_star_dgrad(x, w, s, g):
     require_cuda_tensors("dw_star_dgrad", x, w, g, s)
     _require_aligned("dw_star_dgrad", x, w, g)
     dx = torch.empty_like(x)
-    part = torch.empty(dw_star_dgrad_parts(B, H, W, C), 2, device=x.device,
-                       dtype=torch.float32)
+    parts = dw_star_dgrad_parts(x.device.index, B, H, W, C)
+    part = torch.empty(parts, 2, device=x.device, dtype=torch.float32)
     err = library().nm_dw_star_dgrad(
         x.data_ptr(), g.data_ptr(), w.data_ptr(), s.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
+        part.data_ptr(), parts, B, H, W, C, K, stream_ptr(x.device))
     check(err, "dw_star_dgrad")
     LAUNCHES["dw_star_dgrad"] += 1
     dsb = part.sum(0)

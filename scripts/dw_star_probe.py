@@ -1,7 +1,7 @@
 """What the StarReLU + 7x7 depthwise forward (kernel 7) and dgrad (kernel 8)
 are made of, on one NVIDIA GPU.
 
-    python3 scripts/dw_star_probe.py [--parent DIR]
+    python3 scripts/dw_star_probe.py [--parent-source FILE]
 
 Builds ``nerfmatch_tpu_torch/csrc/sepconv.cu`` alone once per variant
 below, each an edited copy of the source (``PATCHES``, each edit matched
@@ -26,19 +26,18 @@ variant, all started together:
   groups (a block on every SM, as the dgrad's: blocks change channel group,
   and reload their taps, from tile to tile);
 * ``cut_grid``: the dgrad's grid cut too (a block keeps its channel group);
-* ``parent``: with ``--parent DIR``, ``DIR/nerfmatch_tpu_torch/csrc/
-  sepconv.cu`` of the parent checkout (its forward and dgrad take [s, b]
-  as one pointer, and its dgrad writes ``(C / 128) ceil(H / 8) ceil(W / 4)
-  B`` partials).
+* ``parent``: with ``--parent-source FILE``, an earlier ``sepconv.cu``
+  (the one-thread-a-channel design, whose forward and dgrad take [s, b] as
+  one pointer and whose dgrad writes ``(C / 128) ceil(H / 8) ceil(W / 4)
+  B`` partials), copied and built like the others.
 
 Then it times each build's ``nm_dw_star_forward`` and ``nm_dw_star_dgrad``
 (CUDA events, mean of 20 launches after a warm-up) at the c2f trunk's
 stage-0 and stage-1 shapes at batch 1 and 2, the variants in order and
 again in reverse (parent, shipped, ..., shipped, parent), and prints one
 JSON line per shape after the card's name and power limit: ms per variant,
-both rounds; the last lines give the host microseconds per call of the
-package's two wrappers at a small shape (and, with ``--parent``, of the
-parent's, in a process of its own).  The shipped build's outputs must
+both rounds; the last line gives the host microseconds per call of the
+package's two wrappers at a small shape.  The shipped build's outputs must
 equal the package's bit for bit; the probe builds compute something else
 and are only timed.  Compare within one run only.
 """
@@ -56,9 +55,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# With --host-root the package comes from that checkout instead.
-sys.path.insert(0, sys.argv[sys.argv.index("--host-root") + 1]
-                if "--host-root" in sys.argv else str(ROOT))
+sys.path.insert(0, str(ROOT))
 
 from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels import sepconv_kernel as sk  # noqa: E402
@@ -67,37 +64,47 @@ _CALL = "    patch_taps(halo + (py * kHaloW + px) * kTileC + lane, taps, acc);\n
 _ZERO = ("    for (auto& row : acc)\n"
          "      for (float& a : row) a = 0.f;\n")
 _ACT = "      activate(halo, y0, x0, H, W, s, b_act);\n"
-_STORE_Y = ("      if (kTmaStore) tma_store_4d(&out_map, sm0 + M::kOut, "
+_STORE_Y = ("      if (!kDgrad) tma_store_4d(&out_map, sm0 + M::kOut, "
             "grp * kTileC, x0, y0, b);\n")
-_STORE_DX = "          o[off] = 2.f * s * rx * d;\n"
-_FWD = "constexpr int kFwdStages = 2;"
-_DGRAD = "constexpr int kDgradStages = 2;"
-_TMA_STORE = "constexpr bool kTmaStoreFor = !kDgrad;"
+_STORE_DX = "        o[off] = 2.f * s * rx * d;\n"
+_STAGES = "constexpr int kStages = 2;"
+_TMA_SLOT = ("        if (!kDgrad) {   // TMA writes nothing outside the array\n"
+             "          slot = acc[oy][ox] + cb;\n"
+             "          continue;\n"
+             "        }\n")
+_DX = "        const float rx = fmaxf(slot, 0.f), d = acc[oy][ox];\n"
+_REG_Y = ("        if (!kDgrad) {\n"
+          "          o[off] = acc[oy][ox] + cb;\n"
+          "          continue;\n"
+          "        }\n")
 _CUT = "  if (!kDgrad && sms > tl.groups) sms -= sms % tl.groups;\n"
 # (old, new) edits of sepconv.cu per variant.
 PATCHES = {
     "shipped": [],
     "copy_only": [(_CALL, _ZERO)],
     "no_act": [(_ACT, "")],
-    "one_stage": [(_FWD, _FWD.replace("2", "1")),
-                  (_DGRAD, _DGRAD.replace("2", "1"))],
+    "one_stage": [(_STAGES, _STAGES.replace("2", "1"))],
     "load_only": [(_CALL, _ZERO), (_STORE_Y, ""), (_STORE_DX, "")],
-    "reg_store": [(_TMA_STORE, _TMA_STORE.replace("!kDgrad", "false"))],
+    "reg_store": [(_TMA_SLOT, ""), (_DX, _REG_Y + _DX), (_STORE_Y, "")],
     "group_outer": [("    const int grp = t % groups, r = t / groups;\n",
                      "    const int grp = t / (count / groups), "
                      "r = t % (count / groups);\n")],
     "full_grid": [(_CUT, "")],
     "cut_grid": [(_CUT, _CUT.replace("!kDgrad && ", ""))],
 }
-# The parent checkout's forward: x, w, cbias, sb, y, B, H, W, C, K, stream.
-PARENT_FORWARD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# The earlier design's entries: forward x, w, cbias, sb, y, B, H, W, C, K,
+# stream; dgrad x, g, w, sb, dx, part, B, H, W, C, K, stream.
+PARENT = {"nm_dw_star_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+          + [ctypes.c_void_p],
+          "nm_dw_star_dgrad": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+          + [ctypes.c_void_p]}
 SHAPES = {"stage 0, B=2": (2, 240, 240, 256), "stage 0, B=1": (1, 240, 240, 256),
           "stage 1, B=2": (2, 60, 60, 512), "stage 1, B=1": (1, 60, 60, 512)}
 ENTRIES = ("nm_dw_star_forward", "nm_dw_star_dgrad", "nm_dw_star_dgrad_parts")
 
 
-def build_variants(parent=None):
-    """-> {variant: library}."""
+def build_variants(parent_source=None):
+    """-> {variant: library}, each built into this checkout's build/."""
     out_root = ROOT / "build" / "dw_star_probe"
     sources = {}
     for name, edits in PATCHES.items():
@@ -106,17 +113,16 @@ def build_variants(parent=None):
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: edit does not match once: {old!r}")
             text = text.replace(old, new)
-        sources[name] = (text, kernels.CSRC)
-    if parent is not None:
-        csrc = Path(parent) / "nerfmatch_tpu_torch" / "csrc"
-        sources["parent"] = ((csrc / "sepconv.cu").read_text(), csrc)
+        sources[name] = text
+    if parent_source is not None:
+        sources["parent"] = Path(parent_source).read_text()
     jobs = {}
-    for name, (text, include) in sources.items():
+    for name, text in sources.items():
         out_dir = out_root / name
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "sepconv.cu").write_text(text)
         so = out_dir / "sepconv.so"
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{include}", "-shared",
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}", "-shared",
                "-o", str(so), str(out_dir / "sepconv.cu")]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True))
@@ -129,10 +135,9 @@ def build_variants(parent=None):
         lib = ctypes.CDLL(str(so))
         for fn in ENTRIES:
             if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
+                getattr(lib, fn).argtypes = (PARENT if name == "parent" else
+                                             kernels._SIGNATURES)[fn]
                 getattr(lib, fn).restype = ctypes.c_int
-        if name == "parent":
-            lib.nm_dw_star_forward.argtypes = PARENT_FORWARD
         libs[name] = lib
     return libs
 
@@ -170,20 +175,14 @@ def host_us(dev, reps=200):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent", help="root of the parent checkout to time "
-                   "beside")
-    p.add_argument("--host-root", help="only print the host microseconds "
-                   "per wrapper call of this checkout's package")
+    p.add_argument("--parent-source", metavar="FILE",
+                   help="an earlier sepconv.cu to build and time beside")
     args = p.parse_args()
     dev = torch.device("cuda", 0)
-    if args.host_root:
-        print(json.dumps({"host_us_per_call": host_us(dev)}), flush=True)
-        return
-    sys.path.insert(0, str(ROOT))
     import chip_smoke
 
     smi = chip_smoke.phase_environment()
-    libs = build_variants(args.parent)
+    libs = build_variants(args.parent_source)
     order = (["parent"] if "parent" in libs else []) + list(PATCHES)
     print(smi, flush=True)
     g = torch.Generator(dev).manual_seed(2)
@@ -211,9 +210,10 @@ def main():
                 y.data_ptr(), B, H, W, C, 7, stream), "dw_star_fwd")
 
         def dgrad(lib):
+            grid = () if lib is libs.get("parent") else (parts(lib, *shape),)
             kernels.check(lib.nm_dw_star_dgrad(
                 x.data_ptr(), up.data_ptr(), w.data_ptr(), sb0.data_ptr(),
-                dx.data_ptr(), part.data_ptr(), B, H, W, C, 7, stream),
+                dx.data_ptr(), part.data_ptr(), *grid, B, H, W, C, 7, stream),
                 "dw_star_dgrad")
 
         shipped = libs["shipped"]
@@ -238,11 +238,6 @@ def main():
         print(json.dumps(row), flush=True)
         del x, up, y, dx, part
     print(json.dumps({"host_us_per_call": host_us(dev)}), flush=True)
-    if args.parent:   # the parent's wrappers, in a process of their own
-        out = subprocess.run([sys.executable, __file__, "--host-root",
-                              args.parent], capture_output=True, text=True,
-                             check=True).stdout.strip().splitlines()[-1]
-        print(json.dumps({"parent": json.loads(out)}), flush=True)
 
 
 if __name__ == "__main__":
