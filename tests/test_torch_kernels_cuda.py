@@ -447,6 +447,44 @@ def test_dw_star_refuses_misaligned_inputs(dev):
         dw_star_dgrad(x, w, one, x)
 
 
+@pytest.mark.cuda
+def test_dw_star_dgrad_launches_the_grid_it_is_given(dev):
+    """Kernel 8 launches one block per partials row it is given: any count
+    in [1, tiles] gives the same dx, and its partials sum to the plain ds
+    and db within 1e-5 of the sum of the absolute terms; a count outside
+    that range is refused without a launch."""
+    B, H, W, C = 1, 40, 40, 128          # 3 x 3 tiles x 4 channel groups
+    tiles = 36
+    x, w, _, s, _, g = sepconv_inputs(dev, B, H, W, C)
+    dxp, dsp, dbp = dw_star_dgrad_plain(x, w, s, g)
+    wf = torch.flip(w, (0, 1)).permute(2, 0, 1).unsqueeze(1)
+    dact = torch.nn.functional.conv2d(g.permute(0, 3, 1, 2), wf, padding=3,
+                                      groups=C)
+    r = torch.relu(x).permute(0, 3, 1, 2)
+    lib = kernels.library()
+
+    def launch(parts):
+        dx = torch.empty_like(x)
+        part = torch.empty(max(parts, 1), 2, device=dev)
+        err = lib.nm_dw_star_dgrad(
+            x.data_ptr(), g.data_ptr(), w.data_ptr(), s.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), parts, B, H, W, C, 7,
+            kernels.stream_ptr(dev))
+        return err, dx, part.sum(0)
+
+    dxs = []
+    for parts in (1, 5, tiles):
+        err, dx, (ds, db) = launch(parts)
+        assert err == 0
+        assert scaled_err(dx, dxp) < 1e-4
+        assert abs(float(ds - dsp)) < 1e-5 * float((dact * r * r).abs().sum())
+        assert abs(float(db - dbp)) < 1e-5 * float(dact.abs().sum())
+        dxs.append(dx)
+    assert all(torch.equal(dx, dxs[0]) for dx in dxs)
+    for parts in (0, tiles + 1):
+        assert launch(parts)[0] != 0
+
+
 def sepconv_inputs(dev, B, H, W, C, K=7, seed=0):
     g = torch.Generator(dev).manual_seed(seed)
     x = torch.randn(B, H, W, C, device=dev, generator=g)
