@@ -8,8 +8,11 @@ Phases (each prints its results; any failure exits non-zero):
    TF32 switches (both off: dual-softmax and fine matching stay f32);
 2. build: the hand-written CUDA kernels from ``nerfmatch_tpu_torch/csrc``;
 3. kernel vs plain PyTorch version at the main path's shapes: the render
-   stage (coarse and fine) on 9216 rays of the room fixture at eps 0 and
-   1e-4, the resample on the coarse weights, and attention at B=1, H=8,
+   stage (coarse and fine, bf16 trunk: ``render_eval.cu``'s kernel, its
+   registers, spills and shared memory from the build) on 9216 rays of the
+   room fixture at eps 0 and 1e-4 (at 1e-4 its zero weights against
+   ``early_term_mask`` on the plain version's alpha), the resample on the
+   coarse weights, and attention at B=1, H=8,
    D=32, L=S=3600 in f32 and bf16-operand modes (the bf16 forward also
    against the one-pass plain version that rounds what the kernel rounds,
    its ``lse`` against ``torch.logsumexp``, and on earlier lines the
@@ -115,9 +118,9 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 KERNEL_SOURCES = {
-    "render_coarse": ("nerfmatch_tpu_torch/csrc/render.cu",
+    "render_coarse": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                       "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_fine": ("nerfmatch_tpu_torch/csrc/render.cu",
+    "render_fine": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                     "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
     "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render.cu",
                            "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
@@ -140,6 +143,12 @@ KERNEL_SOURCES = {
     "dw_star_wgrad": ("nerfmatch_tpu_torch/csrc/sepconv.cu",
                       "nerfmatch_tpu/ops/pallas/sepconv_kernel.py:268"),
 }
+# What the bf16 render stages run since their redesign (kernel line's
+# "design").
+RENDER_EVAL_DESIGN = ("wgmma m64nHIDk16, persistent grid of two warpgroups, "
+                      "one 2-ray tile per warpgroup with early termination, "
+                      "32-row weight slices by bulk copy in a ring, tap "
+                      "layer run again on its kept A for the descriptor")
 # The serving default (trunk_int8='coarse'), then the opt-in requests'.
 SERVING_KERNELS = ("render_coarse_int8", "render_fine", "resample",
                    "attention", "dw_star_fwd")
@@ -201,6 +210,17 @@ def live_samples(weights, eps):
     dead[:, 0] = False
     dead = torch.cummax(dead.int(), -1).values.bool()
     return int((~dead).sum()) * TILE_RAYS * SAMPLE_BLOCK
+
+
+def weight_tensors(packed):
+    """The tensors of a packed weight list, each once (the bf16 kernel's
+    encoding flags are views into its slot images)."""
+    seen, out = set(), []
+    for p in packed:
+        if p is not None and p.untyped_storage().data_ptr() not in seen:
+            seen.add(p.untyped_storage().data_ptr())
+            out.append(p)
+    return out
 
 
 def render_bound(mlp, fine, rays, z, out, eps, weight_bytes, int8_from=None):
@@ -316,12 +336,39 @@ def phase_build():
             log(f"  ptxas {name}: " + line.strip().replace("ptxas info    : ", ""))
 
 
+def render_eval_build():
+    """The bf16 render kernel's ptxas lines (registers, spills) by
+    instantiation and its dynamic shared memory, from the build."""
+    import re
+
+    from nerfmatch_tpu_torch.ops import kernels
+
+    name, out = "", []
+    log_path = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "render_eval_kernel" in name and ("Used" in line or "spill" in line):
+            hid, fine, dbg = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name).groups()
+            out.append(f"<{hid}, {'fine' if fine == '1' else 'coarse'}"
+                       f"{', debug' if dbg == '1' else ''}>: "
+                       + line.strip().replace("ptxas info    : ", ""))
+    lib = kernels.library()
+    for hid in (64, 256):
+        for fine in (0, 1):
+            out.append(f"<{hid}, {'fine' if fine else 'coarse'}>: "
+                       f"{lib.nm_render_eval_smem(hid, fine)} bytes of "
+                       f"dynamic shared memory")
+    return out
+
+
 def phase_kernels(renderer, dev):
     """Kernel vs plain version at the main path's shapes -> summary rows."""
     from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
         attention_plain, fused_attention)
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
-        pack_mlp, render_stage, render_stage_plain)
+        early_term_mask, pack_mlp, render_stage, render_stage_plain,
+        stage_alpha_plain)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
         resample_z, resample_z_plain)
 
@@ -337,6 +384,8 @@ def phase_kernels(renderer, dev):
     # differs from it by f32 accumulation order and the bf16 rounding ties
     # this breaks apart.  The f32-MLP plain version is reported beside it.
     tol = 5e-3
+    for line in render_eval_build():
+        log(f"render_eval_kernel {line}")
     for eps in (0.0, 1e-4):
         for name, (mlp, fine) in stages.items():
             if name == "render_fine":
@@ -364,10 +413,28 @@ def phase_kernels(renderer, dev):
             assert scaled < tol and all(torch.isfinite(v).all()
                                         for v in a.values())
             if eps > 0:
+                # The skipped blocks against early_term_mask on the plain
+                # version's alpha: exact zeros there, and a kept (tile,
+                # block) all-zero only where the plain version's is.
+                mask = early_term_mask(stage_alpha_plain(
+                    mlp, rays, z_in[name], **kw), eps)
+                tile_zero = lambda w: (w.reshape(-1, 2, w.shape[1] // 32, 32)
+                                       == 0).all(-1).all(1)
+                kept = ~mask.reshape(-1, 2, mask.shape[1] // 32, 32)[:, 0, :, 0]
+                zeros_on_mask = bool((a["weights"][mask] == 0).all())
+                same_kept = torch.equal(tile_zero(a["weights"]) & kept,
+                                        tile_zero(b["weights"]) & kept)
+                log(f"  early termination: early_term_mask share "
+                    f"{float(mask.float().mean()):.4f}, kernel zero-weight "
+                    f"share {skipped:.4f}; kernel weights exact zeros on the "
+                    f"mask: {zeros_on_mask}; kept blocks all-zero as in the "
+                    f"plain version: {same_kept}")
+                assert zeros_on_mask and same_kept
                 rows[name] = dict(
+                    design=RENDER_EVAL_DESIGN,
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                     **render_bound(mlp, fine, rays, z_in[name], a, eps,
-                                   nbytes(*[p for p in packed if p is not None])))
+                                   nbytes(*weight_tensors(packed))))
                 log(f"  bound {rows[name]['bound_ms']:.3f} ms "
                     f"({rows[name]['bound_by']}; {live_samples(a['weights'], eps)}"
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
@@ -494,7 +561,7 @@ def phase_int8_kernels(renderer, dev):
     from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
                                                        pack_mlp_int8)
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
-        pack_mlp, render_stage, render_stage_plain)
+        pack_mlp, pack_mlp_fragments, render_stage, render_stage_plain)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
         resample_z_plain)
 
@@ -514,6 +581,7 @@ def phase_int8_kernels(renderer, dev):
             "posttap": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"],
                                                   tap + 1, tap))}
     bf16 = {id(m): pack_mlp(m) for m in (cmlp, fmlp)}
+    frags = {id(m): pack_mlp_fragments(m) for m in (cmlp, fmlp)}
     wbytes = lambda q: nbytes(*q["frag"].values(), *[
         v for k, v in q.items() if torch.is_tensor(v) and k[0] != "w"])
     log(f"int8 calibration: {calib_ms:.1f} ms (plain f32 render of 1024 rays, "
@@ -531,11 +599,11 @@ def phase_int8_kernels(renderer, dev):
             **args)["weights"]).contiguous()
         for mode, (mlp, fine, q) in int8.items():
             zz = zc if fine else z
-            packed = bf16[id(mlp)]
+            packed = frags[id(mlp)]
             run_k = lambda: render_stage(mlp, rays, zz, fine=fine,
                                          packed=packed, int8=q, **args)
             run_b = lambda: render_stage(mlp, rays, zz, fine=fine,
-                                         packed=packed, **args)
+                                         packed=bf16[id(mlp)], **args)
             run_p = lambda: render_stage_plain(mlp, rays, zz, fine=fine,
                                                int8=q, **args)
             a, b = run_k(), run_p()

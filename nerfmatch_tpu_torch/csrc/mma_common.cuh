@@ -1,4 +1,5 @@
-// Device helpers shared by the render kernels (render.cu, render_train.cu)
+// Device helpers shared by the render kernels (render.cu, render_train.cu;
+// render_eval.cu takes its constants)
 // and the resample kernel: bf16 tensor-core products with mma.sync
 // m16n8k16 over 64-row chunks held in shared memory, weight fragments
 // packed on the host, and warp reductions.

@@ -1,11 +1,13 @@
-// Fused mip-NeRF render stage for Hopper (sm_90a): bf16 tensor-core MLP,
-// f32 everywhere else.
+// Fused mip-NeRF render stage for Hopper (sm_90a) with the int8 serving
+// trunk (kernel 1b): mma.sync tensor-core MLP, f32 everywhere else.
 //
-// Replaces the TPU kernel nerfmatch_tpu/ops/pallas/render_kernel.py:
-// make_fused_render (bodies blocked_body / kernel), driven twice per ray
-// batch by make_fused_hierarchical: a coarse variant (weights, depth, acc)
-// and a fine variant (+ rgb, the composited layer-`feat_layer` descriptor
-// and the composited 3D point).
+// Replaces the trunk_int8 branch of the TPU kernel
+// nerfmatch_tpu/ops/pallas/render_kernel.py: make_fused_render (bodies
+// blocked_body / kernel) and the weights of nerfmatch_tpu/ops/pallas/quant.py
+// (packed by ops/kernels/quant.py), driven twice per ray batch by
+// make_fused_hierarchical: a coarse variant (weights, depth, acc) and a
+// fine variant (+ rgb, the composited layer-`feat_layer` descriptor and the
+// composited 3D point).  The stages with a bf16 trunk run render_eval.cu.
 //
 // Per ray: conical-frustum moments from the z fenceposts -> integrated
 // positional encoding -> 8 x HID MLP (skip concat after the skip layer) ->
@@ -16,27 +18,6 @@
 // skipped and their weights written as exact zeros (the JAX kernel's
 // semantics; skipped weights are < eps).
 //
-// Precision, as in the JAX kernel: the MLP's matrix products take bf16
-// operands (the encoding, the hidden activations, the weights) and
-// accumulate in f32 (mma.sync m16n8k16); biases, ReLU, the sigma head, the
-// descriptor tap, the frustum / encoding phases, transmittance and every
-// composited output stay f32.  The dirs part of the views layer and the
-// rgb head run in f32 FMA (per ray, and 3 columns).
-//
-// What bounds it on the H100: the MLP, ~1.2 MFLOP per sample per stage
-// (1.4 TFLOP per 9216-ray fine stage), so the trunk runs on the tensor
-// cores.  Design: one block of 256 threads (8 warps) per tile of 2 rays;
-// each 32-sample block of the tile is one 64-row chunk.  Activations
-// (64 x HID bf16) and the encoding stay in shared memory; each warp owns
-// HID/8 output columns of every row, loads A with ldmatrix and its weight
-// fragments straight from global memory (packed on the host in mma
-// fragment order, one 8-byte load per lane; 128 KB per bf16 layer, read
-// once per chunk by the block and L2-resident).  Later work: wgmma with
-// TMA-staged weights and larger row tiles.
-//
-// INT8 = true: the int8 serving trunk, replacing the trunk_int8 branch of
-// the same TPU kernel (render_kernel.py, blocked_body) and the weights of
-// nerfmatch_tpu/ops/pallas/quant.py (packed by ops/kernels/quant.py).
 // Trunk layers from int8_from on run mma.sync m16n8k32 s8 x s8 -> s32 on
 // int8 activations held in shared memory (64 x HID, plus the 64 x 96
 // quantized encoding); the f32 epilogue keeps the JAX order and rounding
@@ -46,10 +27,20 @@
 // plain version's.  The post-skip layer's two products (hidden rows and
 // encoding rows) keep separate accumulators and scale rows; each int8
 // layer runs in two halves of 32 rows to keep both in registers.  Layers
-// below int8_from, the heads and compositing are the bf16 kernel's.  What
-// bounds it: the trunk's ~1.19 T int8 operations per 9216-ray coarse
-// stage, ~0.60 ms at 1,979 TOPS.  Later work: wgmma s8 with TMA-staged
-// weights.
+// below int8_from and the feature and views heads take bf16 operands with
+// f32 accumulation (mma.sync m16n8k16); biases, ReLU, the sigma head, the
+// descriptor tap, the frustum / encoding phases, transmittance and every
+// composited output stay f32; the dirs part of the views layer and the rgb
+// head run in f32 FMA.
+//
+// What bounds it on the H100: the trunk's ~1.19 T int8 operations per
+// 9216-ray coarse stage, ~0.60 ms at 1,979 TOPS.  Design (the PR 1 render
+// kernel's): one block of 256 threads (8 warps) per tile of 2 rays; each
+// 32-sample block of the tile is one 64-row chunk.  Activations and the
+// encoding stay in shared memory; each warp owns HID/8 output columns of
+// every row, loads A with ldmatrix and its weight fragments straight from
+// global memory (packed on the host in mma fragment order, one 8-byte load
+// per lane, L2-resident).  Later work: wgmma s8 on render_eval.cu's engine.
 
 #include <math.h>
 
@@ -99,12 +90,12 @@ struct Smem {
   static constexpr int kTapStride = HID + 8;  // f32
   static constexpr int kActQStride = HID + 16;  // int8
   static constexpr int HV = HID / 2;
-  static size_t bytes(bool fine, bool int8) {
+  static size_t bytes(bool fine) {
     return (size_t)kRows * kActStride * 2 + (size_t)kRows * kEncStride * 2 +
            ((fine ? (size_t)kRows * kTapStride : 0) + kRows * 8 + kRows * 4 +
             2 * kRows + kWarps * kRows + kTileRays * HV +
             kTileRays * kDirsMax + kTileRays * HID) * 4 +
-           (int8 ? (size_t)kRows * (kActQStride + kEncQStride) : 0);
+           (size_t)kRows * (kActQStride + kEncQStride);
   }
 };
 
@@ -113,7 +104,7 @@ __device__ __forceinline__ signed char sat_rn(float x) {
   return (signed char)max(-127, min(127, __float2int_rn(x)));
 }
 
-template <int HID, bool FINE, bool INT8>
+template <int HID, bool FINE>
 __global__ void __launch_bounds__(kThreads)
 render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
               int int8_from, int F, int Fd, int S, float var_scale,
@@ -144,7 +135,7 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
   float* dpe = xt + kTileRays * HV;                        // kTileRays * kDirsMax
   float* facc = dpe + kTileRays * kDirsMax;                // kTileRays * HID
   int8_t* actq = reinterpret_cast<int8_t*>(facc + kTileRays * HID);
-  int8_t* encq = actq + kRows * kActQStride;               // INT8 only
+  int8_t* encq = actq + kRows * kActQStride;
   __shared__ float carry[kTileRays], acc_s[kTileRays], depth_s[kTileRays],
       tw_s[kTileRays], rgb_s[kTileRays][3];
 
@@ -166,7 +157,7 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
   for (int i = tid; i < kRows * (kEncMax - enc_dim); i += kThreads) {
     const int row = i / (kEncMax - enc_dim), j = enc_dim + i % (kEncMax - enc_dim);
     enc[row * kEncStride + j] = __float2bfloat16(0.f);
-    if (INT8) encq[row * kEncQStride + j] = 0;
+    encq[row * kEncQStride + j] = 0;
   }
   if (FINE) {
     for (int i = tid; i < kTileRays * HID; i += kThreads) facc[i] = 0.f;
@@ -253,7 +244,7 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
       const float vs = damp * sinf(x), vc = damp * sinf(x + kHalfPi);
       enc[row * kEncStride + j] = __float2bfloat16(vs);
       enc[row * kEncStride + 3 * F + j] = __float2bfloat16(vc);
-      if (INT8) {
+      {
         // Quantized from the f32 encoding, not the bf16 one.
         const signed char qs = sat_rn(__fmul_rn(vs, __ldg(q.qenc + j)));
         const signed char qc = sat_rn(__fmul_rn(vc, __ldg(q.qenc + 3 * F + j)));
@@ -269,12 +260,12 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
     }
     __syncthreads();
 
-    // ---- MLP trunk: bf16 mma, f32 accumulate, f32 bias + ReLU; with
-    //      INT8, layers from int8_from on in the quantized domain ----
+    // ---- MLP trunk: bf16 mma, f32 accumulate, f32 bias + ReLU below
+    //      int8_from, the layers from int8_from on in the quantized domain ----
     for (int i = 0; i < layer_num; ++i) {
       const bool is_tap = FINE && i == feat_layer;
       const bool is_last = i == layer_num - 1;
-      if (INT8 && i >= int8_from) {
+      if (i >= int8_from) {
         const bool from_enc = i == 0;
         const int8_t* in = from_enc ? encq : actq;
         const int lda = from_enc ? kEncQStride : kActQStride;
@@ -369,8 +360,8 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
       if (p.Wh[i] != nullptr)
         mma_rows<NT>(act, kActStride, HID / 16, p.Wh[i], NTT, nt0, lane, acc);
       __syncthreads();  // every warp has read this layer's input
-      // INT8 posttap: this bf16 layer's output enters the quantized domain.
-      const bool to_q = INT8 && i == int8_from - 1;
+      // posttap: this bf16 layer's output enters the quantized domain.
+      const bool to_q = i == int8_from - 1;
 #pragma unroll
       for (int m = 0; m < kMTiles; ++m) {
         float sp[2] = {0.f, 0.f};  // sigma partials of rows g and g + 8
@@ -557,14 +548,14 @@ render_kernel(RenderParams p, QuantParams q, int layer_num, int feat_layer,
   }
 }
 
-template <int HID, bool FINE, bool INT8>
+template <int HID, bool FINE>
 cudaError_t launch(const RenderParams& p, const QuantParams& q, int n_rays,
                    int layer_num, int feat_layer, int int8_from, int F, int Fd,
                    int S, float var_scale, float log_eps, int white_bg,
                    float* w, float* depth, float* acc, float* rgb, float* feat,
                    float* pts, int8_t* dbg, cudaStream_t stream) {
-  const size_t bytes = Smem<HID>::bytes(FINE, INT8);
-  auto kern = render_kernel<HID, FINE, INT8>;
+  const size_t bytes = Smem<HID>::bytes(FINE);
+  auto kern = render_kernel<HID, FINE>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -577,14 +568,13 @@ cudaError_t launch(const RenderParams& p, const QuantParams& q, int n_rays,
 }
 
 template <int HID>
-cudaError_t launch_hid(bool fine, bool int8, const RenderParams& p,
+cudaError_t launch_hid(bool fine, const RenderParams& p,
                        const QuantParams& q, int n_rays, int layer_num,
                        int feat_layer, int int8_from, int F, int Fd, int S,
                        float var_scale, float log_eps, int white_bg, float* w,
                        float* depth, float* acc, float* rgb, float* feat,
                        float* pts, int8_t* dbg, cudaStream_t s) {
-  auto fn = fine ? (int8 ? launch<HID, true, true> : launch<HID, true, false>)
-                 : (int8 ? launch<HID, false, true> : launch<HID, false, false>);
+  auto fn = fine ? launch<HID, true> : launch<HID, false>;
   return fn(p, q, n_rays, layer_num, feat_layer, int8_from, F, Fd, S,
             var_scale, log_eps, white_bg, w, depth, acc, rgb, feat, pts, dbg,
             s);
@@ -595,8 +585,8 @@ cudaError_t launch_hid(bool fine, bool int8, const RenderParams& p,
 // ptrs: host array of 3 * layer_num + 11 device pointers, in the order
 // Wenc0, Wh0, b0, ..., Wenc{L-1}, Wh{L-1}, b{L-1}, wa, ba, wf, bf, wvh, wvd,
 // bv, wr, br, rays, z (Wenc_i / Wh_i null where layer i has no such rows).
-// qptrs: null for the bf16 trunk, or the int8 trunk of layers int8_from ..
-// L - 1 as 5 * layer_num + 3 device pointers: per layer W, Ws, scale,
+// qptrs: the int8 trunk of layers int8_from .. L - 1 as 5 * layer_num + 3
+// device pointers: per layer W, Ws, scale,
 // scale_s, bias (null below int8_from; Ws and scale_s null without
 // encoding rows), then qenc, qh (int8_from > 0), iq (fine stage, tap layer
 // quantized and not last).  dbg: null, or (n_rays, samples, 96 + hid) int8
@@ -637,31 +627,27 @@ extern "C" int nm_render_forward(const void* const* ptrs,
   p.rays = (const float*)ptrs[k++];
   p.z = (const float*)ptrs[k++];
   QuantParams q = {};
-  const bool int8 = qptrs != nullptr;
-  if (int8) {
-    if (int8_from < 0 || int8_from >= layer_num) return (int)cudaErrorInvalidValue;
-    k = 0;
-    for (int i = 0; i < layer_num; ++i) {
-      q.W[i] = (const uint2*)qptrs[k++];
-      q.Ws[i] = (const uint2*)qptrs[k++];
-      q.scale[i] = (const float*)qptrs[k++];
-      q.scale_s[i] = (const float*)qptrs[k++];
-      q.bias[i] = (const float*)qptrs[k++];
-      if (i >= int8_from &&
-          (q.W[i] == nullptr || q.scale[i] == nullptr || q.bias[i] == nullptr ||
-           (q.Ws[i] == nullptr) != (q.scale_s[i] == nullptr)))
-        return (int)cudaErrorInvalidValue;
-    }
-    q.qenc = (const float*)qptrs[k++];
-    q.qh = (const float*)qptrs[k++];
-    q.iq = (const float*)qptrs[k++];
-    const bool tap_q = fine && feat_layer >= int8_from && feat_layer < layer_num - 1;
-    if (q.qenc == nullptr || (int8_from > 0 && q.qh == nullptr) ||
-        (tap_q && q.iq == nullptr))
-      return (int)cudaErrorInvalidValue;
-  } else if (dbg != nullptr) {
+  if (qptrs == nullptr || int8_from < 0 || int8_from >= layer_num)
     return (int)cudaErrorInvalidValue;
+  k = 0;
+  for (int i = 0; i < layer_num; ++i) {
+    q.W[i] = (const uint2*)qptrs[k++];
+    q.Ws[i] = (const uint2*)qptrs[k++];
+    q.scale[i] = (const float*)qptrs[k++];
+    q.scale_s[i] = (const float*)qptrs[k++];
+    q.bias[i] = (const float*)qptrs[k++];
+    if (i >= int8_from &&
+        (q.W[i] == nullptr || q.scale[i] == nullptr || q.bias[i] == nullptr ||
+         (q.Ws[i] == nullptr) != (q.scale_s[i] == nullptr)))
+      return (int)cudaErrorInvalidValue;
   }
+  q.qenc = (const float*)qptrs[k++];
+  q.qh = (const float*)qptrs[k++];
+  q.iq = (const float*)qptrs[k++];
+  const bool tap_q = fine && feat_layer >= int8_from && feat_layer < layer_num - 1;
+  if (q.qenc == nullptr || (int8_from > 0 && q.qh == nullptr) ||
+      (tap_q && q.iq == nullptr))
+    return (int)cudaErrorInvalidValue;
   float* w = (float*)out_w;
   float* depth = (float*)out_depth;
   float* acc = (float*)out_acc;
@@ -670,12 +656,12 @@ extern "C" int nm_render_forward(const void* const* ptrs,
   float* pts = (float*)out_pts;
   cudaStream_t s = (cudaStream_t)stream;
   if (hid == 64)
-    return (int)launch_hid<64>(fine, int8, p, q, n_rays, layer_num, feat_layer,
+    return (int)launch_hid<64>(fine, p, q, n_rays, layer_num, feat_layer,
                                int8_from, num_freqs, dirs_freqs, samples,
                                var_scale, log_eps, white_bg, w, depth, acc,
                                rgb, feat, pts, (int8_t*)dbg, s);
   if (hid == 256)
-    return (int)launch_hid<256>(fine, int8, p, q, n_rays, layer_num,
+    return (int)launch_hid<256>(fine, p, q, n_rays, layer_num,
                                 feat_layer, int8_from, num_freqs, dirs_freqs,
                                 samples, var_scale, log_eps, white_bg, w,
                                 depth, acc, rgb, feat, pts, (int8_t*)dbg, s);

@@ -150,25 +150,6 @@ struct VecLayout {
   }
 };
 
-// ===========================================================================
-// wgmma (sm_90a) on operands staged in shared memory
-// ===========================================================================
-
-// Operand tiles are blocks of 128-byte rows (64 bf16) in the 128-byte
-// swizzle: byte offset of 16-byte chunk c (0..7) of row r of a block.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-// wgmma shared-memory descriptor in the 128-byte swizzle: start address,
-// leading byte offset `lbo` (MN-major: from one 64-element block of the M or
-// N index to the next; not used K-major), stride byte offset 1024 (eight
-// rows on).  Blocks start on 1024-byte boundaries.
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         (64ull << 32) | (1ull << 62);
-}
-
 constexpr int kBwdThreads = 256;   // two warpgroups, 64 chunk rows each
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kChunkRows = 128;
@@ -189,11 +170,6 @@ struct BwdSmem {
            (size_t)(4 * kMaxSamples + P + kBwdWarps * HID + 2 * HV + 8) * 4 +
            8 * (1 + kRingStages);
   }
-};
-
-template <int N>
-struct Int {
-  static constexpr int value = N;
 };
 
 // ---- the forward: heads, trunk and compositing, one 128-row chunk at a time ----
@@ -638,17 +614,6 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
 // rows of column 8 j + 2 (lane % 4) + e; a reduce-scatter over the eight
 // lanes of equal lane % 4 (K / 2 + K / 4 + K / 8 shuffles) leaves lane
 // (g, t) the sums of j = K g / 16 .., stored to dst[column].
-template <int M, int N>
-__device__ __forceinline__ void fold_half(float* v, int lane) {
-  const bool up = lane & M;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float send = up ? v[i] : v[i + N / 2];
-    const float keep = up ? v[i + N / 2] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
-  }
-}
-
 template <int K>
 __device__ __forceinline__ void col_sums(float (&v)[K], int lane, float* dst) {
   static_assert(K % 8 == 0, "eight lanes share a column");

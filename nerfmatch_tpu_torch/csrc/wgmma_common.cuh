@@ -1,9 +1,10 @@
 // Device helpers shared by the Hopper kernels that stage their operands
-// asynchronously (attention.cu, render_train.cu; sepconv.cu uses the copy
-// and mbarrier helpers) and multiply with wgmma:
+// asynchronously (attention.cu, render_train.cu, render_eval.cu; sepconv.cu
+// uses the copy and mbarrier helpers) and multiply with wgmma:
 // cp.async and bulk copies into shared memory, mbarriers, the fence to the
-// asynchronous proxy, and wgmma.mma_async m64nNk16 (bf16 operands, f32
-// accumulators) with A in registers or in shared memory.
+// asynchronous proxy, the 128-byte swizzle and its wgmma descriptors, and
+// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators) with A in
+// registers or in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +100,42 @@ __device__ __forceinline__ void bulk_read_done() {
 }
 
 // ---- wgmma ----
+
+// Operand tiles are blocks of 128-byte rows (64 bf16) in the 128-byte
+// swizzle: byte offset of 16-byte chunk c (0..7) of row r of a block.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor in the 128-byte swizzle: start address,
+// leading byte offset `lbo` (MN-major: from one 64-element block of the M or
+// N index to the next; not used K-major), stride byte offset 1024 (eight
+// rows on).  Blocks start on 1024-byte boundaries.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+// Compile-time int, to pass a product's slice counts and width through a
+// generic lambda.
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// Half of a reduce-scatter over lanes differing in bit M: of the N values
+// v[0 ..], a lane keeps the half its bit M selects (the upper half where
+// set) plus its partner's copy of that half, in v[0 .. N / 2).
+template <int M, int N>
+__device__ __forceinline__ void fold_half(float* v, int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float send = up ? v[i] : v[i + N / 2];
+    const float keep = up ? v[i + N / 2] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

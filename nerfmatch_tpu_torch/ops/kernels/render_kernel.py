@@ -18,8 +18,11 @@ Early termination (``early_term_eps > 0``): rays are grouped in tiles of
 block of :data:`SAMPLE_BLOCK` samples, the remaining blocks get exact zero
 weights.  Skipped weights are < eps, so outputs move by < eps.
 
-CUDA tensors launch ``csrc/render.cu`` (and raise on anything it does not
-implement); CPU tensors run :func:`render_stage_plain`.
+CUDA tensors launch a kernel (and raise on anything it does not
+implement): a bf16 trunk ``csrc/render_eval.cu`` (``wgmma``, weights from
+:func:`pack_mlp`), the int8 trunk ``csrc/render.cu`` (``mma.sync``,
+weights from :func:`pack_mlp_fragments` and ``quant.pack_mlp_int8``).  CPU
+tensors run :func:`render_stage_plain`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP, eval_feat_layer
 from ...nerf.sampling import frustum_moments, lift_gaussian
 from .quant import ENC_PAD
+from .render_train_kernel import forward_images
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
@@ -58,9 +62,34 @@ def pack_fragments(w):
 
 
 def pack_mlp(mlp: NerfMLP):
-    """Kernel weight list, in the order the C entry expects: per layer
-    (encoding-row fragments or None, hidden-row fragments or None, bias),
-    then wa, ba, wf, bf, wvh, wvd, bv, wr, br."""
+    """The bf16 kernel's weight list (``csrc/render_eval.cu``), in the order
+    its C entry expects: every matrix's slot images
+    (``render_train_kernel.forward_images``, the images kernel 5 reads),
+    per layer (its encoding rows' images or None, bias), then wa, ba, bf,
+    wvd, bv, wr, br.  wvd (the views layer's dirs rows) and wr (the rgb
+    head) stay f32: the kernel's FMAs take them unrounded."""
+    cfg = mlp.cfg
+    fwd, enc_at = forward_images(mlp)
+    out = [fwd]
+    for i, lin in enumerate(mlp.pts_linears):
+        out += [fwd[enc_at[i]:] if i in enc_at else None,
+                lin.bias.detach().contiguous()]
+    wv = mlp.views_linears[0].weight.detach()
+    out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
+            mlp.alpha_linear.bias.detach().contiguous(),
+            mlp.feature_linear.bias.detach().contiguous(),
+            wv[:, cfg.hid_dim:].t().contiguous(),
+            mlp.views_linears[0].bias.detach().contiguous(),
+            mlp.rgb_linear.weight.detach().t().contiguous(),
+            mlp.rgb_linear.bias.detach().contiguous()]
+    return out
+
+
+def pack_mlp_fragments(mlp: NerfMLP):
+    """The int8 kernel's bf16 weight list (``csrc/render.cu``: the layers
+    below ``int8_from`` and the heads), in the order its C entry expects:
+    per layer (encoding-row fragments or None, hidden-row fragments or
+    None, bias), then wa, ba, wf, bf, wvh, wvd, bv, wr, br."""
     cfg = mlp.cfg
     t = lambda w: w.detach().t().contiguous()
     out = []
@@ -118,11 +147,17 @@ def int8_pointers(mlp: NerfMLP, int8):
 def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                  dirs_freqs: int, var_scale: float = 1.0,
                  early_term_eps: float = 0.0, white_bg: bool = False,
-                 packed=None, int8=None, debug_q: bool = False):
+                 packed=None, int8=None, debug_q: bool = False,
+                 debug_tap: bool = False):
     """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts]).
-    ``int8`` (``quant.pack_mlp_int8``): run the trunk from ``int8["start"]``
-    on in the quantized domain; ``debug_q`` adds the int8 encoding ``xq``
-    and the last layer's int8 input ``hq`` (``int8`` only)."""
+    ``packed``: :func:`pack_mlp` (bf16 trunk) or :func:`pack_mlp_fragments`
+    (``int8``) of ``mlp``, to pack once for many calls.  ``int8``
+    (``quant.pack_mlp_int8``): run the trunk from ``int8["start"]`` on in
+    the quantized domain; ``debug_q`` adds the int8 encoding ``xq`` and the
+    last layer's int8 input ``hq`` (``int8`` only).  ``debug_tap`` (bf16
+    fine stage, CUDA): adds the tap layer's activations of the kernel's
+    first pass ``tap_first`` and of its second ``tap_again`` (N, S, hid; 0
+    in skipped blocks)."""
     _check_config(mlp, num_freqs, dirs_freqs)
     if rays.device.type != "cuda":
         return render_stage_plain(mlp, rays, z, fine=fine, num_freqs=num_freqs,
@@ -131,7 +166,12 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                                   white_bg=white_bg, int8=int8,
                                   debug_q=debug_q)
     cfg = mlp.cfg
-    packed = pack_mlp(mlp) if packed is None else packed
+    if packed is None:
+        packed = pack_mlp(mlp) if int8 is None else pack_mlp_fragments(mlp)
+    if packed[0].dtype != (torch.bfloat16 if int8 is None else torch.int32):
+        raise ValueError("render_stage: packed for the other kernel "
+                         "(pack_mlp for a bf16 trunk, pack_mlp_fragments "
+                         "for the int8 trunk)")
     qptrs = [] if int8 is None else int8_pointers(mlp, int8)
     require_cuda_tensors("render_stage", rays, z,
                          *[p for p in [*packed, *qptrs] if p is not None])
@@ -146,6 +186,8 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             f"hid={cfg.hid_dim})")
     if debug_q and int8 is None:
         raise ValueError("render_stage: debug_q needs the int8 trunk")
+    if debug_tap and (int8 is not None or not fine):
+        raise ValueError("render_stage: debug_tap needs the bf16 fine stage")
     if int8 is not None and fine and int8["tap"] != eval_feat_layer(cfg):
         raise ValueError("render_stage: the fine stage's int8 trunk must be "
                          "packed with its tap layer")
@@ -160,24 +202,35 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     if fine:
         out.update(rgb=torch.empty(n, 3, **f32), feat=torch.empty(n, hid, **f32),
                    pts=torch.empty(n, 3, **f32))
-    dbg = (torch.empty(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
-           if debug_q else None)
     ptr = lambda p: None if p is None else p.data_ptr()
     ptrs = (ctypes.c_void_p * (len(packed) + 2))(
         *map(ptr, packed), rays.data_ptr(), z.data_ptr())
-    qarr = (ctypes.c_void_p * len(qptrs))(*map(ptr, qptrs)) if qptrs else None
     opt = lambda k: out[k].data_ptr() if k in out else None
+    outs = (out["weights"].data_ptr(), out["depth"].data_ptr(),
+            out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"))
     log_eps = math.log(early_term_eps) if early_term_eps > 0 else -math.inf
+    name = "render_fine" if fine else "render_coarse"
+    if int8 is None:
+        counter = torch.zeros(1, device=dev, dtype=torch.int32)
+        dbg = torch.zeros(2, n, S, hid, **f32) if debug_tap else None
+        err = library().nm_render_eval_forward(
+            ptrs, n, hid, cfg.layer_num, eval_feat_layer(cfg), num_freqs,
+            dirs_freqs, S, var_scale, log_eps, int(white_bg), int(fine),
+            counter.data_ptr(), *outs, ptr(dbg), stream_ptr(dev))
+        check(err, "render_eval")
+        LAUNCHES[name] += 1
+        if debug_tap:
+            out.update(tap_first=dbg[0], tap_again=dbg[1])
+        return out
+    dbg = (torch.empty(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
+           if debug_q else None)
+    qarr = (ctypes.c_void_p * len(qptrs))(*map(ptr, qptrs))
     err = library().nm_render_forward(
         ptrs, qarr, n, hid, cfg.layer_num, eval_feat_layer(cfg),
-        -1 if int8 is None else int8["start"], num_freqs, dirs_freqs, S,
-        var_scale, log_eps, int(white_bg), int(fine),
-        out["weights"].data_ptr(), out["depth"].data_ptr(),
-        out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"),
-        ptr(dbg), stream_ptr(dev))
+        int8["start"], num_freqs, dirs_freqs, S, var_scale, log_eps,
+        int(white_bg), int(fine), *outs, ptr(dbg), stream_ptr(dev))
     check(err, "render")
-    name = "render_fine" if fine else "render_coarse"
-    LAUNCHES[name if int8 is None else name + "_int8"] += 1
+    LAUNCHES[name + "_int8"] += 1
     if debug_q:
         out.update(xq=dbg[..., :cfg.xyz_dim], hq=dbg[..., ENC_PAD:])
     return out
@@ -197,6 +250,20 @@ def early_term_mask(alpha, eps: float):
     dead = torch.cummax(dead.to(torch.int32), dim=-1).values.bool()
     dead = dead.repeat_interleave(TILE_RAYS, dim=0)
     return dead.repeat_interleave(SAMPLE_BLOCK, dim=1)
+
+
+def stage_alpha_plain(mlp: NerfMLP, rays, z, *, num_freqs: int,
+                      dirs_freqs: int, var_scale: float = 1.0):
+    """(N, S) alpha of the plain stage with its bf16 MLP operands, before
+    early termination: what :func:`early_term_mask` reads."""
+    t0, t1 = z[:, :-1], z[:, 1:]
+    t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
+    d = rays[:, 8:11]
+    mean, var = lift_gaussian(d, t_mean, var_scale * t_var, var_scale * r_var)
+    enc, _ = ipe_embedding(mean + rays[:, None, 0:3], var, num_freqs)
+    dirs = pe_embedding(d, dirs_freqs)[:, None, :]
+    sigma = mlp_plain(mlp, enc, dirs, -1, True)[0]
+    return 1.0 - torch.exp(-torch.relu(sigma) * (t1 - t0))
 
 
 def _sat8(x):

@@ -227,38 +227,50 @@ def _fwd_images(w, k: int | None = None, n: int | None = None):
     return slot_images(wt).reshape(-1)
 
 
+def forward_images(mlp: NerfMLP):
+    """Every weight matrix's (in x out) slot images, in the order the
+    forward kernels' rings stream them (``train_fwd_kernel`` and the bf16
+    render kernel, ``csrc/render_eval.cu``): per layer the encoding rows
+    padded to ``ENC_MAX`` then the hidden rows, then the feature and the
+    views layers, the views' columns padded to 64 or more.  Returns (the
+    flat bf16 images, {layer: offset of its encoding rows' images})."""
+    cfg = mlp.cfg
+    enc, hid = cfg.xyz_dim, cfg.hid_dim
+    imgs, enc_at = [], {}
+    for i, lin in enumerate(mlp.pts_linears):
+        w = lin.weight.detach()
+        if _skip_in(cfg, i):
+            enc_at[i] = sum(x.numel() for x in imgs)
+            imgs.append(_fwd_images(w[:, :enc], k=ENC_MAX))
+        if i > 0:
+            imgs.append(_fwd_images(w[:, enc:] if (i - 1) in cfg.skips else w))
+    wv = mlp.views_linears[0].weight.detach()
+    imgs += [_fwd_images(mlp.feature_linear.weight),
+             _fwd_images(wv[:, :hid], n=max(hid // 2, 64))]
+    return torch.cat(imgs), enc_at
+
+
 def pack_train(mlp: NerfMLP):
     """Kernel weight list in the C entry's order: per layer (its encoding
     rows' part of the forward images, the hidden rows' backward images,
-    bias; None where absent), then the forward images, wa, ba, the
-    feature's backward images, bf, the views' hidden-row backward images,
-    wvd, bv, wr, br.  The forward images are every matrix's (in x out)
-    slot images in the order the forward's ring streams them (per layer the
-    encoding rows padded to ``ENC_MAX`` then the hidden rows, then the
-    feature and the views layers, the views' columns padded to 64 or
-    more); the backward's are of the (out x in) rows.  wvd and wr are f32
-    arrays of bf16-rounded values."""
+    bias; None where absent), then the forward images
+    (:func:`forward_images`), wa, ba, the feature's backward images, bf, the
+    views' hidden-row backward images, wvd, bv, wr, br.  The backward's
+    images are of the (out x in) rows.  wvd and wr are f32 arrays of
+    bf16-rounded values."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     t = lambda w: w.detach().t().contiguous()
     wv = mlp.views_linears[0].weight.detach()
     wf = mlp.feature_linear.weight.detach()
-    imgs, enc_at, per_layer = [], {}, []
+    fwd, enc_at = forward_images(mlp)
+    out = []
     for i, lin in enumerate(mlp.pts_linears):
         w = lin.weight.detach()
         w_hid = None if i == 0 else (w[:, enc:] if (i - 1) in cfg.skips else w)
-        if _skip_in(cfg, i):
-            enc_at[i] = sum(x.numel() for x in imgs)
-            imgs.append(_fwd_images(w[:, :enc], k=ENC_MAX))
-        if w_hid is not None:
-            imgs.append(_fwd_images(w_hid))
-        per_layer.append((None if w_hid is None else slot_images(w_hid),
-                          lin.bias.detach().contiguous()))
-    imgs += [_fwd_images(wf), _fwd_images(wv[:, :hid], n=max(hid // 2, 64))]
-    fwd = torch.cat(imgs)
-    out = []
-    for i, (w_hid, bias) in enumerate(per_layer):
-        out += [fwd[enc_at[i]:] if i in enc_at else None, w_hid, bias]
+        out += [fwd[enc_at[i]:] if i in enc_at else None,
+                None if w_hid is None else slot_images(w_hid),
+                lin.bias.detach().contiguous()]
     out += [fwd, mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
             mlp.alpha_linear.bias.detach().contiguous(), slot_images(wf),
             mlp.feature_linear.bias.detach().contiguous(),

@@ -85,11 +85,14 @@ LAUNCHES = {"train_bwd_kernel": "trunk_bwd", "wgrad_gemm_kernel": "gemm",
             "reduce_parts_kernel": "reduce"}
 
 
-def build_variants(patches=None, out_name="train_bwd_probe"):
+def build_variants(patches=None, out_name="train_bwd_probe",
+                   src="render_train.cu",
+                   entries=("nm_render_train_forward", "nm_render_train_backward",
+                            "nm_render_train_workspace")):
     """One ``nvcc`` a variant, all started together -> {variant: library}.
-    An edit is (old, new) in ``render_train.cu`` or (file, old, new) in
-    another file of ``csrc/``; each variant's edited files go to a
-    directory of their own, which its includes search first."""
+    An edit is (old, new) in ``src`` or (file, old, new) in another file of
+    ``csrc/``; each variant's edited files go to a directory of their own,
+    which its includes search first.  ``entries``: the C entries to bind."""
     out_root = ROOT / "build" / out_name
     jobs = {}
     for name, edits in (PATCHES if patches is None else patches).items():
@@ -97,19 +100,17 @@ def build_variants(patches=None, out_name="train_bwd_probe"):
         out_dir.mkdir(parents=True, exist_ok=True)
         texts = {}
         for edit in edits:
-            fname, old, new = edit if len(edit) == 3 else ("render_train.cu",
-                                                           *edit)
+            fname, old, new = edit if len(edit) == 3 else (src, *edit)
             text = texts.get(fname) or (kernels.CSRC / fname).read_text()
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: edit does not match once: {old!r}")
             texts[fname] = text.replace(old, new)
-        texts.setdefault("render_train.cu",
-                         (kernels.CSRC / "render_train.cu").read_text())
+        texts.setdefault(src, (kernels.CSRC / src).read_text())
         for fname, text in texts.items():
             (out_dir / fname).write_text(text)
-        so = out_dir / "render_train.so"
+        so = out_dir / Path(src).with_suffix(".so").name
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}",
-               "-shared", "-o", str(so), str(out_dir / "render_train.cu")]
+               "-shared", "-o", str(so), str(out_dir / src)]
         jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -119,8 +120,7 @@ def build_variants(patches=None, out_name="train_bwd_probe"):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name} failed:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("nm_render_train_forward", "nm_render_train_backward",
-                   "nm_render_train_workspace"):
+        for fn in entries:
             getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib

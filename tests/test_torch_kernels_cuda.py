@@ -21,8 +21,8 @@ from nerfmatch_tpu_torch.ops.kernels import attention_kernel
 from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
     attention_bwd, attention_bwd_plain, attention_onepass_plain,
     attention_plain, fused_attention)
-from nerfmatch_tpu_torch.ops.kernels.render_kernel import (render_stage,
-                                                           render_stage_plain)
+from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+    early_term_mask, render_stage, render_stage_plain, stage_alpha_plain)
 from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
     StageSpec, _kernel_args, _sizes, kernel_forward, pack_train, render_train,
     render_train_plain, workspace_bytes)
@@ -93,6 +93,100 @@ def test_render_kernel_matches_plain(dev, hid, eps):
                 scale = float(c[k].abs().max()) if k == "feat" else 1.0
                 assert float((a[k] - c[k]).abs().max()) <= 2e-2 * scale, k
     assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 1
+
+
+def opaque_case(hid, dev, n, seed=1):
+    """A denser field (the fine MLP's alpha bias up by 4 more) and far
+    planes spread over 0.3-6: at eps 1e-4 tiles die after one, two or three
+    32-sample blocks, or run to the end."""
+    r = renderer(hid, dev)
+    with torch.no_grad():
+        r.nerf_fine.alpha_linear.bias += 4.0
+    rays, _ = rays_z(n, dev, seed)
+    g = torch.Generator().manual_seed(seed)
+    rays[:, 7] = (0.3 + 5.7 * torch.rand(n, generator=g)).to(dev)
+    t = torch.linspace(0, 1, 129, device=dev)
+    z = (rays[:, 6:7] * (1 - t) + rays[:, 7:8] * t).contiguous()
+    return r.nerf_fine, rays, z
+
+
+def scaled_max_err(a, b):
+    """Largest absolute error over the outputs, relative to each output's
+    largest value where that exceeds 1 (chip_smoke.py's render check)."""
+    return max(float((a[k] - b[k]).abs().max())
+               / max(1.0, float(b[k].abs().max())) for k in b)
+
+
+@pytest.mark.cuda
+def test_render_eval_zero_weights_match_early_term_mask(dev):
+    """At eps 1e-4 the bf16 kernel skips the blocks early_term_mask marks on
+    the plain version's alpha: its weights there are exact zeros, and a
+    (tile, block) the mask keeps is all-zero in the kernel's weights only
+    where it is all-zero in the plain version's."""
+    mlp, rays, z = opaque_case(256, dev, 512)
+    kw = dict(num_freqs=15, dirs_freqs=4)
+    mask = early_term_mask(stage_alpha_plain(mlp, rays, z, **kw), 1e-4)
+    assert 0.1 < float(mask.float().mean()) < 0.9
+    tile_zero = lambda w: (w.reshape(-1, 2, 4, 32) == 0).all(-1).all(1)
+    kept = ~mask.reshape(-1, 2, 4, 32)[:, 0, :, 0]
+    with torch.no_grad():
+        for fine in (False, True):
+            a = render_stage(mlp, rays, z, fine=fine, early_term_eps=1e-4,
+                             **kw)["weights"]
+            b = render_stage_plain(mlp, rays, z, fine=fine,
+                                   early_term_eps=1e-4, **kw)["weights"]
+            assert bool((a[mask] == 0).all())
+            assert torch.equal(tile_zero(a) & kept, tile_zero(b) & kept)
+
+
+@pytest.mark.cuda
+def test_render_eval_is_deterministic(dev):
+    """Two launches of the bf16 kernel (fine stage, tiles dying at
+    different blocks, so the tile counter hands them out in another order)
+    give the same bits."""
+    mlp, rays, z = opaque_case(256, dev, 2048)
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, **kw)
+        b = render_stage(mlp, rays, z, **kw)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ["3600", "one_extra_tile", "3_tiles"])
+def test_render_eval_ragged_grids_match_plain(dev, n):
+    """Ray counts that leave a warpgroup without a tile: 3600 (a scene-point
+    grid), 2 x (2 x SMs) + 2 (one tile beyond the first round) and 6 (a
+    block with one tile); coarse and fine at eps 1e-4 against the plain
+    version at 5e-3 scaled, every output finite."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = {"3600": 3600, "one_extra_tile": 2 * (2 * sms) + 2, "3_tiles": 6}[n]
+    mlp, rays, z = opaque_case(256, dev, n)
+    kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    with torch.no_grad():
+        for fine in (False, True):
+            a = render_stage(mlp, rays, z, fine=fine, **kw)
+            b = render_stage_plain(mlp, rays, z, fine=fine, **kw)
+            assert all(bool(torch.isfinite(v).all()) for v in a.values())
+            assert scaled_max_err(a, b) < 5e-3, fine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 256])
+def test_render_eval_tap_recompute_is_exact(dev, hid):
+    """The fine stage runs the tap layer twice (the descriptor is composited
+    once the weights are known): the second pass's activations equal the
+    first's bit for bit, the debug build's outputs equal the shipped
+    build's within 5e-3 scaled."""
+    mlp, rays, z = opaque_case(hid, dev, 1024)
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, debug_tap=True, **kw)
+        b = render_stage(mlp, rays, z, **kw)
+    assert float(a["tap_first"].abs().max()) > 0
+    assert torch.equal(a["tap_first"], a["tap_again"])
+    assert scaled_max_err({k: a[k] for k in b}, b) < 5e-3
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ from nerfmatch_tpu_torch.nerf import sampling as tsamp
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.nerf.scene import rays_intersect_sphere as t_isect
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
-    early_term_mask, mlp_plain, pack_fragments, render_stage_plain)
+    early_term_mask, mlp_plain, pack_fragments, pack_mlp, pack_mlp_fragments,
+    render_stage_plain)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import resample_z
 from nerfmatch_tpu_torch.train.checkpoint import (load_npz_params,
                                                   state_dict_from_jax)
@@ -266,6 +267,87 @@ def test_pack_fragments_layout():
     k = 16 * ks + 8 * r + 2 * (lane % 4) + h
     n = 8 * nt + lane // 4
     assert torch.equal(halves, ref[torch.from_numpy(k), torch.from_numpy(n)])
+
+
+def unslot(img, K, N):
+    """A (K, N) matrix back from its slot images, the layout written out
+    here: element (k, n) sits in slot k // 32, 64-column block n // 64, row
+    k % 32, 16-byte chunk ((n % 64) // 8) ^ (k % 8), place n % 8."""
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    r = k % 32
+    off = ((k // 32) * 32 * N + (n // 64) * 32 * 64 + r * 64
+           + (((n % 64) // 8) ^ (r % 8)) * 8 + n % 8)
+    return img[torch.from_numpy(off)]
+
+
+def test_pack_mlp_slot_images_hold_the_weights(pair):
+    """The bf16 render kernel's weights (pack_mlp): unpacked from the slot
+    images, every matrix equals its (in x out) bf16 weight, in the order
+    the ring streams them, the encoding rows zero-padded to 96 and the
+    views' columns to 64; the encoding flags sit at layer 0 and the skip
+    layer; the biases, the sigma head, wvd and wr stay f32, unrounded."""
+    _, _, tr = pair
+    mlp = tr.nerf_fine
+    cfg = mlp.cfg
+    hid, enc, L = cfg.hid_dim, cfg.xyz_dim, cfg.layer_num
+    packed = pack_mlp(mlp)
+    imgs = packed[0]
+    assert imgs.dtype == torch.bfloat16 and imgs.dim() == 1
+    mats = []
+    for i, lin in enumerate(mlp.pts_linears):
+        w = lin.weight.detach().t()
+        if i == 0 or i - 1 in cfg.skips:
+            mats.append(torch.nn.functional.pad(w[:enc], (0, 0, 0, 96 - enc)))
+            w = w[enc:]
+        if i > 0:
+            mats.append(w)
+    views = mlp.views_linears[0].weight.detach().t()[:hid]
+    mats += [mlp.feature_linear.weight.detach().t(),
+             torch.nn.functional.pad(views, (0, max(hid // 2, 64) - hid // 2))]
+    off = 0
+    for j, m in enumerate(mats):
+        K, N = m.shape
+        got = unslot(imgs[off:off + K * N], K, N)
+        assert torch.equal(got, m.to(torch.bfloat16)), j
+        off += K * N
+    assert off == imgs.numel()
+    flags, biases = packed[1:1 + 2 * L:2], packed[2:2 + 2 * L:2]
+    assert [f is not None for f in flags] == [
+        i == 0 or i - 1 in cfg.skips for i in range(L)]
+    for b, lin in zip(biases, mlp.pts_linears):
+        assert torch.equal(b, lin.bias)
+    wa, ba, bf, wvd, bv, wr, br = packed[1 + 2 * L:]
+    views_w = mlp.views_linears[0].weight
+    for got, ref in ((wa, mlp.alpha_linear.weight[0]),
+                     (ba, mlp.alpha_linear.bias), (bf, mlp.feature_linear.bias),
+                     (wvd, views_w[:, hid:].t()), (bv, mlp.views_linears[0].bias),
+                     (wr, mlp.rgb_linear.weight.t()), (br, mlp.rgb_linear.bias)):
+        assert got.dtype == torch.float32 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["none", "coarse", "both", "posttap"])
+def test_pack_fused_packs_each_stage_for_its_kernel(pair, mode, monkeypatch):
+    """On CUDA, pack_fused gives a stage that int8_plan quantizes the
+    mma.sync fragments beside its int8 trunk, and a bf16 stage the wgmma
+    kernel's slot images, each what packing that MLP alone gives (the
+    renderer presented as a CUDA one, its weights on the CPU); on the CPU
+    no bf16 weights at all."""
+    _, _, tr = pair
+    r = NerfRenderer(nerf_config(trunk_int8=mode), stop_layer=3)
+    r.load_state_dict(tr.state_dict())
+    if mode != "none":
+        r.calibrate_int8(t(make_rays(16, 3)))
+    assert all(w is None for w, _ in r.pack_fused())
+    monkeypatch.setattr(NerfRenderer, "device",
+                        property(lambda self: torch.device("cuda")))
+    packed = r.pack_fused()
+    for (_, mlp), start, (w, q) in zip(r._stages(), r.int8_plan(), packed):
+        assert (q is None) == (start is None)
+        ref = pack_mlp(mlp) if q is None else pack_mlp_fragments(mlp)
+        assert w[0].dtype == (torch.bfloat16 if q is None else torch.int32)
+        assert len(w) == len(ref)
+        for a, b in zip(w, ref):
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_mlp_plain_bf16_rounds_only_matmul_operands(pair):
