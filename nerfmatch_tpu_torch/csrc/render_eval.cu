@@ -245,7 +245,7 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
   // in flight, so slot q - 2 is the one refilled (with slice q + R - 2).
   // A warpgroup without a chunk multiplies too, on whatever its registers
   // and encoding tile hold (its epilogues write nothing): testing `live`
-  // around the wgmma made the stage 1.4-1.5x slower and spilled
+  // around the wgmma made the stage 1.35-1.5x slower and spilled
   // (scripts/render_eval_probe.py, live_gate).
   auto product = [&](auto ne_c, auto nh_c, auto n_c) {
     constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;

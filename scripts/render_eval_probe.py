@@ -26,7 +26,10 @@ source exactly once), one ``nvcc`` each, all started together, into
 * ``no_epi``: the trunk's epilogues keep the registers they had (no bias,
   ReLU or rounding into the next layer's A);
 * ``pair_sync``: one block barrier every second weight slice, refilling
-  two slots at it.
+  two slots at it;
+* ``slice64``: 64-row weight slices (3 slots in the fine stage, 5 in the
+  coarse), the encoding rows padded to 128, from images of their own
+  (``images64``).
 
 Then, on phase 3's stages of ``chip_smoke.py`` (the room's MLPs, 9216 rays x
 128 samples, the fine stage's z from the plain coarse stage's weights), it
@@ -36,8 +39,8 @@ coarse and fine at eps 0 and 1e-4, three times each under
 call, one JSON line per variant after each build's ptxas lines
 (registers, spills, and any note that ``wgmma`` was serialized) and the
 card's name and power limit.  The shipped build's outputs must equal the
-package's bit for bit; so should those of ``live_gate``, the ring depths
-and ``pair_sync`` (``same_bits``); the others compute something else and
+package's bit for bit; so should those of ``live_gate``, the ring depths,
+``pair_sync`` and ``slice64`` (``same_bits``); the others compute something else and
 are only timed.  ``--parent-source FILE``: also build FILE, an earlier
 ``render.cu`` whose ``nm_render_forward`` runs the bf16 stages (e.g.
 ``git show <parent>:nerfmatch_tpu_torch/csrc/render.cu``), and time it on
@@ -63,6 +66,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 import chip_smoke  # noqa: E402
 from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels import render_kernel as rk  # noqa: E402
+from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (  # noqa: E402
     resample_z_plain)
 from train_bwd_probe import build_variants, profile_ms  # noqa: E402
@@ -87,7 +91,8 @@ _END = """      wgmma_commit();
 """
 # Variants that compute what the package computes: their outputs are
 # compared with it bit for bit ("same_bits").
-SAME_BITS = ("shipped", "live_gate", "ring_7_9", "ring_5", "pair_sync")
+SAME_BITS = ("shipped", "live_gate", "ring_7_9", "ring_5", "pair_sync",
+             "slice64")
 PATCHES = {
     "shipped": [],
     "live_gate": [
@@ -115,6 +120,16 @@ PATCHES = {
     "no_ipe": [(_IPE, _IPE.replace("damp * sinf(x)", "x").replace(
         "damp * sinf(x + kHalfPi)", "y"))],
     "no_epi": [("            a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);\n", "")],
+    "slice64": [
+        ("constexpr int kSliceK = 32;", "constexpr int kSliceK = 64;"),
+        ("constexpr int kEncSlices = kEncMax / kSliceK;",
+         "constexpr int kEncSlices = (kEncMax + kSliceK - 1) / kSliceK;"),
+        (_RING, _RING.replace("? 6 : 7", "? 3 : 5")),
+        ("static_assert(HID % 64 == 0 && KS >= 2,", "static_assert(HID % 64 == 0 && KS >= 1,"),
+        ("""  for (int i = tid; i < 2 * kWgRows * (kEncMax - enc_dim); i += kEvalThreads) {
+    const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);""",
+         """  for (int i = tid; i < 2 * kWgRows * (128 - enc_dim); i += kEvalThreads) {
+    const int row = i / (128 - enc_dim), k = enc_dim + i % (128 - enc_dim);""")],
     "pair_sync": [
         ("    for (int s = 0; s < R - 2; ++s) load_slice(s);",
          "    for (int s = 0; s < R - 3; ++s) load_slice(s);"),
@@ -131,6 +146,34 @@ PATCHES = {
         ("    for (int s = q; s < q + R - 2; ++s) mbar_wait(",
          "    for (int s = q; s < q + R - 3 + (q & 1); ++s) mbar_wait(")],
 }
+
+
+def images64(mlp):
+    """``forward_images`` for 64-row slots, the encoding rows padded to 128
+    (two slots): the ``slice64`` variant's weights."""
+    cfg = mlp.cfg
+    enc, hid = cfg.xyz_dim, cfg.hid_dim
+
+    def img(w, k=None, n=None):
+        wt = w.detach().t()
+        wt = torch.nn.functional.pad(wt, (0, (n or wt.shape[1]) - wt.shape[1],
+                                          0, (k or wt.shape[0]) - wt.shape[0]))
+        return rtk.slot_images(wt, rows=64).reshape(-1)
+
+    imgs = []
+    for i, lin in enumerate(mlp.pts_linears):
+        w = lin.weight
+        if i == 0 or (i - 1) in cfg.skips:
+            imgs.append(img(w[:, :enc], k=128))
+        if i > 0:
+            imgs.append(img(w[:, enc:] if (i - 1) in cfg.skips else w))
+    imgs += [img(mlp.feature_linear.weight),
+             img(mlp.views_linears[0].weight[:, :hid], n=max(hid // 2, 64))]
+    return torch.cat(imgs)
+
+
+# Variants that read other weight images than pack_mlp's.
+IMAGES = {"slice64": images64}
 
 
 def parent_library(path):
@@ -220,9 +263,12 @@ def main():
             kernels._LIB = lib
             row = {"variant": name}
             for stage, eps, mlp, zz, fine in cases:
+                pk = packed[id(mlp)]
+                if name in IMAGES:
+                    pk = [IMAGES[name](mlp), *pk[1:]]
                 call = lambda: rk.render_stage(mlp, rays, zz, fine=fine,
-                                               early_term_eps=eps,
-                                               packed=packed[id(mlp)], **kw)
+                                               early_term_eps=eps, packed=pk,
+                                               **kw)
                 with torch.no_grad():
                     if name in SAME_BITS:
                         out = call()
