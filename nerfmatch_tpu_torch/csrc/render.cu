@@ -34,7 +34,7 @@
 // head run in f32 FMA.
 //
 // What bounds it on the H100: the trunk's ~1.19 T int8 operations per
-// 9216-ray coarse stage, ~0.60 ms at 1,979 TOPS.  Design (the PR 1 render
+// 9216-ray coarse stage, ~0.60 ms at 1,979 TOPS.  Design (the first render
 // kernel's): one block of 256 threads (8 warps) per tile of 2 rays; each
 // 32-sample block of the tile is one 64-row chunk.  Activations and the
 // encoding stay in shared memory; each warp owns HID/8 output columns of

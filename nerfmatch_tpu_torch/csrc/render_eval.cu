@@ -54,7 +54,7 @@
 // come from one warpgroup in z order, so the result does not depend on
 // the schedule.
 //
-// What holds it (scripts/render_eval_probe.py, PERF.md PR 11): the
+// What holds it (scripts/render_eval_probe.py, PERF.md): the
 // products overlap little with the rest of a step; a build without wgmma
 // still takes two thirds of the time.  The encoding's sinf / expf is ~7%;
 // the epilogues, the weight copies, the tap layer's second pass, the
