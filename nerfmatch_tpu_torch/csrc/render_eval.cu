@@ -54,12 +54,12 @@
 // come from one warpgroup in z order, so the result does not depend on
 // the schedule.
 //
-// What holds it (scripts/render_eval_probe.py, PERF.md): the
-// products overlap little with the rest of a step; a build without wgmma
-// still takes two thirds of the time.  The encoding's sinf / expf is ~7%;
-// the epilogues, the weight copies, the tap layer's second pass, the
-// ring's depth (5 to 9 slots) and half the block barriers move it by < 3%
-// each.
+// What holds it (scripts/render_eval_probe.py, PERF.md): the products
+// and the SIMT work of a step (encoding, epilogues, compositing, barriers)
+// run one after the other; without products or weight copies a stage
+// takes ~40% of its time, and the copies hide behind the products.  The
+// epilogues, the tap layer's second pass, the ring's depth (5 to 9 slots)
+// and half the block barriers move it by < 3% each.
 // -Xptxas -v (sm_90a, CUDA 12.8): render_eval_kernel<256, *, false> 254
 // registers, no spills; <256, fine, debug> 248; <64, *> 122-127, no
 // spills.  Dynamic shared memory 166,856 bytes (coarse) and 216,000

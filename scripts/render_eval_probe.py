@@ -16,6 +16,8 @@ source exactly once), one ``nvcc`` each, all started together, into
   the epilogues and the compositing stay);
 * ``no_ring``: no weight slices after the prologue and no waits for them
   (the products run on whatever the slots hold);
+* ``bare``: neither (what remains: the encoding, the epilogues, the
+  compositing, the barriers and the tile turnover);
 * ``no_tap``: the fine stage skips the tap layer's second pass (its slices
   and its product; the descriptor sums read the views' accumulator);
 * ``ring_7_9``: 7 weight slots in the fine stage and 9 in the coarse (6 and
@@ -113,6 +115,7 @@ PATCHES = {
                 ("      mbar_wait(full0 + 8 * (q % R), (q / R) & 1);\n", ""),
                 ("  if (tid == 0)\n    for (int s = q; s < q + R - 2; ++s) "
                  "mbar_wait(full0 + 8 * (s % R), (s / R) & 1);\n", "")],
+    "bare": [],   # no_mma's and no_ring's edits, filled in below
     "no_tap": [(_Q, "  const int Q = FINE ? Qt + 2 * KS : Qt;\n"),
                ("      layer_product(feat_layer);\n", "")],
     "ring_7_9": [(_RING, _RING.replace("? 6 : 7", "? 7 : 9"))],
@@ -170,6 +173,9 @@ def images64(mlp):
     imgs += [img(mlp.feature_linear.weight),
              img(mlp.views_linears[0].weight[:, :hid], n=max(hid // 2, 64))]
     return torch.cat(imgs)
+
+
+PATCHES["bare"] = PATCHES["no_mma"] + PATCHES["no_ring"]
 
 
 # Variants that read other weight images than pack_mlp's.
