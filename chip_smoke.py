@@ -30,7 +30,10 @@ Phases (each prints its results; any failure exits non-zero):
    (forward, dgrad, wgrad) at the c2f trunk's stage-0 and stage-1 shapes
    (2, 240, 240, 256) and (2, 60, 60, 512), the forward and dgrad also at
    batch 1 (serving), each beside cuDNN's depthwise conv alone
-   (``conv_alone_ms``, no StarReLU), and the attention backward at
+   (``conv_alone_ms``, no StarReLU), the wgrad's C entry alone
+   (``kernel_ms``) beside its wrapper and cuDNN's depthwise weight
+   gradient alone (``conv_wgrad_alone_ms``, no StarReLU; its stage-1 row
+   under ``stage_1`` in the summary), and the attention backward at
    B=2, H=8, D=32, L=S=3600 in f32 and bf16-operand modes, timed as the
    training path calls it (the forward's output and ``lse`` handed in) and
    on its own (it casts and runs the forward kernel first); each backward
@@ -1096,6 +1099,7 @@ def phase_matcher_kernels(dev):
         taps = {"f32": 2 * 49 * x.numel()}
         moved = {"dw_star_fwd": nbytes(x, w, cb, y),
                  "dw_star_dgrad": nbytes(x, w, up, dx)}
+        wgrad_extra = {}
         if train:
             errs["dw"] = scaled_err(dw, dw_p)
             times["dw_star_wgrad"] = (
@@ -1103,6 +1107,8 @@ def phase_matcher_kernels(dev):
                 cuda_ms(lambda: dw_star_wgrad_plain(x, s, b, up), 3))
             abs_err["dw_star_wgrad"] = float((dw - dw_p).abs().max())
             moved["dw_star_wgrad"] = nbytes(x, up, dw)
+            wgrad_extra = dict(kernel_ms=wgrad_alone_ms(x, s, b, up),
+                               conv_wgrad_alone_ms=conv_wgrad_alone_ms(x, up))
         bounds = {k: bound(taps, moved[k]) for k in times}
         log(f"kernel dw_star {stage} {tuple(shape)}: scaled err "
             + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
@@ -1112,14 +1118,20 @@ def phase_matcher_kernels(dev):
                 {k: [round(a, 3), round(p, 3)] for k, (a, p) in times.items()})
             + "; bound_ms " + json.dumps(
                 {k: round(v["bound_ms"], 4) for k, v in bounds.items()})
-            + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}")
+            + f"; conv_alone_ms {conv_alone_ms(x, w):.4f}"
+            + "".join(f"; wgrad {k} {v:.4f}" for k, v in wgrad_extra.items()))
         assert max(v for k, v in errs.items() if k in ("y", "dx", "dw")) < 1e-4
         assert max(errs["ds"], errs["db"]) < 1e-5 and same
         assert all(torch.isfinite(t).all() for t in outs)
-        if stage == "stage 0" and train:
-            rows.update({k: dict(max_abs_err=abs_err[k], ms=a, plain_ms=p,
-                                 library_ms=None, **bounds[k])
-                         for k, (a, p) in times.items()})
+        if train:
+            got = {k: dict(max_abs_err=abs_err[k], ms=a, plain_ms=p,
+                           library_ms=None, **bounds[k])
+                   for k, (a, p) in times.items()}
+            got["dw_star_wgrad"].update(wgrad_extra)
+            if stage == "stage 0":
+                rows.update(got)
+            else:   # the wgrad's stage-1 row rides on its stage-0 row
+                rows["dw_star_wgrad"]["stage_1"] = got["dw_star_wgrad"]
         del x, up, y, y_p, dx, dx_p, dact, r2, rerun, outs
 
     q = torch.randn(2, 3600, 8, 32, device=dev, generator=g) / np.sqrt(32)
@@ -1188,6 +1200,34 @@ def conv_alone_ms(x, w):
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(2, 0, 1).unsqueeze(1).contiguous()
     return cuda_ms(lambda: F.conv2d(xc, wc, padding=3, groups=x.shape[-1]))
+
+
+def wgrad_alone_ms(x, s, b, up):
+    """Time of kernel 9's C entry alone (its two launches, no wrapper): the
+    device time of what ``dw_star_wgrad`` launches."""
+    from nerfmatch_tpu_torch.ops import kernels
+    from nerfmatch_tpu_torch.ops.kernels.sepconv_kernel import (
+        dw_star_wgrad_parts)
+
+    B, H, W, C = x.shape
+    rows = dw_star_wgrad_parts(x.device.index, B, H, W, C)
+    part = torch.empty(rows, 49, 32, device=x.device)
+    dw = torch.empty(7, 7, C, device=x.device)
+    lib, stream = kernels.library(), kernels.stream_ptr(x.device)
+    return cuda_ms(lambda: kernels.check(lib.nm_dw_star_wgrad(
+        x.data_ptr(), up.data_ptr(), s.data_ptr(), b.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), rows, B, H, W, C, 7, stream), "dw_star_wgrad"), 20)
+
+
+def conv_wgrad_alone_ms(x, up):
+    """Time of cuDNN's depthwise 7x7 weight gradient alone
+    (``torch.nn.grad.conv2d_weight``, TF32 off) on the channels-last views
+    of the pre-activated x and of g: a yardstick beside kernel 9, not the
+    same function (no StarReLU)."""
+    C = x.shape[-1]
+    xc, gc = x.permute(0, 3, 1, 2), up.permute(0, 3, 1, 2)
+    return cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+        xc, (C, 1, 7, 7), gc, padding=3, groups=C))
 
 
 def sdpa_backward(q, k, v, up):
@@ -1640,7 +1680,8 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
              for e in top}))
         groups = {"attention backward (kernel 4)": ("attn_bwd",),
                   "attention forward (kernel 3)": ("attention_",),
-                  "StarReLU + dwconv (kernels 7-9)": ("dw_star",),
+                  "StarReLU + dwconv (kernels 7-9)": ("dw_star",
+                                                      "wgrad_sum"),
                   "GEMMs": ("gemm", "Gemm"), "cuDNN convs": ("conv", "cudnn"),
                   "optimizer": ("multi_tensor",)}
         by_group = {g: 0.0 for g in (*groups, "other")}

@@ -11,9 +11,10 @@
 // write, so the forward and dgrad are memory-bound (stage 0 of the c2f
 // trunk: 2 x 240 x 240 x 256, 118 MB in and out; ~70 us at 3.35 TB/s), with
 // the f32 FMAs (43 us at 67 TFLOP/s) close behind: loads and arithmetic have
-// to overlap.  The fusion saves writing and re-reading the activation
-// (another 118 MB each way per block), which cuDNN's depthwise convolution
-// cannot fuse.
+// to overlap.  The wgrad reads x and g (236 MB, the same ~70 us) for the
+// same FMAs and writes only dw.  The fusion saves writing and re-reading
+// the activation (another 118 MB each way per block), which cuDNN's
+// depthwise convolution cannot fuse.
 //
 // Forward and dgrad share one tile engine (dw_star_tile_kernel):
 // * a persistent grid of one 512-thread block per SM (the forward's cut to
@@ -45,10 +46,21 @@
 //   partials buffer (no atomics: two runs are bit-identical), summed by the
 //   caller.
 //
-// wgrad (kernel 9, the earlier design): each thread accumulates the K * K
-// tap products of its channel over a 32-row x 4-column region and writes
-// them to a (regions, K*K, C) partials buffer, reduced over regions by the
-// caller in a fixed order.
+// wgrad (kernel 9) runs on the same walk and ring (dw_star_wgrad_kernel):
+// * a stage holds the tile's x halo, activated in place as the forward's,
+//   and g at the tile's 16 x 16 outputs (g's zero fill is its padding: a g
+//   outside the image adds nothing), both by TMA behind one mbarrier;
+// * the grid is a multiple of the channel groups, so a block keeps one
+//   group, and each warp keeps its 49 tap sums of its lane's channel in
+//   registers across every tile of its walk: per halo row it slides a row
+//   of 10 activated inputs against its 4 x 4 g values (6.8 FMA per shared
+//   load), with no partial sum per tile;
+// * after the walk the block sums its 16 warps' 49 x 32 sums in warp order
+//   through shared memory (the ring is idle by then) into one partials row
+//   per block, and a second launch (wgrad_sum_kernel) sums the rows of each
+//   channel group in row order into dw (K, K, C).  No atomics: two runs are
+//   bit-identical.  The rows' count is the grid, so the sum's order (and
+//   its last bits) follows the SM count.
 
 #include <cuda.h>   // CUtensorMap and its enums (libcuda itself is not linked)
 #include <cuda_runtime.h>
@@ -63,8 +75,7 @@ namespace {
 
 constexpr int kTaps = 7;          // every ConvFormer token mixer is 7 x 7
 constexpr int kPad = kTaps / 2;
-constexpr int kCh = 128;          // channel multiple the kernels take; wgrad's
-                                  // channels per block (one per thread)
+constexpr int kCh = 128;          // channel multiple the kernels take
 
 // Forward and dgrad tile engine.
 constexpr int kTileH = 16;        // output rows of a tile
@@ -89,11 +100,6 @@ struct Stage {
   static constexpr uint32_t kW = kX + (kDgrad ? kInBytes : 0);
   static constexpr uint32_t kBytes = kW + kTapBytes;
 };
-
-// wgrad (kernel 9).
-constexpr int kTH = 8;            // output rows of a thread's tile
-constexpr int kTW = 4;            // output columns of a thread's tile
-constexpr int kWgradTiles = 4;    // row tiles of a wgrad region (32 rows)
 
 __device__ __forceinline__ float star_relu(float v, float s, float b) {
   const float r = fmaxf(v, 0.f);
@@ -365,65 +371,132 @@ dw_star_tile_kernel(const __grid_constant__ CUtensorMap in_map,
   }
 }
 
-template <int K>
-__global__ void __launch_bounds__(kCh)
-dw_star_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     const float* __restrict__ sb, float* __restrict__ part,
-                     int H, int W, int C, int tiles_w) {
-  constexpr int P = K / 2;
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int region = blockIdx.y;
-  const int x0 = (region % tiles_w) * kTW;
-  const int yr = (region / tiles_w) * kTH * kWgradTiles;
-  const size_t img = (size_t)blockIdx.z * H * W * C;
-  const float* xp = x + img + c;
-  const float* gp = g + img + c;
-  const float s = sb[0], b = sb[1];
-  float acc[K * K];
+// acc[dy * K + dx] += sum_{oy, ox} gp[oy][ox] * src[((oy + dy) * kHaloW +
+// ox + dx) * kTileC], oy ascending: ``src`` points at the patch's corner of
+// the activated halo, ``gp`` at its first output of the g tile, both at
+// this lane's channel.
+__device__ __forceinline__ void patch_wgrad(const float* src, const float* gp,
+                                            float (&acc)[kTaps * kTaps]) {
+  float gv[kPatch][kPatch];
 #pragma unroll
-  for (int i = 0; i < K * K; ++i) acc[i] = 0.f;
-  for (int t = 0; t < kWgradTiles; ++t) {
-    const int y0 = yr + t * kTH;
-    if (y0 >= H) break;
-    float gr[kTH][kTW];
+  for (int oy = 0; oy < kPatch; ++oy)
 #pragma unroll
-    for (int oy = 0; oy < kTH; ++oy)
+    for (int ox = 0; ox < kPatch; ++ox) gv[oy][ox] = gp[(oy * kTileW + ox) * kTileC];
 #pragma unroll
-      for (int ox = 0; ox < kTW; ++ox)
-        gr[oy][ox] = (y0 + oy < H && x0 + ox < W)
-                         ? gp[((size_t)(y0 + oy) * W + x0 + ox) * C]
-                         : 0.f;
+  for (int iy = 0; iy < kPatch + kTaps - 1; ++iy) {
+    float row[kPatch + kTaps - 1];
 #pragma unroll
-    for (int iy = 0; iy < kTH + K - 1; ++iy) {
-      const int yy = y0 + iy - P;
-      const bool row_ok = yy >= 0 && yy < H;
-      float row[kTW + K - 1];
+    for (int ix = 0; ix < kPatch + kTaps - 1; ++ix)
+      row[ix] = src[(iy * kHaloW + ix) * kTileC];
 #pragma unroll
-      for (int ix = 0; ix < kTW + K - 1; ++ix) {
-        const int xx = x0 + ix - P;
-        row[ix] = (row_ok && xx >= 0 && xx < W)
-                      ? star_relu(xp[((size_t)yy * W + xx) * C], s, b)
-                      : 0.f;
-      }
+    for (int oy = 0; oy < kPatch; ++oy) {
+      const int dy = iy - oy;
+      if (dy < 0 || dy >= kTaps) continue;
 #pragma unroll
-      for (int oy = 0; oy < kTH; ++oy) {
-        const int dy = iy - oy;
-        if (dy < 0 || dy >= K) continue;
+      for (int ox = 0; ox < kPatch; ++ox)
 #pragma unroll
-        for (int dxi = 0; dxi < K; ++dxi)
-#pragma unroll
-          for (int ox = 0; ox < kTW; ++ox)
-            acc[dy * K + dxi] = fmaf(gr[oy][ox], row[ox + dxi],
-                                     acc[dy * K + dxi]);
-      }
+        for (int dx = 0; dx < kTaps; ++dx)
+          acc[dy * kTaps + dx] = fmaf(gv[oy][ox], row[ox + dx], acc[dy * kTaps + dx]);
     }
   }
-  float* dst = part + ((size_t)blockIdx.z * gridDim.y + region) * K * K * C + c;
-#pragma unroll
-  for (int i = 0; i < K * K; ++i) dst[(size_t)i * C] = acc[i];
 }
 
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+// Shared memory of the wgrad: the ring (a stage: the halo, then g at the
+// outputs), after the walk the warps' tap sums in its place, the mbarriers.
+struct WgradSmem {
+  static constexpr uint32_t kStage = kHaloBytes + kInBytes;
+  static constexpr uint32_t kRing = kStages * kStage;
+  static constexpr uint32_t kRed = kWarps * kTapBytes;
+  static constexpr uint32_t kBars = kRing > kRed ? kRing : kRed;
+  static constexpr uint32_t kBytes = kBars + 8 * kStages;
+};
+
+// x_map: x with the halo box; g_map: g with the tile box.  part (gridDim.x,
+// K * K, kTileC): the block's tap sums over its walk; the grid is a
+// multiple of the channel groups, so block k keeps group k % groups.
+__global__ void __launch_bounds__(kThreads, 1)
+dw_star_wgrad_kernel(const __grid_constant__ CUtensorMap x_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const float* __restrict__ s_ptr,
+                     const float* __restrict__ b_ptr, float* __restrict__ part,
+                     int B, int H, int W, int C) {
+  using M = WgradSmem;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t sm0 = smem_u32(smem_raw);
+  const uint32_t bars = sm0 + M::kBars;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Tiles tl(B, H, W, C);
+  const int mine = (tl.count - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  auto tile = [&](int i) { return tl.at((int)blockIdx.x + i * (int)gridDim.x); };
+
+  // Thread 0: stage tile i (the expected bytes next to the copies).
+  auto load_tile = [&](int i) {
+    const int st = i % kStages;
+    const uint32_t base = sm0 + st * M::kStage, bar = bars + 8 * st;
+    const Tile tt = tile(i);
+    const int c0 = tt.grp * kTileC;
+    mbar_expect(bar, kHaloBytes + kInBytes);
+    tma_load_4d(base, &x_map, bar, c0, tt.x0 - kPad, tt.y0 - kPad, tt.b);
+    tma_load_4d(base + kHaloBytes, &g_map, bar, c0, tt.x0, tt.y0, tt.b);
+  };
+
+  if (tid == 0)
+    for (int st = 0; st < kStages; ++st) mbar_init(bars + 8 * st);
+  fence_async();
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < mine; ++i) load_tile(i);
+
+  const int py = (warp / kPatchCols) * kPatch, px = (warp % kPatchCols) * kPatch;
+  const float s = *s_ptr, b = *b_ptr;
+  float acc[kTaps * kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps * kTaps; ++k) acc[k] = 0.f;
+  for (int i = 0; i < mine; ++i) {
+    const int st = i % kStages;
+    const Tile tt = tile(i);
+    float* halo = reinterpret_cast<float*>(smem_raw + st * M::kStage);
+    mbar_wait(bars + 8 * st, (i / kStages) & 1);
+    activate(halo, tt.y0, tt.x0, H, W, s, b);
+    __syncthreads();   // the activated halo
+    patch_wgrad(halo + (py * kHaloW + px) * kTileC + lane,
+                halo + kHaloBytes / 4 + (py * kTileW + px) * kTileC + lane, acc);
+    fence_async();     // the halo writes, before TMA overwrites the stage
+    __syncthreads();   // stage st is free
+    if (tid == 0 && i + kStages < mine) load_tile(i + kStages);
+  }
+
+  // Every load was waited for: the ring is idle.  The warps' sums, then the
+  // block's, warps in order.
+  float* red = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int k = 0; k < kTaps * kTaps; ++k)
+    red[(warp * kTaps * kTaps + k) * kTileC + lane] = acc[k];
+  __syncthreads();
+  constexpr int kRow = kTaps * kTaps * kTileC;
+  float* dst = part + (size_t)blockIdx.x * kRow;
+  for (int e = tid; e < kRow; e += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) v += red[k * kRow + e];
+    dst[e] = v;
+  }
+}
+
+// dw[k, grp * kTileC + lane] = the sum of the group's partials rows (blocks
+// grp, grp + groups, ...) in row order.  Grid (groups, K * K), kTileC
+// threads.
+__global__ void __launch_bounds__(kTileC)
+wgrad_sum_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                 int groups, int rows, int C) {
+  const int grp = blockIdx.x, k = blockIdx.y, lane = threadIdx.x;
+  const float* src = part + ((size_t)grp * kTaps * kTaps + k) * kTileC + lane;
+  const size_t step = (size_t)groups * kTaps * kTaps * kTileC;
+  float v = 0.f;
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) v += src[r * step];
+  dw[(size_t)k * C + grp * kTileC + lane] = v;
+}
 
 bool bad_shape(int B, int H, int W, int C, int K) {
   return K != kTaps || B < 1 || H < 1 || W < 1 || C < kCh || C % kCh != 0;
@@ -511,16 +584,29 @@ cudaError_t tile_grid(int B, int H, int W, int C, int* grid) {
   return cudaSuccess;
 }
 
-// Lets the tile kernel take its dynamic shared memory, once per device.
-template <bool kDgrad>
-cudaError_t allow_smem() {
+// The wgrad's grid: a multiple of the channel groups (a block keeps one
+// group, and its tap sums, for all its tiles), one block per SM where the
+// SMs outnumber the groups, else one per group; at most one per tile.
+cudaError_t wgrad_grid(int B, int H, int W, int C, int* grid) {
+  int dev = 0, sms = 0;
+  const cudaError_t e = device_sms(&dev, &sms);
+  if (e != cudaSuccess) return e;
+  const Tiles tl(B, H, W, C);
+  const int blocks = (sms > tl.groups ? sms / tl.groups : 1) * tl.groups;
+  *grid = tl.count < blocks ? tl.count : blocks;   // count: a multiple too
+  return cudaSuccess;
+}
+
+// Lets ``kernel`` take ``bytes`` of dynamic shared memory, once per device
+// (kId tells the kernels apart).
+template <int kId>
+cudaError_t allow_smem(const void* kernel, int bytes) {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0, sms = 0;
   cudaError_t e = device_sms(&dev, &sms);
   if (e != cudaSuccess || done[dev].load(std::memory_order_relaxed)) return e;
-  e = cudaFuncSetAttribute(dw_star_tile_kernel<kDgrad>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Smem<kDgrad>::kBytes);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
   if (e == cudaSuccess) done[dev].store(true, std::memory_order_relaxed);
   return e;
 }
@@ -546,10 +632,41 @@ cudaError_t launch_tiles(const void* in, const void* x, const void* w,
   if (kDgrad && e == cudaSuccess) e = tensor_map(&x_map, x, nhwc, tile_box);
   out_map = in_map;   // the dgrad stores from registers
   if (!kDgrad && e == cudaSuccess) e = tensor_map(&out_map, out, nhwc, tile_box);
-  if (e == cudaSuccess) e = allow_smem<kDgrad>();
+  if (e == cudaSuccess)
+    e = allow_smem<kDgrad>(reinterpret_cast<const void*>(dw_star_tile_kernel<kDgrad>),
+                           (int)Smem<kDgrad>::kBytes);
   if (e != cudaSuccess) return e;
   dw_star_tile_kernel<kDgrad><<<grid, kThreads, Smem<kDgrad>::kBytes, stream>>>(
       in_map, x_map, w_map, out_map, cbias, s, b, out, part, B, H, W, C);
+  return cudaGetLastError();
+}
+
+// dw (K, K, C) from the wgrad kernel's partials rows (part: grid rows of
+// K * K x kTileC) and their sum.  grid: a multiple of the channel groups in
+// [groups, tiles].
+cudaError_t launch_wgrad(const void* x, const void* g, const float* s,
+                         const float* b, float* dw, float* part, int B, int H,
+                         int W, int C, int grid, cudaStream_t stream) {
+  const Tiles tl(B, H, W, C);
+  if (grid < tl.groups || grid > tl.count || grid % tl.groups != 0)
+    return cudaErrorInvalidValue;
+  const cuuint64_t nhwc[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint32_t halo_box[4] = {kTileC, kHaloW, kHaloH, 1};
+  const cuuint32_t tile_box[4] = {kTileC, kTileW, kTileH, 1};
+  CUtensorMap x_map, g_map;
+  cudaError_t e = tensor_map(&x_map, x, nhwc, halo_box);
+  if (e == cudaSuccess) e = tensor_map(&g_map, g, nhwc, tile_box);
+  if (e == cudaSuccess)
+    e = allow_smem<2>(reinterpret_cast<const void*>(dw_star_wgrad_kernel),
+                      (int)WgradSmem::kBytes);
+  if (e != cudaSuccess) return e;
+  dw_star_wgrad_kernel<<<grid, kThreads, WgradSmem::kBytes, stream>>>(
+      x_map, g_map, s, b, part, B, H, W, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  wgrad_sum_kernel<<<dim3(tl.groups, kTaps * kTaps), kTileC, 0, stream>>>(
+      part, dw, tl.groups, grid / tl.groups, C);
   return cudaGetLastError();
 }
 
@@ -589,17 +706,21 @@ extern "C" int nm_dw_star_dgrad(const void* x, const void* g, const void* w,
                                  (cudaStream_t)stream);
 }
 
-// part (B * ceil(H / 32) * ceil(W / 4), K * K, C): per-region tap sums.
-extern "C" int nm_dw_star_wgrad(const void* x, const void* g, const void* sb,
-                                void* part, int B, int H, int W, int C, int K,
-                                void* stream) {
+// The wgrad's grid for this shape on the current device, into *parts: the
+// partials rows (of K * K x 32 floats) to give nm_dw_star_wgrad.
+extern "C" int nm_dw_star_wgrad_parts(int B, int H, int W, int C, int* parts) {
+  if (bad_shape(B, H, W, C, kTaps)) return (int)cudaErrorInvalidValue;
+  return (int)wgrad_grid(B, H, W, C, parts);
+}
+
+// s, b: StarReLU's scalars on the device; dw (K, K, C); part (parts, K * K,
+// 32): the per-block tap sums, one block a row (parts a multiple of C / 32
+// in [C / 32, tiles]; the caller's count from nm_dw_star_wgrad_parts).  x
+// and g 16-byte aligned.
+extern "C" int nm_dw_star_wgrad(const void* x, const void* g, const void* s,
+                                const void* b, void* dw, void* part, int parts,
+                                int B, int H, int W, int C, int K, void* stream) {
   if (bad_shape(B, H, W, C, K)) return (int)cudaErrorInvalidValue;
-  const int tiles_w = ceil_div(W, kTW);
-  const dim3 grid(C / kCh, ceil_div(H, kTH * kWgradTiles) * tiles_w, B);
-  cudaStream_t s = (cudaStream_t)stream;
-  const float *xp = (const float*)x, *gp = (const float*)g,
-              *sp = (const float*)sb;
-  float* pp = (float*)part;
-  dw_star_wgrad_kernel<kTaps><<<grid, kCh, 0, s>>>(xp, gp, sp, pp, H, W, C, tiles_w);
-  return (int)cudaGetLastError();
+  return (int)launch_wgrad(x, g, (const float*)s, (const float*)b, (float*)dw,
+                           (float*)part, B, H, W, C, parts, (cudaStream_t)stream);
 }

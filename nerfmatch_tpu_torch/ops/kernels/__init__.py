@@ -83,8 +83,10 @@ _SIGNATURES = {
     "nm_dw_star_dgrad_parts": [_I, _I, _I, _I, _P],
     # x, g, w, s, dx, part, parts, B, H, W, C, K, stream
     "nm_dw_star_dgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, g, sb, part, B, H, W, C, K, stream
-    "nm_dw_star_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, H, W, C, out number of tap-sum partials rows
+    "nm_dw_star_wgrad_parts": [_I, _I, _I, _I, _P],
+    # x, g, s, b, dw, part, parts, B, H, W, C, K, stream
+    "nm_dw_star_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
@@ -186,9 +188,12 @@ def stream_ptr(device) -> int:
 
 
 def require_cuda_tensors(name: str, *tensors) -> None:
-    """Kernel inputs must be contiguous float tensors on one CUDA device."""
+    """Kernel inputs must be contiguous tensors on one CUDA device."""
     dev = tensors[0].device
     for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: inputs must be CUDA tensors, got one "
+                             f"on {t.device}")
         if t.device != dev:
             raise ValueError(f"{name}: inputs on different devices")
         if not t.is_contiguous():

@@ -24,6 +24,7 @@ from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 
 KERNEL_TAPS = 7                 # every ConvFormer token mixer is 7 x 7
 CHANNEL_BLOCK = 128
+TILE_CHANNELS = 32              # a tile's channels: kernel 9's partials rows
 
 
 def _row_block(H: int, K: int) -> int | None:
@@ -105,11 +106,6 @@ def _scalar(t, dev):
     return torch.as_tensor(t, dtype=torch.float32, device=dev).detach()
 
 
-def _sb(s, b, dev):
-    """[s, b] as a float32 device tensor (no host sync)."""
-    return torch.stack([_scalar(t, dev).reshape(()) for t in (s, b)])
-
-
 def dw_star_fwd(x, w, cbias, s, b):
     """Kernel 7 on CUDA tensors -> y (B, H, W, C)."""
     B, H, W, C = x.shape
@@ -162,22 +158,38 @@ def dw_star_dgrad(x, w, s, g):
     return dx, dsb[0], dsb[1]
 
 
+@functools.lru_cache(maxsize=None)
+def dw_star_wgrad_parts(device: int, B: int, H: int, W: int, C: int) -> int:
+    """Rows of kernel 9's tap-sum partials for this shape on CUDA device
+    ``device``: its persistent grid, a multiple of the channel groups (asked
+    once per device and shape; the kernel launches one block a row)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(library().nm_dw_star_wgrad_parts(B, H, W, C, ctypes.byref(n)),
+              "dw_star_wgrad_parts")
+    return n.value
+
+
 def dw_star_wgrad(x, s, b, g, K: int = 7):
-    """Kernel 9 on CUDA tensors -> dw (K, K, C), a fixed-order sum over the
-    per-region partials."""
+    """Kernel 9 on CUDA tensors -> dw (K, K, C): per-block tap sums over a
+    persistent walk, summed per channel group in a fixed order by the
+    kernel's second launch (no atomics)."""
     B, H, W, C = x.shape
     _check("dw_star_wgrad", x, K, C)
     x, g = x.contiguous(), g.contiguous()
-    sb = _sb(s, b, x.device)
-    require_cuda_tensors("dw_star_wgrad", x, g, sb)
-    regions = B * (-(-H // 32)) * (-(-W // 4))
-    part = torch.empty(regions, K * K, C, device=x.device, dtype=torch.float32)
+    s, b = _scalar(s, x.device), _scalar(b, x.device)
+    require_cuda_tensors("dw_star_wgrad", x, g, s, b)
+    _require_aligned("dw_star_wgrad", x, g)
+    parts = dw_star_wgrad_parts(x.device.index, B, H, W, C)
+    part = torch.empty(parts, K * K, TILE_CHANNELS, device=x.device,
+                       dtype=torch.float32)
+    dw = torch.empty(K, K, C, device=x.device, dtype=torch.float32)
     err = library().nm_dw_star_wgrad(
-        x.data_ptr(), g.data_ptr(), sb.data_ptr(), part.data_ptr(), B, H, W, C,
-        K, stream_ptr(x.device))
+        x.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), parts, B, H, W, C, K, stream_ptr(x.device))
     check(err, "dw_star_wgrad")
     LAUNCHES["dw_star_wgrad"] += 1
-    return part.sum(0).reshape(K, K, C)
+    return dw
 
 
 class _DwStar(torch.autograd.Function):

@@ -529,7 +529,7 @@ def test_kernels_raise_instead_of_falling_back(dev):
 
 @pytest.mark.cuda
 def test_dw_star_refuses_misaligned_inputs(dev):
-    """Kernels 7 and 8 read x, g and w through TMA tensor maps: a tensor
+    """Kernels 7, 8 and 9 read x, g and w through TMA tensor maps: a tensor
     that does not start on a 16-byte boundary raises instead of launching."""
     n = 16 * 16 * 128
     x = torch.randn(n + 1, device=dev)[1:].view(1, 16, 16, 128)
@@ -539,6 +539,8 @@ def test_dw_star_refuses_misaligned_inputs(dev):
         dw_star_fwd(x, w, w[0, 0], one, one)
     with pytest.raises(ValueError, match="16-byte"):
         dw_star_dgrad(x, w, one, x)
+    with pytest.raises(ValueError, match="16-byte"):
+        dw_star_wgrad(x, one, one, x)
 
 
 @pytest.mark.cuda
@@ -577,6 +579,56 @@ def test_dw_star_dgrad_launches_the_grid_it_is_given(dev):
     assert all(torch.equal(dx, dxs[0]) for dx in dxs)
     for parts in (0, tiles + 1):
         assert launch(parts)[0] != 0
+
+
+@pytest.mark.cuda
+def test_dw_star_wgrad_launches_the_grid_it_is_given(dev):
+    """Kernel 9 launches one block per partials row it is given: any
+    multiple of the channel groups in [groups, tiles] gives dw within 1e-4
+    of the plain version's largest value, bit-identical on a rerun; a count
+    outside that range is refused without a launch (dw stays untouched)."""
+    B, H, W, C = 1, 40, 40, 128          # 3 x 3 tiles x 4 channel groups
+    groups, tiles = 4, 36
+    x, _, _, s, b, g = sepconv_inputs(dev, B, H, W, C)
+    want = dw_star_wgrad_plain(x, s, b, g)
+    lib = kernels.library()
+
+    def launch(parts):
+        dw = torch.full((7, 7, C), float("nan"), device=dev)
+        part = torch.empty(max(parts, 1), 49, 32, device=dev)
+        err = lib.nm_dw_star_wgrad(
+            x.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), parts, B, H, W, C, 7,
+            kernels.stream_ptr(dev))
+        torch.cuda.synchronize()
+        return err, dw
+
+    for parts in (groups, 3 * groups, tiles):
+        err, dw = launch(parts)
+        assert err == 0
+        assert scaled_err(dw, want) < 1e-4
+        assert torch.equal(launch(parts)[1], dw)
+    for parts in (0, groups - 1, groups + 2, tiles + groups):
+        err, dw = launch(parts)
+        assert err != 0 and torch.isnan(dw).all()
+
+
+@pytest.mark.cuda
+def test_dw_star_wgrad_is_one_launch_with_small_partials(dev):
+    """One wrapper call counts one launch of kernel 9 and, at stage 0 (B=2),
+    allocates under 1 MB beside dw: one (49, 32) row of tap sums per block,
+    not a (regions, 49, C) buffer (48 MB)."""
+    x, _, _, s, b, g = sepconv_inputs(dev, 2, 240, 240, 256)
+    dw_star_wgrad(x, s, b, g)            # builds; caches the grid
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dw = dw_star_wgrad(x, s, b, g)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - before - dw.numel() * 4
+    assert LAUNCHES["dw_star_wgrad"] == 1 and sum(LAUNCHES.values()) == 1
+    assert extra < 1 << 20, extra
 
 
 def sepconv_inputs(dev, B, H, W, C, K=7, seed=0):

@@ -69,6 +69,39 @@ def test_dw_star_plain_matches_pallas_kernels(shape):
         np.asarray(dw), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("shape", [(1, 17, 9, 128, 7), (1, 16, 16, 256, 7),
+                                   (2, 33, 20, 128, 7), (1, 7, 7, 128, 7)])
+def test_dw_star_wgrad_plain_matches_pallas_wgrad(shape):
+    """``dw_star_wgrad_plain`` vs ``_dw_star_wgrad`` (interpret), atol/rtol
+    1e-4, at shapes whose image edges fall inside the CUDA kernel's 16 x 16
+    tiles (ragged tiles, one tile, a tile larger than the image): the
+    activated map is 0 outside the image, not StarReLU(0) = b."""
+    x, _, _, s, b, g = inputs(*shape, seed=11)
+    K = shape[-1]
+    dw = jsep._dw_star_wgrad(jnp.asarray(x), s, b, jnp.asarray(g), K=K,
+                             interpret=True)
+    np.testing.assert_allclose(
+        tsep.dw_star_wgrad_plain(t(x), t(s), t(b), t(g), K=K).numpy(),
+        np.asarray(dw), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("wrapper", ["dw_star_fwd", "dw_star_dgrad",
+                                     "dw_star_wgrad"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper, monkeypatch):
+    """A kernel wrapper handed CPU tensors raises ``ValueError`` before it
+    builds or loads the kernels (a launch would take host pointers)."""
+    def no_build():
+        raise AssertionError("the kernels were built for CPU tensors")
+
+    monkeypatch.setattr(tsep, "library", no_build)
+    x, w, cb, s, b, g = (t(a) for a in inputs(1, 16, 16, 128, 7))
+    calls = {"dw_star_fwd": lambda: tsep.dw_star_fwd(x, w, cb, s, b),
+             "dw_star_dgrad": lambda: tsep.dw_star_dgrad(x, w, s, g),
+             "dw_star_wgrad": lambda: tsep.dw_star_wgrad(x, s, b, g)}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        calls[wrapper]()
+
+
 def test_dw_star_autograd_matches_jax_vjp():
     """All five cotangents of the port's ``dw_star`` on CPU (autograd of the
     plain version) vs ``jax.vjp`` of ``dw_star`` (the Pallas VJP, run

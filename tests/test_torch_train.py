@@ -127,22 +127,27 @@ def test_stash_and_gradient_workspace_split_the_old_workspace(
 
 
 @pytest.mark.parametrize("S", [32, 64, 128, 192, 256, 320])
-def test_train_kernel_takes_64_128_or_256_samples(S):
+def test_train_kernel_takes_64_128_or_256_samples(S, monkeypatch):
     """The train kernels' shape gate, which comes before any device work:
     S = 64 (one half of the backward's 128-row chunk, two rays a chunk) or
-    whole chunks up to 256; other sample counts raise NotImplementedError."""
-    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        StageSpec, _kernel_args)
+    whole chunks up to 256; other sample counts raise NotImplementedError.
+    Past the gate, CPU tensors stop at the device check; without it they
+    would reach the launch arguments."""
+    from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
 
     mlp = NerfMLP(NerfConfig(layer_num=2, hid_dim=64, xyz_dim=90, dirs_dim=27,
                              use_viewdirs=True))
     n = 4
     rays, z, noise = torch.zeros(n, 12), torch.zeros(n, S + 1), torch.zeros(n, S)
+    args = (rtk.StageSpec(mlp, 15, 4), rays, z, noise, [])
     if S in (64, 128, 256):
-        assert _kernel_args(StageSpec(mlp, 15, 4), rays, z, noise, [])[6] == S
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            rtk._kernel_args(*args)
+        monkeypatch.setattr(rtk, "require_cuda_tensors", lambda *a: None)
+        assert rtk._kernel_args(*args)[6] == S
     else:
         with pytest.raises(NotImplementedError):
-            _kernel_args(StageSpec(mlp, 15, 4), rays, z, noise, [])
+            rtk._kernel_args(*args)
 
 
 @pytest.fixture(scope="module")
