@@ -39,11 +39,15 @@ Phases (each prints its results; any failure exits non-zero):
    on its own (it casts and runs the forward kernel first); each backward
    rerun must be bit-identical;
 3d. the same for the int8 serving trunk: activation scales calibrated from
-   the first 1024 of 9216 rays of the room fixture, then the int8 render
-   stage (coarse, and the fine stage of ``'both'`` and ``'posttap'``) at
-   eps 0 and 1e-4 against its plain version, with the share of integer
-   activations that differ, the bf16 stage's time beside it, and the
-   two-stage render of every int8 mode against the f32 plain render;
+   the first 1024 of 9216 rays of the room fixture, the int8 kernel's
+   design, registers, spills and shared memory, then the int8 render stage
+   (``render_eval.cu`` with s8 ``wgmma``: coarse, and the fine stage of
+   ``'both'`` and ``'posttap'``) at eps 0 and 1e-4 against its plain
+   version, with the share of integer activations that differ (< 1e-3),
+   a rerun (bit-identical), its zero weights against ``early_term_mask``
+   on the plain int8 version's alpha at 1e-4, the bf16 stage's time beside
+   it, its bound, and the two-stage render of every int8 mode against the
+   f32 plain render;
 4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) with its
    int8 mode resolved as the serving paths resolve it (``'coarse'``: the
    config does not set ``render.trunk_int8``) and the production c2f
@@ -125,9 +129,9 @@ KERNEL_SOURCES = {
                       "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
     "render_fine": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                     "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render.cu",
+    "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                            "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
-    "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render.cu",
+    "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                          "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "resample": ("nerfmatch_tpu_torch/csrc/resample.cu",
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
@@ -152,6 +156,13 @@ RENDER_EVAL_DESIGN = ("wgmma m64nHIDk16, persistent grid of two warpgroups, "
                       "one 2-ray tile per warpgroup with early termination, "
                       "32-row weight slices by bulk copy in a ring, tap "
                       "layer run again on its kept A for the descriptor")
+# What the int8 render stages run since their redesign: the same engine.
+INT8_EVAL_DESIGN = ("render_eval.cu's engine with the trunk from int8_from on "
+                    "s8 wgmma m64nHIDk32 (K-major s8 slot images, 64 rows a "
+                    "slot, in the same ring), A packed from the s32 "
+                    "accumulator by a host-side row permutation, the "
+                    "post-skip layer's encoding rows 64 columns at a time "
+                    "into a second accumulator, unfused f32 epilogue")
 # The serving default (trunk_int8='coarse'), then the opt-in requests'.
 SERVING_KERNELS = ("render_coarse_int8", "render_fine", "resample",
                    "attention", "dw_star_fwd")
@@ -340,8 +351,8 @@ def phase_build():
 
 
 def render_eval_build():
-    """The bf16 render kernel's ptxas lines (registers, spills) by
-    instantiation and its dynamic shared memory, from the build."""
+    """The render kernel's ptxas lines (registers, spills) by instantiation
+    (bf16 or int8 trunk) and its dynamic shared memory, from the build."""
     import re
 
     from nerfmatch_tpu_torch.ops import kernels
@@ -352,16 +363,20 @@ def render_eval_build():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "render_eval_kernel" in name and ("Used" in line or "spill" in line):
-            hid, fine, dbg = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", name).groups()
+            hid, fine, dbg, q8 = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                                           name).groups()
             out.append(f"<{hid}, {'fine' if fine == '1' else 'coarse'}"
-                       f"{', debug' if dbg == '1' else ''}>: "
+                       f"{', debug' if dbg == '1' else ''}, "
+                       f"{'int8' if q8 == '1' else 'bf16'}>: "
                        + line.strip().replace("ptxas info    : ", ""))
     lib = kernels.library()
-    for hid in (64, 256):
-        for fine in (0, 1):
-            out.append(f"<{hid}, {'fine' if fine else 'coarse'}>: "
-                       f"{lib.nm_render_eval_smem(hid, fine)} bytes of "
-                       f"dynamic shared memory")
+    for q8 in (0, 1):
+        for hid in (64, 256):
+            for fine in (0, 1):
+                out.append(f"<{hid}, {'fine' if fine else 'coarse'}, "
+                           f"{'int8' if q8 else 'bf16'}>: "
+                           f"{lib.nm_render_eval_smem(hid, fine, q8)} bytes of "
+                           f"dynamic shared memory")
     return out
 
 
@@ -388,7 +403,8 @@ def phase_kernels(renderer, dev):
     # this breaks apart.  The f32-MLP plain version is reported beside it.
     tol = 5e-3
     for line in render_eval_build():
-        log(f"render_eval_kernel {line}")
+        if "bf16" in line:
+            log(f"render_eval_kernel {line}")
     for eps in (0.0, 1e-4):
         for name, (mlp, fine) in stages.items():
             if name == "render_fine":
@@ -564,7 +580,8 @@ def phase_int8_kernels(renderer, dev):
     from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
                                                        pack_mlp_int8)
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
-        pack_mlp, pack_mlp_fragments, render_stage, render_stage_plain)
+        early_term_mask, pack_mlp, render_stage, render_stage_plain,
+        stage_alpha_plain)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
         resample_z_plain)
 
@@ -584,11 +601,16 @@ def phase_int8_kernels(renderer, dev):
             "posttap": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"],
                                                   tap + 1, tap))}
     bf16 = {id(m): pack_mlp(m) for m in (cmlp, fmlp)}
-    frags = {id(m): pack_mlp_fragments(m) for m in (cmlp, fmlp)}
-    wbytes = lambda q: nbytes(*q["frag"].values(), *[
-        v for k, v in q.items() if torch.is_tensor(v) and k[0] != "w"])
+    # The bytes the kernel reads besides rays and z: its packed weights and
+    # the int8 trunk's f32 rows.
+    wbytes = lambda q, packed: nbytes(*weight_tensors(packed), *[
+        v for k, v in q.items() if torch.is_tensor(v) and k[0] != "w" and k != "img"])
     log(f"int8 calibration: {calib_ms:.1f} ms (plain f32 render of 1024 rays, "
         f"both stages; once per scene)")
+    log(f"int8 render design: {INT8_EVAL_DESIGN}")
+    for line in render_eval_build():
+        if "int8" in line:
+            log(f"render_eval_kernel {line}")
     # Both sides quantize the same f32 values with the same roundings and
     # multiply integers exactly; the f32 epilogue is unfused on both.  What
     # remains: the bf16 layers and heads (as in the bf16 rows), sinf / expf
@@ -602,41 +624,55 @@ def phase_int8_kernels(renderer, dev):
             **args)["weights"]).contiguous()
         for mode, (mlp, fine, q) in int8.items():
             zz = zc if fine else z
-            packed = frags[id(mlp)]
+            packed = pack_mlp(mlp, q)
             run_k = lambda: render_stage(mlp, rays, zz, fine=fine,
                                          packed=packed, int8=q, **args)
             run_b = lambda: render_stage(mlp, rays, zz, fine=fine,
                                          packed=bf16[id(mlp)], **args)
             run_p = lambda: render_stage_plain(mlp, rays, zz, fine=fine,
                                                int8=q, **args)
-            a, b = run_k(), run_p()
+            a, b, again = run_k(), run_p(), run_k()
             torch.cuda.synchronize()
             err, scaled = max_err(a, b), max_err(a, b, scaled=True)
+            same = all(torch.equal(a[k], again[k]) for k in a)
+            del again
             share = ""
             if eps == 0:
                 ka = render_stage(mlp, rays, zz, fine=fine, packed=packed,
                                   int8=q, debug_q=True, **args)
                 pa = render_stage_plain(mlp, rays, zz, fine=fine, int8=q,
                                         debug_q=True, **args)
+                shares = {k: float((ka[k] != pa[k]).float().mean())
+                          for k in ("xq", "hq")}
                 share = " int8 activations that differ: " + json.dumps(
-                    {k: float(f"{float((ka[k] != pa[k]).float().mean()):.3e}")
-                     for k in ("xq", "hq")})
+                    {k: float(f"{v:.3e}") for k, v in shares.items()})
                 del ka, pa
+                assert max(shares.values()) < 1e-3, shares
             ms, bf16_ms = cuda_ms(run_k, 5), cuda_ms(run_b, 5)
             plain_ms = cuda_ms(run_p, 2)
             name = "render_fine_int8" if fine else "render_coarse_int8"
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       library_ms=None,
-                       **render_bound(mlp, fine, rays, zz, a, eps, wbytes(q)
-                                      + nbytes(*[p for p in packed if p is not None]),
-                                      q["start"]))
+            row = dict(design=INT8_EVAL_DESIGN, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=None,
+                       **render_bound(mlp, fine, rays, zz, a, eps,
+                                      wbytes(q, packed), q["start"]))
             log(f"kernel {name} ({mode}) eps={eps:g}: max_abs_err={err:.3e} "
                 f"scaled {scaled:.3e} (tol {tol:g}, vs plain int8){share} "
                 f"ms={ms:.3f} (bf16 stage {bf16_ms:.3f}) plain_ms="
                 f"{plain_ms:.3f} bound_ms={row['bound_ms']:.3f} "
-                f"({row['bound_by']})")
-            assert scaled < tol and all(torch.isfinite(v).all()
-                                        for v in a.values())
+                f"({row['bound_by']}); rerun bit-identical: {same}")
+            assert scaled < tol and same and all(torch.isfinite(v).all()
+                                                 for v in a.values())
+            if eps > 0:
+                # The skipped blocks against early_term_mask on the plain
+                # int8 version's alpha: exact zeros there.
+                mask = early_term_mask(stage_alpha_plain(
+                    mlp, rays, zz, int8=q, **kw), eps)
+                zeros_on_mask = bool((a["weights"][mask] == 0).all())
+                log(f"  early termination: early_term_mask share "
+                    f"{float(mask.float().mean()):.4f}, kernel zero-weight "
+                    f"share {float((a['weights'] == 0).float().mean()):.4f}; "
+                    f"kernel weights exact zeros on the mask: {zeros_on_mask}")
+                assert zeros_on_mask
             # The serving default's coarse stage, and the fine stage of the
             # opt-in 'posttap' request that phase 4 serves.
             if eps > 0 and mode in ("coarse", "posttap"):

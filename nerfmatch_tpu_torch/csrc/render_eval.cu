@@ -1,12 +1,14 @@
-// Fused mip-NeRF render stage for Hopper (sm_90a) with a bf16 trunk: the
-// eval render's MLP on wgmma, f32 everywhere else.
+// Fused mip-NeRF render stage for Hopper (sm_90a): the eval render's MLP on
+// wgmma, f32 everywhere else; one engine for both trunks, a bf16 trunk
+// (kernel 1) and the int8 serving trunk (kernel 1b).
 //
 // Replaces the TPU kernel nerfmatch_tpu/ops/pallas/render_kernel.py:
-// make_fused_render (bodies blocked_body / kernel) for the stages whose
-// trunk is bf16, driven twice per ray batch by make_fused_hierarchical: a
-// coarse variant (weights, depth, acc) and a fine variant (+ rgb, the
-// composited layer-`feat_layer` descriptor and the composited 3D point).
-// The int8 trunk (kernel 1b) stays in render.cu on mma.sync.
+// make_fused_render (bodies blocked_body / kernel, with its trunk_int8
+// branch and the weights of nerfmatch_tpu/ops/pallas/quant.py, packed by
+// ops/kernels/quant.py), driven twice per ray batch by
+// make_fused_hierarchical: a coarse variant (weights, depth, acc) and a
+// fine variant (+ rgb, the composited layer-`feat_layer` descriptor and the
+// composited 3D point).
 //
 // Per ray: conical-frustum moments from the z fenceposts -> integrated
 // positional encoding -> L x HID MLP (skip concat after the skip layer) ->
@@ -23,48 +25,74 @@
 // the frustum / encoding phases, transmittance and every composited output
 // stay f32.  The dirs rows of the views layer and the rgb head are f32 FMA
 // on f32 weights (the train kernel rounds those weights to bf16; this one
-// does not).
+// does not).  The int8 trunk (Q8): layers from int8_from on multiply s8 x
+// s8 -> s32 (wgmma m64nHIDk32) on the quantized encoding xq and int8
+// activations; their f32 epilogue keeps the JAX order and rounding (acc *
+// c, then + acc_s * c_s, then + B, no FMA contraction; round half even for
+// the encoding and the 'posttap' boundary, truncation after max(y, 0.5) for
+// hidden layers; the last layer in real units), so the integer activations
+// equal the plain version's.  Layers below int8_from and the heads stay
+// bf16.
 //
 // What bounds it on the H100: the MLP's products, ~1.2 MFLOP a sample (the
 // 9216-ray fine stage at 128 samples: 1.44 TFLOP, 1.46 ms at the bf16
-// peak; fewer where early termination skips blocks).  Design, kernel 5's
-// engine (render_train.cu: train_fwd_kernel): a persistent grid (at most
-// one block an SM) of two warpgroups.  Each warpgroup owns a tile of 2
-// rays, taken from a tile counter, and walks its 32-sample blocks in z
-// order, one 64-row chunk (2 rays x 32 samples, one wgmma m64 tile) a step;
-// when the tile is done or dead it writes the tile's outputs (and the zero
-// weights) and takes the next.  The two warpgroups run each step's
-// products in lock-step, both reading every slot of a ring of 32-row
-// weight slices (one bulk copy each of the host-packed (in x out) slot
-// images, render_train_kernel.py: forward_images; the same images kernel 5
-// reads); a warpgroup without a tile runs the products on whatever it
-// holds and writes nothing.  Each layer is wgmma m64nHIDk16 with A in registers
-// (the layer before's accumulator after bias and ReLU, rounded to bf16)
-// or, for layer 0 and the skip layer, the encoding tile in shared memory
-// (K-major, 128-byte swizzle).  Compositing runs on the warpgroup's four
-// warps (a half-warp scan of log(1 - alpha) per 16 rows, one shared-memory
-// pass for the two halves of a ray's block).  The fine stage's descriptor:
-// the tap layer's f32 activations (64 KB a warpgroup) do not fit beside
-// the ring, so the warpgroup keeps the tap layer's bf16 A fragments (32 KB)
-// in shared memory and, once the chunk's weights are known, runs the tap
-// layer again on them (the same wgmma on the same operands: the same bits)
-// and reduces sum w h_tap from the accumulator (a reduce-scatter over the
-// warp's rows, one row of partials a warp in shared memory; the warps'
-// rows are summed in a fixed order at the tile's end).  Each ray's outputs
-// come from one warpgroup in z order, so the result does not depend on
-// the schedule.
+// peak; the int8 coarse stage 1.19 TOP, 0.60 ms at the int8 peak; fewer
+// where early termination skips blocks).  Design, kernel 5's engine
+// (render_train.cu: train_fwd_kernel): a persistent grid (at most one block
+// an SM) of two warpgroups.  Each warpgroup owns a tile of 2 rays, taken
+// from a tile counter, and walks its 32-sample blocks in z order, one
+// 64-row chunk (2 rays x 32 samples, one wgmma m64 tile) a step; when the
+// tile is done or dead it writes the tile's outputs (and the zero weights)
+// and takes the next.  The two warpgroups run each step's products in
+// lock-step, both reading every slot of a ring of weight slices (one bulk
+// copy each of host-packed slot images in the order the ring streams them:
+// bf16 (in x out) slices of 32 rows, render_train_kernel.py:
+// forward_images, the images kernel 5 reads; s8 slices of 64 K-major rows,
+// the same 16 KB at HID 256, quant.py: slot_images_s8); a warpgroup without
+// a tile runs the products on whatever it holds and writes nothing.  Each
+// layer is one wgmma m64nHID chain with A in registers (the layer before's
+// accumulator after its epilogue, as bf16 or as s8) or, for layer 0 and the
+// skip layer, the encoding tile in shared memory (K-major, 128-byte
+// swizzle; xq for s8 layers).  An s8 layer's A comes straight from the
+// accumulator registers: a thread's accumulator columns of a 32-column
+// block are a fixed permutation (quant.py: PERM32) of the K columns its s8
+// A fragment takes, so the host permutes the K rows of every s8 image fed
+// from an accumulator and the epilogue packs its own bytes.  The post-skip
+// s8 layer's encoding rows have their own scale row: its hidden product
+// fills the accumulator, which is scaled in place, then the encoding
+// product runs 64 columns at a time (both encoding slices held in the
+// ring) into a second, small accumulator.  Compositing runs on the
+// warpgroup's four warps (a half-warp scan of log(1 - alpha) per 16 rows,
+// one shared-memory pass for the two halves of a ray's block).  The fine
+// stage's descriptor: the tap layer's f32 activations (64 KB a warpgroup)
+// do not fit beside the ring, so the warpgroup keeps the tap layer's A
+// fragments (32 KB bf16, 16 KB s8) in shared memory and, once the chunk's
+// weights are known, runs the tap layer again on them (the same wgmma on
+// the same operands: the same bits) and reduces sum w h_tap from the
+// accumulator (a reduce-scatter over the warp's rows, one row of partials a
+// warp in shared memory; the warps' rows are summed in a fixed order at the
+// tile's end).  Each ray's outputs come from one warpgroup in z order, so
+// the result does not depend on the schedule.
 //
 // What holds it (scripts/render_eval_probe.py, PERF.md): the products
 // and the SIMT work of a step (encoding, epilogues, compositing, barriers)
-// run one after the other; without products or weight copies a stage
+// run one after the other; without products or weight copies a bf16 stage
 // takes ~40% of its time, and the copies hide behind the products.  The
 // epilogues, the tap layer's second pass, the ring's depth (5 to 9 slots)
-// and half the block barriers move it by < 3% each.
-// -Xptxas -v (sm_90a, CUDA 12.8): render_eval_kernel<256, *, false> 254
-// registers, no spills; <256, fine, debug> 248; <64, *> 122-127, no
-// spills.  Dynamic shared memory 166,856 bytes (coarse) and 216,000
-// (fine: 6 ring slots 96 KB, encoding tiles 32 KB, tap fragments 64 KB)
-// at HID 256; 73,160 and 89,544 at 64.  One block an SM.
+// and half the block barriers move it by < 3% each.  The int8 trunk halves
+// the products' time but its epilogue (I2F, an unfused multiply and add,
+// the cast and pack, two rows of loads a column) is heavier, and at HID
+// 256 its builds spill: the epilogues' row loads are issued 8 column
+// groups at a time (fence8), and the int8 fine stage keeps 4 ring slots
+// so that its spills stay in a 60 KB L1 cache.
+// -Xptxas -v (sm_90a, CUDA 12.8): render_eval_kernel<256, *, *, false>
+// 254 registers, no spills; <64, *, *, false> 122-128, no spills;
+// <256, *, *, true> 255 registers, 384-612 bytes of spill stores; <64, *,
+// *, true> 156-162, no spills.  Dynamic shared memory at HID 256: 166,856
+// bytes (bf16 coarse), 216,000 (bf16 fine: 6 ring slots 96 KB, encoding
+// tiles 32 KB, tap fragments 64 KB), 183,240 (int8 coarse), 199,600 (int8
+// fine, 4 slots); at 64: 73,160, 89,544, 89,544 and 105,928.  One block an
+// SM.
 
 #include <math.h>
 
@@ -77,15 +105,17 @@ constexpr int kTileRays = 2;
 constexpr int kSampleBlock = 32;
 constexpr int kWgRows = kTileRays * kSampleBlock;  // a warpgroup's chunk
 constexpr int kEvalThreads = 256;                  // two warpgroups
-constexpr int kSliceK = 32;                        // weight rows a ring slot
+constexpr int kSliceK = 32;                        // bf16 weight rows a ring slot
+constexpr int kSliceK8 = 64;                       // s8 weight rows a ring slot
 constexpr int kEncSlices = kEncMax / kSliceK;      // encoding rows: 3 slices
+constexpr int kEncSlices8 = 2;   // s8 encoding rows (96, padded to 128)
 static_assert(kWgRows == 64, "one chunk = one wgmma m64 tile");
 
 struct EvalParams {
   // Every weight matrix's slot images, (in x out) rows, in the order the
   // ring streams them: per layer its encoding rows (if any) then its
   // hidden rows, then the feature and the views layers.
-  const __nv_bfloat16* W;
+  const unsigned char* W;
   const void* Wenc[kMaxLayers];  // non-null where layer i takes the encoding
   const float* b[kMaxLayers];
   const float* wa;   // (hid,) sigma head
@@ -99,22 +129,40 @@ struct EvalParams {
   const float* z;     // (N, S + 1) fenceposts
 };
 
-template <int HID, bool FINE>
+// The int8 trunk (quant.py: pack_mlp_int8) of layers int8_from .. L - 1: the
+// rows of its f32 epilogue (its weights stream in EvalParams::W).
+struct QuantParams {
+  const float* scale[kMaxLayers];    // c_i (q-domain), s_L (last layer)
+  const float* scale_s[kMaxLayers];  // the same for the post-skip layer's
+                                     // encoding rows, or null
+  const float* bias[kMaxLayers];     // B_i = b_i q_i + 0.5, b_L
+  const float* qenc;  // (kEncMax,) encoding requant row
+  const float* qh;    // (HID,) posttap boundary requant row, or null
+  const float* iq;    // (HID,) real units of the tap layer, or null
+};
+
+template <int HID, bool FINE, bool Q8>
 struct EvalSmem {
   static constexpr int HV = HID / 2;
   static constexpr int NV = HV < 64 ? 64 : HV;  // the views product's width
-  // The fine stage's tap fragments leave room for 6 slots at HID 256.
-  static constexpr int kRing = FINE && HID > 64 ? 6 : 7;
-  // Ring slot: kSliceK weight rows x HID outputs, MN-major in 64-column
-  // blocks; a views slice fills NV / HID of its slot.  The encoding tile:
-  // per warpgroup two K-major blocks of 64 rows x 64 bf16 (the encoding
-  // padded to 96), 128-byte swizzle.  The fine stage's tap fragments: per
-  // warpgroup 128 threads x HID / 16 x 16 bytes.
+  // The fine stage's tap fragments leave room for 6 slots at HID 256.  The
+  // int8 fine stage takes 4: at <= 196 KB of shared memory the SM keeps a
+  // 60 KB L1 cache (28 KB above), where its spills stay (probe: 3.10 ms
+  // against 3.37 with 6 slots, 'both' at eps 1e-4).
+  static constexpr int kRing = FINE && HID > 64 ? (Q8 ? 4 : 6) : 7;
+  // Ring slot: kSliceK bf16 weight rows x HID outputs, MN-major in
+  // 64-column blocks, or kSliceK8 s8 rows, K-major (64 bytes a column,
+  // 64-byte swizzle); a views slice fills NV / HID of its slot.  The
+  // encoding tile: per warpgroup two K-major blocks of 64 rows x 64 bf16
+  // (the encoding padded to 96), 128-byte swizzle; xq (Q8): one block of 64
+  // rows x 128 s8.  The fine stage's tap fragments: per warpgroup 128
+  // threads x HID / 16 x 16 bytes (half of it for s8).
   static constexpr int kSlot = (HID / 64) * kSliceK * 128;
   static constexpr int kVSlot = (NV / 64) * kSliceK * 128;
   static constexpr int kEncBlock = 64 * 128;
   static constexpr int kEncOff = kRing * kSlot;
-  static constexpr int kAOff = kEncOff + 4 * kEncBlock;
+  static constexpr int kXqOff = kEncOff + 4 * kEncBlock;
+  static constexpr int kAOff = kXqOff + (Q8 ? 2 * kEncBlock : 0);
   static constexpr int kFloatOff = kAOff + (FINE ? 2 * 128 * HID : 0);
   // f32 a warpgroup: row info (64 x 8: mean, variance, t_mean, mid-point),
   // sigma (64), weights (64), rgb (64 x 4), warp segments (4 x 8), ray state
@@ -135,24 +183,69 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
+// An accumulator element as f32: the bf16 trunk keeps f32 variables, the
+// int8 trunk one array of 32-bit integer variables for its s32 and f32
+// products (and the f32 bits of an s8 layer's epilogue).
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(uint32_t x) { return __uint_as_float(x); }
+__device__ __forceinline__ void set_f32(float& x, float v) { x = v; }
+__device__ __forceinline__ void set_f32(uint32_t& x, float v) { x = __float_as_uint(v); }
+
+// clip(round_half_even(x), -127, 127)
+__device__ __forceinline__ int sat_rn(float x) {
+  return max(-127, min(127, __float2int_rn(x)));
+}
+
+// Four s32 values, each saturated to [-128, 127], as the bytes of one
+// register, x0 the lowest.
+__device__ __forceinline__ uint32_t pack_s8(int x0, int x1, int x2, int x3) {
+  uint32_t hi, d;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n" : "=r"(hi) : "r"(x3), "r"(x2), "r"(0));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(x1), "r"(x0), "r"(hi));
+  return d;
+}
+
+// Two f32 row values at p (8-byte aligned) by a plain load: the compiler
+// hoists __ldg's of a whole epilogue above the products before it and
+// holds them in registers (spills at 255 registers).
+__device__ __forceinline__ float2 row2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// f(Int<I>{}), f(Int<I + 1>{}), .. f(Int<N - 1>{}): a loop whose index is a
+// constant expression.
+template <int I, int N, typename Fn>
+__device__ __forceinline__ void static_for(Fn&& f) {
+  if constexpr (I < N) {
+    f(Int<I>{});
+    static_for<I + 1, N>(f);
+  }
+}
+
 // kDbg: dbg receives the tap layer's activations, (2, N, S, HID) f32: the
-// first pass's, then the recomputed ones.
-template <int HID, bool FINE, bool kDbg>
+// first pass's, then the recomputed ones (fine stage; may be null with Q8);
+// dbgq (Q8, may be null) the integer activations, (N, S, kEncMax + HID)
+// int8: the quantized encoding, then the last layer's int8 input.
+template <int HID, bool FINE, bool kDbg, bool Q8>
 __global__ void __launch_bounds__(kEvalThreads, 1)
-render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
-                   int S, int n_tiles, float var_scale, float log_eps,
-                   int white_bg, int* __restrict__ tile_counter,
-                   float* __restrict__ out_w, float* __restrict__ out_depth,
-                   float* __restrict__ out_acc, float* __restrict__ out_rgb,
-                   float* __restrict__ out_feat, float* __restrict__ out_pts,
-                   float* __restrict__ dbg) {
-  using L = EvalSmem<HID, FINE>;
+render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
+                   int int8_from, int F, int Fd, int S, int n_tiles,
+                   float var_scale, float log_eps, int white_bg,
+                   int* __restrict__ tile_counter, float* __restrict__ out_w,
+                   float* __restrict__ out_depth, float* __restrict__ out_acc,
+                   float* __restrict__ out_rgb, float* __restrict__ out_feat,
+                   float* __restrict__ out_pts, float* __restrict__ dbg,
+                   int8_t* __restrict__ dbgq) {
+  using L = EvalSmem<HID, FINE, Q8>;
+  using Acc = typename std::conditional<Q8, uint32_t, float>::type;
   constexpr int HV = L::HV, NV = L::NV, R = L::kRing;
   constexpr int NJ = HID / 8, NJV = HV / 8;   // n8 column groups
-  constexpr int KS = HID / kSliceK;           // slices of a HID-row product
+  constexpr int KS = HID / kSliceK;           // bf16 slices of a HID-row product
+  constexpr int KS8 = HID / kSliceK8;         // s8 slices of a HID-row product
   static_assert(HID % 64 == 0 && KS >= 2, "HID must be a multiple of 64");
+  static_assert(HID * kSliceK8 == L::kSlot, "an s8 slice fills a bf16 slot");
   static_assert(L::kBytes <= 232448, "render_eval shared memory");
-  static_assert(!kDbg || FINE, "the tap exists in the fine stage only");
+  static_assert(!kDbg || FINE || Q8, "the tap exists in the fine stage only");
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -165,6 +258,8 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
   const uint32_t ring_s = base, full0 = base + L::kBarOff;
   const uint32_t enc_w = base + L::kEncOff + wg * 2 * L::kEncBlock;
   unsigned char* enc_p = sm + L::kEncOff + wg * 2 * L::kEncBlock;
+  const uint32_t xq_w = base + L::kXqOff + wg * L::kEncBlock;
+  unsigned char* xq_p = sm + L::kXqOff + wg * L::kEncBlock;
   uint4* astash = reinterpret_cast<uint4*>(sm + L::kAOff) + wg * 128 * (HID / 16);
   float* fw = reinterpret_cast<float*>(sm + L::kFloatOff) + wg * L::kWgFloats;
   float* info = fw + L::kInfo;
@@ -181,6 +276,8 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
   const int n_blocks = S / kSampleBlock;
   const size_t n_rows = (size_t)n_tiles * kTileRays * S;
+  // The first s8 layer (none in the bf16 trunk).
+  const int q_from = Q8 ? int8_from : layer_num;
   // The epilogues' weights at this thread's columns 8 j + 2 t: constant
   // offsets from one base each.
   const float* wa_t = p.wa + 2 * t;
@@ -188,18 +285,22 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
   const float* bv_t = p.bv + 2 * t;
   const float* wr_t = p.wr + 6 * t;
 
-  // Slices a step streams, in the images' order: the trunk (per layer its
-  // encoding rows, then its hidden rows), then for the fine stage the
-  // feature, the views layer and the tap layer again (from the trunk's
-  // images).  All but the views slices fill a whole slot.
+  // Slices a step streams, in the images' order: the trunk (per bf16 layer
+  // its encoding rows, then its hidden rows; per s8 layer its hidden rows,
+  // then its encoding rows), then for the fine stage the feature, the views
+  // layer and the tap layer again (from the trunk's images).  All but the
+  // views slices fill a whole slot.
+  auto n_slices = [&](int i) {
+    const bool enc = p.Wenc[i] != nullptr;
+    return i >= q_from ? (enc ? kEncSlices8 : 0) + (i > 0 ? KS8 : 0)
+                       : (enc ? kEncSlices : 0) + (i > 0 ? KS : 0);
+  };
   int Qt = 0, tap_q0 = 0;
   for (int i = 0; i < layer_num; ++i) {
     if (i == feat_layer) tap_q0 = Qt;
-    Qt += (p.Wenc[i] != nullptr ? kEncSlices : 0) + (i > 0 ? KS : 0);
+    Qt += n_slices(i);
   }
-  const bool tap_enc = FINE && p.Wenc[feat_layer] != nullptr;
-  const int Q = FINE ? Qt + 2 * KS + (tap_enc ? kEncSlices : 0) + (feat_layer > 0 ? KS : 0)
-                     : Qt;
+  const int Q = FINE ? Qt + 2 * KS + n_slices(feat_layer) : Qt;
 
   // The encoding tiles' padding columns (enc_dim .. 95) stay zero.
   for (int i = tid; i < 2 * kWgRows * (kEncMax - enc_dim); i += kEvalThreads) {
@@ -207,6 +308,7 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
     *reinterpret_cast<__nv_bfloat16*>(
         sm + L::kEncOff + (row >> 6) * 2 * L::kEncBlock + (k >> 6) * L::kEncBlock +
         swz(row & 63, (k & 63) >> 3) + (k & 7) * 2) = __float2bfloat16(0.f);
+    if (Q8) sm[L::kXqOff + (row >> 6) * L::kEncBlock + swz(row & 63, k >> 4) + (k & 15)] = 0;
   }
   if (tid == 0)
     for (int i = 0; i < R; ++i) mbar_init(full0 + 8 * i);
@@ -231,18 +333,32 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
     }
     const int slot = q % R;
     mbar_expect(full0 + 8 * slot, bytes);
-    bulk_copy(ring_s + slot * L::kSlot, reinterpret_cast<const unsigned char*>(p.W) + off,
-              bytes, full0 + 8 * slot);
+    bulk_copy(ring_s + slot * L::kSlot, p.W + off, bytes, full0 + 8 * slot);
   };
   int q = 0;   // next ring slice to consume
   if (tid == 0)
     for (int s = 0; s < R - 2; ++s) load_slice(s);
 
-  float acc[NJ * 4];
-  uint32_t a[HID / 16][4];   // bf16 A fragments: 16 columns (k) a step
+  Acc acc[NJ * 4];
+  // A fragments: bf16, 16 columns (k) a step; or s8, 32 columns a step in
+  // a[0 .. HID / 32).
+  uint32_t a[HID / 16][4];
+  // One wgmma batch stays in flight, so slot q - 2 is the one refilled
+  // (with slice q + R - 2) when slice q is taken.
+  auto begin = [&]() {
+    __syncthreads();   // batch q - 2 done everywhere: its slot is free
+    if (tid == 0) load_slice(q + R - 2);
+    mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
+    wgmma_fence();
+    return ring_s + (uint32_t)(q % R) * L::kSlot;
+  };
+  auto end = [&]() {
+    wgmma_commit();
+    wgmma_wait<1>();
+    ++q;
+  };
   // acc = the next NE encoding slices (A: the encoding tile) + the next NH
-  // hidden slices (A: the registers a), N columns.  One wgmma batch stays
-  // in flight, so slot q - 2 is the one refilled (with slice q + R - 2).
+  // hidden slices (A: the registers a), N columns, bf16.
   // A warpgroup without a chunk multiplies too, on whatever its registers
   // and encoding tile hold (its epilogues write nothing): testing `live`
   // around the wgmma made the stage 1.35-1.5x slower and spilled
@@ -251,18 +367,6 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
     constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;
     constexpr int N = decltype(n_c)::value;
     constexpr int KK = kSliceK / 16;   // k16 steps a slice
-    auto begin = [&]() {
-      __syncthreads();   // batch q - 2 done everywhere: its slot is free
-      if (tid == 0) load_slice(q + R - 2);
-      mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
-      wgmma_fence();
-      return ring_s + (uint32_t)(q % R) * L::kSlot;
-    };
-    auto end = [&]() {
-      wgmma_commit();
-      wgmma_wait<1>();
-      ++q;
-    };
 #pragma unroll
     for (int s = 0; s < NE; ++s) {
       const uint32_t slot = begin();
@@ -285,6 +389,29 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
     }
     wgmma_wait<0>();
   };
+  // The same for s8 (Q8): acc (s32) = the next NH hidden slices (A: the
+  // registers a, s8) + the next NE encoding slices (A: xq; k32 steps 0-1,
+  // then 2), N columns.
+  auto product8 = [&](auto ne_c, auto nh_c, auto n_c) {
+    constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;
+    constexpr int N = decltype(n_c)::value;
+    static_for<0, NH>([&](auto s_c) {
+      constexpr int s = decltype(s_c)::value;
+      const uint32_t slot = begin();
+      wgmma_rs8<N, s == 0>(acc, a[2 * s], desc64(slot), 1);
+      wgmma_rs8<N>(acc, a[2 * s + 1], desc64(slot + 32), 1);
+      end();
+    });
+    static_for<0, NE>([&](auto s_c) {
+      constexpr int s = decltype(s_c)::value;
+      const uint32_t slot = begin();
+      wgmma_ss8<N, NH + s == 0>(acc, desc128(xq_w + 64 * s, 16), desc64(slot), 1);
+      if constexpr (s == 0)   // encoding k32 steps 0-1, then 2
+        wgmma_ss8<N>(acc, desc128(xq_w + 32, 16), desc64(slot + 32), 1);
+      end();
+    });
+    wgmma_wait<0>();
+  };
   // Layer i's product, by which rows it takes.
   auto layer_product = [&](int i) {
     if (i == 0)
@@ -297,7 +424,108 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
   auto put_dbg = [&](int which, int tile, int sb, int row, int col, float v0, float v1) {
     const size_t gr = (size_t)(tile * kTileRays + row / kSampleBlock) * S +
                       sb * kSampleBlock + row % kSampleBlock;
-    *reinterpret_cast<float2*>(dbg + (which * n_rows + gr) * HID + col) = make_float2(v0, v1);
+    if (dbg != nullptr)
+      *reinterpret_cast<float2*>(dbg + (which * n_rows + gr) * HID + col) = make_float2(v0, v1);
+  };
+  auto put_dbg1 = [&](int tile, int sb, int row, int col, float v) {   // first pass
+    const size_t gr = (size_t)(tile * kTileRays + row / kSampleBlock) * S +
+                      sb * kSampleBlock + row % kSampleBlock;
+    if (dbg != nullptr) dbg[gr * HID + col] = v;
+  };
+  auto put_dbgq = [&](int tile, int sb, int row, int k, int v) {
+    const size_t gr = (size_t)(tile * kTileRays + row / kSampleBlock) * S +
+                      sb * kSampleBlock + row % kSampleBlock;
+    if (dbgq != nullptr) dbgq[gr * (kEncMax + HID) + k] = (int8_t)v;
+  };
+  // The s8 A fragment of the next layer from accumulator columns 8 j + 2 t,
+  // + 1, 8 (j + 1) + 2 t and + 1 of row half h (j even): k32 step j / 4,
+  // register 2 ((j / 2) % 2) + h.  The next layer's image holds its K rows
+  // in that order (quant.py: PERM32).  Values above 127 saturate.
+  auto put_s8 = [&](int j, int h, int q0, int q1, int q2, int q3) {
+    a[j >> 2][2 * ((j >> 1) & 1) + h] = pack_s8(q0, q1, q2, q3);
+  };
+  // Before column group j of an int8 trunk's epilogue, every 8 groups: a
+  // point the compiler does not move loads across, so an epilogue's row
+  // loads are issued 8 groups (32 registers) at a time, not all at once
+  // (the accumulator, the A fragments and 128 loaded values spill).
+  auto fence8 = [&](int j) {
+    if (Q8 && j > 0 && (j & 7) == 0) __syncwarp();
+  };
+  // s8 layer i (Q8): its products, then acc <- the f32 bits of
+  // y = acc * c (+ acc_s * c_s) + B, in the JAX epilogue's order, unfused.
+  // The post-skip layer's encoding rows keep their own accumulator: the
+  // hidden rows' product fills acc, scaled in place, then the encoding
+  // rows' product runs 64 columns at a time with both encoding slices held
+  // in the ring.  The s8 epilogues run on a warpgroup without a chunk too
+  // (on whatever it holds; it writes nothing): gated by `live`, the A
+  // registers they write would stay live across the trunk and spill.
+  auto q8_layer = [&](int i) {
+    if constexpr (Q8) {
+      const float* c_t = qp.scale[i] + 2 * t;
+      const float* b_t = qp.bias[i] + 2 * t;
+      const auto i2f = [](uint32_t v) { return __int2float_rn((int)v); };
+      if (i == 0) {
+        product8(Int<kEncSlices8>{}, Int<0>{}, Int<HID>{});
+      } else {
+        product8(Int<0>{}, Int<KS8>{}, Int<HID>{});
+      }
+      if (i > 0 && p.Wenc[i] != nullptr) {
+        const float* cs_t = qp.scale_s[i] + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          fence8(j);
+          const float2 c = row2(c_t + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * j + e] = __float_as_uint(__fmul_rn(i2f(acc[4 * j + e]), e & 1 ? c.y : c.x));
+        }
+        const uint32_t e0 = begin();
+        ++q;
+        const uint32_t e1 = begin();
+#pragma unroll
+        for (int nb = 0; nb < HID / 64; ++nb) {
+          uint32_t accs[32];
+          if (nb > 0) wgmma_fence();
+          wgmma_ss8<64, true>(accs, desc128(xq_w, 16), desc64(e0 + nb * 4096), 0);
+          wgmma_ss8<64>(accs, desc128(xq_w + 32, 16), desc64(e0 + nb * 4096 + 32), 1);
+          wgmma_ss8<64>(accs, desc128(xq_w + 64, 16), desc64(e1 + nb * 4096), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          __syncwarp();   // fence8's point: this block's row loads stay here
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * nb + jj;
+            const float2 cs = row2(cs_t + 8 * j), b = row2(b_t + 8 * j);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ys = __fmul_rn(i2f(accs[4 * jj + e]), e & 1 ? cs.y : cs.x);
+              acc[4 * j + e] = __float_as_uint(
+                  __fadd_rn(__fadd_rn(f32(acc[4 * j + e]), ys), e & 1 ? b.y : b.x));
+            }
+          }
+        }
+        ++q;
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          fence8(j);
+          const float2 c = row2(c_t + 8 * j), b = row2(b_t + 8 * j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[4 * j + e] = __float_as_uint(__fadd_rn(
+                __fmul_rn(i2f(acc[4 * j + e]), e & 1 ? c.y : c.x), e & 1 ? b.y : b.x));
+        }
+      }
+    }
+  };
+  // The tap layer's A (the layer's input when it is a hidden layer), kept
+  // for its second pass: HID / 16 fragments of bf16, HID / 32 of s8.
+  auto stash_a = [&](int i, bool live, int groups) {
+    if (FINE && live && i == feat_layer && i > 0) {
+#pragma unroll
+      for (int s = 0; s < HID / 16; ++s)
+        if (s < groups) astash[s * 128 + lt] = make_uint4(a[s][0], a[s][1], a[s][2], a[s][3]);
+    }
   };
 
   for (;;) {
@@ -410,7 +638,8 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
       }
       wg_sync(wg);
       // ---- integrated positional encoding (f32, rounded to bf16) into this
-      //      warpgroup's encoding tile: [sin block | cos block] ----
+      //      warpgroup's encoding tile: [sin block | cos block]; Q8: also
+      //      quantized from the f32 values into xq ----
       for (int i = lt; i < kWgRows * 3 * F; i += 128) {
         const int row = i / (3 * F), j = i % (3 * F);
         const int f = j / 3, c = j % 3;
@@ -420,43 +649,142 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
         const float damp = expf(-0.5f * y);
         const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
                                     __float2bfloat16(damp * sinf(x + kHalfPi))};
+        if (!Q8 || q_from > 0) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = h * 3 * F + j;
-          *reinterpret_cast<__nv_bfloat16*>(enc_p + (k >> 6) * L::kEncBlock +
-                                            swz(row, (k & 63) >> 3) + (k & 7) * 2) = v[h];
+          for (int h = 0; h < 2; ++h) {
+            const int k = h * 3 * F + j;
+            *reinterpret_cast<__nv_bfloat16*>(enc_p + (k >> 6) * L::kEncBlock +
+                                              swz(row, (k & 63) >> 3) + (k & 7) * 2) = v[h];
+          }
+        }
+        if (Q8) {
+          const float vf[2] = {damp * sinf(x), damp * sinf(x + kHalfPi)};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = h * 3 * F + j;
+            const int xq = sat_rn(__fmul_rn(vf[h], __ldg(qp.qenc + k)));
+            xq_p[swz(row, k >> 4) + (k & 15)] = (unsigned char)xq;
+            if (kDbg) put_dbgq(tile, sb, row, k, xq);
+          }
         }
       }
       fence_async();   // the encoding tile, for wgmma
     }
 
-    // ---- trunk: acc = [enc @ Wenc_i] + [bf16(h) @ Wh_i]; h = relu(acc + b) ----
+    // ---- trunk: acc = [enc @ Wenc_i] + [h @ Wh_i]; h = relu(acc + b)
+    //      (bf16), or the s8 epilogue ----
     float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
-    for (int i = 0; i < layer_num; ++i) {
-      if (FINE && live && i == feat_layer && i > 0) {
-        // The tap layer's hidden A, for its second pass.
+    if constexpr (!Q8) {
+      for (int i = 0; i < layer_num; ++i) {
+        stash_a(i, live, HID / 16);
+        layer_product(i);
+        if (live) {
+          const bool last = i == layer_num - 1;
+          const float* b_t = p.b[i] + 2 * t;
 #pragma unroll
-        for (int s = 0; s < HID / 16; ++s)
-          astash[s * 128 + lt] = make_uint4(a[s][0], a[s][1], a[s][2], a[s][3]);
-      }
-      layer_product(i);
-      if (live) {
-        const bool last = i == layer_num - 1;
-        const float* b_t = p.b[i] + 2 * t;
+          for (int j = 0; j < NJ; ++j) {
+            const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
-            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
-            a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);
-            if (last)
-              sp[h] = fmaf(v0, __ldg(wa_t + 8 * j), fmaf(v1, __ldg(wa_t + 8 * j + 1), sp[h]));
-            if (kDbg && i == feat_layer)
-              put_dbg(0, tile, sb, wrow + 8 * h, 8 * j + 2 * t, v0, v1);
+            for (int h = 0; h < 2; ++h) {
+              const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+              const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+              a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);
+              if (last)
+                sp[h] = fmaf(v0, __ldg(wa_t + 8 * j), fmaf(v1, __ldg(wa_t + 8 * j + 1), sp[h]));
+              if (kDbg && i == feat_layer)
+                put_dbg(0, tile, sb, wrow + 8 * h, 8 * j + 2 * t, v0, v1);
+            }
           }
         }
+      }
+    } else {
+      // The bf16 layers below int8_from; the last of them requantizes its
+      // output for the s8 trunk (round half even, qh).
+      for (int i = 0; i < q_from; ++i) {
+        stash_a(i, live, HID / 16);
+        layer_product(i);
+        if (live) {
+          const float* b_t = p.b[i] + 2 * t;
+          const float* qh_t = qp.qh + 2 * t;
+          if (i < q_from - 1) {
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              fence8(j);
+              const float2 b = row2(b_t + 8 * j);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + b.x, 0.f);
+                const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + b.y, 0.f);
+                a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);
+                if (kDbg && FINE && i == feat_layer)
+                  put_dbg(0, tile, sb, wrow + 8 * h, 8 * j + 2 * t, v0, v1);
+              }
+            }
+          } else {   // into the s8 trunk: round half even (v >= 0)
+#pragma unroll
+            for (int j = 0; j < NJ; j += 2)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                if (h == 0) fence8(j);
+                int qv[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int jj = j + e / 2, col = 8 * jj + 2 * t + e % 2;
+                  const float v = fmaxf(f32(acc[4 * jj + 2 * h + e % 2]) + p.b[i][col], 0.f);
+                  qv[e] = __float2int_rn(__fmul_rn(v, qp.qh[col]));
+                  if (kDbg && i == layer_num - 2)
+                    put_dbgq(tile, sb, wrow + 8 * h, kEncMax + col, min(qv[e], 127));
+                  if (kDbg && FINE && i == feat_layer)
+                    put_dbg1(tile, sb, wrow + 8 * h, col, v);
+                }
+                put_s8(j, h, qv[0], qv[1], qv[2], qv[3]);
+              }
+          }
+        }
+      }
+      // The s8 hidden layers: max(y, 0.5) is the ReLU, the +0.5 in B turns
+      // the truncating cast into round to nearest.
+      for (int i = q_from; i < layer_num - 1; ++i) {
+        stash_a(i, live, HID / 32);
+        q8_layer(i);
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            int qv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int jj = j + e / 2, col = 8 * jj + 2 * t + e % 2;
+              const float y = fmaxf(f32(acc[4 * jj + 2 * h + e % 2]), 0.5f);
+              qv[e] = __float2int_rz(y);
+              if (kDbg && live && i == layer_num - 2)
+                put_dbgq(tile, sb, wrow + 8 * h, kEncMax + col, min(qv[e], 127));
+              if (kDbg && FINE && live && i == feat_layer)
+                put_dbg1(tile, sb, wrow + 8 * h, col,
+                         __fmul_rn(__fsub_rn(y, 0.5f), qp.iq[col]));
+            }
+            put_s8(j, h, qv[0], qv[1], qv[2], qv[3]);
+          }
+      }
+      // The last layer in real units: relu(acc * s (+ acc_s * s_s) + b),
+      // rounded to bf16 for the feature head.
+      {
+        const int i = layer_num - 1;
+        stash_a(i, live, HID / 32);
+        q8_layer(i);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (h == 0) fence8(j);
+            const float v0 = fmaxf(f32(acc[4 * j + 2 * h]), 0.f);
+            const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]), 0.f);
+            const float2 wa = row2(wa_t + 8 * j);
+            a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);
+            sp[h] = fmaf(v0, wa.x, fmaf(v1, wa.y, sp[h]));
+            if (kDbg && FINE && live && i == feat_layer)
+              put_dbg(0, tile, sb, wrow + 8 * h, 8 * j + 2 * t, v0, v1);
+          }
       }
     }
     // ---- sigma = h . wa + ba (f32 activations) ----
@@ -480,7 +808,7 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
 #pragma unroll
           for (int h = 0; h < 2; ++h)
             a[j >> 1][2 * (j & 1) + h] =
-                pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+                pack_bf16(f32(acc[4 * j + 2 * h]) + b0, f32(acc[4 * j + 2 * h + 1]) + b1);
         }
       }
       // ---- views = relu(feature @ wvh + dirs_pe @ wvd + bv), rounded to
@@ -501,8 +829,8 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
             for (int c = 0; c < 3; ++c) wr[e][c] = __ldg(wr_t + 24 * j + 3 * e + c);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float v0 = fmaxf(acc[4 * j + 2 * h] + c0 + b0, 0.f);
-            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + c1 + b1, 0.f);
+            const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + c0 + b0, 0.f);
+            const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + c1 + b1, 0.f);
             const uint32_t pk = pack_bf16(v0, v1);
             const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pk));
 #pragma unroll
@@ -569,27 +897,59 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
 
     if (FINE) {
       // ---- descriptor: the tap layer again on its kept A, then
-      //      sum w relu(acc + b) over the warp's rows into its partials ----
+      //      sum w h_tap over the warp's rows into its partials (h_tap:
+      //      relu(acc + b) for a bf16 tap, (max(y, 0.5) - 0.5) iq for an s8
+      //      hidden one, relu(y) for the s8 last layer) ----
+      const bool tap8 = Q8 && feat_layer >= q_from;
       if (live && feat_layer > 0) {
 #pragma unroll
         for (int s = 0; s < HID / 16; ++s) {
-          const uint4 v = astash[s * 128 + lt];
-          a[s][0] = v.x;
-          a[s][1] = v.y;
-          a[s][2] = v.z;
-          a[s][3] = v.w;
+          if (!tap8 || s < HID / 32) {
+            const uint4 v = astash[s * 128 + lt];
+            a[s][0] = v.x;
+            a[s][1] = v.y;
+            a[s][2] = v.z;
+            a[s][3] = v.w;
+          }
         }
       }
-      layer_product(feat_layer);
+      if (tap8)
+        q8_layer(feat_layer);
+      else
+        layer_product(feat_layer);
       if (live) {
-        const float* b_t = p.b[feat_layer] + 2 * t;
+        // h_tap into acc, in place.
+        if (!tap8) {
+          const float* b_t = p.b[feat_layer] + 2 * t;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            fence8(j);
+            const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              set_f32(acc[4 * j + e], fmaxf(f32(acc[4 * j + e]) + (e & 1 ? b1 : b0), 0.f));
+          }
+        } else if (feat_layer == layer_num - 1) {
+#pragma unroll
+          for (int e = 0; e < NJ * 4; ++e) set_f32(acc[e], fmaxf(f32(acc[e]), 0.f));
+        } else {
+          const float* iq_t = qp.iq + 2 * t;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            fence8(j);
+            const float2 iq = row2(iq_t + 8 * j);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              set_f32(acc[4 * j + e], __fmul_rn(__fsub_rn(fmaxf(f32(acc[4 * j + e]), 0.5f), 0.5f),
+                                                e & 1 ? iq.y : iq.x));
+          }
+        }
         const float w0 = wts[wrow], w1 = wts[wrow + 8];
         float part[2 * NJ];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
-          const float v00 = fmaxf(acc[4 * j] + b0, 0.f), v01 = fmaxf(acc[4 * j + 1] + b1, 0.f);
-          const float v10 = fmaxf(acc[4 * j + 2] + b0, 0.f), v11 = fmaxf(acc[4 * j + 3] + b1, 0.f);
+          const float v00 = f32(acc[4 * j]), v01 = f32(acc[4 * j + 1]);
+          const float v10 = f32(acc[4 * j + 2]), v11 = f32(acc[4 * j + 3]);
           part[2 * j] = fmaf(w1, v10, w0 * v00);
           part[2 * j + 1] = fmaf(w1, v11, w0 * v01);
           if (kDbg) {
@@ -617,14 +977,15 @@ render_eval_kernel(EvalParams p, int layer_num, int feat_layer, int F, int Fd,
     for (int s = q; s < q + R - 2; ++s) mbar_wait(full0 + 8 * (s % R), (s / R) & 1);
 }
 
-template <int HID, bool FINE, bool kDbg>
-cudaError_t launch(const EvalParams& p, int n_rays, int layer_num,
-                   int feat_layer, int F, int Fd, int S, float var_scale,
-                   float log_eps, int white_bg, int* counter, float* w,
-                   float* depth, float* acc, float* rgb, float* feat,
-                   float* pts, float* dbg, cudaStream_t stream) {
-  const size_t bytes = EvalSmem<HID, FINE>::kBytes;
-  auto kern = render_eval_kernel<HID, FINE, kDbg>;
+template <int HID, bool FINE, bool kDbg, bool Q8>
+cudaError_t launch(const EvalParams& p, const QuantParams& qp, int n_rays,
+                   int layer_num, int feat_layer, int int8_from, int F, int Fd,
+                   int S, float var_scale, float log_eps, int white_bg,
+                   int* counter, float* w, float* depth, float* acc, float* rgb,
+                   float* feat, float* pts, float* dbg, int8_t* dbgq,
+                   cudaStream_t stream) {
+  const size_t bytes = EvalSmem<HID, FINE, Q8>::kBytes;
+  auto kern = render_eval_kernel<HID, FINE, kDbg, Q8>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -636,53 +997,75 @@ cudaError_t launch(const EvalParams& p, int n_rays, int layer_num,
   // Persistent: at most one block an SM, two tiles a block to begin with.
   const int n_tiles = n_rays / kTileRays;
   const int grid = (n_tiles + 1) / 2 < sms ? (n_tiles + 1) / 2 : sms;
-  kern<<<grid, kEvalThreads, bytes, stream>>>(p, layer_num, feat_layer, F, Fd, S,
-                                               n_tiles, var_scale, log_eps,
-                                               white_bg, counter, w, depth, acc,
-                                               rgb, feat, pts, dbg);
+  kern<<<grid, kEvalThreads, bytes, stream>>>(
+      p, qp, layer_num, feat_layer, int8_from, F, Fd, S, n_tiles, var_scale,
+      log_eps, white_bg, counter, w, depth, acc, rgb, feat, pts, dbg, dbgq);
   return cudaGetLastError();
 }
 
 template <int HID>
-cudaError_t launch_hid(bool fine, bool dbg, const EvalParams& p, int n_rays,
-                       int layer_num, int feat_layer, int F, int Fd, int S,
+cudaError_t launch_hid(bool fine, bool dbg, bool q8, const EvalParams& p,
+                       const QuantParams& qp, int n_rays, int layer_num,
+                       int feat_layer, int int8_from, int F, int Fd, int S,
                        float var_scale, float log_eps, int white_bg,
                        int* counter, float* w, float* depth, float* acc,
                        float* rgb, float* feat, float* pts, float* dbg_out,
-                       cudaStream_t s) {
-  auto fn = !fine ? launch<HID, false, false>
-                  : dbg ? launch<HID, true, true> : launch<HID, true, false>;
-  return fn(p, n_rays, layer_num, feat_layer, F, Fd, S, var_scale, log_eps,
-            white_bg, counter, w, depth, acc, rgb, feat, pts, dbg_out, s);
+                       int8_t* dbgq, cudaStream_t s) {
+  auto fn = !q8 ? (!fine ? launch<HID, false, false, false>
+                         : dbg ? launch<HID, true, true, false>
+                               : launch<HID, true, false, false>)
+                : !fine ? (dbg ? launch<HID, false, true, true>
+                               : launch<HID, false, false, true>)
+                        : dbg ? launch<HID, true, true, true>
+                              : launch<HID, true, false, true>;
+  return fn(p, qp, n_rays, layer_num, feat_layer, int8_from, F, Fd, S,
+            var_scale, log_eps, white_bg, counter, w, depth, acc, rgb, feat,
+            pts, dbg_out, dbgq, s);
+}
+
+template <int HID>
+size_t smem_bytes(bool fine, bool q8) {
+  return !q8 ? (fine ? EvalSmem<HID, true, false>::kBytes : EvalSmem<HID, false, false>::kBytes)
+             : (fine ? EvalSmem<HID, true, true>::kBytes : EvalSmem<HID, false, true>::kBytes);
 }
 
 }  // namespace
 
-// ptrs: host array of 2 * layer_num + 10 device pointers: W (every weight
-// matrix's slot images, render_train_kernel.py: forward_images), then
-// (Wenc_i, b_i) for each layer i (Wenc_i: non-null where the layer takes
-// the encoding rows), then wa, ba, bf, wvd, bv, wr, br, rays, z.  counter:
-// one int32, zero at launch (the tile counter).  dbg: null, or (2, n_rays,
-// samples, hid) f32 receiving the tap layer's activations of the first
-// pass and of the second (fine stage only).
-extern "C" int nm_render_eval_forward(const void* const* ptrs, int n_rays,
+// ptrs: host array of 2 * layer_num + 10 device pointers: W (the slot
+// images the ring streams: render_kernel.py: pack_mlp), then (Wenc_i, b_i)
+// for each layer i (Wenc_i: non-null where the layer takes the encoding
+// rows), then wa, ba, bf, wvd, bv, wr, br, rays, z.  qptrs: null (a bf16
+// trunk), or the int8 trunk of layers int8_from .. L - 1 as 3 * layer_num
+// + 3 device pointers: per layer scale, scale_s, bias (null below
+// int8_from; scale_s null without encoding rows), then qenc, qh (int8_from
+// > 0), iq (fine stage, tap layer quantized and not last).  counter: one
+// int32, zero at launch (the tile counter).  dbg: null, or (2, n_rays,
+// samples, hid) f32 receiving the tap layer's activations of the first pass
+// and of the second (fine stage only).  dbgq: null, or (n_rays, samples,
+// 96 + hid) int8 receiving the quantized encoding and the last layer's int8
+// input (int8 trunk only).
+extern "C" int nm_render_eval_forward(const void* const* ptrs,
+                                      const void* const* qptrs, int n_rays,
                                       int hid, int layer_num, int feat_layer,
-                                      int num_freqs, int dirs_freqs,
-                                      int samples, float var_scale,
-                                      float log_eps, int white_bg, int fine,
-                                      void* counter, void* out_w,
-                                      void* out_depth, void* out_acc,
-                                      void* out_rgb, void* out_feat,
-                                      void* out_pts, void* dbg, void* stream) {
+                                      int int8_from, int num_freqs,
+                                      int dirs_freqs, int samples,
+                                      float var_scale, float log_eps,
+                                      int white_bg, int fine, void* counter,
+                                      void* out_w, void* out_depth,
+                                      void* out_acc, void* out_rgb,
+                                      void* out_feat, void* out_pts, void* dbg,
+                                      void* dbgq, void* stream) {
+  const bool q8 = qptrs != nullptr;
   if (layer_num < 1 || layer_num > kMaxLayers || 6 * num_freqs > kEncMax ||
       6 * dirs_freqs + 3 > kDirsMax || n_rays % kTileRays != 0 || n_rays <= 0 ||
       samples % kSampleBlock != 0 || samples <= 0 ||
       (fine && (feat_layer < 0 || feat_layer >= layer_num)) ||
-      (dbg != nullptr && !fine) || (hid != 64 && hid != 256))
+      (dbg != nullptr && !fine) || (dbgq != nullptr && !q8) ||
+      (q8 && (int8_from < 0 || int8_from >= layer_num)) || (hid != 64 && hid != 256))
     return (int)cudaErrorInvalidValue;
   EvalParams p;
   int k = 0;
-  p.W = (const __nv_bfloat16*)ptrs[k++];
+  p.W = (const unsigned char*)ptrs[k++];
   for (int i = 0; i < kMaxLayers; ++i) {
     const bool here = i < layer_num;
     p.Wenc[i] = here ? ptrs[k++] : nullptr;
@@ -698,20 +1081,41 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs, int n_rays,
   p.br = (const float*)ptrs[k++];
   p.rays = (const float*)ptrs[k++];
   p.z = (const float*)ptrs[k++];
+  QuantParams qp = {};
   const int tap = fine ? feat_layer : 0;
+  if (q8) {
+    k = 0;
+    for (int i = 0; i < layer_num; ++i) {
+      qp.scale[i] = (const float*)qptrs[k++];
+      qp.scale_s[i] = (const float*)qptrs[k++];
+      qp.bias[i] = (const float*)qptrs[k++];
+      if (i >= int8_from &&
+          (qp.scale[i] == nullptr || qp.bias[i] == nullptr ||
+           (qp.scale_s[i] != nullptr) != (i > 0 && p.Wenc[i] != nullptr)))
+        return (int)cudaErrorInvalidValue;
+    }
+    qp.qenc = (const float*)qptrs[k++];
+    qp.qh = (const float*)qptrs[k++];
+    qp.iq = (const float*)qptrs[k++];
+    if (qp.qenc == nullptr || (int8_from > 0 && qp.qh == nullptr) ||
+        (fine && tap >= int8_from && tap < layer_num - 1 && qp.iq == nullptr))
+      return (int)cudaErrorInvalidValue;
+  } else {
+    int8_from = layer_num;
+  }
   auto fn = hid == 64 ? launch_hid<64> : launch_hid<256>;
-  return (int)fn(fine, dbg != nullptr, p, n_rays, layer_num, tap, num_freqs,
-                 dirs_freqs, samples, var_scale, log_eps, white_bg,
-                 (int*)counter, (float*)out_w, (float*)out_depth,
-                 (float*)out_acc, (float*)out_rgb, (float*)out_feat,
-                 (float*)out_pts, (float*)dbg, (cudaStream_t)stream);
+  return (int)fn(fine, dbg != nullptr || dbgq != nullptr, q8, p, qp, n_rays,
+                 layer_num, tap, int8_from, num_freqs, dirs_freqs, samples,
+                 var_scale, log_eps, white_bg, (int*)counter, (float*)out_w,
+                 (float*)out_depth, (float*)out_acc, (float*)out_rgb,
+                 (float*)out_feat, (float*)out_pts, (float*)dbg, (int8_t*)dbgq,
+                 (cudaStream_t)stream);
 }
 
 // Dynamic shared memory of the kernel at hid (64 or 256), the coarse or the
-// fine stage, in bytes.
-extern "C" int nm_render_eval_smem(int hid, int fine) {
-  if (hid == 64) return (int)(fine ? EvalSmem<64, true>::kBytes : EvalSmem<64, false>::kBytes);
-  if (hid == 256)
-    return (int)(fine ? EvalSmem<256, true>::kBytes : EvalSmem<256, false>::kBytes);
+// fine stage, the bf16 or the int8 trunk, in bytes.
+extern "C" int nm_render_eval_smem(int hid, int fine, int int8) {
+  if (hid == 64) return (int)smem_bytes<64>(fine, int8);
+  if (hid == 256) return (int)smem_bytes<256>(fine, int8);
   return -1;
 }

@@ -3,12 +3,14 @@
 // uses the copy and mbarrier helpers) and multiply with wgmma:
 // cp.async and bulk copies into shared memory, mbarriers, the fence to the
 // asynchronous proxy, the 128-byte swizzle and its wgmma descriptors, and
-// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators) with A in
-// registers or in shared memory.
+// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators) and m64nNk32
+// (s8 operands, s32 accumulators) with A in registers or in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -151,15 +153,18 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The accumulator operands d[i] ..: "+f" constraints, and the operand
-// numbers of the first 16 / 32 / 64 / 128 of them in an asm template.
-#define NM_ACC8(i)                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define NM_ACC16(i) NM_ACC8(i), NM_ACC8(i + 8)
-#define NM_ACC32(i) NM_ACC16(i), NM_ACC16(i + 16)
-#define NM_ACC64(i) NM_ACC32(i), NM_ACC32(i + 32)
-#define NM_ACC128(i) NM_ACC64(i), NM_ACC64(i + 64)
+// The accumulator operands d[i] ..: constraint C ("+f": f32 variables,
+// "+r": 32-bit integer ones), and the operand numbers of the first 16 / 32
+// / 64 / 128 of them in an asm template.  An f32 accumulator may live in
+// integer variables (PTX takes .b32 registers for .f32 operands): a kernel
+// that runs both bf16 and s8 products keeps one accumulator array for both.
+#define NM_ACC8(C, i)                                                    \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]),           \
+      C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define NM_ACC16(C, i) NM_ACC8(C, i), NM_ACC8(C, i + 8)
+#define NM_ACC32(C, i) NM_ACC16(C, i), NM_ACC16(C, i + 16)
+#define NM_ACC64(C, i) NM_ACC32(C, i), NM_ACC32(C, i + 32)
+#define NM_ACC128(C, i) NM_ACC64(C, i), NM_ACC64(C, i + 64)
 #define NM_REGS16 \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
 #define NM_REGS32                                                          \
@@ -177,65 +182,182 @@ __device__ __forceinline__ void wgmma_wait() {
             "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "   \
             "%119, %120, %121, %122, %123, %124, %125, %126, %127"
 
-// One wgmma.mma_async: accumulator operands ACC (numbered REGS), then the
-// inputs INS; PRED names the scale-d input (0: d = A B, else d += A B) and
-// TAIL the A, B and immediate operands after the accumulator.
-#define NM_WGMMA(n, REGS, TAIL, PRED, ACC, ...)                             \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"            \
-               "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 {" \
-               REGS "}, " TAIL ";\n}\n"                                     \
-               : ACC                                                        \
-               : __VA_ARGS__                                                \
+// One wgmma.mma_async of shape and types SHAPE: accumulator operands ACC
+// (numbered REGS), then the inputs; PRED names the scale-d input (0: d =
+// A B, else d += A B) and TAIL the A, B and immediate operands after the
+// accumulator.
+#define NM_WGMMA(SHAPE, REGS, TAIL, PRED, ACC, ...)                      \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"         \
+               "wgmma.mma_async.sync.aligned." SHAPE " {" REGS "}, " TAIL \
+               ";\n}\n"                                                  \
+               : ACC                                                     \
+               : __VA_ARGS__                                             \
                : "memory")
+#define NM_BF16(n) "m64n" #n "k16.f32.bf16.bf16"
+#define NM_S8(n) "m64n" #n "k32.s32.s8.s8"
 
-// d (64 x N f32, N / 2 a thread) = or += A (64 x 16) B (16 x N), both in
-// shared memory (descriptors da, db); B MN-major (its transpose bit set),
-// A MN-major (TA = 1) or K-major (TA = 0).
+// d (64 x N f32, N / 2 a thread; T float or uint32_t holding f32 bits) = or
+// += A (64 x 16) B (16 x N), both in shared memory (descriptors da, db); B
+// MN-major (its transpose bit set), A MN-major (TA = 1) or K-major (TA = 0).
 // Accumulator element 4 j + e of a thread holds row 16 (warp % 4) + lane / 4
 // (+ 8 for e >= 2), column 8 j + 2 (lane % 4) + (e & 1).
-template <int N, int TA = 1>
-__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+template <int N, int TA = 1, typename T>
+__device__ __forceinline__ void wgmma_ss(T* d, uint64_t da, uint64_t db,
                                          int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: n64, n128, n256");
-  if constexpr (N == 256)
-    NM_WGMMA(256, NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
-             NM_ACC128(0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
-  else if constexpr (N == 128)
-    NM_WGMMA(128, NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66", NM_ACC64(0),
-             "l"(da), "l"(db), "r"(scale_d), "n"(TA));
-  else
-    NM_WGMMA(64, NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34", NM_ACC32(0),
-             "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_BF16(256), NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
+               NM_ACC128("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_BF16(128), NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66",
+               NM_ACC64("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else
+      NM_WGMMA(NM_BF16(64), NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34",
+               NM_ACC32("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  } else {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_BF16(256), NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
+               NM_ACC128("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_BF16(128), NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66",
+               NM_ACC64("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else
+      NM_WGMMA(NM_BF16(64), NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34",
+               NM_ACC32("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
 }
 
 // d (64 x N f32) = or += A (64 x 16 bf16: four registers a thread, the
 // layout of mma.sync m16n8k16's A, warp w of the warpgroup holding rows
 // 16 w ..) times the 16 x N tile of B in shared memory (descriptor db),
-// K-major (TB = 0) or MN-major (TB = 1).
-template <int N, int TB>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+// K-major (TB = 0) or MN-major (TB = 1).  T as for wgmma_ss.
+template <int N, int TB, typename T>
+__device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
                                          uint64_t db, int scale_d) {
   static_assert(N == 32 || N == 64 || N == 128 || N == 256,
                 "wgmma_rs: n32, n64, n128, n256");
-  if constexpr (N == 256)
-    NM_WGMMA(256, NM_REGS128, "{%128, %129, %130, %131}, %132, p, 1, 1, %134",
-             "%133", NM_ACC128(0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
-             "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-  else if constexpr (N == 128)
-    NM_WGMMA(128, NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70", "%69",
-             NM_ACC64(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-             "l"(db), "r"(scale_d), "n"(TB));
-  else if constexpr (N == 64)
-    NM_WGMMA(64, NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38", "%37",
-             NM_ACC32(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-             "l"(db), "r"(scale_d), "n"(TB));
-  else
-    NM_WGMMA(32, NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22", "%21",
-             NM_ACC16(0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-             "l"(db), "r"(scale_d), "n"(TB));
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_BF16(256), NM_REGS128,
+               "{%128, %129, %130, %131}, %132, p, 1, 1, %134", "%133",
+               NM_ACC128("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_BF16(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70",
+               "%69", NM_ACC64("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 64)
+      NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
+               "%37", NM_ACC32("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else
+      NM_WGMMA(NM_BF16(32), NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22",
+               "%21", NM_ACC16("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  } else {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_BF16(256), NM_REGS128,
+               "{%128, %129, %130, %131}, %132, p, 1, 1, %134", "%133",
+               NM_ACC128("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_BF16(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70",
+               "%69", NM_ACC64("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 64)
+      NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
+               "%37", NM_ACC32("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else
+      NM_WGMMA(NM_BF16(32), NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22",
+               "%21", NM_ACC16("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+  }
+}
+
+// ---- s8 x s8 -> s32 ----
+
+// wgmma shared-memory descriptor of a K-major tile in the 64-byte swizzle:
+// rows (the N index) of 64 bytes, 16-byte chunk c of row r stored at chunk
+// c ^ ((r / 2) % 4); eight rows (512 bytes) to the next group, from a
+// 512-byte boundary.  A k32 step of s8 is 32 bytes of a row.
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (32ull << 32) |
+         (2ull << 62);
+}
+
+// d (64 x N s32 in uint32_t, the accumulator layout above) = or += A
+// (64 x 32 s8) B (32 x N s8): A K-major in shared memory (descriptor da,
+// wgmma_ss8) or in four registers a thread (wgmma_rs8: register r holds
+// row 16 (warp % 4) + lane / 4 (+ 8 for odd r), columns 4 (lane % 4) ..
+// + 3 (+ 16 for r >= 2), lowest byte first: mma.sync m16n8k32's A); B
+// K-major (descriptor db; 8-bit wgmma takes no transposed B).  kInit: the
+// first product of a chain (d = A B), which reads nothing of d, so the
+// compiler need not keep d's old values in registers until it.
+template <int N, bool kInit = false>
+__device__ __forceinline__ void wgmma_ss8(uint32_t* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss8: n64, n128, n256");
+  if constexpr (kInit) {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_S8(256), NM_REGS128, "%128, %129, p", "%130", NM_ACC128("=r", 0),
+               "l"(da), "l"(db), "n"(0));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_S8(128), NM_REGS64, "%64, %65, p", "%66", NM_ACC64("=r", 0),
+               "l"(da), "l"(db), "n"(0));
+    else
+      NM_WGMMA(NM_S8(64), NM_REGS32, "%32, %33, p", "%34", NM_ACC32("=r", 0),
+               "l"(da), "l"(db), "n"(0));
+  } else {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_S8(256), NM_REGS128, "%128, %129, p", "%130", NM_ACC128("+r", 0),
+               "l"(da), "l"(db), "r"(scale_d));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_S8(128), NM_REGS64, "%64, %65, p", "%66", NM_ACC64("+r", 0),
+               "l"(da), "l"(db), "r"(scale_d));
+    else
+      NM_WGMMA(NM_S8(64), NM_REGS32, "%32, %33, p", "%34", NM_ACC32("+r", 0),
+               "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+template <int N, bool kInit = false>
+__device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
+                                          uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs8: n64, n128, n256");
+  if constexpr (kInit) {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_S8(256), NM_REGS128, "{%128, %129, %130, %131}, %132, p", "%133",
+               NM_ACC128("=r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "n"(0));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_S8(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p", "%69",
+               NM_ACC64("=r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "n"(0));
+    else
+      NM_WGMMA(NM_S8(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p", "%37",
+               NM_ACC32("=r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "n"(0));
+  } else {
+    if constexpr (N == 256)
+      NM_WGMMA(NM_S8(256), NM_REGS128, "{%128, %129, %130, %131}, %132, p", "%133",
+               NM_ACC128("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "r"(scale_d));
+    else if constexpr (N == 128)
+      NM_WGMMA(NM_S8(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p", "%69",
+               NM_ACC64("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "r"(scale_d));
+    else
+      NM_WGMMA(NM_S8(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p", "%37",
+               NM_ACC32("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "r"(scale_d));
+  }
 }
 
 #undef NM_WGMMA
+#undef NM_BF16
+#undef NM_S8
 #undef NM_REGS128
 #undef NM_REGS64
 #undef NM_REGS32

@@ -33,8 +33,7 @@ from torch import nn
 
 from ..models.layers import init_params_
 from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
-from ..ops.kernels.render_kernel import (TILE_RAYS, pack_mlp,
-                                         pack_mlp_fragments, render_stage)
+from ..ops.kernels.render_kernel import TILE_RAYS, pack_mlp, render_stage
 from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
 from ..utils.geometry import unnormalize_pts
@@ -317,11 +316,10 @@ class NerfRenderer(nn.Module):
             self.calibrate_int8(rays[:min(1024, rays.shape[0])])
 
     def pack_fused(self):
-        """Kernel weights of both stages, ((bf16 weights, int8 trunk) of the
+        """Kernel weights of both stages, ((weights, int8 trunk) of the
         coarse stage, the same of the fine stage): the int8 trunk where
-        ``int8_plan`` quantizes, and on CUDA the bf16 weights for the kernel
-        that runs the stage, ``pack_mlp_fragments`` beside an int8 trunk and
-        ``pack_mlp`` (the wgmma kernel's slot images) otherwise."""
+        ``int8_plan`` quantizes, and on CUDA the render kernel's weights
+        (``pack_mlp`` of the stage's MLP and its int8 trunk)."""
         plan = self.int8_plan()
         if any(p is not None for p in plan) and self.act_scales is None:
             raise RuntimeError(
@@ -334,8 +332,7 @@ class NerfRenderer(nn.Module):
             tap = eval_feat_layer(mlp.cfg) if name == "fine" else None
             q = None if start is None else pack_mlp_int8(
                 mlp, self.act_scales[name], start, tap)
-            w = None if not cuda else (
-                pack_mlp(mlp) if q is None else pack_mlp_fragments(mlp))
+            w = pack_mlp(mlp, q) if cuda else None
             out.append((w, q))
         return tuple(out)
 

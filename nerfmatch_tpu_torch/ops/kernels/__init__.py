@@ -43,18 +43,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: (name, argtypes).  Every entry returns cudaError_t as int.
 _SIGNATURES = {
-    # params, int8 params (host arrays of device pointers), n_rays, hid, layer_num, feat_layer, int8_from, num_freqs,
-    # dirs_freqs, samples, var_scale, log_eps, white_bg, fine, out pointers
-    # x6, int8 debug output, stream
-    "nm_render_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                          _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    # params, n_rays, hid, layer_num, feat_layer, num_freqs, dirs_freqs,
-    # samples, var_scale, log_eps, white_bg, fine, tile counter, out
-    # pointers x6, tap debug output, stream
-    "nm_render_eval_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                               _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # hid, fine -> dynamic shared memory bytes
-    "nm_render_eval_smem": [_I, _I],
+    # params, int8 params or null (host arrays of device pointers), n_rays,
+    # hid, layer_num, feat_layer, int8_from, num_freqs, dirs_freqs, samples,
+    # var_scale, log_eps, white_bg, fine, tile counter, out pointers x6, tap
+    # debug output, int8 debug output, stream
+    "nm_render_eval_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                               _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P],
+    # hid, fine, int8 -> dynamic shared memory bytes
+    "nm_render_eval_smem": [_I, _I, _I],
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
     "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,

@@ -19,9 +19,9 @@
 :func:`pack_mlp_int8` returns the rows and int8 weights under the JAX
 packing's names (``qenc``, ``qh``, ``w{i}q``, ``w{i}sq``, ``c{i}``,
 ``c{i}s``, ``B{i}``, ``s{L}``, ``s{L}s``, ``b{L}``, ``iq{i}``), and under
-``frag`` the int8 weights as ``mma.m16n8k32`` B fragments for
-``csrc/render.cu``.  The 90 encoding rows are padded to 96 (a multiple of
-the 32-deep k step); the JAX packing pads them to 128.
+``img`` the int8 weights as the ring's slot images of the render kernel
+(``csrc/render_eval.cu``, :func:`slot_images_s8`).  The 90 encoding rows
+are padded to 96 (three 32-deep k steps); the JAX packing pads them to 128.
 """
 
 from __future__ import annotations
@@ -36,7 +36,16 @@ from ...nerf.embedding import ipe_embedding
 from ...nerf.sampling import sample_along_rays
 
 _EPS = 1e-6
-ENC_PAD = 96        # encoding rows, padded to the k step of mma.m16n8k32
+ENC_PAD = 96        # encoding rows, padded to the k step of s8 wgmma
+S8_SLOT_ROWS = 64   # csrc: kSliceK8 (s8 weight rows a ring slot)
+# The K order of an s8 image fed from an accumulator: position k of each
+# 32-row block holds row PERM32[k].  A thread's s32 accumulator holds
+# columns 8 j + 2 q (+ 1) (q = lane % 4) of a 32-column block, its s8 A
+# fragment takes columns 4 q .. 4 q + 3 and 16 + 4 q .. + 3: with the rows
+# in this order the epilogue packs its own bytes (csrc/render_eval.cu:
+# put_s8).
+PERM32 = torch.tensor([16 * hi + 8 * (r // 2) + 2 * q + r % 2
+                       for hi in (0, 1) for q in range(4) for r in range(4)])
 
 
 def colq(w_eff):
@@ -46,28 +55,23 @@ def colq(w_eff):
     return torch.round(w_eff / sw).to(torch.int8), sw
 
 
-def pack_fragments_s8(w):
-    """(K, N) int8 ``in x out`` weight -> s8 mma.m16n8k32 B fragments.
-
-    K is zero-padded to a multiple of 32.  Returns an int32 tensor of shape
-    (K/32, N/8, 32, 2): entry [ks, nt, lane, r] holds the four int8
-    ``w[k .. k + 3, n]`` (lowest byte first) with
-    ``k = 32 ks + 16 r + 4 (lane % 4)`` and ``n = 8 nt + lane // 4``.
-    """
+def slot_images_s8(w, permute: bool):
+    """A (K, N) int8 ``in x out`` weight -> the render kernel's s8 ring-slot
+    images, flat int8: K zero-padded to a multiple of 64, its rows in the
+    order :data:`PERM32` gives each 32-row block where ``permute`` (the rows
+    fed from an accumulator), then per 64-row slot the N columns K-major,
+    64 bytes each, the 16-byte chunk c of column n stored at chunk
+    c ^ ((n // 2) % 4) (the 64-byte swizzle their wgmma descriptors read).
+    One bulk copy fills a slot."""
     K, N = w.shape
-    w = F.pad(w.to(torch.int8), (0, 0, 0, (-K) % 32))
-    # k = 32 ks + 16 r + 4 lq + b,  n = 8 nt + ln,  lane = 4 ln + lq
-    w = w.reshape(-1, 2, 4, 4, N // 8, 8)           # ks, r, lq, b, nt, ln
-    w = w.permute(0, 4, 5, 2, 1, 3).contiguous()    # ks, nt, ln, lq, r, b
-    return w.view(torch.int32).reshape(-1, N // 8, 32, 2)
-
-
-def unpack_fragments_s8(frag, K: int):
-    """Inverse of :func:`pack_fragments_s8` -> the (K, N) int8 weight."""
-    ks, nt = frag.shape[:2]
-    w = frag.contiguous().view(torch.int8).reshape(ks, nt, 8, 4, 2, 4)
-    w = w.permute(0, 4, 3, 5, 1, 2)                 # ks, r, lq, b, nt, ln
-    return w.reshape(ks * 32, nt * 8)[:K]
+    w = F.pad(w.to(torch.int8), (0, 0, 0, (-K) % S8_SLOT_ROWS))
+    if permute:   # row 16 hi + 8 r1 + 2 q + r0 to position 16 hi + 4 q + 2 r1 + r0
+        w = w.reshape(-1, 2, 2, 4, 2, N).permute(0, 1, 3, 2, 4, 5).reshape(-1, N)
+    x = w.reshape(-1, S8_SLOT_ROWS, N).transpose(1, 2).reshape(-1, N, 4, 16)
+    n = torch.arange(N, device=w.device).view(N, 1)
+    src = torch.arange(4, device=w.device).view(1, 4) ^ (n // 2 % 4)
+    idx = src.view(1, N, 4, 1).expand(x.shape)
+    return torch.gather(x, 2, idx).reshape(-1)
 
 
 def _pad_rows(w, rows):
@@ -81,7 +85,8 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
     1)}`` from :func:`calibrate_act_scales`.  Layers from ``int8_from`` on
     are quantized; ``tap``: the descriptor-tap layer (fine stage) or None.
     The math is ``pack_mlp_weights_int8``'s: the ``_EPS`` floor, scale 1 on
-    the padded encoding lanes."""
+    the padded encoding lanes.  ``img``: the int8 layers' slot images
+    (:func:`slot_images_s8`), for the render kernel."""
     cfg = mlp.cfg
     L, last, hid, E = cfg.layer_num, cfg.layer_num - 1, cfg.hid_dim, cfg.xyz_dim
     if not 0 <= int8_from <= last:
@@ -129,8 +134,11 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
             out[f"b{i}"] = bias
         if tap is not None and tap == i and i < last:
             out[f"iq{i}"] = iq_rows[i]
-    out["frag"] = {k: pack_fragments_s8(v) for k, v in out.items()
-                   if k.startswith("w")}
+    # The s8 layers' images in the order the ring streams them: per layer
+    # its hidden rows (permuted), then its encoding rows.
+    out["img"] = torch.cat([
+        slot_images_s8(out[k], permute=i > 0 and k == f"w{i}q")
+        for i in range(int8_from, L) for k in (f"w{i}q", f"w{i}sq") if k in out])
     return out
 
 

@@ -18,10 +18,10 @@ Early termination (``early_term_eps > 0``): rays are grouped in tiles of
 block of :data:`SAMPLE_BLOCK` samples, the remaining blocks get exact zero
 weights.  Skipped weights are < eps, so outputs move by < eps.
 
-CUDA tensors launch a kernel (and raise on anything it does not
-implement): a bf16 trunk ``csrc/render_eval.cu`` (``wgmma``, weights from
-:func:`pack_mlp`), the int8 trunk ``csrc/render.cu`` (``mma.sync``,
-weights from :func:`pack_mlp_fragments` and ``quant.pack_mlp_int8``).  CPU
+CUDA tensors launch the kernel ``csrc/render_eval.cu`` (``wgmma``; it
+raises on anything the kernel does not implement) with the weights of
+:func:`pack_mlp`: a bf16 trunk, or the int8 trunk of
+``quant.pack_mlp_int8`` (s8 ``wgmma`` from its first int8 layer on).  CPU
 tensors run :func:`render_stage_plain`.
 """
 
@@ -38,42 +38,52 @@ from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP, eval_feat_layer
 from ...nerf.sampling import frustum_moments, lift_gaussian
 from .quant import ENC_PAD
-from .render_train_kernel import forward_images
+from .render_train_kernel import ENC_MAX, _skip_in, forward_images
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
 KERNEL_HIDS = (64, 256)
 
 
-def pack_fragments(w):
-    """(K, N) f32 ``in x out`` weight -> bf16 mma.m16n8k16 B fragments.
+def stream_bytes(cfg, int8_from=None) -> int:
+    """Bytes of the weight images the render kernel's ring streams for
+    ``cfg`` (:func:`pack_mlp`): the bf16 images of the trunk layers below
+    ``int8_from`` (every layer without it), the s8 images of the others
+    (the encoding rows padded to 128), the feature and views layers'."""
+    hid, L = cfg.hid_dim, cfg.layer_num
+    start = L if int8_from is None else int8_from
+    n = 0
+    for i in range(L):
+        enc, rows = _skip_in(cfg, i), hid if i > 0 else 0
+        n += hid * (2 * (ENC_MAX * enc + rows) if i < start
+                    else 128 * enc + rows)
+    return n + 2 * hid * (hid + max(hid // 2, 64))
 
-    K is zero-padded to a multiple of 16.  Returns an int32 tensor of shape
-    (K/16, N/8, 32, 2): entry [ks, nt, lane, r] holds the bf16 pair
-    ``w[k, n], w[k + 1, n]`` (low half first) with
-    ``k = 16 ks + 8 r + 2 (lane % 4)`` and ``n = 8 nt + lane // 4``.
-    """
-    K, N = w.shape
-    w = F.pad(w, (0, 0, 0, (-K) % 16)).to(torch.bfloat16)
-    # k = 16 ks + 8 r + 2 lq + h,  n = 8 nt + ln,  lane = 4 ln + lq
-    w = w.reshape(-1, 2, 4, 2, N // 8, 8)           # ks, r, lq, h, nt, ln
-    w = w.permute(0, 4, 5, 2, 1, 3).contiguous()    # ks, nt, ln, lq, r, h
-    return w.view(torch.int32).reshape(-1, N // 8, 32, 2)
 
-
-def pack_mlp(mlp: NerfMLP):
-    """The bf16 kernel's weight list (``csrc/render_eval.cu``), in the order
-    its C entry expects: every matrix's slot images
-    (``render_train_kernel.forward_images``, the images kernel 5 reads),
-    per layer (its encoding rows' images or None, bias), then wa, ba, bf,
-    wvd, bv, wr, br.  wvd (the views layer's dirs rows) and wr (the rgb
-    head) stay f32: the kernel's FMAs take them unrounded."""
+def pack_mlp(mlp: NerfMLP, int8=None):
+    """The render kernel's weight list (``csrc/render_eval.cu``), in the
+    order its C entry expects: the slot images its ring streams, per layer
+    (its encoding flag or None, bias), then wa, ba, bf, wvd, bv, wr, br.
+    A bf16 trunk's images are every matrix's bf16 slot images
+    (``render_train_kernel.forward_images``, the images kernel 5 reads);
+    with ``int8`` (``quant.pack_mlp_int8``) the trunk layers from
+    ``int8["start"]`` on are its s8 images (``int8["img"]``), in bytes.  wvd
+    (the views layer's dirs rows) and wr (the rgb head) stay f32: the
+    kernel's FMAs take them unrounded."""
     cfg = mlp.cfg
-    fwd, enc_at = forward_images(mlp)
-    out = [fwd]
+    fwd, enc_at = forward_images(mlp, None if int8 is None else int8["start"])
+    if int8 is None:
+        imgs, flags = fwd, {i: fwd[at:] for i, at in enc_at.items()}
+    else:
+        hid = cfg.hid_dim
+        heads = fwd.numel() - hid * (hid + max(hid // 2, 64))
+        imgs = torch.cat([fwd[:heads].view(torch.uint8),
+                          int8["img"].view(torch.uint8),
+                          fwd[heads:].view(torch.uint8)])
+        flags = {i: imgs for i in range(cfg.layer_num) if _skip_in(cfg, i)}
+    out = [imgs]
     for i, lin in enumerate(mlp.pts_linears):
-        out += [fwd[enc_at[i]:] if i in enc_at else None,
-                lin.bias.detach().contiguous()]
+        out += [flags.get(i), lin.bias.detach().contiguous()]
     wv = mlp.views_linears[0].weight.detach()
     out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
             mlp.alpha_linear.bias.detach().contiguous(),
@@ -81,36 +91,6 @@ def pack_mlp(mlp: NerfMLP):
             wv[:, cfg.hid_dim:].t().contiguous(),
             mlp.views_linears[0].bias.detach().contiguous(),
             mlp.rgb_linear.weight.detach().t().contiguous(),
-            mlp.rgb_linear.bias.detach().contiguous()]
-    return out
-
-
-def pack_mlp_fragments(mlp: NerfMLP):
-    """The int8 kernel's bf16 weight list (``csrc/render.cu``: the layers
-    below ``int8_from`` and the heads), in the order its C entry expects:
-    per layer (encoding-row fragments or None, hidden-row fragments or
-    None, bias), then wa, ba, wf, bf, wvh, wvd, bv, wr, br."""
-    cfg = mlp.cfg
-    t = lambda w: w.detach().t().contiguous()
-    out = []
-    for i, lin in enumerate(mlp.pts_linears):
-        w = t(lin.weight)
-        if i == 0:
-            parts = (w, None)
-        elif i - 1 in cfg.skips:
-            parts = (w[:cfg.xyz_dim], w[cfg.xyz_dim:])
-        else:
-            parts = (None, w)
-        out += [None if p is None else pack_fragments(p) for p in parts]
-        out.append(lin.bias.detach().contiguous())
-    wv = t(mlp.views_linears[0].weight)
-    out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
-            mlp.alpha_linear.bias.detach().contiguous(),
-            pack_fragments(t(mlp.feature_linear.weight)),
-            mlp.feature_linear.bias.detach().contiguous(),
-            pack_fragments(wv[:cfg.hid_dim]), wv[cfg.hid_dim:].contiguous(),
-            mlp.views_linears[0].bias.detach().contiguous(),
-            t(mlp.rgb_linear.weight),
             mlp.rgb_linear.bias.detach().contiguous()]
     return out
 
@@ -128,17 +108,15 @@ def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int):
 
 
 def int8_pointers(mlp: NerfMLP, int8):
-    """The int8 trunk's device pointers in the order of ``nm_render_forward``'s
-    ``qptrs``: per layer (weight fragments, encoding-row fragments, scale
-    row, encoding-row scale row, bias row), null below ``int8["start"]``;
-    then qenc, qh, iq."""
+    """The int8 trunk's rows in the order of ``nm_render_eval_forward``'s
+    ``qptrs``: per layer (scale row, encoding-row scale row, bias row), None
+    below ``int8["start"]``; then qenc, qh, iq."""
     last = mlp.cfg.layer_num - 1
-    get = lambda k: int8["frag"].get(k, int8.get(k))
     ptrs = []
     for i in range(mlp.cfg.layer_num):
         pre, bias = ("s", f"b{i}") if i == last else ("c", f"B{i}")
-        keys = (f"w{i}q", f"w{i}sq", f"{pre}{i}", f"{pre}{i}s", bias)
-        ptrs += [get(k) if i >= int8["start"] else None for k in keys]
+        keys = (f"{pre}{i}", f"{pre}{i}s", bias)
+        ptrs += [int8.get(k) if i >= int8["start"] else None for k in keys]
     tap = int8["tap"]
     return ptrs + [int8["qenc"], int8.get("qh"),
                    int8.get(f"iq{tap}") if tap is not None else None]
@@ -150,14 +128,13 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                  packed=None, int8=None, debug_q: bool = False,
                  debug_tap: bool = False):
     """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts]).
-    ``packed``: :func:`pack_mlp` (bf16 trunk) or :func:`pack_mlp_fragments`
-    (``int8``) of ``mlp``, to pack once for many calls.  ``int8``
-    (``quant.pack_mlp_int8``): run the trunk from ``int8["start"]`` on in
-    the quantized domain; ``debug_q`` adds the int8 encoding ``xq`` and the
-    last layer's int8 input ``hq`` (``int8`` only).  ``debug_tap`` (bf16
-    fine stage, CUDA): adds the tap layer's activations of the kernel's
-    first pass ``tap_first`` and of its second ``tap_again`` (N, S, hid; 0
-    in skipped blocks)."""
+    ``packed``: :func:`pack_mlp` of ``mlp`` (with ``int8``), to pack once
+    for many calls.  ``int8`` (``quant.pack_mlp_int8``): run the trunk from
+    ``int8["start"]`` on in the quantized domain; ``debug_q`` adds the int8
+    encoding ``xq`` and the last layer's int8 input ``hq`` (``int8`` only;
+    0 in skipped blocks on CUDA).  ``debug_tap`` (fine stage, CUDA): adds the
+    tap layer's activations of the kernel's first pass ``tap_first`` and of
+    its second ``tap_again`` (N, S, hid; 0 in skipped blocks)."""
     _check_config(mlp, num_freqs, dirs_freqs)
     if rays.device.type != "cuda":
         return render_stage_plain(mlp, rays, z, fine=fine, num_freqs=num_freqs,
@@ -166,15 +143,16 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                                   white_bg=white_bg, int8=int8,
                                   debug_q=debug_q)
     cfg = mlp.cfg
+    start = None if int8 is None else int8["start"]
     if packed is None:
-        packed = pack_mlp(mlp) if int8 is None else pack_mlp_fragments(mlp)
-    if packed[0].dtype != (torch.bfloat16 if int8 is None else torch.int32):
-        raise ValueError("render_stage: packed for the other kernel "
-                         "(pack_mlp for a bf16 trunk, pack_mlp_fragments "
-                         "for the int8 trunk)")
-    qptrs = [] if int8 is None else int8_pointers(mlp, int8)
+        packed = pack_mlp(mlp, int8)
+    if (packed[0].dtype == torch.bfloat16) != (int8 is None) or \
+            packed[0].numel() * packed[0].element_size() != stream_bytes(cfg, start):
+        raise ValueError("render_stage: packed for another trunk (pack_mlp(mlp, "
+                         "int8) packs the one int8 gives)")
+    qptrs = None if int8 is None else int8_pointers(mlp, int8)
     require_cuda_tensors("render_stage", rays, z,
-                         *[p for p in [*packed, *qptrs] if p is not None])
+                         *[p for p in [*packed, *(qptrs or [])] if p is not None])
     n, S = z.shape[0], z.shape[1] - 1
     if rays.dtype != torch.float32 or z.dtype != torch.float32 \
             or rays.shape != (n, 12):
@@ -186,8 +164,8 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             f"hid={cfg.hid_dim})")
     if debug_q and int8 is None:
         raise ValueError("render_stage: debug_q needs the int8 trunk")
-    if debug_tap and (int8 is not None or not fine):
-        raise ValueError("render_stage: debug_tap needs the bf16 fine stage")
+    if debug_tap and not fine:
+        raise ValueError("render_stage: debug_tap needs the fine stage")
     if int8 is not None and fine and int8["tap"] != eval_feat_layer(cfg):
         raise ValueError("render_stage: the fine stage's int8 trunk must be "
                          "packed with its tap layer")
@@ -205,34 +183,27 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     ptr = lambda p: None if p is None else p.data_ptr()
     ptrs = (ctypes.c_void_p * (len(packed) + 2))(
         *map(ptr, packed), rays.data_ptr(), z.data_ptr())
+    qarr = None if qptrs is None else (ctypes.c_void_p * len(qptrs))(*map(ptr, qptrs))
     opt = lambda k: out[k].data_ptr() if k in out else None
     outs = (out["weights"].data_ptr(), out["depth"].data_ptr(),
             out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"))
     log_eps = math.log(early_term_eps) if early_term_eps > 0 else -math.inf
-    name = "render_fine" if fine else "render_coarse"
-    if int8 is None:
-        counter = torch.zeros(1, device=dev, dtype=torch.int32)
-        dbg = torch.zeros(2, n, S, hid, **f32) if debug_tap else None
-        err = library().nm_render_eval_forward(
-            ptrs, n, hid, cfg.layer_num, eval_feat_layer(cfg), num_freqs,
-            dirs_freqs, S, var_scale, log_eps, int(white_bg), int(fine),
-            counter.data_ptr(), *outs, ptr(dbg), stream_ptr(dev))
-        check(err, "render_eval")
-        LAUNCHES[name] += 1
-        if debug_tap:
-            out.update(tap_first=dbg[0], tap_again=dbg[1])
-        return out
-    dbg = (torch.empty(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
-           if debug_q else None)
-    qarr = (ctypes.c_void_p * len(qptrs))(*map(ptr, qptrs))
-    err = library().nm_render_forward(
+    counter = torch.zeros(1, device=dev, dtype=torch.int32)
+    dbg = torch.zeros(2, n, S, hid, **f32) if debug_tap else None
+    dbgq = (torch.zeros(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
+            if debug_q else None)
+    err = library().nm_render_eval_forward(
         ptrs, qarr, n, hid, cfg.layer_num, eval_feat_layer(cfg),
-        int8["start"], num_freqs, dirs_freqs, S, var_scale, log_eps,
-        int(white_bg), int(fine), *outs, ptr(dbg), stream_ptr(dev))
-    check(err, "render")
-    LAUNCHES[name + "_int8"] += 1
+        -1 if start is None else start, num_freqs, dirs_freqs, S, var_scale,
+        log_eps, int(white_bg), int(fine), counter.data_ptr(), *outs, ptr(dbg),
+        ptr(dbgq), stream_ptr(dev))
+    check(err, "render_eval")
+    LAUNCHES[("render_fine" if fine else "render_coarse")
+             + ("" if int8 is None else "_int8")] += 1
+    if debug_tap:
+        out.update(tap_first=dbg[0], tap_again=dbg[1])
     if debug_q:
-        out.update(xq=dbg[..., :cfg.xyz_dim], hq=dbg[..., ENC_PAD:])
+        out.update(xq=dbgq[..., :cfg.xyz_dim], hq=dbgq[..., ENC_PAD:])
     return out
 
 
@@ -253,16 +224,17 @@ def early_term_mask(alpha, eps: float):
 
 
 def stage_alpha_plain(mlp: NerfMLP, rays, z, *, num_freqs: int,
-                      dirs_freqs: int, var_scale: float = 1.0):
-    """(N, S) alpha of the plain stage with its bf16 MLP operands, before
-    early termination: what :func:`early_term_mask` reads."""
+                      dirs_freqs: int, var_scale: float = 1.0, int8=None):
+    """(N, S) alpha of the plain stage with its bf16 MLP operands (and the
+    int8 trunk ``int8``), before early termination: what
+    :func:`early_term_mask` reads."""
     t0, t1 = z[:, :-1], z[:, 1:]
     t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
     d = rays[:, 8:11]
     mean, var = lift_gaussian(d, t_mean, var_scale * t_var, var_scale * r_var)
     enc, _ = ipe_embedding(mean + rays[:, None, 0:3], var, num_freqs)
     dirs = pe_embedding(d, dirs_freqs)[:, None, :]
-    sigma = mlp_plain(mlp, enc, dirs, -1, True)[0]
+    sigma = mlp_plain(mlp, enc, dirs, -1, True, int8=int8)[0]
     return 1.0 - torch.exp(-torch.relu(sigma) * (t1 - t0))
 
 

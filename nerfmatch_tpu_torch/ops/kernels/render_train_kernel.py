@@ -227,17 +227,19 @@ def _fwd_images(w, k: int | None = None, n: int | None = None):
     return slot_images(wt).reshape(-1)
 
 
-def forward_images(mlp: NerfMLP):
+def forward_images(mlp: NerfMLP, layers: int | None = None):
     """Every weight matrix's (in x out) slot images, in the order the
-    forward kernels' rings stream them (``train_fwd_kernel`` and the bf16
+    forward kernels' rings stream them (``train_fwd_kernel`` and the
     render kernel, ``csrc/render_eval.cu``): per layer the encoding rows
     padded to ``ENC_MAX`` then the hidden rows, then the feature and the
-    views layers, the views' columns padded to 64 or more.  Returns (the
-    flat bf16 images, {layer: offset of its encoding rows' images})."""
+    views layers, the views' columns padded to 64 or more.  ``layers``:
+    only the first ``layers`` trunk layers (the render kernel's int8 trunk
+    streams its own images for the others).  Returns (the flat bf16
+    images, {layer: offset of its encoding rows' images})."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     imgs, enc_at = [], {}
-    for i, lin in enumerate(mlp.pts_linears):
+    for i, lin in enumerate(mlp.pts_linears[:layers]):
         w = lin.weight.detach()
         if _skip_in(cfg, i):
             enc_at[i] = sum(x.numel() for x in imgs)

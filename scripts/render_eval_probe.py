@@ -1,7 +1,7 @@
-"""What the bf16 render stage's kernel (kernel 1, ``csrc/render_eval.cu``) is
-made of, on one NVIDIA GPU.
+"""What the render stage's kernel (kernels 1 and 1b, ``csrc/render_eval.cu``)
+is made of, on one NVIDIA GPU.
 
-    python3 scripts/render_eval_probe.py [--parent-source FILE]
+    python3 scripts/render_eval_probe.py [--parent-source FILE] [--variants A,B]
 
 Builds ``nerfmatch_tpu_torch/csrc/render_eval.cu`` once per variant below,
 each an edited copy of the source (``PATCHES``: every edit must match the
@@ -10,43 +10,54 @@ source exactly once), one ``nvcc`` each, all started together, into
 
 * ``shipped``: as the package builds it;
 * ``live_gate``: a warpgroup without a tile skips the ring waits and the
-  ``wgmma`` (a test of ``live`` around them; shipped, it multiplies on
+  bf16 ``wgmma`` (a test of ``live`` around them; shipped, it multiplies on
   whatever it holds);
-* ``no_mma``: the products issue no ``wgmma`` (the ring, the encoding,
-  the epilogues and the compositing stay);
+* ``no_mma``: the products issue no ``wgmma``, bf16 or s8 (the ring, the
+  encoding, the epilogues and the compositing stay);
 * ``no_ring``: no weight slices after the prologue and no waits for them
   (the products run on whatever the slots hold);
 * ``bare``: neither (what remains: the encoding, the epilogues, the
   compositing, the barriers and the tile turnover);
 * ``no_tap``: the fine stage skips the tap layer's second pass (its slices
   and its product; the descriptor sums read the views' accumulator);
-* ``ring_7_9``: 7 weight slots in the fine stage and 9 in the coarse (6 and
-  7 shipped);
-* ``ring_5``: 5 slots in both;
-* ``no_ipe``: the encoding skips its ``sinf`` / ``expf`` (it stores the
-  scaled means and variances instead);
-* ``no_epi``: the trunk's epilogues keep the registers they had (no bias,
-  ReLU or rounding into the next layer's A);
+* ``ring_7_9``: 7 weight slots in the bf16 fine stage and 9 in the coarse
+  stages (6 and 7 shipped);
+* ``ring_5``: 5 slots in every stage;
+* ``int8_ring_6``: 6 slots in the int8 fine stage (4 shipped; its shared
+  memory then leaves the L1 cache 28 KB instead of 60);
+* ``no_kinit``: the first s8 product of a chain reads its accumulator
+  (``wgmma_rs8`` / ``wgmma_ss8`` without ``kInit``), so the compiler keeps
+  the old values live until it;
+* ``no_fence``: the int8 epilogues without ``fence8``'s ``__syncwarp``
+  (their row loads may all be issued at once);
+* ``no_ipe``: the bf16 encoding skips its ``sinf`` / ``expf`` (it stores
+  the scaled means and variances instead);
+* ``no_epi``: the bf16 trunk's epilogues keep the registers they had (no
+  bias, ReLU or rounding into the next layer's A);
 * ``pair_sync``: one block barrier every second weight slice, refilling
-  two slots at it;
-* ``slice64``: 64-row weight slices (3 slots in the fine stage, 5 in the
-  coarse), the encoding rows padded to 128, from images of their own
-  (``images64``).
+  two slots at it.
 
 Then, on phase 3's stages of ``chip_smoke.py`` (the room's MLPs, 9216 rays x
 128 samples, the fine stage's z from the plain coarse stage's weights), it
 runs ``render_stage`` with each build's library in place of the package's,
-coarse and fine at eps 0 and 1e-4, three times each under
-``torch.profiler``, and prints the device ms of ``render_eval_kernel`` a
-call, one JSON line per variant after each build's ptxas lines
-(registers, spills, and any note that ``wgmma`` was serialized) and the
-card's name and power limit.  The shipped build's outputs must equal the
-package's bit for bit; so should those of ``live_gate``, the ring depths,
-``pair_sync`` and ``slice64`` (``same_bits``); the others compute something else and
-are only timed.  ``--parent-source FILE``: also build FILE, an earlier
-``render.cu`` whose ``nm_render_forward`` runs the bf16 stages (e.g.
-``git show <parent>:nerfmatch_tpu_torch/csrc/render.cu``), and time it on
-the same inputs with the fragments it reads.  Compare within one run only.
+coarse and fine with a bf16 trunk at eps 0 and 1e-4, and for ``shipped``,
+``no_mma`` and ``bare`` also phase 3d's int8 stages (scales from the first
+1024 rays; the coarse stage of ``'coarse'`` and the fine stages of
+``'both'`` and ``'posttap'``, their z from the plain int8 coarse stage),
+three times each under ``torch.profiler``, and prints the device ms of
+``render_eval_kernel`` a call, one JSON line per variant after each build's
+ptxas lines (registers, spills, and any note that ``wgmma`` was serialized)
+and the card's name and power limit.  The shipped build's outputs must
+equal the package's bit for bit; so should those of ``live_gate``, the
+ring depths and ``pair_sync`` on the bf16 stages (``same_bits``); the
+others compute something else and are only timed.  ``--parent-source
+FILE``: also build FILE, an earlier ``render.cu`` (its ``nm_render_forward``
+runs the int8 stages on ``mma.sync``), with the headers beside it (e.g.
+``git archive <parent> nerfmatch_tpu_torch/csrc`` unpacked, FILE its
+``render.cu``), and time its int8 stages on the same inputs with the
+fragments it reads (``parent_fragments``), its error against the package's
+at eps 1e-4 beside.  ``--variants``: build and time only these (comma
+separated; each build takes minutes).  Compare within one run only.
 """
 
 from __future__ import annotations
@@ -66,9 +77,11 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke  # noqa: E402
+from nerfmatch_tpu_torch.nerf.model import eval_feat_layer  # noqa: E402
 from nerfmatch_tpu_torch.ops import kernels  # noqa: E402
 from nerfmatch_tpu_torch.ops.kernels import render_kernel as rk  # noqa: E402
-from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk  # noqa: E402
+from nerfmatch_tpu_torch.ops.kernels.quant import (  # noqa: E402
+    calibrate_act_scales, pack_mlp_int8)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (  # noqa: E402
     resample_z_plain)
 from train_bwd_probe import build_variants, profile_ms  # noqa: E402
@@ -77,130 +90,174 @@ SRC = "render_eval.cu"
 ENTRIES = ("nm_render_eval_forward", "nm_render_eval_smem")
 _SS = "        wgmma_ss<N, 0>(acc, desc128(enc_w + (ks >> 2) * L::kEncBlock"
 _RS = "        wgmma_rs<N, 1>(acc, a[s * KK + kk], desc128("
+_RS8 = """      wgmma_rs8<N, s == 0>(acc, a[2 * s], desc64(slot), 1);
+      wgmma_rs8<N>(acc, a[2 * s + 1], desc64(slot + 32), 1);
+"""
+_SS8 = """      wgmma_ss8<N, NH + s == 0>(acc, desc128(xq_w + 64 * s, 16), desc64(slot), 1);
+      if constexpr (s == 0)   // encoding k32 steps 0-1, then 2
+        wgmma_ss8<N>(acc, desc128(xq_w + 32, 16), desc64(slot + 32), 1);
+"""
+_SKIP8 = """          wgmma_ss8<64, true>(accs, desc128(xq_w, 16), desc64(e0 + nb * 4096), 0);
+          wgmma_ss8<64>(accs, desc128(xq_w + 32, 16), desc64(e0 + nb * 4096 + 32), 1);
+          wgmma_ss8<64>(accs, desc128(xq_w + 64, 16), desc64(e1 + nb * 4096), 1);
+"""
 _IPE = """        const float damp = expf(-0.5f * y);
         const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
                                     __float2bfloat16(damp * sinf(x + kHalfPi))};
 """
-_RING = "static constexpr int kRing = FINE && HID > 64 ? 6 : 7;"
-_Q = """  const int Q = FINE ? Qt + 2 * KS + (tap_enc ? kEncSlices : 0) + (feat_layer > 0 ? KS : 0)
-                     : Qt;
+_RING = "static constexpr int kRing = FINE && HID > 64 ? (Q8 ? 4 : 6) : 7;"
+_WAIT = """    mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
+    wgmma_fence();
 """
-_WAIT = """      mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
-      wgmma_fence();
-"""
-_END = """      wgmma_commit();
-      wgmma_wait<1>();
+_END = """    wgmma_commit();
+    wgmma_wait<1>();
 """
 # Variants that compute what the package computes: their outputs are
 # compared with it bit for bit ("same_bits").
-SAME_BITS = ("shipped", "live_gate", "ring_7_9", "ring_5", "pair_sync",
-             "slice64")
+SAME_BITS = ("shipped", "live_gate", "ring_7_9", "ring_5", "int8_ring_6",
+             "pair_sync", "no_kinit", "no_fence")
+# Variants whose int8 stages are timed too.
+INT8_VARIANTS = ("shipped", "no_mma", "bare", "int8_ring_6", "no_kinit",
+                 "no_fence")
 PATCHES = {
     "shipped": [],
     "live_gate": [
-        ("  auto product = [&](auto ne_c",
-         "  bool live_p = false;\n  auto product = [&](auto ne_c"),
+        ("  auto begin = [&]() {", "  bool live_p = false;\n  auto begin = [&]() {"),
         ("    const bool live = tile >= 0;   // this warpgroup has a chunk\n",
          "    const bool live = tile >= 0;\n    live_p = live;\n"),
-        (_WAIT, "      if (live_p) {\n" + _WAIT.replace("\n      ", "\n        ")
-         .replace("      mbar", "        mbar", 1) + "      }\n"),
-        (_END, "      if (live_p) {\n" + _END.replace("      wgmma", "        wgmma")
-         + "      }\n"),
+        (_WAIT, "    if (live_p) {\n" + _WAIT.replace("\n    ", "\n      ")
+         .replace("    mbar", "      mbar", 1) + "    }\n"),
+        (_END, "    if (live_p) {\n" + _END.replace("    wgmma", "      wgmma")
+         + "    }\n"),
         (_SS, _SS.replace("wgmma_ss", "if (live_p) wgmma_ss")),
         (_RS, _RS.replace("wgmma_rs", "if (live_p) wgmma_rs")),
-        ("    wgmma_wait<0>();\n  };", "    if (live_p) wgmma_wait<0>();\n  };")],
+        ("      end();\n    }\n    wgmma_wait<0>();\n  };\n  // The same for s8",
+         "      end();\n    }\n    if (live_p) wgmma_wait<0>();\n  };\n  // The same for s8")],
     "no_mma": [(_SS, "        (void)slot;\n        if (0) " + _SS.lstrip()),
-               (_RS, "        if (0) " + _RS.lstrip())],
-    "no_ring": [("      if (tid == 0) load_slice(q + R - 2);\n", ""),
-                ("      mbar_wait(full0 + 8 * (q % R), (q / R) & 1);\n", ""),
+               (_RS, "        if (0) " + _RS.lstrip()),
+               (_RS8, "      (void)slot;\n"),
+               (_SS8, "      (void)slot;\n"),
+               (_SKIP8, "          (void)e0;\n          (void)e1;\n")],
+    "no_ring": [("    if (tid == 0) load_slice(q + R - 2);\n", ""),
+                ("    mbar_wait(full0 + 8 * (q % R), (q / R) & 1);\n", ""),
                 ("  if (tid == 0)\n    for (int s = q; s < q + R - 2; ++s) "
                  "mbar_wait(full0 + 8 * (s % R), (s / R) & 1);\n", "")],
     "bare": [],   # no_mma's and no_ring's edits, filled in below
-    "no_tap": [(_Q, "  const int Q = FINE ? Qt + 2 * KS : Qt;\n"),
-               ("      layer_product(feat_layer);\n", "")],
-    "ring_7_9": [(_RING, _RING.replace("? 6 : 7", "? 7 : 9"))],
-    "ring_5": [(_RING, _RING.replace("? 6 : 7", "? 5 : 5"))],
+    "no_tap": [("  const int Q = FINE ? Qt + 2 * KS + n_slices(feat_layer) : Qt;\n",
+                "  const int Q = FINE ? Qt + 2 * KS : Qt;\n"),
+               ("      if (tap8)\n        q8_layer(feat_layer);\n      else\n"
+                "        layer_product(feat_layer);\n", "")],
+    "ring_7_9": [(_RING, _RING.replace("(Q8 ? 4 : 6) : 7", "(Q8 ? 4 : 7) : 9"))],
+    "ring_5": [(_RING, _RING.replace("(Q8 ? 4 : 6) : 7", "5 : 5"))],
+    "int8_ring_6": [(_RING, _RING.replace("(Q8 ? 4 : 6)", "6"))],
+    "no_kinit": [
+        ("wgmma_rs8<N, s == 0>(acc, a[2 * s], desc64(slot), 1);",
+         "wgmma_rs8<N>(acc, a[2 * s], desc64(slot), s != 0);"),
+        ("wgmma_ss8<N, NH + s == 0>(acc, desc128(xq_w + 64 * s, 16), desc64(slot), 1);",
+         "wgmma_ss8<N>(acc, desc128(xq_w + 64 * s, 16), desc64(slot), NH + s != 0);"),
+        ("wgmma_ss8<64, true>(accs,", "wgmma_ss8<64>(accs,")],
+    "no_fence": [
+        ("    if (Q8 && j > 0 && (j & 7) == 0) __syncwarp();", "    (void)j;"),
+        ("          __syncwarp();   // fence8's point: this block's row loads stay here\n", "")],
     "no_ipe": [(_IPE, _IPE.replace("damp * sinf(x)", "x").replace(
         "damp * sinf(x + kHalfPi)", "y"))],
-    "no_epi": [("            a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);\n", "")],
-    "slice64": [
-        ("constexpr int kSliceK = 32;", "constexpr int kSliceK = 64;"),
-        ("constexpr int kEncSlices = kEncMax / kSliceK;",
-         "constexpr int kEncSlices = (kEncMax + kSliceK - 1) / kSliceK;"),
-        (_RING, _RING.replace("? 6 : 7", "? 3 : 5")),
-        ("static_assert(HID % 64 == 0 && KS >= 2,", "static_assert(HID % 64 == 0 && KS >= 1,"),
-        ("""  for (int i = tid; i < 2 * kWgRows * (kEncMax - enc_dim); i += kEvalThreads) {
-    const int row = i / (kEncMax - enc_dim), k = enc_dim + i % (kEncMax - enc_dim);""",
-         """  for (int i = tid; i < 2 * kWgRows * (128 - enc_dim); i += kEvalThreads) {
-    const int row = i / (128 - enc_dim), k = enc_dim + i % (128 - enc_dim);""")],
+    "no_epi": [("              a[j >> 1][2 * (j & 1) + h] = pack_bf16(v0, v1);\n"
+                "              if (last)\n", "              if (last)\n")],
     "pair_sync": [
         ("    for (int s = 0; s < R - 2; ++s) load_slice(s);",
          "    for (int s = 0; s < R - 3; ++s) load_slice(s);"),
-        ("""      __syncthreads();   // batch q - 2 done everywhere: its slot is free
-      if (tid == 0) load_slice(q + R - 2);
-""", """      if ((q & 1) == 0) {
-        __syncthreads();   // batches q - 3 and q - 2 done everywhere
-        if (tid == 0) {
-          load_slice(q + R - 3);
-          load_slice(q + R - 2);
-        }
+        ("""    __syncthreads();   // batch q - 2 done everywhere: its slot is free
+    if (tid == 0) load_slice(q + R - 2);
+""", """    if ((q & 1) == 0) {
+      __syncthreads();   // batches q - 3 and q - 2 done everywhere
+      if (tid == 0) {
+        load_slice(q + R - 3);
+        load_slice(q + R - 2);
       }
+    }
 """),
         ("    for (int s = q; s < q + R - 2; ++s) mbar_wait(",
          "    for (int s = q; s < q + R - 3 + (q & 1); ++s) mbar_wait(")],
 }
-
-
-def images64(mlp):
-    """``forward_images`` for 64-row slots, the encoding rows padded to 128
-    (two slots): the ``slice64`` variant's weights."""
-    cfg = mlp.cfg
-    enc, hid = cfg.xyz_dim, cfg.hid_dim
-
-    def img(w, k=None, n=None):
-        wt = w.detach().t()
-        wt = torch.nn.functional.pad(wt, (0, (n or wt.shape[1]) - wt.shape[1],
-                                          0, (k or wt.shape[0]) - wt.shape[0]))
-        return rtk.slot_images(wt, rows=64).reshape(-1)
-
-    imgs = []
-    for i, lin in enumerate(mlp.pts_linears):
-        w = lin.weight
-        if i == 0 or (i - 1) in cfg.skips:
-            imgs.append(img(w[:, :enc], k=128))
-        if i > 0:
-            imgs.append(img(w[:, enc:] if (i - 1) in cfg.skips else w))
-    imgs += [img(mlp.feature_linear.weight),
-             img(mlp.views_linears[0].weight[:, :hid], n=max(hid // 2, 64))]
-    return torch.cat(imgs)
-
-
 PATCHES["bare"] = PATCHES["no_mma"] + PATCHES["no_ring"]
 
+# The parent kernel's C entry (render.cu's nm_render_forward): params, int8
+# params, n_rays, hid, layer_num, feat_layer, int8_from, num_freqs,
+# dirs_freqs, samples, var_scale, log_eps, white_bg, fine, out pointers x6,
+# int8 debug output, stream.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PARENT_ENTRY = [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P,
+                _P, _P, _P, _P, _P, _P]
 
-# Variants that read other weight images than pack_mlp's.
-IMAGES = {"slice64": images64}
+
+def _fragments(w, k_step):
+    """(K, N) ``in x out`` weight -> the parent's mma.sync B fragments:
+    bf16 m16n8k16 (k_step 16) or s8 m16n8k32 (k_step 32), K zero-padded to
+    k_step; entry [ks, nt, lane, r] holds w[k .. k + 32 / k_step - 1, n] with
+    k = k_step ks + k_step / 2 r + (k_step / 8) (lane % 4), n = 8 nt + lane
+    // 4."""
+    K, N = w.shape
+    e = k_step // 8                                 # elements a register
+    w = torch.nn.functional.pad(w, (0, 0, 0, (-K) % k_step))
+    w = w.to(torch.bfloat16 if k_step == 16 else torch.int8)
+    w = w.reshape(-1, 2, 4, e, N // 8, 8).permute(0, 4, 5, 2, 1, 3).contiguous()
+    return w.view(torch.int32).reshape(-1, N // 8, 32, 2)
+
+
+def parent_fragments(mlp, q):
+    """The parent kernel's (params, int8 params) for ``mlp`` and its int8
+    trunk ``q`` (quant.pack_mlp_int8), in its C entry's order."""
+    cfg, L = mlp.cfg, mlp.cfg.layer_num
+    t = lambda w: w.detach().t().contiguous()
+    out = []
+    for i, lin in enumerate(mlp.pts_linears):
+        w = t(lin.weight)
+        parts = ((w, None) if i == 0 else (w[:cfg.xyz_dim], w[cfg.xyz_dim:])
+                 if i - 1 in cfg.skips else (None, w))
+        out += [None if p is None else _fragments(p, 16) for p in parts]
+        out.append(lin.bias.detach().contiguous())
+    wv = t(mlp.views_linears[0].weight)
+    out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
+            mlp.alpha_linear.bias.detach().contiguous(),
+            _fragments(t(mlp.feature_linear.weight), 16),
+            mlp.feature_linear.bias.detach().contiguous(),
+            _fragments(wv[:cfg.hid_dim], 16), wv[cfg.hid_dim:].contiguous(),
+            mlp.views_linears[0].bias.detach().contiguous(),
+            t(mlp.rgb_linear.weight), mlp.rgb_linear.bias.detach().contiguous()]
+    qptrs = []
+    for i in range(L):
+        pre, bias = ("s", f"b{i}") if i == L - 1 else ("c", f"B{i}")
+        row = lambda k: _fragments(q[k], 32) if k[0] == "w" and k in q else q.get(k)
+        keys = (f"w{i}q", f"w{i}sq", f"{pre}{i}", f"{pre}{i}s", bias)
+        qptrs += [row(k) if i >= q["start"] else None for k in keys]
+    tap = q["tap"]
+    qptrs += [q["qenc"], q.get("qh"), q.get(f"iq{tap}") if tap is not None else None]
+    return out, qptrs
 
 
 def parent_library(path):
-    """An earlier render.cu (its bf16 stages on mma.sync), built alone."""
+    """An earlier render.cu (its int8 stages on mma.sync) with the headers
+    beside it, built alone."""
     out_dir = ROOT / "build" / "render_eval_probe" / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "render.cu").write_text(Path(path).read_text())
+    for src in [Path(path), *Path(path).parent.glob("*.cuh")]:
+        (out_dir / src.name).write_text(src.read_text())
     so = out_dir / "render.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}", "-shared",
-           "-o", str(so), str(out_dir / "render.cu")]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
+           str(out_dir / Path(path).name)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc parent failed:\n{proc.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.nm_render_forward.argtypes = kernels._SIGNATURES["nm_render_forward"]
+    lib.nm_render_forward.argtypes = PARENT_ENTRY
     lib.nm_render_forward.restype = ctypes.c_int
     return lib
 
 
-def run_parent(lib, mlp, rays, z, fine, eps, frags):
-    """The earlier kernel's bf16 stage (nm_render_forward, no int8 trunk)."""
+def run_parent(lib, mlp, rays, z, fine, eps, q, packed):
+    """The earlier kernel's int8 stage (nm_render_forward) on ``packed``
+    (:func:`parent_fragments`)."""
+    frags, qfrags = packed
     cfg, n, S = mlp.cfg, z.shape[0], z.shape[1] - 1
     f32 = dict(device=rays.device, dtype=torch.float32)
     out = [torch.empty(n, S, **f32), torch.empty(n, **f32), torch.empty(n, **f32)]
@@ -210,12 +267,14 @@ def run_parent(lib, mlp, rays, z, fine, eps, frags):
     ptr = lambda p: None if p is None else p.data_ptr()
     ptrs = (ctypes.c_void_p * (len(frags) + 2))(*map(ptr, frags), rays.data_ptr(),
                                                 z.data_ptr())
+    qarr = (ctypes.c_void_p * len(qfrags))(*map(ptr, qfrags))
     outs = [o.data_ptr() for o in out] + [None] * (6 - len(out))
     err = lib.nm_render_forward(
-        ptrs, None, n, cfg.hid_dim, cfg.layer_num, 3, -1, 15, 4, S, 1.0,
+        ptrs, qarr, n, cfg.hid_dim, cfg.layer_num, 3, q["start"], 15, 4, S, 1.0,
         math.log(eps) if eps > 0 else -math.inf, 0, int(fine), *outs, None,
         kernels.stream_ptr(rays.device))
     kernels.check(err, "render (parent)")
+    return out
 
 
 def ptxas_lines(log):
@@ -233,31 +292,46 @@ def ptxas_lines(log):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--parent-source", help="an earlier render.cu to time too")
+    p.add_argument("--parent-source",
+                   help="an earlier render.cu (headers beside it) to time too")
+    p.add_argument("--variants", help="comma-separated variants (default all)")
     args = p.parse_args()
     smi = chip_smoke.phase_environment()
     dev = torch.device("cuda", 0)
-    libs = build_variants(PATCHES, "render_eval_probe", SRC, ENTRIES)
+    names = args.variants.split(",") if args.variants else list(PATCHES)
+    libs = build_variants({n: PATCHES[n] for n in names}, "render_eval_probe",
+                          SRC, ENTRIES)
     parent = parent_library(args.parent_source) if args.parent_source else None
     renderer = chip_smoke.load_room_renderer(dev)
+    cmlp, fmlp = renderer.nerf_coarse, renderer.nerf_fine
     rays = chip_smoke.camera_rays(chip_smoke.room_c2w(0.4), 96, dev)
     t = torch.linspace(0.0, 1.0, 129, device=dev)
     z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
     kw = dict(num_freqs=15, dirs_freqs=4)
-    cases = []
+    tap = eval_feat_layer(fmlp.cfg)
+    cases, cases8 = [], []   # (label, eps, mlp, z, fine, int8 trunk)
     with torch.no_grad():
+        scales = calibrate_act_scales(renderer, rays[:1024])
+        qs = {"coarse": (cmlp, False, pack_mlp_int8(cmlp, scales["coarse"], 0)),
+              "both": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"], 0, tap)),
+              "posttap": (fmlp, True, pack_mlp_int8(fmlp, scales["fine"],
+                                                    tap + 1, tap))}
         for eps in (0.0, 1e-4):
-            w = rk.render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
+            w = rk.render_stage_plain(cmlp, rays, z, fine=False,
                                       early_term_eps=eps, **kw)["weights"]
             zf = resample_z_plain(z, w).contiguous()
-            cases += [("coarse", eps, renderer.nerf_coarse, z, False),
-                      ("fine", eps, renderer.nerf_fine, zf, True)]
-        packed = {id(m): rk.pack_mlp(m) for m in (renderer.nerf_coarse,
-                                                  renderer.nerf_fine)}
-        ref = {(name, eps): rk.render_stage(mlp, rays, zz, fine=fine,
-                                            early_term_eps=eps,
-                                            packed=packed[id(mlp)], **kw)
-               for name, eps, mlp, zz, fine in cases}
+            cases += [("coarse", eps, cmlp, z, False, None),
+                      ("fine", eps, fmlp, zf, True, None)]
+            w = rk.render_stage_plain(cmlp, rays, z, fine=False, early_term_eps=eps,
+                                      int8=qs["coarse"][2], **kw)["weights"]
+            zf = resample_z_plain(z, w).contiguous()
+            cases8 += [(f"{mode}_int8", eps, mlp, zf if fine else z, fine, q)
+                       for mode, (mlp, fine, q) in qs.items()]
+        packed = {(id(mlp), id(q)): rk.pack_mlp(mlp, q)
+                  for _, _, mlp, _, _, q in cases + cases8}
+        ref = {(name, eps): rk.render_stage(mlp, rays, zz, fine=fine, early_term_eps=eps,
+                                            int8=q, packed=packed[id(mlp), id(q)], **kw)
+               for name, eps, mlp, zz, fine, q in cases + cases8}
     for name in libs:
         log = (ROOT / "build" / "render_eval_probe" / name / "build.log").read_text()
         for line in ptxas_lines(log):
@@ -268,13 +342,11 @@ def main():
         for name, lib in libs.items():
             kernels._LIB = lib
             row = {"variant": name}
-            for stage, eps, mlp, zz, fine in cases:
-                pk = packed[id(mlp)]
-                if name in IMAGES:
-                    pk = [IMAGES[name](mlp), *pk[1:]]
+            for stage, eps, mlp, zz, fine, q in cases + (
+                    cases8 if name in INT8_VARIANTS else []):
                 call = lambda: rk.render_stage(mlp, rays, zz, fine=fine,
-                                               early_term_eps=eps, packed=pk,
-                                               **kw)
+                                               early_term_eps=eps, int8=q,
+                                               packed=packed[id(mlp), id(q)], **kw)
                 with torch.no_grad():
                     if name in SAME_BITS:
                         out = call()
@@ -287,12 +359,18 @@ def main():
             print(json.dumps(row), flush=True)
         if parent is not None:
             row = {"variant": "parent (render.cu, mma.sync)"}
-            frags = {id(m): rk.pack_mlp_fragments(m) for m in (
-                renderer.nerf_coarse, renderer.nerf_fine)}
-            for stage, eps, mlp, zz, fine in cases:
-                call = lambda: run_parent(parent, mlp, rays, zz, fine, eps,
-                                          frags[id(mlp)])
+            frags = {id(q): parent_fragments(mlp, q) for _, _, mlp, _, _, q in cases8}
+            for stage, eps, mlp, zz, fine, q in cases8:
+                call = lambda: run_parent(parent, mlp, rays, zz, fine, eps, q,
+                                          frags[id(q)])
                 with torch.no_grad():
+                    if eps > 0:   # the same function as the package's stage
+                        out = call()
+                        keys = ["weights", "depth", "acc", "rgb", "feat", "pts"]
+                        err = max(float((o - ref[stage, eps][k]).abs().max())
+                                  / max(1.0, float(ref[stage, eps][k].abs().max()))
+                                  for o, k in zip(out, keys))
+                        row[f"{stage}_scaled_err"] = float(f"{err:.3e}")
                     ms = profile_ms(call, {"render_kernel": "k"})
                 row[f"{stage}_eps{eps:g}"] = round(ms["k"], 4)
             print(json.dumps(row), flush=True)

@@ -95,10 +95,10 @@ def test_render_kernel_matches_plain(dev, hid, eps):
     assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 1
 
 
-def opaque_case(hid, dev, n, seed=1):
+def opaque_renderer(hid, dev, n, seed=1):
     """A denser field (the fine MLP's alpha bias up by 4 more) and far
     planes spread over 0.3-6: at eps 1e-4 tiles die after one, two or three
-    32-sample blocks, or run to the end."""
+    32-sample blocks, or run to the end.  -> (renderer, rays, z)."""
     r = renderer(hid, dev)
     with torch.no_grad():
         r.nerf_fine.alpha_linear.bias += 4.0
@@ -107,7 +107,26 @@ def opaque_case(hid, dev, n, seed=1):
     rays[:, 7] = (0.3 + 5.7 * torch.rand(n, generator=g)).to(dev)
     t = torch.linspace(0, 1, 129, device=dev)
     z = (rays[:, 6:7] * (1 - t) + rays[:, 7:8] * t).contiguous()
-    return r.nerf_fine, rays, z
+    return r, rays, z
+
+
+def stage_trunks(r, rays, trunk):
+    """The int8 trunks of the fine MLP's coarse and fine stages in mode
+    ``trunk`` (the coarse stage from layer 0; 'both': the fine stage from
+    layer 0, 'posttap': after its tap layer), scales calibrated from these
+    rays -> {fine: int8 trunk}; both None for 'bf16'."""
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_mlp_int8)
+
+    if trunk == "bf16":
+        return {False: None, True: None}
+    mlp = r.nerf_fine
+    scales = calibrate_act_scales(r, rays)["fine"]
+    tap = eval_feat_layer(mlp.cfg)
+    return {False: pack_mlp_int8(mlp, scales, 0),
+            True: pack_mlp_int8(mlp, scales,
+                                0 if trunk == "both" else tap + 1, tap)}
 
 
 def scaled_max_err(a, b):
@@ -118,34 +137,41 @@ def scaled_max_err(a, b):
 
 
 @pytest.mark.cuda
-def test_render_eval_zero_weights_match_early_term_mask(dev):
-    """At eps 1e-4 the bf16 kernel skips the blocks early_term_mask marks on
-    the plain version's alpha: its weights there are exact zeros, and a
-    (tile, block) the mask keeps is all-zero in the kernel's weights only
-    where it is all-zero in the plain version's."""
-    mlp, rays, z = opaque_case(256, dev, 512)
+@pytest.mark.parametrize("trunk", ["bf16", "both", "posttap"])
+def test_render_eval_zero_weights_match_early_term_mask(dev, trunk):
+    """At eps 1e-4 the kernel (a bf16 trunk, or the int8 trunk of
+    ``trunk``) skips the blocks early_term_mask marks on the plain version's
+    alpha: its weights there are exact zeros, and a (tile, block) the mask
+    keeps is all-zero in the kernel's weights only where it is all-zero in
+    the plain version's."""
+    r, rays, z = opaque_renderer(256, dev, 512)
+    mlp, q8 = r.nerf_fine, stage_trunks(r, rays, trunk)
     kw = dict(num_freqs=15, dirs_freqs=4)
-    mask = early_term_mask(stage_alpha_plain(mlp, rays, z, **kw), 1e-4)
-    assert 0.1 < float(mask.float().mean()) < 0.9
     tile_zero = lambda w: (w.reshape(-1, 2, 4, 32) == 0).all(-1).all(1)
-    kept = ~mask.reshape(-1, 2, 4, 32)[:, 0, :, 0]
     with torch.no_grad():
         for fine in (False, True):
+            mask = early_term_mask(stage_alpha_plain(mlp, rays, z,
+                                                     int8=q8[fine], **kw), 1e-4)
+            assert 0.1 < float(mask.float().mean()) < 0.9
+            kept = ~mask.reshape(-1, 2, 4, 32)[:, 0, :, 0]
             a = render_stage(mlp, rays, z, fine=fine, early_term_eps=1e-4,
-                             **kw)["weights"]
-            b = render_stage_plain(mlp, rays, z, fine=fine,
-                                   early_term_eps=1e-4, **kw)["weights"]
+                             int8=q8[fine], **kw)["weights"]
+            b = render_stage_plain(mlp, rays, z, fine=fine, early_term_eps=1e-4,
+                                   int8=q8[fine], **kw)["weights"]
             assert bool((a[mask] == 0).all())
             assert torch.equal(tile_zero(a) & kept, tile_zero(b) & kept)
 
 
 @pytest.mark.cuda
-def test_render_eval_is_deterministic(dev):
-    """Two launches of the bf16 kernel (fine stage, tiles dying at
-    different blocks, so the tile counter hands them out in another order)
-    give the same bits."""
-    mlp, rays, z = opaque_case(256, dev, 2048)
-    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+@pytest.mark.parametrize("trunk", ["bf16", "both", "posttap"])
+def test_render_eval_is_deterministic(dev, trunk):
+    """Two launches of the kernel (fine stage, a bf16 trunk or the int8
+    trunk of ``trunk``, tiles dying at different blocks, so the tile counter
+    hands them out in another order) give the same bits."""
+    r, rays, z = opaque_renderer(256, dev, 2048)
+    mlp, q8 = r.nerf_fine, stage_trunks(r, rays, trunk)
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4,
+              int8=q8[True])
     with torch.no_grad():
         a = render_stage(mlp, rays, z, **kw)
         b = render_stage(mlp, rays, z, **kw)
@@ -154,33 +180,40 @@ def test_render_eval_is_deterministic(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["bf16", "both", "posttap"])
 @pytest.mark.parametrize("n", ["3600", "one_extra_tile", "3_tiles"])
-def test_render_eval_ragged_grids_match_plain(dev, n):
+def test_render_eval_ragged_grids_match_plain(dev, n, trunk):
     """Ray counts that leave a warpgroup without a tile: 3600 (a scene-point
     grid), 2 x (2 x SMs) + 2 (one tile beyond the first round) and 6 (a
-    block with one tile); coarse and fine at eps 1e-4 against the plain
-    version at 5e-3 scaled, every output finite."""
+    block with one tile); coarse and fine (a bf16 trunk, or the int8 trunk
+    of ``trunk``) at eps 1e-4 against the plain version at 5e-3 scaled,
+    every output finite."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n = {"3600": 3600, "one_extra_tile": 2 * (2 * sms) + 2, "3_tiles": 6}[n]
-    mlp, rays, z = opaque_case(256, dev, n)
+    r, rays, z = opaque_renderer(256, dev, n)
+    mlp, q8 = r.nerf_fine, stage_trunks(r, rays, trunk)
     kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
     with torch.no_grad():
         for fine in (False, True):
-            a = render_stage(mlp, rays, z, fine=fine, **kw)
-            b = render_stage_plain(mlp, rays, z, fine=fine, **kw)
+            a = render_stage(mlp, rays, z, fine=fine, int8=q8[fine], **kw)
+            b = render_stage_plain(mlp, rays, z, fine=fine, int8=q8[fine], **kw)
             assert all(bool(torch.isfinite(v).all()) for v in a.values())
             assert scaled_max_err(a, b) < 5e-3, fine
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["bf16", "both", "posttap"])
 @pytest.mark.parametrize("hid", [64, 256])
-def test_render_eval_tap_recompute_is_exact(dev, hid):
+def test_render_eval_tap_recompute_is_exact(dev, hid, trunk):
     """The fine stage runs the tap layer twice (the descriptor is composited
     once the weights are known): the second pass's activations equal the
     first's bit for bit, the debug build's outputs equal the shipped
-    build's within 5e-3 scaled."""
-    mlp, rays, z = opaque_case(hid, dev, 1024)
-    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    build's within 5e-3 scaled; a bf16 trunk, and the int8 trunk of
+    ``trunk`` (its tap layer s8 in 'both', bf16 in 'posttap')."""
+    r, rays, z = opaque_renderer(hid, dev, 1024)
+    mlp, q8 = r.nerf_fine, stage_trunks(r, rays, trunk)
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4,
+              int8=q8[True])
     with torch.no_grad():
         a = render_stage(mlp, rays, z, debug_tap=True, **kw)
         b = render_stage(mlp, rays, z, **kw)

@@ -30,9 +30,9 @@ from nerfmatch_tpu_torch.nerf import rays as trays
 from nerfmatch_tpu_torch.nerf import sampling as tsamp
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.nerf.scene import rays_intersect_sphere as t_isect
+from nerfmatch_tpu_torch.ops.kernels.quant import PERM32, slot_images_s8
 from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
-    early_term_mask, mlp_plain, pack_fragments, pack_mlp, pack_mlp_fragments,
-    render_stage_plain)
+    early_term_mask, mlp_plain, pack_mlp, render_stage_plain, stream_bytes)
 from nerfmatch_tpu_torch.ops.kernels.resample_kernel import resample_z
 from nerfmatch_tpu_torch.train.checkpoint import (load_npz_params,
                                                   state_dict_from_jax)
@@ -252,21 +252,43 @@ def test_fused_plain_matches_render_rays(pair, monkeypatch):
         assert err.mean() < 1e-5 and np.quantile(err, 0.99) < 1e-4, (k, err.max())
 
 
-def test_pack_fragments_layout():
-    """Weight fragments hold w[k, n] (bf16, K zero-padded to 16) at
-    k = 16 ks + 8 r + 2 (lane % 4) + half, n = 8 nt + lane // 4: the B
-    operand layout of mma.m16n8k16 that csrc/render.cu loads."""
-    w = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(90, 64)).astype(np.float32))
-    frag = pack_fragments(w)
-    assert frag.shape == (6, 8, 32, 2) and frag.dtype == torch.int32
-    halves = frag.contiguous().view(torch.bfloat16).reshape(6, 8, 32, 2, 2)
-    ref = torch.cat([w, torch.zeros(6, 64)]).to(torch.bfloat16)
-    ks, nt, lane, r, h = np.meshgrid(*map(np.arange, halves.shape),
-                                     indexing="ij")
-    k = 16 * ks + 8 * r + 2 * (lane % 4) + h
-    n = 8 * nt + lane // 4
-    assert torch.equal(halves, ref[torch.from_numpy(k), torch.from_numpy(n)])
+# The K position of row k of a 32-row block in an s8 image fed from an
+# accumulator: the s32 accumulator gives a thread (q = lane % 4) columns
+# 8 j + 2 q (+ 1), its s8 A fragment takes k = 4 q + r and 16 + 4 q + r
+# (the wgmma .s8 register fragment, mma.sync m16n8k32's A), so position
+# 4 q + r (+ 16) holds row 8 (r // 2) + 2 q + r % 2 (+ 16).
+PI = np.array([16 * hi + 8 * (r // 2) + 2 * q + r % 2
+               for hi in (0, 1) for q in range(4) for r in range(4)])
+
+
+def unslot_s8(img, K, N, permute):
+    """A (K, N) int8 matrix back from its s8 slot images, the layout written
+    out here: row k sits at position k' (k' = k, or the 32-row block's
+    position p with PI[p] = k % 32 where ``permute``), in slot k' // 64,
+    column n (64 bytes each), 16-byte chunk ((k' % 64) // 16) ^ ((n // 2) %
+    4), byte k' % 16."""
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    pos = k // 32 * 32 + np.argsort(PI)[k % 32] if permute else k
+    off = (pos // 64 * 64 * N + n * 64
+           + (((pos % 64) // 16) ^ ((n // 2) % 4)) * 16 + pos % 16)
+    return img[torch.from_numpy(off)]
+
+
+@pytest.mark.parametrize("permute", [False, True])
+def test_pack_fragments_layout(permute):
+    """The int8 weights' slot images (slot_images_s8) hold w[k, n] (K
+    zero-padded to 64) in the layout the render kernel's s8 wgmma reads:
+    per 64-row slot K-major columns of 64 bytes in the 64-byte swizzle, the
+    rows of each 32-row block in PI's order where they are fed from an
+    accumulator; PERM32 is PI, a permutation."""
+    assert sorted(PI) == list(range(32))
+    assert torch.equal(PERM32, torch.from_numpy(PI))
+    w = torch.from_numpy(np.random.default_rng(0).integers(
+        -127, 128, size=(90, 64)).astype(np.int8))
+    img = slot_images_s8(w, permute)
+    assert img.shape == (128 * 64,) and img.dtype == torch.int8
+    assert torch.equal(unslot_s8(img, 128, 64, permute),
+                       torch.cat([w, torch.zeros(38, 64, dtype=torch.int8)]))
 
 
 def unslot(img, K, N):
@@ -327,11 +349,13 @@ def test_pack_mlp_slot_images_hold_the_weights(pair):
 
 @pytest.mark.parametrize("mode", ["none", "coarse", "both", "posttap"])
 def test_pack_fused_packs_each_stage_for_its_kernel(pair, mode, monkeypatch):
-    """On CUDA, pack_fused gives a stage that int8_plan quantizes the
-    mma.sync fragments beside its int8 trunk, and a bf16 stage the wgmma
-    kernel's slot images, each what packing that MLP alone gives (the
+    """On CUDA, pack_fused gives each stage the render kernel's weights for
+    its trunk: the bf16 slot images for a bf16 stage, and for a stage that
+    int8_plan quantizes the stream of its bf16 layers' images, its int8
+    trunk's s8 images and the heads' images (in bytes, as many as
+    stream_bytes says), each what pack_mlp of that MLP and trunk gives (the
     renderer presented as a CUDA one, its weights on the CPU); on the CPU
-    no bf16 weights at all."""
+    no kernel weights at all."""
     _, _, tr = pair
     r = NerfRenderer(nerf_config(trunk_int8=mode), stop_layer=3)
     r.load_state_dict(tr.state_dict())
@@ -343,8 +367,21 @@ def test_pack_fused_packs_each_stage_for_its_kernel(pair, mode, monkeypatch):
     packed = r.pack_fused()
     for (_, mlp), start, (w, q) in zip(r._stages(), r.int8_plan(), packed):
         assert (q is None) == (start is None)
-        ref = pack_mlp(mlp) if q is None else pack_mlp_fragments(mlp)
-        assert w[0].dtype == (torch.bfloat16 if q is None else torch.int32)
+        ref = pack_mlp(mlp, q)
+        assert w[0].dtype == (torch.bfloat16 if q is None else torch.uint8)
+        assert w[0].numel() * w[0].element_size() == stream_bytes(
+            mlp.cfg, None if q is None else q["start"])
+        if q is not None:   # [bf16 layers below start | s8 trunk | heads]
+            bf16 = pack_mlp(mlp)[0].view(torch.uint8)
+            hid, skips = mlp.cfg.hid_dim, mlp.cfg.skips
+            at = sum(2 * hid * (96 * (i == 0 or i - 1 in skips) + hid * (i > 0))
+                     for i in range(q["start"]))
+            heads = 2 * hid * (hid + max(hid // 2, 64))
+            n_img = q["img"].numel()
+            assert w[0].numel() == at + n_img + heads
+            assert torch.equal(w[0][:at], bf16[:at])
+            assert torch.equal(w[0][at:at + n_img], q["img"].view(torch.uint8))
+            assert torch.equal(w[0][at + n_img:], bf16[-heads:])
         assert len(w) == len(ref)
         for a, b in zip(w, ref):
             assert (a is None and b is None) or torch.equal(a, b)

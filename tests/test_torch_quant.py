@@ -1,6 +1,7 @@
 """The int8 serving trunk of the port against the JAX package on the CPU:
-activation-scale calibration, the int8 weight packing (rows and the
-de-fragmented mma.m16n8k32 weights), the two-stage fused render in every
+activation-scale calibration, the int8 weight packing (rows, and the
+weights unpacked from the render kernel's s8 slot images), the row order
+of those images, the two-stage fused render in every
 int8 mode (the port's plain versions against ``make_fused_hierarchical``
 in interpret mode), and the serving paths' resolution of the int8 mode.
 
@@ -26,9 +27,12 @@ from nerfmatch_tpu.ops.pallas.render_kernel import make_fused_hierarchical
 from nerfmatch_tpu_torch.nerf import renderer as trenderer
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.ops.kernels import quant as tquant
-from nerfmatch_tpu_torch.ops.kernels.render_kernel import render_stage_plain
+from nerfmatch_tpu_torch.models.layers import init_params_
+from nerfmatch_tpu_torch.ops.kernels.render_kernel import (mlp_plain,
+                                                           render_stage_plain)
 
-from test_torch_nerf import make_rays, nerf_config, pair, t  # noqa: F401
+from test_torch_nerf import (PI, make_rays, nerf_config, pair, t,  # noqa: F401
+                             unslot_s8)
 
 torch.set_num_threads(2)
 MODES = ("coarse", "both", "posttap")
@@ -65,6 +69,22 @@ def test_calibrate_act_scales_matches_jax(pair, calib):
                                        atol=1e-4 * float(np.max(b)))
 
 
+def unpack_images(q, layer_num):
+    """pack_mlp_int8's s8 slot images (``img``) split by matrix and
+    unpacked, PI undone for the hidden rows: {w{i}q | w{i}sq: (K, N)}."""
+    out, off = {}, 0
+    for i in range(q["start"], layer_num):
+        for k in (f"w{i}q", f"w{i}sq"):
+            if k in q:
+                K, N = q[k].shape
+                n = -(-K // 64) * 64 * N
+                out[k] = unslot_s8(q["img"][off:off + n], K, N,
+                                   permute=i > 0 and k == f"w{i}q")
+                off += n
+    assert off == q["img"].numel()
+    return out
+
+
 def _int8_equal(ours, ref):
     """int8 weights equal, except at most 1 LSB on < 0.1% of the entries."""
     d = np.abs(ours.astype(np.int32) - ref.astype(np.int32))
@@ -74,7 +94,7 @@ def _int8_equal(ours, ref):
 @pytest.mark.parametrize("mode", MODES)
 def test_pack_mlp_int8_matches_jax(pair, calib, mode):
     """Every row (qenc, qh, c, B, s, b, iq: rtol 1e-6) and int8 weight
-    (de-fragmented from the kernel's layout) of pack_mlp_int8 against
+    (unpacked from the kernel's s8 slot images) of pack_mlp_int8 against
     pack_mlp_weights_int8, for both stages of the mode; the encoding rows
     are padded to 96 here and to 128 in JAX, with zero weights and scale 1
     on the padded lanes on both sides."""
@@ -91,14 +111,15 @@ def test_pack_mlp_int8_matches_jax(pair, calib, mode):
             assert name == "fine" and mode == "coarse"
             assert not any(k.endswith("q") for k in jw)
             continue
-        keys = [k for k in q if k not in ("start", "tap", "frag")]
+        keys = [k for k in q if k not in ("start", "tap", "img")]
         assert keys and set(keys) <= set(jw), set(keys) - set(jw)
         assert not any(k.endswith("q") and k not in q for k in jw)
+        unpacked = unpack_images(q, tr.fine_cfg.layer_num)
+        assert set(unpacked) == {k for k in keys if k.startswith("w")}
         for k in keys:
             ref, got = np.asarray(jw[k]), q[k].numpy()
             if k.startswith("w"):
-                frag = tquant.unpack_fragments_s8(q["frag"][k], got.shape[0])
-                assert torch.equal(frag, q[k]), k
+                assert torch.equal(unpacked[k], q[k]), k
                 rows = min(got.shape[0], ref.shape[0])
                 _int8_equal(got[:rows], ref[:rows])
                 assert not ref[rows:].any() and not got[90:].any() \
@@ -107,6 +128,61 @@ def test_pack_mlp_int8_matches_jax(pair, calib, mode):
                 got, ref = got.reshape(-1), ref.reshape(-1)
                 np.testing.assert_allclose(got, ref[:got.size], rtol=1e-6,
                                            err_msg=k)
+
+
+@pytest.mark.parametrize("hid", [64, 256])
+@pytest.mark.parametrize("mode", MODES)
+def test_int8_slot_images_hold_the_weights(hid, mode):
+    """The s8 slot images pack_mlp_int8 gives for the render kernel (per
+    int8 layer its hidden rows, then its encoding rows) unpack, PI undone,
+    to its w{i}q / w{i}sq exactly, at both kernel widths (a seeded random
+    MLP, scales calibrated on 16 rays)."""
+    tr = init_params_(NerfRenderer(nerf_config(hid=hid), stop_layer=3),
+                      torch.Generator().manual_seed(hid)).eval()
+    sc = tquant.calibrate_act_scales(tr, t(make_rays(16, 5)))["fine"]
+    q = tquant.pack_mlp_int8(tr.nerf_fine, sc, 4 if mode == "posttap" else 0,
+                             None if mode == "coarse" else 3)
+    unpacked = unpack_images(q, tr.fine_cfg.layer_num)
+    assert set(unpacked) == {k for k in q if k[0] == "w"}
+    for k, w in unpacked.items():
+        assert w.abs().max() > 0 and torch.equal(w, q[k]), k
+
+
+@pytest.mark.parametrize("mode", ["coarse", "both"])
+def test_int8_stage_is_unchanged_by_the_pi_order(pair, calib, mode):
+    """The order the s8 images keep (PI in each 32-column block): with every
+    hidden layer's output columns (weights, scale, bias and tap rows) and
+    the next layer's hidden rows permuted by it, the plain int8 MLP gives
+    the same integer activations, permuted, and the same sigma, rgb and
+    tap (permuted) bit for bit: integer products in f32 are exact in any
+    order."""
+    jr, params, tr = pair
+    _, scales = calib
+    mlp, L, hid = tr.nerf_fine, tr.fine_cfg.layer_num, tr.fine_cfg.hid_dim
+    perm = torch.from_numpy(np.arange(hid) // 32 * 32 + PI[np.arange(hid) % 32])
+    tap = 3 if mode == "both" else None
+    q = tquant.pack_mlp_int8(mlp, to_torch_scales(scales)["fine"], 0, tap)
+    qp = dict(q)
+    for i in range(L - 1):
+        for k in (f"w{i}q", f"w{i}sq", f"c{i}", f"c{i}s", f"B{i}", f"iq{i}"):
+            if k in qp:
+                qp[k] = qp[k][:, perm]
+        qp[f"w{i + 1}q"] = qp[f"w{i + 1}q"][perm]
+    rng = np.random.default_rng(6)
+    enc = t(rng.uniform(-1, 1, size=(16, 5, mlp.cfg.xyz_dim)))
+    dirs = t(rng.normal(size=(16, 1, mlp.cfg.dirs_dim)))
+    d0, d1 = {}, {}
+    with torch.no_grad():
+        a = mlp_plain(mlp, enc, dirs, -1 if tap is None else tap, True,
+                      int8=q, debug=d0)
+        b = mlp_plain(mlp, enc, dirs, -1 if tap is None else tap, True,
+                      int8=qp, debug=d1)
+    assert torch.equal(d0["xq"], d1["xq"])
+    assert torch.equal(d0["hq"][..., perm], d1["hq"])
+    assert not torch.equal(d0["hq"], d1["hq"])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    if tap is not None:
+        assert torch.equal(a[2][..., perm], b[2])
 
 
 @pytest.mark.parametrize("mode", MODES)
