@@ -12,7 +12,11 @@ Phases (each prints its results; any failure exits non-zero):
    registers, spills and shared memory from the build) on 9216 rays of the
    room fixture at eps 0 and 1e-4 (at 1e-4 its zero weights against
    ``early_term_mask`` on the plain version's alpha), the resample on the
-   coarse weights, and attention at B=1, H=8,
+   coarse weights with the deterministic u and a stratified draw (each at
+   1e-5 and rerun bit-identical, with its C entry alone (launches queued
+   back to back on the device), the wrapper's host cost a call, and
+   ``torch.searchsorted`` on a cdf and u of the same shapes as a yardstick
+   of its lookup half), and attention at B=1, H=8,
    D=32, L=S=3600 in f32 and bf16-operand modes (the bf16 forward also
    against the one-pass plain version that rounds what the kernel rounds,
    its ``lse`` against ``torch.logsumexp``, and on earlier lines the
@@ -105,7 +109,8 @@ computing the same function where there is one
 autograd backward; none for the others).  The attention rows' lines also
 give ``exp_bound_ms``, the least time of their base-2 exponentials on the
 special-function units (at head_dim 32 it exceeds the tensor-core time).
-The last two lines are the kernel summary and ``{"ok": true, ...}``.
+The resample's ``launches`` are phase 4's, ``launches_training`` phase
+5's.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -163,6 +168,12 @@ INT8_EVAL_DESIGN = ("render_eval.cu's engine with the trunk from int8_from on "
                     "accumulator by a host-side row permutation, the "
                     "post-skip layer's encoding rows 64 columns at a time "
                     "into a second accumulator, unfused f32 epilogue")
+# What the resample runs since its redesign.
+RESAMPLE_DESIGN = ("16 lanes a ray (two rays a warp, one wave at 9216 rays), "
+                   "each weight loaded once into registers, blur neighbours "
+                   "by shuffles, chunk sums + butterfly weight sum, shuffle "
+                   "scan of the cdf into 1 KB of shared memory a ray, an "
+                   "unrolled 8-step binary search a bin")
 # The serving default (trunk_int8='coarse'), then the opt-in requests'.
 SERVING_KERNELS = ("render_coarse_int8", "render_fine", "resample",
                    "attention", "dw_star_fwd")
@@ -255,6 +266,92 @@ def cuda_ms(fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_alone_ms(launch, reps=50):
+    """Device time a call of ``launch`` (a C entry, no wrapper) takes back to
+    back: CUDA events around ``reps`` calls queued behind a 10 ms device
+    sleep, so the host's time never shows."""
+    launch()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        launch()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps=200):
+    """Host microseconds a call of ``fn`` takes to enqueue its work (the
+    device keeps up, so the launch queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def resample_row(z, w):
+    """Kernel 2 on the coarse weights of 9216 rays, with the deterministic
+    u (serving) and a stratified draw (training): the error against the
+    plain version (tol 1e-5), a rerun bit-identical, the wrapper's time
+    (``ms``), the C entry alone (``kernel_ms``), the wrapper's
+    host cost a call, and ``torch.searchsorted`` on a cdf and u of the same
+    shapes as a yardstick of the lookup half only (``lookup_library_ms``:
+    not the same function, so ``library_ms`` stays None)."""
+    from nerfmatch_tpu_torch.nerf.sampling import blur_weights, stratified_u
+    from nerfmatch_tpu_torch.ops import kernels
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z, resample_z_plain)
+
+    n, nb = z.shape
+    dev = z.device
+    u_strat = stratified_u(n, nb, torch.Generator(dev).manual_seed(0), dev)
+    pdf = blur_weights(w, 0.01)
+    pdf = pdf / pdf.sum(-1, keepdim=True)
+    cdf = torch.cat([torch.zeros_like(pdf[:, :1]),
+                     torch.cumsum(pdf[:, :-1], -1).clamp(max=1.0),
+                     torch.ones_like(pdf[:, :1])], -1)
+    lib, stream = kernels.library(), kernels.stream_ptr(dev)
+    out = torch.empty_like(z)
+    row = {}
+    for mode, u in (("deterministic", None), ("stratified", u_strat)):
+        a, b = resample_z(z, w, u=u), resample_z_plain(z, w, u=u)
+        err = float((a - b).abs().max())
+        same = torch.equal(a, resample_z(z, w, u=u))
+        u_ptr = None if u is None else u.data_ptr()
+        u_full = (torch.linspace(0.0, 1.0 - 2.0**-23, nb, device=dev)
+                  .expand(n, nb).contiguous() if u is None else u)
+        got = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: resample_z(z, w, u=u)),
+            kernel_ms=kernel_alone_ms(lambda: kernels.check(
+                lib.nm_resample_forward(z.data_ptr(), w.data_ptr(), u_ptr,
+                                        out.data_ptr(), n, nb, 0.01, stream),
+                "resample")),
+            host_us=host_us(lambda: resample_z(z, w, u=u)),
+            plain_ms=cuda_ms(lambda: resample_z_plain(z, w, u=u), 3),
+            library_ms=None,
+            lookup_library_ms=cuda_ms(lambda: torch.searchsorted(
+                cdf, u_full, right=True)),
+            **bound({}, nbytes(z, w, a, *([] if u is None else [u]))))
+        log(f"kernel resample, {mode} u: max_abs_err={err:.3e} (tol 1e-5) "
+            f"rerun bit-identical={same} ms={got['ms']:.4f} kernel_ms="
+            f"{got['kernel_ms']:.4f} host_us={got['host_us']:.1f} plain_ms="
+            f"{got['plain_ms']:.3f} bound_ms={got['bound_ms']:.4f} "
+            f"({got['bound_by']}) lookup_library_ms (searchsorted)="
+            f"{got['lookup_library_ms']:.4f}")
+        assert err < 1e-5 and same and bool(torch.isfinite(a).all())
+        if u is None:
+            row.update(design=RESAMPLE_DESIGN, **got)
+        else:
+            row[mode] = got
+    return row
 
 
 def room_c2w(ang):
@@ -388,7 +485,7 @@ def phase_kernels(renderer, dev):
         early_term_mask, pack_mlp, render_stage, render_stage_plain,
         stage_alpha_plain)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
-        resample_z, resample_z_plain)
+        resample_z_plain)
 
     rows = {}
     rays = camera_rays(room_c2w(0.4), 96, dev)          # 9216 rays, unit dirs
@@ -459,15 +556,7 @@ def phase_kernels(renderer, dev):
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
-    a, b = resample_z(z, w), resample_z_plain(z, w)
-    err = float((a - b).abs().max())
-    ms = cuda_ms(lambda: resample_z(z, w))
-    plain_ms = cuda_ms(lambda: resample_z_plain(z, w), 3)
-    rows["resample"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=None, **bound({}, nbytes(z, w, a)))
-    log(f"kernel resample: max_abs_err={err:.3e} (tol 1e-4) ms={ms:.3f} "
-        f"plain_ms={plain_ms:.3f} bound_ms={rows['resample']['bound_ms']:.4f}")
-    assert err < 1e-4
+    rows["resample"] = resample_row(z, w)
 
     g = torch.Generator(dev).manual_seed(0)
     q = torch.randn(1, 3600, 8, 32, device=dev, generator=g) / np.sqrt(32)
@@ -1840,9 +1929,14 @@ def main():
         phase_check(evaluator, results[0][0])
     del serving, evaluator, results
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_training(renderer, dev,
-                                                     args.seed).items()
-                     if k in ("render_train_fwd", "render_train_bwd")})
+    trained = phase_training(renderer, dev, args.seed)
+    launches.update({k: trained[k]
+                     for k in ("render_train_fwd", "render_train_bwd")})
+    # The resample runs on both paths: phase 4's count is the line's,
+    # phase 5's stands beside it.
+    rows["resample"]["launches_training"] = trained["resample"]
+    log(f"resample launches: serving {launches['resample']}, training "
+        f"{trained['resample']}")
     # The new kernels' counts come from matcher training, where all four run.
     match, bench = phase_matcher_training(renderer, nerf_cfg, dev, args.seed)
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})

@@ -106,13 +106,19 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples: int, u=None):
 
     pdf = weights / weight_sum
     cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
-                     torch.ones_like(cdf[..., :1])], dim=-1)
+    # The end columns take pdf's shape: with one weight, cdf is empty here.
+    cdf = torch.cat([torch.zeros_like(pdf[..., :1]), cdf,
+                     torch.ones_like(pdf[..., :1])], dim=-1)
     if u is None:
         u = torch.linspace(0.0, 1.0 - _F32_EPS, num_samples, dtype=cdf.dtype,
                            device=cdf.device)
         u = u.expand(*cdf.shape[:-1], num_samples)
+    return invert_cdf(bins, cdf, u)
 
+
+def invert_cdf(bins, cdf, u):
+    """The interval lookup and interpolation of an inverse-CDF draw: ``u``
+    (..., S) against the sorted ``bins`` and their ``cdf`` (..., B)."""
     mask = cdf[..., :, None] <= u[..., None, :]                 # (N, B, S)
     big = 1e10
     cdf_g0 = torch.where(mask, cdf[..., :, None], -big).amax(dim=-2)
@@ -133,13 +139,17 @@ def resample_z_from_weights(t_vals, weights, resample_padding: float = 0.01,
                             u=None):
     """mip-NeRF weight-blurred z resampling (same sample count as t_vals),
     at the stratified draws ``u`` (..., S+1) when given; no gradient."""
-    t_vals, weights = t_vals.detach(), weights.detach()
+    return sorted_piecewise_constant_pdf(
+        t_vals.detach(), blur_weights(weights.detach(), resample_padding),
+        t_vals.shape[-1], u)
+
+
+def blur_weights(weights, resample_padding: float):
+    """mip-NeRF's max-then-average weight blur, plus ``resample_padding``."""
     weights_pad = torch.cat([weights[..., :1], weights, weights[..., -1:]],
                             dim=-1)
     weights_max = torch.maximum(weights_pad[..., :-1], weights_pad[..., 1:])
-    weights_blur = 0.5 * (weights_max[..., :-1] + weights_max[..., 1:])
-    return sorted_piecewise_constant_pdf(
-        t_vals, weights_blur + resample_padding, t_vals.shape[-1], u)
+    return 0.5 * (weights_max[..., :-1] + weights_max[..., 1:]) + resample_padding
 
 
 def sample_along_rays(rays, num_pts: int = 128, z_vals=None, weights=None,

@@ -308,6 +308,90 @@ def test_resample_kernel_stratified_u_matches_plain(dev):
                                resample_z_plain(z, w, u=u), atol=1e-5, rtol=0)
 
 
+def resample_rows(n, nb, dev, even=True, seed=3):
+    """Fenceposts (n, nb) and weights (n, nb - 1): normalised and raw
+    exponential rows, all-zero, one-hot and near-one-hot rows in turn.
+    ``even``: fenceposts evenly spaced between a near and a far plane, as
+    the coarse pass makes them; else sorted uniform draws (bins up to ~8x
+    wider than the mean: there the output moves by the bin's width over its
+    pdf times the cdf's rounding, up to 1.3e-5 between two f32 summation
+    orders at nb 33, and the plain version itself is 7.6e-6 off an f64
+    reference)."""
+    rng = np.random.default_rng(seed + nb)
+    nw = nb - 1
+    if even:
+        near = rng.uniform(0.05, 0.3, (n, 1))
+        far = rng.uniform(1.0, 2.1, (n, 1))
+        z = (near + (far - near) * np.linspace(0, 1, nb)).astype(np.float32)
+    else:
+        z = np.sort(rng.uniform(0.05, 1.4, (n, nb)), axis=-1).astype(np.float32)
+    w = rng.exponential(size=(n, nw)).astype(np.float32)
+    kind = np.arange(n) % 5
+    w[kind == 0] /= w[kind == 0].sum(-1, keepdims=True) * 1.2
+    w[kind == 2] = 0.0
+    w[kind >= 3] = rng.uniform(0, 1e-6, ((kind >= 3).sum(), nw))
+    hot = rng.integers(0, nw, n)
+    w[kind == 3, hot[kind == 3]] = 1.0
+    w[kind == 4, hot[kind == 4]] = 0.97
+    return (torch.from_numpy(z).to(dev), torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stratified", [False, True])
+@pytest.mark.parametrize("nb", [2, 33, 65, 129, 257])
+@pytest.mark.parametrize("n", [1, 7, 9216])
+def test_resample_kernel_matches_scan_plain(dev, n, nb, stratified):
+    """Against the plain version at 1e-5 (even fenceposts) and against the
+    scan plain version (the kernel's summation order) at 1e-6 (even and
+    uneven fenceposts); a rerun is bit-identical.  The plain version runs on
+    the CPU copy, where its cumsum accumulates in f64: on the card its f32
+    cumsum is itself up to 1.0e-5 off an f64 reference on these rows (the
+    kernel 5.4e-6)."""
+    from nerfmatch_tpu_torch.nerf.sampling import stratified_u
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_scan_plain)
+    u = (stratified_u(n, nb, torch.Generator(dev).manual_seed(nb), dev)
+         if stratified else None)
+    for even in (True, False):
+        z, w = resample_rows(n, nb, dev, even)
+        got = resample_z(z, w, u=u)
+        if even:
+            cpu = [None if t is None else t.cpu() for t in (z, w, u)]
+            torch.testing.assert_close(got.cpu(), resample_z_plain(*cpu[:2],
+                                                                   u=cpu[2]),
+                                       atol=1e-5, rtol=0)
+        torch.testing.assert_close(got, resample_z_scan_plain(z, w, u=u),
+                                   atol=1e-6, rtol=0)
+        assert torch.equal(got, resample_z(z, w, u=u))
+        assert bool((got[:, 1:] >= got[:, :-1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb", [1, 258])
+def test_resample_kernel_refuses_bin_counts(dev, nb):
+    z = torch.linspace(0, 1, nb, device=dev).expand(4, nb).contiguous()
+    with pytest.raises(ValueError):
+        resample_z(z, torch.ones(4, nb - 1, device=dev))
+
+
+@pytest.mark.cuda
+def test_resample_kernel_handles_misaligned_views(dev):
+    """Weights, bins and u as contiguous views 4 bytes past a 16-byte
+    boundary: the kernel takes them (scalar loads), and agrees with the
+    float4 path on the same values bit for bit."""
+    from nerfmatch_tpu_torch.nerf.sampling import stratified_u
+    z, w = resample_rows(64, 129, dev)
+    u = stratified_u(64, 129, torch.Generator(dev).manual_seed(0), dev)
+    shifted = [torch.empty(t.numel() + 1, device=dev)[1:].view_as(t).copy_(t)
+               for t in (z, w, u)]
+    assert all(t.data_ptr() % 16 == 4 and t.is_contiguous() for t in shifted)
+    for uu, su in ((None, None), (u, shifted[2])):
+        got = resample_z(shifted[0], shifted[1], u=su)
+        assert torch.equal(got, resample_z(z, w, u=uu))
+        torch.testing.assert_close(got, resample_z_plain(z, w, u=uu),
+                                   atol=1e-5, rtol=0)
+
+
 def train_stage(hid, dev, n=64, S=128, seed=0, white_bg=False):
     cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=(4,))
