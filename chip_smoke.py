@@ -66,6 +66,15 @@ Phases (each prints its results; any failure exits non-zero):
    TF32 on against off (reported); the launch counters must show every
    kernel ran and the default requests on the int8 coarse stage; one
    request's matches are checked against the plain path on the CPU;
+4b. iNeRF on the serving renderer and matcher at full width (one 480x480
+   query, ds 8: 3600 rays, 128 + 128 samples, the 8x256 MLP): 30 steps
+   scored on the pose from the ground truth turned by 2 deg and moved by
+   0.05 (the loss and ``t_err`` must fall; per-step loss and errors, the
+   step's time and the peak memory printed), two match-mode steps with the
+   match loss (``inerf_refinement``), the counters showing one int8 coarse
+   stage and one resample a step and the attention backward, then one step
+   with the kernel half against its plain twin and against the JAX plain
+   half (loss, gradient cosine, fine fenceposts);
 5. training: a 24-frame 480x480 scene rendered from the room NeRF is
    written in the dataset's layout; ``cli.train_nerf --debug`` trains on it
    with ``configs/nerf/nerf_7scenes_mip_sfm.yaml`` (only the data paths and
@@ -96,7 +105,9 @@ Phases (each prints its results; any failure exits non-zero):
    checkpoint for ``--nerf_path`` (``--iters 2 --mutual --rthres 10
    --eval_bs 2``): the metrics file under the reference's tag name, finite
    errors for every solved pose, and the int8 coarse stage in the
-   re-render.
+   re-render; then ``--inerf --inerf_optim 2``, ``--query2query``,
+   ``--no_cache_pt`` and ``--retrieval_only``, each with its tag-named file
+   of one row a query and the kernels its path launches.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -110,7 +121,7 @@ autograd backward; none for the others).  The attention rows' lines also
 give ``exp_bound_ms``, the least time of their base-2 exponentials on the
 special-function units (at head_dim 32 it exceeds the tensor-core time).
 The resample's ``launches`` are phase 4's, ``launches_training`` phase
-5's.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+5's; ``launches_inerf`` is phase 4b's count where it launched the kernel.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -181,6 +192,17 @@ OPT_IN_KERNELS = ("render_fine_int8", "render_coarse")
 MATCH_KERNELS = ("attention", "attention_bwd", "dw_star_fwd", "dw_star_dgrad",
                  "dw_star_wgrad")
 TRAIN_KERNELS = ("render_train_fwd", "render_train_bwd", "resample")
+# Phase 7's single-query protocols: flags, the reference's result-file tag,
+# the kernels each must launch (--retrieval_only renders and matches nothing).
+BENCH_PROTOCOLS = (
+    (["--inerf", "--inerf_optim", "2"], "_itr1ds8inerf2lr0.001match",
+     ("render_coarse_int8", "resample", "attention", "dw_star_fwd")),
+    (["--query2query"], "_itr1.query2query",
+     ("render_coarse_int8", "render_fine", "resample", "attention")),
+    (["--no_cache_pt"], "_itr1_nocache",
+     ("render_coarse_int8", "render_fine", "resample", "attention")),
+    (["--retrieval_only"], "_IR_itr1", ()),
+)
 CAM_R, NEAR, FAR = 0.8, 0.05, 2.1        # scripts/train_bench_scene.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -933,6 +955,174 @@ def phase_serving(renderer, evaluator, dev, size=480):
         f"{len(pairs & base_pairs) / max(len(pairs | base_pairs), 1):.4f} "
         f"(reported)")
     return launches, results
+
+
+def perturbed_pose(c2w, deg, dist):
+    """``c2w`` turned by ``deg`` degrees about a fixed axis and moved by
+    ``dist`` world units along a fixed direction, both in its camera frame."""
+    from nerfmatch_tpu_torch.utils.geometry import rodrigues
+
+    axis = np.array([0.3, 1.0, -0.2]) / np.linalg.norm([0.3, 1.0, -0.2])
+    move = np.array([1.0, -0.5, 0.3]) / np.linalg.norm([1.0, -0.5, 0.3])
+    pert = np.eye(4)
+    pert[:3, :3] = rodrigues(torch.tensor(axis * np.deg2rad(deg))).numpy()
+    pert[:3, 3] = dist * move
+    return c2w @ pert
+
+
+def twin_half(renderer, packed):
+    """The plain twin of iNeRF's kernel half (``coarse_resample`` on the
+    card): the coarse stage's plain version with the same trunk (the int8
+    one of ``packed``), eps and padding, then the plain resample."""
+    from nerfmatch_tpu_torch.nerf.renderer import reparam_unit_dir
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        TILE_RAYS, render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_plain)
+
+    (_, mlp), _ = renderer._stages()
+    S, cfg = renderer.fine_cfg.num_pts, renderer.cfg
+
+    def half(rays, packed_=None, plain=False):
+        n = rays.shape[0]
+        r, nrm = reparam_unit_dir(
+            torch.cat([rays, rays[-1:].expand((-n) % TILE_RAYS, -1)]))
+        t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+        z = r[:, 6:7] * (1.0 - t) + r[:, 7:8] * t
+        w = render_stage_plain(
+            mlp, r, z, fine=False, num_freqs=cfg.xyz_num_freqs,
+            dirs_freqs=cfg.dirs_num_freqs, var_scale=1.0,
+            early_term_eps=cfg.early_term_eps, int8=packed[0][1])["weights"]
+        return (resample_z_plain(z, w) / nrm)[:n]
+    return half
+
+
+def phase_inerf(renderer, evaluator, dev, size=480):
+    """Phase 4b: iNeRF at full width on the serving renderer (int8 coarse)
+    and the production c2f matcher.  (a) from the ground truth turned by
+    2 deg and moved by 0.05, 30 steps at lrate 0.002 with the cosine decay,
+    scored on the pose (``eval_pose``) against a query that is the iNeRF
+    render of the ground truth on the ds-8 grid (white background, as iNeRF
+    composites): the loss and ``t_err`` must fall; (c) one match-mode query
+    with the match loss for 2 steps (``inerf_refinement``); the counters,
+    reset before (a) and read after (c), must show one int8 coarse stage and
+    one resample a step and the attention backward; (b) afterwards, one step
+    from the same start with the kernel half, with its plain twin (the
+    stage's plain version on the same int8 trunk, the plain resample: held
+    to the kernel half) and with the JAX package's plain half (the coarse
+    MLP in the config's bf16 ``compute_dtype``, no int8, no early
+    termination: reported, bounded only against gross faults): the loss, the
+    cosine of the gradients, the fine fenceposts."""
+    from argparse import Namespace
+
+    from nerfmatch_tpu_torch.eval.inerf import InerfQuery, inerf_refinement
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.utils.geometry import pose_err
+
+    ds, steps, g = 8, 30, size // 8
+    conf = Namespace(lrate=0.002, num_optim=steps, lrdecay=True,
+                     eval_pose=True, ds=ds, use_match_loss=False)
+    c2w, K, un = room_c2w(0.3), camera_K(size), np.eye(4)
+    img = np.zeros((size, size, 3), np.float32)
+    batch = dict(image=img[None], K=K[None], c2w=c2w[None].astype(np.float32))
+    gt = InerfQuery(evaluator, batch, renderer, un, c2w, conf)
+    img[ds // 2::ds, ds // 2::ds] = gt.render(gt.delta)[0].reshape(
+        g, g, 3).cpu().numpy()
+    start = perturbed_pose(c2w, 2.0, 0.05)
+    r0, t0 = map(float, pose_err(c2w, start))
+    match_req = make_request(renderer, 0.3, dev, size)
+    match_batch = scene_points(renderer, [match_req], size)
+    torch.cuda.synchronize()
+    evaluator.timer.clear()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    q = InerfQuery(evaluator, batch, renderer, un, start, conf)
+    rows = []
+    for j in range(steps):
+        loss = q.step(j)[0]
+        r_err, t_err = map(float, pose_err(c2w, q.c2w()))
+        rows.append((loss, r_err, t_err))
+    torch.cuda.synchronize()
+    step_ms = np.asarray(evaluator.timer["inerf_step_time"]) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    log(f"inerf (a): start R_err {r0:.3f} deg t_err {t0:.4f}; per step "
+        f"(loss, R_err deg, t_err): " + json.dumps(
+            [[round(v, 6) for v in r] for r in rows]))
+    log(f"inerf (a): step ms median {np.median(step_ms):.2f} min "
+        f"{step_ms.min():.2f} max {step_ms.max():.2f} (first "
+        f"{step_ms[0]:.2f}); peak memory above the resident "
+        f"{peak:.2f} GiB (3600 rays x 128 fine samples, 8x256 f32 MLP "
+        f"under autograd)")
+    assert rows[-1][0] < rows[0][0], "iNeRF loss did not fall"
+    assert rows[-1][2] < t0, f"iNeRF t_err {rows[-1][2]} not below {t0}"
+    per_step = {k: LAUNCHES[k] for k in ("render_coarse_int8", "resample")}
+    assert per_step == {k: steps for k in per_step}, per_step
+    evaluator.timer.clear()
+    mconf = Namespace(lrate=0.001, num_optim=2, lrdecay=False,
+                      eval_pose=False, ds=ds, use_match_loss=True)
+    t1 = time.perf_counter()
+    c2w_m, r_m, t_m = inerf_refinement(
+        evaluator, match_batch, renderer, match_batch["unnorm_scene"][0],
+        perturbed_pose(c2w, 2.0, 0.05), mconf, mutual=True, rthres=10.0)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"inerf (c): match mode with the match loss, 2 steps in "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms (step ms "
+        f"{[round(v * 1e3, 2) for v in evaluator.timer['inerf_step_time']]}), "
+        f"R_err {r_m:.3f} t_err {t_m:.4f}")
+    log(f"launches during iNeRF (a) + (c): {json.dumps(launches)}")
+    assert launches["render_coarse_int8"] == launches["resample"] == steps + 2
+    assert launches["render_coarse"] == 0 and launches["render_fine"] == 0
+    missing = [k for k in ("attention", "attention_bwd", "dw_star_fwd")
+               if launches[k] == 0]
+    assert not missing, f"kernels never launched by iNeRF: {missing}"
+    assert c2w_m is None or np.isfinite(c2w_m).all()
+
+    qs = {name: InerfQuery(evaluator, batch, renderer, un, start, conf,
+                           plain=name == "jax_plain")
+          for name in ("kernel", "twin", "jax_plain")}
+    twin = twin_half(renderer, qs["kernel"].packed)
+    rays = qs["kernel"]._rays(qs["kernel"].delta).detach()
+    z = {"kernel": renderer.coarse_resample(rays, qs["kernel"].packed),
+         "twin": twin(rays),
+         "jax_plain": renderer.coarse_resample(rays, plain=True)}
+    evaluator.timer.clear()
+    loss = {}
+    for name, qq in qs.items():
+        if name == "twin":
+            renderer.coarse_resample = twin       # this query's half only
+        try:
+            loss[name] = qq.step(0)[0]
+        finally:
+            renderer.__dict__.pop("coarse_resample", None)
+    step = dict(zip(qs, (v * 1e3 for v in evaluator.timer["inerf_step_time"])))
+    half_ms = cuda_ms(lambda: renderer.coarse_resample(rays, qs["kernel"].packed))
+    plain_half_ms = cuda_ms(lambda: renderer.coarse_resample(rays, plain=True),
+                            3)
+    cmp = {}
+    for name in ("twin", "jax_plain"):
+        dz = (z["kernel"] - z[name]).abs()
+        cmp[name] = dict(
+            loss_rel=abs(loss["kernel"] - loss[name]) / loss[name],
+            grad_cos=float(torch.nn.functional.cosine_similarity(
+                qs["kernel"].delta.grad, qs[name].delta.grad, dim=0)),
+            z_mean=float(dz.mean()), z_max=float(dz.max()))
+    log("inerf (b): one step from the same start, the kernel half against "
+        "its plain twin (tol: loss 1e-3 relative, gradient cosine > 0.99, "
+        "fine z 1e-4 on average) and against the JAX plain half (bounded at "
+        "5e-2 relative loss and 5e-2 mean fine z): " + json.dumps(
+            {k: {kk: float(f"{vv:.4g}") for kk, vv in v.items()}
+             for k, v in cmp.items()})
+        + f"; losses {json.dumps(loss)}; step ms "
+        f"{json.dumps({k: round(v, 2) for k, v in step.items()})}; the "
+        f"kernel half alone {half_ms:.3f} ms, the JAX plain half "
+        f"{plain_half_ms:.3f}")
+    t, p = cmp["twin"], cmp["jax_plain"]
+    assert t["loss_rel"] < 1e-3 and t["grad_cos"] > 0.99 and t["z_mean"] < 1e-4
+    assert p["loss_rel"] < 5e-2 and p["z_mean"] < 5e-2
+    return dict(launches=launches, step_ms=float(np.median(step_ms)),
+                peak_gib=peak, half_ms=half_ms, plain_half_ms=plain_half_ms)
 
 
 def phase_check(evaluator, batch):
@@ -1880,6 +2070,36 @@ def phase_benchmark(ckpt, nerf_ckpt):
     missing = [k for k in ("render_coarse_int8", "render_fine", "resample",
                            "attention", "dw_star_fwd") if launches[k] == 0]
     assert not missing, f"kernels never launched in the benchmark: {missing}"
+    for flags, tag, kernels in BENCH_PROTOCOLS:
+        argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt),
+                "--mutual", "--rthres", "10", *flags]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (avg, _), = bench_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        path = ckpt.parent / "best_tmed_results" / f"room_rth10test_colmap{tag}.npy"
+        assert path.exists(), f"no metrics file {path}"
+        m = np.load(path, allow_pickle=True).item()
+        r_err, t_err = (np.asarray(m[k], np.float64) for k in ("R_err", "t_err"))
+        solved = np.isfinite(r_err) & np.isfinite(t_err)
+        assert len(r_err) == len(metrics["R_err"]), (path.name, len(r_err))
+        assert np.array_equal(solved, np.isfinite(r_err) | np.isfinite(t_err))
+        steps = m.get("inerf_step_time", np.zeros(0)) * 1e3
+        log(f"benchmark_nerfmatch {' '.join(flags)}: {len(r_err)} queries in "
+            f"{wall:.1f} s, {int(solved.sum())} solved; t_med "
+            f"{avg['t_med']:.3f} cm r_med {avg['r_med']:.3f} deg, "
+            f"localize_time {avg['localize_time']:.3f} ms a query"
+            + (f", {len(steps)} iNeRF steps, median {np.median(steps):.2f} ms"
+               if len(steps) else "")
+            + f"; file {path.name} with {sorted(m)}; launches "
+            + json.dumps({k: v for k, v in LAUNCHES.items() if v}))
+        missing = [k for k in kernels if LAUNCHES[k] == 0]
+        assert not missing, f"{flags}: kernels never launched: {missing}"
+        if "--inerf" in flags:
+            assert len(steps) > 0 and len(steps) % 2 == 0
+            assert LAUNCHES["render_coarse_int8"] == len(steps)
     return launches
 
 
@@ -1926,6 +2146,7 @@ def main():
         f"{getattr(nerf_cfg.render, 'trunk_int8', None)!r})")
     with torch.no_grad():
         launches, results = phase_serving(serving, evaluator, dev)
+        inerf = phase_inerf(serving, evaluator, dev)
         phase_check(evaluator, results[0][0])
     del serving, evaluator, results
     torch.cuda.empty_cache()
@@ -1942,6 +2163,10 @@ def main():
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})
     assert bench["render_coarse_int8"] > 0
 
+    # The iNeRF phase's counts stand beside each kernel it launched.
+    for n, c in inerf["launches"].items():
+        if c:
+            rows[n]["launches_inerf"] = c
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     launches=launches[n], **rows[n])
                for n, (src, rep) in KERNEL_SOURCES.items()]

@@ -8,11 +8,13 @@ tag-keyed result files and cross-run score aggregation
         --nerf_path <nerf ckpt, $scene placeholder> --iters 2 --mutual \\
         --rthres 10 --eval_bs 2
 
-Runs on the GPU (``--device cpu`` for the CPU); the ``--iters`` re-render
-serves the NeRF's int8 mode (``serving_int8_mode``).  Flags of protocols
-that are not ported raise: ``--inerf``, ``--pair_topk > 1``,
-``--match_oracle``, ``--retrieval_only``, ``--query2query``,
-``--no_cache_pt``, ``--visualize``, ``--point_shard``, ``--pair_shard``.
+Runs on the GPU (``--device cpu`` for the CPU); the re-render and iNeRF's
+coarse pass serve the NeRF's int8 mode (``serving_int8_mode``).  ``--inerf``
+(with ``--inerf_optim``, ``--inerf_lr``, ``--inerf_lrd``, ``--inerf_ds``,
+``--inerf_pose``, ``--inerf_match_loss``), ``--query2query``,
+``--no_cache_pt`` and ``--retrieval_only`` localize one query a batch.
+Flags of protocols that are not ported raise: ``--pair_topk > 1``,
+``--match_oracle``, ``--visualize``, ``--point_shard``, ``--pair_shard``.
 """
 
 from __future__ import annotations
@@ -177,8 +179,8 @@ def build_parser():
     p.add_argument("--visualize", action="store_true")
     p.add_argument("--eval_bs", type=int, default=1,
                    help="queries per matcher / render call (single-shot and "
-                        "--iters; results identical); --cache_iters runs "
-                        "stay at bs=1")
+                        "--iters; results identical); --cache_iters and "
+                        "the single-query protocols stay at bs=1")
     p.add_argument("--seeds", type=int, nargs="*", default=[])
     p.add_argument("--feats", type=str, nargs="*", default=[])
     p.add_argument("--device", type=str, default="cuda",

@@ -1,20 +1,24 @@
-"""NeRFMatch localization for the cached-point protocols (counterpart of
+"""NeRFMatch localization (counterpart of
 ``nerfmatch_tpu/eval/match_evaluator.py``).
 
 Per query: match the image against scene points (NeRF descriptors + 3D
 points), solve PnP on the host (``nerfmatch_tpu_torch.pose``, C++ through
 ctypes), and with ``iters > 1`` re-render the scene points at the pose
-estimate and match again.  Single-shot and ``iters > 1``, at bs=1 and at
-``eval_bs > 1``.  Batches are dicts of numpy arrays: image (B, H, W, 3),
-pt_feat (B, N, C), pt3d (B, N, 3), pt_mask (B, N), im_mask (B, M),
-pt2d (B, M, 2), K (B, 3, 3), c2w (B, 4, 4), unnorm_scene (B, 4, 4).
+estimate and match again.  The cached-point protocols run at bs=1 and at
+``eval_bs > 1``; the single-query protocols run at bs=1: iNeRF refinement
+(``eval/inerf.py``) after each match, ``query2query`` (re-render at the
+ground-truth pose), uncached points (re-render at the retrieved pose
+``rc2w``) and ``retrieval_only`` (score ``rc2w``).  Batches are dicts of
+numpy arrays: image (B, H, W, 3), pt_feat (B, N, C), pt3d (B, N, 3),
+pt_mask (B, N), im_mask (B, M), pt2d (B, M, 2), K (B, 3, 3), c2w (B, 4, 4),
+rc2w (B, 4, 4), unnorm_scene (B, 4, 4).
 
 :meth:`NeRFMatchEvaluator.eval_multi_scenes` is the benchmark's scene loop
 (``cli/benchmark_nerfmatch``): per scene the NeRF re-render through
 ``load_nerf_render_from_ckpt(serving=True)``, the ``eval_bs`` batching rule,
 per-query timers and a metrics ``.npy`` under the reference's tag name.
-iNeRF, multi-pair matching, the match oracle, retrieval-only, query2query,
-uncached points and the visualization raise ``NotImplementedError``.
+Multi-pair matching, the match oracle and the visualization raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..utils import get_logger, resolve_device
 from ..utils.geometry import pose_err
 from ..utils.metrics import (POSE_THRES, average_pose_metrics,
                              summarize_pose_statis)
+from .inerf import inerf_refinement
 from .nerf_evaluator import load_nerf_render_from_ckpt
 
 logger = get_logger(level="INFO", name="nerfmatch_eval")
@@ -175,16 +180,112 @@ class NeRFMatchEvaluator:
                                 c2w_est.astype(np.float32))
         return c2w_est, float(r_err), float(t_err), len(pt2d)
 
+    def eval_match_pose(self, batch, mutual: bool = True,
+                        match_thres: float = 0.0, solver: str = "colmap",
+                        rthres: float = 1.0):
+        """Match + PnP of a bs=1 ``batch`` -> (c2w_est, R_err, t_err,
+        num_matches); records ``match_time``."""
+        t0 = time.perf_counter()
+        out = self._match(batch["image"], batch["pt_feat"], batch["pt3d"],
+                          batch["im_mask"], batch["pt_mask"], mutual,
+                          match_thres)
+        self.timer["match_time"].append(time.perf_counter() - t0)
+        mpt2d, mpt3d = self._item_matches(out, np.asarray(batch["pt2d"]),
+                                          np.asarray(batch["pt3d"]), 0)
+        return self._solve_pose(mpt2d, mpt3d, np.asarray(batch["K"])[0],
+                                np.asarray(batch["c2w"])[0], solver, rthres)
+
+    def _eval_query(self, batch, renderer, inerf_conf, iters, mutual,
+                    match_thres, solver, rthres, query2query, retrieval_only,
+                    cached_pt, cache_iters, debug):
+        """The bs=1 loop of the single-query protocols (JAX
+        ``eval_batch``, bs=1): the starting pose (the ground truth for
+        ``query2query``, the retrieved ``rc2w`` for uncached points or
+        ``retrieval_only``), then per iteration the pose error of ``rc2w``
+        (``retrieval_only``) or a re-render at the current pose and a match,
+        then iNeRF, whose result is kept only where its R_err is finite."""
+        if "unnorm_scene" in batch:
+            unnorm_scene = np.asarray(batch["unnorm_scene"])[0]
+        else:
+            unnorm_scene = getattr(renderer, "unnorm_scene", None)
+        ts = time.perf_counter()
+        H, W = np.asarray(batch["image"]).shape[1:3]
+        c2w_gt = np.asarray(batch["c2w"])[0]
+        if query2query:
+            c2w_est = c2w_gt
+        elif (not cached_pt) or retrieval_only:
+            c2w_est = np.asarray(batch["rc2w"])[0]
+        else:
+            c2w_est = None
+        iter_t_errs, iter_R_errs = [], []
+        num_matches = 0
+        R_err = t_err = float("inf")
+        for itr in range(iters):
+            if retrieval_only:
+                R_err, t_err = map(float, pose_err(
+                    np.asarray(c2w_gt, np.float32),
+                    np.asarray(c2w_est, np.float32)))
+            else:
+                if c2w_est is not None:
+                    outs = renderer.render_novel_view(
+                        (H, W), np.asarray(batch["K"])[0], c2w_est,
+                        unnorm_scene, downsample=8)
+                    batch = dict(batch, pt3d=outs["pt3d"][None],
+                                 pt_feat=outs["pt_feat"][None],
+                                 pt_mask=np.ones((1, outs["pt3d"].shape[0]),
+                                                 np.float32))
+                c2w_est, R_err, t_err, num_matches = self.eval_match_pose(
+                    batch, mutual=mutual, match_thres=match_thres,
+                    solver=solver, rthres=rthres)
+                if inerf_conf and cache_iters:
+                    iter_t_errs.append(t_err)
+                    iter_R_errs.append(R_err)
+            if c2w_est is not None and inerf_conf:
+                res = inerf_refinement(
+                    self, batch, renderer, unnorm_scene, c2w_est, inerf_conf,
+                    mutual=mutual, match_thres=match_thres, solver=solver,
+                    rthres=rthres, cache_iters=cache_iters,
+                    iter_t_errs=iter_t_errs, iter_R_errs=iter_R_errs,
+                    debug=debug)
+                if np.isfinite(res[1]):
+                    c2w_est, R_err, t_err = res
+            if cache_iters:
+                iter_t_errs.append(t_err)
+                iter_R_errs.append(R_err)
+            if debug:
+                logger.info(f">> iter={itr} matches={num_matches} "
+                            f"t={t_err * 100:.3f}cm R={R_err:.3f}")
+        self.timer["localize_time"].append(time.perf_counter() - ts)
+        res = dict(R_err=[R_err], t_err=[t_err], num_matches=[num_matches],
+                   c2w_est=[c2w_est])
+        if cache_iters:
+            res.update(iter_R_errs=[iter_R_errs], iter_t_errs=[iter_t_errs])
+        return res
+
     def eval_batch(self, batch, renderer=None, iters: int = 1,
                    mutual: bool = True, match_thres: float = 0.0,
                    solver: str = "colmap", rthres: float = 1.0,
-                   cache_iters: bool = False):
+                   cache_iters: bool = False, inerf_conf=None,
+                   query2query: bool = False, retrieval_only: bool = False,
+                   cached_pt: bool = True, debug: bool = False):
         """Localize every query of ``batch``; ``iters > 1`` re-renders the
         scene points through ``renderer`` at each successful estimate.
         Returns dict(R_err, t_err, num_matches, c2w_est) lists of length B
         (with ``cache_iters``, also iter_R_errs / iter_t_errs: per query,
-        the errors after each iteration).  Records ``match_time`` (per query
-        per iteration) and ``localize_time`` (per query) in ``timer``."""
+        the errors after each iteration, and with iNeRF after each match
+        and each evaluated step between the first and the last).  Records
+        ``match_time`` (per query per match) and ``localize_time`` (per
+        query) in ``timer``, and ``inerf_step_time`` per iNeRF step.
+        iNeRF (``inerf_conf``), ``query2query``, ``retrieval_only`` and
+        uncached points (``cached_pt=False``) take bs=1."""
+        if inerf_conf or query2query or retrieval_only or not cached_pt:
+            if np.asarray(batch["image"]).shape[0] != 1:
+                raise ValueError("iNeRF, query2query, retrieval_only and "
+                                 "uncached points localize one query a batch")
+            return self._eval_query(batch, renderer, inerf_conf, iters, mutual,
+                                    match_thres, solver, rthres, query2query,
+                                    retrieval_only, cached_pt, cache_iters,
+                                    debug)
         if iters > 1 and renderer is None:
             raise ValueError("iters > 1 needs the NeRF renderer")
         ts = time.perf_counter()
@@ -251,27 +352,37 @@ class NeRFMatchEvaluator:
     def eval_data_loader(self, data_loader, renderer=None, iters: int = 1,
                          rthres: float = 1.0, solver: str = "colmap",
                          mutual: bool = True, match_thres: float = 0.0,
-                         cache_iters: bool = False, debug: bool = False):
+                         cache_iters: bool = False, debug: bool = False,
+                         inerf_conf=None, query2query: bool = False,
+                         retrieval_only: bool = False, cached_pt: bool = True):
         """Every batch of ``data_loader`` through :meth:`eval_batch` ->
-        per-query arrays R_err, t_err, num_matches (and (Q, iters)
-        iter_R_errs / iter_t_errs with ``cache_iters``)."""
+        per-query arrays R_err, t_err, num_matches (and (Q, n) iter_R_errs /
+        iter_t_errs with ``cache_iters``; a list of per-query arrays where
+        their lengths differ, as iNeRF's do when a PnP fails)."""
         metrics = defaultdict(list)
         for i, batch in enumerate(data_loader):
-            res = self.eval_batch(batch, renderer, iters=iters, mutual=mutual,
-                                  match_thres=match_thres, solver=solver,
-                                  rthres=rthres, cache_iters=cache_iters)
+            res = self.eval_batch(
+                batch, renderer, iters=iters, mutual=mutual,
+                match_thres=match_thres, solver=solver, rthres=rthres,
+                cache_iters=cache_iters, inerf_conf=inerf_conf,
+                query2query=query2query, retrieval_only=retrieval_only,
+                cached_pt=cached_pt, debug=debug)
             for k in ("R_err", "t_err", "num_matches", "iter_R_errs",
                       "iter_t_errs"):
                 if k in res:
-                    metrics[k].append(np.asarray(res[k]))
+                    metrics[k].extend(np.asarray(r) for r in res[k])
             if debug:
                 logger.info(f"{i} t={res['t_err'][0] * 100:.1f}cm "
                             f"r={res['R_err'][0]:.3f}deg")
                 if i >= 5:
                     break
-        return {k: (np.concatenate(v) if "iter" in k
-                    else np.concatenate(v).squeeze())
-                for k, v in metrics.items()}
+        out = {}
+        for k, v in metrics.items():
+            try:
+                out[k] = np.stack(v) if "iter" in k else np.stack(v).squeeze()
+            except ValueError:
+                out[k] = v
+        return out
 
     def eval_multi_scenes(self, split: str = "test", rthres: float = 1.0,
                           center_subpixel: bool = False,
@@ -292,11 +403,7 @@ class NeRFMatchEvaluator:
         back unless ``ow_cache``) and summarize -> (averages over the
         scenes, per-scene summaries).  ``center_subpixel`` only tags the
         file: it is an identity, as in the JAX package."""
-        for flag, what in ((inerf_conf, "iNeRF refinement (--inerf)"),
-                           (query2query, "--query2query"),
-                           (not cached_pt, "uncached points (--no_cache_pt)"),
-                           (retrieval_only, "--retrieval_only"),
-                           (match_oracle, "--match_oracle"),
+        for flag, what in ((match_oracle, "--match_oracle"),
                            (visualize, "--visualize")):
             if flag:
                 _unported(what)
@@ -332,18 +439,24 @@ class NeRFMatchEvaluator:
             if os.path.exists(cache_path) and not ow_cache:
                 metrics = np.load(cache_path, allow_pickle=True).item()
             else:
-                bs = eval_bs if eval_bs > 1 and not cache_iters else 1
+                # The single-query protocols take bs=1 (JAX :589-594).
+                bs = eval_bs if (
+                    eval_bs > 1 and not inerf_conf and cached_pt
+                    and not query2query and not retrieval_only
+                    and not cache_iters) else 1
                 loader = DataLoader(dataset, batch_size=bs, shuffle=False)
                 renderer = None
-                if iters > 1:
+                if (not cached_pt) or query2query or iters > 1 or inerf_conf:
                     if nerf_path is None:
                         raise ValueError(
-                            "--iters > 1 re-renders through the NeRF but no "
-                            "NeRF checkpoint was given: pass --nerf_path "
-                            "(supports $scene / #scene placeholders)")
+                            "This protocol re-renders through the NeRF "
+                            "(uncached points / --iters > 1 / iNeRF / "
+                            "query2query) but no NeRF checkpoint was given: "
+                            "pass --nerf_path (supports $scene / #scene "
+                            "placeholders)")
                     sl = stop_layer if stop_layer > 0 else \
                         parse_nerf_stop_layer(dataset.scene_dir)
-                    if sl < 0:
+                    if sl < 0 and iters > 1:
                         logger.warning(
                             f"scene_dir {dataset.scene_dir} has no "
                             "inter_layer<k> tag: --iters re-renders will use "
@@ -359,7 +472,9 @@ class NeRFMatchEvaluator:
                     metrics = self.eval_data_loader(
                         loader, renderer, iters=iters, rthres=rthres,
                         solver=solver, mutual=mutual, match_thres=match_thres,
-                        cache_iters=cache_iters, debug=debug)
+                        cache_iters=cache_iters, debug=debug,
+                        inerf_conf=inerf_conf, query2query=query2query,
+                        retrieval_only=retrieval_only, cached_pt=cached_pt)
                 for k, v in self.timer.items():
                     metrics[k] = np.asarray(v)
                 np.save(cache_path, metrics)

@@ -41,7 +41,8 @@ from .compositing import composite_features, t_to_s, volume_render
 from .embedding import ipe_embedding, ipe_embedding_dim, pe_embedding
 from .model import NerfConfig, NerfMLP, eval_feat_layer
 from .rays import RAY_VIEWDIR, sample_nerf_rays
-from .sampling import (jitter_fenceposts, jitter_uniforms, sample_along_rays,
+from .sampling import (jitter_fenceposts, jitter_uniforms,
+                       resample_z_from_weights, sample_along_rays,
                        stratified_u)
 
 
@@ -383,6 +384,43 @@ class NerfRenderer(nn.Module):
         chunks = [self.fused_render(rays[i:i + chunk_rays].contiguous(), packed)
                   for i in range(0, rays.shape[0], chunk_rays)]
         return {k: torch.cat([c[k] for c in chunks])[:n] for k in chunks[0]}
+
+    @torch.no_grad()
+    def coarse_resample(self, rays, packed=None, plain: bool = False):
+        """The no-gradient half of an iNeRF step
+        (``nerfmatch_tpu/eval/inerf.py:71-90``): the coarse pass over (N, 12)
+        rays at the fine stage's sample count with variance scale 1, then
+        the resample of its weights -> fine fenceposts z (N, S+1).
+
+        CUDA rays: the serving coarse stage (the render kernel, its int8
+        trunk under an int8 mode, early termination at ``early_term_eps``)
+        and the resample kernel, in :meth:`fused_render`'s unit-direction
+        parameterization; ``packed``: :meth:`pack_fused`'s output.  CPU rays,
+        or ``plain`` (a test's switch): the JAX iNeRF's own pass, the coarse
+        MLP in ``compute_dtype`` and the plain resample."""
+        S = self.fine_cfg.num_pts
+        (_, coarse_mlp), _ = self._stages()
+        if plain or rays.device.type != "cuda":
+            (mean, var), z = sample_along_rays(rays, num_pts=S, scale_var=1.0)
+            enc, _ = ipe_embedding(mean, var, self.cfg.xyz_num_freqs)
+            dirs = pe_embedding(rays[:, RAY_VIEWDIR], self.cfg.dirs_num_freqs)
+            raw, _ = coarse_mlp(
+                torch.cat([enc, dirs[:, None, :].expand(-1, S, -1)], -1),
+                dtype=torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
+                else None)
+            weights = volume_render(raw, z, rays[:, 3:6])["weights"]
+            return resample_z_from_weights(z, weights)
+        self.check_fused_supported()
+        (pc, qc), _ = packed or self.pack_fused()
+        n = rays.shape[0]
+        rays = torch.cat([rays, rays[-1:].expand((-n) % TILE_RAYS, -1)])
+        rays, nrm = reparam_unit_dir(rays)
+        t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+        z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
+        coarse = render_stage(coarse_mlp, rays, z, fine=False, packed=pc,
+                              int8=qc, **{**self._stage_kwargs(),
+                                          "var_scale": 1.0})
+        return (resample_z(z, coarse["weights"]) / nrm)[:n]
 
     def predict(self, rays, chunk_rays: int = 4096):
         """Eval render: the fused kernels for CUDA rays, the plain path for

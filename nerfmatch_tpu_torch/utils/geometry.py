@@ -27,3 +27,23 @@ def unnormalize_pts(pts_normed, unnorm_mat):
     (..., 4, 4) similarity."""
     pts_h = torch.cat([pts_normed, torch.ones_like(pts_normed[..., :1])], -1)
     return torch.einsum("...ij,...nj->...ni", unnorm_mat, pts_h)[..., :3]
+
+
+def skew(v):
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    zeros = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([zeros, -v[..., 2], v[..., 1]], dim=-1),
+        torch.stack([v[..., 2], zeros, -v[..., 0]], dim=-1),
+        torch.stack([-v[..., 1], v[..., 0], zeros], dim=-1)], dim=-2)
+
+
+def rodrigues(rvec):
+    """Axis-angle (..., 3) -> rotation matrix (..., 3, 3).  The smoothed
+    norm ``sqrt(|r|^2 + 1e-24)`` keeps the gradient finite at the zero
+    rotation (iNeRF's starting point), where ``torch.linalg.norm``'s is NaN."""
+    theta = torch.sqrt(torch.sum(rvec**2, dim=-1, keepdim=True) + 1e-24)
+    K = skew(rvec / theta)
+    s, c = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    return eye + s * K + (1.0 - c) * (K @ K)

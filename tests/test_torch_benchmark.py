@@ -211,11 +211,54 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
             "--mutual", "--rthres", "200", "--ow_cache", "--debug"]
     tcli.main(base)
     assert seen == ["coarse"]
-    for flag in (["--inerf"], ["--pair_topk", "3"], ["--match_oracle"],
-                 ["--retrieval_only"], ["--query2query"], ["--visualize"],
-                 ["--no_cache_pt"], ["--point_shard"]):
+    for flag in (["--pair_topk", "3"], ["--match_oracle"], ["--visualize"],
+                 ["--point_shard"]):
         with pytest.raises(NotImplementedError):
             tcli.main(base + flag)
+
+
+PROTOCOLS = {
+    "query2query": (["--query2query"], "toy_rth200test_colmap_itr1.query2query.npy"),
+    "no_cache_pt": (["--no_cache_pt"], "toy_rth200test_colmap_itr1_nocache.npy"),
+    "retrieval_only": (["--retrieval_only"], "toy_rth200test_colmap_IR_itr1.npy"),
+    "inerf": (["--inerf", "--inerf_optim", "2"],
+              "toy_rth200test_colmap_itr1ds8inerf2lr0.001match.npy"),
+}
+
+
+@pytest.mark.parametrize("protocol", list(PROTOCOLS))
+def test_single_query_protocols_match_jax(bench, protocol):
+    """``--query2query`` (re-render at the ground truth), ``--no_cache_pt``
+    (re-render at the retrieved pose), ``--retrieval_only`` (score the
+    retrieved pose) and ``--inerf --inerf_optim 2`` (match, two iNeRF steps,
+    re-match the refined render) on both packages: the result file of the
+    reference's tag name, one row per query, the same metric keys, equal
+    match counts, and pose errors within the ``--iters 2`` test's 1e-2 deg
+    and 1e-3 (iNeRF too: its refined poses are 1e-6 apart, far below what
+    moves a match or the PnP)."""
+    flags, name = PROTOCOLS[protocol]
+    flags = [*flags, "--mutual", "--rthres", "200", "--cache_tag", protocol]
+    jcli.benchmark(jcli.build_parser().parse_args(
+        ["--ckpts", str(bench["ckpts"]["jax"]), "--nerf_path",
+         str(bench["nerf"]["jax"]), *flags]))
+    tcli.main(["--ckpts", str(bench["ckpts"]["port"]), "--nerf_path",
+               str(bench["nerf"]["port"]), "--device", "cpu", *flags])
+    res_dir = f"{protocol}_best_tmed_results"
+    ref = np.load(bench["root"] / "jax" / res_dir / name,
+                  allow_pickle=True).item()
+    ours = np.load(bench["root"] / "port" / res_dir / name,
+                   allow_pickle=True).item()
+    assert set(ours) == set(ref)
+    if protocol == "inerf":
+        assert "inerf_step_time" in ours
+        assert len(ours["inerf_step_time"]) == 2 * len(ours["t_err"])
+    assert len(ours["num_matches"]) == len(ref["num_matches"]) == 12
+    np.testing.assert_array_equal(ours["num_matches"], ref["num_matches"])
+    for k, atol in (("R_err", 1e-2), ("t_err", 1e-3)):
+        a, b = np.asarray(ours[k]), np.asarray(ref[k])
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, atol=atol, err_msg=k)
 
 
 def test_parse_nerf_stop_layer_and_device_default(bench, monkeypatch):

@@ -367,6 +367,44 @@ def test_resample_kernel_matches_scan_plain(dev, n, nb, stratified):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "coarse"])
+def test_inerf_coarse_resample_matches_its_plain_twin(dev, mode):
+    """``NerfRenderer.coarse_resample`` on the card, iNeRF's no-gradient
+    half: one coarse stage and one resample a call, on 3601 rays (one
+    padding ray) with non-unit directions (the depth rescale), against the
+    same stage's plain version (bf16 or int8 trunk, eps 1e-4) and the plain
+    resample: the fine fenceposts within 1e-4 on average, 2e-2 at most."""
+    import dataclasses
+
+    from nerfmatch_tpu_torch.nerf.renderer import reparam_unit_dir
+
+    r = renderer(256, dev)
+    with torch.no_grad():
+        r.nerf_coarse.alpha_linear.bias += 3.0
+    r.cfg = dataclasses.replace(r.cfg, trunk_int8=mode)
+    rays, _ = rays_z(3601, dev)
+    rays[:, 3:6] *= 1.3
+    r._ensure_int8_calibrated(rays)
+    packed = r.pack_fused()
+    reset_launch_counts()
+    with torch.no_grad():
+        z = r.coarse_resample(rays, packed)
+    assert LAUNCHES["render_coarse" + ("_int8" if mode != "none" else "")] == 1
+    assert LAUNCHES["resample"] == 1 and LAUNCHES["render_fine"] == 0
+    padded, nrm = reparam_unit_dir(torch.cat([rays, rays[-1:]]))
+    t = torch.linspace(0, 1, 129, device=dev)
+    z0 = padded[:, 6:7] * (1 - t) + padded[:, 7:8] * t
+    with torch.no_grad():
+        w = render_stage_plain(r.nerf_coarse, padded, z0, fine=False,
+                               num_freqs=15, dirs_freqs=4, var_scale=1.0,
+                               early_term_eps=r.cfg.early_term_eps,
+                               int8=packed[0][1])["weights"]
+    dz = (z - (resample_z_plain(z0, w) / nrm)[:3601]).abs()
+    assert z.shape == (3601, 129)
+    assert float(dz.mean()) < 1e-4 and float(dz.max()) < 2e-2, dz.max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nb", [1, 258])
 def test_resample_kernel_refuses_bin_counts(dev, nb):
     z = torch.linspace(0, 1, nb, device=dev).expand(4, nb).contiguous()
