@@ -21,7 +21,11 @@ Phases (each prints its results; any failure exits non-zero):
    against the one-pass plain version that rounds what the kernel rounds,
    its ``lse`` against ``torch.logsumexp``, and on earlier lines the
    kernel's time on operands already cast, the whole call's with the cast
-   launch, and ``exp_bound_ms``);
+   launch, and ``exp_bound_ms``); the bf16 fine stage of an appearance NeRF
+   (the room's views layer with a seeded 16-column block, a seeded (2, 16)
+   table, rays alternating between its rows) against its plain version,
+   its weights, depth, acc, feat and pts bit-identical to the stage
+   without the block, its time with and without ``app`` in turns;
 3b. the same for training: the train-render forward and backward kernels
    on 9216 rays at full width (the room's fine MLP, jittered z, density
    noise of std 1, loss rgb MSE + 0.01 distortion), rgb / weights and every
@@ -50,8 +54,9 @@ Phases (each prints its results; any failure exits non-zero):
    version, with the share of integer activations that differ (< 1e-3),
    a rerun (bit-identical), its zero weights against ``early_term_mask``
    on the plain int8 version's alpha at 1e-4, the bf16 stage's time beside
-   it, its bound, and the two-stage render of every int8 mode against the
-   f32 plain render;
+   it, its bound, the fine stages of ``'both'`` and ``'posttap'`` with
+   ``app`` as in phase 3, and the two-stage render of every int8 mode
+   against the f32 plain render;
 4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) with its
    int8 mode resolved as the serving paths resolve it (``'coarse'``: the
    config does not set ``render.trunk_int8``) and the production c2f
@@ -74,7 +79,9 @@ Phases (each prints its results; any failure exits non-zero):
    match loss (``inerf_refinement``), the counters showing one int8 coarse
    stage and one resample a step and the attention backward, then one step
    with the kernel half against its plain twin and against the JAX plain
-   half (loss, gradient cosine, fine fenceposts);
+   half (loss, gradient cosine, fine fenceposts), the same for the
+   candidate half on kernel 1 (bf16, eps 0) against the JAX plain half, and
+   three steps on an appearance NeRF made from the same weights;
 5. training: a 24-frame 480x480 scene rendered from the room NeRF is
    written in the dataset's layout; ``cli.train_nerf --debug`` trains on it
    with ``configs/nerf/nerf_7scenes_mip_sfm.yaml`` (only the data paths and
@@ -83,6 +90,18 @@ Phases (each prints its results; any failure exits non-zero):
    the launch counters must show the train kernels and the resample ran;
    the last checkpoint loads into a serving renderer that renders one ds-8
    scene-point grid through the eval kernels;
+5b. PSNR: ``cli.eval_nerf`` in its PSNR mode (``--split test --img_wh 480
+   480 --downsample 1 --save_depth``) on that checkpoint over 4 test
+   frames: mean PSNR, seconds an image and the launches (25 bf16 coarse
+   stages, 25 resamples, 25 bf16 fine stages an image), then one image's
+   kernel render against the port's plain render of the same rays (rgb
+   within 5e-3, both PSNRs);
+5c. the same on an appearance checkpoint (phase 5's weights, the seeded
+   block and table of phase 3) over a copy of the scene whose frames sit
+   under two sequence folders: PSNR per sequence, the same pose's rgb
+   moved by the id, a ``--cache_scene_pts`` run whose ``pt_feat`` and
+   ``pt3d`` do not move with the id, and a ``'posttap'`` cache run (the int8
+   fine stage with ``app``);
 6. matcher training: a 24-frame room scene, its scene points cached through
    ``NerfEvaluator.cache_scene_pts`` (3600 points x 256-d per frame) and a
    pairs file; ``cli.train_nerfmatch --stage c2f --debug`` trains on it with
@@ -121,7 +140,9 @@ autograd backward; none for the others).  The attention rows' lines also
 give ``exp_bound_ms``, the least time of their base-2 exponentials on the
 special-function units (at head_dim 32 it exceeds the tensor-core time).
 The resample's ``launches`` are phase 4's, ``launches_training`` phase
-5's; ``launches_inerf`` is phase 4b's count where it launched the kernel.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+5's; ``launches_inerf`` is phase 4b's count where it launched the kernel;
+``render_fine_app``'s are phase 5c's PSNR run, ``render_fine_int8_app``'s
+its ``'posttap'`` cache run.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -149,6 +170,12 @@ KERNEL_SOURCES = {
                            "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                          "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
+    # The fine stages of an appearance NeRF: the same kernel with each ray's
+    # appearance row (the Pallas kernel's app operand, render_kernel.py:455).
+    "render_fine_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+                        "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
+    "render_fine_int8_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+                             "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "resample": ("nerfmatch_tpu_torch/csrc/resample.cu",
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
     "attention": ("nerfmatch_tpu_torch/csrc/attention.cu",
@@ -434,6 +461,103 @@ def load_room_renderer(dev):
     return renderer.to(dev).eval()
 
 
+def app_mlp(mlp, seed=0):
+    """A copy of ``mlp`` with an appearance input: its views layer gains a
+    seeded 16-column block (0.1 N(0, 1); the other weights shared) -> (the
+    MLP, a seeded (2, 16) N(0, 1) table), on ``mlp``'s device."""
+    import dataclasses
+
+    from nerfmatch_tpu_torch.nerf.model import NerfMLP
+
+    g = torch.Generator().manual_seed(seed)
+    dev = mlp.views_linears[0].weight.device
+    out = NerfMLP(dataclasses.replace(mlp.cfg, app_dim=16)).to(dev)
+    state = dict(mlp.state_dict())
+    wv = state["views_linears.0.weight"]
+    state["views_linears.0.weight"] = torch.cat(
+        [wv, 0.1 * torch.randn(wv.shape[0], 16, generator=g).to(dev)], 1)
+    out.load_state_dict(state, strict=True)
+    return out.eval(), torch.randn(2, 16, generator=g).to(dev)
+
+
+def with_appearance(renderer, config, seed=0):
+    """An appearance NeRF from ``renderer``'s weights: ``config`` with
+    ``embedding.appearance_embed``, both views layers with the seeded block
+    of :func:`app_mlp`, the seeded (2, 16) table, ``renderer``'s render
+    settings -> (renderer on the same device, its config)."""
+    import copy
+    import dataclasses
+
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+
+    cfg = copy.deepcopy(config)
+    cfg.embedding.appearance_embed = True
+    out = NerfRenderer(cfg, num_frames=2,
+                       stop_layer=renderer.fine_cfg.stop_layer)
+    state = {k: v.detach().cpu() for k, v in renderer.state_dict().items()}
+    for i, stage in enumerate(("nerf_coarse", "nerf_fine")):
+        mlp, table = app_mlp(getattr(renderer, stage), seed + i)
+        state[f"{stage}.views_linears.0.weight"] = \
+            mlp.views_linears[0].weight.detach().cpu()
+    state["embedding_a.weight"] = table.cpu()
+    out.load_state_dict(state, strict=True)
+    out.cfg = dataclasses.replace(renderer.cfg, appearance_embedding=True)
+    return out.to(renderer.device).eval(), cfg
+
+
+def app_stage_row(mlp, rays, z, int8=None, design=RENDER_EVAL_DESIGN,
+                  label="bf16"):
+    """The fine stage of an appearance NeRF (``mlp`` with :func:`app_mlp`'s
+    block; rays alternating between the table's two rows) at eps 1e-4
+    against its plain version (tol 5e-3 scaled); its weights, depth, acc,
+    feat and pts bit-identical to ``mlp``'s stage without the block, its rgb
+    moved; the stage's ms with and without ``app`` in turns -> its summary
+    row."""
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        pack_mlp, render_stage, render_stage_plain)
+
+    amlp, table = app_mlp(mlp)
+    n, hv = rays.shape[0], mlp.cfg.hid_dim // 2
+    app = table[torch.arange(n, device=rays.device) % 2].contiguous()
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4,
+              int8=int8)
+    pa, pb = pack_mlp(amlp, int8), pack_mlp(mlp, int8)
+    run_a = lambda: render_stage(amlp, rays, z, packed=pa, app=app, **kw)
+    run_b = lambda: render_stage(mlp, rays, z, packed=pb, **kw)
+    run_p = lambda: render_stage_plain(amlp, rays, z, app=app, **kw)
+    a, b, pl = run_a(), run_b(), run_p()
+    torch.cuda.synchronize()
+    err, scaled = max_err(a, pl), max_err(a, pl, scaled=True)
+    same = {k: torch.equal(a[k], b[k]) for k in ("weights", "depth", "acc",
+                                                 "feat", "pts")}
+    moved = float((a["rgb"] - b["rgb"]).abs().max())
+    del pl
+    ms = [cuda_ms(f, 5) for f in (run_b, run_a, run_a, run_b)]
+    plain_ms = cuda_ms(run_p, 2)
+    q_rows = [] if int8 is None else [
+        v for k, v in int8.items() if torch.is_tensor(v) and k[0] != "w"
+        and k != "img"]
+    live = live_samples(a["weights"], 1e-4)
+    ops = {k: 2 * m * live for k, m in stage_macs(
+        mlp, True, None if int8 is None else int8["start"]).items()}
+    ops["f32"] += 2 * 16 * hv * n          # app @ Wva, once a ray
+    row = dict(design=design, max_abs_err=err, ms=(ms[1] + ms[2]) / 2,
+               ms_without_app=(ms[0] + ms[3]) / 2, plain_ms=plain_ms,
+               library_ms=None, **bound(ops, nbytes(
+                   rays, z, app, *a.values(), *weight_tensors(pa), *q_rows)))
+    log(f"kernel render_fine{'' if int8 is None else '_int8'}_app ({label}) "
+        f"eps=0.0001: max_abs_err={err:.3e} scaled {scaled:.3e} (tol 5e-3, vs "
+        f"plain with the same app rows) ms={row['ms']:.3f} (without app "
+        f"{row['ms_without_app']:.3f}; in turns "
+        f"{[round(v, 4) for v in ms]}) plain_ms={plain_ms:.3f} bound_ms="
+        f"{row['bound_ms']:.3f} ({row['bound_by']}); weights, depth, acc, "
+        f"feat, pts bit-identical to the stage without app: {same}; rgb moved "
+        f"by the rows up to {moved:.3e}")
+    assert scaled < 5e-3 and all(same.values()) and moved > 1e-3
+    assert all(bool(torch.isfinite(v).all()) for v in a.values())
+    return row
+
+
 def phase_environment():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -576,6 +700,8 @@ def phase_kernels(renderer, dev):
                 log(f"  bound {rows[name]['bound_ms']:.3f} ms "
                     f"({rows[name]['bound_by']}; {live_samples(a['weights'], eps)}"
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
+    rows["render_fine_app"] = app_stage_row(renderer.nerf_fine, rays,
+                                            z_in["render_fine"])
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
     rows["resample"] = resample_row(z, w)
@@ -788,6 +914,11 @@ def phase_int8_kernels(renderer, dev):
             # opt-in 'posttap' request that phase 4 serves.
             if eps > 0 and mode in ("coarse", "posttap"):
                 rows[name] = row
+            if eps > 0 and fine:
+                row_app = app_stage_row(mlp, rays, zz, int8=q,
+                                        design=INT8_EVAL_DESIGN, label=mode)
+                if mode == "posttap":
+                    rows["render_fine_int8_app"] = row_app
 
     # Two-stage renders of every mode against the f32 plain render, against
     # the JAX int8 test's budget (tests/test_pallas_render.py, 'both', on 8
@@ -798,6 +929,7 @@ def phase_int8_kernels(renderer, dev):
     renderer.act_scales = scales
     p99 = lambda x: float(torch.quantile(x.flatten().float(), 0.99))
     try:
+        renderer.cfg = dataclasses.replace(base_cfg, compute_dtype="float32")
         ref = renderer.render_rays(rays)
         for mode in ("none", "coarse", "both", "posttap"):
             renderer.cfg = dataclasses.replace(base_cfg, trunk_int8=mode,
@@ -997,7 +1129,33 @@ def twin_half(renderer, packed):
     return half
 
 
-def phase_inerf(renderer, evaluator, dev, size=480):
+def bf16_half(renderer):
+    """The candidate iNeRF half with the JAX pass's arithmetic on the card:
+    kernel 1's coarse stage with the bf16 trunk and no early termination
+    (its own bf16 pack), then the resample kernel."""
+    from nerfmatch_tpu_torch.nerf.renderer import reparam_unit_dir
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        TILE_RAYS, pack_mlp, render_stage)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import resample_z
+
+    (_, mlp), _ = renderer._stages()
+    S, cfg, packed = renderer.fine_cfg.num_pts, renderer.cfg, pack_mlp(mlp)
+
+    @torch.no_grad()
+    def half(rays, packed_=None, plain=False):
+        n = rays.shape[0]
+        r, nrm = reparam_unit_dir(
+            torch.cat([rays, rays[-1:].expand((-n) % TILE_RAYS, -1)]))
+        t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+        z = (r[:, 6:7] * (1.0 - t) + r[:, 7:8] * t).contiguous()
+        w = render_stage(mlp, r, z, fine=False, packed=packed,
+                         num_freqs=cfg.xyz_num_freqs,
+                         dirs_freqs=cfg.dirs_num_freqs, var_scale=1.0)["weights"]
+        return (resample_z(z, w) / nrm)[:n]
+    return half
+
+
+def phase_inerf(renderer, evaluator, nerf_cfg, dev, size=480):
     """Phase 4b: iNeRF at full width on the serving renderer (int8 coarse)
     and the production c2f matcher.  (a) from the ground truth turned by
     2 deg and moved by 0.05, 30 steps at lrate 0.002 with the cosine decay,
@@ -1012,7 +1170,11 @@ def phase_inerf(renderer, evaluator, dev, size=480):
     to the kernel half) and with the JAX package's plain half (the coarse
     MLP in the config's bf16 ``compute_dtype``, no int8, no early
     termination: reported, bounded only against gross faults): the loss, the
-    cosine of the gradients, the fine fenceposts."""
+    cosine of the gradients, the fine fenceposts; and the candidate half on
+    kernel 1 (bf16, eps 0: :func:`bf16_half`) against the JAX plain half,
+    which iNeRF would run at gradient cosine > 0.99; (d) three steps on an
+    appearance NeRF made from the same weights (table row 1): ms a step, the
+    loss before and after."""
     from argparse import Namespace
 
     from nerfmatch_tpu_torch.eval.inerf import InerfQuery, inerf_refinement
@@ -1081,17 +1243,18 @@ def phase_inerf(renderer, evaluator, dev, size=480):
 
     qs = {name: InerfQuery(evaluator, batch, renderer, un, start, conf,
                            plain=name == "jax_plain")
-          for name in ("kernel", "twin", "jax_plain")}
-    twin = twin_half(renderer, qs["kernel"].packed)
+          for name in ("kernel", "twin", "jax_plain", "bf16_eps0")}
+    halves = {"twin": twin_half(renderer, qs["kernel"].packed),
+              "bf16_eps0": bf16_half(renderer)}
     rays = qs["kernel"]._rays(qs["kernel"].delta).detach()
     z = {"kernel": renderer.coarse_resample(rays, qs["kernel"].packed),
-         "twin": twin(rays),
-         "jax_plain": renderer.coarse_resample(rays, plain=True)}
+         "jax_plain": renderer.coarse_resample(rays, plain=True),
+         **{k: h(rays) for k, h in halves.items()}}
     evaluator.timer.clear()
     loss = {}
     for name, qq in qs.items():
-        if name == "twin":
-            renderer.coarse_resample = twin       # this query's half only
+        if name in halves:                        # this query's half only
+            renderer.coarse_resample = halves[name]
         try:
             loss[name] = qq.step(0)[0]
         finally:
@@ -1100,13 +1263,15 @@ def phase_inerf(renderer, evaluator, dev, size=480):
     half_ms = cuda_ms(lambda: renderer.coarse_resample(rays, qs["kernel"].packed))
     plain_half_ms = cuda_ms(lambda: renderer.coarse_resample(rays, plain=True),
                             3)
+    bf16_half_ms = cuda_ms(lambda: halves["bf16_eps0"](rays))
     cmp = {}
-    for name in ("twin", "jax_plain"):
-        dz = (z["kernel"] - z[name]).abs()
-        cmp[name] = dict(
-            loss_rel=abs(loss["kernel"] - loss[name]) / loss[name],
+    for a, b in (("kernel", "twin"), ("kernel", "jax_plain"),
+                 ("bf16_eps0", "jax_plain")):
+        dz = (z[a] - z[b]).abs()
+        cmp[f"{a} vs {b}"] = dict(
+            loss_rel=abs(loss[a] - loss[b]) / loss[b],
             grad_cos=float(torch.nn.functional.cosine_similarity(
-                qs["kernel"].delta.grad, qs[name].delta.grad, dim=0)),
+                qs[a].delta.grad, qs[b].delta.grad, dim=0)),
             z_mean=float(dz.mean()), z_max=float(dz.max()))
     log("inerf (b): one step from the same start, the kernel half against "
         "its plain twin (tol: loss 1e-3 relative, gradient cosine > 0.99, "
@@ -1116,13 +1281,35 @@ def phase_inerf(renderer, evaluator, dev, size=480):
              for k, v in cmp.items()})
         + f"; losses {json.dumps(loss)}; step ms "
         f"{json.dumps({k: round(v, 2) for k, v in step.items()})}; the "
-        f"kernel half alone {half_ms:.3f} ms, the JAX plain half "
-        f"{plain_half_ms:.3f}")
-    t, p = cmp["twin"], cmp["jax_plain"]
+        f"kernel half alone {half_ms:.3f} ms, the bf16 eps-0 half "
+        f"{bf16_half_ms:.3f}, the JAX plain half {plain_half_ms:.3f}")
+    t, p = cmp["kernel vs twin"], cmp["kernel vs jax_plain"]
+    c = cmp["bf16_eps0 vs jax_plain"]
+    log(f"inerf route: the coarse half stays on the serving stage "
+        f"(trunk_int8={renderer.cfg.trunk_int8!r}, eps "
+        f"{renderer.cfg.early_term_eps:g}); kernel 1 at bf16 / eps 0 would "
+        f"need gradient cosine > 0.99 with the JAX plain half and has "
+        f"{c['grad_cos']:.6f} (the serving stage {p['grad_cos']:.6f})")
     assert t["loss_rel"] < 1e-3 and t["grad_cos"] > 0.99 and t["z_mean"] < 1e-4
     assert p["loss_rel"] < 5e-2 and p["z_mean"] < 5e-2
+    assert c["loss_rel"] < 5e-2 and c["z_mean"] < 5e-2
+
+    app_r, _ = with_appearance(renderer, nerf_cfg)
+    evaluator.timer.clear()
+    qa = InerfQuery(evaluator, batch, app_r, un, start, conf)
+    losses = [qa.step(j)[0] for j in range(3)]
+    with torch.no_grad():
+        after = float(qa.loss(qa.delta)[0])
+    torch.cuda.synchronize()
+    app_ms = [v * 1e3 for v in evaluator.timer["inerf_step_time"]]
+    log(f"inerf (d): appearance NeRF (table row 1), 3 steps: ms "
+        f"{[round(v, 2) for v in app_ms]}, loss before {losses[0]:.6f} -> "
+        f"after {after:.6f} (per step {[round(v, 6) for v in losses]})")
+    assert np.isfinite(losses + [after]).all()
+    del app_r, qa
     return dict(launches=launches, step_ms=float(np.median(step_ms)),
-                peak_gib=peak, half_ms=half_ms, plain_half_ms=plain_half_ms)
+                peak_gib=peak, half_ms=half_ms, plain_half_ms=plain_half_ms,
+                bf16_half_ms=bf16_half_ms, app_step_ms=app_ms)
 
 
 def phase_check(evaluator, batch):
@@ -1583,11 +1770,10 @@ def write_room_scene(renderer, dev, root, n_frames=24, size=480):
             json.dumps({"frames": frames}))
 
 
-def phase_training(renderer, dev, seed):
-    """Train on the room scene through the CLI (debug, resume) and 50
-    NerfTrainer steps; serve the checkpoint -> launch counts."""
-    import tempfile
-
+def phase_training(renderer, dev, seed, root):
+    """Train on the room scene (written under ``root``) through the CLI
+    (debug, resume) and 50 NerfTrainer steps; serve the checkpoint ->
+    (launch counts, the CLI's last checkpoint, its config)."""
     from nerfmatch_tpu_torch.config import load_yaml_config, save_config
     from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
     from nerfmatch_tpu_torch.data.loaders import init_data_loader
@@ -1597,106 +1783,298 @@ def phase_training(renderer, dev, seed):
     from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
                                                         init_config_odir)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        write_room_scene(renderer, dev, root)
-        log(f"training scene: 24 frames 480x480 written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        cfg_path = ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml"
-        cfg, _ = load_yaml_config(cfg_path)
-        cfg.data.data_dir = str(root)
-        cfg.data.scene = "room"
-        cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
-        cfg.exp.odir = str(root / "out")
-        save_config(root / "cfg.yaml", cfg)
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out_cfg, r1 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
-        t1 = time.perf_counter()
-        w1 = r1.nerf_fine.pts_linears[0].weight.detach().clone()
-        _, r2 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
-        t2 = time.perf_counter()
-        assert torch.equal(r2.nerf_fine.pts_linears[0].weight, w1), "resume"
-        ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
-                                 name="last")
-        assert ckpt is not None and ckpt.name == f"last_{cfg.exp.max_epochs}"
-        log(f"cli --debug: {cfg.exp.max_epochs} epochs x 10 steps of "
-            f"{cfg.exp.batch_size} rays + validation in {t1 - t0:.1f} s; "
-            f"resumed at epoch {cfg.exp.max_epochs} in {t2 - t1:.1f} s "
-            f"({ckpt.name})")
+    t0 = time.perf_counter()
+    write_room_scene(renderer, dev, root)
+    log(f"training scene: 24 frames 480x480 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg_path = ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml"
+    cfg, _ = load_yaml_config(cfg_path)
+    cfg.data.data_dir = str(root)
+    cfg.data.scene = "room"
+    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+    cfg.exp.odir = str(root / "out")
+    save_config(root / "cfg.yaml", cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_cfg, r1 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
+    t1 = time.perf_counter()
+    w1 = r1.nerf_fine.pts_linears[0].weight.detach().clone()
+    _, r2 = train_cli(["--config", str(root / "cfg.yaml"), "--debug"])
+    t2 = time.perf_counter()
+    assert torch.equal(r2.nerf_fine.pts_linears[0].weight, w1), "resume"
+    ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
+                             name="last")
+    assert ckpt is not None and ckpt.name == f"last_{cfg.exp.max_epochs}"
+    log(f"cli --debug: {cfg.exp.max_epochs} epochs x 10 steps of "
+        f"{cfg.exp.batch_size} rays + validation in {t1 - t0:.1f} s; "
+        f"resumed at epoch {cfg.exp.max_epochs} in {t2 - t1:.1f} s "
+        f"({ckpt.name})")
 
-        trainer = NerfTrainer(cfg, device=dev, seed=seed)
-        ds = init_data_loader(cfg.data, split="train").dataset
-        batches = ds.ray_batches(cfg.exp.batch_size,
-                                 np.random.default_rng(seed))
-        gen = torch.Generator(dev).manual_seed(seed)
-        dev_batch = lambda b: (torch.as_tensor(b["rays"], device=dev),
-                               torch.as_tensor(b["rgbs"], device=dev))
-        steps = [dev_batch(next(batches)) for _ in range(56)]
-        hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    trainer = NerfTrainer(cfg, device=dev, seed=seed)
+    ds = init_data_loader(cfg.data, split="train").dataset
+    batches = ds.ray_batches(cfg.exp.batch_size,
+                             np.random.default_rng(seed))
+    gen = torch.Generator(dev).manual_seed(seed)
+    dev_batch = lambda b: (torch.as_tensor(b["rays"], device=dev),
+                           torch.as_tensor(b["rgbs"], device=dev))
+    steps = [dev_batch(next(batches)) for _ in range(56)]
+    hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    log(f"launches during training: {json.dumps(launches)}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    assert not missing, f"kernels never launched in training: {missing}"
+    loss = [float(m["loss"]) for m in hist]
+    psnr = [float(m["rgb_fine_psnr"]) for m in hist]
+    assert all(np.isfinite(loss)), "non-finite loss"
+    assert np.mean(loss[-5:]) < np.mean(loss[:5]), loss
+    assert np.mean(psnr[-5:]) > np.mean(psnr[:5]), psnr
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
+        for i in range(52, 56):
+            trainer.train_step(*steps[i], gen)
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) / 50 * 1e3
-        peak = torch.cuda.max_memory_allocated()
-        launches = dict(LAUNCHES)
-        log(f"launches during training: {json.dumps(launches)}")
-        missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
-        assert not missing, f"kernels never launched in training: {missing}"
-        loss = [float(m["loss"]) for m in hist]
-        psnr = [float(m["rgb_fine_psnr"]) for m in hist]
-        assert all(np.isfinite(loss)), "non-finite loss"
-        assert np.mean(loss[-5:]) < np.mean(loss[:5]), loss
-        assert np.mean(psnr[-5:]) > np.mean(psnr[:5]), psnr
+        wall = (time.perf_counter() - t0) * 1e3
+    # Kernel rows only: an op's device time already holds its kernels,
+    # and a user annotation's range (the optimizer step) spans kernels.
+    ka = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+    # The forward kernel runs once a stage a step (coarse, fine): the
+    # backward reads its stash and recomputes nothing.
+    fwd_runs = sum(e.count for e in ka if "train_fwd_kernel" in e.key)
+    top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"training: {step_ms:.1f} ms/step, "
+        f"{cfg.exp.batch_size / step_ms * 1e3:.0f} rays/s over 50 steps "
+        f"of {cfg.exp.batch_size} rays; loss {loss[0]:.4f} -> "
+        f"{np.mean(loss[-5:]):.4f}, train psnr {psnr[0]:.2f} -> "
+        f"{np.mean(psnr[-5:]):.2f} dB; profiled 4 steps: wall "
+        f"{wall:.1f} ms, device {dev_ms:.1f} ms, idle share "
+        f"{max(0.0, 1 - dev_ms / wall):.2f}")
+    log("  device time by kernel (ms, 4 steps): " + json.dumps(
+        {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
+         for e in top}))
+    log(f"  train_fwd_kernel launches in the 4 profiled steps: {fwd_runs} "
+        f"(2 a step); peak memory over the 50 timed steps "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    assert fwd_runs == 8, f"train_fwd_kernel ran {fwd_runs} times in 4 steps"
 
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for i in range(52, 56):
-                trainer.train_step(*steps[i], gen)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # Kernel rows only: an op's device time already holds its kernels,
-        # and a user annotation's range (the optimizer step) spans kernels.
-        ka = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-        dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
-        # The forward kernel runs once a stage a step (coarse, fine): the
-        # backward reads its stash and recomputes nothing.
-        fwd_runs = sum(e.count for e in ka if "train_fwd_kernel" in e.key)
-        top = sorted(ka, key=lambda e: -e.self_device_time_total)[:8]
-        log(f"training: {step_ms:.1f} ms/step, "
-            f"{cfg.exp.batch_size / step_ms * 1e3:.0f} rays/s over 50 steps "
-            f"of {cfg.exp.batch_size} rays; loss {loss[0]:.4f} -> "
-            f"{np.mean(loss[-5:]):.4f}, train psnr {psnr[0]:.2f} -> "
-            f"{np.mean(psnr[-5:]):.2f} dB; profiled 4 steps: wall "
-            f"{wall:.1f} ms, device {dev_ms:.1f} ms, idle share "
-            f"{max(0.0, 1 - dev_ms / wall):.2f}")
-        log("  device time by kernel (ms, 4 steps): " + json.dumps(
-            {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
-             for e in top}))
-        log(f"  train_fwd_kernel launches in the 4 profiled steps: {fwd_runs} "
-            f"(2 a step); peak memory over the 50 timed steps "
-            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-        assert fwd_runs == 8, f"train_fwd_kernel ran {fwd_runs} times in 4 steps"
+    serving = NerfRenderer(cfg, stop_layer=3)
+    serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
+    serving = serving.to(dev).eval()
+    with torch.no_grad():
+        out = serving.render_novel_view((480, 480), camera_K(480),
+                                        room_c2w(0.5), ds.unnorm_scene)
+    for k, v in out.items():
+        assert np.isfinite(v).all(), k
+    log(f"served {ckpt.name}: ds-8 grid pt3d {out['pt3d'].shape} "
+        f"pt_feat {out['pt_feat'].shape}")
+    return launches, ckpt, cfg
 
-        serving = NerfRenderer(cfg, stop_layer=3)
-        serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
-        serving = serving.to(dev).eval()
-        with torch.no_grad():
-            out = serving.render_novel_view((480, 480), camera_K(480),
-                                            room_c2w(0.5), ds.unnorm_scene)
-        for k, v in out.items():
-            assert np.isfinite(v).all(), k
-        log(f"served {ckpt.name}: ds-8 grid pt3d {out['pt3d'].shape} "
-            f"pt_feat {out['pt_feat'].shape}")
-    return launches
+
+def plain_fused_rgb(renderer, rays, chunk=9216):
+    """The port's plain render of (N, 12) rays on the card: what
+    :meth:`NerfRenderer.fused_render` computes, with each stage's plain
+    version (the same bf16 operands and early termination) and the
+    resample's plain twin that sums in the kernel's order, ``chunk`` rays
+    at a time (the kernel path's chunks) -> rgb_fine (N, 3)."""
+    from nerfmatch_tpu_torch.nerf.renderer import reparam_unit_dir
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_scan_plain)
+
+    (_, cmlp), (_, fmlp) = renderer._stages()
+    kw = renderer._stage_kwargs()
+    S = renderer.fine_cfg.num_pts
+    t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
+    out = []
+    for i in range(0, rays.shape[0], chunk):
+        r, _ = reparam_unit_dir(rays[i:i + chunk])
+        z = (r[:, 6:7] * (1.0 - t) + r[:, 7:8] * t).contiguous()
+        w = render_stage_plain(cmlp, r, z, fine=False, **kw)["weights"]
+        zf = resample_z_scan_plain(z, w)
+        out.append(render_stage_plain(fmlp, r, zf, fine=True, **kw)["rgb"])
+    return torch.cat(out)
+
+
+def phase_psnr(ckpt, root, dev, n_images=4, size=480):
+    """Phase 5b: ``cli.eval_nerf`` in its PSNR mode (``--split test
+    --img_wh 480 480 --downsample 1 --save_depth``) on phase 5's checkpoint,
+    over the first ``n_images`` test frames of the room scene: the mean
+    PSNR, seconds an image (loading, rendering, PNGs) and the launches (per
+    image 25 bf16 coarse stages, 25 resamples, 25 bf16 fine stages: the
+    config sets no ``trunk_int8``); then one image's kernel render against
+    the port's plain render of the same rays on the card (rgb within 5e-3)
+    with both PSNRs, and the render's own ms an image -> launches."""
+    from nerfmatch_tpu_torch.cli import eval_nerf
+    from nerfmatch_tpu_torch.eval.nerf_evaluator import load_nerf_from_ckpt
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.utils.metrics import compute_nerf_metrics
+
+    out_dir = root / "psnr"
+    argv = ["--ckpt", str(ckpt), "--split", "test", "--img_wh", str(size),
+            str(size), "--downsample", "1", "--save_depth", "--nums",
+            str(n_images), "--cache_dir", str(out_dir)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eval_nerf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    chunks = -(-size * size // 9216)
+    log(f"eval_nerf (PSNR) {' '.join(argv[2:-2])}: {n_images} images in "
+        f"{wall:.2f} s, {wall / n_images:.3f} s an image; PSNR per image "
+        f"{[round(v, 4) for v in res['psnr']]}, mean "
+        f"{np.mean(res['psnr']):.4f} dB; launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    assert len(res["psnr"]) == n_images and np.isfinite(res["psnr"]).all()
+    for k in ("render_coarse", "resample", "render_fine"):
+        assert launches[k] == chunks * n_images, (k, launches[k])
+    assert launches["render_coarse_int8"] == launches["render_fine_int8"] == 0
+    for sub in ("rgb", "depth"):
+        assert len(list((out_dir / sub).glob("*.png"))) == n_images, sub
+
+    args = eval_nerf.build_parser().parse_args(argv)
+    ev = load_nerf_from_ckpt(ckpt, args, frame_num=1, device=dev)
+    batch = next(iter(ev.data_loader))
+    rays = torch.as_tensor(np.asarray(batch["rays"][0]).reshape(-1, 12),
+                           dtype=torch.float32, device=dev)
+    gt = torch.as_tensor(np.asarray(batch["rgbs"][0]).reshape(-1, 3),
+                         device=dev)
+    with torch.no_grad():
+        k_rgb = ev.renderer.fused_predict(rays)["rgb_fine"]
+        p_rgb = plain_fused_rgb(ev.renderer, rays)
+        render_ms = cuda_ms(lambda: ev.renderer.fused_predict(rays), 3)
+    d = (k_rgb - p_rgb).abs()
+    psnr = {n: float(compute_nerf_metrics({"rgb_fine": x}, gt, True)[
+        "rgb_fine_psnr"]) for n, x in (("kernel", k_rgb), ("plain", p_rgb))}
+    log(f"  image 0 ({batch['img_idx'][0]}): kernel vs plain render on the "
+        f"card, rgb max {float(d.max()):.3e} (tol 5e-3) mean "
+        f"{float(d.mean()):.3e}; PSNR kernel {psnr['kernel']:.4f} plain "
+        f"{psnr['plain']:.4f} (difference "
+        f"{psnr['kernel'] - psnr['plain']:.2e} dB); the render alone "
+        f"{render_ms:.1f} ms an image ({chunks} chunks of 9216 rays)")
+    assert float(d.max()) < 5e-3
+    return launches, wall / n_images, render_ms
+
+
+def phase_psnr_app(ckpt, cfg, root, dev, n_poses=3, size=480):
+    """Phase 5c: an appearance checkpoint (phase 5's weights, the seeded
+    appearance block and (2, 16) table of :func:`with_appearance`, in the
+    port's checkpoint layout) on a copy of the room scene whose first
+    ``n_poses`` test frames sit under two sequence folders (``ts`` 0 and
+    1, the same poses and images, the room's scene normalization):
+    ``cli.eval_nerf``'s PSNR mode, the PSNR per sequence and the launches
+    (the fine stages with ``app``); the same pose's rgb differs between the
+    two ids; a ``--cache_scene_pts`` run (serving int8 default) gives the
+    same pose bit-identical ``pt_feat`` and ``pt3d`` under both ids and
+    another ``pt_color``; a cache run at ``trunk_int8='posttap'`` launches
+    the int8 fine stage with ``app`` -> launches of both fine stages."""
+    import shutil
+
+    from PIL import Image
+
+    from nerfmatch_tpu_torch.cli import eval_nerf
+    from nerfmatch_tpu_torch.eval.nerf_evaluator import load_nerf_from_ckpt
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import save_checkpoint
+
+    base = NerfRenderer(cfg, stop_layer=3)
+    base.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
+    app_r, app_cfg = with_appearance(base, cfg)
+    src, scene = root / "room", root / "room2"
+    frames = json.loads((src / "transforms_test.json").read_text())["frames"]
+    two = []
+    for seq in ("seq-01", "seq-02"):
+        (scene / seq).mkdir(parents=True)
+        for f in frames[:n_poses]:
+            name = f["file_path"].replace("seq-01", seq)
+            shutil.copy(src / f["file_path"], scene / name)
+            two.append(dict(f, file_path=name))
+    for split in ("train", "test"):
+        (scene / f"transforms_{split}.json").write_text(
+            json.dumps({"frames": two}))
+    app_cfg.data.scene = "room2"
+    app_cfg.data.snorm_json = str(src / "transforms_train.json")
+    app_ckpt = save_checkpoint(root / "app", 0, app_r, config=app_cfg,
+                               name="last")
+    out_dir = root / "psnr_app"
+    argv = ["--ckpt", str(app_ckpt), "--split", "test", "--img_wh", str(size),
+            str(size), "--downsample", "1", "--save_depth", "--cache_dir",
+            str(out_dir)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eval_nerf.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    n, chunks = 2 * n_poses, -(-size * size // 9216)
+    psnr = res["psnr"]
+    log(f"eval_nerf (PSNR), appearance checkpoint: {n} images in {wall:.2f} "
+        f"s, {wall / n:.3f} s an image; PSNR seq-01 (ts 0) "
+        f"{[round(v, 4) for v in psnr[:n_poses]]} mean "
+        f"{np.mean(psnr[:n_poses]):.4f}, seq-02 (ts 1) "
+        f"{[round(v, 4) for v in psnr[n_poses:]]} mean "
+        f"{np.mean(psnr[n_poses:]):.4f} dB; launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    for k in ("render_coarse", "resample", "render_fine_app"):
+        assert launches[k] == chunks * n, (k, launches[k])
+    assert launches["render_fine"] == 0 and np.isfinite(psnr).all()
+    png = lambda seq, f: np.asarray(Image.open(
+        out_dir / "rgb" / f"{seq}_{Path(f['file_path']).name[:-10]}.png"),
+        np.int32)
+    moved = [int(np.abs(png("seq-01", f) - png("seq-02", f)).max())
+             for f in frames[:n_poses]]
+    log(f"  rgb of the same pose under ts 0 and 1: largest PNG difference "
+        f"{moved}")
+    assert min(moved) > 0
+
+    cache = root / "cache_app"
+    reset_launch_counts()
+    eval_nerf.main(["--ckpt", str(app_ckpt), "--cache_scene_pts",
+                    "--downsample", "8", "--split", "test", "--cache_dir",
+                    str(cache)])
+    cache_launches = {k: v for k, v in LAUNCHES.items() if v}
+    same, color = [], []
+    for f in frames[:n_poses]:
+        stem = Path(f["file_path"]).name[:-10]
+        a, b = (np.load(cache / "ds8lin" / f"{seq}_{stem}.npy",
+                        allow_pickle=True).item() for seq in ("seq-01", "seq-02"))
+        same.append(all(np.array_equal(a[k], b[k]) for k in ("pt_feat", "pt3d")))
+        color.append(float(np.abs(a["pt_color"] - b["pt_color"]).max()))
+    log(f"  --cache_scene_pts (serving int8 default): pt_feat and pt3d of "
+        f"the same pose bit-identical under ts 0 and 1: {same}; pt_color "
+        f"differs by up to {[round(c, 4) for c in color]}; launches "
+        + json.dumps(cache_launches))
+    assert all(same) and min(color) > 0
+    assert cache_launches.get("render_coarse_int8", 0) > 0
+    assert cache_launches.get("render_fine_app", 0) > 0
+
+    args = eval_nerf.build_parser().parse_args(
+        ["--ckpt", str(app_ckpt), "--downsample", "8", "--split", "test"])
+    reset_launch_counts()
+    load_nerf_from_ckpt(app_ckpt, args, device=dev).cache_scene_pts(
+        cache_dir=root / "cache_posttap", trunk_int8="posttap")
+    posttap = LAUNCHES["render_fine_int8_app"]
+    log(f"  cache at trunk_int8='posttap': {posttap} int8 fine stages with app")
+    assert posttap > 0 and LAUNCHES["render_fine_app"] == 0
+    return {"render_fine_app": launches["render_fine_app"],
+            "render_fine_int8_app": posttap}, wall / n
 
 
 def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
@@ -2111,6 +2489,7 @@ def main():
     smi = phase_environment()
     import copy
     import dataclasses
+    import tempfile
 
     from nerfmatch_tpu_torch.config import load_yaml_config
     from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
@@ -2146,11 +2525,18 @@ def main():
         f"{getattr(nerf_cfg.render, 'trunk_int8', None)!r})")
     with torch.no_grad():
         launches, results = phase_serving(serving, evaluator, dev)
-        inerf = phase_inerf(serving, evaluator, dev)
+        inerf = phase_inerf(serving, evaluator, nerf_cfg, dev)
         phase_check(evaluator, results[0][0])
     del serving, evaluator, results
     torch.cuda.empty_cache()
-    trained = phase_training(renderer, dev, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained, ckpt5, cfg5 = phase_training(renderer, dev, args.seed,
+                                              Path(tmp))
+        _, psnr_s, psnr_ms = phase_psnr(ckpt5, Path(tmp), dev)
+        app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
+    log(f"PSNR phases: {psnr_s:.3f} s an image ({psnr_ms:.1f} ms of it the "
+        f"render), appearance checkpoint {psnr_app_s:.3f} s an image")
+    launches.update(app_launches)
     launches.update({k: trained[k]
                      for k in ("render_train_fwd", "render_train_bwd")})
     # The resample runs on both paths: phase 4's count is the line's,

@@ -8,7 +8,10 @@
 // ops/kernels/quant.py), driven twice per ray batch by
 // make_fused_hierarchical: a coarse variant (weights, depth, acc) and a
 // fine variant (+ rgb, the composited layer-`feat_layer` descriptor and the
-// composited 3D point).
+// composited 3D point).  An appearance NeRF's fine stage also takes each
+// ray's appearance row (app, 16 f32 a ray): the views layer adds app @ Wva
+// to the per-ray dirs_pe @ Wvd, both f32 FMA on unrounded weights, in the
+// tile's prologue (the JAX kernel's SelApp extras of from_rays mode).
 //
 // Per ray: conical-frustum moments from the z fenceposts -> integrated
 // positional encoding -> L x HID MLP (skip concat after the skip layer) ->
@@ -109,6 +112,7 @@ constexpr int kSliceK = 32;                        // bf16 weight rows a ring sl
 constexpr int kSliceK8 = 64;                       // s8 weight rows a ring slot
 constexpr int kEncSlices = kEncMax / kSliceK;      // encoding rows: 3 slices
 constexpr int kEncSlices8 = 2;   // s8 encoding rows (96, padded to 128)
+constexpr int kAppDim = 16;      // appearance row of a ray
 static_assert(kWgRows == 64, "one chunk = one wgmma m64 tile");
 
 struct EvalParams {
@@ -122,6 +126,9 @@ struct EvalParams {
   const float* ba;   // (1,)
   const float* bf;   // feature bias
   const float* wvd;  // views layer, dirs rows, f32 (dirs_dim, hid / 2)
+  const float* wva;  // views layer, appearance rows, f32 (kAppDim, hid / 2),
+                     // or null (no appearance table)
+  const float* app;  // (N, kAppDim) appearance rows of the rays, or null
   const float* bv;
   const float* wr;   // rgb head, f32 (hid / 2, 3)
   const float* br;
@@ -591,12 +598,19 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
             dpe[r * kDirsMax + j] = v;
           }
           wg_sync(wg);
-          // Per-ray view contribution of the views layer: dirs_pe @ wvd (f32).
+          // Per-ray view contribution of the views layer: dirs_pe @ wvd
+          // (+ app @ wva), f32; the appearance row is read from global
+          // memory (dpe holds kDirsMax values a ray, too few for both).
           for (int i = lt; i < kTileRays * HV; i += 128) {
             const int r = i / HV, k = i % HV;
             float s = 0.f;
             for (int j = 0; j < dirs_dim; ++j)
               s = fmaf(dpe[r * kDirsMax + j], __ldg(p.wvd + (size_t)j * HV + k), s);
+            if (p.app != nullptr) {
+              const float* a = p.app + (size_t)(ray0 + r) * kAppDim;
+              for (int j = 0; j < kAppDim; ++j)
+                s = fmaf(__ldg(a + j), __ldg(p.wva + (size_t)j * HV + k), s);
+            }
             xt[i] = s;
           }
         }
@@ -1031,10 +1045,12 @@ size_t smem_bytes(bool fine, bool q8) {
 
 }  // namespace
 
-// ptrs: host array of 2 * layer_num + 10 device pointers: W (the slot
+// ptrs: host array of 2 * layer_num + 11 device pointers: W (the slot
 // images the ring streams: render_kernel.py: pack_mlp), then (Wenc_i, b_i)
 // for each layer i (Wenc_i: non-null where the layer takes the encoding
-// rows), then wa, ba, bf, wvd, bv, wr, br, rays, z.  qptrs: null (a bf16
+// rows), then wa, ba, bf, wvd, wva, bv, wr, br, rays, z (wva null without
+// an appearance table).  app: null, or (n_rays, 16) f32 appearance rows
+// (the fine stage of an appearance NeRF; needs wva).  qptrs: null (a bf16
 // trunk), or the int8 trunk of layers int8_from .. L - 1 as 3 * layer_num
 // + 3 device pointers: per layer scale, scale_s, bias (null below
 // int8_from; scale_s null without encoding rows), then qenc, qh (int8_from
@@ -1045,7 +1061,8 @@ size_t smem_bytes(bool fine, bool q8) {
 // 96 + hid) int8 receiving the quantized encoding and the last layer's int8
 // input (int8 trunk only).
 extern "C" int nm_render_eval_forward(const void* const* ptrs,
-                                      const void* const* qptrs, int n_rays,
+                                      const void* const* qptrs,
+                                      const void* app, int n_rays,
                                       int hid, int layer_num, int feat_layer,
                                       int int8_from, int num_freqs,
                                       int dirs_freqs, int samples,
@@ -1076,6 +1093,9 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
   p.ba = (const float*)ptrs[k++];
   p.bf = (const float*)ptrs[k++];
   p.wvd = (const float*)ptrs[k++];
+  p.wva = (const float*)ptrs[k++];
+  p.app = fine ? (const float*)app : nullptr;
+  if (p.app != nullptr && p.wva == nullptr) return (int)cudaErrorInvalidValue;
   p.bv = (const float*)ptrs[k++];
   p.wr = (const float*)ptrs[k++];
   p.br = (const float*)ptrs[k++];

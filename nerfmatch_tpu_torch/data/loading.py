@@ -10,6 +10,11 @@ from collections import defaultdict
 
 import numpy as np
 
+SEVEN_SCENES = ["heads", "chess", "fire", "office", "pumpkin", "redkitchen",
+                "stairs"]
+CAMBRIDGE_LANDMARKS = ["KingsCollege", "OldHospital", "ShopFacade",
+                       "StMarysChurch", "GreatCourt"]
+
 
 def frame_cache_name(fname: str) -> str:
     """Image path -> scene-point cache stem (reference ``data_loading.py:40``)."""

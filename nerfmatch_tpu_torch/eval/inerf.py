@@ -13,7 +13,9 @@ The step's no-gradient half, the coarse pass and the resample, is
 (its int8 trunk under the serving default ``'coarse'``) and the resample
 kernel.  The half under gradient is plain PyTorch: the fine NeRF MLP in
 f32 on ``torch.matmul``, then ``volume_render``, differentiated by
-autograd.  The JAX package computes it outside any Pallas kernel too
+autograd.  An appearance NeRF renders every query with table row 1, the
+reference's quirk the JAX package keeps (``inerf.py: _app``); the row takes
+no gradient.  The JAX package computes it outside any Pallas kernel too
 (``inerf.py:92-116``: ``nerf_apply`` and ``volume_render`` under
 ``jax.value_and_grad``); the training render kernels return weight
 gradients, not ray gradients.
@@ -80,10 +82,6 @@ class InerfQuery:
 
     def __init__(self, evaluator, batch, renderer, unnorm_scene, c2w_est,
                  inerf_conf, plain: bool = False):
-        if renderer.cfg.appearance_embedding:
-            raise NotImplementedError(
-                "iNeRF with appearance embeddings is not ported (ROADMAP "
-                "Queue 1 item 6)")
         self.evaluator, self.renderer, self.plain = evaluator, renderer, plain
         self.lrate = float(getattr(inerf_conf, "lrate", 0.001))
         self.lrdecay = bool(getattr(inerf_conf, "lrdecay", False))
@@ -135,6 +133,9 @@ class InerfQuery:
         pts = o[:, None, :] + t_mean[..., None] * viewdirs[:, None, :]
         enc, _ = ipe_embedding(pts, var, r.cfg.xyz_num_freqs)
         dirs = pe_embedding(viewdirs, r.cfg.dirs_num_freqs)
+        app = r.app_rows(None, dirs.shape[0], dirs.device)
+        if app is not None:
+            dirs = torch.cat([dirs, app], dim=-1)
         raw, feats = r.nerf_fine(
             torch.cat([enc, dirs[:, None, :].expand(-1, enc.shape[1], -1)], -1))
         rf = volume_render(raw[..., :4], z, rays[:, 3:6], white_bg=True)

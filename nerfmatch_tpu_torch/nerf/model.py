@@ -73,11 +73,15 @@ class NerfMLP(nn.Module):
     def forward(self, x, dtype=None):
         """Encoded inputs (..., xyz+dirs+app) -> (outputs, point feature).
         ``dtype`` (e.g. ``torch.bfloat16``): run every layer in that type
-        (inputs and parameters cast, as ``nerf_apply(compute_dtype=...)``);
+        (inputs and parameters cast, each product rounded to ``dtype``
+        before its bias is added, as ``nerf_apply(compute_dtype=...)``);
         outputs come back in f32."""
         cfg = self.cfg
         lin = F.linear if dtype is None else (
-            lambda h, w, b: F.linear(h, w.to(dtype), b.to(dtype)))
+            lambda h, w, b: torch.matmul(h, w.to(dtype).t()) + b.to(dtype))
+        # XLA's logistic in a narrow type rounds after each of its steps.
+        sigmoid = torch.sigmoid if dtype is None else (
+            lambda y: 1.0 / (1.0 + torch.exp(-y)))
         if dtype is not None:
             x = x.to(dtype)
         input_pts = x[..., : cfg.xyz_dim]
@@ -98,8 +102,8 @@ class NerfMLP(nn.Module):
             h_rgb = torch.cat([feature, input_views, input_app], dim=-1)
             for lyr in self.views_linears:
                 h_rgb = torch.relu(lin(h_rgb, lyr.weight, lyr.bias))
-            rgb = torch.sigmoid(lin(h_rgb, self.rgb_linear.weight,
-                                    self.rgb_linear.bias))
+            rgb = sigmoid(lin(h_rgb, self.rgb_linear.weight,
+                              self.rgb_linear.bias))
             outputs = torch.cat([rgb, alpha], dim=-1)
         else:
             outputs = lin(h, self.output_linear.weight,

@@ -17,13 +17,17 @@ RAY_VIEWDIR = slice(8, 11)
 RAY_RADII = 11
 
 
-def get_ray_dirs(H: int, W: int, K):
-    """Per-pixel ray directions in camera coords from intrinsics K: (H, W, 3)."""
+def get_ray_dirs(H: int, W: int, K, flipped_yz: bool = False):
+    """Per-pixel ray directions in camera coords from intrinsics K: (H, W, 3);
+    ``flipped_yz``: y and z negated (OpenGL camera axes)."""
     K = torch.as_tensor(K, dtype=torch.float32)
     ys, xs = torch.meshgrid(torch.arange(H, device=K.device),
                             torch.arange(W, device=K.device), indexing="ij")
     xys = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1).to(torch.float32)
-    return xys @ torch.linalg.inv(K).T
+    dirs = xys @ torch.linalg.inv(K).T
+    if flipped_yz:
+        dirs = dirs * torch.tensor([1.0, -1.0, -1.0], device=K.device)
+    return dirs
 
 
 def get_rays_c2w(dirs, c2w):
@@ -36,8 +40,11 @@ def get_rays_c2w(dirs, c2w):
 
 def prepare_rays_data(rays_o, rays_d, viewdirs, near, far):
     """Pack an (H, W, .) ray grid as ``[o, d, near, far, viewdir, radii]``;
-    the mip cone radius comes from the distance between vertically
-    neighbouring pixel directions, scaled by 2/sqrt(12)."""
+    ``near`` / ``far``: (H, W, 1) tensors or scalars; the mip cone radius
+    comes from the distance between vertically neighbouring pixel
+    directions, scaled by 2/sqrt(12)."""
+    near, far = (v if torch.is_tensor(v)
+                 else torch.full_like(rays_d[..., :1], v) for v in (near, far))
     dx = torch.sqrt(torch.sum((rays_d[:-1] - rays_d[1:]) ** 2, -1))
     dx = torch.cat([dx, dx[-2:-1]], dim=0)
     radii = dx[..., None] * 2.0 / math.sqrt(12.0)

@@ -2,7 +2,11 @@
 ``nerfmatch_tpu/nerf/renderer.py``).
 
 ``NerfRenderer`` is an ``nn.Module`` holding ``nerf_coarse`` / ``nerf_fine``
-(the reference's state-dict keys).  Routing follows the device of the rays:
+and, with ``embedding.appearance_embed``, the per-sequence appearance table
+``embedding_a`` (V, 16) (the reference's state-dict keys).  Every render
+takes ``ray_id`` (N,), the table row of each ray (default 1, as the JAX
+package), clamped to ``V - 1`` as a JAX gather clamps; the row joins the
+views layer only.  Routing follows the device of the rays:
 
 * eval, CUDA: :meth:`fused_render` -- the render kernel twice (coarse,
   fine) with the resample kernel between them (``make_fused_hierarchical``
@@ -10,9 +14,10 @@
   trunk of ``cfg.trunk_int8``, with activation scales calibrated lazily
   from the first ray batch).  Configs the kernels do not implement raise
   ``NotImplementedError``.
-* eval, CPU: :meth:`render_rays`, the plain f32 sampling / MLP / compositing
-  path (``render_rays(train=False, ret_pfeat=True, validation=True)``), as
-  the JAX package's non-fused fallback, which serves ``'none'``.
+* eval, CPU: :meth:`render_rays`, the plain sampling / MLP / compositing
+  path with the MLP in ``compute_dtype`` (``render_rays(train=False,
+  ret_pfeat=True, validation=True)``), as the JAX package's non-fused
+  fallback, which serves ``'none'``.
 * training: :meth:`train_render` (``make_fused_train_hierarchical``) --
   jittered fenceposts, the train-render kernels (forward and backward) per
   stage with the randomized resample kernel between them; on CPU tensors
@@ -33,7 +38,8 @@ from torch import nn
 
 from ..models.layers import init_params_
 from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
-from ..ops.kernels.render_kernel import TILE_RAYS, pack_mlp, render_stage
+from ..ops.kernels.render_kernel import (APP_DIM, TILE_RAYS, pack_mlp,
+                                         render_stage)
 from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
 from ..utils.geometry import unnormalize_pts
@@ -120,18 +126,26 @@ class RenderConfig:
 
 
 class NerfRenderer(nn.Module):
-    def __init__(self, config, stop_layer: int = -1):
+    def __init__(self, config, num_frames: int | None = None,
+                 stop_layer: int = -1):
+        """``num_frames``: rows of the appearance table (the sequences of
+        the training set; read from a stored table by the loaders), used
+        only with ``embedding.appearance_embed``."""
         super().__init__()
         self.cfg = RenderConfig.from_config(config)
         if self.cfg.embed_type != "mip" or not self.cfg.use_viewdirs:
             raise NotImplementedError("the port renders mip NeRFs with "
                                       "viewdirs (the localization config)")
-        if self.cfg.appearance_embedding:
-            raise NotImplementedError("appearance embeddings are not ported "
-                                      "(ROADMAP: Cambridge appearance path)")
+        app_dim = APP_DIM if self.cfg.appearance_embedding else 0
+        if app_dim:
+            if not num_frames:
+                raise ValueError("an appearance NeRF needs num_frames (the "
+                                 "rows of its embedding_a table)")
+            self.embedding_a = nn.Embedding(num_frames, app_dim)
         common = dict(use_viewdirs=True,
                       xyz_dim=ipe_embedding_dim(3, self.cfg.xyz_num_freqs),
-                      dirs_dim=2 * 3 * self.cfg.dirs_num_freqs + 3, app_dim=0)
+                      dirs_dim=2 * 3 * self.cfg.dirs_num_freqs + 3,
+                      app_dim=app_dim)
         self.coarse_cfg = None
         if not self.cfg.single_model:
             self.coarse_cfg = NerfConfig.from_namespace(config.coarse_nerf,
@@ -149,8 +163,30 @@ class NerfRenderer(nn.Module):
     def init_params(self, generator: torch.Generator):
         """Re-draw every weight and bias from ``generator``:
         U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the distribution of
-        ``nerf/model.py: init_nerf_params`` (its draws differ)."""
-        return init_params_(self, generator)
+        ``nerf/model.py: init_nerf_params`` (its draws differ), and the
+        appearance table N(0, 1), as the JAX ``init_params``."""
+        init_params_(self, generator)
+        if self.cfg.appearance_embedding:
+            with torch.no_grad():
+                w = self.embedding_a.weight
+                w.copy_(torch.randn(w.shape, generator=generator))
+        return self
+
+    def app_rows(self, ray_id, n: int, device):
+        """The appearance rows (n, 16) of ``ray_id`` (n,) int (None: every
+        ray takes row 1, the JAX default), ids clamped to the table as a
+        JAX gather clamps them; None without a table.  No gradient reaches
+        the table (training it is not ported)."""
+        if not self.cfg.appearance_embedding:
+            return None
+        table = self.embedding_a.weight.detach()
+        if ray_id is None:
+            ray_id = torch.ones(n, dtype=torch.long, device=device)
+        ray_id = torch.as_tensor(ray_id, device=table.device).long().reshape(-1)
+        if ray_id.shape[0] != n:
+            raise ValueError(f"ray_id has {ray_id.shape[0]} entries for {n} "
+                             "rays")
+        return table[ray_id.clamp(0, table.shape[0] - 1)].to(device)
 
     def _stages(self):
         coarse = self.nerf_fine if self.cfg.single_model else self.nerf_coarse
@@ -160,21 +196,24 @@ class NerfRenderer(nn.Module):
     # Plain path
     # ------------------------------------------------------------------
     def render_rays(self, rays, train: bool = False, generator=None,
-                    draws=None):
-        """Hierarchical render of (R, 12) rays -> per-ray maps.
+                    draws=None, ray_id=None):
+        """Hierarchical render of (R, 12) rays -> per-ray maps, the MLP in
+        ``compute_dtype`` (as the JAX ``_forward_nerf``); ``ray_id``: the
+        appearance rows (see :meth:`app_rows`).
 
         ``train=False``: the JAX ``render_rays(train=False, ret_pfeat=True,
         validation=True)``.  ``train=True``: the JAX XLA training render
         (always randomized: jittered coarse fenceposts, stratified resample,
-        density noise when ``noise_std > 0``; MLP in ``compute_dtype``) ->
-        rgb / depth per stage, ``weights_fine`` and ``s_fine``.  Draws come
-        from ``draws`` (see :meth:`train_draws`, per stage) or
-        ``generator``."""
+        density noise when ``noise_std > 0``) -> rgb / depth per stage,
+        ``weights_fine`` and ``s_fine``.  Draws come from ``draws`` (see
+        :meth:`train_draws`, per stage) or ``generator``."""
         rays_d = rays[..., 3:6]
         viewdirs = rays[..., RAY_VIEWDIR]
         dirs_emb = pe_embedding(viewdirs, self.cfg.dirs_num_freqs)
-        dtype = torch.bfloat16 if train and \
-            self.cfg.compute_dtype == "bfloat16" else None
+        app = self.app_rows(ray_id, rays.shape[0], rays.device)
+        if app is not None:
+            dirs_emb = torch.cat([dirs_emb, app], dim=-1)
+        dtype = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
         if train and draws is None:
             draws = self.train_draws(rays.shape[0], generator, rays.device,
                                      randomized=True)
@@ -344,13 +383,16 @@ class NerfRenderer(nn.Module):
                     else 1.0, early_term_eps=cfg.early_term_eps,
                     white_bg=cfg.white_bg)
 
-    def fused_render(self, rays, packed=None):
+    def fused_render(self, rays, packed=None, ray_id=None):
         """Two-stage fused render of (N, 12) rays, N a multiple of
         ``TILE_RAYS``.  ``packed``: optional :meth:`pack_fused` output, to
-        pack once for many chunks."""
+        pack once for many chunks; ``ray_id``: the appearance rows (see
+        :meth:`app_rows`), read by the fine stage's views layer.  The coarse
+        stage emits no rgb, so the outputs hold ``rgb_fine`` only."""
         self.check_fused_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
         (pc, qc), (pf, qf) = packed or self.pack_fused()
+        app = self.app_rows(ray_id, rays.shape[0], rays.device)
         rays, nrm = reparam_unit_dir(rays)
         S = self.fine_cfg.num_pts
         t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
@@ -360,29 +402,40 @@ class NerfRenderer(nn.Module):
                               packed=pc, int8=qc, **kw)
         z_fine = resample_z(z_vals, coarse["weights"])
         fine = render_stage(fine_mlp, rays, z_fine, fine=True, packed=pf,
-                            int8=qf, **kw)
+                            int8=qf, app=app, **kw)
         inv = 1.0 / nrm[:, 0]
         return {"depth_coarse": coarse["depth"] * inv,
                 "rgb_fine": fine["rgb"], "depth_fine": fine["depth"] * inv,
                 "acc_fine": fine["acc"], "feat_fine": fine["feat"],
                 "pts_fine": fine["pts"], "weights_fine": fine["weights"]}
 
-    def fused_predict(self, rays, chunk_rays: int = 9216):
+    def fused_predict(self, rays, chunk_rays: int = 9216, ray_id=None):
         """Chunked :meth:`fused_render` over any number of rays; with an
         int8 mode the scales are calibrated from the first 1024 rays when
-        there are none yet."""
+        there are none yet.  ``ray_id`` (N,): the appearance rows, padded
+        with the last one, as the JAX ``fused_predict``."""
         n = rays.shape[0]
         if n == 0:
             raise ValueError("fused_predict: empty ray batch")
         self.check_fused_supported()
         self._ensure_int8_calibrated(rays)
+        if not self.cfg.appearance_embedding:
+            ray_id = None
+        else:
+            ray_id = (torch.ones(n, dtype=torch.long, device=rays.device)
+                      if ray_id is None else torch.as_tensor(
+                          ray_id, device=rays.device).long().reshape(-1))
         n_pad = (-n) % TILE_RAYS
         if n_pad:
             rays = torch.cat([rays, rays[-1:].expand(n_pad, -1)])
+            if ray_id is not None:
+                ray_id = torch.cat([ray_id, ray_id[-1:].expand(n_pad)])
         packed = self.pack_fused()
         chunk_rays -= chunk_rays % TILE_RAYS
-        chunks = [self.fused_render(rays[i:i + chunk_rays].contiguous(), packed)
-                  for i in range(0, rays.shape[0], chunk_rays)]
+        chunks = [self.fused_render(
+            rays[i:i + chunk_rays].contiguous(), packed,
+            None if ray_id is None else ray_id[i:i + chunk_rays])
+            for i in range(0, rays.shape[0], chunk_rays)]
         return {k: torch.cat([c[k] for c in chunks])[:n] for k in chunks[0]}
 
     @torch.no_grad()
@@ -404,6 +457,9 @@ class NerfRenderer(nn.Module):
             (mean, var), z = sample_along_rays(rays, num_pts=S, scale_var=1.0)
             enc, _ = ipe_embedding(mean, var, self.cfg.xyz_num_freqs)
             dirs = pe_embedding(rays[:, RAY_VIEWDIR], self.cfg.dirs_num_freqs)
+            app = self.app_rows(None, rays.shape[0], rays.device)
+            if app is not None:     # row 1, as the JAX iNeRF; sigma ignores it
+                dirs = torch.cat([dirs, app], dim=-1)
             raw, _ = coarse_mlp(
                 torch.cat([enc, dirs[:, None, :].expand(-1, S, -1)], -1),
                 dtype=torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
@@ -422,12 +478,14 @@ class NerfRenderer(nn.Module):
                                           "var_scale": 1.0})
         return (resample_z(z, coarse["weights"]) / nrm)[:n]
 
-    def predict(self, rays, chunk_rays: int = 4096):
-        """Eval render: the fused kernels for CUDA rays, the plain path for
-        CPU rays."""
+    def predict(self, rays, chunk_rays: int = 4096, ray_id=None):
+        """Eval render: the fused kernels for CUDA rays (outputs without
+        ``rgb_coarse``), the plain path for CPU rays; ``ray_id`` (N,): the
+        appearance rows (see :meth:`app_rows`)."""
         if rays.device.type == "cuda":
-            return self.fused_predict(rays)
-        chunks = [self.render_rays(rays[i:i + chunk_rays])
+            return self.fused_predict(rays, ray_id=ray_id)
+        rid = lambda i: None if ray_id is None else ray_id[i:i + chunk_rays]
+        chunks = [self.render_rays(rays[i:i + chunk_rays], ray_id=rid(i))
                   for i in range(0, rays.shape[0], chunk_rays)]
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
@@ -458,7 +516,8 @@ class NerfRenderer(nn.Module):
     def render_novel_views(self, img_hw, Ks, c2ws, unnorm_scenes,
                            downsample: int = 8):
         """Batched :meth:`render_novel_view`: all poses' rays in one
-        :meth:`predict` call -> (B, ...) numpy arrays."""
+        :meth:`predict` call -> (B, ...) numpy arrays; an appearance NeRF
+        renders with table row 1, as the JAX package."""
         H, W = img_hw
         B = len(c2ws)
         rays = [self._view_rays(img_hw, Ks[b], c2ws[b], unnorm_scenes[b],

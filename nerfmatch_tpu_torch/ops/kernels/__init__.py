@@ -33,7 +33,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # Launch counts by kernel name; incremented by each wrapper where it launches.
 LAUNCHES = {"render_coarse": 0, "render_fine": 0, "render_coarse_int8": 0,
-            "render_fine_int8": 0, "resample": 0,
+            "render_fine_int8": 0, "render_fine_app": 0,
+            "render_fine_int8_app": 0, "resample": 0,
             "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0,
             "attention_bwd": 0, "dw_star_fwd": 0, "dw_star_dgrad": 0,
             "dw_star_wgrad": 0}
@@ -43,13 +44,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures: (name, argtypes).  Every entry returns cudaError_t as int.
 _SIGNATURES = {
-    # params, int8 params or null (host arrays of device pointers), n_rays,
-    # hid, layer_num, feat_layer, int8_from, num_freqs, dirs_freqs, samples,
-    # var_scale, log_eps, white_bg, fine, tile counter, out pointers x6, tap
-    # debug output, int8 debug output, stream
-    "nm_render_eval_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                               _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P],
+    # params, int8 params or null (host arrays of device pointers),
+    # appearance rows or null, n_rays, hid, layer_num, feat_layer,
+    # int8_from, num_freqs, dirs_freqs, samples, var_scale, log_eps,
+    # white_bg, fine, tile counter, out pointers x6, tap debug output, int8
+    # debug output, stream
+    "nm_render_eval_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                               _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
     # hid, fine, int8 -> dynamic shared memory bytes
     "nm_render_eval_smem": [_I, _I, _I],
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream

@@ -6,7 +6,11 @@ compositing over packed rays (N, 12) in the unit-direction
 parameterization and z fenceposts (N, S+1).  ``fine=False`` is the coarse
 variant (weights, depth, acc); ``fine=True`` adds rgb, the composited
 descriptor (the MLP's tap layer) and the composited point
-``o * acc + d * sum(w * t_mean)``.
+``o * acc + d * sum(w * t_mean)``.  An appearance NeRF's fine stage takes
+``app`` (N, 16), each ray's appearance row: the views layer adds
+``app @ Wva`` to the per-ray ``dirs_pe @ Wvd`` (f32 FMA on unrounded
+weights); nothing else reads it, so weights, depth, feat and pts do not
+depend on it.
 
 Precision follows the JAX kernel: the MLP's matrix products take bf16
 operands with f32 accumulation; everything else is f32.  The plain version
@@ -43,6 +47,7 @@ from .render_train_kernel import ENC_MAX, _skip_in, forward_images
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
 KERNEL_HIDS = (64, 256)
+APP_DIM = 16           # columns of an appearance row (the table's width)
 
 
 def stream_bytes(cfg, int8_from=None) -> int:
@@ -63,13 +68,15 @@ def stream_bytes(cfg, int8_from=None) -> int:
 def pack_mlp(mlp: NerfMLP, int8=None):
     """The render kernel's weight list (``csrc/render_eval.cu``), in the
     order its C entry expects: the slot images its ring streams, per layer
-    (its encoding flag or None, bias), then wa, ba, bf, wvd, bv, wr, br.
+    (its encoding flag or None, bias), then wa, ba, bf, wvd, wva, bv, wr,
+    br.
     A bf16 trunk's images are every matrix's bf16 slot images
     (``render_train_kernel.forward_images``, the images kernel 5 reads);
     with ``int8`` (``quant.pack_mlp_int8``) the trunk layers from
     ``int8["start"]`` on are its s8 images (``int8["img"]``), in bytes.  wvd
-    (the views layer's dirs rows) and wr (the rgb head) stay f32: the
-    kernel's FMAs take them unrounded."""
+    and wva (the views layer's dirs and appearance rows; wva None without
+    a table) and wr (the rgb head) stay f32: the kernel's FMAs take them
+    unrounded."""
     cfg = mlp.cfg
     fwd, enc_at = forward_images(mlp, None if int8 is None else int8["start"])
     if int8 is None:
@@ -85,26 +92,31 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     for i, lin in enumerate(mlp.pts_linears):
         out += [flags.get(i), lin.bias.detach().contiguous()]
     wv = mlp.views_linears[0].weight.detach()
+    app_at = cfg.hid_dim + cfg.dirs_dim
     out += [mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
             mlp.alpha_linear.bias.detach().contiguous(),
             mlp.feature_linear.bias.detach().contiguous(),
-            wv[:, cfg.hid_dim:].t().contiguous(),
+            wv[:, cfg.hid_dim:app_at].t().contiguous(),
+            wv[:, app_at:].t().contiguous() if cfg.app_dim else None,
             mlp.views_linears[0].bias.detach().contiguous(),
             mlp.rgb_linear.weight.detach().t().contiguous(),
             mlp.rgb_linear.bias.detach().contiguous()]
     return out
 
 
-def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int):
+def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int, fine: bool,
+                  app):
     cfg = mlp.cfg
     if not cfg.use_viewdirs:
         raise NotImplementedError("fused render needs use_viewdirs")
-    if cfg.app_dim:
-        raise NotImplementedError(
-            "appearance embeddings are not in the CUDA render kernel "
-            "(ROADMAP: Cambridge appearance path)")
+    if cfg.app_dim not in (0, APP_DIM):
+        raise NotImplementedError(f"appearance rows of {cfg.app_dim} columns "
+                                  f"(the kernel takes {APP_DIM})")
     if cfg.xyz_dim != 6 * num_freqs or cfg.dirs_dim != 6 * dirs_freqs + 3:
         raise NotImplementedError(f"fused render config {cfg} not supported")
+    if fine and bool(cfg.app_dim) != (app is not None):
+        raise ValueError("render_stage: the fine stage of an appearance NeRF "
+                         "takes app (N, 16), and only it")
 
 
 def int8_pointers(mlp: NerfMLP, int8):
@@ -125,23 +137,25 @@ def int8_pointers(mlp: NerfMLP, int8):
 def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                  dirs_freqs: int, var_scale: float = 1.0,
                  early_term_eps: float = 0.0, white_bg: bool = False,
-                 packed=None, int8=None, debug_q: bool = False,
+                 packed=None, int8=None, app=None, debug_q: bool = False,
                  debug_tap: bool = False):
     """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts]).
     ``packed``: :func:`pack_mlp` of ``mlp`` (with ``int8``), to pack once
-    for many calls.  ``int8`` (``quant.pack_mlp_int8``): run the trunk from
+    for many calls.  ``app`` (N, 16) f32: the appearance rows of an
+    appearance NeRF's fine stage (the coarse stage emits no rgb and ignores
+    it).  ``int8`` (``quant.pack_mlp_int8``): run the trunk from
     ``int8["start"]`` on in the quantized domain; ``debug_q`` adds the int8
     encoding ``xq`` and the last layer's int8 input ``hq`` (``int8`` only;
     0 in skipped blocks on CUDA).  ``debug_tap`` (fine stage, CUDA): adds the
     tap layer's activations of the kernel's first pass ``tap_first`` and of
     its second ``tap_again`` (N, S, hid; 0 in skipped blocks)."""
-    _check_config(mlp, num_freqs, dirs_freqs)
     if rays.device.type != "cuda":
         return render_stage_plain(mlp, rays, z, fine=fine, num_freqs=num_freqs,
                                   dirs_freqs=dirs_freqs, var_scale=var_scale,
                                   early_term_eps=early_term_eps,
-                                  white_bg=white_bg, int8=int8,
+                                  white_bg=white_bg, int8=int8, app=app,
                                   debug_q=debug_q)
+    _check_config(mlp, num_freqs, dirs_freqs, fine, app)
     cfg = mlp.cfg
     start = None if int8 is None else int8["start"]
     if packed is None:
@@ -151,12 +165,18 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
         raise ValueError("render_stage: packed for another trunk (pack_mlp(mlp, "
                          "int8) packs the one int8 gives)")
     qptrs = None if int8 is None else int8_pointers(mlp, int8)
-    require_cuda_tensors("render_stage", rays, z,
-                         *[p for p in [*packed, *(qptrs or [])] if p is not None])
+    app = app if fine else None
+    require_cuda_tensors("render_stage", rays, z, *[
+        p for p in [*packed, *(qptrs or []), app] if p is not None])
     n, S = z.shape[0], z.shape[1] - 1
     if rays.dtype != torch.float32 or z.dtype != torch.float32 \
             or rays.shape != (n, 12):
         raise ValueError("render_stage: rays (N, 12) and z (N, S+1) f32")
+    if app is not None and (app.dtype != torch.float32
+                            or app.shape != (n, APP_DIM)
+                            or not app.is_contiguous()):
+        raise ValueError(f"render_stage: app ({n}, {APP_DIM}) f32, "
+                         "contiguous")
     if n % TILE_RAYS or S % SAMPLE_BLOCK or cfg.hid_dim not in KERNEL_HIDS:
         raise NotImplementedError(
             f"render kernel needs N % {TILE_RAYS} == 0, S % {SAMPLE_BLOCK} "
@@ -193,13 +213,14 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     dbgq = (torch.zeros(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
             if debug_q else None)
     err = library().nm_render_eval_forward(
-        ptrs, qarr, n, hid, cfg.layer_num, eval_feat_layer(cfg),
+        ptrs, qarr, ptr(app), n, hid, cfg.layer_num, eval_feat_layer(cfg),
         -1 if start is None else start, num_freqs, dirs_freqs, S, var_scale,
         log_eps, int(white_bg), int(fine), counter.data_ptr(), *outs, ptr(dbg),
         ptr(dbgq), stream_ptr(dev))
     check(err, "render_eval")
     LAUNCHES[("render_fine" if fine else "render_coarse")
-             + ("" if int8 is None else "_int8")] += 1
+             + ("" if int8 is None else "_int8")
+             + ("" if app is None else "_app")] += 1
     if debug_tap:
         out.update(tap_first=dbg[0], tap_again=dbg[1])
     if debug_q:
@@ -224,17 +245,18 @@ def early_term_mask(alpha, eps: float):
 
 
 def stage_alpha_plain(mlp: NerfMLP, rays, z, *, num_freqs: int,
-                      dirs_freqs: int, var_scale: float = 1.0, int8=None):
+                      dirs_freqs: int, var_scale: float = 1.0, int8=None,
+                      app=None):
     """(N, S) alpha of the plain stage with its bf16 MLP operands (and the
     int8 trunk ``int8``), before early termination: what
-    :func:`early_term_mask` reads."""
+    :func:`early_term_mask` reads (``app`` does not move it)."""
     t0, t1 = z[:, :-1], z[:, 1:]
     t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
     d = rays[:, 8:11]
     mean, var = lift_gaussian(d, t_mean, var_scale * t_var, var_scale * r_var)
     enc, _ = ipe_embedding(mean + rays[:, None, 0:3], var, num_freqs)
     dirs = pe_embedding(d, dirs_freqs)[:, None, :]
-    sigma = mlp_plain(mlp, enc, dirs, -1, True, int8=int8)[0]
+    sigma = mlp_plain(mlp, enc, dirs, -1, True, int8=int8, app=app)[0]
     return 1.0 - torch.exp(-torch.relu(sigma) * (t1 - t0))
 
 
@@ -243,12 +265,14 @@ def _sat8(x):
 
 
 def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool,
-              int8=None, debug=None):
-    """The kernel's MLP: (sigma, rgb, tap) from the encoding (..., xyz_dim)
-    and the viewdir PE (..., dirs_dim).  With ``trunk_bf16`` every matrix
-    product of the trunk, feature, views and rgb layers rounds its operands
-    to bf16 (the dirs rows of the views layer excepted); sigma reads the f32
-    activations.
+              int8=None, debug=None, app=None):
+    """The kernel's MLP: (sigma, rgb, tap) from the encoding (..., xyz_dim),
+    the viewdir PE (..., dirs_dim) and, for an appearance NeRF, the
+    appearance rows ``app`` (..., 16; None: rgb is not computed).  With
+    ``trunk_bf16`` every matrix product of the trunk, feature, views and
+    rgb layers rounds its operands to bf16 (the dirs and appearance rows of
+    the views layer excepted, f32 on unrounded weights as the kernel's
+    FMAs); sigma reads the f32 activations.
 
     ``int8`` (from ``quant.pack_mlp_int8``): the trunk layers from
     ``int8["start"]`` on run in the quantized domain.  Integer products are
@@ -291,11 +315,16 @@ def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool,
                     tap = (y - 0.5) * q[f"iq{i}"]
                 hq = torch.trunc(torch.clamp(y, max=127.0))
     sigma = F.linear(h, mlp.alpha_linear.weight, mlp.alpha_linear.bias)[..., 0]
+    if cfg.app_dim and app is None:
+        return sigma, None, tap
     feature = lin(h, mlp.feature_linear)
     views = mlp.views_linears[0]
-    w_h, w_d = views.weight[:, :cfg.hid_dim], views.weight[:, cfg.hid_dim:]
-    hv = torch.relu(F.linear(rnd(feature), rnd(w_h)) + F.linear(dirs, w_d)
-                    + views.bias)
+    app_at = cfg.hid_dim + cfg.dirs_dim
+    w_h, w_d = views.weight[:, :cfg.hid_dim], views.weight[:, cfg.hid_dim:app_at]
+    xt = F.linear(dirs, w_d)
+    if cfg.app_dim:
+        xt = xt + F.linear(app, views.weight[:, app_at:])
+    hv = torch.relu(F.linear(rnd(feature), rnd(w_h)) + xt + views.bias)
     rgb = torch.sigmoid(F.linear(rnd(hv), mlp.rgb_linear.weight,
                                  mlp.rgb_linear.bias))
     return sigma, rgb, tap
@@ -304,12 +333,14 @@ def mlp_plain(mlp: NerfMLP, enc, dirs, feat_layer: int, trunk_bf16: bool,
 def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                        dirs_freqs: int, var_scale: float = 1.0,
                        early_term_eps: float = 0.0, white_bg: bool = False,
-                       trunk_bf16: bool = True, int8=None,
+                       trunk_bf16: bool = True, int8=None, app=None,
                        debug_q: bool = False):
     """Plain PyTorch version of :func:`render_stage` (same outputs).
-    ``int8``: the quantized trunk (see :func:`mlp_plain`); ``debug_q`` adds
-    its int8 encoding ``xq`` (N, S, E) and the last layer's int8 input
-    ``hq`` (N, S, hid)."""
+    ``int8``: the quantized trunk (see :func:`mlp_plain`); ``app`` (N, 16):
+    the appearance rows of the fine stage; ``debug_q`` adds its int8
+    encoding ``xq`` (N, S, E) and the last layer's int8 input ``hq`` (N, S,
+    hid)."""
+    _check_config(mlp, num_freqs, dirs_freqs, fine, app)
     o, d = rays[:, 0:3], rays[:, 8:11]
     t0, t1 = z[:, :-1], z[:, 1:]
     t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
@@ -320,7 +351,8 @@ def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     debug = {} if debug_q else None
     sigma, rgb_s, tap = mlp_plain(
         mlp, enc, dirs, eval_feat_layer(mlp.cfg) if fine else -1, trunk_bf16,
-        int8=int8, debug=debug)
+        int8=int8, debug=debug,
+        app=None if app is None or not fine else app[:, None, :])
     alpha = 1.0 - torch.exp(-torch.relu(sigma) * (t1 - t0))
     alpha = torch.where(early_term_mask(alpha, early_term_eps),
                         torch.zeros_like(alpha), alpha)

@@ -205,6 +205,15 @@ def load_reference_checkpoint(ckpt_path):
             ckpt.get("hyper_parameters"))
 
 
+def infer_appearance_vocab(state: Mapping):
+    """Rows of a stored appearance table (``embedding_a.weight``, under any
+    prefix), or None without one (JAX ``infer_appearance_vocab``)."""
+    for k, v in state.items():
+        if k.endswith("embedding_a.weight"):
+            return int(np.shape(v)[0])
+    return None
+
+
 def nest_backbone(state: Mapping) -> dict:
     """A coarse matcher's state dict keyed for the two-scale model: its trunk
     ``backbone.X`` moves to ``backbone.model.X`` (the FPN convs sit on the

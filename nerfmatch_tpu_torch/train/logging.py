@@ -12,16 +12,6 @@ import numpy as np
 from PIL import Image
 
 
-def colorize_depth(depth):
-    """Depth map -> (H, W, 3) uint8 image on a blue -> red ramp over its
-    min..max range."""
-    depth = np.nan_to_num(np.asarray(depth, np.float64))
-    lo, hi = depth.min(), depth.max()
-    d8 = (255 * np.clip((depth - lo) / max(hi - lo, 1e-8), 0, 1)).astype(np.uint8)
-    g = (255 - np.abs(d8.astype(int) * 2 - 255)).astype(np.uint8)
-    return np.stack([d8, g, 255 - d8], axis=-1)
-
-
 class MetricsLogger:
     def __init__(self, log_dir, name: str = "metrics"):
         self.log_dir = Path(log_dir)

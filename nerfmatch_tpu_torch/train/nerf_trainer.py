@@ -28,9 +28,10 @@ from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
 from ..utils import get_logger, resolve_device
 from ..utils.metrics import compute_nerf_metrics, mse2psnr
+from ..utils.images import colorize_depth
 from ..utils.optim import get_lr, init_optimizer, make_lr_schedule, set_lr
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from .logging import MetricsLogger, colorize_depth
+from .logging import MetricsLogger
 
 logger = get_logger(level="INFO", name="nerf_trainer")
 
@@ -83,8 +84,8 @@ def check_train_config(config):
                                   "ported (ROADMAP: training slice)")
     if getattr(config.embedding, "appearance_embed", False):
         raise NotImplementedError(
-            "appearance embeddings are not ported (ROADMAP: Cambridge "
-            "appearance path, extras_grad)")
+            "training an appearance table is not ported (ROADMAP: "
+            "appearance embeddings for training, extras_grad)")
 
 
 class NerfTrainer:

@@ -169,17 +169,30 @@ def test_gen_rays_and_their_jacobian_match_jax(ds):
                                atol=1e-5 * np.abs(jac_ref).max())
 
 
-@pytest.mark.parametrize("lrdecay", [False, True])
-def test_adam_steps_match_optax(pair, lrdecay):
-    """Five steps at ds 2 from a perturbed pose: each step's loss, and
-    after steps 1 and 5 the delta and Adam's moments (optax's mu / nu)."""
-    c = conf(lrdecay=lrdecay)
+@pytest.fixture(scope="module")
+def app_pair(pair):
+    """``pair`` with an appearance NeRF: a two-row table on the same MLP
+    layout."""
+    cfg = nerf_cfg()
+    cfg.embedding.appearance_embed = True
+    jr = JaxRenderer(cfg, num_frames=2)
+    params = jr.init_params(jax.random.PRNGKey(0))
+    for k in ("nerf_coarse", "nerf_fine"):
+        params[k]["alpha_linear"]["bias"] = params[k]["alpha_linear"]["bias"] + 1.0
+    tr = NerfRenderer(cfg, num_frames=2)
+    tr.load_state_dict(state_dict_from_jax(flat_params(params)), strict=True)
+    return dict(pair, jr=jr, params=params, tr=tr)
+
+
+def check_adam_steps(p, c, moments_atol=1e-3):
+    """Five steps at ds 2 from a perturbed pose in both packages: each
+    step's loss, and after steps 1 and 5 the delta and Adam's moments
+    (after 5 steps within ``moments_atol`` of the largest moment)."""
     start = perturbed(C2W_GT)
-    ref = jax_steps(pair, c, 5, start)
-    q = inerf.InerfQuery(pair["tev"], pair["batch"], pair["tr"], UNNORM,
-                         start, c)
+    ref = jax_steps(p, c, 5, start)
+    q = inerf.InerfQuery(p["tev"], p["batch"], p["tr"], UNNORM, start, c)
     # step: (delta tolerance / lrate, moments rtol, moments atol / largest)
-    tols = {0: (1e-3, 1e-4, 0.0), 4: (5e-3, 0.0, 1e-3)}
+    tols = {0: (1e-3, 1e-4, 0.0), 4: (5e-3, 0.0, moments_atol)}
     for j, (loss_ref, delta_ref, mu, nu) in enumerate(ref):
         loss = q.step(j)[0]
         assert loss == pytest.approx(loss_ref, rel=1e-5), j
@@ -191,7 +204,37 @@ def test_adam_steps_match_optax(pair, lrdecay):
             for got, want in ((st["exp_avg"], mu), (st["exp_avg_sq"], nu)):
                 np.testing.assert_allclose(got.numpy(), want, rtol=rtol,
                                            atol=atol * np.abs(want).max())
-    assert len(pair["tev"].timer["inerf_step_time"]) >= 5
+    assert len(p["tev"].timer["inerf_step_time"]) >= 5
+
+
+@pytest.mark.parametrize("lrdecay", [False, True])
+def test_adam_steps_match_optax(pair, lrdecay):
+    """Five steps at ds 2 from a perturbed pose: each step's loss, and
+    after steps 1 and 5 the delta and Adam's moments (optax's mu / nu)."""
+    check_adam_steps(pair, conf(lrdecay=lrdecay))
+
+
+def test_adam_steps_with_appearance_match_jax(app_pair):
+    """An appearance NeRF: every query renders with table row 1 (the JAX
+    ``_app``), one and five Adam steps as without the table; the row moves
+    the loss and takes no gradient.  After five steps the moments are held
+    at 2e-3 of the largest: JAX's own f32 run drifts further with the table
+    (its moments sit 1.2e-3 of the largest from the port's; in a process
+    with 64-bit types enabled, its f32 run sits 6e-6 from the port's and
+    the port's 3.6e-6 from the f64 run)."""
+    check_adam_steps(app_pair, conf(), moments_atol=2e-3)
+    tr = app_pair["tr"]
+    assert tr.embedding_a.weight.grad is None
+    q = inerf.InerfQuery(app_pair["tev"], app_pair["batch"], tr, UNNORM,
+                         perturbed(C2W_GT), conf())
+    loss = float(q.loss(q.delta)[0])
+    with torch.no_grad():
+        tr.embedding_a.weight[1] = tr.embedding_a.weight[0]
+    try:
+        assert abs(float(q.loss(q.delta)[0]) - loss) > 1e-4 * loss
+    finally:
+        tr.load_state_dict(state_dict_from_jax(flat_params(
+            app_pair["params"])), strict=True)
 
 
 def test_match_loss_step_matches_jax(pair):

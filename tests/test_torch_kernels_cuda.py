@@ -264,6 +264,64 @@ def test_int8_render_kernel_matches_plain(dev, hid, mode):
     assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 0
 
 
+def with_app_columns(mlp, seed=0):
+    """A copy of ``mlp`` with an appearance input: its views layer gains 16
+    seeded columns (its other weights shared) -> (app MLP, seeded (2, 16)
+    table)."""
+    import dataclasses
+
+    g = torch.Generator().manual_seed(seed)
+    dev = mlp.views_linears[0].weight.device
+    out = NerfMLP(dataclasses.replace(mlp.cfg, app_dim=16)).to(dev)
+    state = dict(mlp.state_dict())
+    wv = state["views_linears.0.weight"]
+    state["views_linears.0.weight"] = torch.cat([wv, 0.1 * torch.randn(
+        wv.shape[0], 16, generator=g).to(dev)], 1)
+    out.load_state_dict(state, strict=True)
+    return out.eval(), torch.randn(2, 16, generator=g).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["bf16", "both", "posttap"])
+@pytest.mark.parametrize("hid", [64, 256])
+def test_render_kernel_with_app_matches_plain(dev, hid, trunk):
+    """The fine stage of an appearance NeRF (a bf16 trunk, or the int8
+    trunk of ``trunk``) on rays of both table rows, at eps 1e-4, against
+    its plain version at 5e-3 scaled, counted as an ``_app`` launch; its
+    weights, depth, acc, feat and pts bit-identical to the same MLP's stage
+    without the appearance columns, and its rgb moved by the rows; the
+    coarse stage ignores ``app``."""
+    r, rays, z = opaque_renderer(hid, dev, 512)
+    q8 = stage_trunks(r, rays, trunk)[True]
+    mlp, table = with_app_columns(r.nerf_fine)
+    ids = torch.arange(512, device=dev) % 2
+    app = table[ids].contiguous()
+    kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4, int8=q8)
+    reset_launch_counts()
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, fine=True, app=app, **kw)
+        b = render_stage_plain(mlp, rays, z, fine=True, app=app, **kw)
+        base = render_stage(r.nerf_fine, rays, z, fine=True, **kw)
+        other = render_stage(mlp, rays, z, fine=True, app=table[1 - ids]
+                             .contiguous(), **kw)
+        coarse = render_stage(mlp, rays, z, fine=False, app=app, **kw)
+        coarse0 = render_stage(r.nerf_fine, rays, z, fine=False, **kw)
+    assert scaled_max_err(a, b) < 5e-3
+    assert LAUNCHES["render_fine" + ("" if q8 is None else "_int8")
+                    + "_app"] == 2           # the stages with app: a, other
+    for k in ("weights", "depth", "acc", "feat", "pts"):
+        assert torch.equal(a[k], base[k]), k
+        assert torch.equal(a[k], other[k]), k
+    assert float((a["rgb"] - base["rgb"]).abs().max()) > 1e-3
+    assert float((a["rgb"] - other["rgb"]).abs().max()) > 1e-3
+    for k in coarse0:
+        assert torch.equal(coarse[k], coarse0[k]), k
+    with pytest.raises(ValueError):
+        render_stage(mlp, rays, z, fine=True, **kw)
+    with pytest.raises(ValueError):
+        render_stage(mlp, rays, z, fine=True, app=app[:, :8].contiguous(), **kw)
+
+
 @pytest.mark.cuda
 def test_int8_render_kernel_raises_on_unsupported(dev):
     """A width without an instantiation, and a fine stage packed without

@@ -307,7 +307,8 @@ def test_pack_mlp_slot_images_hold_the_weights(pair):
     images, every matrix equals its (in x out) bf16 weight, in the order
     the ring streams them, the encoding rows zero-padded to 96 and the
     views' columns to 64; the encoding flags sit at layer 0 and the skip
-    layer; the biases, the sigma head, wvd and wr stay f32, unrounded."""
+    layer; the biases, the sigma head, wvd and wr stay f32, unrounded; wva
+    (the appearance rows) is None without a table."""
     _, _, tr = pair
     mlp = tr.nerf_fine
     cfg = mlp.cfg
@@ -338,7 +339,8 @@ def test_pack_mlp_slot_images_hold_the_weights(pair):
         i == 0 or i - 1 in cfg.skips for i in range(L)]
     for b, lin in zip(biases, mlp.pts_linears):
         assert torch.equal(b, lin.bias)
-    wa, ba, bf, wvd, bv, wr, br = packed[1 + 2 * L:]
+    wa, ba, bf, wvd, wva, bv, wr, br = packed[1 + 2 * L:]
+    assert wva is None
     views_w = mlp.views_linears[0].weight
     for got, ref in ((wa, mlp.alpha_linear.weight[0]),
                      (ba, mlp.alpha_linear.bias), (bf, mlp.feature_linear.bias),
