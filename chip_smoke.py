@@ -33,7 +33,12 @@ Phases (each prints its results; any failure exits non-zero):
    backward calls bit-identical, and the backward's launches (stash
    forward, trunk backward, weight-gradient GEMM, reductions) timed in one
    ``torch.profiler`` pass beside the workspace bytes each moves and, for
-   the GEMM, ``torch.mm`` on operands of the stash's shapes;
+   the GEMM, ``torch.mm`` on operands of the stash's shapes; then the same
+   kernels with appearance rows (the room's fine MLP with phase 3's seeded
+   16-column views block and (2, 16) table, rays alternating rows): rgb /
+   weights, every gradient leaf, ``g_app`` and the appearance rows' weight
+   gradient against the plain version, the backward rerun bit-identical,
+   each pass timed with and without ``app`` in turns;
 3c. the same for matcher training: the fused StarReLU + 7x7 depthwise conv
    (forward, dgrad, wgrad) at the c2f trunk's stage-0 and stage-1 shapes
    (2, 240, 240, 256) and (2, 60, 60, 512), the forward and dgrad also at
@@ -102,6 +107,16 @@ Phases (each prints its results; any failure exits non-zero):
    moved by the id, a ``--cache_scene_pts`` run whose ``pt_feat`` and
    ``pt3d`` do not move with the id, and a ``'posttap'`` cache run (the int8
    fine stage with ``app``);
+5d. appearance training: a two-sequence 480x270 scene rendered from the
+   room NeRF (the second sequence at exposure 0.8) with sky and transient
+   masks; ``cli.train_nerf --debug`` trains
+   ``configs/nerf/nerf_cambridge_mip_app.yaml`` (only the data paths and
+   the output dir changed) and resumes with the table's shape;
+   ``NerfTrainer`` takes 30 timed steps of 9216 rays from a fresh
+   initialization (the loss must fall, both table rows move, the counters
+   show the ``_app`` train kernels and the resample); ``validate_pair`` on a
+   retrieval-pair val sample; ``cli.eval_nerf``'s PSNR mode per sequence
+   on the CLI's last checkpoint;
 6. matcher training: a 24-frame room scene, its scene points cached through
    ``NerfEvaluator.cache_scene_pts`` (3600 points x 256-d per frame) and a
    pairs file; ``cli.train_nerfmatch --stage c2f --debug`` trains on it with
@@ -142,7 +157,8 @@ special-function units (at head_dim 32 it exceeds the tensor-core time).
 The resample's ``launches`` are phase 4's, ``launches_training`` phase
 5's; ``launches_inerf`` is phase 4b's count where it launched the kernel;
 ``render_fine_app``'s are phase 5c's PSNR run, ``render_fine_int8_app``'s
-its ``'posttap'`` cache run.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+its ``'posttap'`` cache run, the ``render_train_*_app`` rows' phase 5d's 30
+timed steps.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -184,6 +200,13 @@ KERNEL_SOURCES = {
                          "nerfmatch_tpu/ops/pallas/render_train.py:420"),
     "render_train_bwd": ("nerfmatch_tpu_torch/csrc/render_train.cu",
                          "nerfmatch_tpu/ops/pallas/render_train.py:455"),
+    # The train stages of an appearance NeRF: the same kernels with each
+    # ray's appearance row in (extras, render_train.py:201) and its
+    # cotangent out (extras_grad, render_train.py:303-312).
+    "render_train_fwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+                             "nerfmatch_tpu/ops/pallas/render_train.py:420"),
+    "render_train_bwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+                             "nerfmatch_tpu/ops/pallas/render_train.py:455"),
     "attention_bwd": ("nerfmatch_tpu_torch/csrc/attention.cu",
                       "nerfmatch_tpu/ops/pallas/attention_kernel.py:184"),
     "dw_star_fwd": ("nerfmatch_tpu_torch/csrc/sepconv.cu",
@@ -418,14 +441,15 @@ def room_c2w(ang):
     return c2w
 
 
-def camera_rays(c2w, size, dev):
-    """(size^2, 12) rays of a size x size pinhole camera (the room's 64 px /
-    focal 80 field of view) with the room's near/far planes."""
+def camera_rays(c2w, size, dev, height=None):
+    """(size * height, 12) rays of a size x height (default square) pinhole
+    camera (the room's 64 px / focal 80 horizontal field of view) with the
+    room's near/far planes."""
     from nerfmatch_tpu_torch.nerf.rays import (get_ray_dirs, get_rays_c2w,
                                                prepare_rays_data)
 
-    K = camera_K(size)
-    dirs = get_ray_dirs(size, size, torch.as_tensor(K, device=dev))
+    K = camera_K(size, height)
+    dirs = get_ray_dirs(height or size, size, torch.as_tensor(K, device=dev))
     o, d, v = get_rays_c2w(dirs, torch.as_tensor(c2w, dtype=torch.float32,
                                                  device=dev))
     near = torch.full_like(d[..., :1], NEAR)
@@ -434,9 +458,10 @@ def camera_rays(c2w, size, dev):
     return rays.reshape(-1, 12).contiguous()
 
 
-def camera_K(size):
+def camera_K(size, height=None):
     f = 80.0 * size / 64.0
-    return np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], np.float32)
+    return np.array([[f, 0, size / 2], [0, f, (height or size) / 2],
+                     [0, 0, 1]], np.float32)
 
 
 def max_err(a, b, scaled=False):
@@ -1467,6 +1492,174 @@ def phase_train_kernels(renderer, dev):
                         + lay.stash))}
 
 
+def plain_g_app_on_kernel_mask(spec, stash, rays, z, noise, app, g_rgb,
+                               chunk=1024):
+    """The plain version's ``g_app`` (its bf16 roundings: ``train_stage_
+    backward``'s rgb head, ``g_hvsum`` rounded once, times ``wva``) with the
+    views layer's ReLU mask read from the kernel's stashed bf16 ``hv``
+    instead of its own, and (N,) bool: the rays at one of whose samples the
+    two masks differ (bf16 operands summed in another order leave
+    pre-activations near 0 on either side) -> (g_app (N, 16), flips)."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        _align256, _bf16, _stash_parts, train_stage_forward)
+
+    mlp, cfg = spec.mlp, spec.mlp.cfg
+    n, S, hv = z.shape[0], z.shape[1] - 1, cfg.hid_dim // 2
+    # The stash holds xb, hs of every layer, feat, then hv (carve_stash).
+    off = sum(map(_align256, _stash_parts(cfg, n, S)[:cfg.layer_num + 2]))
+    k_hv = stash[off:off + n * S * hv * 2].view(torch.bfloat16).view(n, S, hv)
+    wrgb = _bf16(mlp.rgb_linear.weight)
+    wva = _bf16(mlp.views_linears[0].weight[:, cfg.hid_dim + cfg.dirs_dim:])
+    g_app, flips = [], []
+    with torch.no_grad():
+        for lo in range(0, n, chunk):
+            sl = slice(lo, lo + chunk)
+            _, w, f = train_stage_forward(spec, rays[sl], z[sl], noise[sl],
+                                          keep=True, app=app[sl])
+            mask = k_hv[sl] > 0
+            g_rgbt = (g_rgb[sl][:, None, :] * w[..., None] * f["rgb_s"]
+                      * (1.0 - f["rgb_s"]))
+            g_hv = torch.where(mask, _bf16(g_rgbt) @ wrgb, 0.0)
+            g_app.append(_bf16(g_hv.sum(1)) @ wva)
+            flips.append((mask != (f["hv"] > 0)).flatten(1).any(1))
+    return torch.cat(g_app), torch.cat(flips)
+
+
+def phase_train_app_kernels(renderer, dev):
+    """Phase 3b with appearance rows: kernels 5 and 6 on the room's fine MLP
+    with :func:`app_mlp`'s seeded 16-column views block and (2, 16) table
+    (rays alternating rows) at phase 3b's shapes, against the plain version
+    with the same rows (rgb / weights 5e-3; every parameter gradient and
+    the appearance rows' weight gradient 3e-2 of the leaf's largest and
+    cosine > 0.999; ``g_app``, a gradient per ray, cosine > 0.999 and, on
+    every ray, 3e-2 of its largest against the plain version taken with the
+    kernel's own views-ReLU mask, the error against the plain version's
+    own mask reported beside it), the backward rerun bit-identical, each pass timed with and without ``app`` in turns beside
+    its bound -> summary rows."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        StageSpec, backward_layout, kernel_backward, kernel_forward,
+        pack_train, train_stage_backward, train_stage_forward)
+
+    spec, rays, z, noise, target = train_inputs(renderer, dev)
+    amlp, table = app_mlp(spec.mlp)
+    aspec = StageSpec(amlp, spec.num_freqs, spec.dirs_freqs)
+    n, S = z.shape[0], z.shape[1] - 1
+    hv = amlp.cfg.hid_dim // 2
+    app = table[torch.arange(n, device=dev) % 2].contiguous()
+    packed, apacked = pack_train(spec.mlp), pack_train(amlp)
+    with torch.no_grad():
+        rgb, w, stash = kernel_forward(aspec, rays, z, noise, apacked,
+                                       stash=True, app=app)
+        rgb_b, w_b, stash_b = kernel_forward(spec, rays, z, noise, packed,
+                                             stash=True)
+        rgb_p, w_p = train_stage_forward(aspec, rays, z, noise, app=app)
+    g_rgb, g_w = train_cotangents(z, rgb, w, target)
+    ga = kernel_backward(aspec, stash, rays, z, noise, g_rgb, g_w, apacked,
+                         app)
+    again = kernel_backward(aspec, stash, rays, z, noise, g_rgb, g_w,
+                            apacked, app)
+    gb = train_stage_backward(aspec, rays, z, noise, g_rgb, g_w, app=app)
+    torch.cuda.synchronize()
+    differ = [k for k in ga if not torch.equal(ga[k], again[k])]
+    log(f"kernel render_train_bwd_app: two calls bit-identical (g_app "
+        f"included): {not differ}")
+    assert not differ, f"backward reruns differ: {differ}"
+    fwd_err = max(float((rgb - rgb_p).abs().max()),
+                  float((w - w_p).abs().max()))
+    moved = float((rgb - rgb_b).abs().max())
+    leaf = {}
+    views = "views_linears.0.weight"
+    pairs = [(k, ga[k], gb[k]) for k in gb]
+    pairs.append((views + "[app rows]", ga[views][:, -16:], gb[views][:, -16:]))
+    for k, got, ref in pairs:
+        assert torch.isfinite(got).all(), k
+        scale = float(ref.abs().max())
+        cos = float((got * ref).sum()) / max(float(got.norm() * ref.norm()),
+                                             1e-30)
+        leaf[k] = (float((got - ref).abs().max()) / max(scale, 1e-30), cos)
+    # A ray's g_app sums its samples' g_hv: where the ReLU of the views
+    # layer flips between the two versions, a whole g_hv element differs,
+    # which a weight gradient's sum over 1.2M rows hides and a ray's does
+    # not.  So every ray is held to the plain g_app on the kernel's mask;
+    # the plain version's own g_app is reported apart.
+    g_app_km, flips = plain_g_app_on_kernel_mask(aspec, stash, rays, z, noise,
+                                                 app, g_rgb)
+    scale_app = float(gb["app"].abs().max())
+    app_err = float((ga["app"] - g_app_km).abs().max()) / scale_app
+    app_d = (ga["app"] - gb["app"]).abs().max(1).values / scale_app
+    app_same = float(app_d[~flips].max())
+    app_flip = float(app_d[flips].max()) if bool(flips.any()) else 0.0
+    bwd_err = max(e for k, (e, _) in leaf.items() if k != "app")
+    min_cos = min(c for _, c in leaf.values())
+    with torch.no_grad():
+        fa = lambda: kernel_forward(aspec, rays, z, noise, apacked,
+                                    stash=True, app=app)
+        fb = lambda: kernel_forward(spec, rays, z, noise, packed, stash=True)
+        fms = [cuda_ms(f, 5) for f in (fb, fa, fa, fb)]
+        ba = lambda: kernel_backward(aspec, stash, rays, z, noise, g_rgb, g_w,
+                                     apacked, app)
+        bb = lambda: kernel_backward(spec, stash_b, rays, z, noise, g_rgb,
+                                     g_w, packed)
+        bms = [cuda_ms(f, 3) for f in (bb, ba, ba, bb)]
+        plain_f = cuda_ms(lambda: train_stage_forward(aspec, rays, z, noise,
+                                                      app=app), 2)
+        plain_b = cuda_ms(lambda: train_stage_backward(
+            aspec, rays, z, noise, g_rgb, g_w, app=app), 1)
+    lay = backward_layout(amlp.cfg, n, S)
+    del stash, stash_b
+    # The trunk and heads as phase 3b counts them, plus app @ Wva once a
+    # ray (f32 FMAs); the backward adds the appearance rows' weight-gradient
+    # product (bf16) and g_app (f32), once a ray each.
+    fwd_ops = {k: 2 * m * n * S for k, m in stage_macs(spec.mlp, True).items()}
+    app_ops = 2 * 16 * hv * n
+    fwd_ops["f32"] += app_ops
+    bwd_ops = {k: 2 * v for k, v in fwd_ops.items()}
+    bwd_ops["bf16"] += app_ops
+    bwd_ops["f32"] += app_ops
+    w_bytes = sum(p.numel() * 2 for p in amlp.parameters())
+    g_bytes = sum(p.numel() * 4 for p in amlp.parameters())
+    fwd_row = dict(max_abs_err=fwd_err, ms=(fms[1] + fms[2]) / 2,
+                   ms_without_app=(fms[0] + fms[3]) / 2, plain_ms=plain_f,
+                   library_ms=None, **bound(fwd_ops, nbytes(
+                       rays, z, noise, app, rgb, w) + w_bytes + lay.stash))
+    bwd_row = dict(max_abs_err=bwd_err, g_app_err=app_err,
+                   g_app_err_own_mask=app_same,
+                   g_app_err_own_mask_relu_flips=app_flip,
+                   rays_with_relu_flips=int(flips.sum()),
+                   ms=(bms[1] + bms[2]) / 2,
+                   ms_without_app=(bms[0] + bms[3]) / 2, plain_ms=plain_b,
+                   library_ms=None, **bound(bwd_ops, nbytes(
+                       rays, z, noise, g_rgb, g_w, ga["app"]) + w_bytes
+                       + g_bytes + lay.stash))
+    log(f"kernel render_train_fwd_app: max_abs_err={fwd_err:.3e} (rgb and "
+        f"weights, tol 5e-3, vs plain with the same rows) training forward "
+        f"with its stash ms={fwd_row['ms']:.3f} (without app "
+        f"{fwd_row['ms_without_app']:.3f}; in turns "
+        f"{[round(v, 4) for v in fms]}) plain_ms={plain_f:.3f} bound_ms="
+        f"{fwd_row['bound_ms']:.3f} ({fwd_row['bound_by']}); rgb moved by the "
+        f"rows up to {moved:.3e}; stash {lay.stash / 1e9:.3f} GB")
+    log(f"kernel render_train_bwd_app: max scaled err={bwd_err:.3e} (tol "
+        f"3e-2 of each parameter leaf's largest gradient; app rows of the "
+        f"views weight {leaf[views + '[app rows]'][0]:.2e}, cosine "
+        f"{leaf[views + '[app rows]'][1]:.6f}); g_app cosine "
+        f"{leaf['app'][1]:.6f}, scaled err {app_err:.2e} on all {n} rays "
+        f"against the plain g_app on the kernel's views-ReLU mask (tol "
+        f"3e-2); against the plain version's own mask {app_same:.2e} on the "
+        f"{n - int(flips.sum())} rays where the masks agree, {app_flip:.2e} "
+        f"on the {int(flips.sum())} where they differ at some sample; min "
+        f"cosine "
+        f"{min_cos:.6f} (tol 0.999) ms={bwd_row['ms']:.3f} (without app "
+        f"{bwd_row['ms_without_app']:.3f}; in turns "
+        f"{[round(v, 4) for v in bms]}) plain_ms={plain_b:.3f} bound_ms="
+        f"{bwd_row['bound_ms']:.3f} ({bwd_row['bound_by']})")
+    log("  per-leaf scaled err: " + json.dumps(
+        {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
+    assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
+    assert app_err < 3e-2, app_err
+    assert moved > 1e-3, "the appearance rows do not move rgb"
+    return {"render_train_fwd_app": fwd_row, "render_train_bwd_app": bwd_row}
+
+
 def train_fwd_yardstick(spec, rows):
     """``torch.mm`` (cuBLAS) over the train stage's MLP products at their
     shapes, bf16, one call each (trunk, feature, views on ``rows`` sample
@@ -2077,6 +2270,182 @@ def phase_psnr_app(ckpt, cfg, root, dev, n_poses=3, size=480):
             "render_fine_int8_app": posttap}, wall / n
 
 
+def write_app_scene(renderer, dev, root, n_frames=24, wh=(480, 270)):
+    """A two-sequence scene for the Cambridge config, in its layout: the
+    room NeRF's ``wh`` renders on its camera circle, even frames under
+    ``GreatCourt/seq1``, odd ones under ``seq2`` with their exposure at 0.8
+    (what an appearance row absorbs); per frame a background ("sky") mask
+    of the top 12% of rows and a transient ("car") mask of a box a tenth of
+    the width and an eighth of the height, at a frame-dependent place in
+    the lower half, under ``masks/masks_bg`` and
+    ``masks/masks_trnz_cars``; ``annotations/transforms_GreatCourt_
+    {train,test}.json`` (test: two frames of each sequence) and a pairs
+    file (each frame with the next two) -> the pairs file's path."""
+    from PIL import Image
+
+    w, h = wh
+    scene = root / "GreatCourt"
+    frames = []
+    with torch.no_grad():
+        for i in range(n_frames):
+            seq = "seq1" if i % 2 == 0 else "seq2"
+            c2w = room_c2w(2 * np.pi * i / n_frames)
+            rgb = renderer.fused_predict(camera_rays(c2w, w, dev, h))["rgb_fine"]
+            img = rgb.reshape(h, w, 3).clamp(0, 1).cpu().numpy()
+            img = img * (0.8 if seq == "seq2" else 1.0)
+            name = f"{seq}/frame{i:05d}.png"
+            sky = np.zeros((h, w), np.uint8)
+            sky[:int(0.12 * h)] = 255
+            car = np.zeros((h, w), np.uint8)
+            bw, bh = w // 10, h // 8
+            x0, y0 = i * w // 24 % (w - bw), h // 2 + 3 * i % (h // 2 - bh)
+            car[y0:y0 + bh, x0:x0 + bw] = 255
+            for path, arr in (
+                    (scene / name, (img * 255).round().astype(np.uint8)),
+                    (root / "masks/masks_bg/GreatCourt" / name, sky),
+                    (root / "masks/masks_trnz_cars/GreatCourt" / name, car)):
+                path.parent.mkdir(parents=True, exist_ok=True)
+                Image.fromarray(arr).save(path)
+            frames.append(dict(file_path=name,
+                               intrinsics=camera_K(w, h).tolist(), height=h,
+                               width=w, transform_matrix=c2w.tolist()))
+    anno = root / "annotations"
+    anno.mkdir()
+    test = frames[:4]
+    for split, fr in (("train", frames), ("test", test)):
+        (anno / f"transforms_GreatCourt_{split}.json").write_text(
+            json.dumps({"frames": fr}))
+    pairs = root / "pairs_GreatCourt.txt"
+    pairs.write_text("\n".join(
+        f"{frames[i]['file_path']} {frames[(i + d) % n_frames]['file_path']}"
+        for i in range(n_frames) for d in (1, 2)))
+    return pairs
+
+
+def phase_training_app(renderer, dev, seed, root):
+    """Phase 5d: appearance training on a two-sequence scene
+    (:func:`write_app_scene`): ``cli.train_nerf --debug`` trains
+    ``configs/nerf/nerf_cambridge_mip_app.yaml`` (only the data paths and
+    the output dir changed) and resumes with the table's shape;
+    ``NerfTrainer`` takes 32 steps of 9216 rays from a fresh initialization
+    (30 timed; the loss must fall, both table rows move, the counters show
+    the ``_app`` train kernels and the resample and not the kernels without
+    rows); a retrieval-pair val sample runs ``validate_pair``;
+    ``cli.eval_nerf``'s PSNR mode scores the CLI's last checkpoint per
+    sequence -> launch counts of the 32 steps."""
+    from nerfmatch_tpu_torch.cli import eval_nerf
+    from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
+    from nerfmatch_tpu_torch.config import load_yaml_config, save_config
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
+                                                        init_config_odir)
+
+    t0 = time.perf_counter()
+    pairs = write_app_scene(renderer, dev, root)
+    log(f"appearance scene: 24 frames 480x270 under seq1 / seq2 (seq2 at "
+        f"exposure 0.8), sky and transient masks, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_cambridge_mip_app.yaml")
+    cfg.data.data_dir = str(root)
+    cfg.data.scene_anno_path = str(root / "annotations" /
+                                   "transforms_#scene_#split.json")
+    cfg.data.mask_dir = str(root / "masks")
+    cfg.exp.odir = str(root / "out_app")
+    save_config(root / "cfg_app.yaml", cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_cfg, r1 = train_cli(["--config", str(root / "cfg_app.yaml"),
+                             "--debug"])
+    t1 = time.perf_counter()
+    table = r1.embedding_a.weight.detach().clone()
+    cli_launches = {k: v for k, v in LAUNCHES.items() if v}
+    _, r2 = train_cli(["--config", str(root / "cfg_app.yaml"), "--debug"])
+    t2 = time.perf_counter()
+    assert torch.equal(r2.embedding_a.weight, table), "resume"
+    ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
+                             name="last")
+    assert ckpt is not None and ckpt.name == f"last_{cfg.exp.max_epochs}"
+    log(f"cli --debug (Cambridge config): {cfg.exp.max_epochs} epochs x 10 "
+        f"steps of {cfg.exp.batch_size} rays + validation in {t1 - t0:.1f} "
+        f"s; resumed at epoch {cfg.exp.max_epochs} in {t2 - t1:.1f} s "
+        f"({ckpt.name}, table {tuple(table.shape)}); launches "
+        + json.dumps(cli_launches))
+    assert table.shape == (2, 16)
+    assert cli_launches.get("render_train_fwd_app", 0) > 0
+    assert "render_train_fwd" not in cli_launches
+
+    ds = init_data_loader(cfg.data, split="train").dataset
+    trainer = NerfTrainer(cfg, device=dev, seed=seed,
+                          num_frames=int(np.max(ds.seq_ind)) + 1)
+    batches = ds.ray_batches(cfg.exp.batch_size, np.random.default_rng(seed))
+    gen = torch.Generator(dev).manual_seed(seed)
+    steps = [(torch.as_tensor(b["rays"], device=dev),
+              torch.as_tensor(b["rgbs"], device=dev),
+              torch.as_tensor(b["ts"], device=dev))
+             for b in (next(batches) for _ in range(32))]
+    assert {int(v) for _, _, ts in steps for v in ts.unique()} == {0, 1}
+    table0 = trainer.renderer.embedding_a.weight.detach().clone()
+    hist = [trainer.train_step(r, c, gen, ts=ts) for r, c, ts in steps[:2]]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist += [trainer.train_step(r, c, gen, ts=ts) for r, c, ts in steps[2:]]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 30 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(LAUNCHES)
+    loss = [float(m["loss"]) for m in hist]
+    moved = (trainer.renderer.embedding_a.weight.detach() - table0).abs()
+    log(f"appearance training: {step_ms:.1f} ms/step, "
+        f"{cfg.exp.batch_size / step_ms * 1e3:.0f} rays/s over 30 steps of "
+        f"{cfg.exp.batch_size} rays; loss {loss[0]:.4f} -> "
+        f"{np.mean(loss[-5:]):.4f}; table rows moved by up to "
+        f"{[round(float(v), 5) for v in moved.max(1).values]}; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    assert all(np.isfinite(loss)) and np.mean(loss[-5:]) < np.mean(loss[:5]), loss
+    assert bool((moved.max(1).values > 0).all()), "a table row did not train"
+    for k in ("render_train_fwd_app", "render_train_bwd_app", "resample"):
+        assert launches[k] > 0, k
+    assert launches["render_train_fwd_app"] == 2 * 30
+    assert launches["render_train_fwd"] == launches["render_train_bwd"] == 0
+
+    pcfg, _ = load_yaml_config(root / "cfg_app.yaml")
+    pcfg.data.train_pair_txt = str(pairs)
+    sample = next(iter(init_data_loader(pcfg.data, split="val")))
+    sample = {k: (v[0] if isinstance(v, (np.ndarray, list)) else v)
+              for k, v in sample.items()}
+    assert np.asarray(sample["c2w"]).size == 32
+    t0 = time.perf_counter()
+    pm = trainer.validate_pair(sample)
+    log(f"validate_pair ({sample['img_idx']}, ds 8): "
+        + json.dumps({k: (v if np.isfinite(v) else str(v))
+                      for k, v in pm.items()})
+        + f" in {time.perf_counter() - t0:.2f} s")
+    kinds = {"R_err_depth": float, "t_err_depth": float, "R_err_match": float,
+             "t_err_match": float, "match_score": float, "num_matches": int}
+    assert set(pm) == set(kinds)
+    assert all(type(pm[k]) is t and not np.isnan(pm[k]) for k, t in kinds.items())
+
+    out_dir = root / "psnr_cambridge"
+    reset_launch_counts()
+    res = eval_nerf.main(["--ckpt", str(ckpt), "--split", "test", "--img_wh",
+                          "480", "270", "--downsample", "1", "--cache_dir",
+                          str(out_dir)])
+    psnr = res["psnr"]
+    log(f"eval_nerf (PSNR) on {ckpt.name}: seq1 (ts 0) "
+        f"{[round(v, 4) for v in psnr[:2]]}, seq2 (ts 1) "
+        f"{[round(v, 4) for v in psnr[2:]]} dB; launches "
+        + json.dumps({k: v for k, v in LAUNCHES.items() if v}))
+    assert len(psnr) == 4 and np.isfinite(psnr).all()
+    assert LAUNCHES["render_fine_app"] > 0 and LAUNCHES["render_fine"] == 0
+    return launches
+
+
 def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     """Matcher training data from the room NeRF: the room scene
     (``write_room_scene``), its scene points cached per frame through
@@ -2505,6 +2874,7 @@ def main():
         rows = phase_kernels(renderer, dev)
         rows.update(phase_int8_kernels(renderer, dev))
     rows.update(phase_train_kernels(renderer, dev))
+    rows.update(phase_train_app_kernels(renderer, dev))
     with torch.no_grad():
         rows.update(phase_matcher_kernels(dev))
     torch.cuda.empty_cache()
@@ -2534,11 +2904,15 @@ def main():
                                               Path(tmp))
         _, psnr_s, psnr_ms = phase_psnr(ckpt5, Path(tmp), dev)
         app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
+        app_trained = phase_training_app(renderer, dev, args.seed,
+                                         Path(tmp))
     log(f"PSNR phases: {psnr_s:.3f} s an image ({psnr_ms:.1f} ms of it the "
         f"render), appearance checkpoint {psnr_app_s:.3f} s an image")
     launches.update(app_launches)
     launches.update({k: trained[k]
                      for k in ("render_train_fwd", "render_train_bwd")})
+    launches.update({k: app_trained[k] for k in ("render_train_fwd_app",
+                                                 "render_train_bwd_app")})
     # The resample runs on both paths: phase 4's count is the line's,
     # phase 5's stands beside it.
     rows["resample"]["launches_training"] = trained["resample"]

@@ -13,6 +13,7 @@ constexpr int kRows = 64;                        // rows of an MLP chunk
 constexpr int kMaxLayers = 16;
 constexpr int kEncMax = 96;                      // 2 * 3 * F <= 96, padded K
 constexpr int kDirsMax = 32;                     // 2 * 3 * Fd + 3
+constexpr int kAppDim = 16;                      // appearance row of a ray
 constexpr float kHalfPi = 1.57079632679489661923f;
 constexpr float kF32Eps = 1.1920928955078125e-07f;
 

@@ -112,7 +112,6 @@ constexpr int kSliceK = 32;                        // bf16 weight rows a ring sl
 constexpr int kSliceK8 = 64;                       // s8 weight rows a ring slot
 constexpr int kEncSlices = kEncMax / kSliceK;      // encoding rows: 3 slices
 constexpr int kEncSlices8 = 2;   // s8 encoding rows (96, padded to 128)
-constexpr int kAppDim = 16;      // appearance row of a ray
 static_assert(kWgRows == 64, "one chunk = one wgmma m64 tile");
 
 struct EvalParams {

@@ -10,7 +10,11 @@
 // -> L x HID trunk (skip concat as a second product into the same
 // accumulator) -> sigma (+ the caller's density noise, before the ReLU) ->
 // feature -> views -> sigmoid rgb -> alpha compositing.  Outputs rgb (N, 3)
-// and weights (N, S).  No early termination (training).  train_fwd_kernel:
+// and weights (N, S).  No early termination (training).  An appearance MLP
+// takes each ray's appearance row (app, N x kAppDim): it joins the views
+// layer once a ray beside the viewdir PE (the JAX kernel's extras @ wvx),
+// and the backward returns its cotangent g_app (extras_grad, :303-312).
+// train_fwd_kernel:
 // a persistent grid (at most one block an SM) of two warpgroups walking
 // over 128-row chunks, each layer a wgmma m64nHIDk16 with A in registers
 // (the layer before's accumulator after bias and ReLU, rounded to bf16;
@@ -47,7 +51,14 @@
 //      64-row stages in a 4-stage cp.async ring, split over 48 fixed row
 //      ranges into partials;
 //   3. reduce_parts_kernel: a fixed-order sum over the partials (matrix and
-//      vector gradients).
+//      vector gradients);
+//   4. with appearance rows, app_grad_kernel: g_app per ray from the
+//      per-ray sum of g_hv that launch 1 leaves (rounded to bf16 once)
+//      and the views layer's appearance rows, f32 FMAs in a fixed order
+//      (the JAX kernel rounds each sample's g_hv @ wvx^T to bf16 and sums
+//      those in f32: the two differ by that rounding).  The appearance
+//      rows' weight gradient is the extras product of launch 2, its rows
+//      widened from kDirsMax to kDirsMax + kAppDim.
 // No atomics: the result is bit-reproducible run to run.
 //
 // Precision, as in the JAX kernel: matrix-product operands bf16 with f32
@@ -77,8 +88,8 @@
 // (and with fewer GEMM row ranges) and times them.
 // -Xptxas -v (sm_90a, CUDA 12.8): train_fwd_kernel<256, stash> 255
 // registers, 36 bytes of spill stores / 44 of loads; <256, no stash> 254
-// registers, no spills; <64, *> 124-125 registers, no spills; 225,912 bytes of dynamic shared memory at HID 256 (ring 112 KB,
-// encoding tiles 32 KB, row buffer 66 KB, record 4 KB, f32 6 KB), 98,168
+// registers, no spills; <64, *> 124-125 registers, no spills; 226,040 bytes of dynamic shared memory at HID 256 (ring 112 KB,
+// encoding tiles 32 KB, row buffer 66 KB, record 4 KB, f32 6 KB), 98,296
 // at 64.  train_bwd_kernel<256> 255 registers,
 // 24 bytes of spill stores / 40 of loads, 223,880 bytes of dynamic shared
 // memory (ring 128 KB, row buffer 66 KB, f32 sums 24 KB); <64> 117
@@ -112,13 +123,23 @@ struct TrainParams {
   const float* bf;
   const __nv_bfloat16* wvhT;  // views layer, hidden rows (hv x hid): slot images
   const float* wvd;   // views layer, dirs rows (dirs_dim, hv), bf16 values
+  const float* wva;   // views layer, appearance rows (kAppDim, hv), bf16
+                      // values, or null (no appearance table)
   const float* bv;
   const float* wr;    // rgb head (hv, 3), bf16 values
   const float* br;
   const float* rays;   // (N, 12) packed, unit-direction parameterization
   const float* z;      // (N, S + 1) fenceposts
   const float* noise;  // (N, S) density noise
+  const float* app;    // (N, kAppDim) appearance rows, or null
 };
+
+// A ray's extras row: the viewdir PE padded to kDirsMax, then its
+// appearance row.
+constexpr int kExtraMax = kDirsMax + kAppDim;
+__host__ __device__ inline int extras_width(bool app) {
+  return kDirsMax + (app ? kAppDim : 0);
+}
 
 // Workspace slots; sample row r = ray * S + s.  bf16 unless noted.
 struct Stash {
@@ -127,7 +148,7 @@ struct Stash {
   __nv_bfloat16* feat;             // (rows, HID)
   __nv_bfloat16* hv;               // (rows, HV)
   float* rec;                      // (rows, 8) f32: rgb, sigma_raw, alpha, T
-  __nv_bfloat16* extras;           // (N, kDirsMax) viewdir PE
+  __nv_bfloat16* extras;           // (N, extras_width) viewdir PE [+ app]
   __nv_bfloat16* g_pre[kMaxLayers];
   __nv_bfloat16* g_feat;           // (rows, HID)
   __nv_bfloat16* g_hv;             // (rows, HV)
@@ -196,10 +217,10 @@ struct FwdSmem {
   static constexpr int kRowOff = kEncOff + 4 * kEncBlock;
   static constexpr int kRecOff = kRowOff + kChunkRows * kRowStride;
   static constexpr int kFloatOff = kRecOff + kChunkRows * kRecWidth * 4;
-  // f32: row info (128 x 8), xt (2 x HV), dirs PE (2 x kDirsMax), segment
-  // sums (8 x 8), per-ray carries (2 x 8).
+  // f32: row info (128 x 8), xt (2 x HV), extras rows (2 x kExtraMax),
+  // segment sums (8 x 8), per-ray carries (2 x 8).
   static constexpr int kFloats =
-      kChunkRows * 8 + 2 * HV + 2 * kDirsMax + kBwdWarps * 8 + 2 * 8;
+      kChunkRows * 8 + 2 * HV + 2 * kExtraMax + kBwdWarps * 8 + 2 * 8;
   static constexpr size_t kBytes = 1024 + kFloatOff + (size_t)kFloats * 4 + 8 * kFwdRing;
 };
 
@@ -242,8 +263,8 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
   float* rec = reinterpret_cast<float*>(sm + L::kRecOff);      // 128 x 8
   float* info = reinterpret_cast<float*>(sm + L::kFloatOff);   // 128 x 8
   float* xt = info + kChunkRows * 8;                           // 2 x HV
-  float* dpe = xt + 2 * HV;                                    // 2 x kDirsMax
-  float* seg = dpe + 2 * kDirsMax;                             // 8 x 8
+  float* dpe = xt + 2 * HV;                                    // 2 x kExtraMax
+  float* seg = dpe + 2 * kExtraMax;                            // 8 x 8
   float* ray_s = seg + kBwdWarps * 8;   // 2 x 8: carry, acc, rgb (3)
   const uint32_t full0 = smem_u32(ray_s + 16);                 // slot s: + 8 s
 
@@ -251,6 +272,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
   const int wg = tid >> 7, t = lane & 3;
   const int wrow = (warp & 3) * 16 + (lane >> 2);   // first of its two rows
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
+  const int ew = extras_width(p.app != nullptr);
   const uint32_t enc_w = enc_s + wg * 2 * L::kEncBlock;   // this warpgroup's
   // The epilogues' weights at this thread's columns 8 j + 2 t (rows of wr):
   // constant offsets from one base each, not an address a column for the
@@ -362,9 +384,10 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
   for (int ui = 0; ui < my_units; ++ui) {
     const int ray0 = ((int)blockIdx.x + ui * (int)gridDim.x) * G;
     __syncthreads();   // the last unit's sums are read
-    // View-direction PE per ray, rounded to bf16: [sin(2^f d) | cos | d].
-    for (int i = tid; i < G * kDirsMax; i += kBwdThreads) {
-      const int r = i / kDirsMax, j = i % kDirsMax;
+    // Extras per ray, rounded to bf16: the view-direction PE [sin(2^f d) |
+    // cos | d], zeros to kDirsMax, then the appearance row.
+    for (int i = tid; i < G * ew; i += kBwdThreads) {
+      const int r = i / ew, j = i % ew;
       const float* ray = p.rays + (size_t)(ray0 + r) * 12;
       float v = 0.f;
       if (j < 6 * Fd) {
@@ -373,17 +396,24 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         v = j < 3 * Fd ? sinf(x) : sinf(x + kHalfPi);
       } else if (j < dirs_dim) {
         v = ray[8 + j - 6 * Fd];
+      } else if (j >= kDirsMax) {
+        v = p.app[(size_t)(ray0 + r) * kAppDim + j - kDirsMax];
       }
-      dpe[i] = bf16_round(v);
-      if (kStash) st.extras[(size_t)(ray0 + r) * kDirsMax + j] = __float2bfloat16(v);
+      dpe[r * kExtraMax + j] = bf16_round(v);
+      if (kStash) st.extras[(size_t)(ray0 + r) * ew + j] = __float2bfloat16(v);
     }
     if (tid < 2 * 8) ray_s[tid] = 0.f;
     __syncthreads();
+    // xt = extras @ [wvd; wva] (bf16 values, f32 FMAs), once a ray.
     for (int i = tid; i < G * HV; i += kBwdThreads) {
       const int r = i / HV, k = i % HV;
+      const float* e = dpe + r * kExtraMax;
       float s = 0.f;
       for (int j = 0; j < dirs_dim; ++j)
-        s = fmaf(dpe[r * kDirsMax + j], __ldg(p.wvd + (size_t)j * HV + k), s);
+        s = fmaf(e[j], __ldg(p.wvd + (size_t)j * HV + k), s);
+      if (p.wva != nullptr)
+        for (int j = 0; j < kAppDim; ++j)
+          s = fmaf(e[kDirsMax + j], __ldg(p.wva + (size_t)j * HV + k), s);
       xt[i] = s;
     }
 
@@ -1122,28 +1152,42 @@ __global__ void reduce_parts_kernel(const float* __restrict__ part, int nparts,
   out[j] = s;
 }
 
+// ---- backward launch 4 (appearance rows only): g_app[n, j] = sum over k
+//      of g_hvsum[n, k] * wva[j, k], one thread an output, k in order ----
+__global__ void app_grad_kernel(const __nv_bfloat16* __restrict__ g_hvsum,
+                                const float* __restrict__ wva, int n_rays, int hv,
+                                float* __restrict__ g_app) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays * kAppDim) return;
+  const __nv_bfloat16* g = g_hvsum + (size_t)(i / kAppDim) * hv;
+  const float* w = wva + (size_t)(i % kAppDim) * hv;
+  float s = 0.f;
+  for (int k = 0; k < hv; ++k) s = fmaf(__bfloat162float(g[k]), __ldg(w + k), s);
+  g_app[i] = s;
+}
+
 // ---- host side ----
 struct Dims {
   int n_rays, hid, layer_num, S;
   long long rows;
-  int hv, splits;
+  int hv, ew, splits;
   long long mat_total;
   VecLayout vl;
-  Dims(int n, int h, int L, int s)
+  Dims(int n, int h, int L, int s, bool app)
       : n_rays(n), hid(h), layer_num(L), S(s), rows((long long)n * s),
-        hv(h / 2), vl(L, h) {
+        hv(h / 2), ew(extras_width(app)), vl(L, h) {
     splits = (int)(rows / 4096);
     splits = splits < 1 ? 1 : splits > kMaxSplits ? kMaxSplits : splits;
     // Worst case (every layer with encoding rows) bounds the matrix block.
     mat_total = (long long)L * (kEncMax * h + h * h) + h * h + h * hv +
-                kDirsMax * hv + hv * kGrgbWidth;
+                (long long)ew * hv + hv * kGrgbWidth;
   }
 };
 
 size_t align256(size_t b) { return (b + 255) & ~(size_t)255; }
 
 // Carves the stash (what the training forward keeps for the backward: the
-// encoding, every activation, the f32 record and the viewdir PE) from base;
+// encoding, every activation, the f32 record and the extras rows) from base;
 // returns its size.  With base == nullptr only sizes.
 size_t carve_stash(const Dims& d, char* base, Stash* st) {
   size_t off = 0;
@@ -1158,7 +1202,7 @@ size_t carve_stash(const Dims& d, char* base, Stash* st) {
   st->feat = (__nv_bfloat16*)take(R * H * 2);
   st->hv = (__nv_bfloat16*)take(R * HV * 2);
   st->rec = (float*)take(R * kRecWidth * 4);
-  st->extras = (__nv_bfloat16*)take((size_t)d.n_rays * kDirsMax * 2);
+  st->extras = (__nv_bfloat16*)take((size_t)d.n_rays * d.ew * 2);
   return off;
 }
 
@@ -1205,12 +1249,14 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
   p->bf = (const float*)ptrs[k++];
   p->wvhT = (const __nv_bfloat16*)ptrs[k++];
   p->wvd = (const float*)ptrs[k++];
+  p->wva = (const float*)ptrs[k++];
   p->bv = (const float*)ptrs[k++];
   p->wr = (const float*)ptrs[k++];
   p->br = (const float*)ptrs[k++];
   p->rays = (const float*)ptrs[k++];
   p->z = (const float*)ptrs[k++];
   p->noise = (const float*)ptrs[k++];
+  p->app = (const float*)ptrs[k++];
 }
 
 int persistent_grid(int units, cudaError_t* e) {
@@ -1263,9 +1309,10 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
 
 }  // namespace
 
-// ptrs: host array of 3 * layer_num + 13 device pointers, in the order
+// ptrs: host array of 3 * layer_num + 15 device pointers, in the order
 // (Wenc_i, WhT_i, b_i) for each layer i, then Wfwd, wa, ba, wfT, bf, wvhT,
-// wvd, bv, wr, br, rays, z, noise.  Wfwd: the forward's ring-slot images of
+// wvd, wva, bv, wr, br, rays, z, noise, app; wva and app both null (no
+// appearance table) or both given.  Wfwd: the forward's ring-slot images of
 // every weight matrix, (in x out) rows, in the order the forward streams
 // them (render_train_kernel.py: pack_train); Wenc_i: layer i's encoding
 // rows there (null where the layer takes no encoding); WhT_i (null for
@@ -1282,6 +1329,7 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
     return (int)cudaErrorInvalidValue;
   TrainParams p;
   unpack(ptrs, layer_num, &p);
+  if ((p.app == nullptr) != (p.wva == nullptr)) return (int)cudaErrorInvalidValue;
   Stash st{};
   cudaStream_t s = (cudaStream_t)stream;
   float *rgb = (float*)out_rgb, *w = (float*)out_w;
@@ -1291,20 +1339,22 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                                    white_bg, rgb, w, s)
                            : launch_fwd<256, false>(p, st, n, L, F, Fd, S, var_scale,
                                                     white_bg, rgb, w, s));
-  carve_stash(Dims(n, hid, L, S), (char*)stash, &st);
+  carve_stash(Dims(n, hid, L, S, p.app != nullptr), (char*)stash, &st);
   return (int)(hid == 64 ? launch_fwd<64, true>(p, st, n, L, F, Fd, S, var_scale,
                                                 white_bg, rgb, w, s)
                          : launch_fwd<256, true>(p, st, n, L, F, Fd, S, var_scale,
                                                  white_bg, rgb, w, s));
 }
 
-// Sizes, written to host int64s: the stash the training forward fills
+// Sizes (app_dim: 0, or kAppDim with appearance rows), written to host
+// int64s: the stash the training forward fills
 // (*out_stash bytes), the backward's gradient workspace (*out_grad bytes)
 // and the matrix-gradient block (*out_mat floats).
 extern "C" int nm_render_train_workspace(int n_rays, int hid, int layer_num,
-                                         int samples, void* out_stash,
+                                         int samples, int app_dim, void* out_stash,
                                          void* out_grad, void* out_mat) {
-  const Dims d(n_rays, hid, layer_num, samples);
+  if (app_dim != 0 && app_dim != kAppDim) return (int)cudaErrorInvalidValue;
+  const Dims d(n_rays, hid, layer_num, samples, app_dim != 0);
   Stash st{};
   float* mat_part;
   *(long long*)out_stash = (long long)carve_stash(d, nullptr, &st);
@@ -1319,7 +1369,9 @@ extern "C" int nm_render_train_workspace(int n_rays, int hid, int layer_num,
 // gradients, f32 sums in (in x out) layout, one block per product in this
 // order: per layer i, [encoding rows (kEncMax x hid) if the layer has them]
 // [hidden rows (hid x hid) if i > 0]; then wf (hid x hid), wvh (hid x hv),
-// wvd (kDirsMax x hv), wr (hv x 8).  grad_vec: P floats, the VecLayout.
+// the extras rows (extras_width x hv: wvd's, zeros to kDirsMax, wva's), wr
+// (hv x 8).  grad_vec: P floats, the VecLayout.  grad_app: (N, kAppDim)
+// f32, given with appearance rows (and only then).
 extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
                                         int hid, int layer_num, int num_freqs,
                                         int dirs_freqs, int samples,
@@ -1327,13 +1379,16 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
                                         const void* g_rgb, const void* g_w,
                                         const void* stash, void* workspace,
                                         void* grad_mat, void* grad_vec,
-                                        void* stream) {
+                                        void* grad_app, void* stream) {
   if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples) ||
       stash == nullptr)
     return (int)cudaErrorInvalidValue;
   TrainParams p;
   unpack(ptrs, layer_num, &p);
-  const Dims d(n_rays, hid, layer_num, samples);
+  const bool app = p.app != nullptr;
+  if (app != (p.wva != nullptr) || app != (grad_app != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Dims d(n_rays, hid, layer_num, samples, app);
   Stash st{};
   float* mat_part;
   carve_stash(d, (char*)stash, &st);
@@ -1374,7 +1429,7 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
   }
   add(st.hs[layer_num - 1], H, st.g_feat, H, R);
   add(st.feat, H, st.g_hv, HV, R);
-  add(st.extras, kDirsMax, st.g_hvsum, HV, n_rays);
+  add(st.extras, d.ew, st.g_hvsum, HV, n_rays);
   add(st.hv, HV, st.g_rgb, kGrgbWidth, R);
   e = cudaFuncSetAttribute(wgrad_gemm_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1388,5 +1443,8 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   reduce_parts_kernel<<<(d.vl.P + 255) / 256, 256, 0, s>>>(
       st.vec_part, parts, d.vl.P, (float*)grad_vec);
+  if ((e = cudaGetLastError()) != cudaSuccess || !app) return (int)e;
+  app_grad_kernel<<<(n_rays * kAppDim + 255) / 256, 256, 0, s>>>(
+      st.g_hvsum, p.wva, n_rays, HV, (float*)grad_app);
   return (int)cudaGetLastError();
 }

@@ -20,9 +20,12 @@ views layer only.  Routing follows the device of the rays:
   fallback, which serves ``'none'``.
 * training: :meth:`train_render` (``make_fused_train_hierarchical``) --
   jittered fenceposts, the train-render kernels (forward and backward) per
-  stage with the randomized resample kernel between them; on CPU tensors
-  through the kernels' plain versions.  :meth:`render_rays` with
-  ``train=True`` is the plain f32 (or ``compute_dtype``) training path.
+  stage with the randomized resample kernel between them, both stages
+  reading the rays' appearance rows; on CPU tensors through the kernels'
+  plain versions.  :meth:`render_rays` with ``train=True`` is the plain f32
+  (or ``compute_dtype``) training path.  Both gather the rows under
+  autograd, so the table gets its gradient from PyTorch's index backward
+  (the gather's VJP, which JAX runs in XLA).
 
 Random draws come from an explicit ``torch.Generator`` or as tensors
 (:meth:`train_draws`), so a test can feed both packages the same numbers.
@@ -175,11 +178,11 @@ class NerfRenderer(nn.Module):
     def app_rows(self, ray_id, n: int, device):
         """The appearance rows (n, 16) of ``ray_id`` (n,) int (None: every
         ray takes row 1, the JAX default), ids clamped to the table as a
-        JAX gather clamps them; None without a table.  No gradient reaches
-        the table (training it is not ported)."""
+        JAX gather clamps them; None without a table.  Differentiable in
+        the table."""
         if not self.cfg.appearance_embedding:
             return None
-        table = self.embedding_a.weight.detach()
+        table = self.embedding_a.weight
         if ray_id is None:
             ray_id = torch.ones(n, dtype=torch.long, device=device)
         ray_id = torch.as_tensor(ray_id, device=table.device).long().reshape(-1)
@@ -291,12 +294,15 @@ class NerfRenderer(nn.Module):
                          cfg.mip_var_scale if cfg.mip_var_scale > 0 else 1.0,
                          cfg.white_bg)
 
-    def train_render(self, rays, generator=None, draws=None):
+    def train_render(self, rays, generator=None, draws=None, ray_id=None):
         """Two-stage training render of (N, 12) rays ->
         dict(rgb_coarse, rgb_fine, weights_fine, s_fine), differentiable in
-        the MLP parameters (``make_fused_train_hierarchical``)."""
+        the MLP parameters and the appearance table
+        (``make_fused_train_hierarchical``); ``ray_id``: the appearance rows
+        (see :meth:`app_rows`), read by both stages."""
         self.check_train_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
+        app = self.app_rows(ray_id, rays.shape[0], rays.device)
         rays, _ = reparam_unit_dir(rays)
         n, S = rays.shape[0], self.fine_cfg.num_pts
         if draws is None:
@@ -308,10 +314,10 @@ class NerfRenderer(nn.Module):
         z = z.contiguous()
         zeros = torch.zeros(n, S, device=rays.device)
         rgb_c, w_c = render_train(self._stage_spec(coarse_mlp), rays, z,
-                                  draws.get("noise_coarse", zeros))
+                                  draws.get("noise_coarse", zeros), app)
         z_f = resample_z(z, w_c.detach().contiguous(), u=draws.get("u"))
         rgb_f, w_f = render_train(self._stage_spec(fine_mlp), rays, z_f,
-                                  draws.get("noise_fine", zeros))
+                                  draws.get("noise_fine", zeros), app)
         return {"rgb_coarse": rgb_c, "rgb_fine": rgb_f, "weights_fine": w_f,
                 "s_fine": t_to_s(z_f, z_f.min(), z_f.max())}
 

@@ -36,6 +36,7 @@ LAUNCHES = {"render_coarse": 0, "render_fine": 0, "render_coarse_int8": 0,
             "render_fine_int8": 0, "render_fine_app": 0,
             "render_fine_int8_app": 0, "resample": 0,
             "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0,
+            "render_train_fwd_app": 0, "render_train_bwd_app": 0,
             "attention_bwd": 0, "dw_star_fwd": 0, "dw_star_dgrad": 0,
             "dw_star_wgrad": 0}
 
@@ -60,14 +61,14 @@ _SIGNATURES = {
     # var_scale, white_bg, out_rgb, out_w, stash (or null), stream
     "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
                                 _P, _P],
-    # n_rays, hid, layer_num, samples, out stash bytes, out gradient
-    # workspace bytes, out matrix block
-    "nm_render_train_workspace": [_I, _I, _I, _I, _P, _P, _P],
+    # n_rays, hid, layer_num, samples, app_dim, out stash bytes, out
+    # gradient workspace bytes, out matrix block
+    "nm_render_train_workspace": [_I, _I, _I, _I, _I, _P, _P, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
     # var_scale, white_bg, g_rgb, g_w, stash, gradient workspace, grad_mat,
-    # grad_vec, stream
+    # grad_vec, grad_app (or null), stream
     "nm_render_train_backward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _P, _P],
     # q, k, v, out, lse (or null), bf16 workspace for f32 q, k, v (or
     # null), B, L, S, H, D, bf16, stream
     "nm_attention_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -42,12 +42,11 @@ from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP, eval_feat_layer
 from ...nerf.sampling import frustum_moments, lift_gaussian
 from .quant import ENC_PAD
-from .render_train_kernel import ENC_MAX, _skip_in, forward_images
+from .render_train_kernel import APP_DIM, ENC_MAX, _skip_in, forward_images
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
 KERNEL_HIDS = (64, 256)
-APP_DIM = 16           # columns of an appearance row (the table's width)
 
 
 def stream_bytes(cfg, int8_from=None) -> int:

@@ -7,13 +7,20 @@ One stage: frustum moments of the (jittered) z fenceposts -> IPE -> NeRF MLP
 -> density noise before the ReLU -> heads -> alpha compositing, returning
 ``rgb`` (N, 3) and the per-sample ``weights`` (N, S).  The backward returns
 gradients for every MLP parameter in the parameter's own layout; rays, z
-and noise get none (as in JAX).
+and noise get none (as in JAX).  An appearance MLP (``app_dim`` 16) takes
+``app`` (N, 16), each ray's appearance row: it joins the views layer once a
+ray, after the viewdir PE (``extras @ wvx``), and its cotangent ``g_app``
+comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
+303-312``).
 
 Precision follows the JAX kernel: every matrix product takes bf16 operands
 with f32 accumulation (the views layer's dirs rows and the rgb head
 included), residual activations are bf16, the backward's matrix operands
 are bf16, and the matrix-weight gradients are rounded to bf16; biases, the
-sigma head and compositing stay f32.
+sigma head and compositing stay f32.  ``g_app`` is the per-ray sum over
+samples of ``g_hv`` (f32), rounded to bf16 once, times the bf16 appearance
+rows of the views weight in f32 (the JAX kernel rounds each sample's
+product to bf16 and sums those: the two differ by that rounding).
 
 :func:`render_train` launches ``csrc/render_train.cu`` for CUDA tensors and
 raises on anything the kernels do not implement; for CPU tensors it runs
@@ -42,6 +49,7 @@ KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunk
 KERNEL_HIDS = (64, 256)
 ENC_MAX = 96          # csrc: kEncMax (padded encoding width)
 DIRS_MAX = 32         # csrc: kDirsMax
+APP_DIM = 16          # csrc: kAppDim (columns of an appearance row)
 GRGB_WIDTH = 8        # csrc: kGrgbWidth
 REC_WIDTH = 8         # csrc: kRecWidth (f32 record a sample)
 MAX_SPLITS = 48       # csrc: kMaxSplits (the GEMM's row ranges)
@@ -72,9 +80,10 @@ def _skip_in(cfg, i: int) -> bool:
 # ---------------------------------------------------------------------------
 
 def train_stage_forward(spec: StageSpec, rays, z, noise, bf16: bool = True,
-                        keep: bool = False):
+                        keep: bool = False, app=None):
     """Plain train stage -> (rgb, weights[, intermediates]).  Differentiable
-    when called with grad enabled (``bf16=False`` is the f32 reference)."""
+    when called with grad enabled (``bf16=False`` is the f32 reference),
+    in ``app`` (N, 16) too."""
     mlp, cfg = spec.mlp, spec.mlp.cfg
     rnd = functools.partial(_bf16, on=bf16)
     o, d = rays[:, 0:3], rays[:, 8:11]
@@ -100,9 +109,12 @@ def train_stage_forward(spec: StageSpec, rays, z, noise, bf16: bool = True,
     feature = rnd(F.linear(rnd(h), rnd(mlp.feature_linear.weight),
                            mlp.feature_linear.bias))
     views = mlp.views_linears[0]
-    w_h, w_d = views.weight[:, :cfg.hid_dim], views.weight[:, cfg.hid_dim:]
-    dirs = rnd(pe_embedding(d, spec.dirs_freqs))
-    xt = F.linear(dirs, rnd(w_d))
+    w_h, w_x = views.weight[:, :cfg.hid_dim], views.weight[:, cfg.hid_dim:]
+    # extras: the viewdir PE, then the appearance row (views.weight's order).
+    extras = rnd(pe_embedding(d, spec.dirs_freqs))
+    if app is not None:
+        extras = torch.cat([extras, rnd(app)], dim=-1)
+    xt = F.linear(extras, rnd(w_x))
     hv = rnd(torch.relu(F.linear(feature, rnd(w_h)) + xt[:, None, :]
                         + views.bias))
     rgb_s = torch.sigmoid(F.linear(hv, rnd(mlp.rgb_linear.weight),
@@ -118,16 +130,18 @@ def train_stage_forward(spec: StageSpec, rays, z, noise, bf16: bool = True,
     if not keep:
         return rgb, weights
     return rgb, weights, dict(xb=xb, hs=hs, sigma_raw=sigma_raw,
-                              feature=feature, dirs=dirs, hv=hv, rgb_s=rgb_s,
-                              dists=dists, alpha=alpha, csum=csum)
+                              feature=feature, extras=extras, hv=hv,
+                              rgb_s=rgb_s, dists=dists, alpha=alpha,
+                              csum=csum)
 
 
 @torch.no_grad()
 def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
-                         chunk_rays: int = 1024):
+                         chunk_rays: int = 1024, app=None):
     """Explicit backward of the bf16 plain stage (the JAX ``bwd_kernel``,
     with its bf16 operand roundings), recomputing the forward per chunk of
-    rays -> {parameter name: gradient}."""
+    rays -> {parameter name: gradient}, and ``"app"``: ``g_app`` (N, 16)
+    when ``app`` is given (the kernel's rounding, see the module doc)."""
     mlp, cfg = spec.mlp, spec.mlp.cfg
     b = _bf16
     enc, hid = cfg.xyz_dim, cfg.hid_dim
@@ -137,6 +151,9 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
     wf = b(mlp.feature_linear.weight)
     views_w = mlp.views_linears[0].weight
     wvh = b(views_w[:, :hid])
+    wva = b(views_w[:, hid + cfg.dirs_dim:])
+    g_app = None if app is None else torch.empty(app.shape[0], APP_DIM,
+                                                  device=app.device)
     wrgb = b(mlp.rgb_linear.weight)
     wa = mlp.alpha_linear.weight[0]
     w_hid = [None] + [b(lin.weight[:, enc:] if (i - 1) in cfg.skips
@@ -145,8 +162,9 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
     outer = lambda g, a: torch.einsum("nso,nsi->oi", b(g), b(a))
     for lo in range(0, rays.shape[0], chunk_rays):
         sl = slice(lo, lo + chunk_rays)
-        _, weights, f = train_stage_forward(spec, rays[sl], z[sl], noise[sl],
-                                            keep=True)
+        _, weights, f = train_stage_forward(
+            spec, rays[sl], z[sl], noise[sl], keep=True,
+            app=None if app is None else app[sl])
         gr = g_rgb[sl]
         # composite backward
         g_wt = g_w[sl] + (gr[:, None, :] * f["rgb_s"]).sum(-1)
@@ -167,7 +185,10 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
         g_hv = b(g_rgbt) @ wrgb
         g_hv = torch.where(f["hv"] > 0, g_hv, torch.zeros_like(g_hv))
         acc["views_linears.0.bias"] += g_hv.sum((0, 1))
-        acc["views_linears.0.weight"][:, hid:] += b(g_hv.sum(1)).T @ f["dirs"]
+        g_hvsum = b(g_hv.sum(1))
+        acc["views_linears.0.weight"][:, hid:] += g_hvsum.T @ f["extras"]
+        if app is not None:
+            g_app[sl] = g_hvsum @ wva
         acc["views_linears.0.weight"][:, :hid] += outer(g_hv, f["feature"])
         g_feature = b(g_hv) @ wvh
         # feature / sigma heads into the trunk
@@ -194,6 +215,8 @@ def train_stage_backward(spec: StageSpec, rays, z, noise, g_rgb, g_w,
     for k, v in acc.items():
         if k.endswith("weight") and not k.startswith("alpha_linear"):
             acc[k] = b(v)
+    if app is not None:
+        acc["app"] = g_app
     return acc
 
 
@@ -257,11 +280,13 @@ def pack_train(mlp: NerfMLP):
     rows' part of the forward images, the hidden rows' backward images,
     bias; None where absent), then the forward images
     (:func:`forward_images`), wa, ba, the feature's backward images, bf, the
-    views' hidden-row backward images, wvd, bv, wr, br.  The backward's
-    images are of the (out x in) rows.  wvd and wr are f32 arrays of
-    bf16-rounded values."""
+    views' hidden-row backward images, wvd, wva, bv, wr, br.  The
+    backward's images are of the (out x in) rows.  wvd (the views layer's
+    dirs rows), wva (its appearance rows, None without them) and wr are f32
+    arrays of bf16-rounded values, (in x out)."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
+    app_at = hid + cfg.dirs_dim
     t = lambda w: w.detach().t().contiguous()
     wv = mlp.views_linears[0].weight.detach()
     wf = mlp.feature_linear.weight.detach()
@@ -276,7 +301,8 @@ def pack_train(mlp: NerfMLP):
     out += [fwd, mlp.alpha_linear.weight.detach().reshape(-1).contiguous(),
             mlp.alpha_linear.bias.detach().contiguous(), slot_images(wf),
             mlp.feature_linear.bias.detach().contiguous(),
-            slot_images(wv[:, :hid]), _bf16(t(wv[:, hid:])).contiguous(),
+            slot_images(wv[:, :hid]), _bf16(t(wv[:, hid:app_at])),
+            _bf16(t(wv[:, app_at:])) if cfg.app_dim else None,
             mlp.views_linears[0].bias.detach().contiguous(),
             _bf16(t(mlp.rgb_linear.weight)).contiguous(),
             mlp.rgb_linear.bias.detach().contiguous()]
@@ -286,10 +312,10 @@ def pack_train(mlp: NerfMLP):
 def check_train_config(spec: StageSpec):
     """Raise for configs the train kernels do not implement."""
     cfg = spec.mlp.cfg
-    if cfg.app_dim:
-        raise NotImplementedError(
-            "appearance embeddings (extras_grad) are not in the CUDA train "
-            "kernel (ROADMAP: Cambridge appearance path)")
+    if cfg.app_dim not in (0, APP_DIM):
+        raise NotImplementedError(f"train kernel: appearance rows of "
+                                  f"{cfg.app_dim} columns (it takes "
+                                  f"{APP_DIM})")
     if not cfg.use_viewdirs or cfg.xyz_dim != 6 * spec.num_freqs \
             or cfg.dirs_dim != 6 * spec.dirs_freqs + 3 \
             or cfg.xyz_dim > ENC_MAX or cfg.dirs_dim > DIRS_MAX:
@@ -316,11 +342,17 @@ def _align256(n: int) -> int:
     return (n + 255) // 256 * 256
 
 
+def extras_width(cfg) -> int:
+    """A ray's stashed extras row: the viewdir PE padded to ``DIRS_MAX``,
+    then the appearance row (csrc: Dims::ew)."""
+    return DIRS_MAX + cfg.app_dim
+
+
 def _stash_parts(cfg, n: int, S: int):
     """Bytes of each stash array (csrc: carve_stash, in its order)."""
     L, H, R = cfg.layer_num, cfg.hid_dim, n * S
     return [R * ENC_MAX * 2, *[R * H * 2] * L, R * H * 2, R * (H // 2) * 2,
-            R * REC_WIDTH * 4, n * DIRS_MAX * 2]
+            R * REC_WIDTH * 4, n * extras_width(cfg) * 2]
 
 
 def _grad_parts(cfg, n: int, S: int, lay: BackwardLayout):
@@ -328,8 +360,8 @@ def _grad_parts(cfg, n: int, S: int, lay: BackwardLayout):
     order; the matrix partials are sized for the widest layer layout)."""
     L, H, R = cfg.layer_num, cfg.hid_dim, n * S
     HV = H // 2
-    mat_total = L * (ENC_MAX * H + H * H) + H * H + H * HV + DIRS_MAX * HV \
-        + HV * GRGB_WIDTH
+    mat_total = L * (ENC_MAX * H + H * H) + H * H + H * HV \
+        + extras_width(cfg) * HV + HV * GRGB_WIDTH
     return [*[R * H * 2] * L, R * H * 2, R * HV * 2, R * GRGB_WIDTH * 2,
             n * HV * 2, (n // TILE_RAYS) * lay.vec_len * 4,
             lay.splits * mat_total * 4]
@@ -352,7 +384,8 @@ def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
             prods.append((ENC_MAX, H, R))
         if i > 0:
             prods.append((H, H, R))
-    prods += [(H, H, R), (H, HV, R), (DIRS_MAX, HV, n), (HV, GRGB_WIDTH, R)]
+    prods += [(H, H, R), (H, HV, R), (extras_width(cfg), HV, n),
+              (HV, GRGB_WIDTH, R)]
     splits = min(MAX_SPLITS, max(1, R // 4096))
     part = 4 * sum(m * k for m, k, _ in prods)        # one f32 partial
     rec = 4 * REC_WIDTH
@@ -366,29 +399,40 @@ def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
                           sum(_stash_parts(cfg, n, S)), traffic)
 
 
-def _ptrs(packed, *tensors):
-    vals = [None if p is None else p.data_ptr() for p in packed]
-    vals += [t.data_ptr() for t in tensors]
+def _ptrs(*tensors):
+    vals = [None if p is None else p.data_ptr() for p in tensors]
     return (ctypes.c_void_p * len(vals))(*vals)
 
 
-def _kernel_args(spec: StageSpec, rays, z, noise, packed):
+def _check_app(cfg, app, n: int):
+    """An appearance MLP takes ``app`` (N, 16) f32, and only it."""
+    if bool(cfg.app_dim) != (app is not None):
+        raise ValueError("render_train: an appearance MLP takes app "
+                         f"(N, {APP_DIM}), and only it")
+    if app is not None and (app.dtype != torch.float32
+                            or app.shape != (n, APP_DIM)):
+        raise ValueError(f"render_train: app ({n}, {APP_DIM}) f32, got "
+                         f"{tuple(app.shape)} {app.dtype}")
+
+
+def _kernel_args(spec: StageSpec, rays, z, noise, packed, app=None):
     check_train_config(spec)
     n, S = z.shape[0], z.shape[1] - 1
     if any(t.dtype != torch.float32 for t in (rays, z, noise)) \
             or rays.shape != (n, 12) or noise.shape != (n, S):
         raise ValueError("render_train: rays (N, 12), z (N, S+1), noise "
                          "(N, S), all f32")
+    _check_app(spec.mlp.cfg, app, n)
     if n % TILE_RAYS or S not in KERNEL_SAMPLES:
         raise NotImplementedError(
             f"train kernel needs N % {TILE_RAYS} == 0 and S in "
             f"{KERNEL_SAMPLES} (N={n}, S={S})")
     require_cuda_tensors("render_train", rays, z, noise,
-                         *[p for p in packed if p is not None])
+                         *[p for p in (*packed, app) if p is not None])
     cfg = spec.mlp.cfg
-    return (_ptrs(packed, rays, z, noise), n, cfg.hid_dim, cfg.layer_num,
-            spec.num_freqs, spec.dirs_freqs, S, spec.var_scale,
-            int(spec.white_bg))
+    return (_ptrs(*packed, rays, z, noise, app), n, cfg.hid_dim,
+            cfg.layer_num, spec.num_freqs, spec.dirs_freqs, S,
+            spec.var_scale, int(spec.white_bg))
 
 
 def _sizes(cfg, n: int, S: int):
@@ -396,18 +440,19 @@ def _sizes(cfg, n: int, S: int):
     C side."""
     out = [ctypes.c_longlong(0) for _ in range(3)]
     check(library().nm_render_train_workspace(
-        n, cfg.hid_dim, cfg.layer_num, S, *map(ctypes.addressof, out)),
-        "render_train_workspace")
+        n, cfg.hid_dim, cfg.layer_num, S, cfg.app_dim,
+        *map(ctypes.addressof, out)), "render_train_workspace")
     return tuple(v.value for v in out)
 
 
 def kernel_forward(spec: StageSpec, rays, z, noise, packed,
-                   stash: bool = False):
+                   stash: bool = False, app=None):
     """Kernel forward -> (rgb, weights, stash).  With ``stash`` it is the
     training forward: it also fills and returns the stash (uint8, the
     activations :func:`kernel_backward` reads); else the stash is None and
-    nothing beyond the outputs is allocated."""
-    args = _kernel_args(spec, rays, z, noise, packed)
+    nothing beyond the outputs is allocated.  ``app``: the rays'
+    appearance rows, for an appearance MLP."""
+    args = _kernel_args(spec, rays, z, noise, packed, app)
     n, S = z.shape[0], z.shape[1] - 1
     rgb = torch.empty(n, 3, device=rays.device)
     w = torch.empty(n, S, device=rays.device)
@@ -419,15 +464,16 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
         *args, rgb.data_ptr(), w.data_ptr(),
         None if st is None else st.data_ptr(), stream_ptr(rays.device))
     check(err, "render_train_fwd")
-    LAUNCHES["render_train_fwd"] += 1
+    LAUNCHES["render_train_fwd" + ("" if app is None else "_app")] += 1
     return rgb, w, st
 
 
 def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
-                    packed):
+                    packed, app=None):
     """Kernel gradients on the stash of the training forward of the same
-    inputs -> {parameter name: gradient}."""
-    args = _kernel_args(spec, rays, z, noise, packed)
+    inputs -> {parameter name: gradient}, and ``"app"``: ``g_app`` (N, 16)
+    for an appearance MLP."""
+    args = _kernel_args(spec, rays, z, noise, packed, app)
     mlp, cfg = spec.mlp, spec.mlp.cfg
     n, S = z.shape[0], z.shape[1] - 1
     L, hid, enc = cfg.layer_num, cfg.hid_dim, cfg.xyz_dim
@@ -442,11 +488,13 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     work = torch.empty(n_grad, dtype=torch.uint8, device=dev)
     mat = torch.empty(n_mat, device=dev)
     vec = torch.empty(backward_layout(cfg, n, S).vec_len, device=dev)
+    g_app = None if app is None else torch.empty(n, APP_DIM, device=dev)
     err = library().nm_render_train_backward(
         *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
-        work.data_ptr(), mat.data_ptr(), vec.data_ptr(), stream_ptr(dev))
+        work.data_ptr(), mat.data_ptr(), vec.data_ptr(),
+        None if g_app is None else g_app.data_ptr(), stream_ptr(dev))
     check(err, "render_train_bwd")
-    LAUNCHES["render_train_bwd"] += 1
+    LAUNCHES["render_train_bwd" + ("" if app is None else "_app")] += 1
     del work
     # Split the (in x out) matrix blocks in the C product order.
     off = 0
@@ -468,8 +516,9 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
         g[f"pts_linears.{i}.bias"] = vec[i * hid:(i + 1) * hid]
     g["feature_linear.weight"] = block(hid, hid).t()
     w_h = block(hid, hv)
-    w_d = block(DIRS_MAX, hv)[:dirs]
-    g["views_linears.0.weight"] = torch.cat([w_h, w_d]).t()
+    w_x = block(extras_width(cfg), hv)      # dirs rows, padding, app rows
+    g["views_linears.0.weight"] = torch.cat(
+        [w_h, w_x[:dirs], w_x[DIRS_MAX:]]).t()
     g["rgb_linear.weight"] = block(hv, GRGB_WIDTH)[:, :3].t()
     o = L * hid
     g["feature_linear.bias"] = vec[o:o + hid]
@@ -482,6 +531,8 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
         if k.endswith("weight") and not k.startswith("alpha_linear"):
             v = _bf16(v)
         g[k] = v.contiguous()
+    if g_app is not None:
+        g["app"] = g_app
     return g
 
 
@@ -490,25 +541,27 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
 # ---------------------------------------------------------------------------
 
 class _RenderTrainFn(torch.autograd.Function):
+    # Inputs: spec, use_kernel, grad, rays, z, noise, app, *params; the
+    # gradients go to app (index 6) and the parameters (7 on).
     @staticmethod
-    def forward(ctx, spec, use_kernel, grad, rays, z, noise, *params):
+    def forward(ctx, spec, use_kernel, grad, rays, z, noise, app, *params):
         packed = pack_train(spec.mlp) if use_kernel else None
         ctx.stash = None
         if use_kernel:
             # The training forward keeps its activations for the backward
             # (the stash); a forward that needs no gradient allocates none.
             rgb, w, ctx.stash = kernel_forward(spec, rays, z, noise, packed,
-                                               stash=grad)
+                                               stash=grad, app=app)
         else:
             with torch.no_grad():
-                rgb, w = train_stage_forward(spec, rays, z, noise)
+                rgb, w = train_stage_forward(spec, rays, z, noise, app=app)
         ctx.spec, ctx.use_kernel, ctx.packed = spec, use_kernel, packed
-        ctx.save_for_backward(rays, z, noise)
+        ctx.save_for_backward(rays, z, noise, app)
         return rgb, w
 
     @staticmethod
     def backward(ctx, g_rgb, g_w):
-        rays, z, noise = ctx.saved_tensors
+        rays, z, noise, app = ctx.saved_tensors
         spec = ctx.spec
         if not any(ctx.needs_input_grad[6:]):
             # Only rays, z or noise asked for a gradient, and the stage gives
@@ -525,32 +578,39 @@ class _RenderTrainFn(torch.autograd.Function):
                     "forward); run the forward again")
             stash, ctx.stash = ctx.stash, None
             g = kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w,
-                                ctx.packed)
+                                ctx.packed, app)
             del stash
         else:
-            g = train_stage_backward(spec, rays, z, noise, g_rgb, g_w)
+            g = train_stage_backward(spec, rays, z, noise, g_rgb, g_w,
+                                     app=app)
         names = [k for k, _ in spec.mlp.named_parameters()]
-        return (None,) * 6 + tuple(g[k] for k in names)
+        return (None,) * 6 + (g.get("app"),) + tuple(g[k] for k in names)
 
 
-def _apply(spec, use_kernel, rays, z, noise):
+def _apply(spec, use_kernel, rays, z, noise, app):
     params = list(spec.mlp.parameters())
-    grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
-    return _RenderTrainFn.apply(spec, use_kernel, grad, rays, z, noise,
+    grad = torch.is_grad_enabled() and (
+        any(p.requires_grad for p in params)
+        or (app is not None and app.requires_grad))
+    return _RenderTrainFn.apply(spec, use_kernel, grad, rays, z, noise, app,
                                 *params)
 
 
-def render_train_plain(spec: StageSpec, rays, z, noise):
+def render_train_plain(spec: StageSpec, rays, z, noise, app=None):
     """Plain train stage (bf16 operand roundings) with the explicit
-    backward -> (rgb (N, 3), weights (N, S))."""
-    return _apply(spec, False, rays, z, noise)
+    backward -> (rgb (N, 3), weights (N, S)); ``app`` (N, 16): the rays'
+    appearance rows of an appearance MLP, differentiable."""
+    _check_app(spec.mlp.cfg, app, rays.shape[0])
+    return _apply(spec, False, rays, z, noise, app)
 
 
-def render_train(spec: StageSpec, rays, z, noise):
+def render_train(spec: StageSpec, rays, z, noise, app=None):
     """Train stage: the CUDA kernels for CUDA tensors (or an error), the
-    plain version for CPU tensors -> (rgb (N, 3), weights (N, S))."""
+    plain version for CPU tensors -> (rgb (N, 3), weights (N, S)).
+    ``app`` (N, 16): the rays' appearance rows, which an appearance MLP
+    takes and which get their gradient (``g_app``) from the backward."""
     if rays.device.type != "cuda":
-        return render_train_plain(spec, rays, z, noise)
+        return render_train_plain(spec, rays, z, noise, app)
     check_train_config(spec)
     return _apply(spec, True, rays.contiguous(), z.contiguous(),
-                  noise.contiguous())
+                  noise.contiguous(), None if app is None else app.contiguous())

@@ -9,11 +9,14 @@ directories.  One process on one device: CUDA rays go through
 CPU rays go through the plain path (the kernels' plain versions when
 ``render.use_fused_train``, else ``render_rays(train=True)``).  Random draws
 come from a ``torch.Generator`` seeded with ``exp.seed``; ray batches from
-``np.random.default_rng(exp.seed)`` as in the JAX trainer.
+``np.random.default_rng(exp.seed)`` as in the JAX trainer.  An appearance
+NeRF (``embedding.appearance_embed``) holds one table row per training
+sequence; each ray trains its sequence's row (the batch's ``ts``), and Adam
+updates the table with the MLPs.  A retrieval-pair val sample (with
+``data.train_pair_txt``) is scored by :meth:`NerfTrainer.validate_pair`.
 
-Not ported: multi-device data parallelism (``exp.gpus > 1``), appearance
-embeddings, the scene-coordinate head (``out_scr``) and retrieval-pair pose
-validation (``validate_pair``); each raises ``NotImplementedError``.
+Not ported: multi-device data parallelism (``exp.gpus > 1``) and the
+scene-coordinate head (``out_scr``); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
 from ..utils import get_logger, resolve_device
-from ..utils.metrics import compute_nerf_metrics, mse2psnr
+from ..utils.metrics import (compute_nerf_metrics,
+                             compute_nerf_pose_metrics, mse2psnr)
 from ..utils.images import colorize_depth
 from ..utils.optim import get_lr, init_optimizer, make_lr_schedule, set_lr
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
@@ -82,21 +86,20 @@ def check_train_config(config):
     if getattr(getattr(config, "data", None), "out_scr", False):
         raise NotImplementedError("out_scr (scene-coordinate head) is not "
                                   "ported (ROADMAP: training slice)")
-    if getattr(config.embedding, "appearance_embed", False):
-        raise NotImplementedError(
-            "training an appearance table is not ported (ROADMAP: "
-            "appearance embeddings for training, extras_grad)")
 
 
 class NerfTrainer:
-    """Holds the renderer (the trained parameters), the optimizer and the
-    LR schedule; :meth:`train_step` is one optimizer step."""
+    """Holds the renderer (the trained parameters, the appearance table
+    included), the optimizer and the LR schedule; :meth:`train_step` is one
+    optimizer step.  ``num_frames``: the table's rows (the training
+    sequences), for an appearance NeRF."""
 
-    def __init__(self, config, device="cuda", seed: int = 0):
+    def __init__(self, config, device="cuda", seed: int = 0,
+                 num_frames: int | None = None):
         check_train_config(config)
         self.config = config
         self.device = resolve_device(device)
-        self.renderer = NerfRenderer(config)
+        self.renderer = NerfRenderer(config, num_frames=num_frames)
         self.renderer.init_params(torch.Generator().manual_seed(seed))
         self.renderer.to(self.device)
         self.opt = init_optimizer(config.optim, self.renderer.parameters())
@@ -105,16 +108,19 @@ class NerfTrainer:
         self.use_fused = self.device.type == "cuda" or bool(
             getattr(config.render, "use_fused_train", False))
 
-    def render_train(self, rays, generator=None, draws=None):
+    def render_train(self, rays, generator=None, draws=None, ray_id=None):
         if self.use_fused:
-            return self.renderer.train_render(rays, generator, draws)
+            return self.renderer.train_render(rays, generator, draws, ray_id)
         return self.renderer.render_rays(rays, train=True,
-                                         generator=generator, draws=draws)
+                                         generator=generator, draws=draws,
+                                         ray_id=ray_id)
 
-    def train_step(self, rays, rgbs, generator=None, mask=None, draws=None):
+    def train_step(self, rays, rgbs, generator=None, mask=None, draws=None,
+                   ts=None):
         """One optimizer step on a ray batch (tensors on the trainer's
-        device) -> detached metrics."""
-        preds = self.render_train(rays, generator, draws)
+        device; ``ts`` (N,): each ray's sequence, its appearance row) ->
+        detached metrics."""
+        preds = self.render_train(rays, generator, draws, ts)
         metrics = compute_nerf_metrics(preds, rgbs, mask_loss=mask,
                                        cnfg_loss=self.cnfg_loss)
         self.opt.zero_grad(set_to_none=True)
@@ -122,18 +128,41 @@ class NerfTrainer:
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
+    @torch.no_grad()
     def validate_pair(self, sample, ds: int = 8):
-        raise NotImplementedError("retrieval-pair pose validation is not "
-                                  "ported (ROADMAP: validate_pair)")
+        """Pair-based pose validation (JAX ``validate_pair``): render both
+        images of a retrieval pair on the ds grid through ``predict`` (the
+        eval kernels on CUDA; an appearance NeRF with row 1, as the JAX
+        plain render) and score the depth- and match-based poses
+        (``compute_nerf_pose_metrics``) -> metrics."""
+        rays = np.asarray(sample["rays"]).reshape(-1, 12)
+        w, h = [int(x) for x in np.asarray(sample["img_wh"]).reshape(-1)[:2]]
+        n_img = len(rays) // 2
+        grid_idx = (np.arange(h // ds)[:, None] * w * ds
+                    + np.arange(w // ds)[None, :] * ds
+                    + (ds // 2) * w + ds // 2).reshape(-1)
+        idx = np.concatenate([grid_idx, n_img + grid_idx])
+        preds = self.renderer.predict(torch.as_tensor(rays[idx],
+                                                      device=self.device))
+        return compute_nerf_pose_metrics(preds["pts_fine"].cpu().numpy(),
+                                         preds["feat_fine"].cpu().numpy(),
+                                         sample, ds=ds)
 
     @torch.no_grad()
     def validate_image(self, sample, max_rays: int | None = None):
         """Render one full val image through ``predict`` (the eval kernels
-        on CUDA) -> (metrics, preds as numpy)."""
+        on CUDA; an appearance NeRF with the sample's sequence row) ->
+        (metrics, preds as numpy)."""
         rays = np.asarray(sample["rays"]).reshape(-1, 12)[:max_rays]
         rgbs = np.asarray(sample["rgbs"]).reshape(-1, 3)[:max_rays]
         w, h = [int(x) for x in np.asarray(sample["img_wh"]).reshape(-1)[:2]]
-        preds = self.renderer.predict(torch.as_tensor(rays, device=self.device))
+        ray_id = None
+        if self.renderer.cfg.appearance_embedding:
+            ray_id = torch.full((len(rays),), int(np.asarray(
+                sample["seq_ind"]).flat[0]), dtype=torch.long,
+                device=self.device)
+        preds = self.renderer.predict(torch.as_tensor(rays, device=self.device),
+                                      ray_id=ray_id)
         out, m = {}, {}
         for k, v in preds.items():
             v = v.cpu().numpy()
@@ -165,7 +194,10 @@ def train(config, device="cuda"):
 
     train_set = init_data_loader(config.data, split="train").dataset
     val_loader = init_data_loader(config.data, split="val", debug=debug)
-    trainer = NerfTrainer(config, device=device, seed=exp.seed)
+    # Before the resume: a stored table has this many rows.
+    num_frames = int(np.max(train_set.seq_ind)) + 1
+    trainer = NerfTrainer(config, device=device, seed=exp.seed,
+                          num_frames=num_frames)
 
     start_epoch, best_psnr = 0, -np.inf
     ckpt_dir = run_dir / "checkpoints"
@@ -194,8 +226,9 @@ def train(config, device="cuda"):
                 break
             mask = tensor(batch["mask"]) if use_mask and "mask" in batch \
                 else None
-            metrics = trainer.train_step(tensor(batch["rays"]),
-                                         tensor(batch["rgbs"]), gen, mask)
+            metrics = trainer.train_step(
+                tensor(batch["rays"]), tensor(batch["rgbs"]), gen, mask,
+                ts=tensor(batch["ts"], torch.long))
             if i % getattr(exp, "log_step", 100) == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["lr"] = get_lr(trainer.opt)
@@ -214,8 +247,10 @@ def train(config, device="cuda"):
                 sample = {k: (v[0] if isinstance(v, (np.ndarray, list)) else v)
                           for k, v in sample.items()}
                 if "c2w" in sample and np.asarray(sample["c2w"]).size == 32:
-                    trainer.validate_pair(sample)
-                m, preds = trainer.validate_image(sample)
+                    # Retrieval-pair val sample -> pose metrics, no image.
+                    m, preds = trainer.validate_pair(sample), {}
+                else:
+                    m, preds = trainer.validate_image(sample)
                 val_ms.append(m)
                 if vi < getattr(exp, "log_num_max", 4):
                     if np.ndim(preds.get("rgb_fine")) == 3:

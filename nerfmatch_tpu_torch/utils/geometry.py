@@ -47,3 +47,19 @@ def rodrigues(rvec):
     s, c = torch.sin(theta)[..., None], torch.cos(theta)[..., None]
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
     return eye + s * K + (1.0 - c) * (K @ K)
+
+
+def mutual_nn_matching(desc1, desc2, eps: float = 1e-9):
+    """Cosine-similarity mutual nearest neighbours of (N1, C) and (N2, C)
+    descriptors -> (matches (N1, 2) long, scores (N1,), valid (N1,) bool):
+    row i is the candidate (i, nn12[i]); ``valid`` marks mutual pairs (JAX
+    ``utils/geometry.py: mutual_nn_matching`` without a threshold)."""
+    d1 = desc1 / (torch.linalg.norm(desc1, dim=1, keepdim=True) + eps)
+    d2 = desc2 / (torch.linalg.norm(desc2, dim=1, keepdim=True) + eps)
+    sim = d1 @ d2.t()
+    nn12 = torch.argmax(sim, dim=1)
+    nn21 = torch.argmax(sim, dim=0)
+    ids1 = torch.arange(sim.shape[0], device=sim.device)
+    valid = ids1 == nn21[nn12]
+    scores = sim.max(dim=1).values
+    return torch.stack([ids1, nn12], dim=1), scores, valid

@@ -2,8 +2,9 @@
 MSE / PSNR, the mip-NeRF 360 distortion regularizer in its O(S) prefix-sum
 form, the NeRF loss assembly, the matcher losses (focal, feature l2, the
 two fine losses) with their ``valid`` masks and stop-gradient weights, the
-host PnP pose metrics, and the localization summaries (median errors,
-recall at the scene's DSAC* thresholds, AUC)."""
+host PnP pose metrics (the NeRF trainer's retrieval-pair validation
+included), and the localization summaries (median errors, recall at the
+scene's DSAC* thresholds, AUC)."""
 
 from __future__ import annotations
 
@@ -219,6 +220,73 @@ def compute_pose_metrics_host(batch_matches, solver: str = "native",
         metrics["num_inls"].append(len(inls))
         metrics["R_err"].append(r_err)
         metrics["t_err"].append(t_err)
+    return metrics
+
+
+def compute_nerf_pose_metrics(pts_fine, pts_feat, data, ds: int = 8):
+    """NeRF validation pose metrics of a rendered retrieval pair (JAX
+    ``utils/metrics.py: compute_nerf_pose_metrics`` at its defaults: the
+    native solver, RANSAC threshold 1 px), host numpy.
+
+    ``pts_fine`` (2 * n, 3) scene-normalized points and ``pts_feat``
+    (2 * n, C) features of both images' ds-grid rays (n = (H // ds) *
+    (W // ds)); ``data``: the pair sample (``c2w`` and ``K`` of both images
+    stacked, ``img_wh``, ``unnorm_scene``).  Depth-based: each image's
+    points, projected into the other camera at its true pose, localize it
+    (PnP).  Match-based: mutual nearest neighbours of the two feature maps
+    pair one image's grid pixels with the other's points -> dict of
+    R_err_depth, t_err_depth (x100), match_score, num_matches,
+    R_err_match, t_err_match (x100); inf where PnP fails or fewer than 4
+    matches."""
+    from .geometry import mutual_nn_matching
+
+    w, h = [int(x) for x in np.asarray(data["img_wh"]).reshape(-1)[:2]]
+    gw, gh = w // ds, h // ds
+    n = gw * gh
+    c2w = np.asarray(data["c2w"], np.float64).reshape(2, 4, 4)
+    K = np.asarray(data["K"], np.float64).reshape(2, 3, 3)
+    unnorm = np.asarray(data["unnorm_scene"], np.float64)
+    pts = np.asarray(pts_fine, np.float64).reshape(2, n, 3)
+    pts_h = np.concatenate([pts, np.ones((2, n, 1))], -1)
+    pts_w = np.einsum("ij,bnj->bni", unnorm, pts_h)[..., :3]
+    xs, ys = np.meshgrid(np.arange(gw), np.arange(gh), indexing="xy")
+    pt2d = np.stack([xs, ys], -1).reshape(-1, 2) * ds + ds / 2.0
+
+    metrics = {}
+    r_errs, t_errs = [], []
+    for i in range(2):
+        # The other image's points projected into camera i (the
+        # reference's int cast; points behind the camera become outliers).
+        w2c = np.linalg.inv(c2w[i])
+        pc = pts_w[1 - i] @ w2c[:3, :3].T + w2c[:3, 3]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pix = (pc / pc[:, 2:]) @ K[i].T
+        pt2d_proj = np.nan_to_num(pix[:, :2], nan=-1e6, posinf=1e6,
+                                  neginf=-1e6).astype(np.int32)
+        r_err, t_err, _ = compute_pose_errs(K[i], c2w[i], pts_w[1 - i],
+                                            pt2d_proj)
+        r_errs.append(r_err)
+        t_errs.append(t_err)
+    metrics["R_err_depth"] = float(np.mean(r_errs))
+    metrics["t_err_depth"] = float(np.mean(t_errs)) * 100
+
+    f1, f2 = np.asarray(pts_feat, np.float64).reshape(2, n, -1)
+    matches, scores, valid = mutual_nn_matching(
+        torch.as_tensor(f1, dtype=torch.float32),
+        torch.as_tensor(f2, dtype=torch.float32))
+    matches, scores = matches[valid].numpy(), scores[valid].numpy()
+    metrics["match_score"] = float(scores.mean()) if len(scores) else 0.0
+    metrics["num_matches"] = int(len(matches))
+    if len(matches) >= 4:
+        r1, t1, _ = compute_pose_errs(K[0], c2w[0], pts_w[1][matches[:, 1]],
+                                      pt2d[matches[:, 0]])
+        r2, t2, _ = compute_pose_errs(K[1], c2w[1], pts_w[0][matches[:, 0]],
+                                      pt2d[matches[:, 1]])
+        r_errs, t_errs = [r1, r2], [t1, t2]
+    else:
+        r_errs, t_errs = [np.inf], [np.inf]
+    metrics["R_err_match"] = float(np.mean(r_errs))
+    metrics["t_err_match"] = float(np.mean(t_errs)) * 100
     return metrics
 
 

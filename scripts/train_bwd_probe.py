@@ -170,7 +170,7 @@ def main():
     def run(lib, out, name):
         err = lib.nm_render_train_backward(
             *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
-            work.data_ptr(), out.data_ptr(), out[n_mat:].data_ptr(),
+            work.data_ptr(), out.data_ptr(), out[n_mat:].data_ptr(), None,
             kernels.stream_ptr(dev))
         kernels.check(err, f"render_train_bwd ({name})")
 

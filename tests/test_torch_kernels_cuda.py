@@ -488,9 +488,9 @@ def test_resample_kernel_handles_misaligned_views(dev):
                                    atol=1e-5, rtol=0)
 
 
-def train_stage(hid, dev, n=64, S=128, seed=0, white_bg=False):
+def train_stage(hid, dev, n=64, S=128, seed=0, white_bg=False, app_dim=0):
     cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=90, dirs_dim=27,
-                     use_viewdirs=True, skips=(4,))
+                     app_dim=app_dim, use_viewdirs=True, skips=(4,))
     mlp = init_params_(NerfMLP(cfg), torch.Generator().manual_seed(seed))
     with torch.no_grad():
         mlp.alpha_linear.bias += 1.0
@@ -561,16 +561,16 @@ def test_render_train_kernels_are_deterministic(dev):
 
 @pytest.mark.cuda
 def test_train_kernel_raises_on_unported_configs(dev):
-    """Appearance embeddings, uninstantiated widths, odd ray counts and
-    sample counts other than 64, 128 or 256 (S = 192 would leave the
-    backward's last 64-row half of each ray out) raise instead of running
-    plain; the C entries refuse S = 192 on their own too."""
+    """Appearance rows of another width than 16, uninstantiated widths, odd
+    ray counts and sample counts other than 64, 128 or 256 (S = 192 would
+    leave the backward's last 64-row half of each ray out) raise instead of
+    running plain; the C entries refuse S = 192 on their own too."""
     spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64)
-    app = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
-                             app_dim=16, use_viewdirs=True)).to(dev)
+    app8 = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
+                              app_dim=8, use_viewdirs=True)).to(dev)
     wide = NerfMLP(NerfConfig(layer_num=8, hid_dim=128, xyz_dim=90,
                               dirs_dim=27, use_viewdirs=True)).to(dev)
-    for bad in (StageSpec(app, 15, 4), StageSpec(wide, 15, 4)):
+    for bad in (StageSpec(app8, 15, 4), StageSpec(wide, 15, 4)):
         with pytest.raises(NotImplementedError):
             render_train(bad, rays, z, noise)
     with pytest.raises(NotImplementedError):
@@ -586,7 +586,7 @@ def test_train_kernel_raises_on_unported_configs(dev):
     lib = kernels.library()
     assert lib.nm_render_train_forward(*args, None, None, None, None) != 0
     assert lib.nm_render_train_backward(*args, None, None, None, None, None,
-                                        None, None) != 0
+                                        None, None, None) != 0
 
 
 @pytest.mark.cuda
@@ -661,6 +661,98 @@ def test_train_backward_without_parameter_gradients_returns_none(dev):
         loss.backward()
         assert r.grad is None and LAUNCHES["render_train_bwd"] == 0
         assert all(p.grad is None for p in spec.mlp.parameters())
+
+
+def app_rows(n, dev, seed=0):
+    """(n, 16) appearance rows: two seeded N(0, 1) table rows, alternating."""
+    table = torch.randn(2, 16, generator=torch.Generator().manual_seed(seed))
+    return table[torch.arange(n) % 2].to(dev).contiguous()
+
+
+def app_stage_grads(fn, spec, rays, z, noise, target, app):
+    a = app.clone().requires_grad_(True)
+    rgb, w, g = stage_grads(lambda *x: fn(*x, a), spec, rays, z, noise,
+                            target)
+    return rgb, w, {**g, "app": a.grad.clone()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid,S", [(64, 128), (256, 128), (256, 64),
+                                   (256, 256)])
+def test_render_train_kernels_with_app_match_plain(dev, hid, S):
+    """Kernels 5 and 6 of an appearance MLP (each ray's row into the views
+    layer, ``g_app`` out of the backward): rgb and weights at atol 5e-3
+    against the plain version with the same rows; every parameter gradient
+    and ``g_app`` at cosine > 0.999, norm ratio 1 +- 1e-2 and max error <=
+    3e-2 of its largest value; the ``_app`` counters move, the others do
+    not; a second forward and backward give bit-identical outputs and
+    gradients (no atomics); the rows move rgb."""
+    spec, rays, z, noise, target = train_stage(hid, dev, S=S, app_dim=16)
+    with torch.no_grad():
+        spec.mlp.views_linears[0].weight[:, -16:] *= 4.0   # rows that matter
+    app = app_rows(rays.shape[0], dev)
+    reset_launch_counts()
+    a_rgb, a_w, a_g = app_stage_grads(render_train, spec, rays, z, noise,
+                                      target, app)
+    assert LAUNCHES["render_train_fwd_app"] == LAUNCHES["render_train_bwd_app"] == 1
+    assert LAUNCHES["render_train_fwd"] == LAUNCHES["render_train_bwd"] == 0
+    again = app_stage_grads(render_train, spec, rays, z, noise, target, app)
+    assert torch.equal(a_rgb, again[0]) and torch.equal(a_w, again[1])
+    assert all(torch.equal(a_g[k], again[2][k]) for k in a_g)
+    b_rgb, b_w, b_g = app_stage_grads(render_train_plain, spec, rays, z, noise,
+                                      target, app)
+    torch.testing.assert_close(a_rgb, b_rgb, atol=5e-3, rtol=0)
+    torch.testing.assert_close(a_w, b_w, atol=5e-3, rtol=0)
+    for k, ref in b_g.items():
+        got = a_g[k]
+        assert torch.isfinite(got).all(), k
+        nr = float(ref.norm())
+        if nr < 1e-9:
+            continue
+        cos = float((got * ref).sum()) / (float(got.norm()) * nr)
+        ratio = float(got.norm()) / nr
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert cos > 0.999 and abs(ratio - 1) < 1e-2 and err < 3e-2, \
+            (k, cos, ratio, err)
+    with torch.no_grad():
+        rgb0, _ = render_train(spec, rays, z, noise, torch.zeros_like(app))
+    assert float((a_rgb - rgb0).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_render_train_backward_with_only_app_grad(dev):
+    """Only the appearance rows ask for a gradient: the forward keeps its
+    stash, the backward runs and returns ``g_app`` equal to that of a
+    backward with every parameter, and no parameter gradient."""
+    spec, rays, z, noise, target = train_stage(256, dev, S=64, app_dim=16)
+    app = app_rows(rays.shape[0], dev, seed=1)
+    _, _, full = app_stage_grads(render_train, spec, rays, z, noise, target,
+                                 app)
+    spec.mlp.zero_grad(set_to_none=True)
+    spec.mlp.requires_grad_(False)
+    a = app.clone().requires_grad_(True)
+    reset_launch_counts()
+    rgb, w = render_train(spec, rays, z, noise, a)
+    (((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()).backward()
+    assert LAUNCHES["render_train_bwd_app"] == 1
+    assert torch.equal(a.grad, full["app"])
+    assert all(p.grad is None for p in spec.mlp.parameters())
+
+
+@pytest.mark.cuda
+def test_render_train_refuses_app_of_the_wrong_width(dev):
+    """On CUDA tensors an appearance MLP takes app (N, 16) f32: rows of
+    another width, none, or rows given to an MLP without the table's
+    columns raise before any launch."""
+    spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64, app_dim=16)
+    plain, *_ = train_stage(64, dev, n=4, S=64)
+    reset_launch_counts()
+    for sp, rows in ((spec, app_rows(4, dev)[:, :8].contiguous()),
+                     (spec, torch.zeros(4, 32, device=dev)),
+                     (spec, None), (plain, app_rows(4, dev))):
+        with pytest.raises(ValueError, match="app"):
+            render_train(sp, rays, z, noise, rows)
+    assert sum(LAUNCHES.values()) == 0
 
 
 # (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past

@@ -536,11 +536,10 @@ def test_trainer_steps_match_jax(scene, tmp_path):
 
 
 def test_trainer_rejects_unported_configs(scene, tmp_path):
-    """exp.gpus > 1, appearance embeddings and out_scr raise."""
+    """exp.gpus > 1 and out_scr raise."""
     from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
 
     for edit in (lambda c: setattr(c.exp, "gpus", 2),
-                 lambda c: setattr(c.embedding, "appearance_embed", True),
                  lambda c: setattr(c.data, "out_scr", True)):
         cfg = nerf_train_config(scene, tmp_path)
         edit(cfg)
