@@ -25,7 +25,15 @@ Phases (each prints its results; any failure exits non-zero):
    (the room's views layer with a seeded 16-column block, a seeded (2, 16)
    table, rays alternating between its rows) against its plain version,
    its weights, depth, acc, feat and pts bit-identical to the stage
-   without the block, its time with and without ``app`` in turns;
+   without the block, its time with and without ``app`` in turns; the bf16
+   fine stage with ``feat_max`` (``feat_comb='max'``) against its plain
+   version (weights, depth, acc, rgb within 5e-3 and bit-identical to the
+   lin stage's; pts and feat by ``feat_max_agreement``: the rays whose two
+   largest weights lie within the tie margin counted, the others' pts and
+   feat within 5e-3, theirs the point of a near-tied sample), rerun
+   bit-identical, timed beside the lin stage in turns, the lin outputs'
+   digest; and attention at the merged multi-pair layout (L = 3600, S =
+   14,400; and L = S = 14,400) beside SDPA;
 3b. the same for training: the train-render forward and backward kernels
    on 9216 rays at full width (the room's fine MLP, jittered z, density
    noise of std 1, loss rgb MSE + 0.01 distortion), rgb / weights and every
@@ -60,8 +68,9 @@ Phases (each prints its results; any failure exits non-zero):
    a rerun (bit-identical), its zero weights against ``early_term_mask``
    on the plain int8 version's alpha at 1e-4, the bf16 stage's time beside
    it, its bound, the fine stages of ``'both'`` and ``'posttap'`` with
-   ``app`` as in phase 3, and the two-stage render of every int8 mode
-   against the f32 plain render;
+   ``app`` as in phase 3, the fine stage of ``'posttap'`` with ``feat_max``
+   as in phase 3, and the two-stage render of every int8 mode against the
+   f32 plain render;
 4. serving: the room NeRF (``pretrained/synthetic_room_nerf.npz``) with its
    int8 mode resolved as the serving paths resolve it (``'coarse'``: the
    config does not set ``render.trunk_int8``) and the production c2f
@@ -132,7 +141,10 @@ Phases (each prints its results; any failure exits non-zero):
    fall), 3 profiled; the launch counters must show the attention,
    attention-backward and the three StarReLU + depthwise-conv kernels ran;
    the last CLI checkpoint loads strictly into ``NeRFMatchEvaluator`` and
-   localizes one request;
+   localizes one request; the scene's points are also cached with
+   ``feat_comb='max'`` (``ds8max``) at ``'coarse'`` and at ``'posttap'``
+   (the share of points that moved against ``ds8lin``), and the NeRF saved
+   with ``render.feat_comb: max``;
 7. the localization benchmark: ``cli.benchmark_nerfmatch`` (its ``main``,
    in this process, so the launch counters see it) on phase 6's matcher
    checkpoint and cached room scene, with the room NeRF saved as a
@@ -140,8 +152,15 @@ Phases (each prints its results; any failure exits non-zero):
    --eval_bs 2``): the metrics file under the reference's tag name, finite
    errors for every solved pose, and the int8 coarse stage in the
    re-render; then ``--inerf --inerf_optim 2``, ``--query2query``,
-   ``--no_cache_pt`` and ``--retrieval_only``, each with its tag-named file
-   of one row a query and the kernels its path launches.
+   ``--no_cache_pt`` and ``--retrieval_only``, the multi-pair protocols on
+   the pairs file's 4 refs a query (``--pair_topk 4`` stacked, ``--pair_topk
+   4 --sample_mode rand --sample_pts 14400`` merged, ``--pair_topk 2
+   --match_oracle``, which runs no matcher; 6 queries each, ``--debug``)
+   and ``--iters 2`` on the
+   ``ds8max`` cache with the feat_comb='max' NeRF (the fine stage with
+   ``feat_max`` in the re-render), each with its tag-named file of one row
+   a query and the kernels its path launches (the attention launches by
+   key count: the merged run's at S = 14,400).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -158,7 +177,10 @@ The resample's ``launches`` are phase 4's, ``launches_training`` phase
 5's; ``launches_inerf`` is phase 4b's count where it launched the kernel;
 ``render_fine_app``'s are phase 5c's PSNR run, ``render_fine_int8_app``'s
 its ``'posttap'`` cache run, the ``render_train_*_app`` rows' phase 5d's 30
-timed steps.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+timed steps, ``render_fine_max``'s phase 7's ``--iters 2`` run on the
+``ds8max`` cache, ``render_fine_int8_max``'s phase 6's ``'posttap'`` max
+cache; the attention row's ``merged`` entry (S = 14,400) carries the
+merged run's launches at that S as ``launches_multipair``.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -191,6 +213,12 @@ KERNEL_SOURCES = {
     "render_fine_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                         "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
     "render_fine_int8_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+                             "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
+    # The fine stages with feat_comb='max' (the Pallas kernel's feat_max
+    # branch, render_kernel.py:716-735 and :772-775).
+    "render_fine_max": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+                        "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
+    "render_fine_int8_max": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
                              "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "resample": ("nerfmatch_tpu_torch/csrc/resample.cu",
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
@@ -243,7 +271,14 @@ MATCH_KERNELS = ("attention", "attention_bwd", "dw_star_fwd", "dw_star_dgrad",
                  "dw_star_wgrad")
 TRAIN_KERNELS = ("render_train_fwd", "render_train_bwd", "resample")
 # Phase 7's single-query protocols: flags, the reference's result-file tag,
-# the kernels each must launch (--retrieval_only renders and matches nothing).
+# the kernels each must launch (--retrieval_only renders and matches
+# nothing, nor does the match oracle: PnP on conf_gt); then the multi-pair
+# ones on the pairs file's 4 refs a query (stacked; merged to 14,400
+# points; the oracle), cut to 6 queries each by --debug (a query's sample
+# holds a dense (3600, 4 x 3600) conf_gt: ~0.4 s of host time to build),
+# and --iters 2 on the ds8max cache with a NeRF whose
+# config sets feat_comb: max ({max_dir}, {max_nerf}: phase 6's; its own
+# --cache_tag, since the scene dir is not in the tag).
 BENCH_PROTOCOLS = (
     (["--inerf", "--inerf_optim", "2"], "_itr1ds8inerf2lr0.001match",
      ("render_coarse_int8", "resample", "attention", "dw_star_fwd")),
@@ -252,7 +287,18 @@ BENCH_PROTOCOLS = (
     (["--no_cache_pt"], "_itr1_nocache",
      ("render_coarse_int8", "render_fine", "resample", "attention")),
     (["--retrieval_only"], "_IR_itr1", ()),
+    (["--pair_topk", "4", "--debug"], "_itr1_top4pt-1.debug",
+     ("attention", "dw_star_fwd")),
+    (["--pair_topk", "4", "--sample_mode", "rand", "--sample_pts", "14400",
+      "--debug"], "_itr1_top4pt14400.debug", ("attention", "dw_star_fwd")),
+    (["--pair_topk", "2", "--match_oracle", "--debug"],
+     "_itr1_top2pt-1.match_oracle.debug", ()),
+    (["--iters", "2", "--eval_bs", "2", "--scene_dir", "{max_dir}",
+      "--nerf_path", "{max_nerf}", "--cache_tag", "max"], "_itr2",
+     ("render_coarse_int8", "render_fine_max", "resample", "attention",
+      "dw_star_fwd")),
 )
+MERGED_S = 14400
 CAM_R, NEAR, FAR = 0.8, 0.05, 2.1        # scripts/train_bench_scene.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -583,6 +629,79 @@ def app_stage_row(mlp, rays, z, int8=None, design=RENDER_EVAL_DESIGN,
     return row
 
 
+def feat_max_row(mlp, rays, z, int8=None, design=RENDER_EVAL_DESIGN,
+                 label="bf16"):
+    """The fine stage with feat_max (feat_comb='max': the descriptor and the
+    point of each ray's largest weight) at eps 1e-4 against
+    ``render_stage_plain(feat_max=True)``: weights, depth, acc and rgb within
+    5e-3 scaled and bit-identical to the lin stage's; pts and feat held by
+    ``feat_max_agreement`` (outside the tie margin pts within 5e-3 and feat
+    within 5e-3 of its largest value; inside it the point of a near-tied
+    sample within 5e-3), the rays inside the margin counted; a rerun
+    bit-identical; its ms beside the lin stage's in turns; the lin stage's
+    outputs' digest (the parent's bits: ``scripts/render_eval_probe.py
+    --parent-eval``) -> its summary row (the bound is the lin stage's: the
+    same products)."""
+    import hashlib
+
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        feat_max_agreement, pack_mlp, render_stage, render_stage_plain)
+
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4,
+              int8=int8)
+    packed = pack_mlp(mlp, int8)
+    run_m = lambda: render_stage(mlp, rays, z, packed=packed, feat_max=True,
+                                 **kw)
+    run_l = lambda: render_stage(mlp, rays, z, packed=packed, **kw)
+    run_p = lambda: render_stage_plain(mlp, rays, z, feat_max=True, **kw)
+    a, again, lin, pl = run_m(), run_m(), run_l(), run_p()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[k], again[k]) for k in a)
+    shared = ("weights", "depth", "acc", "rgb")
+    lin_same = all(torch.equal(a[k], lin[k]) for k in shared)
+    err = max_err({k: a[k] for k in shared}, {k: pl[k] for k in shared},
+                  scaled=True)
+    agree = feat_max_agreement(a, pl, rays, z)
+    digest = hashlib.sha256(b"".join(
+        lin[k].cpu().numpy().tobytes() for k in sorted(lin))).hexdigest()[:16]
+    moved = float((a["pts"] - lin["pts"]).abs().max())
+    del again, pl
+    ms = [cuda_ms(f, 5) for f in (run_l, run_m, run_m, run_l)]
+    plain_ms = cuda_ms(run_p, 2)
+    q_rows = [] if int8 is None else [
+        v for k, v in int8.items() if torch.is_tensor(v) and k[0] != "w"
+        and k != "img"]
+    row = dict(design=design + "; feat_max: one thread a ray finds the "
+               "block's first largest weight, the descriptor pass reduces "
+               "with a one-hot weight and writes", max_abs_err=max(
+                   err, agree["pts_err"], agree["pick_err"]),
+               feat_err=agree["feat_err"], near_tie=agree["near_tie"],
+               flipped=agree["flipped"], tie_margin=agree["margin"], ms=(ms[1] + ms[2]) / 2,
+               ms_lin=(ms[0] + ms[3]) / 2, plain_ms=plain_ms, library_ms=None,
+               **render_bound(mlp, True, rays, z, a, 1e-4, nbytes(
+                   *weight_tensors(packed), *q_rows),
+                   None if int8 is None else int8["start"]))
+    log(f"kernel render_fine{'' if int8 is None else '_int8'}_max ({label}) "
+        f"eps=0.0001: weights / depth / acc / rgb max_abs_err scaled "
+        f"{err:.3e} (tol 5e-3, vs plain feat_max) and bit-identical to the "
+        f"lin stage: {lin_same}; tie margin {agree['margin']:.3e} (twice the "
+        f"largest weight difference): {agree['near_tie']} of {rays.shape[0]} "
+        f"rays inside it, {agree['flipped']} of them on another sample than "
+        f"the plain version's; outside it pts err {agree['pts_err']:.3e}, feat "
+        f"err {agree['feat_err']:.3e} of its largest value (tol 5e-3 each); "
+        f"inside it the point of a near-tied sample within "
+        f"{agree['pick_err']:.3e} (tol 5e-3); rerun bit-identical: {same}; "
+        f"pts moved against lin by up to {moved:.3e}; ms={row['ms']:.3f} "
+        f"(lin {row['ms_lin']:.3f}; in turns {[round(v, 4) for v in ms]}) "
+        f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.3f} "
+        f"({row['bound_by']}, the lin stage's); lin outputs sha256 {digest}")
+    assert same and lin_same and err < 5e-3 and moved > 1e-3
+    assert agree["pts_err"] < 5e-3 and agree["pick_err"] < 5e-3
+    assert agree["feat_err"] < 5e-3
+    assert all(bool(torch.isfinite(v).all()) for v in a.values())
+    return row
+
+
 def phase_environment():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -727,6 +846,8 @@ def phase_kernels(renderer, dev):
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
     rows["render_fine_app"] = app_stage_row(renderer.nerf_fine, rays,
                                             z_in["render_fine"])
+    rows["render_fine_max"] = feat_max_row(renderer.nerf_fine, rays,
+                                           z_in["render_fine"])
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
     rows["resample"] = resample_row(z, w)
@@ -765,7 +886,53 @@ def phase_kernels(renderer, dev):
         if bf16:   # the serving default (attn_bf16=True)
             rows["attention"] = attention_forward_row(q, k, v, a, err, ms,
                                                       plain_ms)
+    rows["attention"]["merged"] = attention_merged_row(dev)
     return rows
+
+
+def attention_merged_row(dev, L=3600, S=14400):
+    """The bf16 attention forward at the merged multi-pair layout's shapes
+    (``--pair_topk 4 --sample_mode rand --sample_pts 14400``): the image's
+    3600 queries over 14,400 points (the coarse former's image side), held
+    to the one-pass plain version (max 1e-3, mean 1e-5) with the two-pass
+    plain version's error beside, its bound, ``exp_bound_ms`` and
+    ``scaled_dot_product_attention``; then the points' self-attention (L = S
+    = 14,400) timed beside SDPA -> a row for the ``attention`` summary."""
+    from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+        attention_onepass_plain, attention_plain, fused_attention)
+
+    g = torch.Generator(dev).manual_seed(1)
+    q = torch.randn(1, L, 8, 32, device=dev, generator=g) / np.sqrt(32)
+    k = torch.randn(1, S, 8, 32, device=dev, generator=g)
+    v = torch.randn(1, S, 8, 32, device=dev, generator=g)
+    a = fused_attention(q, k, v, True)
+    one, _ = attention_onepass_plain(q, k, v, True)
+    err1, mean1 = float((a - one).abs().max()), float((a - one).abs().mean())
+    del one
+    err2 = float((a - attention_plain(q, k, v, True)).abs().max())
+    ms = cuda_ms(lambda: fused_attention(q, k, v, True))
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, True), 3)
+    lib_ms, lib_err = sdpa_forward(q, k, v, a)
+    eb, _, _ = exp_bound_ms(8 * L * S)
+    row = dict(L=L, S=S, max_abs_err=err1, ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, exp_bound_ms=eb,
+               **bound({"bf16": 4 * 8 * L * S * 32}, nbytes(q, k, v, a)))
+    qs = torch.randn(1, S, 8, 32, device=dev, generator=g) / np.sqrt(32)
+    row["self_S"] = dict(ms=cuda_ms(lambda: fused_attention(qs, k, v, True)),
+                         library_ms=sdpa_forward(qs, k, v, fused_attention(
+                             qs, k, v, True))[0],
+                         **bound({"bf16": 4 * 8 * S * S * 32},
+                                 nbytes(qs, k, v, qs)))
+    log(f"kernel attention bf16 at L={L}, S={S} (merged multi-pair): vs the "
+        f"one-pass plain version max {err1:.3e} mean {mean1:.3e} (tol max "
+        f"1e-3, mean 1e-5), vs the two-pass plain version max {err2:.3e}; "
+        f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.4f} "
+        f"exp_bound_ms={eb:.4f} scaled_dot_product_attention {lib_ms:.4f} "
+        f"(max abs diff {lib_err:.2e}); L=S={S}: ms="
+        f"{row['self_S']['ms']:.4f} SDPA {row['self_S']['library_ms']:.4f} "
+        f"bound {row['self_S']['bound_ms']:.4f}")
+    assert err1 < 1e-3 and mean1 < 1e-5 and torch.isfinite(a).all()
+    return row
 
 
 def exp_bound_ms(n_exp):
@@ -944,6 +1111,9 @@ def phase_int8_kernels(renderer, dev):
                                         design=INT8_EVAL_DESIGN, label=mode)
                 if mode == "posttap":
                     rows["render_fine_int8_app"] = row_app
+                    rows["render_fine_int8_max"] = feat_max_row(
+                        mlp, rays, zz, int8=q, design=INT8_EVAL_DESIGN,
+                        label=mode)
 
     # Two-stage renders of every mode against the f32 plain render, against
     # the JAX int8 test's budget (tests/test_pallas_render.py, 'both', on 8
@@ -2490,7 +2660,60 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
         for i in range(n) for d in (-2, -1, 1, 2)))
     nerf_ckpt = save_checkpoint(root / "nerf" / "checkpoints", 1, renderer,
                                 config=namespace2dict(cfg), name="last")
-    return cache, pairs, nerf_ckpt
+    return cache, pairs, nerf_ckpt, cache_max(renderer, cfg, root, cache)
+
+
+def cache_max(renderer, cfg, root, lin_dir):
+    """The room scene's points once more with ``feat_comb='max'`` (tag
+    ``ds8max``): at the serving int8 mode (``'coarse'``: the bf16 fine stage
+    with feat_max) beside ``lin_dir``, and at ``'posttap'`` (the int8 fine
+    stage with feat_max), each on a copy of ``renderer``; the share of
+    points that moved against ``lin_dir``; the NeRF saved with
+    ``render.feat_comb: max`` in its config (phase 7's re-render on the
+    ``ds8max`` cache) -> dict(dir, nerf_ckpt, launches by mode)."""
+    import copy
+
+    from nerfmatch_tpu_torch.config import namespace2dict
+    from nerfmatch_tpu_torch.eval.nerf_evaluator import NerfEvaluator
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import save_checkpoint
+
+    out, launches = {}, {}
+    for mode, where in (("coarse", lin_dir.parent), ("posttap", root / "max8")):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out[mode] = NerfEvaluator(cfg, copy.deepcopy(renderer)).cache_scene_pts(
+            feat_comb="max", cache_dir=where, trunk_int8=mode)
+        torch.cuda.synchronize()
+        launches[mode] = {k: v for k, v in LAUNCHES.items() if v}
+        log(f"scene-point cache feat_comb='max' at trunk_int8={mode!r}: "
+            f"{out[mode].name} in {time.perf_counter() - t0:.2f} s; launches "
+            f"{json.dumps(launches[mode])}")
+    n = len(list(lin_dir.glob("*.npy")))
+    assert launches["coarse"].get("render_fine_max") == n
+    assert launches["posttap"].get("render_fine_int8_max") == n
+    assert "render_fine" not in launches["coarse"]
+    load = lambda d, f: np.load(d / f.name, allow_pickle=True).item()
+    moved, off = [], []
+    for f in sorted(lin_dir.glob("*.npy")):
+        lin, mx, q8 = (load(d, f) for d in (lin_dir, out["coarse"],
+                                            out["posttap"]))
+        assert set(mx) == set(lin) and mx["pt_feat"].shape == lin["pt_feat"].shape
+        assert all(np.isfinite(mx[k]).all() for k in ("pt3d", "pt_feat"))
+        moved.append(np.abs(mx["pt3d"] - lin["pt3d"]).max(-1))
+        off.append(np.abs(q8["pt3d"] - mx["pt3d"]).max(-1))
+    moved, off = np.concatenate(moved), np.concatenate(off)
+    log(f"ds8max against ds8lin: {float((moved > 1e-3).mean()):.4f} of "
+        f"{moved.size} points moved by > 1e-3 (median {np.median(moved):.3e}, "
+        f"max {moved.max():.3e}); the 'posttap' max cache against the "
+        f"'coarse' one: {float((off > 1e-3).mean()):.4f} moved by > 1e-3")
+    assert (moved > 1e-3).mean() > 0.01
+    cfg_max = copy.deepcopy(cfg)
+    cfg_max.render.feat_comb = "max"
+    nerf_ckpt = save_checkpoint(root / "nerf_max" / "checkpoints", 1, renderer,
+                                config=namespace2dict(cfg_max), name="last")
+    return dict(dir=out["coarse"], nerf_ckpt=nerf_ckpt, launches=launches)
 
 
 def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
@@ -2521,8 +2744,8 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        cache, pairs, nerf_ckpt = write_match_scene(renderer, nerf_cfg, dev,
-                                                    root, n_frames, size)
+        cache, pairs, nerf_ckpt, maxc = write_match_scene(
+            renderer, nerf_cfg, dev, root, n_frames, size)
         shapes = {k: v.shape for k, v in np.load(
             next(cache.glob("*.npy")), allow_pickle=True).item().items()}
         log(f"matcher scene: {n_frames} frames {size}x{size} and their scene "
@@ -2778,15 +3001,21 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
             f"R_err {r_err:.2f} deg, t_err {t_err:.3f}")
         del evaluator
         torch.cuda.empty_cache()
-        bench = phase_benchmark(ckpt, nerf_ckpt)
+        bench = phase_benchmark(ckpt, nerf_ckpt, maxc)
+    bench["render_fine_int8_max"] = maxc["launches"]["posttap"][
+        "render_fine_int8_max"]
     return launches, bench
 
 
-def phase_benchmark(ckpt, nerf_ckpt):
+def phase_benchmark(ckpt, nerf_ckpt, maxc):
     """Phase 7: ``cli.benchmark_nerfmatch`` on the matcher checkpoint, its
-    cached scene and the NeRF checkpoint -> launch counts."""
+    cached scene and the NeRF checkpoint (``maxc``: phase 6's ``ds8max``
+    cache and feat_comb='max' NeRF) -> launch counts of the main run, with
+    ``render_fine_max`` the ``ds8max`` run's and ``attention_merged`` the
+    merged run's attention launches at S = 14,400."""
     from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.ops.kernels import attention_kernel
 
     argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt), "--iters",
             "2", "--mutual", "--rthres", "10", "--eval_bs", "2"]
@@ -2817,21 +3046,53 @@ def phase_benchmark(ckpt, nerf_ckpt):
     missing = [k for k in ("render_coarse_int8", "render_fine", "resample",
                            "attention", "dw_star_fwd") if launches[k] == 0]
     assert not missing, f"kernels never launched in the benchmark: {missing}"
-    for flags, tag, kernels in BENCH_PROTOCOLS:
+    # Key counts of the attention kernel's launches (multi-pair runs).
+    forward_kernel, keys = attention_kernel._forward_kernel, []
+
+    def counted(qs, k, v, bf16, want_lse):
+        keys.append(k.shape[1])
+        return forward_kernel(qs, k, v, bf16, want_lse)
+
+    attention_kernel._forward_kernel = counted
+    try:
+        per_protocol = bench_protocols(ckpt, nerf_ckpt, maxc, metrics, keys)
+    finally:
+        attention_kernel._forward_kernel = forward_kernel
+    run = lambda flag: next(v for k, v in per_protocol.items() if flag in k)
+    launches["render_fine_max"] = run("--cache_tag")["render_fine_max"]
+    launches["attention_merged"] = run("--sample_mode")["attention_s"]
+    return launches
+
+
+def bench_protocols(ckpt, nerf_ckpt, maxc, metrics, keys):
+    """Phase 7's :data:`BENCH_PROTOCOLS` -> their launch counts by their
+    flags (joined), with ``attention_s``: the attention launches at S =
+    14,400 (``keys``: the key count of every launch)."""
+    from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+
+    out = {}
+    for raw, tag, kernels in BENCH_PROTOCOLS:
+        flags = [f.format(max_dir=maxc["dir"], max_nerf=maxc["nerf_ckpt"])
+                 for f in raw]
         argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt),
                 "--mutual", "--rthres", "10", *flags]
         torch.cuda.synchronize()
         reset_launch_counts()
+        keys.clear()
         t0 = time.perf_counter()
         (avg, _), = bench_cli(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        path = ckpt.parent / "best_tmed_results" / f"room_rth10test_colmap{tag}.npy"
+        res = (f"{flags[flags.index('--cache_tag') + 1]}_"
+               if "--cache_tag" in flags else "") + "best_tmed_results"
+        path = ckpt.parent / res / f"room_rth10test_colmap{tag}.npy"
         assert path.exists(), f"no metrics file {path}"
         m = np.load(path, allow_pickle=True).item()
         r_err, t_err = (np.asarray(m[k], np.float64) for k in ("R_err", "t_err"))
         solved = np.isfinite(r_err) & np.isfinite(t_err)
-        assert len(r_err) == len(metrics["R_err"]), (path.name, len(r_err))
+        n_queries = 6 if "--debug" in flags else len(metrics["R_err"])
+        assert len(r_err) == n_queries, (path.name, len(r_err))
         assert np.array_equal(solved, np.isfinite(r_err) | np.isfinite(t_err))
         steps = m.get("inerf_step_time", np.zeros(0)) * 1e3
         log(f"benchmark_nerfmatch {' '.join(flags)}: {len(r_err)} queries in "
@@ -2847,7 +3108,21 @@ def phase_benchmark(ckpt, nerf_ckpt):
         if "--inerf" in flags:
             assert len(steps) > 0 and len(steps) % 2 == 0
             assert LAUNCHES["render_coarse_int8"] == len(steps)
-    return launches
+        out[" ".join(raw)] = dict(LAUNCHES, attention_s=keys.count(MERGED_S))
+        if "--pair_topk" in flags:
+            log(f"  attention launches by key count: " + json.dumps(
+                {str(s_): keys.count(s_) for s_ in sorted(set(keys))})
+                + f"; matches a query {np.mean(m['num_matches']):.1f}")
+            assert np.isfinite(np.asarray(m["num_matches"], float)).all()
+        if "--sample_mode" in flags:
+            # The points' self-attention and the image's queries over them
+            # run on the kernel at the merged S.
+            assert keys.count(MERGED_S) >= 2 * len(r_err), keys
+        if "--match_oracle" in flags:
+            assert LAUNCHES["attention"] == 0 and int(solved.sum()) > 0
+        if "--cache_tag" in flags:
+            assert LAUNCHES["render_fine"] == 0
+    return out
 
 
 def main():
@@ -2922,6 +3197,11 @@ def main():
     match, bench = phase_matcher_training(renderer, nerf_cfg, dev, args.seed)
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})
     assert bench["render_coarse_int8"] > 0
+    # The feat_max stages: phase 7's --iters 2 on the ds8max cache, phase
+    # 6's 'posttap' max cache; the merged layout's attention at S = 14,400.
+    launches.update({k: bench[k] for k in ("render_fine_max",
+                                           "render_fine_int8_max")})
+    rows["attention"]["merged"]["launches_multipair"] = bench["attention_merged"]
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -12,9 +12,11 @@ Runs on the GPU (``--device cpu`` for the CPU); the re-render and iNeRF's
 coarse pass serve the NeRF's int8 mode (``serving_int8_mode``).  ``--inerf``
 (with ``--inerf_optim``, ``--inerf_lr``, ``--inerf_lrd``, ``--inerf_ds``,
 ``--inerf_pose``, ``--inerf_match_loss``), ``--query2query``,
-``--no_cache_pt`` and ``--retrieval_only`` localize one query a batch.
-Flags of protocols that are not ported raise: ``--pair_topk > 1``,
-``--match_oracle``, ``--visualize``, ``--point_shard``, ``--pair_shard``.
+``--no_cache_pt``, ``--retrieval_only`` and ``--match_oracle`` localize one
+query a batch, and so does ``--pair_topk K > 1`` (``NeRFMatchMultiPair``:
+each query against its K retrieved frames' points, stacked, or merged with
+``--sample_mode rand --sample_pts N``).  Flags of protocols that are not
+ported raise: ``--visualize``, ``--point_shard``, ``--pair_shard``.
 """
 
 from __future__ import annotations
@@ -67,9 +69,7 @@ def merge_scene_metrics(cache_root, scenes, conf="rth10test_coarse_colmap",
 
 def eval_ckpt(args):
     for flag, what in ((args.point_shard, "--point_shard"),
-                       (args.pair_shard, "--pair_shard"),
-                       (args.pair_topk > 1, "multi-pair matching (--pair_topk "
-                                            "> 1)")):
+                       (args.pair_shard, "--pair_shard")):
         if flag:
             raise NotImplementedError(f"{what} is not ported (ROADMAP: what "
                                       f"remains, localization protocols)")
@@ -79,6 +79,11 @@ def eval_ckpt(args):
         evaluator.coarse_only = args.coarse_only
 
     data_conf = Namespace()
+    if args.pair_topk > 1:
+        data_conf = Namespace(dataset="NeRFMatchMultiPair",
+                              sample_mode=args.sample_mode,
+                              sample_pts=args.sample_pts,
+                              pair_topk=args.pair_topk)
     if args.scene and "allscenes" in args.ckpt:
         data_conf.scenes = [args.scene]
     if args.scene_anno_path:

@@ -8,8 +8,11 @@
 // ops/kernels/quant.py), driven twice per ray batch by
 // make_fused_hierarchical: a coarse variant (weights, depth, acc) and a
 // fine variant (+ rgb, the composited layer-`feat_layer` descriptor and the
-// composited 3D point).  An appearance NeRF's fine stage also takes each
-// ray's appearance row (app, 16 f32 a ray): the views layer adds app @ Wva
+// composited 3D point: the weighted sums, or with feat_max (feat_comb='max',
+// the JAX kernel's feat_max branch) the descriptor and the point of the
+// sample with the largest weight, the first in z order among equals).  An
+// appearance NeRF's fine stage also takes each ray's appearance row (app,
+// 16 f32 a ray): the views layer adds app @ Wva
 // to the per-ray dirs_pe @ Wvd, both f32 FMA on unrounded weights, in the
 // tile's prologue (the JAX kernel's SelApp extras of from_rays mode).
 //
@@ -74,8 +77,16 @@
 // the same operands: the same bits) and reduces sum w h_tap from the
 // accumulator (a reduce-scatter over the warp's rows, one row of partials a
 // warp in shared memory; the warps' rows are summed in a fixed order at the
-// tile's end).  Each ray's outputs come from one warpgroup in z order, so
-// the result does not depend on the schedule.
+// tile's end).  feat_max, a runtime flag of the fine stage: each ray carries
+// its largest weight so far and that sample's t_mean across its blocks (the
+// JAX kernel's carry: the first block always replaces it, a later block
+// only with a strictly larger weight); one thread a ray finds the block's
+// first largest weight in z order after the compositing scan, and the
+// descriptor pass runs the same reduction with a one-hot weight on that
+// sample, writing the warp's partials row instead of adding to it (the
+// ray's other warp writes zeros), so the tile's end sums x + 0.  Each ray's
+// outputs come from one warpgroup in z order, so the result does not depend
+// on the schedule.
 //
 // What holds it (scripts/render_eval_probe.py, PERF.md): the products
 // and the SIMT work of a step (encoding, epilogues, compositing, barriers)
@@ -89,9 +100,9 @@
 // groups at a time (fence8), and the int8 fine stage keeps 4 ring slots
 // so that its spills stay in a 60 KB L1 cache.
 // -Xptxas -v (sm_90a, CUDA 12.8): render_eval_kernel<256, *, *, false>
-// 254 registers, no spills; <64, *, *, false> 122-128, no spills;
-// <256, *, *, true> 255 registers, 384-612 bytes of spill stores; <64, *,
-// *, true> 156-162, no spills.  Dynamic shared memory at HID 256: 166,856
+// 254-255 registers, no spills; <64, *, *, false> 122-128, no spills;
+// <256, *, *, true> 255 registers, 384-676 bytes of spill stores; <64, *,
+// *, true> 156-166, no spills.  Dynamic shared memory at HID 256: 166,856
 // bytes (bf16 coarse), 216,000 (bf16 fine: 6 ring slots 96 KB, encoding
 // tiles 32 KB, tap fragments 64 KB), 183,240 (int8 coarse), 199,600 (int8
 // fine, 4 slots); at 64: 73,160, 89,544, 89,544 and 105,928.  One block an
@@ -172,7 +183,8 @@ struct EvalSmem {
   static constexpr int kFloatOff = kAOff + (FINE ? 2 * 128 * HID : 0);
   // f32 a warpgroup: row info (64 x 8: mean, variance, t_mean, mid-point),
   // sigma (64), weights (64), rgb (64 x 4), warp segments (4 x 8), ray state
-  // (2 x 8: carry, depth, acc, sum w t_mean, rgb), xt (2 x HV), dirs PE
+  // (2 x 8: carry, depth, acc, sum w t_mean or feat_max's t_mean, rgb,
+  // feat_max's largest weight), xt (2 x HV), dirs PE
   // (2 x kDirsMax), descriptor partials (a row of HID a warp).
   static constexpr int kInfo = 0, kSig = kInfo + kWgRows * 8, kWts = kSig + kWgRows,
                        kRgb = kWts + kWgRows, kSeg = kRgb + kWgRows * 4,
@@ -236,7 +248,7 @@ template <int HID, bool FINE, bool kDbg, bool Q8>
 __global__ void __launch_bounds__(kEvalThreads, 1)
 render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
                    int int8_from, int F, int Fd, int S, int n_tiles,
-                   float var_scale, float log_eps, int white_bg,
+                   float var_scale, float log_eps, int white_bg, int feat_max,
                    int* __restrict__ tile_counter, float* __restrict__ out_w,
                    float* __restrict__ out_depth, float* __restrict__ out_acc,
                    float* __restrict__ out_rgb, float* __restrict__ out_feat,
@@ -272,6 +284,9 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
   float* sig = fw + L::kSig;
   float* wts = fw + L::kWts;
   float* rgbs = fw + L::kRgb;
+  // seg: a warp's row of 8 (its scan total, its six sums); feat_max: slot
+  // 7 of warp r's row holds ray r's row of its block's largest weight when
+  // it replaced the ray's carry, else -1.
   float* seg = fw + L::kSeg;
   float* ray_s = fw + L::kRay;
   float* xt = fw + L::kXt;
@@ -556,7 +571,8 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
           const float bg = white_bg ? 1.f - rs[2] : 0.f;
           for (int c = 0; c < 3; ++c) {
             out_rgb[n * 3 + c] = rs[4 + c] + bg;
-            out_pts[n * 3 + c] = ray[c] * rs[2] + ray[8 + c] * rs[3];
+            out_pts[n * 3 + c] = feat_max ? ray[c] + ray[8 + c] * rs[3]
+                                          : ray[c] * rs[2] + ray[8 + c] * rs[3];
           }
         }
       }
@@ -579,7 +595,8 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
       sb = 0;
       if (tile >= 0) {
         const int ray0 = tile * kTileRays;
-        if (lt < kTileRays * 8) ray_s[lt] = 0.f;
+        // Slot 7, feat_max's largest weight, starts below any weight.
+        if (lt < kTileRays * 8) ray_s[lt] = (lt & 7) == 7 ? -1.f : 0.f;
         if (FINE) {
           for (int i = lt; i < 4 * HID; i += 128) facc[i] = 0.f;
           // View-direction PE per ray: [sin(2^f d) | sin(2^f d + pi/2) | d].
@@ -902,7 +919,22 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
         float* rs = ray_s + lt * 8;
         for (int w2 = 2 * lt; w2 < 2 * lt + 2; ++w2) {
           rs[0] += seg[w2 * 8];
-          for (int c = 0; c < 6; ++c) rs[1 + c] += seg[w2 * 8 + 1 + c];
+          for (int c = 0; c < 6; ++c)
+            if (!(FINE && feat_max && c == 2)) rs[1 + c] += seg[w2 * 8 + 1 + c];
+        }
+        if (FINE && feat_max) {
+          // The block's first largest weight in z order; it replaces the
+          // carry only when strictly larger (the first block always does).
+          const float* wr = wts + lt * kSampleBlock;
+          int best = 0;
+          for (int j = 1; j < kSampleBlock; ++j)
+            if (wr[j] > wr[best]) best = j;
+          const bool upd = wr[best] > rs[7];
+          if (upd) {
+            rs[7] = wr[best];
+            rs[3] = info[(lt * kSampleBlock + best) * 8 + 6];
+          }
+          seg[lt * 8 + 7] = upd ? (float)best : -1.f;
         }
       }
       if (lt == 0) ctl[2 * wg + 1] = sb + 1;
@@ -957,7 +989,13 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
                                                 e & 1 ? iq.y : iq.x));
           }
         }
-        const float w0 = wts[wrow], w1 = wts[wrow + 8];
+        // feat_max: a one-hot weight on the ray's new argmax row, and no
+        // write at all for a ray that kept its carry (warp-uniform: a warp's
+        // rows belong to one ray).
+        const float sel = feat_max ? seg[(wl >> 1) * 8 + 7] : 0.f;
+        const int hot = (wl >> 1) * kSampleBlock + (int)sel;
+        const float w0 = feat_max ? (wrow == hot ? 1.f : 0.f) : wts[wrow];
+        const float w1 = feat_max ? (wrow + 8 == hot ? 1.f : 0.f) : wts[wrow + 8];
         float part[2 * NJ];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -975,10 +1013,18 @@ render_eval_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
         fold_half<4, NJ / 2>(part, lane);
         float* fa = facc + wl * HID;
         const int g = lane >> 2;
+        if (!feat_max) {
 #pragma unroll
-        for (int i = 0; i < NJ / 4; ++i) {
-          const int k = (NJ / 4) * g + i;
-          fa[8 * (k >> 1) + 2 * t + (k & 1)] += part[i];
+          for (int i = 0; i < NJ / 4; ++i) {
+            const int k = (NJ / 4) * g + i;
+            fa[8 * (k >> 1) + 2 * t + (k & 1)] += part[i];
+          }
+        } else if (sel >= 0.f) {   // x + 0 == x: the other warp's row is 0
+#pragma unroll
+          for (int i = 0; i < NJ / 4; ++i) {
+            const int k = (NJ / 4) * g + i;
+            fa[8 * (k >> 1) + 2 * t + (k & 1)] = part[i];
+          }
         }
       }
     }
@@ -994,7 +1040,8 @@ template <int HID, bool FINE, bool kDbg, bool Q8>
 cudaError_t launch(const EvalParams& p, const QuantParams& qp, int n_rays,
                    int layer_num, int feat_layer, int int8_from, int F, int Fd,
                    int S, float var_scale, float log_eps, int white_bg,
-                   int* counter, float* w, float* depth, float* acc, float* rgb,
+                   int feat_max, int* counter, float* w, float* depth,
+                   float* acc, float* rgb,
                    float* feat, float* pts, float* dbg, int8_t* dbgq,
                    cudaStream_t stream) {
   const size_t bytes = EvalSmem<HID, FINE, Q8>::kBytes;
@@ -1012,7 +1059,8 @@ cudaError_t launch(const EvalParams& p, const QuantParams& qp, int n_rays,
   const int grid = (n_tiles + 1) / 2 < sms ? (n_tiles + 1) / 2 : sms;
   kern<<<grid, kEvalThreads, bytes, stream>>>(
       p, qp, layer_num, feat_layer, int8_from, F, Fd, S, n_tiles, var_scale,
-      log_eps, white_bg, counter, w, depth, acc, rgb, feat, pts, dbg, dbgq);
+      log_eps, white_bg, feat_max, counter, w, depth, acc, rgb, feat, pts, dbg,
+      dbgq);
   return cudaGetLastError();
 }
 
@@ -1021,8 +1069,9 @@ cudaError_t launch_hid(bool fine, bool dbg, bool q8, const EvalParams& p,
                        const QuantParams& qp, int n_rays, int layer_num,
                        int feat_layer, int int8_from, int F, int Fd, int S,
                        float var_scale, float log_eps, int white_bg,
-                       int* counter, float* w, float* depth, float* acc,
-                       float* rgb, float* feat, float* pts, float* dbg_out,
+                       int feat_max, int* counter, float* w, float* depth,
+                       float* acc, float* rgb, float* feat, float* pts,
+                       float* dbg_out,
                        int8_t* dbgq, cudaStream_t s) {
   auto fn = !q8 ? (!fine ? launch<HID, false, false, false>
                          : dbg ? launch<HID, true, true, false>
@@ -1032,8 +1081,8 @@ cudaError_t launch_hid(bool fine, bool dbg, bool q8, const EvalParams& p,
                         : dbg ? launch<HID, true, true, true>
                               : launch<HID, true, false, true>;
   return fn(p, qp, n_rays, layer_num, feat_layer, int8_from, F, Fd, S,
-            var_scale, log_eps, white_bg, counter, w, depth, acc, rgb, feat,
-            pts, dbg_out, dbgq, s);
+            var_scale, log_eps, white_bg, feat_max, counter, w, depth, acc,
+            rgb, feat, pts, dbg_out, dbgq, s);
 }
 
 template <int HID>
@@ -1058,7 +1107,8 @@ size_t smem_bytes(bool fine, bool q8) {
 // samples, hid) f32 receiving the tap layer's activations of the first pass
 // and of the second (fine stage only).  dbgq: null, or (n_rays, samples,
 // 96 + hid) int8 receiving the quantized encoding and the last layer's int8
-// input (int8 trunk only).
+// input (int8 trunk only).  feat_max (fine stage only): composite the
+// descriptor and the point of each ray's largest weight (feat_comb='max').
 extern "C" int nm_render_eval_forward(const void* const* ptrs,
                                       const void* const* qptrs,
                                       const void* app, int n_rays,
@@ -1066,7 +1116,8 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
                                       int int8_from, int num_freqs,
                                       int dirs_freqs, int samples,
                                       float var_scale, float log_eps,
-                                      int white_bg, int fine, void* counter,
+                                      int white_bg, int fine, int feat_max,
+                                      void* counter,
                                       void* out_w, void* out_depth,
                                       void* out_acc, void* out_rgb,
                                       void* out_feat, void* out_pts, void* dbg,
@@ -1077,7 +1128,8 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
       samples % kSampleBlock != 0 || samples <= 0 ||
       (fine && (feat_layer < 0 || feat_layer >= layer_num)) ||
       (dbg != nullptr && !fine) || (dbgq != nullptr && !q8) ||
-      (q8 && (int8_from < 0 || int8_from >= layer_num)) || (hid != 64 && hid != 256))
+      (q8 && (int8_from < 0 || int8_from >= layer_num)) || (hid != 64 && hid != 256) ||
+      (feat_max && !fine))
     return (int)cudaErrorInvalidValue;
   EvalParams p;
   int k = 0;
@@ -1125,7 +1177,8 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
   auto fn = hid == 64 ? launch_hid<64> : launch_hid<256>;
   return (int)fn(fine, dbg != nullptr || dbgq != nullptr, q8, p, qp, n_rays,
                  layer_num, tap, int8_from, num_freqs, dirs_freqs, samples,
-                 var_scale, log_eps, white_bg, (int*)counter, (float*)out_w,
+                 var_scale, log_eps, white_bg, feat_max != 0, (int*)counter,
+                 (float*)out_w,
                  (float*)out_depth, (float*)out_acc, (float*)out_rgb,
                  (float*)out_feat, (float*)out_pts, (float*)dbg, (int8_t*)dbgq,
                  (cudaStream_t)stream);

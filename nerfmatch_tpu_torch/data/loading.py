@@ -153,3 +153,32 @@ def parse_pair_ids_balanced(qframes, rframes, pairs, split: str = "train",
         ids = np.random.permutation(len(val_pairs))
         val_pairs = [val_pairs[i] for i in ids[:val_num]]
     return train_pairs if split == "train" else val_pairs
+
+
+def parse_multipair_ids_balanced(qframes, rframes, pairs, split: str = "train",
+                                 val_num: int = 500):
+    """Multi-pair variant: {qid: [rids...]} (refs missing from ``rframes``
+    dropped) with the balanced val split; seeds numpy's global generator
+    with ``val_num``, as the reference does."""
+    np.random.seed(val_num)
+    rname2ids = {f["file_path"]: i for i, f in enumerate(rframes)}
+    qname2ids = {f["file_path"]: i for i, f in enumerate(qframes)}
+
+    def ridlist(rnames):
+        return [rname2ids[r] for r in rnames if r in rname2ids]
+
+    if split == "test":
+        return {qname2ids[q]: ridlist(rs) for q, rs in pairs.items()
+                if q in qname2ids}
+    val_qids = set(split_val_ids(len(qframes), val_percent=0.1).tolist())
+    train_pairs, val_pairs = {}, {}
+    for qname, rnames in pairs.items():
+        if qname not in qname2ids:
+            continue
+        qid = qname2ids[qname]
+        (val_pairs if qid in val_qids else train_pairs)[qid] = ridlist(rnames)
+    if val_num < len(val_pairs):
+        keys = list(val_pairs.keys())
+        ids = np.random.permutation(len(keys))
+        val_pairs = {keys[i]: val_pairs[keys[i]] for i in ids[:val_num]}
+    return train_pairs if split == "train" else val_pairs

@@ -6,10 +6,12 @@ numpy only.
 * :class:`NeRFMatchPair`: retrieval pairs (a query image against a retrieved
   reference frame's cached points), with the GT conf matrix from projecting
   the reference points into the query's ds-grid, self-pair augmentation and
-  seeded per-epoch resampling.
+  seeded per-epoch resampling;
+* :class:`NeRFMatchMultiPair`: a query against its top-k retrieved frames'
+  points, stacked (K, N, .) per pair or merged into one visibility-filtered,
+  resampled cloud (``sample_mode='rand'``).
 
 Samples are dicts of numpy arrays with the reference's keys, images NHWC.
-``NeRFMatchMultiPair`` is not ported (ROADMAP: multi-pair matching).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from pathlib import Path
 import numpy as np
 from PIL import Image
 
-from .loading import (load_frame_3d, load_topk_retrieval_pairs,
+from .loading import (load_frame_3d, load_retrieval_pairs,
+                      load_topk_retrieval_pairs, parse_multipair_ids_balanced,
                       parse_pair_ids, parse_pair_ids_balanced)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
@@ -149,7 +152,8 @@ class NeRFMatchPair(NeRFMatchBase):
         seed = int(getattr(config, "seed", 0) or 0)
         self.rng = np.random.default_rng(np.random.SeedSequence([seed, 0]))
 
-    def load_scene_data(self):
+    def _load_frames(self):
+        """The reference and query annotations, each sorted by path."""
         if getattr(self.config, "scene_anno_path", None):
             anno = self.config.scene_anno_path.replace("#scene", self.scene)
             self.ref_json = anno.replace("#split", "train")
@@ -161,6 +165,9 @@ class NeRFMatchPair(NeRFMatchBase):
         self.rframes = _sorted_frames(self.ref_json)
         self.qframes = self.rframes if self.query_json == self.ref_json \
             else _sorted_frames(self.query_json)
+
+    def load_scene_data(self):
+        self._load_frames()
         pairs = load_topk_retrieval_pairs(self.pair_txt, kmax=self.pair_topk)
         parse = parse_pair_ids_balanced if self.balanced_pair else parse_pair_ids
         self.pair_ids = parse(self.qframes, self.rframes, pairs,
@@ -169,25 +176,31 @@ class NeRFMatchPair(NeRFMatchBase):
             self.pair_ids += [(i, i) for i in range(len(self.qframes))] * int(
                 self.aug_self_pairs)
 
-    def load_sample(self, idx):
-        if self.epoch_sample_num > 0:
-            idx = int(self.rng.integers(len(self.pair_ids)))
-        qid, rid = self.pair_ids[idx]
+    def _load_query(self, qid):
+        """Query ``qid`` -> (image path, image, K, c2w (f64), w2c, ds-grid
+        pixels, its cached points (None on the test split), its mask)."""
         qframe = self.qframes[qid]
-        ds = self.model_ds
-        w, h = self.img_wh
         qc2w = np.asarray(qframe["transform_matrix"], np.float64)
-        qw2c = np.linalg.inv(qc2w)
         qim_path = str(self.im_dir / qframe["file_path"])
         qim, sK = process_img(self.img_wh, qim_path,
                               imagenet_norm=self.imagenet_norm)
         qK = sK @ np.asarray(qframe["intrinsics"], np.float32)
-        qpt2d = pixel_grid_np(w, h, ds)
+        qpt2d = pixel_grid_np(*self.img_wh, self.model_ds)
         if self.split != "test":
             qpt3d, _, qmask, _ = load_frame_3d(qframe, self.scene_dir,
                                                use_msk=self.use_msk)
         else:
             qmask, qpt3d = np.ones(len(qpt2d), bool), None
+        return (qim_path, qim, qK, qc2w, np.linalg.inv(qc2w), qpt2d, qpt3d,
+                qmask)
+
+    def load_sample(self, idx):
+        if self.epoch_sample_num > 0:
+            idx = int(self.rng.integers(len(self.pair_ids)))
+        qid, rid = self.pair_ids[idx]
+        ds = self.model_ds
+        qim_path, qim, qK, qc2w, qw2c, qpt2d, qpt3d, qmask = \
+            self._load_query(qid)
         rframe = self.rframes[rid]
         rim_path = str(self.im_dir / rframe["file_path"])
         rc2w = np.asarray(rframe["transform_matrix"], np.float32)
@@ -229,7 +242,122 @@ class NeRFMatchPair(NeRFMatchBase):
         return len(self.pair_ids)
 
 
-class NeRFMatchMultiPair:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("NeRFMatchMultiPair (top-k merged refs) is "
-                                  "not ported (ROADMAP: multi-pair matching)")
+class NeRFMatchMultiPair(NeRFMatchPair):
+    """A query against its top-k retrieved frames' scene points.  Without
+    ``sample_mode`` (stacked) the points keep a pair axis, (K, N, .); with
+    ``sample_mode='rand'`` (merged) the K frames' points pass a
+    visibility-intersection filter and a ``np.random`` permutation, tiled to
+    ``sample_pts``.  ``conf_gt`` and ``pt2d_proj`` are built on every split,
+    over all K * N (or the merged) points.  Random draws come from numpy's
+    global generator, as in the reference, so a seed gives the same
+    samples in both packages."""
+
+    def __init__(self, config, split: str = "train", val_num: int = 500,
+                 debug: bool = False):
+        super().__init__(config, split=split, val_num=val_num, debug=debug)
+        self.sample_pts = getattr(config, "sample_pts", -1)
+        self.sample_mode = getattr(config, "sample_mode", None)
+        self.pair_topk = getattr(config, "pair_topk", 10)
+
+    def load_scene_data(self):
+        self._load_frames()
+        self.pair_ids = parse_multipair_ids_balanced(
+            self.qframes, self.rframes, load_retrieval_pairs(self.pair_txt),
+            split=self.split, val_num=self.val_num)
+        self.pair_ids_keys = list(self.pair_ids.keys())
+
+    def load_ref_pts(self, rids):
+        """The refs' points -> (pt3d, pt_feat, mask, unnorm_scene of the last,
+        c2w of the first): K refs drawn with replacement on the train split;
+        elsewhere the first K, cycled when the query has fewer."""
+        if len(rids) == 0:
+            raise ValueError(
+                "multi-pair query has no refs resolvable against the ref "
+                "annotations — check pair_txt / ref_json consistency")
+        if self.split == "train":
+            rids_ = np.random.choice(rids, self.pair_topk)
+        else:
+            rids = list(rids)
+            if len(rids) < self.pair_topk:
+                rids = rids * (-(-self.pair_topk // len(rids)))
+            rids_ = np.asarray(rids[: self.pair_topk])
+        all_pt3d, all_feat, all_mask = [], [], []
+        rc2w = None
+        for i, rid in enumerate(rids_):
+            rframe = self.rframes[rid]
+            if i == 0:
+                rc2w = np.asarray(rframe["transform_matrix"], np.float32)
+            pt3d, pt_feat, mask, unnorm_scene = load_frame_3d(
+                rframe, self.scene_dir, use_msk=self.use_msk)
+            all_pt3d.append(pt3d)
+            all_feat.append(pt_feat)
+            all_mask.append(mask)
+        rpt3d = np.concatenate(all_pt3d, 0)
+        rpt_feat = np.concatenate(all_feat, 0)
+        rmask = np.concatenate(all_mask, 0)
+        if not self.sample_mode:
+            return rpt3d, rpt_feat, rmask, unnorm_scene, rc2w
+
+        # Keep the points every ref sees (their union where the intersection
+        # would drop below a third).
+        visible = np.ones(len(rpt3d), bool)
+        WH = np.asarray(self.img_wh, np.float64)
+        for rid in rids_:
+            rframe = self.rframes[rid]
+            rw2c = np.linalg.inv(np.asarray(rframe["transform_matrix"],
+                                            np.float64))
+            sK = np.diag([WH[0] / rframe["width"], WH[1] / rframe["height"], 1.0])
+            rK = sK @ np.asarray(rframe["intrinsics"], np.float64)
+            rpt2d = project_points_np(rK, rw2c[:3, :3], rw2c[:3, 3], rpt3d)
+            i_vis = (rpt2d >= 0).all(-1) & (rpt2d < WH).all(-1)
+            intersect = visible & i_vis
+            union = visible | i_vis
+            visible = union if intersect.sum() < visible.sum() / 3 else intersect
+        rpt3d, rpt_feat, rmask = rpt3d[visible], rpt_feat[visible], rmask[visible]
+        if self.sample_mode == "rand":
+            n = len(rpt3d)
+            idx = np.random.permutation(n)
+            if self.sample_pts > 0:
+                idx = np.tile(idx, (self.sample_pts // max(n, 1)) + 1)[
+                    : self.sample_pts]
+            rpt3d, rpt_feat, rmask = rpt3d[idx], rpt_feat[idx], rmask[idx]
+        return rpt3d, rpt_feat, rmask, unnorm_scene, rc2w
+
+    def load_sample(self, idx):
+        if self.epoch_sample_num > 0:
+            idx = int(np.random.randint(len(self.pair_ids)))
+        qid = self.pair_ids_keys[idx]
+        qim_path, qim, qK, qc2w, qw2c, qpt2d, qpt3d, qmask = \
+            self._load_query(qid)
+        rpt3d, rpt_feat, rmask, unnorm_scene, rc2w = self.load_ref_pts(
+            self.pair_ids[qid])
+        conf_gt, qpt2d_proj = build_conf_gt(
+            qpt2d, rpt3d, qK, qw2c, self.img_wh, self.model_ds, qmask, rmask)
+        if not self.sample_mode:
+            n = len(rpt3d) // self.pair_topk
+            rpt3d = rpt3d.reshape(self.pair_topk, n, -1)
+            rpt_feat = rpt_feat.reshape(self.pair_topk, n, -1)
+            rmask = rmask.reshape(self.pair_topk, n)
+        sample = {
+            "qim_path": qim_path,
+            "image": qim,
+            "im_mask": qmask.astype(np.float32),
+            "K": qK,
+            "c2w": qc2w.astype(np.float32),
+            "rc2w": rc2w,
+            "pt2d": qpt2d,
+            "pt2d_proj": qpt2d_proj,
+            "pt3d": np.asarray(rpt3d, np.float32),
+            "pt_feat": np.asarray(rpt_feat, np.float32),
+            "pt_mask": np.asarray(rmask, np.float32),
+            "conf_gt": conf_gt,
+            "unnorm_scene": np.asarray(unnorm_scene, np.float32),
+        }
+        if self.split != "test":
+            sample["qpt3d"] = np.asarray(qpt3d, np.float32)
+        return sample
+
+    def __len__(self):
+        if self.epoch_sample_num > 0:
+            return self.epoch_sample_num
+        return len(self.pair_ids)

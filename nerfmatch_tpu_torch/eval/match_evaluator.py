@@ -8,17 +8,19 @@ estimate and match again.  The cached-point protocols run at bs=1 and at
 ``eval_bs > 1``; the single-query protocols run at bs=1: iNeRF refinement
 (``eval/inerf.py``) after each match, ``query2query`` (re-render at the
 ground-truth pose), uncached points (re-render at the retrieved pose
-``rc2w``) and ``retrieval_only`` (score ``rc2w``).  Batches are dicts of
-numpy arrays: image (B, H, W, 3), pt_feat (B, N, C), pt3d (B, N, 3),
-pt_mask (B, N), im_mask (B, M), pt2d (B, M, 2), K (B, 3, 3), c2w (B, 4, 4),
-rc2w (B, 4, 4), unnorm_scene (B, 4, 4).
+``rc2w``), ``retrieval_only`` (score ``rc2w``), the match oracle (PnP on the
+ground-truth matches ``conf_gt``) and top-k retrieval pairs (points (1, K,
+N, .) from ``NeRFMatchMultiPair``: the matcher's ``forward_multi_pair``,
+every pair's matches concatenated).  Batches are dicts of numpy arrays:
+image (B, H, W, 3), pt_feat (B, N, C), pt3d (B, N, 3), pt_mask (B, N),
+im_mask (B, M), pt2d (B, M, 2), K (B, 3, 3), c2w (B, 4, 4), rc2w (B, 4, 4),
+unnorm_scene (B, 4, 4).
 
 :meth:`NeRFMatchEvaluator.eval_multi_scenes` is the benchmark's scene loop
 (``cli/benchmark_nerfmatch``): per scene the NeRF re-render through
 ``load_nerf_render_from_ckpt(serving=True)``, the ``eval_bs`` batching rule,
 per-query timers and a metrics ``.npy`` under the reference's tag name.
-Multi-pair matching, the match oracle and the visualization raise
-``NotImplementedError``.
+The visualization raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from ..config import dict2namespace, merge_configs
 from ..data.loaders import (DataLoader, init_mixed_dataset,
                             init_multiscene_dataset)
+from ..data.match_dataset import NeRFMatchMultiPair
 from ..models.layers import init_params_
 from ..models.matcher_c2f import C2FMatcherConfig, NeRFMatcherMS
 from ..models.matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
@@ -180,30 +183,66 @@ class NeRFMatchEvaluator:
                                 c2w_est.astype(np.float32))
         return c2w_est, float(r_err), float(t_err), len(pt2d)
 
+    def _multi_matches(self, out, pt2d, pt3d):
+        """Host-side correspondences of a multi-pair bs=1 match (every
+        output with a leading pair axis; pt2d (M, 2), pt3d (K, N, 3)): each
+        pair's :meth:`_item_matches`, concatenated over the pairs."""
+        pair = lambda k: {n: {kk: vv[k] for kk, vv in v.items()}
+                          if n == "lists" else v[k] for n, v in out.items()}
+        per_pair = [self._item_matches(pair(k), pt2d[None], pt3d[k][None], 0)
+                    for k in range(pt3d.shape[0])]
+        return tuple(np.concatenate(x) for x in zip(*per_pair))
+
     def eval_match_pose(self, batch, mutual: bool = True,
                         match_thres: float = 0.0, solver: str = "colmap",
-                        rthres: float = 1.0):
-        """Match + PnP of a bs=1 ``batch`` -> (c2w_est, R_err, t_err,
-        num_matches); records ``match_time``."""
-        t0 = time.perf_counter()
-        out = self._match(batch["image"], batch["pt_feat"], batch["pt3d"],
-                          batch["im_mask"], batch["pt_mask"], mutual,
-                          match_thres)
-        self.timer["match_time"].append(time.perf_counter() - t0)
-        mpt2d, mpt3d = self._item_matches(out, np.asarray(batch["pt2d"]),
-                                          np.asarray(batch["pt3d"]), 0)
+                        rthres: float = 1.0, match_oracle: bool = False):
+        """Match + PnP of a bs=1 ``batch`` (single- or multi-pair points) ->
+        (c2w_est, R_err, t_err, num_matches); records ``match_time`` (a
+        multi-pair match's divided by its pairs, as JAX).  ``match_oracle``:
+        PnP on the ground-truth matches of ``conf_gt`` instead (3D points of
+        every pair flattened; 2D the projected ``pt2d_proj`` on a c2f
+        matcher, the grid ``pt2d`` otherwise)."""
+        if match_oracle:
+            if "conf_gt" not in batch:
+                raise ValueError(
+                    "--match_oracle needs conf_gt in the batch: run it on "
+                    "a non-test split (reference behavior is identical)")
+            conf_gt = np.asarray(batch["conf_gt"])[0]
+            i2d, i3d = np.where(conf_gt)
+            mpt3d = np.asarray(batch["pt3d"])[0].reshape(-1, 3)[i3d]
+            if not self.coarse_only and "pt2d_proj" in batch:
+                mpt2d = np.asarray(batch["pt2d_proj"])[0][i3d]
+            else:
+                mpt2d = np.asarray(batch["pt2d"])[0][i2d]
+        else:
+            pt3d = np.asarray(batch["pt3d"])
+            t0 = time.perf_counter()
+            out = self._match(batch["image"], batch["pt_feat"], pt3d,
+                              batch["im_mask"], batch["pt_mask"], mutual,
+                              match_thres)
+            if pt3d.ndim == 4:
+                mpt2d, mpt3d = self._multi_matches(
+                    out, np.asarray(batch["pt2d"])[0], pt3d[0])
+                self.timer["match_time"].append(
+                    (time.perf_counter() - t0) / pt3d.shape[1])
+            else:
+                self.timer["match_time"].append(time.perf_counter() - t0)
+                mpt2d, mpt3d = self._item_matches(
+                    out, np.asarray(batch["pt2d"]), pt3d, 0)
         return self._solve_pose(mpt2d, mpt3d, np.asarray(batch["K"])[0],
                                 np.asarray(batch["c2w"])[0], solver, rthres)
 
     def _eval_query(self, batch, renderer, inerf_conf, iters, mutual,
                     match_thres, solver, rthres, query2query, retrieval_only,
-                    cached_pt, cache_iters, debug):
+                    cached_pt, cache_iters, debug, match_oracle=False):
         """The bs=1 loop of the single-query protocols (JAX
         ``eval_batch``, bs=1): the starting pose (the ground truth for
         ``query2query``, the retrieved ``rc2w`` for uncached points or
         ``retrieval_only``), then per iteration the pose error of ``rc2w``
-        (``retrieval_only``) or a re-render at the current pose and a match,
-        then iNeRF, whose result is kept only where its R_err is finite."""
+        (``retrieval_only``) or a re-render at the current pose and a match
+        (or the oracle's), then iNeRF, whose result is kept only where its
+        R_err is finite.  A re-render replaces multi-pair points by the
+        single view's."""
         if "unnorm_scene" in batch:
             unnorm_scene = np.asarray(batch["unnorm_scene"])[0]
         else:
@@ -236,7 +275,7 @@ class NeRFMatchEvaluator:
                                                  np.float32))
                 c2w_est, R_err, t_err, num_matches = self.eval_match_pose(
                     batch, mutual=mutual, match_thres=match_thres,
-                    solver=solver, rthres=rthres)
+                    solver=solver, rthres=rthres, match_oracle=match_oracle)
                 if inerf_conf and cache_iters:
                     iter_t_errs.append(t_err)
                     iter_R_errs.append(R_err)
@@ -267,7 +306,8 @@ class NeRFMatchEvaluator:
                    solver: str = "colmap", rthres: float = 1.0,
                    cache_iters: bool = False, inerf_conf=None,
                    query2query: bool = False, retrieval_only: bool = False,
-                   cached_pt: bool = True, debug: bool = False):
+                   cached_pt: bool = True, debug: bool = False,
+                   match_oracle: bool = False):
         """Localize every query of ``batch``; ``iters > 1`` re-renders the
         scene points through ``renderer`` at each successful estimate.
         Returns dict(R_err, t_err, num_matches, c2w_est) lists of length B
@@ -276,16 +316,21 @@ class NeRFMatchEvaluator:
         and each evaluated step between the first and the last).  Records
         ``match_time`` (per query per match) and ``localize_time`` (per
         query) in ``timer``, and ``inerf_step_time`` per iNeRF step.
-        iNeRF (``inerf_conf``), ``query2query``, ``retrieval_only`` and
-        uncached points (``cached_pt=False``) take bs=1."""
-        if inerf_conf or query2query or retrieval_only or not cached_pt:
+        iNeRF (``inerf_conf``), ``query2query``, ``retrieval_only``,
+        uncached points (``cached_pt=False``), the match oracle and
+        multi-pair points take bs=1."""
+        multi = np.ndim(batch.get("pt3d")) == 4
+        if (inerf_conf or query2query or retrieval_only or not cached_pt
+                or match_oracle or multi):
             if np.asarray(batch["image"]).shape[0] != 1:
-                raise ValueError("iNeRF, query2query, retrieval_only and "
-                                 "uncached points localize one query a batch")
+                raise ValueError("iNeRF, query2query, retrieval_only, "
+                                 "uncached points, the match oracle and "
+                                 "multi-pair points localize one query a "
+                                 "batch")
             return self._eval_query(batch, renderer, inerf_conf, iters, mutual,
                                     match_thres, solver, rthres, query2query,
                                     retrieval_only, cached_pt, cache_iters,
-                                    debug)
+                                    debug, match_oracle)
         if iters > 1 and renderer is None:
             raise ValueError("iters > 1 needs the NeRF renderer")
         ts = time.perf_counter()
@@ -354,7 +399,8 @@ class NeRFMatchEvaluator:
                          mutual: bool = True, match_thres: float = 0.0,
                          cache_iters: bool = False, debug: bool = False,
                          inerf_conf=None, query2query: bool = False,
-                         retrieval_only: bool = False, cached_pt: bool = True):
+                         retrieval_only: bool = False, cached_pt: bool = True,
+                         match_oracle: bool = False):
         """Every batch of ``data_loader`` through :meth:`eval_batch` ->
         per-query arrays R_err, t_err, num_matches (and (Q, n) iter_R_errs /
         iter_t_errs with ``cache_iters``; a list of per-query arrays where
@@ -366,7 +412,7 @@ class NeRFMatchEvaluator:
                 match_thres=match_thres, solver=solver, rthres=rthres,
                 cache_iters=cache_iters, inerf_conf=inerf_conf,
                 query2query=query2query, retrieval_only=retrieval_only,
-                cached_pt=cached_pt, debug=debug)
+                cached_pt=cached_pt, debug=debug, match_oracle=match_oracle)
             for k in ("R_err", "t_err", "num_matches", "iter_R_errs",
                       "iter_t_errs"):
                 if k in res:
@@ -403,10 +449,8 @@ class NeRFMatchEvaluator:
         back unless ``ow_cache``) and summarize -> (averages over the
         scenes, per-scene summaries).  ``center_subpixel`` only tags the
         file: it is an identity, as in the JAX package."""
-        for flag, what in ((match_oracle, "--match_oracle"),
-                           (visualize, "--visualize")):
-            if flag:
-                _unported(what)
+        if visualize:
+            _unported("--visualize")
         if cache_dir:
             self.cache_dir = Path(cache_dir)
         self.cache_dir.mkdir(parents=True, exist_ok=True)
@@ -414,8 +458,6 @@ class NeRFMatchEvaluator:
         conf = self.config.data
         if data_conf is not None:
             conf = merge_configs(conf, data_conf)
-        if getattr(conf, "dataset", "") == "NeRFMatchMultiPair":
-            _unported("multi-pair matching (--pair_topk > 1)")
         if test_pair_txt:
             conf.test_pair_txt = test_pair_txt
         if scene_dir:
@@ -439,11 +481,13 @@ class NeRFMatchEvaluator:
             if os.path.exists(cache_path) and not ow_cache:
                 metrics = np.load(cache_path, allow_pickle=True).item()
             else:
-                # The single-query protocols take bs=1 (JAX :589-594).
+                # The single-query protocols, the match oracle and
+                # multi-pair points take bs=1 (JAX :583-597).
                 bs = eval_bs if (
                     eval_bs > 1 and not inerf_conf and cached_pt
                     and not query2query and not retrieval_only
-                    and not cache_iters) else 1
+                    and not match_oracle and not cache_iters
+                    and not isinstance(dataset, NeRFMatchMultiPair)) else 1
                 loader = DataLoader(dataset, batch_size=bs, shuffle=False)
                 renderer = None
                 if (not cached_pt) or query2query or iters > 1 or inerf_conf:
@@ -474,7 +518,8 @@ class NeRFMatchEvaluator:
                         solver=solver, mutual=mutual, match_thres=match_thres,
                         cache_iters=cache_iters, debug=debug,
                         inerf_conf=inerf_conf, query2query=query2query,
-                        retrieval_only=retrieval_only, cached_pt=cached_pt)
+                        retrieval_only=retrieval_only, cached_pt=cached_pt,
+                        match_oracle=match_oracle)
                 for k, v in self.timer.items():
                     metrics[k] = np.asarray(v)
                 np.save(cache_path, metrics)

@@ -296,7 +296,9 @@ class NerfEvaluator:
         ``trunk_int8`` None resolves through :func:`serving_int8_mode`; the
         CUDA kernels serve it, the CPU path renders in ``compute_dtype``.
         An appearance NeRF's ``pt_color`` follows each frame's ``ts``.
-        ``feat_comb='max'`` raises in the CUDA kernels."""
+        ``feat_comb='max'`` (tag ``ds{downsample}max``) caches each ray's
+        descriptor and point of its largest weight, on the card through the
+        fine render kernel's ``feat_max`` branch."""
         if trunk_int8 is None:
             trunk_int8 = serving_int8_mode(self.config)
         self.renderer.cfg = dataclasses.replace(

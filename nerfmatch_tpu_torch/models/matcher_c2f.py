@@ -151,6 +151,30 @@ class NeRFMatcherMS(NeRFMatcherCoarse):
             out.update(im_cfeat=im_n, pt_cfeat=pt_n)
         return out
 
+    def forward_multi_pair(self, img, pt_feat, pt3d, im_mask=None,
+                           pt_mask=None, mutual: bool = False,
+                           match_thres: float = 0.0):
+        """Top-k retrieval pairs, points (B, K, N, .): the two-scale image
+        features once, then per pair the point path, the coarse matching
+        and the dense fine stage (every image token with its best point)
+        -> j_ids, mconf, valid stacked (K, B, M) and expec_f (K, B * M,
+        3)."""
+        im_cfeat0, fmap_f = self.extract_im_feat_ms(img)
+        B, M = im_cfeat0.shape[:2]
+        dev = im_cfeat0.device
+        b_ids = torch.arange(B, device=dev).repeat_interleave(M)
+        i_ids = torch.arange(M, device=dev).repeat(B)
+        outs = []
+        for im_cfeat, pt_cfeat, m in self._pair_matches(
+                im_cfeat0, pt_feat, pt3d, im_mask, pt_mask, mutual,
+                match_thres):
+            m["expec_f"] = self.forward_fine(
+                fmap_f, im_cfeat, pt_cfeat, b_ids, i_ids,
+                m["j_ids"].reshape(-1), identity_list=True)
+            outs.append(m)
+        return {k: torch.stack([o[k] for o in outs])
+                for k in ("j_ids", "mconf", "valid", "expec_f")}
+
     def fine_coords(self, expec_f, mpt2d_c):
         """Window-normalized offsets -> image-resolution fine coords."""
         return mpt2d_c + expec_f[:, :2] * self.cfg.win_sz / 2 * self.cfg.fine_ds

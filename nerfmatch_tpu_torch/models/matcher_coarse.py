@@ -4,7 +4,9 @@ of ``nerfmatch_tpu/models/matcher_coarse.py``).
 Image: ConvFormer 1/8 map -> [proj] -> sine PE -> self-attention.  Points:
 NeRF descriptors -> [proj] -> Fourier PE concat+proj (pre or post SA) ->
 self-attention.  Cross-attention ``coarse_former``, masked dual softmax and
-dense mutual-match extraction.  Images are NHWC.
+dense mutual-match extraction.  Images are NHWC.  Top-k retrieval pairs
+(points (B, K, N, .)) run the image branch once and the rest once a pair
+(:meth:`NeRFMatcherCoarse.forward_multi_pair`).
 """
 
 from __future__ import annotations
@@ -203,16 +205,59 @@ class NeRFMatcherCoarse(nn.Module):
             out.update(im_cfeat=im_n, pt_cfeat=pt_n)
         return out
 
+    def _pair_matches(self, im_cfeat0, pt_feat, pt3d, im_mask, pt_mask,
+                      mutual, match_thres):
+        """Each pair of multi-pair points (B, K, N, .; an absent mask is
+        ones) through the point path, the coarse former and the matching
+        against the image tokens ``im_cfeat0`` -> K tuples (im_cfeat,
+        pt_cfeat, matches)."""
+        if pt_mask is None:
+            pt_mask = pt3d.new_ones(pt3d.shape[:3])
+        for k in range(pt3d.shape[1]):
+            pt_cfeat = self.extract_pt_feat(pt_feat[:, k], pt3d[:, k])
+            im_cfeat, pt_cfeat = self.apply_coarse_former(im_cfeat0, pt_cfeat)
+            conf, _, _ = dual_softmax(im_cfeat, pt_cfeat, self.temperature,
+                                      im_mask, pt_mask[:, k],
+                                      temp_type=self.cfg.temp_type)
+            yield im_cfeat, pt_cfeat, extract_mutual_matches(
+                conf, mutual=mutual, threshold=match_thres)
+
+    def forward_multi_pair(self, img, pt_feat, pt3d, im_mask=None,
+                           pt_mask=None, mutual: bool = False,
+                           match_thres: float = 0.0):
+        """Top-k retrieval pairs: points (B, K, N, .) against one image.  The
+        image branch runs once; the point path, the coarse former and the
+        matching run once a pair (a loop over K where JAX maps) -> dense
+        matches stacked (K, B, M): j_ids, mconf, valid."""
+        outs = [m for _, _, m in self._pair_matches(
+            self.extract_im_feat(img), pt_feat, pt3d, im_mask, pt_mask,
+            mutual, match_thres)]
+        return {k: torch.stack([o[k] for o in outs])
+                for k in ("j_ids", "mconf", "valid")}
+
     @torch.no_grad()
     def eval_match(self, img, pt_feat, pt3d, im_mask=None, pt_mask=None,
                    mutual: bool = False, match_thres: float = 0.0,
                    top_k: int | None = None):
         """Inference forward: only what localization consumes (the dense
-        conf matrix is dropped), plus top-k match lists under ``lists``."""
-        out = self.forward_match(img, pt_feat, pt3d, im_mask, pt_mask,
-                                 mutual=mutual, match_thres=match_thres)
+        conf matrix is dropped), plus top-k match lists under ``lists``.
+        Multi-pair points (pt3d (B, K, N, 3)) go through
+        :meth:`forward_multi_pair`: every output gains a leading pair axis,
+        the lists (K, B, top_k) too."""
+        multi = pt3d.dim() == 4
+        fwd = self.forward_multi_pair if multi else self.forward_match
+        out = fwd(img, pt_feat, pt3d, im_mask, pt_mask, mutual=mutual,
+                  match_thres=match_thres)
         res = {k: out[k] for k in ("j_ids", "mconf", "valid", "expec_f")
                if k in out}
         if top_k:
-            res["lists"] = dense_to_match_lists(res, top_k)
+            dense = {k: res[k] for k in ("j_ids", "mconf", "valid")}
+            if not multi:
+                res["lists"] = dense_to_match_lists(dense, top_k)
+            else:
+                lists = [dense_to_match_lists({k: v[i] for k, v in dense.items()},
+                                              top_k)
+                         for i in range(pt3d.shape[1])]
+                res["lists"] = {k: torch.stack([m[k] for m in lists])
+                                for k in lists[0]}
         return res

@@ -12,8 +12,9 @@ views layer only.  Routing follows the device of the rays:
   fine) with the resample kernel between them (``make_fused_hierarchical``
   semantics, including the unit-direction reparameterization and the int8
   trunk of ``cfg.trunk_int8``, with activation scales calibrated lazily
-  from the first ray batch).  Configs the kernels do not implement raise
-  ``NotImplementedError``.
+  from the first ray batch, and ``feat_comb='max'``: the fine stage's
+  descriptor and point of each ray's largest weight).  Configs the kernels
+  do not implement raise ``NotImplementedError``.
 * eval, CPU: :meth:`render_rays`, the plain sampling / MLP / compositing
   path with the MLP in ``compute_dtype`` (``render_rays(train=False,
   ret_pfeat=True, validation=True)``), as the JAX package's non-fused
@@ -327,10 +328,9 @@ class NerfRenderer(nn.Module):
     def check_fused_supported(self):
         """Raise for configs the CUDA kernels do not implement."""
         cfg = self.cfg
-        if cfg.feat_comb != "lin":
-            raise NotImplementedError(
-                "feat_comb='max' is not in the CUDA render kernel (ROADMAP: "
-                "what remains)")
+        if cfg.feat_comb not in ("lin", "max"):
+            raise ValueError(f"feat_comb={cfg.feat_comb!r} not in ('lin', "
+                             "'max')")
         if cfg.trunk_int8 not in INT8_MODES:
             raise ValueError(f"trunk_int8={cfg.trunk_int8!r} not in "
                              f"{INT8_MODES}")
@@ -408,7 +408,8 @@ class NerfRenderer(nn.Module):
                               packed=pc, int8=qc, **kw)
         z_fine = resample_z(z_vals, coarse["weights"])
         fine = render_stage(fine_mlp, rays, z_fine, fine=True, packed=pf,
-                            int8=qf, app=app, **kw)
+                            int8=qf, app=app,
+                            feat_max=self.cfg.feat_comb == "max", **kw)
         inv = 1.0 / nrm[:, 0]
         return {"depth_coarse": coarse["depth"] * inv,
                 "rgb_fine": fine["rgb"], "depth_fine": fine["depth"] * inv,

@@ -34,7 +34,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # Launch counts by kernel name; incremented by each wrapper where it launches.
 LAUNCHES = {"render_coarse": 0, "render_fine": 0, "render_coarse_int8": 0,
             "render_fine_int8": 0, "render_fine_app": 0,
-            "render_fine_int8_app": 0, "resample": 0,
+            "render_fine_int8_app": 0, "render_fine_max": 0,
+            "render_fine_int8_max": 0, "render_fine_app_max": 0,
+            "render_fine_int8_app_max": 0, "resample": 0,
             "attention": 0, "render_train_fwd": 0, "render_train_bwd": 0,
             "render_train_fwd_app": 0, "render_train_bwd_app": 0,
             "attention_bwd": 0, "dw_star_fwd": 0, "dw_star_dgrad": 0,
@@ -48,11 +50,11 @@ _SIGNATURES = {
     # params, int8 params or null (host arrays of device pointers),
     # appearance rows or null, n_rays, hid, layer_num, feat_layer,
     # int8_from, num_freqs, dirs_freqs, samples, var_scale, log_eps,
-    # white_bg, fine, tile counter, out pointers x6, tap debug output, int8
-    # debug output, stream
+    # white_bg, fine, feat_max, tile counter, out pointers x6, tap debug
+    # output, int8 debug output, stream
     "nm_render_eval_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P],
+                               _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P],
     # hid, fine, int8 -> dynamic shared memory bytes
     "nm_render_eval_smem": [_I, _I, _I],
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream

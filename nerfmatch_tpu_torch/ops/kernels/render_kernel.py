@@ -6,7 +6,10 @@ compositing over packed rays (N, 12) in the unit-direction
 parameterization and z fenceposts (N, S+1).  ``fine=False`` is the coarse
 variant (weights, depth, acc); ``fine=True`` adds rgb, the composited
 descriptor (the MLP's tap layer) and the composited point
-``o * acc + d * sum(w * t_mean)``.  An appearance NeRF's fine stage takes
+``o * acc + d * sum(w * t_mean)``; with ``feat_max`` (``feat_comb='max'``)
+the descriptor and the point ``o + d * t_mean`` of each ray's sample with
+the largest weight instead, the first in z order among equal weights (as
+``torch.argmax`` and ``jnp.argmax``).  An appearance NeRF's fine stage takes
 ``app`` (N, 16), each ray's appearance row: the views layer adds
 ``app @ Wva`` to the per-ray ``dirs_pe @ Wvd`` (f32 FMA on unrounded
 weights); nothing else reads it, so weights, depth, feat and pts do not
@@ -136,9 +139,10 @@ def int8_pointers(mlp: NerfMLP, int8):
 def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                  dirs_freqs: int, var_scale: float = 1.0,
                  early_term_eps: float = 0.0, white_bg: bool = False,
-                 packed=None, int8=None, app=None, debug_q: bool = False,
-                 debug_tap: bool = False):
+                 packed=None, int8=None, app=None, feat_max: bool = False,
+                 debug_q: bool = False, debug_tap: bool = False):
     """One fused render stage -> dict(weights, depth, acc[, rgb, feat, pts]).
+    ``feat_max`` (fine stage): feat and pts of each ray's largest weight.
     ``packed``: :func:`pack_mlp` of ``mlp`` (with ``int8``), to pack once
     for many calls.  ``app`` (N, 16) f32: the appearance rows of an
     appearance NeRF's fine stage (the coarse stage emits no rgb and ignores
@@ -153,7 +157,7 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                                   dirs_freqs=dirs_freqs, var_scale=var_scale,
                                   early_term_eps=early_term_eps,
                                   white_bg=white_bg, int8=int8, app=app,
-                                  debug_q=debug_q)
+                                  feat_max=feat_max, debug_q=debug_q)
     _check_config(mlp, num_freqs, dirs_freqs, fine, app)
     cfg = mlp.cfg
     start = None if int8 is None else int8["start"]
@@ -185,6 +189,8 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
         raise ValueError("render_stage: debug_q needs the int8 trunk")
     if debug_tap and not fine:
         raise ValueError("render_stage: debug_tap needs the fine stage")
+    if feat_max and not fine:
+        raise ValueError("render_stage: feat_max needs the fine stage")
     if int8 is not None and fine and int8["tap"] != eval_feat_layer(cfg):
         raise ValueError("render_stage: the fine stage's int8 trunk must be "
                          "packed with its tap layer")
@@ -214,17 +220,53 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     err = library().nm_render_eval_forward(
         ptrs, qarr, ptr(app), n, hid, cfg.layer_num, eval_feat_layer(cfg),
         -1 if start is None else start, num_freqs, dirs_freqs, S, var_scale,
-        log_eps, int(white_bg), int(fine), counter.data_ptr(), *outs, ptr(dbg),
-        ptr(dbgq), stream_ptr(dev))
+        log_eps, int(white_bg), int(fine), int(feat_max), counter.data_ptr(),
+        *outs, ptr(dbg), ptr(dbgq), stream_ptr(dev))
     check(err, "render_eval")
     LAUNCHES[("render_fine" if fine else "render_coarse")
              + ("" if int8 is None else "_int8")
-             + ("" if app is None else "_app")] += 1
+             + ("" if app is None else "_app")
+             + ("_max" if feat_max else "")] += 1
     if debug_tap:
         out.update(tap_first=dbg[0], tap_again=dbg[1])
     if debug_q:
         out.update(xq=dbgq[..., :cfg.xyz_dim], hq=dbgq[..., ENC_PAD:])
     return out
+
+
+def feat_max_agreement(out, ref, rays, z):
+    """How far a fine stage with ``feat_max`` (``out``) agrees with another
+    on the same rays and fenceposts (``ref``), both dicts of tensors.  The
+    argmax is discontinuous: where a ray's two largest ``ref`` weights lie
+    within a margin (twice the largest weight difference of the two), either
+    may win, and the whole descriptor row changes.  ->
+    dict(margin, near_tie: rays inside it, flipped: those of them whose
+    point differs from ``ref``'s by more than 1e-5 (another sample won),
+    pts_err / feat_err: largest error of the other rays (feat relative to
+    ``ref``'s largest value), pick_err: over the rays inside it, the
+    distance of ``out``'s point to the nearest point ``o + d * t_mean`` of a
+    sample whose ``ref`` weight lies within the margin of ``ref``'s
+    largest)."""
+    w_ref = ref["weights"]
+    margin = 2.0 * float((out["weights"] - w_ref).abs().max())
+    top2 = torch.topk(w_ref, 2, dim=-1).values
+    tie = (top2[:, 0] - top2[:, 1]) <= margin
+    far = ~tie
+    pts_err = float((out["pts"][far] - ref["pts"][far]).abs().max()) \
+        if far.any() else 0.0
+    feat_err = float((out["feat"][far] - ref["feat"][far]).abs().max()
+                     / ref["feat"].abs().max()) if far.any() else 0.0
+    pick_err = 0.0
+    if tie.any():
+        t_mean = frustum_moments(z[tie, :-1], z[tie, 1:],
+                                 rays[tie, 11:12])[0]
+        cand = w_ref[tie] >= top2[tie, :1] - margin
+        pts = rays[tie, None, 0:3] + rays[tie, None, 8:11] * t_mean[..., None]
+        dist = (pts - out["pts"][tie, None, :]).abs().amax(-1)
+        pick_err = float(torch.where(cand, dist, torch.inf).amin(-1).max())
+    flipped = int(((out["pts"] - ref["pts"]).abs().amax(-1) > 1e-5)[tie].sum())
+    return dict(margin=margin, near_tie=int(tie.sum()), flipped=flipped,
+                pts_err=pts_err, feat_err=feat_err, pick_err=pick_err)
 
 
 def early_term_mask(alpha, eps: float):
@@ -333,13 +375,15 @@ def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                        dirs_freqs: int, var_scale: float = 1.0,
                        early_term_eps: float = 0.0, white_bg: bool = False,
                        trunk_bf16: bool = True, int8=None, app=None,
-                       debug_q: bool = False):
+                       feat_max: bool = False, debug_q: bool = False):
     """Plain PyTorch version of :func:`render_stage` (same outputs).
     ``int8``: the quantized trunk (see :func:`mlp_plain`); ``app`` (N, 16):
     the appearance rows of the fine stage; ``debug_q`` adds its int8
     encoding ``xq`` (N, S, E) and the last layer's int8 input ``hq`` (N, S,
-    hid)."""
+    hid); ``feat_max``: feat and pts of each ray's first largest weight."""
     _check_config(mlp, num_freqs, dirs_freqs, fine, app)
+    if feat_max and not fine:
+        raise ValueError("render_stage_plain: feat_max needs the fine stage")
     o, d = rays[:, 0:3], rays[:, 8:11]
     t0, t1 = z[:, :-1], z[:, 1:]
     t_mean, t_var, r_var = frustum_moments(t0, t1, rays[:, 11:12])
@@ -364,9 +408,14 @@ def render_stage_plain(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
         rgb = (weights[..., None] * rgb_s).sum(1)
         if white_bg:
             rgb = rgb + (1.0 - acc[:, None])
-        tw = (weights * t_mean).sum(-1, keepdim=True)
-        out.update(rgb=rgb, feat=(weights[..., None] * tap).sum(1),
-                   pts=o * acc[:, None] + d * tw)
+        if feat_max:
+            best = weights.argmax(-1, keepdim=True)      # first occurrence
+            feat = torch.take_along_dim(tap, best[..., None], dim=1)[:, 0]
+            pts = o + d * torch.take_along_dim(t_mean, best, dim=1)
+        else:
+            feat = (weights[..., None] * tap).sum(1)
+            pts = o * acc[:, None] + d * (weights * t_mean).sum(-1, keepdim=True)
+        out.update(rgb=rgb, feat=feat, pts=pts)
     if debug_q:
         out.update({k: v.to(torch.int8) for k, v in debug.items()})
     return out

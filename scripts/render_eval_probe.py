@@ -56,8 +56,15 @@ runs the int8 stages on ``mma.sync``), with the headers beside it (e.g.
 ``git archive <parent> nerfmatch_tpu_torch/csrc`` unpacked, FILE its
 ``render.cu``), and time its int8 stages on the same inputs with the
 fragments it reads (``parent_fragments``), its error against the package's
-at eps 1e-4 beside.  ``--variants``: build and time only these (comma
-separated; each build takes minutes).  Compare within one run only.
+at eps 1e-4 beside.  ``--parent-eval DIR``: also build DIR's
+``render_eval.cu`` (an earlier ``csrc`` whose C entry has no ``feat_max``
+argument, e.g. ``git archive <parent> nerfmatch_tpu_torch/csrc`` unpacked),
+started beside the package's build, and run every stage above (the lin
+composite, bf16 and int8) on it: its outputs against the package's bit for
+bit (``same_bits``), its times beside, and the wall seconds of its nvcc
+beside the package's build (``build_s``, ``package_build_s``).  ``--variants``: build and time
+only these (comma separated, ``none`` for none; each build takes minutes).
+Compare within one run only.
 """
 
 from __future__ import annotations
@@ -68,6 +75,8 @@ import json
 import math
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -277,6 +286,48 @@ def run_parent(lib, mlp, rays, z, fine, eps, q, packed):
     return out
 
 
+def start_parent_eval(src_dir):
+    """nvcc of ``src_dir``'s render_eval.cu (headers beside it) into
+    ``build/render_eval_probe/parent_eval/``, started -> (library path,
+    process, its wall seconds once done: a dict filled by a thread)."""
+    out_dir = ROOT / "build" / "render_eval_probe" / "parent_eval"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for src in [Path(src_dir) / SRC, *Path(src_dir).glob("*.cuh")]:
+        (out_dir / src.name).write_text(src.read_text())
+    so = out_dir / "render_eval.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
+           str(out_dir / SRC)]
+    t0, seconds = time.perf_counter(), {}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    waiter = threading.Thread(target=lambda: seconds.setdefault(
+        "s", (proc.wait(), time.perf_counter() - t0)[1]))
+    waiter.start()
+    return so, proc, (waiter, seconds)
+
+
+class ParentEval:
+    """The earlier build's library behind the package's C signature: its
+    ``nm_render_eval_forward`` lacks the ``feat_max`` argument (index 15),
+    which must be 0 here."""
+
+    def __init__(self, so, proc, timer):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc parent_eval failed:\n{log}")
+        timer[0].join()
+        self.build_s = timer[1]["s"]
+        self.lib = ctypes.CDLL(str(so))
+        args = list(kernels._SIGNATURES["nm_render_eval_forward"])
+        del args[15]
+        self.lib.nm_render_eval_forward.argtypes = args
+        self.lib.nm_render_eval_forward.restype = ctypes.c_int
+
+    def nm_render_eval_forward(self, *args):
+        assert args[15] == 0, "the earlier kernel has no feat_max"
+        return self.lib.nm_render_eval_forward(*args[:15], *args[16:])
+
+
 def ptxas_lines(log):
     name, out = "", []
     for line in log.splitlines():
@@ -294,11 +345,18 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent-source",
                    help="an earlier render.cu (headers beside it) to time too")
-    p.add_argument("--variants", help="comma-separated variants (default all)")
+    p.add_argument("--parent-eval",
+                   help="an earlier csrc dir whose render_eval.cu to compare "
+                        "bit for bit")
+    p.add_argument("--variants", help="comma-separated variants (default "
+                                      "all; 'none' for none)")
     args = p.parse_args()
     smi = chip_smoke.phase_environment()
     dev = torch.device("cuda", 0)
-    names = args.variants.split(",") if args.variants else list(PATCHES)
+    parent_eval = (start_parent_eval(args.parent_eval) if args.parent_eval
+                   else None)
+    names = ([] if args.variants == "none" else args.variants.split(",")
+             if args.variants else list(PATCHES))
     libs = build_variants({n: PATCHES[n] for n in names}, "render_eval_probe",
                           SRC, ENTRIES)
     parent = parent_library(args.parent_source) if args.parent_source else None
@@ -354,6 +412,26 @@ def main():
                                    for k in out)
                         assert same or name != "shipped", "shipped != package"
                         row["same_bits"] = row.get("same_bits", True) and same
+                    ms = profile_ms(call, {"render_eval_kernel": "k"})
+                row[f"{stage}_eps{eps:g}"] = round(ms["k"], 4)
+            print(json.dumps(row), flush=True)
+        if parent_eval is not None:
+            kernels._LIB = ParentEval(*parent_eval)
+            # Both builds started together: the package's (every csrc file,
+            # render_eval.cu the longest) and the earlier render_eval.cu.
+            row = {"variant": "parent_eval", "same_bits": True,
+                   "build_s": round(kernels._LIB.build_s, 1),
+                   "package_build_s": round(kernels.BUILD_INFO["seconds"], 1)}
+            for stage, eps, mlp, zz, fine, q in cases + cases8:
+                call = lambda: rk.render_stage(mlp, rays, zz, fine=fine,
+                                               early_term_eps=eps, int8=q,
+                                               packed=packed[id(mlp), id(q)], **kw)
+                with torch.no_grad():
+                    out = call()
+                    same = all(torch.equal(out[k], ref[stage, eps][k])
+                               for k in out)
+                    row["same_bits"] = row["same_bits"] and same
+                    row[f"{stage}_eps{eps:g}_same"] = same
                     ms = profile_ms(call, {"render_eval_kernel": "k"})
                 row[f"{stage}_eps{eps:g}"] = round(ms["k"], 4)
             print(json.dumps(row), flush=True)

@@ -193,7 +193,10 @@ def test_benchmark_cli_matches_jax(bench):
 def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
                                                              monkeypatch):
     """The re-render NeRF is loaded with ``serving=True`` (absent key ->
-    'coarse'); flags of protocols that are not ported raise instead of being
+    'coarse'); ``--pair_topk 3`` and ``--pair_topk 3 --match_oracle`` run
+    (their tag-named files), ``--match_oracle`` on single pairs of the test
+    split raises the JAX evaluator's ValueError (no ``conf_gt``), and the
+    flags of protocols that are not ported raise instead of being
     ignored."""
     from nerfmatch_tpu_torch.eval import match_evaluator as tme
 
@@ -211,8 +214,15 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
             "--mutual", "--rthres", "200", "--ow_cache", "--debug"]
     tcli.main(base)
     assert seen == ["coarse"]
-    for flag in (["--pair_topk", "3"], ["--match_oracle"], ["--visualize"],
-                 ["--point_shard"]):
+    res = bench["root"] / "port" / "best_tmed_results"
+    for flag, tag in ((["--pair_topk", "3"], "_top3pt-1.debug"),
+                      (["--pair_topk", "3", "--match_oracle"],
+                       "_top3pt-1.match_oracle.debug")):
+        tcli.main(base + flag)
+        assert (res / f"toy_rth200test_colmap_itr2{tag}.npy").exists()
+    with pytest.raises(ValueError, match="conf_gt"):
+        tcli.main(base + ["--match_oracle"])
+    for flag in (["--visualize"], ["--point_shard"]):
         with pytest.raises(NotImplementedError):
             tcli.main(base + flag)
 

@@ -323,6 +323,50 @@ def test_render_kernel_with_app_matches_plain(dev, hid, trunk):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("trunk", ["bf16", "posttap"])
+@pytest.mark.parametrize("hid", [64, 256])
+def test_render_kernel_feat_max_matches_plain(dev, hid, trunk):
+    """The fine stage with feat_max (the sample of each ray's largest
+    weight; a bf16 trunk, or the int8 trunk of 'posttap') at eps 1e-4, tiles
+    dying at different blocks, against ``render_stage_plain(feat_max=True)``:
+    weights, depth, acc and rgb within 5e-3 scaled and bit-identical to the
+    lin stage's; pts within 5e-3 and feat within 5e-3 of its largest value
+    on the rays outside the tie margin (``feat_max_agreement``), and inside
+    it a point within 5e-3 of a near-tied sample's; a rerun bit-identical;
+    counted as a ``_max`` launch.  The coarse stage refuses feat_max."""
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        feat_max_agreement)
+
+    r, rays, z = opaque_renderer(hid, dev, 2048)
+    q8 = stage_trunks(r, rays, trunk)[True]
+    mlp = r.nerf_fine
+    kw = dict(fine=True, num_freqs=15, dirs_freqs=4, early_term_eps=1e-4,
+              int8=q8)
+    reset_launch_counts()
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, feat_max=True, **kw)
+        again = render_stage(mlp, rays, z, feat_max=True, **kw)
+        lin = render_stage(mlp, rays, z, **kw)
+        b = render_stage_plain(mlp, rays, z, feat_max=True, **kw)
+    for k in a:
+        assert torch.equal(a[k], again[k]), k
+    for k in ("weights", "depth", "acc", "rgb"):
+        assert torch.equal(a[k], lin[k]), k
+    assert scaled_max_err({k: a[k] for k in ("weights", "depth", "acc", "rgb")},
+                          {k: b[k] for k in ("weights", "depth", "acc", "rgb")}) < 5e-3
+    got = feat_max_agreement(a, b, rays, z)
+    assert got["pts_err"] < 5e-3 and got["pick_err"] < 5e-3, got
+    assert got["feat_err"] < 5e-3, got
+    assert got["near_tie"] < 0.05 * rays.shape[0], got
+    assert float((a["pts"] - lin["pts"]).abs().max()) > 1e-3
+    assert LAUNCHES["render_fine" + ("" if q8 is None else "_int8")
+                    + "_max"] == 2
+    with pytest.raises(ValueError):
+        render_stage(mlp, rays, z, fine=False, feat_max=True, num_freqs=15,
+                     dirs_freqs=4)
+
+
+@pytest.mark.cuda
 def test_int8_render_kernel_raises_on_unsupported(dev):
     """A width without an instantiation, and a fine stage packed without
     its tap layer, raise instead of running plain."""
@@ -772,9 +816,10 @@ def attn_inputs(dev, shape, q_scale=0.3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 3600, 14400, 8)])
 def test_attention_kernel_matches_plain(dev, bf16, shape):
-    """Ragged L, S.  f32: atol 1e-4.  bf16 mode: against the one-pass plain
+    """Ragged L, S, and the merged multi-pair layout's S = 14,400 (past the
+    JAX kernel's 8192 keys).  f32: atol 1e-4.  bf16 mode: against the one-pass plain
     version, which rounds the same bf16 operands and the same
     probabilities 2^(x - ceil(max x)), mean 1e-5 and max 1e-3 (ex2.approx
     and the summation order break a few bf16 rounding ties apart); against

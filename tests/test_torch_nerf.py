@@ -424,10 +424,18 @@ def test_early_term_mask_semantics():
 
 def test_fused_cuda_rejects_unported_configs():
     """Configs the kernels do not implement raise instead of taking the
-    plain path; every int8 mode is implemented, an unknown one raises."""
-    r = NerfRenderer(nerf_config(feat_comb="max"), stop_layer=3)
+    plain path: feat_comb 'lin' and 'max' and every int8 mode are
+    implemented; an unknown feat_comb or int8 mode raises, and so do
+    unequal coarse and fine sample counts."""
+    NerfRenderer(nerf_config(feat_comb="max"), stop_layer=3
+                 ).check_fused_supported()
+    with pytest.raises(ValueError):
+        NerfRenderer(nerf_config(feat_comb="mean"), stop_layer=3
+                     ).check_fused_supported()
+    cfg = nerf_config()
+    cfg.fine_nerf.num_pts = 64
     with pytest.raises(NotImplementedError):
-        r.check_fused_supported()
+        NerfRenderer(cfg, stop_layer=3).check_fused_supported()
     for mode in ("none", "coarse", "both", "posttap"):
         NerfRenderer(nerf_config(trunk_int8=mode),
                      stop_layer=3).check_fused_supported()
