@@ -58,7 +58,10 @@ Phases (each prints its results; any failure exits non-zero):
    B=2, H=8, D=32, L=S=3600 in f32 and bf16-operand modes, timed as the
    training path calls it (the forward's output and ``lse`` handed in) and
    on its own (it casts and runs the forward kernel first); each backward
-   rerun must be bit-identical;
+   rerun must be bit-identical; then the bf16 backward at merged multi-pair
+   training's shapes (B=2, H=8; L = 3600, S = 14,400 and L = S = 14,400)
+   against the plain backward taken a head at a time, beside its bound,
+   ``exp_bound_ms`` and SDPA's backward;
 3d. the same for the int8 serving trunk: activation scales calibrated from
    the first 1024 of 9216 rays of the room fixture, the int8 kernel's
    design, registers, spills and shared memory, then the int8 render stage
@@ -140,6 +143,13 @@ Phases (each prints its results; any failure exits non-zero):
    batch 2 (the loss on fixed match lists and the per-step coarse loss must
    fall), 3 profiled; the launch counters must show the attention,
    attention-backward and the three StarReLU + depthwise-conv kernels ran;
+   then merged multi-pair training (``NeRFMatchMultiPair``, ``pair_topk:
+   4``, ``sample_mode: rand``, ``sample_pts: 14400``): the CLI's debug epoch
+   and its resume, and 10 timed ``C2FTrainStep`` steps at batch 2 (ms/step,
+   peak memory, finite loss; the attention kernels' launches by (L, S):
+   kernels 3 and 4 at S = 14,400, 4 each a step); 5 ``CoarseTrainStep``
+   steps with ``pt_ftype='rand'`` and 5 ``C2FTrainStep`` steps with the
+   ``convformer384_fpn`` backbone (its BatchNorm statistics must move);
    the last CLI checkpoint loads strictly into ``NeRFMatchEvaluator`` and
    localizes one request; the scene's points are also cached with
    ``feat_comb='max'`` (``ds8max``) at ``'coarse'`` and at ``'posttap'``
@@ -158,9 +168,11 @@ Phases (each prints its results; any failure exits non-zero):
    --match_oracle``, which runs no matcher; 6 queries each, ``--debug``)
    and ``--iters 2`` on the
    ``ds8max`` cache with the feat_comb='max' NeRF (the fine stage with
-   ``feat_max`` in the re-render), each with its tag-named file of one row
-   a query and the kernels its path launches (the attention launches by
-   key count: the merged run's at S = 14,400).
+   ``feat_max`` in the re-render), and ``--inerf --inerf_optim 2
+   --visualize --eval_bs 2 --debug`` (a GIF of ``inerf_optim`` overlay
+   frames for each of the 6 queries over 50 cm), each with its tag-named
+   file of one row a query and the kernels its path launches (the attention
+   launches by key count: the merged run's at S = 14,400).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -180,7 +192,11 @@ its ``'posttap'`` cache run, the ``render_train_*_app`` rows' phase 5d's 30
 timed steps, ``render_fine_max``'s phase 7's ``--iters 2`` run on the
 ``ds8max`` cache, ``render_fine_int8_max``'s phase 6's ``'posttap'`` max
 cache; the attention row's ``merged`` entry (S = 14,400) carries the
-merged run's launches at that S as ``launches_multipair``.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+merged run's launches at that S as ``launches_multipair``; its
+``merged_train`` entries and each row of ``attention_bwd``'s ``merged``
+list carry phase 6's launches a merged training step at that shape
+(``launches_train_per_step``), and ``attention_bwd``'s
+``merged_train_step`` the step's ms and peak memory.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
 """
 
 from __future__ import annotations
@@ -297,8 +313,18 @@ BENCH_PROTOCOLS = (
       "--nerf_path", "{max_nerf}", "--cache_tag", "max"], "_itr2",
      ("render_coarse_int8", "render_fine_max", "resample", "attention",
       "dw_star_fwd")),
+    # The failure cases' iNeRF GIFs (bs=1 whatever --eval_bs says), 6
+    # queries.
+    (["--inerf", "--inerf_optim", "2", "--visualize", "--eval_bs", "2",
+      "--debug"], "_itr1ds8inerf2lr0.001match.debug",
+     ("render_coarse_int8", "resample", "attention", "dw_star_fwd")),
 )
 MERGED_S = 14400
+# Merged multi-pair training's attention shapes (L, S) at S = 14,400: the
+# image's queries over the points (the coarse former), the points' self
+# attention (pt_sa); the points' queries over the image (S = 3600) ride
+# along.
+MERGED_TRAIN_SHAPES = ((3600, MERGED_S), (MERGED_S, MERGED_S))
 CAM_R, NEAR, FAR = 0.8, 0.05, 2.1        # scripts/train_bench_scene.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -2053,7 +2079,69 @@ def phase_matcher_kernels(dev):
                 f"{mhz:.0f} MHz)); the "
                 f"autograd backward of scaled_dot_product_attention (bf16 "
                 f"operands) {lib_ms:.3f} ms")
+    rows["attention_bwd"]["merged"] = [attention_bwd_merged_row(dev, L, S)
+                                       for L, S in MERGED_TRAIN_SHAPES]
     return rows
+
+
+def attention_bwd_merged_row(dev, L, S, B=2, H=8):
+    """The bf16 attention backward at a merged multi-pair training shape
+    (B = 2, H = 8; ``out`` and ``lse`` handed in, as the training path
+    calls it) against the plain backward taken a head at a time (the plain
+    version's logits of all heads would not fit at L = S = 14,400): 1e-2 of
+    each output's largest value, cosine > 0.999, a rerun bit-identical;
+    with its bound, ``exp_bound_ms`` and SDPA's autograd backward -> a row
+    for the ``attention_bwd`` summary's ``merged`` list."""
+    from nerfmatch_tpu_torch.ops.kernels import attention_kernel as ak
+    from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+        attention_bwd, attention_bwd_plain)
+
+    g = torch.Generator(dev).manual_seed(3)
+    q = torch.randn(B, L, H, 32, device=dev, generator=g) / np.sqrt(32)
+    k = torch.randn(B, S, H, 32, device=dev, generator=g)
+    v = torch.randn(B, S, H, 32, device=dev, generator=g)
+    up = torch.randn(B, L, H, 32, device=dev, generator=g)
+    qo, ko, vo = ak._operands((q, k, v), True)
+    out, lse, _ = ak._forward_kernel(qo, ko, vo, True, True)
+    run = lambda: attention_bwd(qo, ko, vo, up, True, out=out, lse=lse)
+    got, again = run(), run()
+
+    def plain():
+        ref = [torch.empty_like(a) for a in got]
+        for h in range(H):
+            one = attention_bwd_plain(*(x[:, :, h:h + 1] for x in (q, k, v, up)),
+                                      True)
+            for r, o in zip(ref, one):
+                r[:, :, h:h + 1] = o
+            del one
+        return ref
+
+    ref = plain()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    err = max(scaled_err(a, r) for a, r in zip(got, ref))
+    cos = min(float((a * r).sum()) / float(a.norm() * r.norm())
+              for a, r in zip(got, ref))
+    abs_err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+    del ref
+    ms = cuda_ms(run)
+    plain_ms = cuda_ms(plain, 1)
+    lib_ms = sdpa_backward(q, k, v, up)
+    eb, _, _ = exp_bound_ms(2 * B * H * L * S)
+    row = dict(L=L, S=S, max_abs_err=abs_err, scaled_err=err, cosine=cos,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, exp_bound_ms=eb,
+               **bound({"bf16": 10 * B * H * L * S * 32},
+                       nbytes(q, k, v, up, *got)))
+    log(f"kernel attention_bwd bf16 at B={B}, H={H}, L={L}, S={S} (merged "
+        f"multi-pair training): dq/dk/dv scaled err {err:.3e} (tol 1e-2), "
+        f"min cosine {cos:.6f} (tol 0.999), max_abs_err {abs_err:.3e}, rerun "
+        f"bit-identical {same}; ms={ms:.3f} (out and lse handed in) "
+        f"plain_ms={plain_ms:.2f} (a head at a time) bound_ms="
+        f"{row['bound_ms']:.4f} exp_bound_ms={eb:.4f} SDPA backward "
+        f"{lib_ms:.3f}")
+    assert err < 1e-2 and cos > 0.999 and same
+    assert all(torch.isfinite(a).all() for a in got)
+    return row
 
 
 def conv_alone_ms(x, w):
@@ -2985,6 +3073,10 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
         # The fixed-list loss above is the fine part's learning check.
         assert np.mean(closs[-5:]) < np.mean(closs[:5]), closs
         del model, opt, step, data
+        torch.cuda.empty_cache()
+        multipair = phase_multipair_training(config, root, dev, seed)
+        phase_ablation_steps(config, dev, seed, batches, trainer)
+        torch.cuda.empty_cache()
 
         evaluator = NeRFMatchEvaluator(
             cfg, state_dict=torch.load(ckpt / "model.pt", map_location="cpu",
@@ -3004,7 +3096,202 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
         bench = phase_benchmark(ckpt, nerf_ckpt, maxc)
     bench["render_fine_int8_max"] = maxc["launches"]["posttap"][
         "render_fine_int8_max"]
-    return launches, bench
+    return launches, bench, multipair
+
+
+class AttentionShapes:
+    """Counts the attention kernels' launches by (L, S) while active: the
+    forward kernel (``_forward_kernel``) and the backward
+    (``attention_bwd``, which the autograd Function calls)."""
+
+    def __init__(self):
+        from nerfmatch_tpu_torch.ops.kernels import attention_kernel
+
+        self.mod = attention_kernel
+        self.fwd, self.bwd = {}, {}
+
+    def __enter__(self):
+        mod, fwd, bwd = self.mod, self.mod._forward_kernel, self.mod.attention_bwd
+        self.saved = fwd, bwd
+
+        def counted_fwd(qs, k, v, bf16, want_lse):
+            key = (qs.shape[1], k.shape[1])
+            self.fwd[key] = self.fwd.get(key, 0) + 1
+            return fwd(qs, k, v, bf16, want_lse)
+
+        def counted_bwd(qs, k, v, g, bf16=False, out=None, lse=None):
+            key = (qs.shape[1], k.shape[1])
+            self.bwd[key] = self.bwd.get(key, 0) + 1
+            return bwd(qs, k, v, g, bf16, out=out, lse=lse)
+
+        mod._forward_kernel, mod.attention_bwd = counted_fwd, counted_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._forward_kernel, self.mod.attention_bwd = self.saved
+
+    def by_key_count(self, counts):
+        out = {}
+        for (_, S), n in counts.items():
+            out[S] = out.get(S, 0) + n
+        return out
+
+
+def phase_multipair_training(config, root, dev, seed, steps=10):
+    """Merged multi-pair c2f training on the room scene
+    (``NeRFMatchMultiPair``, ``pair_topk: 4``, ``sample_mode: rand``,
+    ``sample_pts: 14400``; the pairs file's 4 refs a query, drawn with
+    replacement): ``cli.train_nerfmatch --stage c2f --debug`` (one epoch of
+    5 steps and 2 val queries) and its resume, then ``steps`` timed
+    ``C2FTrainStep`` steps at batch 2 on 3 batches, with the peak memory and
+    the attention kernels' launches by (L, S) -> dict(ms_per_step,
+    peak_gib, launches a step at S = 14,400 by kernel and shape)."""
+    from nerfmatch_tpu_torch.config import save_config
+    from nerfmatch_tpu_torch.cli.train_nerfmatch import main as train_cli
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.matcher_trainer import (
+        C2F_KEYS, C2FTrainStep, build_matcher, init_config_odir, to_device)
+    from nerfmatch_tpu_torch.utils.optim import (config_adaptive_lr,
+                                                 init_optimizer,
+                                                 trainable_parameters)
+
+    cfg = config("nerfmatch_7scenes_sfm_c2f.yaml")
+    for key, value in (("data.dataset", "NeRFMatchMultiPair"),
+                       ("data.pair_topk", 4), ("data.sample_mode", "rand"),
+                       ("data.sample_pts", MERGED_S), ("exp.max_epochs", 1),
+                       ("exp.resume_version", "multipair")):
+        sec, attr = key.split(".")
+        log(f"  multi-pair cut: {key}: "
+            f"{getattr(getattr(cfg, sec), attr, None)!r} -> {value!r}")
+        setattr(getattr(cfg, sec), attr, value)
+    save_config(root / "multipair.yaml", cfg)
+    argv = ["--config", str(root / "multipair.yaml"), "--stage", "c2f",
+            "--debug"]
+    t0 = time.perf_counter()
+    out_cfg, m1 = train_cli(argv)
+    t1 = time.perf_counter()
+    w1 = {k: v.detach().clone() for k, v in m1.state_dict().items()}
+    _, m2 = train_cli(argv)
+    assert all(torch.equal(v, w1[k]) for k, v in m2.state_dict().items()), \
+        "multi-pair resume changed the weights"
+    ckpt = latest_checkpoint(init_config_odir(out_cfg, False) / "checkpoints",
+                             name="last")
+    assert ckpt is not None and ckpt.name == "last_1", ckpt
+    meta = json.loads((ckpt / "meta.json").read_text())
+    log(f"cli train_nerfmatch --stage c2f --debug on the merged multi-pair "
+        f"config: 1 epoch of 5 steps of batch {cfg.exp.batch_size} + 2 val "
+        f"queries in {t1 - t0:.1f} s, resumed in "
+        f"{time.perf_counter() - t1:.1f} s ({ckpt.name}; val loss "
+        f"{meta['best_loss']:.4f})")
+    del m1, m2, w1
+
+    it = iter(init_data_loader(cfg.data, cfg.exp.batch_size, split="train",
+                               num_workers=1))
+    t0 = time.perf_counter()
+    data = [to_device(next(it), C2F_KEYS, dev) for _ in range(3)]
+    host_s = (time.perf_counter() - t0) / 3
+    assert data[0]["pt3d"].shape == (cfg.exp.batch_size, MERGED_S, 3)
+    model = build_matcher(cfg, False, torch.Generator().manual_seed(seed)).to(dev)
+    opt = init_optimizer(cfg.optim, trainable_parameters(model),
+                         lr=config_adaptive_lr(cfg)[0])
+    step = C2FTrainStep(model, opt,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    for i in range(2):
+        step.step(data[i % 3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with AttentionShapes() as shapes:
+        t0 = time.perf_counter()
+        hist = [step.step(data[i % 3]) for i in range(steps)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = [float(m["loss"]) for m in hist]
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    fwd_s, bwd_s = (shapes.by_key_count(c) for c in (shapes.fwd, shapes.bwd))
+    per_step = {
+        f"{name} L={L} S={S}": counts.get((L, S), 0) / steps
+        for name, counts in (("attention", shapes.fwd),
+                             ("attention_bwd", shapes.bwd))
+        for L, S in MERGED_TRAIN_SHAPES}
+    log(f"merged multi-pair training: {ms:.1f} ms/step over {steps} "
+        f"C2FTrainStep steps of batch {cfg.exp.batch_size} (3600 tokens x "
+        f"{MERGED_S} points; batches built beforehand, {host_s:.2f} s of host "
+        f"time each), peak memory {peak:.2f} GiB, loss "
+        f"{[round(x, 4) for x in loss]}; launches {json.dumps(launches)}; "
+        f"attention launches by (L, S): forward "
+        + json.dumps({f"{L}x{S}": n for (L, S), n in sorted(shapes.fwd.items())})
+        + ", backward "
+        + json.dumps({f"{L}x{S}": n for (L, S), n in sorted(shapes.bwd.items())})
+        + f"; by key count: forward {json.dumps(fwd_s)}, backward "
+        f"{json.dumps(bwd_s)}")
+    assert np.isfinite(loss).all(), loss
+    # A step runs pt_sa's 3 layers at L = S = 14,400 and the coarse former's
+    # image queries over the points once, forward and backward.
+    for name, counts in (("attention", shapes.fwd),
+                         ("attention_bwd", shapes.bwd)):
+        assert counts.get((MERGED_S, MERGED_S), 0) == 3 * steps, (name, counts)
+        assert counts.get((3600, MERGED_S), 0) == steps, (name, counts)
+    del model, opt, step, data
+    return dict(ms_per_step=ms, peak_gib=peak, per_step=per_step,
+                steps=steps)
+
+
+def phase_ablation_steps(config, dev, seed, batches, trainer, steps=5):
+    """Five ``CoarseTrainStep`` steps with ``pt_ftype='rand'`` (descriptors
+    drawn from the step's generator, one draw a step) and five
+    ``C2FTrainStep`` steps with the FPN backbone (``convformer384_fpn``:
+    the FPN exists on the two-scale backbone only), each from a fresh
+    initialization on the single-pair room batches: finite losses, and the
+    FPN's BatchNorm running statistics moved (parameters, as the JAX
+    package's leaves).  Each step is timed on its own (the first includes
+    cuDNN's algorithm search for new shapes)."""
+    from nerfmatch_tpu_torch.train.matcher_trainer import (
+        BATCH_KEYS, C2F_KEYS, C2FTrainStep, CoarseTrainStep)
+
+    def timed(step, data):
+        """-> (losses, ms of each step, device synced)."""
+        loss, ms = [], []
+        for b in data:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss.append(float(step.step(b)["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return loss, ms
+
+    ccfg = config("nerfmatch_7scenes_sfm_coarse.yaml")
+    ccfg.model.pt_ftype = "rand"
+    model, opt = trainer(ccfg, True)
+    gen = torch.Generator(dev).manual_seed(seed)
+    step = CoarseTrainStep(model, opt, generator=gen)
+    loss, ms = timed(step, batches(ccfg, BATCH_KEYS, steps))
+    log(f"pt_ftype='rand': {steps} CoarseTrainStep steps at batch "
+        f"{ccfg.exp.batch_size}, ms a step {[round(x, 1) for x in ms]} "
+        f"(steps 2-{steps}: {np.mean(ms[1:]):.1f} ms/step), loss "
+        f"{[round(x, 5) for x in loss]}")
+    assert np.isfinite(loss).all(), loss
+    del model, opt, step
+
+    fcfg = config("nerfmatch_7scenes_sfm_c2f.yaml")
+    fcfg.model.backbone = "convformer384_fpn"
+    model, opt = trainer(fcfg, False)
+    bn = model.backbone.layer1_outconv2[1]
+    stats = [bn.running_mean.detach().clone(), bn.running_var.detach().clone()]
+    step = C2FTrainStep(model, opt, generator=torch.Generator(dev).manual_seed(
+        seed))
+    loss, ms = timed(step, batches(fcfg, C2F_KEYS, steps))
+    moved = [float((p.detach() - s).abs().max())
+             for p, s in zip((bn.running_mean, bn.running_var), stats)]
+    log(f"convformer384_fpn: {steps} C2FTrainStep steps at batch "
+        f"{fcfg.exp.batch_size}, ms a step {[round(x, 1) for x in ms]} "
+        f"(steps 2-{steps}: {np.mean(ms[1:]):.1f} ms/step), loss "
+        f"{[round(x, 5) for x in loss]}; the FPN BatchNorm's running_mean / "
+        f"running_var moved by up to {moved[0]:.3e} / {moved[1]:.3e}")
+    assert np.isfinite(loss).all(), loss
+    assert min(moved) > 0, moved
 
 
 def phase_benchmark(ckpt, nerf_ckpt, maxc):
@@ -3015,7 +3302,6 @@ def phase_benchmark(ckpt, nerf_ckpt, maxc):
     merged run's attention launches at S = 14,400."""
     from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
-    from nerfmatch_tpu_torch.ops.kernels import attention_kernel
 
     argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt), "--iters",
             "2", "--mutual", "--rthres", "10", "--eval_bs", "2"]
@@ -3046,83 +3332,112 @@ def phase_benchmark(ckpt, nerf_ckpt, maxc):
     missing = [k for k in ("render_coarse_int8", "render_fine", "resample",
                            "attention", "dw_star_fwd") if launches[k] == 0]
     assert not missing, f"kernels never launched in the benchmark: {missing}"
-    # Key counts of the attention kernel's launches (multi-pair runs).
-    forward_kernel, keys = attention_kernel._forward_kernel, []
-
-    def counted(qs, k, v, bf16, want_lse):
-        keys.append(k.shape[1])
-        return forward_kernel(qs, k, v, bf16, want_lse)
-
-    attention_kernel._forward_kernel = counted
-    try:
-        per_protocol = bench_protocols(ckpt, nerf_ckpt, maxc, metrics, keys)
-    finally:
-        attention_kernel._forward_kernel = forward_kernel
+    per_protocol = bench_protocols(ckpt, nerf_ckpt, maxc, metrics)
     run = lambda flag: next(v for k, v in per_protocol.items() if flag in k)
     launches["render_fine_max"] = run("--cache_tag")["render_fine_max"]
     launches["attention_merged"] = run("--sample_mode")["attention_s"]
     return launches
 
 
-def bench_protocols(ckpt, nerf_ckpt, maxc, metrics, keys):
+def bench_protocols(ckpt, nerf_ckpt, maxc, metrics):
     """Phase 7's :data:`BENCH_PROTOCOLS` -> their launch counts by their
     flags (joined), with ``attention_s``: the attention launches at S =
-    14,400 (``keys``: the key count of every launch)."""
+    14,400."""
+    from nerfmatch_tpu_torch.eval import match_evaluator
+
+    out = {}
+    gifs, write_gif = {}, match_evaluator.write_gif
+
+    def recorded(path, frames, *args, **kwargs):
+        gifs[Path(path).name] = len(frames)
+        return write_gif(path, frames, *args, **kwargs)
+
+    match_evaluator.write_gif = recorded
+    try:
+        for raw, tag, kernels in BENCH_PROTOCOLS:
+            gifs.clear()
+            out[" ".join(raw)] = bench_protocol(
+                ckpt, nerf_ckpt, maxc, metrics, raw, tag, kernels, gifs)
+    finally:
+        match_evaluator.write_gif = write_gif
+    return out
+
+
+def bench_protocol(ckpt, nerf_ckpt, maxc, metrics, raw, tag, kernels, gifs):
+    """One of :data:`BENCH_PROTOCOLS` -> its launch counts, with
+    ``attention_s`` (see :func:`bench_protocols`); ``gifs``: the frames of
+    each GIF ``--visualize`` wrote, by name."""
     from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
 
-    out = {}
-    for raw, tag, kernels in BENCH_PROTOCOLS:
-        flags = [f.format(max_dir=maxc["dir"], max_nerf=maxc["nerf_ckpt"])
-                 for f in raw]
-        argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt),
-                "--mutual", "--rthres", "10", *flags]
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        keys.clear()
+    flags = [f.format(max_dir=maxc["dir"], max_nerf=maxc["nerf_ckpt"])
+             for f in raw]
+    argv = ["--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt),
+            "--mutual", "--rthres", "10", *flags]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with AttentionShapes() as shapes:
         t0 = time.perf_counter()
         (avg, _), = bench_cli(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        res = (f"{flags[flags.index('--cache_tag') + 1]}_"
-               if "--cache_tag" in flags else "") + "best_tmed_results"
-        path = ckpt.parent / res / f"room_rth10test_colmap{tag}.npy"
-        assert path.exists(), f"no metrics file {path}"
-        m = np.load(path, allow_pickle=True).item()
-        r_err, t_err = (np.asarray(m[k], np.float64) for k in ("R_err", "t_err"))
-        solved = np.isfinite(r_err) & np.isfinite(t_err)
-        n_queries = 6 if "--debug" in flags else len(metrics["R_err"])
-        assert len(r_err) == n_queries, (path.name, len(r_err))
-        assert np.array_equal(solved, np.isfinite(r_err) | np.isfinite(t_err))
-        steps = m.get("inerf_step_time", np.zeros(0)) * 1e3
-        log(f"benchmark_nerfmatch {' '.join(flags)}: {len(r_err)} queries in "
-            f"{wall:.1f} s, {int(solved.sum())} solved; t_med "
-            f"{avg['t_med']:.3f} cm r_med {avg['r_med']:.3f} deg, "
-            f"localize_time {avg['localize_time']:.3f} ms a query"
-            + (f", {len(steps)} iNeRF steps, median {np.median(steps):.2f} ms"
-               if len(steps) else "")
-            + f"; file {path.name} with {sorted(m)}; launches "
-            + json.dumps({k: v for k, v in LAUNCHES.items() if v}))
-        missing = [k for k in kernels if LAUNCHES[k] == 0]
-        assert not missing, f"{flags}: kernels never launched: {missing}"
-        if "--inerf" in flags:
-            assert len(steps) > 0 and len(steps) % 2 == 0
-            assert LAUNCHES["render_coarse_int8"] == len(steps)
-        out[" ".join(raw)] = dict(LAUNCHES, attention_s=keys.count(MERGED_S))
-        if "--pair_topk" in flags:
-            log(f"  attention launches by key count: " + json.dumps(
-                {str(s_): keys.count(s_) for s_ in sorted(set(keys))})
-                + f"; matches a query {np.mean(m['num_matches']):.1f}")
-            assert np.isfinite(np.asarray(m["num_matches"], float)).all()
-        if "--sample_mode" in flags:
-            # The points' self-attention and the image's queries over them
-            # run on the kernel at the merged S.
-            assert keys.count(MERGED_S) >= 2 * len(r_err), keys
-        if "--match_oracle" in flags:
-            assert LAUNCHES["attention"] == 0 and int(solved.sum()) > 0
-        if "--cache_tag" in flags:
-            assert LAUNCHES["render_fine"] == 0
-    return out
+    keys = shapes.by_key_count(shapes.fwd)
+    res = (f"{flags[flags.index('--cache_tag') + 1]}_"
+           if "--cache_tag" in flags else "") + "best_tmed_results"
+    path = ckpt.parent / res / f"room_rth10test_colmap{tag}.npy"
+    assert path.exists(), f"no metrics file {path}"
+    m = np.load(path, allow_pickle=True).item()
+    r_err, t_err = (np.asarray(m[k], np.float64) for k in ("R_err", "t_err"))
+    solved = np.isfinite(r_err) & np.isfinite(t_err)
+    n_queries = 6 if "--debug" in flags else len(metrics["R_err"])
+    assert len(r_err) == n_queries, (path.name, len(r_err))
+    assert np.array_equal(solved, np.isfinite(r_err) | np.isfinite(t_err))
+    steps = m.get("inerf_step_time", np.zeros(0)) * 1e3
+    log(f"benchmark_nerfmatch {' '.join(flags)}: {len(r_err)} queries in "
+        f"{wall:.1f} s, {int(solved.sum())} solved; t_med "
+        f"{avg['t_med']:.3f} cm r_med {avg['r_med']:.3f} deg, "
+        f"localize_time {avg['localize_time']:.3f} ms a query"
+        + (f", {len(steps)} iNeRF steps, median {np.median(steps):.2f} ms"
+           if len(steps) else "")
+        + f"; file {path.name} with {sorted(m)}; launches "
+        + json.dumps({k: v for k, v in LAUNCHES.items() if v}))
+    missing = [k for k in kernels if LAUNCHES[k] == 0]
+    assert not missing, f"{flags}: kernels never launched: {missing}"
+    if "--inerf" in flags:
+        assert len(steps) > 0 and len(steps) % 2 == 0
+        assert LAUNCHES["render_coarse_int8"] == len(steps)
+    if "--pair_topk" in flags:
+        log(f"  attention launches by key count: " + json.dumps(
+            {str(s_): n for s_, n in sorted(keys.items())})
+            + f"; matches a query {np.mean(m['num_matches']):.1f}")
+        assert np.isfinite(np.asarray(m["num_matches"], float)).all()
+    if "--sample_mode" in flags:
+        # The points' self-attention and the image's queries over them
+        # run on the kernel at the merged S.
+        assert keys.get(MERGED_S, 0) >= 2 * len(r_err), keys
+    if "--match_oracle" in flags:
+        assert LAUNCHES["attention"] == 0 and int(solved.sum()) > 0
+    if "--cache_tag" in flags:
+        assert LAUNCHES["render_fine"] == 0
+    if "--visualize" in flags:
+        from PIL import Image
+
+        files = sorted(ckpt.parent.rglob("visualization/room/*.gif"))
+        # A query whose first PnP failed (t_err inf) has no iNeRF frames.
+        over = {i for i, t in enumerate(t_err) if np.isfinite(t) and t > 0.5}
+        assert {f.name for f in files} == set(gifs), (files, gifs)
+        assert {int(n.split("_")[0]) for n in gifs} == over, (gifs, over)
+        n_optim = int(flags[flags.index("--inerf_optim") + 1])
+        assert all(n == n_optim for n in gifs.values()), gifs
+        read = {}
+        for f in files:
+            with Image.open(f) as im:
+                read[f.name] = (im.n_frames, im.size)
+        log(f"  --visualize: {len(files)} GIFs for the {len(over)} of "
+            f"{len(t_err)} queries over 50 cm, {n_optim} overlay frames "
+            f"each (as written; frames and size as PIL reads them back: "
+            f"{json.dumps(read)})")
+    return dict(LAUNCHES, attention_s=keys.get(MERGED_S, 0))
 
 
 def main():
@@ -3194,7 +3509,8 @@ def main():
     log(f"resample launches: serving {launches['resample']}, training "
         f"{trained['resample']}")
     # The new kernels' counts come from matcher training, where all four run.
-    match, bench = phase_matcher_training(renderer, nerf_cfg, dev, args.seed)
+    match, bench, multipair = phase_matcher_training(renderer, nerf_cfg, dev,
+                                                     args.seed)
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})
     assert bench["render_coarse_int8"] > 0
     # The feat_max stages: phase 7's --iters 2 on the ds8max cache, phase
@@ -3202,6 +3518,19 @@ def main():
     launches.update({k: bench[k] for k in ("render_fine_max",
                                            "render_fine_int8_max")})
     rows["attention"]["merged"]["launches_multipair"] = bench["attention_merged"]
+    # Merged multi-pair training (phase 6): each shape's launches a step.
+    for name in ("attention", "attention_bwd"):
+        for L, S in MERGED_TRAIN_SHAPES:
+            per_step = multipair["per_step"][f"{name} L={L} S={S}"]
+            if name == "attention_bwd":
+                row = next(r for r in rows[name]["merged"]
+                           if (r["L"], r["S"]) == (L, S))
+            else:
+                row = rows[name].setdefault("merged_train", {})
+                row = row.setdefault(f"L={L} S={S}", {})
+            row["launches_train_per_step"] = per_step
+    rows["attention_bwd"]["merged_train_step"] = {
+        k: multipair[k] for k in ("ms_per_step", "peak_gib", "steps")}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -15,8 +15,10 @@ coarse pass serve the NeRF's int8 mode (``serving_int8_mode``).  ``--inerf``
 ``--no_cache_pt``, ``--retrieval_only`` and ``--match_oracle`` localize one
 query a batch, and so does ``--pair_topk K > 1`` (``NeRFMatchMultiPair``:
 each query against its K retrieved frames' points, stacked, or merged with
-``--sample_mode rand --sample_pts N``).  Flags of protocols that are not
-ported raise: ``--visualize``, ``--point_shard``, ``--pair_shard``.
+``--sample_mode rand --sample_pts N``).  ``--visualize`` (bs=1 whatever
+``--eval_bs`` says) writes a GIF of iNeRF's overlay frames for each query
+over 50 cm under ``<cache dir>/visualization/<scene>/``.  The multi-GPU
+flags raise: ``--point_shard``, ``--pair_shard``.
 """
 
 from __future__ import annotations
@@ -181,11 +183,14 @@ def build_parser():
                    help="Multi-GPU point sharding (not ported: raises).")
     p.add_argument("--pair_shard", action="store_true",
                    help="Multi-GPU pair sharding (not ported: raises).")
-    p.add_argument("--visualize", action="store_true")
+    p.add_argument("--visualize", action="store_true",
+                   help="a GIF of the iNeRF overlay frames (--inerf) for "
+                        "each query over 50 cm")
     p.add_argument("--eval_bs", type=int, default=1,
                    help="queries per matcher / render call (single-shot and "
-                        "--iters; results identical); --cache_iters and "
-                        "the single-query protocols stay at bs=1")
+                        "--iters; results identical); --cache_iters, "
+                        "--visualize and the single-query protocols stay at "
+                        "bs=1")
     p.add_argument("--seeds", type=int, nargs="*", default=[])
     p.add_argument("--feats", type=str, nargs="*", default=[])
     p.add_argument("--device", type=str, default="cuda",

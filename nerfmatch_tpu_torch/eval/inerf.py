@@ -166,19 +166,30 @@ class InerfQuery:
 
     def step(self, j: int):
         """Adam step ``j`` (the learning rate of the cosine decay set first)
-        -> (loss, pts, feats) at the delta before the step.  Records
+        -> (loss, pts, feats, rgb) at the delta before the step.  Records
         ``inerf_step_time`` in the evaluator's timer."""
         t0 = time.perf_counter()
         if self.lrdecay:
             self.opt.param_groups[0]["lr"] = self.lrate * (
                 1 + math.cos(math.pi * j / self.num_optim)) / 2
         with torch.enable_grad():
-            loss, (_, pts, feats) = self.loss(self.delta)
+            loss, (rgb, pts, feats) = self.loss(self.delta)
             self.delta.grad, = torch.autograd.grad(loss, self.delta)
         self.opt.step()
         loss = float(loss.detach())
         self.evaluator.timer["inerf_step_time"].append(time.perf_counter() - t0)
-        return loss, pts.detach(), feats.detach()
+        return loss, pts.detach(), feats.detach(), rgb.detach()
+
+    def overlay(self, rgb):
+        """The failure-case GIF's frame: ``rgb`` (n, 3) of the ds-grid
+        blended over the downsampled query, ``uint8(255 * clip(0.7 *
+        clip(rgb, 0, 1) + 0.3 * query, 0, 1))`` (gh, gw, 3)."""
+        H, W = self.hw
+        ds = self.ds
+        gh, gw = len(range(ds // 2, H, ds)), len(range(ds // 2, W, ds))
+        blend = 0.7 * rgb.clamp(0, 1) + 0.3 * self.img_ds
+        return (255 * blend.clamp(0, 1)).reshape(gh, gw, 3).cpu().numpy() \
+            .astype(np.uint8)
 
     def c2w(self):
         """World-frame c2w of the current delta (float64 numpy)."""
@@ -191,21 +202,25 @@ def inerf_refinement(evaluator, batch, renderer, unnorm_scene, c2w_est,
                      inerf_conf, mutual: bool = True, match_thres: float = 0.0,
                      solver: str = "colmap", rthres: float = 1.0,
                      cache_iters: bool = False, iter_t_errs=None,
-                     iter_R_errs=None, debug: bool = False):
+                     iter_R_errs=None, debug: bool = False,
+                     overlay_ims=None):
     """Refine the world-frame ``c2w_est`` of a bs=1 ``batch`` -> (c2w_est,
     R_err, t_err).  ``inerf_conf``: num_optim, lrate, lrdecay, eval_pose,
     use_match_loss, ds.  On the steps the JAX package evaluates (every step
     with ``debug`` or ``cache_iters``, else the last) the pose is scored
     directly (``eval_pose``) or by matching the refined render's points and
     features and solving PnP; ``cache_iters`` appends the errors of the
-    steps strictly between the first and the last."""
+    steps strictly between the first and the last.  A list
+    ``overlay_ims`` gets each step's :meth:`InerfQuery.overlay` frame."""
     q = InerfQuery(evaluator, batch, renderer, unnorm_scene, c2w_est,
                    inerf_conf)
     eval_pose = bool(getattr(inerf_conf, "eval_pose", False))
     c2w_gt = np.asarray(batch["c2w"])[0]
     R_err = t_err = float("inf")
     for j in range(q.num_optim):
-        loss, pts, feats = q.step(j)
+        loss, pts, feats, rgb = q.step(j)
+        if overlay_ims is not None:
+            overlay_ims.append(q.overlay(rgb))
         if not (debug or cache_iters or j == q.num_optim - 1):
             continue
         c2w_cur = q.c2w()

@@ -19,8 +19,10 @@ unnorm_scene (B, 4, 4).
 :meth:`NeRFMatchEvaluator.eval_multi_scenes` is the benchmark's scene loop
 (``cli/benchmark_nerfmatch``): per scene the NeRF re-render through
 ``load_nerf_render_from_ckpt(serving=True)``, the ``eval_bs`` batching rule,
-per-query timers and a metrics ``.npy`` under the reference's tag name.
-The visualization raises ``NotImplementedError``.
+per-query timers and a metrics ``.npy`` under the reference's tag name;
+with ``visualize`` (bs=1), a GIF of iNeRF's overlay frames for each query
+whose translation error exceeds 50 cm, under
+``cache_dir/visualization/<scene>/``.
 """
 
 from __future__ import annotations
@@ -54,9 +56,15 @@ from .nerf_evaluator import load_nerf_render_from_ckpt
 logger = get_logger(level="INFO", name="nerfmatch_eval")
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported (ROADMAP: what "
-                              f"remains, localization protocols)")
+def write_gif(path, frames, ms_per_frame: int = 250):
+    """``frames`` (uint8 (h, w, 3) arrays) as a looping GIF through PIL
+    (the JAX package writes the same frames with imageio, whose GIF writer
+    is PIL's; consecutive identical frames merge into one)."""
+    from PIL import Image
+
+    ims = [Image.fromarray(np.asarray(f, np.uint8)) for f in frames]
+    ims[0].save(path, save_all=True, append_images=ims[1:],
+                duration=ms_per_frame, loop=0)
 
 
 def update_paths(conf, root_dir):
@@ -234,7 +242,8 @@ class NeRFMatchEvaluator:
 
     def _eval_query(self, batch, renderer, inerf_conf, iters, mutual,
                     match_thres, solver, rthres, query2query, retrieval_only,
-                    cached_pt, cache_iters, debug, match_oracle=False):
+                    cached_pt, cache_iters, debug, match_oracle=False,
+                    overlay_ims=None):
         """The bs=1 loop of the single-query protocols (JAX
         ``eval_batch``, bs=1): the starting pose (the ground truth for
         ``query2query``, the retrieved ``rc2w`` for uncached points or
@@ -242,7 +251,7 @@ class NeRFMatchEvaluator:
         (``retrieval_only``) or a re-render at the current pose and a match
         (or the oracle's), then iNeRF, whose result is kept only where its
         R_err is finite.  A re-render replaces multi-pair points by the
-        single view's."""
+        single view's.  ``overlay_ims`` collects iNeRF's overlay frames."""
         if "unnorm_scene" in batch:
             unnorm_scene = np.asarray(batch["unnorm_scene"])[0]
         else:
@@ -285,7 +294,7 @@ class NeRFMatchEvaluator:
                     mutual=mutual, match_thres=match_thres, solver=solver,
                     rthres=rthres, cache_iters=cache_iters,
                     iter_t_errs=iter_t_errs, iter_R_errs=iter_R_errs,
-                    debug=debug)
+                    debug=debug, overlay_ims=overlay_ims)
                 if np.isfinite(res[1]):
                     c2w_est, R_err, t_err = res
             if cache_iters:
@@ -307,7 +316,7 @@ class NeRFMatchEvaluator:
                    cache_iters: bool = False, inerf_conf=None,
                    query2query: bool = False, retrieval_only: bool = False,
                    cached_pt: bool = True, debug: bool = False,
-                   match_oracle: bool = False):
+                   match_oracle: bool = False, overlay_ims=None):
         """Localize every query of ``batch``; ``iters > 1`` re-renders the
         scene points through ``renderer`` at each successful estimate.
         Returns dict(R_err, t_err, num_matches, c2w_est) lists of length B
@@ -318,7 +327,8 @@ class NeRFMatchEvaluator:
         query) in ``timer``, and ``inerf_step_time`` per iNeRF step.
         iNeRF (``inerf_conf``), ``query2query``, ``retrieval_only``,
         uncached points (``cached_pt=False``), the match oracle and
-        multi-pair points take bs=1."""
+        multi-pair points take bs=1; ``overlay_ims``, a list, collects
+        iNeRF's overlay frames."""
         multi = np.ndim(batch.get("pt3d")) == 4
         if (inerf_conf or query2query or retrieval_only or not cached_pt
                 or match_oracle or multi):
@@ -330,7 +340,7 @@ class NeRFMatchEvaluator:
             return self._eval_query(batch, renderer, inerf_conf, iters, mutual,
                                     match_thres, solver, rthres, query2query,
                                     retrieval_only, cached_pt, cache_iters,
-                                    debug, match_oracle)
+                                    debug, match_oracle, overlay_ims)
         if iters > 1 and renderer is None:
             raise ValueError("iters > 1 needs the NeRF renderer")
         ts = time.perf_counter()
@@ -400,19 +410,33 @@ class NeRFMatchEvaluator:
                          cache_iters: bool = False, debug: bool = False,
                          inerf_conf=None, query2query: bool = False,
                          retrieval_only: bool = False, cached_pt: bool = True,
-                         match_oracle: bool = False):
+                         match_oracle: bool = False, visualize: bool = False):
         """Every batch of ``data_loader`` through :meth:`eval_batch` ->
         per-query arrays R_err, t_err, num_matches (and (Q, n) iter_R_errs /
         iter_t_errs with ``cache_iters``; a list of per-query arrays where
-        their lengths differ, as iNeRF's do when a PnP fails)."""
+        their lengths differ, as iNeRF's do when a PnP fails).
+        ``visualize`` (a bs=1 loader): each query over 50 cm whose iNeRF
+        made overlay frames gets ``<i>_t<cm>cm_R<deg>deg.gif`` under
+        ``cache_dir/visualization/<scene>/``."""
         metrics = defaultdict(list)
+        vis_dir = None
+        if visualize:
+            scene = getattr(data_loader.dataset, "scene", "scene")
+            vis_dir = self.cache_dir / "visualization" / scene
+            vis_dir.mkdir(parents=True, exist_ok=True)
         for i, batch in enumerate(data_loader):
+            overlay_ims = [] if visualize else None
             res = self.eval_batch(
                 batch, renderer, iters=iters, mutual=mutual,
                 match_thres=match_thres, solver=solver, rthres=rthres,
                 cache_iters=cache_iters, inerf_conf=inerf_conf,
                 query2query=query2query, retrieval_only=retrieval_only,
-                cached_pt=cached_pt, debug=debug, match_oracle=match_oracle)
+                cached_pt=cached_pt, debug=debug, match_oracle=match_oracle,
+                overlay_ims=overlay_ims)
+            if overlay_ims and res["t_err"][0] * 100 > 50:
+                write_gif(vis_dir / (f"{i}_t{res['t_err'][0] * 100:.1f}cm"
+                                     f"_R{res['R_err'][0]:.1f}deg.gif"),
+                          overlay_ims)
             for k in ("R_err", "t_err", "num_matches", "iter_R_errs",
                       "iter_t_errs"):
                 if k in res:
@@ -448,9 +472,9 @@ class NeRFMatchEvaluator:
         reference's tag name (:meth:`_cache_tag`; an existing file is read
         back unless ``ow_cache``) and summarize -> (averages over the
         scenes, per-scene summaries).  ``center_subpixel`` only tags the
-        file: it is an identity, as in the JAX package."""
-        if visualize:
-            _unported("--visualize")
+        file: it is an identity, as in the JAX package.  ``visualize``
+        localizes at bs=1 and writes the failure cases' iNeRF GIFs
+        (:meth:`eval_data_loader`)."""
         if cache_dir:
             self.cache_dir = Path(cache_dir)
         self.cache_dir.mkdir(parents=True, exist_ok=True)
@@ -481,12 +505,14 @@ class NeRFMatchEvaluator:
             if os.path.exists(cache_path) and not ow_cache:
                 metrics = np.load(cache_path, allow_pickle=True).item()
             else:
-                # The single-query protocols, the match oracle and
-                # multi-pair points take bs=1 (JAX :583-597).
+                # The single-query protocols, the match oracle, the
+                # visualization and multi-pair points take bs=1 (JAX
+                # :583-597).
                 bs = eval_bs if (
                     eval_bs > 1 and not inerf_conf and cached_pt
                     and not query2query and not retrieval_only
-                    and not match_oracle and not cache_iters
+                    and not match_oracle and not visualize
+                    and not cache_iters
                     and not isinstance(dataset, NeRFMatchMultiPair)) else 1
                 loader = DataLoader(dataset, batch_size=bs, shuffle=False)
                 renderer = None
@@ -519,7 +545,7 @@ class NeRFMatchEvaluator:
                         cache_iters=cache_iters, debug=debug,
                         inerf_conf=inerf_conf, query2query=query2query,
                         retrieval_only=retrieval_only, cached_pt=cached_pt,
-                        match_oracle=match_oracle)
+                        match_oracle=match_oracle, visualize=visualize)
                 for k, v in self.timer.items():
                     metrics[k] = np.asarray(v)
                 np.save(cache_path, metrics)

@@ -181,14 +181,20 @@ class MetaFormer(nn.Module):
 
 
 class FrozenBatchNorm(nn.Module):
-    """Eval BatchNorm2d over NHWC with the reference's four state entries."""
+    """BatchNorm2d over NHWC that normalizes with its running statistics,
+    in training too (the JAX trainer's ``fpn_apply(train=False)``), with the
+    reference's four state entries.  As in the JAX package, where all four
+    are parameter leaves, ``running_mean`` and ``running_var`` are
+    parameters: the optimizer moves them by their gradients (the reference
+    trains the FPN in train-mode BatchNorm instead: batch statistics and a
+    momentum update of the running ones)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
-        self.register_buffer("running_mean", torch.zeros(dim))
-        self.register_buffer("running_var", torch.ones(dim))
+        self.running_mean = nn.Parameter(torch.zeros(dim))
+        self.running_var = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
         inv = torch.rsqrt(self.running_var + _BN_EPS) * self.weight

@@ -6,7 +6,11 @@ NeRF descriptors -> [proj] -> Fourier PE concat+proj (pre or post SA) ->
 self-attention.  Cross-attention ``coarse_former``, masked dual softmax and
 dense mutual-match extraction.  Images are NHWC.  Top-k retrieval pairs
 (points (B, K, N, .)) run the image branch once and the rest once a pair
-(:meth:`NeRFMatcherCoarse.forward_multi_pair`).
+(:meth:`NeRFMatcherCoarse.forward_multi_pair`).  The ``pt_ftype='rand'``
+ablation replaces the point descriptors by standard normal draws: from the
+trainer's generator in training, from a generator seeded with 0 at
+inference (the JAX package's ``PRNGKey(0)``; the draws themselves differ
+from ``jax.random``'s).
 """
 
 from __future__ import annotations
@@ -82,6 +86,16 @@ class CoarseMatcherConfig:
         return True
 
 
+def rand_point_features(shape, dim: int, device,
+                        generator: torch.Generator | None = None):
+    """The ``pt_ftype='rand'`` descriptors: (*shape, dim) standard normal
+    draws from ``generator``, or from a fresh generator seeded with 0 (the
+    inference draw, the same at every call)."""
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    return torch.randn((*shape, dim), generator=generator, device=device)
+
+
 def feature_normalization(x):
     x = x - x.mean(dim=1, keepdim=True)
     max_norm = torch.linalg.norm(x, dim=-1).amax(dim=-1)
@@ -93,8 +107,6 @@ class NeRFMatcherCoarse(nn.Module):
 
     def __init__(self, cfg: CoarseMatcherConfig):
         super().__init__()
-        if cfg.pt_ftype == "rand":
-            raise NotImplementedError("pt_ftype='rand' ablation is not ported")
         self.cfg = cfg
         self.backbone_cfg = make_config(cfg.backbone, two_scale=self.two_scale)
         self._build_backbone()
@@ -156,14 +168,21 @@ class NeRFMatcherCoarse(nn.Module):
             else fourier_embedding(pt3d, PT_PE_FREQS)
         return self.pt_pe_proj(torch.cat([pt_feat, pe], dim=-1))
 
-    def extract_pt_feat(self, pt_feat, pt3d):
-        """(B, N, pt_dim), (B, N, 3) -> (B, N, cfeat_dim) point tokens."""
+    def extract_pt_feat(self, pt_feat, pt3d, generator=None, rand_feat=None):
+        """(B, N, pt_dim), (B, N, 3) -> (B, N, cfeat_dim) point tokens.
+        ``pt_ftype='rand'`` draws the descriptors from ``generator`` (None:
+        the fixed inference draw) unless ``rand_feat`` (B, N, pt_dim) gives
+        them."""
         cfg = self.cfg
         if cfg.pt_feat_norm:
             pt_feat = feature_normalization(pt_feat)
             pt3d = feature_normalization(pt3d)
         if cfg.pt_ftype == "pt3d":
             pt_feat = pt3d
+        elif cfg.pt_ftype == "rand":
+            pt_feat = rand_feat if rand_feat is not None else \
+                rand_point_features(pt_feat.shape[:2], cfg.effective_pt_dim,
+                                    pt_feat.device, generator)
         elif cfg.pt_ftype == "pe3d":
             pt_feat = fourier_embedding(pt3d, PT_PE_FREQS)
         pt_feat_in = pt_feat

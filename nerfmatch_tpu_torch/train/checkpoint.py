@@ -197,11 +197,13 @@ def graft_state(module: torch.nn.Module, state: Mapping):
 def load_reference_checkpoint(ckpt_path):
     """A reference Lightning checkpoint (a pickle: load only files you trust)
     -> (state dict with the ``model.`` prefix stripped, hyper-parameters or
-    None)."""
+    None).  BatchNorm's ``num_batches_tracked`` counters are dropped: the
+    port's BatchNorm keeps the other four entries only."""
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
     state = ckpt.get("state_dict", ckpt)
     return ({(k[len("model."):] if k.startswith("model.") else k):
-             torch.as_tensor(v).float() for k, v in state.items()},
+             torch.as_tensor(v).float() for k, v in state.items()
+             if not k.endswith("num_batches_tracked")},
             ckpt.get("hyper_parameters"))
 
 

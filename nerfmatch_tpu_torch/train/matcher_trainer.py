@@ -14,10 +14,14 @@
 One process on one device.  On CUDA the coarse attention layers run the
 attention kernels (forward and backward) and the ConvFormer token mixers
 the fused StarReLU + depthwise-conv kernels; on the CPU both take their
-plain versions.  GT-padding draws come from a ``torch.Generator`` seeded
-with ``exp.seed`` (or an injected match list, for tests).  Not ported:
-``exp.gpus > 1``, the FPN backbones' BatchNorm training, ``pt_ftype='rand'``
-and multi-pair training; each raises ``NotImplementedError``.
+plain versions.  GT-padding draws and the ``pt_ftype='rand'`` descriptors
+(one draw a step) come from a ``torch.Generator`` seeded with ``exp.seed``
+(or an injected match list and ``rand_feat``, for tests).  Multi-pair data
+(``NeRFMatchMultiPair``) trains in the merged layout (``sample_mode: rand``,
+points (B, N, .)); the stacked layout raises ``ValueError``, as the JAX
+trainer fails on it.  An ``*_fpn`` backbone trains with its BatchNorm on
+the running statistics, which train as parameters (the JAX package's
+leaves).  ``exp.gpus > 1`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,14 +62,26 @@ def coarse_losses(conf, conf_gt, im_n, pt_n, clamp: bool):
             compute_feat_l2(im_n, pt_n, conf_gt))
 
 
-def coarse_features(model, image, pt_feat, pt3d, im_mask, pt_mask):
+STACKED_MULTIPAIR = (
+    "multi-pair training takes the merged layout, points (B, N, .): the "
+    "stacked layout's (B, K, N, .) points do not reach the dual softmax (the "
+    "JAX trainer fails there too); set data.sample_mode: rand and "
+    "data.sample_pts")
+
+
+def coarse_features(model, image, pt_feat, pt3d, im_mask, pt_mask,
+                    generator=None, rand_feat=None):
     """Shared head of both loss bodies -> (conf, im_n, pt_n, im_cfeat,
-    pt_cfeat, fine map or None)."""
+    pt_cfeat, fine map or None).  ``generator`` / ``rand_feat``: the
+    ``pt_ftype='rand'`` descriptors' draw (``extract_pt_feat``)."""
+    if pt3d.dim() != 3:
+        raise ValueError(STACKED_MULTIPAIR)
     if isinstance(model, NeRFMatcherMS):
         im_cfeat, fmap_f = model.extract_im_feat_ms(image)
     else:
         im_cfeat, fmap_f = model.extract_im_feat(image), None
-    pt_cfeat = model.extract_pt_feat(pt_feat, pt3d)
+    pt_cfeat = model.extract_pt_feat(pt_feat, pt3d, generator=generator,
+                                     rand_feat=rand_feat)
     im_cfeat, pt_cfeat = model.apply_coarse_former(im_cfeat, pt_cfeat)
     conf, im_n, pt_n = dual_softmax(im_cfeat, pt_cfeat, model.temperature,
                                     im_mask, pt_mask,
@@ -74,9 +90,10 @@ def coarse_features(model, image, pt_feat, pt3d, im_mask, pt_mask):
 
 
 class _TrainStep:
-    def __init__(self, model, opt):
+    def __init__(self, model, opt, generator: torch.Generator | None = None):
         self.model = model
         self.opt = opt
+        self.generator = generator
 
     def step(self, batch, **kw):
         """One optimizer step on a batch dict of device tensors ->
@@ -91,9 +108,12 @@ class _TrainStep:
 class CoarseTrainStep(_TrainStep):
     """Coarse matcher step: focal loss (no clamp) on the conf matrix."""
 
-    def losses(self, batch):
+    def losses(self, batch, rand_feat=None):
+        """-> (loss, metrics).  ``rand_feat``: injected ``pt_ftype='rand'``
+        descriptors (else drawn from the step's generator)."""
         conf, im_n, pt_n, *_ = coarse_features(
-            self.model, *(batch[k] for k in BATCH_KEYS[:5]))
+            self.model, *(batch[k] for k in BATCH_KEYS[:5]),
+            generator=self.generator, rand_feat=rand_feat)
         coarse_loss, feat_l2 = coarse_losses(conf, batch["conf_gt"], im_n,
                                              pt_n, clamp=False)
         return coarse_loss, {"coarse_loss": coarse_loss, "feat_l2": feat_l2,
@@ -129,17 +149,16 @@ class C2FTrainStep(_TrainStep):
     """Coarse-to-fine step: clamped focal loss plus the fine loss over the
     GT-padded match list."""
 
-    def __init__(self, model, opt, generator: torch.Generator | None = None):
-        super().__init__(model, opt)
-        self.generator = generator
-
     def losses(self, batch, coarse_only: bool = False, mlist=None,
-               draws=None):
+               draws=None, rand_feat=None):
         """-> (loss, metrics).  ``mlist``: an injected match list (dict of
-        b_ids, i_ids, j_ids, valid); ``draws``: injected GT-padding draws."""
+        b_ids, i_ids, j_ids, valid); ``draws``: injected GT-padding draws;
+        ``rand_feat``: injected ``pt_ftype='rand'`` descriptors.  The
+        generator draws the descriptors before the padding."""
         model, cfg = self.model, self.model.cfg
         conf, im_n, pt_n, im_cfeat, pt_cfeat, fmap_f = coarse_features(
-            model, *(batch[k] for k in BATCH_KEYS[:5]))
+            model, *(batch[k] for k in BATCH_KEYS[:5]),
+            generator=self.generator, rand_feat=rand_feat)
         conf_gt = batch["conf_gt"]
         coarse_loss, feat_l2 = coarse_losses(conf, conf_gt, im_n, pt_n,
                                              clamp=True)
@@ -254,18 +273,11 @@ def init_config_odir(config, coarse: bool):
 
 
 def check_matcher_config(config):
-    """Raise for matcher training configs the port does not implement."""
+    """Raise for matcher training configs the port does not implement:
+    ``exp.gpus > 1``."""
     if int(getattr(config.exp, "gpus", 0) or 0) > 1:
         raise NotImplementedError("multi-GPU matcher training is not ported "
-                                  "(ROADMAP: multi-GPU, item 18)")
-    if "_fpn" in str(getattr(config.model, "backbone", "")):
-        raise NotImplementedError("training an FPN backbone (train-mode "
-                                  "BatchNorm) is not ported (ROADMAP)")
-    if getattr(config.model, "pt_ftype", "nerf") == "rand":
-        raise NotImplementedError("pt_ftype='rand' is not ported (ROADMAP)")
-    if getattr(config.data, "dataset", "") == "NeRFMatchMultiPair":
-        raise NotImplementedError("multi-pair training is not ported "
-                                  "(ROADMAP: multi-pair matching)")
+                                  "(ROADMAP: Queue 1, item 10)")
 
 
 def build_matcher(config, coarse: bool, generator: torch.Generator):
@@ -393,8 +405,8 @@ def _train_matcher(config, coarse: bool, device="cuda"):
     opt = init_optimizer(config.optim, trainable_parameters(model))
     lr_sched = make_lr_schedule(config.optim)
     gen = torch.Generator(device).manual_seed(exp.seed)
-    stepper = CoarseTrainStep(model, opt) if coarse \
-        else C2FTrainStep(model, opt, generator=gen)
+    stepper = (CoarseTrainStep if coarse else C2FTrainStep)(model, opt,
+                                                            generator=gen)
     keys = BATCH_KEYS if coarse else C2F_KEYS
     workers = int(getattr(exp, "num_workers", 0) or 0)
     train_loader = init_data_loader(config.data, exp.batch_size, split="train",

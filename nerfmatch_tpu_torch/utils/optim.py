@@ -176,7 +176,8 @@ def trainable_parameters(module):
     """Parameters that train: frozen ones (``requires_grad=False``, the
     matchers' div temperature) stay out of the optimizer, so neither a step
     nor weight decay moves them (the JAX ``decay_mask`` plus the stopped
-    gradient)."""
+    gradient).  The FPN's BatchNorm running statistics are parameters and
+    train, as the JAX package's parameter leaves do."""
     return [p for p in module.parameters() if p.requires_grad]
 
 

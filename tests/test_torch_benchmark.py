@@ -196,8 +196,7 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
     'coarse'); ``--pair_topk 3`` and ``--pair_topk 3 --match_oracle`` run
     (their tag-named files), ``--match_oracle`` on single pairs of the test
     split raises the JAX evaluator's ValueError (no ``conf_gt``), and the
-    flags of protocols that are not ported raise instead of being
-    ignored."""
+    multi-GPU flag ``--point_shard`` raises instead of being ignored."""
     from nerfmatch_tpu_torch.eval import match_evaluator as tme
 
     seen = []
@@ -222,7 +221,7 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
         assert (res / f"toy_rth200test_colmap_itr2{tag}.npy").exists()
     with pytest.raises(ValueError, match="conf_gt"):
         tcli.main(base + ["--match_oracle"])
-    for flag in (["--visualize"], ["--point_shard"]):
+    for flag in (["--point_shard"],):
         with pytest.raises(NotImplementedError):
             tcli.main(base + flag)
 
@@ -269,6 +268,61 @@ def test_single_query_protocols_match_jax(bench, protocol):
         np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
         assert np.isfinite(a).all()
         np.testing.assert_allclose(a, b, atol=atol, err_msg=k)
+
+
+def test_visualize_matches_jax(bench, monkeypatch):
+    """``--inerf --inerf_optim 2 --visualize --eval_bs 2 --debug`` on both
+    packages (bs=1 whatever ``--eval_bs`` says): a GIF under
+    ``visualization/toy/`` for the same queries (those over 50 cm), named
+    ``<i>_t<cm>cm_R<deg>deg.gif``, each of two overlay frames (8, 8, 3)
+    within 2/255 of the JAX package's; the frames are compared as the
+    writers received them (PIL and imageio encode the GIFs differently).
+    The port's GIF reads back through PIL."""
+    import re
+
+    import imageio
+    from PIL import Image
+
+    from nerfmatch_tpu_torch.eval import match_evaluator as tme
+
+    frames = {"jax": {}, "port": {}}
+
+    def recorder(side, write):
+        def record(path, ims, *args, **kwargs):
+            frames[side][Path(path).name] = [np.asarray(f) for f in ims]
+            return write(path, ims, *args, **kwargs)
+        return record
+
+    monkeypatch.setattr(imageio, "mimwrite",
+                        recorder("jax", imageio.mimwrite))
+    monkeypatch.setattr(tme, "write_gif", recorder("port", tme.write_gif))
+    flags = ["--inerf", "--inerf_optim", "2", "--visualize", "--eval_bs",
+             "2", "--debug", "--mutual", "--rthres", "200", "--cache_tag",
+             "vis"]
+    jcli.benchmark(jcli.build_parser().parse_args(
+        ["--ckpts", str(bench["ckpts"]["jax"]), "--nerf_path",
+         str(bench["nerf"]["jax"]), *flags]))
+    tcli.main(["--ckpts", str(bench["ckpts"]["port"]), "--nerf_path",
+               str(bench["nerf"]["port"]), "--device", "cpu", *flags])
+    name = re.compile(r"^(\d+)_t\d+\.\dcm_R\d+\.\ddeg\.gif$")
+    by_query = {}
+    for side in ("jax", "port"):
+        assert all(name.match(n) for n in frames[side]), frames[side]
+        by_query[side] = {int(n.split("_")[0]): f
+                          for n, f in frames[side].items()}
+        gifs = list((bench["root"] / side).rglob("visualization/toy/*.gif"))
+        assert sorted(p.name for p in gifs) == sorted(frames[side])
+    assert set(by_query["port"]) == set(by_query["jax"])
+    assert by_query["port"] and max(by_query["port"]) <= 5
+    for i, ref in by_query["jax"].items():
+        ours = by_query["port"][i]
+        assert len(ours) == len(ref) == 2
+        for a, b in zip(ours, ref):
+            assert a.dtype == np.uint8 and a.shape == b.shape == (8, 8, 3)
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 2, i
+    gif = next((bench["root"] / "port").rglob("visualization/toy/*.gif"))
+    with Image.open(gif) as im:
+        assert im.size == (8, 8) and 1 <= im.n_frames <= 2
 
 
 def test_parse_nerf_stop_layer_and_device_default(bench, monkeypatch):

@@ -292,13 +292,34 @@ def test_inerf_refinement_matches_jax(pair, eval_pose):
         assert (r_err, t_err) != (r0, t0)
 
 
+def test_inerf_overlay_frames_match_jax(pair):
+    """``overlay_ims``: one frame a step, each the step's render blended over
+    the downsampled query as uint8 (16, 16, 3) at ds 2, within 2/255 of the
+    JAX package's frames."""
+    c = conf(num_optim=3)
+    start = perturbed(C2W_GT)
+    ref, ours = [], []
+    jinerf.inerf_refinement(pair["jev"], pair["batch"], pair["jr"],
+                            pair["params"], UNNORM, start, c,
+                            overlay_ims=ref)
+    with torch.no_grad():
+        inerf.inerf_refinement(pair["tev"], pair["batch"], pair["tr"],
+                               UNNORM, start, c, overlay_ims=ours)
+    assert len(ours) == len(ref) == 3
+    for a, b in zip(ours, ref):
+        assert a.dtype == b.dtype == np.uint8
+        assert a.shape == b.shape == (SIZE // 2, SIZE // 2, 3)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 2
+    assert any(not np.array_equal(ours[0], f) for f in ours[1:])
+
+
 def test_step_moves_the_pose_under_no_grad(pair):
     """A step under an outer ``torch.no_grad()`` still takes its gradient:
     the delta moves and every rendered output is finite."""
     q = inerf.InerfQuery(pair["tev"], pair["batch"], pair["tr"], UNNORM,
                          perturbed(C2W_GT), conf())
     with torch.no_grad():
-        loss, pts, feats = q.step(0)
+        loss, pts, feats, rgb = q.step(0)
     assert np.isfinite(loss)
-    assert all(bool(torch.isfinite(x).all()) for x in (pts, feats))
+    assert all(bool(torch.isfinite(x).all()) for x in (pts, feats, rgb))
     assert float(q.delta.detach().abs().max()) > 0.5 * q.lrate

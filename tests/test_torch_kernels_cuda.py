@@ -1076,6 +1076,34 @@ def test_attention_bwd_kernel_matches_plain(dev, bf16, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L,S", [(3600, 14400), (14400, 14400)])
+def test_attention_backward_merged_matches_plain(dev, L, S):
+    """The bf16 backward at merged multi-pair training's shapes (B = 2, H =
+    8: the image's queries over 14,400 points, and the points' self
+    attention), as the training path calls it (the forward's ``out`` and
+    ``lse`` handed over), against the plain backward taken a head at a time
+    (its logits of all heads would not fit): 1e-2 of each output's largest
+    value and cosine > 0.999; a rerun is bit-identical."""
+    q, k, v, up = attn_inputs(dev, (2, L, S, 8))
+    with torch.no_grad():
+        qo, ko, vo = attention_kernel._operands((q, k, v), True)
+        out, lse, _ = attention_kernel._forward_kernel(qo, ko, vo, True, True)
+        got = attention_bwd(qo, ko, vo, up, True, out=out, lse=lse)
+        again = attention_bwd(qo, ko, vo, up, True, out=out, lse=lse)
+        ref = [torch.empty_like(a) for a in got]
+        for h in range(q.shape[2]):
+            one = attention_bwd_plain(*(x[:, :, h:h + 1] for x in (q, k, v, up)),
+                                      True)
+            for r, o in zip(ref, one):
+                r[:, :, h:h + 1] = o
+            del one
+    for a, a2, r in zip(got, again, ref):
+        assert torch.equal(a, a2) and torch.isfinite(a).all()
+        cos = float((a * r).sum()) / float(a.norm() * r.norm())
+        assert scaled_err(a, r) < 1e-2 and cos > 0.999, (scaled_err(a, r), cos)
+
+
+@pytest.mark.cuda
 def test_attention_forward_skips_lse_without_a_gradient(dev):
     """Under ``no_grad`` (serving) the autograd Function saves nothing and
     asks the kernel for no ``lse``; with a gradient it saves the bf16

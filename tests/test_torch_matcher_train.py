@@ -393,6 +393,138 @@ def test_c2f_loss_and_grads_match_jax(fine_loss, coarse_only):
             (k, float((g - ref).abs().max()) / scale, cos)
 
 
+# A learning rate this large keeps each delta's f32 rounding (an ulp of the
+# weight it lands on) far below the gradient's own size.
+LR = 1e3
+
+
+def assert_deltas_match(model, before, params, new_params, **kw):
+    """The port's parameter deltas of one step against the JAX step's: each
+    within 1e-4 of the leaf's largest JAX delta with cosine > 0.9999; a
+    leaf whose JAX delta lies below 1e-5 of the largest delta of the model
+    (zero in exact arithmetic) below that floor in the port too -> the
+    port's deltas by name."""
+    b, a = flat_params(params), flat_params(new_params)
+    want = state_dict_from_jax({k: a[k] - b[k] for k in b}, **kw)
+    got = {k: p.detach() - before[k] for k, p in model.named_parameters()}
+    assert set(got) <= set(want)
+    floor = 1e-5 * max(float(v.abs().max()) for v in want.values())
+    for k, ref in want.items():
+        d = got.get(k, torch.zeros_like(ref))
+        scale = float(ref.abs().max())
+        if scale <= floor:
+            assert float(d.abs().max()) <= floor, k
+            continue
+        cos = float((d * ref).sum()) / float(d.norm() * ref.norm())
+        assert float((d - ref).abs().max()) <= 1e-4 * scale and cos > 0.9999, \
+            (k, float((d - ref).abs().max()) / scale, cos)
+    return got
+
+
+def jax_c2f_step(jm, params, batch, seed=5):
+    """One JAX ``C2FTrainStep`` (SGD at ``LR``, XLA attention) on a numpy
+    batch -> (new params, metrics, the match list the step padded, as
+    torch tensors: its own functions on the same key, jitted as the step
+    is)."""
+    import optax
+
+    from nerfmatch_tpu.train.matcher_trainer import C2FTrainStep as JStep
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(seed)
+    k_rand, k_pad = jax.random.split(key)
+
+    @jax.jit
+    def mlist(p):
+        im_cfeat, _ = jm.extract_im_feat_ms(p, jb["image"])
+        pt_cfeat = jm.extract_pt_feat(p, jb["pt_feat"], jb["pt3d"],
+                                      key=k_rand)
+        im_cfeat, pt_cfeat = jm.apply_coarse_former(p, im_cfeat, pt_cfeat)
+        conf = jmatch.dual_softmax(im_cfeat, pt_cfeat, jm.temperature(p),
+                                   jb["im_mask"], jb["pt_mask"],
+                                   temp_type=jm.cfg.temp_type)[0]
+        return jmatch.pad_matches_with_gt(
+            k_pad, jmatch.extract_mutual_matches(conf, mutual=False,
+                                                 threshold=0.0),
+            jb["conf_gt"], coarse_percent=jm.cfg.coarse_percent,
+            train_percent=0.3)
+
+    lists = {k: torch.from_numpy(np.array(v)) for k, v in mlist(params).items()}
+    opt = optax.sgd(LR)
+    p2, _, metrics = JStep(jm, opt, fused_attention=False).step(
+        params, opt.init(params),
+        *(jb[k] for k in ("image", "pt_feat", "pt3d", "im_mask", "pt_mask",
+                          "conf_gt", "pt2d", "pt2d_proj")),
+        key, jnp.asarray(False))
+    return p2, metrics, lists
+
+
+def test_fpn_c2f_step_matches_jax(tmp_path):
+    """An ``*_fpn`` backbone trains as the JAX trainer trains it: BatchNorm
+    on its running statistics, all four BN entries parameters.  One
+    C2FTrainStep of each package from non-trivial BN statistics: the loss
+    and every parameter delta, the four BN leaves' among them (each moved);
+    the trained entries export under the reference's key names
+    (``export_torch_state_dict``) and a reference checkpoint of them, with
+    BatchNorm's ``num_batches_tracked``, loads strictly."""
+    from nerfmatch_tpu.models.matcher_c2f import C2FMatcherConfig as JCfg
+    from nerfmatch_tpu.models.matcher_c2f import NeRFMatcherMS as JMS
+    from nerfmatch_tpu.train.checkpoint import export_torch_state_dict
+
+    from nerfmatch_tpu_torch.models.matcher_c2f import (C2FMatcherConfig,
+                                                        NeRFMatcherMS)
+    from nerfmatch_tpu_torch.train.checkpoint import load_reference_checkpoint
+    from nerfmatch_tpu_torch.train.matcher_trainer import C2FTrainStep
+    from nerfmatch_tpu_torch.utils.optim import trainable_parameters
+
+    cfg = dict(TINY, backbone="tiny_fpn", fine_loss="match")
+    jm = JMS(JCfg(**cfg))
+    params = jm.init_params(jax.random.PRNGKey(3))
+    rng = np.random.default_rng(4)
+    bn = params["backbone"]["fpn"]["layer1_outconv2"]["bn"]
+    for k, (lo, hi) in {"weight": (0.5, 1.5), "bias": (-0.2, 0.2),
+                        "running_mean": (-0.3, 0.3),
+                        "running_var": (0.5, 2.0)}.items():
+        bn[k] = jnp.asarray(rng.uniform(lo, hi, bn[k].shape), jnp.float32)
+    batch = c2f_batch()
+    p2, jmetr, mlist = jax_c2f_step(jm, params, batch)
+
+    tm = NeRFMatcherMS(C2FMatcherConfig(**cfg))
+    tm.load_state_dict(state_dict_from_jax(flat_params(params),
+                                           backbone_extra="model."),
+                       strict=True)
+    names = [f"backbone.layer1_outconv2.1.{k}"
+             for k in ("weight", "bias", "running_mean", "running_var")]
+    trainable = {id(p) for p in trainable_parameters(tm)}
+    params_t = dict(tm.named_parameters())
+    assert all(id(params_t[n]) in trainable for n in names)
+    before = {k: v.detach().clone() for k, v in tm.named_parameters()}
+    step = C2FTrainStep(tm, torch.optim.SGD(trainable_parameters(tm), lr=LR,
+                                            momentum=0.0))
+    metr = step.step({k: t(v) for k, v in batch.items()}, mlist=mlist)
+    np.testing.assert_allclose(float(metr["loss"]), float(jmetr["loss"]),
+                               rtol=1e-5)
+    got = assert_deltas_match(tm, before, params, p2, backbone_extra="model.")
+    assert all(float(got[n].abs().max()) > 0 for n in names)
+
+    ref = export_torch_state_dict(p2, prefix="model.", backbone_extra="model.")
+    ours = tm.state_dict()
+    for n in names:
+        np.testing.assert_allclose(ours[n].numpy(), ref["model." + n],
+                                   rtol=0, atol=1e-4 * float(
+                                       np.abs(ref["model." + n]).max()))
+    state = {k: torch.as_tensor(v) for k, v in ref.items()}
+    state["model.backbone.layer1_outconv2.1.num_batches_tracked"] = \
+        torch.tensor(7)
+    torch.save({"state_dict": state}, tmp_path / "fpn.ckpt")
+    loaded = NeRFMatcherMS(C2FMatcherConfig(**cfg))
+    loaded.load_state_dict(load_reference_checkpoint(tmp_path / "fpn.ckpt")[0],
+                           strict=True)
+    for n in names:
+        assert torch.equal(loaded.state_dict()[n],
+                           torch.as_tensor(ref["model." + n])), n
+
+
 def coarse_model_pair(temp_type="mul"):
     from nerfmatch_tpu.models.matcher_coarse import CoarseMatcherConfig as JCfg
     from nerfmatch_tpu.models.matcher_coarse import NeRFMatcherCoarse as JC

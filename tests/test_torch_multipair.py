@@ -57,18 +57,20 @@ def data_config(root, **kw):
                      balanced_pair=False, **kw)
 
 
+@pytest.mark.parametrize("split", ["test", "train"])
 @pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_multipair_samples_match_jax(bench, layout):
-    """Every query's sample (test split) under one ``np.random`` (and
-    ``random``) seed: the
-    same keys and arrays as the JAX dataset's (points stacked (2, 64, .) or
-    merged to 48, the GT conf matrix over all of them, the projected
-    points), and a pair file entry per query; a pair axis of 3 cycles the
-    2 refs."""
+def test_multipair_samples_match_jax(bench, layout, split):
+    """Every query's sample under one ``np.random`` (and ``random``) seed:
+    the same keys and arrays as the JAX dataset's (points stacked (2, 64, .)
+    or merged to 48, the GT conf matrix over all of them, the projected
+    points), and a pair file entry per query; on the test split a pair axis
+    of 3 cycles the 2 refs, on the train split (the query's own points
+    added) the refs are drawn with replacement from ``np.random``."""
     cfg = data_config(bench["root"], **LAYOUTS[layout])
-    ours, ref = tdata.NeRFMatchMultiPair(cfg, "test"), \
-        jdata.NeRFMatchMultiPair(cfg, "test")
-    assert len(ours) == len(ref) == 12
+    ours, ref = tdata.NeRFMatchMultiPair(cfg, split), \
+        jdata.NeRFMatchMultiPair(cfg, split)
+    # The train split leaves one query to the val split.
+    assert len(ours) == len(ref) == {"test": 12, "train": 11}[split]
     assert ours.pair_ids == ref.pair_ids
     for side in (ours, ref):
         np.random.seed(0)
@@ -87,7 +89,8 @@ def test_multipair_samples_match_jax(bench, layout):
         assert a["conf_gt"].shape == (64, n)
         assert a["pt3d"].shape == ((48, 3) if layout == "merged"
                                    else (2, 64, 3))
-    if layout == "stacked":
+        assert ("qpt3d" in a) == (split == "train")
+    if layout == "stacked" and split == "test":
         cfg.pair_topk = 3
         s = tdata.NeRFMatchMultiPair(cfg, "test")[0]
         assert s["pt3d"].shape == (3, 64, 3)
