@@ -172,7 +172,28 @@ Phases (each prints its results; any failure exits non-zero):
    --visualize --eval_bs 2 --debug`` (a GIF of ``inerf_optim`` overlay
    frames for each of the 6 queries over 50 cm), each with its tag-named
    file of one row a query and the kernels its path launches (the attention
-   launches by key count: the merged run's at S = 14,400).
+   launches by key count: the merged run's at S = 14,400);
+8. the NeRF variants the kernels do not cover, and multi-scene training, at
+   the 7-Scenes config's full width: (8a) the config with
+   ``embedding.type: normal`` and ``render.use_viewdirs: False`` (the
+   classic NeRF, rendered by no kernel in either package) through
+   ``cli.train_nerf --debug`` (20 steps) and its resume, 10 timed steps
+   (ms, peak memory; the loss falls) and ``cli.eval_nerf``'s PSNR mode on
+   2 frames, with the logged route ``plain`` and kernels 1, 1b, 2, 5 and 6
+   at 0 launches over the whole part; (8b) the mip config with
+   ``data.out_scr: True``: the CLI (the plain route, kernels 5 and 6 at 0)
+   and its resume, 10 timed steps, ``scr_fine`` finite, then the
+   checkpoint's scene points cached at the serving default through kernels
+   1b, 2 and 1, within 5e-3 of the same weights' without the head, each
+   cache timed; (8c) in phase 6's scene dir, a second room scene at other
+   poses beside the first and ``data.scenes: [room_a, room_b]``:
+   ``cli.train_nerfmatch --stage c2f --debug`` and its resume, 10 timed
+   c2f steps at batch 2 on batches of one sample of each scene (ms, peak
+   memory; the launches a step of kernels 3, 4 and 7-9 equal to phase 6's
+   step), 2 steps on a ``data.datasets`` mixed config of the two, and
+   ``benchmark_nerfmatch --iters 2`` with the CLI's checkpoint over both
+   scenes (two queries each); (8d) the kernel summary's rows of kernels 1,
+   1b, 2, 3, 4 and 7-9 carry phase 8's launches (``launches_phase8``).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -2197,17 +2218,19 @@ def sdpa_backward(q, k, v, up):
                                                    retain_graph=True))
 
 
-def write_room_scene(renderer, dev, root, n_frames=24, size=480):
-    """The room NeRF's renders on its camera circle, in the dataset's layout:
-    <root>/room/seq-01/frame-XXX.color.png + transforms_{train,test}.json."""
+def write_room_scene(renderer, dev, root, n_frames=24, size=480,
+                     name="room", offset=0.0):
+    """The room NeRF's renders on its camera circle (frame i at angle
+    2 pi (i + offset) / n_frames), in the dataset's layout:
+    <root>/<name>/seq-01/frame-XXX.color.png + transforms_{train,test}.json."""
     from PIL import Image
 
-    scene = root / "room"
+    scene = root / name
     (scene / "seq-01").mkdir(parents=True)
     frames = []
     with torch.no_grad():
         for i in range(n_frames):
-            c2w = room_c2w(2 * np.pi * i / n_frames)
+            c2w = room_c2w(2 * np.pi * (i + offset) / n_frames)
             rgb = renderer.fused_predict(camera_rays(c2w, size, dev))["rgb_fine"]
             img = rgb.reshape(size, size, 3).clamp(0, 1).cpu().numpy()
             name = f"seq-01/frame-{i:03d}.color.png"
@@ -2716,25 +2739,13 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     The dataset's fst normalization is set to the identity (its
     ``rescale_factor``) so the NeRF renders the scene points in the frame it
     was trained in, the frame of the images and poses."""
-    import copy
-
     from nerfmatch_tpu_torch.config import namespace2dict
     from nerfmatch_tpu_torch.eval.nerf_evaluator import NerfEvaluator
-    from nerfmatch_tpu_torch.nerf.scene import compute_scene_normalization_fst
     from nerfmatch_tpu_torch.train.checkpoint import save_checkpoint
 
     write_room_scene(renderer, dev, root, n_frames, size)
     anno = root / "room" / "transforms_train.json"
-    scale = float(compute_scene_normalization_fst(anno, 1.0, 1.0)[0, 0])
-    cfg = copy.deepcopy(nerf_cfg)
-    cfg.data.data_dir = str(root)
-    cfg.data.scene = "room"
-    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
-    cfg.data.img_wh = [size, size]
-    cfg.data.max_frustum_depth = 1.0
-    cfg.data.rescale_factor = scale
-    cfg.data.downsample = cfg.downsample = 8
-    cfg.split = "test"                                    # every frame
+    cfg = match_scene_config(nerf_cfg, root, "room", size)
     cache = NerfEvaluator(cfg, renderer).cache_scene_pts(
         cache_dir=root / "inter_layer3" / "room")
     log(f"scene-point cache served at trunk_int8="
@@ -2749,6 +2760,28 @@ def write_match_scene(renderer, nerf_cfg, dev, root, n_frames=24, size=480):
     nerf_ckpt = save_checkpoint(root / "nerf" / "checkpoints", 1, renderer,
                                 config=namespace2dict(cfg), name="last")
     return cache, pairs, nerf_ckpt, cache_max(renderer, cfg, root, cache)
+
+
+def match_scene_config(nerf_cfg, root, scene, size=480):
+    """The NeRF config that caches a room scene's points (``<root>/<scene>``)
+    on the ds-8 grid of every frame, with the dataset's fst normalization
+    at the identity (its ``rescale_factor``)."""
+    import copy
+
+    from nerfmatch_tpu_torch.nerf.scene import compute_scene_normalization_fst
+
+    anno = root / scene / "transforms_train.json"
+    scale = float(compute_scene_normalization_fst(anno, 1.0, 1.0)[0, 0])
+    cfg = copy.deepcopy(nerf_cfg)
+    cfg.data.data_dir = str(root)
+    cfg.data.scene = scene
+    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+    cfg.data.img_wh = [size, size]
+    cfg.data.max_frustum_depth = 1.0
+    cfg.data.rescale_factor = scale
+    cfg.data.downsample = cfg.downsample = 8
+    cfg.split = "test"                                    # every frame
+    return cfg
 
 
 def cache_max(renderer, cfg, root, lin_dir):
@@ -2809,8 +2842,9 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
     """Train the c2f matcher on the room scene through the CLI (debug,
     resume), time the CLI's step with and without the loader's prefetch,
     take coarse and timed c2f steps, localize with the checkpoint, then run
-    phase 7 on the checkpoint before the scene is removed -> (launch counts
-    of the timed c2f steps, of the benchmark)."""
+    phase 7 on the checkpoint and phase 8c beside the scene before it is
+    removed -> (launch counts of the timed c2f steps, of the benchmark,
+    phase 6's merged multi-pair numbers, phase 8c's)."""
     import copy
     import tempfile
 
@@ -3094,9 +3128,14 @@ def phase_matcher_training(renderer, nerf_cfg, dev, seed, size=480,
         del evaluator
         torch.cuda.empty_cache()
         bench = phase_benchmark(ckpt, nerf_ckpt, maxc)
+        torch.cuda.empty_cache()
+        multiscene = phase_multiscene_training(
+            renderer, nerf_cfg, config, root, dev, seed, nerf_ckpt,
+            {k: launches[k] / (timed_steps + 3) for k in MATCH_KERNELS},
+            size)
     bench["render_fine_int8_max"] = maxc["launches"]["posttap"][
         "render_fine_int8_max"]
-    return launches, bench, multipair
+    return launches, bench, multipair, multiscene
 
 
 class AttentionShapes:
@@ -3440,6 +3479,360 @@ def bench_protocol(ckpt, nerf_ckpt, maxc, metrics, raw, tag, kernels, gifs):
     return dict(LAUNCHES, attention_s=keys.get(MERGED_S, 0))
 
 
+# Kernels 1, 1b, 2, 5 and 6: every render stage (eval and train, each
+# branch) and the resample.  Phase 8a must launch none of them.
+NERF_KERNEL_PREFIXES = ("render_", "resample")
+
+
+def nerf_launches():
+    """The launch counts of kernels 1, 1b, 2, 5 and 6 that moved."""
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES
+
+    return {k: v for k, v in LAUNCHES.items()
+            if v and k.startswith(NERF_KERNEL_PREFIXES)}
+
+
+def variant_nerf_config(root, name, edits):
+    """``configs/nerf/nerf_7scenes_mip_sfm.yaml`` on phase 5's room scene
+    (data paths, output dir and 2 epochs: 20 debug steps) with ``edits``
+    ((dotted key, value) pairs, each logged) -> config."""
+    from nerfmatch_tpu_torch.config import load_yaml_config
+
+    cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
+    cfg.data.data_dir = str(root)
+    cfg.data.scene = "room"
+    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+    cfg.exp.odir = str(root / f"out_{name}")
+    cfg.exp.max_epochs = 2
+    for key, value in edits:
+        sec, attr = key.split(".")
+        log(f"  {name} config: {key}: "
+            f"{getattr(getattr(cfg, sec), attr, None)!r} -> {value!r}")
+        setattr(getattr(cfg, sec), attr, value)
+    return cfg
+
+
+def variant_cli(cfg, root, name):
+    """``cli.train_nerf --debug`` on ``cfg`` (2 epochs of 10 steps) and its
+    resume -> (the last checkpoint, the logged route, seconds of the first
+    run)."""
+    from nerfmatch_tpu_torch.config import save_config
+    from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.nerf_trainer import init_config_odir
+
+    path = root / f"{name}.yaml"
+    save_config(path, cfg)
+    t0 = time.perf_counter()
+    out_cfg, r1 = train_cli(["--config", str(path), "--debug"])
+    secs = time.perf_counter() - t0
+    w1 = r1.nerf_fine.pts_linears[0].weight.detach().clone()
+    del r1
+    _, r2 = train_cli(["--config", str(path), "--debug"])
+    assert torch.equal(r2.nerf_fine.pts_linears[0].weight, w1), "resume"
+    del r2
+    run_dir = init_config_odir(out_cfg)
+    ckpt = latest_checkpoint(run_dir / "checkpoints", name="last")
+    assert ckpt is not None and ckpt.name == "last_2", ckpt
+    return ckpt, (run_dir / "route.txt").read_text(), secs
+
+
+def variant_steps(cfg, dev, seed, steps=10):
+    """``steps`` timed ``NerfTrainer`` steps of 9216 rays (after 2 untimed)
+    from a fresh initialization; the loss must fall -> (trainer, ms a step,
+    peak GiB, losses, the first batch's rays)."""
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
+
+    trainer = NerfTrainer(cfg, device=dev, seed=seed)
+    assert trainer.route == "plain", trainer.route
+    ds = init_data_loader(cfg.data, split="train").dataset
+    batches = ds.ray_batches(cfg.exp.batch_size, np.random.default_rng(seed))
+    data = [tuple(torch.as_tensor(b[k], device=dev) for k in ("rays", "rgbs"))
+            for b in (next(batches) for _ in range(steps + 2))]
+    gen = torch.Generator(dev).manual_seed(seed)
+    hist = [trainer.train_step(*data[i], gen) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist += [trainer.train_step(*data[i], gen) for i in range(2, steps + 2)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = [float(m["loss"]) for m in hist]
+    assert np.isfinite(loss).all(), loss
+    assert np.mean(loss[-3:]) < np.mean(loss[:3]), loss
+    return trainer, ms, peak, loss, data[0][0]
+
+
+def phase_nerf_variants(dev, seed, root, n_psnr=2):
+    """Phase 8a and 8b on phase 5's room scene (under ``root``) at the
+    7-Scenes config's full width.
+
+    8a: the config with ``embedding.type: normal`` and ``render.use_viewdirs:
+    False`` (the classic NeRF, which no kernel renders in either package):
+    ``cli.train_nerf --debug`` (20 steps) and its resume, 10 timed steps
+    (ms, peak memory; the loss falls), ``cli.eval_nerf``'s PSNR mode on
+    ``n_psnr`` frames; the logged route is ``plain`` and kernels 1, 1b, 2,
+    5 and 6 launch 0 times over the whole part.
+
+    8b: the mip config with ``data.out_scr: True``: the CLI (20 steps, the
+    plain route: kernels 5 and 6 at 0) and its resume, 10 timed steps,
+    ``scr_fine`` finite; the CLI checkpoint's scene points cached at the
+    serving default (``'coarse'``: kernels 1b, 2, 1) and again from the
+    same weights without the head, on the same route: pt3d and pt_feat
+    within 5e-3 -> dict of the phase's numbers and the cache's launches."""
+    import copy
+
+    from nerfmatch_tpu_torch.cli import eval_nerf
+    from nerfmatch_tpu_torch.eval.nerf_evaluator import (NerfEvaluator,
+                                                         load_renderer)
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+
+    out = {}
+    # 8a: the classic NeRF without viewdirs.
+    cfg = variant_nerf_config(root, "classic", (
+        ("embedding.type", "normal"), ("render.use_viewdirs", False)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ckpt, route, cli_s = variant_cli(cfg, root, "classic")
+    trainer, ms, peak, loss, _ = variant_steps(cfg, dev, seed)
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = eval_nerf.main(["--ckpt", str(ckpt), "--split", "test", "--img_wh",
+                          "480", "480", "--downsample", "1", "--nums",
+                          str(n_psnr), "--cache_dir", str(root / "psnr_8a")])
+    torch.cuda.synchronize()
+    psnr_s = (time.perf_counter() - t0) / n_psnr
+    launched = nerf_launches()
+    log(f"8a classic NeRF (Fourier 15/4, no viewdirs, 128 + 256 samples): "
+        f"cli --debug 20 steps + validation in {cli_s:.1f} s, route "
+        f"{route!r}, resumed ({ckpt.name}); {ms:.1f} ms/step over 10 steps "
+        f"of {cfg.exp.batch_size} rays, peak {peak:.2f} GiB, loss "
+        f"{loss[0]:.4f} -> {np.mean(loss[-3:]):.4f}; eval_nerf PSNR "
+        f"{[round(v, 3) for v in res['psnr']]} dB, {psnr_s:.2f} s an image "
+        f"(480x480); kernels 1, 1b, 2, 5, 6 launched {json.dumps(launched)}")
+    assert route == "plain", route
+    assert not launched, f"the classic NeRF launched {launched}"
+    assert len(res["psnr"]) == n_psnr and np.isfinite(res["psnr"]).all()
+    out["8a"] = dict(ms_per_step=ms, peak_gib=peak, psnr_s=psnr_s)
+    torch.cuda.empty_cache()
+
+    # 8b: the scene-coordinate head.
+    cfg = variant_nerf_config(root, "out_scr", (("data.out_scr", True),))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ckpt, route, cli_s = variant_cli(cfg, root, "out_scr")
+    trainer, ms, peak, loss, rays = variant_steps(cfg, dev, seed)
+    with torch.no_grad():
+        scr = trainer.render_train(rays, torch.Generator(dev).manual_seed(
+            seed))["scr_fine"]
+    train_launched = nerf_launches()
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"8b out_scr NeRF (mip, the head {cfg.fine_nerf.hid_dim}-"
+        f"{cfg.fine_nerf.hid_dim // 2}-3): cli --debug 20 steps + validation "
+        f"in {cli_s:.1f} s, route {route!r}; {ms:.1f} ms/step over 10 steps, "
+        f"peak {peak:.2f} GiB, loss {loss[0]:.4f} -> {np.mean(loss[-3:]):.4f};"
+        f" scr_fine {tuple(scr.shape)} finite {bool(torch.isfinite(scr).all())}"
+        f"; kernels launched in training {json.dumps(train_launched)}")
+    assert route == "plain", route
+    assert not any(k.startswith("render_train") for k in train_launched), \
+        train_launched
+    assert scr.shape == (cfg.exp.batch_size, 3) and torch.isfinite(scr).all()
+    out["8b"] = dict(ms_per_step=ms, peak_gib=peak)
+
+    ccfg = match_scene_config(cfg, root, "room")
+    head, _ = load_renderer(ckpt, stop_layer=3)
+    head = head.to(dev).eval()
+    assert head.cfg.out_scr and head.fused_eval_supported
+    hcfg = copy.deepcopy(ccfg)
+    hcfg.data.out_scr = False
+    bare = NerfRenderer(hcfg, stop_layer=3)
+    bare.load_state_dict({k: v for k, v in head.state_dict().items()
+                          if "pnt_block" not in k}, strict=True)
+    bare = bare.to(dev).eval()
+    caches, secs, launches = {}, {}, {}
+    for name, r, c in (("head", head, ccfg), ("bare", bare, hcfg)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        caches[name] = NerfEvaluator(c, r).cache_scene_pts(
+            cache_dir=root / f"scr_cache_{name}")
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in LAUNCHES.items() if v}
+    n = len(list(caches["head"].glob("*.npy")))
+    err = {"pt3d": 0.0, "pt_feat": 0.0}
+    for f in sorted(caches["head"].glob("*.npy")):
+        a, b = (np.load(caches[k] / f.name, allow_pickle=True).item()
+                for k in ("head", "bare"))
+        for k in err:
+            err[k] = max(err[k], float(np.abs(a[k] - b[k]).max()))
+    log(f"8b scene points of the out_scr checkpoint at trunk_int8="
+        f"{head.cfg.trunk_int8!r}: {n} frames in {secs['head']:.2f} s, "
+        f"launches {json.dumps(launches['head'])}; the head-less weights "
+        f"{secs['bare']:.2f} s, launches {json.dumps(launches['bare'])}; "
+        f"largest difference pt3d {err['pt3d']:.3e}, pt_feat "
+        f"{err['pt_feat']:.3e} (tolerance 5e-3)")
+    for k in ("render_coarse_int8", "resample", "render_fine"):
+        assert launches["head"].get(k) == n, (k, launches["head"])
+    assert launches["head"] == launches["bare"]
+    assert max(err.values()) < 5e-3, err
+    out["8b"].update(cache_s=secs["head"], cache_bare_s=secs["bare"],
+                     launches=launches["head"], err=err)
+    return out
+
+
+def phase_multiscene_training(renderer, nerf_cfg, config, root, dev, seed,
+                              nerf_ckpt, phase6_per_step, size=480, steps=10):
+    """Phase 8c, in phase 6's scene dir: a second room scene at other poses
+    (the camera circle turned by half a frame) and its scene points, beside
+    phase 6's (``room_a``); the c2f config with ``data.scenes: [room_a,
+    room_b]``: ``cli.train_nerfmatch --stage c2f --debug`` (one epoch) and
+    its resume; ``steps`` timed ``C2FTrainStep`` steps at batch 2 on
+    batches of one sample of each scene (ms, peak memory; the launches a
+    step of kernels 3, 4, 7, 8, 9 equal to phase 6's ``phase6_per_step``);
+    2 steps on a ``data.datasets`` mixed config of the two; the CLI's
+    checkpoint localizes one query of each scene through
+    ``benchmark_nerfmatch``'s per-scene loop (``--iters 2``) -> dict."""
+    import copy
+    import os
+
+    from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import main as bench_cli
+    from nerfmatch_tpu_torch.cli.train_nerfmatch import main as train_cli
+    from nerfmatch_tpu_torch.config import dict2namespace, save_config
+    from nerfmatch_tpu_torch.data.loaders import (_collate, init_data_loader,
+                                                  init_multiscene_dataset)
+    from nerfmatch_tpu_torch.eval.nerf_evaluator import NerfEvaluator
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.matcher_trainer import (
+        C2F_KEYS, C2FTrainStep, build_matcher, init_config_odir, to_device)
+    from nerfmatch_tpu_torch.utils.optim import (config_adaptive_lr,
+                                                 init_optimizer,
+                                                 trainable_parameters)
+
+    t0 = time.perf_counter()
+    write_room_scene(renderer, dev, root, 24, size, name="room_b", offset=0.5)
+    NerfEvaluator(match_scene_config(nerf_cfg, root, "room_b", size),
+                  renderer).cache_scene_pts(
+        cache_dir=root / "inter_layer3" / "room_b")
+    os.symlink(root / "room", root / "room_a", target_is_directory=True)
+    os.symlink(root / "inter_layer3" / "room",
+               root / "inter_layer3" / "room_a", target_is_directory=True)
+    log(f"8c second scene room_b (24 frames at other poses) and its scene "
+        f"points in {time.perf_counter() - t0:.1f} s")
+
+    cfg = config("nerfmatch_7scenes_sfm_c2f.yaml")
+    for key, value in (
+            ("data.scenes", ["room_a", "room_b"]),
+            ("data.scene_dir", str(root / "inter_layer3" / "#scene" /
+                                   "ds8lin")),
+            ("exp.max_epochs", 1), ("exp.resume_version", "multiscene")):
+        sec, attr = key.split(".")
+        log(f"  multi-scene cut: {key}: "
+            f"{getattr(getattr(cfg, sec), attr, None)!r} -> {value!r}")
+        setattr(getattr(cfg, sec), attr, value)
+    save_config(root / "multiscene.yaml", cfg)
+    argv = ["--config", str(root / "multiscene.yaml"), "--stage", "c2f",
+            "--debug"]
+    t0 = time.perf_counter()
+    out_cfg, m1 = train_cli(argv)
+    t1 = time.perf_counter()
+    w1 = {k: v.detach().clone() for k, v in m1.state_dict().items()}
+    _, m2 = train_cli(argv)
+    assert all(torch.equal(v, w1[k]) for k, v in m2.state_dict().items()), \
+        "multi-scene resume changed the weights"
+    ckpt = latest_checkpoint(init_config_odir(out_cfg, False) / "checkpoints",
+                             name="last")
+    assert ckpt is not None and ckpt.name == "last_1", ckpt
+    log(f"cli train_nerfmatch --stage c2f --debug over room_a + room_b: 1 "
+        f"epoch of 5 steps of batch {cfg.exp.batch_size} + 2 val batches in "
+        f"{t1 - t0:.1f} s, resumed in {time.perf_counter() - t1:.1f} s "
+        f"({ckpt.name})")
+    del m1, m2, w1
+
+    ds = init_multiscene_dataset(cfg.data, split="train")
+    half = int(ds.offsets[1])
+    assert len(ds.datasets) == 2 and len(ds) > half > 0
+    data = [to_device(_collate([ds[i], ds[half + i]]), C2F_KEYS, dev)
+            for i in range(4)]
+    assert not torch.equal(data[0]["pt3d"][0], data[0]["pt3d"][1])
+    model = build_matcher(cfg, False, torch.Generator().manual_seed(seed)).to(dev)
+    opt = init_optimizer(cfg.optim, trainable_parameters(model),
+                         lr=config_adaptive_lr(cfg)[0])
+    step = C2FTrainStep(model, opt,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    for i in range(2):
+        step.step(data[i])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = [step.step(data[i % 4]) for i in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = {k: LAUNCHES[k] / steps for k in MATCH_KERNELS}
+    loss = [float(m["loss"]) for m in hist]
+    log(f"8c multi-scene training: {ms:.1f} ms/step over {steps} "
+        f"C2FTrainStep steps of batch 2 (one sample of each scene), peak "
+        f"{peak:.2f} GiB, loss {[round(x, 4) for x in loss]}; launches a "
+        f"step {json.dumps(per_step)} (phase 6: "
+        f"{json.dumps(phase6_per_step)})")
+    assert np.isfinite(loss).all(), loss
+    assert per_step == phase6_per_step, (per_step, phase6_per_step)
+
+    mixed = copy.deepcopy(cfg)
+    del mixed.data.scenes
+    mixed.data.datasets = dict2namespace({"a": {"scenes": ["room_a"]},
+                                          "b": {"scenes": ["room_b"]}})
+    loader = init_data_loader(mixed.data, 2, split="train")
+    it = iter(loader)
+    mloss = [float(step.step(to_device(next(it), C2F_KEYS, dev))["loss"])
+             for _ in range(2)]
+    log(f"8c mixed config (data.datasets a: [room_a], b: [room_b]; "
+        f"{len(loader.dataset)} pairs): 2 steps, loss "
+        f"{[round(x, 4) for x in mloss]}")
+    assert np.isfinite(mloss).all(), mloss
+    del model, opt, step, data
+    torch.cuda.empty_cache()
+
+    frames = sorted(json.loads((root / "room" / "transforms_test.json")
+                               .read_text())["frames"],
+                    key=lambda f: f["file_path"])
+    # Two queries a scene: the evaluator squeezes its per-query arrays, so a
+    # scene of one query would give 0-d arrays (as in the JAX evaluator).
+    one = root / "pairs_two.txt"
+    one.write_text("".join(f"{frames[i]['file_path']} "
+                           f"{frames[i + 1]['file_path']}\n" for i in (3, 9)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    (avg, per_scene), = bench_cli([
+        "--ckpts", str(ckpt), "--nerf_path", str(nerf_ckpt), "--iters", "2",
+        "--mutual", "--rthres", "10", "--test_pair_txt", str(one),
+        "--cache_tag", "multiscene"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bench = {k: v for k, v in LAUNCHES.items() if v}
+    log(f"8c benchmark_nerfmatch --iters 2 on the multi-scene checkpoint, "
+        f"two queries a scene: {len(per_scene)} scenes in {wall:.1f} s, per "
+        f"scene " + json.dumps([{k: round(float(m[k]), 3) for k in
+                                 ("t_med", "r_med", "recall")}
+                                for m in per_scene])
+        + f"; launches {json.dumps(bench)}")
+    assert len(per_scene) == 2, per_scene
+    for k in ("render_coarse_int8", "render_fine", "resample", "attention",
+              "dw_star_fwd"):
+        assert bench.get(k, 0) > 0, (k, bench)
+    return dict(ms_per_step=ms, peak_gib=peak, per_step=per_step,
+                steps=steps, bench=bench)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3496,6 +3889,8 @@ def main():
         app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
         app_trained = phase_training_app(renderer, dev, args.seed,
                                          Path(tmp))
+        torch.cuda.empty_cache()
+        variants = phase_nerf_variants(dev, args.seed, Path(tmp))
     log(f"PSNR phases: {psnr_s:.3f} s an image ({psnr_ms:.1f} ms of it the "
         f"render), appearance checkpoint {psnr_app_s:.3f} s an image")
     launches.update(app_launches)
@@ -3509,8 +3904,8 @@ def main():
     log(f"resample launches: serving {launches['resample']}, training "
         f"{trained['resample']}")
     # The new kernels' counts come from matcher training, where all four run.
-    match, bench, multipair = phase_matcher_training(renderer, nerf_cfg, dev,
-                                                     args.seed)
+    match, bench, multipair, multiscene = phase_matcher_training(
+        renderer, nerf_cfg, dev, args.seed)
     launches.update({k: match[k] for k in MATCH_KERNELS if k != "attention"})
     assert bench["render_coarse_int8"] > 0
     # The feat_max stages: phase 7's --iters 2 on the ds8max cache, phase
@@ -3531,6 +3926,22 @@ def main():
             row["launches_train_per_step"] = per_step
     rows["attention_bwd"]["merged_train_step"] = {
         k: multipair[k] for k in ("ms_per_step", "peak_gib", "steps")}
+
+    # Phase 8: 8a launched none of kernels 1, 1b, 2, 5, 6; 8b's scene-point
+    # cache of the out_scr NeRF ran 1b, 2 and 1; 8c's steps 3, 4 and 7-9.
+    for n in ("render_coarse_int8", "render_fine", "resample"):
+        rows[n]["launches_phase8"] = {
+            "8a_classic": 0, "8b_out_scr_cache": variants["8b"]["launches"][n]}
+    for n in MATCH_KERNELS:
+        rows[n]["launches_phase8"] = {
+            "8c_multiscene_per_step": multiscene["per_step"][n],
+            "8c_benchmark": multiscene["bench"].get(n, 0)}
+    rows["attention_bwd"]["multiscene_train_step"] = {
+        k: multiscene[k] for k in ("ms_per_step", "peak_gib", "steps")}
+    log("phase 8: " + json.dumps({
+        "8a": variants["8a"], "8b": {k: v for k, v in variants["8b"].items()
+                                     if k != "launches"},
+        "8c": {k: multiscene[k] for k in ("ms_per_step", "peak_gib")}}))
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -73,8 +73,8 @@ def eval_ckpt(args):
     for flag, what in ((args.point_shard, "--point_shard"),
                        (args.pair_shard, "--pair_shard")):
         if flag:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP: what "
-                                      f"remains, localization protocols)")
+            raise NotImplementedError(f"{what} is not ported (ROADMAP: "
+                                      f"Queue 1, item 10)")
     evaluator = load_nerfmatch_from_ckpt(args.ckpt, args, arg_mask=args.mask,
                                          device=args.device)
     if not evaluator.coarse_only:
@@ -180,9 +180,11 @@ def build_parser():
     p.add_argument("--retrieval_only", action="store_true")
     p.add_argument("--match_oracle", action="store_true")
     p.add_argument("--point_shard", action="store_true",
-                   help="Multi-GPU point sharding (not ported: raises).")
+                   help="Multi-GPU point sharding (not ported: raises; "
+                        "ROADMAP Queue 1 item 10).")
     p.add_argument("--pair_shard", action="store_true",
-                   help="Multi-GPU pair sharding (not ported: raises).")
+                   help="Multi-GPU pair sharding (not ported: raises; "
+                        "ROADMAP Queue 1 item 10).")
     p.add_argument("--visualize", action="store_true",
                    help="a GIF of the iNeRF overlay frames (--inerf) for "
                         "each query over 50 cm")

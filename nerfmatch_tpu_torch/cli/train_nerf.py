@@ -25,7 +25,8 @@ def build_parser():
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--prefix", type=str, default=None)
     parser.add_argument("--gpus", type=int, default=None,
-                        help="Devices to train on (only 1 is ported).")
+                        help="Devices to train on (only 1 is ported; "
+                             "ROADMAP Queue 1 item 10).")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu.")

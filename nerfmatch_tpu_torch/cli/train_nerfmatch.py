@@ -58,7 +58,8 @@ def build_parser():
     p.add_argument("--train_pair_txt", type=str, default=None)
     p.add_argument("--prefix", type=str, default=None)
     p.add_argument("--gpus", type=int, default=None,
-                   help="Devices; more than 1 is not ported and raises.")
+                   help="Devices; more than 1 is not ported and raises "
+                        "(ROADMAP Queue 1 item 10).")
     p.add_argument("--scene_dir", type=str, default=None)
     p.add_argument("--scenes", type=str, nargs="*", default=None)
     p.add_argument("--resume_version", type=str, default=None)

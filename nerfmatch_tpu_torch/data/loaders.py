@@ -1,12 +1,14 @@
 """Loader factory (counterpart of ``nerfmatch_tpu/data/loaders.py``): the
 dataset by ``config.dataset`` name (``NerfBaseDataset``, ``NeRFMatchBase``,
-``NeRFMatchPair``), the single-scene ``scenes: [x]`` form with its
-``#scene`` substitutions, the per-scene datasets of a ``scenes`` list
-(``init_multiscene_dataset(concat=False)``, the localization benchmark's
-scene loop), and a batch loader that stacks numpy samples, with the JAX
-loader's ordered background-thread prefetch (``num_workers > 0``) so the
-host's image decode overlaps the device step.  Concatenated multi-scene and
-mixed configs raise.
+``NeRFMatchPair``, ``NeRFMatchMultiPair``: the JAX registry); a ``scenes``
+list expanded into one dataset per scene with its ``#scene``
+substitutions, concatenated (:class:`ConcatDataset`, so one matcher trains
+over several scenes' caches) or as a list (``concat=False``, the
+localization benchmark's scene loop); a mixed config (``datasets``: named
+sub-configs, each merged over the top-level keys and expanded in turn);
+and a batch loader that stacks numpy samples, with the JAX loader's
+ordered background-thread prefetch (``num_workers > 0``) so the host's
+image decode overlaps the device step.
 """
 
 from __future__ import annotations
@@ -17,12 +19,29 @@ from argparse import Namespace
 
 import numpy as np
 
+from ..config import merge_configs
 from .match_dataset import NeRFMatchBase, NeRFMatchMultiPair, NeRFMatchPair
 from .nerf_dataset import NerfBaseDataset
 
 DATASETS = {"NerfBaseDataset": NerfBaseDataset, "NeRFMatchBase": NeRFMatchBase,
             "NeRFMatchPair": NeRFMatchPair,
             "NeRFMatchMultiPair": NeRFMatchMultiPair}
+
+
+class ConcatDataset:
+    """Datasets end to end: item ``i`` is item ``i - offset`` of the dataset
+    whose range holds it."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def __getitem__(self, idx):
+        d = int(np.searchsorted(self.offsets, idx, side="right") - 1)
+        return self.datasets[d][idx - int(self.offsets[d])]
 
 
 def _collate(samples):
@@ -123,50 +142,50 @@ def _scene_config(config, scene):
     return Namespace(**sconf)
 
 
-def _single_scene(config):
-    """``scenes: [x]`` -> the config of scene x (the JAX multi-scene
-    expansion of one scene)."""
-    scenes = list(config.scenes)
-    if len(scenes) != 1:
-        raise NotImplementedError(
-            f"multi-scene configs ({len(scenes)} scenes) are not ported "
-            f"(ROADMAP: datasets and loaders)")
-    return _scene_config(config, scenes[0])
-
-
 def _dataset_class(config):
+    """The dataset class of ``config.dataset`` (a ``KeyError`` for a name
+    outside :data:`DATASETS`, as the JAX registry lookup)."""
     if config.dataset not in DATASETS:
-        raise NotImplementedError(
-            f"dataset {config.dataset!r} is not ported; the port loads "
-            f"{sorted(DATASETS)} (ROADMAP: datasets and loaders)")
+        raise KeyError(f"unknown dataset {config.dataset!r}; the registry "
+                       f"holds {sorted(DATASETS)}")
     return DATASETS[config.dataset]
 
 
 def init_multiscene_dataset(config, split: str = "train", concat: bool = True,
                             debug: bool = False):
     """One dataset per scene of ``config.scenes`` (``#scene`` substituted),
-    as a list (``concat=False``); the concatenated dataset is not ported."""
-    if concat:
-        raise NotImplementedError("concatenated multi-scene datasets are not "
-                                  "ported (ROADMAP: datasets and loaders)")
+    concatenated, or as a list (``concat=False``)."""
     cls = _dataset_class(config)
-    return [cls(_scene_config(config, s), split=split, debug=debug)
-            for s in config.scenes]
+    ms = [cls(_scene_config(config, s), split=split, debug=debug)
+          for s in config.scenes]
+    return ConcatDataset(ms) if concat else ms
 
 
 def init_mixed_dataset(config, split: str = "train", concat: bool = True,
                        debug: bool = False):
-    raise NotImplementedError("mixed-dataset configs (data.datasets) are not "
-                              "ported (ROADMAP: datasets and loaders)")
+    """The datasets of a mixed config: each entry of ``config.datasets``
+    merged over ``config`` (its keys win) and expanded by its ``scenes``,
+    in order; concatenated, or as a list (``concat=False``)."""
+    mixed = []
+    for _, dt_config in vars(config.datasets).items():
+        mixed += init_multiscene_dataset(merge_configs(config, dt_config),
+                                         split=split, concat=False,
+                                         debug=debug)
+    return ConcatDataset(mixed) if concat else mixed
 
 
 def init_data_loader(config, batch_size: int = 1, split: str = "train",
                      debug: bool = False, num_workers: int = 0):
+    """The loader of ``config``: a mixed config (``datasets``), a
+    multi-scene one (``scenes``, any length) or one dataset, in the JAX
+    order; the train split shuffled in whole batches, the others in order,
+    one sample a batch."""
     if hasattr(config, "datasets"):
-        init_mixed_dataset(config)
-    if hasattr(config, "scenes"):
-        config = _single_scene(config)
-    dataset = _dataset_class(config)(config, split=split, debug=debug)
+        dataset = init_mixed_dataset(config, split=split, debug=debug)
+    elif hasattr(config, "scenes"):
+        dataset = init_multiscene_dataset(config, split=split, debug=debug)
+    else:
+        dataset = _dataset_class(config)(config, split=split, debug=debug)
     if split == "train":
         return DataLoader(dataset, batch_size=batch_size, shuffle=True,
                           num_workers=num_workers, drop_last=True)

@@ -393,7 +393,7 @@ class NerfBaseDataset:
                 and dist.get_world_size() > 1:
             raise NotImplementedError(
                 "multi-process ray batches are not ported (ROADMAP: "
-                "multi-GPU training)")
+                "Queue 1, item 10)")
         n = len(self.all_rays)
         perm = rng.permutation(n)
         end = n - (n % batch_size) if drop_last else n

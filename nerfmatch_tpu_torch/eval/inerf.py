@@ -137,7 +137,8 @@ class InerfQuery:
         if app is not None:
             dirs = torch.cat([dirs, app], dim=-1)
         raw, feats = r.nerf_fine(
-            torch.cat([enc, dirs[:, None, :].expand(-1, enc.shape[1], -1)], -1))
+            torch.cat([enc, dirs[:, None, :].expand(-1, enc.shape[1], -1)], -1),
+            val=True)
         rf = volume_render(raw[..., :4], z, rays[:, 3:6], white_bg=True)
         w = rf["weights"][..., None]
         return rf["rgb"], (w * pts).sum(-2), (w * feats).sum(-2)

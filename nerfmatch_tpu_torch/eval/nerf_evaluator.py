@@ -15,8 +15,12 @@
 Both go through :meth:`NerfEvaluator.eval_batch`, which turns the frames'
 sequence ids ``ts`` into the appearance rows of an appearance NeRF.  CUDA
 renders run the eval render and resample kernels (the PSNR render in the
-config's ``trunk_int8``, ``'none'`` when absent: the bf16 trunk), CPU
-renders the plain path.  Checkpoints are the port's own directories or
+config's ``trunk_int8``, ``'none'`` when absent: the bf16 trunk) where
+``NerfRenderer.fused_eval_supported`` holds, else the plain path on the
+card, in ``compute_dtype`` and without an int8 trunk (a classic or
+no-viewdir NeRF, as the JAX package's XLA route); CPU renders the plain
+path.  A scene-coordinate head (``out_scr``) is rendered by neither: the
+kernels pack the trunk and heads only, and validation drops it.  Checkpoints are the port's own directories or
 reference Lightning ``.ckpt`` files; :func:`load_nerf_render_from_ckpt` is
 the localization evaluator's re-render NeRF.
 """
@@ -72,7 +76,9 @@ def load_scene_normalization(config, root_dir: str = "."):
     """The fst scene normalization recomputed from the train json (JAX
     ``nerf_evaluator.py: load_scene_normalization``) -> the unnorm matrix."""
     if getattr(config, "snorm_type", "fst") != "fst":
-        raise NotImplementedError(f"snorm_type={config.snorm_type!r}")
+        # The only normalization there is, as in the JAX package (which
+        # asserts it here and raises ValueError in its dataset).
+        raise ValueError(f"Unknown snorm_type: {config.snorm_type!r}")
     if getattr(config, "snorm_json", None):
         train_json = Path(config.snorm_json)
     elif getattr(config, "scene_anno_path", None):
@@ -92,7 +98,8 @@ def load_nerf_render_from_ckpt(ckpt_path, stop_layer: int = -1,
     attached.  ``serving=True`` (the localization re-render): resolve
     ``trunk_int8`` through :func:`serving_int8_mode`, as the scene-point
     cache does (an explicit ``render.trunk_int8``, ``'none'`` included,
-    wins)."""
+    wins; the plain route, for a config the kernels do not serve, ignores
+    it)."""
     device = resolve_device(device)
     renderer, cfg = load_renderer(ckpt_path, stop_layer)
     if serving:
@@ -180,10 +187,11 @@ class NerfEvaluator:
 
         An appearance NeRF renders each ray with its frame's sequence id
         ``ts`` (the first id for every ray when the counts differ), as the
-        JAX ``eval_batch``.  On the card the fused kernels render and give
-        ``rgb_fine`` only, so the metrics hold ``rgb_fine_psnr`` (which
-        :meth:`eval_data_loader` reads) and no coarse PSNR; on the CPU the
-        plain path gives both.  ``ret_pfeat`` keeps the composited
+        JAX ``eval_batch``.  On the card the fused kernels (where
+        ``fused_eval_supported`` holds) give ``rgb_fine`` only, so the
+        metrics hold ``rgb_fine_psnr`` (which :meth:`eval_data_loader`
+        reads) and no coarse PSNR; the plain path (the CPU, or the card for
+        a config the kernels do not render) gives both.  ``ret_pfeat`` keeps the composited
         descriptors ``feat_*``."""
         first = lambda k: np.asarray(batch[k][0])
         w, h = (int(x) for x in first("img_wh").reshape(-1)[:2])
@@ -263,7 +271,10 @@ class NerfEvaluator:
                             flipped_yz=flipped_yz)
         o, d, v = get_rays_c2w(dirs, torch.as_tensor(
             np.asarray(pose), dtype=torch.float32, device=dev))
-        rays = prepare_rays_data(o, d, v, near, far).reshape(-1, 12)
+        rays = prepare_rays_data(
+            o, d, v, near, far,
+            comp_radii=self.renderer.cfg.embed_type == "mip")
+        rays = rays.reshape(-1, rays.shape[-1])
         preds = image_preds(self.renderer.predict(rays.contiguous()), w, h)
         return preds.get("rgb_fine", preds.get("rgb_coarse")), preds
 
@@ -294,13 +305,17 @@ class NerfEvaluator:
         per-frame scene points under ``<cache_dir>/ds{downsample}{feat_comb}``
         (default ``<cache of the checkpoint>/scene/...``) -> that directory.
         ``trunk_int8`` None resolves through :func:`serving_int8_mode`; the
-        CUDA kernels serve it, the CPU path renders in ``compute_dtype``.
+        CUDA kernels serve it, the plain path (the CPU, or a config the
+        kernels do not render) renders in ``compute_dtype`` without an int8
+        trunk (``'none'``, as the JAX package).
         An appearance NeRF's ``pt_color`` follows each frame's ``ts``.
         ``feat_comb='max'`` (tag ``ds{downsample}max``) caches each ray's
         descriptor and point of its largest weight, on the card through the
         fine render kernel's ``feat_max`` branch."""
         if trunk_int8 is None:
             trunk_int8 = serving_int8_mode(self.config)
+        if not self.renderer.fused_eval_supported:
+            trunk_int8 = "none"
         self.renderer.cfg = dataclasses.replace(
             self.renderer.cfg, feat_comb=feat_comb, trunk_int8=trunk_int8)
         ds_tag = f"ds{getattr(self.config, 'downsample', 8)}{feat_comb}"

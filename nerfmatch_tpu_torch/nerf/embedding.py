@@ -16,11 +16,18 @@ def fourier_embedding_dim(in_dim: int, num_freqs: int) -> int:
     return in_dim + 2 * in_dim * num_freqs
 
 
-def fourier_embedding(x, num_freqs: int):
-    """Classic NeRF Fourier features: ``(x, sin(2^k x), cos(2^k x), ...)``."""
-    freqs = 2.0 ** torch.linspace(0.0, num_freqs - 1, num_freqs,
-                                  dtype=x.dtype, device=x.device)
-    xs = x[..., None, :] * freqs[:, None]                     # (..., F, D)
+def fourier_embedding(x, num_freqs: int, logscale: bool = True,
+                      scale: float = 1.0):
+    """Classic NeRF Fourier features: ``(x, sin(f_k s x), cos(f_k s x), ...)``
+    with ``f_k = 2^k`` (``logscale``) or evenly spaced in [1, 2^(F-1)], and
+    ``s = scale``; the sines and cosines of one frequency side by side."""
+    if logscale:
+        freqs = 2.0 ** torch.linspace(0.0, num_freqs - 1, num_freqs,
+                                      dtype=x.dtype, device=x.device)
+    else:
+        freqs = torch.linspace(1.0, 2.0 ** (num_freqs - 1), num_freqs,
+                               dtype=x.dtype, device=x.device)
+    xs = x[..., None, :] * (freqs[:, None] * scale)           # (..., F, D)
     enc = torch.stack([torch.sin(xs), torch.cos(xs)], dim=-2)  # (..., F, 2, D)
     return torch.cat([x, enc.reshape(*x.shape[:-1], -1)], dim=-1)
 

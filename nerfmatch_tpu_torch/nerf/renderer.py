@@ -1,24 +1,32 @@
-"""Hierarchical mip-NeRF renderer (counterpart of
-``nerfmatch_tpu/nerf/renderer.py``).
+"""Hierarchical NeRF renderer (counterpart of
+``nerfmatch_tpu/nerf/renderer.py``): mip-NeRF (IPE, conical frustums) or
+the classic NeRF (Fourier features, stratified and inverse-CDF samples),
+with or without viewdirs, with or without the scene-coordinate head
+(``data.out_scr``).
 
 ``NerfRenderer`` is an ``nn.Module`` holding ``nerf_coarse`` / ``nerf_fine``
 and, with ``embedding.appearance_embed``, the per-sequence appearance table
 ``embedding_a`` (V, 16) (the reference's state-dict keys).  Every render
 takes ``ray_id`` (N,), the table row of each ray (default 1, as the JAX
 package), clamped to ``V - 1`` as a JAX gather clamps; the row joins the
-views layer only.  Routing follows the device of the rays:
+views layer only.  Routing follows the device of the rays and, on the
+card, :attr:`NerfRenderer.fused_eval_supported` (the JAX predicate of the
+same name without its backend test), a function of the config alone:
 
-* eval, CUDA: :meth:`fused_render` -- the render kernel twice (coarse,
-  fine) with the resample kernel between them (``make_fused_hierarchical``
-  semantics, including the unit-direction reparameterization and the int8
-  trunk of ``cfg.trunk_int8``, with activation scales calibrated lazily
-  from the first ray batch, and ``feat_comb='max'``: the fine stage's
-  descriptor and point of each ray's largest weight).  Configs the kernels
-  do not implement raise ``NotImplementedError``.
-* eval, CPU: :meth:`render_rays`, the plain sampling / MLP / compositing
-  path with the MLP in ``compute_dtype`` (``render_rays(train=False,
-  ret_pfeat=True, validation=True)``), as the JAX package's non-fused
-  fallback, which serves ``'none'``.
+* eval, CUDA, the predicate holds: :meth:`fused_render` -- the render
+  kernel twice (coarse, fine) with the resample kernel between them
+  (``make_fused_hierarchical`` semantics, including the unit-direction
+  reparameterization and the int8 trunk of ``cfg.trunk_int8``, with
+  activation scales calibrated lazily from the first ray batch, and
+  ``feat_comb='max'``: the fine stage's descriptor and point of each ray's
+  largest weight).  The kernels read the trunk and the heads; a
+  scene-coordinate head is not rendered (validation drops it too).
+* eval, CPU, or CUDA where the predicate fails (a classic or no-viewdir
+  NeRF, a ``"viewdir"`` descriptor, a final-layer tap on a skip layer,
+  sample counts other than 128): :meth:`render_rays` in chunks, the plain
+  sampling / MLP / compositing path with the MLP in ``compute_dtype``
+  (``render_rays(train=False, ret_pfeat=True, validation=True)``), the JAX
+  package's XLA route, which serves ``'none'``.
 * training: :meth:`train_render` (``make_fused_train_hierarchical``) --
   jittered fenceposts, the train-render kernels (forward and backward) per
   stage with the randomized resample kernel between them, both stages
@@ -26,7 +34,11 @@ views layer only.  Routing follows the device of the rays:
   plain versions.  :meth:`render_rays` with ``train=True`` is the plain f32
   (or ``compute_dtype``) training path.  Both gather the rows under
   autograd, so the table gets its gradient from PyTorch's index backward
-  (the gather's VJP, which JAX runs in XLA).
+  (the gather's VJP, which JAX runs in XLA).  ``NerfTrainer`` takes
+  :meth:`render_rays` instead where the JAX trainer leaves its fused path:
+  a config the predicate rejects, or an ``out_scr`` NeRF, whose training
+  render adds ``scr_{stage}`` (the point at the detached depth minus the
+  composited head channels).
 
 Random draws come from an explicit ``torch.Generator`` or as tensors
 (:meth:`train_draws`), so a test can feed both packages the same numbers.
@@ -42,13 +54,15 @@ from torch import nn
 
 from ..models.layers import init_params_
 from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
-from ..ops.kernels.render_kernel import (APP_DIM, TILE_RAYS, pack_mlp,
+from ..ops.kernels.render_kernel import (APP_DIM, TILE_RAYS,
+                                         kernel_forms_descriptor, pack_mlp,
                                          render_stage)
 from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
 from ..utils.geometry import unnormalize_pts
 from .compositing import composite_features, t_to_s, volume_render
-from .embedding import ipe_embedding, ipe_embedding_dim, pe_embedding
+from .embedding import (fourier_embedding, fourier_embedding_dim,
+                        ipe_embedding, ipe_embedding_dim, pe_embedding)
 from .model import NerfConfig, NerfMLP, eval_feat_layer
 from .rays import RAY_VIEWDIR, sample_nerf_rays
 from .sampling import (jitter_fenceposts, jitter_uniforms,
@@ -89,6 +103,7 @@ class RenderConfig:
     xyz_num_freqs: int = 15
     dirs_num_freqs: int = 4
     use_viewdirs: bool = True
+    use_disp: bool = False
     white_bg: bool = False
     single_model: bool = False
     appearance_embedding: bool = False
@@ -101,6 +116,7 @@ class RenderConfig:
     noise_std: float = 1.0
     compute_dtype: str = "float32"
     out_scr: bool = False
+    num_out_ch: int = 0      # the scene-coordinate channels (out_scr)
 
     @classmethod
     def from_config(cls, config):
@@ -111,6 +127,7 @@ class RenderConfig:
             xyz_num_freqs=emb.xyz_num_freqs,
             dirs_num_freqs=getattr(emb, "dirs_num_freqs", 4),
             use_viewdirs=render.use_viewdirs,
+            use_disp=bool(getattr(render, "use_disp", False)),
             white_bg=render.white_bg or bool(getattr(data, "white_bg", False)),
             single_model=bool(getattr(render, "single_model", False)),
             appearance_embedding=bool(getattr(emb, "appearance_embed", False)),
@@ -126,6 +143,7 @@ class RenderConfig:
             noise_std=float(getattr(render, "noise_std", 1.0)),
             compute_dtype=getattr(render, "compute_dtype", "float32"),
             out_scr=bool(getattr(data, "out_scr", False)),
+            num_out_ch=3 if getattr(data, "out_scr", False) else 0,
         )
 
 
@@ -137,19 +155,24 @@ class NerfRenderer(nn.Module):
         only with ``embedding.appearance_embed``."""
         super().__init__()
         self.cfg = RenderConfig.from_config(config)
-        if self.cfg.embed_type != "mip" or not self.cfg.use_viewdirs:
-            raise NotImplementedError("the port renders mip NeRFs with "
-                                      "viewdirs (the localization config)")
+        mip = self.cfg.embed_type == "mip"
+        xyz_dim = (ipe_embedding_dim if mip else fourier_embedding_dim)(
+            3, self.cfg.xyz_num_freqs)
+        dirs_dim = 0
+        if self.cfg.use_viewdirs:
+            dirs_dim = (2 * 3 * self.cfg.dirs_num_freqs + 3 if mip else
+                        fourier_embedding_dim(3, self.cfg.dirs_num_freqs))
         app_dim = APP_DIM if self.cfg.appearance_embedding else 0
         if app_dim:
             if not num_frames:
                 raise ValueError("an appearance NeRF needs num_frames (the "
                                  "rows of its embedding_a table)")
             self.embedding_a = nn.Embedding(num_frames, app_dim)
-        common = dict(use_viewdirs=True,
-                      xyz_dim=ipe_embedding_dim(3, self.cfg.xyz_num_freqs),
-                      dirs_dim=2 * 3 * self.cfg.dirs_num_freqs + 3,
-                      app_dim=app_dim)
+        # As the JAX renderer: the head's mode is the config's out_scr.
+        common = dict(use_viewdirs=self.cfg.use_viewdirs, xyz_dim=xyz_dim,
+                      dirs_dim=dirs_dim, app_dim=app_dim,
+                      out_3d_pnt=self.cfg.out_scr,
+                      out_add_ch=self.cfg.num_out_ch)
         self.coarse_cfg = None
         if not self.cfg.single_model:
             self.coarse_cfg = NerfConfig.from_namespace(config.coarse_nerf,
@@ -199,28 +222,50 @@ class NerfRenderer(nn.Module):
     # ------------------------------------------------------------------
     # Plain path
     # ------------------------------------------------------------------
+    def encode_xyz(self, pts, var=None):
+        """Sample encoding: the IPE of (means, vars) for a mip NeRF, else
+        the Fourier features of the points."""
+        if self.cfg.embed_type == "mip":
+            return ipe_embedding(pts, var, self.cfg.xyz_num_freqs)[0]
+        return fourier_embedding(pts, self.cfg.xyz_num_freqs)
+
+    def encode_dirs(self, dirs):
+        """Viewdir encoding: mip-style PE for a mip NeRF, else Fourier."""
+        if self.cfg.embed_type == "mip":
+            return pe_embedding(dirs, self.cfg.dirs_num_freqs)
+        return fourier_embedding(dirs, self.cfg.dirs_num_freqs)
+
     def render_rays(self, rays, train: bool = False, generator=None,
                     draws=None, ray_id=None):
-        """Hierarchical render of (R, 12) rays -> per-ray maps, the MLP in
+        """Hierarchical render of (R, 12) rays (or (R, 11), without the mip
+        radius, for a classic NeRF) -> per-ray maps, the MLP in
         ``compute_dtype`` (as the JAX ``_forward_nerf``); ``ray_id``: the
         appearance rows (see :meth:`app_rows`).
 
         ``train=False``: the JAX ``render_rays(train=False, ret_pfeat=True,
         validation=True)``.  ``train=True``: the JAX XLA training render
-        (always randomized: jittered coarse fenceposts, stratified resample,
-        density noise when ``noise_std > 0``) -> rgb / depth per stage,
-        ``weights_fine`` and ``s_fine``.  Draws come from ``draws`` (see
-        :meth:`train_draws`, per stage) or ``generator``."""
+        (a mip NeRF always randomized: jittered coarse fenceposts,
+        stratified resample; a classic NeRF where ``perturb``: jittered
+        strata, uniform inverse-CDF draws; density noise when
+        ``noise_std > 0``) -> rgb / depth per stage, ``weights_fine``,
+        ``s_fine`` and, for an ``out_scr`` NeRF, ``scr_{stage}``.  Draws
+        come from ``draws`` (see :meth:`train_draws`, per stage) or
+        ``generator``."""
+        cfg = self.cfg
+        mip = cfg.embed_type == "mip"
         rays_d = rays[..., 3:6]
-        viewdirs = rays[..., RAY_VIEWDIR]
-        dirs_emb = pe_embedding(viewdirs, self.cfg.dirs_num_freqs)
+        viewdirs = rays[..., RAY_VIEWDIR] if rays.shape[-1] >= 11 else rays_d
+        extra = []
+        if cfg.use_viewdirs:
+            extra.append(self.encode_dirs(viewdirs))
         app = self.app_rows(ray_id, rays.shape[0], rays.device)
         if app is not None:
-            dirs_emb = torch.cat([dirs_emb, app], dim=-1)
-        dtype = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else None
+            extra.append(app)
+        extra = torch.cat(extra, dim=-1) if extra else None
+        dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         if train and draws is None:
             draws = self.train_draws(rays.shape[0], generator, rays.device,
-                                     randomized=True)
+                                     randomized=True if mip else None)
         preds = {}
         z_vals = weights = None
         for stage, mlp in self._stages():
@@ -228,27 +273,37 @@ class NerfRenderer(nn.Module):
             if train:
                 rand = draws.get("t_rand" if stage == "coarse" else "u")
                 noise = draws.get(f"noise_{stage}")
-            (mean, var), z_vals = sample_along_rays(
+            pts, z_vals = sample_along_rays(
                 rays, num_pts=mlp.cfg.num_pts, z_vals=z_vals, weights=weights,
-                model_type=stage, scale_var=self.cfg.mip_var_scale, rand=rand)
-            enc, _ = ipe_embedding(mean, var, self.cfg.xyz_num_freqs)
-            inputs = torch.cat(
-                [enc, dirs_emb[:, None, :].expand(-1, enc.shape[1], -1)], -1)
-            raw, feats = mlp(inputs, dtype=dtype)
-            rendered = volume_render(raw, z_vals, rays_d,
-                                     white_bg=self.cfg.white_bg,
-                                     input_dim=self.cfg.output_dim,
-                                     noise=noise)
+                model_type=stage, scale_var=cfg.mip_var_scale, rand=rand,
+                embed_type=cfg.embed_type, use_disp=cfg.use_disp)
+            pts, var = pts if mip else (pts, None)
+            inputs = self.encode_xyz(pts, var)
+            if extra is not None:
+                inputs = torch.cat([inputs, extra[:, None, :].expand(
+                    -1, inputs.shape[1], -1)], -1)
+            raw, feats = mlp(inputs, dtype=dtype, val=not train)
+            rendered = volume_render(
+                raw[..., :cfg.output_dim + cfg.num_out_ch + 3], z_vals, rays_d,
+                white_bg=cfg.white_bg, input_dim=cfg.output_dim, noise=noise,
+                mip=mip, out_last=cfg.num_out_ch > 0)
             weights = rendered["weights"]
-            if train and stage == "fine":
-                # Batch-global min/max, as the reference (renderer.py:320-327).
-                preds["s_fine"] = t_to_s(z_vals, z_vals.min(), z_vals.max())
-                preds["weights_fine"] = weights
-            elif not train:
+            if train:
+                if cfg.out_scr:
+                    preds[f"scr_{stage}"] = (
+                        rays[:, :3] + rays_d * rendered["depth"].detach()[:, None]
+                        - rendered["last"])
+                if stage == "fine":
+                    # Batch-global min/max, as the reference
+                    # (renderer.py:320-327).
+                    preds["s_fine"] = t_to_s(z_vals, z_vals.min(),
+                                             z_vals.max())
+                    preds["weights_fine"] = weights
+            else:
                 preds[f"feat_{stage}"] = composite_features(
-                    weights, feats, self.cfg.feat_comb)
+                    weights, feats, cfg.feat_comb)
                 preds[f"pts_{stage}"] = composite_features(
-                    weights, mean, self.cfg.feat_comb)
+                    weights, pts, cfg.feat_comb)
             preds[f"rgb_{stage}"] = rendered["rgb"]
             preds[f"depth_{stage}"] = rendered["depth"]
         return preds
@@ -259,28 +314,36 @@ class NerfRenderer(nn.Module):
     def train_draws(self, n: int, generator=None, device=None,
                     randomized: bool | None = None):
         """The random numbers of one training render of ``n`` rays, drawn
-        in a fixed order from ``generator``: ``t_rand`` (fencepost jitter)
-        and ``u`` (stratified resample) when randomized (default
+        in a fixed order from ``generator``: ``t_rand`` (fencepost or
+        stratum jitter) and ``u`` (the resample's draw: stratified for a
+        mip NeRF, uniform for a classic one) when randomized (default
         ``cfg.perturb``), then ``noise_coarse`` / ``noise_fine`` (already
-        scaled by ``noise_std``) when ``noise_std > 0``."""
+        scaled by ``noise_std``) when ``noise_std > 0``.  Shapes, with S_c
+        and S_f the stages' sample counts: mip (n, S_c+1) draws and (n,
+        S_c) noise for both stages; classic (n, S_c) and (n, S_f) draws,
+        (n, S_c) and (n, S_c + S_f) noise."""
         cfg = self.cfg
-        S = self.fine_cfg.num_pts
+        (_, cmlp), (_, fmlp) = self._stages()
+        S_c, S_f = cmlp.cfg.num_pts, fmlp.cfg.num_pts
+        mip = cfg.embed_type == "mip"
         randomized = cfg.perturb if randomized is None else randomized
         out = {}
-        if randomized:
-            out["t_rand"] = jitter_uniforms(n, S + 1, generator, device)
-            out["u"] = stratified_u(n, S + 1, generator, device)
+        if randomized and mip:
+            out["t_rand"] = jitter_uniforms(n, S_c + 1, generator, device)
+            out["u"] = stratified_u(n, S_c + 1, generator, device)
+        elif randomized:
+            out["t_rand"] = jitter_uniforms(n, S_c, generator, device)
+            out["u"] = jitter_uniforms(n, S_f, generator, device)
         if cfg.noise_std > 0:
-            for stage in ("coarse", "fine"):
+            for stage, S in (("coarse", S_c),
+                             ("fine", S_c if mip else S_c + S_f)):
                 out[f"noise_{stage}"] = cfg.noise_std * torch.randn(
                     (n, S), generator=generator, device=device)
         return out
 
     def check_train_supported(self):
-        """Raise for configs the train kernels do not implement."""
-        if self.cfg.out_scr:
-            raise NotImplementedError("out_scr (scene-coordinate head) is not "
-                                      "ported (ROADMAP: training slice)")
+        """Raise where the JAX fused train factory asserts: coarse and fine
+        MLPs of different layouts or sample counts."""
         (_, cm), (_, fm) = self._stages()
         if (cm.cfg.hid_dim, cm.cfg.layer_num, tuple(cm.cfg.skips),
                 cm.cfg.num_pts) != (fm.cfg.hid_dim, fm.cfg.layer_num,
@@ -325,6 +388,21 @@ class NerfRenderer(nn.Module):
     # ------------------------------------------------------------------
     # Fused path (render + resample kernels)
     # ------------------------------------------------------------------
+    @property
+    def fused_eval_supported(self) -> bool:
+        """Whether the eval kernels render this config (the JAX
+        ``NerfRenderer.fused_eval_supported`` without its backend test): a
+        mip NeRF with viewdirs, 128 samples in both stages, a descriptor
+        that is a trunk activation (not the views layer's of a
+        ``"viewdir"`` head) and not a final-layer tap on a skip layer (the
+        plain path's descriptor there is the post-concat state, which the
+        kernel never forms).  A pure function of the config: serving,
+        evaluation and training route by it before any launch."""
+        fine = self.fine_cfg
+        return (self.cfg.embed_type == "mip" and self.cfg.use_viewdirs
+                and kernel_forms_descriptor(fine) and fine.num_pts == 128
+                and (self.coarse_cfg or fine).num_pts == 128)
+
     def check_fused_supported(self):
         """Raise for configs the CUDA kernels do not implement."""
         cfg = self.cfg
@@ -470,7 +548,7 @@ class NerfRenderer(nn.Module):
             raw, _ = coarse_mlp(
                 torch.cat([enc, dirs[:, None, :].expand(-1, S, -1)], -1),
                 dtype=torch.bfloat16 if self.cfg.compute_dtype == "bfloat16"
-                else None)
+                else None, val=True)
             weights = volume_render(raw, z, rays[:, 3:6])["weights"]
             return resample_z_from_weights(z, weights)
         self.check_fused_supported()
@@ -486,10 +564,12 @@ class NerfRenderer(nn.Module):
         return (resample_z(z, coarse["weights"]) / nrm)[:n]
 
     def predict(self, rays, chunk_rays: int = 4096, ray_id=None):
-        """Eval render: the fused kernels for CUDA rays (outputs without
-        ``rgb_coarse``), the plain path for CPU rays; ``ray_id`` (N,): the
-        appearance rows (see :meth:`app_rows`)."""
-        if rays.device.type == "cuda":
+        """Eval render: the fused kernels for CUDA rays where
+        :attr:`fused_eval_supported` holds (outputs without
+        ``rgb_coarse``), else the plain path in chunks of ``chunk_rays`` on
+        the rays' device; ``ray_id`` (N,): the appearance rows (see
+        :meth:`app_rows`)."""
+        if rays.device.type == "cuda" and self.fused_eval_supported:
             return self.fused_predict(rays, ray_id=ray_id)
         rid = lambda i: None if ray_id is None else ray_id[i:i + chunk_rays]
         chunks = [self.render_rays(rays[i:i + chunk_rays], ray_id=rid(i))
@@ -508,7 +588,7 @@ class NerfRenderer(nn.Module):
             H, W, torch.as_tensor(np.asarray(K), dtype=torch.float32,
                                   device=dev),
             torch.as_tensor(c2w_n, dtype=torch.float32, device=dev),
-            ds=downsample)
+            ds=downsample, embed_type=self.cfg.embed_type)
 
     @torch.no_grad()
     def render_novel_view(self, img_hw, K, c2w, unnorm_scene,
@@ -523,14 +603,15 @@ class NerfRenderer(nn.Module):
     def render_novel_views(self, img_hw, Ks, c2ws, unnorm_scenes,
                            downsample: int = 8):
         """Batched :meth:`render_novel_view`: all poses' rays in one
-        :meth:`predict` call -> (B, ...) numpy arrays; an appearance NeRF
-        renders with table row 1, as the JAX package."""
+        :meth:`predict` call (the kernels, or the plain route where
+        :attr:`fused_eval_supported` fails) -> (B, ...) numpy arrays; an
+        appearance NeRF renders with table row 1, as the JAX package."""
         H, W = img_hw
         B = len(c2ws)
         rays = [self._view_rays(img_hw, Ks[b], c2ws[b], unnorm_scenes[b],
                                 downsample) for b in range(B)]
         n = rays[0].shape[0]
-        if rays[0].device.type == "cuda":
+        if rays[0].device.type == "cuda" and self.fused_eval_supported:
             # The JAX package calibrates from the first pose's rays.
             self._ensure_int8_calibrated(rays[0])
         preds = self.predict(torch.cat(rays))

@@ -1,8 +1,13 @@
-"""mip-NeRF ray sampling (counterpart of ``nerfmatch_tpu/nerf/sampling.py``):
-fencepost init (jittered in training), the conical-frustum Gaussian cast,
-and the weight-blurred inverse-CDF resampling (stratified u in training).
-``resample_z_from_weights`` is the plain version of the resample kernel
-(``ops/kernels/resample_kernel.py``).
+"""Ray sampling (counterpart of ``nerfmatch_tpu/nerf/sampling.py``).
+
+* mip-NeRF: fencepost init (jittered in training), the conical-frustum
+  Gaussian cast, and the weight-blurred inverse-CDF resampling (stratified
+  u in training).  ``resample_z_from_weights`` is the plain version of the
+  resample kernel (``ops/kernels/resample_kernel.py``).
+* classic NeRF: stratified z between near and far (linear in depth or in
+  disparity, jittered in training), the inverse-CDF draw of the fine
+  samples over the coarse mid-points (right-side search) and their merge
+  with the coarse z.
 
 Random draws enter as tensors (``t_rand``, ``u``) so that a caller, or a
 test feeding both packages the same numbers, controls them;
@@ -152,13 +157,82 @@ def blur_weights(weights, resample_padding: float):
     return 0.5 * (weights_max[..., :-1] + weights_max[..., 1:]) + resample_padding
 
 
+def sample_pts_init(rays_o, rays_d, near, far, num_pts: int = 64,
+                    use_disp: bool = False, t_rand=None):
+    """Classic stratified z between ``near`` and ``far`` (R, 1), linear in
+    depth or (``use_disp``) in disparity, jittered within each stratum by
+    the uniforms ``t_rand`` (R, num_pts) when given -> (pts (R, S, 3), z)."""
+    t = torch.linspace(0.0, 1.0, num_pts, dtype=rays_o.dtype,
+                       device=rays_o.device)
+    if use_disp:
+        z_vals = 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
+    else:
+        z_vals = near * (1.0 - t) + far * t
+    z_vals = z_vals.expand(rays_o.shape[0], num_pts)
+    if t_rand is not None:
+        z_vals = jitter_fenceposts(z_vals, t_rand)
+    return rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None], \
+        z_vals
+
+
+def sample_pdf(bins, weights, num_samples: int, u=None, eps: float = 1e-5):
+    """Classic hierarchical sampling: invert the piecewise-constant CDF of
+    ``weights`` (..., B-1) + ``eps`` over ``bins`` (..., B) at ``u``
+    (..., num_samples), by default ``linspace(0, 1, num_samples)`` (the
+    deterministic draw), with a right-side search
+    (``torch.searchsorted(right=True)``)."""
+    weights = weights + eps
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    if u is None:
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=cdf.dtype,
+                           device=cdf.device)
+        u = u.expand(*cdf.shape[:-1], num_samples)
+    inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_g0, cdf_g1 = (torch.gather(cdf, -1, i) for i in (below, above))
+    bins_g0, bins_g1 = (torch.gather(bins, -1, i) for i in (below, above))
+    denom = cdf_g1 - cdf_g0
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_g0) / denom
+    return bins_g0 + t * (bins_g1 - bins_g0)
+
+
+def sample_pts_fine(rays_o, rays_d, z_vals, weights, num_pts: int = 64,
+                    u=None):
+    """The fine samples of a classic NeRF: ``num_pts`` draws from the coarse
+    ``weights`` over the coarse mid-points (``u`` (R, num_pts): the
+    training draw; None: the deterministic one), merged with the coarse z
+    and sorted -> (pts (R, S_c + num_pts, 3), z); no gradient to the
+    draws."""
+    z_mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_samples = sample_pdf(z_mids, weights[..., 1:-1], num_pts, u).detach()
+    z_vals, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
+    return rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None], \
+        z_vals
+
+
 def sample_along_rays(rays, num_pts: int = 128, z_vals=None, weights=None,
                       model_type: str = "coarse", scale_var: float = -1.0,
-                      rand=None):
-    """mip sampling entry: coarse fenceposts, or the fine resample of
-    ``z_vals`` by ``weights`` -> ((means, vars), z_vals).  ``rand``: the
-    training draw (coarse: ``t_rand`` (R, S+1); fine: ``u`` (R, S+1))."""
+                      rand=None, embed_type: str = "mip",
+                      use_disp: bool = False):
+    """Sampling entry.  mip (``embed_type='mip'``): coarse fenceposts, or the
+    fine resample of ``z_vals`` by ``weights`` -> ((means, vars), z_vals);
+    ``rand``: the training draw (coarse: ``t_rand`` (R, S+1); fine: ``u``
+    (R, S+1)).  Classic (any other ``embed_type``): the stratified coarse z
+    (``use_disp``: linear in disparity) or the fine draw merged with the
+    coarse z -> (pts, z_vals); ``rand``: coarse ``t_rand`` (R, S), fine
+    ``u`` (R, num_pts)."""
     rays_o, rays_d = rays[..., 0:3], rays[..., 3:6]
+    if embed_type != "mip":
+        if model_type == "coarse":
+            return sample_pts_init(rays_o, rays_d,
+                                   rays[..., RAY_NEAR:RAY_NEAR + 1],
+                                   rays[..., RAY_FAR:RAY_FAR + 1], num_pts,
+                                   use_disp, t_rand=rand)
+        return sample_pts_fine(rays_o, rays_d, z_vals, weights, num_pts, u=rand)
     radii = rays[..., RAY_RADII:RAY_RADII + 1]
     if model_type == "coarse":
         near = rays[..., RAY_NEAR:RAY_NEAR + 1]

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 from ...nerf.embedding import ipe_embedding, pe_embedding
-from ...nerf.model import NerfMLP, eval_feat_layer
+from ...nerf.model import NerfMLP, eval_feat_layer, pnt_mode
 from ...nerf.sampling import frustum_moments, lift_gaussian
 from .quant import ENC_PAD
 from .render_train_kernel import APP_DIM, ENC_MAX, _skip_in, forward_images
@@ -78,7 +78,8 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     ``int8["start"]`` on are its s8 images (``int8["img"]``), in bytes.  wvd
     and wva (the views layer's dirs and appearance rows; wva None without
     a table) and wr (the rgb head) stay f32: the kernel's FMAs take them
-    unrounded."""
+    unrounded.  A scene-coordinate head (``pnt_block``) is not packed, as
+    the Pallas pack leaves it out."""
     cfg = mlp.cfg
     fwd, enc_at = forward_images(mlp, None if int8 is None else int8["start"])
     if int8 is None:
@@ -106,11 +107,28 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     return out
 
 
+def kernel_forms_descriptor(cfg) -> bool:
+    """Whether the descriptor of an MLP config is the trunk activation the
+    kernel taps: not the views layer's of a ``"viewdir"`` head, and not a
+    final-layer tap on a skip layer (the plain descriptor there is the
+    post-concat state, which the kernel never forms)."""
+    if cfg.stop_layer < 0 and "viewdir" in (pnt_mode(cfg) or ""):
+        return False
+    tap = eval_feat_layer(cfg)
+    return not (tap == cfg.layer_num - 1 and tap in cfg.skips)
+
+
 def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int, fine: bool,
                   app):
+    """Raise for MLPs the kernel does not render.  A scene-coordinate head
+    (``pnt_block``) is accepted and not rendered: :func:`pack_mlp` packs
+    the trunk and the heads only."""
     cfg = mlp.cfg
     if not cfg.use_viewdirs:
         raise NotImplementedError("fused render needs use_viewdirs")
+    if not kernel_forms_descriptor(cfg):
+        raise NotImplementedError(f"fused render: the descriptor of {cfg} is "
+                                  "not the trunk activation the kernel taps")
     if cfg.app_dim not in (0, APP_DIM):
         raise NotImplementedError(f"appearance rows of {cfg.app_dim} columns "
                                   f"(the kernel takes {APP_DIM})")

@@ -9,6 +9,10 @@ inliers)`` world->camera, or ``None``:
   ``build/pnp/<hash>/`` (keyed by the source and the host CPU, since it is
   built with ``-march=native``) and loaded through ctypes;
 * ``cv``: OpenCV ``solvePnPRansac`` (AP3P) + ``solvePnPRefineLM``.
+
+``refine_pose_native`` LM-refines a given pose on all correspondences (the
+C entry ``pnp_refine``); ``estimate_pose_pycolmap`` is the reference's
+pycolmap entry, served by the native solver.
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ def _library():
             _D, _D, ctypes.c_int, _D, ctypes.c_double, ctypes.c_int,
             ctypes.c_double, ctypes.c_uint64, ctypes.c_int, _D, _D,
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)]
+        lib.pnp_refine.restype = None
+        # pts2d, pts3d, n, K, R (in/out), t (in/out), iters
+        lib.pnp_refine.argtypes = [_D, _D, ctypes.c_int, _D, _D, _D,
+                                   ctypes.c_int]
         _LIB = lib
     return _LIB
 
@@ -97,6 +105,19 @@ def estimate_pose_native(pts2d, pts3d, K, ransac_thres: float = 1.0,
     if not ok or np.isnan(t).any():
         return None
     return R, t, np.where(mask > 0)[0]
+
+
+def refine_pose_native(pts2d, pts3d, K, R, t, iters: int = 30):
+    """LM-refine the world->camera pose (R, t) on all the given
+    correspondences -> (R, t), new arrays."""
+    pts2d = np.ascontiguousarray(np.reshape(pts2d, (-1, 2)), np.float64)
+    pts3d = np.ascontiguousarray(np.reshape(pts3d, (-1, 3)), np.float64)
+    K = np.ascontiguousarray(np.reshape(K, (3, 3)), np.float64)
+    R_io = np.array(R, dtype=np.float64, order="C")
+    t_io = np.array(np.reshape(t, 3), dtype=np.float64)
+    _library().pnp_refine(_ptr(pts2d), _ptr(pts3d), len(pts2d), _ptr(K),
+                          _ptr(R_io), _ptr(t_io), int(iters))
+    return R_io, t_io
 
 
 def estimate_pose_cv(pts2d, pts3d, K, ransac_thres: float = 1.0):
@@ -131,3 +152,15 @@ def estimate_pose(pts2d, pts3d, K, ransac_thres: float = 1.0,
             raise ValueError(f"the cv solver takes no {sorted(kw)}")
         return estimate_pose_cv(pts2d, pts3d, K, ransac_thres)
     raise ValueError(f"unknown solver: {solver}")
+
+
+def estimate_pose_pycolmap(pts2d, pts3d, K, img_wh=None,
+                           ransac_thres: float = 1.0,
+                           center_subpixel: bool = False, **kw):
+    """The reference's pycolmap entry, served by the native solver.
+    ``img_wh`` and ``center_subpixel`` are accepted for its signature: the
+    reference's +0.5 shift cancels pycolmap's half-integer pixel centers,
+    and the native solver already takes pixel-center coordinates, so it
+    is not applied."""
+    del img_wh, center_subpixel
+    return estimate_pose_native(pts2d, pts3d, K, ransac_thres, **kw)

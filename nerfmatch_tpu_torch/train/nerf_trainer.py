@@ -1,13 +1,19 @@
-"""Per-scene mip-NeRF training (counterpart of
+"""Per-scene NeRF training (counterpart of
 ``nerfmatch_tpu/train/nerf_trainer.py``).
 
 0.5 * (coarse + fine) MSE with the mip-NeRF 360 distortion regularizer,
 per-epoch full-image validation renders, best / last checkpoints on val
 PSNR, resume from the latest ``last`` checkpoint, deterministic run
-directories.  One process on one device: CUDA rays go through
-:meth:`NerfRenderer.train_render` (the train-render and resample kernels);
-CPU rays go through the plain path (the kernels' plain versions when
-``render.use_fused_train``, else ``render_rays(train=True)``).  Random draws
+directories.  One process on one device.  The route (``NerfTrainer.route``,
+logged by :func:`train` and written to ``route.txt`` in the run dir) is a
+function of the config, decided before any launch, as the JAX trainer
+decides its own: ``"kernels"`` -- :meth:`NerfRenderer.train_render` (the
+train-render and resample kernels on CUDA, their plain versions on the
+CPU) -- on CUDA, or on the CPU with ``render.use_fused_train``, where
+``NerfRenderer.fused_eval_supported`` holds and the NeRF has no
+scene-coordinate head (``data.out_scr``); else ``"plain"`` --
+``render_rays(train=True)`` on the rays' device (a classic or no-viewdir
+NeRF, an ``out_scr`` NeRF, sample counts other than 128).  Random draws
 come from a ``torch.Generator`` seeded with ``exp.seed``; ray batches from
 ``np.random.default_rng(exp.seed)`` as in the JAX trainer.  An appearance
 NeRF (``embedding.appearance_embed``) holds one table row per training
@@ -15,8 +21,8 @@ sequence; each ray trains its sequence's row (the batch's ``ts``), and Adam
 updates the table with the MLPs.  A retrieval-pair val sample (with
 ``data.train_pair_txt``) is scored by :meth:`NerfTrainer.validate_pair`.
 
-Not ported: multi-device data parallelism (``exp.gpus > 1``) and the
-scene-coordinate head (``out_scr``); each raises ``NotImplementedError``.
+Not ported: multi-device data parallelism (``exp.gpus > 1`` raises
+``NotImplementedError``; ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -82,10 +88,7 @@ def check_train_config(config):
     exp = getattr(config, "exp", None)
     if int(getattr(exp, "gpus", 0) or 0) > 1:
         raise NotImplementedError("multi-GPU NeRF training is not ported "
-                                  "(ROADMAP: multi-GPU training)")
-    if getattr(getattr(config, "data", None), "out_scr", False):
-        raise NotImplementedError("out_scr (scene-coordinate head) is not "
-                                  "ported (ROADMAP: training slice)")
+                                  "(ROADMAP: Queue 1, item 10)")
 
 
 class NerfTrainer:
@@ -105,8 +108,11 @@ class NerfTrainer:
         self.opt = init_optimizer(config.optim, self.renderer.parameters())
         self.lr_sched = make_lr_schedule(config.optim)
         self.cnfg_loss = getattr(config, "loss", None)
-        self.use_fused = self.device.type == "cuda" or bool(
-            getattr(config.render, "use_fused_train", False))
+        r = self.renderer
+        self.use_fused = (self.device.type == "cuda" or bool(
+            getattr(config.render, "use_fused_train", False))) \
+            and r.fused_eval_supported and not r.cfg.out_scr
+        self.route = "kernels" if self.use_fused else "plain"
 
     def render_train(self, rays, generator=None, draws=None, ray_id=None):
         if self.use_fused:
@@ -198,6 +204,8 @@ def train(config, device="cuda"):
     num_frames = int(np.max(train_set.seq_ind)) + 1
     trainer = NerfTrainer(config, device=device, seed=exp.seed,
                           num_frames=num_frames)
+    mlog.log_text("route", trainer.route)
+    logger.info(f"train route: {trainer.route}")
 
     start_epoch, best_psnr = 0, -np.inf
     ckpt_dir = run_dir / "checkpoints"

@@ -1,9 +1,37 @@
-"""Pose-error and point-mapping geometry (counterpart of the parts of
-``nerfmatch_tpu/utils/geometry.py`` the localization path uses)."""
+"""Pose-error and point-mapping geometry, and the host-side quaternion
+helpers of the annotation generators (counterpart of the parts of
+``nerfmatch_tpu/utils/geometry.py`` the port uses)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def qvec2rotmat(qvec) -> np.ndarray:
+    """Quaternion (w, x, y, z) -> rotation matrix (host-side numpy)."""
+    w, x, y, z = np.asarray(qvec, dtype=np.float64)
+    return np.array([
+        [1 - 2 * y * y - 2 * z * z, 2 * x * y - 2 * w * z, 2 * z * x + 2 * w * y],
+        [2 * x * y + 2 * w * z, 1 - 2 * x * x - 2 * z * z, 2 * y * z - 2 * w * x],
+        [2 * z * x - 2 * w * y, 2 * y * z + 2 * w * x, 1 - 2 * x * x - 2 * y * y],
+    ])
+
+
+def rotmat2qvec(R) -> np.ndarray:
+    """Rotation matrix -> quaternion (w, x, y, z), w >= 0 (host-side
+    numpy; the eigenvector of the largest eigenvalue of Bar-Itzhack's K)."""
+    R = np.asarray(R, dtype=np.float64)
+    K = np.array([
+        [R[0, 0] - R[1, 1] - R[2, 2], 0, 0, 0],
+        [R[0, 1] + R[1, 0], R[1, 1] - R[0, 0] - R[2, 2], 0, 0],
+        [R[0, 2] + R[2, 0], R[1, 2] + R[2, 1], R[2, 2] - R[0, 0] - R[1, 1], 0],
+        [R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1],
+         R[0, 0] + R[1, 1] + R[2, 2]],
+    ]) / 3.0
+    eigvals, eigvecs = np.linalg.eigh(K)
+    q = eigvecs[[3, 0, 1, 2], np.argmax(eigvals)]
+    return q * np.sign(q[0]) if q[0] != 0 else q
 
 
 def rotation_angle_deg(R):

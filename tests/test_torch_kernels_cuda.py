@@ -264,6 +264,50 @@ def test_int8_render_kernel_matches_plain(dev, hid, mode):
     assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 0
 
 
+def with_pnt_block(mlp, seed=0):
+    """A copy of ``mlp`` with a scene-coordinate head (``out_3d_pnt``, 3
+    channels, seeded), its trunk and heads shared."""
+    import dataclasses
+
+    dev = mlp.pts_linears[0].weight.device
+    out = NerfMLP(dataclasses.replace(mlp.cfg, out_3d_pnt=True, out_add_ch=3))
+    init_params_(out, torch.Generator().manual_seed(seed))
+    out.load_state_dict(mlp.state_dict(), strict=False)
+    return out.to(dev).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hid", [64, 256])
+def test_render_kernel_ignores_the_scene_coordinate_head(dev, hid):
+    """An out_scr MLP through kernel 1 (bf16 trunk, both stages) and kernel
+    1b (the int8 trunk of 'coarse' and 'both') gives bit for bit the
+    outputs of the same MLP without its head: the kernels render the trunk
+    and the heads only."""
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_mlp_int8)
+
+    r = renderer(hid, dev)
+    rays, z = rays_z(64, dev)
+    scales = calibrate_act_scales(r, rays)
+    kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    reset_launch_counts()
+    with torch.no_grad():
+        for mlp, fine, name in ((r.nerf_coarse, False, "coarse"),
+                                (r.nerf_fine, True, "fine")):
+            head = with_pnt_block(mlp)
+            tap = eval_feat_layer(mlp.cfg) if fine else None
+            for q in (None, pack_mlp_int8(mlp, scales[name], 0, tap)):
+                qh = None if q is None else pack_mlp_int8(
+                    head, scales[name], 0, tap)
+                a = render_stage(head, rays, z, fine=fine, int8=qh, **kw)
+                b = render_stage(mlp, rays, z, fine=fine, int8=q, **kw)
+                for k in b:
+                    assert torch.equal(a[k], b[k]), (name, q is None, k)
+    assert LAUNCHES["render_coarse"] == LAUNCHES["render_fine"] == 2
+    assert LAUNCHES["render_coarse_int8"] == LAUNCHES["render_fine_int8"] == 2
+
+
 def with_app_columns(mlp, seed=0):
     """A copy of ``mlp`` with an appearance input: its views layer gains 16
     seeded columns (its other weights shared) -> (app MLP, seeded (2, 16)

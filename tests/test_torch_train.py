@@ -536,15 +536,17 @@ def test_trainer_steps_match_jax(scene, tmp_path):
 
 
 def test_trainer_rejects_unported_configs(scene, tmp_path):
-    """exp.gpus > 1 and out_scr raise."""
+    """exp.gpus > 1 raises; an out_scr NeRF (ported since) trains, on the
+    plain route, as the JAX trainer leaves its fused path for it."""
     from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
 
-    for edit in (lambda c: setattr(c.exp, "gpus", 2),
-                 lambda c: setattr(c.data, "out_scr", True)):
-        cfg = nerf_train_config(scene, tmp_path)
-        edit(cfg)
-        with pytest.raises(NotImplementedError):
-            NerfTrainer(cfg, device="cpu")
+    cfg = nerf_train_config(scene, tmp_path)
+    cfg.exp.gpus = 2
+    with pytest.raises(NotImplementedError):
+        NerfTrainer(cfg, device="cpu")
+    cfg = nerf_train_config(scene, tmp_path, use_fused_train=True)
+    cfg.data.out_scr = True
+    assert NerfTrainer(cfg, device="cpu").route == "plain"
 
 
 def test_cli_train_writes_last_checkpoint_and_resumes(scene, tmp_path):
