@@ -193,7 +193,28 @@ Phases (each prints its results; any failure exits non-zero):
    step), 2 steps on a ``data.datasets`` mixed config of the two, and
    ``benchmark_nerfmatch --iters 2`` with the CLI's checkpoint over both
    scenes (two queries each); (8d) the kernel summary's rows of kernels 1,
-   1b, 2, 3, 4 and 7-9 carry phase 8's launches (``launches_phase8``).
+   1b, 2, 3, 4 and 7-9 carry phase 8's launches (``launches_phase8``);
+9. the parallel package: (9a) ``cli.train_nerf --debug --max_epochs 1`` on
+   a room scene under the ``NERFMATCH_*`` contract at world size 1 (an NCCL
+   group: backend, world and ``gpu_num`` asserted; kernels 5, 6 and 2
+   counted), then one ``NerfTrainer`` step with the group against the same
+   step without one, bit for bit; (9b) this script started twice more as
+   two gloo ranks on cuda:0 (``--phase9-rank``; killed past
+   ``PHASE9_RANK_TIMEOUT_S``): 3 full-width NeRF steps on halves of 9216
+   room rays and 2 production c2f steps on one pair each of a batch whose
+   pairs hold 900 and 300 GT matches, held to this process's steps over
+   the whole batches (``PHASE9_LOSS_RTOL``, ``PHASE9_UPDATE_COS``), with
+   each rank's ms a step and peak memory, and the same c2f steps with
+   per-rank loss normalizers as a control that must fail those limits;
+   (9c) on a mesh of ``[cuda:0, cuda:0]`` (``scripts/dp_nccl_probe.py``
+   runs it over every GPU of a host): ``sharded_point_match`` and
+   ``eval_match_point_sharded`` of the production c2f matcher at 3600
+   image tokens x 14,400 points, and ``forward_multi_pair(pair_mesh=)`` at
+   K = 4 and 3, each with valid and j_ids identical to the dense path,
+   mconf within 1e-6 and expec_f within 1e-5; ``make_sharded_render`` on
+   9216 room rays at the serving default bit-identical to
+   ``fused_predict``; the kernel rows carry phase 9's launches
+   (``launches_phase9``).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -223,6 +244,7 @@ list carry phase 6's launches a merged training step at that shape
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -3833,10 +3855,506 @@ def phase_multiscene_training(renderer, nerf_cfg, config, root, dev, seed,
                 steps=steps, bench=bench)
 
 
+# Phase 9: data-parallel training and sharded evaluation.  Each pair of
+# 9b's worker ranks is killed and the phase fails past this many seconds.
+PHASE9_RANK_TIMEOUT_S = 600
+# 9b: SGD (Adam's per-element normalization turns a reduction-order
+# difference in a near-zero gradient into a whole step of the learning rate).
+PHASE9_NERF_LR, PHASE9_C2F_LR = 0.1, 1.0
+# 9b's limits on the ranks against one process: the loss's relative gap and
+# the cosine of the parameter update (measured on an H100: gaps <= 1.2e-6,
+# cosines >= 0.9999998).  The per-rank-normalized c2f step (a plain DDP
+# step's mean of the ranks' means) runs as a control and must fail them.
+PHASE9_LOSS_RTOL, PHASE9_UPDATE_COS = 1e-5, 0.99999
+
+
+def dp_nerf_steps(inp, dev, rows):
+    """Phase 9b's NeRF: a full-width ``NerfTrainer`` (seeded) takes one step
+    on ``rows`` of each of ``inp``'s global batches (this process's data-
+    parallel group, if any) -> losses, final weights (on the host), ms a
+    step of the steps after the first, peak memory."""
+    from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
+
+    trainer = NerfTrainer(inp["nerf_cfg"], device=dev, seed=inp["seed"])
+    gen = torch.Generator(dev).manual_seed(inp["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for rays, rgbs in inp["nerf_batches"]:
+        rays, rgbs = rays[rows].to(dev), rgbs[rows].to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(rays, rgbs, gen)["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return dict(losses=losses, ms=float(np.mean(secs[1:])) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                state={k: v.cpu() for k, v in
+                       trainer.renderer.state_dict().items()})
+
+
+def dp_c2f_steps(inp, dev, rows, keep_state=True, per_rank=False):
+    """Phase 9b's matcher: the production c2f matcher (seeded) takes
+    ``C2FTrainStep`` steps on ``rows`` of ``inp``'s batch of 2 pairs with
+    SGD (the group of this process, if any) -> losses, final weights,
+    ms a step after the first, peak memory.  ``per_rank``: the control,
+    every loss divided by this rank's counts, as a plain DDP step divides
+    (the gradient sum over the ranks is then the mean of their means)."""
+    from unittest import mock
+
+    from nerfmatch_tpu_torch.parallel.distributed import DataGroup
+    from nerfmatch_tpu_torch.utils import metrics
+    from nerfmatch_tpu_torch.train.matcher_trainer import (C2FTrainStep,
+                                                           build_matcher)
+    from nerfmatch_tpu_torch.utils.optim import trainable_parameters
+
+    model = build_matcher(inp["c2f_cfg"], False,
+                          torch.Generator().manual_seed(inp["seed"])).to(dev)
+    opt = torch.optim.SGD(trainable_parameters(model), lr=PHASE9_C2F_LR)
+    step = C2FTrainStep(model, opt, generator=torch.Generator(dev).manual_seed(
+        inp["seed"]), group=DataGroup.current())
+    batch = {k: v[rows].to(dev) for k, v in inp["c2f_batch"].items()}
+    local_counts = mock.patch.object(
+        metrics, "_global_count",
+        lambda count, group=None: count if group is None
+        else count * group.world)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(inp["c2f_steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with local_counts if per_rank else contextlib.nullcontext():
+            losses.append(float(step.step(batch)["loss"]))
+        secs.append(time.perf_counter() - t0)
+    return dict(losses=losses, ms=float(np.mean(secs[1:])) * 1e3,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                state={k: v.detach().cpu() for k, v in
+                       model.state_dict().items()} if keep_state else None)
+
+
+def phase9_rank(rank, world, backend, port, work):
+    """One rank of phase 9b (``chip_smoke.py --phase9-rank R --phase9-world
+    W --phase9-backend B --phase9-port P --phase9-dir D``): a group of W
+    over backend B (gloo: every rank on cuda:0; nccl: rank R on cuda:R),
+    the NeRF and c2f steps on this rank's block -> ``D/rank<R>.pt``."""
+    import torch.distributed as dist
+
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed)
+    from nerfmatch_tpu_torch.utils import resolve_device
+
+    gpu = rank if backend == "nccl" else 0
+    dev = resolve_device(f"cuda:{gpu}")
+    maybe_initialize_distributed(
+        {"NERFMATCH_COORDINATOR": f"127.0.0.1:{port}",
+         "NERFMATCH_NUM_PROCESSES": str(world),
+         "NERFMATCH_PROCESS_ID": str(rank), "LOCAL_RANK": str(gpu)},
+        device="cuda", backend=backend)
+    assert dist.get_backend() == backend and dist.get_world_size() == world
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    n = len(inp["nerf_batches"][0][0]) // world
+    out = {}
+    for name, fn in (("nerf", lambda: dp_nerf_steps(
+            inp, dev, slice(rank * n, (rank + 1) * n))),
+                     ("c2f", lambda: dp_c2f_steps(
+            inp, dev, slice(rank, rank + 1), keep_state=rank == 0)),
+                     ("c2f_per_rank", lambda: dp_c2f_steps(
+            inp, dev, slice(rank, rank + 1), keep_state=rank == 0,
+            per_rank=True))):
+        reset_launch_counts()
+        out[name] = fn()
+        out[name]["launches"] = {k: v for k, v in LAUNCHES.items() if v}
+        if rank:
+            out[name]["state"] = None
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def update_agreement(got, want, start):
+    """(cosine, largest element gap over the largest update) of two
+    trainings' parameter updates from ``start``, over every float tensor."""
+    keys = [k for k in start if start[k].is_floating_point()]
+    d_got = torch.cat([(got[k] - start[k]).double().reshape(-1) for k in keys])
+    d_want = torch.cat([(want[k] - start[k]).double().reshape(-1)
+                        for k in keys])
+    cos = float(d_got @ d_want / (d_got.norm() * d_want.norm()))
+    return cos, float((d_got - d_want).abs().max() / d_want.abs().max())
+
+
+def phase9_nccl_cli(renderer, dev, seed, root):
+    """9a: ``train_nerf`` under the JAX package's launch contract at world
+    size 1 (an NCCL group), 10 steps of 9216 rays at full width on the room
+    scene; one step with the group against the same step without one, on
+    the same batch and generator -> the kernels' launches in the CLI."""
+    import os
+
+    import torch.distributed as dist
+
+    from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
+    from nerfmatch_tpu_torch.config import load_yaml_config, save_config
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
+
+    write_room_scene(renderer, dev, root)
+    cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
+    cfg.data.data_dir = str(root)
+    cfg.data.scene = "room"
+    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+    cfg.exp.odir = str(root / "out")
+    save_config(root / "cfg.yaml", cfg)
+    ds = init_data_loader(cfg.data, cfg.exp.batch_size, split="train").dataset
+    b = next(ds.ray_batches(cfg.exp.batch_size, np.random.default_rng(seed)))
+    rays, rgbs = (torch.as_tensor(b[k], device=dev) for k in ("rays", "rgbs"))
+
+    def one_step():
+        trainer = NerfTrainer(cfg, device=dev, seed=seed)
+        m = trainer.train_step(rays, rgbs,
+                               torch.Generator(dev).manual_seed(seed))
+        return float(m["loss"]), trainer.renderer.state_dict()
+
+    alone = one_step()
+    env = {"NERFMATCH_COORDINATOR": f"127.0.0.1:{free_port()}",
+           "NERFMATCH_NUM_PROCESSES": "1", "NERFMATCH_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out_cfg, _ = train_cli(["--config", str(root / "cfg.yaml"), "--debug",
+                                "--max_epochs", "1"])
+        cli_s = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
+        backend, world = dist.get_backend(), dist.get_world_size()
+        grouped = one_step()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    equal = grouped[0] == alone[0] and all(
+        torch.equal(grouped[1][k], v) for k, v in alone[1].items())
+    log(f"phase 9a: train_nerf under NERFMATCH_* at world 1: backend "
+        f"{backend}, gpu_num {out_cfg.gpu_num}, 10 steps of 9216 rays + "
+        f"validation in {cli_s:.1f} s, launches {json.dumps(launches)}; one "
+        f"step with the NCCL group vs without: loss {grouped[0]!r} vs "
+        f"{alone[0]!r}, weights bit-identical: {equal}")
+    assert (backend, world, out_cfg.gpu_num) == ("nccl", 1, 1), \
+        (backend, world, out_cfg.gpu_num)
+    assert equal, "a world-1 step with the group differs from one without"
+    missing = [k for k, v in launches.items() if not v]
+    assert not missing, f"9a launched no {missing}"
+    return launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def c2f_dp_batch(cfg, seed, size=480, pairs=2):
+    """A c2f training batch of ``pairs`` pairs at the production shapes
+    (3600 image tokens, 3600 points) whose pairs hold 900, 300, 600, 150,
+    900, ... GT matches."""
+    g = torch.Generator().manual_seed(seed)
+    M = N = (size // 8) ** 2
+    ys, xs = torch.meshgrid(torch.arange(size // 8), torch.arange(size // 8),
+                            indexing="ij")
+    pt2d = torch.stack([xs, ys], -1).reshape(-1, 2).float() * 8 + 4
+    conf_gt = torch.zeros(pairs, M, N)
+    for b in range(pairs):
+        n_pos = (900, 300, 600, 150)[b % 4]
+        rows = torch.randperm(M, generator=g)[:n_pos]
+        conf_gt[b, rows, torch.randperm(N, generator=g)[:n_pos]] = 1.0
+    return {"image": torch.rand(pairs, size, size, 3, generator=g),
+            "pt_feat": torch.randn(pairs, N, cfg.model.pt_dim, generator=g),
+            "pt3d": torch.randn(pairs, N, 3, generator=g) * 0.3,
+            "im_mask": torch.ones(pairs, M), "pt_mask": torch.ones(pairs, N),
+            "conf_gt": conf_gt,
+            "pt2d": pt2d.expand(pairs, M, 2).contiguous(),
+            "pt2d_proj": torch.rand(pairs, N, 2, generator=g) * size}
+
+
+def phase9_ranks(dev, seed, root, world=2, backend="gloo"):
+    """9b: ``world`` ranks in subprocesses (gloo: all on cuda:0, as the
+    smoke runs them; nccl: one a GPU, ``scripts/dp_nccl_probe.py``), held
+    to this process's steps over the same global batches -> their launches
+    and figures."""
+    from nerfmatch_tpu_torch.config import load_yaml_config
+
+    nerf_cfg, _ = load_yaml_config(
+        ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
+    nerf_cfg.optim.optimizer, nerf_cfg.optim.lr = "sgd", PHASE9_NERF_LR
+    c2f_cfg, _ = load_yaml_config(
+        ROOT / "configs/nerfmatch/nerfmatch_7scenes_sfm_c2f.yaml")
+    renderer = load_room_renderer(dev)
+    batches = []
+    for i in range(3):
+        rays = camera_rays(room_c2w(0.7 + 0.9 * i), 96, dev)
+        with torch.no_grad():
+            rgbs = renderer.fused_predict(rays)["rgb_fine"].clamp(0, 1)
+        batches.append((rays.cpu(), rgbs.cpu()))
+    del renderer
+    inp = {"seed": seed, "nerf_cfg": nerf_cfg, "nerf_batches": batches,
+           "c2f_cfg": c2f_cfg,
+           "c2f_batch": c2f_dp_batch(c2f_cfg, seed, pairs=world),
+           "c2f_steps": 2}
+    every = slice(None)
+    one = {"nerf": dp_nerf_steps(inp, dev, every)}
+    torch.cuda.empty_cache()
+    one["c2f"] = dp_c2f_steps(inp, dev, every)
+    torch.cuda.empty_cache()
+    torch.save(inp, root / "inputs.pt")
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phase9-rank",
+         str(r), "--phase9-world", str(world), "--phase9-backend", backend,
+         "--phase9-port", str(port), "--phase9-dir", str(root)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    deadline = t0 + PHASE9_RANK_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SystemExit(f"phase 9b: ranks passed {PHASE9_RANK_TIMEOUT_S} s")
+    ranks_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise SystemExit("phase 9b: a rank failed:\n" + "\n".join(
+            f"--- rank {r} ---\n{log_[-3000:]}" for r, log_ in
+            enumerate(logs)))
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    start = {"nerf": None, "c2f": None}
+    from nerfmatch_tpu_torch.train.matcher_trainer import build_matcher
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+
+    r0 = NerfRenderer(nerf_cfg)
+    r0.init_params(torch.Generator().manual_seed(seed))
+    start["nerf"] = r0.state_dict()
+    start["c2f"] = build_matcher(c2f_cfg, False, torch.Generator().manual_seed(
+        seed)).state_dict()
+    res = {}
+
+    def agreement(a, b, start):
+        cos, gap = update_agreement(a["state"], b["state"], start)
+        loss_gap = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                           b["losses"]))
+        held = loss_gap < PHASE9_LOSS_RTOL and cos > PHASE9_UPDATE_COS
+        return cos, gap, loss_gap, held
+
+    for name in ("nerf", "c2f"):
+        a, b = ranks[0][name], one[name]
+        cos, gap, loss_gap, held = agreement(a, b, start[name])
+        res[name] = dict(
+            update_cosine=cos, update_max_gap=gap, loss_rel_gap=loss_gap,
+            losses_ranks=a["losses"], losses_one_process=b["losses"],
+            ms_per_step_rank=[r[name]["ms"] for r in ranks],
+            ms_per_step_one_process=b["ms"],
+            peak_gib_rank=[r[name]["peak_gib"] for r in ranks],
+            peak_gib_one_process=b["peak_gib"],
+            launches_rank=[r[name]["launches"] for r in ranks])
+        where = "cuda:0" if backend == "gloo" else f"{world} GPUs"
+        log(f"phase 9b {name}: {world} {backend} ranks on {where} vs one "
+            "process: " + json.dumps({k: v for k, v in res[name].items()
+                                      if k != "launches_rank"}))
+        assert all(r[name]["losses"] == ranks[0][name]["losses"]
+                   for r in ranks)
+        assert held, (name, loss_gap, cos)
+    cos, gap, loss_gap, held = agreement(ranks[0]["c2f_per_rank"], one["c2f"],
+                                         start["c2f"])
+    res["c2f_per_rank_control"] = dict(update_cosine=cos, update_max_gap=gap,
+                                       loss_rel_gap=loss_gap)
+    log(f"phase 9b control: per-rank-normalized c2f ranks vs one process: "
+        + json.dumps(res["c2f_per_rank_control"]) + " (must fail the limits "
+        f"loss < {PHASE9_LOSS_RTOL}, cosine > {PHASE9_UPDATE_COS})")
+    assert not held, ("the per-rank-normalized control passed 9b's limits",
+                      loss_gap, cos)
+    log(f"phase 9b: the {world} ranks (start, import, steps) in "
+        f"{ranks_s:.1f} s" + ("; their gradient all-reduce runs over gloo "
+                              "through the host: these times say nothing of "
+                              "NCCL on a multi-GPU host"
+                              if backend == "gloo" else ""))
+    res["ranks_s"] = ranks_s
+    return res
+
+
+def phase9_sharded_eval(renderer, nerf_cfg, dev, seed, size=480,
+                        devices=None):
+    """9c: sharded evaluation on a mesh of ``devices`` (default: ``dev``
+    twice) against the dense paths on ``dev`` -> figures and the kernels'
+    launches."""
+    import copy
+    import dataclasses
+
+    from nerfmatch_tpu_torch.config import load_yaml_config
+    from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
+    from nerfmatch_tpu_torch.nerf.renderer import serving_int8_mode
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.parallel.mesh import make_mesh
+    from nerfmatch_tpu_torch.parallel.point_sharding import sharded_point_match
+    from nerfmatch_tpu_torch.parallel.render_sharding import \
+        make_sharded_render
+
+    cfg, _ = load_yaml_config(
+        ROOT / "configs/nerfmatch/nerfmatch_7scenes_sfm_c2f.yaml")
+    model = NeRFMatchEvaluator(
+        cfg, device=dev, generator=torch.Generator().manual_seed(seed)).model
+    mesh = make_mesh(devices=devices or [dev, dev])
+    where = "[" + ", ".join(map(str, mesh.devices)) + "]"
+    g = torch.Generator().manual_seed(seed + 1)
+    M, N = (size // 8) ** 2, MERGED_S
+    img = torch.rand(1, size, size, 3, generator=g).to(dev)
+    feat = torch.randn(1, N, cfg.model.pt_dim, generator=g).to(dev)
+    pts = (torch.randn(1, N, 3, generator=g) * 0.3).to(dev)
+    pt_mask = (torch.rand(1, N, generator=g) > 0.05).float().to(dev)
+    kw = dict(pt_mask=pt_mask, mutual=True, top_k=2048)
+    res = {}
+
+    def held(got, want, tag):
+        v = want["valid"]
+        same_valid = torch.equal(got["valid"], v)
+        same_j = torch.equal(got["j_ids"][v], want["j_ids"][v])
+        conf = float((got["mconf"] - want["mconf"]).abs().max())
+        row = dict(valid=int(v.sum()), same_valid=same_valid, same_j=same_j,
+                   mconf_err=conf)
+        if "expec_f" in got and "expec_f" in want:
+            e = got["expec_f"].reshape(*v.shape, 3)[v] \
+                - want["expec_f"].reshape(*v.shape, 3)[v]
+            row["expec_f_err"] = float(e.abs().max()) if e.numel() else 0.0
+        res[tag] = row
+        assert same_valid and same_j and conf <= 1e-6 and \
+            row.get("expec_f_err", 0.0) <= 1e-5, (tag, row)
+
+    def sync():
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    def timed(fn, warm=True):
+        """fn's output and its ms on the host clock, every mesh device
+        synchronized; after one call untimed (model copies, first
+        launches on a card) unless ``warm`` is False."""
+        if warm:
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launch_counts()
+    with torch.no_grad():
+        dense, dense_ms = timed(lambda: model.eval_match(img, feat, pts, **kw))
+        im_cfeat, pt_cfeat, _ = model._point_sharded_feats(img, feat, pts)
+        spm = sharded_point_match(mesh, im_cfeat, pt_cfeat, model.temperature,
+                                  pt_mask=pt_mask, temp_type=model.cfg.temp_type,
+                                  mutual=True)
+        held(spm, dense, "sharded_point_match")
+        ps, ps_ms = timed(lambda: model.eval_match_point_sharded(
+            mesh, img, feat, pts, **kw))
+        held(ps, dense, "eval_match_point_sharded")
+        res["ms"] = {"dense": dense_ms, "point_sharded": ps_ms}
+        for K in (4, 3):
+            kfeat = feat[:, :K * M].reshape(1, K, M, -1)
+            kpts = pts[:, :K * M].reshape(1, K, M, 3)
+            kmask = pt_mask[:, :K * M].reshape(1, K, M)
+            kkw = dict(kw, pt_mask=kmask)
+            serial, s_ms = timed(lambda: model.eval_match(img, kfeat, kpts,
+                                                          **kkw))
+            shard, p_ms = timed(lambda: model.eval_match(
+                img, kfeat, kpts, pair_mesh=mesh, **kkw))
+            for k in range(K):
+                held({n: shard[n][k] for n in ("j_ids", "mconf", "valid",
+                                               "expec_f")},
+                     {n: serial[n][k] for n in ("j_ids", "mconf", "valid",
+                                                "expec_f")},
+                     f"pair_sharded K={K} pair {k}")
+            res["ms"][f"pairs_serial K={K}"] = s_ms
+            res["ms"][f"pair_sharded K={K}"] = p_ms
+    match_launches = {k: v for k, v in LAUNCHES.items() if v}
+
+    serving = copy.deepcopy(renderer)
+    serving.cfg = dataclasses.replace(serving.cfg,
+                                      trunk_int8=serving_int8_mode(nerf_cfg))
+    serving.act_scales = None
+    rays = camera_rays(room_c2w(1.1), 96, dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        render = make_sharded_render(mesh, serving)
+        got = render(rays)      # calibrates the int8 scales of both
+        want = serving.fused_predict(rays)
+        render_launches = {k: v for k, v in LAUNCHES.items() if v}
+        ms = {"sharded": [], "fused_predict": []}
+        for name in ("sharded", "fused_predict", "fused_predict", "sharded"):
+            fn = (lambda: render(rays)) if name == "sharded" \
+                else (lambda: serving.fused_predict(rays))
+            ms[name].append(timed(fn, warm=False)[1])
+    bits = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    res["render"] = dict(bit_identical=bits, trunk_int8=serving.cfg.trunk_int8,
+                         **{f"{k}_ms": v for k, v in ms.items()})
+    log(f"phase 9c: sharded evaluation on {where}: " + json.dumps(res)
+        + f"; launches: matching {json.dumps(match_launches)}, render "
+        f"{json.dumps(render_launches)}")
+    assert all(bits.values()), bits
+    launches = {k: match_launches.get(k, 0) + render_launches.get(k, 0)
+                for k in set(match_launches) | set(render_launches)}
+    return res, launches
+
+
+def phase_parallel(renderer, nerf_cfg, dev, seed):
+    """Phase 9 -> launches by kernel and sub-phase (its figures are in the
+    log)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        (root / "9a").mkdir()
+        (root / "9b").mkdir()
+        cli = phase9_nccl_cli(renderer, dev, seed, root / "9a")
+        torch.cuda.empty_cache()
+        two = phase9_ranks(dev, seed, root / "9b")
+        torch.cuda.empty_cache()
+        _, eval_launches = phase9_sharded_eval(renderer, nerf_cfg, dev,
+                                               seed)
+    by_kernel = {}
+    for k, v in cli.items():
+        by_kernel.setdefault(k, {})["9a_cli_10_steps"] = v
+    for name in ("nerf", "c2f"):
+        for r, counts in enumerate(two[name]["launches_rank"]):
+            for k, v in counts.items():
+                by_kernel.setdefault(k, {})[f"9b_{name}_rank{r}"] = v
+    for k, v in eval_launches.items():
+        by_kernel.setdefault(k, {})["9c_sharded_eval"] = v
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return by_kernel
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    # Phase 9b's ranks: this script started again by itself.
+    p.add_argument("--phase9-rank", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--phase9-world", type=int, default=2,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--phase9-backend", default="gloo", help=argparse.SUPPRESS)
+    p.add_argument("--phase9-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--phase9-dir", type=Path, default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args()
+    if args.phase9_rank is not None:
+        phase9_rank(args.phase9_rank, args.phase9_world, args.phase9_backend,
+                    args.phase9_port, args.phase9_dir)
+        return
 
     smi = phase_environment()
     import copy
@@ -3942,6 +4460,12 @@ def main():
         "8a": variants["8a"], "8b": {k: v for k, v in variants["8b"].items()
                                      if k != "launches"},
         "8c": {k: multiscene[k] for k in ("ms_per_step", "peak_gib")}}))
+
+    torch.cuda.empty_cache()
+    phase9_launches = phase_parallel(renderer, nerf_cfg, dev, args.seed)
+    for n, counts in phase9_launches.items():
+        if n in rows:
+            rows[n]["launches_phase9"] = counts
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -17,8 +17,9 @@ query a batch, and so does ``--pair_topk K > 1`` (``NeRFMatchMultiPair``:
 each query against its K retrieved frames' points, stacked, or merged with
 ``--sample_mode rand --sample_pts N``).  ``--visualize`` (bs=1 whatever
 ``--eval_bs`` says) writes a GIF of iNeRF's overlay frames for each query
-over 50 cm under ``<cache dir>/visualization/<scene>/``.  The multi-GPU
-flags raise: ``--point_shard``, ``--pair_shard``.
+over 50 cm under ``<cache dir>/visualization/<scene>/``.  ``--point_shard``
+and ``--pair_shard`` split matching over the local GPUs (one process; on one
+GPU they change nothing).
 """
 
 from __future__ import annotations
@@ -70,11 +71,6 @@ def merge_scene_metrics(cache_root, scenes, conf="rth10test_coarse_colmap",
 
 
 def eval_ckpt(args):
-    for flag, what in ((args.point_shard, "--point_shard"),
-                       (args.pair_shard, "--pair_shard")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported (ROADMAP: "
-                                      f"Queue 1, item 10)")
     evaluator = load_nerfmatch_from_ckpt(args.ckpt, args, arg_mask=args.mask,
                                          device=args.device)
     if not evaluator.coarse_only:
@@ -180,11 +176,17 @@ def build_parser():
     p.add_argument("--retrieval_only", action="store_true")
     p.add_argument("--match_oracle", action="store_true")
     p.add_argument("--point_shard", action="store_true",
-                   help="Multi-GPU point sharding (not ported: raises; "
-                        "ROADMAP Queue 1 item 10).")
+                   help="Split single-pair matching over the local GPUs "
+                        "(merged multi-pair point clouds): the coarse dual "
+                        "softmax over the POINT axis and, for c2f models, "
+                        "the fine stage over the MATCH axis "
+                        "(parallel/point_sharding.py; results equal the "
+                        "dense path).  One GPU, or points that do not "
+                        "divide over the GPUs: the dense path.")
     p.add_argument("--pair_shard", action="store_true",
-                   help="Multi-GPU pair sharding (not ported: raises; "
-                        "ROADMAP Queue 1 item 10).")
+                   help="Split the pairs of multi-pair matching "
+                        "(--pair_topk K > 1) over the local GPUs; one GPU: "
+                        "the pairs one after the other.")
     p.add_argument("--visualize", action="store_true",
                    help="a GIF of the iNeRF overlay frames (--inerf) for "
                         "each query over 50 cm")

@@ -2,10 +2,16 @@
 
     python -m nerfmatch_tpu_torch.cli.train_nerf --config configs/nerf/nerf_7scenes_mip_sfm.yaml
 
-Same flags as the JAX CLI, without its compile cache and distributed
-initialization; ``--detect_anomaly`` turns on
-``torch.autograd.set_detect_anomaly``, ``--device cpu`` trains on the CPU
-(the default is the GPU).
+Same flags as the JAX CLI, without its compile cache; ``--detect_anomaly``
+turns on ``torch.autograd.set_detect_anomaly``, ``--device cpu`` trains on
+the CPU (the default is the GPU).  Several GPUs train one process each
+(``exp.batch_size`` stays the global batch):
+
+    torchrun --nproc_per_node=N -m nerfmatch_tpu_torch.cli.train_nerf --config ...
+
+or the JAX package's contract (``NERFMATCH_COORDINATOR=host:port``,
+``NERFMATCH_NUM_PROCESSES``, ``NERFMATCH_PROCESS_ID`` in each process's
+environment; ``parallel.distributed.maybe_initialize_distributed``).
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import argparse
 
 from ..config import load_yaml_config, merge_configs
+from ..parallel.distributed import maybe_initialize_distributed
 from ..train.nerf_trainer import train
 
 
@@ -25,8 +32,9 @@ def build_parser():
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--prefix", type=str, default=None)
     parser.add_argument("--gpus", type=int, default=None,
-                        help="Devices to train on (only 1 is ported; "
-                             "ROADMAP Queue 1 item 10).")
+                        help="Cap on the GPUs to train on (default: every "
+                             "launched process, one a GPU); a cap below the "
+                             "launched processes raises.")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu.")
@@ -38,6 +46,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed(device=args.device)
     config, _ = load_yaml_config(args.config)
     config = merge_configs(config, args)
     if args.scene is not None:

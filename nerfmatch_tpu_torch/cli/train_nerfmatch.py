@@ -5,6 +5,11 @@ data flags into it.
 
     python -m nerfmatch_tpu_torch.cli.train_nerfmatch \\
         --config configs/nerfmatch/nerfmatch_7scenes_sfm_c2f.yaml --stage c2f
+
+Several GPUs train one process each, launched by ``torchrun
+--nproc_per_node=N -m nerfmatch_tpu_torch.cli.train_nerfmatch ...`` or
+with the ``NERFMATCH_*`` contract (``parallel.distributed``); ``--batch_size``
+stays the global batch and must divide over the processes.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import argparse
 import torch
 
 from ..config import load_yaml_config, merge_configs
+from ..parallel.distributed import maybe_initialize_distributed
 from ..train.matcher_trainer import train_c2f, train_coarse
 
 
@@ -58,8 +64,11 @@ def build_parser():
     p.add_argument("--train_pair_txt", type=str, default=None)
     p.add_argument("--prefix", type=str, default=None)
     p.add_argument("--gpus", type=int, default=None,
-                   help="Devices; more than 1 is not ported and raises "
-                        "(ROADMAP Queue 1 item 10).")
+                   help="Cap on the GPUs to train on (default: every "
+                        "launched process, one a GPU; torchrun or the "
+                        "NERFMATCH_* contract); a cap below the launched "
+                        "processes raises, and so does a --batch_size (the "
+                        "global batch) that does not divide over them.")
     p.add_argument("--scene_dir", type=str, default=None)
     p.add_argument("--scenes", type=str, nargs="*", default=None)
     p.add_argument("--resume_version", type=str, default=None)
@@ -108,6 +117,7 @@ def apply_update_conf(config, args):
 
 def main(argv=None, stage=None):
     args = build_parser().parse_args(argv)
+    maybe_initialize_distributed(device=args.device)
     if stage is not None:
         args.stage = stage
     config, _ = load_yaml_config(args.config)

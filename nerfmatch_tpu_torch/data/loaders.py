@@ -20,6 +20,7 @@ from argparse import Namespace
 import numpy as np
 
 from ..config import merge_configs
+from ..parallel.distributed import local_slice, process_info
 from .match_dataset import NeRFMatchBase, NeRFMatchMultiPair, NeRFMatchPair
 from .nerf_dataset import NerfBaseDataset
 
@@ -62,15 +63,23 @@ def _collate(samples):
 class DataLoader:
     """Shuffled (or ordered) index batches collated into numpy dicts;
     ``num_workers > 0`` builds them in one background thread, in order, two
-    batches ahead.  A dataset error reaches the consumer."""
+    batches ahead.  A dataset error reaches the consumer.
+
+    Data-parallel training: ``batch_size`` is the global batch, and process
+    ``process_index`` of ``process_count`` loads its contiguous block of
+    every global batch (every process shuffles with the same seed)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
-                 num_workers: int = 0, drop_last: bool = False, seed: int = 0):
+                 num_workers: int = 0, drop_last: bool = False, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        assert batch_size % process_count == 0, \
+            f"global batch {batch_size} % processes {process_count} != 0"
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = num_workers > 0
+        self.rows = local_slice(batch_size, process_index, process_count)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -87,7 +96,7 @@ class DataLoader:
                if self.drop_last else len(idx))
         for i in range(0, end, self.batch_size):
             yield _collate([self.dataset[int(j)]
-                            for j in idx[i:i + self.batch_size]])
+                            for j in idx[i:i + self.batch_size][self.rows]])
 
     @staticmethod
     def _put(q, stop, item) -> bool:
@@ -179,7 +188,8 @@ def init_data_loader(config, batch_size: int = 1, split: str = "train",
     """The loader of ``config``: a mixed config (``datasets``), a
     multi-scene one (``scenes``, any length) or one dataset, in the JAX
     order; the train split shuffled in whole batches, the others in order,
-    one sample a batch."""
+    one sample a batch; the train loader loads this process's block of each
+    global batch (``parallel.distributed.process_info``)."""
     if hasattr(config, "datasets"):
         dataset = init_mixed_dataset(config, split=split, debug=debug)
     elif hasattr(config, "scenes"):
@@ -187,7 +197,9 @@ def init_data_loader(config, batch_size: int = 1, split: str = "train",
     else:
         dataset = _dataset_class(config)(config, split=split, debug=debug)
     if split == "train":
+        pid, pcount = process_info()
         return DataLoader(dataset, batch_size=batch_size, shuffle=True,
-                          num_workers=num_workers, drop_last=True)
+                          num_workers=num_workers, drop_last=True,
+                          process_index=pid, process_count=pcount)
     return DataLoader(dataset, batch_size=1, shuffle=False,
                       num_workers=num_workers)

@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 from PIL import Image
 
+from ..parallel.distributed import process_info
 from .loading import (load_frame_3d, load_retrieval_pairs,
                       load_topk_retrieval_pairs, parse_multipair_ids_balanced,
                       parse_pair_ids, parse_pair_ids_balanced)
@@ -148,9 +149,10 @@ class NeRFMatchPair(NeRFMatchBase):
         self.epoch_sample_num = (getattr(config, "epoch_sample_num", -1)
                                  if split == "train" else -1)
         # Seeded epoch resampling: exp.seed (copied into the data config by
-        # the trainer) and the process index, 0 in one process.
+        # the trainer) and the process index, so ranks draw distinct pairs.
         seed = int(getattr(config, "seed", 0) or 0)
-        self.rng = np.random.default_rng(np.random.SeedSequence([seed, 0]))
+        self.rng = np.random.default_rng(
+            np.random.SeedSequence([seed, process_info()[0]]))
 
     def _load_frames(self):
         """The reference and query annotations, each sorted by path."""

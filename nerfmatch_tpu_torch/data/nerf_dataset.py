@@ -20,6 +20,7 @@ import numpy as np
 from PIL import Image
 
 from ..nerf.scene import compute_scene_normalization_fst
+from ..parallel.distributed import local_slice, process_info
 from .loading import load_retrieval_pair_ids
 
 
@@ -382,23 +383,19 @@ class NerfBaseDataset:
 
     def ray_batches(self, batch_size: int, rng: np.random.Generator,
                     drop_last: bool = True):
-        """Shuffled fixed-size ray batches over the preloaded train rays
-        (one process: the multi-process slicing of the JAX package is not
-        ported and raises)."""
-        import torch.distributed as dist
-
+        """Shuffled fixed-size ray batches over the preloaded train rays.
+        ``batch_size`` is the global batch: every process draws the same
+        permutation (the trainer seeds ``rng`` alike on every rank) and
+        yields its contiguous block of each batch (``local_slice``)."""
         if self.split != "train":
             raise ValueError("ray_batches serves the train split")
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process ray batches are not ported (ROADMAP: "
-                "Queue 1, item 10)")
+        pid, pcount = process_info()
         n = len(self.all_rays)
         perm = rng.permutation(n)
         end = n - (n % batch_size) if drop_last else n
         for i in range(0, end, batch_size):
             idx = perm[i : i + batch_size]
+            idx = idx[local_slice(len(idx), pid, pcount)]
             batch = {
                 "rays": self.all_rays[idx],
                 "rgbs": self.all_rgbs[idx],

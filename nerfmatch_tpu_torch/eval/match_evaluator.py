@@ -44,6 +44,7 @@ from ..data.match_dataset import NeRFMatchMultiPair
 from ..models.layers import init_params_
 from ..models.matcher_c2f import C2FMatcherConfig, NeRFMatcherMS
 from ..models.matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
+from ..parallel.mesh import make_mesh
 from ..pose import estimate_pose
 from ..train.checkpoint import load_reference_checkpoint
 from ..utils import get_logger, resolve_device
@@ -145,16 +146,39 @@ class NeRFMatchEvaluator:
         self.cache_dir = Path(ckpt.replace("checkpoints/", "")
                               .replace(".ckpt", "_eval_results"))
         self.timer = defaultdict(list)
+        # Sharded matching over the local GPUs, as the JAX evaluator's
+        # meshes (one device: the dense path): --point_shard splits the
+        # points of a single-pair match, --pair_shard the pairs of a
+        # multi-pair one.
+        n_dev = torch.cuda.device_count() if self.device.type == "cuda" \
+            else 1
+        self.point_shard_mesh = self.pair_shard_mesh = None
+        if n_dev > 1:
+            if getattr(config, "point_shard", False):
+                self.point_shard_mesh = make_mesh(data=n_dev)
+            if getattr(config, "pair_shard", False):
+                self.pair_shard_mesh = make_mesh(data=n_dev)
 
     def _t(self, x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     def _match(self, image, pt_feat, pt3d, im_mask, pt_mask, mutual,
                match_thres):
-        out = self.model.eval_match(
-            self._t(image), self._t(pt_feat), self._t(pt3d),
-            im_mask=self._t(im_mask), pt_mask=self._t(pt_mask), mutual=mutual,
-            match_thres=match_thres, top_k=self.max_matches)
+        """The matcher on a batch -> numpy outputs: point-sharded where
+        ``point_shard_mesh`` is set and the points divide over it (else
+        dense), multi-pair points over ``pair_shard_mesh``."""
+        args = (self._t(image), self._t(pt_feat), self._t(pt3d))
+        kw = dict(im_mask=self._t(im_mask), pt_mask=self._t(pt_mask),
+                  mutual=mutual, match_thres=match_thres,
+                  top_k=self.max_matches)
+        mesh = self.point_shard_mesh
+        if np.ndim(pt3d) == 4:
+            out = self.model.eval_match(*args, pair_mesh=self.pair_shard_mesh,
+                                        **kw)
+        elif mesh is not None and np.shape(pt3d)[1] % mesh.size == 0:
+            out = self.model.eval_match_point_sharded(mesh, *args, **kw)
+        else:
+            out = self.model.eval_match(*args, **kw)
         return {k: (v.cpu().numpy() if torch.is_tensor(v) else
                     {kk: vv.cpu().numpy() for kk, vv in v.items()})
                 for k, v in out.items()}

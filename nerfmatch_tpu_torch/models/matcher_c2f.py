@@ -153,27 +153,49 @@ class NeRFMatcherMS(NeRFMatcherCoarse):
 
     def forward_multi_pair(self, img, pt_feat, pt3d, im_mask=None,
                            pt_mask=None, mutual: bool = False,
-                           match_thres: float = 0.0):
+                           match_thres: float = 0.0, pair_mesh=None):
         """Top-k retrieval pairs, points (B, K, N, .): the two-scale image
         features once, then per pair the point path, the coarse matching
-        and the dense fine stage (every image token with its best point)
-        -> j_ids, mconf, valid stacked (K, B, M) and expec_f (K, B * M,
-        3)."""
-        im_cfeat0, fmap_f = self.extract_im_feat_ms(img)
-        B, M = im_cfeat0.shape[:2]
-        dev = im_cfeat0.device
-        b_ids = torch.arange(B, device=dev).repeat_interleave(M)
-        i_ids = torch.arange(M, device=dev).repeat(B)
-        outs = []
-        for im_cfeat, pt_cfeat, m in self._pair_matches(
-                im_cfeat0, pt_feat, pt3d, im_mask, pt_mask, mutual,
-                match_thres):
-            m["expec_f"] = self.forward_fine(
-                fmap_f, im_cfeat, pt_cfeat, b_ids, i_ids,
+        and the dense fine stage (every image token with its best point;
+        sharded over the pairs with ``pair_mesh``) -> j_ids, mconf, valid
+        stacked (K, B, M) and expec_f (K, B * M, 3)."""
+        def pair(model, shared, feat, p3d, p_mask):
+            im_cfeat0, fmap_f, i_mask = shared
+            B, M = im_cfeat0.shape[:2]
+            dev = im_cfeat0.device
+            im_cfeat, pt_cfeat, m = model._one_pair(
+                im_cfeat0, feat, p3d, i_mask, p_mask, mutual, match_thres)
+            m["expec_f"] = model.forward_fine(
+                fmap_f, im_cfeat, pt_cfeat,
+                torch.arange(B, device=dev).repeat_interleave(M),
+                torch.arange(M, device=dev).repeat(B),
                 m["j_ids"].reshape(-1), identity_list=True)
-            outs.append(m)
-        return {k: torch.stack([o[k] for o in outs])
-                for k in ("j_ids", "mconf", "valid", "expec_f")}
+            return m
+
+        return self._map_pairs(pair, (*self.extract_im_feat_ms(img), im_mask),
+                               pt_feat, pt3d, pt_mask, pair_mesh)
+
+    def _point_sharded_feats(self, img, pt_feat, pt3d):
+        im_cfeat, fmap_f = self.extract_im_feat_ms(img)
+        pt_cfeat = self.extract_pt_feat(pt_feat, pt3d)
+        return (*self.apply_coarse_former(im_cfeat, pt_cfeat), fmap_f)
+
+    def _sharded_fine(self, mesh, fmap_f, im_cfeat, pt_cfeat, j_ids):
+        """The dense fine stage of a point-sharded match, split over the
+        match axis (``make_sharded_fine_stage``; a copy of the model on
+        each device) -> expec_f (B * M, 3)."""
+        from ..parallel.mesh import replicas
+        from ..parallel.point_sharding import make_sharded_fine_stage
+
+        models = replicas(self, mesh)
+        fine = make_sharded_fine_stage(
+            mesh, lambda s, *a: models[s].forward_fine(*a))
+        B, M = j_ids.shape
+        dev = im_cfeat.device
+        return fine(fmap_f, im_cfeat, pt_cfeat,
+                    torch.arange(B, device=dev).repeat_interleave(M),
+                    torch.arange(M, device=dev).repeat(B),
+                    j_ids.reshape(-1).to(dev))
 
     def fine_coords(self, expec_f, mpt2d_c):
         """Window-normalized offsets -> image-resolution fine coords."""

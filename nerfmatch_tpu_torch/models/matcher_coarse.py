@@ -224,49 +224,74 @@ class NeRFMatcherCoarse(nn.Module):
             out.update(im_cfeat=im_n, pt_cfeat=pt_n)
         return out
 
-    def _pair_matches(self, im_cfeat0, pt_feat, pt3d, im_mask, pt_mask,
-                      mutual, match_thres):
-        """Each pair of multi-pair points (B, K, N, .; an absent mask is
-        ones) through the point path, the coarse former and the matching
-        against the image tokens ``im_cfeat0`` -> K tuples (im_cfeat,
-        pt_cfeat, matches)."""
+    def _one_pair(self, im_cfeat0, pt_feat, pt3d, im_mask, pt_mask, mutual,
+                  match_thres):
+        """One pair's points (B, N, .) through the point path, the coarse
+        former and the matching against the image tokens ``im_cfeat0`` ->
+        (im_cfeat, pt_cfeat, matches)."""
+        pt_cfeat = self.extract_pt_feat(pt_feat, pt3d)
+        im_cfeat, pt_cfeat = self.apply_coarse_former(im_cfeat0, pt_cfeat)
+        conf, _, _ = dual_softmax(im_cfeat, pt_cfeat, self.temperature,
+                                  im_mask, pt_mask,
+                                  temp_type=self.cfg.temp_type)
+        return im_cfeat, pt_cfeat, extract_mutual_matches(
+            conf, mutual=mutual, threshold=match_thres)
+
+    def _map_pairs(self, pair_fn, shared, pt_feat, pt3d, pt_mask, pair_mesh):
+        """``pair_fn(model, shared, ipt_feat, ipt3d, ipt_mask)`` for each pair
+        of multi-pair points (B, K, N, .; an absent mask is ones), on the
+        model's device or, with a ``pair_mesh`` of more than one device,
+        sharded over its pairs (``parallel.pair_sharding``; the image-side
+        tensors ``shared`` and the model copied to each device) -> dict of
+        the outputs stacked (K, ...)."""
         if pt_mask is None:
             pt_mask = pt3d.new_ones(pt3d.shape[:3])
-        for k in range(pt3d.shape[1]):
-            pt_cfeat = self.extract_pt_feat(pt_feat[:, k], pt3d[:, k])
-            im_cfeat, pt_cfeat = self.apply_coarse_former(im_cfeat0, pt_cfeat)
-            conf, _, _ = dual_softmax(im_cfeat, pt_cfeat, self.temperature,
-                                      im_mask, pt_mask[:, k],
-                                      temp_type=self.cfg.temp_type)
-            yield im_cfeat, pt_cfeat, extract_mutual_matches(
-                conf, mutual=mutual, threshold=match_thres)
+        args_k = [x.transpose(0, 1) for x in (pt_feat, pt3d, pt_mask)]
+        if pair_mesh is None or pair_mesh.size == 1:
+            outs = [pair_fn(self, shared, *(x[k] for x in args_k))
+                    for k in range(pt3d.shape[1])]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        from ..parallel.mesh import device_put, replicas, replicated
+        from ..parallel.pair_sharding import map_pairs_sharded
+
+        models = replicas(self, pair_mesh)
+        rep = [[None] * pair_mesh.size if x is None
+               else device_put(x, replicated(pair_mesh)) for x in shared]
+        return map_pairs_sharded(
+            pair_mesh, lambda s, *a: pair_fn(
+                models[s], tuple(r[s] for r in rep), *a), args_k)
 
     def forward_multi_pair(self, img, pt_feat, pt3d, im_mask=None,
                            pt_mask=None, mutual: bool = False,
-                           match_thres: float = 0.0):
+                           match_thres: float = 0.0, pair_mesh=None):
         """Top-k retrieval pairs: points (B, K, N, .) against one image.  The
         image branch runs once; the point path, the coarse former and the
-        matching run once a pair (a loop over K where JAX maps) -> dense
-        matches stacked (K, B, M): j_ids, mconf, valid."""
-        outs = [m for _, _, m in self._pair_matches(
-            self.extract_im_feat(img), pt_feat, pt3d, im_mask, pt_mask,
-            mutual, match_thres)]
-        return {k: torch.stack([o[k] for o in outs])
-                for k in ("j_ids", "mconf", "valid")}
+        matching run once a pair (a loop over K where JAX maps; sharded
+        over the pairs with ``pair_mesh``) -> dense matches stacked (K, B,
+        M): j_ids, mconf, valid."""
+        def pair(model, shared, feat, p3d, p_mask):
+            im_cfeat0, i_mask = shared
+            return model._one_pair(im_cfeat0, feat, p3d, i_mask, p_mask,
+                                   mutual, match_thres)[2]
+
+        return self._map_pairs(pair, (self.extract_im_feat(img), im_mask),
+                               pt_feat, pt3d, pt_mask, pair_mesh)
 
     @torch.no_grad()
     def eval_match(self, img, pt_feat, pt3d, im_mask=None, pt_mask=None,
                    mutual: bool = False, match_thres: float = 0.0,
-                   top_k: int | None = None):
+                   top_k: int | None = None, pair_mesh=None):
         """Inference forward: only what localization consumes (the dense
         conf matrix is dropped), plus top-k match lists under ``lists``.
         Multi-pair points (pt3d (B, K, N, 3)) go through
-        :meth:`forward_multi_pair`: every output gains a leading pair axis,
-        the lists (K, B, top_k) too."""
+        :meth:`forward_multi_pair` (sharded over the pairs with
+        ``pair_mesh``): every output gains a leading pair axis, the lists
+        (K, B, top_k) too."""
         multi = pt3d.dim() == 4
+        kw = {"pair_mesh": pair_mesh} if multi else {}
         fwd = self.forward_multi_pair if multi else self.forward_match
         out = fwd(img, pt_feat, pt3d, im_mask, pt_mask, mutual=mutual,
-                  match_thres=match_thres)
+                  match_thres=match_thres, **kw)
         res = {k: out[k] for k in ("j_ids", "mconf", "valid", "expec_f")
                if k in out}
         if top_k:
@@ -280,3 +305,37 @@ class NeRFMatcherCoarse(nn.Module):
                 res["lists"] = {k: torch.stack([m[k] for m in lists])
                                 for k in lists[0]}
         return res
+
+    def _point_sharded_feats(self, img, pt_feat, pt3d):
+        """-> (image tokens, point tokens after the coarse former, fine map
+        or None): the replicated half of the point-sharded match."""
+        im_cfeat = self.extract_im_feat(img)
+        pt_cfeat = self.extract_pt_feat(pt_feat, pt3d)
+        return (*self.apply_coarse_former(im_cfeat, pt_cfeat), None)
+
+    @torch.no_grad()
+    def eval_match_point_sharded(self, mesh, img, pt_feat, pt3d, im_mask=None,
+                                 pt_mask=None, mutual: bool = False,
+                                 match_thres: float = 0.0,
+                                 top_k: int | None = None):
+        """Single-pair matching with the POINT axis split over ``mesh``
+        (``parallel.point_sharding``): the features once on the model's
+        device, the (M, N) dual softmax and the mutual extraction in (M,
+        N/d) blocks -> :meth:`eval_match`'s outputs (on the mesh's first
+        device); for merged multi-pair clouds, where that matrix grows with
+        ``pair_topk``."""
+        from ..parallel.point_sharding import sharded_point_match
+
+        im_cfeat, pt_cfeat, fmap_f = self._point_sharded_feats(img, pt_feat,
+                                                               pt3d)
+        out = sharded_point_match(mesh, im_cfeat, pt_cfeat, self.temperature,
+                                  im_mask, pt_mask,
+                                  temp_type=self.cfg.temp_type, mutual=mutual,
+                                  threshold=match_thres)
+        if fmap_f is not None:
+            out["expec_f"] = self._sharded_fine(mesh, fmap_f, im_cfeat,
+                                                pt_cfeat, out["j_ids"])
+        if top_k:
+            out["lists"] = dense_to_match_lists(
+                {k: out[k] for k in ("j_ids", "mconf", "valid")}, top_k)
+        return out

@@ -85,6 +85,13 @@ def serving_int8_mode(config) -> str:
     return SERVING_INT8_DEFAULT if mode is None else mode
 
 
+def batch_range(z, group=None):
+    """(min, max) of ``z`` over the batch; with a data-parallel ``group``
+    over the global batch."""
+    lo, hi = z.min(), z.max()
+    return (lo, hi) if group is None else (group.amin(lo), group.amax(hi))
+
+
 def reparam_unit_dir(rays):
     """Rescale packed rays to the unit-direction parameterization of the
     fused kernels (``render_kernel.py: reparam_unit_dir``) -> (rays', nrm);
@@ -236,7 +243,7 @@ class NerfRenderer(nn.Module):
         return fourier_embedding(dirs, self.cfg.dirs_num_freqs)
 
     def render_rays(self, rays, train: bool = False, generator=None,
-                    draws=None, ray_id=None):
+                    draws=None, ray_id=None, group=None):
         """Hierarchical render of (R, 12) rays (or (R, 11), without the mip
         radius, for a classic NeRF) -> per-ray maps, the MLP in
         ``compute_dtype`` (as the JAX ``_forward_nerf``); ``ray_id``: the
@@ -250,7 +257,9 @@ class NerfRenderer(nn.Module):
         ``noise_std > 0``) -> rgb / depth per stage, ``weights_fine``,
         ``s_fine`` and, for an ``out_scr`` NeRF, ``scr_{stage}``.  Draws
         come from ``draws`` (see :meth:`train_draws`, per stage) or
-        ``generator``."""
+        ``generator``; with a data-parallel ``group`` the rays are this
+        rank's block of the global batch (see :meth:`rank_draws`; ``s_fine``
+        takes the global batch's z range)."""
         cfg = self.cfg
         mip = cfg.embed_type == "mip"
         rays_d = rays[..., 3:6]
@@ -264,8 +273,8 @@ class NerfRenderer(nn.Module):
         extra = torch.cat(extra, dim=-1) if extra else None
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         if train and draws is None:
-            draws = self.train_draws(rays.shape[0], generator, rays.device,
-                                     randomized=True if mip else None)
+            draws = self.rank_draws(rays.shape[0], generator, rays.device,
+                                    group, randomized=True if mip else None)
         preds = {}
         z_vals = weights = None
         for stage, mlp in self._stages():
@@ -296,8 +305,8 @@ class NerfRenderer(nn.Module):
                 if stage == "fine":
                     # Batch-global min/max, as the reference
                     # (renderer.py:320-327).
-                    preds["s_fine"] = t_to_s(z_vals, z_vals.min(),
-                                             z_vals.max())
+                    preds["s_fine"] = t_to_s(z_vals,
+                                             *batch_range(z_vals, group))
                     preds["weights_fine"] = weights
             else:
                 preds[f"feat_{stage}"] = composite_features(
@@ -341,6 +350,18 @@ class NerfRenderer(nn.Module):
                     (n, S), generator=generator, device=device)
         return out
 
+    def rank_draws(self, n: int, generator=None, device=None, group=None,
+                   **kw):
+        """:meth:`train_draws` of this rank's ``n`` rays: with a
+        data-parallel ``group`` the global batch's draws (``n`` x the world
+        size, from the generator every rank holds in the same state) cut to
+        the rank's rows, so a step's draws do not depend on the world
+        size."""
+        if group is None:
+            return self.train_draws(n, generator, device, **kw)
+        draws = self.train_draws(n * group.world, generator, device, **kw)
+        return {k: v[group.rows(n)] for k, v in draws.items()}
+
     def check_train_supported(self):
         """Raise where the JAX fused train factory asserts: coarse and fine
         MLPs of different layouts or sample counts."""
@@ -358,19 +379,21 @@ class NerfRenderer(nn.Module):
                          cfg.mip_var_scale if cfg.mip_var_scale > 0 else 1.0,
                          cfg.white_bg)
 
-    def train_render(self, rays, generator=None, draws=None, ray_id=None):
+    def train_render(self, rays, generator=None, draws=None, ray_id=None,
+                     group=None):
         """Two-stage training render of (N, 12) rays ->
         dict(rgb_coarse, rgb_fine, weights_fine, s_fine), differentiable in
         the MLP parameters and the appearance table
         (``make_fused_train_hierarchical``); ``ray_id``: the appearance rows
-        (see :meth:`app_rows`), read by both stages."""
+        (see :meth:`app_rows`), read by both stages; ``group``: see
+        :meth:`render_rays`."""
         self.check_train_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
         app = self.app_rows(ray_id, rays.shape[0], rays.device)
         rays, _ = reparam_unit_dir(rays)
         n, S = rays.shape[0], self.fine_cfg.num_pts
         if draws is None:
-            draws = self.train_draws(n, generator, rays.device)
+            draws = self.rank_draws(n, generator, rays.device, group)
         t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)
         z = rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t
         if "t_rand" in draws:
@@ -383,7 +406,7 @@ class NerfRenderer(nn.Module):
         rgb_f, w_f = render_train(self._stage_spec(fine_mlp), rays, z_f,
                                   draws.get("noise_fine", zeros), app)
         return {"rgb_coarse": rgb_c, "rgb_fine": rgb_f, "weights_fine": w_f,
-                "s_fine": t_to_s(z_f, z_f.min(), z_f.max())}
+                "s_fine": t_to_s(z_f, *batch_range(z_f, group))}
 
     # ------------------------------------------------------------------
     # Fused path (render + resample kernels)
@@ -467,16 +490,18 @@ class NerfRenderer(nn.Module):
                     else 1.0, early_term_eps=cfg.early_term_eps,
                     white_bg=cfg.white_bg)
 
-    def fused_render(self, rays, packed=None, ray_id=None):
+    def fused_render(self, rays, packed=None, ray_id=None, app=None):
         """Two-stage fused render of (N, 12) rays, N a multiple of
         ``TILE_RAYS``.  ``packed``: optional :meth:`pack_fused` output, to
         pack once for many chunks; ``ray_id``: the appearance rows (see
-        :meth:`app_rows`), read by the fine stage's views layer.  The coarse
-        stage emits no rgb, so the outputs hold ``rgb_fine`` only."""
+        :meth:`app_rows`), read by the fine stage's views layer, or ``app``
+        the (N, 16) rows themselves.  The coarse stage emits no rgb, so the
+        outputs hold ``rgb_fine`` only."""
         self.check_fused_supported()
         (_, coarse_mlp), (_, fine_mlp) = self._stages()
         (pc, qc), (pf, qf) = packed or self.pack_fused()
-        app = self.app_rows(ray_id, rays.shape[0], rays.device)
+        if app is None:
+            app = self.app_rows(ray_id, rays.shape[0], rays.device)
         rays, nrm = reparam_unit_dir(rays)
         S = self.fine_cfg.num_pts
         t = torch.linspace(0.0, 1.0, S + 1, device=rays.device)

@@ -10,7 +10,10 @@ imports on hosts without ``nvcc`` or a GPU.  The library is cached under
 sources and the compiler flags.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises if that is not 0.  Each kernel wrapper counts its
+:func:`check` raises if that is not 0.  A wrapper makes its inputs' device
+the current one around the C call: the entry points size their grids and
+set kernel attributes for the current device, and launch on that device's
+stream.  Each kernel wrapper counts its
 launches in :data:`LAUNCHES` (one per launch, nowhere else), so a caller
 can show that a run really went through the kernels.
 """

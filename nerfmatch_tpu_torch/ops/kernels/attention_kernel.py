@@ -168,11 +168,12 @@ def _forward_kernel(qs, k, v, bf16, want_lse):
     out = torch.empty(B, L, H, D, device=dev, dtype=torch.float32)
     lse = (torch.empty(B * H, L, device=dev, dtype=torch.float32)
            if want_lse else None)
-    err = library().nm_attention_forward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if want_lse else 0,
-        cast.data_ptr() if cast is not None else 0, B, L, S, H, D, int(bf16),
-        stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = library().nm_attention_forward(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if want_lse else 0,
+            cast.data_ptr() if cast is not None else 0, B, L, S, H, D,
+            int(bf16), stream_ptr(dev))
     check(err, "attention")
     LAUNCHES["attention"] += 1
     if not want_lse:
@@ -212,11 +213,12 @@ def attention_bwd(qs, k, v, g, bf16: bool = False, out=None, lse=None):
     dv = torch.empty_like(dk)
     g_cast = torch.empty_like(g, dtype=torch.bfloat16) if bf16 else None
     stats = torch.empty(2, B * H, L, device=dev, dtype=torch.float32)
-    err = library().nm_attention_backward(
-        qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), g_cast.data_ptr() if bf16 else 0, stats.data_ptr(), B,
-        L, S, H, D, int(bf16), stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = library().nm_attention_backward(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), g_cast.data_ptr() if bf16 else 0,
+            stats.data_ptr(), B, L, S, H, D, int(bf16), stream_ptr(dev))
     check(err, "attention_bwd")
     LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv

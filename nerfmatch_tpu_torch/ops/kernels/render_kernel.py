@@ -235,11 +235,12 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     dbg = torch.zeros(2, n, S, hid, **f32) if debug_tap else None
     dbgq = (torch.zeros(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
             if debug_q else None)
-    err = library().nm_render_eval_forward(
-        ptrs, qarr, ptr(app), n, hid, cfg.layer_num, eval_feat_layer(cfg),
-        -1 if start is None else start, num_freqs, dirs_freqs, S, var_scale,
-        log_eps, int(white_bg), int(fine), int(feat_max), counter.data_ptr(),
-        *outs, ptr(dbg), ptr(dbgq), stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = library().nm_render_eval_forward(
+            ptrs, qarr, ptr(app), n, hid, cfg.layer_num, eval_feat_layer(cfg),
+            -1 if start is None else start, num_freqs, dirs_freqs, S,
+            var_scale, log_eps, int(white_bg), int(fine), int(feat_max),
+            counter.data_ptr(), *outs, ptr(dbg), ptr(dbgq), stream_ptr(dev))
     check(err, "render_eval")
     LAUNCHES[("render_fine" if fine else "render_coarse")
              + ("" if int8 is None else "_int8")

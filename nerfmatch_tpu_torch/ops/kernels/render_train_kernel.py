@@ -460,9 +460,10 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
     if stash:
         st = torch.empty(_sizes(spec.mlp.cfg, n, S)[0], dtype=torch.uint8,
                          device=rays.device)
-    err = library().nm_render_train_forward(
-        *args, rgb.data_ptr(), w.data_ptr(),
-        None if st is None else st.data_ptr(), stream_ptr(rays.device))
+    with torch.cuda.device(rays.device):
+        err = library().nm_render_train_forward(
+            *args, rgb.data_ptr(), w.data_ptr(),
+            None if st is None else st.data_ptr(), stream_ptr(rays.device))
     check(err, "render_train_fwd")
     LAUNCHES["render_train_fwd" + ("" if app is None else "_app")] += 1
     return rgb, w, st
@@ -489,10 +490,11 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     mat = torch.empty(n_mat, device=dev)
     vec = torch.empty(backward_layout(cfg, n, S).vec_len, device=dev)
     g_app = None if app is None else torch.empty(n, APP_DIM, device=dev)
-    err = library().nm_render_train_backward(
-        *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
-        work.data_ptr(), mat.data_ptr(), vec.data_ptr(),
-        None if g_app is None else g_app.data_ptr(), stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = library().nm_render_train_backward(
+            *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
+            work.data_ptr(), mat.data_ptr(), vec.data_ptr(),
+            None if g_app is None else g_app.data_ptr(), stream_ptr(dev))
     check(err, "render_train_bwd")
     LAUNCHES["render_train_bwd" + ("" if app is None else "_app")] += 1
     del work

@@ -97,10 +97,11 @@ def resample_z(t_vals, weights, resample_padding: float = 0.01, u=None):
                          f"weights (N, S) and u (N, S+1); got "
                          f"{tuple(t_vals.shape)}, {tuple(weights.shape)}")
     out = torch.empty_like(t_vals)
-    err = library().nm_resample_forward(
-        t_vals.data_ptr(), weights.data_ptr(),
-        None if u is None else u.data_ptr(), out.data_ptr(), n, nb,
-        resample_padding, stream_ptr(t_vals.device))
+    with torch.cuda.device(t_vals.device):
+        err = library().nm_resample_forward(
+            t_vals.data_ptr(), weights.data_ptr(),
+            None if u is None else u.data_ptr(), out.data_ptr(), n, nb,
+            resample_padding, stream_ptr(t_vals.device))
     check(err, "resample")
     LAUNCHES["resample"] += 1
     return out

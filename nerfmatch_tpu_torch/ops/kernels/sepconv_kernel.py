@@ -116,9 +116,10 @@ def dw_star_fwd(x, w, cbias, s, b):
     require_cuda_tensors("dw_star_fwd", x, w, cbias, s, b)
     _require_aligned("dw_star_fwd", x, w)
     y = torch.empty_like(x)
-    err = library().nm_dw_star_forward(
-        x.data_ptr(), w.data_ptr(), cbias.data_ptr(), s.data_ptr(),
-        b.data_ptr(), y.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        err = library().nm_dw_star_forward(
+            x.data_ptr(), w.data_ptr(), cbias.data_ptr(), s.data_ptr(),
+            b.data_ptr(), y.data_ptr(), B, H, W, C, K, stream_ptr(x.device))
     check(err, "dw_star_fwd")
     LAUNCHES["dw_star_fwd"] += 1
     return y
@@ -149,9 +150,11 @@ def dw_star_dgrad(x, w, s, g):
     dx = torch.empty_like(x)
     parts = dw_star_dgrad_parts(x.device.index, B, H, W, C)
     part = torch.empty(parts, 2, device=x.device, dtype=torch.float32)
-    err = library().nm_dw_star_dgrad(
-        x.data_ptr(), g.data_ptr(), w.data_ptr(), s.data_ptr(), dx.data_ptr(),
-        part.data_ptr(), parts, B, H, W, C, K, stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        err = library().nm_dw_star_dgrad(
+            x.data_ptr(), g.data_ptr(), w.data_ptr(), s.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), parts, B, H, W, C, K,
+            stream_ptr(x.device))
     check(err, "dw_star_dgrad")
     LAUNCHES["dw_star_dgrad"] += 1
     dsb = part.sum(0)
@@ -184,9 +187,11 @@ def dw_star_wgrad(x, s, b, g, K: int = 7):
     part = torch.empty(parts, K * K, TILE_CHANNELS, device=x.device,
                        dtype=torch.float32)
     dw = torch.empty(K, K, C, device=x.device, dtype=torch.float32)
-    err = library().nm_dw_star_wgrad(
-        x.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(), dw.data_ptr(),
-        part.data_ptr(), parts, B, H, W, C, K, stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        err = library().nm_dw_star_wgrad(
+            x.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), parts, B, H, W, C, K,
+            stream_ptr(x.device))
     check(err, "dw_star_wgrad")
     LAUNCHES["dw_star_wgrad"] += 1
     return dw

@@ -63,12 +63,20 @@ def pad_match_budgets(B: int, M: int, N: int, coarse_percent: float = 0.3,
     return train_num, int(train_num * coarse_percent)
 
 
-def pad_match_draws(matches, conf_gt, train_num: int, generator=None):
+def pad_match_draws(matches, conf_gt, train_num: int, generator=None,
+                    group=None):
     """The three draws of :func:`pad_matches_with_gt` from ``generator``:
     ``pred_pick`` (uniform over valid predictions, or over all tokens when
     none is valid), ``row_pick`` (a (b, i) row with probability proportional
     to its GT positives, uniform when there are none) and ``gt_j`` (uniform
-    over the picked row's positives, over all columns when there are none)."""
+    over the picked row's positives, over all columns when there are none:
+    the ``floor(u * count)``-th of them for a uniform ``u``).
+
+    With a data-parallel ``group`` (``parallel.distributed.DataGroup``)
+    ``matches`` are the global batch's (gathered) and ``conf_gt`` holds this
+    rank's rows: the draws are the global batch's on every rank (the same
+    generator state, the global shapes), and ``gt_j`` is drawn for this
+    rank's rows only (0 elsewhere)."""
     B, M, N = conf_gt.shape
     # torch.where, not a host branch: no device sync in the train step.
     valid = matches["valid"].reshape(-1).float()
@@ -76,18 +84,24 @@ def pad_match_draws(matches, conf_gt, train_num: int, generator=None):
     pred_pick = torch.multinomial(w, train_num, replacement=True,
                                   generator=generator)
     gt_pos = (conf_gt.reshape(B * M, N) > 0).float()
-    row_w = gt_pos.sum(1)
+    row_w = gt_pos.sum(1) if group is None else group.gather(gt_pos.sum(1))
     any_gt = row_w.any()
     row_pick = torch.multinomial(torch.where(any_gt, row_w, 1.0), train_num,
                                  replacement=True, generator=generator)
-    gt_j = torch.multinomial(torch.where(any_gt, gt_pos[row_pick], 1.0), 1,
-                             replacement=True, generator=generator)[:, 0]
-    return {"pred_pick": pred_pick, "row_pick": row_pick, "gt_j": gt_j}
+    u = torch.rand(train_num, generator=generator, device=conf_gt.device)
+    local = row_pick - (0 if group is None else group.rank * B * M)
+    own = (local >= 0) & (local < B * M)
+    cols = torch.where(any_gt, gt_pos[local.clamp(0, B * M - 1)], 1.0)
+    count = cols.sum(1)
+    k = torch.minimum((u * count).floor(), count - 1)
+    gt_j = (cols.cumsum(1) <= k[:, None]).sum(1)
+    return {"pred_pick": pred_pick, "row_pick": row_pick,
+            "gt_j": torch.where(own, gt_j, torch.zeros_like(gt_j))}
 
 
 def pad_matches_with_gt(matches, conf_gt, coarse_percent: float = 0.3,
                         train_percent: float = 0.3, generator=None,
-                        draws=None):
+                        draws=None, group=None):
     """Fixed-budget train-time match list: predicted matches padded with GT
     (the JAX ``pad_matches_with_gt``).
 
@@ -96,19 +110,27 @@ def pad_matches_with_gt(matches, conf_gt, coarse_percent: float = 0.3,
     the rest a GT positive drawn row-first (row by its positive count, then a
     column of the row).  With no GT positives the GT slots are garbage and
     ``valid`` is False there.  Draws come from ``draws`` (keys of
-    :func:`pad_match_draws`) or ``generator``.  Returns dict(b_ids, i_ids,
-    j_ids, mconf, is_pred, valid) of length train_num."""
+    :func:`pad_match_draws`) or ``generator``.  With a data-parallel
+    ``group``, the list of the global batch (B the global batch size, b_ids
+    global): ``matches`` gathered, ``conf_gt`` this rank's rows, and the GT
+    columns (``j_ids`` of the GT slots) right on this rank's rows only.
+    Returns dict(b_ids, i_ids, j_ids, mconf, is_pred, valid) of length
+    train_num."""
     B, M, N = conf_gt.shape
+    if group is not None:
+        B *= group.world
     train_num, pred_budget = pad_match_budgets(B, M, N, coarse_percent,
                                                train_percent)
     if draws is None:
-        draws = pad_match_draws(matches, conf_gt, train_num, generator)
+        draws = pad_match_draws(matches, conf_gt, train_num, generator, group)
     dev = conf_gt.device
     pred_pick, row_pick, gt_j = (torch.as_tensor(draws[k], device=dev).long()
                                  for k in ("pred_pick", "row_pick", "gt_j"))
     valid_flat = matches["valid"].reshape(-1)
     any_pred = valid_flat.any()
     any_gt = (conf_gt > 0).any()
+    if group is not None:
+        any_gt = group.sum(any_gt.int()) > 0
     slot = torch.arange(train_num, device=dev)
     use_pred = (slot < pred_budget) & any_pred & valid_flat[pred_pick]
     pred_j = matches["j_ids"].reshape(-1)[pred_pick].long()

@@ -41,3 +41,13 @@ class MetricsLogger:
 
     def close(self):
         self._fh.close()
+
+
+class NullLogger:
+    """A :class:`MetricsLogger` that writes nothing (the ranks but 0 of a
+    data-parallel run)."""
+
+    def log_scalars(self, *args, **kwargs):
+        pass
+
+    log_text = log_image = close = log_scalars

@@ -11,7 +11,15 @@
   metrics; checkpoints on the best val loss, the best median translation,
   and the last epoch (with resume).
 
-One process on one device.  On CUDA the coarse attention layers run the
+One process a device: under a process group (``parallel.distributed``)
+each rank loads its block of every global batch of ``exp.batch_size``
+pairs; the loss normalizers (positive and negative counts, valid fine rows,
+the batch mean) are the global batch's, the GT-padded match list is drawn
+over the global batch from the generator every rank holds alike (each rank
+runs the fine stage on the list's rows of its pairs), and one all-reduce
+sums the gradients, so W ranks take one process's step.  Rank 0 alone
+writes checkpoints and logs; validation is split over the ranks and its
+errors and losses gathered.  On CUDA the coarse attention layers run the
 attention kernels (forward and backward) and the ConvFormer token mixers
 the fused StarReLU + depthwise-conv kernels; on the CPU both take their
 plain versions.  GT-padding draws and the ``pt_ftype='rand'`` descriptors
@@ -21,7 +29,7 @@ plain versions.  GT-padding draws and the ``pt_ftype='rand'`` descriptors
 points (B, N, .)); the stacked layout raises ``ValueError``, as the JAX
 trainer fails on it.  An ``*_fpn`` backbone trains with its BatchNorm on
 the running statistics, which train as parameters (the JAX package's
-leaves).  ``exp.gpus > 1`` raises ``NotImplementedError``.
+leaves).
 """
 
 from __future__ import annotations
@@ -36,9 +44,12 @@ from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..models.layers import init_params_
 from ..models.matcher_c2f import C2FMatcherConfig, NeRFMatcherMS
-from ..models.matcher_coarse import CoarseMatcherConfig, NeRFMatcherCoarse
+from ..models.matcher_coarse import (CoarseMatcherConfig, NeRFMatcherCoarse,
+                                     rand_point_features)
 from ..ops.matching import (dense_to_match_lists, dual_softmax,
                             extract_mutual_matches, pad_matches_with_gt)
+from ..parallel.distributed import DataGroup, check_world, rank_seed
+from ..parallel.mesh import all_gather_host, replicate_params
 from ..utils import get_logger, resolve_device
 from ..utils.metrics import (compute_feat_l2, compute_fine_loss_l2_std,
                              compute_fine_match_loss_l2_std,
@@ -49,7 +60,7 @@ from .checkpoint import (convert_timm_backbone, graft_state,
                          latest_checkpoint, load_checkpoint,
                          load_reference_checkpoint, load_timm_state,
                          nest_backbone, save_checkpoint)
-from .logging import MetricsLogger
+from .logging import MetricsLogger, NullLogger
 
 logger = get_logger(level="INFO", name="matcher_trainer")
 
@@ -57,9 +68,9 @@ BATCH_KEYS = ("image", "pt_feat", "pt3d", "im_mask", "pt_mask", "conf_gt")
 C2F_KEYS = BATCH_KEYS + ("pt2d", "pt2d_proj")
 
 
-def coarse_losses(conf, conf_gt, im_n, pt_n, clamp: bool):
-    return (compute_matching_loss(conf, conf_gt, clamp=clamp),
-            compute_feat_l2(im_n, pt_n, conf_gt))
+def coarse_losses(conf, conf_gt, im_n, pt_n, clamp: bool, group=None):
+    return (compute_matching_loss(conf, conf_gt, clamp=clamp, group=group),
+            compute_feat_l2(im_n, pt_n, conf_gt, group=group))
 
 
 STACKED_MULTIPAIR = (
@@ -70,12 +81,20 @@ STACKED_MULTIPAIR = (
 
 
 def coarse_features(model, image, pt_feat, pt3d, im_mask, pt_mask,
-                    generator=None, rand_feat=None):
+                    generator=None, rand_feat=None, group=None):
     """Shared head of both loss bodies -> (conf, im_n, pt_n, im_cfeat,
     pt_cfeat, fine map or None).  ``generator`` / ``rand_feat``: the
-    ``pt_ftype='rand'`` descriptors' draw (``extract_pt_feat``)."""
+    ``pt_ftype='rand'`` descriptors' draw (``extract_pt_feat``; with a
+    data-parallel ``group``, the global batch's draw cut to this rank's
+    rows)."""
     if pt3d.dim() != 3:
         raise ValueError(STACKED_MULTIPAIR)
+    if group is not None and rand_feat is None \
+            and model.cfg.pt_ftype == "rand":
+        B, N = pt3d.shape[:2]
+        rand_feat = rand_point_features(
+            (B * group.world, N), model.cfg.effective_pt_dim, pt3d.device,
+            generator)[group.rows(B)]
     if isinstance(model, NeRFMatcherMS):
         im_cfeat, fmap_f = model.extract_im_feat_ms(image)
     else:
@@ -90,17 +109,27 @@ def coarse_features(model, image, pt_feat, pt3d, im_mask, pt_mask,
 
 
 class _TrainStep:
-    def __init__(self, model, opt, generator: torch.Generator | None = None):
+    """``group``: the data-parallel group (``parallel.distributed
+    .DataGroup``), None in one process."""
+
+    def __init__(self, model, opt, generator: torch.Generator | None = None,
+                 group: DataGroup | None = None):
         self.model = model
         self.opt = opt
         self.generator = generator
+        self.group = group
 
     def step(self, batch, **kw):
-        """One optimizer step on a batch dict of device tensors ->
-        detached metrics."""
+        """One optimizer step on a batch dict of device tensors (this
+        rank's block of the global batch) -> detached metrics of the
+        global batch."""
         loss, metrics = self.losses(batch, **kw)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.group is not None:
+            self.group.reduce_grads(p for g in self.opt.param_groups
+                                    for p in g["params"])
+            metrics = self.group.sum_metrics(metrics)
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -113,9 +142,10 @@ class CoarseTrainStep(_TrainStep):
         descriptors (else drawn from the step's generator)."""
         conf, im_n, pt_n, *_ = coarse_features(
             self.model, *(batch[k] for k in BATCH_KEYS[:5]),
-            generator=self.generator, rand_feat=rand_feat)
+            generator=self.generator, rand_feat=rand_feat, group=self.group)
         coarse_loss, feat_l2 = coarse_losses(conf, batch["conf_gt"], im_n,
-                                             pt_n, clamp=False)
+                                             pt_n, clamp=False,
+                                             group=self.group)
         return coarse_loss, {"coarse_loss": coarse_loss, "feat_l2": feat_l2,
                              "loss": coarse_loss}
 
@@ -132,17 +162,18 @@ class CoarseTrainStep(_TrainStep):
 
 
 def _fine_loss(model, expec_f, mpt2d_c, mpt2d_f_gt, coarse_pos, valid,
-               training: bool):
+               training: bool, group=None):
     cfg = model.cfg
     if cfg.fine_loss == "match":
         return compute_fine_match_loss_l2_std(
             model.fine_coords(expec_f, mpt2d_c), mpt2d_f_gt, expec_f[:, 2],
-            mask=coarse_pos, valid=valid)
+            mask=coarse_pos, valid=valid, group=group)
     # The reference's floor division (kept): it agrees with fine_coords'
     # win_sz / 2 * fine_ds at the production win_sz=5, fine_ds=2 only.
     radius = cfg.fine_ds * cfg.win_sz // 2
     return compute_fine_loss_l2_std(expec_f, (mpt2d_f_gt - mpt2d_c) / radius,
-                                    training=training, valid=valid)
+                                    training=training, valid=valid,
+                                    group=group)
 
 
 class C2FTrainStep(_TrainStep):
@@ -152,24 +183,37 @@ class C2FTrainStep(_TrainStep):
     def losses(self, batch, coarse_only: bool = False, mlist=None,
                draws=None, rand_feat=None):
         """-> (loss, metrics).  ``mlist``: an injected match list (dict of
-        b_ids, i_ids, j_ids, valid); ``draws``: injected GT-padding draws;
-        ``rand_feat``: injected ``pt_ftype='rand'`` descriptors.  The
-        generator draws the descriptors before the padding."""
-        model, cfg = self.model, self.model.cfg
+        b_ids, i_ids, j_ids, valid; with a group, the global batch's);
+        ``draws``: injected GT-padding draws; ``rand_feat``: injected
+        ``pt_ftype='rand'`` descriptors.  The generator draws the
+        descriptors before the padding."""
+        model, cfg, group = self.model, self.model.cfg, self.group
         conf, im_n, pt_n, im_cfeat, pt_cfeat, fmap_f = coarse_features(
             model, *(batch[k] for k in BATCH_KEYS[:5]),
-            generator=self.generator, rand_feat=rand_feat)
+            generator=self.generator, rand_feat=rand_feat, group=group)
         conf_gt = batch["conf_gt"]
         coarse_loss, feat_l2 = coarse_losses(conf, conf_gt, im_n, pt_n,
-                                             clamp=True)
+                                             clamp=True, group=group)
         if mlist is None:
             matches = extract_mutual_matches(conf.detach(), mutual=False,
                                              threshold=0.0)
+            if group is not None:
+                matches = {k: group.gather(v) for k, v in matches.items()}
             mlist = pad_matches_with_gt(
                 matches, conf_gt, coarse_percent=cfg.coarse_percent,
-                train_percent=0.3, generator=self.generator, draws=draws)
-        b_ids, i_ids, j_ids = (mlist[k].long()
-                               for k in ("b_ids", "i_ids", "j_ids"))
+                train_percent=0.3, generator=self.generator, draws=draws,
+                group=group)
+        b_ids, i_ids, j_ids, valid = (mlist[k] for k in
+                                      ("b_ids", "i_ids", "j_ids", "valid"))
+        n_slots = b_ids.shape[0]
+        if group is not None:
+            # This rank's pairs' rows of the global list, in list order.
+            B = conf.shape[0]
+            own = torch.nonzero(b_ids.long() // B == group.rank)[:, 0]
+            b_ids, i_ids, j_ids, valid = (x[own] for x in
+                                          (b_ids, i_ids, j_ids, valid))
+            b_ids = b_ids - group.rank * B
+        b_ids, i_ids, j_ids = (x.long() for x in (b_ids, i_ids, j_ids))
         expec_f = model.forward_fine(fmap_f, im_cfeat, pt_cfeat, b_ids, i_ids,
                                      j_ids)
         mpt2d_c = batch["pt2d"][b_ids, i_ids]
@@ -177,15 +221,20 @@ class C2FTrainStep(_TrainStep):
         coarse_dist = torch.linalg.norm(mpt2d_f_gt - mpt2d_c, dim=-1)
         coarse_pos = coarse_dist < cfg.coarse_dthres
         fine_loss = _fine_loss(model, expec_f, mpt2d_c, mpt2d_f_gt,
-                               coarse_pos, mlist["valid"], training=True)
+                               coarse_pos, valid, training=True, group=group)
         # torch.where, as the JAX step: the fine leaves get zero (not no)
         # gradients in the coarse-only epochs.
         loss = torch.where(torch.as_tensor(coarse_only, device=conf.device),
                            coarse_loss, coarse_loss + fine_loss)
+        if group is None:
+            dist_mean = coarse_dist.mean()
+            pos_ratio = coarse_pos.float().mean() * 100
+        else:                   # this rank's share of the list's means
+            dist_mean = coarse_dist.sum() / n_slots
+            pos_ratio = coarse_pos.float().sum() / n_slots * 100
         return loss, {"coarse_loss": coarse_loss, "fine_loss": fine_loss,
-                      "feat_l2": feat_l2, "coarse_dist": coarse_dist.mean(),
-                      "coarse_pos_ratio": coarse_pos.float().mean() * 100,
-                      "loss": loss}
+                      "feat_l2": feat_l2, "coarse_dist": dist_mean,
+                      "coarse_pos_ratio": pos_ratio, "loss": loss}
 
     @torch.no_grad()
     def val_forward(self, batch, coarse_only: bool = False):
@@ -272,12 +321,16 @@ def init_config_odir(config, coarse: bool):
     return Path(str(exp.odir)) / exp.name / exp.resume_version
 
 
-def check_matcher_config(config):
-    """Raise for matcher training configs the port does not implement:
-    ``exp.gpus > 1``."""
-    if int(getattr(config.exp, "gpus", 0) or 0) > 1:
-        raise NotImplementedError("multi-GPU matcher training is not ported "
-                                  "(ROADMAP: Queue 1, item 10)")
+def check_matcher_config(config, world: int):
+    """``exp.gpus`` caps the devices (``nerf_trainer.check_world``), and
+    the global batch must divide over the launched processes: the JAX
+    trainer shrinks its mesh to the gcd of the two, a launched world
+    cannot shrink."""
+    check_world(config, world)
+    if int(config.exp.batch_size) % world:
+        raise ValueError(f"exp.batch_size={config.exp.batch_size} (the "
+                         f"global batch) does not divide over {world} "
+                         "processes: launch a world that divides it")
 
 
 def build_matcher(config, coarse: bool, generator: torch.Generator):
@@ -380,33 +433,38 @@ def to_device(batch, keys, device):
 def _train_matcher(config, coarse: bool, device="cuda"):
     exp = config.exp
     debug = bool(getattr(exp, "debug", False))
-    check_matcher_config(config)
+    group = DataGroup.current()
+    rank, world = (0, 1) if group is None else (group.rank, group.world)
+    check_matcher_config(config, world)
     device = resolve_device(device)
-    np.random.seed(exp.seed)
+    np.random.seed(rank_seed(exp.seed, rank))
     if not getattr(config.data, "seed", None):
         config.data.seed = exp.seed
-    config.gpu_num = 1
+    config.gpu_num = world
     if getattr(config.optim, "adapt_lr", True):
         config.optim.lr, _ = config_adaptive_lr(config)
     else:
         config.optim.lr = config.optim.clr
 
     run_dir = init_config_odir(config, coarse)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    mlog = MetricsLogger(run_dir)
-    mlog.log_text("config", str(namespace2dict(config)))
-    logger.info(f"Run dir: {run_dir} (device {device})")
+    mlog = NullLogger()
+    if rank == 0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        mlog = MetricsLogger(run_dir)
+        mlog.log_text("config", str(namespace2dict(config)))
+    logger.info(f"Run dir: {run_dir} (device {device}, rank {rank} of "
+                f"{world})")
 
     model = build_matcher(config, coarse,
                           torch.Generator().manual_seed(exp.seed))
     init_imagenet_backbone(model, config.model)
     load_pretrained(model, config.model)
-    model.to(device)
+    replicate_params(model.to(device))
     opt = init_optimizer(config.optim, trainable_parameters(model))
     lr_sched = make_lr_schedule(config.optim)
     gen = torch.Generator(device).manual_seed(exp.seed)
-    stepper = (CoarseTrainStep if coarse else C2FTrainStep)(model, opt,
-                                                            generator=gen)
+    stepper = (CoarseTrainStep if coarse else C2FTrainStep)(
+        model, opt, generator=gen, group=group)
     keys = BATCH_KEYS if coarse else C2F_KEYS
     workers = int(getattr(exp, "num_workers", 0) or 0)
     train_loader = init_data_loader(config.data, exp.batch_size, split="train",
@@ -456,6 +514,8 @@ def _train_matcher(config, coarse: bool, device="cuda"):
             for vi, batch in enumerate(val_loader):
                 if debug and vi >= 2:
                     break
+                if vi % world != rank:      # the ranks split the val set
+                    continue
                 vm, out = stepper.val_forward(to_device(batch, keys, device),
                                               **kw)
                 for k, v in vm.items():
@@ -463,6 +523,16 @@ def _train_matcher(config, coarse: bool, device="cuda"):
                 pose_m = eval_batch_pose(model, batch, out, rthres=rthres)
                 r_errs += pose_m["R_err"]
                 t_errs += pose_m["t_err"]
+            # One gather of every rank's results, whatever each rank saw
+            # (a rank may have had no validation batch), merged in rank
+            # order.
+            parts = all_gather_host([(val_agg, r_errs, t_errs)])
+            val_agg, r_errs, t_errs = {}, [], []
+            for agg_r, r_r, t_r in parts:
+                for k, v in agg_r.items():
+                    val_agg.setdefault(k, []).extend(v)
+                r_errs += r_r
+                t_errs += t_r
             t_arr, r_arr = np.asarray(t_errs, np.float64), np.asarray(r_errs)
             tmed = float(np.median(t_arr)) if len(t_arr) else np.inf
             val_m = {"tmed": tmed,
@@ -476,15 +546,21 @@ def _train_matcher(config, coarse: bool, device="cuda"):
             logger.info(f"epoch {epoch}: val {val_m} loss={val_loss:.4f}")
             if val_loss < best_loss:
                 best_loss = val_loss
-                save_checkpoint(ckpt_dir, epoch + 1, model, opt, config,
-                                name="best", keep=1)
+                if rank == 0:
+                    save_checkpoint(ckpt_dir, epoch + 1, model, opt, config,
+                                    name="best", keep=1)
             if tmed < best_tmed:
                 best_tmed = tmed
-                save_checkpoint(ckpt_dir, epoch + 1, model, opt, config,
-                                name="best_tmed", keep=1)
-        save_checkpoint(ckpt_dir, epoch + 1, model, opt, config, name="last",
-                        keep=1, extra={"best_loss": float(best_loss),
-                                       "best_tmed": float(best_tmed)})
+                if rank == 0:
+                    save_checkpoint(ckpt_dir, epoch + 1, model, opt, config,
+                                    name="best_tmed", keep=1)
+        if rank == 0:
+            save_checkpoint(ckpt_dir, epoch + 1, model, opt, config,
+                            name="last", keep=1,
+                            extra={"best_loss": float(best_loss),
+                                   "best_tmed": float(best_tmed)})
+        if group is not None:
+            group.barrier()
     mlog.close()
     return config, model
 

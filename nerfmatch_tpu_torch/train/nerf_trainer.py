@@ -4,8 +4,15 @@
 0.5 * (coarse + fine) MSE with the mip-NeRF 360 distortion regularizer,
 per-epoch full-image validation renders, best / last checkpoints on val
 PSNR, resume from the latest ``last`` checkpoint, deterministic run
-directories.  One process on one device.  The route (``NerfTrainer.route``,
-logged by :func:`train` and written to ``route.txt`` in the run dir) is a
+directories.  One process a device: under a process group
+(``parallel.distributed``: ``torchrun`` or the ``NERFMATCH_*`` contract)
+every rank loads its block of each global batch of ``exp.batch_size`` rays,
+draws the global batch's random numbers and keeps its rows, normalizes the
+loss over the global batch and sums the gradients in one all-reduce, so W
+ranks take one process's step; rank 0 alone writes checkpoints and logs,
+validation is split over the ranks and its metrics gathered.  The route
+(``NerfTrainer.route``, logged by :func:`train` and written to
+``route.txt`` in the run dir) is a
 function of the config, decided before any launch, as the JAX trainer
 decides its own: ``"kernels"`` -- :meth:`NerfRenderer.train_render` (the
 train-render and resample kernels on CUDA, their plain versions on the
@@ -20,9 +27,6 @@ NeRF (``embedding.appearance_embed``) holds one table row per training
 sequence; each ray trains its sequence's row (the batch's ``ts``), and Adam
 updates the table with the MLPs.  A retrieval-pair val sample (with
 ``data.train_pair_txt``) is scored by :meth:`NerfTrainer.validate_pair`.
-
-Not ported: multi-device data parallelism (``exp.gpus > 1`` raises
-``NotImplementedError``; ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -35,13 +39,15 @@ import torch
 from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
+from ..parallel.distributed import DataGroup, check_world, rank_seed
+from ..parallel.mesh import all_gather_host, replicate_params
 from ..utils import get_logger, resolve_device
 from ..utils.metrics import (compute_nerf_metrics,
                              compute_nerf_pose_metrics, mse2psnr)
 from ..utils.images import colorize_depth
 from ..utils.optim import get_lr, init_optimizer, make_lr_schedule, set_lr
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from .logging import MetricsLogger
+from .logging import MetricsLogger, NullLogger
 
 logger = get_logger(level="INFO", name="nerf_trainer")
 
@@ -83,14 +89,6 @@ def init_config_odir(config):
     return Path(exp.odir) / exp.name / exp.resume_version
 
 
-def check_train_config(config):
-    """Raise for training configs the port does not implement."""
-    exp = getattr(config, "exp", None)
-    if int(getattr(exp, "gpus", 0) or 0) > 1:
-        raise NotImplementedError("multi-GPU NeRF training is not ported "
-                                  "(ROADMAP: Queue 1, item 10)")
-
-
 class NerfTrainer:
     """Holds the renderer (the trained parameters, the appearance table
     included), the optimizer and the LR schedule; :meth:`train_step` is one
@@ -99,12 +97,15 @@ class NerfTrainer:
 
     def __init__(self, config, device="cuda", seed: int = 0,
                  num_frames: int | None = None):
-        check_train_config(config)
+        self.group = DataGroup.current()
+        world = 1 if self.group is None else self.group.world
+        check_world(config, world)
+        config.gpu_num = world
         self.config = config
         self.device = resolve_device(device)
         self.renderer = NerfRenderer(config, num_frames=num_frames)
         self.renderer.init_params(torch.Generator().manual_seed(seed))
-        self.renderer.to(self.device)
+        replicate_params(self.renderer.to(self.device))
         self.opt = init_optimizer(config.optim, self.renderer.parameters())
         self.lr_sched = make_lr_schedule(config.optim)
         self.cnfg_loss = getattr(config, "loss", None)
@@ -116,21 +117,30 @@ class NerfTrainer:
 
     def render_train(self, rays, generator=None, draws=None, ray_id=None):
         if self.use_fused:
-            return self.renderer.train_render(rays, generator, draws, ray_id)
+            return self.renderer.train_render(rays, generator, draws, ray_id,
+                                              group=self.group)
         return self.renderer.render_rays(rays, train=True,
                                          generator=generator, draws=draws,
-                                         ray_id=ray_id)
+                                         ray_id=ray_id, group=self.group)
 
     def train_step(self, rays, rgbs, generator=None, mask=None, draws=None,
                    ts=None):
         """One optimizer step on a ray batch (tensors on the trainer's
-        device; ``ts`` (N,): each ray's sequence, its appearance row) ->
-        detached metrics."""
+        device, this rank's block of the global batch; ``ts`` (N,): each
+        ray's sequence, its appearance row) -> detached metrics of the
+        global batch."""
         preds = self.render_train(rays, generator, draws, ts)
         metrics = compute_nerf_metrics(preds, rgbs, mask_loss=mask,
-                                       cnfg_loss=self.cnfg_loss)
+                                       cnfg_loss=self.cnfg_loss,
+                                       group=self.group)
         self.opt.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        if self.group is not None:
+            self.group.reduce_grads(p for g in self.opt.param_groups
+                                    for p in g["params"])
+            metrics = self.group.sum_metrics(metrics)
+            for k in [k for k in metrics if k.endswith("_psnr")]:
+                metrics[k] = mse2psnr(metrics[k[:-5] + "_mse"])
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -188,17 +198,23 @@ def train(config, device="cuda"):
     unless ``device="cpu"``."""
     exp = config.exp
     debug = bool(getattr(exp, "debug", False))
-    check_train_config(config)
+    group = DataGroup.current()
+    rank, world = (0, 1) if group is None else (group.rank, group.world)
+    check_world(config, world)
     device = resolve_device(device)
-    np.random.seed(exp.seed)
+    np.random.seed(rank_seed(exp.seed, rank))
 
     run_dir = init_config_odir(config)
-    run_dir.mkdir(parents=True, exist_ok=True)
-    mlog = MetricsLogger(run_dir)
-    mlog.log_text("config", str(namespace2dict(config)))
-    logger.info(f"Run dir: {run_dir} (device {device})")
+    mlog = NullLogger()
+    if rank == 0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        mlog = MetricsLogger(run_dir)
+        mlog.log_text("config", str(namespace2dict(config)))
+    logger.info(f"Run dir: {run_dir} (device {device}, rank {rank} of "
+                f"{world})")
 
-    train_set = init_data_loader(config.data, split="train").dataset
+    train_set = init_data_loader(config.data, exp.batch_size,
+                                 split="train").dataset
     val_loader = init_data_loader(config.data, split="val", debug=debug)
     # Before the resume: a stored table has this many rows.
     num_frames = int(np.max(train_set.seq_ind)) + 1
@@ -252,6 +268,8 @@ def train(config, device="cuda"):
             for vi, sample in enumerate(val_loader):
                 if debug and vi >= 1:
                     break
+                if vi % world != rank:      # the ranks split the val set
+                    continue
                 sample = {k: (v[0] if isinstance(v, (np.ndarray, list)) else v)
                           for k, v in sample.items()}
                 if "c2w" in sample and np.asarray(sample["c2w"]).size == 32:
@@ -269,6 +287,7 @@ def train(config, device="cuda"):
                         if np.ndim(preds.get(dk)) == 3:
                             mlog.log_image(epoch, f"val/depth_{stage}_{vi}",
                                            colorize_depth(preds[dk][..., 0]))
+            val_ms = all_gather_host(val_ms)    # every rank's samples
             keys = sorted({k for m in val_ms for k in m})
             val_mean = {k: float(np.mean([m[k] for m in val_ms if k in m]))
                         for k in keys}
@@ -277,11 +296,15 @@ def train(config, device="cuda"):
             psnr_v = val_mean.get("rgb_fine_psnr", -np.inf)
             if psnr_v > best_psnr:
                 best_psnr = psnr_v
-                save_checkpoint(ckpt_dir, epoch + 1, trainer.renderer,
-                                trainer.opt, config, name="best", keep=3,
-                                extra={"val_psnr": psnr_v})
-        save_checkpoint(ckpt_dir, epoch + 1, trainer.renderer, trainer.opt,
-                        config, name="last", keep=1,
-                        extra={"best_psnr": float(best_psnr)})
+                if rank == 0:
+                    save_checkpoint(ckpt_dir, epoch + 1, trainer.renderer,
+                                    trainer.opt, config, name="best", keep=3,
+                                    extra={"val_psnr": psnr_v})
+        if rank == 0:
+            save_checkpoint(ckpt_dir, epoch + 1, trainer.renderer,
+                            trainer.opt, config, name="last", keep=1,
+                            extra={"best_psnr": float(best_psnr)})
+        if group is not None:
+            group.barrier()
     mlog.close()
     return config, trainer.renderer

@@ -73,11 +73,26 @@ def distortion_loss(s, w):
     return torch.mean(lossfun_distortion(s, w))
 
 
+def _rank_share(mean, group=None):
+    """A rank's share of a mean over the global batch: every rank holds as
+    many rows, so the ranks' shares sum to the global mean."""
+    return mean if group is None else mean / group.world
+
+
+def _global_count(count, group=None):
+    """A count over the global batch (summed over the ranks)."""
+    return count if group is None else group.sum(count)
+
+
 def compute_nerf_metrics(preds, rgb_gt, validation_mode: bool = False,
-                         mask_loss=None, cnfg_loss=None):
+                         mask_loss=None, cnfg_loss=None, group=None):
     """0.5 * (coarse + fine MSE) + distortion regularizer -> metrics dict
     (tensors).  The 0.5-scaled MSE feeds the train PSNR, as in the reference
-    (+3.01 dB against the val-path ``psnr``), kept for log parity."""
+    (+3.01 dB against the val-path ``psnr``), kept for log parity.  With a
+    data-parallel ``group`` (``parallel.distributed.DataGroup``) every term
+    is this rank's share of the global-batch mean: the losses and the MSEs
+    sum over the ranks, the PSNRs must be taken again from the summed
+    MSEs."""
     metrics = {}
     loss = 0.0
     if mask_loss is not None:
@@ -89,13 +104,16 @@ def compute_nerf_metrics(preds, rgb_gt, validation_mode: bool = False,
         coarse_weight = getattr(cnfg_loss, "coarse_weight", 1.0) \
             if cnfg_loss else 1.0
         if "app_coarse" in preds and not validation_mode:
-            loss = loss + l2_regularize(preds["app_coarse"]) * 1e-5
-        m = 0.5 * torch.mean(mask_loss * (preds["rgb_coarse"] - rgb_gt) ** 2)
+            loss = loss + _rank_share(l2_regularize(preds["app_coarse"]),
+                                      group) * 1e-5
+        m = _rank_share(0.5 * torch.mean(
+            mask_loss * (preds["rgb_coarse"] - rgb_gt) ** 2), group)
         loss = loss + m * coarse_weight
         metrics["rgb_coarse_mse"] = m
         metrics["rgb_coarse_psnr"] = mse2psnr(m)
     if "rgb_fine" in preds:
-        m = 0.5 * torch.mean(mask_loss * (preds["rgb_fine"] - rgb_gt) ** 2)
+        m = _rank_share(0.5 * torch.mean(
+            mask_loss * (preds["rgb_fine"] - rgb_gt) ** 2), group)
         loss = loss + m
         metrics["rgb_fine_mse"] = m
         metrics["rgb_fine_psnr"] = mse2psnr(m)
@@ -105,8 +123,8 @@ def compute_nerf_metrics(preds, rgb_gt, validation_mode: bool = False,
     if not validation_mode and cnfg_loss is not None:
         ray_reg = getattr(cnfg_loss, "ray_reg_weight", None)
         if "s_fine" in preds and ray_reg:
-            loss = loss + distortion_loss(preds["s_fine"],
-                                          preds["weights_fine"]) * ray_reg
+            loss = loss + _rank_share(distortion_loss(
+                preds["s_fine"], preds["weights_fine"]), group) * ray_reg
     metrics["loss"] = loss
     return metrics
 
@@ -117,9 +135,12 @@ def compute_nerf_metrics(preds, rgb_gt, validation_mode: bool = False,
 
 def compute_matching_loss(conf, conf_gt, alpha: float = 0.25,
                           gamma: float = 2.0, clamp: bool = True,
-                          valid_mask=None):
+                          valid_mask=None, group=None):
     """Focal loss over the dual-softmax confidence matrix; conf_gt in {0, 1};
-    cells outside ``valid_mask`` count as neither positive nor negative."""
+    cells outside ``valid_mask`` count as neither positive nor negative.
+    With a data-parallel ``group`` the positive and negative counts are the
+    global batch's (here and in the losses below: each rank's loss is its
+    share, the ranks' losses and gradients sum to the global batch's)."""
     conf = conf.clamp(1e-6, 1 - 1e-6) if clamp else conf.clamp(1e-12, 1 - 1e-12)
     pos, neg = conf_gt == 1, conf_gt == 0
     if valid_mask is not None:
@@ -127,12 +148,14 @@ def compute_matching_loss(conf, conf_gt, alpha: float = 0.25,
     loss_pos = -alpha * (1 - conf) ** gamma * torch.log(conf)
     loss_neg = -alpha * conf ** gamma * torch.log(1 - conf)
     zero = torch.zeros((), device=conf.device)
-    pos_mean = torch.where(pos, loss_pos, zero).sum() / pos.sum().clamp(min=1)
-    neg_mean = torch.where(neg, loss_neg, zero).sum() / neg.sum().clamp(min=1)
+    pos_mean = torch.where(pos, loss_pos, zero).sum() \
+        / _global_count(pos.sum(), group).clamp(min=1)
+    neg_mean = torch.where(neg, loss_neg, zero).sum() \
+        / _global_count(neg.sum(), group).clamp(min=1)
     return pos_mean + neg_mean
 
 
-def compute_feat_l2(im_feat, pt_feat, conf_gt):
+def compute_feat_l2(im_feat, pt_feat, conf_gt, group=None):
     """Mean L2 distance of GT-corresponding features: per-image means over
     the positives, then the batch mean (the reference's weighting)."""
     sq = ((im_feat ** 2).sum(-1)[:, :, None] + (pt_feat ** 2).sum(-1)[:, None, :]
@@ -141,20 +164,21 @@ def compute_feat_l2(im_feat, pt_feat, conf_gt):
     pos = conf_gt > 0
     per_b = torch.where(pos, dist, torch.zeros((), device=dist.device)).sum(
         (1, 2)) / pos.sum((1, 2)).clamp(min=1)
-    return per_b.mean()
+    return _rank_share(per_b.mean(), group)
 
 
-def _std_weight(std, valid):
+def _std_weight(std, valid, group=None):
     """Stop-gradient inverse-std weights normalized by their mean over the
-    ``valid`` rows."""
+    ``valid`` rows (of every rank with a ``group``)."""
     inv_std = 1.0 / std.clamp(min=1e-10)
-    vnum = valid.sum().clamp(min=1)
-    mean_inv = torch.where(valid, inv_std, torch.zeros_like(inv_std)).sum() / vnum
+    vnum = _global_count(valid.sum(), group).clamp(min=1)
+    mean_inv = _global_count(torch.where(
+        valid, inv_std, torch.zeros_like(inv_std)).sum(), group) / vnum
     return (inv_std / mean_inv).detach(), vnum
 
 
 def compute_fine_loss_l2_std(expec_f, expec_f_gt, training: bool = True,
-                             valid=None):
+                             valid=None, group=None):
     """LoFTR local expectation loss: std-weighted l2 of window-normalized
     offsets over the rows whose GT lies inside the window (and ``valid``);
     ``training`` is unused, as in the reference."""
@@ -164,19 +188,19 @@ def compute_fine_loss_l2_std(expec_f, expec_f_gt, training: bool = True,
     else:
         valid_w = valid
         correct = correct & valid
-    weight, _ = _std_weight(expec_f[:, 2], valid_w)
+    weight, _ = _std_weight(expec_f[:, 2], valid_w, group)
     flow_l2 = ((expec_f_gt - expec_f[:, :2]) ** 2).sum(-1)
     return torch.where(correct, flow_l2 * weight, torch.zeros_like(flow_l2)).sum() \
-        / correct.sum().clamp(min=1)
+        / _global_count(correct.sum(), group).clamp(min=1)
 
 
 def compute_fine_match_loss_l2_std(mpt2d_f, mpt2d_f_gt, std, mask=None,
-                                   valid=None):
+                                   valid=None, group=None):
     """Global-pixel fine loss: std-weighted l2 in image coordinates, summed
     over ``mask & valid`` and divided by the number of valid rows."""
     if valid is None:
         valid = torch.ones_like(std, dtype=torch.bool)
-    weight, vnum = _std_weight(std, valid)
+    weight, vnum = _std_weight(std, valid, group)
     mask = valid if mask is None else mask & valid
     flow_l2 = ((mpt2d_f - mpt2d_f_gt) ** 2).sum(-1)
     return torch.where(mask, flow_l2 * weight, torch.zeros_like(flow_l2)).sum() / vnum

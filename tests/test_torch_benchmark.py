@@ -195,8 +195,10 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
     """The re-render NeRF is loaded with ``serving=True`` (absent key ->
     'coarse'); ``--pair_topk 3`` and ``--pair_topk 3 --match_oracle`` run
     (their tag-named files), ``--match_oracle`` on single pairs of the test
-    split raises the JAX evaluator's ValueError (no ``conf_gt``), and the
-    multi-GPU flag ``--point_shard`` raises instead of being ignored."""
+    split raises the JAX evaluator's ValueError (no ``conf_gt``), and on
+    one device ``--point_shard`` and ``--pair_shard`` write the results of
+    the runs without them (the dense path, the pairs one after the
+    other)."""
     from nerfmatch_tpu_torch.eval import match_evaluator as tme
 
     seen = []
@@ -221,9 +223,23 @@ def test_benchmark_resolves_serving_int8_and_raises_unported(bench,
         assert (res / f"toy_rth200test_colmap_itr2{tag}.npy").exists()
     with pytest.raises(ValueError, match="conf_gt"):
         tcli.main(base + ["--match_oracle"])
-    for flag in (["--point_shard"],):
-        with pytest.raises(NotImplementedError):
-            tcli.main(base + flag)
+    def results():
+        return {p.name: {k: np.asarray(v) for k, v in
+                         np.load(p, allow_pickle=True).item().items()
+                         if k in ("R_err", "t_err", "num_matches")}
+                for p in res.glob("*.npy")}
+
+    for flags, shard in (([], "--point_shard"),
+                         (["--pair_topk", "3"], "--pair_shard")):
+        tcli.main(base + flags)
+        plain = results()
+        tcli.main(base + flags + [shard])
+        sharded = results()
+        assert sharded.keys() == plain.keys()
+        for name, metr in plain.items():
+            for k, v in metr.items():
+                np.testing.assert_array_equal(sharded[name][k], v,
+                                              err_msg=(shard, name, k))
 
 
 PROTOCOLS = {

@@ -134,6 +134,10 @@ for m in pkgutil.walk_packages(nerfmatch_tpu_torch.__path__, 'nerfmatch_tpu_torc
 from nerfmatch_tpu_torch.config import dict2namespace
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 from nerfmatch_tpu_torch.cli.benchmark_nerfmatch import build_parser
+import nerfmatch_tpu_torch.parallel.distributed, nerfmatch_tpu_torch.parallel.mesh
+import nerfmatch_tpu_torch.parallel.point_sharding
+import nerfmatch_tpu_torch.parallel.pair_sharding
+import nerfmatch_tpu_torch.parallel.render_sharding
 mlp = dict(layer_num=8, hid_dim=64, skips=[4], num_pts=32, output_dim=4)
 cfg = dict2namespace(dict(render=dict(use_viewdirs=True, white_bg=False,
                                       trunk_int8='coarse'),

@@ -536,14 +536,26 @@ def test_trainer_steps_match_jax(scene, tmp_path):
 
 
 def test_trainer_rejects_unported_configs(scene, tmp_path):
-    """exp.gpus > 1 raises; an out_scr NeRF (ported since) trains, on the
-    plain route, as the JAX trainer leaves its fused path for it."""
+    """``exp.gpus`` caps the devices: 2 in a world of one process trains on
+    it (``gpu_num`` 1), 1 in a world of 2 ranks raises (a launched world
+    cannot shrink), and so does a matcher's global batch of 3 over 2 ranks;
+    an out_scr NeRF (ported since) trains, on the plain route, as the JAX
+    trainer leaves its fused path for it."""
+    from nerfmatch_tpu_torch.parallel.distributed import check_world
+    from nerfmatch_tpu_torch.train.matcher_trainer import check_matcher_config
     from nerfmatch_tpu_torch.train.nerf_trainer import NerfTrainer
 
     cfg = nerf_train_config(scene, tmp_path)
     cfg.exp.gpus = 2
-    with pytest.raises(NotImplementedError):
-        NerfTrainer(cfg, device="cpu")
+    NerfTrainer(cfg, device="cpu")
+    assert cfg.gpu_num == 1
+    cfg.exp.gpus = 1
+    with pytest.raises(ValueError, match="below the 2 launched"):
+        check_world(cfg, world=2)
+    cfg.exp.gpus, cfg.exp.batch_size = 0, 3
+    check_matcher_config(cfg, world=1)
+    with pytest.raises(ValueError, match="does not divide over 2"):
+        check_matcher_config(cfg, world=2)
     cfg = nerf_train_config(scene, tmp_path, use_fused_train=True)
     cfg.data.out_scr = True
     assert NerfTrainer(cfg, device="cpu").route == "plain"
@@ -582,14 +594,19 @@ def test_cli_train_writes_last_checkpoint_and_resumes(scene, tmp_path):
 
 def test_training_modules_import_without_jax():
     """A fresh interpreter imports every training module of the port and
-    takes one train_render step on the CPU without importing jax or the
-    JAX package."""
+    its parallel package, takes one train_render step and a render sharded
+    over two CPU devices without importing jax or the JAX package."""
     code = f"""
 import sys, torch
 sys.path.insert(0, {str(ROOT)!r})
 import nerfmatch_tpu_torch.cli.train_nerf, nerfmatch_tpu_torch.data.loaders
 import nerfmatch_tpu_torch.train.nerf_trainer
 import nerfmatch_tpu_torch.cli.train_nerfmatch, nerfmatch_tpu_torch.cli.eval_nerf
+import nerfmatch_tpu_torch.parallel.point_sharding
+import nerfmatch_tpu_torch.parallel.pair_sharding
+from nerfmatch_tpu_torch.parallel.distributed import process_info
+from nerfmatch_tpu_torch.parallel.render_sharding import make_sharded_render
+from nerfmatch_tpu_torch.parallel.mesh import make_mesh
 from nerfmatch_tpu_torch.config import dict2namespace
 from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
 mlp = dict(layer_num=2, hid_dim=64, skips=[0], num_pts=16, output_dim=4)
@@ -604,6 +621,15 @@ rays = torch.cat([torch.zeros(4, 3), torch.tensor([[0., 0., 1.]]).repeat(4, 1),
 out = r.train_render(rays, torch.Generator().manual_seed(0))
 out['rgb_fine'].sum().backward()
 assert r.nerf_fine.pts_linears[0].weight.grad is not None
+assert process_info() == (0, 1)
+mlp['num_pts'] = 32
+r = NerfRenderer(dict2namespace(dict(render=dict(use_viewdirs=True,
+    white_bg=False), embedding=dict(xyz_num_freqs=15, dirs_num_freqs=4,
+    type='mip'), coarse_nerf=dict(mlp), fine_nerf=dict(mlp))), stop_layer=1)
+with torch.no_grad():
+    sharded = make_sharded_render(make_mesh(devices=['cpu', 'cpu']),
+                                  r.init_params(torch.Generator()))(rays)
+assert torch.isfinite(sharded['feat_fine']).all()
 assert not any(m.split('.')[0] in ('jax', 'nerfmatch_tpu') for m in sys.modules)
 print('OK')
 """
