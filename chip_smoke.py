@@ -214,7 +214,24 @@ Phases (each prints its results; any failure exits non-zero):
    mconf within 1e-6 and expec_f within 1e-5; ``make_sharded_render`` on
    9216 room rays at the serving default bit-identical to
    ``fused_predict``; the kernel rows carry phase 9's launches
-   (``launches_phase9``).
+   (``launches_phase9``);
+10. the end-to-end accuracy path: ``e2e.pipeline.run`` on the enclosed
+   synthetic scene (a 128x128 ball inside a textured shell, 24 training
+   and 6 query views; the ladder's frustum depth, 6) at a short budget
+   (``E2E_NERF_EPOCHS`` NeRF and
+   ``E2E_MATCH_EPOCHS`` matcher epochs), to the end on the card: the NeRF
+   trained at full width (kernels 5, 6, 2) and its held-out PSNR, the
+   scene points cached at the serving default ``'coarse'`` (1b, 2, 1),
+   Mini, Full warm-started from Mini's ``best`` checkpoint (the
+   ``convformer`` trunk, whose widths pass the gate of kernels 7-9; 3 and
+   4 at the e2e matcher's head width 8, zero-padded to the kernel's 32),
+   and the 12 query pairs localized single-shot, with the Full model,
+   with ``--iters 2`` and with iNeRF; the summary (stage times, PSNR,
+   medians, match counts, recall at 5 deg / 0.05) is printed, the medians
+   must be finite, Full's warm start Mini's ``best``, and kernels 1, 1b, 2,
+   3, 4, 5, 6, 7, 8 and 9 launched (``launches_phase10`` on their rows);
+   then the attention at head_dim 8 against its plain version (the
+   ``attention`` row's ``e2e_head_dim8``).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -4337,6 +4354,104 @@ def phase_parallel(renderer, nerf_cfg, dev, seed):
     return by_kernel
 
 
+# Phase 10: the e2e pipeline's budget (a few NeRF and matcher epochs), the
+# matcher trunk (the e2e config's 'tiny' trunk is too narrow for kernels
+# 7-9's gate, C % 128 == 0) and the serving mode (the config pins 'none';
+# the serving default 'coarse' runs kernel 1b).
+E2E_NERF_EPOCHS, E2E_MATCH_EPOCHS = 4, 3
+E2E_BACKBONE, E2E_TRUNK_INT8 = "convformer", "coarse"
+E2E_KERNELS = ("render_fine", "render_coarse_int8", "resample", "attention",
+               "attention_bwd", "render_train_fwd", "render_train_bwd",
+               "dw_star_fwd", "dw_star_dgrad", "dw_star_wgrad")
+
+
+def e2e_attention_row(dev, B=2, L=256, S=256, H=8, D=8):
+    """The e2e matcher's attention (64-wide coarse features: 8 heads of 8,
+    L = S = 256 at 128x128 and ds 8), which the wrapper runs on the kernel
+    zero-padded to head_dim 32: the bf16 forward against the one-pass plain
+    version (max 1e-3, mean 1e-5) and the backward through autograd
+    against the plain backward (1e-2 of each gradient's largest value,
+    cosine > 0.999), timed beside the plain version, SDPA and the bound of
+    the unpadded work."""
+    from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+        attention_bwd_plain, attention_onepass_plain, fused_attention)
+
+    g = torch.Generator(dev).manual_seed(10)
+    q, k, v, up = (torch.randn(B, L, H, D, device=dev, generator=g) * s
+                   for s in (0.3, 1.0, 1.0, 1.0))
+    with torch.no_grad():
+        out = fused_attention(q, k, v, True)
+        one, _ = attention_onepass_plain(q, k, v, True)
+        err = (out - one).abs()
+        ms = cuda_ms(lambda: fused_attention(q, k, v, True))
+        plain_ms = cuda_ms(lambda: attention_onepass_plain(q, k, v, True))
+        lib_ms, lib_err = sdpa_forward(q, k, v, one)
+    assert float(err.max()) < 1e-3 and float(err.mean()) < 1e-5, err.max()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fused_attention(*leaves, True) * up).sum().backward()
+    with torch.no_grad():
+        ref = attention_bwd_plain(q, k, v, up, True)
+    grads = {}
+    for name, leaf, r in zip("qkv", leaves, ref):
+        cos = float((leaf.grad * r).sum()) / float(leaf.grad.norm() * r.norm())
+        grads[f"d{name}"] = dict(scaled_err=scaled_err(leaf.grad, r), cos=cos)
+        assert grads[f"d{name}"]["scaled_err"] < 1e-2 and cos > 0.999, grads
+    row = dict(B=B, L=L, S=S, H=H, D=D, padded_to=32,
+               max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_max_diff=lib_err, backward=grads,
+               **bound({"bf16": 2 * 2 * B * H * L * S * D},
+                       nbytes(q, k, v, out)))
+    log(f"phase 10 attention at head_dim {D} (padded to 32): "
+        f"{json.dumps(row)}")
+    return row
+
+
+def phase_e2e(dev, seed):
+    """Phase 10: ``e2e.pipeline.run`` on the enclosed synthetic scene at a
+    short budget, to the end on the card (NeRF training, its held-out PSNR,
+    the scene-point cache at the serving default, Mini, Full warm-started
+    from Mini's ``best``, localization of the 12 query pairs under single,
+    c2f-fine, iters2 and iters2+inerf); the medians must be finite, Full's
+    warm start Mini's ``best`` checkpoint, and kernels 1, 1b, 2, 3, 4, 5,
+    6, 7, 8 and 9 launched; then the attention at the e2e matcher's head
+    width against its plain version -> (launches by kernel, summary,
+    attention row)."""
+    import tempfile
+
+    from nerfmatch_tpu_torch.e2e import pipeline
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+
+    torch.manual_seed(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = pipeline.run(Path(tmp), enclosed=True,
+                               nerf_epochs=E2E_NERF_EPOCHS,
+                               match_epochs=E2E_MATCH_EPOCHS, device=dev,
+                               backbone=E2E_BACKBONE,
+                               trunk_int8=E2E_TRUNK_INT8,
+                               frustum_depth=pipeline.ENCLOSED_FRUSTUM_DEPTH)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+    summary["phase_seconds"] = seconds
+    log("phase 10 summary: " + json.dumps(summary))
+    log(f"phase 10 launches: {json.dumps(launches)}")
+    for name, p in summary["protocols"].items():
+        assert np.isfinite(p["r_med"]) and np.isfinite(p["t_med"]), (name, p)
+    warm = summary["warm_start"]
+    assert "/out_match/" in warm["ckpt"] and \
+        Path(warm["ckpt"]).name.startswith("best_") and warm["tensors"] > 0, \
+        warm
+    missing = [k for k in E2E_KERNELS if not launches.get(k)]
+    assert not missing, missing
+    row = e2e_attention_row(dev)
+    log(f"phase 10: {seconds:.1f} s (the pipeline)")
+    return launches, summary, row
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4466,6 +4581,12 @@ def main():
     for n, counts in phase9_launches.items():
         if n in rows:
             rows[n]["launches_phase9"] = counts
+
+    torch.cuda.empty_cache()
+    e2e_launches, _, e2e_row = phase_e2e(dev, args.seed)
+    for n in E2E_KERNELS:
+        rows[n]["launches_phase10"] = e2e_launches[n]
+    rows["attention"]["e2e_head_dim8"] = e2e_row
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

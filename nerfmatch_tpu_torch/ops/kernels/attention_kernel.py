@@ -29,6 +29,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.nn import functional as F
 
 from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 
@@ -247,9 +248,18 @@ def fused_attention(qs, k, v, bf16: bool = False):
 
     CPU tensors take the plain version (autograd runs through it); CUDA
     tensors launch the forward kernel, which also emits ``lse`` for the
-    backward kernels when a gradient is needed."""
+    backward kernels when a gradient is needed.  ``D`` below the kernel's
+    head_dim runs zero-padded to it (the e2e matcher's 64-wide coarse
+    features: 8 heads of 8)."""
     if qs.device.type != "cuda":
         return attention_plain(qs, k, v, bf16)
+    D, width = qs.shape[-1], KERNEL_HEAD_DIMS[0]
+    if D < width:
+        # A narrower head runs at the kernel's width on zero columns: they
+        # add nothing to q k^T, v's give zero output columns (and zero
+        # gradient columns), and the slice drops them.
+        pad = lambda t: F.pad(t, (0, width - D))
+        return fused_attention(pad(qs), pad(k), pad(v), bf16)[..., :D]
     if torch.is_grad_enabled() and (qs.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FusedAttention.apply(qs, k, v, bool(bf16))

@@ -119,9 +119,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
 def test_new_modules_import_and_run_without_jax():
     """A fresh interpreter imports every module of the port (the int8
-    trunk, the localization evaluator and benchmark CLI included), then
+    trunk, the localization evaluator, the benchmark CLI and the e2e
+    modules included), then
     calibrates and runs an int8 render stage on the CPU, without importing
-    jax or the JAX package."""
+    jax, the JAX package or its ``scripts``."""
     import subprocess
     import sys
 
@@ -138,6 +139,9 @@ import nerfmatch_tpu_torch.parallel.distributed, nerfmatch_tpu_torch.parallel.me
 import nerfmatch_tpu_torch.parallel.point_sharding
 import nerfmatch_tpu_torch.parallel.pair_sharding
 import nerfmatch_tpu_torch.parallel.render_sharding
+import nerfmatch_tpu_torch.e2e.scene, nerfmatch_tpu_torch.e2e.pipeline
+import nerfmatch_tpu_torch.e2e.parity_artifacts, nerfmatch_tpu_torch.e2e.ladder
+import nerfmatch_tpu_torch.e2e.gates
 mlp = dict(layer_num=8, hid_dim=64, skips=[4], num_pts=32, output_dim=4)
 cfg = dict2namespace(dict(render=dict(use_viewdirs=True, white_bg=False,
                                       trunk_int8='coarse'),
@@ -153,7 +157,8 @@ with torch.no_grad():
     out = r.fused_render(rays)
 assert torch.isfinite(out['feat_fine']).all()
 assert build_parser().parse_args(['--iters', '2']).device == 'cuda'
-assert not any(m.split('.')[0] in ('jax', 'nerfmatch_tpu') for m in sys.modules)
+assert not any(m.split('.')[0] in ('jax', 'nerfmatch_tpu', 'scripts')
+               for m in sys.modules)
 print('OK')
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

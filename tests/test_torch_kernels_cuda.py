@@ -1148,6 +1148,36 @@ def test_attention_backward_merged_matches_plain(dev, L, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 8, 16])
+def test_attention_pads_narrow_heads(dev, D):
+    """A head_dim below the kernel's 32 (the e2e matcher's 64-wide coarse
+    features: 8 heads of 8, at L = S = 256) runs the kernels on zero-padded
+    operands: the bf16 forward within 1e-3 (mean 1e-5) of the one-pass plain
+    version and the backward through autograd within 1e-2 of each
+    gradient's largest value (cosine > 0.999) of the plain backward, each
+    pass launching its kernel once."""
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v, up = (torch.randn(2, 256, 8, D, device=dev, generator=g) * s
+                   for s in (0.3, 1.0, 1.0, 1.0))
+    reset_launch_counts()
+    with torch.no_grad():
+        out = fused_attention(q, k, v, True)
+        one, _ = attention_onepass_plain(q, k, v, True)
+    assert out.shape == q.shape and LAUNCHES["attention"] == 1
+    err = (out - one).abs()
+    assert float(err.max()) < 1e-3 and float(err.mean()) < 1e-5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fused_attention(*leaves, True) * up).sum().backward()
+    assert LAUNCHES["attention"] == 2 and LAUNCHES["attention_bwd"] == 1
+    with torch.no_grad():
+        ref = attention_bwd_plain(q, k, v, up, True)
+    for leaf, r in zip(leaves, ref):
+        a = leaf.grad
+        cos = float((a * r).sum()) / float(a.norm() * r.norm())
+        assert scaled_err(a, r) < 1e-2 and cos > 0.999, (scaled_err(a, r), cos)
+
+
+@pytest.mark.cuda
 def test_attention_forward_skips_lse_without_a_gradient(dev):
     """Under ``no_grad`` (serving) the autograd Function saves nothing and
     asks the kernel for no ``lse``; with a gradient it saves the bf16
