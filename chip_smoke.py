@@ -32,8 +32,13 @@ Phases (each prints its results; any failure exits non-zero):
    largest weights lie within the tie margin counted, the others' pts and
    feat within 5e-3, theirs the point of a near-tied sample), rerun
    bit-identical, timed beside the lin stage in turns, the lin outputs'
-   digest; and attention at the merged multi-pair layout (L = 3600, S =
-   14,400; and L = S = 14,400) beside SDPA;
+   digest; attention at the merged multi-pair layout (L = 3600, S =
+   14,400; and L = S = 14,400) beside SDPA; and attention at head_dim 16,
+   64 and 128 (B=1, H=8, L=S=3600: the other instantiations of
+   ``attention.cu``), bf16 against the one-pass plain version and f32
+   against the plain version, each timed, the bf16 call also as its C
+   entry alone, beside SDPA, its bound and ``exp_bound_ms``, and every
+   attention kernel's registers and spills from the build;
 3b. the same for training: the train-render forward and backward kernels
    on 9216 rays at full width (the room's fine MLP, jittered z, density
    noise of std 1, loss rgb MSE + 0.01 distortion), rgb / weights and every
@@ -61,7 +66,9 @@ Phases (each prints its results; any failure exits non-zero):
    rerun must be bit-identical; then the bf16 backward at merged multi-pair
    training's shapes (B=2, H=8; L = 3600, S = 14,400 and L = S = 14,400)
    against the plain backward taken a head at a time, beside its bound,
-   ``exp_bound_ms`` and SDPA's backward;
+   ``exp_bound_ms`` and SDPA's backward; then the backward at head_dim
+   16, 64 and 128 (B=2, H=8, L=S=3600, both modes, reruns bit-identical)
+   against the plain backward, beside SDPA's backward and its bound;
 3d. the same for the int8 serving trunk: activation scales calibrated from
    the first 1024 of 9216 rays of the room fixture, the int8 kernel's
    design, registers, spills and shared memory, then the int8 render stage
@@ -224,14 +231,16 @@ Phases (each prints its results; any failure exits non-zero):
    scene points cached at the serving default ``'coarse'`` (1b, 2, 1),
    Mini, Full warm-started from Mini's ``best`` checkpoint (the
    ``convformer`` trunk, whose widths pass the gate of kernels 7-9; 3 and
-   4 at the e2e matcher's head width 8, zero-padded to the kernel's 32),
+   4 at the e2e matcher's head width 8, on their 16-wide instantiation),
    and the 12 query pairs localized single-shot, with the Full model,
    with ``--iters 2`` and with iNeRF; the summary (stage times, PSNR,
    medians, match counts, recall at 5 deg / 0.05) is printed, the medians
    must be finite, Full's warm start Mini's ``best``, and kernels 1, 1b, 2,
    3, 4, 5, 6, 7, 8 and 9 launched (``launches_phase10`` on their rows);
-   then the attention at head_dim 8 against its plain version (the
-   ``attention`` row's ``e2e_head_dim8``).
+   then the attention at head_dim 8 against its plain version, one launch
+   a pass, forward and backward timed beside SDPA and their bounds, the
+   forward also as its C entry alone (the ``attention`` row's
+   ``e2e_head_dim8``).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -973,6 +982,9 @@ def phase_kernels(renderer, dev):
             rows["attention"] = attention_forward_row(q, k, v, a, err, ms,
                                                       plain_ms)
     rows["attention"]["merged"] = attention_merged_row(dev)
+    rows["attention"]["head_dims"] = {
+        str(d): attention_width_row(dev, d) for d in ATTN_WIDTH_ROWS}
+    rows["attention"]["ptxas"] = attention_build()
     return rows
 
 
@@ -1018,6 +1030,117 @@ def attention_merged_row(dev, L=3600, S=14400):
         f"{row['self_S']['ms']:.4f} SDPA {row['self_S']['library_ms']:.4f} "
         f"bound {row['self_S']['bound_ms']:.4f}")
     assert err1 < 1e-3 and mean1 < 1e-5 and torch.isfinite(a).all()
+    return row
+
+
+# The head_dims phases 3 and 3c hold beside the matcher's 32: the other
+# instantiations of csrc/attention.cu (16, 64, 128).
+ATTN_WIDTH_ROWS = (16, 64, 128)
+
+
+def attention_build():
+    """ptxas registers and spills of every attention kernel instantiation,
+    from the build log, by readable name (``<kD>``, dK/dV ``<kD, pass>``:
+    0 both, 1 dV alone, 2 dK alone)."""
+    import re
+
+    from nerfmatch_tpu_torch.ops import kernels
+
+    bases = ("attention_bf16_kernel", "attn_bwd_dkdv_bf16", "attn_bwd_dq_bf16",
+             "attn_bwd_prep", "attention_cast_bf16", "attention_f32_kernel",
+             "attn_bwd_dkdv_f32", "attn_bwd_dq_f32")
+    name, out = "", {}
+    log_path = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            base = next((b for b in bases if b in name), None)
+            if base is None:
+                name = ""
+                continue
+            rest = name.split(base, 1)[1]
+            args = re.match(r"I((?:Li\d+E)+)E", rest)
+            widths = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+            name = base + (f"<{', '.join(widths)}>" if widths else "")
+        elif name and ("Used" in line or "spill" in line):
+            text = line.strip().replace("ptxas info    : ", "")
+            if "spill" in text:
+                text = text.split(":", 1)[-1].strip()
+            out[name] = (out[name] + "; " if name in out else "") + text
+    for n, text in sorted(out.items()):
+        log(f"  ptxas {n}: {text}")
+    return out
+
+
+def attention_fwd_alone_ms(q, k, v, cast=True):
+    """Device time of the attention forward's C entry alone (no wrapper),
+    calls queued back to back: with ``cast`` on the f32 q, k, v (the cast
+    launch and the kernel, as the matcher calls it), else on bf16 operands
+    (the kernel alone)."""
+    from nerfmatch_tpu_torch.ops import kernels
+    from nerfmatch_tpu_torch.ops.kernels import attention_kernel as ak
+
+    B, L, H, D = q.shape
+    S, W = k.shape[1], ak.operand_width(D)
+    out = torch.empty(B, L, H, D, device=q.device)
+    if cast:
+        ops = [t.contiguous() for t in (q, k, v)]
+        ws = torch.empty((B * L + 2 * B * S) * H * W, device=q.device,
+                         dtype=torch.bfloat16)
+    else:
+        ops, ws = ak._operands((q, k, v), True), None
+    lib, stream = kernels.library(), kernels.stream_ptr(q.device)
+    return kernel_alone_ms(lambda: kernels.check(lib.nm_attention_forward(
+        *(t.data_ptr() for t in ops), out.data_ptr(), 0,
+        ws.data_ptr() if cast else 0, B, L, S, H, D, 1, stream), "attention"))
+
+
+def attention_width_row(dev, D, L=3600, S=3600, H=8):
+    """The attention forward at head_dim ``D`` and phase 3's shapes (B = 1,
+    H = 8, L = S = 3600) on the ``kernel_head_dim(D)`` instantiation: the
+    bf16 mode against the one-pass plain version (max 1e-3, mean 1e-5, the
+    D = 32 tolerances; the two-pass plain version's error beside), the f32
+    mode against ``attention_plain`` (max 1e-4); the bf16 call timed through
+    the wrapper (``ms``) and its C entry alone (``kernel_ms``), beside the
+    plain version, SDPA, the bound and ``exp_bound_ms``; the f32 mode's
+    time -> a row of the attention summary's ``head_dims``."""
+    from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+        attention_onepass_plain, attention_plain, fused_attention,
+        kernel_head_dim)
+
+    g = torch.Generator(dev).manual_seed(4)
+    q = torch.randn(1, L, H, D, device=dev, generator=g) / np.sqrt(D)
+    k = torch.randn(1, S, H, D, device=dev, generator=g)
+    v = torch.randn(1, S, H, D, device=dev, generator=g)
+    a = fused_attention(q, k, v, True)
+    one, _ = attention_onepass_plain(q, k, v, True)
+    err1, mean1 = float((a - one).abs().max()), float((a - one).abs().mean())
+    del one
+    err2 = float((a - attention_plain(q, k, v, True)).abs().max())
+    a32 = fused_attention(q, k, v, False)
+    err32 = float((a32 - attention_plain(q, k, v, False)).abs().max())
+    ms = cuda_ms(lambda: fused_attention(q, k, v, True))
+    kernel_ms = attention_fwd_alone_ms(q, k, v)
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, True), 3)
+    f32_ms = cuda_ms(lambda: fused_attention(q, k, v, False), 3)
+    lib_ms, lib_err = sdpa_forward(q, k, v, a)
+    eb, _, _ = exp_bound_ms(H * L * S)
+    row = dict(D=D, kernel_head_dim=kernel_head_dim(D), L=L, S=S,
+               max_abs_err=err1, mean_abs_err=mean1, two_pass_max_err=err2,
+               ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_max_diff=lib_err, exp_bound_ms=eb,
+               f32_ms=f32_ms, f32_max_abs_err=err32,
+               **bound({"bf16": 4 * H * L * S * D}, nbytes(q, k, v, a)))
+    log(f"kernel attention at head_dim {D} (kD {row['kernel_head_dim']}), "
+        f"B=1, H={H}, L=S={L}: bf16 vs the one-pass plain version max "
+        f"{err1:.3e} mean {mean1:.3e} (tol max 1e-3, mean 1e-5), vs the "
+        f"two-pass plain version max {err2:.3e}; f32 mode vs attention_plain "
+        f"max {err32:.3e} (tol 1e-4); ms={ms:.4f} kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.4f} "
+        f"exp_bound_ms={eb:.4f} scaled_dot_product_attention {lib_ms:.4f} "
+        f"(max abs diff {lib_err:.2e}); f32 mode {f32_ms:.3f} ms")
+    assert err1 < 1e-3 and mean1 < 1e-5 and err32 < 1e-4
+    assert torch.isfinite(a).all() and torch.isfinite(a32).all()
     return row
 
 
@@ -2141,7 +2264,69 @@ def phase_matcher_kernels(dev):
                 f"operands) {lib_ms:.3f} ms")
     rows["attention_bwd"]["merged"] = [attention_bwd_merged_row(dev, L, S)
                                        for L, S in MERGED_TRAIN_SHAPES]
+    rows["attention_bwd"]["head_dims"] = {
+        str(d): attention_bwd_width_row(dev, d) for d in ATTN_WIDTH_ROWS}
     return rows
+
+
+def attention_bwd_width_row(dev, D, B=2, L=3600, S=3600, H=8):
+    """The attention backward at head_dim ``D`` and phase 3c's shapes (B =
+    2, H = 8, L = S = 3600; ``out`` and ``lse`` handed in, as the training
+    path calls it) on the ``kernel_head_dim(D)`` instantiation: bf16 mode
+    against ``attention_bwd_plain`` (1e-2 of each gradient's largest value,
+    cosine > 0.999, the D = 32 tolerances), f32 mode (1e-4, cosine >
+    0.99999), each rerun bit-identical; timed beside the plain version,
+    SDPA's backward, the bound and ``exp_bound_ms`` -> a row of the
+    ``attention_bwd`` summary's ``head_dims``."""
+    from nerfmatch_tpu_torch.ops.kernels import attention_kernel as ak
+    from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
+        attention_bwd, attention_bwd_plain, kernel_head_dim)
+
+    g = torch.Generator(dev).manual_seed(5)
+    q = torch.randn(B, L, H, D, device=dev, generator=g) / np.sqrt(D)
+    k = torch.randn(B, S, H, D, device=dev, generator=g)
+    v = torch.randn(B, S, H, D, device=dev, generator=g)
+    up = torch.randn(B, L, H, D, device=dev, generator=g)
+    res = {}
+    for bf16, (tol, min_cos) in ((False, (1e-4, 0.99999)), (True, (1e-2, 0.999))):
+        out, lse, ops = ak._forward_kernel(q, k, v, bf16, True)
+        run = lambda: attention_bwd(*ops, up, bf16, out=out, lse=lse)
+        got, again = run(), run()
+        ref = attention_bwd_plain(q, k, v, up, bf16)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        err = max(scaled_err(a, r) for a, r in zip(got, ref))
+        cos = min(float((a * r).sum()) / float(a.norm() * r.norm())
+                  for a, r in zip(got, ref))
+        abs_err = max(float((a - r).abs().max()) for a, r in zip(got, ref))
+        del ref
+        res[bf16] = dict(scaled_err=err, cosine=cos, max_abs_err=abs_err,
+                         same=same, ms=cuda_ms(run, 3 if not bf16 else 10),
+                         plain_ms=cuda_ms(lambda: attention_bwd_plain(
+                             q, k, v, up, bf16), 3))
+        log(f"kernel attention_bwd at head_dim {D} (kD {kernel_head_dim(D)}) "
+            f"bf16={bf16}, B={B}, H={H}, L=S={L}: dq/dk/dv scaled err "
+            f"{err:.3e} (tol {tol:g}), min cosine {cos:.6f} (tol {min_cos}), "
+            f"max_abs_err {abs_err:.3e}, rerun bit-identical {same}; "
+            f"ms={res[bf16]['ms']:.3f} (out and lse handed in) plain_ms="
+            f"{res[bf16]['plain_ms']:.3f}")
+        assert err < tol and cos > min_cos and same
+        assert all(torch.isfinite(a).all() for a in got)
+        if bf16:
+            grads = got
+    lib_ms = sdpa_backward(q, k, v, up)
+    eb, _, _ = exp_bound_ms(2 * B * H * L * S)
+    b16 = res[True]
+    row = dict(D=D, kernel_head_dim=kernel_head_dim(D), B=B, L=L, S=S,
+               max_abs_err=b16["max_abs_err"], scaled_err=b16["scaled_err"],
+               cosine=b16["cosine"], ms=b16["ms"], plain_ms=b16["plain_ms"],
+               library_ms=lib_ms, exp_bound_ms=eb, f32_ms=res[False]["ms"],
+               f32_scaled_err=res[False]["scaled_err"],
+               **bound({"bf16": 10 * B * H * L * S * D},
+                       nbytes(q, k, v, up, *grads)))
+    log(f"  head_dim {D}: bound_ms {row['bound_ms']:.4f} exp_bound_ms "
+        f"{eb:.4f} SDPA backward {lib_ms:.3f}")
+    return row
 
 
 def attention_bwd_merged_row(dev, L, S, B=2, H=8):
@@ -4367,43 +4552,70 @@ E2E_KERNELS = ("render_fine", "render_coarse_int8", "resample", "attention",
 
 def e2e_attention_row(dev, B=2, L=256, S=256, H=8, D=8):
     """The e2e matcher's attention (64-wide coarse features: 8 heads of 8,
-    L = S = 256 at 128x128 and ds 8), which the wrapper runs on the kernel
-    zero-padded to head_dim 32: the bf16 forward against the one-pass plain
-    version (max 1e-3, mean 1e-5) and the backward through autograd
-    against the plain backward (1e-2 of each gradient's largest value,
-    cosine > 0.999), timed beside the plain version, SDPA and the bound of
-    the unpadded work."""
+    L = S = 256 at 128x128 and ds 8), which runs the kernels' 16-wide
+    instantiation on columns that are zero only on the card: the bf16
+    forward against the one-pass plain version (max 1e-3, mean 1e-5) and
+    the backward through autograd against the plain backward (1e-2 of each
+    gradient's largest value, cosine > 0.999), one launch a pass; the
+    forward timed through the wrapper (``ms``) and its C entry alone
+    (``kernel_ms``: the cast launch and the kernel, as the matcher calls
+    it; ``kernel_bf16_ms``: the kernel alone on bf16 operands), beside the
+    plain version, SDPA and the bound; the backward (``out`` and ``lse``
+    handed in, as autograd calls it) beside its plain version, SDPA's
+    backward and its bound."""
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES
+    from nerfmatch_tpu_torch.ops.kernels import attention_kernel as ak
     from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
-        attention_bwd_plain, attention_onepass_plain, fused_attention)
+        attention_bwd, attention_bwd_plain, attention_onepass_plain,
+        fused_attention, kernel_head_dim)
 
     g = torch.Generator(dev).manual_seed(10)
     q, k, v, up = (torch.randn(B, L, H, D, device=dev, generator=g) * s
                    for s in (0.3, 1.0, 1.0, 1.0))
     with torch.no_grad():
+        n0 = LAUNCHES["attention"]
         out = fused_attention(q, k, v, True)
+        fwd_launches = LAUNCHES["attention"] - n0
         one, _ = attention_onepass_plain(q, k, v, True)
         err = (out - one).abs()
         ms = cuda_ms(lambda: fused_attention(q, k, v, True))
+        kernel_ms = attention_fwd_alone_ms(q, k, v)
+        kernel_bf16_ms = attention_fwd_alone_ms(q, k, v, cast=False)
         plain_ms = cuda_ms(lambda: attention_onepass_plain(q, k, v, True))
         lib_ms, lib_err = sdpa_forward(q, k, v, one)
     assert float(err.max()) < 1e-3 and float(err.mean()) < 1e-5, err.max()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n0, n1 = LAUNCHES["attention"], LAUNCHES["attention_bwd"]
     (fused_attention(*leaves, True) * up).sum().backward()
+    launches = dict(forward=fwd_launches,
+                    autograd_forward=LAUNCHES["attention"] - n0,
+                    autograd_backward=LAUNCHES["attention_bwd"] - n1)
+    assert set(launches.values()) == {1}, launches
     with torch.no_grad():
         ref = attention_bwd_plain(q, k, v, up, True)
+        out2, lse, ops = ak._forward_kernel(q, k, v, True, True)
+        bwd_ms = cuda_ms(lambda: attention_bwd(*ops, up, True, out=out2,
+                                               lse=lse))
+        bwd_plain_ms = cuda_ms(lambda: attention_bwd_plain(q, k, v, up, True))
+    bwd_lib_ms = sdpa_backward(q, k, v, up)
     grads = {}
     for name, leaf, r in zip("qkv", leaves, ref):
         cos = float((leaf.grad * r).sum()) / float(leaf.grad.norm() * r.norm())
         grads[f"d{name}"] = dict(scaled_err=scaled_err(leaf.grad, r), cos=cos)
         assert grads[f"d{name}"]["scaled_err"] < 1e-2 and cos > 0.999, grads
-    row = dict(B=B, L=L, S=S, H=H, D=D, padded_to=32,
-               max_abs_err=float(err.max()), mean_abs_err=float(err.mean()),
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               library_max_diff=lib_err, backward=grads,
+    backward = dict(grads, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                    library_ms=bwd_lib_ms,
+                    **bound({"bf16": 10 * B * H * L * S * D},
+                            nbytes(q, k, v, up, *(x.grad for x in leaves))))
+    row = dict(B=B, L=L, S=S, H=H, D=D, padded_to=kernel_head_dim(D),
+               launches=launches, max_abs_err=float(err.max()),
+               mean_abs_err=float(err.mean()), ms=ms, kernel_ms=kernel_ms,
+               kernel_bf16_ms=kernel_bf16_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library_max_diff=lib_err, backward=backward,
                **bound({"bf16": 2 * 2 * B * H * L * S * D},
                        nbytes(q, k, v, out)))
-    log(f"phase 10 attention at head_dim {D} (padded to 32): "
-        f"{json.dumps(row)}")
+    log(f"phase 10 attention at head_dim {D} (the kD "
+        f"{kernel_head_dim(D)} instantiation): {json.dumps(row)}")
     return row
 
 

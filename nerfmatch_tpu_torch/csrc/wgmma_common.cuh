@@ -154,8 +154,8 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // The accumulator operands d[i] ..: constraint C ("+f": f32 variables,
-// "+r": 32-bit integer ones), and the operand numbers of the first 16 / 32
-// / 64 / 128 of them in an asm template.  An f32 accumulator may live in
+// "+r": 32-bit integer ones), and the operand numbers of the first 8 / 16 /
+// 32 / 64 / 128 of them in an asm template.  An f32 accumulator may live in
 // integer variables (PTX takes .b32 registers for .f32 operands): a kernel
 // that runs both bf16 and s8 products keeps one accumulator array for both.
 #define NM_ACC8(C, i)                                                    \
@@ -165,8 +165,9 @@ __device__ __forceinline__ void wgmma_wait() {
 #define NM_ACC32(C, i) NM_ACC16(C, i), NM_ACC16(C, i + 16)
 #define NM_ACC64(C, i) NM_ACC32(C, i), NM_ACC32(C, i + 32)
 #define NM_ACC128(C, i) NM_ACC64(C, i), NM_ACC64(C, i + 64)
+#define NM_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define NM_REGS16 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+  NM_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define NM_REGS32                                                          \
   NM_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
             "%28, %29, %30, %31"
@@ -235,8 +236,8 @@ __device__ __forceinline__ void wgmma_ss(T* d, uint64_t da, uint64_t db,
 template <int N, int TB, typename T>
 __device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 256,
-                "wgmma_rs: n32, n64, n128, n256");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
+                "wgmma_rs: n16, n32, n64, n128, n256");
   if constexpr (std::is_same<T, float>::value) {
     if constexpr (N == 256)
       NM_WGMMA(NM_BF16(256), NM_REGS128,
@@ -251,9 +252,13 @@ __device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
       NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
                "%37", NM_ACC32("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-    else
+    else if constexpr (N == 32)
       NM_WGMMA(NM_BF16(32), NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22",
                "%21", NM_ACC16("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else
+      NM_WGMMA(NM_BF16(16), NM_REGS8, "{%8, %9, %10, %11}, %12, p, 1, 1, %14",
+               "%13", NM_ACC8("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   } else {
     if constexpr (N == 256)
@@ -269,9 +274,13 @@ __device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
       NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
                "%37", NM_ACC32("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-    else
+    else if constexpr (N == 32)
       NM_WGMMA(NM_BF16(32), NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1, %22",
                "%21", NM_ACC16("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else
+      NM_WGMMA(NM_BF16(16), NM_REGS8, "{%8, %9, %10, %11}, %12, p, 1, 1, %14",
+               "%13", NM_ACC8("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
   }
 }
@@ -362,6 +371,7 @@ __device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
 #undef NM_REGS64
 #undef NM_REGS32
 #undef NM_REGS16
+#undef NM_REGS8
 #undef NM_ACC128
 #undef NM_ACC64
 #undef NM_ACC32

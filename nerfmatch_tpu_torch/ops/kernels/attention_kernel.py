@@ -21,7 +21,15 @@ needed, also returns the row statistic ``lse = rowmax + log(rowsum e)`` as
 ``delta = sum_s dz z`` as ``rowsum(g * out)``: a small prologue launch,
 then dK/dV and dQ, no statistics pass and no atomics.
 :func:`attention_onepass_plain` and :func:`attention_bwd_stats_plain` are
-those two algorithms in plain torch.
+those two algorithms in plain torch, at any head_dim.
+
+The kernels take every head_dim D from 1 to 128, the JAX kernel's range:
+the bf16 mode runs at the smallest instantiated width
+:func:`kernel_head_dim` (16, 32, 64 or 128) on columns that are zero only on
+the card, and writes D columns back; D above 128 raises, as the JAX gate
+refuses it.  bf16 operands are rows of ``D`` rounded up to a multiple of 8
+(:func:`operand_width`): bf16 inputs of such a D go in as they are, all
+others are cast into a workspace of that width.
 """
 
 from __future__ import annotations
@@ -29,13 +37,32 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.nn import functional as F
 
 from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 
-KERNEL_HEAD_DIMS = (32,)          # the matcher's coarse head_dim
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the bf16 kernels' instantiations
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]    # the JAX kernel's gate, head_dim <= 128
 KEY_TILE = 64                     # keys per tile of the kernels' loops
 LOG2E = math.log2(math.e)
+
+
+def kernel_head_dim(D: int) -> int:
+    """The instantiated width a head_dim runs at on the card: the smallest
+    of :data:`KERNEL_HEAD_DIMS` that holds ``D``; above 128 (the JAX gate's
+    limit) ``NotImplementedError``."""
+    if D < 1:
+        raise ValueError(f"attention head_dim {D}")
+    for width in KERNEL_HEAD_DIMS:
+        if D <= width:
+            return width
+    raise NotImplementedError(f"attention kernel head_dim {D} > "
+                              f"{MAX_HEAD_DIM}, the JAX kernel's limit")
+
+
+def operand_width(D: int) -> int:
+    """Row width of the kernels' bf16 operands: ``D`` rounded up to 8
+    elements (16 bytes, one copy)."""
+    return -(-D // 8) * 8
 
 
 def _bf16_round(t):
@@ -124,7 +151,8 @@ def fused_attention_available(q, k) -> bool:
     key limit: the JAX kernel holds every key in VMEM (S <= 8192), the CUDA
     kernels stream them in tiles, so the merged multi-pair clouds (S of
     10,000s) run on them too."""
-    return q.shape[1] * k.shape[1] >= 256 * 256 and q.shape[-1] <= 128
+    return (q.shape[1] * k.shape[1] >= 256 * 256
+            and q.shape[-1] <= MAX_HEAD_DIM)
 
 
 def _check_shapes(name, qs, k, v):
@@ -132,36 +160,55 @@ def _check_shapes(name, qs, k, v):
     S = k.shape[1]
     if k.shape != (B, S, H, D) or v.shape != k.shape:
         raise ValueError(f"{name}: shapes {qs.shape} {k.shape} {v.shape}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(f"attention kernel head_dim {D} not in "
-                                  f"{KERNEL_HEAD_DIMS} (ROADMAP: what "
-                                  f"remains, attention widths)")
+    kernel_head_dim(D)
     return B, L, S, H, D
 
 
-def _f32(t):
-    """Contiguous f32 at a 16-byte address (the kernels load float4)."""
-    t = t.float().contiguous()
+def _as_kernel_input(t, dt):
+    """``t`` as contiguous ``dt`` at a 16-byte address (the kernels load 16
+    bytes at a time); a tensor that is one already is returned as it is,
+    without the conversion calls (the wrappers' host time shows at small
+    shapes and in host-bound training steps)."""
+    if t.dtype != dt or not t.is_contiguous():
+        t = t.to(dt).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _operands(tensors, bf16):
-    """``tensors`` in the kernels' operand type, contiguous."""
+def _f32(t):
+    return _as_kernel_input(t, torch.float32)
+
+
+def _operands(tensors, bf16, width=None):
+    """``tensors`` in the kernels' operand type (see
+    :func:`_as_kernel_input`); with ``width``, bf16 rows of that many
+    columns: a tensor with fewer (a direct backward call at a head_dim that
+    is no multiple of 8) is copied into zeroed rows."""
     dt = torch.bfloat16 if bf16 else torch.float32
-    return [t.to(dt).contiguous() for t in tensors]
+    out = []
+    for t in tensors:
+        if width is not None and t.shape[-1] != width:
+            buf = torch.zeros(*t.shape[:-1], width, device=t.device, dtype=dt)
+            buf[..., :t.shape[-1]] = t
+            t = buf
+        out.append(_as_kernel_input(t, dt))
+    return out
 
 
 def _forward_kernel(qs, k, v, bf16, want_lse):
     """The forward kernel -> (out, lse, operands).  ``lse`` and the
     operand-typed (q, k, v) are made only when ``want_lse`` (the backward
-    takes them).  In bf16 mode f32 q, k and v are cast by one launch inside
-    the same call, into one workspace."""
+    takes them).  In bf16 mode q, k and v are cast by one launch inside the
+    same call, into one workspace of rows of :func:`operand_width` (zeros
+    past D), unless all three are bf16 already at a D that is a multiple
+    of 8."""
     B, L, S, H, D = _check_shapes("fused_attention", qs, k, v)
+    W = operand_width(D)
     dev = qs.device
     cast = None
-    if bf16 and qs.dtype == k.dtype == v.dtype == torch.float32:
+    if bf16 and not (qs.dtype == k.dtype == v.dtype == torch.bfloat16
+                     and W == D):
         qs, k, v = _f32(qs), _f32(k), _f32(v)
-        cast = torch.empty((B * L + 2 * B * S) * H * D, device=dev,
+        cast = torch.empty((B * L + 2 * B * S) * H * W, device=dev,
                            dtype=torch.bfloat16)
     else:
         qs, k, v = _operands((qs, k, v), bf16)
@@ -180,10 +227,10 @@ def _forward_kernel(qs, k, v, bf16, want_lse):
     if not want_lse:
         return out, None, None
     if cast is not None:
-        nq, nk = B * L * H * D, B * S * H * D
-        qs = cast[:nq].view(B, L, H, D)
-        k = cast[nq:nq + nk].view(B, S, H, D)
-        v = cast[nq + nk:].view(B, S, H, D)
+        nq, nk = B * L * H * W, B * S * H * W
+        qs = cast[:nq].view(B, L, H, W)
+        k = cast[nq:nq + nk].view(B, S, H, W)
+        v = cast[nq + nk:].view(B, S, H, W)
     return out, lse, (qs, k, v)
 
 
@@ -192,7 +239,10 @@ def attention_bwd(qs, k, v, g, bf16: bool = False, out=None, lse=None):
 
     ``out`` and ``lse`` are the forward's output and row statistic.  On
     CUDA tensors the backward kernels take them; given neither, the
-    forward kernel runs first to make them.  CPU tensors take the plain
+    forward kernel runs first to make them.  In bf16 mode ``qs``, ``k`` and
+    ``v`` may also be the forward's operands, bf16 rows of
+    :func:`operand_width` (the workspace ``_FusedAttention`` saves), with
+    ``g`` and ``out`` at the head_dim D.  CPU tensors take the plain
     versions: :func:`attention_bwd_stats_plain` when they are given,
     :func:`attention_bwd_plain` otherwise."""
     if (out is None) != (lse is None):
@@ -201,18 +251,28 @@ def attention_bwd(qs, k, v, g, bf16: bool = False, out=None, lse=None):
         if out is None:
             return attention_bwd_plain(qs, k, v, g, bf16)
         return attention_bwd_stats_plain(qs, k, v, g, out, lse, bf16)
-    B, L, S, H, D = _check_shapes("attention_bwd", qs, k, v)
+    D = g.shape[-1]
+    kernel_head_dim(D)
+    W = operand_width(D) if bf16 else D
     if out is None:
+        _check_shapes("attention_bwd", qs, k, v)
         out, lse, (qs, k, v) = _forward_kernel(qs, k, v, bf16, want_lse=True)
     else:
-        qs, k, v = _operands((qs, k, v), bf16)
+        qs, k, v = _operands((qs, k, v), bf16, W if bf16 else None)
+    B, L, H, _ = g.shape
+    S = k.shape[1]
+    if qs.shape != (B, L, H, W) or k.shape != (B, S, H, W) \
+            or v.shape != k.shape or out.shape != g.shape:
+        raise ValueError(f"attention_bwd: shapes {qs.shape} {k.shape} "
+                         f"{v.shape} {g.shape} {out.shape}")
     g, out, lse = _f32(g), _f32(out), _f32(lse)
     require_cuda_tensors("attention_bwd", qs, k, v, g, out, lse)
     dev = qs.device
     dq = torch.empty(B, L, H, D, device=dev, dtype=torch.float32)
     dk = torch.empty(B, S, H, D, device=dev, dtype=torch.float32)
     dv = torch.empty_like(dk)
-    g_cast = torch.empty_like(g, dtype=torch.bfloat16) if bf16 else None
+    g_cast = (torch.empty(B, L, H, W, device=dev, dtype=torch.bfloat16)
+              if bf16 else None)
     stats = torch.empty(2, B * H, L, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         err = library().nm_attention_backward(
@@ -248,18 +308,11 @@ def fused_attention(qs, k, v, bf16: bool = False):
 
     CPU tensors take the plain version (autograd runs through it); CUDA
     tensors launch the forward kernel, which also emits ``lse`` for the
-    backward kernels when a gradient is needed.  ``D`` below the kernel's
-    head_dim runs zero-padded to it (the e2e matcher's 64-wide coarse
-    features: 8 heads of 8)."""
+    backward kernels when a gradient is needed.  Any ``D`` up to 128 runs
+    on the kernels (the e2e matcher's 8 heads of 8 at the 16-wide
+    instantiation); above it ``NotImplementedError``."""
     if qs.device.type != "cuda":
         return attention_plain(qs, k, v, bf16)
-    D, width = qs.shape[-1], KERNEL_HEAD_DIMS[0]
-    if D < width:
-        # A narrower head runs at the kernel's width on zero columns: they
-        # add nothing to q k^T, v's give zero output columns (and zero
-        # gradient columns), and the slice drops them.
-        pad = lambda t: F.pad(t, (0, width - D))
-        return fused_attention(pad(qs), pad(k), pad(v), bf16)[..., :D]
     if torch.is_grad_enabled() and (qs.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FusedAttention.apply(qs, k, v, bool(bf16))

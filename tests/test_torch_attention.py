@@ -7,7 +7,9 @@ forward with an integer power-of-two reference
 statistic (``attention_bwd_stats_plain``), against the port's plain versions
 and against the JAX package's Pallas kernels in interpret mode.  Inputs are
 seeded numpy at ragged sizes around the kernels' 64-key tile; tolerances
-per test."""
+per test.  The head_dims cover the kernels' instantiations (16, 32, 64,
+128) and widths that run zero-filled at the next one (8, 48), with q
+pre-scaled by 0.5 sqrt(32 / D), as the callers scale it by 1 / sqrt(D)."""
 
 import numpy as np
 import pytest
@@ -18,8 +20,9 @@ import jax.numpy as jnp
 from nerfmatch_tpu.ops.pallas.attention_kernel import _fused_bwd, _fused_fwd
 
 from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
-    KEY_TILE, attention_bwd, attention_bwd_plain, attention_bwd_stats_plain,
-    attention_onepass_plain, attention_plain)
+    KEY_TILE, MAX_HEAD_DIM, attention_bwd, attention_bwd_plain,
+    attention_bwd_stats_plain, attention_onepass_plain, attention_plain,
+    fused_attention_available, kernel_head_dim, operand_width)
 
 torch.set_num_threads(2)
 
@@ -27,10 +30,13 @@ torch.set_num_threads(2)
 # a tile boundary.
 SHAPES = [(2, 80, 200, 2), (1, 40, 20, 2), (2, 33, 129, 1)]
 D = 32
+HEAD_DIMS = [8, 16, 32, 48, 64, 128]
 
 
-def inputs(shape, seed=0, q_scale=0.5):
+def inputs(shape, seed=0, q_scale=0.5, d=D):
     B, L, S, H = shape
+    D = d
+    q_scale *= (32 / d) ** 0.5
     rng = np.random.default_rng(seed)
     mk = lambda *s, sc=1.0: torch.from_numpy(
         (rng.normal(size=s) * sc).astype(np.float32))
@@ -82,10 +88,11 @@ def test_onepass_rescales_are_exact(shape, bf16):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_onepass_f32_equals_plain_and_pallas(shape):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_onepass_f32_equals_plain_and_pallas(shape, d):
     """f32 mode: the one-pass algorithm equals ``attention_plain`` and
     ``_fused_fwd(interpret)`` to 1e-5 (other summation orders)."""
-    q, k, v, _ = inputs(shape)
+    q, k, v, _ = inputs(shape, d=d)
     out, _ = attention_onepass_plain(q, k, v, False)
     assert float((out - attention_plain(q, k, v)).abs().max()) < 1e-5
     ref = _fused_fwd(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy())),
@@ -94,7 +101,8 @@ def test_onepass_f32_equals_plain_and_pallas(shape):
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-def test_onepass_bf16_within_the_modes_rounding(shape):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_onepass_bf16_within_the_modes_rounding(shape, d):
     """bf16 mode: q, k, v and the unnormalized probabilities are rounded to
     bf16 where the JAX kernel rounds them, but the one-pass forward rounds
     ``2^(x - ceil(max x))`` and the two-pass kernels ``exp(s - max)``;
@@ -104,7 +112,7 @@ def test_onepass_bf16_within_the_modes_rounding(shape):
     bound of two such roundings (``rounding_bound``, + 1e-6 for the f32
     sums), and the mean difference within a quarter of the mean bound
     (the roundings are not all adverse)."""
-    q, k, v, _ = inputs(shape)
+    q, k, v, _ = inputs(shape, d=d)
     bound = rounding_bound(q, k, v)
     out, _ = attention_onepass_plain(q, k, v, True)
     jref = torch.from_numpy(np.array(_fused_fwd(
@@ -130,7 +138,8 @@ def test_onepass_lse_is_logsumexp(shape, bf16):
 
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_bwd_from_stats_matches_plain_and_pallas(shape, bf16):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_bwd_from_stats_matches_plain_and_pallas(shape, bf16, d):
     """The backward's formulas (z from ``lse``, delta = rowsum(g * out),
     with ``out`` and ``lse`` from the one-pass forward in the same mode)
     against ``attention_bwd_plain`` and ``_fused_bwd(interpret)``.  f32:
@@ -138,7 +147,7 @@ def test_bwd_from_stats_matches_plain_and_pallas(shape, bf16):
     on all sides; rounding ties of z and dl broken apart, and the forward's
     rounding of e reaching delta): 1e-2 of the largest value, cosine >
     0.999."""
-    q, k, v, g = inputs(shape)
+    q, k, v, g = inputs(shape, d=d)
     out, lse = attention_onepass_plain(q, k, v, bf16)
     got = attention_bwd_stats_plain(q, k, v, g, out, lse, bf16)
     jref = _fused_bwd(*map(jnp.asarray, (q.numpy(), k.numpy(), v.numpy(),
@@ -185,3 +194,61 @@ def test_onepass_handles_a_first_tile_far_below_the_maximum():
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     assert float((out - attention_plain(q, k, v)).abs().max()) < 1e-5
     assert float((lse - 80.0).abs().max()) < 1e-4
+
+
+def test_kernel_head_dim_and_operand_width():
+    """The instantiated width a head_dim runs at on the card: 1-16 -> 16,
+    17-32 -> 32, 33-64 -> 64, 65-128 -> 128; above 128 (the JAX gate's
+    limit) NotImplementedError.  The bf16 operands' rows are D rounded up to
+    8 columns (16 bytes), and the route predicate keeps the JAX gate's
+    head_dim test."""
+    for d in range(1, MAX_HEAD_DIM + 1):
+        want = 16 if d <= 16 else 32 if d <= 32 else 64 if d <= 64 else 128
+        assert kernel_head_dim(d) == want, d
+        assert operand_width(d) % 8 == 0 and d <= operand_width(d) < d + 8
+        assert operand_width(d) <= kernel_head_dim(d)
+    for d in (129, 256):
+        with pytest.raises(NotImplementedError):
+            kernel_head_dim(d)
+    q, k = torch.zeros(1, 256, 1, 128), torch.zeros(1, 256, 1, 128)
+    assert fused_attention_available(q, k)
+    assert not fused_attention_available(torch.zeros(1, 256, 1, 129),
+                                         torch.zeros(1, 256, 1, 129))
+
+
+@pytest.mark.parametrize("cfeat_dim", [128, 512])
+def test_coarse_matcher_at_wide_heads_matches_jax(cfeat_dim):
+    """The Mini (coarse) matcher with image and point self-attention and a
+    coarse cross layer at cfeat_dim 128 and 512 (8 heads of 16 and of 64)
+    against the JAX matcher on exported weights: conf at 1e-4, identical
+    matches."""
+    import jax
+
+    from nerfmatch_tpu.models.matcher_coarse import (
+        CoarseMatcherConfig as JCoarseConfig, NeRFMatcherCoarse as JCoarse)
+    from nerfmatch_tpu_torch.models.matcher_coarse import (
+        CoarseMatcherConfig, NeRFMatcherCoarse)
+    from nerfmatch_tpu_torch.train.checkpoint import state_dict_from_jax
+
+    from test_torch_models import flat_params, rnd, t
+
+    cfg = dict(backbone="tiny", cfeat_dim=cfeat_dim, pt_dim=64, im_sa=1,
+               im_sa_type="full", pt_sa=1, coarse_layers=1, temp_type="div")
+    jm = JCoarse(JCoarseConfig(**cfg))
+    params = jm.init_params(jax.random.PRNGKey(3))
+    img = rnd(30, 1, 64, 64, 3)
+    feat, pts = rnd(31, 1, 64, 64), rnd(32, 1, 64, 3, scale=0.3)
+    ref = jm.forward_match(params, jnp.asarray(img), jnp.asarray(feat),
+                           jnp.asarray(pts), mutual=True)
+    tm = NeRFMatcherCoarse(CoarseMatcherConfig(**cfg))
+    tm.load_state_dict(state_dict_from_jax(flat_params(params)), strict=True)
+    assert {m.proj_q.out_features // m.head_num
+            for m in tm.modules() if hasattr(m, "proj_q")} == {cfeat_dim // 8}
+    with torch.no_grad():
+        ours = tm.forward_match(t(img), t(feat), t(pts), mutual=True)
+    np.testing.assert_allclose(ours["conf_matrix"].numpy(), ref["conf_matrix"],
+                               atol=1e-4)
+    v = np.asarray(ref["valid"])
+    np.testing.assert_array_equal(ours["valid"].numpy(), v)
+    np.testing.assert_array_equal(ours["j_ids"].numpy()[v],
+                                  np.asarray(ref["j_ids"])[v])

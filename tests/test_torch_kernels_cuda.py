@@ -846,24 +846,32 @@ def test_render_train_refuses_app_of_the_wrong_width(dev):
 # (B, L, S, H): L != S and both ragged; S below one 64-key tile; S one past
 # a tile boundary.
 ATTN_SHAPES = [(2, 333, 517, 8), (1, 300, 20, 2), (2, 100, 129, 2)]
+# head_dims: the four instantiations' widths, one that runs zero-filled at
+# 16 (8), and one whose bf16 rows are not 16-byte multiples (33: cast into
+# rows of 40, zero-filled to 64 on the card).
+ATTN_HEAD_DIMS = [8, 16, 32, 33, 64, 128]
 
 
-def attn_inputs(dev, shape, q_scale=0.3):
+def attn_inputs(dev, shape, q_scale=0.3, d=32):
+    """Seeded inputs, q scaled by q_scale sqrt(32 / d) (the callers'
+    1 / sqrt(d))."""
     B, L, S, H = shape
     g = torch.Generator(dev).manual_seed(0)
-    q = torch.randn(B, L, H, 32, device=dev, generator=g) * q_scale
-    k = torch.randn(B, S, H, 32, device=dev, generator=g)
-    v = torch.randn(B, S, H, 32, device=dev, generator=g)
-    up = torch.randn(B, L, H, 32, device=dev, generator=g)
+    q = torch.randn(B, L, H, d, device=dev, generator=g) * q_scale * (32 / d) ** 0.5
+    k = torch.randn(B, S, H, d, device=dev, generator=g)
+    v = torch.randn(B, S, H, d, device=dev, generator=g)
+    up = torch.randn(B, L, H, d, device=dev, generator=g)
     return q, k, v, up
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("shape", ATTN_SHAPES + [(1, 3600, 14400, 8)])
-def test_attention_kernel_matches_plain(dev, bf16, shape):
+@pytest.mark.parametrize("d", ATTN_HEAD_DIMS)
+def test_attention_kernel_matches_plain(dev, bf16, shape, d):
     """Ragged L, S, and the merged multi-pair layout's S = 14,400 (past the
-    JAX kernel's 8192 keys).  f32: atol 1e-4.  bf16 mode: against the one-pass plain
+    JAX kernel's 8192 keys), at every head_dim of ``ATTN_HEAD_DIMS``.  f32:
+    atol 1e-4.  bf16 mode: against the one-pass plain
     version, which rounds the same bf16 operands and the same
     probabilities 2^(x - ceil(max x)), mean 1e-5 and max 1e-3 (ex2.approx
     and the summation order break a few bf16 rounding ties apart); against
@@ -872,9 +880,11 @@ def test_attention_kernel_matches_plain(dev, bf16, shape):
     independently, every element within the bound of two such roundings
     (2^-7 of the softmax-weighted mean of |v|).  ``lse`` against
     ``torch.logsumexp`` to 1e-4; two runs bit-identical, with and without
-    ``lse``."""
+    ``lse``.  At head_dims other than 32, whose inputs put more ties on
+    peaked rows, each element against the one-pass version is held to the
+    bound of one broken tie instead of 1e-3 (below)."""
     B, L, S, H = shape
-    q, k, v, _ = attn_inputs(dev, shape)
+    q, k, v, _ = attn_inputs(dev, shape, d=d)
     rnd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
     with torch.no_grad():
         out = fused_attention(q, k, v, bf16)
@@ -890,7 +900,17 @@ def test_attention_kernel_matches_plain(dev, bf16, shape):
     assert torch.equal(out, out2) and torch.isfinite(out).all()
     assert float((lse - want).abs().max()) < 1e-4
     if bf16:
-        assert float(err1.mean()) < 1e-5 and float(err1.max()) < 1e-3
+        assert float(err1.mean()) < 1e-5
+        if d == 32:
+            assert float(err1.max()) < 1e-3
+        else:
+            # A tie broken apart moves an element by one bf16 step of a
+            # probability times its v: within 2^-7 of the softmax-weighted
+            # mean of |v| (``bound``), however peaked the row (at head_dim
+            # 33 and 64 on the 333 x 517 inputs single elements reach 1.9e-3
+            # and 2.2e-3, 0.24 and 0.30 of that bound), and rarely.
+            assert bool((err1 <= bound + 1e-6).all())
+            assert float((err1 > 1e-4).float().mean()) < 1e-3
         assert bool((err <= bound + 1e-6).all())
     else:
         assert float(err.max()) < 1e-4 and float(err1.max()) < 1e-4
@@ -904,11 +924,13 @@ def test_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(NotImplementedError):
         render_stage(r.nerf_fine, rays, z, fine=True, num_freqs=15,
                      dirs_freqs=4)
-    q = torch.randn(1, 300, 2, 16, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError):
-        attention_bwd(q.detach(), q.detach(), q.detach(), q.detach())
+    # head_dim 129: above the JAX kernel's 128, in both modes.
+    q = torch.randn(1, 300, 2, 129, device=dev, requires_grad=True)
+    for bf16 in (False, True):
+        with pytest.raises(NotImplementedError):
+            fused_attention(q, q.detach(), q.detach(), bf16)
+        with pytest.raises(NotImplementedError):
+            attention_bwd(q.detach(), q.detach(), q.detach(), q.detach(), bf16)
     one = torch.ones((), device=dev)
     # 96 channels (not a multiple of 128), then a 5 x 5 filter (7 x 7 only).
     for C, K in ((96, 7), (128, 5)):
@@ -1091,7 +1113,8 @@ def test_dw_star_autograd_matches_plain_and_is_deterministic(dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("shape", ATTN_SHAPES + [(2, 3600, 3600, 8)])
-def test_attention_bwd_kernel_matches_plain(dev, bf16, shape):
+@pytest.mark.parametrize("d", ATTN_HEAD_DIMS)
+def test_attention_bwd_kernel_matches_plain(dev, bf16, shape, d):
     """dq, dk, dv against the plain backward with the same roundings.  f32:
     1e-4 of each output's largest value; bf16 (bf16 operands, z and dl on
     both sides; rounding ties of z and dl broken apart by other summation
@@ -1099,8 +1122,9 @@ def test_attention_bwd_kernel_matches_plain(dev, bf16, shape):
     1e-2 of the largest value and cosine > 0.999.  Two runs are
     bit-identical, and the autograd Function reaches the kernels: its
     forward hands ``out`` and ``lse`` over, the call on its own runs the
-    forward kernel first, and both give the same bits."""
-    q, k, v, up = attn_inputs(dev, shape)
+    forward kernel first, and both give the same bits.  Every head_dim of
+    ``ATTN_HEAD_DIMS``."""
+    q, k, v, up = attn_inputs(dev, shape, d=d)
     reset_launch_counts()
     with torch.no_grad():
         got = attention_bwd(q, k, v, up, bf16)
@@ -1147,28 +1171,50 @@ def test_attention_backward_merged_matches_plain(dev, L, S):
         assert scaled_err(a, r) < 1e-2 and cos > 0.999, (scaled_err(a, r), cos)
 
 
+def device_kernels(fn):
+    """Names of the device kernels ``fn()`` launches (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [4, 8, 16])
 def test_attention_pads_narrow_heads(dev, D):
-    """A head_dim below the kernel's 32 (the e2e matcher's 64-wide coarse
-    features: 8 heads of 8, at L = S = 256) runs the kernels on zero-padded
-    operands: the bf16 forward within 1e-3 (mean 1e-5) of the one-pass plain
-    version and the backward through autograd within 1e-2 of each
-    gradient's largest value (cosine > 0.999) of the plain backward, each
-    pass launching its kernel once."""
+    """A head_dim below 32 (the e2e matcher's 64-wide coarse features: 8
+    heads of 8, at L = S = 256) runs the 16-wide kernels with nothing padded
+    in device memory: the forward is the cast launch and the kernel, the
+    backward the prologue, dK/dV and dQ, and no other device kernel runs
+    (no pad, no slice copy); the bf16 forward within 1e-3 (mean 1e-5) of
+    the one-pass plain version and the backward through autograd within
+    1e-2 of each gradient's largest value (cosine > 0.999) of the plain
+    backward, each pass launching its kernel once."""
     g = torch.Generator(dev).manual_seed(0)
     q, k, v, up = (torch.randn(2, 256, 8, D, device=dev, generator=g) * s
                    for s in (0.3, 1.0, 1.0, 1.0))
     reset_launch_counts()
     with torch.no_grad():
+        names = device_kernels(lambda: fused_attention(q, k, v, True))
         out = fused_attention(q, k, v, True)
         one, _ = attention_onepass_plain(q, k, v, True)
-    assert out.shape == q.shape and LAUNCHES["attention"] == 1
+    assert len(names) == 2 and all("attention" in n for n in names), names
+    assert out.shape == q.shape and LAUNCHES["attention"] == 2
     err = (out - one).abs()
     assert float(err.max()) < 1e-3 and float(err.mean()) < 1e-5
+    reset_launch_counts()
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     (fused_attention(*leaves, True) * up).sum().backward()
-    assert LAUNCHES["attention"] == 2 and LAUNCHES["attention_bwd"] == 1
+    assert LAUNCHES["attention"] == 1 and LAUNCHES["attention_bwd"] == 1
+    with torch.no_grad():
+        qo, ko, vo = attention_kernel._operands((q, k, v), True)
+        out, lse, ops = attention_kernel._forward_kernel(qo, ko, vo, True, True)
+        names = device_kernels(
+            lambda: attention_bwd(*ops, up, True, out=out, lse=lse))
+    assert len(names) == 3 and all("attn_bwd" in n for n in names), names
     with torch.no_grad():
         ref = attention_bwd_plain(q, k, v, up, True)
     for leaf, r in zip(leaves, ref):
