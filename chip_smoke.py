@@ -240,7 +240,24 @@ Phases (each prints its results; any failure exits non-zero):
    then the attention at head_dim 8 against its plain version, one launch
    a pass, forward and backward timed beside SDPA and their bounds, the
    forward also as its C entry alone (the ``attention`` row's
-   ``e2e_head_dim8``).
+   ``e2e_head_dim8``);
+11. a hid-128 NeRF end to end (``phase_hid128``): the 7-Scenes config
+   with ``hid_dim`` 128 in both stages, ``train_nerf --debug`` for 5 epochs
+   of 10 steps on phase 5's room scene, 50 timed steps (ms a step, peak
+   memory after a reset), its scene points for the scene's 24 frames at
+   the serving int8 default and one 480x480 request localized by
+   ``eval_batch(iters=2)`` with a c2f matcher (random weights, seed 0)
+   of ``pt_dim`` 128; launches of kernels 1, 1b, 2, 5, 6 all above 0.
+
+Phases 3, 3d and 3b also hold the render kernels at the MLP widths
+``WIDTH_ROWS`` (32, 96, 128, 192; 32 and 96 run zero-padded at 64 and
+128) to their plain versions on the room's 9216 rays x 128 samples with
+seeded random weights (the rows' ``widths``: kernel 1 coarse and fine,
+1b coarse and fine ``'posttap'``, 5 with its stash, 6, each with its
+bound on the real width's operations, 5 and 6 with ``torch.mm`` over the
+same products, 1b with ``pack_fused``'s host ms), and kernels 1 and 5-6
+at the widest encoding the JAX kernels take (F = 21, Fd = 18, appearance
+rows; ``wide_encoding``).
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -264,7 +281,10 @@ merged run's launches at that S as ``launches_multipair``; its
 ``merged_train`` entries and each row of ``attention_bwd``'s ``merged``
 list carry phase 6's launches a merged training step at that shape
 (``launches_train_per_step``), and ``attention_bwd``'s
-``merged_train_step`` the step's ms and peak memory.  The last two lines are the kernel summary and ``{"ok": true, ...}``.
+``merged_train_step`` the step's ms and peak memory; ``launches_phase11``
+is phase 11's count, and ``render_train_fwd``'s ``phase11_hid128`` its
+summary.  The last two lines are the kernel summary and ``{"ok": true,
+...}``.
 """
 
 from __future__ import annotations
@@ -285,40 +305,40 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 KERNEL_SOURCES = {
-    "render_coarse": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_coarse": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                       "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_fine": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                     "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_coarse_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                            "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
-    "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine_int8": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                          "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     # The fine stages of an appearance NeRF: the same kernel with each ray's
     # appearance row (the Pallas kernel's app operand, render_kernel.py:455).
-    "render_fine_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine_app": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                         "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_fine_int8_app": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine_int8_app": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                              "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     # The fine stages with feat_comb='max' (the Pallas kernel's feat_max
     # branch, render_kernel.py:716-735 and :772-775).
-    "render_fine_max": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine_max": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                         "nerfmatch_tpu/ops/pallas/render_kernel.py:1032"),
-    "render_fine_int8_max": ("nerfmatch_tpu_torch/csrc/render_eval.cu",
+    "render_fine_int8_max": ("nerfmatch_tpu_torch/csrc/render_eval.cuh",
                              "nerfmatch_tpu/ops/pallas/render_kernel.py:563"),
     "resample": ("nerfmatch_tpu_torch/csrc/resample.cu",
                  "nerfmatch_tpu/ops/pallas/resample_kernel.py:82"),
     "attention": ("nerfmatch_tpu_torch/csrc/attention.cu",
                   "nerfmatch_tpu/ops/pallas/attention_kernel.py:99"),
-    "render_train_fwd": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+    "render_train_fwd": ("nerfmatch_tpu_torch/csrc/render_train.cuh",
                          "nerfmatch_tpu/ops/pallas/render_train.py:420"),
-    "render_train_bwd": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+    "render_train_bwd": ("nerfmatch_tpu_torch/csrc/render_train.cuh",
                          "nerfmatch_tpu/ops/pallas/render_train.py:455"),
     # The train stages of an appearance NeRF: the same kernels with each
     # ray's appearance row in (extras, render_train.py:201) and its
     # cotangent out (extras_grad, render_train.py:303-312).
-    "render_train_fwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+    "render_train_fwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cuh",
                              "nerfmatch_tpu/ops/pallas/render_train.py:420"),
-    "render_train_bwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cu",
+    "render_train_bwd_app": ("nerfmatch_tpu_torch/csrc/render_train.cuh",
                              "nerfmatch_tpu/ops/pallas/render_train.py:455"),
     "attention_bwd": ("nerfmatch_tpu_torch/csrc/attention.cu",
                       "nerfmatch_tpu/ops/pallas/attention_kernel.py:184"),
@@ -853,12 +873,12 @@ def render_eval_build():
                        + line.strip().replace("ptxas info    : ", ""))
     lib = kernels.library()
     for q8 in (0, 1):
-        for hid in (64, 256):
+        for hid in (64, 128, 192, 256):
             for fine in (0, 1):
                 out.append(f"<{hid}, {'fine' if fine else 'coarse'}, "
                            f"{'int8' if q8 else 'bf16'}>: "
-                           f"{lib.nm_render_eval_smem(hid, fine, q8)} bytes of "
-                           f"dynamic shared memory")
+                           f"{lib.nm_render_eval_smem(hid, fine, q8, 4)} bytes "
+                           f"of dynamic shared memory (Fd = 4)")
     return out
 
 
@@ -941,6 +961,9 @@ def phase_kernels(renderer, dev):
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
     rows["render_fine_app"] = app_stage_row(renderer.nerf_fine, rays,
                                             z_in["render_fine"])
+    for name, by_hid in render_width_rows(dev, int8=False).items():
+        rows[name]["widths"] = by_hid
+    rows["render_fine_app"]["wide_encoding"] = wide_encoding_render_row(dev)
     rows["render_fine_max"] = feat_max_row(renderer.nerf_fine, rays,
                                            z_in["render_fine"])
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
@@ -1245,6 +1268,9 @@ def phase_int8_kernels(renderer, dev):
         v for k, v in q.items() if torch.is_tensor(v) and k[0] != "w" and k != "img"])
     log(f"int8 calibration: {calib_ms:.1f} ms (plain f32 render of 1024 rays, "
         f"both stages; once per scene)")
+    room_pack_ms = pack_fused_ms(renderer, scales)
+    log(f"pack_fused at hid 256 (int8 'coarse'): {room_pack_ms:.2f} ms of "
+        f"host time a call")
     log(f"int8 render design: {INT8_EVAL_DESIGN}")
     for line in render_eval_build():
         if "int8" in line:
@@ -1315,6 +1341,7 @@ def phase_int8_kernels(renderer, dev):
             # opt-in 'posttap' request that phase 4 serves.
             if eps > 0 and mode in ("coarse", "posttap"):
                 rows[name] = row
+                row["pack_fused_ms"] = room_pack_ms
             if eps > 0 and fine:
                 row_app = app_stage_row(mlp, rays, zz, int8=q,
                                         design=INT8_EVAL_DESIGN, label=mode)
@@ -1323,6 +1350,9 @@ def phase_int8_kernels(renderer, dev):
                     rows["render_fine_int8_max"] = feat_max_row(
                         mlp, rays, zz, int8=q, design=INT8_EVAL_DESIGN,
                         label=mode)
+
+    for name, by_hid in render_width_rows(dev, int8=True).items():
+        rows[name]["widths"] = by_hid
 
     # Two-stage renders of every mode against the f32 plain render, against
     # the JAX int8 test's budget (tests/test_pallas_render.py, 'both', on 8
@@ -1751,9 +1781,300 @@ def phase_check(evaluator, batch):
     assert agree >= 0.98 and ef_max < 1e-3
 
 
+WIDTH_ROWS = (32, 96, 128, 192)   # MLP widths held beside the room's 256
+# The widest encoding the JAX kernels take with an appearance table: F =
+# 21 (126 encoding columns), Fd = 18 (111 + 16 extras columns).
+WIDE_ENCODING = (21, 18)
+
+
+def width_renderer(hid, dev, seed=0):
+    """The room's NeRF config (8 layers, skip 4, F = 15, Fd = 4, the
+    descriptor tapped at layer 3) at MLP width ``hid`` in both stages,
+    seeded random weights, density biases raised by 3 (partly opaque)."""
+    from nerfmatch_tpu_torch.config import load_yaml_config
+    from nerfmatch_tpu_torch.models.layers import init_params_
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+
+    cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
+    cfg.coarse_nerf.hid_dim = cfg.fine_nerf.hid_dim = hid
+    r = init_params_(NerfRenderer(cfg, stop_layer=3),
+                     torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for mlp in (r.nerf_coarse, r.nerf_fine):
+            mlp.alpha_linear.bias += 3.0
+    return r.to(dev).eval()
+
+
+def wide_encoding_mlp(dev, hid=256, seed=0):
+    """An 8 x ``hid`` MLP (skip 4, descriptor at layer 3) at the widest
+    encoding, with a 16-column appearance block, seeded random weights,
+    density bias +3 -> (mlp, F, Fd)."""
+    from nerfmatch_tpu_torch.models.layers import init_params_
+    from nerfmatch_tpu_torch.nerf.model import NerfConfig, NerfMLP
+
+    F, Fd = WIDE_ENCODING
+    cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=6 * F,
+                     dirs_dim=6 * Fd + 3, app_dim=16, use_viewdirs=True,
+                     skips=(4,), stop_layer=3)
+    mlp = init_params_(NerfMLP(cfg), torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        mlp.alpha_linear.bias += 3.0
+    return mlp.to(dev), F, Fd
+
+
+def pack_fused_ms(renderer, scales, reps=5):
+    """Host ms of ``NerfRenderer.pack_fused`` at the serving int8 default
+    (``fused_predict`` calls it once a call: both stages' kernel weights,
+    the int8 trunk, at the kernel width), device synced, mean of ``reps``."""
+    import dataclasses
+
+    cfg, act = renderer.cfg, renderer.act_scales
+    renderer.cfg = dataclasses.replace(cfg, trunk_int8="coarse")
+    renderer.act_scales = scales
+    try:
+        renderer.pack_fused()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            renderer.pack_fused()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        renderer.cfg, renderer.act_scales = cfg, act
+
+
+def render_width_row(mlp, rays, z, fine, num_freqs=15, dirs_freqs=4,
+                     int8=None, plain_int8=None, app=None, eps=1e-4):
+    """One render stage at ``mlp``'s width against its plain version (phase
+    3's tolerance, 5e-3 scaled; int8: the kernel on ``int8``, packed at the
+    kernel width, the plain version on ``plain_int8``) -> its row: errors,
+    ms, plain_ms, the bound on the real width's operations."""
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        pack_mlp, render_stage, render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        kernel_width)
+
+    kw = dict(fine=fine, num_freqs=num_freqs, dirs_freqs=dirs_freqs,
+              early_term_eps=eps, app=app)
+    packed = pack_mlp(mlp, int8)
+    run_k = lambda: render_stage(mlp, rays, z, packed=packed, int8=int8, **kw)
+    run_p = lambda: render_stage_plain(mlp, rays, z, int8=plain_int8, **kw)
+    a, b = run_k(), run_p()
+    torch.cuda.synchronize()
+    err, scaled = max_err(a, b), max_err(a, b, scaled=True)
+    assert scaled < 5e-3 and all(torch.isfinite(v).all() for v in a.values()), \
+        (mlp.cfg.hid_dim, fine, scaled)
+    start = None if int8 is None else int8["start"]
+    wbytes = nbytes(*weight_tensors(packed))
+    return dict(hid=mlp.cfg.hid_dim, kernel_width=kernel_width(mlp.cfg.hid_dim),
+                max_abs_err=err, scaled_err=scaled, ms=cuda_ms(run_k, 3),
+                plain_ms=cuda_ms(run_p, 2),
+                **render_bound(mlp, fine, rays, z, a, eps, wbytes, start))
+
+
+def render_width_rows(dev, int8):
+    """Phase 3's (bf16) or 3d's (``int8``: the coarse stage of the serving
+    default, the fine stage of 'posttap') render rows at ``WIDTH_ROWS``,
+    on the room's 9216 rays x 128 samples -> {stage name: {hid: row}}."""
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_kernel_int8,
+                                                       pack_mlp_int8)
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_plain)
+
+    rays = camera_rays(room_c2w(0.4), 96, dev)          # 9216 rays
+    t = torch.linspace(0.0, 1.0, 129, device=dev)
+    z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
+    kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
+    tag = "_int8" if int8 else ""
+    out = {f"render_coarse{tag}": {}, f"render_fine{tag}": {}}
+    for hid in WIDTH_ROWS:
+        r = width_renderer(hid, dev, seed=hid)
+        cmlp, fmlp = r.nerf_coarse, r.nerf_fine
+        qs = {False: (None, None), True: (None, None)}
+        if int8:
+            scales = calibrate_act_scales(r, rays[:1024])
+            pack_ms = pack_fused_ms(r, scales)
+            log(f"pack_fused at hid {hid} (int8 'coarse'): {pack_ms:.2f} ms "
+                f"of host time a call")
+            tap = eval_feat_layer(fmlp.cfg)
+            qs = {False: (pack_kernel_int8(cmlp, scales["coarse"], 0),
+                          pack_mlp_int8(cmlp, scales["coarse"], 0)),
+                  True: (pack_kernel_int8(fmlp, scales["fine"], tap + 1, tap),
+                         pack_mlp_int8(fmlp, scales["fine"], tap + 1, tap))}
+        zf = resample_z_plain(z, render_stage_plain(
+            cmlp, rays, z, fine=False, int8=qs[False][1], **kw)["weights"]
+        ).contiguous()
+        for name, mlp, fine, zz in ((f"render_coarse{tag}", cmlp, False, z),
+                                    (f"render_fine{tag}", fmlp, True, zf)):
+            row = render_width_row(mlp, rays, zz, fine, int8=qs[fine][0],
+                                   plain_int8=qs[fine][1])
+            if int8:
+                row["pack_fused_ms"] = pack_ms
+            out[name][str(hid)] = row
+            log(f"kernel {name} hid={hid} (run at {row['kernel_width']}) "
+                f"eps=1e-4: max_abs_err={row['max_abs_err']:.3e} scaled "
+                f"{row['scaled_err']:.3e} (tol 5e-3) ms={row['ms']:.3f} "
+                f"plain_ms={row['plain_ms']:.3f} bound_ms="
+                f"{row['bound_ms']:.3f} ({row['bound_by']}, real width)")
+        del r
+    return out
+
+
+def wide_encoding_render_row(dev):
+    """Kernel 1's fine stage at the widest encoding with appearance rows
+    (``wide_encoding_mlp``) against its plain version -> its row."""
+    from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
+        render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
+        resample_z_plain)
+
+    mlp, F, Fd = wide_encoding_mlp(dev)
+    rays = camera_rays(room_c2w(0.4), 96, dev)
+    t = torch.linspace(0.0, 1.0, 129, device=dev)
+    z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
+    g = torch.Generator(dev).manual_seed(2)
+    app = 0.5 * torch.randn(2, 16, device=dev, generator=g)[
+        torch.arange(rays.shape[0], device=dev) % 2].contiguous()
+    zf = resample_z_plain(z, render_stage_plain(
+        mlp, rays, z, fine=False, num_freqs=F, dirs_freqs=Fd,
+        early_term_eps=1e-4)["weights"]).contiguous()
+    row = render_width_row(mlp, rays, zf, True, F, Fd, app=app)
+    row.update(num_freqs=F, dirs_freqs=Fd, app_dim=16)
+    log(f"kernel render_fine_app at F={F}, Fd={Fd} (+16 appearance columns), "
+        f"hid 256: max_abs_err={row['max_abs_err']:.3e} scaled "
+        f"{row['scaled_err']:.3e} (tol 5e-3) ms={row['ms']:.3f} plain_ms="
+        f"{row['plain_ms']:.3f} bound_ms={row['bound_ms']:.3f}")
+    return row
+
+
+def train_bwd_yardstick(mlp, rows):
+    """``torch.mm`` (cuBLAS) over the weight-gradient products of ``mlp``'s
+    matrices at their real shapes, bf16, ``rows`` sample rows each: the
+    library time beside the backward; the port never calls it."""
+    dev = next(mlp.parameters()).device
+    gen = torch.Generator(dev).manual_seed(7)
+    shapes = [lin.weight.shape for lin in (*mlp.pts_linears, mlp.feature_linear,
+                                           mlp.views_linears[0], mlp.rgb_linear)]
+    widest = max(max(s) for s in shapes)
+    a = torch.randn(rows, widest, device=dev, generator=gen).bfloat16()
+    b = torch.randn(rows, widest, device=dev, generator=gen).bfloat16()
+    return cuda_ms(lambda: [torch.mm(a[:, :i].t(), b[:, :o]) for o, i in shapes], 3)
+
+
+def train_width_row(spec, rays, z, noise, target, app=None):
+    """Kernels 5 (the training forward with its stash) and 6 (the backward
+    on it) at ``spec.mlp``'s width against the plain stage (phase 3b's
+    tolerances: forward 5e-3; backward 3e-2 of each leaf's largest gradient
+    with cosine > 0.999) -> (forward row, backward row), each with its
+    bound on the real width's operations and ``torch.mm`` over the same
+    products."""
+    from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
+
+    mlp, cfg = spec.mlp, spec.mlp.cfg
+    n, S = z.shape[0], z.shape[1] - 1
+    packed = rtk.pack_train(mlp)
+    with torch.no_grad():
+        rgb, w, stash = rtk.kernel_forward(spec, rays, z, noise, packed,
+                                           stash=True, app=app)
+        rgb_p, w_p = rtk.train_stage_forward(spec, rays, z, noise, app=app)
+    g_rgb, g_w = train_cotangents(z, rgb, w, target)
+    ga = rtk.kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed,
+                             app)
+    gb = rtk.train_stage_backward(spec, rays, z, noise, g_rgb, g_w, app=app)
+    torch.cuda.synchronize()
+    fwd_err = max(float((rgb - rgb_p).abs().max()), float((w - w_p).abs().max()))
+    leaf = {}
+    for k, ref in gb.items():
+        got = ga[k]
+        assert got.shape == ref.shape and torch.isfinite(got).all(), k
+        cos = float((got * ref).sum()) / max(float(got.norm() * ref.norm()), 1e-30)
+        leaf[k] = (scaled_err(got, ref), cos)
+    bwd_err = max(e for e, _ in leaf.values())
+    min_cos = min(c for _, c in leaf.values() if c != 0.0)
+    assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999, \
+        (cfg.hid_dim, fwd_err, bwd_err, min_cos)
+    with torch.no_grad():
+        ms_f = cuda_ms(lambda: rtk.kernel_forward(spec, rays, z, noise, packed,
+                                                  stash=True, app=app), 3)
+        plain_f = cuda_ms(lambda: rtk.train_stage_forward(spec, rays, z, noise,
+                                                          app=app), 2)
+        ms_b = cuda_ms(lambda: rtk.kernel_backward(
+            spec, stash, rays, z, noise, g_rgb, g_w, packed, app), 3)
+        plain_b = cuda_ms(lambda: rtk.train_stage_backward(
+            spec, rays, z, noise, g_rgb, g_w, app=app), 1)
+    del stash
+    # The real width's work: its operations and its own stash's bytes.
+    fwd_ops = {k: 2 * m * n * S for k, m in stage_macs(mlp, True).items()}
+    stash_b = sum(rtk._stash_parts(cfg, n, S))
+    w_bytes = sum(p.numel() * 2 for p in mlp.parameters())
+    g_bytes = sum(p.numel() * 4 for p in mlp.parameters())
+    io = nbytes(rays, z, noise, rgb, w) + w_bytes
+    common = dict(hid=cfg.hid_dim, kernel_width=rtk.kernel_width(cfg.hid_dim))
+    fwd = dict(common, max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+               library_ms=train_fwd_yardstick(spec, n * S),
+               **bound(fwd_ops, io + stash_b))
+    bwd = dict(common, max_abs_err=bwd_err, min_cosine=min_cos, ms=ms_b,
+               plain_ms=plain_b, library_ms=train_bwd_yardstick(mlp, n * S),
+               **bound({k: 2 * v for k, v in fwd_ops.items()},
+                       nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes
+                       + stash_b))
+    log(f"kernel render_train hid={cfg.hid_dim} (run at {fwd['kernel_width']}"
+        f"{'' if app is None else ', appearance rows'}, F={spec.num_freqs}, "
+        f"Fd={spec.dirs_freqs}): forward max_abs_err={fwd_err:.3e} (tol 5e-3) "
+        f"ms={ms_f:.3f} plain_ms={plain_f:.3f} torch.mm {fwd['library_ms']:.3f}"
+        f" bound {fwd['bound_ms']:.3f} ({fwd['bound_by']}); backward max "
+        f"scaled err={bwd_err:.3e} (tol 3e-2) min cosine {min_cos:.6f} (tol "
+        f"0.999) ms={ms_b:.3f} plain_ms={plain_b:.3f} torch.mm "
+        f"{bwd['library_ms']:.3f} bound {bwd['bound_ms']:.3f} "
+        f"({bwd['bound_by']})")
+    return fwd, bwd
+
+
+def train_width_rows(dev):
+    """Phase 3b's rows at ``WIDTH_ROWS`` (each width's fine MLP on phase
+    3b's 9216 rays x 128 jittered samples) and at the widest encoding with
+    appearance rows -> {row name: {hid or 'wide_encoding': row}}."""
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import StageSpec
+
+    from nerfmatch_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    for hid in (64, 128, 192, 256):
+        log(f"train kernels <{hid}>: dynamic shared memory forward "
+            f"{lib.nm_render_train_smem(hid, 8, 4, 0, 1)} bytes (Fd = 4; "
+            f"{lib.nm_render_train_smem(hid, 8, 18, 16, 1)} at Fd = 18 with "
+            f"appearance rows), trunk backward "
+            f"{lib.nm_render_train_smem(hid, 8, 4, 0, 0)} (8 layers)")
+    out = {"render_train_fwd": {}, "render_train_bwd": {}}
+    for hid in WIDTH_ROWS:
+        r = width_renderer(hid, dev, seed=hid)
+        spec, rays, z, noise, target = train_inputs(r, dev)
+        fwd, bwd = train_width_row(spec, rays, z, noise, target)
+        out["render_train_fwd"][str(hid)] = fwd
+        out["render_train_bwd"][str(hid)] = bwd
+        del r, spec
+    mlp, F, Fd = wide_encoding_mlp(dev)
+    _, rays, z, noise, target = train_inputs(None, dev)
+    g = torch.Generator(dev).manual_seed(3)
+    app = 0.5 * torch.randn(2, 16, device=dev, generator=g)[
+        torch.arange(rays.shape[0], device=dev) % 2].contiguous()
+    fwd, bwd = train_width_row(StageSpec(mlp, F, Fd), rays, z, noise, target,
+                               app)
+    for row in (fwd, bwd):
+        row.update(num_freqs=F, dirs_freqs=Fd, app_dim=16)
+    out["render_train_fwd_app"] = {"wide_encoding": fwd}
+    out["render_train_bwd_app"] = {"wide_encoding": bwd}
+    return out
+
+
 def train_inputs(renderer, dev):
     """Phase 3b's stage: the room's fine MLP on 9216 rays, 128 jittered
-    samples, density noise of std 1 -> (spec, rays, z, noise, target)."""
+    samples, density noise of std 1 -> (spec, rays, z, noise, target); the
+    spec None without a renderer."""
     from nerfmatch_tpu_torch.nerf.sampling import (jitter_fenceposts,
                                                    jitter_uniforms)
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import StageSpec
@@ -1766,7 +2087,8 @@ def train_inputs(renderer, dev):
                           jitter_uniforms(n, S + 1, g, dev)).contiguous()
     noise = torch.randn(n, S, device=dev, generator=g)   # noise_std 1.0
     target = torch.rand(n, 3, device=dev, generator=g)
-    return StageSpec(renderer.nerf_fine, 15, 4), rays, z, noise, target
+    return (None if renderer is None else StageSpec(renderer.nerf_fine, 15, 4),
+            rays, z, noise, target)
 
 
 def train_cotangents(z, rgb, w, target):
@@ -2579,6 +2901,122 @@ def phase_training(renderer, dev, seed, root):
     log(f"served {ckpt.name}: ds-8 grid pt3d {out['pt3d'].shape} "
         f"pt_feat {out['pt_feat'].shape}")
     return launches, ckpt, cfg
+
+
+def phase_hid128(dev, seed, root, hid=128, size=480):
+    """Phase 11: a NeRF at MLP width ``hid`` end to end.  The 7-Scenes
+    config with ``hid_dim`` 128 in both stages, trained by the
+    ``train_nerf`` CLI (--debug, 5 epochs of 10 steps) on phase 5's room
+    scene under ``root``, then 50 timed ``NerfTrainer`` steps (kernels 5,
+    6); its checkpoint served at the serving int8 default: the scene points
+    of the scene's 24 frames (kernels 1b, 2, 1) and one 480x480 request
+    localized by ``eval_batch(iters=2)`` with a c2f matcher at random
+    weights (seed 0) whose ``pt_dim`` follows the NeRF width -> summary."""
+    import dataclasses
+
+    from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
+    from nerfmatch_tpu_torch.config import load_yaml_config, save_config
+    from nerfmatch_tpu_torch.data.loaders import init_data_loader
+    from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
+    from nerfmatch_tpu_torch.nerf.renderer import (NerfRenderer,
+                                                   serving_int8_mode)
+    from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
+    from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
+                                                        init_config_odir)
+
+    cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
+    cfg.coarse_nerf.hid_dim = cfg.fine_nerf.hid_dim = hid
+    cfg.data.data_dir = str(root)
+    cfg.data.scene = "room"
+    cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
+    cfg.exp.odir = str(root / f"out{hid}")
+    cfg.exp.max_epochs = 5
+    save_config(root / f"cfg{hid}.yaml", cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out_cfg, _ = train_cli(["--config", str(root / f"cfg{hid}.yaml"), "--debug"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
+                             name="last")
+    assert ckpt is not None and ckpt.name == "last_5", ckpt
+
+    trainer = NerfTrainer(cfg, device=dev, seed=seed)
+    ds = init_data_loader(cfg.data, split="train").dataset
+    batches = ds.ray_batches(cfg.exp.batch_size, np.random.default_rng(seed))
+    gen = torch.Generator(dev).manual_seed(seed)
+    steps = [(torch.as_tensor(b["rays"], device=dev),
+              torch.as_tensor(b["rgbs"], device=dev))
+             for b in (next(batches) for _ in range(52))]
+    hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    loss = [float(m["loss"]) for m in hist]
+    assert trainer.route == "kernels" and all(np.isfinite(loss)), loss
+    assert np.mean(loss[-5:]) < np.mean(loss[:5]), loss
+    train_launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
+    del trainer, steps
+
+    serving = NerfRenderer(cfg, stop_layer=3)
+    serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
+    serving = serving.to(dev).eval()
+    serving.cfg = dataclasses.replace(serving.cfg,
+                                      trunk_int8=serving_int8_mode(cfg))
+    match_cfg, _ = load_yaml_config(
+        ROOT / "configs/nerfmatch/nerfmatch_7scenes_sfm_c2f.yaml")
+    match_cfg.model.pt_dim = hid
+    evaluator = NeRFMatchEvaluator(
+        match_cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    kw = dict(iters=2, mutual=True, solver="colmap", rthres=10.0)
+    with torch.no_grad():
+        req = make_request(serving, 0.3, dev, size)
+        # Warm-up request (calibration, cuDNN autotuning, the allocator).
+        evaluator.eval_batch(scene_points(serving, [req], size),
+                             renderer=serving, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = [room_c2w(2 * np.pi * i / 24) for i in range(24)]
+        cache = serving.render_novel_views(
+            (size, size), [camera_K(size)] * 24, frames,
+            [np.eye(4, dtype=np.float32)] * 24, downsample=8)
+        torch.cuda.synchronize()
+        cache_ms = (time.perf_counter() - t0) * 1e3 / 24
+        for k in ("pt3d", "pt_feat"):
+            assert np.isfinite(cache[k]).all(), k
+        assert cache["pt_feat"].shape[-1] == hid, cache["pt_feat"].shape
+        t0 = time.perf_counter()
+        batch = scene_points(serving, [req], size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = evaluator.eval_batch(batch, renderer=serving, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = {**train_launches,
+                **{k: LAUNCHES[k] for k in ("render_coarse_int8", "render_fine",
+                                            "resample")}}
+    c2w, r_err, t_err = res["c2w_est"][0], res["R_err"][0], res["t_err"][0]
+    assert (c2w is None and r_err == t_err == float("inf")) or (
+        np.isfinite(c2w).all() and np.isfinite([r_err, t_err]).all())
+    out = dict(hid=hid, cli_s=cli_s, cli_steps=50, step_ms=step_ms,
+               peak_gib=peak / 2**30, loss_first=loss[0],
+               loss_last5=float(np.mean(loss[-5:])),
+               cache_ms_per_frame=cache_ms, scene_points_ms=(t1 - t0) * 1e3,
+               request_ms=(t2 - t0) * 1e3, localize_ms=(t2 - t1) * 1e3,
+               num_matches=res["num_matches"], R_err_deg=r_err, t_err=t_err,
+               trunk_int8=serving.cfg.trunk_int8, matcher_pt_dim=hid,
+               launches=launches)
+    log("phase 11 (hid 128 end to end): " + json.dumps(out))
+    missing = [k for k, v in launches.items() if v == 0]
+    assert not missing, f"phase 11 never launched: {missing}"
+    return out
 
 
 def plain_fused_rgb(renderer, rays, chunk=9216):
@@ -4703,6 +5141,10 @@ def main():
         rows.update(phase_int8_kernels(renderer, dev))
     rows.update(phase_train_kernels(renderer, dev))
     rows.update(phase_train_app_kernels(renderer, dev))
+    for name, by_hid in train_width_rows(dev).items():
+        key = "wide_encoding" if name.endswith("_app") else "widths"
+        rows[name][key] = by_hid.get(key, by_hid)
+    torch.cuda.empty_cache()
     with torch.no_grad():
         rows.update(phase_matcher_kernels(dev))
     torch.cuda.empty_cache()
@@ -4730,6 +5172,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         trained, ckpt5, cfg5 = phase_training(renderer, dev, args.seed,
                                               Path(tmp))
+        hid128 = phase_hid128(dev, args.seed, Path(tmp))
         _, psnr_s, psnr_ms = phase_psnr(ckpt5, Path(tmp), dev)
         app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
         app_trained = phase_training_app(renderer, dev, args.seed,
@@ -4799,6 +5242,12 @@ def main():
     for n in E2E_KERNELS:
         rows[n]["launches_phase10"] = e2e_launches[n]
     rows["attention"]["e2e_head_dim8"] = e2e_row
+
+    # Phase 11's counts (the hid-128 NeRF) stand beside each kernel it ran.
+    for n, c in hid128["launches"].items():
+        rows[n]["launches_phase11"] = c
+    rows["render_train_fwd"]["phase11_hid128"] = {
+        k: v for k, v in hid128.items() if k != "launches"}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -1,0 +1,5 @@
+// The render stage (kernel 1b, the int8 trunk) at MLP width 256: its
+// instantiations (render_eval.cuh), in a translation unit of their own.
+#include "render_eval.cuh"
+
+NM_RENDER_EVAL_WIDTH(256, true, q8_256)

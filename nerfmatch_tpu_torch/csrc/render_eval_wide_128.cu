@@ -1,0 +1,7 @@
+// The render stage (kernels 1 and 1b, both trunks) at MLP width 128 and
+// the wide encoding (2 * 3 * F in 97 .. 128): its instantiations
+// (render_eval.cuh), in a translation unit of their own.
+#include "render_eval.cuh"
+
+NM_RENDER_EVAL_WIDE(128, false, bf16_128)
+NM_RENDER_EVAL_WIDE(128, true, q8_128)

@@ -155,7 +155,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // The accumulator operands d[i] ..: constraint C ("+f": f32 variables,
 // "+r": 32-bit integer ones), and the operand numbers of the first 8 / 16 /
-// 32 / 64 / 128 of them in an asm template.  An f32 accumulator may live in
+// 32 / 48 / 64 / 96 / 128 of them in an asm template.  An f32 accumulator may live in
 // integer variables (PTX takes .b32 registers for .f32 operands): a kernel
 // that runs both bf16 and s8 products keeps one accumulator array for both.
 #define NM_ACC8(C, i)                                                    \
@@ -165,6 +165,8 @@ __device__ __forceinline__ void wgmma_wait() {
 #define NM_ACC32(C, i) NM_ACC16(C, i), NM_ACC16(C, i + 16)
 #define NM_ACC64(C, i) NM_ACC32(C, i), NM_ACC32(C, i + 32)
 #define NM_ACC128(C, i) NM_ACC64(C, i), NM_ACC64(C, i + 64)
+#define NM_ACC48(C, i) NM_ACC32(C, i), NM_ACC16(C, i + 32)
+#define NM_ACC96(C, i) NM_ACC64(C, i), NM_ACC32(C, i + 64)
 #define NM_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define NM_REGS16 \
   NM_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
@@ -182,6 +184,13 @@ __device__ __forceinline__ void wgmma_wait() {
             "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, "    \
             "%109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "   \
             "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+#define NM_REGS48 \
+  NM_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+            "%44, %45, %46, %47"
+#define NM_REGS96                                                          \
+  NM_REGS64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "    \
+            "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, "   \
+            "%87, %88, %89, %90, %91, %92, %93, %94, %95"
 
 // One wgmma.mma_async of shape and types SHAPE: accumulator operands ACC
 // (numbered REGS), then the inputs; PRED names the scale-d input (0: d =
@@ -205,14 +214,21 @@ __device__ __forceinline__ void wgmma_wait() {
 template <int N, int TA = 1, typename T>
 __device__ __forceinline__ void wgmma_ss(T* d, uint64_t da, uint64_t db,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: n64, n128, n256");
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192 || N == 256,
+                "wgmma_ss: n64, n96, n128, n192, n256");
   if constexpr (std::is_same<T, float>::value) {
     if constexpr (N == 256)
       NM_WGMMA(NM_BF16(256), NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
                NM_ACC128("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_BF16(192), NM_REGS96, "%96, %97, p, 1, 1, %99, 1", "%98",
+               NM_ACC96("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
     else if constexpr (N == 128)
       NM_WGMMA(NM_BF16(128), NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66",
                NM_ACC64("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 96)
+      NM_WGMMA(NM_BF16(96), NM_REGS48, "%48, %49, p, 1, 1, %51, 1", "%50",
+               NM_ACC48("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
     else
       NM_WGMMA(NM_BF16(64), NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34",
                NM_ACC32("+f", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
@@ -220,9 +236,15 @@ __device__ __forceinline__ void wgmma_ss(T* d, uint64_t da, uint64_t db,
     if constexpr (N == 256)
       NM_WGMMA(NM_BF16(256), NM_REGS128, "%128, %129, p, 1, 1, %131, 1", "%130",
                NM_ACC128("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_BF16(192), NM_REGS96, "%96, %97, p, 1, 1, %99, 1", "%98",
+               NM_ACC96("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
     else if constexpr (N == 128)
       NM_WGMMA(NM_BF16(128), NM_REGS64, "%64, %65, p, 1, 1, %67, 1", "%66",
                NM_ACC64("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+    else if constexpr (N == 96)
+      NM_WGMMA(NM_BF16(96), NM_REGS48, "%48, %49, p, 1, 1, %51, 1", "%50",
+               NM_ACC48("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
     else
       NM_WGMMA(NM_BF16(64), NM_REGS32, "%32, %33, p, 1, 1, %35, 1", "%34",
                NM_ACC32("+r", 0), "l"(da), "l"(db), "r"(scale_d), "n"(TA));
@@ -236,17 +258,27 @@ __device__ __forceinline__ void wgmma_ss(T* d, uint64_t da, uint64_t db,
 template <int N, int TB, typename T>
 __device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 256,
-                "wgmma_rs: n16, n32, n64, n128, n256");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128 ||
+                    N == 192 || N == 256,
+                "wgmma_rs: n16, n32, n64, n96, n128, n192, n256");
   if constexpr (std::is_same<T, float>::value) {
     if constexpr (N == 256)
       NM_WGMMA(NM_BF16(256), NM_REGS128,
                "{%128, %129, %130, %131}, %132, p, 1, 1, %134", "%133",
                NM_ACC128("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_BF16(192), NM_REGS96,
+               "{%96, %97, %98, %99}, %100, p, 1, 1, %102", "%101",
+               NM_ACC96("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
     else if constexpr (N == 128)
       NM_WGMMA(NM_BF16(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70",
                "%69", NM_ACC64("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 96)
+      NM_WGMMA(NM_BF16(96), NM_REGS48, "{%48, %49, %50, %51}, %52, p, 1, 1, %54",
+               "%53", NM_ACC48("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
     else if constexpr (N == 64)
       NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
@@ -266,9 +298,18 @@ __device__ __forceinline__ void wgmma_rs(T* d, const uint32_t* a,
                "{%128, %129, %130, %131}, %132, p, 1, 1, %134", "%133",
                NM_ACC128("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_BF16(192), NM_REGS96,
+               "{%96, %97, %98, %99}, %100, p, 1, 1, %102", "%101",
+               NM_ACC96("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
     else if constexpr (N == 128)
       NM_WGMMA(NM_BF16(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1, %70",
                "%69", NM_ACC64("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+               "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+    else if constexpr (N == 96)
+      NM_WGMMA(NM_BF16(96), NM_REGS48, "{%48, %49, %50, %51}, %52, p, 1, 1, %54",
+               "%53", NM_ACC48("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
                "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
     else if constexpr (N == 64)
       NM_WGMMA(NM_BF16(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1, %38",
@@ -307,10 +348,14 @@ __device__ __forceinline__ uint64_t desc64(uint32_t addr) {
 template <int N, bool kInit = false>
 __device__ __forceinline__ void wgmma_ss8(uint32_t* d, uint64_t da, uint64_t db,
                                           int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss8: n64, n128, n256");
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma_ss8: n64, n128, n192, n256");
   if constexpr (kInit) {
     if constexpr (N == 256)
       NM_WGMMA(NM_S8(256), NM_REGS128, "%128, %129, p", "%130", NM_ACC128("=r", 0),
+               "l"(da), "l"(db), "n"(0));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_S8(192), NM_REGS96, "%96, %97, p", "%98", NM_ACC96("=r", 0),
                "l"(da), "l"(db), "n"(0));
     else if constexpr (N == 128)
       NM_WGMMA(NM_S8(128), NM_REGS64, "%64, %65, p", "%66", NM_ACC64("=r", 0),
@@ -321,6 +366,9 @@ __device__ __forceinline__ void wgmma_ss8(uint32_t* d, uint64_t da, uint64_t db,
   } else {
     if constexpr (N == 256)
       NM_WGMMA(NM_S8(256), NM_REGS128, "%128, %129, p", "%130", NM_ACC128("+r", 0),
+               "l"(da), "l"(db), "r"(scale_d));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_S8(192), NM_REGS96, "%96, %97, p", "%98", NM_ACC96("+r", 0),
                "l"(da), "l"(db), "r"(scale_d));
     else if constexpr (N == 128)
       NM_WGMMA(NM_S8(128), NM_REGS64, "%64, %65, p", "%66", NM_ACC64("+r", 0),
@@ -334,11 +382,16 @@ __device__ __forceinline__ void wgmma_ss8(uint32_t* d, uint64_t da, uint64_t db,
 template <int N, bool kInit = false>
 __device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
                                           uint64_t db, int scale_d) {
-  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs8: n64, n128, n256");
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma_rs8: n64, n128, n192, n256");
   if constexpr (kInit) {
     if constexpr (N == 256)
       NM_WGMMA(NM_S8(256), NM_REGS128, "{%128, %129, %130, %131}, %132, p", "%133",
                NM_ACC128("=r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "n"(0));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_S8(192), NM_REGS96, "{%96, %97, %98, %99}, %100, p", "%101",
+               NM_ACC96("=r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
                "l"(db), "n"(0));
     else if constexpr (N == 128)
       NM_WGMMA(NM_S8(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p", "%69",
@@ -352,6 +405,10 @@ __device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
     if constexpr (N == 256)
       NM_WGMMA(NM_S8(256), NM_REGS128, "{%128, %129, %130, %131}, %132, p", "%133",
                NM_ACC128("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+               "l"(db), "r"(scale_d));
+    else if constexpr (N == 192)
+      NM_WGMMA(NM_S8(192), NM_REGS96, "{%96, %97, %98, %99}, %100, p", "%101",
+               NM_ACC96("+r", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
                "l"(db), "r"(scale_d));
     else if constexpr (N == 128)
       NM_WGMMA(NM_S8(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p", "%69",
@@ -368,11 +425,15 @@ __device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
 #undef NM_BF16
 #undef NM_S8
 #undef NM_REGS128
+#undef NM_REGS96
+#undef NM_REGS48
 #undef NM_REGS64
 #undef NM_REGS32
 #undef NM_REGS16
 #undef NM_REGS8
 #undef NM_ACC128
+#undef NM_ACC96
+#undef NM_ACC48
 #undef NM_ACC64
 #undef NM_ACC32
 #undef NM_ACC16

@@ -53,7 +53,8 @@ import torch
 from torch import nn
 
 from ..models.layers import init_params_
-from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
+from ..ops.kernels.quant import (calibrate_act_scales, pack_kernel_int8,
+                                 pack_mlp_int8)
 from ..ops.kernels.render_kernel import (APP_DIM, TILE_RAYS,
                                          kernel_forms_descriptor, pack_mlp,
                                          render_stage)
@@ -466,7 +467,8 @@ class NerfRenderer(nn.Module):
         """Kernel weights of both stages, ((weights, int8 trunk) of the
         coarse stage, the same of the fine stage): the int8 trunk where
         ``int8_plan`` quantizes, and on CUDA the render kernel's weights
-        (``pack_mlp`` of the stage's MLP and its int8 trunk)."""
+        (``pack_mlp`` of the stage's MLP and its int8 trunk, both at the
+        kernel's width: ``quant.pack_kernel_int8``)."""
         plan = self.int8_plan()
         if any(p is not None for p in plan) and self.act_scales is None:
             raise RuntimeError(
@@ -477,7 +479,8 @@ class NerfRenderer(nn.Module):
         out = []
         for (name, mlp), start in zip(self._stages(), plan):
             tap = eval_feat_layer(mlp.cfg) if name == "fine" else None
-            q = None if start is None else pack_mlp_int8(
+            q = None if start is None else (
+                pack_kernel_int8 if cuda else pack_mlp_int8)(
                 mlp, self.act_scales[name], start, tap)
             w = pack_mlp(mlp, q) if cuda else None
             out.append((w, q))

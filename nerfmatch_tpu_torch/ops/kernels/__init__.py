@@ -58,17 +58,20 @@ _SIGNATURES = {
     "nm_render_eval_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P],
-    # hid, fine, int8 -> dynamic shared memory bytes
-    "nm_render_eval_smem": [_I, _I, _I],
+    # hid, fine, int8, dirs_freqs -> dynamic shared memory bytes
+    "nm_render_eval_smem": [_I, _I, _I, _I],
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
     "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
     # var_scale, white_bg, out_rgb, out_w, stash (or null), stream
     "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
                                 _P, _P],
-    # n_rays, hid, layer_num, samples, app_dim, out stash bytes, out
-    # gradient workspace bytes, out matrix block
-    "nm_render_train_workspace": [_I, _I, _I, _I, _I, _P, _P, _P],
+    # hid, layer_num, dirs_freqs, app_dim, forward (else the trunk
+    # backward) -> dynamic shared memory bytes
+    "nm_render_train_smem": [_I, _I, _I, _I, _I],
+    # n_rays, hid, layer_num, samples, num_freqs, dirs_freqs, app_dim, out
+    # stash bytes, out gradient workspace bytes, out matrix block
+    "nm_render_train_workspace": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
     # var_scale, white_bg, g_rgb, g_w, stash, gradient workspace, grad_mat,
     # grad_vec, grad_app (or null), stream
@@ -111,9 +114,9 @@ def _nvcc() -> str:
                        "with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def _sources():
-    srcs = sorted(CSRC.glob("*.cu"))
-    headers = sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir: Path):
+    srcs = sorted(src_dir.glob("*.cu"))
+    headers = sorted(src_dir.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs + headers:
         h.update(p.name.encode())
@@ -121,10 +124,12 @@ def _sources():
     return srcs, h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` (if not cached) and return the library path."""
-    srcs, digest = _sources()
-    out_dir = BUILD_ROOT / digest
+def build(src_dir=CSRC, build_root=BUILD_ROOT) -> Path:
+    """Compile ``src_dir/*.cu`` (the package's ``csrc`` by default; a probe
+    may hand an earlier one) into ``build_root/<hash>/`` if not cached
+    there, and return the library path."""
+    srcs, digest = _sources(Path(src_dir))
+    out_dir = Path(build_root) / digest
     lib = out_dir / "libnerfmatch_kernels.so"
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
@@ -167,16 +172,22 @@ def build() -> Path:
     return lib
 
 
+def load(path, entries=None):
+    """The library at ``path`` with the C signatures of ``entries`` (all of
+    :data:`_SIGNATURES` by default) bound."""
+    lib = ctypes.CDLL(str(path))
+    for name in entries or _SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first use)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = load(build())
     return _LIB
 
 

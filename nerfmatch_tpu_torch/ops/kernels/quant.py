@@ -20,8 +20,12 @@
 packing's names (``qenc``, ``qh``, ``w{i}q``, ``w{i}sq``, ``c{i}``,
 ``c{i}s``, ``B{i}``, ``s{L}``, ``s{L}s``, ``b{L}``, ``iq{i}``), and under
 ``img`` the int8 weights as the ring's slot images of the render kernel
-(``csrc/render_eval.cu``, :func:`slot_images_s8`).  The 90 encoding rows
-are padded to 96 (three 32-deep k steps); the JAX packing pads them to 128.
+(``csrc/render_eval.cuh``, :func:`slot_images_s8`).  The encoding rows are
+padded to ``render_train_kernel.enc_rows`` (the 90 of 15 frequencies to 96,
+three 32-deep k steps, the widest to 128; the s8 images to whole 64-row
+slots); the JAX packing pads them to 128.  :func:`pack_kernel_int8` packs
+the trunk of an MLP at the render kernel's width (its padded columns at
+unit activation scale).
 """
 
 from __future__ import annotations
@@ -34,9 +38,9 @@ import torch.nn.functional as F
 from ...nerf.compositing import volume_render
 from ...nerf.embedding import ipe_embedding
 from ...nerf.sampling import sample_along_rays
+from .render_train_kernel import enc_rows, pad_mlp_to_kernel_width
 
 _EPS = 1e-6
-ENC_PAD = 96        # encoding rows, padded to the k step of s8 wgmma
 S8_SLOT_ROWS = 64   # csrc: kSliceK8 (s8 weight rows a ring slot)
 # The K order of an s8 image fed from an accumulator: position k of each
 # 32-row block holds row PERM32[k].  A thread's s32 accumulator holds
@@ -101,7 +105,7 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
         raise ValueError(f"{len(acts)} activation scales for {L} layers")
     q_rows = [(127.0 / a)[None, :] for a in acts]
     iq_rows = [(a / 127.0)[None, :] for a in acts]
-    enc_pad = torch.cat([enc_s, torch.ones(ENC_PAD - E, device=dev)])
+    enc_pad = torch.cat([enc_s, torch.ones(enc_rows(E) - E, device=dev)])
 
     out = {"start": int8_from, "tap": tap, "qenc": (127.0 / enc_pad)[None, :]}
     if int8_from > 0:
@@ -115,12 +119,12 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
         parts = {}
         if i > 0 and i - 1 in cfg.skips:               # [enc | hid] rows
             qs, sws = colq(wi[:E] * (enc_s / 127.0)[:, None])
-            parts["s"] = (_pad_rows(qs, ENC_PAD), sws)
+            parts["s"] = (_pad_rows(qs, enc_rows(E)), sws)
             parts[""] = colq(wi[E:] * (acts[i - 1] / 127.0)[:, None])
         else:
             a_in = enc_s if i == 0 else acts[i - 1]
             q, sw = colq(wi * (a_in / 127.0)[:, None])
-            parts[""] = (_pad_rows(q, ENC_PAD) if i == 0 else q, sw)
+            parts[""] = (_pad_rows(q, enc_rows(E)) if i == 0 else q, sw)
         for suf, (q, sw) in parts.items():
             out[f"w{i}{suf}q"] = q
             if i == last:
@@ -140,6 +144,29 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
         slot_images_s8(out[k], permute=i > 0 and k == f"w{i}q")
         for i in range(int8_from, L) for k in (f"w{i}q", f"w{i}sq") if k in out])
     return out
+
+
+def pad_act_scales(scales, width: int):
+    """One stage's activation scales (:func:`calibrate_act_scales`) with
+    each layer's row padded to ``width`` columns at scale 1: a padded
+    hidden unit is always 0, so its calibrated range would be 0; the unit
+    scale keeps its requant rows finite and moves no real column."""
+    def pad(a):
+        a = torch.as_tensor(a, dtype=torch.float32)
+        return torch.cat([a, a.new_ones(width - a.numel())])
+    return {"enc": scales["enc"], "acts": [pad(a) for a in scales["acts"]]}
+
+
+def pack_kernel_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
+    """:func:`pack_mlp_int8` of ``mlp`` at the render kernel's width
+    (``render_train_kernel.pad_mlp_to_kernel_width``, the scales by
+    :func:`pad_act_scales`): the trunk ``render_kernel.render_stage`` takes
+    on CUDA.  Its real columns are those of ``pack_mlp_int8(mlp, scales,
+    ...)``; at an instantiated width it is that pack."""
+    kmlp, hid = pad_mlp_to_kernel_width(mlp)
+    if kmlp is not mlp:
+        scales = pad_act_scales(scales, kmlp.cfg.hid_dim)
+    return pack_mlp_int8(kmlp, scales, int8_from, tap)
 
 
 @contextlib.contextmanager

@@ -25,10 +25,13 @@ Early termination (``early_term_eps > 0``): rays are grouped in tiles of
 block of :data:`SAMPLE_BLOCK` samples, the remaining blocks get exact zero
 weights.  Skipped weights are < eps, so outputs move by < eps.
 
-CUDA tensors launch the kernel ``csrc/render_eval.cu`` (``wgmma``; it
+CUDA tensors launch the kernel ``csrc/render_eval.cuh`` (``wgmma``; it
 raises on anything the kernel does not implement) with the weights of
 :func:`pack_mlp`: a bf16 trunk, or the int8 trunk of
-``quant.pack_mlp_int8`` (s8 ``wgmma`` from its first int8 layer on).  CPU
+``quant.pack_kernel_int8`` (s8 ``wgmma`` from its first int8 layer on).  An
+MLP whose width is not instantiated (``render_train_kernel.KERNEL_HIDS``)
+runs at the next wider one on zero-padded weights, and its descriptor is
+sliced back to its width; above 256 it raises (ROADMAP Queue 2A).  CPU
 tensors run :func:`render_stage_plain`.
 """
 
@@ -44,34 +47,47 @@ from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 from ...nerf.embedding import ipe_embedding, pe_embedding
 from ...nerf.model import NerfMLP, eval_feat_layer, pnt_mode
 from ...nerf.sampling import frustum_moments, lift_gaussian
-from .quant import ENC_PAD
-from .render_train_kernel import APP_DIM, ENC_MAX, _skip_in, forward_images
+from .render_train_kernel import (APP_DIM, ENC_MAX, ENC_STD, _skip_in,
+                                  check_encoding, enc_rows, forward_images,
+                                  kernel_cfg, kernel_width,
+                                  pad_mlp_to_kernel_width, views_cols)
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
-KERNEL_HIDS = (64, 256)
 
 
 def stream_bytes(cfg, int8_from=None) -> int:
     """Bytes of the weight images the render kernel's ring streams for
-    ``cfg`` (:func:`pack_mlp`): the bf16 images of the trunk layers below
-    ``int8_from`` (every layer without it), the s8 images of the others
-    (the encoding rows padded to 128), the feature and views layers'."""
-    hid, L = cfg.hid_dim, cfg.layer_num
+    ``cfg`` at its kernel width (:func:`pack_mlp`): the bf16 images of the
+    trunk layers below ``int8_from`` (every layer without it), the s8
+    images of the others (the encoding rows padded to whole 64-row slots),
+    the feature and views layers'."""
+    cfg = kernel_cfg(cfg)
+    hid, L, E = cfg.hid_dim, cfg.layer_num, enc_rows(cfg.xyz_dim)
     start = L if int8_from is None else int8_from
     n = 0
     for i in range(L):
         enc, rows = _skip_in(cfg, i), hid if i > 0 else 0
-        n += hid * (2 * (ENC_MAX * enc + rows) if i < start
-                    else 128 * enc + rows)
-    return n + 2 * hid * (hid + max(hid // 2, 64))
+        n += hid * (2 * (E * enc + rows) if i < start
+                    else -(-E // 64) * 64 * enc + rows)
+    return n + 2 * hid * (hid + views_cols(hid))
+
+
+def check_int8_width(int8, layer_num: int, width: int, who: str):
+    """Raise unless the int8 trunk ``int8`` was packed at the kernel width
+    ``width`` (``quant.pack_kernel_int8``)."""
+    packed_at = int8[f"w{layer_num - 1}q"].shape[1]
+    if packed_at != width:
+        raise ValueError(f"{who}: int8 trunk packed at width {packed_at}, the "
+                         f"kernel runs at {width} (quant.pack_kernel_int8)")
 
 
 def pack_mlp(mlp: NerfMLP, int8=None):
-    """The render kernel's weight list (``csrc/render_eval.cu``), in the
+    """The render kernel's weight list (``csrc/render_eval.cuh``), in the
     order its C entry expects: the slot images its ring streams, per layer
     (its encoding flag or None, bias), then wa, ba, bf, wvd, wva, bv, wr,
-    br.
+    br, of ``mlp`` at its kernel width (:func:`pad_mlp_to_kernel_width`;
+    ``int8`` packed at that width: ``quant.pack_kernel_int8``).
     A bf16 trunk's images are every matrix's bf16 slot images
     (``render_train_kernel.forward_images``, the images kernel 5 reads);
     with ``int8`` (``quant.pack_mlp_int8``) the trunk layers from
@@ -80,13 +96,16 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     a table) and wr (the rgb head) stay f32: the kernel's FMAs take them
     unrounded.  A scene-coordinate head (``pnt_block``) is not packed, as
     the Pallas pack leaves it out."""
+    mlp, _ = pad_mlp_to_kernel_width(mlp)
     cfg = mlp.cfg
+    if int8 is not None:
+        check_int8_width(int8, cfg.layer_num, cfg.hid_dim, "pack_mlp")
     fwd, enc_at = forward_images(mlp, None if int8 is None else int8["start"])
     if int8 is None:
         imgs, flags = fwd, {i: fwd[at:] for i, at in enc_at.items()}
     else:
         hid = cfg.hid_dim
-        heads = fwd.numel() - hid * (hid + max(hid // 2, 64))
+        heads = fwd.numel() - hid * (hid + views_cols(hid))
         imgs = torch.cat([fwd[:heads].view(torch.uint8),
                           int8["img"].view(torch.uint8),
                           fwd[heads:].view(torch.uint8)])
@@ -116,6 +135,14 @@ def kernel_forms_descriptor(cfg) -> bool:
         return False
     tap = eval_feat_layer(cfg)
     return not (tap == cfg.layer_num - 1 and tap in cfg.skips)
+
+
+def check_render_config(cfg, num_freqs: int, dirs_freqs: int):
+    """Raise for MLP and encoding widths the kernel does not take: a width
+    above 256 (``render_train_kernel.kernel_width``), an encoding past the
+    JAX kernels' limits (``render_train_kernel.check_encoding``)."""
+    check_encoding(cfg, num_freqs, dirs_freqs, "render kernel")
+    kernel_width(cfg.hid_dim)
 
 
 def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int, fine: bool,
@@ -165,7 +192,8 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     for many calls.  ``app`` (N, 16) f32: the appearance rows of an
     appearance NeRF's fine stage (the coarse stage emits no rgb and ignores
     it).  ``int8`` (``quant.pack_mlp_int8``): run the trunk from
-    ``int8["start"]`` on in the quantized domain; ``debug_q`` adds the int8
+    ``int8["start"]`` on in the quantized domain (on CUDA packed at the
+    kernel width: ``quant.pack_kernel_int8``); ``debug_q`` adds the int8
     encoding ``xq`` and the last layer's int8 input ``hq`` (``int8`` only;
     0 in skipped blocks on CUDA).  ``debug_tap`` (fine stage, CUDA): adds the
     tap layer's activations of the kernel's first pass ``tap_first`` and of
@@ -178,7 +206,11 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                                   feat_max=feat_max, debug_q=debug_q)
     _check_config(mlp, num_freqs, dirs_freqs, fine, app)
     cfg = mlp.cfg
+    check_render_config(cfg, num_freqs, dirs_freqs)
+    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim)
     start = None if int8 is None else int8["start"]
+    if int8 is not None:
+        check_int8_width(int8, cfg.layer_num, W, "render_stage")
     if packed is None:
         packed = pack_mlp(mlp, int8)
     if (packed[0].dtype == torch.bfloat16) != (int8 is None) or \
@@ -198,15 +230,18 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                             or not app.is_contiguous()):
         raise ValueError(f"render_stage: app ({n}, {APP_DIM}) f32, "
                          "contiguous")
-    if n % TILE_RAYS or S % SAMPLE_BLOCK or cfg.hid_dim not in KERNEL_HIDS:
+    if n % TILE_RAYS or S % SAMPLE_BLOCK:
         raise NotImplementedError(
-            f"render kernel needs N % {TILE_RAYS} == 0, S % {SAMPLE_BLOCK} "
-            f"== 0 and hid in {KERNEL_HIDS} (N={n}, S={S}, "
-            f"hid={cfg.hid_dim})")
+            f"render kernel needs N % {TILE_RAYS} == 0 and S % {SAMPLE_BLOCK} "
+            f"== 0 (N={n}, S={S})")
     if debug_q and int8 is None:
         raise ValueError("render_stage: debug_q needs the int8 trunk")
     if debug_tap and not fine:
         raise ValueError("render_stage: debug_tap needs the fine stage")
+    if (debug_tap or debug_q) and enc_rows(cfg.xyz_dim) > ENC_STD:
+        raise NotImplementedError("render_stage: the debug outputs exist at "
+                                  "encodings up to 96 columns (the wide "
+                                  "encoding's instantiation has none)")
     if feat_max and not fine:
         raise ValueError("render_stage: feat_max needs the fine stage")
     if int8 is not None and fine and int8["tap"] != eval_feat_layer(cfg):
@@ -217,11 +252,10 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
                            "5-6): call under torch.no_grad()")
     dev = rays.device
     f32 = dict(device=dev, dtype=torch.float32)
-    hid = cfg.hid_dim
     out = {"weights": torch.empty(n, S, **f32), "depth": torch.empty(n, **f32),
            "acc": torch.empty(n, **f32)}
     if fine:
-        out.update(rgb=torch.empty(n, 3, **f32), feat=torch.empty(n, hid, **f32),
+        out.update(rgb=torch.empty(n, 3, **f32), feat=torch.empty(n, W, **f32),
                    pts=torch.empty(n, 3, **f32))
     ptr = lambda p: None if p is None else p.data_ptr()
     ptrs = (ctypes.c_void_p * (len(packed) + 2))(
@@ -232,12 +266,12 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"))
     log_eps = math.log(early_term_eps) if early_term_eps > 0 else -math.inf
     counter = torch.zeros(1, device=dev, dtype=torch.int32)
-    dbg = torch.zeros(2, n, S, hid, **f32) if debug_tap else None
-    dbgq = (torch.zeros(n, S, ENC_PAD + hid, device=dev, dtype=torch.int8)
+    dbg = torch.zeros(2, n, S, W, **f32) if debug_tap else None
+    dbgq = (torch.zeros(n, S, ENC_MAX + W, device=dev, dtype=torch.int8)
             if debug_q else None)
     with torch.cuda.device(dev):
         err = library().nm_render_eval_forward(
-            ptrs, qarr, ptr(app), n, hid, cfg.layer_num, eval_feat_layer(cfg),
+            ptrs, qarr, ptr(app), n, W, cfg.layer_num, eval_feat_layer(cfg),
             -1 if start is None else start, num_freqs, dirs_freqs, S,
             var_scale, log_eps, int(white_bg), int(fine), int(feat_max),
             counter.data_ptr(), *outs, ptr(dbg), ptr(dbgq), stream_ptr(dev))
@@ -246,10 +280,12 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
              + ("" if int8 is None else "_int8")
              + ("" if app is None else "_app")
              + ("_max" if feat_max else "")] += 1
+    if fine and W != hid:
+        out["feat"] = out["feat"][:, :hid].contiguous()
     if debug_tap:
-        out.update(tap_first=dbg[0], tap_again=dbg[1])
+        out.update(tap_first=dbg[0, ..., :hid], tap_again=dbg[1, ..., :hid])
     if debug_q:
-        out.update(xq=dbgq[..., :cfg.xyz_dim], hq=dbgq[..., ENC_PAD:])
+        out.update(xq=dbgq[..., :cfg.xyz_dim], hq=dbgq[..., ENC_MAX:ENC_MAX + hid])
     return out
 
 

@@ -13,6 +13,17 @@ ray, after the viewdir PE (``extras @ wvx``), and its cotangent ``g_app``
 comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
 303-312``).
 
+Widths: the kernels are instantiated at the MLP widths :data:`KERNEL_HIDS`;
+an MLP of another width up to 256 runs at the smallest of them that holds
+it, on a zero-padded copy of its weights (:func:`pad_mlp_to_kernel_width`:
+the padded hidden units take zero weights in and out and a zero bias, so
+they stay 0 and move nothing), and its gradients are sliced back to the
+parameters' shapes.  Wider MLPs raise ``NotImplementedError`` on the card.
+The encoding takes 2 * 3 * F <= 128 columns and a ray's view-direction PE
+plus its appearance row <= 128, the JAX kernels' limits; the products and
+the stash take them padded (:func:`enc_rows`: 96 rows up to 96 columns,
+the production encoding's code, 128 beyond; :func:`dirs_rows`).
+
 Precision follows the JAX kernel: every matrix product takes bf16 operands
 with f32 accumulation (the views layer's dirs rows and the rgb head
 included), residual activations are bf16, the backward's matrix operands
@@ -41,14 +52,16 @@ import torch.nn.functional as F
 
 from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 from ...nerf.embedding import ipe_embedding, pe_embedding
-from ...nerf.model import NerfMLP
+from ...nerf.model import NerfMLP, effective_stop_layer
 from ...nerf.sampling import frustum_moments
 
 TILE_RAYS = 2         # csrc: kTileRays (N even; N / 2 vector-partial rows)
 KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
-KERNEL_HIDS = (64, 256)
-ENC_MAX = 96          # csrc: kEncMax (padded encoding width)
-DIRS_MAX = 32         # csrc: kDirsMax
+# csrc: render_train_<HID>.cu, render_eval_<trunk>_<HID>.cu
+KERNEL_HIDS = (64, 128, 192, 256)
+ENC_MAX = 128         # csrc: kEncMax (the widest encoding, 2 * 3 * 21 <= 128)
+ENC_STD = 96          # csrc: kEncStd (the production encoding's instantiation)
+EXTRA_MAX = 128       # csrc: kExtraMax (view-direction PE + appearance row)
 APP_DIM = 16          # csrc: kAppDim (columns of an appearance row)
 GRGB_WIDTH = 8        # csrc: kGrgbWidth
 REC_WIDTH = 8         # csrc: kRecWidth (f32 record a sample)
@@ -73,6 +86,102 @@ def _bf16(x, on: bool = True):
 def _skip_in(cfg, i: int) -> bool:
     """Layer i takes the encoding rows (layer 0, or the skip concat)."""
     return i == 0 or (i - 1) in cfg.skips
+
+
+def enc_rows(enc_dim: int) -> int:
+    """The encoding's rows as the kernels take them (csrc: enc_rows): the K
+    of the encoding products and the stash's encoding width, 96 (three
+    32-row slices of the weight rings) up to 96 columns, the production
+    encoding's instantiation (15 frequencies: 90), else 128 (the wide
+    one's)."""
+    return ENC_STD if enc_dim <= ENC_STD else ENC_MAX
+
+
+def dirs_rows(dirs_dim: int) -> int:
+    """The view-direction PE's rows padded the same way (csrc: dirs_rows):
+    the dirs part of a ray's stashed extras row (32 for 4 frequencies)."""
+    return -(-dirs_dim // SLOT_ROWS) * SLOT_ROWS
+
+
+def views_cols(hid: int) -> int:
+    """Columns of the views layer's forward images: its hid // 2 outputs in
+    whole 64-column blocks (the views product is max(hid // 2, 64) wide)."""
+    return max(-(-(hid // 2) // 64) * 64, 64)
+
+
+def kernel_width(hid: int) -> int:
+    """The instantiated width an MLP of ``hid`` runs at: the smallest of
+    :data:`KERNEL_HIDS` that holds it.  Above 256 ``NotImplementedError``:
+    wgmma's N is at most 256, a warpgroup's accumulator and A fragments
+    would need more than 255 registers a thread, and the fine stage's
+    activation stash more shared memory than a block has (ROADMAP Queue 2A:
+    MLP widths above 256)."""
+    for w in KERNEL_HIDS:
+        if hid <= w:
+            return w
+    raise NotImplementedError(
+        f"render kernels: hid_dim {hid} > {KERNEL_HIDS[-1]} (ROADMAP Queue "
+        "2A, MLP widths above 256: wgmma N <= 256, 255 registers a thread, "
+        "the fine stage's activation stash over the shared memory)")
+
+
+def kernel_cfg(cfg):
+    """``cfg`` at its kernel width (:func:`kernel_width`)."""
+    return dataclasses.replace(cfg, hid_dim=kernel_width(cfg.hid_dim))
+
+
+def _pad_to(x, shape):
+    """x zero-padded at the end of each dimension to ``shape``."""
+    pads = []
+    for d in reversed(range(x.dim())):
+        pads += [0, shape[d] - x.shape[d]]
+    return F.pad(x, pads)
+
+
+@torch.no_grad()
+def pad_mlp_to_kernel_width(mlp: NerfMLP):
+    """-> (an MLP at the kernel width :func:`kernel_width` gives, the real
+    hid).  The padded MLP holds zero-padded copies of the weights: a padded
+    hidden unit has zero weights in and out and a zero bias, so it is 0
+    after every ReLU and adds nothing to a real column, in the forward or
+    the backward; the views layer's hid // 2 outputs pad the same way.  Its
+    config keeps the descriptor tap and drops the scene-coordinate head,
+    which the kernels neither render nor pack.  ``mlp`` itself where its
+    width is instantiated; its parameters are never resized."""
+    cfg = mlp.cfg
+    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim)
+    if W == hid:
+        return mlp, hid
+    kcfg = dataclasses.replace(cfg, hid_dim=W, out_3d_pnt=False,
+                               stop_layer=effective_stop_layer(cfg))
+    with torch.device("meta"):
+        kmlp = NerfMLP(kcfg)
+    for name, p in kmlp.named_parameters():
+        w = mlp.get_parameter(name).detach()
+        if name == "views_linears.0.weight":     # [hidden | dirs | app] columns
+            hv = p.shape[0]
+            w = torch.cat([_pad_to(w[:, :hid], (hv, W)),
+                           _pad_to(w[:, hid:], (hv, w.shape[1] - hid))], 1)
+        mod, _, attr = name.rpartition(".")
+        setattr(kmlp.get_submodule(mod), attr,
+                torch.nn.Parameter(_pad_to(w, p.shape)))
+    return kmlp, hid
+
+
+def unpad_grads(g: dict, mlp: NerfMLP) -> dict:
+    """Gradients of :func:`pad_mlp_to_kernel_width`'s MLP sliced back to
+    the parameters of ``mlp`` (keys without a parameter pass through)."""
+    hid = mlp.cfg.hid_dim
+    out = dict(g)
+    for name, p in mlp.named_parameters():
+        if name not in g or g[name].shape == p.shape:
+            continue
+        v = g[name]
+        if name == "views_linears.0.weight":
+            W = v.shape[1] - (p.shape[1] - hid)
+            v = torch.cat([v[:, :hid], v[:, W:]], 1)
+        out[name] = v[tuple(slice(0, n) for n in p.shape)].contiguous()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +362,13 @@ def _fwd_images(w, k: int | None = None, n: int | None = None):
 def forward_images(mlp: NerfMLP, layers: int | None = None):
     """Every weight matrix's (in x out) slot images, in the order the
     forward kernels' rings stream them (``train_fwd_kernel`` and the
-    render kernel, ``csrc/render_eval.cu``): per layer the encoding rows
-    padded to ``ENC_MAX`` then the hidden rows, then the feature and the
-    views layers, the views' columns padded to 64 or more.  ``layers``:
-    only the first ``layers`` trunk layers (the render kernel's int8 trunk
-    streams its own images for the others).  Returns (the flat bf16
-    images, {layer: offset of its encoding rows' images})."""
+    render kernel, ``csrc/render_eval.cuh``): per layer the encoding rows
+    padded to :func:`enc_rows` then the hidden rows, then the feature and
+    the views layers, the views' columns padded to :func:`views_cols`.
+    ``layers``: only the first ``layers`` trunk layers (the render kernel's
+    int8 trunk streams its own images for the others).  ``mlp`` at a kernel
+    width.  Returns (the flat bf16 images, {layer: offset of its encoding
+    rows' images})."""
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     imgs, enc_at = [], {}
@@ -266,12 +376,12 @@ def forward_images(mlp: NerfMLP, layers: int | None = None):
         w = lin.weight.detach()
         if _skip_in(cfg, i):
             enc_at[i] = sum(x.numel() for x in imgs)
-            imgs.append(_fwd_images(w[:, :enc], k=ENC_MAX))
+            imgs.append(_fwd_images(w[:, :enc], k=enc_rows(enc)))
         if i > 0:
             imgs.append(_fwd_images(w[:, enc:] if (i - 1) in cfg.skips else w))
     wv = mlp.views_linears[0].weight.detach()
     imgs += [_fwd_images(mlp.feature_linear.weight),
-             _fwd_images(wv[:, :hid], n=max(hid // 2, 64))]
+             _fwd_images(wv[:, :hid], n=views_cols(hid))]
     return torch.cat(imgs), enc_at
 
 
@@ -283,7 +393,9 @@ def pack_train(mlp: NerfMLP):
     views' hidden-row backward images, wvd, wva, bv, wr, br.  The
     backward's images are of the (out x in) rows.  wvd (the views layer's
     dirs rows), wva (its appearance rows, None without them) and wr are f32
-    arrays of bf16-rounded values, (in x out)."""
+    arrays of bf16-rounded values, (in x out).  The weights of ``mlp`` at
+    its kernel width (:func:`pad_mlp_to_kernel_width`)."""
+    mlp, _ = pad_mlp_to_kernel_width(mlp)
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     app_at = hid + cfg.dirs_dim
@@ -309,21 +421,33 @@ def pack_train(mlp: NerfMLP):
     return out
 
 
+def check_encoding(cfg, num_freqs: int, dirs_freqs: int, who: str):
+    """Raise for encodings the render kernels do not take: the JAX kernels'
+    limits, 2 * 3 * F <= 128 and the view-direction PE plus the appearance
+    row <= 128 (F <= 21; Fd <= 18 with an appearance table, 20 without),
+    and a config whose widths are not those of its frequencies."""
+    if cfg.xyz_dim != 6 * num_freqs or cfg.dirs_dim != 6 * dirs_freqs + 3:
+        raise NotImplementedError(f"{who}: config {cfg} does not match "
+                                  f"{num_freqs} / {dirs_freqs} frequencies")
+    if cfg.xyz_dim > ENC_MAX or cfg.dirs_dim + cfg.app_dim > EXTRA_MAX:
+        raise NotImplementedError(
+            f"{who}: encoding of {cfg.xyz_dim} columns (<= {ENC_MAX}) and "
+            f"view-direction rows of {cfg.dirs_dim} + {cfg.app_dim} (<= "
+            f"{EXTRA_MAX}), as the JAX kernels")
+
+
 def check_train_config(spec: StageSpec):
-    """Raise for configs the train kernels do not implement."""
+    """Raise for configs the train kernels do not implement (a width above
+    256: :func:`kernel_width`)."""
     cfg = spec.mlp.cfg
     if cfg.app_dim not in (0, APP_DIM):
         raise NotImplementedError(f"train kernel: appearance rows of "
                                   f"{cfg.app_dim} columns (it takes "
                                   f"{APP_DIM})")
-    if not cfg.use_viewdirs or cfg.xyz_dim != 6 * spec.num_freqs \
-            or cfg.dirs_dim != 6 * spec.dirs_freqs + 3 \
-            or cfg.xyz_dim > ENC_MAX or cfg.dirs_dim > DIRS_MAX:
+    if not cfg.use_viewdirs:
         raise NotImplementedError(f"train kernel: config {cfg} not supported")
-    if cfg.hid_dim not in KERNEL_HIDS:
-        raise NotImplementedError(
-            f"train kernel instantiates hid in {KERNEL_HIDS}, not "
-            f"{cfg.hid_dim} (ROADMAP: train kernel widths)")
+    check_encoding(cfg, spec.num_freqs, spec.dirs_freqs, "train kernel")
+    kernel_width(cfg.hid_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,24 +467,26 @@ def _align256(n: int) -> int:
 
 
 def extras_width(cfg) -> int:
-    """A ray's stashed extras row: the viewdir PE padded to ``DIRS_MAX``,
-    then the appearance row (csrc: Dims::ew)."""
-    return DIRS_MAX + cfg.app_dim
+    """A ray's stashed extras row: the viewdir PE padded to
+    :func:`dirs_rows`, then the appearance row (csrc: Dims::ew)."""
+    return dirs_rows(cfg.dirs_dim) + cfg.app_dim
 
 
 def _stash_parts(cfg, n: int, S: int):
-    """Bytes of each stash array (csrc: carve_stash, in its order)."""
+    """Bytes of each stash array (csrc: carve_stash, in its order); ``cfg``
+    at its kernel width."""
     L, H, R = cfg.layer_num, cfg.hid_dim, n * S
-    return [R * ENC_MAX * 2, *[R * H * 2] * L, R * H * 2, R * (H // 2) * 2,
-            R * REC_WIDTH * 4, n * extras_width(cfg) * 2]
+    return [R * enc_rows(cfg.xyz_dim) * 2, *[R * H * 2] * L, R * H * 2,
+            R * (H // 2) * 2, R * REC_WIDTH * 4, n * extras_width(cfg) * 2]
 
 
 def _grad_parts(cfg, n: int, S: int, lay: BackwardLayout):
     """Bytes of each gradient-workspace array (csrc: carve_grad, in its
-    order; the matrix partials are sized for the widest layer layout)."""
+    order; the matrix partials are sized for the widest layer layout);
+    ``cfg`` at its kernel width."""
     L, H, R = cfg.layer_num, cfg.hid_dim, n * S
     HV = H // 2
-    mat_total = L * (ENC_MAX * H + H * H) + H * H + H * HV \
+    mat_total = L * (enc_rows(cfg.xyz_dim) * H + H * H) + H * H + H * HV \
         + extras_width(cfg) * HV + HV * GRGB_WIDTH
     return [*[R * H * 2] * L, R * H * 2, R * HV * 2, R * GRGB_WIDTH * 2,
             n * HV * 2, (n // TILE_RAYS) * lay.vec_len * 4,
@@ -369,19 +495,23 @@ def _grad_parts(cfg, n: int, S: int, lay: BackwardLayout):
 
 def workspace_bytes(cfg, n: int, S: int) -> tuple:
     """(stash bytes, gradient-workspace bytes) as
-    ``nm_render_train_workspace`` returns them (each array 256-aligned)."""
+    ``nm_render_train_workspace`` returns them (each array 256-aligned), at
+    the kernel width of ``cfg``."""
+    cfg = kernel_cfg(cfg)
     lay = backward_layout(cfg, n, S)
     return (sum(map(_align256, _stash_parts(cfg, n, S))),
             sum(map(_align256, _grad_parts(cfg, n, S, lay))))
 
 
 def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
+    """The backward's layout for ``cfg`` at its kernel width."""
+    cfg = kernel_cfg(cfg)
     L, H = cfg.layer_num, cfg.hid_dim
     HV, R = H // 2, n * S
     prods = []
     for i in range(L):
         if _skip_in(cfg, i):
-            prods.append((ENC_MAX, H, R))
+            prods.append((enc_rows(cfg.xyz_dim), H, R))
         if i > 0:
             prods.append((H, H, R))
     prods += [(H, H, R), (H, HV, R), (extras_width(cfg), HV, n),
@@ -430,17 +560,18 @@ def _kernel_args(spec: StageSpec, rays, z, noise, packed, app=None):
     require_cuda_tensors("render_train", rays, z, noise,
                          *[p for p in (*packed, app) if p is not None])
     cfg = spec.mlp.cfg
-    return (_ptrs(*packed, rays, z, noise, app), n, cfg.hid_dim,
+    return (_ptrs(*packed, rays, z, noise, app), n, kernel_width(cfg.hid_dim),
             cfg.layer_num, spec.num_freqs, spec.dirs_freqs, S,
             spec.var_scale, int(spec.white_bg))
 
 
 def _sizes(cfg, n: int, S: int):
     """(stash bytes, gradient-workspace bytes, matrix-block floats) from the
-    C side."""
+    C side, at the kernel width of ``cfg``."""
     out = [ctypes.c_longlong(0) for _ in range(3)]
     check(library().nm_render_train_workspace(
-        n, cfg.hid_dim, cfg.layer_num, S, cfg.app_dim,
+        n, kernel_width(cfg.hid_dim), cfg.layer_num, S, cfg.xyz_dim // 6,
+        (cfg.dirs_dim - 3) // 6, cfg.app_dim,
         *map(ctypes.addressof, out)), "render_train_workspace")
     return tuple(v.value for v in out)
 
@@ -451,7 +582,8 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
     training forward: it also fills and returns the stash (uint8, the
     activations :func:`kernel_backward` reads); else the stash is None and
     nothing beyond the outputs is allocated.  ``app``: the rays'
-    appearance rows, for an appearance MLP."""
+    appearance rows, for an appearance MLP.  ``packed``:
+    :func:`pack_train` of the stage's MLP (at its kernel width)."""
     args = _kernel_args(spec, rays, z, noise, packed, app)
     n, S = z.shape[0], z.shape[1] - 1
     rgb = torch.empty(n, 3, device=rays.device)
@@ -472,10 +604,11 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
 def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
                     packed, app=None):
     """Kernel gradients on the stash of the training forward of the same
-    inputs -> {parameter name: gradient}, and ``"app"``: ``g_app`` (N, 16)
-    for an appearance MLP."""
+    inputs -> {parameter name: gradient}, each in its parameter's shape
+    (an MLP run at a wider kernel width gets its padded gradients sliced
+    back), and ``"app"``: ``g_app`` (N, 16) for an appearance MLP."""
     args = _kernel_args(spec, rays, z, noise, packed, app)
-    mlp, cfg = spec.mlp, spec.mlp.cfg
+    cfg = kernel_cfg(spec.mlp.cfg)
     n, S = z.shape[0], z.shape[1] - 1
     L, hid, enc = cfg.layer_num, cfg.hid_dim, cfg.xyz_dim
     hv, dirs = hid // 2, cfg.dirs_dim
@@ -511,7 +644,7 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     for i in range(L):
         parts = []
         if _skip_in(cfg, i):
-            parts.append(block(ENC_MAX, hid)[:enc])
+            parts.append(block(enc_rows(enc), hid)[:enc])
         if i > 0:
             parts.append(block(hid, hid))
         g[f"pts_linears.{i}.weight"] = torch.cat(parts).t()
@@ -520,7 +653,7 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     w_h = block(hid, hv)
     w_x = block(extras_width(cfg), hv)      # dirs rows, padding, app rows
     g["views_linears.0.weight"] = torch.cat(
-        [w_h, w_x[:dirs], w_x[DIRS_MAX:]]).t()
+        [w_h, w_x[:dirs], w_x[dirs_rows(dirs):]]).t()
     g["rgb_linear.weight"] = block(hv, GRGB_WIDTH)[:, :3].t()
     o = L * hid
     g["feature_linear.bias"] = vec[o:o + hid]
@@ -535,7 +668,7 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
         g[k] = v.contiguous()
     if g_app is not None:
         g["app"] = g_app
-    return g
+    return unpad_grads(g, spec.mlp)
 
 
 # ---------------------------------------------------------------------------

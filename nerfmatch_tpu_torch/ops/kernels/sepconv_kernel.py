@@ -93,12 +93,14 @@ def _check(name, x, K, C):
         raise ValueError(f"{name}: float32 inputs only, got {x.dtype}")
 
 
-def _require_aligned(name, *tensors):
-    """The tile kernels read x, g and w through TMA tensor maps, whose base
-    addresses must be 16-byte aligned."""
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: x, g and w must start on 16-byte "
-                         "boundaries (TMA tensor maps)")
+def _aligned(t):
+    """``t`` contiguous and starting on a 16-byte boundary: the tile kernels
+    read x, g and w through TMA tensor maps, whose base addresses must be;
+    a view that does not (an offset into a larger buffer) is copied into a
+    fresh one, which the allocator aligns.  The JAX ``dw_star`` takes any
+    array."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _scalar(t, dev):
@@ -111,10 +113,9 @@ def dw_star_fwd(x, w, cbias, s, b):
     B, H, W, C = x.shape
     K = w.shape[0]
     _check("dw_star_fwd", x, K, C)
-    x, w, cbias = (t.contiguous() for t in (x, w, cbias))
+    x, w, cbias = _aligned(x), _aligned(w), cbias.contiguous()
     s, b = _scalar(s, x.device), _scalar(b, x.device)
     require_cuda_tensors("dw_star_fwd", x, w, cbias, s, b)
-    _require_aligned("dw_star_fwd", x, w)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = library().nm_dw_star_forward(
@@ -143,10 +144,9 @@ def dw_star_dgrad(x, w, s, g):
     B, H, W, C = x.shape
     K = w.shape[0]
     _check("dw_star_dgrad", x, K, C)
-    x, w, g = (t.contiguous() for t in (x, w, g))
+    x, w, g = _aligned(x), _aligned(w), _aligned(g)
     s = _scalar(s, x.device)
     require_cuda_tensors("dw_star_dgrad", x, w, g, s)
-    _require_aligned("dw_star_dgrad", x, w, g)
     dx = torch.empty_like(x)
     parts = dw_star_dgrad_parts(x.device.index, B, H, W, C)
     part = torch.empty(parts, 2, device=x.device, dtype=torch.float32)
@@ -179,10 +179,9 @@ def dw_star_wgrad(x, s, b, g, K: int = 7):
     kernel's second launch (no atomics)."""
     B, H, W, C = x.shape
     _check("dw_star_wgrad", x, K, C)
-    x, g = x.contiguous(), g.contiguous()
+    x, g = _aligned(x), _aligned(g)
     s, b = _scalar(s, x.device), _scalar(b, x.device)
     require_cuda_tensors("dw_star_wgrad", x, g, s, b)
-    _require_aligned("dw_star_wgrad", x, g)
     parts = dw_star_wgrad_parts(x.device.index, B, H, W, C)
     part = torch.empty(parts, K * K, TILE_CHANNELS, device=x.device,
                        dtype=torch.float32)

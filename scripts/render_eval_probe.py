@@ -3,10 +3,10 @@ is made of, on one NVIDIA GPU.
 
     python3 scripts/render_eval_probe.py [--parent-source FILE] [--variants A,B]
 
-Builds ``nerfmatch_tpu_torch/csrc/render_eval.cu`` once per variant below,
-each an edited copy of the source (``PATCHES``: every edit must match the
-source exactly once), one ``nvcc`` each, all started together, into
-``build/render_eval_probe/<variant>/``:
+Builds ``nerfmatch_tpu_torch/csrc/render_eval.cu`` with its width files
+(``render_eval_*.cu``) and headers once per variant below, each an edited
+copy of the sources (``PATCHES``: every edit must match one of them exactly
+once), all started together, into ``build/render_eval_probe/<variant>/``:
 
 * ``shipped``: as the package builds it;
 * ``live_gate``: a warpgroup without a tile skips the ring waits and the
@@ -57,8 +57,9 @@ runs the int8 stages on ``mma.sync``), with the headers beside it (e.g.
 ``render.cu``), and time its int8 stages on the same inputs with the
 fragments it reads (``parent_fragments``), its error against the package's
 at eps 1e-4 beside.  ``--parent-eval DIR``: also build DIR's
-``render_eval.cu`` (an earlier ``csrc`` whose C entry has no ``feat_max``
-argument, e.g. ``git archive <parent> nerfmatch_tpu_torch/csrc`` unpacked),
+``render_eval.cu`` with its width files (an earlier ``csrc`` whose C entry
+has no ``feat_max`` argument, e.g. ``git archive <parent>
+nerfmatch_tpu_torch/csrc`` unpacked),
 started beside the package's build, and run every stage above (the lin
 composite, bf16 and int8) on it: its outputs against the package's bit for
 bit (``same_bits``), its times beside, and the wall seconds of its nvcc
@@ -103,8 +104,8 @@ _RS8 = """      wgmma_rs8<N, s == 0>(acc, a[2 * s], desc64(slot), 1);
       wgmma_rs8<N>(acc, a[2 * s + 1], desc64(slot + 32), 1);
 """
 _SS8 = """      wgmma_ss8<N, NH + s == 0>(acc, desc128(xq_w + 64 * s, 16), desc64(slot), 1);
-      if constexpr (s == 0)   // encoding k32 steps 0-1, then 2
-        wgmma_ss8<N>(acc, desc128(xq_w + 32, 16), desc64(slot + 32), 1);
+      if constexpr (s == 0 || ENC > 3)   // encoding k32 steps 0-1, then 2 (-3)
+        wgmma_ss8<N>(acc, desc128(xq_w + 64 * s + 32, 16), desc64(slot + 32), 1);
 """
 _SKIP8 = """          wgmma_ss8<64, true>(accs, desc128(xq_w, 16), desc64(e0 + nb * 4096), 0);
           wgmma_ss8<64>(accs, desc128(xq_w + 32, 16), desc64(e0 + nb * 4096 + 32), 1);
@@ -287,23 +288,26 @@ def run_parent(lib, mlp, rays, z, fine, eps, q, packed):
 
 
 def start_parent_eval(src_dir):
-    """nvcc of ``src_dir``'s render_eval.cu (headers beside it) into
-    ``build/render_eval_probe/parent_eval/``, started -> (library path,
-    process, its wall seconds once done: a dict filled by a thread)."""
-    out_dir = ROOT / "build" / "render_eval_probe" / "parent_eval"
+    """The build of ``src_dir``'s render_eval.cu (with its width files and
+    headers beside it) into ``build/render_eval_probe/parent_eval/``,
+    started in a thread -> (the thread, a dict that gets the library path
+    and the build's wall seconds, or its error)."""
+    out_dir = ROOT / "build" / "render_eval_probe" / "parent_eval" / "csrc"
     out_dir.mkdir(parents=True, exist_ok=True)
-    for src in [Path(src_dir) / SRC, *Path(src_dir).glob("*.cuh")]:
+    for src in [*Path(src_dir).glob("render_eval*.cu"), *Path(src_dir).glob("*.cuh")]:
         (out_dir / src.name).write_text(src.read_text())
-    so = out_dir / "render_eval.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
-           str(out_dir / SRC)]
-    t0, seconds = time.perf_counter(), {}
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    waiter = threading.Thread(target=lambda: seconds.setdefault(
-        "s", (proc.wait(), time.perf_counter() - t0)[1]))
-    waiter.start()
-    return so, proc, (waiter, seconds)
+    result, t0 = {}, time.perf_counter()
+
+    def build():
+        try:
+            result["so"] = kernels.build(out_dir, out_dir.parent / "build")
+        except RuntimeError as e:
+            result["error"] = str(e)
+        result["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=build)
+    thread.start()
+    return thread, result
 
 
 class ParentEval:
@@ -311,13 +315,12 @@ class ParentEval:
     ``nm_render_eval_forward`` lacks the ``feat_max`` argument (index 15),
     which must be 0 here."""
 
-    def __init__(self, so, proc, timer):
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc parent_eval failed:\n{log}")
-        timer[0].join()
-        self.build_s = timer[1]["s"]
-        self.lib = ctypes.CDLL(str(so))
+    def __init__(self, thread, result):
+        thread.join()
+        if "error" in result:
+            raise RuntimeError(f"nvcc parent_eval failed:\n{result['error']}")
+        self.build_s = result["s"]
+        self.lib = ctypes.CDLL(str(result["so"]))
         args = list(kernels._SIGNATURES["nm_render_eval_forward"])
         del args[15]
         self.lib.nm_render_eval_forward.argtypes = args

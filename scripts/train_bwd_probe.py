@@ -3,9 +3,10 @@ on one NVIDIA GPU.
 
     python3 scripts/train_bwd_probe.py
 
-Builds ``nerfmatch_tpu_torch/csrc/render_train.cu`` once per variant below,
-each an edited copy of the source (``PATCHES``: every edit must match the
-source exactly once), one ``nvcc`` each, all started together, into
+Builds ``nerfmatch_tpu_torch/csrc/render_train.cu`` with its width files
+(``render_train_<HID>.cu``) and headers once per variant below, each an
+edited copy of the sources (``PATCHES``: every edit must match one of them
+exactly once), all started together, into
 ``build/train_bwd_probe/<variant>/``:
 
 * ``shipped``: as the package builds it;
@@ -31,9 +32,7 @@ timed.  Compare within one run only.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -89,41 +88,62 @@ def build_variants(patches=None, out_name="train_bwd_probe",
                    src="render_train.cu",
                    entries=("nm_render_train_forward", "nm_render_train_backward",
                             "nm_render_train_workspace")):
-    """One ``nvcc`` a variant, all started together -> {variant: library}.
-    An edit is (old, new) in ``src`` or (file, old, new) in another file of
-    ``csrc/``; each variant's edited files go to a directory of their own,
-    which its includes search first.  ``entries``: the C entries to bind."""
+    """One library a variant, all built together -> {variant: library}.
+    A variant is ``src`` (a C entry file of ``csrc/``) with the
+    translation units of its widths (``<stem>_*.cu``), its header and the
+    shared ones (``*_common.cuh``), edited: an edit is (old, new), in the one of those files where ``old``
+    matches once, or (file, old, new).  Each variant's files go to a
+    directory of their own, built as the package builds (one ``nvcc`` a
+    file).  ``entries``: the C entries to bind."""
+    import threading
+
+    stem = Path(src).stem
+    group = [kernels.CSRC / src, *sorted(kernels.CSRC.glob(f"{stem}_*.cu")),
+             *[h for h in sorted(kernels.CSRC.glob("*.cuh"))
+               if h.stem == stem or h.stem.endswith("_common")]]
     out_root = ROOT / "build" / out_name
-    jobs = {}
+    dirs = {}
     for name, edits in (PATCHES if patches is None else patches).items():
-        out_dir = out_root / name
+        out_dir = out_root / name / "csrc"
+        if out_dir.exists():
+            for f in out_dir.iterdir():
+                f.unlink()
         out_dir.mkdir(parents=True, exist_ok=True)
-        texts = {}
+        texts = {f.name: f.read_text() for f in group}
         for edit in edits:
-            fname, old, new = edit if len(edit) == 3 else (src, *edit)
-            text = texts.get(fname) or (kernels.CSRC / fname).read_text()
-            if text.count(old) != 1:
+            if len(edit) == 3:
+                fname, old, new = edit
+            else:
+                old, new = edit
+                hits = [f for f, t in texts.items() if t.count(old) == 1]
+                fname = hits[0] if len(hits) == 1 else None
+            if fname is None or texts[fname].count(old) != 1:
                 raise RuntimeError(f"{name}: edit does not match once: {old!r}")
-            texts[fname] = text.replace(old, new)
-        texts.setdefault(src, (kernels.CSRC / src).read_text())
+            texts[fname] = texts[fname].replace(old, new)
         for fname, text in texts.items():
             (out_dir / fname).write_text(text)
-        so = out_dir / Path(src).with_suffix(".so").name
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}",
-               "-shared", "-o", str(so), str(out_dir / src)]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True))
+        dirs[name] = out_dir
+    built, failed = {}, {}
+
+    def one(name):
+        try:
+            built[name] = kernels.build(dirs[name], dirs[name].parent / "build")
+        except RuntimeError as e:
+            failed[name] = str(e)
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in dirs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}")
     libs = {}
-    for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate()
-        (so.parent / "build.log").write_text(log)   # -Xptxas -v
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {name} failed:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn in entries:
-            getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+    for name, so in built.items():
+        # -Xptxas -v: the variant's registers and spills.
+        (dirs[name].parent / "build.log").write_text(
+            (Path(so).parent / "build.log").read_text())
+        libs[name] = kernels.load(so, entries)
     return libs
 
 

@@ -71,13 +71,16 @@ def rays_z(n, dev, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid,eps", [(256, 0.0), (256, 1e-4), (64, 1e-4)])
+@pytest.mark.parametrize("hid,eps", [(256, 0.0), (256, 1e-4), (64, 1e-4),
+                                     (32, 1e-4), (96, 1e-4), (128, 1e-4),
+                                     (192, 1e-4)])
 def test_render_kernel_matches_plain(dev, hid, eps):
     """Coarse and fine variants against the plain version with the same
     bf16 MLP operands at atol/rtol 5e-3 (f32 accumulation order, and bf16
     rounding ties that the two sides break apart), and against the f32-MLP
     plain version at 2e-2 (the JAX fused-vs-XLA tolerance; features
-    relative to their largest value)."""
+    relative to their largest value).  Every instantiated width (64, 128,
+    192, 256) and two that run zero-padded (32 at 64, 96 at 128)."""
     r = renderer(hid, dev)
     rays, z = rays_z(64, dev)
     reset_launch_counts()
@@ -412,12 +415,12 @@ def test_render_kernel_feat_max_matches_plain(dev, hid, trunk):
 
 @pytest.mark.cuda
 def test_int8_render_kernel_raises_on_unsupported(dev):
-    """A width without an instantiation, and a fine stage packed without
-    its tap layer, raise instead of running plain."""
+    """A width above 256 (no instantiation holds it), and a fine stage
+    packed without its tap layer, raise instead of running plain."""
     from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
                                                        pack_mlp_int8)
 
-    wide = renderer(128, dev)
+    wide = renderer(320, dev)
     rays, z = rays_z(64, dev)
     scales = calibrate_act_scales(wide, rays)
     with pytest.raises(NotImplementedError), torch.no_grad():
@@ -607,7 +610,8 @@ def stage_grads(fn, spec, rays, z, noise, target):
 @pytest.mark.cuda
 @pytest.mark.parametrize("hid,S,white_bg", [
     (64, 128, False), (256, 128, False), (256, 64, False), (256, 256, False),
-    (256, 128, True)])
+    (256, 128, True), (32, 128, False), (96, 128, False), (128, 128, False),
+    (192, 128, False)])
 def test_render_train_kernels_match_plain(dev, hid, S, white_bg):
     """Train forward (rgb, weights) at atol 5e-3 against the plain version
     with the same bf16 operands; backward per parameter: cosine > 0.999,
@@ -638,6 +642,103 @@ def test_render_train_kernels_match_plain(dev, hid, S, white_bg):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hid", [32, 96, 128, 192])
+@pytest.mark.parametrize("mode", ["coarse", "posttap"])
+def test_int8_render_kernel_at_every_width(dev, hid, mode):
+    """The int8 stages at the widths the kernels take beside 64 and 256:
+    the kernel on the trunk packed at its width (``pack_kernel_int8``: 32
+    and 96 zero-padded to 64 and 128, their padded columns at unit scale),
+    the plain int8 version on the unpadded trunk with the same scales;
+    tolerances of test_int8_render_kernel_matches_plain (outputs 5e-3,
+    fewer than 1e-3 of the integer activations one step apart)."""
+    from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
+    from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
+                                                       pack_kernel_int8,
+                                                       pack_mlp_int8)
+
+    r = renderer(hid, dev)
+    rays, z = rays_z(64, dev)
+    scales = calibrate_act_scales(r, rays)
+    tap = eval_feat_layer(r.nerf_fine.cfg)
+    name, mlp, fine, start, sc = (
+        ("coarse", r.nerf_coarse, False, 0, scales["coarse"]) if mode == "coarse"
+        else ("fine", r.nerf_fine, True, tap + 1, scales["fine"]))
+    stap = tap if fine else None
+    reset_launch_counts()
+    kw = dict(num_freqs=15, dirs_freqs=4, debug_q=True, early_term_eps=1e-4)
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, fine=fine,
+                         int8=pack_kernel_int8(mlp, sc, start, stap), **kw)
+        b = render_stage_plain(mlp, rays, z, fine=fine,
+                               int8=pack_mlp_int8(mlp, sc, start, stap), **kw)
+    for k in ("xq", "hq"):
+        assert a[k].shape == b[k].shape, k
+        assert float((a[k] != b[k]).float().mean()) < 1e-3, k
+    for k in b:
+        if k not in ("xq", "hq"):
+            assert a[k].shape == b[k].shape, k
+            torch.testing.assert_close(a[k], b[k], atol=5e-3, rtol=5e-3)
+    assert LAUNCHES[f"render_{name}_int8"] == 1
+
+
+@pytest.mark.cuda
+def test_kernels_at_the_widest_encoding(dev):
+    """F = 21 (126 encoding columns) and Fd = 18 with an appearance table
+    (111 + 16 extras columns), the JAX kernels' limits, hid 96: kernel 1's
+    fine stage with the appearance rows against its plain version (atol /
+    rtol 5e-3, as test_render_kernel_matches_plain), and kernels 5 and 6
+    against the plain train stage (test_render_train_kernels_match_plain's
+    tolerances), g_app included."""
+    F, Fd, app_dim, hid = 21, 18, 16, 96
+    cfg = NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=6 * F, dirs_dim=6 * Fd + 3,
+                     app_dim=app_dim, use_viewdirs=True, skips=(4,),
+                     stop_layer=3)
+    mlp = init_params_(NerfMLP(cfg), torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        mlp.alpha_linear.bias += 3.0
+    mlp = mlp.to(dev)
+    rays, z = rays_z(64, dev)
+    g = torch.Generator(dev).manual_seed(4)
+    app = 0.5 * torch.randn(64, app_dim, device=dev, generator=g)
+    reset_launch_counts()
+    kw = dict(num_freqs=F, dirs_freqs=Fd, early_term_eps=1e-4)
+    with torch.no_grad():
+        a = render_stage(mlp, rays, z, fine=True, app=app, **kw)
+        b = render_stage_plain(mlp, rays, z, fine=True, app=app, **kw)
+    for k in b:
+        torch.testing.assert_close(a[k], b[k], atol=5e-3, rtol=5e-3)
+    assert LAUNCHES["render_fine_app"] == 1
+    spec = StageSpec(mlp, F, Fd)
+    noise = torch.randn(64, 128, device=dev, generator=g)
+    target = torch.rand(64, 3, device=dev, generator=g)
+    out = {}
+    for fn in (render_train, render_train_plain):
+        mlp.zero_grad()
+        ap = app.clone().requires_grad_(True)
+        rgb, w = fn(spec, rays, z, noise, ap)
+        (((rgb - target) ** 2).mean() + 0.1 * (w ** 2).mean()).backward()
+        out[fn] = (rgb.detach(), w.detach(), {
+            **{k: p.grad.clone() for k, p in mlp.named_parameters()},
+            "app": ap.grad})
+    (a_rgb, a_w, a_g), (b_rgb, b_w, b_g) = out[render_train], out[
+        render_train_plain]
+    assert LAUNCHES["render_train_fwd_app"] == LAUNCHES["render_train_bwd_app"] == 1
+    torch.testing.assert_close(a_rgb, b_rgb, atol=5e-3, rtol=0)
+    torch.testing.assert_close(a_w, b_w, atol=5e-3, rtol=0)
+    for k, ref in b_g.items():
+        got = a_g[k]
+        assert torch.isfinite(got).all(), k
+        nr = float(ref.norm())
+        if nr < 1e-9:
+            continue
+        cos = float((got * ref).sum()) / (float(got.norm()) * nr)
+        ratio = float(got.norm()) / nr
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert cos > 0.999 and abs(ratio - 1) < 1e-2 and err < 3e-2, \
+            (k, cos, ratio, err)
+
+
+@pytest.mark.cuda
 def test_render_train_kernels_are_deterministic(dev):
     """Two backward runs give bit-identical gradients (no atomics)."""
     spec, rays, z, noise, target = train_stage(256, dev, seed=3)
@@ -649,18 +750,28 @@ def test_render_train_kernels_are_deterministic(dev):
 
 @pytest.mark.cuda
 def test_train_kernel_raises_on_unported_configs(dev):
-    """Appearance rows of another width than 16, uninstantiated widths, odd
-    ray counts and sample counts other than 64, 128 or 256 (S = 192 would
-    leave the backward's last 64-row half of each ray out) raise instead of
-    running plain; the C entries refuse S = 192 on their own too."""
+    """Appearance rows of another width than 16, widths above 256, odd ray
+    counts and sample counts other than 64, 128 or 256 (S = 192 would leave
+    the backward's last 64-row half of each ray out) raise instead of
+    running plain; the C entries refuse S = 192 on their own too.  Width
+    128, refused before it was instantiated, runs; 320 raises naming the
+    ROADMAP, in the render kernel too."""
     spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64)
     app8 = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
                               app_dim=8, use_viewdirs=True)).to(dev)
-    wide = NerfMLP(NerfConfig(layer_num=8, hid_dim=128, xyz_dim=90,
-                              dirs_dim=27, use_viewdirs=True)).to(dev)
-    for bad in (StageSpec(app8, 15, 4), StageSpec(wide, 15, 4)):
-        with pytest.raises(NotImplementedError):
-            render_train(bad, rays, z, noise)
+    cfg = lambda hid: NerfConfig(layer_num=8, hid_dim=hid, xyz_dim=90,
+                                 dirs_dim=27, use_viewdirs=True)
+    wide = NerfMLP(cfg(128)).to(dev)
+    rgb, w = render_train(StageSpec(wide, 15, 4), rays, z, noise)
+    assert torch.isfinite(rgb).all() and torch.isfinite(w).all()
+    with pytest.raises(NotImplementedError):
+        render_train(StageSpec(app8, 15, 4), rays, z, noise)
+    too_wide = NerfMLP(cfg(320)).to(dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+        render_train(StageSpec(too_wide, 15, 4), rays, z, noise)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+        render_stage(too_wide, rays, z[:, :65].contiguous(), fine=False,
+                     num_freqs=15, dirs_freqs=4)
     with pytest.raises(NotImplementedError):
         render_train(spec, rays[:3], z[:3], noise[:3])
     with pytest.raises(NotImplementedError):
@@ -945,18 +1056,34 @@ def test_kernels_raise_instead_of_falling_back(dev):
 
 @pytest.mark.cuda
 def test_dw_star_refuses_misaligned_inputs(dev):
-    """Kernels 7, 8 and 9 read x, g and w through TMA tensor maps: a tensor
-    that does not start on a 16-byte boundary raises instead of launching."""
-    n = 16 * 16 * 128
-    x = torch.randn(n + 1, device=dev)[1:].view(1, 16, 16, 128)
-    w = torch.randn(7, 7, 128, device=dev)
-    one = torch.ones((), device=dev)
-    with pytest.raises(ValueError, match="16-byte"):
-        dw_star_fwd(x, w, w[0, 0], one, one)
-    with pytest.raises(ValueError, match="16-byte"):
-        dw_star_dgrad(x, w, one, x)
-    with pytest.raises(ValueError, match="16-byte"):
-        dw_star_wgrad(x, one, one, x)
+    """Kernels 7, 8 and 9 read x, g and w through TMA tensor maps, whose
+    base addresses must lie on 16-byte boundaries; views that do not (x, g
+    and w one element into larger buffers) are copied into fresh buffers by
+    the wrappers and launch, as the JAX ``dw_star`` takes any array: y, dx
+    and dw within 1e-4 of the plain versions' largest values, ds and db
+    within 1e-5 of the sum of the absolute terms (the tolerances of
+    test_dw_star_kernels_match_plain), each kernel launched once."""
+    B, H, W, C = 1, 16, 16, 128
+    x0, w0, cb, s, b, g0 = sepconv_inputs(dev, B, H, W, C, seed=3)
+    shift = lambda t: torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+    x, w, g = shift(x0), shift(w0), shift(g0)
+    assert all(t.data_ptr() % 16 for t in (x, w, g))
+    reset_launch_counts()
+    assert scaled_err(dw_star_fwd(x, w, cb, s, b),
+                      dw_star_plain(x0, w0, cb, s, b)) < 1e-4
+    dx, ds, db = dw_star_dgrad(x, w, s, g)
+    dxp, dsp, dbp = dw_star_dgrad_plain(x0, w0, s, g0)
+    assert scaled_err(dx, dxp) < 1e-4
+    wf = torch.flip(w0, (0, 1)).permute(2, 0, 1).unsqueeze(1)
+    dact = torch.nn.functional.conv2d(g0.permute(0, 3, 1, 2), wf, padding=3,
+                                      groups=C)
+    r = torch.relu(x0).permute(0, 3, 1, 2)
+    assert abs(float(ds - dsp)) < 1e-5 * float((dact * r * r).abs().sum())
+    assert abs(float(db - dbp)) < 1e-5 * float(dact.abs().sum())
+    assert scaled_err(dw_star_wgrad(x, s, b, g),
+                      dw_star_wgrad_plain(x0, s, b, g0)) < 1e-4
+    assert LAUNCHES["dw_star_fwd"] == LAUNCHES["dw_star_dgrad"] == \
+        LAUNCHES["dw_star_wgrad"] == 1
 
 
 @pytest.mark.cuda

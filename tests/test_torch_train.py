@@ -101,8 +101,10 @@ def test_stash_and_gradient_workspace_split_the_old_workspace(
     without its scratch rgb and weights; the stash bytes the forward writes
     are the old "stash forward" launch's traffic."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        DIRS_MAX, ENC_MAX, GRGB_WIDTH, REC_WIDTH, TILE_RAYS, backward_layout,
-        workspace_bytes)
+        GRGB_WIDTH, REC_WIDTH, TILE_RAYS, backward_layout, dirs_rows,
+        enc_rows, workspace_bytes)
+
+    ENC_MAX, DIRS_MAX = enc_rows(90), dirs_rows(27)     # 96 and 32
 
     cfg = NerfConfig(layer_num=layers, hid_dim=hid, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=skips)
