@@ -247,17 +247,28 @@ Phases (each prints its results; any failure exits non-zero):
    memory after a reset), its scene points for the scene's 24 frames at
    the serving int8 default and one 480x480 request localized by
    ``eval_batch(iters=2)`` with a c2f matcher (random weights, seed 0)
-   of ``pt_dim`` 128; launches of kernels 1, 1b, 2, 5, 6 all above 0.
+   of ``pt_dim`` 128; launches of kernels 1, 1b, 2, 5, 6 all above 0;
+12. a hid-512 NeRF end to end (``phase_hid128`` at ``hid`` 512): the same
+   config at ``hid_dim`` 512, which the train kernels do not take, with
+   ``render.use_fused_train`` off, trained by the CLI on the plain route
+   (``render_rays`` under autograd; the route and why logged), ``HID512_STEPS`` timed steps with the peak memory, its
+   scene points (kernels 1b, 2, 1 on ``render_eval_512.cuh``'s engine) and
+   one request with a c2f matcher of ``pt_dim`` 512; launches of kernels
+   1, 1b, 2 above 0, of 5 and 6 none.
 
 Phases 3, 3d and 3b also hold the render kernels at the MLP widths
-``WIDTH_ROWS`` (32, 96, 128, 192; 32 and 96 run zero-padded at 64 and
-128) to their plain versions on the room's 9216 rays x 128 samples with
-seeded random weights (the rows' ``widths``: kernel 1 coarse and fine,
-1b coarse and fine ``'posttap'``, 5 with its stash, 6, each with its
-bound on the real width's operations, 5 and 6 with ``torch.mm`` over the
-same products, 1b with ``pack_fused``'s host ms), and kernels 1 and 5-6
-at the widest encoding the JAX kernels take (F = 21, Fd = 18, appearance
-rows; ``wide_encoding``).
+``WIDTH_ROWS`` (32, 96, 128, 192, and for kernels 1 and 1b 512; 32 and 96
+run zero-padded at 64 and 128) to their plain versions on the room's 9216
+rays x 128 samples with seeded random weights (the rows' ``widths``:
+kernel 1 coarse and fine, 1b coarse and fine ``'posttap'``, 5 with its
+stash, 6, each with its bound on the real width's operations, 5 and 6
+with ``torch.mm`` over the same products, 1b with ``pack_fused``'s host
+ms; kernels 1 and 1b with their instantiation's registers, spills and
+dynamic shared memory; at 512 also the fine stage with ``app`` and with
+``feat_max``), and kernels 1 (at 256 and 512) and 5-6 at the widest
+encoding the JAX kernels take (F = 21, Fd = 18, appearance rows;
+``wide_encoding``, ``wide_encoding_512``).  The build's seconds and the
+smoke's total are printed before the kernel summary.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (inputs read once, outputs written once) over 3.35 TB/s and its matrix
@@ -283,7 +294,8 @@ list carry phase 6's launches a merged training step at that shape
 (``launches_train_per_step``), and ``attention_bwd``'s
 ``merged_train_step`` the step's ms and peak memory; ``launches_phase11``
 is phase 11's count, and ``render_train_fwd``'s ``phase11_hid128`` its
-summary.  The last two lines are the kernel summary and ``{"ok": true,
+summary; ``launches_phase12`` phase 12's, and ``render_fine``'s
+``phase12_hid512`` its summary.  The last two lines are the kernel summary and ``{"ok": true,
 ...}``.
 """
 
@@ -355,6 +367,13 @@ RENDER_EVAL_DESIGN = ("wgmma m64nHIDk16, persistent grid of two warpgroups, "
                       "one 2-ray tile per warpgroup with early termination, "
                       "32-row weight slices by bulk copy in a ring, tap "
                       "layer run again on its kept A for the descriptor")
+# What the render stages run at MLP width 512 (render_eval_512.cuh).
+RENDER_EVAL_512_DESIGN = (
+    "two warpgroups share a 64-row chunk, each an m64n256 chain on its half "
+    "of every layer's 512 columns; A from a K-major 64 x 512 activation tile "
+    "in shared memory, epilogues written back in place after a block "
+    "barrier; the same 32-row bulk-copied weight ring; the tap layer's "
+    "activations kept in a per-block L2 scratch for the descriptor")
 # What the int8 render stages run since their redesign: the same engine.
 INT8_EVAL_DESIGN = ("render_eval.cu's engine with the trunk from int8_from on "
                     "s8 wgmma m64nHIDk32 (K-major s8 slot images, 64 rows a "
@@ -409,6 +428,8 @@ BENCH_PROTOCOLS = (
      ("render_coarse_int8", "resample", "attention", "dw_star_fwd")),
 )
 MERGED_S = 14400
+# Phase 12's timed NeRF steps (the hid-512 NeRF trains on the plain route).
+HID512_STEPS = 10
 # Merged multi-pair training's attention shapes (L, S) at S = 14,400: the
 # image's queries over the points (the coarse former), the points' self
 # attention (pt_sa); the points' queries over the image (S = 3600) ride
@@ -835,12 +856,14 @@ def phase_environment():
 
 
 def phase_build():
+    """Build (or find) and load the kernels -> the seconds it took."""
     from nerfmatch_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     lib = kernels.build()
     kernels.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {lib}")
+    build_s = time.perf_counter() - t0
+    log(f"build: {build_s:.1f} s -> {lib}")
     # Registers, shared memory and spills of every kernel, by entry name
     # (the nvcc log is kept beside the library, so a cached build has it too).
     name = ""
@@ -850,13 +873,48 @@ def phase_build():
         elif "Used" in line or ("spill" in line and "0 bytes spill stores, 0 "
                                 "bytes spill loads" not in line):
             log(f"  ptxas {name}: " + line.strip().replace("ptxas info    : ", ""))
+    return build_s
+
+
+def eval_instantiation(name):
+    """(hid, fine, debug, int8, encoding slices) of a render kernel's
+    mangled name: ``render_eval_kernel<HID, FINE, kDbg, Q8, ENC>`` or
+    ``render_eval512_kernel<FINE, kDbg, Q8, ENC>``."""
+    import re
+
+    m = re.search(r"render_eval_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
+                  name)
+    if m:
+        hid, *rest = m.groups()
+    else:
+        rest = re.search(r"render_eval512_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E",
+                         name).groups()
+        hid = 512
+    fine, dbg, q8, enc = map(int, rest)
+    return int(hid), bool(fine), bool(dbg), bool(q8), enc
+
+
+def eval_build_info(hid, fine, int8, enc=3, dirs_freqs=4):
+    """The ptxas lines (registers, spills) of the render kernel's
+    instantiation a stage at kernel width ``hid`` runs (without debug
+    outputs) and its dynamic shared memory -> dict."""
+    from nerfmatch_tpu_torch.ops import kernels
+
+    name, lines = "", []
+    log_path = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "render_eval" in name and ("Used" in line or "spill" in line):
+            if eval_instantiation(name) == (hid, fine, False, int8, enc):
+                lines.append(line.strip().replace("ptxas info    : ", ""))
+    return dict(ptxas=lines, smem_bytes=kernels.library().nm_render_eval_smem(
+        hid, int(fine), int(int8), dirs_freqs))
 
 
 def render_eval_build():
     """The render kernel's ptxas lines (registers, spills) by instantiation
     (bf16 or int8 trunk) and its dynamic shared memory, from the build."""
-    import re
-
     from nerfmatch_tpu_torch.ops import kernels
 
     name, out = "", []
@@ -864,16 +922,16 @@ def render_eval_build():
     for line in log_path.read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif "render_eval_kernel" in name and ("Used" in line or "spill" in line):
-            hid, fine, dbg, q8 = re.search(r"ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
-                                           name).groups()
-            out.append(f"<{hid}, {'fine' if fine == '1' else 'coarse'}"
-                       f"{', debug' if dbg == '1' else ''}, "
-                       f"{'int8' if q8 == '1' else 'bf16'}>: "
+        elif "render_eval" in name and ("Used" in line or "spill" in line):
+            hid, fine, dbg, q8, enc = eval_instantiation(name)
+            out.append(f"<{hid}, {'fine' if fine else 'coarse'}"
+                       f"{', debug' if dbg else ''}, "
+                       f"{'int8' if q8 else 'bf16'}"
+                       f"{', wide' if enc == 4 else ''}>: "
                        + line.strip().replace("ptxas info    : ", ""))
     lib = kernels.library()
     for q8 in (0, 1):
-        for hid in (64, 128, 192, 256):
+        for hid in (64, 128, 192, 256, 512):
             for fine in (0, 1):
                 out.append(f"<{hid}, {'fine' if fine else 'coarse'}, "
                            f"{'int8' if q8 else 'bf16'}>: "
@@ -961,11 +1019,13 @@ def phase_kernels(renderer, dev):
                     f" of {a['weights'].numel()} samples outside skipped blocks)")
     rows["render_fine_app"] = app_stage_row(renderer.nerf_fine, rays,
                                             z_in["render_fine"])
+    rows["render_fine_max"] = feat_max_row(renderer.nerf_fine, rays,
+                                           z_in["render_fine"])
     for name, by_hid in render_width_rows(dev, int8=False).items():
         rows[name]["widths"] = by_hid
     rows["render_fine_app"]["wide_encoding"] = wide_encoding_render_row(dev)
-    rows["render_fine_max"] = feat_max_row(renderer.nerf_fine, rays,
-                                           z_in["render_fine"])
+    rows["render_fine_app"]["wide_encoding_512"] = wide_encoding_render_row(
+        dev, 512)
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
     rows["resample"] = resample_row(z, w)
@@ -1781,7 +1841,9 @@ def phase_check(evaluator, batch):
     assert agree >= 0.98 and ef_max < 1e-3
 
 
-WIDTH_ROWS = (32, 96, 128, 192)   # MLP widths held beside the room's 256
+# MLP widths held beside the room's 256 (512: the eval kernels only; the
+# train kernels take up to render_train_kernel.TRAIN_HIDS[-1]).
+WIDTH_ROWS = (32, 96, 128, 192, 512)
 # The widest encoding the JAX kernels take with an appearance table: F =
 # 21 (126 encoding columns), Fd = 18 (111 + 16 extras columns).
 WIDE_ENCODING = (21, 18)
@@ -1852,7 +1914,7 @@ def render_width_row(mlp, rays, z, fine, num_freqs=15, dirs_freqs=4,
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
         pack_mlp, render_stage, render_stage_plain)
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        kernel_width)
+        ENC_STD, REGISTER_A_MAX, kernel_width)
 
     kw = dict(fine=fine, num_freqs=num_freqs, dirs_freqs=dirs_freqs,
               early_term_eps=eps, app=app)
@@ -1866,16 +1928,24 @@ def render_width_row(mlp, rays, z, fine, num_freqs=15, dirs_freqs=4,
         (mlp.cfg.hid_dim, fine, scaled)
     start = None if int8 is None else int8["start"]
     wbytes = nbytes(*weight_tensors(packed))
-    return dict(hid=mlp.cfg.hid_dim, kernel_width=kernel_width(mlp.cfg.hid_dim),
+    width = kernel_width(mlp.cfg.hid_dim, "eval")
+    return dict(hid=mlp.cfg.hid_dim, kernel_width=width,
+                design=RENDER_EVAL_512_DESIGN if width > REGISTER_A_MAX
+                else RENDER_EVAL_DESIGN,
                 max_abs_err=err, scaled_err=scaled, ms=cuda_ms(run_k, 3),
                 plain_ms=cuda_ms(run_p, 2),
-                **render_bound(mlp, fine, rays, z, a, eps, wbytes, start))
+                **render_bound(mlp, fine, rays, z, a, eps, wbytes, start),
+                **eval_build_info(width, fine, int8 is not None,
+                                  3 if 6 * num_freqs <= ENC_STD else 4,
+                                  dirs_freqs))
 
 
 def render_width_rows(dev, int8):
     """Phase 3's (bf16) or 3d's (``int8``: the coarse stage of the serving
     default, the fine stage of 'posttap') render rows at ``WIDTH_ROWS``,
-    on the room's 9216 rays x 128 samples -> {stage name: {hid: row}}."""
+    on the room's 9216 rays x 128 samples -> {stage name: {hid: row}}; at
+    512 phase 3 also gives the fine stage with ``app`` and with
+    ``feat_max`` (``render_fine_app``, ``render_fine_max``)."""
     from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
     from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
                                                        pack_kernel_int8,
@@ -1891,6 +1961,8 @@ def render_width_rows(dev, int8):
     kw = dict(num_freqs=15, dirs_freqs=4, early_term_eps=1e-4)
     tag = "_int8" if int8 else ""
     out = {f"render_coarse{tag}": {}, f"render_fine{tag}": {}}
+    if not int8:
+        out.update(render_fine_app={}, render_fine_max={})
     for hid in WIDTH_ROWS:
         r = width_renderer(hid, dev, seed=hid)
         cmlp, fmlp = r.nerf_coarse, r.nerf_fine
@@ -1919,20 +1991,30 @@ def render_width_rows(dev, int8):
                 f"eps=1e-4: max_abs_err={row['max_abs_err']:.3e} scaled "
                 f"{row['scaled_err']:.3e} (tol 5e-3) ms={row['ms']:.3f} "
                 f"plain_ms={row['plain_ms']:.3f} bound_ms="
-                f"{row['bound_ms']:.3f} ({row['bound_by']}, real width)")
+                f"{row['bound_ms']:.3f} ({row['bound_by']}, real width); "
+                f"{row['smem_bytes']} bytes of dynamic shared memory; ptxas "
+                f"{row['ptxas']}")
+        if hid > 256 and not int8:
+            for name, fn in (("render_fine_app", app_stage_row),
+                             ("render_fine_max", feat_max_row)):
+                row = fn(fmlp, rays, zf, design=RENDER_EVAL_512_DESIGN,
+                         label=f"bf16, hid {hid}")
+                row.update(hid=hid, **eval_build_info(hid, True, False))
+                out[name][str(hid)] = row
         del r
     return out
 
 
-def wide_encoding_render_row(dev):
+def wide_encoding_render_row(dev, hid=256):
     """Kernel 1's fine stage at the widest encoding with appearance rows
-    (``wide_encoding_mlp``) against its plain version -> its row."""
+    (``wide_encoding_mlp`` at ``hid``) against its plain version -> its
+    row."""
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
         render_stage_plain)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
         resample_z_plain)
 
-    mlp, F, Fd = wide_encoding_mlp(dev)
+    mlp, F, Fd = wide_encoding_mlp(dev, hid)
     rays = camera_rays(room_c2w(0.4), 96, dev)
     t = torch.linspace(0.0, 1.0, 129, device=dev)
     z = (rays[:, 6:7] * (1.0 - t) + rays[:, 7:8] * t).contiguous()
@@ -1945,9 +2027,11 @@ def wide_encoding_render_row(dev):
     row = render_width_row(mlp, rays, zf, True, F, Fd, app=app)
     row.update(num_freqs=F, dirs_freqs=Fd, app_dim=16)
     log(f"kernel render_fine_app at F={F}, Fd={Fd} (+16 appearance columns), "
-        f"hid 256: max_abs_err={row['max_abs_err']:.3e} scaled "
+        f"hid {hid}: max_abs_err={row['max_abs_err']:.3e} scaled "
         f"{row['scaled_err']:.3e} (tol 5e-3) ms={row['ms']:.3f} plain_ms="
-        f"{row['plain_ms']:.3f} bound_ms={row['bound_ms']:.3f}")
+        f"{row['plain_ms']:.3f} bound_ms={row['bound_ms']:.3f}; "
+        f"{row['smem_bytes']} bytes of dynamic shared memory; ptxas "
+        f"{row['ptxas']}")
     return row
 
 
@@ -2013,7 +2097,8 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     w_bytes = sum(p.numel() * 2 for p in mlp.parameters())
     g_bytes = sum(p.numel() * 4 for p in mlp.parameters())
     io = nbytes(rays, z, noise, rgb, w) + w_bytes
-    common = dict(hid=cfg.hid_dim, kernel_width=rtk.kernel_width(cfg.hid_dim))
+    common = dict(hid=cfg.hid_dim,
+                  kernel_width=rtk.kernel_width(cfg.hid_dim, "train"))
     fwd = dict(common, max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
                library_ms=train_fwd_yardstick(spec, n * S),
                **bound(fwd_ops, io + stash_b))
@@ -2038,19 +2123,20 @@ def train_width_rows(dev):
     """Phase 3b's rows at ``WIDTH_ROWS`` (each width's fine MLP on phase
     3b's 9216 rays x 128 jittered samples) and at the widest encoding with
     appearance rows -> {row name: {hid or 'wide_encoding': row}}."""
-    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import StageSpec
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        TRAIN_HIDS, StageSpec)
 
     from nerfmatch_tpu_torch.ops import kernels
 
     lib = kernels.library()
-    for hid in (64, 128, 192, 256):
+    for hid in TRAIN_HIDS:
         log(f"train kernels <{hid}>: dynamic shared memory forward "
             f"{lib.nm_render_train_smem(hid, 8, 4, 0, 1)} bytes (Fd = 4; "
             f"{lib.nm_render_train_smem(hid, 8, 18, 16, 1)} at Fd = 18 with "
             f"appearance rows), trunk backward "
             f"{lib.nm_render_train_smem(hid, 8, 4, 0, 0)} (8 layers)")
     out = {"render_train_fwd": {}, "render_train_bwd": {}}
-    for hid in WIDTH_ROWS:
+    for hid in (h for h in WIDTH_ROWS if h <= TRAIN_HIDS[-1]):
         r = width_renderer(hid, dev, seed=hid)
         spec, rays, z, noise, target = train_inputs(r, dev)
         fwd, bwd = train_width_row(spec, rays, z, noise, target)
@@ -2903,15 +2989,17 @@ def phase_training(renderer, dev, seed, root):
     return launches, ckpt, cfg
 
 
-def phase_hid128(dev, seed, root, hid=128, size=480):
-    """Phase 11: a NeRF at MLP width ``hid`` end to end.  The 7-Scenes
-    config with ``hid_dim`` 128 in both stages, trained by the
-    ``train_nerf`` CLI (--debug, 5 epochs of 10 steps) on phase 5's room
-    scene under ``root``, then 50 timed ``NerfTrainer`` steps (kernels 5,
-    6); its checkpoint served at the serving int8 default: the scene points
-    of the scene's 24 frames (kernels 1b, 2, 1) and one 480x480 request
-    localized by ``eval_batch(iters=2)`` with a c2f matcher at random
-    weights (seed 0) whose ``pt_dim`` follows the NeRF width -> summary."""
+def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
+    """Phase 11 (12 at ``hid`` 512): a NeRF at MLP width ``hid`` end to
+    end.  The 7-Scenes config with ``hid_dim`` ``hid`` in both stages,
+    trained by the ``train_nerf`` CLI (--debug, 5 epochs of 10 steps) on
+    phase 5's room scene under ``root``, then ``steps`` timed
+    ``NerfTrainer`` steps (kernels 5, 6 up to 256; above, the plain route
+    with ``render.use_fused_train`` off, no launch of 5 or 6); its checkpoint served at the serving int8
+    default: the scene points of the scene's 24 frames (kernels 1b, 2, 1)
+    and one 480x480 request localized by ``eval_batch(iters=2)`` with a c2f
+    matcher at random weights (seed 0) whose ``pt_dim`` follows the NeRF
+    width -> summary."""
     import dataclasses
 
     from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
@@ -2921,12 +3009,17 @@ def phase_hid128(dev, seed, root, hid=128, size=480):
     from nerfmatch_tpu_torch.nerf.renderer import (NerfRenderer,
                                                    serving_int8_mode)
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import TRAIN_HIDS
     from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
     from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
                                                         init_config_odir)
 
     cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
     cfg.coarse_nerf.hid_dim = cfg.fine_nerf.hid_dim = hid
+    # render.use_fused_train asks for kernels 5-6, which stop at
+    # TRAIN_HIDS[-1]: a wider NeRF trains without it (the plain route, as
+    # the JAX trainer's XLA path without the flag).
+    cfg.render.use_fused_train = hid <= TRAIN_HIDS[-1]
     cfg.data.data_dir = str(root)
     cfg.data.scene = "room"
     cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
@@ -2947,22 +3040,33 @@ def phase_hid128(dev, seed, root, hid=128, size=480):
     ds = init_data_loader(cfg.data, split="train").dataset
     batches = ds.ray_batches(cfg.exp.batch_size, np.random.default_rng(seed))
     gen = torch.Generator(dev).manual_seed(seed)
-    steps = [(torch.as_tensor(b["rays"], device=dev),
-              torch.as_tensor(b["rgbs"], device=dev))
-             for b in (next(batches) for _ in range(52))]
-    hist = [trainer.train_step(*steps[i], gen) for i in range(2)]
+    data = [(torch.as_tensor(b["rays"], device=dev),
+             torch.as_tensor(b["rgbs"], device=dev))
+            for b in (next(batches) for _ in range(steps + 2))]
+    hist = [trainer.train_step(*data[i], gen) for i in range(2)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    hist += [trainer.train_step(*steps[i], gen) for i in range(2, 52)]
+    hist += [trainer.train_step(*data[i], gen) for i in range(2, steps + 2)]
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
     peak = torch.cuda.max_memory_allocated()
     loss = [float(m["loss"]) for m in hist]
-    assert trainer.route == "kernels" and all(np.isfinite(loss)), loss
-    assert np.mean(loss[-5:]) < np.mean(loss[:5]), loss
+    route = "kernels" if hid <= TRAIN_HIDS[-1] else "plain"
+    why = trainer.route_why or "the train kernels take the width"
+    log(f"phase {phase}: train route {trainer.route} ({why}), {steps} steps "
+        f"of {step_ms:.2f} ms, peak {peak / 2**30:.2f} GiB")
+    assert trainer.route == route and all(np.isfinite(loss)), loss
+    n5 = min(5, len(loss) // 4)   # 5 of phase 11's 52 steps
+    loss_head, loss_tail = float(np.mean(loss[:n5])), float(np.mean(loss[-n5:]))
+    assert loss_tail < loss_head, loss
     train_launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
-    del trainer, steps
+    if route == "plain":   # neither the CLI nor the steps ran kernels 5-6
+        assert train_launches["render_train_fwd"] == 0, train_launches
+        assert train_launches["render_train_bwd"] == 0, train_launches
+        train_launches = {k: v for k, v in train_launches.items()
+                          if k != "resample"}
+    del trainer, data
 
     serving = NerfRenderer(cfg, stop_layer=3)
     serving.load_state_dict(torch.load(ckpt / "model.pt"), strict=True)
@@ -3005,17 +3109,20 @@ def phase_hid128(dev, seed, root, hid=128, size=480):
     c2w, r_err, t_err = res["c2w_est"][0], res["R_err"][0], res["t_err"][0]
     assert (c2w is None and r_err == t_err == float("inf")) or (
         np.isfinite(c2w).all() and np.isfinite([r_err, t_err]).all())
-    out = dict(hid=hid, cli_s=cli_s, cli_steps=50, step_ms=step_ms,
+    out = dict(hid=hid, cli_s=cli_s, cli_steps=50, steps=steps,
+               step_ms=step_ms, train_route=route,
                peak_gib=peak / 2**30, loss_first=loss[0],
-               loss_last5=float(np.mean(loss[-5:])),
+               loss_steps=n5, loss_first_steps=loss_head,
+               loss_last_steps=loss_tail,
                cache_ms_per_frame=cache_ms, scene_points_ms=(t1 - t0) * 1e3,
                request_ms=(t2 - t0) * 1e3, localize_ms=(t2 - t1) * 1e3,
                num_matches=res["num_matches"], R_err_deg=r_err, t_err=t_err,
                trunk_int8=serving.cfg.trunk_int8, matcher_pt_dim=hid,
                launches=launches)
-    log("phase 11 (hid 128 end to end): " + json.dumps(out))
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"phase 11 never launched: {missing}"
+    log(f"phase {phase} (hid {hid} end to end): " + json.dumps(out))
+    missing = [k for k, v in launches.items()
+               if v == 0 and not (route == "plain" and "train" in k)]
+    assert not missing, f"phase {phase} never launched: {missing}"
     return out
 
 
@@ -5116,6 +5223,7 @@ def main():
     p.add_argument("--phase9-dir", type=Path, default=None,
                    help=argparse.SUPPRESS)
     args = p.parse_args()
+    t_start = time.perf_counter()
     if args.phase9_rank is not None:
         phase9_rank(args.phase9_rank, args.phase9_world, args.phase9_backend,
                     args.phase9_port, args.phase9_dir)
@@ -5130,7 +5238,7 @@ def main():
     from nerfmatch_tpu_torch.eval.match_evaluator import NeRFMatchEvaluator
     from nerfmatch_tpu_torch.nerf.renderer import serving_int8_mode
 
-    phase_build()
+    build_s = phase_build()
     dev = torch.device("cuda", 0)
     renderer = load_room_renderer(dev)
     nerf_cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
@@ -5173,6 +5281,10 @@ def main():
         trained, ckpt5, cfg5 = phase_training(renderer, dev, args.seed,
                                               Path(tmp))
         hid128 = phase_hid128(dev, args.seed, Path(tmp))
+        torch.cuda.empty_cache()
+        hid512 = phase_hid128(dev, args.seed, Path(tmp), hid=512,
+                              steps=HID512_STEPS, phase=12)
+        torch.cuda.empty_cache()
         _, psnr_s, psnr_ms = phase_psnr(ckpt5, Path(tmp), dev)
         app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
         app_trained = phase_training_app(renderer, dev, args.seed,
@@ -5248,6 +5360,11 @@ def main():
         rows[n]["launches_phase11"] = c
     rows["render_train_fwd"]["phase11_hid128"] = {
         k: v for k, v in hid128.items() if k != "launches"}
+    # Phase 12's (the hid-512 NeRF: kernels 1, 1b, 2; 5 and 6 at 0).
+    for n, c in hid512["launches"].items():
+        rows[n]["launches_phase12"] = c
+    rows["render_fine"]["phase12_hid512"] = {
+        k: v for k, v in hid512.items() if k != "launches"}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():
@@ -5256,6 +5373,8 @@ def main():
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep,
                     launches=launches[n], **rows[n])
                for n, (src, rep) in KERNEL_SOURCES.items()]
+    log(f"smoke total: {time.perf_counter() - t_start:.1f} s (the build "
+        f"{build_s:.1f} s of it)")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

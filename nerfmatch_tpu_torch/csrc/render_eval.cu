@@ -23,7 +23,8 @@ struct EvalWidth {
    nm_eval::launch_wide_bf16_##H, nm_eval::launch_wide_q8_##H,                \
    nm_eval::smem_bf16_##H, nm_eval::smem_q8_##H}
 const EvalWidth kWidths[] = {NM_EVAL_WIDTH_ROW(64), NM_EVAL_WIDTH_ROW(128),
-                             NM_EVAL_WIDTH_ROW(192), NM_EVAL_WIDTH_ROW(256)};
+                             NM_EVAL_WIDTH_ROW(192), NM_EVAL_WIDTH_ROW(256),
+                             NM_EVAL_WIDTH_ROW(512)};
 #undef NM_EVAL_WIDTH_ROW
 
 const EvalWidth* eval_width(int hid) {
@@ -44,13 +45,15 @@ const EvalWidth* eval_width(int hid) {
 // + 3 device pointers: per layer scale, scale_s, bias (null below
 // int8_from; scale_s null without encoding rows), then qenc, qh (int8_from
 // > 0), iq (fine stage, tap layer quantized and not last).  counter: one
-// int32, zero at launch (the tile counter).  dbg: null, or (2, n_rays,
+// int32, zero at launch (the tile counter).  scratch: the fine stage's tap
+// scratch at hid 512, scratch_bytes of it (nm_render_eval_scratch), else
+// null.  dbg: null, or (2, n_rays,
 // samples, hid) f32 receiving the tap layer's activations of the first pass
 // and of the second (fine stage only).  dbgq: null, or (n_rays, samples,
 // 128 + hid) int8 receiving the quantized encoding and the last layer's int8
 // input (int8 trunk only); either only up to num_freqs 16.  feat_max (fine
 // stage only): composite the descriptor and the point of each ray's largest
-// weight (feat_comb='max').  hid: 64, 128, 192 or 256; num_freqs <= 21;
+// weight (feat_comb='max').  hid: 64, 128, 192, 256 or 512; num_freqs <= 21;
 // 6 * dirs_freqs + 3 (+ 16 with an appearance table) <= 128.
 extern "C" int nm_render_eval_forward(const void* const* ptrs,
                                       const void* const* qptrs,
@@ -60,7 +63,8 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
                                       int dirs_freqs, int samples,
                                       float var_scale, float log_eps,
                                       int white_bg, int fine, int feat_max,
-                                      void* counter,
+                                      void* counter, void* scratch,
+                                      int scratch_bytes,
                                       void* out_w, void* out_depth,
                                       void* out_acc, void* out_rgb,
                                       void* out_feat, void* out_pts, void* dbg,
@@ -135,6 +139,8 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
   a.feat_max = feat_max != 0;
   a.dbg = dbg != nullptr || dbgq != nullptr;
   a.counter = (int*)counter;
+  a.scratch = (float*)scratch;
+  a.scratch_floats = scratch_bytes > 0 ? (size_t)scratch_bytes / sizeof(float) : 0;
   a.w = (float*)out_w;
   a.depth = (float*)out_depth;
   a.acc = (float*)out_acc;
@@ -149,7 +155,20 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
                   : (wide ? width->bf16_wide : width->bf16))(p, qp, a);
 }
 
-// Dynamic shared memory of the kernel at hid (64, 128, 192 or 256), the
+// Bytes of the tap scratch the fine stage at hid takes for n_rays on the
+// current device (one block's an SM it runs on): 0 but at hid 512; -1 on
+// an error.
+extern "C" int nm_render_eval_scratch(int hid, int fine, int n_rays) {
+  if (hid != 512 || !fine) return 0;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  const int n_tiles = n_rays / kTileRays;
+  return (int)((n_tiles < sms ? n_tiles : sms) * nm_eval::kTapScratch512);
+}
+
+// Dynamic shared memory of the kernel at hid (64, 128, 192, 256 or 512), the
 // coarse or the fine stage, the bf16 or the int8 trunk, with dirs_freqs
 // view-direction frequencies, in bytes; -1 for another width.
 extern "C" int nm_render_eval_smem(int hid, int fine, int int8, int dirs_freqs) {

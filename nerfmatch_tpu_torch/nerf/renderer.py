@@ -53,10 +53,9 @@ import torch
 from torch import nn
 
 from ..models.layers import init_params_
-from ..ops.kernels.quant import (calibrate_act_scales, pack_kernel_int8,
-                                 pack_mlp_int8)
+from ..ops.kernels.quant import calibrate_act_scales, pack_mlp_int8
 from ..ops.kernels.render_kernel import (APP_DIM, TILE_RAYS,
-                                         kernel_forms_descriptor, pack_mlp,
+                                         kernel_forms_descriptor, pack_stage,
                                          render_stage)
 from ..ops.kernels.render_train_kernel import StageSpec, render_train
 from ..ops.kernels.resample_kernel import resample_z
@@ -467,8 +466,8 @@ class NerfRenderer(nn.Module):
         """Kernel weights of both stages, ((weights, int8 trunk) of the
         coarse stage, the same of the fine stage): the int8 trunk where
         ``int8_plan`` quantizes, and on CUDA the render kernel's weights
-        (``pack_mlp`` of the stage's MLP and its int8 trunk, both at the
-        kernel's width: ``quant.pack_kernel_int8``)."""
+        (``render_kernel.pack_stage``: the stage's MLP padded to the
+        kernel's width once, its weights and int8 trunk packed from it)."""
         plan = self.int8_plan()
         if any(p is not None for p in plan) and self.act_scales is None:
             raise RuntimeError(
@@ -479,11 +478,12 @@ class NerfRenderer(nn.Module):
         out = []
         for (name, mlp), start in zip(self._stages(), plan):
             tap = eval_feat_layer(mlp.cfg) if name == "fine" else None
-            q = None if start is None else (
-                pack_kernel_int8 if cuda else pack_mlp_int8)(
-                mlp, self.act_scales[name], start, tap)
-            w = pack_mlp(mlp, q) if cuda else None
-            out.append((w, q))
+            scales = None if start is None else self.act_scales[name]
+            if cuda:
+                out.append(pack_stage(mlp, scales, start, tap))
+            else:
+                out.append((None, None if start is None else pack_mlp_int8(
+                    mlp, scales, start, tap)))
         return tuple(out)
 
     def _stage_kwargs(self):

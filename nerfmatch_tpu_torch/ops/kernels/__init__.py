@@ -53,11 +53,13 @@ _SIGNATURES = {
     # params, int8 params or null (host arrays of device pointers),
     # appearance rows or null, n_rays, hid, layer_num, feat_layer,
     # int8_from, num_freqs, dirs_freqs, samples, var_scale, log_eps,
-    # white_bg, fine, feat_max, tile counter, out pointers x6, tap debug
-    # output, int8 debug output, stream
+    # white_bg, fine, feat_max, tile counter, tap scratch (or null), its
+    # bytes, out pointers x6, tap debug output, int8 debug output, stream
     "nm_render_eval_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                               _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P],
+                               _F, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _P, _P],
+    # hid, fine, n_rays -> the tap scratch's bytes (0 below hid 512)
+    "nm_render_eval_scratch": [_I, _I, _I],
     # hid, fine, int8, dirs_freqs -> dynamic shared memory bytes
     "nm_render_eval_smem": [_I, _I, _I, _I],
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream

@@ -25,7 +25,9 @@ padded to ``render_train_kernel.enc_rows`` (the 90 of 15 frequencies to 96,
 three 32-deep k steps, the widest to 128; the s8 images to whole 64-row
 slots); the JAX packing pads them to 128.  :func:`pack_kernel_int8` packs
 the trunk of an MLP at the render kernel's width (its padded columns at
-unit activation scale).
+unit activation scale).  The HID-512 engine (``csrc/render_eval_512.cuh``)
+feeds its s8 products from a K-major tile in shared memory, so its images
+keep their K rows in order (:func:`s8_rows_permuted`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ import torch.nn.functional as F
 from ...nerf.compositing import volume_render
 from ...nerf.embedding import ipe_embedding
 from ...nerf.sampling import sample_along_rays
-from .render_train_kernel import enc_rows, pad_mlp_to_kernel_width
+from .render_train_kernel import (REGISTER_A_MAX, enc_rows,
+                                  pad_mlp_to_kernel_width)
 
 _EPS = 1e-6
 S8_SLOT_ROWS = 64   # csrc: kSliceK8 (s8 weight rows a ring slot)
@@ -50,6 +53,15 @@ S8_SLOT_ROWS = 64   # csrc: kSliceK8 (s8 weight rows a ring slot)
 # put_s8).
 PERM32 = torch.tensor([16 * hi + 8 * (r // 2) + 2 * q + r % 2
                        for hi in (0, 1) for q in range(4) for r in range(4)])
+
+
+def s8_rows_permuted(hid: int) -> bool:
+    """Whether the s8 images of an int8 trunk of width ``hid`` fed from a
+    layer's output hold their K rows in :data:`PERM32` order: at the widths
+    of ``csrc/render_eval.cuh`` (A from the accumulator's registers), not at
+    512 (``render_eval_512.cuh``: A from a K-major tile in shared memory,
+    its rows in order)."""
+    return hid <= REGISTER_A_MAX
 
 
 def colq(w_eff):
@@ -90,7 +102,8 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
     are quantized; ``tap``: the descriptor-tap layer (fine stage) or None.
     The math is ``pack_mlp_weights_int8``'s: the ``_EPS`` floor, scale 1 on
     the padded encoding lanes.  ``img``: the int8 layers' slot images
-    (:func:`slot_images_s8`), for the render kernel."""
+    (:func:`slot_images_s8`, the hidden rows permuted where
+    :func:`s8_rows_permuted`), for the render kernel."""
     cfg = mlp.cfg
     L, last, hid, E = cfg.layer_num, cfg.layer_num - 1, cfg.hid_dim, cfg.xyz_dim
     if not 0 <= int8_from <= last:
@@ -139,9 +152,11 @@ def pack_mlp_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
         if tap is not None and tap == i and i < last:
             out[f"iq{i}"] = iq_rows[i]
     # The s8 layers' images in the order the ring streams them: per layer
-    # its hidden rows (permuted), then its encoding rows.
+    # its hidden rows (permuted where the kernel takes A from registers),
+    # then its encoding rows.
+    perm = s8_rows_permuted(hid)
     out["img"] = torch.cat([
-        slot_images_s8(out[k], permute=i > 0 and k == f"w{i}q")
+        slot_images_s8(out[k], permute=perm and i > 0 and k == f"w{i}q")
         for i in range(int8_from, L) for k in (f"w{i}q", f"w{i}sq") if k in out])
     return out
 
@@ -162,10 +177,13 @@ def pack_kernel_int8(mlp, scales, int8_from: int = 0, tap: int | None = None):
     (``render_train_kernel.pad_mlp_to_kernel_width``, the scales by
     :func:`pad_act_scales`): the trunk ``render_kernel.render_stage`` takes
     on CUDA.  Its real columns are those of ``pack_mlp_int8(mlp, scales,
-    ...)``; at an instantiated width it is that pack."""
-    kmlp, hid = pad_mlp_to_kernel_width(mlp)
-    if kmlp is not mlp:
-        scales = pad_act_scales(scales, kmlp.cfg.hid_dim)
+    ...)``; at an instantiated width it is that pack.  ``mlp`` may be the
+    padded MLP itself, with the real width's scales (``render_kernel.
+    pack_stage`` pads once and hands the padded MLP to both packers)."""
+    kmlp, _ = pad_mlp_to_kernel_width(mlp, "eval")
+    width = kmlp.cfg.hid_dim
+    if any(len(a) != width for a in scales["acts"]):
+        scales = pad_act_scales(scales, width)
     return pack_mlp_int8(kmlp, scales, int8_from, tap)
 
 

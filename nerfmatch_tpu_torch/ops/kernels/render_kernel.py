@@ -25,14 +25,15 @@ Early termination (``early_term_eps > 0``): rays are grouped in tiles of
 block of :data:`SAMPLE_BLOCK` samples, the remaining blocks get exact zero
 weights.  Skipped weights are < eps, so outputs move by < eps.
 
-CUDA tensors launch the kernel ``csrc/render_eval.cuh`` (``wgmma``; it
-raises on anything the kernel does not implement) with the weights of
-:func:`pack_mlp`: a bf16 trunk, or the int8 trunk of
-``quant.pack_kernel_int8`` (s8 ``wgmma`` from its first int8 layer on).  An
-MLP whose width is not instantiated (``render_train_kernel.KERNEL_HIDS``)
-runs at the next wider one on zero-padded weights, and its descriptor is
-sliced back to its width; above 256 it raises (ROADMAP Queue 2A).  CPU
-tensors run :func:`render_stage_plain`.
+CUDA tensors launch the kernel ``csrc/render_eval.cuh`` (HID 64-256) or
+``csrc/render_eval_512.cuh`` (HID 512) (``wgmma``; it raises on anything
+the kernel does not implement) with the weights of :func:`pack_mlp`: a bf16
+trunk, or the int8 trunk of ``quant.pack_kernel_int8`` (s8 ``wgmma`` from
+its first int8 layer on).  An MLP whose width is not instantiated
+(``render_train_kernel.EVAL_HIDS``) runs at the next wider one on
+zero-padded weights, and its descriptor is sliced back to its width; above
+512 it raises (ROADMAP Queue 2A).  CPU tensors run
+:func:`render_stage_plain`.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from .render_train_kernel import (APP_DIM, ENC_MAX, ENC_STD, _skip_in,
                                   check_encoding, enc_rows, forward_images,
                                   kernel_cfg, kernel_width,
                                   pad_mlp_to_kernel_width, views_cols)
+from .quant import pack_kernel_int8
 
 TILE_RAYS = 2
 SAMPLE_BLOCK = 32
@@ -62,7 +64,7 @@ def stream_bytes(cfg, int8_from=None) -> int:
     trunk layers below ``int8_from`` (every layer without it), the s8
     images of the others (the encoding rows padded to whole 64-row slots),
     the feature and views layers'."""
-    cfg = kernel_cfg(cfg)
+    cfg = kernel_cfg(cfg, "eval")
     hid, L, E = cfg.hid_dim, cfg.layer_num, enc_rows(cfg.xyz_dim)
     start = L if int8_from is None else int8_from
     n = 0
@@ -96,7 +98,7 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     a table) and wr (the rgb head) stay f32: the kernel's FMAs take them
     unrounded.  A scene-coordinate head (``pnt_block``) is not packed, as
     the Pallas pack leaves it out."""
-    mlp, _ = pad_mlp_to_kernel_width(mlp)
+    mlp, _ = pad_mlp_to_kernel_width(mlp, "eval")
     cfg = mlp.cfg
     if int8 is not None:
         check_int8_width(int8, cfg.layer_num, cfg.hid_dim, "pack_mlp")
@@ -126,6 +128,19 @@ def pack_mlp(mlp: NerfMLP, int8=None):
     return out
 
 
+def pack_stage(mlp: NerfMLP, scales=None, int8_from=None, tap=None):
+    """One stage's kernel weights -> (:func:`pack_mlp` list, its int8 trunk
+    or None): ``mlp`` padded to its kernel width once, and the padded MLP
+    handed to both packers (``quant.pack_kernel_int8`` with ``scales``
+    from layer ``int8_from`` on, where ``int8_from`` is not None).  The
+    bytes are those of ``pack_mlp(mlp, pack_kernel_int8(mlp, ...))``,
+    which pads twice."""
+    kmlp, _ = pad_mlp_to_kernel_width(mlp, "eval")
+    q = (None if int8_from is None
+         else pack_kernel_int8(kmlp, scales, int8_from, tap))
+    return pack_mlp(kmlp, q), q
+
+
 def kernel_forms_descriptor(cfg) -> bool:
     """Whether the descriptor of an MLP config is the trunk activation the
     kernel taps: not the views layer's of a ``"viewdir"`` head, and not a
@@ -139,10 +154,10 @@ def kernel_forms_descriptor(cfg) -> bool:
 
 def check_render_config(cfg, num_freqs: int, dirs_freqs: int):
     """Raise for MLP and encoding widths the kernel does not take: a width
-    above 256 (``render_train_kernel.kernel_width``), an encoding past the
+    above 512 (``render_train_kernel.kernel_width``), an encoding past the
     JAX kernels' limits (``render_train_kernel.check_encoding``)."""
     check_encoding(cfg, num_freqs, dirs_freqs, "render kernel")
-    kernel_width(cfg.hid_dim)
+    kernel_width(cfg.hid_dim, "eval")
 
 
 def _check_config(mlp: NerfMLP, num_freqs: int, dirs_freqs: int, fine: bool,
@@ -207,7 +222,7 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
     _check_config(mlp, num_freqs, dirs_freqs, fine, app)
     cfg = mlp.cfg
     check_render_config(cfg, num_freqs, dirs_freqs)
-    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim)
+    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim, "eval")
     start = None if int8 is None else int8["start"]
     if int8 is not None:
         check_int8_width(int8, cfg.layer_num, W, "render_stage")
@@ -266,6 +281,11 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             out["acc"].data_ptr(), opt("rgb"), opt("feat"), opt("pts"))
     log_eps = math.log(early_term_eps) if early_term_eps > 0 else -math.inf
     counter = torch.zeros(1, device=dev, dtype=torch.int32)
+    with torch.cuda.device(dev):
+        scratch_bytes = library().nm_render_eval_scratch(W, int(fine), n)
+    check(min(scratch_bytes, 0), "render_eval scratch")
+    scratch = (torch.empty(scratch_bytes, device=dev, dtype=torch.uint8)
+               if scratch_bytes else None)
     dbg = torch.zeros(2, n, S, W, **f32) if debug_tap else None
     dbgq = (torch.zeros(n, S, ENC_MAX + W, device=dev, dtype=torch.int8)
             if debug_q else None)
@@ -274,7 +294,8 @@ def render_stage(mlp: NerfMLP, rays, z, *, fine: bool, num_freqs: int,
             ptrs, qarr, ptr(app), n, W, cfg.layer_num, eval_feat_layer(cfg),
             -1 if start is None else start, num_freqs, dirs_freqs, S,
             var_scale, log_eps, int(white_bg), int(fine), int(feat_max),
-            counter.data_ptr(), *outs, ptr(dbg), ptr(dbgq), stream_ptr(dev))
+            counter.data_ptr(), ptr(scratch), scratch_bytes, *outs, ptr(dbg),
+            ptr(dbgq), stream_ptr(dev))
     check(err, "render_eval")
     LAUNCHES[("render_fine" if fine else "render_coarse")
              + ("" if int8 is None else "_int8")

@@ -13,12 +13,14 @@ ray, after the viewdir PE (``extras @ wvx``), and its cotangent ``g_app``
 comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
 303-312``).
 
-Widths: the kernels are instantiated at the MLP widths :data:`KERNEL_HIDS`;
-an MLP of another width up to 256 runs at the smallest of them that holds
-it, on a zero-padded copy of its weights (:func:`pad_mlp_to_kernel_width`:
-the padded hidden units take zero weights in and out and a zero bias, so
-they stay 0 and move nothing), and its gradients are sliced back to the
-parameters' shapes.  Wider MLPs raise ``NotImplementedError`` on the card.
+Widths: the kernels are instantiated at the MLP widths :data:`TRAIN_HIDS`
+(the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`); an MLP
+of another width up to 256 runs at the smallest of them that holds it, on
+a zero-padded copy of its weights (:func:`pad_mlp_to_kernel_width`: the
+padded hidden units take zero weights in and out and a zero bias, so they
+stay 0 and move nothing), and its gradients are sliced back to the
+parameters' shapes.  Wider MLPs raise ``NotImplementedError`` on the card
+(``NerfTrainer`` trains them on the plain route: :func:`train_kernels_take`).
 The encoding takes 2 * 3 * F <= 128 columns and a ray's view-direction PE
 plus its appearance row <= 128, the JAX kernels' limits; the products and
 the stash take them padded (:func:`enc_rows`: 96 rows up to 96 columns,
@@ -57,8 +59,16 @@ from ...nerf.sampling import frustum_moments
 
 TILE_RAYS = 2         # csrc: kTileRays (N even; N / 2 vector-partial rows)
 KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
-# csrc: render_train_<HID>.cu, render_eval_<trunk>_<HID>.cu
-KERNEL_HIDS = (64, 128, 192, 256)
+# The instantiated MLP widths of each kernel family: the train kernels
+# (csrc: render_train_<HID>.cu) and the eval render kernels (csrc:
+# render_eval_<trunk>_<HID>.cu, HID 512 on render_eval_512.cuh's engine).
+TRAIN_HIDS = (64, 128, 192, 256)
+EVAL_HIDS = (64, 128, 192, 256, 512)
+FAMILY_HIDS = {"train": TRAIN_HIDS, "eval": EVAL_HIDS}
+# The widest MLP whose engines take each layer's A operand from the
+# accumulator's registers (csrc: render_eval.cuh, render_train.cuh); the
+# eval widths above it run on render_eval_512.cuh, A from shared memory.
+REGISTER_A_MAX = 256
 ENC_MAX = 128         # csrc: kEncMax (the widest encoding, 2 * 3 * 21 <= 128)
 ENC_STD = 96          # csrc: kEncStd (the production encoding's instantiation)
 EXTRA_MAX = 128       # csrc: kExtraMax (view-direction PE + appearance row)
@@ -109,25 +119,39 @@ def views_cols(hid: int) -> int:
     return max(-(-(hid // 2) // 64) * 64, 64)
 
 
-def kernel_width(hid: int) -> int:
-    """The instantiated width an MLP of ``hid`` runs at: the smallest of
-    :data:`KERNEL_HIDS` that holds it.  Above 256 ``NotImplementedError``:
-    wgmma's N is at most 256, a warpgroup's accumulator and A fragments
-    would need more than 255 registers a thread, and the fine stage's
-    activation stash more shared memory than a block has (ROADMAP Queue 2A:
-    MLP widths above 256)."""
-    for w in KERNEL_HIDS:
+def kernel_width(hid: int, family: str) -> int:
+    """The instantiated width an MLP of ``hid`` runs at in the kernel
+    ``family`` ("train": kernels 5-6, "eval": kernels 1 and 1b): the
+    smallest of its widths (:data:`FAMILY_HIDS`) that holds it.  Above the
+    largest ``NotImplementedError``.  The train kernels stop at 256: wgmma's
+    N is at most 256, a warpgroup's accumulator and A fragments would need
+    more than 255 registers a thread, and their stash more shared memory
+    than a block has.  The eval kernels take 257-512 on an engine of their
+    own (two N-halves, A in shared memory) and stop at 512."""
+    hids = FAMILY_HIDS[family]
+    for w in hids:
         if hid <= w:
             return w
+    if family == "train":
+        raise NotImplementedError(
+            f"render train kernels: hid_dim {hid} > {hids[-1]} (ROADMAP "
+            "Queue 2A, MLP widths above 256 in kernels 5-6: wgmma N <= 256, "
+            "255 registers a thread, the stash over the shared memory)")
     raise NotImplementedError(
-        f"render kernels: hid_dim {hid} > {KERNEL_HIDS[-1]} (ROADMAP Queue "
-        "2A, MLP widths above 256: wgmma N <= 256, 255 registers a thread, "
-        "the fine stage's activation stash over the shared memory)")
+        f"render eval kernels: hid_dim {hid} > {hids[-1]} (ROADMAP Queue "
+        "2A, eval MLP widths above 512: one 64-row activation tile of the "
+        "width in shared memory beside the weight ring)")
 
 
-def kernel_cfg(cfg):
+def train_kernels_take(cfg) -> bool:
+    """Whether the train kernels hold an MLP config's width (a pure
+    function of the config: :class:`NerfTrainer` routes by it)."""
+    return cfg.hid_dim <= TRAIN_HIDS[-1]
+
+
+def kernel_cfg(cfg, family: str):
     """``cfg`` at its kernel width (:func:`kernel_width`)."""
-    return dataclasses.replace(cfg, hid_dim=kernel_width(cfg.hid_dim))
+    return dataclasses.replace(cfg, hid_dim=kernel_width(cfg.hid_dim, family))
 
 
 def _pad_to(x, shape):
@@ -139,9 +163,9 @@ def _pad_to(x, shape):
 
 
 @torch.no_grad()
-def pad_mlp_to_kernel_width(mlp: NerfMLP):
-    """-> (an MLP at the kernel width :func:`kernel_width` gives, the real
-    hid).  The padded MLP holds zero-padded copies of the weights: a padded
+def pad_mlp_to_kernel_width(mlp: NerfMLP, family: str):
+    """-> (an MLP at the kernel width :func:`kernel_width` gives for the
+    kernel ``family``, the real hid).  The padded MLP holds zero-padded copies of the weights: a padded
     hidden unit has zero weights in and out and a zero bias, so it is 0
     after every ReLU and adds nothing to a real column, in the forward or
     the backward; the views layer's hid // 2 outputs pad the same way.  Its
@@ -149,7 +173,7 @@ def pad_mlp_to_kernel_width(mlp: NerfMLP):
     which the kernels neither render nor pack.  ``mlp`` itself where its
     width is instantiated; its parameters are never resized."""
     cfg = mlp.cfg
-    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim)
+    hid, W = cfg.hid_dim, kernel_width(cfg.hid_dim, family)
     if W == hid:
         return mlp, hid
     kcfg = dataclasses.replace(cfg, hid_dim=W, out_3d_pnt=False,
@@ -395,7 +419,7 @@ def pack_train(mlp: NerfMLP):
     dirs rows), wva (its appearance rows, None without them) and wr are f32
     arrays of bf16-rounded values, (in x out).  The weights of ``mlp`` at
     its kernel width (:func:`pad_mlp_to_kernel_width`)."""
-    mlp, _ = pad_mlp_to_kernel_width(mlp)
+    mlp, _ = pad_mlp_to_kernel_width(mlp, "train")
     cfg = mlp.cfg
     enc, hid = cfg.xyz_dim, cfg.hid_dim
     app_at = hid + cfg.dirs_dim
@@ -447,7 +471,7 @@ def check_train_config(spec: StageSpec):
     if not cfg.use_viewdirs:
         raise NotImplementedError(f"train kernel: config {cfg} not supported")
     check_encoding(cfg, spec.num_freqs, spec.dirs_freqs, "train kernel")
-    kernel_width(cfg.hid_dim)
+    kernel_width(cfg.hid_dim, "train")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -497,7 +521,7 @@ def workspace_bytes(cfg, n: int, S: int) -> tuple:
     """(stash bytes, gradient-workspace bytes) as
     ``nm_render_train_workspace`` returns them (each array 256-aligned), at
     the kernel width of ``cfg``."""
-    cfg = kernel_cfg(cfg)
+    cfg = kernel_cfg(cfg, "train")
     lay = backward_layout(cfg, n, S)
     return (sum(map(_align256, _stash_parts(cfg, n, S))),
             sum(map(_align256, _grad_parts(cfg, n, S, lay))))
@@ -505,7 +529,7 @@ def workspace_bytes(cfg, n: int, S: int) -> tuple:
 
 def backward_layout(cfg, n: int, S: int) -> BackwardLayout:
     """The backward's layout for ``cfg`` at its kernel width."""
-    cfg = kernel_cfg(cfg)
+    cfg = kernel_cfg(cfg, "train")
     L, H = cfg.layer_num, cfg.hid_dim
     HV, R = H // 2, n * S
     prods = []
@@ -560,7 +584,8 @@ def _kernel_args(spec: StageSpec, rays, z, noise, packed, app=None):
     require_cuda_tensors("render_train", rays, z, noise,
                          *[p for p in (*packed, app) if p is not None])
     cfg = spec.mlp.cfg
-    return (_ptrs(*packed, rays, z, noise, app), n, kernel_width(cfg.hid_dim),
+    return (_ptrs(*packed, rays, z, noise, app), n,
+            kernel_width(cfg.hid_dim, "train"),
             cfg.layer_num, spec.num_freqs, spec.dirs_freqs, S,
             spec.var_scale, int(spec.white_bg))
 
@@ -570,7 +595,7 @@ def _sizes(cfg, n: int, S: int):
     C side, at the kernel width of ``cfg``."""
     out = [ctypes.c_longlong(0) for _ in range(3)]
     check(library().nm_render_train_workspace(
-        n, kernel_width(cfg.hid_dim), cfg.layer_num, S, cfg.xyz_dim // 6,
+        n, kernel_width(cfg.hid_dim, "train"), cfg.layer_num, S, cfg.xyz_dim // 6,
         (cfg.dirs_dim - 3) // 6, cfg.app_dim,
         *map(ctypes.addressof, out)), "render_train_workspace")
     return tuple(v.value for v in out)
@@ -608,7 +633,7 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     (an MLP run at a wider kernel width gets its padded gradients sliced
     back), and ``"app"``: ``g_app`` (N, 16) for an appearance MLP."""
     args = _kernel_args(spec, rays, z, noise, packed, app)
-    cfg = kernel_cfg(spec.mlp.cfg)
+    cfg = kernel_cfg(spec.mlp.cfg, "train")
     n, S = z.shape[0], z.shape[1] - 1
     L, hid, enc = cfg.layer_num, cfg.hid_dim, cfg.xyz_dim
     hv, dirs = hid // 2, cfg.dirs_dim

@@ -14,13 +14,17 @@ validation is split over the ranks and its metrics gathered.  The route
 (``NerfTrainer.route``, logged by :func:`train` and written to
 ``route.txt`` in the run dir) is a
 function of the config, decided before any launch, as the JAX trainer
-decides its own: ``"kernels"`` -- :meth:`NerfRenderer.train_render` (the
-train-render and resample kernels on CUDA, their plain versions on the
-CPU) -- on CUDA, or on the CPU with ``render.use_fused_train``, where
-``NerfRenderer.fused_eval_supported`` holds and the NeRF has no
-scene-coordinate head (``data.out_scr``); else ``"plain"`` --
+decides its own (:func:`train_route`): ``"kernels"`` --
+:meth:`NerfRenderer.train_render` (the train-render and resample kernels
+on CUDA, their plain versions on the CPU) -- on CUDA, or on the CPU with
+``render.use_fused_train``, where ``NerfRenderer.fused_eval_supported``
+holds, the NeRF has no scene-coordinate head (``data.out_scr``) and the
+train kernels hold its MLP width (up to 256); else ``"plain"`` --
 ``render_rays(train=True)`` on the rays' device (a classic or no-viewdir
-NeRF, an ``out_scr`` NeRF, sample counts other than 128).  Random draws
+NeRF, an ``out_scr`` NeRF, sample counts other than 128, a wider MLP
+without ``render.use_fused_train``, which the eval kernels still serve; a
+wider MLP with the flag raises).  Why a run is plain is logged and
+written to ``route_why.txt``.  Random draws
 come from a ``torch.Generator`` seeded with ``exp.seed``; ray batches from
 ``np.random.default_rng(exp.seed)`` as in the JAX trainer.  An appearance
 NeRF (``embedding.appearance_embed``) holds one table row per training
@@ -39,6 +43,7 @@ import torch
 from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
+from ..ops.kernels.render_train_kernel import TRAIN_HIDS, train_kernels_take
 from ..parallel.distributed import DataGroup, check_world, rank_seed
 from ..parallel.mesh import all_gather_host, replicate_params
 from ..utils import get_logger, resolve_device
@@ -64,6 +69,35 @@ def parse_optim_tag(config):
     if config.lr_scheduler == "cosine":
         tag += "cosine"
     return tag
+
+
+def train_route(renderer, device_type: str, use_fused_train: bool = False):
+    """(route, why) of a renderer's training, a pure function of its config
+    and the device type, decided before any launch: ``"kernels"`` on CUDA
+    (or on the CPU with ``use_fused_train``) where the fused path takes the
+    config, else ``"plain"`` with the reason.  An MLP wider than the train
+    kernels take trains plain only without ``render.use_fused_train``, as
+    the JAX trainer takes its XLA path without the flag at any width
+    (``nerfmatch_tpu/train/nerf_trainer.py``); with the flag, which asks
+    for the fused train kernels, it raises ``NotImplementedError``."""
+    if not (device_type == "cuda" or use_fused_train):
+        return "plain", "not on CUDA and render.use_fused_train is off"
+    if not renderer.fused_eval_supported:
+        return "plain", "the fused render does not take this config"
+    if renderer.cfg.out_scr:
+        return "plain", "a scene-coordinate head (data.out_scr)"
+    wide = [c.hid_dim for c in (renderer.coarse_cfg, renderer.fine_cfg)
+            if c is not None and not train_kernels_take(c)]
+    if wide and use_fused_train:
+        raise NotImplementedError(
+            f"render.use_fused_train: hid_dim {max(wide)} > {TRAIN_HIDS[-1]}"
+            " (ROADMAP Queue 2A item 5, MLP widths above 256 in kernels "
+            "5-6); without the flag the NeRF trains on the plain route")
+    if wide:
+        return "plain", (f"hid_dim {max(wide)}: the train kernels take MLP "
+                         f"widths up to {TRAIN_HIDS[-1]} and "
+                         "render.use_fused_train is off")
+    return "kernels", ""
 
 
 def init_config_odir(config):
@@ -109,11 +143,10 @@ class NerfTrainer:
         self.opt = init_optimizer(config.optim, self.renderer.parameters())
         self.lr_sched = make_lr_schedule(config.optim)
         self.cnfg_loss = getattr(config, "loss", None)
-        r = self.renderer
-        self.use_fused = (self.device.type == "cuda" or bool(
-            getattr(config.render, "use_fused_train", False))) \
-            and r.fused_eval_supported and not r.cfg.out_scr
-        self.route = "kernels" if self.use_fused else "plain"
+        self.route, self.route_why = train_route(
+            self.renderer, self.device.type,
+            bool(getattr(config.render, "use_fused_train", False)))
+        self.use_fused = self.route == "kernels"
 
     def render_train(self, rays, generator=None, draws=None, ray_id=None):
         if self.use_fused:
@@ -221,7 +254,10 @@ def train(config, device="cuda"):
     trainer = NerfTrainer(config, device=device, seed=exp.seed,
                           num_frames=num_frames)
     mlog.log_text("route", trainer.route)
-    logger.info(f"train route: {trainer.route}")
+    if trainer.route_why:
+        mlog.log_text("route_why", trainer.route_why)
+    logger.info(f"train route: {trainer.route}"
+                + (f" ({trainer.route_why})" if trainer.route_why else ""))
 
     start_epoch, best_psnr = 0, -np.inf
     ckpt_dir = run_dir / "checkpoints"

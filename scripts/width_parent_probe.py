@@ -57,16 +57,44 @@ PARENT_ENTRIES = ("nm_render_eval_forward", "nm_render_train_forward",
                   "nm_render_train_backward")
 
 
+# The eval entry's tap-scratch arguments (pointer, bytes), after the tile
+# counter: an earlier build without the HID-512 engine takes neither.
+EVAL_SCRATCH_ARGS = slice(17, 19)
+
+
+def load_parent(path):
+    """An earlier build's entries, the eval entry bound to its own
+    signature (without the tap-scratch arguments where it has no
+    ``nm_render_eval_scratch``)."""
+    lib = kernels.load(path, PARENT_ENTRIES)
+    try:
+        lib.nm_render_eval_scratch
+        old_eval = False
+    except AttributeError:
+        sig = list(kernels._SIGNATURES["nm_render_eval_forward"])
+        del sig[EVAL_SCRATCH_ARGS]
+        lib.nm_render_eval_forward.argtypes = sig
+        old_eval = True
+    return lib, old_eval
+
+
 class _WithPackageSizes:
     """An earlier library whose workspace sizes come from the package's
-    (its ``nm_render_train_workspace`` may take other arguments)."""
+    (its ``nm_render_train_workspace`` may take other arguments; the tap
+    scratch, 0 bytes at these widths, too), its eval entry called without
+    the tap-scratch arguments where it takes none."""
 
-    def __init__(self, lib, package):
-        self.lib, self.package = lib, package
+    def __init__(self, lib, package, old_eval):
+        self.lib, self.package, self.old_eval = lib, package, old_eval
 
     def __getattr__(self, name):
-        return getattr(self.package if name == "nm_render_train_workspace"
-                       else self.lib, name)
+        if name in ("nm_render_train_workspace", "nm_render_eval_scratch"):
+            return getattr(self.package, name)
+        fn = getattr(self.lib, name)
+        if name == "nm_render_eval_forward" and self.old_eval:
+            cut = EVAL_SCRATCH_ARGS
+            return lambda *a: fn(*a[:cut.start], *a[cut.stop:])
+        return fn
 
 
 def ptxas_256(log):
@@ -106,8 +134,8 @@ def main():
     package_s = time.perf_counter() - t0
     parent_job.join()
     parent_so, parent_s = built["parent"]
-    libs = {"parent": _WithPackageSizes(kernels.load(parent_so, PARENT_ENTRIES),
-                                        package),
+    parent, old_eval = load_parent(parent_so)
+    libs = {"parent": _WithPackageSizes(parent, package, old_eval),
             "package": package}
     for name, so in (("package", kernels.build()), ("parent", parent_so)):
         for line in ptxas_256((Path(so).parent / "build.log").read_text()):

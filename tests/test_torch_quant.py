@@ -71,7 +71,8 @@ def test_calibrate_act_scales_matches_jax(pair, calib):
 
 def unpack_images(q, layer_num):
     """pack_mlp_int8's s8 slot images (``img``) split by matrix and
-    unpacked, PI undone for the hidden rows: {w{i}q | w{i}sq: (K, N)}."""
+    unpacked, PI undone for the hidden rows where the width permutes them
+    (``quant.s8_rows_permuted``): {w{i}q | w{i}sq: (K, N)}."""
     out, off = {}, 0
     for i in range(q["start"], layer_num):
         for k in (f"w{i}q", f"w{i}sq"):
@@ -79,7 +80,8 @@ def unpack_images(q, layer_num):
                 K, N = q[k].shape
                 n = -(-K // 64) * 64 * N
                 out[k] = unslot_s8(q["img"][off:off + n], K, N,
-                                   permute=i > 0 and k == f"w{i}q")
+                                   permute=tquant.s8_rows_permuted(N)
+                                   and i > 0 and k == f"w{i}q")
                 off += n
     assert off == q["img"].numel()
     return out

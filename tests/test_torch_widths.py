@@ -2,22 +2,30 @@
 width the JAX render kernels take, on the CPU.
 
 On the card the render kernels (1, 1b, 5, 6) are instantiated at MLP widths
-64, 128, 192 and 256; any other width up to 256 runs at the next wider one
-on a zero-padded copy of the weights (``pad_mlp_to_kernel_width``), and
-widths above 256 raise.  The encodings go to the JAX kernels' limits, 2 * 3
-* F <= 128 and the view-direction PE plus the appearance row <= 128.  Here:
+64, 128, 192 and 256, the eval kernels (1, 1b) also at 512; any other width
+up to the largest runs at the next wider one on a zero-padded copy of the
+weights (``pad_mlp_to_kernel_width``), and wider ones raise (the train
+kernels above 256, the eval kernels above 512).  The encodings go to the
+JAX kernels' limits, 2 * 3 * F <= 128 and the view-direction PE plus the
+appearance row <= 128.  Here:
 
 * the padding is exact: the plain stages on the padded weights give the
   unpadded MLP's outputs, and the padded gradients sliced back its
   gradients;
-* the plain eval and train stages at hid 96 and 128, and at F = 21, Fd =
-  18 with an appearance table, against the JAX fused kernels in interpret
-  mode (``make_fused_render``, ``make_fused_train_render``);
+* the plain eval and train stages at hid 96 and 128 (the eval stage also
+  at 320 and 512), and at F = 21, Fd = 18 with an appearance table, against
+  the JAX fused kernels in interpret mode (``make_fused_render``,
+  ``make_fused_train_render``);
 * the int8 trunk packed at the kernel's width keeps the real columns of the
-  unpadded pack byte for byte, its padded columns at unit scale;
-* the sizes the C side is handed agree at the padded widths;
+  unpadded pack byte for byte, its padded columns at unit scale, and at 512
+  its s8 images keep their K rows in order and hold the JAX quantizer's
+  weights;
+* the sizes the C side is handed agree at the padded widths; a stage's
+  kernel weights padded once are the bytes of padding twice;
 * the check functions accept what the JAX kernels take and raise
-  ``NotImplementedError`` naming the ROADMAP above 256, without a launch.
+  ``NotImplementedError`` naming the ROADMAP above 512 (eval) and 256
+  (train), without a launch; the trainer routes a NeRF the train kernels
+  do not hold to the plain path, by its config alone.
 
 Inputs are seeded numpy arrays; the weights cross through the weight
 bridge.  Tolerances are stated per test.
@@ -47,7 +55,7 @@ from nerfmatch_tpu_torch.ops.kernels import render_kernel as rk
 from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
 from nerfmatch_tpu_torch.train.checkpoint import state_dict_from_jax
 
-from test_torch_nerf import flat_params
+from test_torch_nerf import flat_params, unslot_s8
 from test_torch_quant import unpack_images
 from test_torch_train import _compare, _grads_by_jax_leaf, stage_loss
 
@@ -96,7 +104,8 @@ def make_inputs(S, seed, app=0):
 # (a) the padding is exact
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hid,width", [(32, 64), (96, 128), (160, 192)])
+@pytest.mark.parametrize("hid,width", [(32, 64), (96, 128), (160, 192),
+                                       (320, 512), (512, 512)])
 def test_pad_mlp_to_kernel_width_renders_the_same(hid, width):
     """The plain eval stage (coarse and fine) on the padded weights gives
     the unpadded MLP's weights, depth, acc, rgb and pts and, sliced to hid,
@@ -108,10 +117,10 @@ def test_pad_mlp_to_kernel_width_renders_the_same(hid, width):
     another order (measured: at most 4.3e-7 relative, 1-3 ulps).  The MLP's
     own forward in ``compute_dtype`` bf16 within bf16 rounding (2^-7 of
     each output's largest value).  The module's parameters keep their
-    shapes."""
+    shapes.  The eval kernels' widths (512 is one; 320 runs at it)."""
     _, mlp = make_mlp(hid, seed=hid)
     shapes = {k: v.shape for k, v in mlp.named_parameters()}
-    kmlp, real = rtk.pad_mlp_to_kernel_width(mlp)
+    kmlp, real = rtk.pad_mlp_to_kernel_width(mlp, "eval")
     assert real == hid and kmlp.cfg.hid_dim == width
     assert {k: v.shape for k, v in mlp.named_parameters()} == shapes
     rays, z, *_ = make_inputs(32, 1)
@@ -150,7 +159,7 @@ def test_padded_train_gradients_slice_back_to_the_real_ones(hid):
     measured at most 7.4e-4).  Rgb and weights within 1e-6; the padded rows
     and columns get no gradient at all."""
     _, mlp = make_mlp(hid, seed=hid + 1)
-    kmlp, _ = rtk.pad_mlp_to_kernel_width(mlp)
+    kmlp, _ = rtk.pad_mlp_to_kernel_width(mlp, "train")
     rays, z, noise, target, _ = make_inputs(32, 3)
     for bf16, rel in ((False, None), (True, 2.0 ** -8)):
         grads, outs = [], []
@@ -211,11 +220,13 @@ def hold_eval(ours, ref):
     assert float(ours["weights"].sum(-1).max()) > 0.3   # not an empty field
 
 
-@pytest.mark.parametrize("hid", [96, 128])
+@pytest.mark.parametrize("hid", [96, 128, 320, 512])
 def test_eval_stage_matches_pallas_at_width(hid):
     """The plain fine eval stage (bf16 products) against
     ``make_fused_render`` in interpret mode at hid 96 (run on the card at
-    128, padded) and 128, 8 rays x 64 samples (:func:`hold_eval`)."""
+    128, padded), 128, 320 (run at 512, padded) and 512, 8 rays x 64
+    samples (:func:`hold_eval`: weights, depth and acc within 2e-3, rgb and
+    pts within 2e-2, the descriptor within 2e-2 of its largest value)."""
     params, mlp = make_mlp(hid, seed=7)
     rays, z, *_ = make_inputs(64, 5)
     fused, w = jax_eval_stage(params, hid, 64)
@@ -382,8 +393,9 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
     their product table (``backward_layout``) are those of the kernel
     width; ``pack_train``'s forward images are ``pack_mlp``'s."""
     _, mlp = make_mlp(hid, F, Fd, app, seed=16)
-    cfg, kcfg = mlp.cfg, rtk.kernel_cfg(mlp.cfg)
-    assert kcfg.hid_dim == rtk.kernel_width(hid) >= hid
+    cfg, kcfg = mlp.cfg, rtk.kernel_cfg(mlp.cfg, "train")
+    assert kcfg.hid_dim == rtk.kernel_width(hid, "train") >= hid
+    assert kcfg.hid_dim == rtk.kernel_width(hid, "eval")
     packed = rk.pack_mlp(mlp)
     assert packed[0].numel() * 2 == rk.stream_bytes(cfg) == rk.stream_bytes(kcfg)
     E = rtk.enc_rows(6 * F)
@@ -418,11 +430,12 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
 def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
     """Both wrappers' checks (``check_render_config``, ``check_train_config``)
     accept every hid from 1 to 256, F up to 21 and the view-direction PE up
-    to Fd 18 with an appearance table and 20 without; they raise
-    ``NotImplementedError`` naming ROADMAP Queue 2A for hid 320, and for F
+    to Fd 18 with an appearance table and 20 without; the render check
+    also hid 257 to 512, which the train check refuses; both raise
+    ``NotImplementedError`` naming ROADMAP Queue 2A for hid 513, and for F
     = 22 or Fd = 19 with a table; ``kernel_width`` maps each width to the
-    smallest instantiated one that holds it.  No launch: the checks run on
-    the CPU."""
+    smallest instantiated one of its family that holds it.  No launch: the
+    checks run on the CPU."""
     def cfg(hid, F=15, Fd=4, app=0):
         return NerfConfig(layer_num=LAYERS, hid_dim=hid, xyz_dim=6 * F,
                           dirs_dim=6 * Fd + 3, app_dim=app, use_viewdirs=True,
@@ -434,11 +447,23 @@ def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
 
     for hid in range(1, 257):
         checks(cfg(hid))
-        assert rtk.kernel_width(hid) == min(w for w in (64, 128, 192, 256)
-                                            if w >= hid)
+        assert rtk.kernel_width(hid, "train") == min(
+            w for w in (64, 128, 192, 256) if w >= hid)
+        assert rtk.kernel_width(hid, "eval") == rtk.kernel_width(hid, "train")
     checks(cfg(96, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
     checks(cfg(96, F_WIDE, 20), F_WIDE, 20)
-    for c, F, Fd in ((cfg(320), 15, 4), (cfg(512), 15, 4)):
+    # The eval kernels take every width up to 512 (257-511 at 512); the
+    # train kernels refuse them.
+    for hid in (257, 320, 511, 512):
+        rk.check_render_config(cfg(hid), 15, 4)
+        rk.check_render_config(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE,
+                               FD_WIDE)
+        assert rtk.kernel_width(hid, "eval") == 512
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+            rtk.check_train_config(_Spec(cfg(hid), 15, 4))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+            rtk.kernel_width(hid, "train")
+    for c, F, Fd in ((cfg(513), 15, 4), (cfg(1024), 15, 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
             rk.check_render_config(c, F, Fd)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
@@ -461,3 +486,175 @@ class _Spec:
     @property
     def mlp(self):
         return self
+
+
+# ---------------------------------------------------------------------------
+# (g) the eval kernels at 512: int8 packing, packing once, the trainer's route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hid,start", [(320, 0), (320, 2), (512, 0),
+                                       (512, 2)])
+def test_kernel_int8_at_512_holds_the_jax_quantizer(hid, start):
+    """``pack_kernel_int8`` for the HID-512 engine (hid 320 padded to 512,
+    and 512 itself) against the JAX quantizer (``pack_mlp_weights_int8``
+    of the same weights and scales at the real width): every int8 weight
+    on its real rows and columns equal but for 1 LSB on < 0.1% of the
+    entries (test_torch_quant.py's rule: f32 scales folded in another
+    order), every requant row within rtol 1e-6 on the real columns (and
+    atol 1e-7, an f32 step at 0.5: ``B = b q + 0.5`` may be one fused
+    multiply-add in XLA, two roundings here, and cancels near 0); the
+    padded weights zero and the padded columns at unit activation scale
+    (qh 127, B 0.5, iq 1 / 127).  Its s8 slot images keep their K rows in
+    order (no PERM32: the engine reads A from a K-major tile in shared
+    memory) and unpack to the weights exactly."""
+    from nerfmatch_tpu.ops.pallas.quant import pack_mlp_weights_int8
+
+    params, mlp = make_mlp(hid, seed=21)
+    rng = np.random.default_rng(22)
+    enc = rng.uniform(0.1, 1.0, 90).astype(np.float32)
+    acts = [rng.uniform(0.5, 4.0, hid).astype(np.float32)
+            for _ in range(LAYERS)]
+    tap = TAP if start == 0 else None
+    spec = FusedRenderSpec(num_freqs=15, hid_dim=hid, layer_num=LAYERS,
+                           skips=SKIPS, feat_layer=TAP, ret_feat=tap is not None,
+                           trunk_int8_from=start)
+    jw = pack_mlp_weights_int8(params, spec, {"enc": enc, "acts": acts})
+    got = quant.pack_kernel_int8(mlp, {"enc": t(enc),
+                                       "acts": [t(a) for a in acts]}, start,
+                                 tap)
+    assert not quant.s8_rows_permuted(512) and quant.s8_rows_permuted(256)
+    W = 512
+    assert got["w3q"].shape == (W, W)
+    # The images: each matrix's rows in order, as slot_images_s8 lays them.
+    off = 0
+    for i in range(start, LAYERS):
+        for k in (f"w{i}q", f"w{i}sq"):
+            if k in got:
+                img = quant.slot_images_s8(got[k], permute=False)
+                assert torch.equal(got["img"][off:off + img.numel()], img), k
+                K, N = got[k].shape
+                assert torch.equal(unslot_s8(img, K, N, False), got[k]), k
+                off += img.numel()
+    assert off == got["img"].numel()
+    keys = [k for k in got if k not in ("start", "tap", "img")]
+    assert set(keys) <= set(jw) and not any(
+        k.endswith("q") and k not in got for k in jw)
+    for k in keys:
+        g, ref = got[k], np.asarray(jw[k])
+        assert torch.isfinite(g.float()).all(), k
+        if k.startswith("w"):
+            rows = ref.shape[0] if k.endswith("sq") or k == "w0q" else hid
+            rows = min(rows, g.shape[0])
+            _int8_equal(g[:rows, :hid].numpy(), ref[:rows, :hid])
+            assert not g[:, hid:].any() and not g[rows:].any(), k
+        else:
+            g = g.reshape(-1)
+            np.testing.assert_allclose(g[:hid].numpy() if g.numel() >= hid
+                                       else g.numpy(),
+                                       ref.reshape(-1)[:min(hid, g.numel())],
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+            pad = g[hid:] if k != "qenc" else g[:0]
+            if k == "qh":
+                assert torch.all(pad == 127.0), k
+            elif k.startswith("B"):
+                assert torch.all(pad == 0.5), k
+            elif k.startswith("iq"):
+                assert torch.all(pad == np.float32(1.0) / np.float32(127.0)), k
+
+
+def _int8_equal(ours, ref):
+    """int8 weights equal, except at most 1 LSB on < 0.1% of the entries
+    (test_torch_quant.py's rule)."""
+    d = np.abs(ours.astype(np.int32) - ref.astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() < 1e-3, (d.max(), (d > 0).mean())
+
+
+@pytest.mark.parametrize("hid", [96, 320, 512])
+def test_pack_stage_pads_once_with_the_same_bytes(hid):
+    """``render_kernel.pack_stage`` (the stage's MLP padded once, handed to
+    both packers; ``NerfRenderer.pack_fused``'s CUDA route) packs the bytes
+    of ``pack_mlp(mlp, pack_kernel_int8(mlp, ...))`` (which pads twice):
+    the bf16 stage, the int8 trunk from layer 0 with the tap, and the
+    'posttap' trunk, every packed tensor and every int8 row equal; the
+    stream is ``stream_bytes``'s at the eval width."""
+    _, mlp = make_mlp(hid, seed=23)
+    rng = np.random.default_rng(24)
+    scales = {"enc": t(rng.uniform(0.1, 1.0, 90)),
+              "acts": [t(rng.uniform(0.5, 4.0, hid)) for _ in range(LAYERS)]}
+    for start, tap in ((None, None), (0, TAP), (TAP + 1, TAP)):
+        got_w, got_q = rk.pack_stage(mlp, scales, start, tap)
+        ref_q = (None if start is None
+                 else quant.pack_kernel_int8(mlp, scales, start, tap))
+        ref_w = rk.pack_mlp(mlp, ref_q)
+        assert len(got_w) == len(ref_w)
+        for a, b in zip(got_w, ref_w):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        assert got_w[0].numel() * got_w[0].element_size() == \
+            rk.stream_bytes(mlp.cfg, start)
+        if start is None:
+            assert got_q is None
+            continue
+        assert set(got_q) == set(ref_q)
+        for k, v in ref_q.items():
+            assert (got_q[k] == v) if not torch.is_tensor(v) \
+                else torch.equal(got_q[k], v), k
+
+
+def test_width_sets_by_family():
+    """The eval kernels' widths (64, 128, 192, 256, 512) and the train
+    kernels' (64-256): eval 512 and every width up to it map to the
+    smallest that holds them, 513 raises; train 256 is the last, 257
+    raises; both name ROADMAP Queue 2A."""
+    assert rtk.EVAL_HIDS == (64, 128, 192, 256, 512)
+    assert rtk.TRAIN_HIDS == (64, 128, 192, 256)
+    assert rtk.kernel_width(512, "eval") == 512
+    assert rtk.kernel_width(257, "eval") == 512
+    assert rtk.kernel_width(256, "train") == 256
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A.*512"):
+        rtk.kernel_width(513, "eval")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A.*256"):
+        rtk.kernel_width(257, "train")
+    cfg = NerfConfig(layer_num=LAYERS, hid_dim=320, xyz_dim=90, dirs_dim=27,
+                     use_viewdirs=True, skips=SKIPS)
+    assert rtk.kernel_cfg(cfg, "eval").hid_dim == 512
+    assert not rtk.train_kernels_take(cfg)
+    assert rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=256))
+
+
+@pytest.mark.parametrize("hid,route", [(512, "plain"), (320, "plain"),
+                                       (256, "kernels"), (96, "kernels")])
+def test_trainer_route_follows_the_train_kernels_widths(hid, route):
+    """``nerf_trainer.train_route`` on a CUDA device string, from the
+    config alone (no launch, nothing moved to a card): a NeRF whose MLP the
+    train kernels hold takes the kernels, a wider one the plain route with
+    the reason without ``render.use_fused_train`` (the eval kernels still
+    serve it: ``fused_eval_supported`` holds at every width) and raises
+    with the flag, on CUDA or on the CPU; on the CPU without the flag every
+    width is plain."""
+    from nerfmatch_tpu_torch.config import dict2namespace
+    from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
+    from nerfmatch_tpu_torch.train.nerf_trainer import train_route
+
+    nerf = {"method": "NeRF", "layer_num": 2, "hid_dim": hid,
+            "output_dim": 4, "skips": [], "num_pts": 128}
+    r = NerfRenderer(dict2namespace({
+        "render": {"use_viewdirs": True, "white_bg": False},
+        "embedding": {"xyz_num_freqs": 15, "dirs_num_freqs": 4,
+                      "type": "mip"},
+        "coarse_nerf": nerf, "fine_nerf": nerf}), stop_layer=1)
+    assert r.fused_eval_supported
+    got, why = train_route(r, "cuda")
+    assert got == route
+    assert (why == "") == (route == "kernels")
+    if route == "plain":
+        assert f"hid_dim {hid}" in why and "256" in why
+    assert train_route(r, "cpu")[0] == "plain"
+    for dev in ("cuda", "cpu"):
+        if route == "plain":
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue 2A item 5"):
+                train_route(r, dev, use_fused_train=True)
+        else:
+            assert train_route(r, dev, use_fused_train=True) == (route, "")
