@@ -249,23 +249,26 @@ Phases (each prints its results; any failure exits non-zero):
    ``eval_batch(iters=2)`` with a c2f matcher (random weights, seed 0)
    of ``pt_dim`` 128; launches of kernels 1, 1b, 2, 5, 6 all above 0;
 12. a hid-512 NeRF end to end (``phase_hid128`` at ``hid`` 512): the same
-   config at ``hid_dim`` 512, which the train kernels do not take, with
-   ``render.use_fused_train`` off, trained by the CLI on the plain route
-   (``render_rays`` under autograd; the route and why logged), ``HID512_STEPS`` timed steps with the peak memory, its
-   scene points (kernels 1b, 2, 1 on ``render_eval_512.cuh``'s engine) and
-   one request with a c2f matcher of ``pt_dim`` 512; launches of kernels
-   1, 1b, 2 above 0, of 5 and 6 none.
+   config at ``hid_dim`` 512 with ``render.use_fused_train`` on, trained by
+   the CLI on kernels 5 and 6 (``render_train_512.cuh``'s engine; the
+   route and why logged), ``HID512_STEPS`` timed steps with the peak
+   memory, then as many on the plain route (``render_rays`` under
+   autograd, kernels 5 and 6 not launched) beside them, its scene points
+   (kernels 1b, 2, 1 on ``render_eval_512.cuh``'s engine) and one request
+   with a c2f matcher of ``pt_dim`` 512; launches of kernels 1, 1b, 2, 5
+   and 6 all above 0.
 
 Phases 3, 3d and 3b also hold the render kernels at the MLP widths
-``WIDTH_ROWS`` (32, 96, 128, 192, and for kernels 1 and 1b 512; 32 and 96
-run zero-padded at 64 and 128) to their plain versions on the room's 9216
+``WIDTH_ROWS`` (32, 96, 128, 192, 512; phase 3b ``TRAIN_WIDTH_ROWS``, also
+320; 32, 96 and 320 run zero-padded at 64, 128 and 512) to their plain
+versions on the room's 9216
 rays x 128 samples with seeded random weights (the rows' ``widths``:
 kernel 1 coarse and fine, 1b coarse and fine ``'posttap'``, 5 with its
 stash, 6, each with its bound on the real width's operations, 5 and 6
 with ``torch.mm`` over the same products, 1b with ``pack_fused``'s host
-ms; kernels 1 and 1b with their instantiation's registers, spills and
-dynamic shared memory; at 512 also the fine stage with ``app`` and with
-``feat_max``), and kernels 1 (at 256 and 512) and 5-6 at the widest
+ms; every one with its instantiation's registers, spills and dynamic
+shared memory; at 512 also the fine stage with ``app`` and with
+``feat_max``), and kernels 1 and 5-6 (each at 256 and 512) at the widest
 encoding the JAX kernels take (F = 21, Fd = 18, appearance rows;
 ``wide_encoding``, ``wide_encoding_512``).  The build's seconds and the
 smoke's total are printed before the kernel summary.
@@ -294,8 +297,8 @@ list carry phase 6's launches a merged training step at that shape
 (``launches_train_per_step``), and ``attention_bwd``'s
 ``merged_train_step`` the step's ms and peak memory; ``launches_phase11``
 is phase 11's count, and ``render_train_fwd``'s ``phase11_hid128`` its
-summary; ``launches_phase12`` phase 12's, and ``render_fine``'s
-``phase12_hid512`` its summary.  The last two lines are the kernel summary and ``{"ok": true,
+summary; ``launches_phase12`` phase 12's, and ``render_fine``'s and
+``render_train_fwd``'s ``phase12_hid512`` its summary.  The last two lines are the kernel summary and ``{"ok": true,
 ...}``.
 """
 
@@ -428,8 +431,18 @@ BENCH_PROTOCOLS = (
      ("render_coarse_int8", "resample", "attention", "dw_star_fwd")),
 )
 MERGED_S = 14400
-# Phase 12's timed NeRF steps (the hid-512 NeRF trains on the plain route).
+# Phase 12's timed NeRF steps (the hid-512 NeRF, on kernels 5-6; the same
+# count of plain-route steps beside them).
 HID512_STEPS = 10
+# What the train stages run at MLP width 512 (render_train_512.cuh).
+RENDER_TRAIN_512_DESIGN = (
+    "two warpgroups share a 64-row chunk (64 samples of a ray), each an "
+    "m64n256 chain on its half of every layer's 512 columns; A from a "
+    "K-major 64 x 512 tile in shared memory, epilogues written back in place "
+    "after a block barrier; a 4-slot ring of 32-row bulk-copied weight "
+    "slices; the stash rows copied out of the tile with 16-byte streaming "
+    "stores; the backward's ReLU masks read from the stash in global memory "
+    "and its vector partials summed in global memory")
 # Merged multi-pair training's attention shapes (L, S) at S = 14,400: the
 # image's queries over the points (the coarse former), the points' self
 # attention (pt_sa); the points' queries over the image (S = 3600) ride
@@ -1841,9 +1854,10 @@ def phase_check(evaluator, batch):
     assert agree >= 0.98 and ef_max < 1e-3
 
 
-# MLP widths held beside the room's 256 (512: the eval kernels only; the
-# train kernels take up to render_train_kernel.TRAIN_HIDS[-1]).
+# MLP widths held beside the room's 256 by the eval stages (phases 3, 3d)
+# and by the train stages (phase 3b: also 320, run at 512 padded).
 WIDTH_ROWS = (32, 96, 128, 192, 512)
+TRAIN_WIDTH_ROWS = (32, 96, 128, 192, 320, 512)
 # The widest encoding the JAX kernels take with an appearance table: F =
 # 21 (126 encoding columns), Fd = 18 (111 + 16 extras columns).
 WIDE_ENCODING = (21, 18)
@@ -2049,6 +2063,31 @@ def train_bwd_yardstick(mlp, rows):
     return cuda_ms(lambda: [torch.mm(a[:, :i].t(), b[:, :o]) for o, i in shapes], 3)
 
 
+def train_build_info(hid, enc=3):
+    """The ptxas lines (registers, spills) of the train kernels a stage at
+    kernel width ``hid`` runs (the training forward with its stash at
+    ``enc`` encoding slices, the trunk backward) -> {"fwd": [...], "bwd":
+    [...]}."""
+    import re
+
+    from nerfmatch_tpu_torch.ops import kernels
+
+    pats = {"fwd": (rf"train_fwd_kernelILi{hid}ELb1ELi{enc}E" if hid != 512
+                    else rf"train_fwd512_kernelILb1ELi{enc}E"),
+            "bwd": (rf"train_bwd_kernelILi{hid}E" if hid != 512
+                    else r"train_bwd512_kernel")}
+    name, out = "", {"fwd": [], "bwd": []}
+    log_path = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line or "spill" in line:
+            for k, pat in pats.items():
+                if re.search(pat, name):
+                    out[k].append(line.strip().replace("ptxas info    : ", ""))
+    return out
+
+
 def train_width_row(spec, rays, z, noise, target, app=None):
     """Kernels 5 (the training forward with its stash) and 6 (the backward
     on it) at ``spec.mlp``'s width against the plain stage (phase 3b's
@@ -2056,6 +2095,7 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     with cosine > 0.999) -> (forward row, backward row), each with its
     bound on the real width's operations and ``torch.mm`` over the same
     products."""
+    from nerfmatch_tpu_torch.ops import kernels
     from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
 
     mlp, cfg = spec.mlp, spec.mlp.cfg
@@ -2068,6 +2108,9 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     g_rgb, g_w = train_cotangents(z, rgb, w, target)
     ga = rtk.kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed,
                              app)
+    # The 512 engine's launches apart (one profiled call).
+    parts = (train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
+             if app is None and cfg.hid_dim > rtk.REGISTER_A_MAX else None)
     gb = rtk.train_stage_backward(spec, rays, z, noise, g_rgb, g_w, app=app)
     torch.cuda.synchronize()
     fwd_err = max(float((rgb - rgb_p).abs().max()), float((w - w_p).abs().max()))
@@ -2097,13 +2140,24 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     w_bytes = sum(p.numel() * 2 for p in mlp.parameters())
     g_bytes = sum(p.numel() * 4 for p in mlp.parameters())
     io = nbytes(rays, z, noise, rgb, w) + w_bytes
-    common = dict(hid=cfg.hid_dim,
-                  kernel_width=rtk.kernel_width(cfg.hid_dim, "train"))
+    width = rtk.kernel_width(cfg.hid_dim, "train")
+    enc = 3 if cfg.xyz_dim <= rtk.ENC_STD else 4
+    lib = kernels.library()
+    common = dict(hid=cfg.hid_dim, kernel_width=width,
+                  design=RENDER_TRAIN_512_DESIGN if width > rtk.REGISTER_A_MAX
+                  else "render_train.cuh (A in registers, 128-row chunks)")
+    ptxas = train_build_info(width, enc)
     fwd = dict(common, max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
                library_ms=train_fwd_yardstick(spec, n * S),
+               ptxas=ptxas["fwd"],
+               smem_bytes=lib.nm_render_train_smem(
+                   width, cfg.layer_num, spec.dirs_freqs, cfg.app_dim, 1),
                **bound(fwd_ops, io + stash_b))
     bwd = dict(common, max_abs_err=bwd_err, min_cosine=min_cos, ms=ms_b,
                plain_ms=plain_b, library_ms=train_bwd_yardstick(mlp, n * S),
+               ptxas=ptxas["bwd"], **({} if parts is None else {"parts": parts}),
+               smem_bytes=lib.nm_render_train_smem(
+                   width, cfg.layer_num, spec.dirs_freqs, cfg.app_dim, 0),
                **bound({k: 2 * v for k, v in fwd_ops.items()},
                        nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes
                        + stash_b))
@@ -2115,14 +2169,17 @@ def train_width_row(spec, rays, z, noise, target, app=None):
         f"scaled err={bwd_err:.3e} (tol 3e-2) min cosine {min_cos:.6f} (tol "
         f"0.999) ms={ms_b:.3f} plain_ms={plain_b:.3f} torch.mm "
         f"{bwd['library_ms']:.3f} bound {bwd['bound_ms']:.3f} "
-        f"({bwd['bound_by']})")
+        f"({bwd['bound_by']}); shared memory {fwd['smem_bytes']} / "
+        f"{bwd['smem_bytes']} bytes; ptxas forward {fwd['ptxas']}, trunk "
+        f"backward {bwd['ptxas']}")
     return fwd, bwd
 
 
 def train_width_rows(dev):
-    """Phase 3b's rows at ``WIDTH_ROWS`` (each width's fine MLP on phase
-    3b's 9216 rays x 128 jittered samples) and at the widest encoding with
-    appearance rows -> {row name: {hid or 'wide_encoding': row}}."""
+    """Phase 3b's rows at ``TRAIN_WIDTH_ROWS`` (each width's fine MLP on
+    phase 3b's 9216 rays x 128 jittered samples) and at the widest encoding
+    with appearance rows at hid 256 and 512 -> {row name: {hid,
+    'wide_encoding' or 'wide_encoding_512': row}}."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
         TRAIN_HIDS, StageSpec)
 
@@ -2135,25 +2192,28 @@ def train_width_rows(dev):
             f"{lib.nm_render_train_smem(hid, 8, 18, 16, 1)} at Fd = 18 with "
             f"appearance rows), trunk backward "
             f"{lib.nm_render_train_smem(hid, 8, 4, 0, 0)} (8 layers)")
-    out = {"render_train_fwd": {}, "render_train_bwd": {}}
-    for hid in (h for h in WIDTH_ROWS if h <= TRAIN_HIDS[-1]):
+    out = {"render_train_fwd": {}, "render_train_bwd": {},
+           "render_train_fwd_app": {}, "render_train_bwd_app": {}}
+    for hid in TRAIN_WIDTH_ROWS:
         r = width_renderer(hid, dev, seed=hid)
         spec, rays, z, noise, target = train_inputs(r, dev)
         fwd, bwd = train_width_row(spec, rays, z, noise, target)
         out["render_train_fwd"][str(hid)] = fwd
         out["render_train_bwd"][str(hid)] = bwd
         del r, spec
-    mlp, F, Fd = wide_encoding_mlp(dev)
     _, rays, z, noise, target = train_inputs(None, dev)
     g = torch.Generator(dev).manual_seed(3)
     app = 0.5 * torch.randn(2, 16, device=dev, generator=g)[
         torch.arange(rays.shape[0], device=dev) % 2].contiguous()
-    fwd, bwd = train_width_row(StageSpec(mlp, F, Fd), rays, z, noise, target,
-                               app)
-    for row in (fwd, bwd):
-        row.update(num_freqs=F, dirs_freqs=Fd, app_dim=16)
-    out["render_train_fwd_app"] = {"wide_encoding": fwd}
-    out["render_train_bwd_app"] = {"wide_encoding": bwd}
+    for hid, key in ((256, "wide_encoding"), (512, "wide_encoding_512")):
+        mlp, F, Fd = wide_encoding_mlp(dev, hid)
+        fwd, bwd = train_width_row(StageSpec(mlp, F, Fd), rays, z, noise,
+                                   target, app)
+        for row in (fwd, bwd):
+            row.update(num_freqs=F, dirs_freqs=Fd, app_dim=16)
+        out["render_train_fwd_app"][key] = fwd
+        out["render_train_bwd_app"][key] = bwd
+        del mlp
     return out
 
 
@@ -2472,23 +2532,26 @@ def train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed):
     the bytes each moves with their time at 3.35 TB/s, and ``torch.mm`` on
     stash-shaped bf16 operands for the weight-gradient GEMM's products (the
     yardstick of that launch; the port never calls it).  The backward reads
-    the stash and launches no forward."""
+    the stash and launches no forward -> {launch: ms}, and the GEMM's
+    ``torch.mm`` ms under ``"torch.mm"``."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
         backward_layout, kernel_backward)
 
     cfg = spec.mlp.cfg
-    n, S, H = rays.shape[0], z.shape[1] - 1, cfg.hid_dim
+    n, S = rays.shape[0], z.shape[1] - 1
     layout = backward_layout(cfg, n, S)
+    H = max(max(m, k) for m, k, _ in layout.products)   # the kernel width's
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
         torch.cuda.synchronize()
-    names = {"train_bwd_kernel": "trunk backward", "wgrad_gemm_kernel":
+    # train_bwd_kernel<HID> up to 256, train_bwd512_kernel at 512.
+    names = {"train_bwd": "trunk backward", "wgrad_gemm_kernel":
              "weight-gradient GEMM", "reduce_parts_kernel": "reductions"}
     part_ms = dict.fromkeys(names.values(), 0.0)
     fwd = 0
     for e in prof.key_averages():
-        fwd += e.count if "train_fwd_kernel" in e.key else 0
+        fwd += e.count if "train_fwd" in e.key else 0
         for key, label in names.items():
             if key in e.key:
                 part_ms[label] += e.self_device_time_total / 1e3
@@ -2511,6 +2574,7 @@ def train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed):
         f"GEMM {part_ms['weight-gradient GEMM']:.3f} ms vs torch.mm on "
         f"stash-shaped bf16 operands {lib_ms:.3f} ms (library_ms of that "
         f"launch; never called by the port)")
+    return dict(part_ms, **{"torch.mm": lib_ms})
 
 
 def scaled_err(a, b):
@@ -2991,11 +3055,13 @@ def phase_training(renderer, dev, seed, root):
 
 def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     """Phase 11 (12 at ``hid`` 512): a NeRF at MLP width ``hid`` end to
-    end.  The 7-Scenes config with ``hid_dim`` ``hid`` in both stages,
-    trained by the ``train_nerf`` CLI (--debug, 5 epochs of 10 steps) on
-    phase 5's room scene under ``root``, then ``steps`` timed
-    ``NerfTrainer`` steps (kernels 5, 6 up to 256; above, the plain route
-    with ``render.use_fused_train`` off, no launch of 5 or 6); its checkpoint served at the serving int8
+    end.  The 7-Scenes config with ``hid_dim`` ``hid`` in both stages and
+    ``render.use_fused_train`` on, trained by the ``train_nerf`` CLI
+    (--debug, 5 epochs of 10 steps) on phase 5's room scene under ``root``,
+    then ``steps`` timed ``NerfTrainer`` steps on kernels 5 and 6 (at 512
+    on render_train_512.cuh) and, at 512, as many on the plain route
+    (``render_rays`` under autograd) for the yardstick, with each one's
+    peak memory; its checkpoint served at the serving int8
     default: the scene points of the scene's 24 frames (kernels 1b, 2, 1)
     and one 480x480 request localized by ``eval_batch(iters=2)`` with a c2f
     matcher at random weights (seed 0) whose ``pt_dim`` follows the NeRF
@@ -3016,10 +3082,10 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
 
     cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
     cfg.coarse_nerf.hid_dim = cfg.fine_nerf.hid_dim = hid
-    # render.use_fused_train asks for kernels 5-6, which stop at
-    # TRAIN_HIDS[-1]: a wider NeRF trains without it (the plain route, as
-    # the JAX trainer's XLA path without the flag).
-    cfg.render.use_fused_train = hid <= TRAIN_HIDS[-1]
+    # render.use_fused_train asks for kernels 5-6, which take every width
+    # up to TRAIN_HIDS[-1].
+    assert hid <= TRAIN_HIDS[-1]
+    cfg.render.use_fused_train = True
     cfg.data.data_dir = str(root)
     cfg.data.scene = "room"
     cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
@@ -3043,16 +3109,21 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     data = [(torch.as_tensor(b["rays"], device=dev),
              torch.as_tensor(b["rgbs"], device=dev))
             for b in (next(batches) for _ in range(steps + 2))]
-    hist = [trainer.train_step(*data[i], gen) for i in range(2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    hist += [trainer.train_step(*data[i], gen) for i in range(2, steps + 2)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
-    peak = torch.cuda.max_memory_allocated()
+    def timed_steps(trainer):
+        """Two warm-up steps, then ``steps`` timed ones on the same batches
+        -> (metrics of every step, ms a step, peak bytes)."""
+        hist = [trainer.train_step(*data[i], gen) for i in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist += [trainer.train_step(*data[i], gen) for i in range(2, steps + 2)]
+        torch.cuda.synchronize()
+        return (hist, (time.perf_counter() - t0) / steps * 1e3,
+                torch.cuda.max_memory_allocated())
+
+    hist, step_ms, peak = timed_steps(trainer)
     loss = [float(m["loss"]) for m in hist]
-    route = "kernels" if hid <= TRAIN_HIDS[-1] else "plain"
+    route = "kernels"
     why = trainer.route_why or "the train kernels take the width"
     log(f"phase {phase}: train route {trainer.route} ({why}), {steps} steps "
         f"of {step_ms:.2f} ms, peak {peak / 2**30:.2f} GiB")
@@ -3061,11 +3132,29 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     loss_head, loss_tail = float(np.mean(loss[:n5])), float(np.mean(loss[-n5:]))
     assert loss_tail < loss_head, loss
     train_launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
-    if route == "plain":   # neither the CLI nor the steps ran kernels 5-6
-        assert train_launches["render_train_fwd"] == 0, train_launches
-        assert train_launches["render_train_bwd"] == 0, train_launches
-        train_launches = {k: v for k, v in train_launches.items()
-                          if k != "resample"}
+    assert all(v > 0 for v in train_launches.values()), train_launches
+    plain = {}
+    if hid > 256:
+        # The yardstick: the same steps on the plain route (render_rays
+        # under autograd; what a NeRF of this width trained on before its
+        # train kernels), from the same start, kernels 5-6 not launched.
+        del trainer
+        torch.cuda.empty_cache()
+        trainer = NerfTrainer(cfg, device=dev, seed=seed)
+        trainer.use_fused, trainer.route = False, "plain"
+        gen = torch.Generator(dev).manual_seed(seed)
+        counts = {k: LAUNCHES[k] for k in ("render_train_fwd", "render_train_bwd")}
+        p_hist, p_ms, p_peak = timed_steps(trainer)
+        assert counts == {k: LAUNCHES[k] for k in counts}, counts
+        p_loss = [float(m["loss"]) for m in p_hist]
+        assert all(np.isfinite(p_loss)), p_loss
+        plain = dict(plain_step_ms=p_ms, plain_peak_gib=p_peak / 2**30,
+                     plain_loss_first=p_loss[0], plain_loss_last=p_loss[-1])
+        log(f"phase {phase}: the same {steps} steps on the plain route "
+            f"{p_ms:.2f} ms a step, peak {p_peak / 2**30:.2f} GiB (kernels "
+            f"5-6: {step_ms:.2f} ms, {peak / 2**30:.2f} GiB); loss "
+            f"{p_loss[0]:.5f} -> {p_loss[-1]:.5f} (kernels {loss[0]:.5f} -> "
+            f"{loss[-1]:.5f})")
     del trainer, data
 
     serving = NerfRenderer(cfg, stop_layer=3)
@@ -3111,7 +3200,7 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
         np.isfinite(c2w).all() and np.isfinite([r_err, t_err]).all())
     out = dict(hid=hid, cli_s=cli_s, cli_steps=50, steps=steps,
                step_ms=step_ms, train_route=route,
-               peak_gib=peak / 2**30, loss_first=loss[0],
+               peak_gib=peak / 2**30, loss_first=loss[0], **plain,
                loss_steps=n5, loss_first_steps=loss_head,
                loss_last_steps=loss_tail,
                cache_ms_per_frame=cache_ms, scene_points_ms=(t1 - t0) * 1e3,
@@ -3120,8 +3209,7 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
                trunk_int8=serving.cfg.trunk_int8, matcher_pt_dim=hid,
                launches=launches)
     log(f"phase {phase} (hid {hid} end to end): " + json.dumps(out))
-    missing = [k for k, v in launches.items()
-               if v == 0 and not (route == "plain" and "train" in k)]
+    missing = [k for k, v in launches.items() if v == 0]
     assert not missing, f"phase {phase} never launched: {missing}"
     return out
 
@@ -5250,8 +5338,10 @@ def main():
     rows.update(phase_train_kernels(renderer, dev))
     rows.update(phase_train_app_kernels(renderer, dev))
     for name, by_hid in train_width_rows(dev).items():
-        key = "wide_encoding" if name.endswith("_app") else "widths"
-        rows[name][key] = by_hid.get(key, by_hid)
+        if name.endswith("_app"):
+            rows[name].update(by_hid)
+        else:
+            rows[name]["widths"] = by_hid
     torch.cuda.empty_cache()
     with torch.no_grad():
         rows.update(phase_matcher_kernels(dev))
@@ -5360,11 +5450,13 @@ def main():
         rows[n]["launches_phase11"] = c
     rows["render_train_fwd"]["phase11_hid128"] = {
         k: v for k, v in hid128.items() if k != "launches"}
-    # Phase 12's (the hid-512 NeRF: kernels 1, 1b, 2; 5 and 6 at 0).
+    # Phase 12's (the hid-512 NeRF: kernels 5, 6 and 2 in training; 1, 1b
+    # and 2 serving it).
     for n, c in hid512["launches"].items():
         rows[n]["launches_phase12"] = c
-    rows["render_fine"]["phase12_hid512"] = {
-        k: v for k, v in hid512.items() if k != "launches"}
+    for n in ("render_fine", "render_train_fwd"):
+        rows[n]["phase12_hid512"] = {
+            k: v for k, v in hid512.items() if k != "launches"}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -266,11 +266,6 @@ struct EvalSmem {
   }
 };
 
-// The 128 threads of warpgroup wg (named barrier 1 + wg).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
 // An accumulator element as f32: the bf16 trunk keeps f32 variables, the
 // int8 trunk one array of 32-bit integer variables for its s32 and f32
 // products (and the f32 bits of an s8 layer's epilogue).

@@ -1,7 +1,8 @@
 // The NeRF train-render stage's weight-gradient GEMM, its reductions, the
 // appearance-row gradient and the C entries (kernels 5 and 6: the forward
 // and the trunk backward are render_train.cuh, instantiated at each width
-// in render_train_<HID>.cu).
+// in render_train_<HID>.cu, and render_train_512.cuh at 512; launches 2-4
+// below take every width).
 
 #include "render_train.cuh"
 
@@ -204,7 +205,8 @@ size_t carve_grad(const Dims& d, char* base, Stash* st, float** mat_part) {
   return off;
 }
 
-// The instantiated widths (render_train_<HID>.cu, render_train_wide_<HID>.cu).
+// The instantiated widths (render_train_<HID>.cu, render_train_wide_<HID>.cu;
+// 512: render_train_512.cu, render_train_wide_512.cu).
 struct TrainWidth {
   int hid;
   decltype(&nm_train::train_fwd_64) fwd, fwd_wide;
@@ -213,7 +215,8 @@ struct TrainWidth {
 #define NM_TRAIN_WIDTH_ROW(H) \
   {H, nm_train::train_fwd_##H, nm_train::train_fwd_wide_##H, nm_train::train_bwd_##H}
 const TrainWidth kWidths[] = {NM_TRAIN_WIDTH_ROW(64), NM_TRAIN_WIDTH_ROW(128),
-                              NM_TRAIN_WIDTH_ROW(192), NM_TRAIN_WIDTH_ROW(256)};
+                              NM_TRAIN_WIDTH_ROW(192), NM_TRAIN_WIDTH_ROW(256),
+                              NM_TRAIN_WIDTH_ROW(512)};
 #undef NM_TRAIN_WIDTH_ROW
 
 const TrainWidth* train_width(int hid) {
@@ -267,7 +270,7 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
 // rows there (null where the layer takes no encoding); WhT_i (null for
 // layer 0), wfT, wvhT: the backward's slot images of the (out x in) rows.
 // stash: null (no gradient to come), or the stash for the backward (as
-// nm_render_train_workspace sizes it).  hid: 64, 128, 192 or 256;
+// nm_render_train_workspace sizes it).  hid: 64, 128, 192, 256 or 512;
 // num_freqs <= 21; 6 * dirs_freqs + 3 (+ 16 with appearance rows) <= 128.
 extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
@@ -297,7 +300,7 @@ size_t train_smem(int layer_num, int ew, bool fwd) {
 }
 
 // Dynamic shared memory of the forward (fwd) or of the trunk backward at
-// hid (64, 128, 192 or 256), with layer_num layers, dirs_freqs
+// hid (64, 128, 192, 256 or 512), with layer_num layers, dirs_freqs
 // view-direction frequencies and app_dim (0 or kAppDim) appearance
 // columns, in bytes; -1 for another width.
 extern "C" int nm_render_train_smem(int hid, int layer_num, int dirs_freqs,
@@ -308,6 +311,7 @@ extern "C" int nm_render_train_smem(int hid, int layer_num, int dirs_freqs,
     case 128: return (int)train_smem<128>(layer_num, ew, fwd);
     case 192: return (int)train_smem<192>(layer_num, ew, fwd);
     case 256: return (int)train_smem<256>(layer_num, ew, fwd);
+    case 512: return (int)nm_train::train_smem_512(ew, fwd != 0);
     default: return -1;
   }
 }

@@ -5,15 +5,16 @@
 // below); render_train.cu the weight-gradient GEMM, the reductions and the
 // C entries, each render_train_<HID>.cu the instantiations at one MLP
 // width, HID in {64, 128, 192, 256}, and each render_train_wide_<HID>.cu
-// the forward's at the wide encoding (one nvcc process each).  An MLP of
-// another width up to 256 runs at the smallest of these that holds it,
-// zero-padded on the host (render_train_kernel.py:
-// pad_mlp_to_kernel_width).  The encoding takes 2 * 3 * F <= 128 columns
-// (F <= 21): the forward's products and the stash take enc_rows(F) of
-// them, 96 up to F = 16 (ENC = 3 slices, the production encoding's code)
-// and 128 beyond (ENC = 4); a ray's extras row the view-direction PE
-// padded to dirs_rows(Fd) (32 at Fd = 4) and the appearance row, at most
-// kExtraMax + 16.
+// the forward's at the wide encoding (one nvcc process each); width 512
+// runs on an engine of its own (render_train_512.cuh, the same stash
+// layout) behind the same C entries.  An MLP of another width up to 512
+// runs at the smallest of these that holds it, zero-padded on the host
+// (render_train_kernel.py: pad_mlp_to_kernel_width).  The encoding takes
+// 2 * 3 * F <= 128 columns (F <= 21): the forward's products and the stash
+// take enc_rows(F) of them, 96 up to F = 16 (ENC = 3 slices, the
+// production encoding's code) and 128 beyond (ENC = 4); a ray's extras
+// row the view-direction PE padded to dirs_rows(Fd) (32 at Fd = 4) and the
+// appearance row, at most kExtraMax + 16.
 //
 // Replaces the TPU kernels nerfmatch_tpu/ops/pallas/render_train.py:
 // make_fused_train_render -> _fwd_impl (:420, fwd_kernel) and _bwd_impl
@@ -163,7 +164,8 @@ struct Stash {
 // encoding's, and the wide one's) and the trunk backward (launch 1; *parts
 // gets its blocks, the vector partials' rows) at one width; defined by
 // NM_RENDER_TRAIN_WIDTH in render_train_<HID>.cu and NM_RENDER_TRAIN_WIDE
-// in render_train_wide_<HID>.cu.
+// in render_train_wide_<HID>.cu (HID 64-256), and at 512 by
+// render_train_512.cuh's NM_RENDER_TRAIN_512 and NM_RENDER_TRAIN_WIDE_512.
 #define NM_RENDER_TRAIN_DECL(H)                                                \
   cudaError_t train_fwd_##H(const TrainParams& p, const Stash& st, bool stash,  \
                             int n_rays, int layer_num, int F, int Fd, int S,    \
@@ -181,7 +183,11 @@ NM_RENDER_TRAIN_DECL(64)
 NM_RENDER_TRAIN_DECL(128)
 NM_RENDER_TRAIN_DECL(192)
 NM_RENDER_TRAIN_DECL(256)
+NM_RENDER_TRAIN_DECL(512)
 #undef NM_RENDER_TRAIN_DECL
+// Dynamic shared memory of the 512 engine (render_train_512.cuh): the
+// forward with ew extras columns a ray (fwd), else the trunk backward.
+size_t train_smem_512(int ew, bool fwd);
 
 }  // namespace nm_train
 
@@ -236,6 +242,167 @@ struct BwdSmem {
            8 * (1 + kRingStages);
   }
 };
+
+// ---- per-row stages of both train engines (this header's at HID 64-256,
+//      render_train_512.cuh's at 512); each engine keeps its own row
+//      layout and calls these with it ----
+
+// Sample s of a ray (ray: its 12 packed floats, zr: its S + 1 fenceposts):
+// the frustum's Gaussian mean in[0..2], variance in[3..5] and its
+// interval t1 - t0 in[6].
+__device__ __forceinline__ void frustum_row(const float* ray, const float* zr, int s,
+                                            float var_scale, float* in) {
+  const float t0 = zr[s], t1 = zr[s + 1];
+  const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
+  const float mu2 = mu * mu, hw2 = hw * hw;
+  const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
+  const float t_mean = mu + (2.f * mu * hw2) / den;
+  float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
+  const float rad = ray[11];
+  float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
+  t_var *= var_scale;
+  r_var *= var_scale;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float d = ray[8 + c], d2 = d * d;
+    in[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
+    in[3 + c] = t_var * d2 + r_var * (1.f - d2);
+  }
+  in[6] = t1 - t0;
+}
+
+// Integrated positional encoding of column j < 3 F of a row (in: its
+// frustum_row values): v[0] its sin column (j), v[1] its cos one (3 F + j),
+// f32 rounded to bf16.
+__device__ __forceinline__ void ipe_pair(const float* in, int j, __nv_bfloat16 (&v)[2]) {
+  const int f = j / 3, c = j % 3;
+  const float x = in[c] * exp2f((float)f);
+  const float y = in[3 + c] * exp2f((float)(2 * f));
+  const float damp = expf(-0.5f * y);
+  v[0] = __float2bfloat16(damp * sinf(x));
+  v[1] = __float2bfloat16(damp * sinf(x + kHalfPi));
+}
+
+// Column j of ray n's extras row (f32, before its bf16 rounding): the
+// view-direction PE [sin(2^f d) | cos | d], zeros to dpad = dirs_rows(Fd),
+// then the appearance row.
+__device__ __forceinline__ float extras_value(const TrainParams& p, int n, int j, int Fd,
+                                              int dirs_dim, int dpad) {
+  const float* ray = p.rays + (size_t)n * 12;
+  float v = 0.f;
+  if (j < 6 * Fd) {
+    const int jj = j % (3 * Fd);
+    const float x = ray[8 + jj % 3] * exp2f((float)(jj / 3));
+    v = j < 3 * Fd ? sinf(x) : sinf(x + kHalfPi);
+  } else if (j < dirs_dim) {
+    v = ray[8 + j - 6 * Fd];
+  } else if (j >= dpad) {
+    v = p.app[(size_t)n * kAppDim + j - dpad];
+  }
+  return v;
+}
+
+// Column k of a ray's views-layer contribution xt = extras @ [wvd; wva]
+// (e: its extras row, bf16 values; f32 FMAs in order), HV columns.
+template <int HV>
+__device__ __forceinline__ float xt_value(const TrainParams& p, const float* e, int k,
+                                          int dirs_dim, int dpad) {
+  float s = 0.f;
+  for (int j = 0; j < dirs_dim; ++j) s = fmaf(e[j], __ldg(p.wvd + (size_t)j * HV + k), s);
+  if (p.wva != nullptr)
+    for (int j = 0; j < kAppDim; ++j)
+      s = fmaf(e[dpad + j], __ldg(p.wva + (size_t)j * HV + k), s);
+  return s;
+}
+
+// The heads on a row's summed dot products: sigma_raw (the caller's
+// density noise added before the ReLU of the compositing) and one rgb
+// channel.
+__device__ __forceinline__ float sigma_raw_head(const TrainParams& p, float s, size_t rg) {
+  return s + __ldg(p.ba) + p.noise[rg];
+}
+__device__ __forceinline__ float rgb_head(const TrainParams& p, float s, int c) {
+  return 1.f / (1.f + expf(-(s + __ldg(p.br + c))));
+}
+
+// Compositing of a row (one a lane of each 16-lane half of a warp, rows in
+// sample order): its alpha, lt = log(1 - alpha), and incl, the inclusive
+// prefix sum of lt over the lanes of its half.
+__device__ __forceinline__ float alpha_scan16(float sigma_raw, float dist, int lane, float& lt,
+                                              float& incl) {
+  const float alpha = 1.f - expf(-fmaxf(sigma_raw, 0.f) * dist);
+  lt = logf(1.f - alpha + 1e-10f);
+  incl = lt;
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o, 16);
+    if ((lane & 15) >= o) incl += v;
+  }
+  return alpha;
+}
+
+// A row's weight and weighted rgb summed over the 16 rows of its half-warp.
+__device__ __forceinline__ void sum16(float (&sums)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) sums[c] += __shfl_xor_sync(0xffffffffu, sums[c], o);
+}
+
+// The composite backward of ray n on one warp, blocks of 32 samples from
+// the far end (the reverse exclusive prefix sum of g_w * w): each sample's
+// g_sigma_raw (gsr[s]) and rgb-logit gradient (grgb[3 s + c], and bf16 into
+// st.g_rgb); tot: their sums over the ray (rgb 0-2, sigma_raw 3).
+__device__ __forceinline__ void composite_bwd_ray(const TrainParams& p, const Stash& st,
+                                                  const float* g_rgb_in, const float* g_w_in,
+                                                  int n, int S, int lane, int white_bg,
+                                                  float* gsr, float* grgb, float* tot) {
+  const float g0 = g_rgb_in[n * 3 + 0], g1 = g_rgb_in[n * 3 + 1], g2 = g_rgb_in[n * 3 + 2];
+  const float* zr = p.z + (size_t)n * (S + 1);
+  float carry = 0.f, sum_gsr = 0.f, sum_g[3] = {0.f, 0.f, 0.f};
+  for (int b = S / 32 - 1; b >= 0; --b) {
+    const int s = b * 32 + lane;
+    const size_t rg = (size_t)n * S + s;
+    const float* rec = st.rec + rg * kRecWidth;
+    const float rgb[3] = {rec[0], rec[1], rec[2]};
+    const float sigma_raw = rec[3], alpha = rec[4], trans = rec[5];
+    const float w = alpha * trans;
+    float gw = g_w_in[rg] + g0 * rgb[0] + g1 * rgb[1] + g2 * rgb[2];
+    if (white_bg) gw -= g0 + g1 + g2;
+    const float qv = gw * w;
+    float incl = qv;  // suffix sum over lanes >= lane
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += v;
+    }
+    const float after = carry + (incl - qv);
+    carry += __shfl_sync(0xffffffffu, incl, 0);
+    const float g_alpha = gw * trans - after / (1.f - alpha + 1e-10f);
+    const float g_sigma = g_alpha * (1.f - alpha) * (zr[s + 1] - zr[s]);
+    const float g_sr = sigma_raw > 0.f ? g_sigma : 0.f;
+    gsr[s] = g_sr;
+    sum_gsr += g_sr;
+    const float gc[3] = {g0, g1, g2};
+    float v[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      v[c] = gc[c] * w * rgb[c] * (1.f - rgb[c]);
+      grgb[s * 3 + c] = v[c];
+      sum_g[c] += v[c];
+    }
+    *reinterpret_cast<uint4*>(st.g_rgb + rg * kGrgbWidth) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], 0.f), 0u, 0u);
+  }
+  sum_gsr = warp_sum(sum_gsr);
+  for (int c = 0; c < 3; ++c) sum_g[c] = warp_sum(sum_g[c]);
+  if (lane == 0) {
+    tot[0] = sum_g[0];
+    tot[1] = sum_g[1];
+    tot[2] = sum_g[2];
+    tot[3] = sum_gsr;
+  }
+}
 
 // ---- the forward: heads, trunk and compositing, one 128-row chunk at a time ----
 
@@ -439,17 +606,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
     // cos | d], zeros to dpad, then the appearance row.
     for (int i = tid; i < G * ew; i += kBwdThreads) {
       const int r = i / ew, j = i % ew;
-      const float* ray = p.rays + (size_t)(ray0 + r) * 12;
-      float v = 0.f;
-      if (j < 6 * Fd) {
-        const int jj = j % (3 * Fd);
-        const float x = ray[8 + jj % 3] * exp2f((float)(jj / 3));
-        v = j < 3 * Fd ? sinf(x) : sinf(x + kHalfPi);
-      } else if (j < dirs_dim) {
-        v = ray[8 + j - 6 * Fd];
-      } else if (j >= dpad) {
-        v = p.app[(size_t)(ray0 + r) * kAppDim + j - dpad];
-      }
+      const float v = extras_value(p, ray0 + r, j, Fd, dirs_dim, dpad);
       dpe[r * ew + j] = bf16_round(v);
       if (kStash) st.extras[(size_t)(ray0 + r) * ew + j] = __float2bfloat16(v);
     }
@@ -458,14 +615,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
     // xt = extras @ [wvd; wva] (bf16 values, f32 FMAs), once a ray.
     for (int i = tid; i < G * HV; i += kBwdThreads) {
       const int r = i / HV, k = i % HV;
-      const float* e = dpe + r * ew;
-      float s = 0.f;
-      for (int j = 0; j < dirs_dim; ++j)
-        s = fmaf(e[j], __ldg(p.wvd + (size_t)j * HV + k), s);
-      if (p.wva != nullptr)
-        for (int j = 0; j < kAppDim; ++j)
-          s = fmaf(e[dpad + j], __ldg(p.wva + (size_t)j * HV + k), s);
-      xt[i] = s;
+      xt[i] = xt_value<HV>(p, dpe + r * ew, k, dirs_dim, dpad);
     }
 
     for (int ch = 0; ch < unit_chunks; ++ch) {
@@ -477,39 +627,16 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
       // ---- per-row frustum moments -> Gaussian mean / variance ----
       if (tid < kChunkRows) {
         const int ul = ch * kChunkRows + tid, n = ray0 + ul / S, s = ul % S;
-        const float* ray = p.rays + (size_t)n * 12;
-        const float* zr = p.z + (size_t)n * (S + 1);
-        const float t0 = zr[s], t1 = zr[s + 1];
-        const float mu = (t0 + t1) / 2.f, hw = (t1 - t0) / 2.f;
-        const float mu2 = mu * mu, hw2 = hw * hw;
-        const float den = fmaxf(kF32Eps, 3.f * mu2 + hw2);
-        const float t_mean = mu + (2.f * mu * hw2) / den;
-        float t_var = hw2 / 3.f - (4.f / 15.f) * ((hw2 * hw2 * (12.f * mu2 - hw2)) / (den * den));
-        const float rad = ray[11];
-        float r_var = rad * rad * (mu2 / 4.f + (5.f / 12.f) * hw2 - (4.f / 15.f) * (hw2 * hw2) / den);
-        t_var *= var_scale;
-        r_var *= var_scale;
-        float* in = info + tid * 8;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float d = ray[8 + c], d2 = d * d;
-          in[c] = __fadd_rn(__fmul_rn(d, t_mean), ray[c]);
-          in[3 + c] = t_var * d2 + r_var * (1.f - d2);
-        }
-        in[6] = t1 - t0;
+        frustum_row(p.rays + (size_t)n * 12, p.z + (size_t)n * (S + 1), s, var_scale,
+                    info + tid * 8);
       }
       __syncthreads();
       // ---- integrated positional encoding (f32, rounded to bf16) into the
       //      encoding tile and, for the stash, the row buffer ----
       for (int i = tid; i < kChunkRows * 3 * F; i += kBwdThreads) {
         const int row = i / (3 * F), j = i % (3 * F);
-        const int f = j / 3, c = j % 3;
-        const float* in = info + row * 8;
-        const float x = in[c] * exp2f((float)f);
-        const float y = in[3 + c] * exp2f((float)(2 * f));
-        const float damp = expf(-0.5f * y);
-        const __nv_bfloat16 v[2] = {__float2bfloat16(damp * sinf(x)),
-                                    __float2bfloat16(damp * sinf(x + kHalfPi))};
+        __nv_bfloat16 v[2];
+        ipe_pair(info + row * 8, j, v);
         unsigned char* tile = sm + L::kEncOff + (row >> 6) * 2 * L::kEncBlock;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -565,7 +692,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         s += __shfl_xor_sync(0xffffffffu, s, 1);
         s += __shfl_xor_sync(0xffffffffu, s, 2);
         const int row = wg * 64 + wrow + 8 * h;
-        if (t == 0) rec[row * 8 + 3] = s + __ldg(p.ba) + p.noise[rg0 + row];
+        if (t == 0) rec[row * 8 + 3] = sigma_raw_head(p, s, rg0 + row);
       }
 
       // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16 ----
@@ -618,7 +745,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
             float s = pr[h][c];
             s += __shfl_xor_sync(0xffffffffu, s, 1);
             s += __shfl_xor_sync(0xffffffffu, s, 2);
-            if (t == 0) rec[row * 8 + c] = 1.f / (1.f + expf(-(s + __ldg(p.br + c))));
+            if (t == 0) rec[row * 8 + c] = rgb_head(p, s, c);
           }
         }
       }
@@ -633,14 +760,8 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         const int row = warp * 16 + (lane & 15);
         const int r = (ch * kChunkRows + row) / S;   // ray of the unit
         float* rr = rec + row * 8;
-        const float alpha = 1.f - expf(-fmaxf(rr[3], 0.f) * info[row * 8 + 6]);
-        const float lt = logf(1.f - alpha + 1e-10f);
-        float incl = lt;
-#pragma unroll
-        for (int o = 1; o < 16; o <<= 1) {
-          const float v = __shfl_up_sync(0xffffffffu, incl, o, 16);
-          if ((lane & 15) >= o) incl += v;
-        }
+        float lt, incl;
+        const float alpha = alpha_scan16(rr[3], info[row * 8 + 6], lane, lt, incl);
         if (lane == 15) seg[warp * 8] = incl;
         __syncthreads();
         const int w0 = S >= kChunkRows ? 0 : warp & ~(S / 16 - 1);  // ray's first
@@ -649,10 +770,7 @@ train_fwd_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
         const float trans = expf(before + (incl - lt));
         const float wt = alpha * trans;
         float sums[4] = {wt, wt * rr[0], wt * rr[1], wt * rr[2]};
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int o = 8; o > 0; o >>= 1) sums[c] += __shfl_xor_sync(0xffffffffu, sums[c], o);
+        sum16(sums);
         if (lane < 16) {
           out_w[rg0 + row] = wt;
           rr[4] = alpha;
@@ -868,55 +986,9 @@ train_bwd_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays,
       //      32 samples from the far end (reverse exclusive prefix sum of
       //      g_w * w) ----
       if (ch == 0) {
-        if (warp < G) {
-          const int r = warp, n = ray0 + r;
-          const float g0 = g_rgb_in[n * 3 + 0], g1 = g_rgb_in[n * 3 + 1],
-                      g2 = g_rgb_in[n * 3 + 2];
-          const float* zr = p.z + (size_t)n * (S + 1);
-          float carry = 0.f, sum_gsr = 0.f, sum_g[3] = {0.f, 0.f, 0.f};
-          for (int b = S / 32 - 1; b >= 0; --b) {
-            const int s = b * 32 + lane;
-            const size_t rg = (size_t)n * S + s;
-            const float* rec = st.rec + rg * kRecWidth;
-            const float rgb[3] = {rec[0], rec[1], rec[2]};
-            const float sigma_raw = rec[3], alpha = rec[4], trans = rec[5];
-            const float w = alpha * trans;
-            float gw = g_w_in[rg] + g0 * rgb[0] + g1 * rgb[1] + g2 * rgb[2];
-            if (white_bg) gw -= g0 + g1 + g2;
-            const float qv = gw * w;
-            float incl = qv;  // suffix sum over lanes >= lane
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-              const float v = __shfl_down_sync(0xffffffffu, incl, o);
-              if (lane + o < 32) incl += v;
-            }
-            const float after = carry + (incl - qv);
-            carry += __shfl_sync(0xffffffffu, incl, 0);
-            const float g_alpha = gw * trans - after / (1.f - alpha + 1e-10f);
-            const float g_sigma = g_alpha * (1.f - alpha) * (zr[s + 1] - zr[s]);
-            const float g_sr = sigma_raw > 0.f ? g_sigma : 0.f;
-            gsr[r * S + s] = g_sr;
-            sum_gsr += g_sr;
-            const float gc[3] = {g0, g1, g2};
-            float v[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              v[c] = gc[c] * w * rgb[c] * (1.f - rgb[c]);
-              grgb[(r * S + s) * 3 + c] = v[c];
-              sum_g[c] += v[c];
-            }
-            *reinterpret_cast<uint4*>(st.g_rgb + rg * kGrgbWidth) =
-                make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], 0.f), 0u, 0u);
-          }
-          sum_gsr = warp_sum(sum_gsr);
-          for (int c = 0; c < 3; ++c) sum_g[c] = warp_sum(sum_g[c]);
-          if (lane == 0) {
-            tot[r * 4 + 0] = sum_g[0];
-            tot[r * 4 + 1] = sum_g[1];
-            tot[r * 4 + 2] = sum_g[2];
-            tot[r * 4 + 3] = sum_gsr;
-          }
-        }
+        if (warp < G)
+          composite_bwd_ray(p, st, g_rgb_in, g_w_in, ray0 + warp, S, lane, white_bg,
+                            gsr + warp * S, grgb + warp * S * 3, tot + warp * 4);
         __syncthreads();
         if (tid == 0) {
           for (int r = 0; r < G; ++r) {

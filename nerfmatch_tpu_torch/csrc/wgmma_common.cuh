@@ -1,8 +1,9 @@
 // Device helpers shared by the Hopper kernels that stage their operands
 // asynchronously (attention.cu, render_train.cu, render_eval.cu; sepconv.cu
 // uses the copy and mbarrier helpers) and multiply with wgmma:
-// cp.async and bulk copies into shared memory, mbarriers, the fence to the
-// asynchronous proxy, the 128-byte swizzle and its wgmma descriptors, and
+// cp.async and bulk copies into shared memory, mbarriers, a warpgroup's
+// named barrier, the fence to the asynchronous proxy, the 128-byte swizzle
+// and its wgmma descriptors, and
 // wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators) and m64nNk32
 // (s8 operands, s32 accumulators) with A in registers or in shared memory.
 #pragma once
@@ -99,6 +100,11 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
 // This thread's bulk stores have read their shared memory.
 __device__ __forceinline__ void bulk_read_done() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// The 128 threads of warpgroup wg (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
 // ---- wgmma ----

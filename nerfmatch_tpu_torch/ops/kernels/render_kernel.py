@@ -32,7 +32,7 @@ trunk, or the int8 trunk of ``quant.pack_kernel_int8`` (s8 ``wgmma`` from
 its first int8 layer on).  An MLP whose width is not instantiated
 (``render_train_kernel.EVAL_HIDS``) runs at the next wider one on
 zero-padded weights, and its descriptor is sliced back to its width; above
-512 it raises (ROADMAP Queue 2A).  CPU tensors run
+512 it raises (ROADMAP Queue 2).  CPU tensors run
 :func:`render_stage_plain`.
 """
 

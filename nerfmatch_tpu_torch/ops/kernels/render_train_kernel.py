@@ -14,13 +14,15 @@ comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
 303-312``).
 
 Widths: the kernels are instantiated at the MLP widths :data:`TRAIN_HIDS`
-(the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`); an MLP
-of another width up to 256 runs at the smallest of them that holds it, on
-a zero-padded copy of its weights (:func:`pad_mlp_to_kernel_width`: the
-padded hidden units take zero weights in and out and a zero bias, so they
-stay 0 and move nothing), and its gradients are sliced back to the
-parameters' shapes.  Wider MLPs raise ``NotImplementedError`` on the card
-(``NerfTrainer`` trains them on the plain route: :func:`train_kernels_take`).
+(the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`; 512 in
+both on engines of their own, ``csrc/render_train_512.cuh`` and
+``csrc/render_eval_512.cuh``); an MLP of another width up to 512 runs at
+the smallest of them that holds it, on a zero-padded copy of its weights
+(:func:`pad_mlp_to_kernel_width`: the padded hidden units take zero weights
+in and out and a zero bias, so they stay 0 and move nothing), and its
+gradients are sliced back to the parameters' shapes.  Wider MLPs raise
+``NotImplementedError`` on the card (``NerfTrainer`` trains them on the
+plain route without ``render.use_fused_train``: :func:`train_kernels_take`).
 The encoding takes 2 * 3 * F <= 128 columns and a ray's view-direction PE
 plus its appearance row <= 128, the JAX kernels' limits; the products and
 the stash take them padded (:func:`enc_rows`: 96 rows up to 96 columns,
@@ -60,14 +62,16 @@ from ...nerf.sampling import frustum_moments
 TILE_RAYS = 2         # csrc: kTileRays (N even; N / 2 vector-partial rows)
 KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
 # The instantiated MLP widths of each kernel family: the train kernels
-# (csrc: render_train_<HID>.cu) and the eval render kernels (csrc:
-# render_eval_<trunk>_<HID>.cu, HID 512 on render_eval_512.cuh's engine).
-TRAIN_HIDS = (64, 128, 192, 256)
+# (csrc: render_train_<HID>.cu, HID 512 on render_train_512.cuh's engine)
+# and the eval render kernels (csrc: render_eval_<trunk>_<HID>.cu, HID 512
+# on render_eval_512.cuh's engine).
+TRAIN_HIDS = (64, 128, 192, 256, 512)
 EVAL_HIDS = (64, 128, 192, 256, 512)
 FAMILY_HIDS = {"train": TRAIN_HIDS, "eval": EVAL_HIDS}
 # The widest MLP whose engines take each layer's A operand from the
 # accumulator's registers (csrc: render_eval.cuh, render_train.cuh); the
-# eval widths above it run on render_eval_512.cuh, A from shared memory.
+# widths above it run on render_eval_512.cuh and render_train_512.cuh, A
+# from shared memory.
 REGISTER_A_MAX = 256
 ENC_MAX = 128         # csrc: kEncMax (the widest encoding, 2 * 3 * 21 <= 128)
 ENC_STD = 96          # csrc: kEncStd (the production encoding's instantiation)
@@ -123,23 +127,19 @@ def kernel_width(hid: int, family: str) -> int:
     """The instantiated width an MLP of ``hid`` runs at in the kernel
     ``family`` ("train": kernels 5-6, "eval": kernels 1 and 1b): the
     smallest of its widths (:data:`FAMILY_HIDS`) that holds it.  Above the
-    largest ``NotImplementedError``.  The train kernels stop at 256: wgmma's
-    N is at most 256, a warpgroup's accumulator and A fragments would need
-    more than 255 registers a thread, and their stash more shared memory
-    than a block has.  The eval kernels take 257-512 on an engine of their
-    own (two N-halves, A in shared memory) and stop at 512."""
+    largest ``NotImplementedError``.  Both families take 257-512 on engines
+    of their own (two warpgroups an m64n256 N-half each, A from a 64-row
+    shared-memory tile) and stop at 512: a wider layer's 64-row bf16
+    activation tile no longer fits in shared memory beside a weight ring."""
     hids = FAMILY_HIDS[family]
     for w in hids:
         if hid <= w:
             return w
-    if family == "train":
-        raise NotImplementedError(
-            f"render train kernels: hid_dim {hid} > {hids[-1]} (ROADMAP "
-            "Queue 2A, MLP widths above 256 in kernels 5-6: wgmma N <= 256, "
-            "255 registers a thread, the stash over the shared memory)")
+    kernels = "train kernels (5-6)" if family == "train" \
+        else "eval kernels (1, 1b)"
     raise NotImplementedError(
-        f"render eval kernels: hid_dim {hid} > {hids[-1]} (ROADMAP Queue "
-        "2A, eval MLP widths above 512: one 64-row activation tile of the "
+        f"render {kernels}: hid_dim {hid} > {hids[-1]} (ROADMAP Queue 2, "
+        f"MLP widths above {hids[-1]}: one 64-row activation tile of the "
         "width in shared memory beside the weight ring)")
 
 
@@ -462,7 +462,7 @@ def check_encoding(cfg, num_freqs: int, dirs_freqs: int, who: str):
 
 def check_train_config(spec: StageSpec):
     """Raise for configs the train kernels do not implement (a width above
-    256: :func:`kernel_width`)."""
+    512: :func:`kernel_width`)."""
     cfg = spec.mlp.cfg
     if cfg.app_dim not in (0, APP_DIM):
         raise NotImplementedError(f"train kernel: appearance rows of "

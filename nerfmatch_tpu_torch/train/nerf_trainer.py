@@ -19,7 +19,7 @@ decides its own (:func:`train_route`): ``"kernels"`` --
 on CUDA, their plain versions on the CPU) -- on CUDA, or on the CPU with
 ``render.use_fused_train``, where ``NerfRenderer.fused_eval_supported``
 holds, the NeRF has no scene-coordinate head (``data.out_scr``) and the
-train kernels hold its MLP width (up to 256); else ``"plain"`` --
+train kernels hold its MLP width (up to 512); else ``"plain"`` --
 ``render_rays(train=True)`` on the rays' device (a classic or no-viewdir
 NeRF, an ``out_scr`` NeRF, sample counts other than 128, a wider MLP
 without ``render.use_fused_train``, which the eval kernels still serve; a
@@ -91,8 +91,9 @@ def train_route(renderer, device_type: str, use_fused_train: bool = False):
     if wide and use_fused_train:
         raise NotImplementedError(
             f"render.use_fused_train: hid_dim {max(wide)} > {TRAIN_HIDS[-1]}"
-            " (ROADMAP Queue 2A item 5, MLP widths above 256 in kernels "
-            "5-6); without the flag the NeRF trains on the plain route")
+            f" (ROADMAP Queue 2, MLP widths above {TRAIN_HIDS[-1]} in "
+            "kernels 5-6); without the flag the NeRF trains on the plain "
+            "route")
     if wide:
         return "plain", (f"hid_dim {max(wide)}: the train kernels take MLP "
                          f"widths up to {TRAIN_HIDS[-1]} and "

@@ -22,10 +22,12 @@ each timed with CUDA events over ``--reps`` calls after a warm-up, the two
 builds in turns (parent, package, package, parent) for ``--rounds`` rounds.
 The two builds' outputs must be equal bit for bit (the stash sizes come
 from the package's ``nm_render_train_workspace``: they are the same at
-these shapes).  Prints each build's ``ptxas`` lines of the HID-256
-instantiations, then one JSON line with the mean times (ms), the ratio
-package / parent, the outputs' agreement, the build seconds, and the card's
-name and power limit.  Compare within one run only.
+these shapes).  Prints each build's ``ptxas`` lines of the HID-256 render
+instantiations and of the train ones at HID 64-256, then one JSON line
+with the mean times (ms), the ratio package / parent, the outputs'
+agreement, whether the two builds' ptxas lines are the same, the build
+seconds, and the card's name and power limit.  Compare within one run
+only.
 """
 
 from __future__ import annotations
@@ -97,21 +99,23 @@ class _WithPackageSizes:
         return fn
 
 
-def ptxas_256(log):
-    """The ptxas lines (registers, spills) of the HID-256 render and train
-    kernels in an nvcc log."""
+def ptxas_lines(log):
+    """The ptxas lines (registers, spills) of the HID-256 render kernels
+    and of the train kernels at every HID from 64 to 256 in an nvcc log,
+    sorted by instantiation."""
     name, out = "", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif "ILi256E" in name and ("Used" in line or "spill" in line):
+        elif "Used" in line or "spill" in line:
             kern = re.search(r"(render_eval_kernel|train_fwd_kernel|"
-                             r"train_bwd_kernel)ILi256E(\w*?)E", name)
-            if kern:
-                flags = re.findall(r"Lb(\d)", kern.group(2))
-                out.append(f"{kern.group(1)}<256{''.join(', ' + f for f in flags)}>: "
+                             r"train_bwd_kernel)ILi(\d+)E(\w*?)E", name)
+            if kern and (kern.group(2) == "256" or "train" in kern.group(1)):
+                args = re.findall(r"L[bi](\d)", kern.group(3))
+                out.append(f"{kern.group(1)}<{kern.group(2)}"
+                           f"{''.join(', ' + a for a in args)}>: "
                            + line.strip().replace("ptxas info    : ", ""))
-    return out
+    return sorted(out)
 
 
 def main():
@@ -137,8 +141,10 @@ def main():
     parent, old_eval = load_parent(parent_so)
     libs = {"parent": _WithPackageSizes(parent, package, old_eval),
             "package": package}
+    ptxas = {}
     for name, so in (("package", kernels.build()), ("parent", parent_so)):
-        for line in ptxas_256((Path(so).parent / "build.log").read_text()):
+        ptxas[name] = ptxas_lines((Path(so).parent / "build.log").read_text())
+        for line in ptxas[name]:
             print(f"ptxas {name} {line}", flush=True)
 
     renderer = chip_smoke.load_room_renderer(dev)
@@ -196,7 +202,8 @@ def main():
                    for n, bt in times.items()},
         "package_over_parent": {n: round(m["package"] / m["parent"], 4)
                                 for n, m in mean.items()},
-        "same_bits": same, "build_s": {"package": round(package_s, 1),
+        "same_bits": same, "same_ptxas": ptxas["package"] == ptxas["parent"],
+        "build_s": {"package": round(package_s, 1),
                                        "parent": round(parent_s, 1)}}),
           flush=True)
     assert all(same.values()), same

@@ -41,6 +41,7 @@ from nerfmatch_tpu_torch.parallel import distributed as tdist
 from nerfmatch_tpu_torch.parallel.mesh import make_mesh
 from nerfmatch_tpu_torch.train.checkpoint import state_dict_from_jax
 
+from _cpu import warm_up_vector_math
 from _synthetic import build_scene
 from test_torch_matcher_train import (LR, TINY, assert_samples_equal,
                                       jax_c2f_step, matcher_config)
@@ -49,6 +50,9 @@ from test_torch_nerf_variants import jax_train_draws
 from test_torch_train import nerf_train_config
 
 torch.set_num_threads(2)
+# No compared computation below is a thread's first call of a vectorized
+# transcendental (tests/_cpu.py); the workers do the same.
+warm_up_vector_math()
 
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 # Both ranks of the worker run take ~15 s here; a hang is killed at this.

@@ -2,18 +2,17 @@
 width the JAX render kernels take, on the CPU.
 
 On the card the render kernels (1, 1b, 5, 6) are instantiated at MLP widths
-64, 128, 192 and 256, the eval kernels (1, 1b) also at 512; any other width
-up to the largest runs at the next wider one on a zero-padded copy of the
-weights (``pad_mlp_to_kernel_width``), and wider ones raise (the train
-kernels above 256, the eval kernels above 512).  The encodings go to the
+64, 128, 192, 256 and 512 (512 on engines of their own); any other width
+up to 512 runs at the next wider one on a zero-padded copy of the weights
+(``pad_mlp_to_kernel_width``), and wider ones raise.  The encodings go to the
 JAX kernels' limits, 2 * 3 * F <= 128 and the view-direction PE plus the
 appearance row <= 128.  Here:
 
 * the padding is exact: the plain stages on the padded weights give the
   unpadded MLP's outputs, and the padded gradients sliced back its
   gradients;
-* the plain eval and train stages at hid 96 and 128 (the eval stage also
-  at 320 and 512), and at F = 21, Fd = 18 with an appearance table, against
+* the plain eval and train stages at hid 96, 128, 320 and 512, and at F =
+  21, Fd = 18 with an appearance table, against
   the JAX fused kernels in interpret mode (``make_fused_render``,
   ``make_fused_train_render``);
 * the int8 trunk packed at the kernel's width keeps the real columns of the
@@ -23,9 +22,9 @@ appearance row <= 128.  Here:
 * the sizes the C side is handed agree at the padded widths; a stage's
   kernel weights padded once are the bytes of padding twice;
 * the check functions accept what the JAX kernels take and raise
-  ``NotImplementedError`` naming the ROADMAP above 512 (eval) and 256
-  (train), without a launch; the trainer routes a NeRF the train kernels
-  do not hold to the plain path, by its config alone.
+  ``NotImplementedError`` naming the ROADMAP above 512, without a launch;
+  the trainer routes a NeRF the train kernels do not hold to the plain
+  path, by its config alone.
 
 Inputs are seeded numpy arrays; the weights cross through the weight
 bridge.  Tolerances are stated per test.
@@ -55,11 +54,15 @@ from nerfmatch_tpu_torch.ops.kernels import render_kernel as rk
 from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
 from nerfmatch_tpu_torch.train.checkpoint import state_dict_from_jax
 
+from _cpu import warm_up_vector_math
 from test_torch_nerf import flat_params, unslot_s8
 from test_torch_quant import unpack_images
 from test_torch_train import _compare, _grads_by_jax_leaf, stage_loss
 
 torch.set_num_threads(2)
+# No compared computation below is a thread's first call of a vectorized
+# transcendental (tests/_cpu.py).
+warm_up_vector_math()
 
 LAYERS, SKIPS, TAP = 4, (2,), 1
 N = 8
@@ -146,7 +149,7 @@ def test_pad_mlp_to_kernel_width_renders_the_same(hid, width):
             assert float((a - b).abs().max()) <= 2 ** -7 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("hid", [32, 96, 160])
+@pytest.mark.parametrize("hid", [32, 96, 160, 320])
 def test_padded_train_gradients_slice_back_to_the_real_ones(hid):
     """The train stage on the padded weights, through mse(rgb) + 0.1
     mean(w^2): the f32 stage's autograd VJP (``train_stage_forward(bf16=
@@ -193,7 +196,7 @@ def test_padded_train_gradients_slice_back_to_the_real_ones(hid):
 
 
 # ---------------------------------------------------------------------------
-# (b) the plain stages against the JAX fused kernels at hid 96 and 128
+# (b) the plain stages against the JAX fused kernels at hid 96-512
 # ---------------------------------------------------------------------------
 
 def jax_eval_stage(params, hid, S, F=15, Fd=4, app=0):
@@ -256,10 +259,11 @@ def jax_train_stage(params, hid, rays, z, noise, F=15, Fd=4, app=0):
     return run
 
 
-@pytest.mark.parametrize("hid", [96, 128])
+@pytest.mark.parametrize("hid", [96, 128, 320, 512])
 def test_train_stage_matches_pallas_at_width(hid):
     """The plain train stage against ``make_fused_train_render`` in
-    interpret mode at hid 96 and 128, 8 rays x 32 samples: rgb and weights
+    interpret mode at hid 96 (run on the card at 128, padded), 128, 320
+    (run at 512, padded) and 512, 8 rays x 32 samples: rgb and weights
     within 2e-3, and through mse(rgb) + 0.1 mean(w^2) every leaf's gradient
     at cosine > 0.999 and norm ratio 1 +- 1e-2 (the tolerances of
     test_torch_train.py)."""
@@ -429,10 +433,9 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
 
 def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
     """Both wrappers' checks (``check_render_config``, ``check_train_config``)
-    accept every hid from 1 to 256, F up to 21 and the view-direction PE up
-    to Fd 18 with an appearance table and 20 without; the render check
-    also hid 257 to 512, which the train check refuses; both raise
-    ``NotImplementedError`` naming ROADMAP Queue 2A for hid 513, and for F
+    accept every hid from 1 to 512, F up to 21 and the view-direction PE up
+    to Fd 18 with an appearance table and 20 without; both raise
+    ``NotImplementedError`` naming ROADMAP Queue 2 for hid 513, and for F
     = 22 or Fd = 19 with a table; ``kernel_width`` maps each width to the
     smallest instantiated one of its family that holds it.  No launch: the
     checks run on the CPU."""
@@ -452,21 +455,16 @@ def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
         assert rtk.kernel_width(hid, "eval") == rtk.kernel_width(hid, "train")
     checks(cfg(96, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
     checks(cfg(96, F_WIDE, 20), F_WIDE, 20)
-    # The eval kernels take every width up to 512 (257-511 at 512); the
-    # train kernels refuse them.
+    # Both families take every width up to 512 (257-511 at 512).
     for hid in (257, 320, 511, 512):
-        rk.check_render_config(cfg(hid), 15, 4)
-        rk.check_render_config(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE,
-                               FD_WIDE)
+        checks(cfg(hid))
+        checks(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
         assert rtk.kernel_width(hid, "eval") == 512
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
-            rtk.check_train_config(_Spec(cfg(hid), 15, 4))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
-            rtk.kernel_width(hid, "train")
+        assert rtk.kernel_width(hid, "train") == 512
     for c, F, Fd in ((cfg(513), 15, 4), (cfg(1024), 15, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
             rk.check_render_config(c, F, Fd)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
             rtk.check_train_config(_Spec(c, F, Fd))
     for c, F, Fd in ((cfg(96, 22), 22, 4), (cfg(96, 15, 19, APP), 15, 19),
                      (cfg(96, 15, 21), 15, 21), (cfg(96), 14, 4)):
@@ -603,36 +601,39 @@ def test_pack_stage_pads_once_with_the_same_bytes(hid):
 
 
 def test_width_sets_by_family():
-    """The eval kernels' widths (64, 128, 192, 256, 512) and the train
-    kernels' (64-256): eval 512 and every width up to it map to the
-    smallest that holds them, 513 raises; train 256 is the last, 257
-    raises; both name ROADMAP Queue 2A."""
+    """The eval kernels' widths and the train kernels' are both (64, 128,
+    192, 256, 512): 512 and every width up to it map to the smallest that
+    holds them, 513 raises in both families, naming ROADMAP Queue 2 and
+    the width refused."""
     assert rtk.EVAL_HIDS == (64, 128, 192, 256, 512)
-    assert rtk.TRAIN_HIDS == (64, 128, 192, 256)
-    assert rtk.kernel_width(512, "eval") == 512
-    assert rtk.kernel_width(257, "eval") == 512
-    assert rtk.kernel_width(256, "train") == 256
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A.*512"):
-        rtk.kernel_width(513, "eval")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2A.*256"):
-        rtk.kernel_width(257, "train")
+    assert rtk.TRAIN_HIDS == (64, 128, 192, 256, 512)
+    for family in ("eval", "train"):
+        assert rtk.kernel_width(512, family) == 512
+        assert rtk.kernel_width(257, family) == 512
+        assert rtk.kernel_width(256, family) == 256
+        with pytest.raises(NotImplementedError,
+                           match="hid_dim 513 > 512 .ROADMAP Queue 2, MLP "
+                                 "widths above 512"):
+            rtk.kernel_width(513, family)
     cfg = NerfConfig(layer_num=LAYERS, hid_dim=320, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=SKIPS)
     assert rtk.kernel_cfg(cfg, "eval").hid_dim == 512
-    assert not rtk.train_kernels_take(cfg)
-    assert rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=256))
+    assert rtk.kernel_cfg(cfg, "train").hid_dim == 512
+    assert rtk.train_kernels_take(cfg)
+    assert not rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=513))
 
 
-@pytest.mark.parametrize("hid,route", [(512, "plain"), (320, "plain"),
-                                       (256, "kernels"), (96, "kernels")])
+@pytest.mark.parametrize("hid,route", [(640, "plain"), (512, "kernels"),
+                                       (320, "kernels"), (256, "kernels"),
+                                       (96, "kernels")])
 def test_trainer_route_follows_the_train_kernels_widths(hid, route):
     """``nerf_trainer.train_route`` on a CUDA device string, from the
     config alone (no launch, nothing moved to a card): a NeRF whose MLP the
-    train kernels hold takes the kernels, a wider one the plain route with
-    the reason without ``render.use_fused_train`` (the eval kernels still
-    serve it: ``fused_eval_supported`` holds at every width) and raises
-    with the flag, on CUDA or on the CPU; on the CPU without the flag every
-    width is plain."""
+    train kernels hold (every width up to 512) takes the kernels, a wider
+    one the plain route with the reason without ``render.use_fused_train``
+    (``fused_eval_supported`` is a function of the config, not of its
+    width) and raises with the flag, on CUDA or on the CPU; on the CPU
+    without the flag every width is plain."""
     from nerfmatch_tpu_torch.config import dict2namespace
     from nerfmatch_tpu_torch.nerf.renderer import NerfRenderer
     from nerfmatch_tpu_torch.train.nerf_trainer import train_route
@@ -649,12 +650,12 @@ def test_trainer_route_follows_the_train_kernels_widths(hid, route):
     assert got == route
     assert (why == "") == (route == "kernels")
     if route == "plain":
-        assert f"hid_dim {hid}" in why and "256" in why
+        assert f"hid_dim {hid}" in why and "512" in why
     assert train_route(r, "cpu")[0] == "plain"
     for dev in ("cuda", "cpu"):
         if route == "plain":
             with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 2A item 5"):
+                               match="ROADMAP Queue 2, MLP widths above 512"):
                 train_route(r, dev, use_fused_train=True)
         else:
             assert train_route(r, dev, use_fused_train=True) == (route, "")

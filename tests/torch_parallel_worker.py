@@ -15,6 +15,9 @@ test_torch_parallel.py``): a ``gloo`` process group over
     python tests/torch_parallel_worker.py RANK WORLD PORT WORKDIR
 
 Writes ``WORKDIR/out<RANK>.pt``.  Imports neither jax nor the JAX package.
+Before any step it calls every vectorized transcendental once on both
+intra-op threads (``tests/_cpu.py``: in a fresh process a thread's first
+such call can come back inaccurate).
 """
 
 import sys
@@ -25,6 +28,8 @@ import torch
 import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from _cpu import warm_up_vector_math  # noqa: E402  (tests/, the script's dir)
 
 from nerfmatch_tpu_torch.config import load_yaml_config  # noqa: E402
 from nerfmatch_tpu_torch.data.loaders import init_data_loader  # noqa: E402
@@ -89,6 +94,7 @@ def main():
          "NERFMATCH_NUM_PROCESSES": str(world),
          "NERFMATCH_PROCESS_ID": str(rank)}, device="cpu")
     torch.set_num_threads(2)
+    warm_up_vector_math()
     inp = torch.load(workdir / "inputs.pt", weights_only=False)
     out = {"gathered": all_gather_host([rank, rank + 10])}
     cfg, _ = load_yaml_config(inp["nerf_cfg"])
