@@ -256,21 +256,32 @@ Phases (each prints its results; any failure exits non-zero):
    autograd, kernels 5 and 6 not launched) beside them, its scene points
    (kernels 1b, 2, 1 on ``render_eval_512.cuh``'s engine) and one request
    with a c2f matcher of ``pt_dim`` 512; launches of kernels 1, 1b, 2, 5
-   and 6 all above 0.
+   and 6 all above 0;
+13. a hid-1024 NeRF served end to end (``phase_hid128`` at ``hid`` 1024):
+   the same config at ``hid_dim`` 1024, trained by the CLI on the plain
+   route the port gives a NeRF above the train kernels' 512
+   (``render.use_fused_train`` off; ``HID1024_EPOCHS`` epoch of 10 steps),
+   ``HID1024_STEPS`` timed plain-route steps with the peak memory, then
+   its scene points for the 24 frames (kernels 1b, 2, 1 at kernel width
+   1024 on ``render_eval_512.cuh``'s tile engine) and one request with a
+   c2f matcher of ``pt_dim`` 1024; launches of kernels 1, 1b and 2 above
+   0.
 
 Phases 3, 3d and 3b also hold the render kernels at the MLP widths
-``WIDTH_ROWS`` (32, 96, 128, 192, 512; phase 3b ``TRAIN_WIDTH_ROWS``, also
-320; 32, 96 and 320 run zero-padded at 64, 128 and 512) to their plain
+``WIDTH_ROWS`` (32, 96, 128, 192, 512, 640, 1024; phase 3b
+``TRAIN_WIDTH_ROWS``, 320 instead of 640 and 1024; 32, 96, 320 and 640
+run zero-padded at 64, 128, 512 and 1024) to their plain
 versions on the room's 9216
 rays x 128 samples with seeded random weights (the rows' ``widths``:
 kernel 1 coarse and fine, 1b coarse and fine ``'posttap'``, 5 with its
 stash, 6, each with its bound on the real width's operations, 5 and 6
 with ``torch.mm`` over the same products, 1b with ``pack_fused``'s host
 ms; every one with its instantiation's registers, spills and dynamic
-shared memory; at 512 also the fine stage with ``app`` and with
-``feat_max``), and kernels 1 and 5-6 (each at 256 and 512) at the widest
-encoding the JAX kernels take (F = 21, Fd = 18, appearance rows;
-``wide_encoding``, ``wide_encoding_512``).  The build's seconds and the
+shared memory; at 512 and 1024 also the fine stage with ``app`` and with
+``feat_max``), and kernels 1 and 5-6 (each at 256 and 512, kernel 1 also
+at 1024) at the widest encoding the JAX kernels take (F = 21, Fd = 18,
+appearance rows; ``wide_encoding``, ``wide_encoding_512``,
+``wide_encoding_1024``).  The build's seconds and the
 smoke's total are printed before the kernel summary.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
@@ -377,6 +388,21 @@ RENDER_EVAL_512_DESIGN = (
     "in shared memory, epilogues written back in place after a block "
     "barrier; the same 32-row bulk-copied weight ring; the tap layer's "
     "activations kept in a per-block L2 scratch for the descriptor")
+# What they run at 1024 (the same tile engine, two N passes a layer).
+RENDER_EVAL_1024_DESIGN = (
+    "the HID-512 tile engine in two N passes a layer (warpgroup wg computes "
+    "columns 512 p + 256 wg .. + 255 in pass p over the whole 64 x 1024 "
+    "input tile); pass 0's outputs parked in a per-block L2 scratch and "
+    "copied back after the last pass's barrier; a 2-slot ring of 32 KB "
+    "pass halves; tap values and descriptor partials in the L2 scratch")
+
+
+def eval_design(width):
+    """The design line of the eval render engine at kernel width ``width``."""
+    return (RENDER_EVAL_DESIGN if width <= 256 else RENDER_EVAL_512_DESIGN
+            if width == 512 else RENDER_EVAL_1024_DESIGN)
+
+
 # What the int8 render stages run since their redesign: the same engine.
 INT8_EVAL_DESIGN = ("render_eval.cu's engine with the trunk from int8_from on "
                     "s8 wgmma m64nHIDk32 (K-major s8 slot images, 64 rows a "
@@ -434,6 +460,9 @@ MERGED_S = 14400
 # Phase 12's timed NeRF steps (the hid-512 NeRF, on kernels 5-6; the same
 # count of plain-route steps beside them).
 HID512_STEPS = 10
+# Phase 13's NeRF (hid 1024, above the train kernels' 512): the CLI's
+# epochs of 10 steps on the plain route, then its timed steps.
+HID1024_EPOCHS, HID1024_STEPS = 1, 5
 # What the train stages run at MLP width 512 (render_train_512.cuh).
 RENDER_TRAIN_512_DESIGN = (
     "two warpgroups share a 64-row chunk (64 samples of a ray), each an "
@@ -892,17 +921,11 @@ def phase_build():
 def eval_instantiation(name):
     """(hid, fine, debug, int8, encoding slices) of a render kernel's
     mangled name: ``render_eval_kernel<HID, FINE, kDbg, Q8, ENC>`` or
-    ``render_eval512_kernel<FINE, kDbg, Q8, ENC>``."""
+    ``render_eval_tile_kernel<HID, FINE, kDbg, Q8, ENC>`` (512, 1024)."""
     import re
 
-    m = re.search(r"render_eval_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E",
-                  name)
-    if m:
-        hid, *rest = m.groups()
-    else:
-        rest = re.search(r"render_eval512_kernelILb(\d)ELb(\d)ELb(\d)ELi(\d)E",
-                         name).groups()
-        hid = 512
+    hid, *rest = re.search(r"render_eval(?:_tile)?_kernelILi(\d+)ELb(\d)ELb(\d)"
+                           r"ELb(\d)ELi(\d)E", name).groups()
     fine, dbg, q8, enc = map(int, rest)
     return int(hid), bool(fine), bool(dbg), bool(q8), enc
 
@@ -944,7 +967,7 @@ def render_eval_build():
                        + line.strip().replace("ptxas info    : ", ""))
     lib = kernels.library()
     for q8 in (0, 1):
-        for hid in (64, 128, 192, 256, 512):
+        for hid in (64, 128, 192, 256, 512, 1024):
             for fine in (0, 1):
                 out.append(f"<{hid}, {'fine' if fine else 'coarse'}, "
                            f"{'int8' if q8 else 'bf16'}>: "
@@ -1039,6 +1062,8 @@ def phase_kernels(renderer, dev):
     rows["render_fine_app"]["wide_encoding"] = wide_encoding_render_row(dev)
     rows["render_fine_app"]["wide_encoding_512"] = wide_encoding_render_row(
         dev, 512)
+    rows["render_fine_app"]["wide_encoding_1024"] = wide_encoding_render_row(
+        dev, 1024)
     w = render_stage_plain(renderer.nerf_coarse, rays, z, fine=False,
                            early_term_eps=1e-4, **kw)["weights"].contiguous()
     rows["resample"] = resample_row(z, w)
@@ -1856,7 +1881,7 @@ def phase_check(evaluator, batch):
 
 # MLP widths held beside the room's 256 by the eval stages (phases 3, 3d)
 # and by the train stages (phase 3b: also 320, run at 512 padded).
-WIDTH_ROWS = (32, 96, 128, 192, 512)
+WIDTH_ROWS = (32, 96, 128, 192, 512, 640, 1024)
 TRAIN_WIDTH_ROWS = (32, 96, 128, 192, 320, 512)
 # The widest encoding the JAX kernels take with an appearance table: F =
 # 21 (126 encoding columns), Fd = 18 (111 + 16 extras columns).
@@ -1928,7 +1953,7 @@ def render_width_row(mlp, rays, z, fine, num_freqs=15, dirs_freqs=4,
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
         pack_mlp, render_stage, render_stage_plain)
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
-        ENC_STD, REGISTER_A_MAX, kernel_width)
+        ENC_STD, kernel_width)
 
     kw = dict(fine=fine, num_freqs=num_freqs, dirs_freqs=dirs_freqs,
               early_term_eps=eps, app=app)
@@ -1944,8 +1969,7 @@ def render_width_row(mlp, rays, z, fine, num_freqs=15, dirs_freqs=4,
     wbytes = nbytes(*weight_tensors(packed))
     width = kernel_width(mlp.cfg.hid_dim, "eval")
     return dict(hid=mlp.cfg.hid_dim, kernel_width=width,
-                design=RENDER_EVAL_512_DESIGN if width > REGISTER_A_MAX
-                else RENDER_EVAL_DESIGN,
+                design=eval_design(width),
                 max_abs_err=err, scaled_err=scaled, ms=cuda_ms(run_k, 3),
                 plain_ms=cuda_ms(run_p, 2),
                 **render_bound(mlp, fine, rays, z, a, eps, wbytes, start),
@@ -1958,7 +1982,7 @@ def render_width_rows(dev, int8):
     """Phase 3's (bf16) or 3d's (``int8``: the coarse stage of the serving
     default, the fine stage of 'posttap') render rows at ``WIDTH_ROWS``,
     on the room's 9216 rays x 128 samples -> {stage name: {hid: row}}; at
-    512 phase 3 also gives the fine stage with ``app`` and with
+    512 and 1024 phase 3 also gives the fine stage with ``app`` and with
     ``feat_max`` (``render_fine_app``, ``render_fine_max``)."""
     from nerfmatch_tpu_torch.nerf.model import eval_feat_layer
     from nerfmatch_tpu_torch.ops.kernels.quant import (calibrate_act_scales,
@@ -1966,6 +1990,8 @@ def render_width_rows(dev, int8):
                                                        pack_mlp_int8)
     from nerfmatch_tpu_torch.ops.kernels.render_kernel import (
         render_stage_plain)
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        kernel_width)
     from nerfmatch_tpu_torch.ops.kernels.resample_kernel import (
         resample_z_plain)
 
@@ -2008,10 +2034,11 @@ def render_width_rows(dev, int8):
                 f"{row['bound_ms']:.3f} ({row['bound_by']}, real width); "
                 f"{row['smem_bytes']} bytes of dynamic shared memory; ptxas "
                 f"{row['ptxas']}")
-        if hid > 256 and not int8:
+        if hid in (512, 1024) and not int8:
             for name, fn in (("render_fine_app", app_stage_row),
                              ("render_fine_max", feat_max_row)):
-                row = fn(fmlp, rays, zf, design=RENDER_EVAL_512_DESIGN,
+                row = fn(fmlp, rays, zf, design=eval_design(
+                             kernel_width(hid, "eval")),
                          label=f"bf16, hid {hid}")
                 row.update(hid=hid, **eval_build_info(hid, True, False))
                 out[name][str(hid)] = row
@@ -2314,8 +2341,14 @@ def phase_train_kernels(renderer, dev):
     log("  per-leaf scaled err: " + json.dumps(
         {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
     assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
-    train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
+    parts = train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
     lib_f = train_fwd_yardstick(spec, n * S)
+    # The whole weight-gradient torch.mm (the width rows' yardstick) beside
+    # the GEMM launch's stash-shaped one.
+    lib_b = train_bwd_yardstick(spec.mlp, n * S)
+    log(f"  yardstick: torch.mm over the backward's weight-gradient products "
+        f"({n * S} rows, bf16) {lib_b:.3f} ms (library_ms of the train "
+        f"backward; the GEMM launch's: {parts['torch.mm']:.3f})")
     del stash
     # Forward: every sample through the trunk and heads (no early
     # termination in training); the training forward also writes the
@@ -2333,7 +2366,8 @@ def phase_train_kernels(renderer, dev):
                 max_abs_err=fwd_err, ms=ms_s, plain_ms=plain_f,
                 library_ms=lib_f, **bound(fwd_ops, io + lay.stash)),
             "render_train_bwd": dict(
-                max_abs_err=bwd_err, ms=ms_b, plain_ms=plain_b, library_ms=None,
+                max_abs_err=bwd_err, ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
+                gemm_library_ms=parts["torch.mm"],
                 **bound({k: 2 * v for k, v in fwd_ops.items()},
                         nbytes(rays, z, noise, g_rgb, g_w) + w_bytes + g_bytes
                         + lay.stash))}
@@ -2454,6 +2488,11 @@ def phase_train_app_kernels(renderer, dev):
             aspec, rays, z, noise, g_rgb, g_w, app=app), 1)
     lay = backward_layout(amlp.cfg, n, S)
     del stash, stash_b
+    # torch.mm over the same products: the forward's (trunk, feature, views)
+    # and the weight gradients of every matrix (the views weight with its
+    # appearance rows).
+    lib_f, lib_b = train_fwd_yardstick(aspec, n * S), train_bwd_yardstick(
+        amlp, n * S)
     # The trunk and heads as phase 3b counts them, plus app @ Wva once a
     # ray (f32 FMAs); the backward adds the appearance rows' weight-gradient
     # product (bf16) and g_app (f32), once a ray each.
@@ -2467,7 +2506,7 @@ def phase_train_app_kernels(renderer, dev):
     g_bytes = sum(p.numel() * 4 for p in amlp.parameters())
     fwd_row = dict(max_abs_err=fwd_err, ms=(fms[1] + fms[2]) / 2,
                    ms_without_app=(fms[0] + fms[3]) / 2, plain_ms=plain_f,
-                   library_ms=None, **bound(fwd_ops, nbytes(
+                   library_ms=lib_f, **bound(fwd_ops, nbytes(
                        rays, z, noise, app, rgb, w) + w_bytes + lay.stash))
     bwd_row = dict(max_abs_err=bwd_err, g_app_err=app_err,
                    g_app_err_own_mask=app_same,
@@ -2475,7 +2514,7 @@ def phase_train_app_kernels(renderer, dev):
                    rays_with_relu_flips=int(flips.sum()),
                    ms=(bms[1] + bms[2]) / 2,
                    ms_without_app=(bms[0] + bms[3]) / 2, plain_ms=plain_b,
-                   library_ms=None, **bound(bwd_ops, nbytes(
+                   library_ms=lib_b, **bound(bwd_ops, nbytes(
                        rays, z, noise, g_rgb, g_w, ga["app"]) + w_bytes
                        + g_bytes + lay.stash))
     log(f"kernel render_train_fwd_app: max_abs_err={fwd_err:.3e} (rgb and "
@@ -2498,7 +2537,9 @@ def phase_train_app_kernels(renderer, dev):
         f"{min_cos:.6f} (tol 0.999) ms={bwd_row['ms']:.3f} (without app "
         f"{bwd_row['ms_without_app']:.3f}; in turns "
         f"{[round(v, 4) for v in bms]}) plain_ms={plain_b:.3f} bound_ms="
-        f"{bwd_row['bound_ms']:.3f} ({bwd_row['bound_by']})")
+        f"{bwd_row['bound_ms']:.3f} ({bwd_row['bound_by']}) library_ms "
+        f"(torch.mm, the weight gradients) {lib_b:.3f}; forward library_ms "
+        f"{lib_f:.3f}")
     log("  per-leaf scaled err: " + json.dumps(
         {k: float(f"{e:.2e}") for k, (e, _) in leaf.items()}))
     assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999
@@ -3053,19 +3094,22 @@ def phase_training(renderer, dev, seed, root):
     return launches, ckpt, cfg
 
 
-def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
-    """Phase 11 (12 at ``hid`` 512): a NeRF at MLP width ``hid`` end to
-    end.  The 7-Scenes config with ``hid_dim`` ``hid`` in both stages and
-    ``render.use_fused_train`` on, trained by the ``train_nerf`` CLI
-    (--debug, 5 epochs of 10 steps) on phase 5's room scene under ``root``,
-    then ``steps`` timed ``NerfTrainer`` steps on kernels 5 and 6 (at 512
-    on render_train_512.cuh) and, at 512, as many on the plain route
-    (``render_rays`` under autograd) for the yardstick, with each one's
-    peak memory; its checkpoint served at the serving int8
-    default: the scene points of the scene's 24 frames (kernels 1b, 2, 1)
-    and one 480x480 request localized by ``eval_batch(iters=2)`` with a c2f
-    matcher at random weights (seed 0) whose ``pt_dim`` follows the NeRF
-    width -> summary."""
+def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11,
+                 epochs=5):
+    """Phase 11 (12 at ``hid`` 512, 13 at 1024): a NeRF at MLP width
+    ``hid`` end to end.  The 7-Scenes config with ``hid_dim`` ``hid`` in
+    both stages, trained by the ``train_nerf`` CLI (--debug, ``epochs``
+    epochs of 10 steps) on phase 5's room scene under ``root``, then
+    ``steps`` timed ``NerfTrainer`` steps: up to the train kernels' widest
+    with ``render.use_fused_train`` on, on kernels 5 and 6 (at 512 on
+    render_train_512.cuh) and, above 256, as many on the plain route
+    (``render_rays`` under autograd) for the yardstick; above it with the
+    flag off, on the plain route the port gives such a NeRF; each with its
+    peak memory.  Its checkpoint served at the serving int8 default: the
+    scene points of the scene's 24 frames (kernels 1b, 2, 1, at the eval
+    kernels' width for ``hid``) and one 480x480 request localized by
+    ``eval_batch(iters=2)`` with a c2f matcher at random weights (seed 0)
+    whose ``pt_dim`` follows the NeRF width -> summary."""
     import dataclasses
 
     from nerfmatch_tpu_torch.cli.train_nerf import main as train_cli
@@ -3075,7 +3119,8 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     from nerfmatch_tpu_torch.nerf.renderer import (NerfRenderer,
                                                    serving_int8_mode)
     from nerfmatch_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
-    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import TRAIN_HIDS
+    from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
+        TRAIN_HIDS, kernel_width)
     from nerfmatch_tpu_torch.train.checkpoint import latest_checkpoint
     from nerfmatch_tpu_torch.train.nerf_trainer import (NerfTrainer,
                                                         init_config_odir)
@@ -3083,14 +3128,14 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     cfg, _ = load_yaml_config(ROOT / "configs/nerf/nerf_7scenes_mip_sfm.yaml")
     cfg.coarse_nerf.hid_dim = cfg.fine_nerf.hid_dim = hid
     # render.use_fused_train asks for kernels 5-6, which take every width
-    # up to TRAIN_HIDS[-1].
-    assert hid <= TRAIN_HIDS[-1]
-    cfg.render.use_fused_train = True
+    # up to TRAIN_HIDS[-1]; a wider NeRF trains on the plain route.
+    on_kernels = hid <= TRAIN_HIDS[-1]
+    cfg.render.use_fused_train = on_kernels
     cfg.data.data_dir = str(root)
     cfg.data.scene = "room"
     cfg.data.scene_anno_path = str(root / "#scene" / "transforms_#split.json")
     cfg.exp.odir = str(root / f"out{hid}")
-    cfg.exp.max_epochs = 5
+    cfg.exp.max_epochs = epochs
     save_config(root / f"cfg{hid}.yaml", cfg)
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -3100,7 +3145,7 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     cli_s = time.perf_counter() - t0
     ckpt = latest_checkpoint(init_config_odir(out_cfg) / "checkpoints",
                              name="last")
-    assert ckpt is not None and ckpt.name == "last_5", ckpt
+    assert ckpt is not None and ckpt.name == f"last_{epochs}", ckpt
 
     trainer = NerfTrainer(cfg, device=dev, seed=seed)
     ds = init_data_loader(cfg.data, split="train").dataset
@@ -3123,18 +3168,19 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
 
     hist, step_ms, peak = timed_steps(trainer)
     loss = [float(m["loss"]) for m in hist]
-    route = "kernels"
+    route = "kernels" if on_kernels else "plain"
     why = trainer.route_why or "the train kernels take the width"
     log(f"phase {phase}: train route {trainer.route} ({why}), {steps} steps "
         f"of {step_ms:.2f} ms, peak {peak / 2**30:.2f} GiB")
     assert trainer.route == route and all(np.isfinite(loss)), loss
     n5 = min(5, len(loss) // 4)   # 5 of phase 11's 52 steps
     loss_head, loss_tail = float(np.mean(loss[:n5])), float(np.mean(loss[-n5:]))
-    assert loss_tail < loss_head, loss
-    train_launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
+    if on_kernels:
+        assert loss_tail < loss_head, loss
+    train_launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS} if on_kernels else {}
     assert all(v > 0 for v in train_launches.values()), train_launches
     plain = {}
-    if hid > 256:
+    if on_kernels and hid > 256:
         # The yardstick: the same steps on the plain route (render_rays
         # under autograd; what a NeRF of this width trained on before its
         # train kernels), from the same start, kernels 5-6 not launched.
@@ -3198,8 +3244,9 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11):
     c2w, r_err, t_err = res["c2w_est"][0], res["R_err"][0], res["t_err"][0]
     assert (c2w is None and r_err == t_err == float("inf")) or (
         np.isfinite(c2w).all() and np.isfinite([r_err, t_err]).all())
-    out = dict(hid=hid, cli_s=cli_s, cli_steps=50, steps=steps,
-               step_ms=step_ms, train_route=route,
+    out = dict(hid=hid, kernel_width=kernel_width(hid, "eval"), cli_s=cli_s,
+               cli_steps=10 * epochs, steps=steps, step_ms=step_ms,
+               train_route=route, train_route_why=why,
                peak_gib=peak / 2**30, loss_first=loss[0], **plain,
                loss_steps=n5, loss_first_steps=loss_head,
                loss_last_steps=loss_tail,
@@ -5375,6 +5422,10 @@ def main():
         hid512 = phase_hid128(dev, args.seed, Path(tmp), hid=512,
                               steps=HID512_STEPS, phase=12)
         torch.cuda.empty_cache()
+        hid1024 = phase_hid128(dev, args.seed, Path(tmp), hid=1024,
+                               steps=HID1024_STEPS, phase=13,
+                               epochs=HID1024_EPOCHS)
+        torch.cuda.empty_cache()
         _, psnr_s, psnr_ms = phase_psnr(ckpt5, Path(tmp), dev)
         app_launches, psnr_app_s = phase_psnr_app(ckpt5, cfg5, Path(tmp), dev)
         app_trained = phase_training_app(renderer, dev, args.seed,
@@ -5457,6 +5508,12 @@ def main():
     for n in ("render_fine", "render_train_fwd"):
         rows[n]["phase12_hid512"] = {
             k: v for k, v in hid512.items() if k != "launches"}
+    # Phase 13's (the hid-1024 NeRF, trained plain: 1b, 2 and 1 serving it
+    # at kernel width 1024).
+    for n, c in hid1024["launches"].items():
+        rows[n]["launches_phase13"] = c
+    rows["render_fine"]["phase13_hid1024"] = {
+        k: v for k, v in hid1024.items() if k != "launches"}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

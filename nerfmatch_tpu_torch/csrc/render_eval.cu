@@ -24,7 +24,7 @@ struct EvalWidth {
    nm_eval::smem_bf16_##H, nm_eval::smem_q8_##H}
 const EvalWidth kWidths[] = {NM_EVAL_WIDTH_ROW(64), NM_EVAL_WIDTH_ROW(128),
                              NM_EVAL_WIDTH_ROW(192), NM_EVAL_WIDTH_ROW(256),
-                             NM_EVAL_WIDTH_ROW(512)};
+                             NM_EVAL_WIDTH_ROW(512), NM_EVAL_WIDTH_ROW(1024)};
 #undef NM_EVAL_WIDTH_ROW
 
 const EvalWidth* eval_width(int hid) {
@@ -45,15 +45,17 @@ const EvalWidth* eval_width(int hid) {
 // + 3 device pointers: per layer scale, scale_s, bias (null below
 // int8_from; scale_s null without encoding rows), then qenc, qh (int8_from
 // > 0), iq (fine stage, tap layer quantized and not last).  counter: one
-// int32, zero at launch (the tile counter).  scratch: the fine stage's tap
-// scratch at hid 512, scratch_bytes of it (nm_render_eval_scratch), else
-// null.  dbg: null, or (2, n_rays,
+// int32, zero at launch (the tile counter).  scratch: the tile engine's
+// scratch (hid 512: the fine stage's tap values; 1024: also the descriptor
+// partials and a parked pass, both stages), scratch_bytes of it
+// (nm_render_eval_scratch), else null.  dbg: null, or (2, n_rays,
 // samples, hid) f32 receiving the tap layer's activations of the first pass
 // and of the second (fine stage only).  dbgq: null, or (n_rays, samples,
 // 128 + hid) int8 receiving the quantized encoding and the last layer's int8
 // input (int8 trunk only); either only up to num_freqs 16.  feat_max (fine
 // stage only): composite the descriptor and the point of each ray's largest
-// weight (feat_comb='max').  hid: 64, 128, 192, 256 or 512; num_freqs <= 21;
+// weight (feat_comb='max').  hid: 64, 128, 192, 256, 512 or 1024;
+// num_freqs <= 21;
 // 6 * dirs_freqs + 3 (+ 16 with an appearance table) <= 128.
 extern "C" int nm_render_eval_forward(const void* const* ptrs,
                                       const void* const* qptrs,
@@ -155,20 +157,21 @@ extern "C" int nm_render_eval_forward(const void* const* ptrs,
                   : (wide ? width->bf16_wide : width->bf16))(p, qp, a);
 }
 
-// Bytes of the tap scratch the fine stage at hid takes for n_rays on the
-// current device (one block's an SM it runs on): 0 but at hid 512; -1 on
-// an error.
+// Bytes of the scratch the stage at hid takes for n_rays on the current
+// device (one block's an SM it runs on, nm_eval::tile_scratch_bytes): 0
+// below hid 512 and for the coarse stage at 512; -1 on an error.
 extern "C" int nm_render_eval_scratch(int hid, int fine, int n_rays) {
-  if (hid != 512 || !fine) return 0;
+  const size_t per_block = nm_eval::tile_scratch_bytes(hid, fine != 0);
+  if (per_block == 0) return 0;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return -1;
   const int n_tiles = n_rays / kTileRays;
-  return (int)((n_tiles < sms ? n_tiles : sms) * nm_eval::kTapScratch512);
+  return (int)((n_tiles < sms ? n_tiles : sms) * per_block);
 }
 
-// Dynamic shared memory of the kernel at hid (64, 128, 192, 256 or 512), the
+// Dynamic shared memory of the kernel at hid (64-256, 512 or 1024), the
 // coarse or the fine stage, the bf16 or the int8 trunk, with dirs_freqs
 // view-direction frequencies, in bytes; -1 for another width.
 extern "C" int nm_render_eval_smem(int hid, int fine, int int8, int dirs_freqs) {

@@ -8,8 +8,8 @@
 // those of the wide encoding at one width, so that each compiles in an
 // nvcc process of its own.  An MLP of another width up to 256 runs at the
 // smallest of these that holds it, zero-padded on the host
-// (render_train_kernel.py: pad_mlp_to_kernel_width); widths 257-512 run on
-// the engine of render_eval_512.cuh (its _512.cu files).  The encoding takes
+// (render_train_kernel.py: pad_mlp_to_kernel_width); widths 257-1024 run on
+// the tile engine of render_eval_512.cuh (its _512.cu and _1024.cu files).  The encoding takes
 // 2 * 3 * F <= 128 columns (F <= 21): ENC = 3 slices of 32 rows up to 96
 // columns (the production encoding's code, F = 15), ENC = 4 beyond (the
 // wide instantiation; no debug outputs).  The view-direction PE plus the
@@ -173,16 +173,22 @@ struct EvalArgs {
   float var_scale, log_eps;
   int white_bg, fine, feat_max, dbg;
   int* counter;
-  float* scratch;          // the HID-512 fine stage's tap scratch, or null
+  float* scratch;          // the tile engine's scratch (tile_scratch_bytes), or null
   size_t scratch_floats;
   float *w, *depth, *acc, *rgb, *feat, *pts, *dbg_out;
   int8_t* dbgq;
   cudaStream_t stream;
 };
 
-// The HID-512 fine stage's tap scratch, one block's: 64 rows x 512 f32
-// (render_eval_512.cuh).
-constexpr size_t kTapScratch512 = 64 * 512 * sizeof(float);
+// The global scratch of one block of the tile engine (render_eval_512.cuh,
+// HID 512 and 1024), in bytes: the fine stage's tap values (64 rows x HID
+// f32) and, at 1024, its descriptor partials (4 x HID f32) and, in both
+// stages, a pass's parked outputs (64 rows x 512 bf16); 0 below 512.
+__host__ __device__ constexpr size_t tile_scratch_bytes(int hid, bool fine) {
+  return hid < 512 ? 0
+                   : (fine ? (size_t)(64 + (hid > 512 ? 4 : 0)) * hid * sizeof(float) : 0) +
+                         (hid > 512 ? (size_t)64 * 512 * 2 : 0);
+}
 
 // One trunk at one width: its launch (for the production encoding, and
 // the wide one's), and its dynamic shared memory for the coarse or the
@@ -205,6 +211,8 @@ NM_RENDER_EVAL_DECL(q8_192)
 NM_RENDER_EVAL_DECL(q8_256)
 NM_RENDER_EVAL_DECL(bf16_512)   // render_eval_512.cuh
 NM_RENDER_EVAL_DECL(q8_512)
+NM_RENDER_EVAL_DECL(bf16_1024)  // render_eval_512.cuh
+NM_RENDER_EVAL_DECL(q8_1024)
 #undef NM_RENDER_EVAL_DECL
 
 }  // namespace nm_eval

@@ -1,11 +1,14 @@
-// The fused render stage (kernels 1 and 1b) at MLP width 512: the same
-// stage as render_eval.cuh's (its per-ray semantics, the early-termination
-// rule, feat_max and app as runtime flags of the fine launch, the ENC = 3 /
-// ENC = 4 encodings, every rounding order of its "Precision" paragraph), on
-// an engine of its own.  render_eval_{bf16,q8,wide}_512.cu instantiate it,
-// each in an nvcc process of its own; the HID 64-256 instantiations never
-// include this header.  An MLP of a width from 257 to 511 runs here on
-// zero-padded weights (render_train_kernel.py: pad_mlp_to_kernel_width).
+// The fused render stage (kernels 1 and 1b) at MLP widths 512 and 1024:
+// the same stage as render_eval.cuh's (its per-ray semantics, the
+// early-termination rule, feat_max and app as runtime flags of the fine
+// launch, the ENC = 3 / ENC = 4 encodings, every rounding order of its
+// "Precision" paragraph), on an engine of its own, the tile engine (A from
+// a shared-memory tile).  render_eval_{bf16,q8,wide}_512.cu and
+// render_eval_{bf16,q8,wide}_1024.cu instantiate it, each in an nvcc
+// process of its own; the HID 64-256 instantiations never include this
+// header.  An MLP of a width from 257 to 511 runs at 512, one from 513 to
+// 1023 at 1024, on zero-padded weights (render_train_kernel.py:
+// pad_mlp_to_kernel_width).
 //
 // Why render_eval.cuh's engine stops at 256: a layer there is one wgmma
 // m64nHID chain a warpgroup with A in registers.  wgmma's N is at most 256;
@@ -70,6 +73,29 @@
 // weight once for 64 rows (HID 256's block reads them for 128), 64 FLOP a
 // byte, which 132 SMs at the tensor rate would need some 15 TB/s of L2 for.
 // A simple engine that is right first (PERF.md has its times).
+//
+// HID 1024: NP = 2 passes a layer.  A warpgroup's accumulator cannot grow
+// (m64n256 is 128 registers; two warpgroups at 255 registers fill the SM's
+// register file), so each layer runs twice over the same input tile,
+// warpgroup wg computing columns 512 p + 256 wg .. + 255 in pass p: the ring
+// streams every image slice of the layer once a pass, the pass's half of
+// its columns (32 KB, contiguous in the slot images of both trunks).  The
+// input tile is 64 rows x 1024 bf16 (128 KB) and must stay whole until
+// the last pass's products retire, so pass 0's outputs have no room in
+// shared memory: each thread parks its 64 packed values (bf16 pairs, or
+// s8 pairs) in the block's global scratch (64 KB a block, L2-resident) and
+// reads its own values back into the tile after the last pass's barrier.
+// The views layer (512 outputs) is one pass.  The fine stage's tap values
+// (64 x 1024 f32) and the descriptor partials (4 x 1024 f32) sit in the
+// same scratch; the ring keeps 2 slots of 32 KB, so each slice's copy
+// from L2 is waited for with one batch of products in flight (PERF.md:
+// 15-23% of the bound).  The passes are a loop, not unrolled (one trip at
+// 512, where the compiler folds it: the 512 code is unchanged), and so
+// are the slices of a 1024-row product.  Shared memory at 1024, Fd = 4:
+// bf16 coarse 217,272, fine 223,416; int8 coarse 225,464, fine 231,608
+// (at 128 dirs columns 808 more: 232,416 of the 232,448).  -Xptxas -v
+// (sm_90a, CUDA 12.8): bf16 194-255 registers, no spills; int8 255 with
+// 408-448 bytes of spill stores.
 
 #pragma once
 
@@ -77,15 +103,17 @@
 
 namespace {
 
-template <bool FINE, bool Q8>
-struct EvalSmem512 {
-  static constexpr int HID = 512, HV = HID / 2;
-  static constexpr int kRing = FINE && Q8 ? 3 : 4;
-  static constexpr int kSlot = (HID / 64) * kSliceK * 128;   // 32 KB
-  static constexpr int kVSlot = (HV / 64) * kSliceK * 128;   // 16 KB
+template <int HID_, bool FINE, bool Q8>
+struct EvalSmemTile {
+  static constexpr int HID = HID_, HV = HID / 2;
+  static constexpr int NP = HID / 512;   // N passes a layer
+  static constexpr int HP = HID / NP;    // a pass's columns: 512
+  static constexpr int kRing = NP > 1 ? 2 : FINE && Q8 ? 3 : 4;
+  static constexpr int kSlot = (HP / 64) * kSliceK * 128;    // 32 KB
+  static constexpr int kVSlot = (HV / 64) * kSliceK * 128;   // 16 KB (32 KB at 1024)
   static constexpr int kBlock = 64 * 128;                     // 64 rows x 128 B
   static constexpr int kXOff = kRing * kSlot;
-  static constexpr int kEncOff = kXOff + 8 * kBlock;
+  static constexpr int kEncOff = kXOff + (HID / 64) * kBlock;
   static constexpr int kXqOff = kEncOff + 2 * kBlock;
   static constexpr int kFloatOff = kXqOff + (Q8 ? kBlock : 0);
   static constexpr int kInfo = 0, kSig = kInfo + kWgRows * 8, kWts = kSig + 2 * kWgRows,
@@ -93,7 +121,7 @@ struct EvalSmem512 {
                        kRgb = kRay + kTileRays * 8,
                        kXt = kRgb + (FINE ? 2 * kWgRows * 4 : 0),
                        kFacc = kXt + (FINE ? kTileRays * HV : 0),
-                       kFloats = kFacc + (FINE ? 4 * HID : 0);
+                       kFloats = kFacc + (FINE && NP == 1 ? 4 * HID : 0);
   static constexpr int kCtlOff = kFloatOff + kFloats * 4;   // tile, block
   static constexpr int kBarOff = kCtlOff + 16;
   // Last, sized at launch: the dirs PE of the tile's rays (2 x dirs_dim f32).
@@ -103,17 +131,20 @@ struct EvalSmem512 {
   }
 };
 
-// The tap scratch of one block (nm_eval::kTapScratch512): 64 rows x 512
-// f32, a thread's 128 values.
-constexpr int kTapFloats512 = (int)(nm_eval::kTapScratch512 / sizeof(float));
-static_assert(kTapFloats512 == kWgRows * 512, "the tap scratch of a chunk");
+// The scratch of one block (nm_eval::tile_scratch_bytes), in floats: the
+// fine stage's tap values (64 rows x HID f32, a thread's 128 a pass), at
+// 1024 the descriptor partials (4 x HID) and the parked pass (64 x 256).
+template <int HID, bool FINE>
+constexpr int kScratchFloats = (int)(nm_eval::tile_scratch_bytes(HID, FINE) / sizeof(float));
+static_assert(kScratchFloats<512, true> == kWgRows * 512, "the tap scratch of a chunk");
+static_assert(kScratchFloats<1024, false> == kWgRows * 256, "a parked pass");
 
 // kDbg as render_eval_kernel's (dbg: the tap layer's activations written in
 // the epilogue, then those read back for the descriptor; dbgq the integer
 // activations).
-template <bool FINE, bool kDbg, bool Q8, int ENC>
+template <int HID_, bool FINE, bool kDbg, bool Q8, int ENC>
 __global__ void __launch_bounds__(kEvalThreads, 1)
-render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
+render_eval_tile_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_layer,
                       int int8_from, int F, int Fd, int S, int n_tiles,
                       float var_scale, float log_eps, int white_bg, int feat_max,
                       int* __restrict__ tile_counter, float* __restrict__ tap_scratch,
@@ -121,17 +152,19 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
                       float* __restrict__ out_acc, float* __restrict__ out_rgb,
                       float* __restrict__ out_feat, float* __restrict__ out_pts,
                       float* __restrict__ dbg, int8_t* __restrict__ dbgq) {
-  using L = EvalSmem512<FINE, Q8>;
+  using L = EvalSmemTile<HID_, FINE, Q8>;
   using Acc = typename std::conditional<Q8, uint32_t, float>::type;
   constexpr int HID = L::HID, HV = L::HV, R = L::kRing;
-  constexpr int HW = HID / 2;          // a warpgroup's output columns
+  constexpr int NP = L::NP, HP = L::HP;
+  constexpr int HW = HP / 2;           // a warpgroup's output columns a pass
   constexpr int NJ = HW / 8;           // its n8 column groups
   constexpr int NJV = HV / 2 / 8;      // the same of the views product
-  constexpr int KS = HID / kSliceK;    // bf16 slices of a 512-row product
+  constexpr int KS = HID / kSliceK;    // bf16 slices of a HID-row product
   constexpr int KS8 = HID / kSliceK8;  // s8 slices
   constexpr int ENC8 = 2;              // s8 slices of the encoding rows
-  static_assert(HID * kSliceK8 == L::kSlot, "an s8 slice fills a bf16 slot");
+  static_assert(HP * kSliceK8 == L::kSlot, "an s8 slice fills a bf16 slot");
   static_assert(L::bytes(kExtraMax) <= 232448, "render_eval_512 shared memory");
+  static_assert(NP == 1 || L::kVSlot == L::kSlot, "a views slice fills a slot");
   static_assert(!kDbg || FINE || Q8, "the tap exists in the fine stage only");
   static_assert(ENC == 3 || ENC == 4, "96 or 128 encoding rows");
 
@@ -143,7 +176,7 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = tid >> 7, lt = tid & 127, wl = warp & 3, t = lane & 3;
   const int wrow = wl * 16 + (lane >> 2);   // first of this thread's two rows
-  const int c0 = wg * HW;                   // this warpgroup's first column
+  const int c0 = wg * HW;                   // this warpgroup's first column (pass 0)
   const uint32_t ring_s = base, full0 = base + L::kBarOff;
   const uint32_t x_w = base + L::kXOff, enc_w = base + L::kEncOff;
   const uint32_t xq_w = base + L::kXqOff;
@@ -158,17 +191,23 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   float* ray_s = fw + L::kRay;
   float* rgbp = fw + L::kRgb;   // [wg][row][4]: rgb head partials
   float* xt = fw + L::kXt;
-  float* facc = fw + L::kFacc;  // [warp of a warpgroup][512]
+  float* const scr = tap_scratch + (size_t)blockIdx.x * kScratchFloats<HID, FINE>;
+  // [warp of a warpgroup][HID]: in the scratch at 1024
+  float* facc = NP == 1 ? fw + L::kFacc : scr + kWgRows * HID;
   int* ctl = reinterpret_cast<int*>(sm + L::kCtlOff);
-  // This thread's tap values: element e (its accumulator's) at tap[256 e].
-  float* tap = tap_scratch + (size_t)blockIdx.x * kTapFloats512 + tid;
+  // This thread's tap values: element e (its accumulator's) of pass P at
+  // tap[256 (128 P + e)].
+  float* tap = scr + tid;
+  // This thread's parked values of pass 0 (NP = 2): pair (j, h) at
+  // park[256 (2 j + h)].
+  uint32_t* park = reinterpret_cast<uint32_t*>(scr + (FINE ? (kWgRows + 4) * HID : 0)) + tid;
 
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
   float* dpe = reinterpret_cast<float*>(sm + L::kDirsOff);
   const int n_blocks = S / kSampleBlock;
   const size_t n_rows = (size_t)n_tiles * kTileRays * S;
   const int q_from = Q8 ? int8_from : layer_num;
-  const float* wa_t = p.wa + c0 + 2 * t;
+  const float* wa_t = p.wa + c0 + 2 * t;   // + P HP in pass P
 
   // Slices a step streams, in the images' order: the trunk (per bf16 layer
   // its encoding rows, then its hidden rows; per s8 layer its hidden rows,
@@ -181,7 +220,8 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   };
   int Qt = 0;
   for (int i = 0; i < layer_num; ++i) Qt += n_slices(i);
-  const int Q = FINE ? Qt + 2 * KS : Qt;
+  // Each trunk and feature slice streams once a pass.
+  const int Q = FINE ? NP * Qt + (NP + 1) * KS : NP * Qt;
 
   // The encoding tile's padding columns (enc_dim .. kEncMax - 1) stay zero.
   for (int i = tid; i < kWgRows * (kEncMax - enc_dim); i += kEvalThreads) {
@@ -202,9 +242,28 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
     const int qc = q % Q;
     uint32_t bytes = L::kSlot;
     size_t off = (size_t)qc * L::kSlot;
-    if (FINE && qc >= Qt + KS) {
-      bytes = L::kVSlot;
-      off = (size_t)(Qt + KS) * L::kSlot + (size_t)(qc - Qt - KS) * L::kVSlot;
+    if constexpr (NP == 1) {
+      if (FINE && qc >= Qt + KS) {
+        bytes = L::kVSlot;
+        off = (size_t)(Qt + KS) * L::kSlot + (size_t)(qc - Qt - KS) * L::kVSlot;
+      }
+    } else {
+      // Per trunk layer (then the feature layer) its n image slices once
+      // a pass, pass P reading the P-th kSlot of each (an image slice holds
+      // NP of them); then the views layer's slices, a slot each (n = 0).
+      int r = qc, n = 0;
+      size_t at = 0;
+      for (int i = 0; i < layer_num + (FINE ? 1 : 0); ++i) {
+        const int m = i < layer_num ? n_slices(i) : KS;
+        if (r < NP * m) {
+          n = m;
+          break;
+        }
+        r -= NP * m;
+        at += (size_t)m * NP * L::kSlot;
+      }
+      off = n == 0 ? at + (size_t)r * L::kSlot
+                   : at + (size_t)(r % n) * NP * L::kSlot + (size_t)(r / n) * L::kSlot;
     }
     const int slot = q % R;
     mbar_expect(full0 + 8 * slot, bytes);
@@ -251,14 +310,26 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
                        s * KK + kk > 0);
       end();
     }
+    if constexpr (NP == 1) {
 #pragma unroll
-    for (int s = 0; s < NH; ++s) {
-      const uint32_t slot = begin() + boff;
+      for (int s = 0; s < NH; ++s) {
+        const uint32_t slot = begin() + boff;
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-        wgmma_ss<N, 0>(acc, a16(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
-                       NE + s + kk > 0);
-      end();
+        for (int kk = 0; kk < KK; ++kk)
+          wgmma_ss<N, 0>(acc, a16(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
+                         NE + s + kk > 0);
+        end();
+      }
+    } else {   // 1024: a loop (unrolled, its 32 slices double 512's code)
+#pragma unroll 2
+      for (int s = 0; s < NH; ++s) {
+        const uint32_t slot = begin() + boff;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          wgmma_ss<N, 0>(acc, a16(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
+                         NE + s + kk > 0);
+        end();
+      }
     }
     wgmma_wait<0>();
   };
@@ -268,13 +339,32 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   auto product8 = [&](auto ne_c, auto nh_c) {
     constexpr int NE = decltype(ne_c)::value, NH = decltype(nh_c)::value;
     const uint32_t boff = (uint32_t)wg * HW * kSliceK8;
-    static_for<0, NH>([&](auto s_c) {
-      constexpr int s = decltype(s_c)::value;
-      const uint32_t slot = begin() + boff;
-      wgmma_ss8<HW, s == 0>(acc, a16(x_w, 2 * s), desc64(slot), 1);
-      wgmma_ss8<HW>(acc, a16(x_w, 2 * s + 1), desc64(slot + 32), 1);
+    if constexpr (NP == 1) {
+      static_for<0, NH>([&](auto s_c) {
+        constexpr int s = decltype(s_c)::value;
+        const uint32_t slot = begin() + boff;
+        wgmma_ss8<HW, s == 0>(acc, a16(x_w, 2 * s), desc64(slot), 1);
+        wgmma_ss8<HW>(acc, a16(x_w, 2 * s + 1), desc64(slot + 32), 1);
+        end();
+      });
+    } else if constexpr (NH > 0) {
+      // 1024: slice 0 starts the chain, the others a loop (unrolled, the
+      // int8 layer around it was compiled as a call with its accumulator
+      // on the stack: the stage ran 2.3x slower than plain).
+      // (The kInit arguments name NH so that these calls, like the
+      // static_for ones, are checked only where the int8 trunk calls them.)
+      uint32_t slot = begin() + boff;
+      wgmma_ss8<HW, NH != 0>(acc, a16(x_w, 0), desc64(slot), 1);
+      wgmma_ss8<HW, NH == 0>(acc, a16(x_w, 1), desc64(slot + 32), 1);
       end();
-    });
+#pragma unroll 1
+      for (int s = 1; s < NH; ++s) {
+        slot = begin() + boff;
+        wgmma_ss8<HW, NH == 0>(acc, a16(x_w, 2 * s), desc64(slot), 1);
+        wgmma_ss8<HW, NH == 0>(acc, a16(x_w, 2 * s + 1), desc64(slot + 32), 1);
+        end();
+      }
+    }
     static_for<0, NE>([&](auto s_c) {
       constexpr int s = decltype(s_c)::value;
       const uint32_t slot = begin() + boff;
@@ -303,6 +393,36 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
     *reinterpret_cast<uint16_t*>(x_p + (c >> 7) * L::kBlock + swz(r, (c & 127) >> 4) +
                                  (c & 15)) = (uint16_t)(pack_s8(v0, v1, 0, 0) & 0xffffu);
   };
+  // Pass P's outputs of column pair (j, h) (row wrow + 8 h, columns P HP +
+  // c0 + 8 j + 2 t, + 1): into the tile in the last pass, else parked.
+  auto out16 = [&](int P, int j, int h, uint32_t v) {
+    if (P + 1 < NP)
+      park[(2 * j + h) * kEvalThreads] = v;
+    else
+      put_x16(wrow + 8 * h, P * HP + c0 + 8 * j + 2 * t, v);
+  };
+  auto out8 = [&](int P, int j, int h, int v0, int v1) {
+    if (P + 1 < NP)
+      park[(2 * j + h) * kEvalThreads] = pack_s8(v0, v1, 0, 0) & 0xffffu;
+    else
+      put_x8(wrow + 8 * h, P * HP + c0 + 8 * j + 2 * t, v0, v1);
+  };
+  // The parked pass into the tile (after the last pass's barrier): bf16
+  // pairs, or s8 pairs.
+  auto unpark = [&](bool s8) {
+    if constexpr (NP > 1) {
+#pragma unroll 8
+      for (int k = 0; k < 2 * NJ; ++k) {
+        const uint32_t v = park[k * kEvalThreads];
+        const int r = wrow + 8 * (k & 1), c = c0 + 8 * (k >> 1) + 2 * t;
+        if (s8)
+          *reinterpret_cast<uint16_t*>(x_p + (c >> 7) * L::kBlock + swz(r, (c & 127) >> 4) +
+                                       (c & 15)) = (uint16_t)v;
+        else
+          put_x16(r, c, v);
+      }
+    }
+  };
   int tile = -1, sb = 0;
   auto grow = [&](int row) {
     return (size_t)(tile * kTileRays + row / kSampleBlock) * S + sb * kSampleBlock +
@@ -316,13 +436,14 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   auto put_dbgq = [&](int row, int k, int v) {
     if (dbgq != nullptr) dbgq[grow(row) * (kEncMax + HID) + k] = (int8_t)v;
   };
-  // The tap layer's values of accumulator elements 4 j + 2 h, + 1 (row wrow
-  // + 8 h, columns c0 + 8 j + 2 t, + 1), kept for the descriptor.
-  auto keep_tap = [&](int i, int j, int h, float v0, float v1) {
+  // The tap layer's values of pass P's accumulator elements 4 j + 2 h, + 1
+  // (row wrow + 8 h, columns P HP + c0 + 8 j + 2 t, + 1), kept for the
+  // descriptor.
+  auto keep_tap = [&](int i, int P, int j, int h, float v0, float v1) {
     if (FINE && i == feat_layer) {
-      tap[(4 * j + 2 * h) * kEvalThreads] = v0;
-      tap[(4 * j + 2 * h + 1) * kEvalThreads] = v1;
-      if (kDbg) put_dbg(0, wrow + 8 * h, c0 + 8 * j + 2 * t, v0, v1);
+      tap[(4 * NJ * P + 4 * j + 2 * h) * kEvalThreads] = v0;
+      tap[(4 * NJ * P + 4 * j + 2 * h + 1) * kEvalThreads] = v1;
+      if (kDbg) put_dbg(0, wrow + 8 * h, P * HP + c0 + 8 * j + 2 * t, v0, v1);
     }
   };
   // Before column group j of an int8 trunk's epilogue, every 8 groups: a
@@ -334,17 +455,17 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
   // y = acc * c (+ acc_s * c_s) + B, in the JAX epilogue's order, unfused;
   // the post-skip layer's encoding rows into a second accumulator, 64
   // columns at a time (render_eval.cuh's q8_layer).
-  auto q8_layer = [&](int i) {
+  auto q8_layer = [&](int i, int P) {
     if constexpr (Q8) {
-      const float* c_t = qp.scale[i] + c0 + 2 * t;
-      const float* b_t = qp.bias[i] + c0 + 2 * t;
+      const float* c_t = qp.scale[i] + P * HP + c0 + 2 * t;
+      const float* b_t = qp.bias[i] + P * HP + c0 + 2 * t;
       const auto i2f = [](uint32_t v) { return __int2float_rn((int)v); };
       if (i == 0)
         product8(Int<ENC8>{}, Int<0>{});
       else
         product8(Int<0>{}, Int<KS8>{});
       if (i > 0 && p.Wenc[i] != nullptr) {
-        const float* cs_t = qp.scale_s[i] + c0 + 2 * t;
+        const float* cs_t = qp.scale_s[i] + P * HP + c0 + 2 * t;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           fence8(j);
@@ -546,116 +667,134 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
     float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
     if constexpr (!Q8) {
       for (int i = 0; i < layer_num; ++i) {
-        layer_product(i);
-        __syncthreads();
         const bool last = i == layer_num - 1;
-        const float* b_t = p.b[i] + c0 + 2 * t;
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          layer_product(i);
+          if (P + 1 == NP) __syncthreads();   // the input tile is read
+          const float* b_t = p.b[i] + P * HP + c0 + 2 * t;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
+          for (int j = 0; j < NJ; ++j) {
+            const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
-            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
-            if (FINE || !last) put_x16(wrow + 8 * h, c0 + 8 * j + 2 * t, pack_bf16(v0, v1));
-            if (last)
-              sp[h] = fmaf(v0, __ldg(wa_t + 8 * j), fmaf(v1, __ldg(wa_t + 8 * j + 1), sp[h]));
-            keep_tap(i, j, h, v0, v1);
+            for (int h = 0; h < 2; ++h) {
+              const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+              const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+              if (FINE || !last) out16(P, j, h, pack_bf16(v0, v1));
+              if (last)
+                sp[h] = fmaf(v0, __ldg(wa_t + P * HP + 8 * j),
+                             fmaf(v1, __ldg(wa_t + P * HP + 8 * j + 1), sp[h]));
+              keep_tap(i, P, j, h, v0, v1);
+            }
           }
         }
+        if (FINE || !last) unpark(false);
         fence_async();
       }
     } else {
       // The bf16 layers below int8_from; the last of them requantizes its
       // output for the s8 trunk (round half even, qh).
       for (int i = 0; i < q_from; ++i) {
-        layer_product(i);
-        __syncthreads();
-        const float* b_t = p.b[i] + c0 + 2 * t;
-        if (i < q_from - 1) {
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          layer_product(i);
+          if (P + 1 == NP) __syncthreads();
+          const float* b_t = p.b[i] + P * HP + c0 + 2 * t;
+          if (i < q_from - 1) {
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            fence8(j);
-            const float2 b = row2(b_t + 8 * j);
+            for (int j = 0; j < NJ; ++j) {
+              fence8(j);
+              const float2 b = row2(b_t + 8 * j);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + b.x, 0.f);
-              const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + b.y, 0.f);
-              put_x16(wrow + 8 * h, c0 + 8 * j + 2 * t, pack_bf16(v0, v1));
-              keep_tap(i, j, h, v0, v1);
-            }
-          }
-        } else {   // into the s8 trunk: round half even (v >= 0)
-          const float* qh_t = qp.qh + c0 + 2 * t;
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            fence8(j);
-            const float2 b = row2(b_t + 8 * j), qh = row2(qh_t + 8 * j);
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + b.x, 0.f);
-              const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + b.y, 0.f);
-              const int q0 = __float2int_rn(__fmul_rn(v0, qh.x));
-              const int q1 = __float2int_rn(__fmul_rn(v1, qh.y));
-              const int col = c0 + 8 * j + 2 * t;
-              put_x8(wrow + 8 * h, col, q0, q1);
-              if (kDbg && i == layer_num - 2) {
-                put_dbgq(wrow + 8 * h, kEncMax + col, min(q0, 127));
-                put_dbgq(wrow + 8 * h, kEncMax + col + 1, min(q1, 127));
+              for (int h = 0; h < 2; ++h) {
+                const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + b.x, 0.f);
+                const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + b.y, 0.f);
+                out16(P, j, h, pack_bf16(v0, v1));
+                keep_tap(i, P, j, h, v0, v1);
               }
-              keep_tap(i, j, h, v0, v1);
+            }
+          } else {   // into the s8 trunk: round half even (v >= 0)
+            const float* qh_t = qp.qh + P * HP + c0 + 2 * t;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              fence8(j);
+              const float2 b = row2(b_t + 8 * j), qh = row2(qh_t + 8 * j);
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float v0 = fmaxf(f32(acc[4 * j + 2 * h]) + b.x, 0.f);
+                const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]) + b.y, 0.f);
+                const int q0 = __float2int_rn(__fmul_rn(v0, qh.x));
+                const int q1 = __float2int_rn(__fmul_rn(v1, qh.y));
+                const int col = P * HP + c0 + 8 * j + 2 * t;
+                out8(P, j, h, q0, q1);
+                if (kDbg && i == layer_num - 2) {
+                  put_dbgq(wrow + 8 * h, kEncMax + col, min(q0, 127));
+                  put_dbgq(wrow + 8 * h, kEncMax + col + 1, min(q1, 127));
+                }
+                keep_tap(i, P, j, h, v0, v1);
+              }
             }
           }
         }
+        unpark(i == q_from - 1);
         fence_async();
       }
       // The s8 hidden layers: max(y, 0.5) is the ReLU, the +0.5 in B turns
       // the truncating cast into round to nearest.
       for (int i = q_from; i < layer_num - 1; ++i) {
-        q8_layer(i);
-        __syncthreads();
-        const float* iq_t = FINE && i == feat_layer ? qp.iq + c0 + 2 * t : nullptr;
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          q8_layer(i, P);
+          if (P + 1 == NP) __syncthreads();
+          const float* iq_t =
+              FINE && i == feat_layer ? qp.iq + P * HP + c0 + 2 * t : nullptr;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
+          for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float y0 = fmaxf(f32(acc[4 * j + 2 * h]), 0.5f);
-            const float y1 = fmaxf(f32(acc[4 * j + 2 * h + 1]), 0.5f);
-            const int q0 = __float2int_rz(y0), q1 = __float2int_rz(y1);
-            const int col = c0 + 8 * j + 2 * t;
-            put_x8(wrow + 8 * h, col, q0, q1);
-            if (kDbg && i == layer_num - 2) {
-              put_dbgq(wrow + 8 * h, kEncMax + col, min(q0, 127));
-              put_dbgq(wrow + 8 * h, kEncMax + col + 1, min(q1, 127));
-            }
-            if (FINE && i == feat_layer) {
-              const float2 iq = row2(iq_t + 8 * j);
-              keep_tap(i, j, h, __fmul_rn(__fsub_rn(y0, 0.5f), iq.x),
-                       __fmul_rn(__fsub_rn(y1, 0.5f), iq.y));
+            for (int h = 0; h < 2; ++h) {
+              const float y0 = fmaxf(f32(acc[4 * j + 2 * h]), 0.5f);
+              const float y1 = fmaxf(f32(acc[4 * j + 2 * h + 1]), 0.5f);
+              const int q0 = __float2int_rz(y0), q1 = __float2int_rz(y1);
+              const int col = P * HP + c0 + 8 * j + 2 * t;
+              out8(P, j, h, q0, q1);
+              if (kDbg && i == layer_num - 2) {
+                put_dbgq(wrow + 8 * h, kEncMax + col, min(q0, 127));
+                put_dbgq(wrow + 8 * h, kEncMax + col + 1, min(q1, 127));
+              }
+              if (FINE && i == feat_layer) {
+                const float2 iq = row2(iq_t + 8 * j);
+                keep_tap(i, P, j, h, __fmul_rn(__fsub_rn(y0, 0.5f), iq.x),
+                         __fmul_rn(__fsub_rn(y1, 0.5f), iq.y));
+              }
             }
           }
         }
+        unpark(true);
         fence_async();
       }
       // The last layer in real units: relu(acc * s (+ acc_s * s_s) + b),
       // rounded to bf16 for the feature head.
       {
         const int i = layer_num - 1;
-        q8_layer(i);
-        __syncthreads();
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          q8_layer(i, P);
+          if (P + 1 == NP) __syncthreads();
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          fence8(j);
-          const float2 wa = row2(wa_t + 8 * j);
+          for (int j = 0; j < NJ; ++j) {
+            fence8(j);
+            const float2 wa = row2(wa_t + P * HP + 8 * j);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v0 = fmaxf(f32(acc[4 * j + 2 * h]), 0.f);
-            const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]), 0.f);
-            if (FINE) put_x16(wrow + 8 * h, c0 + 8 * j + 2 * t, pack_bf16(v0, v1));
-            sp[h] = fmaf(v0, wa.x, fmaf(v1, wa.y, sp[h]));
-            keep_tap(i, j, h, v0, v1);
+            for (int h = 0; h < 2; ++h) {
+              const float v0 = fmaxf(f32(acc[4 * j + 2 * h]), 0.f);
+              const float v1 = fmaxf(f32(acc[4 * j + 2 * h + 1]), 0.f);
+              if (FINE) out16(P, j, h, pack_bf16(v0, v1));
+              sp[h] = fmaf(v0, wa.x, fmaf(v1, wa.y, sp[h]));
+              keep_tap(i, P, j, h, v0, v1);
+            }
           }
         }
+        if (FINE) unpark(false);
         fence_async();
       }
     }
@@ -671,17 +810,21 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
     if (FINE) {
       // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16,
       //      in place ----
-      product(Int<0>{}, Int<KS>{}, Int<HW>{});
-      __syncthreads();
-      const float* bf_t = p.bf + c0 + 2 * t;
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+      for (int P = 0; P < NP; ++P) {
+        product(Int<0>{}, Int<KS>{}, Int<HW>{});
+        if (P + 1 == NP) __syncthreads();
+        const float* bf_t = p.bf + P * HP + c0 + 2 * t;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float b0 = __ldg(bf_t + 8 * j), b1 = __ldg(bf_t + 8 * j + 1);
+        for (int j = 0; j < NJ; ++j) {
+          const float b0 = __ldg(bf_t + 8 * j), b1 = __ldg(bf_t + 8 * j + 1);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          put_x16(wrow + 8 * h, c0 + 8 * j + 2 * t,
+          for (int h = 0; h < 2; ++h)
+            out16(P, j, h,
                   pack_bf16(f32(acc[4 * j + 2 * h]) + b0, f32(acc[4 * j + 2 * h + 1]) + b1));
+        }
       }
+      unpark(false);
       fence_async();
       // ---- views = relu(feature @ wvh + dirs_pe @ wvd + bv), rounded to
       //      bf16 (this warpgroup's 128 columns); the rgb head's partials
@@ -796,34 +939,38 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
       const int hot = (wl >> 1) * kSampleBlock + (int)sel;
       const float w0 = feat_max ? (wrow == hot ? 1.f : 0.f) : wts[wrow];
       const float w1 = feat_max ? (wrow + 8 == hot ? 1.f : 0.f) : wts[wrow + 8];
-      float part[2 * NJ];
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+      for (int P = 0; P < NP; ++P) {
+        const float* tp = tap + 4 * NJ * P * kEvalThreads;
+        float part[2 * NJ];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float v00 = tap[(4 * j) * kEvalThreads], v01 = tap[(4 * j + 1) * kEvalThreads];
-        const float v10 = tap[(4 * j + 2) * kEvalThreads], v11 = tap[(4 * j + 3) * kEvalThreads];
-        part[2 * j] = fmaf(w1, v10, w0 * v00);
-        part[2 * j + 1] = fmaf(w1, v11, w0 * v01);
-        if (kDbg) {
-          put_dbg(1, wrow, c0 + 8 * j + 2 * t, v00, v01);
-          put_dbg(1, wrow + 8, c0 + 8 * j + 2 * t, v10, v11);
+        for (int j = 0; j < NJ; ++j) {
+          const float v00 = tp[(4 * j) * kEvalThreads], v01 = tp[(4 * j + 1) * kEvalThreads];
+          const float v10 = tp[(4 * j + 2) * kEvalThreads], v11 = tp[(4 * j + 3) * kEvalThreads];
+          part[2 * j] = fmaf(w1, v10, w0 * v00);
+          part[2 * j + 1] = fmaf(w1, v11, w0 * v01);
+          if (kDbg) {
+            put_dbg(1, wrow, P * HP + c0 + 8 * j + 2 * t, v00, v01);
+            put_dbg(1, wrow + 8, P * HP + c0 + 8 * j + 2 * t, v10, v11);
+          }
         }
-      }
-      fold_half<16, 2 * NJ>(part, lane);
-      fold_half<8, NJ>(part, lane);
-      fold_half<4, NJ / 2>(part, lane);
-      float* fa = facc + wl * HID + c0;
-      const int g = lane >> 2;
-      if (!feat_max) {
+        fold_half<16, 2 * NJ>(part, lane);
+        fold_half<8, NJ>(part, lane);
+        fold_half<4, NJ / 2>(part, lane);
+        float* fa = facc + wl * HID + P * HP + c0;
+        const int g = lane >> 2;
+        if (!feat_max) {
 #pragma unroll
-        for (int i = 0; i < NJ / 4; ++i) {
-          const int k = (NJ / 4) * g + i;
-          fa[8 * (k >> 1) + 2 * t + (k & 1)] += part[i];
-        }
-      } else if (sel >= 0.f) {   // x + 0 == x: the other warp's row is 0
+          for (int i = 0; i < NJ / 4; ++i) {
+            const int k = (NJ / 4) * g + i;
+            fa[8 * (k >> 1) + 2 * t + (k & 1)] += part[i];
+          }
+        } else if (sel >= 0.f) {   // x + 0 == x: the other warp's row is 0
 #pragma unroll
-        for (int i = 0; i < NJ / 4; ++i) {
-          const int k = (NJ / 4) * g + i;
-          fa[8 * (k >> 1) + 2 * t + (k & 1)] = part[i];
+          for (int i = 0; i < NJ / 4; ++i) {
+            const int k = (NJ / 4) * g + i;
+            fa[8 * (k >> 1) + 2 * t + (k & 1)] = part[i];
+          }
         }
       }
     }
@@ -835,10 +982,10 @@ render_eval512_kernel(EvalParams p, QuantParams qp, int layer_num, int feat_laye
     for (int s = q; s < q + R - 2; ++s) mbar_wait(full0 + 8 * (s % R), (s / R) & 1);
 }
 
-template <bool FINE, bool kDbg, bool Q8, int ENC>
-cudaError_t launch512(const EvalParams& p, const QuantParams& qp, const EvalArgs& a) {
-  const size_t bytes = EvalSmem512<FINE, Q8>::bytes(6 * a.Fd + 3);
-  auto kern = render_eval512_kernel<FINE, kDbg, Q8, ENC>;
+template <int HID, bool FINE, bool kDbg, bool Q8, int ENC>
+cudaError_t launch_tile(const EvalParams& p, const QuantParams& qp, const EvalArgs& a) {
+  const size_t bytes = EvalSmemTile<HID, FINE, Q8>::bytes(6 * a.Fd + 3);
+  auto kern = render_eval_tile_kernel<HID, FINE, kDbg, Q8, ENC>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
@@ -848,10 +995,11 @@ cudaError_t launch512(const EvalParams& p, const QuantParams& qp, const EvalArgs
       cudaSuccess)
     return e;
   // Persistent: at most one block an SM, one tile a block at a time; the
-  // fine stage's tap scratch holds one block's 64 x 512 f32 an SM.
+  // scratch holds one block's (kScratchFloats) an SM.
   const int n_tiles = a.n_rays / kTileRays;
   const int grid = n_tiles < sms ? n_tiles : sms;
-  if (FINE && (a.scratch == nullptr || a.scratch_floats < (size_t)grid * kTapFloats512))
+  constexpr size_t per_block = kScratchFloats<HID, FINE>;
+  if (per_block > 0 && (a.scratch == nullptr || a.scratch_floats < (size_t)grid * per_block))
     return cudaErrorInvalidValue;
   kern<<<grid, kEvalThreads, bytes, a.stream>>>(
       p, qp, a.layer_num, a.feat_layer, a.int8_from, a.F, a.Fd, a.S, n_tiles,
@@ -860,45 +1008,51 @@ cudaError_t launch512(const EvalParams& p, const QuantParams& qp, const EvalArgs
   return cudaGetLastError();
 }
 
-template <bool Q8>
-cudaError_t launch_trunk512(const EvalParams& p, const QuantParams& qp, const EvalArgs& a) {
+template <int HID, bool Q8>
+cudaError_t launch_trunk_tile(const EvalParams& p, const QuantParams& qp, const EvalArgs& a) {
   if constexpr (!Q8) {   // the bf16 coarse stage has no debug outputs
-    auto fn = !a.fine ? launch512<false, false, false, 3>
-                      : a.dbg ? launch512<true, true, false, 3> : launch512<true, false, false, 3>;
+    auto fn = !a.fine ? launch_tile<HID, false, false, false, 3>
+                      : a.dbg ? launch_tile<HID, true, true, false, 3>
+                              : launch_tile<HID, true, false, false, 3>;
     return fn(p, qp, a);
   } else {
-    auto fn = !a.fine ? (a.dbg ? launch512<false, true, true, 3> : launch512<false, false, true, 3>)
-                      : a.dbg ? launch512<true, true, true, 3> : launch512<true, false, true, 3>;
+    auto fn = !a.fine ? (a.dbg ? launch_tile<HID, false, true, true, 3>
+                               : launch_tile<HID, false, false, true, 3>)
+                      : a.dbg ? launch_tile<HID, true, true, true, 3>
+                              : launch_tile<HID, true, false, true, 3>;
     return fn(p, qp, a);
   }
 }
 
-template <bool Q8>
-cudaError_t launch_trunk512_wide(const EvalParams& p, const QuantParams& qp, const EvalArgs& a) {
+template <int HID, bool Q8>
+cudaError_t launch_trunk_tile_wide(const EvalParams& p, const QuantParams& qp,
+                                   const EvalArgs& a) {
   if (a.dbg) return cudaErrorInvalidValue;
-  return (a.fine ? launch512<true, false, Q8, 4> : launch512<false, false, Q8, 4>)(p, qp, a);
+  return (a.fine ? launch_tile<HID, true, false, Q8, 4>
+                 : launch_tile<HID, false, false, Q8, 4>)(p, qp, a);
 }
 
-template <bool Q8>
-size_t smem_trunk512(bool fine, int dirs_dim) {
-  return fine ? EvalSmem512<true, Q8>::bytes(dirs_dim) : EvalSmem512<false, Q8>::bytes(dirs_dim);
+template <int HID, bool Q8>
+size_t smem_trunk_tile(bool fine, int dirs_dim) {
+  return fine ? EvalSmemTile<HID, true, Q8>::bytes(dirs_dim)
+              : EvalSmemTile<HID, false, Q8>::bytes(dirs_dim);
 }
 
 }  // namespace
 
-// The instantiations of one trunk at width 512 (render_eval_<trunk>_512.cu)
-// and those of the wide encoding (render_eval_wide_512.cu).
-#define NM_RENDER_EVAL_512(Q8, NAME)                                           \
+// The instantiations of one trunk at width HID (render_eval_<trunk>_<HID>.cu)
+// and those of the wide encoding (render_eval_wide_<HID>.cu).
+#define NM_RENDER_EVAL_TILE(HID, Q8, NAME)                                     \
   cudaError_t nm_eval::launch_##NAME(const EvalParams& p, const QuantParams& qp, \
                                      const EvalArgs& a) {                      \
-    return launch_trunk512<Q8>(p, qp, a);                                      \
+    return launch_trunk_tile<HID, Q8>(p, qp, a);                               \
   }                                                                            \
   size_t nm_eval::smem_##NAME(bool fine, int dirs_dim) {                       \
-    return smem_trunk512<Q8>(fine, dirs_dim);                                  \
+    return smem_trunk_tile<HID, Q8>(fine, dirs_dim);                           \
   }
-#define NM_RENDER_EVAL_WIDE_512(Q8, NAME)                                      \
+#define NM_RENDER_EVAL_TILE_WIDE(HID, Q8, NAME)                                \
   cudaError_t nm_eval::launch_wide_##NAME(const EvalParams& p,                 \
                                           const QuantParams& qp,               \
                                           const EvalArgs& a) {                 \
-    return launch_trunk512_wide<Q8>(p, qp, a);                                 \
+    return launch_trunk_tile_wide<HID, Q8>(p, qp, a);                          \
   }

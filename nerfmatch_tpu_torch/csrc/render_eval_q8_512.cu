@@ -2,4 +2,4 @@
 // instantiations (render_eval_512.cuh), in a translation unit of their own.
 #include "render_eval_512.cuh"
 
-NM_RENDER_EVAL_512(true, q8_512)
+NM_RENDER_EVAL_TILE(512, true, q8_512)

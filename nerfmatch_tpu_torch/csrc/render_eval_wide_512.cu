@@ -3,5 +3,5 @@
 // (render_eval_512.cuh), in a translation unit of their own.
 #include "render_eval_512.cuh"
 
-NM_RENDER_EVAL_WIDE_512(false, bf16_512)
-NM_RENDER_EVAL_WIDE_512(true, q8_512)
+NM_RENDER_EVAL_TILE_WIDE(512, false, bf16_512)
+NM_RENDER_EVAL_TILE_WIDE(512, true, q8_512)

@@ -25,6 +25,11 @@ Verdicts (pure functions of the per-query errors):
   ``max(0.002, 2 x floor)``, the floor being the ``plain`` arm's drift;
 * early termination: equal recall, every query within 0.5 deg and 0.01.
 
+``extra_arms`` (names of :data:`BISECT_ARMS`) adds arms that no verdict
+reads: ``coarse_eps0``, the serving default's int8 trunk without early
+termination, whose drift from ``none`` and from ``eps0`` tells which of
+the two moves ``coarse`` (``bisect`` in the summary).
+
     python -m nerfmatch_tpu_torch.e2e.gates --root DIR [--nerf_epochs 30]
         [--match_epochs 40] [--device cuda] [--out FILE]
 
@@ -49,6 +54,9 @@ from .scene import build_scene
 INT8_CANDIDATES = ("coarse", "both", "posttap")
 INT8_ARMS = ("none", "plain") + INT8_CANDIDATES
 EPS_ARMS = {"eps0": 0.0, "eps1e-4": 1e-4}
+# Arms no verdict reads, each against the arms it is compared with.
+BISECT_ARMS = {"coarse_eps0": ({"trunk_int8": "coarse", "early_term_eps": 0.0},
+                               ("none", "eps0", "coarse"))}
 PROTOCOLS = (("single", {}), ("iters2", {"iters": 2}))
 ET_MAX_DR, ET_MAX_DT = 0.5, 0.01
 
@@ -68,6 +76,8 @@ def arm_serving(arm):
         return {"trunk_int8": "none", "cls": PlainRenderer}
     if arm in EPS_ARMS:
         return {"trunk_int8": "none", "early_term_eps": EPS_ARMS[arm]}
+    if arm in BISECT_ARMS:
+        return dict(BISECT_ARMS[arm][0])
     return {"trunk_int8": arm}
 
 
@@ -132,8 +142,9 @@ def earlyterm_verdicts(errors, base="eps0", arm="eps1e-4"):
 
 
 def run(root, nerf_epochs=30, match_epochs=40, device="cuda",
-        nerf_edits=None, matcher_edits=None):
-    """Both gates on one NeRF and one matcher -> summary dict."""
+        nerf_edits=None, matcher_edits=None, extra_arms=()):
+    """Both gates on one NeRF and one matcher -> summary dict
+    (``extra_arms``: :data:`BISECT_ARMS` also run, under ``bisect``)."""
     device = resolve_device(device)
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
@@ -144,7 +155,7 @@ def run(root, nerf_epochs=30, match_epochs=40, device="cuda",
         device=device, edits=nerf_edits)
     seconds = {"nerf": time.perf_counter() - t0}
 
-    arms = INT8_ARMS + ("eps0",)
+    arms = INT8_ARMS + ("eps0",) + tuple(extra_arms)
     caches, renderers, cache_s = {}, {}, {}
     for arm in arms:
         serving = arm_serving(arm)
@@ -197,12 +208,18 @@ def run(root, nerf_epochs=30, match_epochs=40, device="cuda",
                           if k[0] in INT8_ARMS})
     et = earlyterm_verdicts({k: v for k, v in errors.items()
                              if k[0] in EPS_ARMS})
+    bisect = {f"{arm}-{base}/{p}": drift(errors[base, p], errors[arm, p])
+              for arm in extra_arms for base in BISECT_ARMS[arm][1]
+              for p, _ in PROTOCOLS}
+    bisect_cache = {f"{arm}-{base}": cache_delta(caches[base], caches[arm])
+                    for arm in extra_arms for base in BISECT_ARMS[arm][1]}
     key = lambda k: k if isinstance(k, str) else "/".join(k)
     return {"nerf_epochs": nerf_epochs, "match_epochs": match_epochs,
             "results": results, "cache_seconds": cache_s,
             "cache_delta": deltas, "repeat": repeat,
             "int8": {key(k): v for k, v in int8.items()},
-            "earlyterm": et, "seconds": seconds,
+            "earlyterm": et, "bisect": bisect, "bisect_cache": bisect_cache,
+            "seconds": seconds,
             "pass": {"int8": {m: all(int8[m, p]["ok"] for p, _ in PROTOCOLS)
                               for m in INT8_CANDIDATES},
                      "earlyterm": all(v["ok"] for v in et.values())}}

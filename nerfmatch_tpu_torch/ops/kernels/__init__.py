@@ -58,7 +58,8 @@ _SIGNATURES = {
     "nm_render_eval_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                _F, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P],
-    # hid, fine, n_rays -> the tap scratch's bytes (0 below hid 512)
+    # hid, fine, n_rays -> the tile engine's scratch bytes (0 below hid
+    # 512 and for the coarse stage at 512)
     "nm_render_eval_scratch": [_I, _I, _I],
     # hid, fine, int8, dirs_freqs -> dynamic shared memory bytes
     "nm_render_eval_smem": [_I, _I, _I, _I],

@@ -25,9 +25,10 @@ padded to ``render_train_kernel.enc_rows`` (the 90 of 15 frequencies to 96,
 three 32-deep k steps, the widest to 128; the s8 images to whole 64-row
 slots); the JAX packing pads them to 128.  :func:`pack_kernel_int8` packs
 the trunk of an MLP at the render kernel's width (its padded columns at
-unit activation scale).  The HID-512 engine (``csrc/render_eval_512.cuh``)
-feeds its s8 products from a K-major tile in shared memory, so its images
-keep their K rows in order (:func:`s8_rows_permuted`).
+unit activation scale).  The tile engine (``csrc/render_eval_512.cuh``,
+HID 512 and 1024) feeds its s8 products from a K-major tile in shared
+memory, so its images keep their K rows in order
+(:func:`s8_rows_permuted`).
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def s8_rows_permuted(hid: int) -> bool:
     """Whether the s8 images of an int8 trunk of width ``hid`` fed from a
     layer's output hold their K rows in :data:`PERM32` order: at the widths
     of ``csrc/render_eval.cuh`` (A from the accumulator's registers), not at
-    512 (``render_eval_512.cuh``: A from a K-major tile in shared memory,
-    its rows in order)."""
+    512 and 1024 (``render_eval_512.cuh``: A from a K-major tile in shared
+    memory, its rows in order)."""
     return hid <= REGISTER_A_MAX
 
 

@@ -26,13 +26,14 @@ block of :data:`SAMPLE_BLOCK` samples, the remaining blocks get exact zero
 weights.  Skipped weights are < eps, so outputs move by < eps.
 
 CUDA tensors launch the kernel ``csrc/render_eval.cuh`` (HID 64-256) or
-``csrc/render_eval_512.cuh`` (HID 512) (``wgmma``; it raises on anything
-the kernel does not implement) with the weights of :func:`pack_mlp`: a bf16
-trunk, or the int8 trunk of ``quant.pack_kernel_int8`` (s8 ``wgmma`` from
-its first int8 layer on).  An MLP whose width is not instantiated
+the tile engine of ``csrc/render_eval_512.cuh`` (HID 512, and 1024 in two
+N passes a layer) (``wgmma``; it raises on anything the kernel does not
+implement) with the weights of :func:`pack_mlp`: a bf16 trunk, or the int8
+trunk of ``quant.pack_kernel_int8`` (s8 ``wgmma`` from its first int8
+layer on).  An MLP whose width is not instantiated
 (``render_train_kernel.EVAL_HIDS``) runs at the next wider one on
 zero-padded weights, and its descriptor is sliced back to its width; above
-512 it raises (ROADMAP Queue 2).  CPU tensors run
+1024 it raises (ROADMAP Queue 2).  CPU tensors run
 :func:`render_stage_plain`.
 """
 
@@ -154,7 +155,7 @@ def kernel_forms_descriptor(cfg) -> bool:
 
 def check_render_config(cfg, num_freqs: int, dirs_freqs: int):
     """Raise for MLP and encoding widths the kernel does not take: a width
-    above 512 (``render_train_kernel.kernel_width``), an encoding past the
+    above 1024 (``render_train_kernel.kernel_width``), an encoding past the
     JAX kernels' limits (``render_train_kernel.check_encoding``)."""
     check_encoding(cfg, num_freqs, dirs_freqs, "render kernel")
     kernel_width(cfg.hid_dim, "eval")

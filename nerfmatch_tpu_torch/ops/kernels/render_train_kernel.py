@@ -16,8 +16,9 @@ comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
 Widths: the kernels are instantiated at the MLP widths :data:`TRAIN_HIDS`
 (the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`; 512 in
 both on engines of their own, ``csrc/render_train_512.cuh`` and
-``csrc/render_eval_512.cuh``); an MLP of another width up to 512 runs at
-the smallest of them that holds it, on a zero-padded copy of its weights
+``csrc/render_eval_512.cuh``, which also holds the eval kernels' 1024); an
+MLP of another width up to the family's largest runs at the smallest of
+them that holds it, on a zero-padded copy of its weights
 (:func:`pad_mlp_to_kernel_width`: the padded hidden units take zero weights
 in and out and a zero bias, so they stay 0 and move nothing), and its
 gradients are sliced back to the parameters' shapes.  Wider MLPs raise
@@ -64,9 +65,9 @@ KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunk
 # The instantiated MLP widths of each kernel family: the train kernels
 # (csrc: render_train_<HID>.cu, HID 512 on render_train_512.cuh's engine)
 # and the eval render kernels (csrc: render_eval_<trunk>_<HID>.cu, HID 512
-# on render_eval_512.cuh's engine).
+# and 1024 on render_eval_512.cuh's tile engine, 1024 in two passes).
 TRAIN_HIDS = (64, 128, 192, 256, 512)
-EVAL_HIDS = (64, 128, 192, 256, 512)
+EVAL_HIDS = (64, 128, 192, 256, 512, 1024)
 FAMILY_HIDS = {"train": TRAIN_HIDS, "eval": EVAL_HIDS}
 # The widest MLP whose engines take each layer's A operand from the
 # accumulator's registers (csrc: render_eval.cuh, render_train.cuh); the
@@ -129,8 +130,10 @@ def kernel_width(hid: int, family: str) -> int:
     smallest of its widths (:data:`FAMILY_HIDS`) that holds it.  Above the
     largest ``NotImplementedError``.  Both families take 257-512 on engines
     of their own (two warpgroups an m64n256 N-half each, A from a 64-row
-    shared-memory tile) and stop at 512: a wider layer's 64-row bf16
-    activation tile no longer fits in shared memory beside a weight ring."""
+    shared-memory tile); the eval family takes 513-1024 on the same engine
+    in two N passes a layer (the first pass's outputs parked in global
+    memory) and stops there: a wider layer's 64-row bf16 activation tile
+    no longer fits in shared memory beside a weight ring."""
     hids = FAMILY_HIDS[family]
     for w in hids:
         if hid <= w:

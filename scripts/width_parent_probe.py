@@ -17,6 +17,9 @@ through the package's wrappers with one build's library at a time:
 * kernel 1b's coarse stage, the serving default's int8 trunk, eps 1e-4;
 * kernel 5, the training forward with its stash;
 * kernel 6, the backward on that stash (its three launches);
+* kernels 1 (fine, bf16) and 1b (coarse, int8) at MLP width 512
+  (``chip_smoke.width_renderer(512)``: the room's config, seeded random
+  weights), on the HID-512 engine (``render_eval_512.cuh``);
 
 each timed with CUDA events over ``--reps`` calls after a warm-up, the two
 builds in turns (parent, package, package, parent) for ``--rounds`` rounds.
@@ -25,7 +28,11 @@ from the package's ``nm_render_train_workspace``: they are the same at
 these shapes).  Prints each build's ``ptxas`` lines of the HID-256 render
 instantiations and of the train ones at HID 64-256, then one JSON line
 with the mean times (ms), the ratio package / parent, the outputs'
-agreement, whether the two builds' ptxas lines are the same, the build
+agreement, whether the two builds' ptxas lines are the same (the HID-256
+and HID-512 render instantiations and the train ones at HID 64-256; the
+HID-512 render kernel's entry is named ``render_eval512_kernel<FINE, ..>``
+in builds before the 1024 engine and ``render_eval_tile_kernel<512, FINE,
+..>`` after: both read as ``render_eval_kernel<512, FINE, ..>``), the build
 seconds, and the card's name and power limit.  Compare within one run
 only.
 """
@@ -100,17 +107,22 @@ class _WithPackageSizes:
 
 
 def ptxas_lines(log):
-    """The ptxas lines (registers, spills) of the HID-256 render kernels
-    and of the train kernels at every HID from 64 to 256 in an nvcc log,
-    sorted by instantiation."""
+    """The ptxas lines (registers, spills) of the HID-256 and HID-512 render
+    kernels and of the train kernels at every HID from 64 to 256 in an nvcc
+    log, sorted by instantiation."""
     name, out = "", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
+            # The HID-512 render kernel under either of its names.
+            name = name.replace("render_eval512_kernelI",
+                                "render_eval_kernelILi512E").replace(
+                "render_eval_tile_kernelI", "render_eval_kernelI")
         elif "Used" in line or "spill" in line:
             kern = re.search(r"(render_eval_kernel|train_fwd_kernel|"
                              r"train_bwd_kernel)ILi(\d+)E(\w*?)E", name)
-            if kern and (kern.group(2) == "256" or "train" in kern.group(1)):
+            if kern and (kern.group(2) in ("256", "512") if "eval" in kern.group(1)
+                         else "train" in kern.group(1)):
                 args = re.findall(r"L[bi](\d)", kern.group(3))
                 out.append(f"{kern.group(1)}<{kern.group(2)}"
                            f"{''.join(', ' + a for a in args)}>: "
@@ -163,6 +175,13 @@ def main():
         ptrain = rtk.pack_train(spec.mlp)
         rgb, w, stash = rtk.kernel_forward(spec, trays, tz, noise, ptrain,
                                            stash=True)
+        r512 = chip_smoke.width_renderer(512, dev, seed=512)
+        cmlp512, fmlp512 = r512.nerf_coarse, r512.nerf_fine
+        q512 = pack_kernel_int8(cmlp512, calibrate_act_scales(
+            r512, rays[:1024])["coarse"], 0)
+        pc512, pf512 = rk.pack_mlp(cmlp512, q512), rk.pack_mlp(fmlp512)
+        zf512 = resample_z_plain(z, rk.render_stage_plain(
+            cmlp512, rays, z, fine=False, **kw)["weights"]).contiguous()
     g_rgb, g_w = chip_smoke.train_cotangents(tz, rgb, w, target)
     del rgb, w
     cases = {
@@ -174,6 +193,10 @@ def main():
             spec, trays, tz, noise, ptrain, stash=True)[:2],
         "kernel6_bwd": lambda: rtk.kernel_backward(
             spec, stash, trays, tz, noise, g_rgb, g_w, ptrain),
+        "kernel1_fine_bf16_512": lambda: rk.render_stage(
+            fmlp512, rays, zf512, fine=True, packed=pf512, **kw),
+        "kernel1b_coarse_int8_512": lambda: rk.render_stage(
+            cmlp512, rays, z, fine=False, packed=pc512, int8=q512, **kw),
     }
     assert eval_feat_layer(fmlp.cfg) == 3
     outs, times = {}, {n: {b: [] for b in libs} for n in cases}

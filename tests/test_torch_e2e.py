@@ -231,3 +231,40 @@ def test_e2e_entry_points_raise_without_cuda(monkeypatch, tmp_path, entry):
     with pytest.raises(StopIteration):
         entry(argv + ["--device", "cpu"])
     assert seen == ["cpu"]
+
+
+def test_bisect_arm_is_reported_not_gated(monkeypatch):
+    """``coarse_eps0`` (``gates.BISECT_ARMS``) serves the int8 trunk at eps
+    0, and no verdict reads it: the int8 and early-termination verdicts of
+    seeded drifts are the same with and without it.  ``scripts/
+    gate_seeds.py: decide`` calls a seed clean only where ``'coarse'`` keeps
+    ``none``'s recall under both protocols and its ``--iters 2`` median
+    drift is within the JAX gate's accepted 1.080 deg / 0.0415."""
+    assert gates.arm_serving("coarse_eps0") == {"trunk_int8": "coarse",
+                                                "early_term_eps": 0.0}
+    res = seeded_errors(3, {"none": 0.0, "plain": 0.1, "coarse": 0.02,
+                            "both": 0.5, "posttap": 0.15, "eps0": 0.01,
+                            "eps1e-4": 0.0, "coarse_eps0": 3.0})
+    without = {k: v for k, v in res.items() if k[0] != "coarse_eps0"}
+    pick = lambda r, arms: {k: v for k, v in r.items() if k[0] in arms}
+    np.testing.assert_equal(gates.int8_verdicts(pick(res, gates.INT8_ARMS)),
+                            gates.int8_verdicts(pick(without, gates.INT8_ARMS)))
+    np.testing.assert_equal(
+        gates.earlyterm_verdicts(pick(res, gates.EPS_ARMS)),
+        gates.earlyterm_verdicts(pick(without, gates.EPS_ARMS)))
+    monkeypatch.syspath_prepend(str(ROOT / "scripts"))
+    import gate_seeds
+
+    def record(seed, rec_single, rec_iters2, dr, dt):
+        d = lambda rb, r, dr_, dt_: {"recall_base": rb, "recall": r,
+                                     "dr_med": dr_, "dt_med": dt_}
+        return {"seed": seed, "int8": {
+            "coarse/single": d(0.0, rec_single, 0.1, 0.01),
+            "coarse/iters2": d(0.0, rec_iters2, dr, dt)}}
+    clean = record(1, 0.0, 0.0, 1.080, 0.0415)
+    assert gate_seeds.decide([clean])["not_a_port_fault"]
+    for bad in (record(2, 0.0, 1 / 12, 0.2, 0.01),
+                record(3, 1 / 12, 0.0, 0.2, 0.01),
+                record(4, 0.0, 0.0, 1.081, 0.01),
+                record(5, 0.0, 0.0, 0.2, 0.0416)):
+        assert not gate_seeds.decide([clean, bad])["not_a_port_fault"]

@@ -2,8 +2,9 @@
 width the JAX render kernels take, on the CPU.
 
 On the card the render kernels (1, 1b, 5, 6) are instantiated at MLP widths
-64, 128, 192, 256 and 512 (512 on engines of their own); any other width
-up to 512 runs at the next wider one on a zero-padded copy of the weights
+64, 128, 192, 256 and 512 (512 on engines of their own), the eval kernels
+(1, 1b) also at 1024; any other width up to the family's largest runs at
+the next wider one on a zero-padded copy of the weights
 (``pad_mlp_to_kernel_width``), and wider ones raise.  The encodings go to the
 JAX kernels' limits, 2 * 3 * F <= 128 and the view-direction PE plus the
 appearance row <= 128.  Here:
@@ -11,18 +12,20 @@ appearance row <= 128.  Here:
 * the padding is exact: the plain stages on the padded weights give the
   unpadded MLP's outputs, and the padded gradients sliced back its
   gradients;
-* the plain eval and train stages at hid 96, 128, 320 and 512, and at F =
-  21, Fd = 18 with an appearance table, against
+* the plain eval stage at hid 96, 128, 320, 512, 640 and 1024, the train
+  stage at 96-512, and both at F = 21, Fd = 18 with an appearance table,
+  against
   the JAX fused kernels in interpret mode (``make_fused_render``,
   ``make_fused_train_render``);
 * the int8 trunk packed at the kernel's width keeps the real columns of the
   unpadded pack byte for byte, its padded columns at unit scale, and at 512
-  its s8 images keep their K rows in order and hold the JAX quantizer's
-  weights;
+  and 1024 its s8 images keep their K rows in order and hold the JAX
+  quantizer's weights;
 * the sizes the C side is handed agree at the padded widths; a stage's
   kernel weights padded once are the bytes of padding twice;
 * the check functions accept what the JAX kernels take and raise
-  ``NotImplementedError`` naming the ROADMAP above 512, without a launch;
+  ``NotImplementedError`` naming the ROADMAP above 1024 (eval) and 512
+  (train), without a launch;
   the trainer routes a NeRF the train kernels do not hold to the plain
   path, by its config alone.
 
@@ -108,7 +111,7 @@ def make_inputs(S, seed, app=0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("hid,width", [(32, 64), (96, 128), (160, 192),
-                                       (320, 512), (512, 512)])
+                                       (320, 512), (512, 512), (640, 1024)])
 def test_pad_mlp_to_kernel_width_renders_the_same(hid, width):
     """The plain eval stage (coarse and fine) on the padded weights gives
     the unpadded MLP's weights, depth, acc, rgb and pts and, sliced to hid,
@@ -120,7 +123,8 @@ def test_pad_mlp_to_kernel_width_renders_the_same(hid, width):
     another order (measured: at most 4.3e-7 relative, 1-3 ulps).  The MLP's
     own forward in ``compute_dtype`` bf16 within bf16 rounding (2^-7 of
     each output's largest value).  The module's parameters keep their
-    shapes.  The eval kernels' widths (512 is one; 320 runs at it)."""
+    shapes.  The eval kernels' widths (512 is one, 320 runs at it; 640 runs
+    at 1024)."""
     _, mlp = make_mlp(hid, seed=hid)
     shapes = {k: v.shape for k, v in mlp.named_parameters()}
     kmlp, real = rtk.pad_mlp_to_kernel_width(mlp, "eval")
@@ -223,11 +227,12 @@ def hold_eval(ours, ref):
     assert float(ours["weights"].sum(-1).max()) > 0.3   # not an empty field
 
 
-@pytest.mark.parametrize("hid", [96, 128, 320, 512])
+@pytest.mark.parametrize("hid", [96, 128, 320, 512, 640, 1024])
 def test_eval_stage_matches_pallas_at_width(hid):
     """The plain fine eval stage (bf16 products) against
     ``make_fused_render`` in interpret mode at hid 96 (run on the card at
-    128, padded), 128, 320 (run at 512, padded) and 512, 8 rays x 64
+    128, padded), 128, 320 (run at 512, padded), 512, 640 (run at 1024,
+    padded) and 1024, 8 rays x 64
     samples (:func:`hold_eval`: weights, depth and acc within 2e-3, rgb and
     pts within 2e-2, the descriptor within 2e-2 of its largest value)."""
     params, mlp = make_mlp(hid, seed=7)
@@ -389,17 +394,18 @@ def test_kernel_int8_keeps_the_real_columns(start):
 
 @pytest.mark.parametrize("hid,F,Fd,app", [(32, 15, 4, 0), (96, 15, 4, 0),
                                           (160, 15, 4, APP), (200, 4, 1, 0),
-                                          (96, F_WIDE, FD_WIDE, APP)])
+                                          (96, F_WIDE, FD_WIDE, APP),
+                                          (1024, 15, 4, 0)])
 def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
     """At a padded width the render kernel's stream (``stream_bytes``) is
     what ``pack_mlp`` packs, for the bf16 trunk and the int8 ones; the
     train kernels' stash and gradient workspace (``workspace_bytes``) and
     their product table (``backward_layout``) are those of the kernel
-    width; ``pack_train``'s forward images are ``pack_mlp``'s."""
+    width; ``pack_train``'s forward images are ``pack_mlp``'s.  At 1024,
+    which only the eval kernels take, the eval side alone."""
     _, mlp = make_mlp(hid, F, Fd, app, seed=16)
-    cfg, kcfg = mlp.cfg, rtk.kernel_cfg(mlp.cfg, "train")
-    assert kcfg.hid_dim == rtk.kernel_width(hid, "train") >= hid
-    assert kcfg.hid_dim == rtk.kernel_width(hid, "eval")
+    cfg, kcfg = mlp.cfg, rtk.kernel_cfg(mlp.cfg, "eval")
+    assert kcfg.hid_dim == rtk.kernel_width(hid, "eval") >= hid
     packed = rk.pack_mlp(mlp)
     assert packed[0].numel() * 2 == rk.stream_bytes(cfg) == rk.stream_bytes(kcfg)
     E = rtk.enc_rows(6 * F)
@@ -411,8 +417,17 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
         q = quant.pack_kernel_int8(mlp, scales, start, TAP if start == 0 else None)
         w = rk.pack_mlp(mlp, q)
         assert w[0].numel() == rk.stream_bytes(cfg, start)
-    with pytest.raises(ValueError, match="pack_kernel_int8"):
-        rk.pack_mlp(mlp, quant.pack_mlp_int8(mlp, scales, 0, TAP))
+    if hid == kcfg.hid_dim:   # the real width is the kernel's
+        assert rk.pack_mlp(mlp, quant.pack_mlp_int8(mlp, scales, 0, TAP))[
+            0].numel() == rk.stream_bytes(cfg, 0)
+    else:
+        with pytest.raises(ValueError, match="pack_kernel_int8"):
+            rk.pack_mlp(mlp, quant.pack_mlp_int8(mlp, scales, 0, TAP))
+    if not rtk.train_kernels_take(cfg):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
+            rtk.kernel_cfg(cfg, "train")
+        return
+    assert kcfg.hid_dim == rtk.kernel_width(hid, "train")
     n, S = 64, 128
     assert rtk.workspace_bytes(cfg, n, S) == rtk.workspace_bytes(kcfg, n, S)
     lay = rtk.backward_layout(cfg, n, S)
@@ -434,11 +449,12 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
 def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
     """Both wrappers' checks (``check_render_config``, ``check_train_config``)
     accept every hid from 1 to 512, F up to 21 and the view-direction PE up
-    to Fd 18 with an appearance table and 20 without; both raise
-    ``NotImplementedError`` naming ROADMAP Queue 2 for hid 513, and for F
-    = 22 or Fd = 19 with a table; ``kernel_width`` maps each width to the
-    smallest instantiated one of its family that holds it.  No launch: the
-    checks run on the CPU."""
+    to Fd 18 with an appearance table and 20 without; the render check also
+    513 to 1024 (run at 1024), where the train check raises
+    ``NotImplementedError`` naming ROADMAP Queue 2; both raise it for hid
+    1025, and for F = 22 or Fd = 19 with a table; ``kernel_width`` maps each
+    width to the smallest instantiated one of its family that holds it.  No
+    launch: the checks run on the CPU."""
     def cfg(hid, F=15, Fd=4, app=0):
         return NerfConfig(layer_num=LAYERS, hid_dim=hid, xyz_dim=6 * F,
                           dirs_dim=6 * Fd + 3, app_dim=app, use_viewdirs=True,
@@ -461,7 +477,14 @@ def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
         checks(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
         assert rtk.kernel_width(hid, "eval") == 512
         assert rtk.kernel_width(hid, "train") == 512
-    for c, F, Fd in ((cfg(513), 15, 4), (cfg(1024), 15, 4)):
+    # The eval family takes 513-1024 at 1024; the train family none of them.
+    for hid in (513, 640, 1023, 1024):
+        rk.check_render_config(cfg(hid), 15, 4)
+        rk.check_render_config(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
+        assert rtk.kernel_width(hid, "eval") == 1024
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
+            rtk.check_train_config(_Spec(cfg(hid), 15, 4))
+    for c, F, Fd in ((cfg(1025), 15, 4), (cfg(2048), 15, 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
             rk.check_render_config(c, F, Fd)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
@@ -491,10 +514,10 @@ class _Spec:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("hid,start", [(320, 0), (320, 2), (512, 0),
-                                       (512, 2)])
+                                       (512, 2), (1024, 0), (1024, 2)])
 def test_kernel_int8_at_512_holds_the_jax_quantizer(hid, start):
-    """``pack_kernel_int8`` for the HID-512 engine (hid 320 padded to 512,
-    and 512 itself) against the JAX quantizer (``pack_mlp_weights_int8``
+    """``pack_kernel_int8`` for the tile engine (hid 320 padded to 512, 512
+    and 1024 itself) against the JAX quantizer (``pack_mlp_weights_int8``
     of the same weights and scales at the real width): every int8 weight
     on its real rows and columns equal but for 1 LSB on < 0.1% of the
     entries (test_torch_quant.py's rule: f32 scales folded in another
@@ -521,7 +544,8 @@ def test_kernel_int8_at_512_holds_the_jax_quantizer(hid, start):
                                        "acts": [t(a) for a in acts]}, start,
                                  tap)
     assert not quant.s8_rows_permuted(512) and quant.s8_rows_permuted(256)
-    W = 512
+    assert not quant.s8_rows_permuted(1024)
+    W = rtk.kernel_width(hid, "eval")
     assert got["w3q"].shape == (W, W)
     # The images: each matrix's rows in order, as slot_images_s8 lays them.
     off = 0
@@ -601,26 +625,34 @@ def test_pack_stage_pads_once_with_the_same_bytes(hid):
 
 
 def test_width_sets_by_family():
-    """The eval kernels' widths and the train kernels' are both (64, 128,
-    192, 256, 512): 512 and every width up to it map to the smallest that
-    holds them, 513 raises in both families, naming ROADMAP Queue 2 and
-    the width refused."""
-    assert rtk.EVAL_HIDS == (64, 128, 192, 256, 512)
+    """The train kernels' widths are (64, 128, 192, 256, 512), the eval
+    kernels' the same and 1024: each width up to a family's largest maps to
+    the smallest that holds it; 513 raises in the train family and 1025 in
+    the eval family, naming ROADMAP Queue 2 and the width refused."""
+    assert rtk.EVAL_HIDS == (64, 128, 192, 256, 512, 1024)
     assert rtk.TRAIN_HIDS == (64, 128, 192, 256, 512)
     for family in ("eval", "train"):
         assert rtk.kernel_width(512, family) == 512
         assert rtk.kernel_width(257, family) == 512
         assert rtk.kernel_width(256, family) == 256
-        with pytest.raises(NotImplementedError,
-                           match="hid_dim 513 > 512 .ROADMAP Queue 2, MLP "
-                                 "widths above 512"):
-            rtk.kernel_width(513, family)
+    with pytest.raises(NotImplementedError,
+                       match="hid_dim 513 > 512 .ROADMAP Queue 2, MLP "
+                             "widths above 512"):
+        rtk.kernel_width(513, "train")
+    for hid in (513, 640, 1024):
+        assert rtk.kernel_width(hid, "eval") == 1024
+    with pytest.raises(NotImplementedError,
+                       match="hid_dim 1025 > 1024 .ROADMAP Queue 2, MLP "
+                             "widths above 1024"):
+        rtk.kernel_width(1025, "eval")
     cfg = NerfConfig(layer_num=LAYERS, hid_dim=320, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=SKIPS)
     assert rtk.kernel_cfg(cfg, "eval").hid_dim == 512
     assert rtk.kernel_cfg(cfg, "train").hid_dim == 512
     assert rtk.train_kernels_take(cfg)
     assert not rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=513))
+    assert rtk.kernel_cfg(dataclasses.replace(cfg, hid_dim=640),
+                          "eval").hid_dim == 1024
 
 
 @pytest.mark.parametrize("hid,route", [(640, "plain"), (512, "kernels"),
@@ -650,7 +682,7 @@ def test_trainer_route_follows_the_train_kernels_widths(hid, route):
     assert got == route
     assert (why == "") == (route == "kernels")
     if route == "plain":
-        assert f"hid_dim {hid}" in why and "512" in why
+        assert f"hid_dim {hid}" in why and "512" in why and "1024" in why
     assert train_route(r, "cpu")[0] == "plain"
     for dev in ("cuda", "cpu"):
         if route == "plain":
