@@ -69,6 +69,9 @@ Phases (each prints its results; any failure exits non-zero):
    ``exp_bound_ms`` and SDPA's backward; then the backward at head_dim
    16, 64 and 128 (B=2, H=8, L=S=3600, both modes, reruns bit-identical)
    against the plain backward, beside SDPA's backward and its bound;
+   the f32 mode of the forward (phase 3) and of the backward at head_dim
+   32 and at each width row is timed beside its plain version, SDPA on f32
+   operands and its bound at the f32 peak (the rows' ``f32``);
 3d. the same for the int8 serving trunk: activation scales calibrated from
    the first 1024 of 9216 rays of the room fixture, the int8 kernel's
    design, registers, spills and shared memory, then the int8 render stage
@@ -257,31 +260,31 @@ Phases (each prints its results; any failure exits non-zero):
    (kernels 1b, 2, 1 on ``render_eval_512.cuh``'s engine) and one request
    with a c2f matcher of ``pt_dim`` 512; launches of kernels 1, 1b, 2, 5
    and 6 all above 0;
-13. a hid-1024 NeRF served end to end (``phase_hid128`` at ``hid`` 1024):
-   the same config at ``hid_dim`` 1024, trained by the CLI on the plain
-   route the port gives a NeRF above the train kernels' 512
-   (``render.use_fused_train`` off; ``HID1024_EPOCHS`` epoch of 10 steps),
-   ``HID1024_STEPS`` timed plain-route steps with the peak memory, then
-   its scene points for the 24 frames (kernels 1b, 2, 1 at kernel width
-   1024 on ``render_eval_512.cuh``'s tile engine) and one request with a
-   c2f matcher of ``pt_dim`` 1024; launches of kernels 1, 1b and 2 above
-   0.
+13. a hid-1024 NeRF end to end (``phase_hid128`` at ``hid`` 1024): the
+   same config at ``hid_dim`` 1024 with ``render.use_fused_train`` on,
+   trained by the CLI on kernels 5 and 6 (``render_train_512.cuh``'s tile
+   engine in two N passes a layer; the route and why logged;
+   ``HID1024_EPOCHS`` epoch of 10 steps), ``HID1024_STEPS`` timed steps
+   with the peak memory, then as many on the plain route beside them, its
+   scene points for the 24 frames (kernels 1b, 2, 1 at kernel width 1024
+   on ``render_eval_512.cuh``'s tile engine) and one request with a c2f
+   matcher of ``pt_dim`` 1024; launches of kernels 1, 1b, 2, 5 and 6 all
+   above 0.
 
 Phases 3, 3d and 3b also hold the render kernels at the MLP widths
 ``WIDTH_ROWS`` (32, 96, 128, 192, 512, 640, 1024; phase 3b
-``TRAIN_WIDTH_ROWS``, 320 instead of 640 and 1024; 32, 96, 320 and 640
-run zero-padded at 64, 128, 512 and 1024) to their plain
-versions on the room's 9216
+``TRAIN_WIDTH_ROWS``, also 320; 32, 96, 320 and 640 run zero-padded at
+64, 128, 512 and 1024) to their plain versions on the room's 9216
 rays x 128 samples with seeded random weights (the rows' ``widths``:
 kernel 1 coarse and fine, 1b coarse and fine ``'posttap'``, 5 with its
-stash, 6, each with its bound on the real width's operations, 5 and 6
+stash and without (bit-identical), 6, each with its bound on the real
+width's operations, 5 and 6
 with ``torch.mm`` over the same products, 1b with ``pack_fused``'s host
 ms; every one with its instantiation's registers, spills and dynamic
 shared memory; at 512 and 1024 also the fine stage with ``app`` and with
-``feat_max``), and kernels 1 and 5-6 (each at 256 and 512, kernel 1 also
-at 1024) at the widest encoding the JAX kernels take (F = 21, Fd = 18,
-appearance rows; ``wide_encoding``, ``wide_encoding_512``,
-``wide_encoding_1024``).  The build's seconds and the
+``feat_max``), and kernels 1 and 5-6 (each at 256, 512 and 1024) at the
+widest encoding the JAX kernels take (F = 21, Fd = 18, appearance rows;
+``wide_encoding``, ``wide_encoding_512``, ``wide_encoding_1024``).  The build's seconds and the
 smoke's total are printed before the kernel summary.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
@@ -460,10 +463,11 @@ MERGED_S = 14400
 # Phase 12's timed NeRF steps (the hid-512 NeRF, on kernels 5-6; the same
 # count of plain-route steps beside them).
 HID512_STEPS = 10
-# Phase 13's NeRF (hid 1024, above the train kernels' 512): the CLI's
-# epochs of 10 steps on the plain route, then its timed steps.
+# Phase 13's NeRF (hid 1024, on kernels 5-6 in two N passes a layer): the
+# CLI's epochs of 10 steps, then its timed steps (the same count of
+# plain-route steps beside them).
 HID1024_EPOCHS, HID1024_STEPS = 1, 5
-# What the train stages run at MLP width 512 (render_train_512.cuh).
+# What the train stages run at MLP widths 512 and 1024 (render_train_512.cuh).
 RENDER_TRAIN_512_DESIGN = (
     "two warpgroups share a 64-row chunk (64 samples of a ray), each an "
     "m64n256 chain on its half of every layer's 512 columns; A from a "
@@ -472,6 +476,12 @@ RENDER_TRAIN_512_DESIGN = (
     "slices; the stash rows copied out of the tile with 16-byte streaming "
     "stores; the backward's ReLU masks read from the stash in global memory "
     "and its vector partials summed in global memory")
+RENDER_TRAIN_1024_DESIGN = (
+    "the 512 engine in two N passes a layer over one K-major 64 x 1024 input "
+    "tile (128 KB): warpgroup wg takes columns 512 p + 256 wg .. in pass p; "
+    "pass 0's outputs parked by each thread in its block's 64 KB of an L2 "
+    "scratch and read back after the last pass's barrier; a 2-slot ring of "
+    "32 KB pass halves; the views layer one pass")
 # Merged multi-pair training's attention shapes (L, S) at S = 14,400: the
 # image's queries over the points (the coarse former), the points' self
 # attention (pt_sa); the points' queries over the image (S = 3600) ride
@@ -1102,6 +1112,15 @@ def phase_kernels(renderer, dev):
         if bf16:   # the serving default (attn_bf16=True)
             rows["attention"] = attention_forward_row(q, k, v, a, err, ms,
                                                       plain_ms)
+        else:
+            f32_row = f32_mode_row(ms, plain_ms, err,
+                                   sdpa_forward(q, k, v, a, torch.float32)[0],
+                                   4 * 8 * 3600 * 3600 * 32, nbytes(q, k, v, a))
+    rows["attention"]["f32"] = f32_row
+    log(f"kernel attention f32 mode, head_dim 32: ms={f32_row['ms']:.3f} "
+        f"plain_ms={f32_row['plain_ms']:.3f} SDPA on f32 operands "
+        f"{f32_row['library_ms']:.3f} bound_ms {f32_row['bound_ms']:.4f} "
+        f"({f32_row['bound_by']}, 67 TFLOP/s f32)")
     rows["attention"]["merged"] = attention_merged_row(dev)
     rows["attention"]["head_dims"] = {
         str(d): attention_width_row(dev, d) for d in ATTN_WIDTH_ROWS}
@@ -1224,7 +1243,8 @@ def attention_width_row(dev, D, L=3600, S=3600, H=8):
     mode against ``attention_plain`` (max 1e-4); the bf16 call timed through
     the wrapper (``ms``) and its C entry alone (``kernel_ms``), beside the
     plain version, SDPA, the bound and ``exp_bound_ms``; the f32 mode's
-    time -> a row of the attention summary's ``head_dims``."""
+    time beside its plain version, SDPA on f32 operands and its bound
+    (``f32``) -> a row of the attention summary's ``head_dims``."""
     from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
         attention_onepass_plain, attention_plain, fused_attention,
         kernel_head_dim)
@@ -1244,13 +1264,16 @@ def attention_width_row(dev, D, L=3600, S=3600, H=8):
     kernel_ms = attention_fwd_alone_ms(q, k, v)
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, True), 3)
     f32_ms = cuda_ms(lambda: fused_attention(q, k, v, False), 3)
+    f32 = f32_mode_row(f32_ms, cuda_ms(lambda: attention_plain(q, k, v, False), 3),
+                       err32, sdpa_forward(q, k, v, a32, torch.float32)[0],
+                       4 * H * L * S * D, nbytes(q, k, v, a32))
     lib_ms, lib_err = sdpa_forward(q, k, v, a)
     eb, _, _ = exp_bound_ms(H * L * S)
     row = dict(D=D, kernel_head_dim=kernel_head_dim(D), L=L, S=S,
                max_abs_err=err1, mean_abs_err=mean1, two_pass_max_err=err2,
                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
                library_ms=lib_ms, library_max_diff=lib_err, exp_bound_ms=eb,
-               f32_ms=f32_ms, f32_max_abs_err=err32,
+               f32_ms=f32_ms, f32_max_abs_err=err32, f32=f32,
                **bound({"bf16": 4 * H * L * S * D}, nbytes(q, k, v, a)))
     log(f"kernel attention at head_dim {D} (kD {row['kernel_head_dim']}), "
         f"B=1, H={H}, L=S={L}: bf16 vs the one-pass plain version max "
@@ -1259,7 +1282,9 @@ def attention_width_row(dev, D, L=3600, S=3600, H=8):
         f"max {err32:.3e} (tol 1e-4); ms={ms:.4f} kernel_ms={kernel_ms:.4f} "
         f"plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.4f} "
         f"exp_bound_ms={eb:.4f} scaled_dot_product_attention {lib_ms:.4f} "
-        f"(max abs diff {lib_err:.2e}); f32 mode {f32_ms:.3f} ms")
+        f"(max abs diff {lib_err:.2e}); f32 mode {f32_ms:.3f} ms (plain "
+        f"{f32['plain_ms']:.3f}, SDPA on f32 operands {f32['library_ms']:.3f}, "
+        f"bound {f32['bound_ms']:.4f} at 67 TFLOP/s f32)")
     assert err1 < 1e-3 and mean1 < 1e-5 and err32 < 1e-4
     assert torch.isfinite(a).all() and torch.isfinite(a32).all()
     return row
@@ -1316,13 +1341,22 @@ def attention_forward_row(q, k, v, out, err, ms, plain_ms):
     return row
 
 
-def sdpa_forward(q, k, v, ref):
-    """Time of ``scaled_dot_product_attention`` on the bf16-rounded
-    (B, H, L, D) operands (q arrives pre-scaled), and its largest
-    difference to ``ref``."""
+def f32_mode_row(ms, plain_ms, err, library_ms, ops, n_bytes):
+    """The attention's f32 mode (``attn_bf16: False``: f32 operands, f32
+    FMAs outside the tensor cores): its time beside the plain version's and
+    SDPA's on f32 operands, its bound at the f32 peak (67 TFLOP/s) or the
+    memory rate, and its largest error against the plain version."""
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                max_abs_err=err, **bound({"f32": ops}, n_bytes))
+
+
+def sdpa_forward(q, k, v, ref, dtype=torch.bfloat16):
+    """Time of ``scaled_dot_product_attention`` on the (B, H, L, D)
+    operands in ``dtype`` (bf16-rounded by default; q arrives pre-scaled),
+    and its largest difference to ``ref``."""
     from torch.nn import functional as F
 
-    qb, kb, vb = (x.transpose(1, 2).to(torch.bfloat16).contiguous()
+    qb, kb, vb = (x.transpose(1, 2).to(dtype).contiguous()
                   for x in (q, k, v))
     run = lambda: F.scaled_dot_product_attention(qb, kb, vb, scale=1.0)
     diff = float((run().transpose(1, 2).float() - ref).abs().max())
@@ -1882,7 +1916,7 @@ def phase_check(evaluator, batch):
 # MLP widths held beside the room's 256 by the eval stages (phases 3, 3d)
 # and by the train stages (phase 3b: also 320, run at 512 padded).
 WIDTH_ROWS = (32, 96, 128, 192, 512, 640, 1024)
-TRAIN_WIDTH_ROWS = (32, 96, 128, 192, 320, 512)
+TRAIN_WIDTH_ROWS = (32, 96, 128, 192, 320, 512, 640, 1024)
 # The widest encoding the JAX kernels take with an appearance table: F =
 # 21 (126 encoding columns), Fd = 18 (111 + 16 extras columns).
 WIDE_ENCODING = (21, 18)
@@ -2099,10 +2133,9 @@ def train_build_info(hid, enc=3):
 
     from nerfmatch_tpu_torch.ops import kernels
 
-    pats = {"fwd": (rf"train_fwd_kernelILi{hid}ELb1ELi{enc}E" if hid != 512
-                    else rf"train_fwd512_kernelILb1ELi{enc}E"),
-            "bwd": (rf"train_bwd_kernelILi{hid}E" if hid != 512
-                    else r"train_bwd512_kernel")}
+    tile = "_tile" if hid > 256 else ""   # render_train_512.cuh's kernels
+    pats = {"fwd": rf"train_fwd{tile}_kernelILi{hid}ELb1ELi{enc}E",
+            "bwd": rf"train_bwd{tile}_kernelILi{hid}E"}
     name, out = "", {"fwd": [], "bwd": []}
     log_path = Path(kernels.BUILD_INFO["path"]).parent / "build.log"
     for line in log_path.read_text().splitlines():
@@ -2116,28 +2149,44 @@ def train_build_info(hid, enc=3):
 
 
 def train_width_row(spec, rays, z, noise, target, app=None):
-    """Kernels 5 (the training forward with its stash) and 6 (the backward
-    on it) at ``spec.mlp``'s width against the plain stage (phase 3b's
-    tolerances: forward 5e-3; backward 3e-2 of each leaf's largest gradient
-    with cosine > 0.999) -> (forward row, backward row), each with its
-    bound on the real width's operations and ``torch.mm`` over the same
-    products."""
+    """Kernels 5 (the training forward with its stash, and the forward
+    without a gradient, which must give the same bits) and 6 (the backward
+    on the stash) at ``spec.mlp``'s width against the plain stage (phase
+    3b's tolerances: forward 5e-3; backward 3e-2 of each leaf's largest
+    gradient with cosine > 0.999) -> (forward row, backward row), each with
+    its bound on the real width's operations and ``torch.mm`` over the same
+    products.  Above kernel width 512 the plain forward runs a quarter of
+    the rays at a time (its activations of all 9216 rays would not fit
+    beside the stash)."""
     from nerfmatch_tpu_torch.ops import kernels
     from nerfmatch_tpu_torch.ops.kernels import render_train_kernel as rtk
 
     mlp, cfg = spec.mlp, spec.mlp.cfg
     n, S = z.shape[0], z.shape[1] - 1
+    width = rtk.kernel_width(cfg.hid_dim, "train")
+    chunk = n if width <= 512 else n // 4
+
+    def plain_forward():
+        outs = [rtk.train_stage_forward(
+            spec, rays[i:i + chunk], z[i:i + chunk], noise[i:i + chunk],
+            app=None if app is None else app[i:i + chunk])
+            for i in range(0, n, chunk)]
+        return tuple(torch.cat(o) for o in zip(*outs))
+
     packed = rtk.pack_train(mlp)
     with torch.no_grad():
         rgb, w, stash = rtk.kernel_forward(spec, rays, z, noise, packed,
                                            stash=True, app=app)
-        rgb_p, w_p = rtk.train_stage_forward(spec, rays, z, noise, app=app)
+        rgb_n, w_n, none = rtk.kernel_forward(spec, rays, z, noise, packed,
+                                              app=app)
+        rgb_p, w_p = plain_forward()
+    torch.cuda.synchronize()
+    same = none is None and torch.equal(rgb_n, rgb) and torch.equal(w_n, w)
+    assert same, (cfg.hid_dim, "the forward without a gradient differs")
+    del rgb_n, w_n
     g_rgb, g_w = train_cotangents(z, rgb, w, target)
     ga = rtk.kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed,
                              app)
-    # The 512 engine's launches apart (one profiled call).
-    parts = (train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
-             if app is None and cfg.hid_dim > rtk.REGISTER_A_MAX else None)
     gb = rtk.train_stage_backward(spec, rays, z, noise, g_rgb, g_w, app=app)
     torch.cuda.synchronize()
     fwd_err = max(float((rgb - rgb_p).abs().max()), float((w - w_p).abs().max()))
@@ -2151,11 +2200,16 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     min_cos = min(c for _, c in leaf.values() if c != 0.0)
     assert fwd_err < 5e-3 and bwd_err < 3e-2 and min_cos > 0.999, \
         (cfg.hid_dim, fwd_err, bwd_err, min_cos)
+    del ga, gb
+    # The tile engine's launches apart (one profiled call).
+    parts = (train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed)
+             if app is None and cfg.hid_dim > rtk.REGISTER_A_MAX else None)
     with torch.no_grad():
         ms_f = cuda_ms(lambda: rtk.kernel_forward(spec, rays, z, noise, packed,
                                                   stash=True, app=app), 3)
-        plain_f = cuda_ms(lambda: rtk.train_stage_forward(spec, rays, z, noise,
-                                                          app=app), 2)
+        ms_n = cuda_ms(lambda: rtk.kernel_forward(spec, rays, z, noise, packed,
+                                                  app=app), 3)
+        plain_f = cuda_ms(plain_forward, 2)
         ms_b = cuda_ms(lambda: rtk.kernel_backward(
             spec, stash, rays, z, noise, g_rgb, g_w, packed, app), 3)
         plain_b = cuda_ms(lambda: rtk.train_stage_backward(
@@ -2167,14 +2221,15 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     w_bytes = sum(p.numel() * 2 for p in mlp.parameters())
     g_bytes = sum(p.numel() * 4 for p in mlp.parameters())
     io = nbytes(rays, z, noise, rgb, w) + w_bytes
-    width = rtk.kernel_width(cfg.hid_dim, "train")
     enc = 3 if cfg.xyz_dim <= rtk.ENC_STD else 4
     lib = kernels.library()
-    common = dict(hid=cfg.hid_dim, kernel_width=width,
-                  design=RENDER_TRAIN_512_DESIGN if width > rtk.REGISTER_A_MAX
-                  else "render_train.cuh (A in registers, 128-row chunks)")
+    design = ("render_train.cuh (A in registers, 128-row chunks)"
+              if width <= rtk.REGISTER_A_MAX else RENDER_TRAIN_512_DESIGN
+              if width == 512 else RENDER_TRAIN_1024_DESIGN)
+    common = dict(hid=cfg.hid_dim, kernel_width=width, design=design)
     ptxas = train_build_info(width, enc)
     fwd = dict(common, max_abs_err=fwd_err, ms=ms_f, plain_ms=plain_f,
+               nograd_ms=ms_n, nograd_bit_identical=same,
                library_ms=train_fwd_yardstick(spec, n * S),
                ptxas=ptxas["fwd"],
                smem_bytes=lib.nm_render_train_smem(
@@ -2191,7 +2246,8 @@ def train_width_row(spec, rays, z, noise, target, app=None):
     log(f"kernel render_train hid={cfg.hid_dim} (run at {fwd['kernel_width']}"
         f"{'' if app is None else ', appearance rows'}, F={spec.num_freqs}, "
         f"Fd={spec.dirs_freqs}): forward max_abs_err={fwd_err:.3e} (tol 5e-3) "
-        f"ms={ms_f:.3f} plain_ms={plain_f:.3f} torch.mm {fwd['library_ms']:.3f}"
+        f"ms={ms_f:.3f} (without a gradient {ms_n:.3f}, bit-identical) "
+        f"plain_ms={plain_f:.3f} torch.mm {fwd['library_ms']:.3f}"
         f" bound {fwd['bound_ms']:.3f} ({fwd['bound_by']}); backward max "
         f"scaled err={bwd_err:.3e} (tol 3e-2) min cosine {min_cos:.6f} (tol "
         f"0.999) ms={ms_b:.3f} plain_ms={plain_b:.3f} torch.mm "
@@ -2205,8 +2261,8 @@ def train_width_row(spec, rays, z, noise, target, app=None):
 def train_width_rows(dev):
     """Phase 3b's rows at ``TRAIN_WIDTH_ROWS`` (each width's fine MLP on
     phase 3b's 9216 rays x 128 jittered samples) and at the widest encoding
-    with appearance rows at hid 256 and 512 -> {row name: {hid,
-    'wide_encoding' or 'wide_encoding_512': row}}."""
+    with appearance rows at hid 256, 512 and 1024 -> {row name: {hid,
+    'wide_encoding', 'wide_encoding_512' or 'wide_encoding_1024': row}}."""
     from nerfmatch_tpu_torch.ops.kernels.render_train_kernel import (
         TRAIN_HIDS, StageSpec)
 
@@ -2232,7 +2288,8 @@ def train_width_rows(dev):
     g = torch.Generator(dev).manual_seed(3)
     app = 0.5 * torch.randn(2, 16, device=dev, generator=g)[
         torch.arange(rays.shape[0], device=dev) % 2].contiguous()
-    for hid, key in ((256, "wide_encoding"), (512, "wide_encoding_512")):
+    for hid, key in ((256, "wide_encoding"), (512, "wide_encoding_512"),
+                     (1024, "wide_encoding_1024")):
         mlp, F, Fd = wide_encoding_mlp(dev, hid)
         fwd, bwd = train_width_row(StageSpec(mlp, F, Fd), rays, z, noise,
                                    target, app)
@@ -2583,20 +2640,41 @@ def train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed):
     layout = backward_layout(cfg, n, S)
     H = max(max(m, k) for m, k, _ in layout.products)   # the kernel width's
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
-        torch.cuda.synchronize()
-    # train_bwd_kernel<HID> up to 256, train_bwd512_kernel at 512.
+    # train_bwd_kernel<HID> up to 256, train_bwd_tile_kernel<HID> above.
     names = {"train_bwd": "trunk backward", "wgrad_gemm_kernel":
              "weight-gradient GEMM", "reduce_parts_kernel": "reductions"}
-    part_ms = dict.fromkeys(names.values(), 0.0)
-    fwd = 0
-    for e in prof.key_averages():
-        fwd += e.count if "train_fwd" in e.key else 0
-        for key, label in names.items():
-            if key in e.key:
-                part_ms[label] += e.self_device_time_total / 1e3
-    assert fwd == 0, f"kernel_backward launched train_fwd_kernel {fwd} times"
+    # The profiler on the card sometimes drops a kernel's record after many
+    # profiled runs in one process (here: the 1024 trunk backward's, the
+    # longest launch, every time; in a fresh process it is kept): a call
+    # whose records miss a launch is profiled again, and if only the trunk
+    # backward's is still missing, its time is the whole call's (CUDA
+    # events) less the two launches the profiler kept.
+    trunk_from_events = False
+    for attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w, packed)
+            torch.cuda.synchronize()
+        part_ms = dict.fromkeys(names.values(), 0.0)
+        fwd = 0
+        for e in prof.key_averages():
+            fwd += e.count if "train_fwd" in e.key else 0
+            for key, label in names.items():
+                if key in e.key:
+                    part_ms[label] += e.self_device_time_total / 1e3
+        assert fwd == 0, f"kernel_backward launched train_fwd_kernel {fwd} times"
+        if all(part_ms.values()):
+            break
+        log(f"  profiled call {attempt + 1}: a launch's record is missing "
+            f"({part_ms})")
+    if not part_ms["trunk backward"] and all(
+            v for k, v in part_ms.items() if k != "trunk backward"):
+        whole = cuda_ms(lambda: kernel_backward(
+            spec, stash, rays, z, noise, g_rgb, g_w, packed), 2)
+        part_ms["trunk backward"] = whole - sum(part_ms.values())
+        trunk_from_events = True
+        log(f"  trunk backward from CUDA events: the call {whole:.3f} ms less "
+            f"the GEMM and reductions' records = {part_ms['trunk backward']:.3f}"
+            " ms")
     assert all(part_ms.values()), f"a backward launch is missing: {part_ms}"
     ws = layout.traffic
     gen = torch.Generator(rays.device).manual_seed(5)
@@ -2615,7 +2693,8 @@ def train_bwd_parts(spec, stash, rays, z, noise, g_rgb, g_w, packed):
         f"GEMM {part_ms['weight-gradient GEMM']:.3f} ms vs torch.mm on "
         f"stash-shaped bf16 operands {lib_ms:.3f} ms (library_ms of that "
         f"launch; never called by the port)")
-    return dict(part_ms, **{"torch.mm": lib_ms})
+    return dict(part_ms, **{"torch.mm": lib_ms},
+                **({"trunk_from_events": True} if trunk_from_events else {}))
 
 
 def scaled_err(a, b):
@@ -2757,6 +2836,17 @@ def phase_matcher_kernels(dev):
             f"{alone_ms:.3f}) plain_ms={plain_ms:.3f}")
         assert err < tols[bf16][0] and cos > tols[bf16][1] and same
         assert all(torch.isfinite(a).all() for a in got)
+        if not bf16:
+            B, L, H, D = q.shape
+            f32_row = f32_mode_row(ms, plain_ms, abs_err,
+                                   sdpa_backward(q, k, v, up, torch.float32),
+                                   10 * B * H * L * k.shape[1] * D,
+                                   nbytes(q, k, v, up, *got))
+            f32_row.update(scaled_err=err, cosine=cos)
+            log(f"  f32 mode: bound_ms {f32_row['bound_ms']:.4f} "
+                f"({f32_row['bound_by']}, 67 TFLOP/s f32); the autograd "
+                f"backward of scaled_dot_product_attention on f32 operands "
+                f"{f32_row['library_ms']:.3f} ms")
         if bf16:   # the training default (attn_bf16=True)
             B, L, H, D = q.shape
             S = k.shape[1]
@@ -2775,6 +2865,7 @@ def phase_matcher_kernels(dev):
                 f"{mhz:.0f} MHz)); the "
                 f"autograd backward of scaled_dot_product_attention (bf16 "
                 f"operands) {lib_ms:.3f} ms")
+    rows["attention_bwd"]["f32"] = f32_row
     rows["attention_bwd"]["merged"] = [attention_bwd_merged_row(dev, L, S)
                                        for L, S in MERGED_TRAIN_SHAPES]
     rows["attention_bwd"]["head_dims"] = {
@@ -2789,8 +2880,9 @@ def attention_bwd_width_row(dev, D, B=2, L=3600, S=3600, H=8):
     against ``attention_bwd_plain`` (1e-2 of each gradient's largest value,
     cosine > 0.999, the D = 32 tolerances), f32 mode (1e-4, cosine >
     0.99999), each rerun bit-identical; timed beside the plain version,
-    SDPA's backward, the bound and ``exp_bound_ms`` -> a row of the
-    ``attention_bwd`` summary's ``head_dims``."""
+    SDPA's backward, the bound and ``exp_bound_ms`` (the f32 mode's beside
+    SDPA's backward on f32 operands and its bound at the f32 peak, ``f32``)
+    -> a row of the ``attention_bwd`` summary's ``head_dims``."""
     from nerfmatch_tpu_torch.ops.kernels import attention_kernel as ak
     from nerfmatch_tpu_torch.ops.kernels.attention_kernel import (
         attention_bwd, attention_bwd_plain, kernel_head_dim)
@@ -2829,16 +2921,22 @@ def attention_bwd_width_row(dev, D, B=2, L=3600, S=3600, H=8):
             grads = got
     lib_ms = sdpa_backward(q, k, v, up)
     eb, _, _ = exp_bound_ms(2 * B * H * L * S)
-    b16 = res[True]
+    b16, r32 = res[True], res[False]
+    f32 = f32_mode_row(r32["ms"], r32["plain_ms"], r32["max_abs_err"],
+                       sdpa_backward(q, k, v, up, torch.float32),
+                       10 * B * H * L * S * D, nbytes(q, k, v, up, *grads))
     row = dict(D=D, kernel_head_dim=kernel_head_dim(D), B=B, L=L, S=S,
                max_abs_err=b16["max_abs_err"], scaled_err=b16["scaled_err"],
                cosine=b16["cosine"], ms=b16["ms"], plain_ms=b16["plain_ms"],
                library_ms=lib_ms, exp_bound_ms=eb, f32_ms=res[False]["ms"],
-               f32_scaled_err=res[False]["scaled_err"],
+               f32_scaled_err=res[False]["scaled_err"], f32=f32,
                **bound({"bf16": 10 * B * H * L * S * D},
                        nbytes(q, k, v, up, *grads)))
     log(f"  head_dim {D}: bound_ms {row['bound_ms']:.4f} exp_bound_ms "
-        f"{eb:.4f} SDPA backward {lib_ms:.3f}")
+        f"{eb:.4f} SDPA backward {lib_ms:.3f}; f32 mode {f32['ms']:.3f} ms "
+        f"(plain {f32['plain_ms']:.3f}, SDPA backward on f32 operands "
+        f"{f32['library_ms']:.3f}, bound {f32['bound_ms']:.4f} at 67 TFLOP/s "
+        f"f32)")
     return row
 
 
@@ -2941,16 +3039,16 @@ def conv_wgrad_alone_ms(x, up):
         xc, (C, 1, 7, 7), gc, padding=3, groups=C))
 
 
-def sdpa_backward(q, k, v, up):
+def sdpa_backward(q, k, v, up, dtype=torch.bfloat16):
     """Time of the autograd backward of ``scaled_dot_product_attention`` on
-    the bf16-rounded (B, H, L, D) operands."""
+    the (B, H, L, D) operands in ``dtype`` (bf16-rounded by default)."""
     from torch.nn import functional as F
 
     with torch.enable_grad():
-        qb, kb, vb = (x.transpose(1, 2).to(torch.bfloat16).contiguous()
+        qb, kb, vb = (x.transpose(1, 2).to(dtype).contiguous()
                       .requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(qb, kb, vb, scale=1.0)
-        g = up.transpose(1, 2).to(torch.bfloat16).contiguous()
+        g = up.transpose(1, 2).to(dtype).contiguous()
         return cuda_ms(lambda: torch.autograd.grad(out, (qb, kb, vb), g,
                                                    retain_graph=True))
 
@@ -3101,11 +3199,11 @@ def phase_hid128(dev, seed, root, hid=128, size=480, steps=50, phase=11,
     both stages, trained by the ``train_nerf`` CLI (--debug, ``epochs``
     epochs of 10 steps) on phase 5's room scene under ``root``, then
     ``steps`` timed ``NerfTrainer`` steps: up to the train kernels' widest
-    with ``render.use_fused_train`` on, on kernels 5 and 6 (at 512 on
-    render_train_512.cuh) and, above 256, as many on the plain route
-    (``render_rays`` under autograd) for the yardstick; above it with the
-    flag off, on the plain route the port gives such a NeRF; each with its
-    peak memory.  Its checkpoint served at the serving int8 default: the
+    with ``render.use_fused_train`` on, on kernels 5 and 6 (at 512 and 1024
+    on render_train_512.cuh's tile engine) and, above 256, as many on the
+    plain route (``render_rays`` under autograd) for the yardstick; above it
+    with the flag off, on the plain route the port gives such a NeRF; each
+    with its peak memory.  Its checkpoint served at the serving int8 default: the
     scene points of the scene's 24 frames (kernels 1b, 2, 1, at the eval
     kernels' width for ``hid``) and one 480x480 request localized by
     ``eval_batch(iters=2)`` with a c2f matcher at random weights (seed 0)
@@ -5508,12 +5606,13 @@ def main():
     for n in ("render_fine", "render_train_fwd"):
         rows[n]["phase12_hid512"] = {
             k: v for k, v in hid512.items() if k != "launches"}
-    # Phase 13's (the hid-1024 NeRF, trained plain: 1b, 2 and 1 serving it
-    # at kernel width 1024).
+    # Phase 13's (the hid-1024 NeRF: kernels 5, 6 and 2 in training at
+    # kernel width 1024; 1b, 2 and 1 serving it).
     for n, c in hid1024["launches"].items():
         rows[n]["launches_phase13"] = c
-    rows["render_fine"]["phase13_hid1024"] = {
-        k: v for k, v in hid1024.items() if k != "launches"}
+    for n in ("render_fine", "render_train_fwd"):
+        rows[n]["phase13_hid1024"] = {
+            k: v for k, v in hid1024.items() if k != "launches"}
 
     # The iNeRF phase's counts stand beside each kernel it launched.
     for n, c in inerf["launches"].items():

@@ -1,8 +1,8 @@
 // The NeRF train-render stage's weight-gradient GEMM, its reductions, the
 // appearance-row gradient and the C entries (kernels 5 and 6: the forward
 // and the trunk backward are render_train.cuh, instantiated at each width
-// in render_train_<HID>.cu, and render_train_512.cuh at 512; launches 2-4
-// below take every width).
+// in render_train_<HID>.cu, and render_train_512.cuh at 512 and 1024;
+// launches 2-4 below take every width).
 
 #include "render_train.cuh"
 
@@ -206,7 +206,7 @@ size_t carve_grad(const Dims& d, char* base, Stash* st, float** mat_part) {
 }
 
 // The instantiated widths (render_train_<HID>.cu, render_train_wide_<HID>.cu;
-// 512: render_train_512.cu, render_train_wide_512.cu).
+// 512 and 1024 on the tile engine of render_train_512.cuh).
 struct TrainWidth {
   int hid;
   decltype(&nm_train::train_fwd_64) fwd, fwd_wide;
@@ -216,7 +216,7 @@ struct TrainWidth {
   {H, nm_train::train_fwd_##H, nm_train::train_fwd_wide_##H, nm_train::train_bwd_##H}
 const TrainWidth kWidths[] = {NM_TRAIN_WIDTH_ROW(64), NM_TRAIN_WIDTH_ROW(128),
                               NM_TRAIN_WIDTH_ROW(192), NM_TRAIN_WIDTH_ROW(256),
-                              NM_TRAIN_WIDTH_ROW(512)};
+                              NM_TRAIN_WIDTH_ROW(512), NM_TRAIN_WIDTH_ROW(1024)};
 #undef NM_TRAIN_WIDTH_ROW
 
 const TrainWidth* train_width(int hid) {
@@ -259,6 +259,23 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
   p->app = (const float*)ptrs[k++];
 }
 
+// Bytes of the scratch a stage at hid takes for n_rays on the current
+// device: at 1024 the tile engine's parked pass, one block's
+// nm_train::kTileParkBytes an SM it runs on (the forward's grid, a ray a
+// block, bounds the backward's); 0 below; -1 on an error.
+long long park_scratch_bytes(int hid, int n_rays) {
+  if (hid != 1024) return 0;
+  cudaError_t e;
+  const int grid = persistent_grid(n_rays, &e);
+  return e != cudaSuccess ? -1 : (long long)grid * (long long)nm_train::kTileParkBytes;
+}
+
+// The scratch a launch at hid was handed (bytes of it): enough.
+bool scratch_ok(int hid, int n_rays, const void* scratch, int bytes) {
+  const long long need = park_scratch_bytes(hid, n_rays);
+  return need == 0 || (need > 0 && scratch != nullptr && bytes >= need);
+}
+
 }  // namespace
 
 // ptrs: host array of 3 * layer_num + 15 device pointers, in the order
@@ -270,19 +287,22 @@ void unpack(const void* const* ptrs, int layer_num, TrainParams* p) {
 // rows there (null where the layer takes no encoding); WhT_i (null for
 // layer 0), wfT, wvhT: the backward's slot images of the (out x in) rows.
 // stash: null (no gradient to come), or the stash for the backward (as
-// nm_render_train_workspace sizes it).  hid: 64, 128, 192, 256 or 512;
-// num_freqs <= 21; 6 * dirs_freqs + 3 (+ 16 with appearance rows) <= 128.
+// nm_render_train_workspace sizes it).  scratch: the tile engine's
+// scratch at hid 1024, scratch_bytes of it (nm_render_train_scratch), else
+// null.  hid: 64, 128, 192, 256, 512 or 1024; num_freqs <= 21;
+// 6 * dirs_freqs + 3 (+ 16 with appearance rows) <= 128.
 extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
                                        int hid, int layer_num, int num_freqs,
                                        int dirs_freqs, int samples,
                                        float var_scale, int white_bg,
                                        void* out_rgb, void* out_w, void* stash,
+                                       void* scratch, int scratch_bytes,
                                        void* stream) {
   TrainParams p;
   unpack(ptrs, layer_num, &p);
   const bool app = p.app != nullptr;
   if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples, app) ||
-      app != (p.wva != nullptr))
+      app != (p.wva != nullptr) || !scratch_ok(hid, n_rays, scratch, scratch_bytes))
     return (int)cudaErrorInvalidValue;
   Stash st{};
   if (stash != nullptr)
@@ -291,7 +311,14 @@ extern "C" int nm_render_train_forward(const void* const* ptrs, int n_rays,
   const TrainWidth* width = train_width(hid);
   return (int)(6 * num_freqs > kEncStd ? width->fwd_wide : width->fwd)(
       p, st, stash != nullptr, n_rays, layer_num, num_freqs, dirs_freqs, samples,
-      var_scale, white_bg, (float*)out_rgb, (float*)out_w, (cudaStream_t)stream);
+      var_scale, white_bg, (float*)out_rgb, (float*)out_w, scratch, (cudaStream_t)stream);
+}
+
+// Bytes of the scratch nm_render_train_forward and nm_render_train_backward
+// take at hid for n_rays on the current device (0 below hid 1024); -1 on an
+// error.
+extern "C" int nm_render_train_scratch(int hid, int n_rays) {
+  return (int)park_scratch_bytes(hid, n_rays);
 }
 
 template <int HID>
@@ -300,7 +327,7 @@ size_t train_smem(int layer_num, int ew, bool fwd) {
 }
 
 // Dynamic shared memory of the forward (fwd) or of the trunk backward at
-// hid (64, 128, 192, 256 or 512), with layer_num layers, dirs_freqs
+// hid (64, 128, 192, 256, 512 or 1024), with layer_num layers, dirs_freqs
 // view-direction frequencies and app_dim (0 or kAppDim) appearance
 // columns, in bytes; -1 for another width.
 extern "C" int nm_render_train_smem(int hid, int layer_num, int dirs_freqs,
@@ -312,6 +339,7 @@ extern "C" int nm_render_train_smem(int hid, int layer_num, int dirs_freqs,
     case 192: return (int)train_smem<192>(layer_num, ew, fwd);
     case 256: return (int)train_smem<256>(layer_num, ew, fwd);
     case 512: return (int)nm_train::train_smem_512(ew, fwd != 0);
+    case 1024: return (int)nm_train::train_smem_1024(ew, fwd != 0);
     default: return -1;
   }
 }
@@ -343,7 +371,8 @@ extern "C" int nm_render_train_workspace(int n_rays, int hid, int layer_num,
 // [hidden rows (hid x hid) if i > 0]; then wf (hid x hid), wvh (hid x hv),
 // the extras rows (extras_width x hv: wvd's, zeros to dirs_rows(Fd), wva's), wr
 // (hv x 8).  grad_vec: P floats, the VecLayout.  grad_app: (N, kAppDim)
-// f32, given with appearance rows (and only then).
+// f32, given with appearance rows (and only then).  scratch, scratch_bytes:
+// as nm_render_train_forward's.
 extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
                                         int hid, int layer_num, int num_freqs,
                                         int dirs_freqs, int samples,
@@ -351,12 +380,14 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
                                         const void* g_rgb, const void* g_w,
                                         const void* stash, void* workspace,
                                         void* grad_mat, void* grad_vec,
-                                        void* grad_app, void* stream) {
+                                        void* grad_app, void* scratch,
+                                        int scratch_bytes, void* stream) {
   TrainParams p;
   unpack(ptrs, layer_num, &p);
   const bool app = p.app != nullptr;
   if (bad_dims(n_rays, hid, layer_num, num_freqs, dirs_freqs, samples, app) ||
-      stash == nullptr || app != (p.wva != nullptr) || app != (grad_app != nullptr))
+      stash == nullptr || app != (p.wva != nullptr) || app != (grad_app != nullptr) ||
+      !scratch_ok(hid, n_rays, scratch, scratch_bytes))
     return (int)cudaErrorInvalidValue;
   const Dims d(n_rays, hid, layer_num, samples, num_freqs, dirs_freqs, app);
   Stash st{};
@@ -367,7 +398,7 @@ extern "C" int nm_render_train_backward(const void* const* ptrs, int n_rays,
   int parts = 0;
   cudaError_t e = train_width(hid)->bwd(p, st, n_rays, layer_num, samples, white_bg,
                                         (const float*)g_rgb, (const float*)g_w,
-                                        &parts, s);
+                                        &parts, scratch, s);
   if (e != cudaSuccess) return (int)e;
 
   ProdTable t{};

@@ -5,11 +5,12 @@
 // below); render_train.cu the weight-gradient GEMM, the reductions and the
 // C entries, each render_train_<HID>.cu the instantiations at one MLP
 // width, HID in {64, 128, 192, 256}, and each render_train_wide_<HID>.cu
-// the forward's at the wide encoding (one nvcc process each); width 512
-// runs on an engine of its own (render_train_512.cuh, the same stash
-// layout) behind the same C entries.  An MLP of another width up to 512
-// runs at the smallest of these that holds it, zero-padded on the host
-// (render_train_kernel.py: pad_mlp_to_kernel_width).  The encoding takes
+// the forward's at the wide encoding (one nvcc process each); widths 512
+// and 1024 run on an engine of their own (render_train_512.cuh, the tile
+// engine, the same stash layout) behind the same C entries.  An MLP of
+// another width up to 1024 runs at the smallest of these that holds it,
+// zero-padded on the host (render_train_kernel.py:
+// pad_mlp_to_kernel_width).  The encoding takes
 // 2 * 3 * F <= 128 columns (F <= 21): the forward's products and the stash
 // take enc_rows(F) of them, 96 up to F = 16 (ENC = 3 slices, the
 // production encoding's code) and 128 beyond (ENC = 4); a ray's extras
@@ -164,30 +165,38 @@ struct Stash {
 // encoding's, and the wide one's) and the trunk backward (launch 1; *parts
 // gets its blocks, the vector partials' rows) at one width; defined by
 // NM_RENDER_TRAIN_WIDTH in render_train_<HID>.cu and NM_RENDER_TRAIN_WIDE
-// in render_train_wide_<HID>.cu (HID 64-256), and at 512 by
-// render_train_512.cuh's NM_RENDER_TRAIN_512 and NM_RENDER_TRAIN_WIDE_512.
+// in render_train_wide_<HID>.cu (HID 64-256), and at 512 and 1024 by
+// render_train_512.cuh's NM_RENDER_TRAIN_TILE and NM_RENDER_TRAIN_TILE_WIDE.
+// park: the scratch of the tile engine's parked pass at 1024 (a block's
+// kTileParkBytes an SM, nm_render_train_scratch), unused below.
 #define NM_RENDER_TRAIN_DECL(H)                                                \
   cudaError_t train_fwd_##H(const TrainParams& p, const Stash& st, bool stash,  \
                             int n_rays, int layer_num, int F, int Fd, int S,    \
                             float var_scale, int white_bg, float* rgb, float* w, \
-                            cudaStream_t stream);                               \
+                            void* park, cudaStream_t stream);                   \
   cudaError_t train_fwd_wide_##H(const TrainParams& p, const Stash& st,         \
                                  bool stash, int n_rays, int layer_num, int F,  \
                                  int Fd, int S, float var_scale, int white_bg,  \
-                                 float* rgb, float* w, cudaStream_t stream);    \
+                                 float* rgb, float* w, void* park,              \
+                                 cudaStream_t stream);                          \
   cudaError_t train_bwd_##H(const TrainParams& p, const Stash& st, int n_rays,  \
                             int layer_num, int S, int white_bg,                 \
                             const float* g_rgb, const float* g_w, int* parts,   \
-                            cudaStream_t stream);
+                            void* park, cudaStream_t stream);
 NM_RENDER_TRAIN_DECL(64)
 NM_RENDER_TRAIN_DECL(128)
 NM_RENDER_TRAIN_DECL(192)
 NM_RENDER_TRAIN_DECL(256)
 NM_RENDER_TRAIN_DECL(512)
+NM_RENDER_TRAIN_DECL(1024)
 #undef NM_RENDER_TRAIN_DECL
-// Dynamic shared memory of the 512 engine (render_train_512.cuh): the
-// forward with ew extras columns a ray (fwd), else the trunk backward.
+// Dynamic shared memory of the tile engine (render_train_512.cuh) at 512
+// and 1024: the forward with ew extras columns a ray (fwd), else the trunk
+// backward.
 size_t train_smem_512(int ew, bool fwd);
+size_t train_smem_1024(int ew, bool fwd);
+// A block's parked pass at 1024 (64 rows x 512 columns bf16).
+constexpr size_t kTileParkBytes = 64 * 512 * 2;
 
 }  // namespace nm_train
 
@@ -1211,14 +1220,14 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
   cudaError_t nm_train::train_fwd_##H(                                         \
       const TrainParams& p, const Stash& st, bool stash, int n_rays,            \
       int layer_num, int F, int Fd, int S, float var_scale, int white_bg,       \
-      float* rgb, float* w, cudaStream_t stream) {                              \
+      float* rgb, float* w, void*, cudaStream_t stream) {                       \
     return (stash ? launch_fwd<H, true, 3> : launch_fwd<H, false, 3>)(          \
         p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w,        \
         stream);                                                                \
   }                                                                            \
   cudaError_t nm_train::train_bwd_##H(                                         \
       const TrainParams& p, const Stash& st, int n_rays, int layer_num, int S,  \
-      int white_bg, const float* g_rgb, const float* g_w, int* parts,           \
+      int white_bg, const float* g_rgb, const float* g_w, int* parts, void*,    \
       cudaStream_t stream) {                                                    \
     return launch_bwd<H>(p, st, n_rays, layer_num, S, white_bg, g_rgb, g_w,     \
                          parts, stream);                                        \
@@ -1227,7 +1236,7 @@ cudaError_t launch_bwd(const TrainParams& p, const Stash& st, int n_rays,
   cudaError_t nm_train::train_fwd_wide_##H(                                    \
       const TrainParams& p, const Stash& st, bool stash, int n_rays,            \
       int layer_num, int F, int Fd, int S, float var_scale, int white_bg,       \
-      float* rgb, float* w, cudaStream_t stream) {                              \
+      float* rgb, float* w, void*, cudaStream_t stream) {                       \
     return (stash ? launch_fwd<H, true, 4> : launch_fwd<H, false, 4>)(          \
         p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w,        \
         stream);                                                                \

@@ -1,0 +1,6 @@
+// The NeRF train-render forward (kernel 5) and trunk backward (kernel 6's
+// launch 1) at MLP width 1024, two N passes a layer: their instantiations
+// (render_train_512.cuh), in a translation unit of their own.
+#include "render_train_512.cuh"
+
+NM_RENDER_TRAIN_TILE(1024)

@@ -3,4 +3,4 @@
 // in a translation unit of their own.
 #include "render_train_512.cuh"
 
-NM_RENDER_TRAIN_512
+NM_RENDER_TRAIN_TILE(512)

@@ -1,16 +1,18 @@
 // The NeRF train-render stage (kernel 5, and kernel 6's trunk backward,
-// launch 1) at MLP width 512: the same stage as render_train.cuh's (its
-// per-ray semantics, its stash layout, every rounding order of its
-// "Precision" paragraph), on an engine of its own.  render_train_512.cu and
-// render_train_wide_512.cu instantiate it, each in an nvcc process of its
+// launch 1) at MLP widths 512 and 1024: the same stage as
+// render_train.cuh's (its per-ray semantics, its stash layout, every
+// rounding order of its "Precision" paragraph), on an engine of its own, the
+// tile engine (A from a shared-memory tile).  render_train_512.cu,
+// render_train_wide_512.cu, render_train_1024.cu and
+// render_train_wide_1024.cu instantiate it, each in an nvcc process of its
 // own; the HID 64-256 instantiations never include this header.  An MLP of
-// a width from 257 to 511 runs here on zero-padded weights
-// (render_train_kernel.py: pad_mlp_to_kernel_width).  Launches 2-4 of the
-// backward (the weight-gradient GEMM, the reductions, g_app) are
-// render_train.cu's, unchanged: they read the stash this forward fills and
-// the gradient rows this backward writes, in render_train.cuh's layout
-// scaled to 512 columns.  The per-row stages (frustum moments, IPE, the
-// extras row and its xt, the heads, the compositing scan, the composite
+// a width from 257 to 511 runs at 512, one from 513 to 1023 at 1024, on
+// zero-padded weights (render_train_kernel.py: pad_mlp_to_kernel_width).
+// Launches 2-4 of the backward (the weight-gradient GEMM, the reductions,
+// g_app) are render_train.cu's, unchanged: they read the stash this forward
+// fills and the gradient rows this backward writes, in render_train.cuh's
+// layout scaled to HID columns.  The per-row stages (frustum moments, IPE,
+// the extras row and its xt, the heads, the compositing scan, the composite
 // backward) are render_train.cuh's helpers.
 //
 // Why render_train.cuh's engine stops at 256: a layer there is one wgmma
@@ -22,18 +24,41 @@
 // Design (render_eval_512.cuh's column split).  A persistent grid (at most
 // one block an SM) of two warpgroups that share one 64-row chunk (64
 // samples of one ray; a ray of S samples is S / 64 chunks, its
-// transmittance and sums carried from chunk to chunk): warpgroup wg owns
-// output columns 256 wg .. 256 wg + 255 of every layer, an m64n256 chain (a
-// 128-register f32 accumulator).  A comes from shared memory: the layer's
-// input is a K-major tile of 64 rows x 512 bf16 (128-byte swizzle, eight
-// blocks of 64 columns), read whole by both warpgroups.  After a layer's
-// products both warpgroups wgmma.wait, meet at a block barrier, and write
-// their epilogues into the tile in place: the next layer's input (the
+// transmittance and sums carried from chunk to chunk): at 512 warpgroup wg
+// owns output columns 256 wg .. 256 wg + 255 of every layer, an m64n256
+// chain (a 128-register f32 accumulator).  A comes from shared memory: the
+// layer's input is a K-major tile of 64 rows x HID bf16 (128-byte swizzle,
+// HID / 64 blocks of 64 columns), read whole by both warpgroups.  After a
+// layer's products both warpgroups wgmma.wait, meet at a block barrier, and
+// write their epilogues into the tile in place: the next layer's input (the
 // forward's activations; the backward's masked gradient rows).  Weights
-// stream through a ring of 4 slots of 32 weight rows x 512 columns (32 KB,
+// stream through a ring of slots of 32 weight rows x 512 columns (32 KB,
 // one bulk copy each of pack_train's slot images, the same images the 256
 // engine streams); a warpgroup reads its 256 columns of a slot, at a byte
 // offset.
+//
+// HID 1024: NP = 2 N passes a layer (render_eval_512.cuh's 1024 design).  A
+// warpgroup's accumulator cannot grow (m64n256 is 128 registers; two
+// warpgroups at 255 registers fill the SM's register file), so each layer
+// runs twice over the same input tile, warpgroup wg computing columns 512 p
+// + 256 wg .. + 255 in pass p: the ring streams every image slice of the
+// layer once a pass, the pass's half of its columns (32 KB, contiguous in
+// pack_train's slot images: slot_images lays a slice out as HID / 64
+// blocks of 32 x 64, so pass p's half is its blocks 8 p .. 8 p + 7).  The
+// input tile is 64 rows x 1024 bf16 (128 KB) and must stay whole until the
+// last pass's products retire, so pass 0's outputs have no room in shared
+// memory: each thread parks its 64 packed bf16 pairs in its block's 64 KB
+// of a global scratch (nm_train::kTileParkBytes, L2-resident: 8.6 MB on 132
+// SMs) and reads its own values back into the tile after the last pass's
+// barrier.  One parking place serves the training forward, the forward
+// without a gradient (which has no stash rows to park in) and the trunk
+// backward; each thread's stores are neighbours of its neighbours' (128
+// bytes a warp), where the stash rows would take 16-byte pieces of eight
+// rows.  The views layer (512 outputs) is one pass.  The ring keeps 2 slots
+// of 32 KB, so each slice's copy from L2 is waited for with one batch of
+// products in flight.  The passes are a loop, not unrolled (one trip at
+// 512, where the compiler folds it: the 512 code is unchanged), and so are
+// the slices of a 1024-row product.
 //
 // The stash.  The forward keeps what the 256 engine keeps (the encoding,
 // every layer's bf16 activations, feature, views, the f32 record, the
@@ -46,41 +71,53 @@
 // masks (the stashed activations) straight from global memory at its
 // accumulator elements, and sums its vector gradients (biases, the sigma
 // head) into its block's row of the vector partials in global memory, in a
-// fixed order (their 21 KB at 8 layers do not fit beside the ring and the
-// tile).
+// fixed order (their 21 KB at 8 layers of 512 do not fit beside the ring
+// and the tile).
 //
-// Shared memory (bytes): forward ring 131,072, activation tile 65,536,
-// encoding tile 16,384, record 2,048, f32 rows 5,792 (row info 64 x 8,
-// sigma partials 2 x 64, rgb partials 2 x 64 x 4, xt 256, warp segments 4
-// x 8, ray state 8), mbarriers, the extras row (at most 144 f32) and 1024
-// of alignment slack: 222,464 at most.  Backward: ring 131,072, A tile
-// 65,536, f32 13,328 (g_sigma_raw and g_rgb of a ray's samples, 4 warps x
-// 512 column partials, the ray's g_hv sum), mbarriers: 210,992.
+// Shared memory (bytes): forward ring 131,072 at 512 (4 slots), 65,536 at
+// 1024 (2 slots), activation tile 65,536 / 131,072, encoding tile 16,384,
+// record 2,048, f32 rows 5,792 / 6,816 (row info 64 x 8, sigma partials 2 x
+// 64, rgb partials 2 x 64 x 4, xt HID / 2, warp segments 4 x 8, ray state
+// 8), mbarriers, the extras row (at most 144 f32) and 1024 of alignment
+// slack: 222,464 / 223,472 at most.  Backward: ring 131,072 / 65,536, A
+// tile 65,536 / 131,072, f32 13,328 / 22,544 (g_sigma_raw and g_rgb of a
+// ray's samples, 4 warps x HID column partials, the ray's g_hv sum),
+// mbarriers: 210,992 / 220,192.
 //
-// What bounds it (9216 rays x 128 samples): the forward's products, ~2.3 M
-// MACs a sample (4.7 TFLOP at 8 layers, ~5.5 ms at the bf16 peak), beside
-// the ~11.7 GB of stash it writes (~3.5 ms); the trunk backward about as
-// many products (g_h of every layer) beside the stash it reads and the
-// gradient rows it writes.  Each 64-row chunk streams every weight from L2
-// once (64 FLOP a byte).  A simple engine that is right first (PERF.md has
-// its times).  -Xptxas -v (sm_90a, CUDA 12.8): train_fwd512_kernel 255
-// registers, 192 bytes of spill stores / 216 of loads with the stash (180 /
-// 188 without); train_bwd512_kernel 255, 552 / 1036.
+// What bounds it (9216 rays x 128 samples): at 512 the forward's products,
+// ~2.3 M MACs a sample (4.7 TFLOP at 8 layers, ~5.5 ms at the bf16 peak),
+// beside the ~11.7 GB of stash it writes (~3.5 ms); at 1024 ~9.7 M MACs a
+// sample (22.9 TFLOP, ~23 ms) beside 23.2 GB (~6.9 ms); the trunk backward
+// about as many products (g_h of every layer) beside the stash it reads and
+// the gradient rows it writes.  Each 64-row chunk streams every weight from
+// L2 once (64 FLOP a byte).  A simple engine that is right first (PERF.md
+// has its times).  -Xptxas -v (sm_90a, CUDA 12.8): train_fwd_tile_kernel<512>
+// 255 registers, 192 bytes of spill stores / 216 of loads with the stash
+// (180 / 188 without); train_bwd_tile_kernel<512> 255, 552 / 1036; at 1024
+// PERF.md has them.
 
 #include "render_train.cuh"
 
 namespace {
 
 constexpr int kRows512 = 64;           // a chunk: one wgmma m64 tile
-constexpr int kRing512 = 4;            // weight slots (ring stages)
 constexpr int kBlock512 = 64 * 128;    // 64 rows x 64 bf16, 128-byte swizzle
+// A thread's parked pass (NP = 2): its 64 packed bf16 pairs, pair (j, h)
+// at park[kBwdThreads (2 j + h)] of its block's nm_train::kTileParkBytes.
+constexpr int kParkPairs = 64;
+static_assert((size_t)kParkPairs * kBwdThreads * 4 == nm_train::kTileParkBytes,
+              "a block's parked pass");
 
-struct Fwd512Smem {
-  static constexpr int HID = 512, HV = HID / 2;
-  static constexpr int kSlot = (HID / 64) * kSliceK * 128;   // 32 KB
-  static constexpr int kVSlot = (HV / 64) * kSliceK * 128;   // 16 KB
-  static constexpr int kXOff = kRing512 * kSlot;             // activation tile
-  static constexpr int kEncOff = kXOff + 8 * kBlock512;      // encoding tile
+template <int HID_>
+struct FwdTileSmem {
+  static constexpr int HID = HID_, HV = HID / 2;
+  static constexpr int NP = HID / 512;   // N passes a layer
+  static constexpr int HP = HID / NP;    // a pass's columns: 512
+  static constexpr int kRing = NP > 1 ? 2 : 4;               // weight slots
+  static constexpr int kSlot = (HP / 64) * kSliceK * 128;    // 32 KB
+  static constexpr int kVSlot = (HV / 64) * kSliceK * 128;   // 16 KB (32 KB at 1024)
+  static constexpr int kXOff = kRing * kSlot;                // activation tile
+  static constexpr int kEncOff = kXOff + (HID / 64) * kBlock512;   // encoding tile
   static constexpr int kRecOff = kEncOff + 2 * kBlock512;    // record 64 x 8 f32
   static constexpr int kFloatOff = kRecOff + kRows512 * kRecWidth * 4;
   static constexpr int kInfo = 0, kSig = kInfo + kRows512 * 8, kRgb = kSig + 2 * kRows512,
@@ -88,21 +125,24 @@ struct Fwd512Smem {
                        kFloats = kRay + 8;
   static constexpr int kBarOff = kFloatOff + kFloats * 4;
   // Last, sized at launch: the unit's extras row (ew f32).
-  static constexpr int kDpeOff = (kBarOff + 8 * kRing512 + 15) / 16 * 16;
+  static constexpr int kDpeOff = (kBarOff + 8 * kRing + 15) / 16 * 16;
   __host__ __device__ static constexpr size_t bytes(int ew) {
     return 1024 + kDpeOff + (size_t)ew * 4;
   }
 };
 
-struct Bwd512Smem {
-  static constexpr int HID = 512, HV = HID / 2;
-  static constexpr int kSlot = (HID / 64) * kSliceK * 128;   // 32 KB
-  static constexpr int kAOff = kRing512 * kSlot;             // A tile 64 x 512 bf16
-  static constexpr int kFloatOff = kAOff + 8 * kBlock512;
+template <int HID_>
+struct BwdTileSmem {
+  static constexpr int HID = HID_, HV = HID / 2;
+  static constexpr int NP = HID / 512, HP = HID / NP;
+  static constexpr int kRing = NP > 1 ? 2 : 4;
+  static constexpr int kSlot = (HP / 64) * kSliceK * 128;    // 32 KB
+  static constexpr int kAOff = kRing * kSlot;                // A tile 64 x HID bf16
+  static constexpr int kFloatOff = kAOff + (HID / 64) * kBlock512;
   static constexpr int kGsr = 0, kGrgb = kGsr + kMaxSamples, kCol = kGrgb + 3 * kMaxSamples,
                        kHvsum = kCol + 4 * HID, kTot = kHvsum + HV, kFloats = kTot + 4;
   static constexpr int kBarOff = kFloatOff + kFloats * 4;
-  __host__ __device__ static constexpr size_t bytes() { return 1024 + kBarOff + 8 * kRing512; }
+  __host__ __device__ static constexpr size_t bytes() { return 1024 + kBarOff + 8 * kRing; }
 };
 
 // Element pair (row r, columns c, c + 1) of a K-major tile of 64-column
@@ -123,6 +163,22 @@ __device__ __forceinline__ void stash_rows(const unsigned char* tile, __nv_bfloa
   }
 }
 
+// The parked pass into the tile (after the last pass's barrier): this
+// thread's pairs (j, h) of pass 0, row wrow + 8 h, columns c0 + 8 j + 2 t.
+__device__ __forceinline__ void unpark(unsigned char* tile, const uint32_t* park, int wrow,
+                                       int c0, int t) {
+#pragma unroll 8
+  for (int k = 0; k < kParkPairs; ++k)
+    put_tile(tile, wrow + 8 * (k & 1), c0 + 8 * (k >> 1) + 2 * t, park[k * kBwdThreads]);
+}
+
+// The parked pass's scratch of this block (NP = 2: the kernel's last
+// argument), at this thread's first pair; null at 512, which takes none.
+__device__ __forceinline__ uint32_t* park_base(int tid) { return nullptr; }
+__device__ __forceinline__ uint32_t* park_base(int tid, uint32_t* scratch) {
+  return scratch + (size_t)blockIdx.x * kParkPairs * kBwdThreads + tid;
+}
+
 // The stashed pair (row, columns col, col + 1) of a (rows, width) bf16
 // array, as f32.
 __device__ __forceinline__ float2 stashed(const __nv_bfloat16* src, int width, size_t row,
@@ -136,29 +192,37 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t tile, int ks) {
   return desc128(tile + (ks >> 2) * kBlock512 + (ks & 3) * 32, 16);
 }
 
-// Train forward at 512: a persistent grid of two warpgroups walking over
-// the rays (units), a ray's S / 64 chunks in order.  Per chunk: frustum
-// moments and the IPE of its 64 rows into the encoding tile; each trunk
-// layer as two m64n256 wgmma chains (A: the encoding tile for layer 0 and
-// the skip layer's encoding rows, the activation tile for the hidden rows;
-// B: the ring), its epilogue (bias, ReLU, bf16) into the activation tile;
-// the sigma head's and the rgb head's dot products per warpgroup, summed in
+// Train forward on the tile engine: a persistent grid of two warpgroups
+// walking over the rays (units), a ray's S / 64 chunks in order.  Per
+// chunk: frustum moments and the IPE of its 64 rows into the encoding tile;
+// each trunk layer as NP passes of two m64n256 wgmma chains (A: the
+// encoding tile for layer 0 and the skip layer's encoding rows, the
+// activation tile for the hidden rows; B: the ring), its epilogue (bias,
+// ReLU, bf16) into the activation tile (pass 0 of two parked first); the
+// sigma head's and the rgb head's dot products per warpgroup, summed in
 // order by the compositing warps (warpgroup 0).  kStash: every row's
 // encoding and activations, and the record, into the stash.  ENC: the
-// encoding's 32-row slices (3: 2 * 3 * F <= 96; 4: <= 128).
-template <bool kStash, int ENC>
+// encoding's 32-row slices (3: 2 * 3 * F <= 96; 4: <= 128).  Park: empty at
+// 512; at 1024 the parked pass's scratch (uint32_t*), so that 512's
+// parameters, and its code, are those of the 512-only engine before it.
+template <int HID_, bool kStash, int ENC, class... Park>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
-                    int n_rays, float var_scale, int white_bg,
-                    float* __restrict__ out_rgb, float* __restrict__ out_w) {
-  using L = Fwd512Smem;
-  constexpr int HID = L::HID, HV = L::HV, R = kRing512;
-  constexpr int HW = HID / 2;         // a warpgroup's output columns
+train_fwd_tile_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S,
+                      int n_rays, float var_scale, int white_bg,
+                      float* __restrict__ out_rgb, float* __restrict__ out_w,
+                      Park... scratch) {
+  using L = FwdTileSmem<HID_>;
+  constexpr int HID = L::HID, HV = L::HV, R = L::kRing;
+  constexpr int NP = L::NP, HP = L::HP;
+  constexpr int HW = HP / 2;          // a warpgroup's output columns a pass
   constexpr int NJ = HW / 8;          // its n8 column groups
   constexpr int NJV = HV / 2 / 8;     // the same of the views product
-  constexpr int KS = HID / kSliceK;   // slices of a 512-row product
+  constexpr int KS = HID / kSliceK;   // slices of a HID-row product
   static_assert(L::bytes(kExtraMax + kAppDim) <= 232448, "forward shared memory");
   static_assert(ENC == 3 || ENC == 4, "96 or 128 encoding rows");
+  static_assert((NP > 1) == (sizeof...(Park) == 1) && 2 * NJ == kParkPairs,
+                "the parked pass's scratch at 1024 only");
+  static_assert(NP == 1 || L::kVSlot == L::kSlot, "a views slice fills a slot");
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -167,7 +231,7 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = tid >> 7, wl = warp & 3, t = lane & 3;
   const int wrow = wl * 16 + (lane >> 2);   // first of this thread's two rows
-  const int c0 = wg * HW;                   // this warpgroup's first column
+  const int c0 = wg * HW;                   // this warpgroup's first column (pass 0)
   const uint32_t ring_s = base, x_w = base + L::kXOff, enc_w = base + L::kEncOff;
   const uint32_t rec_s = base + L::kRecOff, full0 = base + L::kBarOff;
   unsigned char* x_p = sm + L::kXOff;
@@ -181,22 +245,24 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
   float* seg = fw + L::kSeg;     // 4 warps x 8
   float* ray_s = fw + L::kRay;   // carry, acc, rgb (3)
   float* dpe = reinterpret_cast<float*>(sm + L::kDpeOff);
+  uint32_t* const park = park_base(tid, scratch...);
 
   const int enc_dim = 6 * F, dirs_dim = 6 * Fd + 3;
   constexpr int enc_pad = ENC * kSliceK;
   const int dpad = dirs_rows(Fd);
   const int ew = extras_width(Fd, p.app != nullptr);
-  const float* wa_t = p.wa + c0 + 2 * t;
+  const float* wa_t = p.wa + c0 + 2 * t;   // + P HP in pass P
   const float* bf_t = p.bf + c0 + 2 * t;
 
   const int unit_chunks = S / kRows512;
   const int my_units = (n_rays - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   // Slices a chunk streams, in the host images' order: per layer its
   // encoding rows (if any) then its hidden rows, then the feature and the
-  // views layers.  All but the views slices fill a whole slot.
+  // views layers; each trunk and feature slice once a pass.  All but the
+  // views slices at 512 fill a whole slot.
   int Qt = KS * (layer_num - 1);
   for (int i = 0; i < layer_num; ++i) Qt += p.Wenc[i] != nullptr ? ENC : 0;
-  const int Q = Qt + 2 * KS;
+  const int Q = NP * (Qt + KS) + KS;
   const int q_total = my_units * unit_chunks * Q;
 
   // The encoding tile's padding columns (enc_dim .. kEncMax - 1) stay zero.
@@ -212,10 +278,32 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
 
   auto load_slice = [&](int q) {
     const int qc = q % Q;
-    const bool views = qc >= Qt + KS;
-    const uint32_t bytes = views ? L::kVSlot : L::kSlot;
-    const size_t off = views ? (size_t)(Qt + KS) * L::kSlot + (size_t)(qc - Qt - KS) * L::kVSlot
-                             : (size_t)qc * L::kSlot;
+    uint32_t bytes = L::kSlot;
+    size_t off;
+    if constexpr (NP == 1) {
+      const bool views = qc >= Qt + KS;
+      bytes = views ? L::kVSlot : L::kSlot;
+      off = views ? (size_t)(Qt + KS) * L::kSlot + (size_t)(qc - Qt - KS) * L::kVSlot
+                  : (size_t)qc * L::kSlot;
+    } else {
+      // Per trunk layer (then the feature layer) its n image slices once a
+      // pass, pass P reading the P-th kSlot of each (an image slice holds
+      // NP of them); then the views layer's slices, a slot each (n = 0).
+      int r = qc, n = 0;
+      size_t at = 0;
+      for (int i = 0; i <= layer_num; ++i) {
+        const int m = i == layer_num ? KS
+                                     : (p.Wenc[i] != nullptr ? ENC : 0) + (i > 0 ? KS : 0);
+        if (r < NP * m) {
+          n = m;
+          break;
+        }
+        r -= NP * m;
+        at += (size_t)m * NP * L::kSlot;
+      }
+      off = n == 0 ? at + (size_t)r * L::kSlot
+                   : at + (size_t)(r % n) * NP * L::kSlot + (size_t)(r / n) * L::kSlot;
+    }
     const int slot = q % R;
     mbar_expect(full0 + 8 * slot, bytes);
     bulk_copy(ring_s + slot * L::kSlot, reinterpret_cast<const unsigned char*>(p.Wfwd) + off,
@@ -257,16 +345,36 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
                        s * KK + kk > 0);
       end();
     }
+    if constexpr (NP == 1) {
 #pragma unroll
-    for (int s = 0; s < NH; ++s) {
-      const uint32_t slot = begin() + boff;
+      for (int s = 0; s < NH; ++s) {
+        const uint32_t slot = begin() + boff;
 #pragma unroll
-      for (int kk = 0; kk < KK; ++kk)
-        wgmma_ss<N, 0>(acc, a_desc(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
-                       NE + s + kk > 0);
-      end();
+        for (int kk = 0; kk < KK; ++kk)
+          wgmma_ss<N, 0>(acc, a_desc(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
+                         NE + s + kk > 0);
+        end();
+      }
+    } else {   // 1024: a loop (unrolled, its 32 slices double 512's code)
+#pragma unroll 2
+      for (int s = 0; s < NH; ++s) {
+        const uint32_t slot = begin() + boff;
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk)
+          wgmma_ss<N, 0>(acc, a_desc(x_w, s * KK + kk), desc128(slot + kk * 2048, kSliceK * 128),
+                         NE + s + kk > 0);
+        end();
+      }
     }
     wgmma_wait<0>();
+  };
+  // Pass P's outputs of column pair (j, h) (row wrow + 8 h, columns P HP +
+  // c0 + 8 j + 2 t, + 1): into the tile in the last pass, else parked.
+  auto out = [&](int P, int j, int h, uint32_t v) {
+    if (P + 1 < NP)
+      park[(2 * j + h) * kBwdThreads] = v;
+    else
+      put_tile(x_p, wrow + 8 * h, P * HP + c0 + 8 * j + 2 * t, v);
   };
   // The tile's rows, after every thread's epilogue writes, into the stash.
   auto keep = [&](const unsigned char* tile, __nv_bfloat16* dst, int width, size_t rg0) {
@@ -316,27 +424,32 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
       //      rounded to bf16, in place ----
       float sp[2] = {0.f, 0.f};   // sigma head partials of its two rows
       for (int i = 0; i < layer_num; ++i) {
-        if (i == 0)
-          product(Int<ENC>{}, Int<0>{}, Int<HW>{});
-        else if (p.Wenc[i] != nullptr)
-          product(Int<ENC>{}, Int<KS>{}, Int<HW>{});
-        else
-          product(Int<0>{}, Int<KS>{}, Int<HW>{});
-        __syncthreads();   // both warpgroups' products have read the tile
-        const bool last = i == layer_num - 1;
-        const float* b_t = p.b[i] + c0 + 2 * t;
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          if (i == 0)
+            product(Int<ENC>{}, Int<0>{}, Int<HW>{});
+          else if (p.Wenc[i] != nullptr)
+            product(Int<ENC>{}, Int<KS>{}, Int<HW>{});
+          else
+            product(Int<0>{}, Int<KS>{}, Int<HW>{});
+          if (P + 1 == NP) __syncthreads();   // both warpgroups' products have read the tile
+          const bool last = i == layer_num - 1;
+          const float* b_t = p.b[i] + P * HP + c0 + 2 * t;
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
+          for (int j = 0; j < NJ; ++j) {
+            const float b0 = __ldg(b_t + 8 * j), b1 = __ldg(b_t + 8 * j + 1);
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
-            const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
-            put_tile(x_p, wrow + 8 * h, c0 + 8 * j + 2 * t, pack_bf16(v0, v1));
-            if (last)
-              sp[h] = fmaf(v0, __ldg(wa_t + 8 * j), fmaf(v1, __ldg(wa_t + 8 * j + 1), sp[h]));
+            for (int h = 0; h < 2; ++h) {
+              const float v0 = fmaxf(acc[4 * j + 2 * h] + b0, 0.f);
+              const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f);
+              out(P, j, h, pack_bf16(v0, v1));
+              if (last)
+                sp[h] = fmaf(v0, __ldg(wa_t + P * HP + 8 * j),
+                             fmaf(v1, __ldg(wa_t + P * HP + 8 * j + 1), sp[h]));
+            }
           }
         }
+        if constexpr (NP > 1) unpark(x_p, park, wrow, c0, t);
         fence_async();
         keep(x_p, st.hs[i], HID, rg0);
       }
@@ -351,22 +464,25 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
 
       // ---- feature = bf16(h) @ wf + bf (no activation), rounded to bf16,
       //      in place ----
-      product(Int<0>{}, Int<KS>{}, Int<HW>{});
-      __syncthreads();
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+      for (int P = 0; P < NP; ++P) {
+        product(Int<0>{}, Int<KS>{}, Int<HW>{});
+        if (P + 1 == NP) __syncthreads();
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float b0 = __ldg(bf_t + 8 * j), b1 = __ldg(bf_t + 8 * j + 1);
+        for (int j = 0; j < NJ; ++j) {
+          const float b0 = __ldg(bf_t + P * HP + 8 * j), b1 = __ldg(bf_t + P * HP + 8 * j + 1);
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          put_tile(x_p, wrow + 8 * h, c0 + 8 * j + 2 * t,
-                   pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1));
+          for (int h = 0; h < 2; ++h)
+            out(P, j, h, pack_bf16(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1));
+        }
       }
+      if constexpr (NP > 1) unpark(x_p, park, wrow, c0, t);
       fence_async();
       keep(x_p, st.feat, HID, rg0);
 
       // ---- views = relu(feature @ wvh + xt + bv), rounded to bf16 (this
-      //      warpgroup's 128 columns; into the tile for the stash); the rgb
-      //      head's partials over them ----
+      //      warpgroup's HV / 2 columns, one pass; into the tile for the
+      //      stash); the rgb head's partials over them ----
       product(Int<0>{}, Int<KS>{}, Int<HV / 2>{});
       __syncthreads();
       {
@@ -404,7 +520,6 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
           }
       }
       keep(x_p, st.hv, HV, rg0);
-
       // ---- compositing on warpgroup 0: warp w takes rows 16 w .., one
       //      row a lane of each half (the halves compute the same); the
       //      heads from the two warpgroups' partials, in order ----
@@ -463,30 +578,33 @@ train_fwd512_kernel(TrainParams p, Stash st, int layer_num, int F, int Fd, int S
   if (kStash && tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Trunk backward at 512 (kernel 6's launch 1): a persistent grid of two
-// warpgroups walking over the rays, a ray's S / 64 chunks in order.  Per ray
-// the composite backward (composite_bwd_ray, one warp); per chunk the rgb
-// head's and the views layer's backward (this warpgroup's 128 g_hv columns
-// into the A tile), then each product g = bf16(g_rows) @ bf16(W)^T as two
-// m64n256 wgmma chains (A: the A tile; B: the ring of the (out x in) slot
-// images, views, feature, then layers L-1 .. 1), its epilogue (ReLU mask
-// from the stashed activations, column sums, bf16) into the A tile in
-// place.  Every gradient row leaves for the workspace as launch 2 reads it;
-// the column sums go to the block's vector-partial row in a fixed order.
-// (A template on HID = 512 only so that render_train_wide_512.cu, which
-// launches no backward, compiles none.)
-template <int HID>
+// Trunk backward on the tile engine (kernel 6's launch 1): a persistent
+// grid of two warpgroups walking over the rays, a ray's S / 64 chunks in
+// order.  Per ray the composite backward (composite_bwd_ray, one warp); per
+// chunk the rgb head's and the views layer's backward (this warpgroup's
+// HV / 2 g_hv columns into the A tile), then each product g =
+// bf16(g_rows) @ bf16(W)^T as NP passes of two m64n256 wgmma chains (A: the
+// A tile; B: the ring of the (out x in) slot images, views, feature, then
+// layers L-1 .. 1), its epilogue (ReLU mask from the stashed activations,
+// column sums, bf16) into the A tile in place (pass 0 of two parked
+// first).  Every gradient row leaves for the workspace as launch 2 reads
+// it; the column sums go to the block's vector-partial row in a fixed
+// order.  Park as train_fwd_tile_kernel's.
+template <int HID_, class... Park>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, int white_bg,
-                    const float* __restrict__ g_rgb_in, const float* __restrict__ g_w_in) {
-  using L = Bwd512Smem;
-  static_assert(HID == L::HID, "the 512 engine");
-  constexpr int HV = L::HV, R = kRing512;
-  constexpr int HW = HID / 2;                 // a warpgroup's output columns
+train_bwd_tile_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, int white_bg,
+                      const float* __restrict__ g_rgb_in, const float* __restrict__ g_w_in,
+                      Park... scratch) {
+  using L = BwdTileSmem<HID_>;
+  constexpr int HID = L::HID, HV = L::HV, R = L::kRing;
+  constexpr int NP = L::NP, HP = L::HP;
+  constexpr int HW = HP / 2;                  // a warpgroup's output columns a pass
   constexpr int NJ = HW / 8, NJV = HV / 2 / 8;  // its n8 column groups, of g_hv
   constexpr int KS = HID / kSliceK, KSV = HV / kSliceK;
   constexpr int JB = 16;                      // column groups a col_sums call
   static_assert(L::bytes() <= 232448, "trunk backward shared memory");
+  static_assert((NP > 1) == (sizeof...(Park) == 1) && 2 * NJ == kParkPairs,
+                "the parked pass's scratch at 1024 only");
   const VecLayout vl(layer_num, HID);
 
   extern __shared__ unsigned char smem_raw[];
@@ -498,7 +616,7 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
   float* fw = reinterpret_cast<float*>(sm + L::kFloatOff);
   float* gsr = fw + L::kGsr;       // the ray's samples
   float* grgb = fw + L::kGrgb;     // the ray's samples x 3
-  float* colpart = fw + L::kCol;   // 4 warps x 512: column partials
+  float* colpart = fw + L::kCol;   // 4 warps x HID: column partials
   float* hvsum = fw + L::kHvsum;   // HV
   float* tot = fw + L::kTot;       // 4
   float* vec = st.vec_part + (size_t)blockIdx.x * vl.P;   // this block's row
@@ -506,14 +624,16 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = tid >> 7, wl = warp & 3, t = lane & 3;
   const int wrow = wl * 16 + (lane >> 2);   // first of this thread's two rows
-  const int c0 = wg * HW;                   // this warpgroup's first column
+  const int c0 = wg * HW;                   // this warpgroup's first column (pass 0)
   float* cpw = colpart + wl * HID;          // this warp's partials row
+  uint32_t* const park = park_base(tid, scratch...);
 
   const int unit_chunks = S / kRows512;
   const int my_units = (n_rays - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   // Weight slices a chunk streams: views (HV rows), feature, then the
-  // hidden rows of layers L-1 .. 1 (HID rows each), all (out x in).
-  const int Q = KSV + KS * layer_num;
+  // hidden rows of layers L-1 .. 1 (HID rows each), all (out x in), each
+  // once a pass.
+  const int Q = NP * (KSV + KS * layer_num);
   const int q_total = my_units * unit_chunks * Q;
 
   for (int i = tid; i < vl.P; i += kBwdThreads) vec[i] = 0.f;
@@ -526,13 +646,19 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
     const int qc = q % Q;
     const __nv_bfloat16* src;
     int sl;
-    if (qc < KSV) {
+    if (qc < NP * KSV) {
       src = p.wvhT;
       sl = qc;
     } else {
-      const int r = qc - KSV, m = r / KS;   // m = 0: feature; m: layer L - m
+      const int r = qc - NP * KSV, m = r / (NP * KS);   // m = 0: feature; m: layer L - m
       src = m == 0 ? p.wfT : p.WhT[layer_num - m];
-      sl = r % KS;
+      sl = r % (NP * KS);
+    }
+    if constexpr (NP > 1) {
+      // Pass sl / n of the matrix's image slice sl % n: its P-th kSlot (an
+      // image slice holds NP of them).
+      const int n = qc < NP * KSV ? KSV : KS;
+      sl = (sl % n) * NP + sl / n;
     }
     const int slot = q % R;
     mbar_expect(full0 + 8 * slot, L::kSlot);
@@ -549,19 +675,36 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
   auto product = [&](auto nks_c) {
     constexpr int NKS = decltype(nks_c)::value;
     const uint32_t boff = (uint32_t)wg * (HW / 64) * (kSliceK * 128);
+    if constexpr (NP == 1) {
 #pragma unroll
-    for (int s = 0; s < NKS; ++s, ++q) {
-      __syncthreads();   // batch q - 2 done everywhere: its slot is free
-      if (tid == 0 && q + R - 2 < q_total) load_slice(q + R - 2);
-      mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
-      const uint32_t slot = ring_s + (uint32_t)(q % R) * L::kSlot + boff;
-      wgmma_fence();
+      for (int s = 0; s < NKS; ++s, ++q) {
+        __syncthreads();   // batch q - 2 done everywhere: its slot is free
+        if (tid == 0 && q + R - 2 < q_total) load_slice(q + R - 2);
+        mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
+        const uint32_t slot = ring_s + (uint32_t)(q % R) * L::kSlot + boff;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kSliceK / 16; ++kk)
-        wgmma_ss<HW, 0>(acc, a_desc(a_w, s * (kSliceK / 16) + kk),
-                        desc128(slot + kk * 2048, kSliceK * 128), s + kk > 0);
-      wgmma_commit();
-      wgmma_wait<1>();
+        for (int kk = 0; kk < kSliceK / 16; ++kk)
+          wgmma_ss<HW, 0>(acc, a_desc(a_w, s * (kSliceK / 16) + kk),
+                          desc128(slot + kk * 2048, kSliceK * 128), s + kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+    } else {   // 1024: a loop (unrolled, its 32 slices double 512's code)
+#pragma unroll 2
+      for (int s = 0; s < NKS; ++s, ++q) {
+        __syncthreads();
+        if (tid == 0 && q + R - 2 < q_total) load_slice(q + R - 2);
+        mbar_wait(full0 + 8 * (q % R), (q / R) & 1);
+        const uint32_t slot = ring_s + (uint32_t)(q % R) * L::kSlot + boff;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSliceK / 16; ++kk)
+          wgmma_ss<HW, 0>(acc, a_desc(a_w, s * (kSliceK / 16) + kk),
+                          desc128(slot + kk * 2048, kSliceK * 128), s + kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
     }
     wgmma_wait<0>();
   };
@@ -570,17 +713,17 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
   auto col_total = [&](int c) {
     return ((colpart[c] + colpart[HID + c]) + colpart[2 * HID + c]) + colpart[3 * HID + c];
   };
-  // The epilogue of a product: g = acc, masked (kMask) where the stashed
-  // activations hs are not > 0 (the ReLU), its column sums, bf16 into the A
-  // tile.
-  auto epilogue = [&](auto mask_c, const __nv_bfloat16* hs, size_t rg0) {
+  // The epilogue of pass P of a product: g = acc, masked (kMask) where the
+  // stashed activations hs are not > 0 (the ReLU), its column sums, bf16
+  // into the A tile (in the last pass, else parked).
+  auto epilogue = [&](auto mask_c, const __nv_bfloat16* hs, size_t rg0, int P) {
     constexpr bool kMask = decltype(mask_c)::value;
 #pragma unroll
     for (int j0 = 0; j0 < NJ; j0 += JB) {
       float cs[2 * JB];
 #pragma unroll
       for (int jj = 0; jj < JB; ++jj) {
-        const int j = j0 + jj, col = c0 + 8 * j + 2 * t;
+        const int j = j0 + jj, col = P * HP + c0 + 8 * j + 2 * t;
         cs[2 * jj] = cs[2 * jj + 1] = 0.f;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -593,13 +736,24 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
           }
           cs[2 * jj] += v0;
           cs[2 * jj + 1] += v1;
-          put_tile(a_p, r, col, pack_bf16(v0, v1));
+          if (P + 1 < NP)
+            park[(2 * j + h) * kBwdThreads] = pack_bf16(v0, v1);
+          else
+            put_tile(a_p, r, col, pack_bf16(v0, v1));
         }
       }
-      col_sums(cs, lane, cpw + c0 + 8 * j0);
+      col_sums(cs, lane, cpw + P * HP + c0 + 8 * j0);
     }
     fence_async();
     __syncthreads();
+  };
+  // After the last pass's epilogue: the parked pass into the A tile.
+  auto unpark_all = [&]() {
+    if constexpr (NP > 1) {
+      unpark(a_p, park, wrow, c0, t);
+      fence_async();
+      __syncthreads();
+    }
   };
 
   for (int ui = 0; ui < my_units; ++ui) {
@@ -619,7 +773,7 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
       __syncthreads();   // composite results visible; the last chunk is done
 
       // ---- g_hv = relu'(hv) * (bf16(g_rgb_t) @ bf16(wrgb)^T): this
-      //      warpgroup's 128 columns ----
+      //      warpgroup's HV / 2 columns ----
       {
         const int v0c = wg * (HV / 2);
         float cs[2 * NJV];
@@ -663,13 +817,18 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
       }
 
       // ---- g_feature = bf16(g_hv) @ bf16(wvh)^T (no activation) ----
-      product(Int<KSV>{});
-      __syncthreads();   // both warpgroups' products have read the A tile
-      epilogue(std::false_type{}, nullptr, rg0);
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+      for (int P = 0; P < NP; ++P) {
+        product(Int<KSV>{});
+        __syncthreads();   // both warpgroups' products have read the A tile
+        epilogue(std::false_type{}, nullptr, rg0, P);
+      }
+      unpark_all();
       stash_rows(a_p, st.g_feat, HID, rg0, tid);
       for (int c = tid; c < HID; c += kBwdThreads) vec[vl.bf + c] += col_total(c);
 
-      // ---- g_h = bf16(g_feature) @ bf16(wf)^T + g_sigma_raw * wa ----
+      // ---- g_h = bf16(g_feature) @ bf16(wf)^T + g_sigma_raw * wa (pass
+      //      0 here, pass 1 in the loop) ----
       product(Int<KS>{});
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -678,33 +837,52 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
           acc[4 * j + e] += gsr[ul0 + wrow + 8 * (e >> 1)] *
                             __ldg(p.wa + c0 + 8 * j + 2 * t + (e & 1));
 
-      // ---- trunk: g_pre_i = relu'(h_i) * g_h; g_h = bf16(g_pre_i) @ bf16(W_i)^T ----
+      // ---- trunk: g_pre_i = relu'(h_i) * g_h; g_h = bf16(g_pre_i) @
+      //      bf16(W_i)^T (pass 0 at the end of the layer before, pass 1 in
+      //      the pass loop) ----
       for (int i = layer_num - 1; i >= 0; --i) {
-        if (i == layer_num - 1) {
-          // sigma head: wa gets sum over rows of h_{L-1} * g_sigma_raw.
+#pragma unroll 1   // N passes: one at 512, a loop at 1024
+        for (int P = 0; P < NP; ++P) {
+          if (P > 0) {
+            product(Int<KS>{});
+            if (i == layer_num - 1) {
 #pragma unroll
-          for (int j0 = 0; j0 < NJ; j0 += JB) {
-            float cs[2 * JB];
+              for (int j = 0; j < NJ; ++j)
 #pragma unroll
-            for (int jj = 0; jj < JB; ++jj) {
-              const int col = c0 + 8 * (j0 + jj) + 2 * t;
-              cs[2 * jj] = cs[2 * jj + 1] = 0.f;
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = wrow + 8 * h;
-                const float gs = gsr[ul0 + r];
-                const float2 hh = stashed(st.hs[i], HID, rg0 + r, col);
-                cs[2 * jj] += hh.x * gs;
-                cs[2 * jj + 1] += hh.y * gs;
-              }
+                for (int e = 0; e < 4; ++e)
+                  acc[4 * j + e] += gsr[ul0 + wrow + 8 * (e >> 1)] *
+                                    __ldg(p.wa + P * HP + c0 + 8 * j + 2 * t + (e & 1));
             }
-            col_sums(cs, lane, cpw + c0 + 8 * j0);
           }
-          __syncthreads();
-          for (int c = tid; c < HID; c += kBwdThreads) vec[vl.wa + c] += col_total(c);
+          if (i == layer_num - 1) {
+            // sigma head: wa gets sum over rows of h_{L-1} * g_sigma_raw
+            // (this pass's columns).
+#pragma unroll
+            for (int j0 = 0; j0 < NJ; j0 += JB) {
+              float cs[2 * JB];
+#pragma unroll
+              for (int jj = 0; jj < JB; ++jj) {
+                const int col = P * HP + c0 + 8 * (j0 + jj) + 2 * t;
+                cs[2 * jj] = cs[2 * jj + 1] = 0.f;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int r = wrow + 8 * h;
+                  const float gs = gsr[ul0 + r];
+                  const float2 hh = stashed(st.hs[i], HID, rg0 + r, col);
+                  cs[2 * jj] += hh.x * gs;
+                  cs[2 * jj + 1] += hh.y * gs;
+                }
+              }
+              col_sums(cs, lane, cpw + P * HP + c0 + 8 * j0);
+            }
+            __syncthreads();
+            for (int c = tid; c < HP; c += kBwdThreads)
+              vec[vl.wa + P * HP + c] += col_total(P * HP + c);
+          }
+          __syncthreads();   // every product has read the A tile; the partials are read
+          epilogue(std::true_type{}, st.hs[i], rg0, P);
         }
-        __syncthreads();   // every product has read the A tile; the partials are read
-        epilogue(std::true_type{}, st.hs[i], rg0);
+        unpark_all();
         stash_rows(a_p, st.g_pre[i], HID, rg0, tid);
         for (int c = tid; c < HID; c += kBwdThreads) vec[i * HID + c] += col_total(c);
         if (i > 0) product(Int<KS>{});
@@ -713,71 +891,93 @@ train_bwd512_kernel(TrainParams p, Stash st, int layer_num, int S, int n_rays, i
   }
 }
 
-template <bool kStash, int ENC>
-cudaError_t launch_fwd512(const TrainParams& p, const Stash& st, int n_rays, int layer_num,
-                          int F, int Fd, int S, float var_scale, int white_bg, float* rgb,
-                          float* w, cudaStream_t stream) {
-  const size_t bytes = Fwd512Smem::bytes(extras_width(Fd, p.app != nullptr));
-  auto kern = train_fwd512_kernel<kStash, ENC>;
+// Sets the kernel's shared memory and launches it on a persistent grid.
+template <class... A, class... B>
+cudaError_t launch_tile(void (*kern)(A...), int grid, size_t bytes, cudaStream_t stream,
+                        B... args) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bytes);
   if (e != cudaSuccess) return e;
+  kern<<<grid, kBwdThreads, bytes, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int HID, bool kStash, int ENC>
+cudaError_t launch_fwd_tile(const TrainParams& p, const Stash& st, int n_rays, int layer_num,
+                            int F, int Fd, int S, float var_scale, int white_bg, float* rgb,
+                            float* w, void* park, cudaStream_t stream) {
+  const size_t bytes = FwdTileSmem<HID>::bytes(extras_width(Fd, p.app != nullptr));
+  cudaError_t e;
   const int grid = persistent_grid(n_rays, &e);   // a ray a unit
   if (e != cudaSuccess) return e;
-  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, F, Fd, S, n_rays, var_scale,
-                                             white_bg, rgb, w);
-  return cudaGetLastError();
+  if constexpr (HID == 512) {
+    void (*kern)(TrainParams, Stash, int, int, int, int, int, float, int, float*, float*) =
+        train_fwd_tile_kernel<HID, kStash, ENC>;
+    return launch_tile(kern, grid, bytes, stream, p, st, layer_num, F, Fd, S, n_rays,
+                       var_scale, white_bg, rgb, w);
+  } else {
+    void (*kern)(TrainParams, Stash, int, int, int, int, int, float, int, float*, float*,
+                 uint32_t*) = train_fwd_tile_kernel<HID, kStash, ENC, uint32_t*>;
+    return launch_tile(kern, grid, bytes, stream, p, st, layer_num, F, Fd, S, n_rays,
+                       var_scale, white_bg, rgb, w, (uint32_t*)park);
+  }
 }
 
 // Persistent grid: at most one block per SM and one vec_part row each (at
 // most N / kTileRays); *parts gets the number of blocks.
 template <int HID>
-cudaError_t launch_bwd512(const TrainParams& p, const Stash& st, int n_rays, int layer_num,
-                          int S, int white_bg, const float* g_rgb, const float* g_w,
-                          int* parts, cudaStream_t stream) {
-  const size_t bytes = Bwd512Smem::bytes();
-  auto kern = train_bwd512_kernel<HID>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e != cudaSuccess) return e;
+cudaError_t launch_bwd_tile(const TrainParams& p, const Stash& st, int n_rays, int layer_num,
+                            int S, int white_bg, const float* g_rgb, const float* g_w,
+                            int* parts, void* park, cudaStream_t stream) {
+  const size_t bytes = BwdTileSmem<HID>::bytes();
+  cudaError_t e;
   int grid = persistent_grid(n_rays, &e);
   if (e != cudaSuccess) return e;
   if (grid > n_rays / kTileRays) grid = n_rays / kTileRays;   // vec_part rows
   *parts = grid;
-  kern<<<grid, kBwdThreads, bytes, stream>>>(p, st, layer_num, S, n_rays, white_bg, g_rgb,
-                                             g_w);
-  return cudaGetLastError();
+  if constexpr (HID == 512) {
+    void (*kern)(TrainParams, Stash, int, int, int, int, const float*, const float*) =
+        train_bwd_tile_kernel<HID>;
+    return launch_tile(kern, grid, bytes, stream, p, st, layer_num, S, n_rays, white_bg,
+                       g_rgb, g_w);
+  } else {
+    void (*kern)(TrainParams, Stash, int, int, int, int, const float*, const float*,
+                 uint32_t*) = train_bwd_tile_kernel<HID, uint32_t*>;
+    return launch_tile(kern, grid, bytes, stream, p, st, layer_num, S, n_rays, white_bg,
+                       g_rgb, g_w, (uint32_t*)park);
+  }
 }
 
 }  // namespace
 
-// The instantiations at 512 (render_train_512.cu), and the forward's at the
-// wide encoding (render_train_wide_512.cu).
-#define NM_RENDER_TRAIN_512                                                    \
-  cudaError_t nm_train::train_fwd_512(                                         \
+// The instantiations at width H, 512 or 1024 (render_train_<H>.cu), and the
+// forward's at the wide encoding (render_train_wide_<H>.cu).  park: the
+// parked pass's scratch at 1024 (nm_render_train_scratch), else unused.
+#define NM_RENDER_TRAIN_TILE(H)                                                \
+  cudaError_t nm_train::train_fwd_##H(                                         \
       const TrainParams& p, const Stash& st, bool stash, int n_rays,            \
       int layer_num, int F, int Fd, int S, float var_scale, int white_bg,       \
-      float* rgb, float* w, cudaStream_t stream) {                              \
-    return (stash ? launch_fwd512<true, 3> : launch_fwd512<false, 3>)(          \
-        p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w,        \
+      float* rgb, float* w, void* park, cudaStream_t stream) {                  \
+    return (stash ? launch_fwd_tile<H, true, 3> : launch_fwd_tile<H, false, 3>)( \
+        p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w, park,  \
         stream);                                                                \
   }                                                                            \
-  cudaError_t nm_train::train_bwd_512(                                         \
+  cudaError_t nm_train::train_bwd_##H(                                         \
       const TrainParams& p, const Stash& st, int n_rays, int layer_num, int S,  \
       int white_bg, const float* g_rgb, const float* g_w, int* parts,           \
-      cudaStream_t stream) {                                                    \
-    return launch_bwd512<512>(p, st, n_rays, layer_num, S, white_bg, g_rgb,    \
-                              g_w, parts, stream);                              \
+      void* park, cudaStream_t stream) {                                        \
+    return launch_bwd_tile<H>(p, st, n_rays, layer_num, S, white_bg, g_rgb,    \
+                              g_w, parts, park, stream);                        \
   }                                                                            \
-  size_t nm_train::train_smem_512(int ew, bool fwd) {                          \
-    return fwd ? Fwd512Smem::bytes(ew) : Bwd512Smem::bytes();                  \
+  size_t nm_train::train_smem_##H(int ew, bool fwd) {                          \
+    return fwd ? FwdTileSmem<H>::bytes(ew) : BwdTileSmem<H>::bytes();           \
   }
-#define NM_RENDER_TRAIN_WIDE_512                                               \
-  cudaError_t nm_train::train_fwd_wide_512(                                    \
+#define NM_RENDER_TRAIN_TILE_WIDE(H)                                           \
+  cudaError_t nm_train::train_fwd_wide_##H(                                    \
       const TrainParams& p, const Stash& st, bool stash, int n_rays,            \
       int layer_num, int F, int Fd, int S, float var_scale, int white_bg,       \
-      float* rgb, float* w, cudaStream_t stream) {                              \
-    return (stash ? launch_fwd512<true, 4> : launch_fwd512<false, 4>)(          \
-        p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w,        \
+      float* rgb, float* w, void* park, cudaStream_t stream) {                  \
+    return (stash ? launch_fwd_tile<H, true, 4> : launch_fwd_tile<H, false, 4>)( \
+        p, st, n_rays, layer_num, F, Fd, S, var_scale, white_bg, rgb, w, park,  \
         stream);                                                                \
   }

@@ -66,9 +66,12 @@ _SIGNATURES = {
     # bins, weights, u (or null), out, n_rays, n_bins, padding, stream
     "nm_resample_forward": [_P, _P, _P, _P, _I, _I, _F, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
-    # var_scale, white_bg, out_rgb, out_w, stash (or null), stream
+    # var_scale, white_bg, out_rgb, out_w, stash (or null), the tile
+    # engine's scratch (or null), its bytes, stream
     "nm_render_train_forward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                _P, _P],
+                                _P, _P, _I, _P],
+    # hid, n_rays -> the tile engine's scratch bytes (0 below hid 1024)
+    "nm_render_train_scratch": [_I, _I],
     # hid, layer_num, dirs_freqs, app_dim, forward (else the trunk
     # backward) -> dynamic shared memory bytes
     "nm_render_train_smem": [_I, _I, _I, _I, _I],
@@ -77,9 +80,10 @@ _SIGNATURES = {
     "nm_render_train_workspace": [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # params, n_rays, hid, layer_num, num_freqs, dirs_freqs, samples,
     # var_scale, white_bg, g_rgb, g_w, stash, gradient workspace, grad_mat,
-    # grad_vec, grad_app (or null), stream
+    # grad_vec, grad_app (or null), the tile engine's scratch (or null), its
+    # bytes, stream
     "nm_render_train_backward": [_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P,
-                                 _P, _P, _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _P, _P, _I, _P],
     # q, k, v, out, lse (or null), bf16 workspace for f32 q, k, v (or
     # null), B, L, S, H, D, bf16, stream
     "nm_attention_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

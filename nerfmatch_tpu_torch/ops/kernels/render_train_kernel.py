@@ -14,16 +14,19 @@ comes back as the JAX kernel's ``extras_grad`` does (``render_train.py:
 303-312``).
 
 Widths: the kernels are instantiated at the MLP widths :data:`TRAIN_HIDS`
-(the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`; 512 in
-both on engines of their own, ``csrc/render_train_512.cuh`` and
-``csrc/render_eval_512.cuh``, which also holds the eval kernels' 1024); an
-MLP of another width up to the family's largest runs at the smallest of
-them that holds it, on a zero-padded copy of its weights
+(the eval render kernels, ``render_kernel``, at :data:`EVAL_HIDS`; 512 and
+1024 in both on engines of their own, the tile engines of
+``csrc/render_train_512.cuh`` and ``csrc/render_eval_512.cuh``, 1024 in two
+N passes a layer); an MLP of another width up to 1024 runs at the smallest
+of them that holds it, on a zero-padded copy of its weights
 (:func:`pad_mlp_to_kernel_width`: the padded hidden units take zero weights
 in and out and a zero bias, so they stay 0 and move nothing), and its
 gradients are sliced back to the parameters' shapes.  Wider MLPs raise
 ``NotImplementedError`` on the card (``NerfTrainer`` trains them on the
 plain route without ``render.use_fused_train``: :func:`train_kernels_take`).
+At 1024 the kernels take a scratch for the first N pass's outputs
+(``nm_render_train_scratch``: 64 KB a block, a block an SM), which the
+wrappers allocate.
 The encoding takes 2 * 3 * F <= 128 columns and a ray's view-direction PE
 plus its appearance row <= 128, the JAX kernels' limits; the products and
 the stash take them padded (:func:`enc_rows`: 96 rows up to 96 columns,
@@ -63,10 +66,11 @@ from ...nerf.sampling import frustum_moments
 TILE_RAYS = 2         # csrc: kTileRays (N even; N / 2 vector-partial rows)
 KERNEL_SAMPLES = (64, 128, 256)   # csrc: one 64-row half or whole 128-row chunks
 # The instantiated MLP widths of each kernel family: the train kernels
-# (csrc: render_train_<HID>.cu, HID 512 on render_train_512.cuh's engine)
-# and the eval render kernels (csrc: render_eval_<trunk>_<HID>.cu, HID 512
-# and 1024 on render_eval_512.cuh's tile engine, 1024 in two passes).
-TRAIN_HIDS = (64, 128, 192, 256, 512)
+# (csrc: render_train_<HID>.cu, HID 512 and 1024 on render_train_512.cuh's
+# tile engine) and the eval render kernels (csrc:
+# render_eval_<trunk>_<HID>.cu, HID 512 and 1024 on render_eval_512.cuh's
+# tile engine); 1024 in two N passes a layer in both.
+TRAIN_HIDS = (64, 128, 192, 256, 512, 1024)
 EVAL_HIDS = (64, 128, 192, 256, 512, 1024)
 FAMILY_HIDS = {"train": TRAIN_HIDS, "eval": EVAL_HIDS}
 # The widest MLP whose engines take each layer's A operand from the
@@ -130,10 +134,10 @@ def kernel_width(hid: int, family: str) -> int:
     smallest of its widths (:data:`FAMILY_HIDS`) that holds it.  Above the
     largest ``NotImplementedError``.  Both families take 257-512 on engines
     of their own (two warpgroups an m64n256 N-half each, A from a 64-row
-    shared-memory tile); the eval family takes 513-1024 on the same engine
-    in two N passes a layer (the first pass's outputs parked in global
-    memory) and stops there: a wider layer's 64-row bf16 activation tile
-    no longer fits in shared memory beside a weight ring."""
+    shared-memory tile) and 513-1024 on the same engines in two N passes a
+    layer (the first pass's outputs parked in global memory), and stop
+    there: a wider layer's 64-row bf16 activation tile no longer fits in
+    shared memory beside a weight ring."""
     hids = FAMILY_HIDS[family]
     for w in hids:
         if hid <= w:
@@ -465,7 +469,7 @@ def check_encoding(cfg, num_freqs: int, dirs_freqs: int, who: str):
 
 def check_train_config(spec: StageSpec):
     """Raise for configs the train kernels do not implement (a width above
-    512: :func:`kernel_width`)."""
+    1024: :func:`kernel_width`)."""
     cfg = spec.mlp.cfg
     if cfg.app_dim not in (0, APP_DIM):
         raise NotImplementedError(f"train kernel: appearance rows of "
@@ -604,6 +608,16 @@ def _sizes(cfg, n: int, S: int):
     return tuple(v.value for v in out)
 
 
+def _scratch(cfg, n: int, dev):
+    """The tile engine's scratch for a stage of ``n`` rays at the kernel
+    width of ``cfg`` on ``dev`` (current): (uint8 tensor or None, bytes)."""
+    size = library().nm_render_train_scratch(kernel_width(cfg.hid_dim, "train"),
+                                             n)
+    check(min(size, 0), "render_train scratch")
+    return (torch.empty(size, dtype=torch.uint8, device=dev) if size
+            else None), size
+
+
 def kernel_forward(spec: StageSpec, rays, z, noise, packed,
                    stash: bool = False, app=None):
     """Kernel forward -> (rgb, weights, stash).  With ``stash`` it is the
@@ -621,9 +635,12 @@ def kernel_forward(spec: StageSpec, rays, z, noise, packed,
         st = torch.empty(_sizes(spec.mlp.cfg, n, S)[0], dtype=torch.uint8,
                          device=rays.device)
     with torch.cuda.device(rays.device):
+        scratch, size = _scratch(spec.mlp.cfg, n, rays.device)
         err = library().nm_render_train_forward(
             *args, rgb.data_ptr(), w.data_ptr(),
-            None if st is None else st.data_ptr(), stream_ptr(rays.device))
+            None if st is None else st.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), size,
+            stream_ptr(rays.device))
     check(err, "render_train_fwd")
     LAUNCHES["render_train_fwd" + ("" if app is None else "_app")] += 1
     return rgb, w, st
@@ -652,13 +669,16 @@ def kernel_backward(spec: StageSpec, stash, rays, z, noise, g_rgb, g_w,
     vec = torch.empty(backward_layout(cfg, n, S).vec_len, device=dev)
     g_app = None if app is None else torch.empty(n, APP_DIM, device=dev)
     with torch.cuda.device(dev):
+        scratch, size = _scratch(cfg, n, dev)
         err = library().nm_render_train_backward(
             *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
             work.data_ptr(), mat.data_ptr(), vec.data_ptr(),
-            None if g_app is None else g_app.data_ptr(), stream_ptr(dev))
+            None if g_app is None else g_app.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), size,
+            stream_ptr(dev))
     check(err, "render_train_bwd")
     LAUNCHES["render_train_bwd" + ("" if app is None else "_app")] += 1
-    del work
+    del work, scratch
     # Split the (in x out) matrix blocks in the C product order.
     off = 0
 
@@ -743,11 +763,25 @@ class _RenderTrainFn(torch.autograd.Function):
             g = kernel_backward(spec, stash, rays, z, noise, g_rgb, g_w,
                                 ctx.packed, app)
             del stash
+            _release_if_huge(spec.mlp.cfg, z.shape[0], z.shape[1] - 1,
+                             rays.device)
         else:
             g = train_stage_backward(spec, rays, z, noise, g_rgb, g_w,
                                      app=app)
         names = [k for k, _ in spec.mlp.named_parameters()]
         return (None,) * 6 + (g.get("app"),) + tuple(g[k] for k in names)
+
+
+def _release_if_huge(cfg, n: int, S: int, dev):
+    """Hand a stage's freed stash and gradient workspace back to CUDA when
+    together they take more than a third of the card (hid 1024 at 9216
+    rays x 128 samples: 45 GiB of 79).  Left in PyTorch's cache, their
+    segments are cut up by the step's smaller tensors (the gradients, the
+    optimizer's state), and the next step's two stashes and workspace no
+    longer fit beside the pieces."""
+    stash, grad = workspace_bytes(cfg, n, S)
+    if 3 * (stash + grad) > torch.cuda.get_device_properties(dev).total_memory:
+        torch.cuda.empty_cache()
 
 
 def _apply(spec, use_kernel, rays, z, noise, app):

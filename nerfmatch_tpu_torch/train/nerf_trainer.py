@@ -19,11 +19,10 @@ decides its own (:func:`train_route`): ``"kernels"`` --
 on CUDA, their plain versions on the CPU) -- on CUDA, or on the CPU with
 ``render.use_fused_train``, where ``NerfRenderer.fused_eval_supported``
 holds, the NeRF has no scene-coordinate head (``data.out_scr``) and the
-train kernels hold its MLP width (up to 512); else ``"plain"`` --
+train kernels hold its MLP width (up to 1024); else ``"plain"`` --
 ``render_rays(train=True)`` on the rays' device (a classic or no-viewdir
 NeRF, an ``out_scr`` NeRF, sample counts other than 128, a wider MLP
-without ``render.use_fused_train``, which the eval kernels serve up to
-1024; a wider MLP with the flag raises).  Why a run is plain is logged and
+without ``render.use_fused_train``; a wider MLP with the flag raises).  Why a run is plain is logged and
 written to ``route_why.txt``.  Random draws
 come from a ``torch.Generator`` seeded with ``exp.seed``; ray batches from
 ``np.random.default_rng(exp.seed)`` as in the JAX trainer.  An appearance
@@ -43,8 +42,7 @@ import torch
 from ..config import namespace2dict
 from ..data.loaders import init_data_loader
 from ..nerf.renderer import NerfRenderer
-from ..ops.kernels.render_train_kernel import (EVAL_HIDS, TRAIN_HIDS,
-                                               train_kernels_take)
+from ..ops.kernels.render_train_kernel import TRAIN_HIDS, train_kernels_take
 from ..parallel.distributed import DataGroup, check_world, rank_seed
 from ..parallel.mesh import all_gather_host, replicate_params
 from ..utils import get_logger, resolve_device
@@ -93,12 +91,11 @@ def train_route(renderer, device_type: str, use_fused_train: bool = False):
         raise NotImplementedError(
             f"render.use_fused_train: hid_dim {max(wide)} > {TRAIN_HIDS[-1]}"
             f" (ROADMAP Queue 2, MLP widths above {TRAIN_HIDS[-1]} in "
-            "kernels 5-6); without the flag the NeRF trains on the plain "
-            "route")
+            "kernels 1, 1b, 5 and 6); without the flag the NeRF trains on "
+            "the plain route")
     if wide:
         return "plain", (f"hid_dim {max(wide)}: the train kernels take MLP "
-                         f"widths up to {TRAIN_HIDS[-1]} (the eval kernels "
-                         f"serve up to {EVAL_HIDS[-1]}) and "
+                         f"widths up to {TRAIN_HIDS[-1]} and "
                          "render.use_fused_train is off")
     return "kernels", ""
 

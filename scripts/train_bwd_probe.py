@@ -191,7 +191,7 @@ def main():
         err = lib.nm_render_train_backward(
             *args, g_rgb.data_ptr(), g_w.data_ptr(), stash.data_ptr(),
             work.data_ptr(), out.data_ptr(), out[n_mat:].data_ptr(), None,
-            kernels.stream_ptr(dev))
+            None, 0, kernels.stream_ptr(dev))
         kernels.check(err, f"render_train_bwd ({name})")
 
     run(kernels.library(), outs[0], "package")

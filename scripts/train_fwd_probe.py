@@ -124,7 +124,8 @@ def main():
     def run(lib, st, name):
         err = lib.nm_render_train_forward(
             *args, outs[0].data_ptr(), outs[1].data_ptr(),
-            None if st is None else st.data_ptr(), kernels.stream_ptr(dev))
+            None if st is None else st.data_ptr(), None, 0,
+            kernels.stream_ptr(dev))
         kernels.check(err, f"render_train_fwd ({name})")
 
     print(smi, flush=True)

@@ -20,6 +20,8 @@ through the package's wrappers with one build's library at a time:
 * kernels 1 (fine, bf16) and 1b (coarse, int8) at MLP width 512
   (``chip_smoke.width_renderer(512)``: the room's config, seeded random
   weights), on the HID-512 engine (``render_eval_512.cuh``);
+* kernels 5 (with its stash) and 6 at MLP width 512, that renderer's fine
+  MLP, on the train tile engine (``render_train_512.cuh``);
 
 each timed with CUDA events over ``--reps`` calls after a warm-up, the two
 builds in turns (parent, package, package, parent) for ``--rounds`` rounds.
@@ -29,12 +31,15 @@ these shapes).  Prints each build's ``ptxas`` lines of the HID-256 render
 instantiations and of the train ones at HID 64-256, then one JSON line
 with the mean times (ms), the ratio package / parent, the outputs'
 agreement, whether the two builds' ptxas lines are the same (the HID-256
-and HID-512 render instantiations and the train ones at HID 64-256; the
-HID-512 render kernel's entry is named ``render_eval512_kernel<FINE, ..>``
-in builds before the 1024 engine and ``render_eval_tile_kernel<512, FINE,
-..>`` after: both read as ``render_eval_kernel<512, FINE, ..>``), the build
-seconds, and the card's name and power limit.  Compare within one run
-only.
+and HID-512 render instantiations and the train ones at HID 64-512; the
+HID-512 kernels' entries are named ``render_eval512_kernel<FINE, ..>``,
+``train_fwd512_kernel<..>`` and ``train_bwd512_kernel<512>`` in builds
+before the 1024 engines and ``render_eval_tile_kernel<512, ..>``,
+``train_fwd_tile_kernel<512, ..>`` and ``train_bwd_tile_kernel<512>``
+after: both read as ``render_eval_kernel<512, ..>``, ``train_fwd_kernel<512,
+..>`` and ``train_bwd_kernel<512>``), the build seconds, and the card's name
+and power limit.  An earlier build whose train entries take no tile-engine
+scratch is called without those arguments.  Compare within one run only.
 """
 
 from __future__ import annotations
@@ -67,62 +72,77 @@ PARENT_ENTRIES = ("nm_render_eval_forward", "nm_render_train_forward",
 
 
 # The eval entry's tap-scratch arguments (pointer, bytes), after the tile
-# counter: an earlier build without the HID-512 engine takes neither.
+# counter: an earlier build without the HID-512 engine takes neither; the
+# train entries' tile-engine scratch (pointer, bytes), before the stream:
+# a build without the HID-1024 train engine takes neither.
 EVAL_SCRATCH_ARGS = slice(17, 19)
+TRAIN_SCRATCH_ARGS = {"nm_render_train_forward": slice(12, 14),
+                      "nm_render_train_backward": slice(16, 18)}
 
 
 def load_parent(path):
-    """An earlier build's entries, the eval entry bound to its own
-    signature (without the tap-scratch arguments where it has no
-    ``nm_render_eval_scratch``)."""
+    """An earlier build's entries, each bound to its own signature: the
+    eval entry without the tap-scratch arguments where it has no
+    ``nm_render_eval_scratch``, the train entries without the tile-engine
+    scratch where it has no ``nm_render_train_scratch`` -> (library, the
+    entries called without some arguments: {name: the slice cut})."""
     lib = kernels.load(path, PARENT_ENTRIES)
-    try:
-        lib.nm_render_eval_scratch
-        old_eval = False
-    except AttributeError:
-        sig = list(kernels._SIGNATURES["nm_render_eval_forward"])
-        del sig[EVAL_SCRATCH_ARGS]
-        lib.nm_render_eval_forward.argtypes = sig
-        old_eval = True
-    return lib, old_eval
+    cut = {}
+    for probe, cuts in (("nm_render_eval_scratch",
+                         {"nm_render_eval_forward": EVAL_SCRATCH_ARGS}),
+                        ("nm_render_train_scratch", TRAIN_SCRATCH_ARGS)):
+        try:
+            getattr(lib, probe)
+        except AttributeError:
+            cut.update(cuts)
+    for name, sl in cut.items():
+        sig = list(kernels._SIGNATURES[name])
+        del sig[sl]
+        getattr(lib, name).argtypes = sig
+    return lib, cut
 
 
 class _WithPackageSizes:
     """An earlier library whose workspace sizes come from the package's
-    (its ``nm_render_train_workspace`` may take other arguments; the tap
-    scratch, 0 bytes at these widths, too), its eval entry called without
-    the tap-scratch arguments where it takes none."""
+    (its ``nm_render_train_workspace`` may take other arguments; the
+    scratches, 0 bytes at these widths, too), its entries called without
+    the arguments ``cut`` names where it takes none."""
 
-    def __init__(self, lib, package, old_eval):
-        self.lib, self.package, self.old_eval = lib, package, old_eval
+    def __init__(self, lib, package, cut):
+        self.lib, self.package, self.cut = lib, package, cut
 
     def __getattr__(self, name):
-        if name in ("nm_render_train_workspace", "nm_render_eval_scratch"):
+        if name in ("nm_render_train_workspace", "nm_render_eval_scratch",
+                    "nm_render_train_scratch"):
             return getattr(self.package, name)
         fn = getattr(self.lib, name)
-        if name == "nm_render_eval_forward" and self.old_eval:
-            cut = EVAL_SCRATCH_ARGS
+        if name in self.cut:
+            cut = self.cut[name]
             return lambda *a: fn(*a[:cut.start], *a[cut.stop:])
         return fn
 
 
 def ptxas_lines(log):
     """The ptxas lines (registers, spills) of the HID-256 and HID-512 render
-    kernels and of the train kernels at every HID from 64 to 256 in an nvcc
+    kernels and of the train kernels at every HID from 64 to 512 in an nvcc
     log, sorted by instantiation."""
     name, out = "", []
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            # The HID-512 render kernel under either of its names.
-            name = name.replace("render_eval512_kernelI",
-                                "render_eval_kernelILi512E").replace(
-                "render_eval_tile_kernelI", "render_eval_kernelI")
+            # The HID-512 kernels under either of their names.
+            for old, new in (("render_eval512_kernelI", "render_eval_kernelILi512E"),
+                             ("render_eval_tile_kernelI", "render_eval_kernelI"),
+                             ("train_fwd512_kernelI", "train_fwd_kernelILi512E"),
+                             ("train_fwd_tile_kernelI", "train_fwd_kernelI"),
+                             ("train_bwd512_kernelI", "train_bwd_kernelI"),
+                             ("train_bwd_tile_kernelI", "train_bwd_kernelI")):
+                name = name.replace(old, new)
         elif "Used" in line or "spill" in line:
             kern = re.search(r"(render_eval_kernel|train_fwd_kernel|"
                              r"train_bwd_kernel)ILi(\d+)E(\w*?)E", name)
-            if kern and (kern.group(2) in ("256", "512") if "eval" in kern.group(1)
-                         else "train" in kern.group(1)):
+            if kern and kern.group(2) in (("256", "512") if "eval" in kern.group(1)
+                                          else ("64", "128", "192", "256", "512")):
                 args = re.findall(r"L[bi](\d)", kern.group(3))
                 out.append(f"{kern.group(1)}<{kern.group(2)}"
                            f"{''.join(', ' + a for a in args)}>: "
@@ -150,8 +170,8 @@ def main():
     package_s = time.perf_counter() - t0
     parent_job.join()
     parent_so, parent_s = built["parent"]
-    parent, old_eval = load_parent(parent_so)
-    libs = {"parent": _WithPackageSizes(parent, package, old_eval),
+    parent, cut = load_parent(parent_so)
+    libs = {"parent": _WithPackageSizes(parent, package, cut),
             "package": package}
     ptxas = {}
     for name, so in (("package", kernels.build()), ("parent", parent_so)):
@@ -182,8 +202,13 @@ def main():
         pc512, pf512 = rk.pack_mlp(cmlp512, q512), rk.pack_mlp(fmlp512)
         zf512 = resample_z_plain(z, rk.render_stage_plain(
             cmlp512, rays, z, fine=False, **kw)["weights"]).contiguous()
+        spec512 = rtk.StageSpec(fmlp512, 15, 4)
+        ptrain512 = rtk.pack_train(fmlp512)
+        rgb512, w512, stash512 = rtk.kernel_forward(
+            spec512, trays, tz, noise, ptrain512, stash=True)
     g_rgb, g_w = chip_smoke.train_cotangents(tz, rgb, w, target)
-    del rgb, w
+    g_rgb512, g_w512 = chip_smoke.train_cotangents(tz, rgb512, w512, target)
+    del rgb, w, rgb512, w512
     cases = {
         "kernel1_fine_bf16": lambda: rk.render_stage(
             fmlp, rays, zf, fine=True, packed=pf, **kw),
@@ -197,6 +222,10 @@ def main():
             fmlp512, rays, zf512, fine=True, packed=pf512, **kw),
         "kernel1b_coarse_int8_512": lambda: rk.render_stage(
             cmlp512, rays, z, fine=False, packed=pc512, int8=q512, **kw),
+        "kernel5_fwd_stash_512": lambda: rtk.kernel_forward(
+            spec512, trays, tz, noise, ptrain512, stash=True)[:2],
+        "kernel6_bwd_512": lambda: rtk.kernel_backward(
+            spec512, stash512, trays, tz, noise, g_rgb512, g_w512, ptrain512),
     }
     assert eval_feat_layer(fmlp.cfg) == 3
     outs, times = {}, {n: {b: [] for b in libs} for n in cases}

@@ -665,7 +665,7 @@ def stage_grads(fn, spec, rays, z, noise, target):
     (64, 128, False), (256, 128, False), (256, 64, False), (256, 256, False),
     (256, 128, True), (32, 128, False), (96, 128, False), (128, 128, False),
     (192, 128, False), (320, 128, False), (512, 128, False), (512, 64, False),
-    (512, 256, True)])
+    (512, 256, True), (640, 128, False), (1024, 128, False), (1024, 256, True)])
 def test_render_train_kernels_match_plain(dev, hid, S, white_bg):
     """Train forward (rgb, weights) at atol 5e-3 against the plain version
     with the same bf16 operands; backward per parameter: cosine > 0.999,
@@ -674,7 +674,8 @@ def test_render_train_kernels_match_plain(dev, hid, S, white_bg):
     on both sides); both launch counters move.  S = 64 puts two rays in one
     128-row chunk of the backward, S = 256 one ray in two; 320 runs at 512,
     padded, and 512 on its own engine (64-row chunks, a ray S / 64 of
-    them)."""
+    them); 640 runs at 1024, padded, and 1024 on the same engine in two N
+    passes a layer."""
     spec, rays, z, noise, target = train_stage(hid, dev, S=S,
                                                white_bg=white_bg)
     reset_launch_counts()
@@ -740,10 +741,11 @@ def test_int8_render_kernel_at_every_width(dev, hid, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid", [96, 512])
+@pytest.mark.parametrize("hid", [96, 512, 1024])
 def test_kernels_at_the_widest_encoding(dev, hid):
     """F = 21 (126 encoding columns) and Fd = 18 with an appearance table
-    (111 + 16 extras columns), the JAX kernels' limits, hid 96 and 512:
+    (111 + 16 extras columns), the JAX kernels' limits, hid 96, 512 and
+    1024:
     kernel 1's fine stage with the appearance rows against its plain
     version (atol / rtol 5e-3, as test_render_kernel_matches_plain), and
     kernels 5 and 6 against the plain train stage
@@ -809,12 +811,13 @@ def test_render_train_kernels_are_deterministic(dev):
 
 @pytest.mark.cuda
 def test_train_kernel_raises_on_unported_configs(dev):
-    """Appearance rows of another width than 16, widths above 512, odd ray
+    """Appearance rows of another width than 16, widths above 1024, odd ray
     counts and sample counts other than 64, 128 or 256 (S = 192 would leave
     the backward's last 64-row half of each ray out) raise instead of
-    running plain; the C entries refuse S = 192 on their own too.  Width
-    128, refused before it was instantiated, runs; 640 raises naming the
-    ROADMAP (the render kernel serves it at 1024 and raises at 1280)."""
+    running plain; the C entries refuse S = 192 on their own too, and a
+    launch at 1024 without the tile engine's scratch.  Width 128, refused
+    before it was instantiated, runs; 1280 raises naming the ROADMAP in the
+    train kernels as in the render kernel."""
     spec, rays, z, noise, _ = train_stage(64, dev, n=4, S=64)
     app8 = NerfMLP(NerfConfig(layer_num=8, hid_dim=64, xyz_dim=90, dirs_dim=27,
                               app_dim=8, use_viewdirs=True)).to(dev)
@@ -825,7 +828,7 @@ def test_train_kernel_raises_on_unported_configs(dev):
     assert torch.isfinite(rgb).all() and torch.isfinite(w).all()
     with pytest.raises(NotImplementedError):
         render_train(StageSpec(app8, 15, 4), rays, z, noise)
-    too_wide = NerfMLP(cfg(640)).to(dev)
+    too_wide = NerfMLP(cfg(1280)).to(dev)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
         render_train(StageSpec(too_wide, 15, 4), rays, z, noise)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
@@ -842,13 +845,24 @@ def test_train_kernel_raises_on_unported_configs(dev):
     args = list(_kernel_args(spec, rays, z, noise, pack_train(spec.mlp)))
     args[6] = 192                                   # samples
     lib = kernels.library()
-    assert lib.nm_render_train_forward(*args, None, None, None, None) != 0
+    assert lib.nm_render_train_forward(*args, None, None, None, None, 0,
+                                       None) != 0
     assert lib.nm_render_train_backward(*args, None, None, None, None, None,
-                                        None, None, None) != 0
+                                        None, None, None, 0, None) != 0
+    # Width 1024 at a valid S, without the scratch: refused before a launch.
+    spec1k, rays1k, z1k, noise1k, _ = train_stage(1024, dev, n=4, S=64)
+    args = list(_kernel_args(spec1k, rays1k, z1k, noise1k,
+                             pack_train(spec1k.mlp)))
+    out = torch.empty(4, 64, device=dev)
+    assert lib.nm_render_train_scratch(1024, 4) > 0
+    assert lib.nm_render_train_scratch(512, 4) == 0
+    assert lib.nm_render_train_forward(*args, out.data_ptr(), out.data_ptr(),
+                                       None, None, 0, None) != 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hid,S", [(64, 128), (256, 64), (256, 256)])
+@pytest.mark.parametrize("hid,S", [(64, 128), (256, 64), (256, 256),
+                                   (1024, 128)])
 def test_train_forward_with_stash_equals_forward_without(dev, hid, S):
     """The training forward (filling the stash) and the no-gradient forward
     give bit-identical rgb and weights; the stash is the size the C side

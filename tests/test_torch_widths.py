@@ -2,10 +2,10 @@
 width the JAX render kernels take, on the CPU.
 
 On the card the render kernels (1, 1b, 5, 6) are instantiated at MLP widths
-64, 128, 192, 256 and 512 (512 on engines of their own), the eval kernels
-(1, 1b) also at 1024; any other width up to the family's largest runs at
-the next wider one on a zero-padded copy of the weights
-(``pad_mlp_to_kernel_width``), and wider ones raise.  The encodings go to the
+64, 128, 192, 256, 512 and 1024 (512 and 1024 on engines of their own, 1024
+in two N passes a layer); any other width up to 1024 runs at the next wider
+one on a zero-padded copy of the weights (``pad_mlp_to_kernel_width``), and
+wider ones raise.  The encodings go to the
 JAX kernels' limits, 2 * 3 * F <= 128 and the view-direction PE plus the
 appearance row <= 128.  Here:
 
@@ -13,7 +13,7 @@ appearance row <= 128.  Here:
   unpadded MLP's outputs, and the padded gradients sliced back its
   gradients;
 * the plain eval stage at hid 96, 128, 320, 512, 640 and 1024, the train
-  stage at 96-512, and both at F = 21, Fd = 18 with an appearance table,
+  stage at 96-1024, and both at F = 21, Fd = 18 with an appearance table,
   against
   the JAX fused kernels in interpret mode (``make_fused_render``,
   ``make_fused_train_render``);
@@ -24,8 +24,7 @@ appearance row <= 128.  Here:
 * the sizes the C side is handed agree at the padded widths; a stage's
   kernel weights padded once are the bytes of padding twice;
 * the check functions accept what the JAX kernels take and raise
-  ``NotImplementedError`` naming the ROADMAP above 1024 (eval) and 512
-  (train), without a launch;
+  ``NotImplementedError`` naming the ROADMAP above 1024, without a launch;
   the trainer routes a NeRF the train kernels do not hold to the plain
   path, by its config alone.
 
@@ -264,11 +263,12 @@ def jax_train_stage(params, hid, rays, z, noise, F=15, Fd=4, app=0):
     return run
 
 
-@pytest.mark.parametrize("hid", [96, 128, 320, 512])
+@pytest.mark.parametrize("hid", [96, 128, 320, 512, 640, 1024])
 def test_train_stage_matches_pallas_at_width(hid):
     """The plain train stage against ``make_fused_train_render`` in
     interpret mode at hid 96 (run on the card at 128, padded), 128, 320
-    (run at 512, padded) and 512, 8 rays x 32 samples: rgb and weights
+    (run at 512, padded), 512, 640 (run at 1024, padded) and 1024, 8 rays
+    x 32 samples: rgb and weights
     within 2e-3, and through mse(rgb) + 0.1 mean(w^2) every leaf's gradient
     at cosine > 0.999 and norm ratio 1 +- 1e-2 (the tolerances of
     test_torch_train.py)."""
@@ -395,14 +395,16 @@ def test_kernel_int8_keeps_the_real_columns(start):
 @pytest.mark.parametrize("hid,F,Fd,app", [(32, 15, 4, 0), (96, 15, 4, 0),
                                           (160, 15, 4, APP), (200, 4, 1, 0),
                                           (96, F_WIDE, FD_WIDE, APP),
-                                          (1024, 15, 4, 0)])
+                                          (640, 15, 4, 0), (1024, 15, 4, 0)])
 def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
     """At a padded width the render kernel's stream (``stream_bytes``) is
     what ``pack_mlp`` packs, for the bf16 trunk and the int8 ones; the
     train kernels' stash and gradient workspace (``workspace_bytes``) and
     their product table (``backward_layout``) are those of the kernel
-    width; ``pack_train``'s forward images are ``pack_mlp``'s.  At 1024,
-    which only the eval kernels take, the eval side alone."""
+    width; ``pack_train``'s forward images are ``pack_mlp``'s.  At 1024
+    (and 640, run there) each pass's half of a slot image slice, 32 rows x
+    512 columns, is one contiguous 32 KB piece: the slice's first or last
+    eight 64-column blocks."""
     _, mlp = make_mlp(hid, F, Fd, app, seed=16)
     cfg, kcfg = mlp.cfg, rtk.kernel_cfg(mlp.cfg, "eval")
     assert kcfg.hid_dim == rtk.kernel_width(hid, "eval") >= hid
@@ -423,10 +425,7 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
     else:
         with pytest.raises(ValueError, match="pack_kernel_int8"):
             rk.pack_mlp(mlp, quant.pack_mlp_int8(mlp, scales, 0, TAP))
-    if not rtk.train_kernels_take(cfg):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
-            rtk.kernel_cfg(cfg, "train")
-        return
+    assert rtk.train_kernels_take(cfg)
     assert kcfg.hid_dim == rtk.kernel_width(hid, "train")
     n, S = 64, 128
     assert rtk.workspace_bytes(cfg, n, S) == rtk.workspace_bytes(kcfg, n, S)
@@ -440,6 +439,18 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
     ptrain = rtk.pack_train(mlp)
     assert torch.equal(ptrain[3 * LAYERS], packed[0])
     assert ptrain[3 * LAYERS + 5].shape == (HV, H)      # wvhT slot images
+    if H == 1024:
+        # A slot image slice of a (K, 1024) matrix: 16 blocks of 32 rows x
+        # 64 columns, block-major; pass p's columns 512 p .. are blocks 8 p
+        # .. 8 p + 7, one contiguous half of the slice.
+        w = torch.arange(64 * H, dtype=torch.float32).reshape(64, H) % 251
+        img = rtk.slot_images(w).reshape(-1)
+        for sl in range(2):
+            for p in range(2):
+                half = img[sl * 32 * H + p * 32 * 512:][:32 * 512]
+                ref = rtk.slot_images(w[32 * sl:32 * sl + 32,
+                                        512 * p:512 * p + 512]).reshape(-1)
+                assert torch.equal(half, ref), (sl, p)
 
 
 # ---------------------------------------------------------------------------
@@ -448,11 +459,10 @@ def test_sizes_agree_at_padded_widths(hid, F, Fd, app):
 
 def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
     """Both wrappers' checks (``check_render_config``, ``check_train_config``)
-    accept every hid from 1 to 512, F up to 21 and the view-direction PE up
-    to Fd 18 with an appearance table and 20 without; the render check also
-    513 to 1024 (run at 1024), where the train check raises
-    ``NotImplementedError`` naming ROADMAP Queue 2; both raise it for hid
-    1025, and for F = 22 or Fd = 19 with a table; ``kernel_width`` maps each
+    accept every hid from 1 to 1024 (513 to 1024 run at 1024), F up to 21
+    and the view-direction PE up to Fd 18 with an appearance table and 20
+    without; both raise ``NotImplementedError`` naming ROADMAP Queue 2 for
+    hid 1025, and for F = 22 or Fd = 19 with a table; ``kernel_width`` maps each
     width to the smallest instantiated one of its family that holds it.  No
     launch: the checks run on the CPU."""
     def cfg(hid, F=15, Fd=4, app=0):
@@ -477,13 +487,12 @@ def test_config_checks_take_every_width_and_encoding_the_jax_kernels_take():
         checks(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
         assert rtk.kernel_width(hid, "eval") == 512
         assert rtk.kernel_width(hid, "train") == 512
-    # The eval family takes 513-1024 at 1024; the train family none of them.
+    # Both families take 513-1024 at 1024.
     for hid in (513, 640, 1023, 1024):
-        rk.check_render_config(cfg(hid), 15, 4)
-        rk.check_render_config(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
+        checks(cfg(hid))
+        checks(cfg(hid, F_WIDE, FD_WIDE, APP), F_WIDE, FD_WIDE)
         assert rtk.kernel_width(hid, "eval") == 1024
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
-            rtk.check_train_config(_Spec(cfg(hid), 15, 4))
+        assert rtk.kernel_width(hid, "train") == 1024
     for c, F, Fd in ((cfg(1025), 15, 4), (cfg(2048), 15, 4)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 2,"):
             rk.check_render_config(c, F, Fd)
@@ -625,43 +634,42 @@ def test_pack_stage_pads_once_with_the_same_bytes(hid):
 
 
 def test_width_sets_by_family():
-    """The train kernels' widths are (64, 128, 192, 256, 512), the eval
-    kernels' the same and 1024: each width up to a family's largest maps to
-    the smallest that holds it; 513 raises in the train family and 1025 in
-    the eval family, naming ROADMAP Queue 2 and the width refused."""
+    """The train kernels' widths are (64, 128, 192, 256, 512, 1024), the
+    eval kernels' the same: each width up to 1024 maps to the smallest that
+    holds it; 1025 raises in both families, naming ROADMAP Queue 2 and the
+    width refused."""
     assert rtk.EVAL_HIDS == (64, 128, 192, 256, 512, 1024)
-    assert rtk.TRAIN_HIDS == (64, 128, 192, 256, 512)
+    assert rtk.TRAIN_HIDS == (64, 128, 192, 256, 512, 1024)
     for family in ("eval", "train"):
         assert rtk.kernel_width(512, family) == 512
         assert rtk.kernel_width(257, family) == 512
         assert rtk.kernel_width(256, family) == 256
-    with pytest.raises(NotImplementedError,
-                       match="hid_dim 513 > 512 .ROADMAP Queue 2, MLP "
-                             "widths above 512"):
-        rtk.kernel_width(513, "train")
-    for hid in (513, 640, 1024):
-        assert rtk.kernel_width(hid, "eval") == 1024
-    with pytest.raises(NotImplementedError,
-                       match="hid_dim 1025 > 1024 .ROADMAP Queue 2, MLP "
-                             "widths above 1024"):
-        rtk.kernel_width(1025, "eval")
+        for hid in (513, 640, 1024):
+            assert rtk.kernel_width(hid, family) == 1024
+        with pytest.raises(NotImplementedError,
+                           match="hid_dim 1025 > 1024 .ROADMAP Queue 2, MLP "
+                                 "widths above 1024"):
+            rtk.kernel_width(1025, family)
     cfg = NerfConfig(layer_num=LAYERS, hid_dim=320, xyz_dim=90, dirs_dim=27,
                      use_viewdirs=True, skips=SKIPS)
     assert rtk.kernel_cfg(cfg, "eval").hid_dim == 512
     assert rtk.kernel_cfg(cfg, "train").hid_dim == 512
     assert rtk.train_kernels_take(cfg)
-    assert not rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=513))
-    assert rtk.kernel_cfg(dataclasses.replace(cfg, hid_dim=640),
-                          "eval").hid_dim == 1024
+    assert rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=1024))
+    assert not rtk.train_kernels_take(dataclasses.replace(cfg, hid_dim=1025))
+    for family in ("eval", "train"):
+        assert rtk.kernel_cfg(dataclasses.replace(cfg, hid_dim=640),
+                              family).hid_dim == 1024
 
 
-@pytest.mark.parametrize("hid,route", [(640, "plain"), (512, "kernels"),
+@pytest.mark.parametrize("hid,route", [(1280, "plain"), (1024, "kernels"),
+                                       (640, "kernels"), (512, "kernels"),
                                        (320, "kernels"), (256, "kernels"),
                                        (96, "kernels")])
 def test_trainer_route_follows_the_train_kernels_widths(hid, route):
     """``nerf_trainer.train_route`` on a CUDA device string, from the
     config alone (no launch, nothing moved to a card): a NeRF whose MLP the
-    train kernels hold (every width up to 512) takes the kernels, a wider
+    train kernels hold (every width up to 1024) takes the kernels, a wider
     one the plain route with the reason without ``render.use_fused_train``
     (``fused_eval_supported`` is a function of the config, not of its
     width) and raises with the flag, on CUDA or on the CPU; on the CPU
@@ -682,12 +690,13 @@ def test_trainer_route_follows_the_train_kernels_widths(hid, route):
     assert got == route
     assert (why == "") == (route == "kernels")
     if route == "plain":
-        assert f"hid_dim {hid}" in why and "512" in why and "1024" in why
+        assert f"hid_dim {hid}" in why and "up to 1024" in why
     assert train_route(r, "cpu")[0] == "plain"
     for dev in ("cuda", "cpu"):
         if route == "plain":
             with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 2, MLP widths above 512"):
+                               match="ROADMAP Queue 2, MLP widths above 1024 "
+                                     "in kernels 1, 1b, 5 and 6"):
                 train_route(r, dev, use_fused_train=True)
         else:
             assert train_route(r, dev, use_fused_train=True) == (route, "")
