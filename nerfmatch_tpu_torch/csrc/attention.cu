@@ -84,16 +84,45 @@
 //    dV (z only) and then dK, each with one accumulator.
 //  * Only the ragged last tile pays for masking.
 //
-// f32 mode (attn_bf16 off): FP32 FMA, one row per thread over tiles of 32
-// keys (queries) in shared memory, the products looping over the D
-// columns; a block owns 32 output columns (blockIdx.z picks which), so a
-// row's registers hold 32 accumulators whatever D is, and the logits are
-// formed once per 32 output columns.  Flash-style online softmax in the
-// forward; the same lse / delta interface.  Right, not fast: it is off the
-// default path.
+// f32 mode (attn_bf16 off), three-pass TF32 on the tensor cores, the same
+// three launches (forward; dK/dV and dQ after the prologue) and lse /
+// delta interface, templated on the same kD:
+//  * f32 keeps 24 significant bits, TF32 11: each operand x is split into
+//    big = tf32(x) and small = tf32(x - big), both rounded to nearest (the
+//    tensor cores would truncate), and every product A B runs as three
+//    wgmma ...f32.tf32.tf32 into one accumulator, As Bb + Ab Bs + Ab Bb:
+//    about 21 bits, at 495 / 3 TFLOP/s against the 67 of the f32 FMA
+//    units.  One pass would give ~1e-3; the tests hold the mode to 1e-5.
+//  * TF32 wgmma reads B only K-major (no transpose, unlike bf16).  The
+//    logits q k^T and g v^T read k and v rows as stored; p v, dl k, dl^T q
+//    and z^T g need v, k, q and g transposed.  A split launch writes every
+//    image a launch reads, big and small, head-major, rows (or columns)
+//    padded to 64 with zeros and columns (rows) to kD: q, k rows and v^T
+//    for the forward; q, g, k rows, their transposes and v rows for the
+//    backward (14 images, 0.42 GB at B 2, L = S = 3600, H 8, D 128: a
+//    tenth of that backward's time at the memory rate).  So no tile load
+//    is masked, and no transpose is done in shared memory.
+//  * A of the logits (q, g; k, v) stays in shared memory for the whole
+//    loop (big and small: up to 128 KB at kD = 128, which registers could
+//    not hold beside the accumulators); the probabilities, z and dl are
+//    A from registers, split as they come out of the softmax.  TF32's A
+//    fragment wants columns t and t + 4 of each 8 where the accumulator
+//    gives thread t columns 2t and 2t + 1, so the transposed images store
+//    each group of 8 in that order (kperm) and no register moves.
+//  * Tiles are f32 rows in the 128-byte swizzle (32 floats a row of an
+//    atom; 64-byte at kD = 16), kT keys (queries) a stage in a ring of kSt
+//    stages, or one stage split in two copy groups (Tf32Plan: mostly
+//    64-row tiles in one split stage up to kD 64, 32-row tiles at 128).  One
+//    warpgroup a block, as the bf16 mode; one or two blocks an SM.
+//  * The tensor cores' accumulation truncates: over thousands of keys in
+//    one accumulator that shows at 1e-5.  Each tile's products go into a
+//    fresh accumulator, added to the running sum in f32 registers.
+//  * dK/dV is two launches (dV, then dK) from kD = 64 on: a gradient's
+//    running sum and its tile accumulator, twice, would not fit beside the
+//    logits.  No atomics: two runs are bit-identical.
 //
 // Two probe switches, set only by scripts/attention_probe.py to show what
-// the bf16 kernels' time is made of (results are wrong with either):
+// the kernels' time is made of (results are wrong with either):
 // NM_ATTN_PROBE_NO_EX2 puts a multiply-add in place of every ex2, and
 // NM_ATTN_PROBE_NO_LOADS leaves the tile loads out of the loops.
 
@@ -126,204 +155,6 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ row, int j,
                  : make_float4(0.f, 0.f, 0.f, 0.f);
   return make_float4(j < D ? row[j] : 0.f, j + 1 < D ? row[j + 1] : 0.f,
                      j + 2 < D ? row[j + 2] : 0.f, j + 3 < D ? row[j + 3] : 0.f);
-}
-
-// ===========================================================================
-// f32 mode
-// ===========================================================================
-
-constexpr int kF32Tile = 32;     // keys (queries) a stage
-constexpr int kF32Cols = 32;     // output columns a block
-
-// Rows [r0, r0 + 32) of head h of a (B, n, H, D) f32 array -> dst, columns
-// up to D rounded up to 32 (zeros past D and past n).
-__device__ __forceinline__ void stage_rows_f32(float (*dst)[kMaxD],
-                                               const float* __restrict__ src,
-                                               int b, int r0, int n, int H,
-                                               int h, int D, int tid,
-                                               int threads) {
-  const int D32 = (D + 31) & ~31;
-  for (int i = tid; i < kF32Tile * D32; i += threads) {
-    const int j = i / D32, d = i % D32, r = r0 + j;
-    dst[j][d] = (r < n && d < D) ? src[(((size_t)b * n + r) * H + h) * D + d]
-                                 : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kQTile)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int L, int S, int H, int D) {
-  __shared__ float ks[kF32Tile][kMaxD];
-  __shared__ float vs[kF32Tile][kMaxD];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, c0 = blockIdx.z * kF32Cols;
-  const int l = blockIdx.x * kQTile + tid;
-  const bool active = l < L;
-  const float* qr = q + (((size_t)b * L + (active ? l : 0)) * H + h) * D;
-  float acc[kF32Cols];
-#pragma unroll
-  for (int c = 0; c < kF32Cols; ++c) acc[c] = 0.f;
-  float m = -INFINITY, lsum = 0.f;
-  for (int s0 = 0; s0 < S; s0 += kF32Tile) {
-    __syncthreads();
-    stage_rows_f32(ks, k, b, s0, S, H, h, D, tid, kQTile);
-    stage_rows_f32(vs, v, b, s0, S, H, h, D, tid, kQTile);
-    __syncthreads();
-    float sc[kF32Tile];
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) sc[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d];
-#pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) sc[j] = fmaf(qd, ks[j][d], sc[j]);
-    }
-    float mt = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) {
-      if (s0 + j >= S) sc[j] = -INFINITY;
-      mt = fmaxf(mt, sc[j]);
-    }
-    const float m_new = fmaxf(m, mt);
-    const float scale = expf(m - m_new);
-    lsum *= scale;
-#pragma unroll
-    for (int c = 0; c < kF32Cols; ++c) acc[c] *= scale;
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float pj = expf(sc[j] - m_new);
-      lsum += pj;
-#pragma unroll
-      for (int c = 0; c < kF32Cols; ++c)
-        acc[c] = fmaf(pj, vs[j][c0 + c], acc[c]);
-    }
-    m = m_new;
-  }
-  if (active) {
-    const float inv = 1.f / lsum;
-    float* o = out + (((size_t)b * L + l) * H + h) * D;
-#pragma unroll
-    for (int c = 0; c < kF32Cols; ++c)
-      if (c0 + c < D) o[c0 + c] = acc[c] * inv;
-    if (lse != nullptr && blockIdx.z == 0)
-      lse[(size_t)bh * L + l] = m + logf(lsum);
-  }
-}
-
-// stats: (2, B * H, L) f32, [0] the forward's lse (times log2(e) in bf16
-// mode), [1] delta.
-
-// dK, dV: one thread per key.  Queries past L have q = g = 0 and staged
-// lse = delta = 0: z = 1, dl = 0, and both add nothing.
-__global__ void __launch_bounds__(kKTile)
-attn_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ g,
-                  const float* __restrict__ stats, float* __restrict__ dk,
-                  float* __restrict__ dv, int L, int S, int H, int BH, int D) {
-  __shared__ float qs[kF32Tile][kMaxD];
-  __shared__ float gs[kF32Tile][kMaxD];
-  __shared__ float ls[kF32Tile], dls[kF32Tile];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, c0 = blockIdx.z * kF32Cols;
-  const int s = blockIdx.x * kKTile + tid;
-  const bool active = s < S;
-  const size_t row = (((size_t)b * S + (active ? s : 0)) * H + h) * D;
-  const float *kr = k + row, *vr = v + row;
-  float dkr[kF32Cols], dvr[kF32Cols];
-#pragma unroll
-  for (int c = 0; c < kF32Cols; ++c) dkr[c] = dvr[c] = 0.f;
-  for (int l0 = 0; l0 < L; l0 += kF32Tile) {
-    __syncthreads();
-    stage_rows_f32(qs, q, b, l0, L, H, h, D, tid, kKTile);
-    stage_rows_f32(gs, g, b, l0, L, H, h, D, tid, kKTile);
-    if (tid < kF32Tile) {
-      const int l = l0 + tid;
-      const size_t o = (size_t)bh * L + l;
-      ls[tid] = l < L ? stats[o] : 0.f;
-      dls[tid] = l < L ? stats[(size_t)BH * L + o] : 0.f;
-    }
-    __syncthreads();
-    float dot[kF32Tile], dz[kF32Tile];
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) dot[j] = dz[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = kr[d], vd = vr[d];
-#pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
-        dot[j] = fmaf(kd, qs[j][d], dot[j]);
-        dz[j] = fmaf(vd, gs[j][d], dz[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float z = expf(dot[j] - ls[j]);
-      const float dl = z * (dz[j] - dls[j]);
-#pragma unroll
-      for (int c = 0; c < kF32Cols; ++c) {
-        dkr[c] = fmaf(dl, qs[j][c0 + c], dkr[c]);
-        dvr[c] = fmaf(z, gs[j][c0 + c], dvr[c]);
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < kF32Cols; ++c)
-      if (c0 + c < D) {
-        dk[row + c0 + c] = dkr[c];
-        dv[row + c0 + c] = dvr[c];
-      }
-  }
-}
-
-// dQ: one thread per query.  Keys past S have k = v = 0: dl times k adds
-// nothing.
-__global__ void __launch_bounds__(kQTile)
-attn_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ g,
-                const float* __restrict__ stats, float* __restrict__ dq,
-                int L, int S, int H, int BH, int D) {
-  __shared__ float ks[kF32Tile][kMaxD];
-  __shared__ float vs[kF32Tile][kMaxD];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int tid = threadIdx.x, c0 = blockIdx.z * kF32Cols;
-  const int l = blockIdx.x * kQTile + tid;
-  const bool active = l < L;
-  const size_t row = (((size_t)b * L + (active ? l : 0)) * H + h) * D;
-  const float *qr = q + row, *gr = g + row;
-  const size_t srow = (size_t)bh * L + (active ? l : 0);
-  const float lse = stats[srow], delta = stats[(size_t)BH * L + srow];
-  float dqr[kF32Cols];
-#pragma unroll
-  for (int c = 0; c < kF32Cols; ++c) dqr[c] = 0.f;
-  for (int s0 = 0; s0 < S; s0 += kF32Tile) {
-    __syncthreads();
-    stage_rows_f32(ks, k, b, s0, S, H, h, D, tid, kQTile);
-    stage_rows_f32(vs, v, b, s0, S, H, h, D, tid, kQTile);
-    __syncthreads();
-    float dot[kF32Tile], dz[kF32Tile];
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) dot[j] = dz[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d], gd = gr[d];
-#pragma unroll
-      for (int j = 0; j < kF32Tile; ++j) {
-        dot[j] = fmaf(qd, ks[j][d], dot[j]);
-        dz[j] = fmaf(gd, vs[j][d], dz[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kF32Tile; ++j) {
-      const float dl = expf(dot[j] - lse) * (dz[j] - delta);
-#pragma unroll
-      for (int c = 0; c < kF32Cols; ++c)
-        dqr[c] = fmaf(dl, ks[j][c0 + c], dqr[c]);
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < kF32Cols; ++c)
-      if (c0 + c < D) dq[row + c0 + c] = dqr[c];
-  }
 }
 
 // ===========================================================================
@@ -982,28 +813,801 @@ void launch_prep(const float* g, const float* out, const float* lse,
       g, out, lse, g_b, st, L, H, BH, rows, D, lse_scale);
 }
 
+// ===========================================================================
+// f32 mode: three-pass TF32 on wgmma
+// ===========================================================================
+
+// Every f32-mode image (below) has its rows, or its columns, padded with
+// zeros to a multiple of this.
+constexpr int kImgRows = 64;
+
+__host__ __device__ __forceinline__ int image_rows(int n) {
+  return (n + kImgRows - 1) / kImgRows * kImgRows;
+}
+
+// The TF32 value nearest x (ties away from zero, as cvt.rna.tf32.f32): the
+// low 13 of the 23 fraction bits cleared after adding half of the last
+// bit kept.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small in TF32 values, both rounded: the products big big, big
+// small and small big keep about 21 of x's 24 bits, small small (dropped)
+// is 2^-22 of the product.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Position p (0..7) in a group of 8 of a transposed image holds row
+// kperm(p) of the group.  A product whose A comes from an accumulator
+// (the probabilities, dl) finds columns 2t and 2t + 1 of each group of 8
+// in thread t's registers, where the TF32 A fragment wants columns t and
+// t + 4: so K is permuted in B instead of moving registers, and register
+// r of the fragment is accumulator element 2 (r & 1) + (r >> 1).
+__host__ __device__ __forceinline__ int kperm(int p) {
+  return 2 * (p & 3) + (p >> 2);
+}
+
+// One source array of a split launch and the images it fills: `rows`
+// (big rows, then the small rows one image on) of the (B, H, n padded,
+// kD) layout, and/or `cols`, its transpose (B, H, kD, n padded) in kperm
+// order, big then small.  Columns past D and rows past n are zeros.
+struct SplitJob {
+  const float* src;   // (B, n, H, D)
+  float* rows;
+  float* cols;
+  int n;
+};
+struct SplitJobs {
+  SplitJob job[4];
+};
+
+// One block per 64 rows of one (batch, head) of one job (blockIdx.z).
+template <int kD>
+__global__ void __launch_bounds__(256)
+attention_split_tf32(SplitJobs jobs, int B, int H, int D) {
+  const int z = blockIdx.z;
+  const SplitJob jb = z == 0 ? jobs.job[0] : z == 1 ? jobs.job[1]
+                    : z == 2 ? jobs.job[2] : jobs.job[3];
+  const int np = image_rows(jb.n), n0 = blockIdx.x * kImgRows;
+  if (n0 >= np) return;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const size_t img = (size_t)B * H * np * kD;
+  __shared__ float x[kImgRows][kD + 1];
+  for (int i = threadIdx.x; i < kImgRows * kD; i += 256) {
+    const int r = i / kD, c = i % kD, n = n0 + r;
+    const float v = n < jb.n && c < D
+                        ? jb.src[(((size_t)b * jb.n + n) * H + h) * D + c]
+                        : 0.f;
+    x[r][c] = v;
+    if (jb.rows != nullptr) {
+      uint32_t big, small;
+      tf32_split(v, big, small);
+      const size_t o = ((size_t)bh * np + n) * kD + c;
+      jb.rows[o] = __uint_as_float(big);
+      jb.rows[img + o] = __uint_as_float(small);
+    }
+  }
+  if (jb.cols == nullptr) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < kImgRows * kD; i += 256) {
+    const int d = i / kImgRows, p = i % kImgRows;
+    uint32_t big, small;
+    tf32_split(x[(p & ~7) | kperm(p & 7)][d], big, small);
+    const size_t o = ((size_t)bh * kD + d) * np + n0 + p;
+    jb.cols[o] = __uint_as_float(big);
+    jb.cols[img + o] = __uint_as_float(small);
+  }
+}
+
+// R rows of RB bytes of f32 in shared memory, K-major for wgmma (a k8 step
+// is 32 bytes of every row): rows of min(RB, 128) bytes in that swizzle, an
+// RB-byte row spread over RB / 128 blocks of R such rows.
+template <int R, int RB>
+struct F32Tile {
+  static constexpr int kAtomB = RB < 128 ? RB : 128;
+  static constexpr int kChunks = kAtomB / 16;        // 16-byte chunks an atom row
+  static constexpr int kBlockB = R * kAtomB;
+  static constexpr int kBytes = R * RB;
+  static constexpr uint64_t kSwizzle = kAtomB == 128 ? 1 : kAtomB == 64 ? 2 : 3;
+  static constexpr int kCopies = R * RB / 16 / kThreads;   // a thread's, a tile
+  static_assert(RB % kAtomB == 0 && kAtomB >= 32 && R % 8 == 0 &&
+                    R * RB % (16 * kThreads) == 0,
+                "F32Tile");
+
+  // Byte offset of 16-byte chunk c of row r.
+  static __device__ __forceinline__ uint32_t off(int r, int c) {
+    const int cc = c % kChunks;
+    return (uint32_t)((c / kChunks) * kBlockB + r * kAtomB +
+                      ((cc ^ ((r * kAtomB >> 7) & (kChunks - 1))) << 4));
+  }
+
+  // Descriptor: start address, stride byte offset eight rows on.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+           ((uint64_t)(8 * kAtomB >> 4) << 32) | (kSwizzle << 62);
+  }
+
+  // Descriptor offset (16-byte units) of k8 step s: 32 bytes of a row.
+  static __device__ __forceinline__ uint32_t step(int s) {
+    return (uint32_t)(((s / (kAtomB / 32)) * kBlockB +
+                       (s % (kAtomB / 32)) * 32) >> 4);
+  }
+
+  // R rows of src, row_bytes apart, -> the tile at dst (cp.async).
+  static __device__ __forceinline__ void load(uint32_t dst, const char* src,
+                                              uint32_t row_bytes, int tid) {
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int idx = tid + i * kThreads, r = idx / (RB / 16),
+                c = idx % (RB / 16);
+      cp_async16(dst + off(r, c), src + r * row_bytes + c * 16, true);
+    }
+  }
+};
+
+// big and small of the A fragments of a k8 step from accumulator elements
+// c[0..3] (see kperm).
+__device__ __forceinline__ void split_frag(uint32_t (&big)[4],
+                                           uint32_t (&small)[4],
+                                           const float* c) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) tf32_split(c[2 * (r & 1) + (r >> 1)], big[r], small[r]);
+}
+
+// acc (64 x N) = the 64 rows of A tile `a` times the N rows of B tile `b`
+// transposed, over 8 kSteps columns: three products a k8 step (small
+// big, big small, big big); each tile holds its big image, then its small
+// one.
+template <typename TA, typename TB, int N, int kSteps>
+__device__ __forceinline__ void rows_times_rows_tf32(float* acc, uint32_t a,
+                                                     uint32_t b) {
+  const uint64_t ab = TA::desc(a), as = TA::desc(a + TA::kBytes);
+  const uint64_t bb = TB::desc(b), bs = TB::desc(b + TB::kBytes);
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const uint32_t x = TA::step(k), y = TB::step(k);
+    wgmma_ss_tf32<N>(acc, as + x, bb + y, k > 0);
+    wgmma_ss_tf32<N>(acc, ab + x, bs + y, 1);
+    wgmma_ss_tf32<N>(acc, ab + x, bb + y, 1);
+  }
+}
+
+// acc (64 x N) = P (64 x 8 kSteps: the accumulator p, split into big and
+// small fragments) times the kSteps k8 steps of B tile `b` (N rows, big
+// image then small).
+template <typename TB, int N, int kSteps>
+__device__ __forceinline__ void probs_times_rows_tf32(
+    float* acc, const uint32_t (&pb)[kSteps][4], const uint32_t (&ps)[kSteps][4],
+    uint32_t b) {
+  const uint64_t bb = TB::desc(b), bs = TB::desc(b + TB::kBytes);
+#pragma unroll
+  for (int k = 0; k < kSteps; ++k) {
+    const uint32_t y = TB::step(k);
+    wgmma_rs_tf32<N>(acc, ps[k], bb + y, k > 0);
+    wgmma_rs_tf32<N>(acc, pb[k], bs + y, 1);
+    wgmma_rs_tf32<N>(acc, pb[k], bb + y, 1);
+  }
+}
+
+template <int kT, int N>
+__device__ __forceinline__ void split_probs(uint32_t (&pb)[kT / 8][4],
+                                           uint32_t (&ps)[kT / 8][4],
+                                           const float (&p)[N]) {
+  static_assert(N == kT / 2, "split_probs");
+#pragma unroll
+  for (int k = 0; k < kT / 8; ++k) split_frag(pb[k], ps[k], p + 4 * k);
+}
+
+// The loop's tiles come through a ring of kSt stages, one copy group a
+// tile, kSt - 1 tiles ahead.  With one stage (kSt = 1) a tile is two copy
+// groups, its rows (the logits' B) and its transposed part (the output
+// product's B): the next tile's rows load while this tile's softmax and
+// output product run, its transposed part while the next logits do.
+//
+// Top of loop trip j: tile j's rows have landed (kSt > 1: all of tile j)
+// and every warp is done with the stage they land in.
+template <int kSt>
+__device__ __forceinline__ void tile_landed() {
+  cp_async_wait<(kSt > 1 ? kSt - 2 : 1)>();
+  fence_async();
+  __syncthreads();
+}
+
+// One stage, after the logits of tile j: the next tile's rows.
+template <int kSt, typename Load>
+__device__ __forceinline__ void next_rows(const Load& load_rows, int j,
+                                          int tiles) {
+  if constexpr (kSt == 1) {
+    __syncthreads();
+    if (j + 1 < tiles) load_rows(j + 1);
+    cp_async_commit();
+  }
+}
+
+// One stage, before the output product of tile j: its transposed part
+// has landed.
+template <int kSt>
+__device__ __forceinline__ void cols_landed() {
+  if constexpr (kSt == 1) {
+    cp_async_wait<1>();
+    fence_async();
+    __syncthreads();
+  }
+}
+
+// One stage, after the output product of tile j: the next tile's
+// transposed part.
+template <int kSt, typename Load>
+__device__ __forceinline__ void next_cols(const Load& load_cols, int j,
+                                          int tiles) {
+  if constexpr (kSt == 1) {
+    __syncthreads();
+    if (j + 1 < tiles) load_cols(j + 1);
+    cp_async_commit();
+  }
+}
+
+// Tiles 0 .. kSt - 2 (kSt = 1: tile 0's two groups).
+template <int kSt, typename Rows, typename Cols>
+__device__ __forceinline__ void first_tiles(const Rows& load_rows,
+                                            const Cols& load_cols,
+                                            int tiles) {
+  if constexpr (kSt == 1) {
+    load_rows(0);
+    cp_async_commit();
+    load_cols(0);
+    cp_async_commit();
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSt - 1; ++j) {
+      if (j < tiles) {
+        load_rows(j);
+        load_cols(j);
+      }
+      cp_async_commit();
+    }
+  }
+}
+
+// Ring of kSt > 1 stages, top of loop trip j: tile j + kSt - 1.
+template <int kSt, typename Rows, typename Cols>
+__device__ __forceinline__ void next_stage(const Rows& load_rows,
+                                           const Cols& load_cols, int j,
+                                           int tiles) {
+  if constexpr (kSt > 1) {
+    if (j + kSt - 1 < tiles) {
+      load_rows(j + kSt - 1);
+      load_cols(j + kSt - 1);
+    }
+    cp_async_commit();
+  }
+}
+
+// Forward: one block (a warpgroup) per 64 queries of one (batch, head),
+// over tiles of kT keys in a ring of kSt stages.
+template <int kD, int kT, int kSt>
+struct Tf32Fwd {
+  using A = F32Tile<64, 4 * kD>;     // q rows: A of the logits
+  using K = F32Tile<kT, 4 * kD>;     // key rows: B of the logits (N = kT)
+  using V = F32Tile<kD, 4 * kT>;     // v^T: B of the output (N = kD)
+  static constexpr int kStage = 2 * (K::kBytes + V::kBytes);
+  static constexpr int kSmem = 2 * A::kBytes + kSt * kStage + 1024;
+};
+
+// qi, ki: the q and k row images, vti: the v^T image (big, then small).
+template <int kD, int kT, int kSt>
+__global__ void __launch_bounds__(kThreads)
+attention_tf32_kernel(const float* __restrict__ qi, const float* __restrict__ ki,
+                      const float* __restrict__ vti, float* __restrict__ out,
+                      float* __restrict__ lse, int B, int L, int S, int H,
+                      int D) {
+  using C = Tf32Fwd<kD, kT, kSt>;
+  using A = typename C::A;
+  using K = typename C::K;
+  using V = typename C::V;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * 64 + warp * 16;
+  const int Lp = image_rows(L), Sp = image_rows(S);
+  const size_t q_img = (size_t)B * H * Lp * kD * 4,   // bytes of an image
+      k_img = (size_t)B * H * Sp * kD * 4;
+  const uint32_t a0 = ring_base(), st0 = a0 + 2 * A::kBytes;
+  const char* qp = reinterpret_cast<const char*>(
+      qi + ((size_t)bh * Lp + blockIdx.x * 64) * kD);
+  const char* kp = reinterpret_cast<const char*>(ki + (size_t)bh * Sp * kD);
+  const char* vp = reinterpret_cast<const char*>(vti + (size_t)bh * kD * Sp);
+  const int tiles = (S + kT - 1) / kT;
+  auto load_rows = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    const char* kj = kp + (size_t)j * K::kBytes;
+    K::load(s, kj, 4 * kD, tid);
+    K::load(s + K::kBytes, kj + k_img, 4 * kD, tid);
+  };
+  auto load_cols = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage + 2 * K::kBytes;
+    const char* vj = vp + (size_t)j * kT * 4;
+    V::load(s, vj, Sp * 4, tid);
+    V::load(s + V::kBytes, vj + k_img, Sp * 4, tid);
+  };
+  A::load(a0, qp, 4 * kD, tid);
+  A::load(a0 + A::kBytes, qp + q_img, 4 * kD, tid);
+  first_tiles<kSt>(load_rows, load_cols, tiles);
+
+  // Rows gq (index 0) and gq + 8 (1) of this warp's 16: the integer
+  // reference r, the sum of e' = 2^(x - r) and of e' v, in units of 2^r.
+  // Each tile's e' v is formed in its own accumulator and added here in
+  // f32 (the tensor cores' accumulation truncates: over thousands of keys
+  // in one accumulator that would show).
+  float o[kD / 2], r[2] = {-1e30f, -1e30f}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < tiles; ++j) {
+    tile_landed<kSt>();
+    next_stage<kSt>(load_rows, load_cols, j, tiles);
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    float sc[kT / 2];
+    wgmma_fence();
+    rows_times_rows_tf32<A, K, kT, kD / 8>(sc, a0, s);
+    products_done();
+    keep(sc);
+    next_rows<kSt>(load_rows, j, tiles);
+    if (j == tiles - 1 && (S % kT) != 0) {
+#pragma unroll
+      for (int i = 0; i < kT / 2; ++i)
+        if (j * kT + 8 * (i >> 2) + 2 * t + (i & 1) >= S) sc[i] = -INFINITY;
+    }
+    float m4[4] = {sc[0], sc[1], sc[2], sc[3]};
+#pragma unroll
+    for (int i = 4; i < kT / 2; ++i) m4[i & 3] = fmaxf(m4[i & 3], sc[i]);
+    float mx[2] = {fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3])};
+    float scale[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      const float rn = fmaxf(r[i], ceilf(mx[i] * kLog2e));
+      // 2^(r - rn), exact; 0 below 2^-126 (and on the first tile).
+      const float d = fmaxf(r[i] - rn, -127.f);
+      scale[i] = __int_as_float((int)(d + 127.f) << 23);
+      r[i] = rn;
+      lsum[i] *= scale[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kT / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], kLog2e, -r[(i >> 1) & 1]));
+      lsum[(i >> 1) & 1] += sc[i];
+    }
+    uint32_t pb[kT / 8][4], ps[kT / 8][4];
+    split_probs<kT>(pb, ps, sc);
+    float ot[kD / 2];
+    cols_landed<kSt>();
+    wgmma_fence();
+    probs_times_rows_tf32<V, kD, kT / 8>(ot, pb, ps, s + 2 * K::kBytes);
+    products_done();
+    keep(ot);
+    keep(pb);
+    keep(ps);
+    next_cols<kSt>(load_cols, j, tiles);
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = fmaf(o[i], scale[(i >> 1) & 1], ot[i]);
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] += __shfl_xor_sync(kFull, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(kFull, lsum[i], 2);
+    inv[i] = 1.f / lsum[i];
+  }
+  store_rows_f32<kD>(out, o, inv, b, row0, L, H, h, D, lane);
+  if (lse != nullptr && t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + gq + 8 * i;
+      if (row < L) lse[(size_t)bh * L + row] = (r[i] + log2f(lsum[i])) * kLn2;
+    }
+  }
+}
+
+// dQ: one block per 64 queries, over tiles of kT keys.
+template <int kD, int kT, int kSt>
+struct Tf32Dq {
+  using A = F32Tile<64, 4 * kD>;     // q, g rows
+  using K = F32Tile<kT, 4 * kD>;     // key, value rows (N = kT)
+  using Kt = F32Tile<kD, 4 * kT>;    // k^T (N = kD)
+  static constexpr int kStage = 4 * K::kBytes + 2 * Kt::kBytes;
+  static constexpr int kSmem = 4 * A::kBytes + kSt * kStage + 1024;
+};
+
+template <int kD, int kT, int kSt>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_tf32(const float* __restrict__ qi, const float* __restrict__ gi,
+                 const float* __restrict__ ki, const float* __restrict__ vi,
+                 const float* __restrict__ kti, const float* __restrict__ stats,
+                 float* __restrict__ dq, int B, int L, int S, int H, int D) {
+  using C = Tf32Dq<kD, kT, kSt>;
+  using A = typename C::A;
+  using K = typename C::K;
+  using Kt = typename C::Kt;
+  const int BH = B * H, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * 64 + warp * 16;
+  const int Lp = image_rows(L), Sp = image_rows(S);
+  const size_t q_img = (size_t)BH * Lp * kD * 4, k_img = (size_t)BH * Sp * kD * 4;
+  const uint32_t a0 = ring_base(), st0 = a0 + 4 * A::kBytes;
+  const size_t qrow = ((size_t)bh * Lp + blockIdx.x * 64) * kD;
+  const char* qp = reinterpret_cast<const char*>(qi + qrow);
+  const char* gp = reinterpret_cast<const char*>(gi + qrow);
+  const char* kp = reinterpret_cast<const char*>(ki + (size_t)bh * Sp * kD);
+  const char* vp = reinterpret_cast<const char*>(vi + (size_t)bh * Sp * kD);
+  const char* ktp = reinterpret_cast<const char*>(kti + (size_t)bh * kD * Sp);
+  const int tiles = (S + kT - 1) / kT;
+  auto load_rows = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    const size_t r = (size_t)j * K::kBytes;
+    K::load(s, kp + r, 4 * kD, tid);
+    K::load(s + K::kBytes, kp + r + k_img, 4 * kD, tid);
+    K::load(s + 2 * K::kBytes, vp + r, 4 * kD, tid);
+    K::load(s + 3 * K::kBytes, vp + r + k_img, 4 * kD, tid);
+  };
+  auto load_cols = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage + 4 * K::kBytes;
+    const size_t c = (size_t)j * kT * 4;
+    Kt::load(s, ktp + c, Sp * 4, tid);
+    Kt::load(s + Kt::kBytes, ktp + c + k_img, Sp * 4, tid);
+  };
+  A::load(a0, qp, 4 * kD, tid);
+  A::load(a0 + A::kBytes, qp + q_img, 4 * kD, tid);
+  A::load(a0 + 2 * A::kBytes, gp, 4 * kD, tid);
+  A::load(a0 + 3 * A::kBytes, gp + q_img, 4 * kD, tid);
+  first_tiles<kSt>(load_rows, load_cols, tiles);
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int l = row0 + gq + 8 * i;
+    const size_t row = (size_t)bh * L + l;
+    lse2[i] = l < L ? stats[row] : 0.f;
+    delta[i] = l < L ? stats[(size_t)BH * L + row] : 0.f;
+  }
+  float dqo[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dqo[i] = 0.f;
+
+  for (int j = 0; j < tiles; ++j) {
+    tile_landed<kSt>();
+    next_stage<kSt>(load_rows, load_cols, j, tiles);
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    float sc[kT / 2], dz[kT / 2];
+    wgmma_fence();
+    rows_times_rows_tf32<A, K, kT, kD / 8>(sc, a0, s);
+    rows_times_rows_tf32<A, K, kT, kD / 8>(dz, a0 + 2 * A::kBytes,
+                                           s + 2 * K::kBytes);
+    products_done();
+    keep(sc);
+    keep(dz);
+    next_rows<kSt>(load_rows, j, tiles);
+#pragma unroll
+    for (int i = 0; i < kT / 2; ++i) {
+      const float z = ex2(fmaf(sc[i], kLog2e, -lse2[(i >> 1) & 1]));
+      dz[i] = z * (dz[i] - delta[(i >> 1) & 1]);             // dl
+    }
+    // Keys past S: k = v = 0 in the images, so dl times k adds nothing,
+    // but z (and so dl) may overflow there.
+    if (j == tiles - 1 && (S % kT) != 0) {
+#pragma unroll
+      for (int i = 0; i < kT / 2; ++i)
+        if (j * kT + 8 * (i >> 2) + 2 * t + (i & 1) >= S) dz[i] = 0.f;
+    }
+    uint32_t pb[kT / 8][4], ps[kT / 8][4];
+    split_probs<kT>(pb, ps, dz);
+    float dqt[kD / 2];
+    cols_landed<kSt>();
+    wgmma_fence();
+    probs_times_rows_tf32<Kt, kD, kT / 8>(dqt, pb, ps, s + 4 * K::kBytes);
+    products_done();
+    keep(dqt);
+    keep(pb);
+    keep(ps);
+    next_cols<kSt>(load_cols, j, tiles);
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) dqo[i] += dqt[i];
+  }
+  const float one[2] = {1.f, 1.f};
+  store_rows_f32<kD>(dq, dqo, one, b, row0, L, H, h, D, lane);
+}
+
+// dK, dV: one block per 64 keys, over tiles of kT queries, whose lse and
+// delta ride along in the stage.  kD >= 64: two launches, dV and then dK
+// (each gradient keeps a tile accumulator beside its sum).
+template <int kD, int kT, int kSt, int kPass>
+struct Tf32Dkdv {
+  static constexpr bool kDk = kPass != kDvOnly, kDv = kPass != kDkOnly;
+  using A = F32Tile<64, 4 * kD>;     // k (and v) rows of the block's keys
+  using Q = F32Tile<kT, 4 * kD>;     // q (and g) rows (N = kT)
+  using Qt = F32Tile<kD, 4 * kT>;    // q^T, g^T (N = kD)
+  // A stage: q rows, [g rows, q^T] (dK), [g^T] (dV), big and small each.
+  static constexpr int kG = 2 * Q::kBytes, kQt = kG + (kDk ? 2 * Q::kBytes : 0),
+                       kGt = kQt + (kDk ? 2 * Qt::kBytes : 0),
+                       kStage = kGt + (kDv ? 2 * Qt::kBytes : 0);
+  static constexpr int kSmem = (kDk ? 4 : 2) * A::kBytes + kSt * kStage + 1024;
+};
+
+template <int kD, int kT, int kSt, int kPass>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_tf32(const float* __restrict__ ki, const float* __restrict__ vi,
+                   const float* __restrict__ qi, const float* __restrict__ gi,
+                   const float* __restrict__ qti, const float* __restrict__ gti,
+                   const float* __restrict__ stats, float* __restrict__ dk,
+                   float* __restrict__ dv, int B, int L, int S, int H, int D) {
+  using C = Tf32Dkdv<kD, kT, kSt, kPass>;
+  using A = typename C::A;
+  using Q = typename C::Q;
+  using Qt = typename C::Qt;
+  constexpr bool kDk = C::kDk, kDv = C::kDv;
+  // The tiles' lse and delta ride with their rows: one stage still keeps
+  // two (the next tile's arrive during this one's softmax).
+  constexpr int kStats = kSt > 1 ? kSt : 2;
+  __shared__ __align__(16) float rowstat[kStats][2][kT];
+  const int BH = B * H, bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * 64 + warp * 16;      // this warp's keys
+  const int Lp = image_rows(L), Sp = image_rows(S);
+  const size_t q_img = (size_t)BH * Lp * kD * 4, k_img = (size_t)BH * Sp * kD * 4;
+  const uint32_t a0 = ring_base(), st0 = a0 + (kDk ? 4 : 2) * A::kBytes;
+  const uint32_t stat0 = smem_u32(rowstat);
+  const size_t krow = ((size_t)bh * Sp + blockIdx.x * 64) * kD;
+  const char* kp = reinterpret_cast<const char*>(ki + krow);
+  const char* vp = reinterpret_cast<const char*>(vi + krow);
+  const char* qp = reinterpret_cast<const char*>(qi + (size_t)bh * Lp * kD);
+  const char* gp = reinterpret_cast<const char*>(gi + (size_t)bh * Lp * kD);
+  const char* qtp = reinterpret_cast<const char*>(qti + (size_t)bh * kD * Lp);
+  const char* gtp = reinterpret_cast<const char*>(gti + (size_t)bh * kD * Lp);
+  // Threads 0 .. kT - 1 bring the tile's lse, kT .. 2 kT - 1 its delta.
+  const float* stat_src = stats + (size_t)(tid / kT) * BH * L + (size_t)bh * L;
+  const int tiles = (L + kT - 1) / kT;
+  auto load_rows = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    const size_t r = (size_t)j * Q::kBytes;
+    Q::load(s, qp + r, 4 * kD, tid);
+    Q::load(s + Q::kBytes, qp + r + q_img, 4 * kD, tid);
+    if constexpr (kDk) {
+      Q::load(s + C::kG, gp + r, 4 * kD, tid);
+      Q::load(s + C::kG + Q::kBytes, gp + r + q_img, 4 * kD, tid);
+    }
+    if (tid < 2 * kT) {
+      const int l = j * kT + tid % kT;
+      cp_async4(stat0 + (uint32_t)((j % kStats) * 2 * kT + tid) * 4,
+                stat_src + (l < L ? l : 0), l < L);
+    }
+  };
+  auto load_cols = [&](int j) {
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    const size_t c = (size_t)j * kT * 4;
+    if constexpr (kDk) {
+      Qt::load(s + C::kQt, qtp + c, Lp * 4, tid);
+      Qt::load(s + C::kQt + Qt::kBytes, qtp + c + q_img, Lp * 4, tid);
+    }
+    if constexpr (kDv) {
+      Qt::load(s + C::kGt, gtp + c, Lp * 4, tid);
+      Qt::load(s + C::kGt + Qt::kBytes, gtp + c + q_img, Lp * 4, tid);
+    }
+  };
+  A::load(a0, kp, 4 * kD, tid);
+  A::load(a0 + A::kBytes, kp + k_img, 4 * kD, tid);
+  if constexpr (kDk) {
+    A::load(a0 + 2 * A::kBytes, vp, 4 * kD, tid);
+    A::load(a0 + 3 * A::kBytes, vp + k_img, 4 * kD, tid);
+  }
+  first_tiles<kSt>(load_rows, load_cols, tiles);
+  constexpr int kNk = kDk ? kD / 2 : 1, kNv = kDv ? kD / 2 : 1;
+  float dko[kNk], dvo[kNv];
+#pragma unroll
+  for (int i = 0; i < kNk; ++i) dko[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kNv; ++i) dvo[i] = 0.f;
+
+  for (int j = 0; j < tiles; ++j) {
+    tile_landed<kSt>();
+    next_stage<kSt>(load_rows, load_cols, j, tiles);
+    const int slot = j % kStats;
+    const uint32_t s = st0 + (j % kSt) * C::kStage;
+    float z[kT / 2], dz[kT / 2];
+    wgmma_fence();
+    rows_times_rows_tf32<A, Q, kT, kD / 8>(z, a0, s);
+    if constexpr (kDk)
+      rows_times_rows_tf32<A, Q, kT, kD / 8>(dz, a0 + 2 * A::kBytes, s + C::kG);
+    products_done();
+    keep(z);
+    if constexpr (kDk) keep(dz);
+    next_rows<kSt>(load_rows, j, tiles);
+    // Queries past L have q = g = 0 in the images and staged lse = delta =
+    // 0: z = 1, dl = 0, and both add nothing.
+#pragma unroll
+    for (int n = 0; n < kT / 8; ++n) {
+      const float2 ls = *reinterpret_cast<const float2*>(&rowstat[slot][0][8 * n + 2 * t]);
+      const float2 ds = *reinterpret_cast<const float2*>(&rowstat[slot][1][8 * n + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        z[i] = ex2(fmaf(z[i], kLog2e, -((e & 1) ? ls.y : ls.x)));
+        if constexpr (kDk) dz[i] = z[i] * (dz[i] - ((e & 1) ? ds.y : ds.x));  // dl^T
+      }
+    }
+    uint32_t pzb[kT / 8][4], pzs[kT / 8][4], pdb[kT / 8][4], pds[kT / 8][4];
+    if constexpr (kDv) split_probs<kT>(pzb, pzs, z);
+    if constexpr (kDk) split_probs<kT>(pdb, pds, dz);
+    float dvt[kNv], dkt[kNk];
+    cols_landed<kSt>();
+    wgmma_fence();
+    if constexpr (kDv)
+      probs_times_rows_tf32<Qt, kD, kT / 8>(dvt, pzb, pzs, s + C::kGt);
+    if constexpr (kDk)
+      probs_times_rows_tf32<Qt, kD, kT / 8>(dkt, pdb, pds, s + C::kQt);
+    products_done();
+    if constexpr (kDv) {
+      keep(dvt);
+      keep(pzb);
+      keep(pzs);
+    }
+    if constexpr (kDk) {
+      keep(dkt);
+      keep(pdb);
+      keep(pds);
+    }
+    next_cols<kSt>(load_cols, j, tiles);
+#pragma unroll
+    for (int i = 0; i < kNv; ++i)
+      if constexpr (kDv) dvo[i] += dvt[i];
+#pragma unroll
+    for (int i = 0; i < kNk; ++i)
+      if constexpr (kDk) dko[i] += dkt[i];
+  }
+  const float one[2] = {1.f, 1.f};
+  if constexpr (kDk) store_rows_f32<kD>(dk, dko, one, b, row0, S, H, h, D, lane);
+  if constexpr (kDv) store_rows_f32<kD>(dv, dvo, one, b, row0, S, H, h, D, lane);
+}
+
+// Launch an f32-mode kernel with `bytes` of dynamic shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_tf32(Kernel kern, int bytes, dim3 grid, cudaStream_t s,
+                        Args... args) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<grid, kThreads, bytes, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// Tile rows (kT) and stages (kSt) of each f32-mode launch by width, the
+// fastest measured on an H100: 64-row tiles in one split stage up to kD
+// 64 (two stages for kD 16's backward), against 32-row tiles in two
+// stages (64 rows put the logits' B beside their A in shared-memory
+// reads); at kD 128, where a block's fixed operands alone take 64 or 128
+// KB, 64-row tiles spill, and 32-row tiles run in two stages or one.
+template <int kD>
+struct Tf32Plan {
+  static constexpr int kT = kD <= 64 ? 64 : 32;       // every launch
+  static constexpr int kFwdSt = kD <= 64 ? 1 : 2, kDqSt = kD == 16 ? 2 : 1;
+  static constexpr bool kKvSplit = kD >= 64;         // dV, then dK
+  // dK/dV (kKvSplit: dV alone), then dK alone.
+  static constexpr int kKvSt = kD == 16 || kD == 128 ? 2 : 1, kDkSt = 1;
+};
+
+template <int kD>
+cudaError_t split_tf32(const SplitJobs& jobs, int n_jobs, int n_max, int B,
+                       int H, int D, cudaStream_t s) {
+  attention_split_tf32<kD><<<dim3(image_rows(n_max) / kImgRows, B * H, n_jobs),
+                             256, 0, s>>>(jobs, B, H, D);
+  return cudaGetLastError();
+}
+
+// ws: the q, k row images and the v^T image, 2 B H kD (Lp + 2 Sp) floats.
+template <int kD>
+cudaError_t forward_tf32(const float* q, const float* k, const float* v,
+                         float* out, float* lse, float* ws, int B, int L,
+                         int S, int H, int D, cudaStream_t s) {
+  using P = Tf32Plan<kD>;
+  const size_t q_img = (size_t)B * H * image_rows(L) * kD,
+               k_img = (size_t)B * H * image_rows(S) * kD;
+  float *qi = ws, *ki = qi + 2 * q_img, *vti = ki + 2 * k_img;
+  const SplitJobs jobs = {{{q, qi, nullptr, L}, {k, ki, nullptr, S},
+                           {v, nullptr, vti, S}, {nullptr, nullptr, nullptr, 0}}};
+  cudaError_t e = split_tf32<kD>(jobs, 3, L > S ? L : S, B, H, D, s);
+  if (e != cudaSuccess) return e;
+  constexpr int kT = P::kT, kSt = P::kFwdSt;
+  return launch_tf32(attention_tf32_kernel<kD, kT, kSt>,
+                     Tf32Fwd<kD, kT, kSt>::kSmem,
+                     dim3(image_rows(L) / 64, B * H), s, (const float*)qi,
+                     (const float*)ki, (const float*)vti, out, lse, B, L, S, H,
+                     D);
+}
+
+// ws: the q, g row and transposed images, the k row and transposed
+// images and the v row image, B H kD (8 Lp + 6 Sp) floats.
+template <int kD>
+cudaError_t backward_tf32(const float* q, const float* k, const float* v,
+                          const float* g, const float* st, float* dq,
+                          float* dk, float* dv, float* ws, int B, int L,
+                          int S, int H, int D, cudaStream_t s) {
+  using P = Tf32Plan<kD>;
+  const size_t q_img = (size_t)B * H * image_rows(L) * kD,
+               k_img = (size_t)B * H * image_rows(S) * kD;
+  float *qi = ws, *qti = qi + 2 * q_img, *gi = qti + 2 * q_img,
+        *gti = gi + 2 * q_img, *ki = gti + 2 * q_img, *kti = ki + 2 * k_img,
+        *vi = kti + 2 * k_img;
+  const SplitJobs jobs = {{{q, qi, qti, L}, {g, gi, gti, L}, {k, ki, kti, S},
+                           {v, vi, nullptr, S}}};
+  cudaError_t e = split_tf32<kD>(jobs, 4, L > S ? L : S, B, H, D, s);
+  if (e != cudaSuccess) return e;
+  const dim3 qgrid(image_rows(L) / 64, B * H), kgrid(image_rows(S) / 64, B * H);
+  constexpr int kT = P::kT;
+  if constexpr (P::kKvSplit) {
+    constexpr int kV = P::kKvSt, kK = P::kDkSt;
+    e = launch_tf32(attn_bwd_dkdv_tf32<kD, kT, kV, kDvOnly>,
+                    Tf32Dkdv<kD, kT, kV, kDvOnly>::kSmem, kgrid, s,
+                    (const float*)ki, (const float*)vi, (const float*)qi,
+                    (const float*)gi, (const float*)qti, (const float*)gti, st,
+                    dk, dv, B, L, S, H, D);
+    if (e != cudaSuccess) return e;
+    e = launch_tf32(attn_bwd_dkdv_tf32<kD, kT, kK, kDkOnly>,
+                    Tf32Dkdv<kD, kT, kK, kDkOnly>::kSmem, kgrid, s,
+                    (const float*)ki, (const float*)vi, (const float*)qi,
+                    (const float*)gi, (const float*)qti, (const float*)gti, st,
+                    dk, dv, B, L, S, H, D);
+  } else {
+    constexpr int kSt = P::kKvSt;
+    e = launch_tf32(attn_bwd_dkdv_tf32<kD, kT, kSt, kBoth>,
+                    Tf32Dkdv<kD, kT, kSt, kBoth>::kSmem, kgrid, s,
+                    (const float*)ki, (const float*)vi, (const float*)qi,
+                    (const float*)gi, (const float*)qti, (const float*)gti, st,
+                    dk, dv, B, L, S, H, D);
+  }
+  if (e != cudaSuccess) return e;
+  constexpr int kQSt = P::kDqSt;
+  return launch_tf32(attn_bwd_dq_tf32<kD, kT, kQSt>,
+                     Tf32Dq<kD, kT, kQSt>::kSmem, qgrid, s, (const float*)qi,
+                     (const float*)gi, (const float*)ki, (const float*)vi,
+                     (const float*)kti, st, dq, B, L, S, H, D);
+}
+
 }  // namespace
 
 // q, k, v in the operand type (bf16 != 0: bf16, else f32); out (B, L, H, D)
 // f32; lse (B * H, L) f32 or null; 1 <= D <= 128.  bf16 operands are rows
 // of W = D rounded up to a multiple of 8: given as bf16, D must be one.
-// With `cast` (bf16 mode only), q, k and v arrive as f32 (B, N, H, D) and
-// are first rounded into that workspace, laid out [q | k | v] in rows of W
+// With `cast` in bf16 mode, q, k and v arrive as f32 (B, N, H, D) and are
+// first rounded into that workspace, laid out [q | k | v] in rows of W
 // with zeros past D, by one launch; the kernel then reads the workspace.
+// The f32 mode takes f32 (B, N, H, D) q, k, v and needs `cast`: the split
+// launch's TF32 images, 2 B H kD (Lp + 2 Sp) floats (kD = kernel_width(D),
+// Lp, Sp = L, S rounded up to 64).
 extern "C" int nm_attention_forward(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     void* cast, int B, int L, int S, int H,
                                     int D, int bf16, void* stream) {
-  if (S < 1 || L < 1 || D < 1 || D > kMaxD || (cast != nullptr && !bf16) ||
+  if (S < 1 || L < 1 || D < 1 || D > kMaxD || (cast == nullptr && !bf16) ||
       (bf16 && cast == nullptr && D % 8 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16) {
-    const dim3 grid((L + kQTile - 1) / kQTile, B * H, (D + kF32Cols - 1) / kF32Cols);
-    attention_f32_kernel<<<grid, kQTile, 0, s>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out,
-        (float*)lse, L, S, H, D);
-    return (int)cudaGetLastError();
+    const float *qf = (const float*)q, *kf = (const float*)k,
+                *vf = (const float*)v;
+    float *o = (float*)out, *ls = (float*)lse, *ws = (float*)cast;
+    switch (kernel_width(D)) {
+      case 16: return (int)forward_tf32<16>(qf, kf, vf, o, ls, ws, B, L, S, H, D, s);
+      case 32: return (int)forward_tf32<32>(qf, kf, vf, o, ls, ws, B, L, S, H, D, s);
+      case 64: return (int)forward_tf32<64>(qf, kf, vf, o, ls, ws, B, L, S, H, D, s);
+      default: return (int)forward_tf32<128>(qf, kf, vf, o, ls, ws, B, L, S, H, D, s);
+    }
   }
   const __nv_bfloat16 *qp = (const __nv_bfloat16*)q,
                       *kp = (const __nv_bfloat16*)k,
@@ -1030,9 +1634,11 @@ extern "C" int nm_attention_forward(const void* q, const void* k,
 }
 
 // q, k, v in the operand type (bf16 rows of W = D rounded up to 8, as the
-// forward's workspace holds them); g, out (B, L, H, D) and lse (B * H, L)
-// f32; dq (B, L, H, D), dk / dv (B, S, H, D) f32; g_cast a (B, L, H, W)
-// bf16 workspace (bf16 mode only); stats a (2, B * H, L) f32 workspace.
+// forward's workspace holds them; f32 (B, N, H, D)); g, out (B, L, H, D)
+// and lse (B * H, L) f32; dq (B, L, H, D), dk / dv (B, S, H, D) f32;
+// g_cast a (B, L, H, W) bf16 workspace in bf16 mode, the split launch's
+// TF32 images in f32 mode (B H kD (8 Lp + 6 Sp) floats); stats a
+// (2, B * H, L) f32 workspace.
 extern "C" int nm_attention_backward(const void* q, const void* k,
                                      const void* v, const void* g,
                                      const void* out, const void* lse,
@@ -1040,7 +1646,7 @@ extern "C" int nm_attention_backward(const void* q, const void* k,
                                      void* g_cast, void* stats, int B, int L,
                                      int S, int H, int D, int bf16,
                                      void* stream) {
-  if (S < 1 || L < 1 || D < 1 || D > kMaxD || (bf16 && g_cast == nullptr))
+  if (S < 1 || L < 1 || D < 1 || D > kMaxD || g_cast == nullptr)
     return (int)cudaErrorInvalidValue;
   const int BH = B * H, rows = B * L * H;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1049,7 +1655,7 @@ extern "C" int nm_attention_backward(const void* q, const void* k,
   const float *gp = (const float*)g, *op = (const float*)out,
               *lp = (const float*)lse;
   uint2* gb = bf16 ? (uint2*)g_cast : nullptr;
-  const float lse_scale = bf16 ? kLog2e : 1.f;
+  const float lse_scale = kLog2e;
   switch (kernel_width(D)) {
     case 16: launch_prep<4>(gp, op, lp, gb, st, L, H, BH, rows, D, lse_scale, s); break;
     case 32: launch_prep<8>(gp, op, lp, gb, st, L, H, BH, rows, D, lse_scale, s); break;
@@ -1072,10 +1678,11 @@ extern "C" int nm_attention_backward(const void* q, const void* k,
   }
   const float *qp = (const float*)q, *kp = (const float*)k,
               *vp = (const float*)v;
-  const int chunks = (D + kF32Cols - 1) / kF32Cols;
-  const dim3 qgrid((L + kQTile - 1) / kQTile, BH, chunks);
-  const dim3 kgrid((S + kKTile - 1) / kKTile, BH, chunks);
-  attn_bwd_dkdv_f32<<<kgrid, kKTile, 0, s>>>(qp, kp, vp, gp, st, dkp, dvp, L, S, H, BH, D);
-  attn_bwd_dq_f32<<<qgrid, kQTile, 0, s>>>(qp, kp, vp, gp, st, dqp, L, S, H, BH, D);
-  return (int)cudaGetLastError();
+  float* ws = (float*)g_cast;
+  switch (kernel_width(D)) {
+    case 16: return (int)backward_tf32<16>(qp, kp, vp, gp, st, dqp, dkp, dvp, ws, B, L, S, H, D, s);
+    case 32: return (int)backward_tf32<32>(qp, kp, vp, gp, st, dqp, dkp, dvp, ws, B, L, S, H, D, s);
+    case 64: return (int)backward_tf32<64>(qp, kp, vp, gp, st, dqp, dkp, dvp, ws, B, L, S, H, D, s);
+    default: return (int)backward_tf32<128>(qp, kp, vp, gp, st, dqp, dkp, dvp, ws, B, L, S, H, D, s);
+  }
 }

@@ -4,8 +4,9 @@
 // cp.async and bulk copies into shared memory, mbarriers, a warpgroup's
 // named barrier, the fence to the asynchronous proxy, the 128-byte swizzle
 // and its wgmma descriptors, and
-// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators) and m64nNk32
-// (s8 operands, s32 accumulators) with A in registers or in shared memory.
+// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators), m64nNk32
+// (s8 operands, s32 accumulators) and m64nNk8 (tf32 operands, f32
+// accumulators) with A in registers or in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -427,6 +428,60 @@ __device__ __forceinline__ void wgmma_rs8(uint32_t* d, const uint32_t* a,
   }
 }
 
+// ---- tf32 x tf32 -> f32 ----
+
+// d (64 x N f32, the accumulator layout above) = or += A (64 x 8 tf32) B
+// (8 x N tf32), B K-major in shared memory (descriptor db; tf32 wgmma
+// takes no transposed operand), A K-major in shared memory (descriptor
+// da, wgmma_ss_tf32) or in four registers a thread (wgmma_rs_tf32:
+// register r holds row 16 (warp % 4) + lane / 4 (+ 8 for odd r), column
+// lane % 4 (+ 4 for r >= 2): mma.sync m16n8k8's tf32 A).  The tensor
+// cores read only the 19 high bits of each operand (they truncate): a
+// caller that wants it rounded passes it rounded.
+#define NM_TF32(n) "m64n" #n "k8.f32.tf32.tf32"
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float* d, uint64_t da, uint64_t db,
+                                              int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_ss_tf32: n16, n32, n64, n128");
+  if constexpr (N == 128)
+    NM_WGMMA(NM_TF32(128), NM_REGS64, "%64, %65, p, 1, 1", "%66",
+             NM_ACC64("+f", 0), "l"(da), "l"(db), "r"(scale_d));
+  else if constexpr (N == 64)
+    NM_WGMMA(NM_TF32(64), NM_REGS32, "%32, %33, p, 1, 1", "%34",
+             NM_ACC32("+f", 0), "l"(da), "l"(db), "r"(scale_d));
+  else if constexpr (N == 32)
+    NM_WGMMA(NM_TF32(32), NM_REGS16, "%16, %17, p, 1, 1", "%18",
+             NM_ACC16("+f", 0), "l"(da), "l"(db), "r"(scale_d));
+  else
+    NM_WGMMA(NM_TF32(16), NM_REGS8, "%8, %9, p, 1, 1", "%10",
+             NM_ACC8("+f", 0), "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_rs_tf32: n16, n32, n64, n128");
+  if constexpr (N == 128)
+    NM_WGMMA(NM_TF32(128), NM_REGS64, "{%64, %65, %66, %67}, %68, p, 1, 1",
+             "%69", NM_ACC64("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+             "r"(a[3]), "l"(db), "r"(scale_d));
+  else if constexpr (N == 64)
+    NM_WGMMA(NM_TF32(64), NM_REGS32, "{%32, %33, %34, %35}, %36, p, 1, 1",
+             "%37", NM_ACC32("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+             "r"(a[3]), "l"(db), "r"(scale_d));
+  else if constexpr (N == 32)
+    NM_WGMMA(NM_TF32(32), NM_REGS16, "{%16, %17, %18, %19}, %20, p, 1, 1",
+             "%21", NM_ACC16("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]),
+             "r"(a[3]), "l"(db), "r"(scale_d));
+  else
+    NM_WGMMA(NM_TF32(16), NM_REGS8, "{%8, %9, %10, %11}, %12, p, 1, 1", "%13",
+             NM_ACC8("+f", 0), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+             "l"(db), "r"(scale_d));
+}
+
+#undef NM_TF32
 #undef NM_WGMMA
 #undef NM_BF16
 #undef NM_S8

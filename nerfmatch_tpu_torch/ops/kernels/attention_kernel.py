@@ -24,12 +24,20 @@ then dK/dV and dQ, no statistics pass and no atomics.
 those two algorithms in plain torch, at any head_dim.
 
 The kernels take every head_dim D from 1 to 128, the JAX kernel's range:
-the bf16 mode runs at the smallest instantiated width
-:func:`kernel_head_dim` (16, 32, 64 or 128) on columns that are zero only on
-the card, and writes D columns back; D above 128 raises, as the JAX gate
-refuses it.  bf16 operands are rows of ``D`` rounded up to a multiple of 8
+both modes run at the smallest instantiated width :func:`kernel_head_dim`
+(16, 32, 64 or 128) on columns that are zero only on the card, and write D
+columns back; D above 128 raises, as the JAX gate refuses it.  bf16
+operands are rows of ``D`` rounded up to a multiple of 8
 (:func:`operand_width`): bf16 inputs of such a D go in as they are, all
 others are cast into a workspace of that width.
+
+The f32 mode (``bf16=False``) keeps f32 accuracy on the tensor cores in
+three TF32 passes: a split launch writes each operand as ``big =
+tf32(x)`` and ``small = tf32(x - big)`` (round to nearest, into a
+workspace of :func:`tf32_workspace_floats`), and every product ``A B``
+runs as ``As Bb + Ab Bs + Ab Bb``.  :func:`attention_tf32_plain` and
+:func:`attention_bwd_tf32_plain` are that arithmetic in plain torch, for
+the tests (``passes=1``: one TF32 product, which the tolerances refuse).
 """
 
 from __future__ import annotations
@@ -40,9 +48,10 @@ import torch
 
 from . import LAUNCHES, check, library, require_cuda_tensors, stream_ptr
 
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the bf16 kernels' instantiations
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instantiations
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]    # the JAX kernel's gate, head_dim <= 128
-KEY_TILE = 64                     # keys per tile of the kernels' loops
+KEY_TILE = 64                     # keys per tile of the bf16 kernels' loops
+IMAGE_ROWS = 64                   # f32 mode: image rows padded to this
 LOG2E = math.log2(math.e)
 
 
@@ -65,8 +74,43 @@ def operand_width(D: int) -> int:
     return -(-D // 8) * 8
 
 
+def tf32_workspace_floats(B, L, S, H, D, backward: bool) -> int:
+    """Floats of the f32 mode's TF32 images (``csrc/attention.cu``, big and
+    small each, rows padded to :data:`IMAGE_ROWS`, columns to
+    :func:`kernel_head_dim`): the forward's q and k rows and v transposed;
+    the backward's q, g and k rows and transposes and v rows."""
+    kD = kernel_head_dim(D)
+    Lp, Sp = (-(-n // IMAGE_ROWS) * IMAGE_ROWS for n in (L, S))
+    return B * H * kD * (8 * Lp + 6 * Sp if backward else 2 * Lp + 4 * Sp)
+
+
 def _bf16_round(t):
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def tf32_round(t):
+    """The TF32 value nearest each element (ties away from zero), by bit
+    masking: the low 13 of the 23 fraction bits cleared after adding half
+    of the last bit kept, as the kernels' ``tf32_rna``."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(t):
+    """``t = big + small`` in TF32 values, both rounded to nearest."""
+    big = tf32_round(t)
+    return big, tf32_round(t - big)
+
+
+def tf32_product(eq, a, b, passes: int = 3):
+    """``einsum(eq, a, b)`` as the f32 mode's tensor cores form it: three
+    TF32 products ``As Bb + Ab Bs + Ab Bb`` (``passes=3``), or one of the
+    rounded operands (``passes=1``).  TF32 products are exact in f32."""
+    if passes == 1:
+        return torch.einsum(eq, tf32_round(a), tf32_round(b))
+    (ab, as_), (bb, bs) = tf32_split(a), tf32_split(b)
+    return (torch.einsum(eq, as_, bb) + torch.einsum(eq, ab, bs)
+            + torch.einsum(eq, ab, bb))
 
 
 def attention_plain(qs, k, v, bf16: bool = False):
@@ -111,6 +155,46 @@ def attention_onepass_plain(qs, k, v, bf16: bool = True, tile: int = KEY_TILE):
         r = rn
     lse = (r + torch.log2(lsum)) * math.log(2.0)
     return (acc / lsum).transpose(1, 2), lse.reshape(B * H, L)
+
+
+def attention_tf32_plain(qs, k, v, passes: int = 3):
+    """The f32-mode forward kernel's arithmetic -> (out, lse): the one-pass
+    algorithm of :func:`attention_onepass_plain` with every product a
+    :func:`tf32_product`, each tile's ``e' v`` formed alone and added to
+    the running sum in f32, as the kernel does."""
+    q, k, v = (t.float() for t in (qs, k, v))
+    B, L, H, D = q.shape
+    r = torch.full((B, H, L, 1), -1e30, device=q.device)
+    lsum = torch.zeros(B, H, L, 1, device=q.device)
+    acc = torch.zeros(B, H, L, D, device=q.device)
+    for s0 in range(0, k.shape[1], KEY_TILE):
+        s = tf32_product("blhd,bshd->bhls", q, k[:, s0:s0 + KEY_TILE], passes)
+        rn = torch.maximum(r, torch.ceil(s.amax(-1, keepdim=True) * LOG2E))
+        scale = torch.exp2(torch.clamp(r - rn, min=-127.0))
+        scale = torch.where(r - rn < -126.0, torch.zeros_like(scale), scale)
+        e = torch.exp2(s * LOG2E - rn)
+        lsum = lsum * scale + e.sum(-1, keepdim=True)
+        acc = acc * scale + tf32_product("bhls,bshd->bhld", e,
+                                         v[:, s0:s0 + KEY_TILE], passes)
+        r = rn
+    lse = (r + torch.log2(lsum)) * math.log(2.0)
+    return (acc / lsum).transpose(1, 2), lse.reshape(B * H, L)
+
+
+def attention_bwd_tf32_plain(qs, k, v, g, out, lse, passes: int = 3):
+    """The f32-mode backward kernels' arithmetic -> (dq, dk, dv): the
+    formulas of :func:`attention_bwd_stats_plain` (f32) with every product
+    a :func:`tf32_product`."""
+    qs, k, v, g = (t.float() for t in (qs, k, v, g))
+    B, L, H, _ = qs.shape
+    z = torch.exp2(tf32_product("blhd,bshd->bhls", qs, k, passes) * LOG2E
+                   - lse.reshape(B, H, L, 1) * LOG2E)
+    dz = tf32_product("blhd,bshd->bhls", g, v, passes)
+    delta = (g * out).sum(-1).permute(0, 2, 1).unsqueeze(-1)
+    dl = z * (dz - delta)
+    return (tf32_product("bhls,bshd->blhd", dl, k, passes),
+            tf32_product("bhls,blhd->bshd", dl, qs, passes),
+            tf32_product("bhls,blhd->bshd", z, g, passes))
 
 
 def attention_bwd_plain(qs, k, v, g, bf16: bool = False):
@@ -200,7 +284,8 @@ def _forward_kernel(qs, k, v, bf16, want_lse):
     takes them).  In bf16 mode q, k and v are cast by one launch inside the
     same call, into one workspace of rows of :func:`operand_width` (zeros
     past D), unless all three are bf16 already at a D that is a multiple
-    of 8."""
+    of 8.  In f32 mode the split launch writes their TF32 images into a
+    workspace the same way, and the operands handed on stay f32."""
     B, L, S, H, D = _check_shapes("fused_attention", qs, k, v)
     W = operand_width(D)
     dev = qs.device
@@ -212,6 +297,9 @@ def _forward_kernel(qs, k, v, bf16, want_lse):
                            dtype=torch.bfloat16)
     else:
         qs, k, v = _operands((qs, k, v), bf16)
+        if not bf16:
+            cast = torch.empty(tf32_workspace_floats(B, L, S, H, D, False),
+                               device=dev, dtype=torch.float32)
     require_cuda_tensors("fused_attention", qs, k, v)
     out = torch.empty(B, L, H, D, device=dev, dtype=torch.float32)
     lse = (torch.empty(B * H, L, device=dev, dtype=torch.float32)
@@ -226,7 +314,7 @@ def _forward_kernel(qs, k, v, bf16, want_lse):
     LAUNCHES["attention"] += 1
     if not want_lse:
         return out, None, None
-    if cast is not None:
+    if bf16 and cast is not None:
         nq, nk = B * L * H * W, B * S * H * W
         qs = cast[:nq].view(B, L, H, W)
         k = cast[nq:nq + nk].view(B, S, H, W)
@@ -272,13 +360,15 @@ def attention_bwd(qs, k, v, g, bf16: bool = False, out=None, lse=None):
     dk = torch.empty(B, S, H, D, device=dev, dtype=torch.float32)
     dv = torch.empty_like(dk)
     g_cast = (torch.empty(B, L, H, W, device=dev, dtype=torch.bfloat16)
-              if bf16 else None)
+              if bf16 else torch.empty(
+                  tf32_workspace_floats(B, L, S, H, D, True), device=dev,
+                  dtype=torch.float32))
     stats = torch.empty(2, B * H, L, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         err = library().nm_attention_backward(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), g_cast.data_ptr() if bf16 else 0,
+            dv.data_ptr(), g_cast.data_ptr(),
             stats.data_ptr(), B, L, S, H, D, int(bf16), stream_ptr(dev))
     check(err, "attention_bwd")
     LAUNCHES["attention_bwd"] += 1
